@@ -1,0 +1,296 @@
+"""Chunked MHLA forward on head-flat [B, T, H*D] tensors through three
+hand-written CUDA kernels (counterpart of
+``mhla_tpu/kernels/mhla_chunk_pallas.py``, forward only):
+
+  K2 ``chunk_states``  S_j = k_j^T v_j                      (``csrc/mhla_chunk.cu``)
+  K3 ``mix_states``    mixed_i = sum_{j<i} Ms[i, j] S_j
+  K4 ``chunk_output``  o_i = q_i @ mixed_i + md_i * (tril(q_i k_i^T) @ v_i)
+
+The q scale ``Dk**-0.5`` is folded into the mixing matrix once, as the JAX
+entry point does (``mhla_chunk_pallas.py:1005-1013``): Ms is the scaled
+strict lower triangle rounded to the compute dtype, md the scaled diagonal
+in float32. The TPU kernels group 4 chunks into supertiles; here every
+kernel works per chunk, so K3 mixes all earlier chunks and K4 adds only the
+chunk's own term.
+
+Each wrapper runs its plain PyTorch version (``*_plain``, same function,
+same rounding points) for a CPU tensor, and launches its kernel for a CUDA
+tensor or raises. ``launches`` counts kernel launches per wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ..ops.mhla_chunk import _pad_to_chunks, prepare_mixing_matrix
+from . import _build
+
+launches = {"chunk_states": 0, "mix_states": 0, "chunk_output": 0}
+
+_TILE_N = 128  # Dv columns per block of K2 and K4 (csrc: kTileN)
+_MAX_SLOTS = 32  # chunk slots K3 holds in registers (csrc: kMaxSlots)
+_MAX_CHUNK = 64  # K4 keeps two [C, C] score tiles in 48 KB of shared memory
+
+_lib_cache: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _lib_cache
+    if _lib_cache is None:
+        lib = _build.load()
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mhla_chunk_states.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.mhla_mix_states.argtypes = [p, p, p, i, i, ctypes.c_longlong, p]
+        lib.mhla_chunk_output.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        for fn in (lib.mhla_chunk_states, lib.mhla_mix_states, lib.mhla_chunk_output):
+            fn.restype = ctypes.c_int
+        _lib_cache = lib
+    return _lib_cache
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors (plain path); None of them may be elsewhere
+    than on one CUDA device otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no kernel for device {dev}")
+    return False
+
+
+def _check(name: str, x: torch.Tensor, dtype: torch.dtype, ndim: int):
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: kernel takes {dtype}, got {x.dtype}")
+    if x.ndim != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: kernel takes contiguous tensors")
+
+
+def _raise_on_error(fn: str, err: int):
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError_t {err}")
+
+
+def _check_heads(num_heads: int, hdk: int, hdv: int) -> Tuple[int, int]:
+    if hdk % num_heads or hdv % num_heads:
+        raise ValueError(f"head-flat widths {hdk}, {hdv} not divisible by {num_heads} heads")
+    dk, dv = hdk // num_heads, hdv // num_heads
+    if dk % 16 or dv % _TILE_N:
+        raise ValueError(
+            f"kernel needs Dk % 16 == 0 and Dv % {_TILE_N} == 0, got Dk={dk}, Dv={dv}"
+        )
+    return dk, dv
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K2: per-chunk states
+# ---------------------------------------------------------------------------
+
+
+def chunk_states_plain(k4: torch.Tensor, v4: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B,N,C,H*Dk] x [B,N,C,H*Dv] -> states [B,N,H*Dk,Dv] in k's dtype,
+    accumulated in float32."""
+    b, n, c, hdk = k4.shape
+    h = num_heads
+    dk, dv = hdk // h, v4.shape[-1] // h
+    s = torch.einsum(
+        "bnchk,bnchv->bnhkv",
+        k4.reshape(b, n, c, h, dk).float(),
+        v4.reshape(b, n, c, h, dv).float(),
+    )
+    return s.to(k4.dtype).reshape(b, n, h * dk, dv).contiguous()
+
+
+def chunk_states(k4: torch.Tensor, v4: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K2 (see :func:`chunk_states_plain`)."""
+    if _on_cpu(k4, v4):
+        return chunk_states_plain(k4, v4, num_heads)
+    _check("k4", k4, torch.bfloat16, 4)
+    _check("v4", v4, torch.bfloat16, 4)
+    b, n, c, hdk = k4.shape
+    if v4.shape[:3] != k4.shape[:3]:
+        raise ValueError(f"k4 {tuple(k4.shape)} and v4 {tuple(v4.shape)} disagree")
+    if c % 16:
+        raise ValueError(f"kernel needs chunk_size % 16 == 0, got {c}")
+    dk, dv = _check_heads(num_heads, hdk, v4.shape[-1])
+    out = torch.empty(b, n, hdk, dv, dtype=k4.dtype, device=k4.device)
+    with torch.cuda.device(k4.device):
+        err = _lib().mhla_chunk_states(
+            k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
+            b * n, c, num_heads, dk, dv, _stream(k4),
+        )
+    _raise_on_error("chunk_states", err)
+    launches["chunk_states"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: strictly-lower state mixing
+# ---------------------------------------------------------------------------
+
+
+def mix_states_plain(m_strict: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
+    """mixed[b, i] = sum_j m_strict[i, j] states[b, j], float32 accumulation,
+    result in the states' dtype. m_strict: [N, N] float32 holding values
+    already rounded to the compute dtype."""
+    out = torch.einsum("ij,bjrd->bird", m_strict.float(), states4.float())
+    return out.to(states4.dtype).contiguous()
+
+
+def mix_states(m_strict: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
+    """K3 (see :func:`mix_states_plain`). The kernel reads only the strict
+    lower triangle of ``m_strict``."""
+    if _on_cpu(m_strict, states4):
+        return mix_states_plain(m_strict, states4)
+    _check("m_strict", m_strict, torch.float32, 2)
+    _check("states4", states4, torch.bfloat16, 4)
+    b, n, hdk, dv = states4.shape
+    if tuple(m_strict.shape) != (n, n):
+        raise ValueError(f"m_strict {tuple(m_strict.shape)} does not match N={n}")
+    if n > _MAX_SLOTS:
+        raise ValueError(f"kernel mixes at most {_MAX_SLOTS} chunks, got {n}")
+    r = hdk * dv
+    if r % 2:
+        raise ValueError(f"kernel needs an even state size, got {r}")
+    out = torch.empty_like(states4)
+    with torch.cuda.device(states4.device):
+        err = _lib().mhla_mix_states(
+            m_strict.data_ptr(), states4.data_ptr(), out.data_ptr(),
+            b, n, r, _stream(states4),
+        )
+    _raise_on_error("mix_states", err)
+    launches["mix_states"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: chunk output
+# ---------------------------------------------------------------------------
+
+
+def chunk_output_plain(
+    q4: torch.Tensor,
+    k4: torch.Tensor,
+    v4: torch.Tensor,
+    mixed4: torch.Tensor,
+    m_diag: torch.Tensor,
+    num_heads: int,
+) -> torch.Tensor:
+    """o_j = q_j @ mixed_j + m_diag[j] * (bf16(tril(q_j k_j^T)) @ v_j) per
+    chunk, float32 accumulation; [B,N,C,H*Dv] in q's dtype (the JAX
+    ``_core_xla``, ``mhla_chunk_pallas.py:819``)."""
+    b, n, c, hdk = q4.shape
+    h = num_heads
+    dk, dv = hdk // h, v4.shape[-1] // h
+    q5 = q4.reshape(b, n, c, h, dk).float()
+    k5 = k4.reshape(b, n, c, h, dk).float()
+    v5 = v4.reshape(b, n, c, h, dv).float()
+    o_inter = torch.einsum(
+        "bnchk,bnhkv->bnchv", q5, mixed4.reshape(b, n, h, dk, dv).float()
+    )
+    attn = torch.einsum("bnchk,bnmhk->bnhcm", q5, k5)
+    tril = torch.tril(torch.ones(c, c, device=q4.device))
+    attn = (attn * tril).to(q4.dtype).float()
+    o_intra = torch.einsum("bnhcm,bnmhv->bnchv", attn, v5)
+    o = o_inter + o_intra * m_diag.float()[None, :, None, None, None]
+    return o.to(q4.dtype).reshape(b, n, c, h * dv).contiguous()
+
+
+def chunk_output(
+    q4: torch.Tensor,
+    k4: torch.Tensor,
+    v4: torch.Tensor,
+    mixed4: torch.Tensor,
+    m_diag: torch.Tensor,
+    num_heads: int,
+) -> torch.Tensor:
+    """K4 (see :func:`chunk_output_plain`)."""
+    if _on_cpu(q4, k4, v4, mixed4, m_diag):
+        return chunk_output_plain(q4, k4, v4, mixed4, m_diag, num_heads)
+    for name, x in (("q4", q4), ("k4", k4), ("v4", v4), ("mixed4", mixed4)):
+        _check(name, x, torch.bfloat16, 4)
+    _check("m_diag", m_diag, torch.float32, 1)
+    b, n, c, hdk = q4.shape
+    dk, dv = _check_heads(num_heads, hdk, v4.shape[-1])
+    if k4.shape != q4.shape or v4.shape[:3] != q4.shape[:3]:
+        raise ValueError("q4, k4 and v4 disagree in shape")
+    if tuple(mixed4.shape) != (b, n, hdk, dv) or tuple(m_diag.shape) != (n,):
+        raise ValueError("mixed4 or m_diag does not match q4")
+    if c % 16 or c > _MAX_CHUNK:
+        raise ValueError(f"kernel needs chunk_size % 16 == 0 and <= {_MAX_CHUNK}, got {c}")
+    out = torch.empty(b, n, c, num_heads * dv, dtype=q4.dtype, device=q4.device)
+    with torch.cuda.device(q4.device):
+        err = _lib().mhla_chunk_output(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mixed4.data_ptr(),
+            m_diag.data_ptr(), out.data_ptr(),
+            b * n, n, c, num_heads, dk, dv, _stream(q4),
+        )
+    _raise_on_error("chunk_output", err)
+    launches["chunk_output"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# public op
+# ---------------------------------------------------------------------------
+
+
+def mhla_chunk_fused_flat(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mixing_matrix: torch.Tensor,
+    num_heads: int,
+    chunk_size: int = 64,
+    output_final_state: bool = False,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Chunked MHLA on head-flat q, k [B, T, H*Dk], v [B, T, H*Dv] through
+    K2 -> K3 -> K4. Semantics equal :func:`mhla_tpu_torch.ops.mhla_chunk`.
+
+    Returns (o [B, T, H*Dv] in q's dtype, states [B, H, N, Dk, Dv] float32
+    or None). The states are K2's output, rounded to the compute dtype as
+    the JAX entry returns them (``mhla_chunk_pallas.py:1079-1089``).
+    Forward only: the backward kernels are not ported yet.
+    """
+    if segment_ids is not None:
+        raise NotImplementedError("segment_ids (packed varlen) is not ported yet")
+    in_dtype = q.dtype
+    b, t, hdk = q.shape
+    h = num_heads
+    dk, dv = hdk // h, v.shape[-1] // h
+    cdt = torch.bfloat16 if in_dtype == torch.bfloat16 else torch.float32
+
+    q, k, v = (_pad_to_chunks(x, chunk_size) for x in (q, k, v))
+    n = q.shape[1] // chunk_size
+    c = chunk_size
+
+    # fold the q scale into the mixing matrix, exactly once
+    m = torch.tril(prepare_mixing_matrix(mixing_matrix, n) * dk**-0.5)
+    m_strict = torch.tril(m, diagonal=-1).to(cdt).float().contiguous()
+    m_diag = torch.diagonal(m).contiguous()
+
+    q4 = q.reshape(b, n, c, h * dk).to(cdt).contiguous()
+    k4 = k.reshape(b, n, c, h * dk).to(cdt).contiguous()
+    v4 = v.reshape(b, n, c, h * dv).to(cdt).contiguous()
+
+    states4 = chunk_states(k4, v4, h)
+    mixed4 = mix_states(m_strict, states4)
+    o4 = chunk_output(q4, k4, v4, mixed4, m_diag, h)
+    o = o4.reshape(b, n * c, h * dv)[:, :t].to(in_dtype)
+    states_out = None
+    if output_final_state:
+        states_out = states4.reshape(b, n, h, dk, dv).permute(0, 2, 1, 3, 4).float()
+    return o, states_out

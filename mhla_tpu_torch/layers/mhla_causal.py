@@ -1,0 +1,188 @@
+"""Causal MHLA attention layer, the LM attention module (counterpart of
+``mhla_tpu/layers/mhla_causal.py``).
+
+q/k/v/g projections (one concatenated matmul) with optional GQA repeat,
+feature map then rotary (K1), a learned lower-triangular chunk mixing matrix
+clamped to [1e-5, 1] * tril on every forward, the chunked op (K2-K4) for a
+prefill or the recurrent op for decode, and a per-head RMSNorm + swish
+output gate before the output projection.
+
+Waits for a later port (raises ``NotImplementedError``): short convolution,
+XPos in the layer, ``attention_mask``, ``segment_ids``, head-axis tensor
+parallelism, the ``fused_recurrent`` mode, and continuing a cache with
+more than ``chunk_size`` tokens.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..kernels import fused_fmap_rope_flat, mhla_chunk_fused_flat
+from ..ops import (
+    clamp_causal_mixing_matrix,
+    get_feature_map,
+    init_causal_mixing_matrix,
+    mhla_recurrent,
+    rotary_cos_sin,
+    state_from_chunk,
+)
+from ..ops.mhla_recurrent import MHLAState
+from .fused_dense import fused_projections
+from .norms import GatedRMSNormHeadsFlat, RMSNormHeadsFlat
+
+_FLAT_FMAPS = (None, "relu", "elu", "identity", "t2r")
+
+
+class MHLACausalState(NamedTuple):
+    recurrent: MHLAState
+
+
+class MHLACausal(nn.Module):
+    def __init__(
+        self,
+        hidden_size: int = 1024,
+        expand_k: float = 0.5,
+        expand_v: float = 1.0,
+        num_heads: int = 4,
+        num_kv_heads: Optional[int] = None,
+        feature_map: Optional[str] = "relu",
+        use_short_conv: bool = False,
+        conv_size: int = 4,
+        use_output_gate: bool = True,
+        elementwise_affine: bool = True,
+        norm_eps: float = 1e-5,
+        chunk_size: int = 64,
+        num_slots: int = 32,  # mixing-matrix size; max ctx = num_slots * chunk_size
+        mode: str = "chunk",
+        rope_base: float = 10000.0,
+        rope_scale_base: Optional[float] = None,
+        device=None,
+    ):
+        super().__init__()
+        if use_short_conv:
+            raise NotImplementedError("use_short_conv is not ported yet")
+        if rope_scale_base is not None:
+            raise NotImplementedError("XPos (rope_scale_base) is not ported yet")
+        if mode != "chunk":
+            raise NotImplementedError(f"mode={mode!r} is not ported yet")
+        self.hidden_size = hidden_size
+        self.key_dim = int(hidden_size * expand_k)
+        self.value_dim = int(hidden_size * expand_v)
+        self.num_heads = num_heads
+        self.num_kv_heads = num_kv_heads or num_heads
+        self.groups = num_heads // self.num_kv_heads
+        self.head_k_dim = self.key_dim // num_heads
+        self.head_v_dim = self.value_dim // num_heads
+        self.feature_map = feature_map
+        self.use_output_gate = use_output_gate
+        self.chunk_size = chunk_size
+        self.num_slots = num_slots
+        self.rope_base = rope_base
+
+        linear = lambda n_in, n_out: nn.Linear(n_in, n_out, bias=False, device=device)  # noqa: E731
+        self.q_proj = linear(hidden_size, self.key_dim)
+        self.k_proj = linear(hidden_size, self.key_dim // self.groups)
+        self.v_proj = linear(hidden_size, self.value_dim // self.groups)
+        if use_output_gate:
+            self.g_proj = linear(hidden_size, self.value_dim)
+        self.mixing_matrix = nn.Parameter(init_causal_mixing_matrix(num_slots, device=device))
+        norm_cls = GatedRMSNormHeadsFlat if use_output_gate else RMSNormHeadsFlat
+        norm = norm_cls(num_heads, self.head_v_dim, norm_eps, elementwise_affine, device)
+        if use_output_gate:
+            self.g_norm_swish_gate = norm
+        else:
+            self.g_norm = norm
+        self.o_proj = linear(self.value_dim, hidden_size)
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,  # [B, T, hidden]
+        state: Optional[MHLACausalState] = None,
+        use_cache: bool = False,
+        attention_mask: Optional[torch.Tensor] = None,
+        segment_ids: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Optional[MHLACausalState]]:
+        if attention_mask is not None:
+            raise NotImplementedError("attention_mask is not ported yet")
+        if segment_ids is not None:
+            raise NotImplementedError("segment_ids (packed varlen) is not ported yet")
+        b, t, _ = hidden_states.shape
+        h = self.num_heads
+        decode = state is not None
+        if decode and t > self.chunk_size:
+            raise NotImplementedError(
+                "continuing a cache with more than chunk_size tokens is not ported yet"
+            )
+
+        names = ("q_proj", "k_proj", "v_proj") + (("g_proj",) if self.use_output_gate else ())
+        projs = fused_projections(hidden_states, self, names)
+        q, k, v = projs[:3]
+        g_raw = projs[3] if self.use_output_gate else None
+
+        if self.groups > 1:
+            kv_heads = self.num_kv_heads
+            k = k @ _gqa_expand(k.shape[-1], k.shape[-1] // kv_heads, self.groups,
+                                k.dtype, k.device)
+            v = v @ _gqa_expand(v.shape[-1], v.shape[-1] // kv_heads, self.groups,
+                                v.dtype, v.device)
+
+        fm = self.feature_map if self.feature_map in _FLAT_FMAPS else None
+        if fm is None and self.feature_map is not None:
+            # head-axis maps (softmax/exp/dpfp) act on the [B, T, H, D] view
+            fmap = get_feature_map(self.feature_map)
+            q = fmap(q.unflatten(-1, (h, -1))).flatten(-2)
+            k = fmap(k.unflatten(-1, (h, -1))).flatten(-2)
+
+        # feature map + rotary after it, one fused pass (K1)
+        cos, sin = rotary_cos_sin(
+            self.num_slots * self.chunk_size, self.head_k_dim, self.rope_base, q.device
+        )
+        offset = state.recurrent.t if decode else 0
+        q = fused_fmap_rope_flat(q, cos, sin, h, fm, offset=offset)
+        k = fused_fmap_rope_flat(k, cos, sin, h, fm, offset=offset)
+
+        mixing = clamp_causal_mixing_matrix(self.mixing_matrix)
+        rec = None
+        if decode:
+            o4, rec = mhla_recurrent(
+                q.unflatten(-1, (h, -1)),
+                k.unflatten(-1, (h, -1)),
+                v.unflatten(-1, (h, -1)),
+                mixing,
+                state.recurrent,
+                chunk_size=self.chunk_size,
+            )
+            o = o4.flatten(-2)
+        else:
+            o, states = mhla_chunk_fused_flat(
+                q, k, v, mixing, num_heads=h, chunk_size=self.chunk_size,
+                output_final_state=use_cache,
+            )
+            if use_cache:
+                rec = state_from_chunk(
+                    states, t, mixing, chunk_size=self.chunk_size, num_slots=self.num_slots
+                )
+        new_state = MHLACausalState(recurrent=rec) if use_cache else None
+
+        if self.use_output_gate:
+            o = self.g_norm_swish_gate(o, g_raw)
+        else:
+            o = self.g_norm(o)
+        return self.o_proj(o), new_state
+
+
+def _gqa_expand(kv_dim: int, dh: int, groups: int, dtype, device) -> torch.Tensor:
+    """0/1 matrix [kv_dim, kv_dim*groups] mapping head-flat kv features to
+    the grouped-repeat layout ([kv0, kv0, ..., kv1, kv1, ...], the order of
+    repeating each kv head ``groups`` times on the [B, T, KVH, Dh] view)."""
+    src = torch.arange(kv_dim, device=device)
+    dst = torch.arange(kv_dim * groups, device=device)
+    src_head, src_off = src // dh, src % dh
+    dst_head, dst_off = dst // dh, dst % dh
+    return (
+        (src_head[:, None] == dst_head[None, :] // groups)
+        & (src_off[:, None] == dst_off[None, :])
+    ).to(dtype)

@@ -1,0 +1,186 @@
+"""MHLA causal language model (counterpart of ``mhla_tpu/models/gla_lm.py``,
+the ``attn_extends='mhla'`` family).
+
+Pre-norm blocks of [RMSNorm -> MHLA -> residual -> RMSNorm -> GatedMLP ->
+residual], a final RMSNorm and tied (or separate) unembedding. The
+``MHLALMConfig`` defaults are the 340M model of ``configs/mhla_340m.yaml``,
+so that model needs no yaml reader.
+
+Waits for a later port (raises ``NotImplementedError``): the softmax hybrid
+layers (``attn``), every other ``attn_extends`` family, ``attention_mask``,
+``segment_ids`` and tensor parallelism.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.nn as nn
+
+from ..layers import GatedMLP, MHLACausal, RMSNorm
+
+
+@dataclasses.dataclass
+class MHLALMConfig:
+    hidden_size: int = 1024
+    expand_k: float = 0.5
+    expand_v: float = 1.0
+    hidden_ratio: int = 4
+    intermediate_size: Optional[int] = None
+    num_hidden_layers: int = 24
+    num_heads: int = 4
+    num_kv_heads: Optional[int] = None
+    feature_map: Optional[str] = "relu"
+    attn_mode: str = "chunk"
+    use_short_conv: bool = False
+    conv_size: int = 4
+    use_output_gate: bool = True
+    hidden_act: str = "swish"
+    max_position_embeddings: int = 2048
+    elementwise_affine: bool = True
+    norm_eps: float = 1e-6
+    attn: Optional[Dict[str, Any]] = None  # hybrid softmax layers
+    vocab_size: int = 32000
+    tie_word_embeddings: bool = True
+    initializer_range: float = 0.02
+    fuse_cross_entropy: bool = True
+    use_l2warp: bool = False
+    attn_extends: str = "mhla"
+    chunk_size: int = 64
+    dtype: torch.dtype = torch.float32  # activation (compute) dtype
+    tp_mesh: Any = None
+
+    @property
+    def num_slots(self) -> int:
+        return max(1, -(-self.max_position_embeddings // self.chunk_size))
+
+    @property
+    def max_context(self) -> int:
+        """The longest prompt + decoded context the mixing matrix covers."""
+        return self.num_slots * self.chunk_size
+
+
+class MHLABlock(nn.Module):
+    def __init__(self, config: MHLALMConfig, layer_idx: int, device=None):
+        super().__init__()
+        cfg = config
+        if cfg.attn_extends != "mhla" or (
+            cfg.attn is not None and layer_idx in cfg.attn.get("layers", ())
+        ):
+            raise NotImplementedError(
+                f"only the mhla attention family is ported (layer {layer_idx}, "
+                f"attn_extends={cfg.attn_extends!r}, attn={cfg.attn!r})"
+            )
+        if cfg.tp_mesh is not None:
+            raise NotImplementedError("tensor parallelism is not ported yet")
+        self.attn_norm = RMSNorm(cfg.hidden_size, eps=cfg.norm_eps, device=device)
+        self.attn = MHLACausal(
+            hidden_size=cfg.hidden_size,
+            expand_k=cfg.expand_k,
+            expand_v=cfg.expand_v,
+            num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads,
+            feature_map=cfg.feature_map,
+            use_short_conv=cfg.use_short_conv,
+            conv_size=cfg.conv_size,
+            use_output_gate=cfg.use_output_gate,
+            elementwise_affine=cfg.elementwise_affine,
+            norm_eps=cfg.norm_eps,
+            chunk_size=cfg.chunk_size,
+            num_slots=cfg.num_slots,
+            mode=cfg.attn_mode,
+            device=device,
+        )
+        self.mlp_norm = RMSNorm(cfg.hidden_size, eps=cfg.norm_eps, device=device)
+        self.mlp = GatedMLP(
+            cfg.hidden_size, cfg.hidden_ratio, cfg.intermediate_size, device=device
+        )
+
+    def forward(self, x, state=None, use_cache=False, attention_mask=None, segment_ids=None):
+        h, new_state = self.attn(
+            self.attn_norm(x), state, use_cache, attention_mask, segment_ids
+        )
+        x = x + h
+        return x + self.mlp(self.mlp_norm(x)), new_state
+
+
+class MHLAModel(nn.Module):
+    def __init__(self, config: MHLALMConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.embeddings = nn.Embedding(config.vocab_size, config.hidden_size, device=device)
+        self.layers = nn.ModuleList(
+            MHLABlock(config, i, device=device) for i in range(config.num_hidden_layers)
+        )
+        self.norm = RMSNorm(config.hidden_size, eps=config.norm_eps, device=device)
+
+    def forward(self, input_ids, states=None, use_cache=False, attention_mask=None,
+                segment_ids=None):
+        x = self.embeddings(input_ids).to(self.config.dtype)
+        new_states = []
+        for i, layer in enumerate(self.layers):
+            x, s = layer(
+                x, states[i] if states is not None else None, use_cache,
+                attention_mask, segment_ids,
+            )
+            new_states.append(s)
+        return self.norm(x), (new_states if use_cache else None)
+
+
+class MHLAForCausalLM(nn.Module):
+    def __init__(self, config: MHLALMConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.model = MHLAModel(config, device=device)
+        if not config.tie_word_embeddings:
+            self.lm_head = nn.Linear(
+                config.hidden_size, config.vocab_size, bias=False, device=device
+            )
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,  # [B, T] int64
+        states: Optional[List[Any]] = None,
+        use_cache: bool = False,
+        attention_mask: Optional[torch.Tensor] = None,
+        segment_ids: Optional[torch.Tensor] = None,
+    ):
+        x, new_states = self.model(input_ids, states, use_cache, attention_mask, segment_ids)
+        if self.config.tie_word_embeddings:
+            logits = x @ self.model.embeddings.weight.to(x.dtype).T
+        else:
+            logits = self.lm_head(x)
+        return logits, new_states
+
+
+@torch.no_grad()
+def init_lm_params(model: MHLAForCausalLM, generator: torch.Generator) -> MHLAForCausalLM:
+    """Reference init scheme, in place: normal(initializer_range) for the
+    embedding and every Linear weight, o_proj/down_proj rescaled by
+    1/sqrt(2 * num_layers); norms stay ones and mixing matrices keep their
+    causal init. ``generator`` lives on the parameters' device."""
+    cfg = model.config
+    scale = 1.0 / math.sqrt(2 * cfg.num_hidden_layers)
+    for name, p in model.named_parameters():
+        if p.ndim == 2 and "mixing_matrix" not in name:
+            p.normal_(0.0, cfg.initializer_range, generator=generator)
+            if name.endswith(("o_proj.weight", "down_proj.weight")):
+                p.mul_(scale)
+    return model
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100
+) -> torch.Tensor:
+    """Shifted LM cross-entropy: predict token t+1 from position t."""
+    logits = logits[:, :-1].float()
+    labels = labels[:, 1:]
+    mask = labels != ignore_index
+    labels_safe = torch.where(mask, labels, 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

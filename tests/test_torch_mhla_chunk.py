@@ -1,0 +1,214 @@
+"""Port of the chunked MHLA op (K2-K4 and their plain versions) and of the
+recurrent decode op, held against the JAX package on the CPU.
+
+On the CPU the port's kernel wrappers run their plain versions; the JAX
+fused op runs its Pallas bodies in interpret mode. Inputs come from numpy
+with a fixed seed and go to both packages.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mhla_tpu.kernels.mhla_chunk_pallas import mhla_chunk_fused_flat as jax_fused_flat
+from mhla_tpu_torch.kernels import mhla_chunk as port_kernels
+from mhla_tpu_torch.utils import assert_close
+
+# the ops packages re-export functions under their modules' names
+jax_chunk_ops = importlib.import_module("mhla_tpu.ops.mhla_chunk")
+jax_rec = importlib.import_module("mhla_tpu.ops.mhla_recurrent")
+port_ops = importlib.import_module("mhla_tpu_torch.ops.mhla_chunk")
+port_rec = importlib.import_module("mhla_tpu_torch.ops.mhla_recurrent")
+
+# float32 on both sides; the sums run in other orders (XLA vs ATen
+# einsums, or per-token recurrence vs chunk matmuls), a few float32 ulp
+# of the largest partial sum: 1e-5 relative RMS, as tests/test_kernels.py
+TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _force_interpret():
+    from mhla_tpu.kernels import mhla_chunk_pallas as mod
+
+    mod.FORCE_INTERPRET = True
+    yield
+    mod.FORCE_INTERPRET = False
+
+
+def _qkv(b, t, h, dk, dv, seed=0):
+    rng = np.random.default_rng(seed)
+    q = np.maximum(rng.standard_normal((b, t, h, dk)), 0).astype(np.float32)
+    k = np.maximum(rng.standard_normal((b, t, h, dk)), 0).astype(np.float32)
+    v = rng.standard_normal((b, t, h, dv)).astype(np.float32)
+    return q, k, v
+
+
+def _mixing(n, seed=1):
+    """A clamped random causal mixing matrix [n, n] (float32 numpy)."""
+    m = np.random.default_rng(seed).uniform(0.0, 1.0, (n, n)).astype(np.float32)
+    return np.tril(np.clip(m, 1e-5, 1.0))
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))  # a writable copy
+
+
+# t = 781 spans 13 chunks: the JAX fused op pads them to 16 (4 supertiles
+# of 4 chunks), so its far, near and padding paths all run.
+def test_fused_flat_matches_jax_interpret():
+    b, t, h, d = 2, 781, 2, 128
+    q, k, v = _qkv(b, t, h, d, d)
+    m = _mixing(13)
+    flat = lambda x: x.reshape(b, t, h * d)  # noqa: E731
+    o_ref, s_ref = jax_fused_flat(
+        jnp.asarray(flat(q)), jnp.asarray(flat(k)), jnp.asarray(flat(v)), jnp.asarray(m),
+        num_heads=h, output_final_state=True,
+    )
+    o, s = port_kernels.mhla_chunk_fused_flat(
+        _t(flat(q)), _t(flat(k)), _t(flat(v)), _t(m), num_heads=h, output_final_state=True
+    )
+    assert o.shape == (b, t, h * d) and s.shape == (b, h, 13, d, d)
+    assert_close("fused flat o", np.asarray(o_ref), o, TOL)
+    assert_close("fused flat states", np.asarray(s_ref), s, TOL)
+
+
+@pytest.mark.parametrize("t", [64, 200])
+def test_ops_chunk_matches_jax(t):
+    b, h, dk, dv = 2, 3, 16, 24
+    q, k, v = _qkv(b, t, h, dk, dv)
+    m = _mixing(8)
+    o_ref, s_ref = jax_chunk_ops.mhla_chunk(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(m), output_final_state=True
+    )
+    o, s = port_ops.mhla_chunk(_t(q), _t(k), _t(v), _t(m), output_final_state=True)
+    assert_close("ops chunk o", np.asarray(o_ref), o, TOL)
+    assert_close("ops chunk states", np.asarray(s_ref), s, TOL)
+
+
+def test_kernel_entry_matches_ops_chunk():
+    """The K2-K4 decomposition (scale folded into M) equals the op's
+    definition (scale on q) in float32."""
+    b, t, h, dk, dv = 2, 200, 3, 16, 24
+    q, k, v = _qkv(b, t, h, dk, dv)
+    m = _mixing(8)
+    o_ref, s_ref = port_ops.mhla_chunk(_t(q), _t(k), _t(v), _t(m), output_final_state=True)
+    flat = lambda x: _t(x.reshape(b, t, -1))  # noqa: E731
+    o, s = port_kernels.mhla_chunk_fused_flat(
+        flat(q), flat(k), flat(v), _t(m), num_heads=h, output_final_state=True
+    )
+    assert_close("entry vs op o", o_ref.reshape(b, t, -1), o, TOL)
+    assert_close("entry vs op states", s_ref, s, TOL)
+
+
+def test_bf16_entry_within_bf16_error_of_jax():
+    """bf16 in: the port's kernel entry (plain path on the CPU) against the
+    JAX fused entry in float32 on the same values. The JAX CPU backend has
+    no bf16 x bf16 -> f32 dot, so the reference stays float32; the port
+    rounds the inputs, states, mixed states, scores and output to bf16
+    (2^-9 relative each), a few 1e-3 in all."""
+    b, t, h, d = 2, 200, 2, 128
+    q, k, v = _qkv(b, t, h, d, d)
+    m = _mixing(8)
+    tb = lambda x: _t(x.reshape(b, t, -1)).to(torch.bfloat16)  # noqa: E731
+    qb, kb, vb = tb(q), tb(k), tb(v)
+    o_ref, _ = jax_fused_flat(
+        *(jnp.asarray(x.float().numpy()) for x in (qb, kb, vb)), jnp.asarray(m), num_heads=h
+    )
+    o, _ = port_kernels.mhla_chunk_fused_flat(qb, kb, vb, _t(m), num_heads=h)
+    assert o.dtype == torch.bfloat16
+    assert_close("bf16 entry vs JAX float32", np.asarray(o_ref), o, 1e-2)
+
+
+def test_mixing_matrix_helpers_match_jax():
+    raw = np.random.default_rng(2).uniform(-0.5, 1.5, (6, 6)).astype(np.float32)
+    np.testing.assert_array_equal(
+        np.asarray(jax_chunk_ops.clamp_causal_mixing_matrix(jnp.asarray(raw))),
+        port_ops.clamp_causal_mixing_matrix(_t(raw)).numpy(),
+    )
+    np.testing.assert_array_equal(
+        np.asarray(jax_chunk_ops.init_causal_mixing_matrix(6)),
+        port_ops.init_causal_mixing_matrix(6).numpy(),
+    )
+    np.testing.assert_array_equal(
+        np.asarray(jax_chunk_ops.prepare_mixing_matrix(jnp.asarray(raw), 4)),
+        port_ops.prepare_mixing_matrix(_t(raw), 4).numpy(),
+    )
+    with pytest.raises(ValueError):
+        port_ops.prepare_mixing_matrix(_t(raw), 7)
+
+
+def test_recurrent_matches_jax():
+    b, t, h, dk, dv, c = 2, 100, 2, 16, 24, 32
+    q, k, v = _qkv(b, t, h, dk, dv)
+    m = _mixing(4)
+    o_ref, st_ref = jax_rec.mhla_recurrent(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(m), chunk_size=c
+    )
+    o, st = port_rec.mhla_recurrent(_t(q), _t(k), _t(v), _t(m), chunk_size=c)
+    assert st.t == int(st_ref.t) == t
+    assert_close("recurrent o", np.asarray(o_ref), o, TOL)
+    for name in ("states", "mixed", "s_cur"):
+        assert_close(f"recurrent {name}", np.asarray(getattr(st_ref, name)),
+                     getattr(st, name), TOL)
+
+
+@pytest.mark.parametrize("t", [96, 100])
+def test_state_from_chunk_matches_jax(t):
+    b, h, dk, dv, c = 2, 2, 16, 24, 32
+    _, k, v = _qkv(b, t, h, dk, dv)
+    m = _mixing(4)
+    _, states = jax_chunk_ops.mhla_chunk(
+        jnp.asarray(k), jnp.asarray(k), jnp.asarray(v), jnp.asarray(m),
+        chunk_size=c, output_final_state=True,
+    )
+    ref = jax_rec.state_from_chunk(states, t, jnp.asarray(m), chunk_size=c, num_slots=4)
+    st = port_rec.state_from_chunk(_t(np.asarray(states)), t, _t(m), chunk_size=c, num_slots=4)
+    assert st.t == t
+    for name in ("states", "mixed", "s_cur"):
+        assert_close(f"state_from_chunk {name}", np.asarray(getattr(ref, name)),
+                     getattr(st, name), TOL)
+
+
+def test_prefill_then_decode_equals_one_chunked_pass():
+    """Inside the port: a prefill through the kernel entry, its cache, then
+    token-by-token decode across two chunk boundaries equals one pass."""
+    b, t_pre, t, h, d, c = 2, 100, 150, 2, 32, 32
+    q, k, v = (_t(x) for x in _qkv(b, t, h, d, d))
+    m = _t(_mixing(8))
+    o_full, _ = port_ops.mhla_chunk(q, k, v, m, chunk_size=c)
+    flat = lambda x: x[:, :t_pre].reshape(b, t_pre, -1)  # noqa: E731
+    o_pre, states = port_kernels.mhla_chunk_fused_flat(
+        flat(q), flat(k), flat(v), m, num_heads=h, chunk_size=c, output_final_state=True
+    )
+    st = port_rec.state_from_chunk(states, t_pre, m, chunk_size=c)
+    outs = [o_pre.reshape(b, t_pre, h, d)]
+    for i in range(t_pre, t):
+        o_i, st = port_rec.mhla_recurrent(
+            q[:, i:i + 1], k[:, i:i + 1], v[:, i:i + 1], m, st, chunk_size=c
+        )
+        outs.append(o_i)
+    assert st.t == t
+    assert_close("prefill + decode", o_full, torch.cat(outs, dim=1), TOL)
+
+
+def test_recurrent_context_bound_raises():
+    b, h, d, c = 1, 1, 16, 16
+    m = _t(_mixing(2))
+    q, k, v = (_t(x) for x in _qkv(b, 2 * c, h, d, d))
+    _, st = port_rec.mhla_recurrent(q, k, v, m, chunk_size=c)  # fills both slots
+    with pytest.raises(ValueError, match="context bound"):
+        port_rec.mhla_recurrent(q[:, :1], k[:, :1], v[:, :1], m, st, chunk_size=c)
+
+
+def test_wrappers_raise_off_cpu_and_cuda():
+    x = torch.empty(1, 1, 64, 256, device="meta")
+    with pytest.raises(NotImplementedError):
+        port_kernels.chunk_states(x, x, 2)
+    with pytest.raises(NotImplementedError):
+        port_kernels.mhla_chunk_fused_flat(
+            torch.zeros(1, 64, 256), torch.zeros(1, 64, 256), torch.zeros(1, 64, 256),
+            torch.eye(2), num_heads=2, segment_ids=torch.zeros(1, 64, dtype=torch.int64),
+        )
