@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``mhla_tpu_torch/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, which ``ctypes`` loads. The library is built at first use into
+``nvcc`` compiles every ``csrc/*.cu`` into an object file, one process per
+source, all started together, and links them into one shared library with a
+plain C interface, which ``ctypes`` loads. The library is built at first use into
 ``mhla_tpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed by
 a hash of the sources and flags, so an edited source builds anew and an
 unchanged one loads at once. Nothing here runs at import time.
@@ -22,7 +23,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers, shared memory and spills, kept in the build log
 )
 
@@ -53,13 +54,32 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    sources = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(sources, objs)
+    ]
+    logs = [f"== {src.name}\n{p.communicate()[0]}" for src, p in zip(sources, procs)]
+    failed = [src.name for src, p in zip(sources, procs) if p.returncode != 0]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    if not failed:
+        res = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        logs.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append("link")
+    so.with_suffix(".log").write_text("\n".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return so
 

@@ -1,17 +1,24 @@
-"""Chunked MHLA forward on head-flat [B, T, H*D] tensors through three
-hand-written CUDA kernels (counterpart of
-``mhla_tpu/kernels/mhla_chunk_pallas.py``, forward only):
+"""Chunked MHLA on head-flat [B, T, H*D] tensors through six hand-written
+CUDA kernels (counterpart of ``mhla_tpu/kernels/mhla_chunk_pallas.py``):
 
-  K2 ``chunk_states``  S_j = k_j^T v_j                      (``csrc/mhla_chunk.cu``)
-  K3 ``mix_states``    mixed_i = sum_{j<i} Ms[i, j] S_j
-  K4 ``chunk_output``  o_i = q_i @ mixed_i + md_i * (tril(q_i k_i^T) @ v_i)
+  forward (``csrc/mhla_chunk.cu``)
+  K2  ``chunk_states``      S_j = k_j^T v_j
+  K3  ``mix_states``        mixed_i = sum_{j<i} Ms[i, j] S_j
+  K4  ``chunk_output``      o_i = q_i @ mixed_i + md_i * (tril(q_i k_i^T) @ v_i)
+  backward (``csrc/mhla_chunk_bwd.cu``)
+  K4b ``chunk_output_bwd``  dq, the intra-chunk dk/dv, dmixed and d md
+  K3b ``mix_states_bwd``    dS = Ms^T dmixed and dMs[i, j] = <dmixed_i, S_j>
+  K2b ``chunk_states_bwd``  dk = v dS^T + dk_intra, dv = k dS + dv_intra
 
 The q scale ``Dk**-0.5`` is folded into the mixing matrix once, as the JAX
 entry point does (``mhla_chunk_pallas.py:1005-1013``): Ms is the scaled
 strict lower triangle rounded to the compute dtype, md the scaled diagonal
 in float32. The TPU kernels group 4 chunks into supertiles; here every
 kernel works per chunk, so K3 mixes all earlier chunks and K4 adds only the
-chunk's own term.
+chunk's own term. ``_ChunkOp`` is the ``torch.autograd.Function`` around
+K2 -> K3 -> K4 with K4b -> K3b -> K2b as its backward (the JAX ``_st_path``
+custom VJP, ``mhla_chunk_pallas.py:875-950``); the scale fold, the slicing
+of M and its rounding stay ordinary autograd around it.
 
 Each wrapper runs its plain PyTorch version (``*_plain``, same function,
 same rounding points) for a CPU tensor, and launches its kernel for a CUDA
@@ -28,11 +35,15 @@ import torch
 from ..ops.mhla_chunk import _pad_to_chunks, prepare_mixing_matrix
 from . import _build
 
-launches = {"chunk_states": 0, "mix_states": 0, "chunk_output": 0}
+launches = {
+    "chunk_states": 0, "mix_states": 0, "chunk_output": 0,
+    "chunk_output_bwd": 0, "mix_states_bwd": 0, "chunk_states_bwd": 0,
+}
 
 _TILE_N = 128  # Dv columns per block of K2 and K4 (csrc: kTileN)
 _MAX_SLOTS = 32  # chunk slots K3 holds in registers (csrc: kMaxSlots)
 _MAX_CHUNK = 64  # K4 keeps two [C, C] score tiles in 48 KB of shared memory
+_SLAB = 256  # state columns per slab of K3b (csrc: kSlab)
 
 _lib_cache: Optional[ctypes.CDLL] = None
 
@@ -45,7 +56,12 @@ def _lib() -> ctypes.CDLL:
         lib.mhla_chunk_states.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.mhla_mix_states.argtypes = [p, p, p, i, i, ctypes.c_longlong, p]
         lib.mhla_chunk_output.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
-        for fn in (lib.mhla_chunk_states, lib.mhla_mix_states, lib.mhla_chunk_output):
+        lib.mhla_chunk_output_bwd.argtypes = [p] * 11 + [i] * 6 + [p]
+        lib.mhla_mix_states_bwd.argtypes = [p, p, p, p, p, i, i, ctypes.c_longlong, p]
+        lib.mhla_chunk_states_bwd.argtypes = [p] * 7 + [i] * 5 + [p]
+        for fn in (lib.mhla_chunk_states, lib.mhla_mix_states, lib.mhla_chunk_output,
+                   lib.mhla_chunk_output_bwd, lib.mhla_mix_states_bwd,
+                   lib.mhla_chunk_states_bwd):
             fn.restype = ctypes.c_int
         _lib_cache = lib
     return _lib_cache
@@ -243,6 +259,240 @@ def chunk_output(
 
 
 # ---------------------------------------------------------------------------
+# K4b: chunk output backward
+# ---------------------------------------------------------------------------
+
+
+def chunk_output_bwd_plain(
+    q4: torch.Tensor,
+    k4: torch.Tensor,
+    v4: torch.Tensor,
+    mixed4: torch.Tensor,
+    m_diag: torch.Tensor,
+    do4: torch.Tensor,
+    num_heads: int,
+) -> Tuple[torch.Tensor, ...]:
+    """Gradient of :func:`chunk_output_plain` for the output gradient do4
+    (q's dtype). With A = q k^T, P = bf16(tril A), dP = tril(dO v^T) and
+    dA = bf16(md * dP) per chunk and head, float32 accumulation:
+
+      dq = dA k + dO mixed^T,  dk_intra = dA^T q,  dv_intra = md * P^T dO,
+      dmixed = q^T dO,  d md[n] = sum over b, h of sum(dP * A).
+
+    Returns (dq4, dk_intra4, dv_intra4, dmixed4) in q's dtype and d md [N]
+    float32. dA is rounded where the JAX backward rounds it
+    (``mhla_chunk_pallas.py:680``)."""
+    b, n, c, hdk = q4.shape
+    h = num_heads
+    dk, dv = hdk // h, v4.shape[-1] // h
+    cdt = q4.dtype
+    q5 = q4.reshape(b, n, c, h, dk).float()
+    k5 = k4.reshape(b, n, c, h, dk).float()
+    v5 = v4.reshape(b, n, c, h, dv).float()
+    do5 = do4.reshape(b, n, c, h, dv).float()
+    tril = torch.tril(torch.ones(c, c, device=q4.device))
+    md = m_diag.float()[None, :, None, None, None]
+    a = torch.einsum("bnchk,bnmhk->bnhcm", q5, k5) * tril
+    p = a.to(cdt).float()
+    dp = torch.einsum("bnchv,bnmhv->bnhcm", do5, v5) * tril
+    da = (dp * md).to(cdt).float()
+    dq = torch.einsum("bnhcm,bnmhk->bnchk", da, k5) + torch.einsum(
+        "bnchv,bnhkv->bnchk", do5, mixed4.reshape(b, n, h, dk, dv).float()
+    )
+    dk_i = torch.einsum("bnhcm,bnchk->bnmhk", da, q5)
+    dv_i = torch.einsum("bnhcm,bnchv->bnmhv", p, do5) * md
+    dmixed = torch.einsum("bnchk,bnchv->bnhkv", q5, do5)
+    dmd = (dp * a).sum(dim=(0, 2, 3, 4))
+    out = lambda x, d: x.to(cdt).reshape(b, n, c, h * d).contiguous()  # noqa: E731
+    return (
+        out(dq, dk), out(dk_i, dk), out(dv_i, dv),
+        dmixed.to(cdt).reshape(b, n, h * dk, dv).contiguous(), dmd,
+    )
+
+
+def chunk_output_bwd(
+    q4: torch.Tensor,
+    k4: torch.Tensor,
+    v4: torch.Tensor,
+    mixed4: torch.Tensor,
+    m_diag: torch.Tensor,
+    do4: torch.Tensor,
+    num_heads: int,
+) -> Tuple[torch.Tensor, ...]:
+    """K4b (see :func:`chunk_output_bwd_plain`). d md sums over batch and
+    heads with float32 atomics, so its last bits change from run to run."""
+    if _on_cpu(q4, k4, v4, mixed4, m_diag, do4):
+        return chunk_output_bwd_plain(q4, k4, v4, mixed4, m_diag, do4, num_heads)
+    for name, x in (("q4", q4), ("k4", k4), ("v4", v4), ("mixed4", mixed4), ("do4", do4)):
+        _check(name, x, torch.bfloat16, 4)
+    _check("m_diag", m_diag, torch.float32, 1)
+    b, n, c, hdk = q4.shape
+    dk, dv = _check_heads(num_heads, hdk, v4.shape[-1])
+    if k4.shape != q4.shape or v4.shape[:3] != q4.shape[:3] or do4.shape != v4.shape:
+        raise ValueError("q4, k4, v4 and do4 disagree in shape")
+    if tuple(mixed4.shape) != (b, n, hdk, dv) or tuple(m_diag.shape) != (n,):
+        raise ValueError("mixed4 or m_diag does not match q4")
+    if c % 16 or c > _MAX_CHUNK:
+        raise ValueError(f"kernel needs chunk_size % 16 == 0 and <= {_MAX_CHUNK}, got {c}")
+    dq4, dk_i = torch.empty_like(q4), torch.empty_like(q4)
+    dv_i = torch.empty_like(v4)
+    dmixed4 = torch.empty_like(mixed4)
+    dmd = torch.zeros(n, dtype=torch.float32, device=q4.device)
+    with torch.cuda.device(q4.device):
+        err = _lib().mhla_chunk_output_bwd(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mixed4.data_ptr(),
+            m_diag.data_ptr(), do4.data_ptr(), dq4.data_ptr(), dk_i.data_ptr(),
+            dv_i.data_ptr(), dmixed4.data_ptr(), dmd.data_ptr(),
+            b * n, n, c, num_heads, dk, dv, _stream(q4),
+        )
+    _raise_on_error("chunk_output_bwd", err)
+    launches["chunk_output_bwd"] += 1
+    return dq4, dk_i, dv_i, dmixed4, dmd
+
+
+# ---------------------------------------------------------------------------
+# K3b: state mixing backward
+# ---------------------------------------------------------------------------
+
+
+def mix_states_bwd_plain(
+    m_strict: torch.Tensor, dmixed4: torch.Tensor, states4: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradient of :func:`mix_states_plain` for dmixed4: dstates[b, j] =
+    sum_{i>j} Ms[i, j] dmixed[b, i] in the states' dtype, and dMs[i, j] =
+    sum over b of <dmixed[b, i], states[b, j]> for i > j (zero elsewhere,
+    the strict-part mask of ``mhla_chunk_pallas.py:932-936``), float32."""
+    ms = torch.tril(m_strict.float(), diagonal=-1)
+    dstates = torch.einsum("ij,bird->bjrd", ms, dmixed4.float())
+    dms = torch.einsum("bird,bjrd->ij", dmixed4.float(), states4.float())
+    return dstates.to(states4.dtype).contiguous(), torch.tril(dms, diagonal=-1)
+
+
+def mix_states_bwd(
+    m_strict: torch.Tensor, dmixed4: torch.Tensor, states4: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3b (see :func:`mix_states_bwd_plain`). dMs sums over blocks with
+    float32 atomics, so its last bits change from run to run."""
+    if _on_cpu(m_strict, dmixed4, states4):
+        return mix_states_bwd_plain(m_strict, dmixed4, states4)
+    _check("m_strict", m_strict, torch.float32, 2)
+    _check("dmixed4", dmixed4, torch.bfloat16, 4)
+    _check("states4", states4, torch.bfloat16, 4)
+    b, n, hdk, dv = states4.shape
+    if dmixed4.shape != states4.shape or tuple(m_strict.shape) != (n, n):
+        raise ValueError("m_strict, dmixed4 and states4 disagree in shape")
+    if n > _MAX_SLOTS:
+        raise ValueError(f"kernel mixes at most {_MAX_SLOTS} chunks, got {n}")
+    r = hdk * dv
+    if r % _SLAB:
+        raise ValueError(f"kernel needs a state size divisible by {_SLAB}, got {r}")
+    dstates4 = torch.empty_like(states4)
+    dms = torch.zeros(n, n, dtype=torch.float32, device=states4.device)
+    with torch.cuda.device(states4.device):
+        err = _lib().mhla_mix_states_bwd(
+            m_strict.data_ptr(), dmixed4.data_ptr(), states4.data_ptr(),
+            dstates4.data_ptr(), dms.data_ptr(), b, n, r, _stream(states4),
+        )
+    _raise_on_error("mix_states_bwd", err)
+    launches["mix_states_bwd"] += 1
+    return dstates4, dms
+
+
+# ---------------------------------------------------------------------------
+# K2b: chunk states backward
+# ---------------------------------------------------------------------------
+
+
+def chunk_states_bwd_plain(
+    k4: torch.Tensor,
+    v4: torch.Tensor,
+    dstates4: torch.Tensor,
+    dk_intra4: torch.Tensor,
+    dv_intra4: torch.Tensor,
+    num_heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk = v dS^T + dk_intra and dv = k dS + dv_intra per chunk and head,
+    float32 accumulation, rounded once to k's dtype."""
+    b, n, c, hdk = k4.shape
+    h = num_heads
+    dk, dv = hdk // h, v4.shape[-1] // h
+    ds5 = dstates4.reshape(b, n, h, dk, dv).float()
+    gk = torch.einsum("bnchv,bnhkv->bnchk", v4.reshape(b, n, c, h, dv).float(), ds5)
+    gv = torch.einsum("bnchk,bnhkv->bnchv", k4.reshape(b, n, c, h, dk).float(), ds5)
+    gk = gk.reshape(b, n, c, hdk) + dk_intra4.float()
+    gv = gv.reshape(b, n, c, h * dv) + dv_intra4.float()
+    return gk.to(k4.dtype).contiguous(), gv.to(k4.dtype).contiguous()
+
+
+def chunk_states_bwd(
+    k4: torch.Tensor,
+    v4: torch.Tensor,
+    dstates4: torch.Tensor,
+    dk_intra4: torch.Tensor,
+    dv_intra4: torch.Tensor,
+    num_heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2b (see :func:`chunk_states_bwd_plain`)."""
+    if _on_cpu(k4, v4, dstates4, dk_intra4, dv_intra4):
+        return chunk_states_bwd_plain(k4, v4, dstates4, dk_intra4, dv_intra4, num_heads)
+    for name, x in (("k4", k4), ("v4", v4), ("dstates4", dstates4),
+                    ("dk_intra4", dk_intra4), ("dv_intra4", dv_intra4)):
+        _check(name, x, torch.bfloat16, 4)
+    b, n, c, hdk = k4.shape
+    dk, dv = _check_heads(num_heads, hdk, v4.shape[-1])
+    if v4.shape[:3] != k4.shape[:3] or dk_intra4.shape != k4.shape or dv_intra4.shape != v4.shape:
+        raise ValueError("k4, v4 and the intra gradients disagree in shape")
+    if tuple(dstates4.shape) != (b, n, hdk, dv):
+        raise ValueError("dstates4 does not match k4")
+    if c % 16:
+        raise ValueError(f"kernel needs chunk_size % 16 == 0, got {c}")
+    gk, gv = torch.empty_like(k4), torch.empty_like(v4)
+    with torch.cuda.device(k4.device):
+        err = _lib().mhla_chunk_states_bwd(
+            k4.data_ptr(), v4.data_ptr(), dstates4.data_ptr(), dk_intra4.data_ptr(),
+            dv_intra4.data_ptr(), gk.data_ptr(), gv.data_ptr(),
+            b * n, c, num_heads, dk, dv, _stream(k4),
+        )
+    _raise_on_error("chunk_states_bwd", err)
+    launches["chunk_states_bwd"] += 1
+    return gk, gv
+
+
+# ---------------------------------------------------------------------------
+# the op as one differentiable unit
+# ---------------------------------------------------------------------------
+
+
+class _ChunkOp(torch.autograd.Function):
+    """(q4, k4, v4, m_strict, m_diag) -> (o4, states4) through K2 -> K3 ->
+    K4; the backward runs K4b -> K3b -> K2b. states4 is not
+    differentiable (the decode cache). The gradient for m_strict holds the
+    strict lower triangle only, in float32; the cast of m_strict to the
+    compute dtype around this Function rounds it there, as JAX returns the
+    strict-part dM in the compute dtype (``mhla_chunk_pallas.py:945``)."""
+
+    @staticmethod
+    def forward(ctx, q4, k4, v4, m_strict, m_diag, num_heads):
+        states4 = chunk_states(k4, v4, num_heads)
+        mixed4 = mix_states(m_strict, states4)
+        o4 = chunk_output(q4, k4, v4, mixed4, m_diag, num_heads)
+        ctx.save_for_backward(q4, k4, v4, m_strict, m_diag, states4, mixed4)
+        ctx.num_heads = num_heads
+        ctx.mark_non_differentiable(states4)
+        return o4, states4
+
+    @staticmethod
+    def backward(ctx, do4, _dstates4):
+        q4, k4, v4, m_strict, m_diag, states4, mixed4 = ctx.saved_tensors
+        h = ctx.num_heads
+        do4 = do4.to(q4.dtype).contiguous()
+        dq4, dk_i, dv_i, dmixed4, dmd = chunk_output_bwd(q4, k4, v4, mixed4, m_diag, do4, h)
+        dstates4, dms = mix_states_bwd(m_strict, dmixed4, states4)
+        dk4, dv4 = chunk_states_bwd(k4, v4, dstates4, dk_i, dv_i, h)
+        return dq4, dk4, dv4, dms, dmd, None
+
+
+# ---------------------------------------------------------------------------
 # public op
 # ---------------------------------------------------------------------------
 
@@ -263,7 +513,8 @@ def mhla_chunk_fused_flat(
     Returns (o [B, T, H*Dv] in q's dtype, states [B, H, N, Dk, Dv] float32
     or None). The states are K2's output, rounded to the compute dtype as
     the JAX entry returns them (``mhla_chunk_pallas.py:1079-1089``).
-    Forward only: the backward kernels are not ported yet.
+    o is differentiable in q, k, v and ``mixing_matrix`` through K4b, K3b
+    and K2b; the states are not.
     """
     if segment_ids is not None:
         raise NotImplementedError("segment_ids (packed varlen) is not ported yet")
@@ -286,9 +537,7 @@ def mhla_chunk_fused_flat(
     k4 = k.reshape(b, n, c, h * dk).to(cdt).contiguous()
     v4 = v.reshape(b, n, c, h * dv).to(cdt).contiguous()
 
-    states4 = chunk_states(k4, v4, h)
-    mixed4 = mix_states(m_strict, states4)
-    o4 = chunk_output(q4, k4, v4, mixed4, m_diag, h)
+    o4, states4 = _ChunkOp.apply(q4, k4, v4, m_strict, m_diag, h)
     o = o4.reshape(b, n * c, h * dv)[:, :t].to(in_dtype)
     states_out = None
     if output_final_state:

@@ -1,6 +1,6 @@
 """``nn.Module`` layers of the causal MHLA LM."""
 
-from .fused_dense import fused_projections
+from .fused_dense import dense, fused_projections
 from .mhla_causal import MHLACausal, MHLACausalState
 from .mlp import GatedMLP, default_intermediate_size, swiglu
 from .norms import GatedRMSNormHeadsFlat, RMSNorm, RMSNormHeadsFlat, rms_norm
@@ -13,6 +13,7 @@ __all__ = [
     "RMSNorm",
     "RMSNormHeadsFlat",
     "default_intermediate_size",
+    "dense",
     "fused_projections",
     "rms_norm",
     "swiglu",

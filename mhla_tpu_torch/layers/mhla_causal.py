@@ -30,7 +30,7 @@ from ..ops import (
     state_from_chunk,
 )
 from ..ops.mhla_recurrent import MHLAState
-from .fused_dense import fused_projections
+from .fused_dense import dense, fused_projections
 from .norms import GatedRMSNormHeadsFlat, RMSNormHeadsFlat
 
 _FLAT_FMAPS = (None, "relu", "elu", "identity", "t2r")
@@ -171,7 +171,7 @@ class MHLACausal(nn.Module):
             o = self.g_norm_swish_gate(o, g_raw)
         else:
             o = self.g_norm(o)
-        return self.o_proj(o), new_state
+        return dense(o, self.o_proj), new_state
 
 
 def _gqa_expand(kv_dim: int, dh: int, groups: int, dtype, device) -> torch.Tensor:

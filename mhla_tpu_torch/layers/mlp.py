@@ -9,7 +9,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .fused_dense import fused_projections
+from .fused_dense import dense, fused_projections
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -34,4 +34,4 @@ class GatedMLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # gate and up as one concatenated matmul (layers/fused_dense.py)
         gate, up = fused_projections(x, self, ("gate_proj", "up_proj"))
-        return self.down_proj(swiglu(gate, up))
+        return dense(swiglu(gate, up), self.down_proj)

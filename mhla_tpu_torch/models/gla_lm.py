@@ -20,7 +20,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn as nn
 
-from ..layers import GatedMLP, MHLACausal, RMSNorm
+from ..layers import GatedMLP, MHLACausal, RMSNorm, dense
 
 
 @dataclasses.dataclass
@@ -152,7 +152,7 @@ class MHLAForCausalLM(nn.Module):
         if self.config.tie_word_embeddings:
             logits = x @ self.model.embeddings.weight.to(x.dtype).T
         else:
-            logits = self.lm_head(x)
+            logits = dense(x, self.lm_head)
         return logits, new_states
 
 

@@ -55,8 +55,18 @@ def init_causal_mixing_matrix(
 
 def clamp_causal_mixing_matrix(m: torch.Tensor, min_val: float = 1e-5) -> torch.Tensor:
     """Project the mixing matrix onto [min_val, 1] * tril (a pure function
-    of the parameter value, applied before every use)."""
-    return torch.tril(torch.clamp(m, min_val, 1.0))
+    of the parameter value, applied before every use).
+
+    When autograd records it, it is written as max/min against tensor
+    bounds so that an entry exactly on a bound gets gradient 0.5, as
+    ``jnp.clip`` gives; ``torch.clamp`` passes 1 there, and the causal init
+    (M[0, 0] = 1) and the post-step projection put entries on the bounds.
+    Without a gradient (serving, every decode token) the one ``clamp``
+    gives the same values with no bound tensors to fill."""
+    if not (torch.is_grad_enabled() and m.requires_grad):
+        return torch.tril(torch.clamp(m, min_val, 1.0))
+    lo, hi = m.new_full((), min_val), m.new_full((), 1.0)
+    return torch.tril(torch.minimum(torch.maximum(m, lo), hi))
 
 
 def mhla_chunk(

@@ -1,0 +1,109 @@
+"""Profile training steps of the causal MHLA LM on one CUDA device.
+
+    python -m mhla_tpu_torch.train.profile_step
+
+Builds what ``lm_train.main`` trains by default (the 340M model,
+``MHLALMConfig()`` widths, float32 parameters, bf16 compute, seeded init,
+B=8 T=2048 synthetic tokens) through ``lm_train.build_training``, runs
+warm-up steps, then times ``STEPS`` steps on the host clock (each ending in
+a device sync) and records one more under ``torch.profiler``. Prints the
+step time, tokens per second, the device's busy share of that step (the
+union of its kernels' intervals over the step's wall time) and the device
+time by kernel group and by kernel. Needs a CUDA device; there is no CPU
+mode.
+"""
+
+from __future__ import annotations
+
+import re
+import statistics
+import time
+from collections import defaultdict
+
+import torch
+
+from .lm_train import LMTrainConfig, build_training
+from .trainer import OptimizerConfig
+
+WARMUP, STEPS, TOP = 3, 5, 25
+
+_GROUPS = (
+    ("K1/K1b fmap_rope (Triton)", r"_fmap_rope"),
+    ("K2-K4 chunk forward (CUDA)", r"chunk_states_kernel|mix_states_kernel|chunk_output_kernel"),
+    ("K2b-K4b chunk backward (CUDA)", r"_bwd_kernel"),
+    ("GEMM (cuBLAS)", r"gemm|gemv|cutlass|xmma|nvjet|cublas|sm90_"),
+    ("optimizer (foreach)", r"multi_tensor|foreach"),
+    ("reductions", r"reduce|norm_kernel|softmax|logsumexp"),
+)
+
+
+def _group(name: str) -> str:
+    for label, pattern in _GROUPS:
+        if re.search(pattern, name):
+            return label
+    return "elementwise and copies"
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def main() -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LMTrainConfig(optimizer=OptimizerConfig(warmup_steps=1, total_steps=20000))
+    _, state, step, data = build_training(cfg)
+    dev = torch.device(cfg.device)
+    batches = [torch.from_numpy(next(data)).to(dev, torch.long)
+               for _ in range(WARMUP + STEPS + 1)]
+    for b in batches[:WARMUP]:
+        state, metrics = step(state, b)
+    torch.cuda.synchronize()
+    times = []
+    for b in batches[WARMUP: WARMUP + STEPS]:
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        float(metrics["loss"])
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[-1])
+        float(metrics["loss"])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name, by_group = defaultdict(float), defaultdict(float)
+    counts = defaultdict(int)
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_name[e.name] += us
+        by_group[_group(e.name)] += us
+        counts[e.name] += 1
+    kernel_us = sum(by_name.values())
+    busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
+    b, t, layers = cfg.train.batch_size, cfg.train.seq_len, cfg.model.num_hidden_layers
+    tokens = b * t
+    print(f"[profile] {torch.cuda.get_device_name(0)}; {layers} layers, B={b} "
+          f"T={t}: step {step_s * 1e3:.1f} ms (median of {STEPS}; "
+          f"{[round(t * 1e3, 1) for t in times]}) = {tokens / step_s:,.0f} tok/s")
+    print(f"[profile] profiled step: wall {wall_us / 1e3:.1f} ms, device kernels "
+          f"{kernel_us / 1e3:.1f} ms in {len(kernels)} launches, busy "
+          f"{busy_us / 1e3:.1f} ms = {busy_us / wall_us:.1%} of wall")
+    for label, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"[profile] group {label:32s} {us / 1e3:9.2f} ms  {us / kernel_us:6.1%}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
+        print(f"[profile] {us / 1e3:9.3f} ms  {counts[name]:5d}x  {name[:110]}")
+    return {"step_ms": step_s * 1e3, "tok_s": tokens / step_s, "busy": busy_us / wall_us,
+            "kernel_ms": kernel_us / 1e3, "groups_ms": {k: v / 1e3 for k, v in by_group.items()}}
+
+
+if __name__ == "__main__":
+    main()

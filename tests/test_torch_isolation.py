@@ -69,6 +69,11 @@ def test_launch_counters_stay_zero_on_cpu():
     model = init_lm_params(MHLAForCausalLM(cfg), torch.Generator().manual_seed(0))
     ids = torch.randint(0, cfg.vocab_size, (1, 70), generator=torch.Generator().manual_seed(2))
     generate(model, ids, max_new_tokens=3)
+    logits, _ = model(ids)
+    logits.float().sum().backward()  # the training path's backward
     counts = kernels.launch_counts()
-    assert set(counts) == {"fmap_rope", "chunk_states", "mix_states", "chunk_output"}
+    assert set(counts) == {
+        "fmap_rope", "chunk_states", "mix_states", "chunk_output",
+        "fmap_rope_bwd", "chunk_output_bwd", "mix_states_bwd", "chunk_states_bwd",
+    }
     assert all(n == 0 for n in counts.values()), counts
