@@ -35,6 +35,7 @@ The last two lines are a JSON object with every kernel's numbers and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -42,7 +43,9 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
+import numpy as np
 import torch
 
 # Relative-RMS tolerance of a kernel against its plain version, both in
@@ -51,6 +54,20 @@ import torch
 # flip a rounding by one bf16 ulp on a few elements; a half ulp is
 # 2^-9 = 1.95e-3 relative, so an RMS above it is no longer rounding.
 KERNEL_TOL = 2e-3
+# Relative-RMS tolerance of the flash-attention kernel against its plain
+# version, bf16: both round the probabilities to bf16 before the product
+# with v (the kernel its unnormalized ones relative to the running row
+# maximum of its key tiles, the plain version the normalized ones) and both
+# round the output to bf16, so their rounding errors are independent. A
+# bf16 rounding error has a relative std of about 2^-9 / sqrt(3) = 1.1e-3
+# for the probabilities, which passes undiminished into the output (a
+# signed sum of the same terms), and up to 1.7e-3 for the output itself:
+# about 2e-3 for each version against exact arithmetic and sqrt(2) times
+# that between the two (3.1e-3 measured at Tq 31,500 x Tk 512 and at 1000 x
+# 1000). The tolerance is twice that; zero-filled keys past Tk that receive
+# probability mass take 24 / 1024 of the weight at Tk = 1000 (1.4e-2) and
+# half of it at Tk = 33, the shapes the card tests add.
+FLASH_TOL = 6e-3
 # Relative-RMS tolerance of decode-step logits against one full chunked
 # forward, bf16: the chunked path rounds the chunk states, the mixed states
 # and the masked scores to bf16 (as the JAX op does) while the recurrent
@@ -71,6 +88,21 @@ SERVE_TOL = 5e-2
 # summation orders and atomics. A dropped term, a wrong transpose or a missing mask gives O(1).
 OP_GRAD_FLOOR_CPU = 5.2e-3
 OP_GRAD_TOL = 1e-2
+# Relative-RMS tolerance of the video model's velocity through K5-K9 against
+# the same forward through their plain versions, bf16 model. Each kernel
+# agrees with its plain version up to single roundings (KERNEL_TOL,
+# FLASH_TOL), but two bf16 runs of 30 layers do not stay that close: a
+# difference in the last float32 bit flips some bf16 roundings in the next
+# layer, each flip is an error of one ulp, and within a few layers the
+# distance settles at what bf16 rounding does to this model, whatever its
+# first cause (K5-K8 alone, which match their plain versions to 1.4e-5,
+# give the same 1.1e-2 as all five kernels). The measure of that level is
+# the model's bf16 forward against its float32 forward on the CPU's plain
+# paths: 1.5e-2 at 30 layers (dim 256, 2 heads, 2,400 tokens; 6.0e-3 at 2
+# layers). The tolerance is twice that; a wrong block permutation, table
+# row or mixing row gives O(1).
+VIDEO_FLOOR_CPU = 1.5e-2
+VIDEO_TOL = 3e-2
 
 SEED = 0
 PROMPT_A, NEW_A, BATCH_A = 1984, 64, 4
@@ -93,10 +125,28 @@ KERNEL_META = {
                        "mhla_tpu/kernels/mhla_chunk_pallas.py:459"),
     "chunk_states_bwd": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk_bwd.cu",
                          "mhla_tpu/kernels/mhla_chunk_pallas.py:184"),
+    "blockify_island": ("triton", "mhla_tpu_torch/kernels/mhla_block.py",
+                        "mhla_tpu/kernels/mhla_block_pallas.py:472"),
+    "mix_states_dense": ("cuda", "mhla_tpu_torch/csrc/mhla_block.cu",
+                         "mhla_tpu/kernels/mhla_block_pallas.py:51"),
+    "block_readout": ("cuda", "mhla_tpu_torch/csrc/mhla_block.cu",
+                      "mhla_tpu/kernels/mhla_block_pallas.py:100"),
+    "unblockify_island": ("triton", "mhla_tpu_torch/kernels/mhla_block.py",
+                          "mhla_tpu/kernels/mhla_block_pallas.py:672"),
+    "flash_attention": ("cuda", "mhla_tpu_torch/csrc/flash_fwd.cu",
+                        "mhla_tpu/kernels/flash_attention.py:115"),
 }
 FWD_KERNELS = ("fmap_rope", "chunk_states", "mix_states", "chunk_output")
 BWD_KERNELS = ("fmap_rope_bwd", "chunk_output_bwd", "mix_states_bwd", "chunk_states_bwd")
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 2048
+# Wan2.1-1.3B with all 30 layers MHLA (configs/wan_1300m_mhla.yaml): latents
+# 21 x 60 x 100 x 16, patch (1, 2, 2) -> 31,500 tokens in 150 blocks of 210
+VIDEO_LATENT = (21, 60, 100, 16)
+VIDEO_GRID, VIDEO_LAYOUT = (21, 30, 50), (3, 5, 10)
+VIDEO_HEADS, VIDEO_HEAD_DIM, VIDEO_TEXT_LEN, VIDEO_CFG_BATCH = 12, 128, 512, 2
+VIDEO_LAYERS, VIDEO_STEPS = 30, 4
+VIDEO_KERNELS = {"blockify_island": 3, "mix_states_dense": 1, "block_readout": 1,
+                 "unblockify_island": 1, "flash_attention": 1}  # launches per layer
 
 
 def log(msg: str) -> None:
@@ -158,28 +208,53 @@ def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def check_kernel(results: dict, name: str, shape_tag: str, kern, plain, timed: bool) -> None:
+# Published peaks of one H100 SXM (dense): device memory 3.35 TB/s, bf16 on
+# the tensor cores 989 TFLOP/s, float32 outside them 67 TFLOP/s.
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check_kernel(results: dict, name: str, shape_tag: str, kern, plain, timed: bool,
+                 work=None, library=None, tol: float = 0.0) -> None:
     """Run ``kern`` and ``plain`` once, hold every output of the kernel
-    against the plain version's (relative RMS below KERNEL_TOL), and time
-    both when ``timed``."""
+    against the plain version's (relative RMS below ``tol``, KERNEL_TOL
+    unless given), and time both when ``timed``. ``work`` = (bytes moved
+    with each input read and each output written once, operations, dtype of
+    the operations' inputs) gives the bound: the larger of bytes over the
+    card's memory rate and operations over its peak for that dtype.
+    ``library`` is one PyTorch call that computes the same function, timed
+    beside the kernel and used nowhere else."""
     from mhla_tpu_torch.utils import get_abs_err, get_err_ratio
 
+    tol = tol or KERNEL_TOL
     outs_k, outs_p = _as_tuple(kern()), _as_tuple(plain())
     torch.cuda.synchronize()
     rel = max(get_err_ratio(p, k) for p, k in zip(outs_p, outs_k))
     err = max(get_abs_err(p, k) for p, k in zip(outs_p, outs_k))
     finite = all(torch.isfinite(k.float()).all() for k in outs_k)
-    if not (finite and rel < KERNEL_TOL):
+    if not (finite and rel < tol):
         raise AssertionError(
-            f"{name} {shape_tag}: rel-RMS {rel:.3e} (tol {KERNEL_TOL}) max|d| {err:.3e}")
+            f"{name} {shape_tag}: rel-RMS {rel:.3e} (tol {tol}) max|d| {err:.3e}")
+    del outs_k, outs_p
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    msg = (f"[kernels] {name:16s} {shape_tag:18s} rel-RMS {rel:.2e} (tol {KERNEL_TOL}) "
+    msg = (f"[kernels] {name:17s} {shape_tag:18s} rel-RMS {rel:.2e} (tol {tol}) "
            f"max|d| {err:.2e}")
     if timed:
+        moved, ops, dtype = work
+        t_bytes, t_ops = moved / PEAK_BYTES * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
         ms, plain_ms = median_ms(kern), median_ms(plain)
-        r.update(ms=ms, plain_ms=plain_ms)
-        msg += f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+        r.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 library_ms=median_ms(library) if library is not None else None)
+        msg += (f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+        if library is not None:
+            msg += f"  library {r['library_ms']:.4f} ms"
     log(msg)
 
 
@@ -203,9 +278,11 @@ def phase_kernels(dev: torch.device) -> dict:
         x = randn(b, t, h * dk).to(bf16)
         check("fmap_rope", tag,
               lambda: fmap_rope.fused_fmap_rope_flat(x, cos, sin, h, "relu"),
-              lambda: fmap_rope.fmap_rope_plain(x, cos, sin, h, "relu"), timed)
+              lambda: fmap_rope.fmap_rope_plain(x, cos, sin, h, "relu"), timed,
+              (2 * nbytes(x) + nbytes(cos[:t], sin[:t]), 6 * x.numel(), torch.float32))
         n = -(-t // c)
         tp = n * c
+        tri, pairs = c * (c + 1) // 2, n * (n - 1) // 2  # kept score entries, (i, j < i) pairs
 
         def tokens(d, relu):
             y = randn(b, tp, h * d)
@@ -219,18 +296,111 @@ def phase_kernels(dev: torch.device) -> dict:
         m_diag = torch.diagonal(m).contiguous()
         states4 = mhla_chunk.chunk_states_plain(k4, v4, h)
         mixed4 = mhla_chunk.mix_states_plain(m_strict, states4)
+        m_bf = m_strict.to(bf16)
         check("chunk_states", tag, lambda: mhla_chunk.chunk_states(k4, v4, h),
-              lambda: mhla_chunk.chunk_states_plain(k4, v4, h), timed)
+              lambda: mhla_chunk.chunk_states_plain(k4, v4, h), timed,
+              (nbytes(k4, v4, states4), 2 * b * n * c * h * dk * dv, bf16),
+              lambda: torch.einsum("bnchk,bnchv->bnhkv", k4.unflatten(-1, (h, dk)),
+                                   v4.unflatten(-1, (h, dv))))
         check("mix_states", tag, lambda: mhla_chunk.mix_states(m_strict, states4),
-              lambda: mhla_chunk.mix_states_plain(m_strict, states4), timed)
+              lambda: mhla_chunk.mix_states_plain(m_strict, states4), timed,
+              (nbytes(m_strict) + 2 * nbytes(states4), 2 * pairs * b * h * dk * dv, bf16),
+              lambda: torch.einsum("ij,bjrd->bird", m_bf, states4))
         check("chunk_output", tag,
               lambda: mhla_chunk.chunk_output(q4, k4, v4, mixed4, m_diag, h),
-              lambda: mhla_chunk.chunk_output_plain(q4, k4, v4, mixed4, m_diag, h), timed)
+              lambda: mhla_chunk.chunk_output_plain(q4, k4, v4, mixed4, m_diag, h), timed,
+              (nbytes(q4, k4, v4, mixed4, m_diag) + nbytes(v4),
+               2 * b * n * h * (c * dk * dv + tri * (dk + dv)), bf16))
 
     x1 = randn(4, 1, h * dk).to(bf16)
     check("fmap_rope", "B=4 T=1 offset=1984",
           lambda: fmap_rope.fused_fmap_rope_flat(x1, cos, sin, h, "relu", offset=1984),
           lambda: fmap_rope.fmap_rope_plain(x1, cos, sin, h, "relu", offset=1984), False)
+    return results
+
+
+def phase_kernels_video(dev: torch.device) -> dict:
+    """K5-K9 against their plain versions at the shapes one ``MHLA3D`` call
+    and one cross-attention of the Wan2.1-1.3B sampler give them (CFG batch
+    2, 31,500 tokens): the default float32 island (timed, in the kernels
+    line) and the bf16 island (``attn_compute_dtype=bfloat16``)."""
+    import torch.nn.functional as F
+
+    from mhla_tpu_torch.kernels import flash_attention as flash
+    from mhla_tpu_torch.kernels import mhla_block
+    from mhla_tpu_torch.ops.block_mix import block_mixing_matrix
+    from mhla_tpu_torch.ops.rotary import rope_tables_flat
+
+    b, h, dh = VIDEO_CFG_BATCH, VIDEO_HEADS, VIDEO_HEAD_DIM
+    glt = (VIDEO_GRID, VIDEO_LAYOUT, h)
+    t, n = math.prod(VIDEO_GRID), math.prod(VIDEO_LAYOUT)
+    c, f = t // n, h * dh
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    results = {}
+    check = lambda *a, **kw: check_kernel(results, *a, **kw)  # noqa: E731
+
+    tables = rope_tables_flat(VIDEO_GRID, dh, device=dev)
+    gamma, g_head = 1 + 0.1 * randn(f), 1 + 0.1 * randn(dh)
+    x = randn(b, t, f).to(bf16)
+    eps = 1e-6
+    # K5 as q and k take it (norm, relu + eps, RoPE) and as v takes it (cast + permutation)
+    check("blockify_island", "q/k bf16->f32",
+          lambda: mhla_block.blockify_island(x, tables, gamma, *glt, eps, eps)[0],
+          lambda: mhla_block.blockify_island_plain(x, tables, gamma, *glt, eps, eps)[0], True,
+          work=(nbytes(x, gamma, *tables) + 4 * x.numel(), 12 * x.numel(), f32))
+    check("blockify_island[v]", "v bf16->f32",
+          lambda: mhla_block.blockify_island(x, None, None, *glt)[0],
+          lambda: mhla_block.blockify_island_plain(x, None, None, *glt)[0], True,
+          work=(nbytes(x) + 4 * x.numel(), x.numel(), f32))
+    check("blockify_island[bf16]", "q/k bf16 +nope",
+          lambda: mhla_block.blockify_island(x, tables, gamma, *glt, eps, eps, bf16, bf16, True),
+          lambda: mhla_block.blockify_island_plain(x, tables, gamma, *glt, eps, eps, bf16, bf16,
+                                                   True), False)
+    del x
+
+    m = torch.from_numpy(block_mixing_matrix(VIDEO_LAYOUT)).to(dev)
+    states = randn(b, n, f, dh)
+    q4 = torch.relu(randn(b, n, c, f)) + eps
+    mixed = mhla_block.mix_states_dense_plain(m, states)
+    for dt, suffix, timed in ((f32, "", True), (bf16, "[bf16]", True)):
+        st, qq, mx = states.to(dt), q4.to(dt), mixed.to(dt)
+        check("mix_states_dense" + suffix, f"{str(dt)[6:]} N={n}",
+              lambda: mhla_block.mix_states_dense(m, st),
+              lambda: mhla_block.mix_states_dense_plain(m, st), timed,
+              work=(nbytes(m) + 2 * nbytes(st), 2 * n * n * b * f * dh, dt),
+              library=lambda: torch.matmul(m.to(dt), st.view(b, n, f * dh)))
+        check("block_readout" + suffix, f"{str(dt)[6:]} C={c}",
+              lambda: mhla_block.block_readout(qq, mx, h),
+              lambda: mhla_block.block_readout_plain(qq, mx, h), timed,
+              work=(2 * nbytes(qq) + nbytes(mx), 2 * b * n * c * h * dh * dh, dt),
+              library=lambda: torch.einsum("bnchk,bnhkv->bnchv", qq.unflatten(-1, (h, dh)),
+                                           mx.unflatten(-2, (h, dh))))
+        del st, qq, mx
+    del states, mixed
+
+    # K8 on the default path (float32 island, rounded to bf16 before the norm) and on the bf16 island
+    check("unblockify_island", "f32->bf16",
+          lambda: mhla_block.unblockify_island(q4, g_head, *glt, eps, bf16, bf16),
+          lambda: mhla_block.unblockify_island_plain(q4, g_head, *glt, eps, bf16, bf16), True,
+          work=(nbytes(q4, g_head) + 2 * q4.numel(), 6 * q4.numel(), f32))
+    qb = q4.to(bf16)
+    del q4
+    check("unblockify_island[bf16]", "bf16->bf16",
+          lambda: mhla_block.unblockify_island(qb, g_head, *glt, eps, None, bf16),
+          lambda: mhla_block.unblockify_island_plain(qb, g_head, *glt, eps, None, bf16), False)
+    del qb
+
+    # K9: the text cross-attention, and a self-attention of a ragged length
+    for tq, tk, timed in ((t, VIDEO_TEXT_LEN, True), (1000, 1000, False)):
+        q, k, v = (randn(b, tt, h, dh).to(bf16) for tt in (tq, tk, tk))
+        check("flash_attention", f"Tq={tq} Tk={tk}",
+              lambda: flash.flash_attention(q, k, v),
+              lambda: flash.flash_attention_plain(q, k, v), timed, tol=FLASH_TOL,
+              work=(2 * nbytes(q) + nbytes(k, v), 4 * b * h * tq * tk * dh, bf16),
+              library=lambda: F.scaled_dot_product_attention(
+                  q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2))
     return results
 
 
@@ -360,8 +530,10 @@ def phase_grads(dev: torch.device) -> dict:
         x, dy = randn(b, t, h * dk).to(bf16), randn(b, t, h * dk).to(bf16)
         check("fmap_rope_bwd", tag,
               lambda: fmap_rope.fmap_rope_bwd(dy, x, cos, sin, h, "relu"),
-              lambda: fmap_rope.fmap_rope_bwd_plain(dy, x, cos, sin, h, "relu"), timed)
+              lambda: fmap_rope.fmap_rope_bwd_plain(dy, x, cos, sin, h, "relu"), timed,
+              (3 * nbytes(x) + nbytes(cos[:t], sin[:t]), 8 * x.numel(), torch.float32))
         n = -(-t // c)
+        tri, pairs = c * (c + 1) // 2, n * (n - 1) // 2  # kept score entries, (i, j < i) pairs
 
         def tokens(d, relu):
             y = randn(b, n * c, h * d)
@@ -381,14 +553,18 @@ def phase_grads(dev: torch.device) -> dict:
         check("chunk_output_bwd", tag,
               lambda: mhla_chunk.chunk_output_bwd(q4, k4, v4, mixed4, m_diag, do4, h),
               lambda: mhla_chunk.chunk_output_bwd_plain(q4, k4, v4, mixed4, m_diag, do4, h),
-              timed)
+              timed,
+              (2 * nbytes(q4, k4, v4, mixed4, m_diag) + nbytes(do4),
+               2 * b * n * h * (2 * c * dk * dv + tri * (2 * dv + 3 * dk)), bf16))
         check("mix_states_bwd", tag,
               lambda: mhla_chunk.mix_states_bwd(m_strict, dmixed4, states4),
-              lambda: mhla_chunk.mix_states_bwd_plain(m_strict, dmixed4, states4), timed)
+              lambda: mhla_chunk.mix_states_bwd_plain(m_strict, dmixed4, states4), timed,
+              (2 * nbytes(m_strict) + 3 * nbytes(states4), 4 * pairs * b * h * dk * dv, bf16))
         check("chunk_states_bwd", tag,
               lambda: mhla_chunk.chunk_states_bwd(k4, v4, dstates4, dk_i, dv_i, h),
               lambda: mhla_chunk.chunk_states_bwd_plain(k4, v4, dstates4, dk_i, dv_i, h),
-              timed)
+              timed,
+              (3 * nbytes(k4, v4) + nbytes(dstates4), 4 * b * n * c * h * dk * dv, bf16))
 
     for b, t in ((TRAIN_BATCH, TRAIN_SEQ), (1, 781)):
         got = op_grads(dev, b, t, kernels_path=True)
@@ -452,6 +628,98 @@ def phase_train(dev: torch.device) -> dict:
             "save_s": out["save_seconds"], "losses": losses, "peak_gb": peak_gb}
 
 
+def plain_kernels(only=None):
+    """Context in which the video model's wrappers K5-K9 (or those named in
+    ``only``) run their plain PyTorch versions on whatever device their
+    tensors lie."""
+    from mhla_tpu_torch.kernels import flash_attention as flash
+    from mhla_tpu_torch.kernels import mhla_block
+    from mhla_tpu_torch.layers import attention, mhla_vision
+
+    stack = contextlib.ExitStack()
+    for module, name, plain in (
+        (mhla_vision, "blockify_island", mhla_block.blockify_island_plain),
+        (mhla_vision, "unblockify_island", mhla_block.unblockify_island_plain),
+        (mhla_block, "mix_states_dense", mhla_block.mix_states_dense_plain),
+        (mhla_block, "block_readout", mhla_block.block_readout_plain),
+        (attention, "flash_attention", flash.flash_attention_plain),
+    ):
+        if only is None or name in only:
+            stack.enter_context(mock.patch.object(module, name, plain))
+    return stack
+
+
+def phase_video(dev: torch.device) -> dict:
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.eval import video_infer_cli
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    emb, null = (torch.randn(VIDEO_TEXT_LEN, 4096, generator=gen).numpy() for _ in range(2))
+    with tempfile.TemporaryDirectory(prefix="mhla_video_") as work:
+        np.savez(f"{work}/emb.npz", emb_0=emb, null=null)
+        with open(f"{work}/prompts.txt", "w") as fh:
+            fh.write("a paper boat drifting down a rain-filled gutter\n")
+        argv = [
+            f"--device={dev.type}", f"--txt_file={work}/prompts.txt", f"--out_dir={work}/out",
+            f"--emb_file={work}/emb.npz", "--sampling.solver=dpm-solver",
+            f"--sampling.num_steps={VIDEO_STEPS}", "--sampling.cfg_scale=5.0",
+            "--sampling.flow_shift=3.0",
+            f"--sampling.latent_shape={VIDEO_LATENT}".replace(" ", ""),
+        ]
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out = video_infer_cli.main(argv)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        latents = np.load(out["outputs"][0]["path"])
+    model = out["model"]
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[video] Wan2.1-1.3B full MHLA: {cfg.num_layers} layers (linear_attn_idx "
+        f"{cfg.linear_attn_idx[0]}-{cfg.linear_attn_idx[-1]}), dim {cfg.dim}, {cfg.num_heads} "
+        f"heads, ffn {cfg.ffn_dim}, block layout {cfg.block_layout}, {n_params / 1e6:.1f} M "
+        f"float32 params, compute {cfg.dtype}")
+    log(f"[video] launches in {VIDEO_STEPS} dpm-solver steps with CFG: {counts}")
+    if latents.shape != VIDEO_LATENT or not np.isfinite(latents).all():
+        raise AssertionError(f"latents {latents.shape}, finite {np.isfinite(latents).all()}")
+    want = {name: VIDEO_STEPS * VIDEO_LAYERS * per for name, per in VIDEO_KERNELS.items()}
+    got = {name: counts[name] for name in want}
+    if got != want:
+        raise AssertionError(f"launches of the video path {got}, expected {want}")
+    step_ms = out["sample_seconds"][0] * 1e3 / VIDEO_STEPS
+
+    # one model forward through the kernels against the same forward through
+    # their plain versions, same weights and inputs (the CFG batch of two)
+    gen = torch.Generator(dev).manual_seed(SEED + 8)
+    x = torch.randn(VIDEO_CFG_BATCH, *VIDEO_LATENT, generator=gen, device=dev)
+    ctx = torch.randn(VIDEO_CFG_BATCH, VIDEO_TEXT_LEN, cfg.text_dim, generator=gen, device=dev)
+    t = torch.full((VIDEO_CFG_BATCH,), 500.0, device=dev)
+    with torch.no_grad():
+        v_kern = model(x, t, ctx)
+        before = kernels.launch_counts()
+        with plain_kernels():
+            v_plain = model(x, t, ctx)
+        if kernels.launch_counts() != before:
+            raise AssertionError("the plain forward launched a kernel")
+        with plain_kernels(only=("flash_attention",)):
+            v_flash_plain = model(x, t, ctx)
+        fwd_ms = median_ms(lambda: model(x, t, ctx), reps=3, inner=1, warmup=0)
+    rel = get_err_ratio(v_plain, v_kern)
+    log(f"[video] forward through K5-K9 vs plain versions: velocity rel-RMS {rel:.3e} "
+        f"(tol {VIDEO_TOL}; bf16 vs float32 on the CPU {VIDEO_FLOOR_CPU}); with K9 alone "
+        f"through its plain version {get_err_ratio(v_plain, v_flash_plain):.3e}")
+    if not (torch.isfinite(v_kern).all() and rel < VIDEO_TOL):
+        raise AssertionError(f"video forward: kernels != plain ({rel:.3e})")
+    log(f"[video] latents {latents.shape} finite, std {latents.std():.3f}; "
+        f"{step_ms:.1f} ms per denoising step (sampling {out['sample_seconds'][0]:.2f} s for "
+        f"{VIDEO_STEPS} steps, host clock); {fwd_ms:.1f} ms per forward of the CFG batch "
+        f"(CUDA events, median of 3); peak device memory {peak_gb:.1f} GB")
+    return {"launches": counts, "step_ms": step_ms, "forward_ms": fwd_ms, "peak_gb": peak_gb,
+            "kernels_vs_plain": rel}
+
+
 def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda")
@@ -462,23 +730,20 @@ def main() -> None:
     serve = phase_serve(dev)
     kern.update(phase_grads(dev))
     train = phase_train(dev)
+    kern.update(phase_kernels_video(dev))
+    video = phase_video(dev)
     launches = {**{n: serve["launches"][n] for n in FWD_KERNELS},
-                **{n: train["launches"][n] for n in BWD_KERNELS}}
+                **{n: train["launches"][n] for n in BWD_KERNELS},
+                **{n: video["launches"][n] for n in VIDEO_KERNELS}}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [
-        {
-            "name": name,
-            "route": route,
-            "source": source,
-            "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": kern[name]["max_abs_err"],
-            "ms": kern[name]["ms"],
-            "plain_ms": kern[name]["plain_ms"],
-        }
+        {"name": name, "route": route, "source": source, "replaces": replaces,
+         "launches": launches[name], **{key: kern[name][key] for key in keys}}
         for name, (route, source, replaces) in KERNEL_META.items()
     ]
     train.pop("launches")
-    log(json.dumps({"serve": serve["rates"], "train": train, "card": smi}))
+    video.pop("launches")
+    log(json.dumps({"serve": serve["rates"], "train": train, "video": video, "card": smi}))
     log(json.dumps({"kernels": kernels_line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

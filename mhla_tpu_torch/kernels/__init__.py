@@ -1,18 +1,33 @@
-"""Hand-written Hopper kernels of the serving and training paths and their
-wrappers.
+"""Hand-written Hopper kernels of the serving, training and video sampling
+paths and their wrappers.
 
-K1 ``fused_fmap_rope_flat`` and its gradient K1b ``fmap_rope_bwd``
-(Triton); K2 ``chunk_states``, K3 ``mix_states`` and K4 ``chunk_output``
-(CUDA C++, ``csrc/mhla_chunk.cu``) and their gradients K4b
+Causal LM: K1 ``fused_fmap_rope_flat`` and its gradient K1b
+``fmap_rope_bwd`` (Triton); K2 ``chunk_states``, K3 ``mix_states`` and K4
+``chunk_output`` (CUDA C++, ``csrc/mhla_chunk.cu``) and their gradients K4b
 ``chunk_output_bwd``, K3b ``mix_states_bwd`` and K2b ``chunk_states_bwd``
-(``csrc/mhla_chunk_bwd.cu``) behind ``mhla_chunk_fused_flat``. Every
-wrapper runs its plain PyTorch version for a CPU tensor, launches its
-kernel for a CUDA tensor or raises, and counts its launches in its
-module's ``launches``.
+(``csrc/mhla_chunk_bwd.cu``) behind ``mhla_chunk_fused_flat``.
+
+Video: K5 ``blockify_island`` and K8 ``unblockify_island`` (Triton), K6
+``mix_states_dense`` and K7 ``block_readout`` (CUDA C++,
+``csrc/mhla_block.cu``) behind ``mhla_blockwise_fused``; K9
+``flash_attention.flash_attention`` (CUDA C++, ``csrc/flash_fwd.cu``; the
+module keeps its name here, as in the JAX package).
+
+Every wrapper runs its plain PyTorch version for a CPU tensor, launches its
+kernel for a CUDA tensor or raises, and counts its launches in its module's
+``launches``.
 """
 
-from . import fmap_rope, mhla_chunk
+from . import flash_attention, fmap_rope, mhla_block, mhla_chunk
 from .fmap_rope import fmap_rope_bwd, fused_fmap_rope_flat
+from .mhla_block import (
+    block_readout,
+    blockify_island,
+    mhla_blockwise_fused,
+    mix_states_dense,
+    rms_norm_heads_flat,
+    unblockify_island,
+)
 from .mhla_chunk import (
     chunk_output,
     chunk_output_bwd,
@@ -23,28 +38,38 @@ from .mhla_chunk import (
     mix_states_bwd,
 )
 
+_COUNTERS = (fmap_rope.launches, mhla_chunk.launches, mhla_block.launches,
+             flash_attention.launches)
+
 
 def launch_counts() -> dict:
     """Launches of every kernel since the last :func:`reset_launch_counts`."""
-    return {**fmap_rope.launches, **mhla_chunk.launches}
+    return {name: n for counts in _COUNTERS for name, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (fmap_rope.launches, mhla_chunk.launches):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
 
 
 __all__ = [
+    "block_readout",
+    "blockify_island",
     "chunk_output",
     "chunk_output_bwd",
     "chunk_states",
     "chunk_states_bwd",
+    "flash_attention",
     "fmap_rope_bwd",
     "fused_fmap_rope_flat",
     "launch_counts",
+    "mhla_blockwise_fused",
     "mhla_chunk_fused_flat",
     "mix_states",
     "mix_states_bwd",
+    "mix_states_dense",
     "reset_launch_counts",
+    "rms_norm_heads_flat",
+    "unblockify_island",
 ]

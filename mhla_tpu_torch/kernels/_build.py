@@ -5,7 +5,8 @@ source, all started together, and links them into one shared library with a
 plain C interface, which ``ctypes`` loads. The library is built at first use into
 ``mhla_tpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed by
 a hash of the sources and flags, so an edited source builds anew and an
-unchanged one loads at once. Nothing here runs at import time.
+unchanged one loads at once. The Triton kernels import ``triton`` through
+:func:`import_triton`. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -82,6 +83,16 @@ def build() -> Path:
         raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return so
+
+
+def import_triton():
+    """``(triton, triton.language)``, imported at a kernel's first launch
+    with Triton's compile cache kept inside the build directory."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+    import triton
+    import triton.language
+
+    return triton, triton.language
 
 
 def load() -> ctypes.CDLL:

@@ -30,13 +30,12 @@ tensor; a CPU tensor takes :func:`fmap_rope_plain` and
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import torch
 
 from ..ops.rotary import apply_rotary_flat
-from ._build import BUILD_DIR
+from . import _build
 
 launches = {"fmap_rope": 0, "fmap_rope_bwd": 0}
 
@@ -121,12 +120,7 @@ def _fmap_rope_bwd(
 def _load_triton():
     global triton, tl, _kernels
     if _kernels is None:
-        # keep Triton's compile cache inside the package's build directory
-        os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-        import triton as _triton
-        import triton.language as _tl
-
-        triton, tl = _triton, _tl
+        triton, tl = _build.import_triton()
         # one compiled variant for every batch, length and decode position
         unspec = ["n_rows", "seq_len", "offset"]
         _kernels = (

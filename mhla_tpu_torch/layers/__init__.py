@@ -1,13 +1,18 @@
-"""``nn.Module`` layers of the causal MHLA LM."""
+"""``nn.Module`` layers of the causal MHLA LM and the video model."""
 
+from .attention import sdpa
 from .fused_dense import dense, fused_projections
 from .mhla_causal import MHLACausal, MHLACausalState
+from .mhla_vision import MHLA3D, BlockMixing
 from .mlp import GatedMLP, default_intermediate_size, swiglu
-from .norms import GatedRMSNormHeadsFlat, RMSNorm, RMSNormHeadsFlat, rms_norm
+from .norms import GatedRMSNormHeadsFlat, LayerNorm, RMSNorm, RMSNormHeadsFlat, rms_norm
 
 __all__ = [
+    "BlockMixing",
     "GatedMLP",
     "GatedRMSNormHeadsFlat",
+    "LayerNorm",
+    "MHLA3D",
     "MHLACausal",
     "MHLACausalState",
     "RMSNorm",
@@ -16,5 +21,6 @@ __all__ = [
     "dense",
     "fused_projections",
     "rms_norm",
+    "sdpa",
     "swiglu",
 ]

@@ -34,5 +34,7 @@ def fused_projections(
 
 
 def dense(x: torch.Tensor, linear: nn.Linear) -> torch.Tensor:
-    """A bias-free ``nn.Linear`` applied in x's dtype (flax ``Dense(dtype)``)."""
-    return F.linear(x, linear.weight.to(x.dtype))
+    """An ``nn.Linear`` applied in x's dtype (flax ``Dense(dtype)``): the
+    weight and the bias, if any, are cast to it."""
+    bias = None if linear.bias is None else linear.bias.to(x.dtype)
+    return F.linear(x, linear.weight.to(x.dtype), bias)

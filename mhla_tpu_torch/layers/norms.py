@@ -86,3 +86,26 @@ class RMSNormHeadsFlat(nn.Module):
         if self.weight is not None:
             y = y * self.weight.repeat(h).to(x.dtype)
         return y
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis with optional ``weight`` and ``bias``
+    [dim], float32 compute cast back to the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, use_bias: bool = True,
+                 use_scale: bool = True, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device)) if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(dim, device=device)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            y = y * self.weight.float()
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)

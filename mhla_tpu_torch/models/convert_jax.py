@@ -1,9 +1,11 @@
-"""Weight bridge from the JAX package's flax param tree to this package's
-``MHLAForCausalLM`` state dict.
+"""Weight bridges from the JAX package's flax param trees to this package's
+state dicts: ``MHLAForCausalLM`` and ``WanModel``.
 
-The flax tree (as nested dicts of numpy arrays) names every parameter as
-this package does, so the bridge is a rename plus transposes: a flax
-``Dense`` kernel is [in, out] and ``nn.Linear.weight`` is [out, in].
+The flax trees (as nested dicts of numpy arrays) name every parameter as
+this package does, so a bridge is a rename plus transposes: a flax
+``Dense`` kernel is [in, out] and ``nn.Linear.weight`` is [out, in]; a
+flax 3-D ``Conv`` kernel is [kd, kh, kw, in, out] and ``nn.Conv3d.weight``
+is [out, in, kd, kh, kw].
 """
 
 from __future__ import annotations
@@ -50,4 +52,29 @@ def params_from_jax(params: Mapping[str, Any], cfg: MHLALMConfig) -> Dict[str, t
         sd[f"{dst}mlp_norm.weight"] = _t(src["mlp_norm"]["weight"])
     if not cfg.tie_word_embeddings:
         sd["lm_head.weight"] = _t(tree["lm_head"]["kernel"]).T.contiguous()
+    return sd
+
+
+def wan_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax params of the JAX ``WanModel`` (``{"params": ...}`` or the inner
+    tree) -> float32 state dict for this package's ``WanModel`` of the same
+    config. ``blocks_<i>`` becomes ``blocks.<i>``; every ``kernel`` becomes
+    a transposed ``weight``; biases, norm weights, ``modulation``,
+    ``head_modulation`` and a trainable ``block_attn`` keep their names."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping[str, Any], prefix: str) -> None:
+        for key, value in tree.items():
+            name = key.replace("blocks_", "blocks.") if key.startswith("blocks_") else key
+            if isinstance(value, Mapping):
+                walk(value, f"{prefix}{name}.")
+            elif key == "kernel":
+                w = _t(value)
+                sd[f"{prefix}weight"] = (
+                    w.permute(4, 3, 0, 1, 2) if w.ndim == 5 else w.T
+                ).contiguous()
+            else:
+                sd[f"{prefix}{name}"] = _t(value)
+
+    walk(params.get("params", params), "")
     return sd

@@ -1,5 +1,6 @@
-"""Rotary position embeddings, 1-D (counterpart of the 1-D part of
-``mhla_tpu/ops/rotary.py``).
+"""Rotary position embeddings, 1-D and 3-D (counterpart of
+``mhla_tpu/ops/rotary.py`` and of ``rope_tables_flat`` in
+``mhla_tpu/kernels/mhla_block_pallas.py``).
 
 GPT-NeoX-style rotate-half rotary on the full head dim of q and k, with a
 decode ``offset``. Tables are computed in float64 with numpy and stored as
@@ -10,7 +11,7 @@ with bit-identical tables.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -105,3 +106,81 @@ def apply_rotary_flat(
     x1, x2 = x4[..., :half], x4[..., half:]
     rot = torch.cat([x1 * cos_t - x2 * sin_t, x2 * cos_t + x1 * sin_t], dim=-1)
     return rot.reshape(b, t, f).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# 3-D rotary (video)
+# ---------------------------------------------------------------------------
+
+
+def rope_params_3d(max_pos: int, dim: int, theta: float = 10000.0) -> np.ndarray:
+    """Per-axis angle table [max_pos, dim/2], float64:
+    outer(arange(max_pos), 1 / theta^(arange(0, dim, 2) / dim))."""
+    inv = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+    return np.outer(np.arange(max_pos, dtype=np.float64), inv)
+
+
+def rope_angles_3d(
+    grid: Sequence[int], head_dim: int, theta: float = 10000.0, max_pos: int = 1024
+) -> np.ndarray:
+    """Angle table of an (F, H, W) token grid -> [F*H*W, head_dim/2],
+    float64, in flat token order. The half dim c = head_dim // 2 is split
+    [c - 2*(c//3), c//3, c//3] over the frame, height and width axes."""
+    f, h, w = grid
+    c = head_dim // 2
+    cf, ch, cw = c - 2 * (c // 3), c // 3, c // 3
+    ang_f = rope_params_3d(max_pos, 2 * cf, theta)[:f]
+    ang_h = rope_params_3d(max_pos, 2 * ch, theta)[:h]
+    ang_w = rope_params_3d(max_pos, 2 * cw, theta)[:w]
+    out = np.concatenate(
+        [
+            np.broadcast_to(ang_f[:, None, None, :], (f, h, w, cf)),
+            np.broadcast_to(ang_h[None, :, None, :], (f, h, w, ch)),
+            np.broadcast_to(ang_w[None, None, :, :], (f, h, w, cw)),
+        ],
+        axis=-1,
+    )
+    return out.reshape(f * h * w, c)
+
+
+def apply_rotary_3d_halves(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate-half rotary with the 3-D angle table: x [B, T, H, D], angles
+    [T, D/2] float32. Computed in float32, returned in x's dtype. cos and
+    sin are taken in float64 and rounded once: the float32 routines of the
+    CPU's math library are not accurate to the last bits on every thread."""
+    d2 = angles.shape[-1]
+    xf = x.float()
+    cos = torch.cos(angles.double()).float()[None, :, None, :]
+    sin = torch.sin(angles.double()).float()[None, :, None, :]
+    x1, x2 = xf[..., :d2], xf[..., d2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=4)
+def _tables_flat_cached(grid, head_dim: int, theta: float, max_pos: int, device: str):
+    ang = rope_angles_3d(grid, head_dim, theta, max_pos).astype(np.float32).astype(np.float64)
+    cos, sin = np.cos(ang), np.sin(ang)
+    tables = np.concatenate([cos, cos], axis=-1), np.concatenate([-sin, sin], axis=-1)
+    return tuple(torch.from_numpy(tb.astype(np.float32)).to(device) for tb in tables)
+
+
+def rope_tables_flat(
+    grid: Sequence[int],
+    head_dim: int,
+    theta: float = 10000.0,
+    max_pos: int = 1024,
+    device: torch.device | str = "cpu",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin_signed) [T, Dh] float32 for the fused island prologue:
+    rotate-half as ``y = x * cos + swap_halves(x) * sin_signed``, with cos
+    repeated over both halves and sin carrying the [-, +] half signs. All
+    heads share the table, in flat token order. The angles are rounded to
+    float32 first, as the JAX package rounds them; cos and sin of those are
+    taken in float64 on the host and rounded once.
+
+    The tables are cached per (grid, head_dim, theta, max_pos, device):
+    every layer and every denoising step share one pair, and callers must
+    not write into them."""
+    return _tables_flat_cached(
+        tuple(grid), head_dim, float(theta), max_pos, str(torch.device(device))
+    )

@@ -1,8 +1,8 @@
 """Card-only tests of the port's kernels: each kernel (forward and
 backward) against its plain PyTorch version on a CUDA device, the op's
 gradients through the kernels, the launch counters, the wrappers'
-refusals, and a tiny LM that serves and trains through the kernels.
-Without a card every test skips.
+refusals, a tiny LM that serves and trains through the kernels, and a tiny
+video model that samples through them. Without a card every test skips.
 
 This file imports only torch and the port, so it also runs on a machine
 without JAX; there the JAX-importing ``tests/conftest.py`` is left out:
@@ -14,15 +14,20 @@ import pytest
 import torch
 
 from mhla_tpu_torch import kernels
-from mhla_tpu_torch.kernels import fmap_rope, mhla_chunk
+from mhla_tpu_torch.eval import sample_video_latents
+from mhla_tpu_torch.kernels import flash_attention as flash
+from mhla_tpu_torch.kernels import fmap_rope, mhla_block, mhla_chunk
 from mhla_tpu_torch.models import (
     MHLAForCausalLM,
     MHLALMConfig,
     cross_entropy_loss,
+    WanModel,
+    build_wan_config,
     generate,
     init_lm_params,
+    init_wan_params,
 )
-from mhla_tpu_torch.ops import rotary_cos_sin
+from mhla_tpu_torch.ops import block_mixing_matrix, rope_tables_flat, rotary_cos_sin
 from mhla_tpu_torch.train import OptimizerConfig, init_train_state, make_train_step
 from mhla_tpu_torch.utils import assert_close
 
@@ -220,7 +225,8 @@ def test_tiny_lm_trains_through_the_kernels(dev):
         state, metrics = step(state, ids)
         losses.append(float(metrics["loss"]))
     counts = kernels.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    lm_kernels = ("fmap_rope", "fmap_rope_bwd") + _FWD_CHUNK + tuple(f"{n}_bwd" for n in _FWD_CHUNK)
+    assert all(counts[n] > 0 for n in lm_kernels), counts
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0], losses
     attn = model.model.layers[0].attn
     for p in (attn.q_proj.weight, attn.k_proj.weight, attn.v_proj.weight, attn.mixing_matrix):
@@ -229,3 +235,152 @@ def test_tiny_lm_trains_through_the_kernels(dev):
     assert torch.count_nonzero(torch.triu(mm, 1)) == 0
     low = mm[torch.tril(torch.ones_like(mm, dtype=torch.bool))]
     assert low.min() >= 1e-5 and low.max() <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# video: K5-K9
+# ---------------------------------------------------------------------------
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("grid,layout", [((21, 12, 10), (3, 2, 2)), ((4, 4, 8), (2, 2, 2))])
+@pytest.mark.parametrize("form", ["qk", "qk_nope_bf16_island", "v", "no_rope", "strided"])
+def test_blockify_island_kernel_matches_plain(dev, grid, layout, form):
+    """K5 on odd partitions (7, 6, 5) and on even ones, in the forms the
+    layer gives it, and on a column slice of a wider projection output."""
+    h, dh = 2, 128
+    t = grid[0] * grid[1] * grid[2]
+    x = _randn(dev, 2, t, 3 * h * dh).to(_BF16)
+    x = x[..., h * dh: 2 * h * dh] if form == "strided" else x[..., : h * dh].contiguous()
+    gamma = 1 + 0.1 * _randn(dev, h * dh, seed=1)
+    tables = rope_tables_flat(grid, dh, device=dev)
+    args = {
+        "qk": (tables, gamma, grid, layout, h, 1e-6, 1e-6),
+        "strided": (tables, gamma, grid, layout, h, 1e-6, 1e-6),
+        "qk_nope_bf16_island": (tables, gamma, grid, layout, h, 1e-6, 1e-6, _BF16, _BF16, True),
+        "v": (None, None, grid, layout, h),
+        "no_rope": (None, gamma, grid, layout, h, 1e-6, 1e-6, None, _F32, False),
+    }[form]
+    before = mhla_block.launches["blockify_island"]
+    got = mhla_block.blockify_island(x, *args)
+    assert mhla_block.launches["blockify_island"] == before + 1
+    ref = mhla_block.blockify_island_plain(x, *args)
+    for r, g in zip(ref, got):
+        assert (r is None) == (g is None)
+        if r is not None:
+            assert g.dtype == r.dtype
+            assert_close(f"blockify_island {form}", r, g, KERNEL_TOL)
+
+
+@pytest.mark.parametrize("in_dt,mid,out_dt", [(_F32, _BF16, _BF16), (_BF16, None, _BF16),
+                                              (_F32, None, _F32)])
+def test_unblockify_island_kernel_matches_plain(dev, in_dt, mid, out_dt):
+    grid, layout, h, dh = (21, 12, 10), (3, 2, 2), 2, 128
+    xb = _randn(dev, 2, 12, 210, h * dh).to(in_dt)
+    g = 1 + 0.1 * _randn(dev, dh, seed=1)
+    before = mhla_block.launches["unblockify_island"]
+    got = mhla_block.unblockify_island(xb, g, grid, layout, h, 1e-6, mid, out_dt)
+    assert mhla_block.launches["unblockify_island"] == before + 1
+    ref = mhla_block.unblockify_island_plain(xb, g, grid, layout, h, 1e-6, mid, out_dt)
+    assert got.dtype == out_dt
+    assert_close("unblockify_island", ref, got, KERNEL_TOL)
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("n,c", [(150, 210), (8, 24), (33, 1)])
+def test_dense_mix_and_readout_kernels_match_plain(dev, dtype, n, c):
+    """K6 and K7 at the video model's N = 150 blocks of C = 210 tokens
+    (neither a multiple of a tile) and at small sizes."""
+    b, h, dk = 2, 2, 128
+    m = torch.rand(n, n, generator=torch.Generator(dev).manual_seed(2), device=dev)
+    states = _randn(dev, b, n, h * dk, dk, seed=3).to(dtype)
+    q4 = torch.relu(_randn(dev, b, n, c, h * dk, seed=4)).to(dtype)
+    before = dict(mhla_block.launches)
+    mixed = mhla_block.mix_states_dense(m, states)
+    out = mhla_block.block_readout(q4, mixed, h)
+    assert mhla_block.launches["mix_states_dense"] == before["mix_states_dense"] + 1
+    assert mhla_block.launches["block_readout"] == before["block_readout"] + 1
+    mixed_ref = mhla_block.mix_states_dense_plain(m, states)
+    assert_close("mix_states_dense", mixed_ref, mixed, KERNEL_TOL)
+    assert_close("block_readout", mhla_block.block_readout_plain(q4, mixed_ref, h), out,
+                 KERNEL_TOL)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_blockwise_fused_op_matches_the_einsum_op(dev, normalize):
+    b, n, c, h, d = 1, 8, 24, 2, 128
+    q, k = (torch.relu(_randn(dev, b, n, c, h * d, seed=s)) + 1e-6 for s in (1, 2))
+    v = _randn(dev, b, n, c, h * d, seed=3)
+    m = torch.from_numpy(block_mixing_matrix((2, 2, 2))).to(dev)
+    out = mhla_block.mhla_blockwise_fused(q, k, v, m, h, normalize=normalize)
+    ref = mhla_block.mhla_blockwise_fused(q.cpu(), k.cpu(), v.cpu(), m.cpu(), h,
+                                          normalize=normalize)
+    assert_close("mhla_blockwise_fused", ref, out, 1e-5)  # float32 island
+
+
+@pytest.mark.parametrize("tq,tk", [(3000, 512), (1000, 1000), (70, 33), (1, 5), (64, 129)])
+def test_flash_attention_kernel_matches_plain(dev, tq, tk):
+    """K9 for Tq != Tk and Tq == Tk, multiples of no tile: rows past Tq are
+    not stored and keys past Tk receive no mass (FLASH_TOL in chip_smoke.py)."""
+    import chip_smoke
+
+    q, k, v = (_randn(dev, 2, t, 3, 128, seed=s).to(_BF16) for s, t in ((1, tq), (2, tk), (3, tk)))
+    before = flash.launches["flash_attention"]
+    out = flash.flash_attention(q, k, v)
+    assert flash.launches["flash_attention"] == before + 1
+    assert_close(f"flash {tq}x{tk}", flash.flash_attention_plain(q, k, v), out,
+                 chip_smoke.FLASH_TOL)
+    # against float32 softmax attention: bf16 rounding of the probabilities and the output
+    ref = flash.flash_attention_plain(q.float(), k.float(), v.float())
+    assert_close(f"flash {tq}x{tk} vs float32", ref, out, 1e-2)
+
+
+def test_video_wrappers_raise_instead_of_falling_back(dev):
+    q = torch.zeros(1, 8, 2, 128, device=dev)
+    with pytest.raises(TypeError):  # float32: the kernel takes bf16
+        flash.flash_attention(q, q, q)
+    with pytest.raises(ValueError):  # head dim 64
+        z = torch.zeros(1, 8, 2, 64, dtype=_BF16, device=dev)
+        flash.flash_attention(z, z, z)
+    with pytest.raises(ValueError):  # more blocks than K6 keeps rows for
+        mhla_block.mix_states_dense(torch.zeros(300, 300, device=dev),
+                                    torch.zeros(1, 300, 128, 128, device=dev))
+    with pytest.raises(TypeError):
+        x = torch.zeros(1, 2, 8, 256, dtype=torch.float16, device=dev)
+        mhla_block.block_readout(x, torch.zeros(1, 2, 256, 128, dtype=torch.float16, device=dev), 2)
+    with pytest.raises(ValueError):  # head dim 96: Dh/2 is no power of two
+        mhla_block.blockify_island(torch.zeros(1, 64, 192, device=dev), None, None,
+                                   (4, 4, 4), (2, 2, 2), 2)
+    with pytest.raises(ValueError):  # tensors on several devices
+        mhla_block.unblockify_island(torch.zeros(1, 8, 8, 256, device=dev), torch.ones(128),
+                                     (4, 4, 4), (2, 2, 2), 2)
+
+
+@pytest.mark.parametrize("island", [None, _BF16])
+def test_tiny_wan_samples_through_the_kernels(dev, island):
+    """bf16 compute over float32 parameters, 2,048 tokens (the flash route)
+    in 8 blocks: two sampler steps launch every video kernel the expected
+    number of times, and one forward through the kernels agrees with the
+    same forward through their plain versions."""
+    import chip_smoke
+
+    cfg = build_wan_config(num_layers=2, dim=256, num_heads=2, ffn_dim=512, text_len=128,
+                           text_dim=64, linear_attn_idx=(0, 1), block_layout=(2, 2, 2),
+                           dtype=_BF16, attn_compute_dtype=island)
+    model = init_wan_params(WanModel(cfg, device=dev), torch.Generator(dev).manual_seed(0)).eval()
+    text = _randn(dev, 1, 128, 64)
+    kernels.reset_launch_counts()
+    latents = sample_video_latents(model, text, latent_shape=(8, 32, 32, 16), num_steps=2)
+    counts = kernels.launch_counts()
+    assert torch.isfinite(latents).all() and latents.shape == (1, 8, 32, 32, 16)
+    want = {name: 2 * 2 * per for name, per in chip_smoke.VIDEO_KERNELS.items()}
+    assert {name: counts[name] for name in want} == want
+    x, t = _randn(dev, 2, 8, 32, 32, 16, seed=1), torch.full((2,), 500.0, device=dev)
+    ctx = text.expand(2, -1, -1)
+    with torch.no_grad():
+        got = model(x, t, ctx)
+        with chip_smoke.plain_kernels():
+            ref = model(x, t, ctx)
+    assert kernels.launch_counts()["flash_attention"] == want["flash_attention"] + 2
+    assert_close("tiny Wan kernels vs plain", ref, got, chip_smoke.VIDEO_TOL)

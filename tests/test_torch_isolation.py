@@ -11,7 +11,16 @@ from pathlib import Path
 import torch
 
 from mhla_tpu_torch import kernels
-from mhla_tpu_torch.models import MHLAForCausalLM, MHLALMConfig, generate, init_lm_params
+from mhla_tpu_torch.eval import sample_video_latents
+from mhla_tpu_torch.models import (
+    MHLAForCausalLM,
+    MHLALMConfig,
+    WanModel,
+    build_wan_config,
+    generate,
+    init_lm_params,
+    init_wan_params,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "mhla_tpu_torch"
@@ -22,7 +31,7 @@ _RUN_TINY = textwrap.dedent(
     import sys
     import torch
     import mhla_tpu_torch.kernels, mhla_tpu_torch.layers, mhla_tpu_torch.ops
-    import mhla_tpu_torch.utils
+    import mhla_tpu_torch.utils, mhla_tpu_torch.diffusion, mhla_tpu_torch.eval.video_infer_cli
     from mhla_tpu_torch.models import MHLAForCausalLM, MHLALMConfig, generate, init_lm_params
     cfg = MHLALMConfig(**{TINY!r})
     model = init_lm_params(MHLAForCausalLM(cfg), torch.Generator().manual_seed(0))
@@ -75,5 +84,22 @@ def test_launch_counters_stay_zero_on_cpu():
     assert set(counts) == {
         "fmap_rope", "chunk_states", "mix_states", "chunk_output",
         "fmap_rope_bwd", "chunk_output_bwd", "mix_states_bwd", "chunk_states_bwd",
+        "blockify_island", "mix_states_dense", "block_readout", "unblockify_island",
+        "flash_attention",
     }
+    assert all(n == 0 for n in counts.values()), counts
+
+
+def test_launch_counters_stay_zero_on_cpu_through_video_sampling():
+    """A tiny Wan model with head dim 128 (the fused island's route) and a
+    query long enough for the flash route, sampled for two steps with CFG."""
+    kernels.reset_launch_counts()
+    cfg = build_wan_config(num_layers=1, dim=256, num_heads=2, ffn_dim=256, text_len=128,
+                           text_dim=32, linear_attn_idx=(0,), block_layout=(2, 2, 2))
+    model = init_wan_params(WanModel(cfg), torch.Generator().manual_seed(0)).eval()
+    latents = sample_video_latents(
+        model, torch.zeros(1, 128, 32), latent_shape=(8, 32, 32, 16), num_steps=2
+    )
+    assert latents.shape == (1, 8, 32, 32, 16) and torch.isfinite(latents).all()
+    counts = kernels.launch_counts()
     assert all(n == 0 for n in counts.values()), counts
