@@ -7,7 +7,9 @@ Phases, one or more lines each; a failure in any phase raises and the run
 exits non-zero:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build   — K2-K4 from mhla_tpu_torch/csrc (nvcc) and K1 (Triton).
+2. build   — every kernel of mhla_tpu_torch/csrc (nvcc, one process per
+             source) and K1 (Triton; the other Triton kernels compile at
+             their first launch).
 3. kernels — each forward kernel against its plain PyTorch version on the
              card at the 340M serving shapes (timed: CUDA events, median
              after warm-up) and at the training shape B=8 T=2048, bf16.
@@ -28,6 +30,28 @@ exits non-zero:
              loss, that every backward kernel launched, that the mixing
              matrices stay tril in [1e-5, 1] and got a non-zero gradient;
              prints step time, tok/s and the checkpoint's save time.
+7. kernels (video) — K5-K9 against their plain versions at the shapes of
+             the Wan2.1-1.3B sampler: CFG batch 2, 31,500 tokens in 150
+             blocks of 210, cross-attention against 512 text tokens.
+8. video   — ``mhla_tpu_torch.eval.video_infer_cli.main`` samples 4
+             DPM-Solver++ steps with CFG 5.0 of the 30-layer full-MHLA
+             model at latents (21, 60, 100, 16). Checks finite latents, the
+             exact launch counts of K5-K9 and one forward through the
+             kernels against the same forward through their plain versions.
+9. kernels (hybrid) — K10 (radial flash attention) against its plain
+             version at [2, 31,500, 12, 128] in 21 frames and at a small
+             ragged geometry, and K9 at Tq = Tk = 31,500; each beside its
+             bound and one ``scaled_dot_product_attention`` call.
+10. video (hybrid) — the CLI samples the hybrid model (layers 0, 3, ..., 27
+             dense softmax on K9, the other 20 MHLA), 4 steps: finite
+             latents, exact launch counts.
+11. video (hybrid_sparse) — ``sample_video_latents`` on the same weights
+             with those ten layers radial-sparse, 4 steps at t x 1000 =
+             1000, 900, 750, 501: K10 launches in the two steps below the
+             dense guard (850) and K9 takes its place in the two above.
+             Checks the exact launch counts, the forward at t = 501 through
+             the kernels against the plain versions, and that the guarded
+             forward at t = 900 equals the hybrid model's.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; there is no CPU mode.
@@ -135,6 +159,8 @@ KERNEL_META = {
                           "mhla_tpu/kernels/mhla_block_pallas.py:672"),
     "flash_attention": ("cuda", "mhla_tpu_torch/csrc/flash_fwd.cu",
                         "mhla_tpu/kernels/flash_attention.py:115"),
+    "radial_flash_attention": ("cuda", "mhla_tpu_torch/csrc/radial_fwd.cu",
+                               "mhla_tpu/kernels/sparse_attention.py:312"),
 }
 FWD_KERNELS = ("fmap_rope", "chunk_states", "mix_states", "chunk_output")
 BWD_KERNELS = ("fmap_rope_bwd", "chunk_output_bwd", "mix_states_bwd", "chunk_states_bwd")
@@ -147,6 +173,23 @@ VIDEO_HEADS, VIDEO_HEAD_DIM, VIDEO_TEXT_LEN, VIDEO_CFG_BATCH = 12, 128, 512, 2
 VIDEO_LAYERS, VIDEO_STEPS = 30, 4
 VIDEO_KERNELS = {"blockify_island": 3, "mix_states_dense": 1, "block_readout": 1,
                  "unblockify_island": 1, "flash_attention": 1}  # launches per layer
+# the hybrid form (configs/wan_1300m_hybrid_mhla.yaml): every third layer
+# keeps softmax self-attention, dense or (hybrid_sparse) radial-sparse below
+# the guard timestep; with shift 3.0 the 4 steps run at t x 1000 = 1000, 900,
+# 750, 501, two on each side of the guard
+SOFTMAX_LAYERS = tuple(range(0, VIDEO_LAYERS, 3))
+HYBRID_LINEAR_IDX = tuple(i for i in range(VIDEO_LAYERS) if i not in SOFTMAX_LAYERS)
+DENSE_FROM_T, STEPS_BELOW_GUARD = 850.0, 2
+T_SPARSE, T_GUARDED = 501.0, 900.0  # two of the sampler's timesteps, one on each side
+
+
+def video_launches(mhla_layers: int, k9_per_step, k10_per_step) -> dict:
+    """Launches of K5-K10 in VIDEO_STEPS steps: ``k9_per_step`` and
+    ``k10_per_step`` are the per-step counts, one entry per step."""
+    want = {name: VIDEO_STEPS * mhla_layers * per for name, per in VIDEO_KERNELS.items()}
+    want["flash_attention"] = sum(k9_per_step)
+    want["radial_flash_attention"] = sum(k10_per_step)
+    return want
 
 
 def log(msg: str) -> None:
@@ -219,7 +262,7 @@ def nbytes(*tensors) -> int:
 
 
 def check_kernel(results: dict, name: str, shape_tag: str, kern, plain, timed: bool,
-                 work=None, library=None, tol: float = 0.0) -> None:
+                 work=None, library=None, tol: float = 0.0, timing=None) -> None:
     """Run ``kern`` and ``plain`` once, hold every output of the kernel
     against the plain version's (relative RMS below ``tol``, KERNEL_TOL
     unless given), and time both when ``timed``. ``work`` = (bytes moved
@@ -227,10 +270,12 @@ def check_kernel(results: dict, name: str, shape_tag: str, kern, plain, timed: b
     the operations' inputs) gives the bound: the larger of bytes over the
     card's memory rate and operations over its peak for that dtype.
     ``library`` is one PyTorch call that computes the same function, timed
-    beside the kernel and used nowhere else."""
+    beside the kernel and used nowhere else. ``timing`` = keyword arguments
+    of :func:`median_ms` for calls that take tens of milliseconds."""
     from mhla_tpu_torch.utils import get_abs_err, get_err_ratio
 
     tol = tol or KERNEL_TOL
+    timing = timing or {}
     outs_k, outs_p = _as_tuple(kern()), _as_tuple(plain())
     torch.cuda.synchronize()
     rel = max(get_err_ratio(p, k) for p, k in zip(outs_p, outs_k))
@@ -247,10 +292,10 @@ def check_kernel(results: dict, name: str, shape_tag: str, kern, plain, timed: b
     if timed:
         moved, ops, dtype = work
         t_bytes, t_ops = moved / PEAK_BYTES * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
-        ms, plain_ms = median_ms(kern), median_ms(plain)
+        ms, plain_ms = median_ms(kern, **timing), median_ms(plain, **timing)
         r.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
-                 library_ms=median_ms(library) if library is not None else None)
+                 library_ms=median_ms(library, **timing) if library is not None else None)
         msg += (f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']})")
         if library is not None:
@@ -401,6 +446,68 @@ def phase_kernels_video(dev: torch.device) -> dict:
               work=(2 * nbytes(q) + nbytes(k, v), 4 * b * h * tq * tk * dh, bf16),
               library=lambda: F.scaled_dot_product_attention(
                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2))
+    return results
+
+
+def phase_kernels_hybrid(dev: torch.device) -> dict:
+    """K10 against its plain version at the sampler's self-attention shape
+    (CFG batch 2, 31,500 tokens in 21 frames of 1,500, 12 heads) and at a
+    small ragged geometry, and K9 at Tq = Tk = 31,500. The bound counts the
+    allowed pairs exactly, from the mask's formula, whatever tiles a kernel
+    visits; the library call is ``scaled_dot_product_attention``, for K10
+    with the boolean [T, T] mask (1 GB)."""
+    import torch.nn.functional as F
+
+    from mhla_tpu_torch.kernels import flash_attention as flash
+    from mhla_tpu_torch.kernels import sparse_attention as sparse
+
+    b, h, dh, frames = VIDEO_CFG_BATCH, VIDEO_HEADS, VIDEO_HEAD_DIM, VIDEO_GRID[0]
+    t = math.prod(VIDEO_GRID)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(SEED + 9)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    results = {}
+    check = lambda *a, **kw: check_kernel(results, *a, **kw)  # noqa: E731
+    slow = dict(reps=5, inner=2, warmup=1)  # calls of 20 ms to 1 s
+
+    # 5 frames of 100 tokens: tiles that straddle frames, a ragged last tile
+    qs, ks, vs = (randn(b, 500, 3, dh).to(bf16) for _ in range(3))
+    check("radial_flash_attention", "T=500 5 frames",
+          lambda: sparse.radial_flash_attention(qs, ks, vs, 5),
+          lambda: sparse.radial_flash_attention_plain(qs, ks, vs, 5), False, tol=FLASH_TOL)
+
+    q, k, v = (randn(b, t, h, dh).to(bf16) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t0 = time.perf_counter()
+    offsets, tiles, full = sparse.radial_schedule(t, frames)
+    t_sched = time.perf_counter() - t0
+    pairs = sparse.radial_allowed_pairs(t, frames)
+    log(f"[kernels] radial mask at {frames} frames of {t // frames}: {pairs / t**2:.4f} of the "
+        f"pairs allowed; schedule of 64 x 64 tiles: {len(tiles)} of {(len(offsets) - 1)**2} tiles "
+        f"= {len(tiles) / (len(offsets) - 1)**2:.4f}, {full.mean():.4f} of them full, "
+        f"{np.diff(offsets).min()} to {np.diff(offsets).max()} per query tile; built on the "
+        f"host in {t_sched:.3f} s, once per geometry")
+    mask = torch.cat([sparse.radial_block_mask(r, min(t, r + 2048), t, frames, dev)
+                      for r in range(0, t, 2048)])
+    masked_sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask).transpose(1, 2)
+    try:
+        masked_sdpa()
+        torch.cuda.synchronize()
+    except RuntimeError as exc:  # the yardstick only: the port never calls it
+        log(f"[kernels] masked scaled_dot_product_attention cannot run here: {exc}")
+        masked_sdpa = None
+    check("radial_flash_attention", f"T={t} {frames} frames",
+          lambda: sparse.radial_flash_attention(q, k, v, frames),
+          lambda: sparse.radial_flash_attention_plain(q, k, v, frames), True, tol=FLASH_TOL,
+          work=(4 * nbytes(q), 4 * b * h * dh * pairs, bf16), library=masked_sdpa, timing=slow)
+    del mask
+    check("flash_attention[self]", f"Tq=Tk={t}",
+          lambda: flash.flash_attention(q, k, v),
+          lambda: flash.flash_attention_plain(q, k, v), True, tol=FLASH_TOL,
+          work=(4 * nbytes(q), 4 * b * h * t * t * dh, bf16),
+          library=lambda: F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2),
+          timing=slow)
     return results
 
 
@@ -629,11 +736,11 @@ def phase_train(dev: torch.device) -> dict:
 
 
 def plain_kernels(only=None):
-    """Context in which the video model's wrappers K5-K9 (or those named in
+    """Context in which the video model's wrappers K5-K10 (or those named in
     ``only``) run their plain PyTorch versions on whatever device their
     tensors lie."""
     from mhla_tpu_torch.kernels import flash_attention as flash
-    from mhla_tpu_torch.kernels import mhla_block
+    from mhla_tpu_torch.kernels import mhla_block, sparse_attention
     from mhla_tpu_torch.layers import attention, mhla_vision
 
     stack = contextlib.ExitStack()
@@ -643,19 +750,28 @@ def plain_kernels(only=None):
         (mhla_block, "mix_states_dense", mhla_block.mix_states_dense_plain),
         (mhla_block, "block_readout", mhla_block.block_readout_plain),
         (attention, "flash_attention", flash.flash_attention_plain),
+        (sparse_attention, "radial_flash_attention",
+         sparse_attention.radial_flash_attention_plain),
     ):
         if only is None or name in only:
             stack.enter_context(mock.patch.object(module, name, plain))
     return stack
 
 
-def phase_video(dev: torch.device) -> dict:
+def video_text_embeddings():
+    """Seeded normal text and null embeddings [512, 4096], float32 numpy."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    return tuple(torch.randn(VIDEO_TEXT_LEN, 4096, generator=gen).numpy() for _ in range(2))
+
+
+def sample_with_cli(dev: torch.device, tag: str, want: dict, extra_argv=()) -> dict:
+    """One prompt through ``video_infer_cli.main``: VIDEO_STEPS DPM-Solver++
+    steps with CFG 5.0 and shift 3.0 at the full latent size. Checks finite
+    latents of the right shape and the launch counts ``want``."""
     from mhla_tpu_torch import kernels
     from mhla_tpu_torch.eval import video_infer_cli
-    from mhla_tpu_torch.utils import get_err_ratio
 
-    gen = torch.Generator().manual_seed(SEED + 7)
-    emb, null = (torch.randn(VIDEO_TEXT_LEN, 4096, generator=gen).numpy() for _ in range(2))
+    emb, null = video_text_embeddings()
     with tempfile.TemporaryDirectory(prefix="mhla_video_") as work:
         np.savez(f"{work}/emb.npz", emb_0=emb, null=null)
         with open(f"{work}/prompts.txt", "w") as fh:
@@ -665,7 +781,7 @@ def phase_video(dev: torch.device) -> dict:
             f"--emb_file={work}/emb.npz", "--sampling.solver=dpm-solver",
             f"--sampling.num_steps={VIDEO_STEPS}", "--sampling.cfg_scale=5.0",
             "--sampling.flow_shift=3.0",
-            f"--sampling.latent_shape={VIDEO_LATENT}".replace(" ", ""),
+            f"--sampling.latent_shape={VIDEO_LATENT}".replace(" ", ""), *extra_argv,
         ]
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
@@ -674,28 +790,48 @@ def phase_video(dev: torch.device) -> dict:
         counts = kernels.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         latents = np.load(out["outputs"][0]["path"])
-    model = out["model"]
-    cfg = model.cfg
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"[video] Wan2.1-1.3B full MHLA: {cfg.num_layers} layers (linear_attn_idx "
-        f"{cfg.linear_attn_idx[0]}-{cfg.linear_attn_idx[-1]}), dim {cfg.dim}, {cfg.num_heads} "
-        f"heads, ffn {cfg.ffn_dim}, block layout {cfg.block_layout}, {n_params / 1e6:.1f} M "
-        f"float32 params, compute {cfg.dtype}")
-    log(f"[video] launches in {VIDEO_STEPS} dpm-solver steps with CFG: {counts}")
+    cfg = out["model"].cfg
+    n_params = sum(p.numel() for p in out["model"].parameters())
+    types = [cfg.layer_attn_type(i) for i in range(cfg.num_layers)]
+    log(f"[{tag}] Wan2.1-1.3B: {cfg.num_layers} layers ({types.count('mhla_uni')} mhla_uni, "
+        f"{types.count('flash')} flash, {types.count('sparse')} sparse), dim {cfg.dim}, "
+        f"{cfg.num_heads} heads, ffn {cfg.ffn_dim}, block layout {cfg.block_layout}, "
+        f"{n_params / 1e6:.1f} M float32 params, compute {cfg.dtype}")
+    check_sampling(tag, latents, counts, want)
+    return {"model": out["model"], "counts": counts, "peak_gb": peak_gb, "latents": latents,
+            "seconds": out["sample_seconds"][0]}
+
+
+def check_sampling(tag: str, latents: np.ndarray, counts: dict, want: dict) -> None:
+    log(f"[{tag}] launches in {VIDEO_STEPS} dpm-solver steps with CFG: {counts}")
     if latents.shape != VIDEO_LATENT or not np.isfinite(latents).all():
         raise AssertionError(f"latents {latents.shape}, finite {np.isfinite(latents).all()}")
-    want = {name: VIDEO_STEPS * VIDEO_LAYERS * per for name, per in VIDEO_KERNELS.items()}
     got = {name: counts[name] for name in want}
     if got != want:
-        raise AssertionError(f"launches of the video path {got}, expected {want}")
-    step_ms = out["sample_seconds"][0] * 1e3 / VIDEO_STEPS
+        raise AssertionError(f"launches of the {tag} path {got}, expected {want}")
+
+
+def video_inputs(dev: torch.device, text_dim: int, t_value: float):
+    """The CFG batch of one model call: latents, timesteps, text embeddings."""
+    gen = torch.Generator(dev).manual_seed(SEED + 8)
+    x = torch.randn(VIDEO_CFG_BATCH, *VIDEO_LATENT, generator=gen, device=dev)
+    ctx = torch.randn(VIDEO_CFG_BATCH, VIDEO_TEXT_LEN, text_dim, generator=gen, device=dev)
+    return x, torch.full((VIDEO_CFG_BATCH,), t_value, device=dev), ctx
+
+
+def phase_video(dev: torch.device) -> dict:
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    run = sample_with_cli(dev, "video", video_launches(VIDEO_LAYERS, [VIDEO_LAYERS] * VIDEO_STEPS,
+                                                      [0] * VIDEO_STEPS))
+    model, counts, peak_gb, latents = run["model"], run["counts"], run["peak_gb"], run["latents"]
+    cfg = model.cfg
+    step_ms = run["seconds"] * 1e3 / VIDEO_STEPS
 
     # one model forward through the kernels against the same forward through
     # their plain versions, same weights and inputs (the CFG batch of two)
-    gen = torch.Generator(dev).manual_seed(SEED + 8)
-    x = torch.randn(VIDEO_CFG_BATCH, *VIDEO_LATENT, generator=gen, device=dev)
-    ctx = torch.randn(VIDEO_CFG_BATCH, VIDEO_TEXT_LEN, cfg.text_dim, generator=gen, device=dev)
-    t = torch.full((VIDEO_CFG_BATCH,), 500.0, device=dev)
+    x, t, ctx = video_inputs(dev, cfg.text_dim, 500.0)
     with torch.no_grad():
         v_kern = model(x, t, ctx)
         before = kernels.launch_counts()
@@ -713,11 +849,123 @@ def phase_video(dev: torch.device) -> dict:
     if not (torch.isfinite(v_kern).all() and rel < VIDEO_TOL):
         raise AssertionError(f"video forward: kernels != plain ({rel:.3e})")
     log(f"[video] latents {latents.shape} finite, std {latents.std():.3f}; "
-        f"{step_ms:.1f} ms per denoising step (sampling {out['sample_seconds'][0]:.2f} s for "
+        f"{step_ms:.1f} ms per denoising step (sampling {run['seconds']:.2f} s for "
         f"{VIDEO_STEPS} steps, host clock); {fwd_ms:.1f} ms per forward of the CFG batch "
         f"(CUDA events, median of 3); peak device memory {peak_gb:.1f} GB")
     return {"launches": counts, "step_ms": step_ms, "forward_ms": fwd_ms, "peak_gb": peak_gb,
             "kernels_vs_plain": rel}
+
+
+def phase_video_hybrid(dev: torch.device):
+    """The hybrid model through the CLI: 20 MHLA layers, 10 dense softmax
+    layers on K9 at Tq = Tk = 31,500. Returns the numbers and the model."""
+    idx = str(HYBRID_LINEAR_IDX).replace(" ", "")
+    k9 = [VIDEO_LAYERS + len(SOFTMAX_LAYERS)] * VIDEO_STEPS  # cross- and self-attention
+    run = sample_with_cli(dev, "hybrid", video_launches(len(HYBRID_LINEAR_IDX), k9,
+                                                        [0] * VIDEO_STEPS),
+                          [f"--linear_attn_idx={idx}"])
+    model = run["model"]
+    x, t, ctx = video_inputs(dev, model.cfg.text_dim, 500.0)
+    with torch.no_grad():
+        fwd_ms = median_ms(lambda: model(x, t, ctx), reps=3, inner=1, warmup=1)
+    step_ms = run["seconds"] * 1e3 / VIDEO_STEPS
+    log(f"[hybrid] latents {run['latents'].shape} finite, std {run['latents'].std():.3f}; "
+        f"{step_ms:.1f} ms per denoising step (sampling {run['seconds']:.2f} s for {VIDEO_STEPS} "
+        f"steps, host clock); {fwd_ms:.1f} ms per forward of the CFG batch (CUDA events, "
+        f"median of 3); peak device memory {run['peak_gb']:.1f} GB")
+    return {"launches": run["counts"], "step_ms": step_ms, "forward_ms": fwd_ms,
+            "peak_gb": run["peak_gb"]}, model
+
+
+def phase_video_sparse(dev: torch.device, hybrid) -> dict:
+    """The hybrid model's weights with the softmax layers radial-sparse,
+    through ``sample_video_latents`` (the CLI has no field for it, as in the
+    JAX package)."""
+    import dataclasses
+
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.eval import sample_video_latents
+    from mhla_tpu_torch.models import WanModel
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    cfg = dataclasses.replace(hybrid.cfg, sparse_attn_idx=SOFTMAX_LAYERS)
+    if cfg.sparse_dense_from_t != DENSE_FROM_T:
+        raise AssertionError(f"dense guard at {cfg.sparse_dense_from_t}, expected {DENSE_FROM_T}")
+    model = WanModel(cfg, device=dev).eval()
+    model.load_state_dict(hybrid.state_dict())
+    emb, null = (torch.from_numpy(a)[None] for a in video_text_embeddings())
+    n_soft, above = len(SOFTMAX_LAYERS), VIDEO_STEPS - STEPS_BELOW_GUARD
+    want = video_launches(
+        len(HYBRID_LINEAR_IDX),
+        [VIDEO_LAYERS + n_soft] * above + [VIDEO_LAYERS] * STEPS_BELOW_GUARD,
+        [0] * above + [n_soft] * STEPS_BELOW_GUARD)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    latents = sample_video_latents(
+        model, emb, null, latent_shape=VIDEO_LATENT, cfg_scale=5.0, num_steps=VIDEO_STEPS,
+        solver="dpm-solver", flow_shift=3.0, generator=torch.Generator(dev).manual_seed(SEED),
+    ).cpu().numpy()[0]  # the copy waits for the device
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_sampling("hybrid_sparse", latents, counts, want)
+
+    low, high = T_SPARSE, T_GUARDED
+    x, t_low, ctx = video_inputs(dev, cfg.text_dim, low)
+    t_high = torch.full_like(t_low, high)
+    with torch.no_grad():
+        v_kern = model(x, t_low, ctx)
+        before = kernels.launch_counts()
+        with plain_kernels():
+            v_plain = model(x, t_low, ctx)
+        if kernels.launch_counts() != before:
+            raise AssertionError("the plain forward launched a kernel")
+        rel = get_err_ratio(v_plain, v_kern)
+        del v_plain
+        guard = get_err_ratio(hybrid(x, t_high, ctx), model(x, t_high, ctx))
+        differs = get_err_ratio(hybrid(x, t_low, ctx), v_kern)
+        fwd_low = median_ms(lambda: model(x, t_low, ctx), reps=3, inner=1, warmup=0)
+        fwd_high = median_ms(lambda: model(x, t_high, ctx), reps=3, inner=1, warmup=0)
+
+        # what the guard's host-side decision costs: two forwards back to
+        # back at t = 501, with the guard (the host waits for max(t)) and
+        # without one (no wait), in turns
+        def pair_ms(dense_from_t):
+            model.cfg.sparse_dense_from_t = dense_from_t
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x, t_low, ctx)
+            model(x, t_low, ctx)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / 2
+
+        try:
+            pairs = [(g, pair_ms(g)) for g in (DENSE_FROM_T, None, None, DENSE_FROM_T)]
+        finally:
+            model.cfg.sparse_dense_from_t = DENSE_FROM_T
+    log(f"[hybrid_sparse] forward at t = {low:g} through K5-K10 vs plain versions: velocity "
+        f"rel-RMS {rel:.3e} (tol {VIDEO_TOL}); guarded forward at t = {high:g} vs the hybrid "
+        f"model's: rel-RMS {guard:.3e} (expected 0); at t = {low:g} vs the hybrid model's: "
+        f"{differs:.3e} (the mask is active)")
+    if not (torch.isfinite(v_kern).all() and rel < VIDEO_TOL):
+        raise AssertionError(f"hybrid_sparse forward: kernels != plain ({rel:.3e})")
+    if guard != 0.0 or not differs > 1e-3:
+        raise AssertionError(f"dense guard: t = {high:g} differs from the hybrid model by "
+                             f"{guard:.3e}; t = {low:g} by {differs:.3e}")
+    step_ms = seconds * 1e3 / VIDEO_STEPS
+    log(f"[hybrid_sparse] latents {latents.shape} finite, std {latents.std():.3f}; "
+        f"{step_ms:.1f} ms per denoising step (sampling {seconds:.2f} s for {VIDEO_STEPS} steps, "
+        f"two on each side of the guard, host clock); forward of the CFG batch {fwd_low:.1f} ms "
+        f"at t = {low:g} (K10), {fwd_high:.1f} ms at t = {high:g} (dense guard; CUDA events, "
+        f"median of 3); peak device memory {peak_gb:.1f} GB")
+    log(f"[hybrid_sparse] host clock per forward, two back to back at t = {low:g}: "
+        + ", ".join(f"{'guard' if g else 'no guard'} {ms:.1f} ms" for g, ms in pairs))
+    return {"launches": counts, "step_ms": step_ms, "forward_ms_sparse": fwd_low,
+            "forward_ms_guarded": fwd_high, "peak_gb": peak_gb, "kernels_vs_plain": rel,
+            "guard_vs_hybrid": guard,
+            "guard_wait_ms": statistics.mean(ms for g, ms in pairs if g)
+            - statistics.mean(ms for g, ms in pairs if not g)}
 
 
 def main() -> None:
@@ -732,18 +980,27 @@ def main() -> None:
     train = phase_train(dev)
     kern.update(phase_kernels_video(dev))
     video = phase_video(dev)
+    kern.update(phase_kernels_hybrid(dev))
+    hybrid, hybrid_model = phase_video_hybrid(dev)
+    sparse = phase_video_sparse(dev, hybrid_model)
+    del hybrid_model
+    # each kernel's launches on the path that brought it in; K9's on the hybrid
+    # path, which runs it at both of its shapes
     launches = {**{n: serve["launches"][n] for n in FWD_KERNELS},
                 **{n: train["launches"][n] for n in BWD_KERNELS},
-                **{n: video["launches"][n] for n in VIDEO_KERNELS}}
+                **{n: video["launches"][n] for n in VIDEO_KERNELS},
+                "flash_attention": hybrid["launches"]["flash_attention"],
+                "radial_flash_attention": sparse["launches"]["radial_flash_attention"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": launches[name], **{key: kern[name][key] for key in keys}}
         for name, (route, source, replaces) in KERNEL_META.items()
     ]
-    train.pop("launches")
-    video.pop("launches")
-    log(json.dumps({"serve": serve["rates"], "train": train, "video": video, "card": smi}))
+    for phase in (train, video, hybrid, sparse):
+        phase.pop("launches")
+    log(json.dumps({"serve": serve["rates"], "train": train, "video": video, "hybrid": hybrid,
+                    "hybrid_sparse": sparse, "card": smi}))
     log(json.dumps({"kernels": kernels_line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,7 +3,10 @@
 
 Configuration is the dataclass defaults (the full-MHLA Wan2.1-1.3B of
 ``configs/wan_1300m_mhla.yaml``: all 30 layers MHLA) plus ``--a.b=v``
-overrides, or a YAML file where PyYAML is installed.
+overrides, or a YAML file where PyYAML is installed. A ``linear_attn_idx``
+with gaps gives the hybrid model: the layers it leaves out run dense
+softmax self-attention (``configs/wan_1300m_hybrid_mhla.yaml``:
+``--linear_attn_idx=(1,2,4,5,...,28,29)``).
 
 Text conditioning: ``emb_file`` names an .npz of precomputed text
 embeddings keyed ``emb_0``, ``emb_1``, ... (one per prompt line) and an
@@ -77,7 +80,9 @@ def read_prompts(txt_file: str) -> List[str]:
     ]
 
 
-def _build_model(cfg: VideoInferConfig, device: torch.device) -> WanModel:
+def _build_model(cfg: VideoInferConfig, device: torch.device, **model_overrides) -> WanModel:
+    """The configured model on ``device``, from a seeded init;
+    ``model_overrides`` are ``WanConfig`` fields the CLI has no option for."""
     overrides = {
         k: getattr(cfg, k)
         for k in ("num_layers", "dim", "num_heads", "ffn_dim", "text_dim", "text_len")
@@ -87,6 +92,7 @@ def _build_model(cfg: VideoInferConfig, device: torch.device) -> WanModel:
         overrides["linear_attn_idx"] = tuple(cfg.linear_attn_idx)
     if cfg.bf16:
         overrides["dtype"] = torch.bfloat16
+    overrides.update(model_overrides)
     model = WanModel(build_wan_config(cfg.model_name, **overrides), device=device)
     # float32 parameters from a seeded init; bf16 is the compute dtype
     return init_wan_params(model, torch.Generator(device).manual_seed(0)).eval()

@@ -11,14 +11,16 @@ Video: K5 ``blockify_island`` and K8 ``unblockify_island`` (Triton), K6
 ``mix_states_dense`` and K7 ``block_readout`` (CUDA C++,
 ``csrc/mhla_block.cu``) behind ``mhla_blockwise_fused``; K9
 ``flash_attention.flash_attention`` (CUDA C++, ``csrc/flash_fwd.cu``; the
-module keeps its name here, as in the JAX package).
+module keeps its name here, as in the JAX package); K10
+``sparse_attention.radial_flash_attention`` (CUDA C++,
+``csrc/radial_fwd.cu``) behind ``sparse_flash_attention``.
 
 Every wrapper runs its plain PyTorch version for a CPU tensor, launches its
 kernel for a CUDA tensor or raises, and counts its launches in its module's
 ``launches``.
 """
 
-from . import flash_attention, fmap_rope, mhla_block, mhla_chunk
+from . import flash_attention, fmap_rope, mhla_block, mhla_chunk, sparse_attention
 from .fmap_rope import fmap_rope_bwd, fused_fmap_rope_flat
 from .mhla_block import (
     block_readout,
@@ -37,9 +39,10 @@ from .mhla_chunk import (
     mix_states,
     mix_states_bwd,
 )
+from .sparse_attention import radial_flash_attention, sparse_flash_attention
 
 _COUNTERS = (fmap_rope.launches, mhla_chunk.launches, mhla_block.launches,
-             flash_attention.launches)
+             flash_attention.launches, sparse_attention.launches)
 
 
 def launch_counts() -> dict:
@@ -69,7 +72,10 @@ __all__ = [
     "mix_states",
     "mix_states_bwd",
     "mix_states_dense",
+    "radial_flash_attention",
     "reset_launch_counts",
     "rms_norm_heads_flat",
+    "sparse_attention",
+    "sparse_flash_attention",
     "unblockify_island",
 ]

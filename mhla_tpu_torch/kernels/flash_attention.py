@@ -16,7 +16,7 @@ the kernel or raises. ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -40,17 +40,44 @@ def _lib() -> ctypes.CDLL:
     return _lib_cache
 
 
+# float32 score elements one row block of the plain version may hold (2 GiB)
+_PLAIN_SCORE_ELEMS = 1 << 29
+
+
 def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    block_rows: Optional[int] = None,
+    row_mask: Optional[Callable[[int, int], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """softmax(scale * q k^T) v per batch row and head: q [B, Tq, H, D],
     k, v [B, Tk, H, D] -> [B, Tq, H, D] in q's dtype. Scores, softmax and
     sums are float32; the probabilities are rounded to q's dtype before the
-    product with v, as the kernel rounds its unnormalized ones."""
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    p = torch.softmax(s, dim=-1).to(q.dtype).float()
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    product with v, as the kernel rounds its unnormalized ones.
+
+    Query rows are walked ``block_rows`` at a time (None: as many as keep a
+    block's [B, H, rows, Tk] scores within 2 GiB; all of them at the video
+    model's cross-attention, 710 at its 31,500-token self-attention). Each
+    block takes one full softmax over all keys, so the result does not
+    depend on the blocking beyond the order of the products' sums.
+    ``row_mask(r0, r1)`` gives a bool keep-mask [r1 - r0, Tk] for those
+    query rows; every row must keep at least one key."""
+    b, tq, h, d = q.shape
+    scale = d**-0.5 if scale is None else scale
+    if block_rows is None:
+        block_rows = max(1, _PLAIN_SCORE_ELEMS // max(1, b * h * k.shape[1]))
+    kf, vf = k.float(), v.float()
+    out = torch.empty_like(q)
+    for r0 in range(0, tq, block_rows):
+        r1 = min(tq, r0 + block_rows)
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, r0:r1].float(), kf) * scale
+        if row_mask is not None:
+            s.masked_fill_(~row_mask(r0, r1), float("-inf"))
+        p = torch.softmax(s, dim=-1).to(q.dtype).float()
+        out[:, r0:r1] = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    return out
 
 
 def flash_attention(

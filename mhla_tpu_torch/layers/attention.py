@@ -1,8 +1,8 @@
 """Softmax attention (counterpart of ``sdpa`` in
 ``mhla_tpu/layers/attention.py``): the non-causal form the video model's
-text cross-attention uses. Causal attention, windows, masks, packed
-segments and the ``SelfAttention`` module wait for the slices that need
-them."""
+text cross-attention and its dense softmax self-attention use. Causal
+attention, windows, masks, packed segments and the ``SelfAttention`` module
+wait for the slices that need them."""
 
 from __future__ import annotations
 

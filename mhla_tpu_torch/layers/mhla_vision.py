@@ -17,7 +17,6 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -25,7 +24,7 @@ import torch.nn.functional as F
 from ..kernels.mhla_block import blockify_island, mhla_blockwise_fused, unblockify_island
 from ..ops.block_mix import block_mixing_matrix
 from ..ops.mhla_blockwise import mhla_blockwise_mh
-from ..ops.rotary import apply_rotary_3d_halves, rope_angles_3d, rope_tables_flat
+from ..ops.rotary import apply_rotary_3d_halves, rope_angles_3d_on, rope_tables_flat
 from .fused_dense import dense
 from .norms import RMSNorm
 
@@ -192,9 +191,7 @@ class MHLA3D(nn.Module):
         if self.without_rope:
             q_rope, k_rope = q5, k5
         else:
-            angles = torch.from_numpy(
-                rope_angles_3d(grid, d, self.rope_theta, self.rope_max_pos).astype(np.float32)
-            ).to(q.device)
+            angles = rope_angles_3d_on(grid, d, self.rope_theta, self.rope_max_pos, q.device)
             q_rope = apply_rotary_3d_halves(q5, angles)
             k_rope = apply_rotary_3d_halves(k5, angles)
         streams = [q_rope, k_rope, v5] + ([q5, k5] if self.normalize_out else [])

@@ -60,7 +60,9 @@ def wan_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     tree) -> float32 state dict for this package's ``WanModel`` of the same
     config. ``blocks_<i>`` becomes ``blocks.<i>``; every ``kernel`` becomes
     a transposed ``weight``; biases, norm weights, ``modulation``,
-    ``head_modulation`` and a trainable ``block_attn`` keep their names."""
+    ``head_modulation`` and a trainable ``block_attn`` keep their names. The
+    softmax layers need nothing of their own: ``self_attn.{q,k,v,o}`` and
+    ``norm_q``/``norm_k`` are named alike in both packages."""
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping[str, Any], prefix: str) -> None:

@@ -4,7 +4,11 @@
 - patch embedding over (F, H, W) latents, patch (1, 2, 2)
 - float32 sinusoidal time embedding -> 6-way adaLN modulation (a learned
   per-block ``modulation`` added to the shared projection)
-- every layer listed in ``linear_attn_idx`` runs :class:`MHLA3D`
+- every layer listed in ``linear_attn_idx`` runs :class:`MHLA3D`; the
+  others run :class:`WanSelfAttention` (softmax with 3-D RoPE): dense
+  (``sdpa``), or radial-sparse for the layers in ``sparse_attn_idx``, which
+  fall back to dense while the denoising timestep is at or above
+  ``sparse_dense_from_t``
 - text cross-attention in every block (``sdpa``: the flash kernel at video
   lengths)
 - ``grid_adjust``: each grid axis is cropped to a multiple of the block
@@ -14,11 +18,9 @@ Parameters may stay float32 while ``cfg.dtype`` is bf16: every projection
 casts its weight to the activation's dtype, as flax ``Dense(dtype)`` does;
 the time embedding and the adaLN arithmetic are float32 whatever the dtype.
 
-Not ported yet, raising ``NotImplementedError``: softmax and radial-sparse
-self-attention layers (any layer outside ``linear_attn_idx``,
-``sparse_attn_idx``), the linear baselines (``attn_type`` other than
-``mhla_uni``), image-to-video (``model_type='i2v'``), ``capture`` and
-``remat``.
+Not ported yet, raising ``NotImplementedError``: the linear baselines
+(``attn_type`` other than ``mhla_uni``), image-to-video
+(``model_type='i2v'``), ``capture`` and ``remat``.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from ..layers.attention import sdpa
 from ..layers.fused_dense import dense
 from ..layers.mhla_vision import MHLA3D
 from ..layers.norms import LayerNorm, RMSNorm
-from ..ops.rotary import rope_tables_flat
+from ..kernels.sparse_attention import sparse_flash_attention
+from ..ops.rotary import apply_rotary_3d_halves, rope_angles_3d_on, rope_tables_flat
 
 
 def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
@@ -66,7 +69,10 @@ class WanConfig:
     eps: float = 1e-6
     linear_attn_idx: Optional[Tuple[int, ...]] = None  # the layers that run attn_type
     attn_type: str = "mhla_uni"
+    # layers that run radial-sparse softmax attention; at inference they run
+    # dense attention while max(t) >= sparse_dense_from_t (None: no guard)
     sparse_attn_idx: Optional[Tuple[int, ...]] = None
+    sparse_dense_from_t: Optional[float] = 850.0
     without_rope: bool = False
     normalize_out: bool = False
     is_gated: bool = True
@@ -102,6 +108,39 @@ def build_wan_config(model_name: str = "Wan_T2V_1300M", **overrides) -> WanConfi
         kwargs["model_type"] = "i2v"
     kwargs.update(overrides)
     return WanConfig(**kwargs)
+
+
+class WanSelfAttention(nn.Module):
+    """Softmax self-attention with 3-D RoPE: full-dim RMSNorm on q and k,
+    rotate-half rotary per head, then dense attention (``sdpa``) or, with
+    ``sparse``, radial-sparse attention over the grid's frames unless the
+    caller asks for dense (``use_dense``)."""
+
+    def __init__(self, dim: int, num_heads: int, qk_norm: bool = True, eps: float = 1e-6,
+                 sparse: bool = False, device=None):
+        super().__init__()
+        self.num_heads, self.sparse = num_heads, sparse
+        for name in ("q", "k", "v", "o"):
+            setattr(self, name, nn.Linear(dim, dim, bias=True, device=device))
+        self.norm_q = RMSNorm(dim, eps=eps, device=device) if qk_norm else None
+        self.norm_k = RMSNorm(dim, eps=eps, device=device) if qk_norm else None
+
+    def forward(self, x: torch.Tensor, grid: Tuple[int, int, int],
+                use_dense: bool = False) -> torch.Tensor:
+        b, t, dim = x.shape
+        h = self.num_heads
+        q, k, v = dense(x, self.q), dense(x, self.k), dense(x, self.v)
+        if self.norm_q is not None:
+            q, k = self.norm_q(q), self.norm_k(k)
+        angles = rope_angles_3d_on(grid, dim // h, device=x.device)
+        q = apply_rotary_3d_halves(q.reshape(b, t, h, -1), angles)
+        k = apply_rotary_3d_halves(k.reshape(b, t, h, -1), angles)
+        v = v.reshape(b, t, h, -1)
+        if self.sparse and not use_dense:
+            o = sparse_flash_attention(q, k, v, num_frames=grid[0])
+        else:
+            o = sdpa(q, k, v)
+        return dense(o.reshape(b, t, dim), self.o)
 
 
 class WanCrossAttention(nn.Module):
@@ -141,20 +180,26 @@ def _gated_residual(x: torch.Tensor, h: torch.Tensor, gate: torch.Tensor) -> tor
 class WanBlock(nn.Module):
     def __init__(self, cfg: WanConfig, layer_idx: int, device=None):
         super().__init__()
-        attn_type = cfg.layer_attn_type(layer_idx)
-        if attn_type != "mhla_uni":
-            raise NotImplementedError(
-                f"layer {layer_idx}: only mhla_uni self-attention is ported, got "
-                f"{attn_type!r} (list the layer in linear_attn_idx)"
-            )
+        self.attn_type = cfg.layer_attn_type(layer_idx)
         self.modulation = nn.Parameter(torch.zeros(1, 6, cfg.dim, device=device))
         self.norm1 = LayerNorm(cfg.dim, cfg.eps, use_bias=False, use_scale=False)
-        self.self_attn = MHLA3D(
-            dim=cfg.dim, num_heads=cfg.num_heads, blocks_layout=cfg.block_layout,
-            qk_norm=cfg.qk_norm, is_gated=cfg.is_gated, is_lepe=cfg.is_lepe,
-            without_rope=cfg.without_rope, normalize_out=cfg.normalize_out, eps=cfg.eps,
-            attn_compute_dtype=cfg.attn_compute_dtype, device=device,
-        )
+        if self.attn_type == "mhla_uni":
+            self.self_attn = MHLA3D(
+                dim=cfg.dim, num_heads=cfg.num_heads, blocks_layout=cfg.block_layout,
+                qk_norm=cfg.qk_norm, is_gated=cfg.is_gated, is_lepe=cfg.is_lepe,
+                without_rope=cfg.without_rope, normalize_out=cfg.normalize_out, eps=cfg.eps,
+                attn_compute_dtype=cfg.attn_compute_dtype, device=device,
+            )
+        elif self.attn_type in ("flash", "sparse"):
+            self.self_attn = WanSelfAttention(
+                cfg.dim, cfg.num_heads, cfg.qk_norm, cfg.eps,
+                sparse=self.attn_type == "sparse", device=device,
+            )
+        else:
+            raise NotImplementedError(
+                f"layer {layer_idx}: self-attention {self.attn_type!r} is not ported yet "
+                "(mhla_uni, flash and sparse are)"
+            )
         self.norm3 = LayerNorm(cfg.dim, cfg.eps, device=device) if cfg.cross_attn_norm else None
         self.cross_attn = WanCrossAttention(cfg.dim, cfg.num_heads, cfg.qk_norm, cfg.eps,
                                             device=device)
@@ -169,9 +214,14 @@ class WanBlock(nn.Module):
         context: torch.Tensor,  # [B, L_ctx, dim]
         grid: Tuple[int, int, int],
         rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        use_dense: bool = False,  # the sparse layers' early-step guard
     ) -> torch.Tensor:
         e = (self.modulation.float() + e0.float()).unbind(dim=1)
-        h = self.self_attn(_modulate(self.norm1(x), e[1], e[0]), grid, rope_tables)
+        h = _modulate(self.norm1(x), e[1], e[0])
+        if self.attn_type == "mhla_uni":
+            h = self.self_attn(h, grid, rope_tables)
+        else:
+            h = self.self_attn(h, grid, use_dense)
         x = _gated_residual(x, h, e[2])
         x = x + self.cross_attn(self.norm3(x) if self.norm3 is not None else x, context)
         h = dense(_modulate(self.norm2(x), e[4], e[3]), self.ffn_fc1)
@@ -186,8 +236,6 @@ class WanModel(nn.Module):
         super().__init__()
         if cfg.model_type != "t2v":
             raise NotImplementedError(f"model_type {cfg.model_type!r}: only t2v is ported")
-        if cfg.sparse_attn_idx:
-            raise NotImplementedError("radial-sparse attention layers are not ported yet")
         if cfg.remat:
             raise NotImplementedError("remat belongs to training, which is not ported yet")
         self.cfg = cfg
@@ -262,8 +310,16 @@ class WanModel(nn.Module):
         if cfg.linear_attn_idx and not cfg.without_rope and dh % 128 == 0:
             rope_tables = rope_tables_flat(grid, dh, device=h.device)
 
+        # the sparse layers run dense attention while the denoising timestep
+        # is still >= sparse_dense_from_t. The JAX model selects the branch on
+        # the device (lax.cond); here the host selects it, which waits once
+        # per forward for ``t`` where ``t`` lies on the device.
+        use_dense = False
+        if cfg.sparse_attn_idx and cfg.sparse_dense_from_t is not None:
+            use_dense = bool(t.max() >= cfg.sparse_dense_from_t)
+
         for block in self.blocks:
-            h = block(h, e0, ctx, grid, rope_tables)
+            h = block(h, e0, ctx, grid, rope_tables, use_dense)
 
         em = self.head_modulation.float() + e[:, None]
         out = dense(_modulate(self.head_norm(h), em[:, 1], em[:, 0]), self.head)

@@ -157,6 +157,26 @@ def apply_rotary_3d_halves(x: torch.Tensor, angles: torch.Tensor) -> torch.Tenso
 
 
 @functools.lru_cache(maxsize=4)
+def _angles_cached(grid, head_dim: int, theta: float, max_pos: int, device: str):
+    ang = rope_angles_3d(grid, head_dim, theta, max_pos).astype(np.float32)
+    return torch.from_numpy(ang).to(device)
+
+
+def rope_angles_3d_on(
+    grid: Sequence[int],
+    head_dim: int,
+    theta: float = 10000.0,
+    max_pos: int = 1024,
+    device: torch.device | str = "cpu",
+) -> torch.Tensor:
+    """:func:`rope_angles_3d` as a float32 tensor on ``device``, for
+    :func:`apply_rotary_3d_halves`; cached like :func:`rope_tables_flat`,
+    and as little to be written into."""
+    return _angles_cached(tuple(grid), head_dim, float(theta), max_pos,
+                          str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=4)
 def _tables_flat_cached(grid, head_dim: int, theta: float, max_pos: int, device: str):
     ang = rope_angles_3d(grid, head_dim, theta, max_pos).astype(np.float32).astype(np.float64)
     cos, sin = np.cos(ang), np.sin(ang)

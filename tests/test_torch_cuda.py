@@ -17,6 +17,7 @@ from mhla_tpu_torch import kernels
 from mhla_tpu_torch.eval import sample_video_latents
 from mhla_tpu_torch.kernels import flash_attention as flash
 from mhla_tpu_torch.kernels import fmap_rope, mhla_block, mhla_chunk
+from mhla_tpu_torch.kernels import sparse_attention as sparse
 from mhla_tpu_torch.models import (
     MHLAForCausalLM,
     MHLALMConfig,
@@ -336,6 +337,59 @@ def test_flash_attention_kernel_matches_plain(dev, tq, tk):
     assert_close(f"flash {tq}x{tk} vs float32", ref, out, 1e-2)
 
 
+def test_flash_attention_kernel_at_long_equal_lengths(dev):
+    """K9 at Tq = Tk past 8,192 (the plain version walks the rows in blocks)
+    and no multiple of the tile."""
+    import chip_smoke
+
+    q, k, v = (_randn(dev, 1, 9001, 2, 128, seed=s).to(_BF16) for s in (1, 2, 3))
+    out = flash.flash_attention(q, k, v)
+    assert_close("flash 9001 x 9001", flash.flash_attention_plain(q, k, v, block_rows=2000), out,
+                 chip_smoke.FLASH_TOL)
+
+
+# frames x tokens per frame: below, at and above the 64-token tile; T a
+# multiple of the tile and not; enough frames for windows of 1/2, 1/4, 1/8, 1/16
+@pytest.mark.parametrize("frames,hw", [(6, 7), (5, 100), (3, 64), (4, 640), (8, 568), (21, 150),
+                                       (40, 3)])
+def test_radial_flash_kernel_matches_plain(dev, frames, hw):
+    """K10: full tiles (no mask work), masked tiles, tiles that are wholly
+    masked for some rows, rows past T and keys past T."""
+    import chip_smoke
+
+    t = frames * hw
+    q, k, v = (_randn(dev, 2, t, 3, 128, seed=s).to(_BF16) for s in (1, 2, 3))
+    before = sparse.launches["radial_flash_attention"]
+    out = sparse.sparse_flash_attention(q, k, v, frames)
+    assert sparse.launches["radial_flash_attention"] == before + 1
+    assert out.dtype == _BF16 and torch.isfinite(out.float()).all()
+    assert_close(f"radial {frames}x{hw}", sparse.radial_flash_attention_plain(q, k, v, frames),
+                 out, chip_smoke.FLASH_TOL)
+    # against float32 masked softmax attention: bf16 rounding of the probabilities and the output
+    ref = sparse.radial_flash_attention_plain(q.float(), k.float(), v.float(), frames)
+    assert_close(f"radial {frames}x{hw} vs float32", ref, out, 1e-2)
+    # float32 inputs stream as bf16 and come back as float32
+    out32 = sparse.sparse_flash_attention(q.float(), k.float(), v.float(), frames)
+    assert out32.dtype == _F32 and torch.equal(out32, out.float())
+    if frames >= 4:  # the mask bites: dense attention differs
+        assert not torch.allclose(out.float(), flash.flash_attention(q, k, v).float(), atol=1e-2)
+
+
+def test_radial_wrapper_raises_instead_of_falling_back(dev):
+    q = torch.zeros(1, 128, 2, 128, device=dev)
+    with pytest.raises(TypeError):  # float32 streams: the kernel takes bf16
+        sparse.sparse_flash_attention(q, q, q, 4, compute_dtype=_F32)
+    with pytest.raises(TypeError):
+        sparse.radial_flash_attention(q, q, q, 4)
+    z = torch.zeros(1, 128, 2, 64, dtype=_BF16, device=dev)
+    with pytest.raises(ValueError):  # head dim 64
+        sparse.radial_flash_attention(z, z, z, 4)
+    with pytest.raises(ValueError):  # tensors on several devices
+        sparse.radial_flash_attention(q.to(_BF16), q.to(_BF16).cpu(), q.to(_BF16), 4)
+    with pytest.raises(NotImplementedError):
+        sparse.sparse_flash_attention(q.to(_BF16), q.to(_BF16), q.to(_BF16), 5)
+
+
 def test_video_wrappers_raise_instead_of_falling_back(dev):
     q = torch.zeros(1, 8, 2, 128, device=dev)
     with pytest.raises(TypeError):  # float32: the kernel takes bf16
@@ -384,3 +438,40 @@ def test_tiny_wan_samples_through_the_kernels(dev, island):
             ref = model(x, t, ctx)
     assert kernels.launch_counts()["flash_attention"] == want["flash_attention"] + 2
     assert_close("tiny Wan kernels vs plain", ref, got, chip_smoke.VIDEO_TOL)
+
+
+def test_tiny_hybrid_wan_samples_through_the_kernels(dev):
+    """Layers mhla_uni, sparse, flash over 2,048 tokens in 8 frames: four
+    sampler steps with shift 3.0 cross the sparse layer's dense guard (t x
+    1000 = 1000, 900, 750, 501), so K10 launches in two of them and K9 takes
+    its place in the other two; the forward below the guard agrees with the
+    same forward through the plain versions, the one above it equals the
+    model without ``sparse_attn_idx``."""
+    import dataclasses
+
+    import chip_smoke
+
+    cfg = build_wan_config(num_layers=3, dim=256, num_heads=2, ffn_dim=512, text_len=128,
+                           text_dim=64, linear_attn_idx=(0,), sparse_attn_idx=(1,),
+                           block_layout=(2, 2, 2), dtype=_BF16)
+    model = init_wan_params(WanModel(cfg, device=dev), torch.Generator(dev).manual_seed(0)).eval()
+    text = _randn(dev, 1, 128, 64)
+    kernels.reset_launch_counts()
+    latents = sample_video_latents(model, text, latent_shape=(8, 32, 32, 16), num_steps=4,
+                                   flow_shift=3.0)
+    counts = kernels.launch_counts()
+    assert torch.isfinite(latents).all()
+    assert counts["radial_flash_attention"] == 2
+    assert counts["flash_attention"] == 4 * 3 + 4 + 2  # cross, the flash layer, the guarded calls
+    assert counts["blockify_island"] == 4 * 3 and counts["block_readout"] == 4
+    x, ctx = _randn(dev, 2, 8, 32, 32, 16, seed=1), text.expand(2, -1, -1)
+    dense = WanModel(dataclasses.replace(cfg, sparse_attn_idx=None), device=dev).eval()
+    dense.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        low, high = torch.full((2,), 501.0, device=dev), torch.full((2,), 900.0, device=dev)
+        got = model(x, low, ctx)
+        with chip_smoke.plain_kernels():
+            ref = model(x, low, ctx)
+        assert_close("tiny hybrid kernels vs plain", ref, got, chip_smoke.VIDEO_TOL)
+        assert torch.equal(model(x, high, ctx), dense(x, high, ctx))
+        assert not torch.equal(got, dense(x, low, ctx))

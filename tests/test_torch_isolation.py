@@ -85,7 +85,7 @@ def test_launch_counters_stay_zero_on_cpu():
         "fmap_rope", "chunk_states", "mix_states", "chunk_output",
         "fmap_rope_bwd", "chunk_output_bwd", "mix_states_bwd", "chunk_states_bwd",
         "blockify_island", "mix_states_dense", "block_readout", "unblockify_island",
-        "flash_attention",
+        "flash_attention", "radial_flash_attention",
     }
     assert all(n == 0 for n in counts.values()), counts
 
@@ -103,3 +103,21 @@ def test_launch_counters_stay_zero_on_cpu_through_video_sampling():
     assert latents.shape == (1, 8, 32, 32, 16) and torch.isfinite(latents).all()
     counts = kernels.launch_counts()
     assert all(n == 0 for n in counts.values()), counts
+
+
+def test_launch_counters_stay_zero_on_cpu_through_hybrid_sparse_sampling():
+    """MHLA, radial-sparse and dense softmax layers at a query length that
+    takes the flash route; four steps with shift 3.0 call the model on both
+    sides of the sparse layers' dense guard (t x 1000 = 1000, 900, 750, 501)."""
+    kernels.reset_launch_counts()
+    cfg = build_wan_config(num_layers=3, dim=256, num_heads=2, ffn_dim=256, text_len=128,
+                           text_dim=32, linear_attn_idx=(0,), sparse_attn_idx=(1,),
+                           block_layout=(2, 2, 2))
+    model = init_wan_params(WanModel(cfg), torch.Generator().manual_seed(0)).eval()
+    assert [b.attn_type for b in model.blocks] == ["mhla_uni", "sparse", "flash"]
+    latents = sample_video_latents(
+        model, torch.zeros(1, 128, 32), latent_shape=(8, 32, 32, 16), num_steps=4, flow_shift=3.0
+    )
+    assert latents.shape == (1, 8, 32, 32, 16) and torch.isfinite(latents).all()
+    counts = kernels.launch_counts()
+    assert len(counts) == 14 and all(n == 0 for n in counts.values()), counts
