@@ -53,6 +53,23 @@ exits non-zero:
              the kernels against the plain versions, and that the guarded
              forward at t = 900 equals the hybrid model's.
 
+12. kernels (video training) — K5b, K8b and K7b against their plain versions
+             at B=1, 150 blocks of 210 tokens (float32 and bf16, with and
+             without RoPE) and K9b at 31,500 x 512 and 31,500 x 31,500, each
+             beside its bound and, where one exists, a library call (two
+             einsums; the backward of ``scaled_dot_product_attention``);
+             then the gradients of one ``MHLA3D`` layer and one
+             ``WanSelfAttention`` layer at 31,500 tokens through the kernels
+             against the same layer through the plain versions.
+13. train (video) — ``mhla_tpu_torch.train.wan_train.main`` trains the
+             30-layer model 3 steps at 31,500 tokens, batch 1 (float32
+             parameters, bf16 compute, per-block remat, AdamW 1e-4 with clip
+             0.1 after a 1-step warm-up, EMA), in the full-MHLA and in the
+             hybrid configuration. Checks finite losses, finite non-zero
+             gradient norms and the exact launch counts of K5-K9 and
+             K5b-K9b; prints seconds per step, peak memory and the final
+             checkpoint's seconds and size.
+
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; there is no CPU mode.
 """
@@ -92,6 +109,13 @@ KERNEL_TOL = 2e-3
 # probability mass take 24 / 1024 of the weight at Tk = 1000 (1.4e-2) and
 # half of it at Tk = 33, the shapes the card tests add.
 FLASH_TOL = 6e-3
+# Relative-RMS tolerance of the flash backward kernel against its plain
+# version on the same (q, k, v, o, lse, dO), bf16: unlike the forward, the
+# two round the same quantities (the normalized P, then dS, then the three
+# outputs) to bf16 at the same points, from float32 values that differ only
+# by the order of their sums, so few roundings flip (4.8e-4 measured at both
+# of the video model's shapes). As KERNEL_TOL.
+FLASH_BWD_TOL = 2e-3
 # Relative-RMS tolerance of decode-step logits against one full chunked
 # forward, bf16: the chunked path rounds the chunk states, the mixed states
 # and the masked scores to bf16 (as the JAX op does) while the recurrent
@@ -128,6 +152,19 @@ OP_GRAD_TOL = 1e-2
 VIDEO_FLOOR_CPU = 1.5e-2
 VIDEO_TOL = 3e-2
 
+# Relative-RMS tolerance of a layer's gradients (its input's and every
+# parameter's) through the kernels against the same layer through the plain
+# versions under plain autograd, bf16 activations at 31,500 tokens. The
+# MHLA3D island is float32 and its custom backward repeats plain autograd's
+# terms, so only bf16 roundings of the incoming and outgoing gradients can
+# flip; the softmax layer inherits K9's distance to its plain version
+# (FLASH_TOL: independent bf16 roundings of P and of the output) in the
+# saved output and in every P of the backward, and sums a few such terms.
+# Measured on the card: MHLA3D at most 3.7e-3 (q.bias; dx 2.7e-3), the softmax
+# layer at most 8.4e-3 (k.bias; dx 2.6e-3); the tolerance is 2e-2. A wrong
+# transpose, a missing rotation sign or a dropped term gives O(1).
+LAYER_GRAD_TOL = 2e-2
+
 SEED = 0
 PROMPT_A, NEW_A, BATCH_A = 1984, 64, 4
 PROMPT_B, NEW_B, BATCH_B = 781, 32, 1
@@ -161,6 +198,14 @@ KERNEL_META = {
                         "mhla_tpu/kernels/flash_attention.py:115"),
     "radial_flash_attention": ("cuda", "mhla_tpu_torch/csrc/radial_fwd.cu",
                                "mhla_tpu/kernels/sparse_attention.py:312"),
+    "unblockify": ("triton", "mhla_tpu_torch/kernels/mhla_block.py",
+                   "mhla_tpu/kernels/mhla_block_pallas.py:273"),
+    "blockify": ("triton", "mhla_tpu_torch/kernels/mhla_block.py",
+                 "mhla_tpu/kernels/mhla_block_pallas.py:261"),
+    "block_readout_bwd": ("cuda", "mhla_tpu_torch/csrc/mhla_block_bwd.cu",
+                          "mhla_tpu/kernels/mhla_block_pallas.py:116"),
+    "flash_attention_bwd": ("cuda", "mhla_tpu_torch/csrc/flash_bwd.cu",
+                            "mhla_tpu/kernels/flash_attention.py:115"),
 }
 FWD_KERNELS = ("fmap_rope", "chunk_states", "mix_states", "chunk_output")
 BWD_KERNELS = ("fmap_rope_bwd", "chunk_output_bwd", "mix_states_bwd", "chunk_states_bwd")
@@ -181,6 +226,27 @@ SOFTMAX_LAYERS = tuple(range(0, VIDEO_LAYERS, 3))
 HYBRID_LINEAR_IDX = tuple(i for i in range(VIDEO_LAYERS) if i not in SOFTMAX_LAYERS)
 DENSE_FROM_T, STEPS_BELOW_GUARD = 850.0, 2
 T_SPARSE, T_GUARDED = 501.0, 900.0  # two of the sampler's timesteps, one on each side
+VIDEO_TRAIN_STEPS = 3
+VIDEO_BWD_KERNELS = ("unblockify", "blockify", "block_readout_bwd", "flash_attention_bwd")
+
+
+def video_train_launches(mhla_layers: int, softmax_layers: int,
+                          steps: int = VIDEO_TRAIN_STEPS) -> dict:
+    """Launches of K5-K9 and K5b-K9b in ``steps`` training steps with
+    per-block remat: every block's forward runs twice (once with the
+    step's forward, once recomputed in the backward), its backward once.
+    K6 launches a third time per MHLA layer, on M^T, for the gradient of the
+    states; K5b once for each of q, k and v; K9 and K9b in every
+    cross-attention and every softmax self-attention."""
+    attn = mhla_layers + 2 * softmax_layers  # one cross-attention per layer
+    per_step = {
+        "blockify_island": 2 * 3 * mhla_layers, "mix_states_dense": 3 * mhla_layers,
+        "block_readout": 2 * mhla_layers, "unblockify_island": 2 * mhla_layers,
+        "flash_attention": 2 * attn, "radial_flash_attention": 0,
+        "unblockify": 3 * mhla_layers, "blockify": mhla_layers,
+        "block_readout_bwd": mhla_layers, "flash_attention_bwd": attn,
+    }
+    return {name: steps * n for name, n in per_step.items()}
 
 
 def video_launches(mhla_layers: int, k9_per_step, k10_per_step) -> dict:
@@ -735,11 +801,33 @@ def phase_train(dev: torch.device) -> dict:
             "save_s": out["save_seconds"], "losses": losses, "peak_gb": peak_gb}
 
 
+def plain_flash_attention(q, k, v):
+    """``flash_attention_plain``; where a gradient is wanted, with
+    ``flash_attention_bwd_plain`` as its backward (plain autograd would keep
+    every [B, H, rows, Tk] score block of the forward)."""
+    from mhla_tpu_torch.kernels import flash_attention as flash
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = flash.flash_attention_plain(q, k, v, return_lse=True)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            return flash.flash_attention_bwd_plain(*ctx.saved_tensors, do)
+
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return PlainFlash.apply(q, k, v)
+    return flash.flash_attention_plain(q, k, v)
+
+
 def plain_kernels(only=None):
     """Context in which the video model's wrappers K5-K10 (or those named in
     ``only``) run their plain PyTorch versions on whatever device their
-    tensors lie."""
-    from mhla_tpu_torch.kernels import flash_attention as flash
+    tensors lie; gradients then come from plain autograd (and the plain flash
+    backward)."""
     from mhla_tpu_torch.kernels import mhla_block, sparse_attention
     from mhla_tpu_torch.layers import attention, mhla_vision
 
@@ -749,7 +837,7 @@ def plain_kernels(only=None):
         (mhla_vision, "unblockify_island", mhla_block.unblockify_island_plain),
         (mhla_block, "mix_states_dense", mhla_block.mix_states_dense_plain),
         (mhla_block, "block_readout", mhla_block.block_readout_plain),
-        (attention, "flash_attention", flash.flash_attention_plain),
+        (attention, "flash_attention", plain_flash_attention),
         (sparse_attention, "radial_flash_attention",
          sparse_attention.radial_flash_attention_plain),
     ):
@@ -968,6 +1056,201 @@ def phase_video_sparse(dev: torch.device, hybrid) -> dict:
             - statistics.mean(ms for g, ms in pairs if not g)}
 
 
+def layer_grads(layer, x: torch.Tensor, w: torch.Tensor, *args) -> dict:
+    """Gradients of sum(layer(x, *args) * w) in x and in every parameter of
+    ``layer``, by name."""
+    for p in layer.parameters():
+        p.grad = None
+    x = x.detach().requires_grad_()
+    (layer(x, *args).float() * w).sum().backward()
+    grads = {"x": x.grad, **{name: p.grad for name, p in layer.named_parameters()}}
+    for p in layer.parameters():
+        p.grad = None
+    return grads
+
+
+def phase_kernels_video_train(dev: torch.device) -> dict:
+    """K5b, K8b, K7b and K9b against their plain versions at the shapes one
+    training step of the Wan2.1-1.3B model gives them (batch 1, 31,500
+    tokens), then one MHLA3D and one softmax self-attention layer's gradients
+    through the kernels against the same layer through the plain versions."""
+    import torch.nn.functional as F
+
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.kernels import flash_attention as flash
+    from mhla_tpu_torch.kernels import mhla_block
+    from mhla_tpu_torch.layers import MHLA3D
+    from mhla_tpu_torch.models.wan import WanSelfAttention, init_wan_params
+    from mhla_tpu_torch.ops.rotary import rope_tables_flat
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    b, h, dh = 1, VIDEO_HEADS, VIDEO_HEAD_DIM
+    glt = (VIDEO_GRID, VIDEO_LAYOUT, h)
+    t, n = math.prod(VIDEO_GRID), math.prod(VIDEO_LAYOUT)
+    c, f = t // n, h * dh
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(SEED + 12)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    results = {}
+    check = lambda *a, **kw: check_kernel(results, *a, **kw)  # noqa: E731
+    slow = dict(reps=5, inner=2, warmup=1)
+    tables = rope_tables_flat(VIDEO_GRID, dh, device=dev)
+
+    # K5b as the gradients of q and k take it (float32, the rotation undone) and
+    # with the pre-RoPE copy's gradient summed in (bf16 island, normalize_out)
+    dyb, dnope = randn(b, n, c, f), randn(b, n, c, f)
+    check("unblockify", "f32 rope^T",
+          lambda: mhla_block.unblockify(dyb, tables, *glt, -1.0, f32),
+          lambda: mhla_block.unblockify_plain(dyb, tables, *glt, -1.0, f32), True,
+          work=(2 * nbytes(dyb) + nbytes(*tables), 6 * dyb.numel(), f32), tol=1e-6)
+    check("unblockify[v]", "f32 no rope",
+          lambda: mhla_block.unblockify(dyb, None, *glt, 1.0, f32),
+          lambda: mhla_block.unblockify_plain(dyb, None, *glt, 1.0, f32), True,
+          work=(2 * nbytes(dyb), dyb.numel(), f32), tol=1e-6)
+    dyb16, dnope16 = dyb.to(bf16), dnope.to(bf16)
+    check("unblockify[bf16+nope]", "bf16->f32 +add",
+          lambda: mhla_block.unblockify(dyb16, tables, *glt, -1.0, f32, dnope16),
+          lambda: mhla_block.unblockify_plain(dyb16, tables, *glt, -1.0, f32, dnope16), False,
+          tol=1e-6)
+    del dnope, dyb16, dnope16
+    # K8b as the island epilogue's backward takes it (bf16 gradient in, float32 out)
+    # and with RoPE (the transpose of K5b)
+    dy = randn(b, t, f).to(bf16)
+    check("blockify", "bf16->f32",
+          lambda: mhla_block.blockify(dy, None, *glt, 1.0, f32),
+          lambda: mhla_block.blockify_plain(dy, None, *glt, 1.0, f32), True,
+          work=(nbytes(dy) + 4 * dy.numel(), dy.numel(), f32), tol=1e-6)
+    check("blockify[rope]", "bf16->f32 rope",
+          lambda: mhla_block.blockify(dy, tables, *glt, 1.0, f32),
+          lambda: mhla_block.blockify_plain(dy, tables, *glt, 1.0, f32), False, tol=1e-6)
+    del dy
+
+    q4 = torch.relu(randn(b, n, c, f)) + 1e-6
+    mixed = randn(b, n, f, dh)
+    for dt, suffix in ((f32, ""), (bf16, "[bf16]")):
+        qq, mx, dd = q4.to(dt), mixed.to(dt), dyb.to(dt)
+        q5, m5, d5 = qq.unflatten(-1, (h, dh)), mx.unflatten(-2, (h, dh)), dd.unflatten(-1, (h, dh))
+        check("block_readout_bwd" + suffix, f"{str(dt)[6:]} C={c}",
+              lambda: mhla_block.block_readout_bwd(qq, mx, dd, h),
+              lambda: mhla_block.block_readout_bwd_plain(qq, mx, dd, h), True,
+              work=(2 * nbytes(qq, mx) + nbytes(dd), 4 * b * n * c * h * dh * dh, dt),
+              library=lambda: (torch.einsum("bnchv,bnhkv->bnchk", d5, m5),
+                               torch.einsum("bnchk,bnchv->bnhkv", q5, d5)))
+        del qq, mx, dd, q5, m5, d5
+    del q4, mixed, dyb
+
+    # K9b at the cross-attention's and the softmax self-attention's shapes, on
+    # K9's own output and log-sum-exp
+    for tk, name, timing in ((VIDEO_TEXT_LEN, "flash_attention_bwd", {}),
+                             (t, "flash_attention_bwd[self]", slow)):
+        q, k, v = (randn(b, tt, h, dh).to(bf16) for tt in (t, tk, tk))
+        do = randn(b, t, h, dh).to(bf16)
+        o, lse = flash._flash_fwd(q, k, v, None, want_lse=True)
+        if not torch.equal(o, flash.flash_attention(q, k, v)):
+            raise AssertionError("K9's training form and its serving form disagree")
+        lse_rel = get_err_ratio(flash.flash_attention_plain(q, k, v, return_lse=True)[1], lse)
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        check(name, f"Tq={t} Tk={tk}",
+              lambda: flash.flash_attention_bwd(q, k, v, o, lse, do),
+              lambda: flash.flash_attention_bwd_plain(q, k, v, o, lse, do), True,
+              tol=FLASH_BWD_TOL,
+              work=(nbytes(q, k, v, o, do, lse) + nbytes(q, k, v), 10 * b * h * t * tk * dh, bf16),
+              library=lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True),
+              timing=timing)
+        again = flash.flash_attention_bwd(q, k, v, o, lse, do)
+        first = flash.flash_attention_bwd(q, k, v, o, lse, do)
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            raise AssertionError(f"{name}: two runs differ")
+        log(f"[kernels] {name}: K9's log-sum-exp vs plain rel-RMS {lse_rel:.2e}; two runs equal")
+        if not lse_rel < 1e-5:
+            raise AssertionError(f"K9's log-sum-exp disagrees with the plain version ({lse_rel:.3e})")
+        del q, k, v, do, o, lse, qt, kt, vt, sdpa_out, dot, again, first
+
+    # one layer of each kind at 31,500 tokens, bf16 activations over float32
+    # parameters: gradients through the kernels against the plain versions
+    x, w = randn(b, t, f).to(bf16), randn(b, t, f)
+    for tag, layer, args in (
+        ("MHLA3D", MHLA3D(f, h, VIDEO_LAYOUT, normalize_out=False, device=dev),
+         (VIDEO_GRID, tables)),
+        ("WanSelfAttention", WanSelfAttention(f, h, device=dev), (VIDEO_GRID,)),
+    ):
+        init_wan_params(layer, torch.Generator(dev).manual_seed(SEED + 13))
+        with torch.no_grad():
+            for name, p in layer.named_parameters():
+                if "norm" in name:  # norm weights away from 1: their gradients are exercised
+                    p.add_(0.1 * randn(*p.shape))
+                elif name.endswith("bias"):
+                    p.add_(0.02 * randn(*p.shape))
+        kernels.reset_launch_counts()
+        got = layer_grads(layer, x, w, *args)
+        launched = {k_: v_ for k_, v_ in kernels.launch_counts().items() if v_}
+        with plain_kernels():
+            ref = layer_grads(layer, x, w, *args)
+        if {k_: v_ for k_, v_ in kernels.launch_counts().items() if v_} != launched:
+            raise AssertionError("the plain layer launched a kernel")
+        torch.cuda.synchronize()
+        rels = {name: get_err_ratio(ref[name], got[name]) for name in ref}
+        worst = max(rels, key=rels.get)
+        log(f"[grads] {tag} at {t} tokens, kernels {launched}: gradients vs plain versions, "
+            f"rel-RMS dx {rels['x']:.3e}, worst {worst} {rels[worst]:.3e} (tol {LAYER_GRAD_TOL})")
+        if not (all(torch.isfinite(g).all() for g in got.values())
+                and rels[worst] < LAYER_GRAD_TOL):
+            raise AssertionError(f"{tag} gradients: kernels != plain: {rels}")
+        del layer, got, ref
+    return results
+
+
+def phase_train_video(dev: torch.device, tag: str, linear_idx) -> dict:
+    """``wan_train.main`` for VIDEO_TRAIN_STEPS steps of the 30-layer model
+    at 31,500 tokens, batch 1, with the MHLA layers ``linear_idx``."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.train import wan_train
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="mhla_wan_train_") as work:
+        argv = [
+            f"--device={dev.type}", f"--work_dir={work}",
+            f"--model.linear_attn_idx={tuple(linear_idx)}".replace(" ", ""),
+            f"--train.max_steps={VIDEO_TRAIN_STEPS}", "--train.log_interval=1",
+            "--optimizer.warmup_steps=1",  # the entry point's AdamW, warm-up cut to one step
+        ]
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out = wan_train.main(argv)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = out["model"].cfg
+    n_mhla = len(cfg.linear_attn_idx)
+    want = video_train_launches(n_mhla, cfg.num_layers - n_mhla)
+    log(f"[train {tag}] launches in {VIDEO_TRAIN_STEPS} steps: {counts}")
+    losses, norms = out["losses"], out["grad_norms"]
+    if len(losses) != VIDEO_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training losses {losses}")
+    if not all(math.isfinite(g) and g > 0 for g in norms):
+        raise AssertionError(f"gradient norms {norms}")
+    got = {name: counts[name] for name in want}
+    if got != want:
+        raise AssertionError(f"launches of the {tag} training path {got}, expected {want}")
+    if (cfg.num_layers, cfg.dim, cfg.remat, cfg.dtype) != (VIDEO_LAYERS, 1536, True,
+                                                           torch.bfloat16):
+        raise AssertionError(f"not the full-size model: {cfg}")
+    step_s = statistics.median(out["step_seconds"][1:])
+    log(f"[train {tag}] Wan2.1-1.3B, {n_mhla} MHLA + {cfg.num_layers - n_mhla} softmax layers, "
+        f"{out['params'] / 1e6:.1f} M float32 params, bf16 compute, remat, B=1 x "
+        f"{math.prod(VIDEO_GRID)} tokens: losses {[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(x, 3) for x in norms]}")
+    log(f"[train {tag}] step {step_s:.3f} s (median of steps 2-{VIDEO_TRAIN_STEPS}, host clock; "
+        f"step 1 {out['step_seconds'][0]:.3f} s) = {1 / step_s:.3f} videos/s; peak device "
+        f"memory {peak_gb:.1f} GB; checkpoint {out['checkpoint_bytes'] / 1e9:.1f} GB saved in "
+        f"{out['save_seconds']:.1f} s")
+    return {"launches": counts, "step_s": step_s, "videos_s": 1 / step_s, "peak_gb": peak_gb,
+            "losses": losses, "grad_norms": norms, "save_s": out["save_seconds"],
+            "checkpoint_gb": out["checkpoint_bytes"] / 1e9}
+
+
 def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda")
@@ -984,23 +1267,30 @@ def main() -> None:
     hybrid, hybrid_model = phase_video_hybrid(dev)
     sparse = phase_video_sparse(dev, hybrid_model)
     del hybrid_model
+    kern.update(phase_kernels_video_train(dev))
+    train_full = phase_train_video(dev, "full", range(VIDEO_LAYERS))
+    train_hybrid = phase_train_video(dev, "hybrid", HYBRID_LINEAR_IDX)
     # each kernel's launches on the path that brought it in; K9's on the hybrid
-    # path, which runs it at both of its shapes
+    # sampling path and K9b's on the hybrid training path, which run them at
+    # both of their shapes
     launches = {**{n: serve["launches"][n] for n in FWD_KERNELS},
                 **{n: train["launches"][n] for n in BWD_KERNELS},
                 **{n: video["launches"][n] for n in VIDEO_KERNELS},
                 "flash_attention": hybrid["launches"]["flash_attention"],
-                "radial_flash_attention": sparse["launches"]["radial_flash_attention"]}
+                "radial_flash_attention": sparse["launches"]["radial_flash_attention"],
+                **{n: train_full["launches"][n] for n in VIDEO_BWD_KERNELS},
+                "flash_attention_bwd": train_hybrid["launches"]["flash_attention_bwd"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": launches[name], **{key: kern[name][key] for key in keys}}
         for name, (route, source, replaces) in KERNEL_META.items()
     ]
-    for phase in (train, video, hybrid, sparse):
+    for phase in (train, video, hybrid, sparse, train_full, train_hybrid):
         phase.pop("launches")
     log(json.dumps({"serve": serve["rates"], "train": train, "video": video, "hybrid": hybrid,
-                    "hybrid_sparse": sparse, "card": smi}))
+                    "hybrid_sparse": sparse, "train_video_full": train_full,
+                    "train_video_hybrid": train_hybrid, "card": smi}))
     log(json.dumps({"kernels": kernels_line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

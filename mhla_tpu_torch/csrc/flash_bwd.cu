@@ -1,0 +1,365 @@
+// K9b: non-causal flash-attention backward for Hopper (sm_90a), head dim 128.
+//
+// With S = scale * q k^T, P = exp(S - lse) and delta_i = sum_d dO[i, d] O[i, d]:
+//
+//   dV = P^T dO          dP = dO V^T          dS = P * (dP - delta)
+//   dQ = scale * dS K    dK = scale * dS^T Q
+//
+// q, o, dO, dq: [B, Tq, H, 128]; k, v, dk, dv: [B, Tk, H, 128], bf16;
+// lse [B, H, Tq] float32 from the forward (flash_fwd.cu, natural log);
+// delta [B, H, Tq] float32 scratch. Any Tq and Tk >= 1. Scores, P, dP and all
+// sums are float32; P is rounded to bf16 before P^T dO and before dS, and dS
+// is rounded to bf16 before its two products (the operands of the tensor
+// cores), once each.
+//
+// Replaces the JAX library's Pallas TPU flash backward (its dq and dkv
+// kernels), which jax.grad reaches through
+// mhla_tpu/kernels/flash_attention.py:115-118 with the block sizes of :109-114.
+//
+// Bound: operations. 10*Tq*Tk*128 FLOP per batch row and head (five
+// products) against 2*(4*Tq + 4*Tk)*128 bytes: far above the card's bf16
+// ridge (295 FLOP/byte) at both of the video model's shapes.
+// Design: three launches, no atomics, so the result is the same from run to
+// run. (1) delta: one warp per (token, head) row. (2) dK, dV: a block of 4
+// warps owns 64 keys of one (batch row, head); its K and V tiles stay in
+// shared memory as the A operands (each warp its 16 keys), and the block
+// walks over the queries 64 at a time: Q, dO, lse and delta tiles arrive by
+// cp.async into two buffers. S^T = K Q^T and dP^T = V dO^T run on the tensor
+// cores (mma.sync m16n8k16), P^T and dS^T are formed on the accumulator
+// fragments in registers and reused in place as the A fragments of
+// dV += P^T dO and dK += dS^T Q, whose float32 accumulators live in
+// registers for the whole kernel. (3) dQ: the mirror image: a block owns 64
+// queries (Q and dO in shared memory, lse and delta of its rows in
+// registers), walks over the keys and accumulates dQ += dS K. The scores and
+// dP are computed twice, once in each kernel: seven products for the
+// backward's five, the price of needing no reduction across blocks. Rows and
+// columns past Tq and Tk are zero-filled on the way in, get P = 0, and are
+// never stored. At Tk = 512 the dK/dV kernel has only 8 key tiles per head
+// to spread over the card; splitting its query range is not done yet, nor
+// are wgmma and TMA.
+
+#include "flash_common.cuh"
+
+using namespace flash;
+
+namespace {
+
+constexpr int kD = 128;      // head dim
+constexpr int kTile = 64;    // queries per tile and keys per tile (16 per warp)
+constexpr int kLd = kD + 8;  // shared-memory row stride in elements (see flash_fwd.cu)
+constexpr int kThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+typedef bf16 Tile[kTile][kLd];
+constexpr int kDqSmem = 6 * (int)sizeof(Tile);                       // Q, dO, 2 K, 2 V
+constexpr int kDkvSmem = 6 * (int)sizeof(Tile) + 4 * kTile * (int)sizeof(float);  // + lse, delta
+
+// delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]; one warp per row of
+// the [B*Tq*H, 128] views. grid ceil(rows / 4), 128 threads.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                       float* __restrict__ delta, int64_t rows, int Tq, int H) {
+  const int64_t row = (int64_t)blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const uint2 a = *reinterpret_cast<const uint2*>(o + row * kD + lane * 4);
+  const uint2 c = *reinterpret_cast<const uint2*>(dout + row * kD + lane * 4);
+  const float2 a0 = unpack2f(a.x), a1 = unpack2f(a.y);
+  const float2 c0 = unpack2f(c.x), c1 = unpack2f(c.y);
+  float s = a0.x * c0.x + a0.y * c0.y + a1.x * c1.x + a1.y * c1.y;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {
+    const int h = (int)(row % H);
+    const int64_t bi = row / H;
+    const int64_t i = bi % Tq, b = bi / Tq;
+    delta[(b * H + h) * Tq + i] = s;
+  }
+}
+
+// acc[16 rows x 64 cols] = A[16 rows x 128] @ B[64 cols x 128]^T for one
+// warp: ``a`` is the shared-memory tile that holds the warp's 16 rows from
+// row ``arow`` on, ``b`` the tile whose 64 rows are the columns of the result.
+__device__ __forceinline__ void warp_abt(float (&acc)[kTile / 8][4], const Tile& a,
+                                         int arow, const Tile& b, int lrow, int lmat) {
+#pragma unroll
+  for (int nt = 0; nt < kTile / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+  for (int s2 = 0; s2 < kD / 32; ++s2) {  // 32 of d: two mma steps
+    uint32_t a0[4], a1[4];
+    const bf16* ap = &a[arow + (lmat & 1) * 8 + lrow][s2 * 32 + (lmat >> 1) * 8];
+    ldmatrix_x4(a0, ap);
+    ldmatrix_x4(a1, ap + 16);
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, &b[nt * 8 + lrow][s2 * 32 + lmat * 8]);
+      mma_bf16(acc[nt], a0, bf[0], bf[1]);
+      mma_bf16(acc[nt], a1, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[16 rows x 128] += A[16 rows x 64] @ B[64 x 128] for one warp: ``pa``
+// holds A as packed bf16 A fragments (four steps of 16), ``b`` is the
+// shared-memory tile [64][128].
+__device__ __forceinline__ void warp_ab(float (&acc)[kD / 8][4],
+                                        const uint32_t (&pa)[kTile / 16][4],
+                                        const Tile& b, int lrow, int lmat) {
+#pragma unroll
+  for (int t = 0; t < kD / 8; ++t) {
+#pragma unroll
+    for (int s2 = 0; s2 < kTile / 32; ++s2) {  // 32 rows of b: two mma steps
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, &b[s2 * 32 + lmat * 8 + lrow][t * 8]);
+      mma_bf16(acc[t], pa[2 * s2], bf[0], bf[1]);
+      mma_bf16(acc[t], pa[2 * s2 + 1], bf[2], bf[3]);
+    }
+  }
+}
+
+// Start the copy of 64 rows of [*, H*128] from row ``r0`` on into a tile;
+// rows from ``limit`` on are zero-filled.
+__device__ __forceinline__ void copy_tile(Tile& dst, const bf16* src, int64_t ld, int r0,
+                                          int limit, int tid) {
+#pragma unroll
+  for (int i = 0; i < kTile * (kD / 8) / kThreads; ++i) {
+    const int e = tid + i * kThreads;
+    const int r = e / (kD / 8), c8 = (e % (kD / 8)) * 8;
+    const bool valid = r0 + r < limit;
+    const int64_t row = valid ? r0 + r : 0;  // a readable address either way
+    cp_async16(&dst[r][c8], src + row * ld + c8, valid);
+  }
+}
+
+// Round a [16 x 128] float32 accumulator times ``scale`` to bf16 and store
+// its rows r0 and r1 (below ``limit``) of [*, H*128].
+__device__ __forceinline__ void store_rows(bf16* dst, int64_t ld, const float (&acc)[kD / 8][4],
+                                           float scale, int r0, int r1, int limit, int tg) {
+#pragma unroll
+  for (int t = 0; t < kD / 8; ++t) {
+    const int d = t * 8 + tg * 2;
+    if (r0 < limit)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r0 * ld + d) =
+          __floats2bfloat162_rn(acc[t][0] * scale, acc[t][1] * scale);
+    if (r1 < limit)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r1 * ld + d) =
+          __floats2bfloat162_rn(acc[t][2] * scale, acc[t][3] * scale);
+  }
+}
+
+// dK and dV. grid (ceil(Tk / 64), H, B); dynamic shared memory kDkvSmem.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk, int H,
+                     float scale_log2, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Tile* kst = reinterpret_cast<Tile*>(smem_raw);  // this block's keys
+  Tile* vst = kst + 1;
+  Tile* qs = kst + 2;   // [2] query tiles
+  Tile* dos = kst + 4;  // [2] dO tiles
+  float* stat = reinterpret_cast<float*>(smem_raw + 6 * sizeof(Tile));  // [2][lse, delta][64]
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int lrow = lane & 7, lmat = lane >> 3;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int k0 = blockIdx.x * kTile;
+  const int64_t ld = (int64_t)H * kD;
+  const bf16* qb = q + (int64_t)b * Tq * ld + h * kD;
+  const bf16* dob = dout + (int64_t)b * Tq * ld + h * kD;
+  const bf16* kb = k + (int64_t)b * Tk * ld + h * kD;
+  const bf16* vb = v + (int64_t)b * Tk * ld + h * kD;
+  const float* lb = lse + ((int64_t)b * H + h) * Tq;
+  const float* db = delta + ((int64_t)b * H + h) * Tq;
+
+  auto load_tile = [&](int buf, int qt0) {
+    copy_tile(qs[buf], qb, ld, qt0, Tq, tid);
+    copy_tile(dos[buf], dob, ld, qt0, Tq, tid);
+    const int j = tid & (kTile - 1);
+    const bool valid = qt0 + j < Tq;
+    const float* src = (tid < kTile ? lb : db) + (valid ? qt0 + j : 0);
+    cp_async4(stat + (buf * 2 + (tid >= kTile)) * kTile + j, src, valid);
+  };
+
+  copy_tile(kst[0], kb, ld, k0, Tk, tid);
+  copy_tile(vst[0], vb, ld, k0, Tk, tid);
+  load_tile(0, 0);
+  cp_async_commit();
+
+  float dkacc[kD / 8][4], dvacc[kD / 8][4];
+#pragma unroll
+  for (int t = 0; t < kD / 8; ++t) {
+    dkacc[t][0] = dkacc[t][1] = dkacc[t][2] = dkacc[t][3] = 0.f;
+    dvacc[t][0] = dvacc[t][1] = dvacc[t][2] = dvacc[t][3] = 0.f;
+  }
+
+  const int ntiles = (Tq + kTile - 1) / kTile;
+  for (int it = 0; it < ntiles; ++it) {
+    const int buf = it & 1, qt = it * kTile;
+    // the other buffer's readers finished at the end of the last iteration
+    if (it + 1 < ntiles) load_tile(buf ^ 1, qt + kTile);
+    cp_async_commit();   // an empty group after the last tile keeps the count uniform
+    cp_async_wait<1>();  // all but the newest group: this tile (and K, V) has landed
+    __syncthreads();
+    const float* ls = stat + buf * 2 * kTile;
+    const float* dl = ls + kTile;
+
+    // S^T = K Q^T for this warp's 16 keys x 64 queries, then P^T as A fragments
+    float acc[kTile / 8][4];
+    warp_abt(acc, kst[0], warp * 16, qs[buf], lrow, lmat);
+    uint32_t pa[kTile / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      const int c0 = nt * 8 + tg * 2;
+      const bool ok0 = qt + c0 < Tq, ok1 = qt + c0 + 1 < Tq;
+      const float l0 = ls[c0] * kLog2e, l1 = ls[c0 + 1] * kLog2e;
+      const float p0 = ok0 ? exp2f(fmaf(acc[nt][0], scale_log2, -l0)) : 0.f;
+      const float p1 = ok1 ? exp2f(fmaf(acc[nt][1], scale_log2, -l1)) : 0.f;
+      const float p2 = ok0 ? exp2f(fmaf(acc[nt][2], scale_log2, -l0)) : 0.f;
+      const float p3 = ok1 ? exp2f(fmaf(acc[nt][3], scale_log2, -l1)) : 0.f;
+      pa[nt / 2][(nt & 1) * 2 + 0] = pack2f(p0, p1);
+      pa[nt / 2][(nt & 1) * 2 + 1] = pack2f(p2, p3);
+    }
+    warp_ab(dvacc, pa, dos[buf], lrow, lmat);  // dV += P^T dO
+
+    // dP^T = V dO^T, then dS^T = P^T * (dP^T - delta) in place of P^T
+    warp_abt(acc, vst[0], warp * 16, dos[buf], lrow, lmat);
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      const int c0 = nt * 8 + tg * 2;
+      const float d0 = dl[c0], d1 = dl[c0 + 1];
+      uint32_t& lo = pa[nt / 2][(nt & 1) * 2 + 0];
+      uint32_t& hi = pa[nt / 2][(nt & 1) * 2 + 1];
+      const float2 pl = unpack2f(lo), ph = unpack2f(hi);
+      lo = pack2f(pl.x * (acc[nt][0] - d0), pl.y * (acc[nt][1] - d1));
+      hi = pack2f(ph.x * (acc[nt][2] - d0), ph.y * (acc[nt][3] - d1));
+    }
+    warp_ab(dkacc, pa, qs[buf], lrow, lmat);  // dK += dS^T Q
+    __syncthreads();  // this buffer's fragment reads are done before it is refilled
+  }
+
+  const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
+  store_rows(dk + (int64_t)b * Tk * ld + h * kD, ld, dkacc, scale, r0, r1, Tk, tg);
+  store_rows(dv + (int64_t)b * Tk * ld + h * kD, ld, dvacc, 1.f, r0, r1, Tk, tg);
+}
+
+// dQ. grid (ceil(Tq / 64), H, B); dynamic shared memory kDqSmem.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int Tq, int Tk, int H, float scale_log2,
+                    float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Tile* qst = reinterpret_cast<Tile*>(smem_raw);  // this block's queries
+  Tile* dost = qst + 1;
+  Tile* ks = qst + 2;  // [2] key tiles
+  Tile* vs = qst + 4;  // [2] value tiles
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int lrow = lane & 7, lmat = lane >> 3;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = blockIdx.x * kTile;
+  const int64_t ld = (int64_t)H * kD;
+  const bf16* qb = q + (int64_t)b * Tq * ld + h * kD;
+  const bf16* dob = dout + (int64_t)b * Tq * ld + h * kD;
+  const bf16* kb = k + (int64_t)b * Tk * ld + h * kD;
+  const bf16* vb = v + (int64_t)b * Tk * ld + h * kD;
+
+  // the statistics of this thread's two rows
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const float* lb = lse + ((int64_t)b * H + h) * Tq;
+  const float* db = delta + ((int64_t)b * H + h) * Tq;
+  const float l0 = r0 < Tq ? lb[r0] * kLog2e : 0.f, l1 = r1 < Tq ? lb[r1] * kLog2e : 0.f;
+  const float d0 = r0 < Tq ? db[r0] : 0.f, d1 = r1 < Tq ? db[r1] : 0.f;
+
+  auto load_tile = [&](int buf, int kt0) {
+    copy_tile(ks[buf], kb, ld, kt0, Tk, tid);
+    copy_tile(vs[buf], vb, ld, kt0, Tk, tid);
+  };
+
+  copy_tile(qst[0], qb, ld, q0, Tq, tid);
+  copy_tile(dost[0], dob, ld, q0, Tq, tid);
+  load_tile(0, 0);
+  cp_async_commit();
+
+  float dqacc[kD / 8][4];
+#pragma unroll
+  for (int t = 0; t < kD / 8; ++t) dqacc[t][0] = dqacc[t][1] = dqacc[t][2] = dqacc[t][3] = 0.f;
+
+  const int ntiles = (Tk + kTile - 1) / kTile;
+  for (int it = 0; it < ntiles; ++it) {
+    const int buf = it & 1, kt = it * kTile;
+    if (it + 1 < ntiles) load_tile(buf ^ 1, kt + kTile);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 queries x 64 keys, then P as A fragments
+    float acc[kTile / 8][4];
+    warp_abt(acc, qst[0], warp * 16, ks[buf], lrow, lmat);
+    uint32_t pa[kTile / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      const int key = kt + nt * 8 + tg * 2;
+      const bool ok0 = key < Tk, ok1 = key + 1 < Tk;
+      const float p0 = ok0 ? exp2f(fmaf(acc[nt][0], scale_log2, -l0)) : 0.f;
+      const float p1 = ok1 ? exp2f(fmaf(acc[nt][1], scale_log2, -l0)) : 0.f;
+      const float p2 = ok0 ? exp2f(fmaf(acc[nt][2], scale_log2, -l1)) : 0.f;
+      const float p3 = ok1 ? exp2f(fmaf(acc[nt][3], scale_log2, -l1)) : 0.f;
+      pa[nt / 2][(nt & 1) * 2 + 0] = pack2f(p0, p1);
+      pa[nt / 2][(nt & 1) * 2 + 1] = pack2f(p2, p3);
+    }
+
+    // dP = dO V^T, then dS = P * (dP - delta) in place of P
+    warp_abt(acc, dost[0], warp * 16, vs[buf], lrow, lmat);
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      uint32_t& lo = pa[nt / 2][(nt & 1) * 2 + 0];
+      uint32_t& hi = pa[nt / 2][(nt & 1) * 2 + 1];
+      const float2 pl = unpack2f(lo), ph = unpack2f(hi);
+      lo = pack2f(pl.x * (acc[nt][0] - d0), pl.y * (acc[nt][1] - d0));
+      hi = pack2f(ph.x * (acc[nt][2] - d1), ph.y * (acc[nt][3] - d1));
+    }
+    warp_ab(dqacc, pa, ks[buf], lrow, lmat);  // dQ += dS K
+    __syncthreads();
+  }
+  store_rows(dq + (int64_t)b * Tq * ld + h * kD, ld, dqacc, scale, r0, r1, Tq, tg);
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes): launches the three kernels on
+// the given stream, does not synchronise, returns the first cudaError_t that
+// is not 0. ``delta`` is float32 scratch [B, H, Tq].
+extern "C" int mhla_flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                              const void* dout, const void* lse, void* delta, void* dq,
+                              void* dk, void* dv, int B, int Tq, int Tk, int H, float scale,
+                              void* stream_) {
+  if (Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDqSmem);
+  if (err != cudaSuccess) return (int)err;
+  const float scale_log2 = scale * kLog2e;
+  const int64_t rows = (int64_t)B * Tq * H;
+  flash_bwd_delta_kernel<<<(unsigned)((rows + 3) / 4), kThreads, 0, stream>>>(
+      (const bf16*)o, (const bf16*)dout, (float*)delta, rows, Tq, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_kernel<<<dim3((Tk + kTile - 1) / kTile, H, B), kThreads, kDkvSmem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dk, (bf16*)dv, Tq, Tk, H, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_kernel<<<dim3((Tq + kTile - 1) / kTile, H, B), kThreads, kDqSmem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dq, Tq, Tk, H, scale_log2, scale);
+  return (int)cudaGetLastError();
+}

@@ -1,5 +1,5 @@
 // Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// radial_fwd.cu): the bf16 tensor-core product mma.sync m16n8k16, ldmatrix
+// flash_bwd.cu, radial_fwd.cu): the bf16 tensor-core product mma.sync m16n8k16, ldmatrix
 // fragment loads from shared memory, cp.async copies into it, and packing.
 
 #pragma once
@@ -56,6 +56,16 @@ __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool vali
                : "memory");
 }
 
+// The same for one float (4 bytes).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -69,6 +79,10 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack2f(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
 }  // namespace flash

@@ -3,7 +3,10 @@
 //   o[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h]) @ v[b, :, h]
 //
 // q, o: [B, Tq, H, 128]; k, v: [B, Tk, H, 128]; bf16 in and out, float32
-// scores, softmax statistics and accumulation. Any Tq and Tk >= 1.
+// scores, softmax statistics and accumulation. Any Tq and Tk >= 1. The
+// training form also writes each row's log-sum-exp of the scaled scores,
+// lse [B, H, Tq] float32 (natural log), which the backward (flash_bwd.cu)
+// reads; the serving form is compiled without that store.
 //
 // Replaces the JAX library's Pallas TPU flash kernel that
 // mhla_tpu/kernels/flash_attention.py:59-63,115-118 calls for long queries
@@ -50,10 +53,11 @@ constexpr int kThreads = 128;
 constexpr int kSmemBytes = 4 * kBlockN * kLd * (int)sizeof(bf16);  // 2 K and 2 V tiles
 
 // grid (ceil(Tq / kBlockM), H, B); dynamic shared memory kSmemBytes.
+template <bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int Tq,
-                 int Tk, int H, float scale_log2) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int Tq, int Tk, int H, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   typedef bf16 Tile[kBlockN][kLd];
   Tile* ks = reinterpret_cast<Tile*>(smem_raw);  // [2] tiles of K
@@ -185,6 +189,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if (kLse && tg == 0) {  // log(sum_j exp(scale * s_j)) = (m + log2(l)) * ln(2)
+    float* lb = lse + ((int64_t)b * H + h) * Tq;
+    if (r0 < Tq) lb[r0] = (m0 + log2f(l0)) * 0.6931471805599453f;
+    if (r1 < Tq) lb[r1] = (m1 + log2f(l1)) * 0.6931471805599453f;
+  }
 #pragma unroll
   for (int t = 0; t < kD / 8; ++t) {
     const int d = t * 8 + tg * 2;
@@ -197,20 +206,37 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes): launches on the given stream,
-// does not synchronise, returns the launch's cudaError_t.
-extern "C" int mhla_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, int B, int Tq, int Tk, int H,
-                              float scale, void* stream) {
+template <bool kLse>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+               int B, int Tq, int Tk, int H, float scale, void* stream) {
   if (Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
+  auto kern = flash_fwd_kernel<kLse>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + kBlockM - 1) / kBlockM, H, B);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, Tq, Tk, H,
-      scale * 1.4426950408889634f);
+  kern<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, Tq,
+      Tk, H, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes): each launches on the given
+// stream, does not synchronise, returns the launch's cudaError_t.
+extern "C" {
+
+int mhla_flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
+                   int Tq, int Tk, int H, float scale, void* stream) {
+  return launch_fwd<false>(q, k, v, o, nullptr, B, Tq, Tk, H, scale, stream);
+}
+
+// The training form: also writes lse [B, H, Tq] float32.
+int mhla_flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int B, int Tq, int Tk, int H, float scale,
+                       void* stream) {
+  return launch_fwd<true>(q, k, v, o, lse, B, Tq, Tk, H, scale, stream);
+}
+
+}  // extern "C"

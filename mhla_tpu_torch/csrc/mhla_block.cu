@@ -40,11 +40,9 @@
 //   multiple of the tile), and each thread accumulates a 4 x 4 output
 //   micro-tile with float4 shared-memory reads.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mhla_block_common.cuh"
 
-typedef __nv_bfloat16 bf16;
+using namespace mhla_block;
 
 namespace {
 
@@ -53,25 +51,6 @@ constexpr int kMixCols = 32;     // state columns per tile of K6
 constexpr int kMaxMixRows = 7;   // K6 rows per thread: N <= 32 * kMaxMixRows
 constexpr int kReadRows = 32;    // q rows per pass of K7
 constexpr int kReadCols = 128;   // Dv columns per block of K7
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(bf16* p, float4 v) {
-  uint2 raw;
-  *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(v.x, v.y);
-  *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(v.z, v.w);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
 
 // K6. grid (blocks per batch row, B); dynamic shared memory
 // (N*N rounded up to 4 + N*kMixCols) floats. m: [N, N] float32; s, out: [B, N, R].

@@ -18,14 +18,12 @@ group and by kernel. Needs a CUDA device; there is no CPU mode.
 from __future__ import annotations
 
 import argparse
-import re
 import statistics
 import time
-from collections import defaultdict
 
 import torch
 
-from ..train.profile_step import _union_us
+from ..train.profile_step import summarize_profile
 from .video_infer_cli import VideoInferConfig, _build_model
 
 CALLS, TOP = 3, 25
@@ -40,13 +38,6 @@ _GROUPS = (
     ("GEMM (cuBLAS)", r"gemm|gemv|cutlass|xmma|nvjet|cublas|sm90_"),
     ("reductions", r"reduce|norm_kernel|softmax"),
 )
-
-
-def _group(name: str) -> str:
-    for label, pattern in _GROUPS:
-        if re.search(pattern, name):
-            return label
-    return "elementwise and copies"
 
 
 def main(argv=None) -> dict:
@@ -88,29 +79,11 @@ def main(argv=None) -> dict:
         t0 = time.perf_counter()
         call()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name, by_group = defaultdict(float), defaultdict(float)
-    counts = defaultdict(int)
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        by_name[e.name] += us
-        by_group[_group(e.name)] += us
-        counts[e.name] += 1
-    kernel_us = sum(by_name.values())
-    busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
     print(f"[profile] {torch.cuda.get_device_name(0)}; {args.config} at t = {args.t:g}: "
           f"{mcfg.num_layers} layers, CFG batch 2 x "
           f"{x[0, ..., 0].numel() // 4} tokens: forward {call_s * 1e3:.1f} ms (median of "
           f"{CALLS}; {[round(s * 1e3, 1) for s in times]})")
-    print(f"[profile] profiled call: wall {wall_us / 1e3:.1f} ms, device kernels "
-          f"{kernel_us / 1e3:.1f} ms in {len(kernels)} launches, busy "
-          f"{busy_us / 1e3:.1f} ms = {busy_us / wall_us:.1%} of wall")
-    for label, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] group {label:36s} {us / 1e3:9.2f} ms  {us / kernel_us:6.1%}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
-        print(f"[profile] {us / 1e3:9.3f} ms  {counts[name]:5d}x  {name[:110]}")
-    return {"forward_ms": call_s * 1e3, "busy": busy_us / wall_us, "kernel_ms": kernel_us / 1e3,
-            "groups_ms": {k: v / 1e3 for k, v in by_group.items()}}
+    return {"forward_ms": call_s * 1e3, **summarize_profile(prof, wall_us, _GROUPS, "call")}
 
 
 if __name__ == "__main__":

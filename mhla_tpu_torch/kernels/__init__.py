@@ -9,9 +9,12 @@ Causal LM: K1 ``fused_fmap_rope_flat`` and its gradient K1b
 
 Video: K5 ``blockify_island`` and K8 ``unblockify_island`` (Triton), K6
 ``mix_states_dense`` and K7 ``block_readout`` (CUDA C++,
-``csrc/mhla_block.cu``) behind ``mhla_blockwise_fused``; K9
+``csrc/mhla_block.cu``) behind ``mhla_blockwise_fused``, and their gradients
+K5b ``unblockify`` and K8b ``blockify`` (Triton) and K7b
+``block_readout_bwd`` (``csrc/mhla_block_bwd.cu``); K9
 ``flash_attention.flash_attention`` (CUDA C++, ``csrc/flash_fwd.cu``; the
-module keeps its name here, as in the JAX package); K10
+module keeps its name here, as in the JAX package) and its gradient K9b
+``flash_attention.flash_attention_bwd`` (``csrc/flash_bwd.cu``); K10
 ``sparse_attention.radial_flash_attention`` (CUDA C++,
 ``csrc/radial_fwd.cu``) behind ``sparse_flash_attention``.
 
@@ -24,10 +27,13 @@ from . import flash_attention, fmap_rope, mhla_block, mhla_chunk, sparse_attenti
 from .fmap_rope import fmap_rope_bwd, fused_fmap_rope_flat
 from .mhla_block import (
     block_readout,
+    block_readout_bwd,
+    blockify,
     blockify_island,
     mhla_blockwise_fused,
     mix_states_dense,
     rms_norm_heads_flat,
+    unblockify,
     unblockify_island,
 )
 from .mhla_chunk import (
@@ -58,6 +64,8 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "block_readout",
+    "block_readout_bwd",
+    "blockify",
     "blockify_island",
     "chunk_output",
     "chunk_output_bwd",
@@ -77,5 +85,6 @@ __all__ = [
     "rms_norm_heads_flat",
     "sparse_attention",
     "sparse_flash_attention",
+    "unblockify",
     "unblockify_island",
 ]

@@ -1,5 +1,5 @@
-"""Non-causal flash (softmax) attention forward on [B, T, H, D] tensors
-(counterpart of ``mhla_tpu/kernels/flash_attention.py``).
+"""Non-causal flash (softmax) attention on [B, T, H, D] tensors, forward
+and backward (counterpart of ``mhla_tpu/kernels/flash_attention.py``).
 
 K9 ``flash_attention`` replaces the JAX library's Pallas TPU flash kernel
 that ``mhla_tpu/kernels/flash_attention.py:59-63,115-118`` calls for long
@@ -9,21 +9,30 @@ queries: the video model's text cross-attention (31,500 queries against
 with a head dim of 128 and any two lengths; it needs no padding and no
 segment ids, because it checks its own bounds.
 
-A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor launches
-the kernel or raises. ``launches`` counts kernel launches.
+K9b ``flash_attention_bwd`` replaces that library's backward kernels, which
+``jax.grad`` reaches through the same call: from q, k, v, the output, its
+row log-sum-exp and dO it gives dq, dk and dv (``csrc/flash_bwd.cu``). When a
+gradient is wanted ``flash_attention`` goes through an ``autograd.Function``
+whose forward is K9 in its training form, which also writes the row
+log-sum-exp [B, H, Tq]; a call without gradients launches the same kernel as
+before and writes none.
+
+A CPU tensor takes :func:`flash_attention_plain` and
+:func:`flash_attention_bwd_plain`; a CUDA tensor launches the kernels or
+raises. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from . import _build
 from .mhla_chunk import _check, _on_cpu, _raise_on_error, _stream
 
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _HEAD_DIM = 128  # csrc: kD
 _lib_cache: Optional[ctypes.CDLL] = None
@@ -35,7 +44,10 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load()
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mhla_flash_fwd.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p]
-        lib.mhla_flash_fwd.restype = ctypes.c_int
+        lib.mhla_flash_fwd_lse.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+        lib.mhla_flash_bwd.argtypes = [p] * 10 + [i, i, i, i, ctypes.c_float, p]
+        for fn in (lib.mhla_flash_fwd, lib.mhla_flash_fwd_lse, lib.mhla_flash_bwd):
+            fn.restype = ctypes.c_int
         _lib_cache = lib
     return _lib_cache
 
@@ -51,7 +63,8 @@ def flash_attention_plain(
     scale: Optional[float] = None,
     block_rows: Optional[int] = None,
     row_mask: Optional[Callable[[int, int], torch.Tensor]] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """softmax(scale * q k^T) v per batch row and head: q [B, Tq, H, D],
     k, v [B, Tk, H, D] -> [B, Tq, H, D] in q's dtype. Scores, softmax and
     sums are float32; the probabilities are rounded to q's dtype before the
@@ -63,21 +76,131 @@ def flash_attention_plain(
     block takes one full softmax over all keys, so the result does not
     depend on the blocking beyond the order of the products' sums.
     ``row_mask(r0, r1)`` gives a bool keep-mask [r1 - r0, Tk] for those
-    query rows; every row must keep at least one key."""
+    query rows; every row must keep at least one key. ``return_lse`` also
+    returns each row's log-sum-exp of the scaled scores, [B, H, Tq] float32."""
     b, tq, h, d = q.shape
     scale = d**-0.5 if scale is None else scale
     if block_rows is None:
         block_rows = max(1, _PLAIN_SCORE_ELEMS // max(1, b * h * k.shape[1]))
     kf, vf = k.float(), v.float()
     out = torch.empty_like(q)
+    lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device) if return_lse else None
     for r0 in range(0, tq, block_rows):
         r1 = min(tq, r0 + block_rows)
         s = torch.einsum("bqhd,bkhd->bhqk", q[:, r0:r1].float(), kf) * scale
         if row_mask is not None:
             s.masked_fill_(~row_mask(r0, r1), float("-inf"))
+        if return_lse:
+            lse[:, :, r0:r1] = torch.logsumexp(s, dim=-1)
         p = torch.softmax(s, dim=-1).to(q.dtype).float()
         out[:, r0:r1] = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
-    return out
+    return (out, lse) if return_lse else out
+
+
+# float32 score elements one row block of the plain backward may hold in
+# each of its four [B, H, rows, Tk] arrays (512 MiB)
+_PLAIN_BWD_SCORE_ELEMS = 1 << 27
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    scale: Optional[float] = None,
+    block_rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of :func:`flash_attention_plain` for ``do``,
+    from its output ``o`` and row log-sum-exp ``lse`` [B, H, Tq], without ever
+    holding [Tq, Tk]: with ``delta = rowsum(do * o)`` the query rows are
+    walked ``block_rows`` at a time, ``P = exp(scale * q k^T - lse)``,
+    ``dv += P^T do``, ``dS = P * (do v^T - delta)``, ``dq = scale * dS k``,
+    ``dk += scale * dS^T q``. All sums are float32; P and dS are rounded to
+    q's dtype before their products, and P before dS, as the kernel rounds
+    them. The result does not depend on the blocking beyond the order of the
+    sums over the query rows."""
+    b, tq, h, d = q.shape
+    scale = d**-0.5 if scale is None else scale
+    if block_rows is None:
+        block_rows = max(1, _PLAIN_BWD_SCORE_ELEMS // max(1, b * h * k.shape[1]))
+    kf, vf = k.float(), v.float()
+    delta = (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1)  # [B, H, Tq]
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros_like(dk)
+    for r0 in range(0, tq, block_rows):
+        r1 = min(tq, r0 + block_rows)
+        qf, dof = q[:, r0:r1].float(), do[:, r0:r1].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+        p = torch.exp(s - lse[:, :, r0:r1, None]).to(q.dtype).float()
+        dv += torch.einsum("bhqk,bqhd->bkhd", p, dof)
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+        ds = (p * (dp - delta[:, :, r0:r1, None])).to(q.dtype).float()
+        dq[:, r0:r1] = (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(q.dtype)
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return dq, (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K9b (see :func:`flash_attention_bwd_plain`): any Tq and Tk >= 1; the
+    result is the same from run to run (no atomics)."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if (tuple(k.shape) != (b, tk, h, d) or v.shape != k.shape or o.shape != q.shape
+            or do.shape != q.shape or tuple(lse.shape) != (b, h, tq)):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, o "
+                         f"{tuple(o.shape)}, do {tuple(do.shape)}, lse {tuple(lse.shape)} disagree")
+    if _on_cpu(q, k, v, o, lse, do):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        _check(name, x, torch.bfloat16, 4)
+    _check("lse", lse, torch.float32, 3)
+    if d != _HEAD_DIM:
+        raise ValueError(f"kernel takes head dim {_HEAD_DIM}, got {d}")
+    if any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
+        raise ValueError("kernel copies 16 bytes at a time: its inputs must be 16-byte aligned")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b * tq * h:
+        delta = torch.empty_like(lse)
+        with torch.cuda.device(q.device):
+            err = _lib().mhla_flash_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, tq, tk, h, d**-0.5 if scale is None else scale, _stream(q),
+            )
+        _raise_on_error("flash_attention_bwd", err)
+        launches["flash_attention_bwd"] += 1
+    else:
+        dk.zero_()
+        dv.zero_()
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K9 forward in its training form (it also writes the row log-sum-exp),
+    K9b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = _flash_fwd(q, k, v, scale, want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.scale), None)
 
 
 def flash_attention(
@@ -88,7 +211,8 @@ def flash_attention(
     scale: Optional[float] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K9 (see :func:`flash_attention_plain`): any Tq and Tk >= 1."""
+    """K9 (see :func:`flash_attention_plain`): any Tq and Tk >= 1.
+    Differentiable in q, k and v through K9b."""
     if causal or segment_ids is not None:
         raise NotImplementedError("causal and packed (segment_ids) flash attention "
                                   "are not ported yet")
@@ -98,8 +222,19 @@ def flash_attention(
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if tk < 1:
         raise ValueError("attention over no keys")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, scale)
+    return _flash_fwd(q, k, v, scale, want_lse=False)[0]
+
+
+def _flash_fwd(q, k, v, scale: Optional[float], want_lse: bool):
+    """``(out, lse | None)``: the plain version for CPU tensors, K9 for CUDA
+    tensors, in its training form (which writes ``lse``) when ``want_lse``."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
     if _on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, scale)
+        out = flash_attention_plain(q, k, v, scale, return_lse=want_lse)
+        return out if want_lse else (out, None)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check(name, x, torch.bfloat16, 4)
     if d != _HEAD_DIM:
@@ -107,12 +242,20 @@ def flash_attention(
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("kernel copies 16 bytes at a time: q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
+    lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device) if want_lse else None
     if b * tq * h:
+        scale = d**-0.5 if scale is None else scale
         with torch.cuda.device(q.device):
-            err = _lib().mhla_flash_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, tq, tk, h,
-                d**-0.5 if scale is None else scale, _stream(q),
-            )
+            if want_lse:
+                err = _lib().mhla_flash_fwd_lse(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                    b, tq, tk, h, scale, _stream(q),
+                )
+            else:
+                err = _lib().mhla_flash_fwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, tq, tk, h,
+                    scale, _stream(q),
+                )
         _raise_on_error("flash_attention", err)
         launches["flash_attention"] += 1
-    return out
+    return out, lse

@@ -1,6 +1,6 @@
-"""Non-causal blockwise MHLA (video) on head-flat tensors through four
-hand-written kernels (counterpart of the forward of
-``mhla_tpu/kernels/mhla_block_pallas.py``):
+"""Non-causal blockwise MHLA (video) on head-flat tensors through seven
+hand-written kernels (counterpart of ``mhla_tpu/kernels/mhla_block_pallas.py``),
+four of the forward:
 
   K5 ``blockify_island``    flat [B, T, F] -> blocked [B, N, C, F] with the
                             island prologue fused in: full-dim RMSNorm,
@@ -22,6 +22,29 @@ head-flat rows, so every access is coalesced whatever the permutation. K5
 computes the row's inverse RMS itself (a first pass over the row, which the
 second pass finds in cache) instead of taking it from a separate stats
 pass. K6 and K7 are described in ``csrc/mhla_block.cu``.
+
+and three of the backward, behind the ``autograd.Function``s that follow the
+custom VJPs of the JAX module:
+
+  K8b ``blockify``           flat [B, T, F] -> blocked [B, N, C, F], optional
+                             rotate-half RoPE on the way (Triton); the
+                             transpose of K8's permutation
+  K5b ``unblockify``         blocked -> flat with the same optional RoPE, and
+                             optionally a second blocked tensor summed in
+                             without RoPE (Triton); with the sine negated it
+                             is the transpose of K5's RoPE and permutation
+  K7b ``block_readout_bwd``  dq_i = dO_i @ mixed_i^T, dmixed_i = q_i^T @ dO_i
+                             (CUDA C++, ``csrc/mhla_block_bwd.cu``)
+
+K8b replaces ``_blockify_kernel`` (``mhla_block_pallas.py:261``) and K5b
+``_unblockify_kernel`` (``:273``): one Triton kernel in two directions, with
+K5's index arithmetic. Both are bound by bytes. They read the incoming
+gradient in its own dtype and write float32, so the cast the JAX backward
+makes first costs no pass; K5b takes the gradient of the pre-RoPE copy in
+the same pass instead of a second launch and an addition. The backward of
+the dense mix is K6 on the transposed matrix (as in JAX); ``dM`` is an
+einsum, as there. The elementwise parts of the islands' backward (RMSNorm
+and relu) are plain PyTorch, as they are ``jnp`` in JAX.
 
 The per-block states (phase A) have no kernel here because the JAX package
 has none on this path either: at C = 210 tokens per block its ``_phase_a``
@@ -46,7 +69,7 @@ from .mhla_chunk import _check, _on_cpu, _raise_on_error, _stream
 
 launches = {
     "blockify_island": 0, "mix_states_dense": 0, "block_readout": 0,
-    "unblockify_island": 0,
+    "unblockify_island": 0, "block_readout_bwd": 0, "blockify": 0, "unblockify": 0,
 }
 
 _BLOCK_R = 4  # token rows per program of K5 and K8
@@ -70,8 +93,10 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mhla_mix_states_dense.argtypes = [p, p, p, i, i, ctypes.c_longlong, i, p]
         lib.mhla_block_readout.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.mhla_block_readout_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         lib.mhla_mix_states_dense.restype = ctypes.c_int
         lib.mhla_block_readout.restype = ctypes.c_int
+        lib.mhla_block_readout_bwd.restype = ctypes.c_int
         _lib_cache = lib
     return _lib_cache
 
@@ -104,7 +129,7 @@ def block_token_index(
 
 
 # ---------------------------------------------------------------------------
-# the Triton kernels (K5, K8)
+# the Triton kernels (K5, K8, K5b / K8b)
 # ---------------------------------------------------------------------------
 
 
@@ -235,6 +260,60 @@ def _unisland_fwd(
              y.to(o_ptr.dtype.element_ty), mask=mask)
 
 
+def _permute_rope(
+    x_ptr, add_ptr, cos_ptr, sin_ptr, o_ptr,
+    n_rows, rows_per_batch, blk_c, stride_b, stride_t,
+    lay_h, lay_w, part_f, part_h, part_w, grid_h, grid_w, sin_sign,
+    F: tl.constexpr, DH: tl.constexpr, HALF: tl.constexpr, ROPE: tl.constexpr,
+    INVERSE: tl.constexpr, ADD: tl.constexpr, BLOCK_R: tl.constexpr,
+):
+    # one program: BLOCK_R rows of the blocked side, one head. INVERSE reads
+    # blocked rows and writes flat ones (K5b), else the other way round (K8b);
+    # the flat side is addressed with (stride_b, stride_t).
+    rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
+    head = tl.program_id(1)
+    cols = tl.arange(0, HALF)
+    mask = (rows[:, None] < n_rows) & (cols[None, :] < HALF)
+    bidx = rows // rows_per_batch
+    rem = rows % rows_per_batch
+    blk = rem // blk_c
+    pos = rem % blk_c
+    fb = blk // (lay_h * lay_w)
+    hb = (blk // lay_w) % lay_h
+    wb = blk % lay_w
+    p1 = pos // (part_h * part_w)
+    p2 = (pos // part_w) % part_h
+    p3 = pos % part_w
+    tok = ((fb * part_f + p1) * grid_h + hb * part_h + p2) * grid_w + wb * part_w + p3
+    blocked = rows.to(tl.int64) * F
+    flat = bidx.to(tl.int64) * stride_b + tok.to(tl.int64) * stride_t
+    if INVERSE:
+        src = blocked
+        dst = flat
+    else:
+        src = flat
+        dst = blocked
+    off = head * DH + cols[None, :]
+    x1 = tl.load(x_ptr + src[:, None] + off, mask=mask, other=0.0).to(tl.float32)
+    x2 = tl.load(x_ptr + src[:, None] + off + HALF, mask=mask, other=0.0).to(tl.float32)
+    if ROPE:
+        t_off = tok[:, None] * DH + cols[None, :]
+        c1 = tl.load(cos_ptr + t_off, mask=mask, other=0.0)
+        c2 = tl.load(cos_ptr + t_off + HALF, mask=mask, other=0.0)
+        s1 = tl.load(sin_ptr + t_off, mask=mask, other=0.0) * sin_sign
+        s2 = tl.load(sin_ptr + t_off + HALF, mask=mask, other=0.0) * sin_sign
+        y1 = x1 * c1 + x2 * s1
+        y2 = x2 * c2 + x1 * s2
+    else:
+        y1 = x1
+        y2 = x2
+    if ADD:
+        y1 += tl.load(add_ptr + src[:, None] + off, mask=mask, other=0.0).to(tl.float32)
+        y2 += tl.load(add_ptr + src[:, None] + off + HALF, mask=mask, other=0.0).to(tl.float32)
+    tl.store(o_ptr + dst[:, None] + off, y1.to(o_ptr.dtype.element_ty), mask=mask)
+    tl.store(o_ptr + dst[:, None] + off + HALF, y2.to(o_ptr.dtype.element_ty), mask=mask)
+
+
 def _load_triton():
     global triton, tl, _kernels
     if _kernels is None:
@@ -245,6 +324,7 @@ def _load_triton():
         _kernels = (
             triton.jit(_island_fwd, do_not_specialize=[n for n in geometry if n != "seq_len"]),
             triton.jit(_unisland_fwd, do_not_specialize=geometry),
+            triton.jit(_permute_rope, do_not_specialize=[n for n in geometry if n != "seq_len"]),
         )
     return _kernels
 
@@ -256,6 +336,17 @@ def _load_triton():
 
 def _round_mid(x: torch.Tensor, mid_dtype: Optional[torch.dtype]) -> torch.Tensor:
     return x if mid_dtype is None else x.to(mid_dtype).float()
+
+
+def _rope_flat_plain(x: torch.Tensor, tables, num_heads: int, sin_sign: float = 1.0):
+    """Rotate-half RoPE on flat float32 x [B, T, H*Dh] with (cos, sin_signed)
+    [T, Dh] tables shared by the heads."""
+    b, t, f = x.shape
+    dh = f // num_heads
+    cos, sin = (tb.float()[None, :, None, :] for tb in tables)  # [1, T, 1, Dh]
+    x4 = x.reshape(b, t, num_heads, dh)
+    swapped = torch.cat([x4[..., dh // 2:], x4[..., : dh // 2]], dim=-1)
+    return (x4 * cos + swapped * (sin * sin_sign)).reshape(b, t, f)
 
 
 def blockify_island_plain(
@@ -273,8 +364,6 @@ def blockify_island_plain(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The function of :func:`blockify_island` in plain PyTorch."""
     b, t, f = x.shape
-    h = num_heads
-    dh = f // h
     _, _, _, c, n = _block_geometry(grid, layout)
     sub = x.float()
     if gamma is not None:
@@ -287,14 +376,80 @@ def blockify_island_plain(
     blocked = lambda y: y.to(out_dtype)[:, idx].reshape(b, n, c, f)  # noqa: E731
     nope = blocked(sub) if emit_nope else None
     if tables is not None:
-        cos, sin = (tb.float()[None, :, None, :] for tb in tables)  # [1, T, 1, Dh]
-        x4 = sub.reshape(b, t, h, dh)
-        swapped = torch.cat([x4[..., dh // 2:], x4[..., : dh // 2]], dim=-1)
-        sub = (x4 * cos + swapped * sin).reshape(b, t, f)
+        sub = _rope_flat_plain(sub, tables, num_heads)
     return blocked(sub), nope
 
 
+def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """True where autograd records and one of ``tensors`` wants a gradient:
+    only then a wrapper goes through its ``autograd.Function``, so a call
+    without gradients (sampling) pays nothing for it."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+class _BlockifyIsland(torch.autograd.Function):
+    """K5 forward; backward as ``_blockify_island_bwd`` of the JAX module
+    (``mhla_block_pallas.py:630``): K5b undoes the RoPE and the permutation,
+    then the relu and RMSNorm terms in plain PyTorch on the flat float32
+    gradient. The ``mid_dtype`` roundings pass the gradient straight through;
+    the statistics are recomputed from the rounded input."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, tables, args):
+        ctx.save_for_backward(x, gamma)
+        ctx.tables, ctx.args = tables, args
+        out, nope = _blockify_island(x, tables, gamma, *args)
+        return out if nope is None else (out, nope)
+
+    @staticmethod
+    def backward(ctx, dy, dnope=None):
+        x, gamma = ctx.saved_tensors
+        grid, layout, num_heads, norm_eps, relu_eps, mid_dtype = ctx.args[:6]
+        tables = ctx.tables
+        if dy is None:  # only the pre-RoPE copy was used
+            dy, dnope, tables = dnope, None, None
+        dr = unblockify(dy.contiguous(), tables, grid, layout, num_heads, sin_sign=-1.0,
+                        out_dtype=torch.float32,
+                        add=None if dnope is None else dnope.contiguous())
+        xf = _round_mid(x, mid_dtype).float()
+        if gamma is None:
+            dxn = torch.where(xf > 0, dr, 0.0) if relu_eps is not None else dr
+            return dxn.to(x.dtype), None, None, None
+        inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + norm_eps)
+        gf = gamma.float()
+        dxn = torch.where(xf * inv * gf > 0, dr, 0.0) if relu_eps is not None else dr
+        dgamma = None
+        if ctx.needs_input_grad[1]:
+            dgamma = (dxn * xf * inv).sum(dim=(0, 1)).to(gamma.dtype)
+        u = dxn * gf
+        dx = inv * u - xf * (inv**3 / x.shape[-1]) * torch.sum(u * xf, dim=-1, keepdim=True)
+        return dx.to(x.dtype), dgamma, None, None
+
+
 def blockify_island(
+    x: torch.Tensor,
+    tables: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    gamma: Optional[torch.Tensor],
+    grid: Sequence[int],
+    layout: Sequence[int],
+    num_heads: int,
+    norm_eps: float = 1e-6,
+    relu_eps: Optional[float] = None,
+    mid_dtype: Optional[torch.dtype] = None,
+    out_dtype: torch.dtype = torch.float32,
+    emit_nope: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K5 (see :func:`_blockify_island`), differentiable in ``x`` and
+    ``gamma`` through K5b."""
+    args = (tuple(grid), tuple(layout), num_heads, norm_eps, relu_eps, mid_dtype, out_dtype,
+            emit_nope)
+    if _needs_grad(x, gamma):
+        out = _BlockifyIsland.apply(x, gamma, tables, args)
+        return out if emit_nope else (out, None)
+    return _blockify_island(x, tables, gamma, *args)
+
+
+def _blockify_island(
     x: torch.Tensor,
     tables: Optional[Tuple[torch.Tensor, torch.Tensor]],
     gamma: Optional[torch.Tensor],
@@ -377,7 +532,35 @@ def mix_states_dense_plain(m: torch.Tensor, states4: torch.Tensor) -> torch.Tens
     return out.to(states4.dtype).contiguous()
 
 
+class _MixStatesDense(torch.autograd.Function):
+    """K6 forward; backward as ``_mix_dense_bwd`` of the JAX module
+    (``mhla_block_pallas.py:75``): ``dstates = M^T dmixed`` is K6 on the
+    transposed matrix, ``dM`` an einsum, taken only where M wants a gradient."""
+
+    @staticmethod
+    def forward(ctx, m, states4):
+        ctx.save_for_backward(m, states4)
+        return _mix_states_dense(m, states4)
+
+    @staticmethod
+    def backward(ctx, dout):
+        m, states4 = ctx.saved_tensors
+        dout = dout.to(states4.dtype).contiguous()
+        dm = None
+        if ctx.needs_input_grad[0]:
+            dm = torch.einsum("bird,bjrd->ij", dout.float(), states4.float()).to(m.dtype)
+        dstates = _mix_states_dense(m.T.contiguous(), dout) if ctx.needs_input_grad[1] else None
+        return dm, dstates
+
+
 def mix_states_dense(m: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
+    """K6 (see :func:`mix_states_dense_plain`), differentiable in both."""
+    if _needs_grad(m, states4):
+        return _MixStatesDense.apply(m, states4)
+    return _mix_states_dense(m, states4)
+
+
+def _mix_states_dense(m: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
     """K6 (see :func:`mix_states_dense_plain`): m [N, N] in any float dtype
     (its values are read as float32), states4 [B, N, H*Dk, Dv] float32 or
     bf16."""
@@ -429,7 +612,86 @@ def block_readout_plain(q4: torch.Tensor, mixed4: torch.Tensor, num_heads: int) 
     return o.to(q4.dtype).reshape(b, n, c, h * dv).contiguous()
 
 
+def block_readout_bwd_plain(
+    q4: torch.Tensor, mixed4: torch.Tensor, do4: torch.Tensor, num_heads: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of :func:`block_readout_plain` for ``do4``
+    [B, N, C, H*Dv]: ``dq[b, i, :, h] = do[b, i, :, h] @ mixed[b, i, h]^T`` and
+    ``dmixed[b, i, h] = q[b, i, :, h]^T @ do[b, i, :, h]``, float32
+    accumulation, in the dtypes of q4 and mixed4."""
+    b, n, c, hdk = q4.shape
+    h = num_heads
+    dk, dv = hdk // h, mixed4.shape[-1]
+    q5 = q4.reshape(b, n, c, h, dk).float()
+    m5 = mixed4.reshape(b, n, h, dk, dv).float()
+    do5 = do4.reshape(b, n, c, h, dv).float()
+    dq = torch.einsum("bnchv,bnhkv->bnchk", do5, m5)
+    dmixed = torch.einsum("bnchk,bnchv->bnhkv", q5, do5)
+    return (dq.to(q4.dtype).reshape(b, n, c, hdk).contiguous(),
+            dmixed.to(mixed4.dtype).reshape(b, n, hdk, dv).contiguous())
+
+
+def block_readout_bwd(
+    q4: torch.Tensor, mixed4: torch.Tensor, do4: torch.Tensor, num_heads: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7b (see :func:`block_readout_bwd_plain`), float32 or bf16, Dv = 128
+    and Dk a multiple of 128."""
+    if _on_cpu(q4, mixed4, do4):
+        return block_readout_bwd_plain(q4, mixed4, do4, num_heads)
+    if q4.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel takes float32 or bf16, got {q4.dtype}")
+    for name, x in (("q4", q4), ("mixed4", mixed4), ("do4", do4)):
+        _check(name, x, q4.dtype, 4)
+    b, n, c, hdk = q4.shape
+    if hdk % num_heads:
+        raise ValueError(f"head-flat width {hdk} not divisible by {num_heads} heads")
+    dk, dv = hdk // num_heads, mixed4.shape[-1]
+    if tuple(mixed4.shape) != (b, n, hdk, dv) or tuple(do4.shape) != (b, n, c, num_heads * dv):
+        raise ValueError(f"q4 {tuple(q4.shape)}, mixed4 {tuple(mixed4.shape)} and do4 "
+                         f"{tuple(do4.shape)} disagree")
+    if dk % _READ_COLS or dv != _READ_COLS:
+        raise ValueError(f"kernel needs Dk % {_READ_COLS} == 0 and Dv == {_READ_COLS}, "
+                         f"got Dk={dk}, Dv={dv}")
+    dq, dmixed = torch.empty_like(q4), torch.empty_like(mixed4)
+    if b * n * c:
+        with torch.cuda.device(q4.device):
+            err = _lib().mhla_block_readout_bwd(
+                q4.data_ptr(), mixed4.data_ptr(), do4.data_ptr(), dq.data_ptr(),
+                dmixed.data_ptr(), b * n, c, num_heads, dk, dv,
+                int(q4.dtype == torch.bfloat16), _stream(q4),
+            )
+        _raise_on_error("block_readout_bwd", err)
+        launches["block_readout_bwd"] += 1
+    else:
+        dmixed.zero_()
+    return dq, dmixed
+
+
+class _BlockReadout(torch.autograd.Function):
+    """K7 forward, K7b backward (``_readout`` of the JAX module,
+    ``mhla_block_pallas.py:160-225``)."""
+
+    @staticmethod
+    def forward(ctx, q4, mixed4, num_heads):
+        ctx.save_for_backward(q4, mixed4)
+        ctx.num_heads = num_heads
+        return _block_readout(q4, mixed4, num_heads)
+
+    @staticmethod
+    def backward(ctx, do4):
+        q4, mixed4 = ctx.saved_tensors
+        dq, dmixed = block_readout_bwd(q4, mixed4, do4.to(q4.dtype).contiguous(), ctx.num_heads)
+        return dq, dmixed, None
+
+
 def block_readout(q4: torch.Tensor, mixed4: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K7 (see :func:`block_readout_plain`), differentiable through K7b."""
+    if _needs_grad(q4, mixed4):
+        return _BlockReadout.apply(q4, mixed4, num_heads)
+    return _block_readout(q4, mixed4, num_heads)
+
+
+def _block_readout(q4: torch.Tensor, mixed4: torch.Tensor, num_heads: int) -> torch.Tensor:
     """K7 (see :func:`block_readout_plain`), float32 or bf16."""
     if _on_cpu(q4, mixed4):
         return block_readout_plain(q4, mixed4, num_heads)
@@ -486,7 +748,53 @@ def unblockify_island_plain(
     return out
 
 
+class _UnblockifyIsland(torch.autograd.Function):
+    """K8 forward; backward as ``_unblockify_island_bwd`` of the JAX module
+    (``mhla_block_pallas.py:752``): K8b brings the gradient into the blocked
+    layout, then the per-head RMSNorm terms in plain PyTorch there."""
+
+    @staticmethod
+    def forward(ctx, xb, gamma_head, args):
+        ctx.save_for_backward(xb, gamma_head)
+        ctx.args = args
+        return _unblockify_island(xb, gamma_head, *args)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xb, gamma_head = ctx.saved_tensors
+        grid, layout, num_heads, norm_eps, mid_dtype = ctx.args[:5]
+        dyb = blockify(dy.contiguous(), None, grid, layout, num_heads, out_dtype=torch.float32)
+        d5 = dyb.unflatten(-1, (num_heads, -1))
+        x5 = _round_mid(xb.float(), mid_dtype).unflatten(-1, (num_heads, -1))
+        inv = torch.rsqrt(torch.mean(x5 * x5, dim=-1, keepdim=True) + norm_eps)
+        dgamma = None
+        if ctx.needs_input_grad[1]:
+            dgamma = (d5 * x5 * inv).sum(dim=(0, 1, 2, 3)).to(gamma_head.dtype)
+        u = d5 * gamma_head.float()
+        dot = torch.mean(u * x5, dim=-1, keepdim=True)
+        dxb = inv * u - x5 * inv**3 * dot
+        return dxb.flatten(-2).to(xb.dtype), dgamma, None
+
+
 def unblockify_island(
+    xb: torch.Tensor,
+    gamma_head: torch.Tensor,
+    grid: Sequence[int],
+    layout: Sequence[int],
+    num_heads: int,
+    norm_eps: float = 1e-6,
+    mid_dtype: Optional[torch.dtype] = None,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """K8 (see :func:`_unblockify_island`), differentiable in ``xb`` and
+    ``gamma_head`` through K8b."""
+    args = (tuple(grid), tuple(layout), num_heads, norm_eps, mid_dtype, out_dtype)
+    if _needs_grad(xb, gamma_head):
+        return _UnblockifyIsland.apply(xb, gamma_head, args)
+    return _unblockify_island(xb, gamma_head, *args)
+
+
+def _unblockify_island(
     xb: torch.Tensor,
     gamma_head: torch.Tensor,
     grid: Sequence[int],
@@ -536,6 +844,160 @@ def unblockify_island(
             )
         launches["unblockify_island"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K8b, K5b: the block permutation with optional RoPE, both directions
+# ---------------------------------------------------------------------------
+
+
+def blockify_plain(
+    x: torch.Tensor,
+    tables: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    grid: Sequence[int],
+    layout: Sequence[int],
+    num_heads: int,
+    sin_sign: float = 1.0,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The function of :func:`blockify` in plain PyTorch."""
+    b, t, f = x.shape
+    _, _, _, c, n = _block_geometry(grid, layout)
+    y = x.float()
+    if tables is not None:
+        y = _rope_flat_plain(y, tables, num_heads, sin_sign)
+    idx = block_token_index(grid, layout, x.device)
+    return y[:, idx].reshape(b, n, c, f).to(out_dtype or x.dtype)
+
+
+def unblockify_plain(
+    xb: torch.Tensor,
+    tables: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    grid: Sequence[int],
+    layout: Sequence[int],
+    num_heads: int,
+    sin_sign: float = 1.0,
+    out_dtype: Optional[torch.dtype] = None,
+    add: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The function of :func:`unblockify` in plain PyTorch."""
+    b, n, c, f = xb.shape
+    idx = block_token_index(grid, layout, xb.device)
+    y = torch.empty(b, n * c, f, dtype=torch.float32, device=xb.device)
+    y[:, idx] = xb.float().reshape(b, n * c, f)
+    if tables is not None:
+        y = _rope_flat_plain(y, tables, num_heads, sin_sign)
+    if add is not None:
+        y[:, idx] += add.float().reshape(b, n * c, f)
+    return y.to(out_dtype or xb.dtype)
+
+
+def _permute(x, tables, grid, layout, num_heads, sin_sign, out_dtype, add, inverse: bool):
+    """K8b (``inverse`` False: flat x [B, T, F] -> blocked) and K5b (True:
+    blocked x [B, N, C, F] -> flat, plus ``add`` where given)."""
+    pf, ph, pw, c, n = _block_geometry(grid, layout)
+    b, f = x.shape[0], x.shape[-1]
+    t = n * c
+    if tuple(x.shape) != ((b, n, c, f) if inverse else (b, t, f)):
+        raise ValueError(f"shape {tuple(x.shape)} does not match grid {tuple(grid)} in layout "
+                         f"{tuple(layout)}")
+    if f % num_heads:
+        raise ValueError(f"width {f} not divisible by {num_heads} heads")
+    dh = f // num_heads
+    if tables is not None and any(tuple(tb.shape) != (t, dh) for tb in tables):
+        raise ValueError(f"rotary tables must be [{t}, {dh}]")
+    if add is not None and (not inverse or add.shape != x.shape):
+        raise ValueError("add: a second blocked tensor of x's shape, for unblockify only")
+    out_dtype = out_dtype or x.dtype
+    if _on_cpu(x, *(tables or ()), *([add] if add is not None else [])):
+        if inverse:
+            return unblockify_plain(x, tables, grid, layout, num_heads, sin_sign, out_dtype, add)
+        return blockify_plain(x, tables, grid, layout, num_heads, sin_sign, out_dtype)
+    if any(d not in _FLOATS for d in (x.dtype, out_dtype, *([add.dtype] if add is not None else []))):
+        raise TypeError(f"kernel takes float32, bf16 or fp16, got {x.dtype} -> {out_dtype}")
+    if (dh // 2) & (dh // 2 - 1) or dh % 2:
+        raise ValueError(f"kernel needs a power-of-two Dh/2, got Dh={dh}")
+    if (inverse and not x.is_contiguous()) or x.stride(-1) != 1:
+        raise ValueError("kernel needs a contiguous blocked tensor and unit stride along the "
+                         "feature axis of a flat one")
+    if add is not None and not add.is_contiguous():
+        raise ValueError("add: kernel takes contiguous tensors")
+    f32 = lambda tb: tb.to(torch.float32).contiguous()  # noqa: E731
+    cos, sin = (f32(tb) for tb in tables) if tables is not None else (x, x)
+    out = torch.empty((b, t, f) if inverse else (b, n, c, f), dtype=out_dtype, device=x.device)
+    if b * t:
+        stride_b, stride_t = (t * f, f) if inverse else (x.stride(0), x.stride(1))
+        kernel = _load_triton()[2]
+        with torch.cuda.device(x.device):
+            kernel[(triton.cdiv(b * t, _BLOCK_R), num_heads)](
+                x, add if add is not None else x, cos, sin, out,
+                b * t, t, c, stride_b, stride_t,
+                layout[1], layout[2], pf, ph, pw, grid[1], grid[2], float(sin_sign),
+                F=f, DH=dh, HALF=dh // 2, ROPE=tables is not None, INVERSE=inverse,
+                ADD=add is not None, BLOCK_R=_BLOCK_R, num_warps=4,
+            )
+        launches["unblockify" if inverse else "blockify"] += 1
+    return out
+
+
+class _Permute(torch.autograd.Function):
+    """K8b and K5b are linear and each other's transpose under a negated
+    sine (``_blockify_bwd`` and ``_unblockify_bwd`` of the JAX module)."""
+
+    @staticmethod
+    def forward(ctx, x, add, tables, args, inverse):
+        ctx.tables, ctx.args, ctx.inverse = tables, args, inverse
+        ctx.dtypes = (x.dtype, None if add is None else add.dtype)
+        return _permute(x, tables, *args, add, inverse)
+
+    @staticmethod
+    def backward(ctx, dout):
+        grid, layout, num_heads, sin_sign, _ = ctx.args
+        dx = _permute(dout, ctx.tables, grid, layout, num_heads, -sin_sign, ctx.dtypes[0], None,
+                      not ctx.inverse)
+        dadd = None
+        if ctx.dtypes[1] is not None and ctx.needs_input_grad[1]:
+            dadd = _permute(dout, None, grid, layout, num_heads, 1.0, ctx.dtypes[1], None, False)
+        return dx, dadd, None, None, None
+
+
+def blockify(
+    x: torch.Tensor,
+    tables: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    grid: Sequence[int],
+    layout: Sequence[int],
+    num_heads: int,
+    sin_sign: float = 1.0,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """K8b: flat x [B, T, F] -> blocked [B, N, C, F] in ``out_dtype`` (x's
+    when None) under the 3-D block permutation, with rotate-half RoPE in flat
+    token order where ``tables`` = (cos, sin_signed) [T, Dh] is given
+    (``sin_sign`` -1 rotates backwards: the transpose). Differentiable in x."""
+    args = (tuple(grid), tuple(layout), num_heads, sin_sign, out_dtype)
+    if _needs_grad(x):
+        return _Permute.apply(x, None, tables, args, False)
+    return _permute(x, tables, *args, None, False)
+
+
+def unblockify(
+    xb: torch.Tensor,
+    tables: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    grid: Sequence[int],
+    layout: Sequence[int],
+    num_heads: int,
+    sin_sign: float = 1.0,
+    out_dtype: Optional[torch.dtype] = None,
+    add: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K5b: blocked xb [B, N, C, F] -> flat [B, T, F] in ``out_dtype``, the
+    inverse permutation with the same optional RoPE, applied in flat token
+    order. ``add``, a second blocked tensor, is summed in without RoPE (the
+    gradient of K5's pre-RoPE copy). Differentiable in xb and add."""
+    args = (tuple(grid), tuple(layout), num_heads, sin_sign, out_dtype)
+    if _needs_grad(xb, add):
+        return _Permute.apply(xb, add, tables, args, True)
+    return _permute(xb, tables, *args, add, True)
 
 
 def rms_norm_heads_flat(

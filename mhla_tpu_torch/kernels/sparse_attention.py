@@ -272,6 +272,11 @@ def sparse_flash_attention(
         raise NotImplementedError("the splash route (the differentiable path) is not ported yet")
     if impl not in (None, "radial"):
         raise ValueError(f"unknown impl {impl!r}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "radial-sparse attention has no backward yet (the JAX package differentiates "
+            "through its splash route, which is not ported): training with sparse_attn_idx "
+            "is not supported")
     if q.shape[1] % num_frames:
         raise NotImplementedError(
             f"{q.shape[1]} tokens in {num_frames} frames: ragged frames need the splash route, "

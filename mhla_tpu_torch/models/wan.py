@@ -1,5 +1,6 @@
 """Wan video diffusion transformer with MHLA attention (counterpart of
-``mhla_tpu/models/wan.py``), forward only.
+``mhla_tpu/models/wan.py``), forward and, through the kernels' gradients,
+backward.
 
 - patch embedding over (F, H, W) latents, patch (1, 2, 2)
 - float32 sinusoidal time embedding -> 6-way adaLN modulation (a learned
@@ -13,6 +14,10 @@
   lengths)
 - ``grid_adjust``: each grid axis is cropped to a multiple of the block
   layout, e.g. (30, 52) -> (30, 50)
+- ``remat``: where autograd records, each block is recomputed in the backward
+  (``torch.utils.checkpoint``, as the JAX model wraps ``WanBlock`` in
+  ``nn.remat``), so a training step keeps one block's activations and every
+  block's input; a call without gradients (sampling) is not affected
 
 Parameters may stay float32 while ``cfg.dtype`` is bf16: every projection
 casts its weight to the activation's dtype, as flax ``Dense(dtype)`` does;
@@ -20,7 +25,8 @@ the time embedding and the adaLN arithmetic are float32 whatever the dtype.
 
 Not ported yet, raising ``NotImplementedError``: the linear baselines
 (``attn_type`` other than ``mhla_uni``), image-to-video
-(``model_type='i2v'``), ``capture`` and ``remat``.
+(``model_type='i2v'``), ``capture``, and gradients through the radial-sparse
+layers (``sparse_attn_idx`` in training).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..layers.attention import sdpa
 from ..layers.fused_dense import dense
@@ -236,8 +243,6 @@ class WanModel(nn.Module):
         super().__init__()
         if cfg.model_type != "t2v":
             raise NotImplementedError(f"model_type {cfg.model_type!r}: only t2v is ported")
-        if cfg.remat:
-            raise NotImplementedError("remat belongs to training, which is not ported yet")
         self.cfg = cfg
         self.patch_embedding = nn.Conv3d(cfg.in_dim, cfg.dim, cfg.patch_size, cfg.patch_size,
                                          device=device)
@@ -318,8 +323,14 @@ class WanModel(nn.Module):
         if cfg.sparse_attn_idx and cfg.sparse_dense_from_t is not None:
             use_dense = bool(t.max() >= cfg.sparse_dense_from_t)
 
+        # the model holds no dropout, so a recomputation needs no RNG state
+        remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            h = block(h, e0, ctx, grid, rope_tables, use_dense)
+            if remat:
+                h = checkpoint(block, h, e0, ctx, grid, rope_tables, use_dense,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                h = block(h, e0, ctx, grid, rope_tables, use_dense)
 
         em = self.head_modulation.float() + e[:, None]
         out = dense(_modulate(self.head_norm(h), em[:, 1], em[:, 0]), self.head)

@@ -1,5 +1,6 @@
-"""Training of the causal MHLA LM: the trainer pieces and the
-``lm_train`` entry point (``python -m mhla_tpu_torch.train.lm_train``)."""
+"""Training: the trainer pieces and the entry points ``lm_train`` (the causal
+MHLA LM, ``python -m mhla_tpu_torch.train.lm_train``) and ``wan_train`` (the
+Wan video model, ``python -m mhla_tpu_torch.train.wan_train``)."""
 
 from .trainer import (
     AdamW,
@@ -11,6 +12,7 @@ from .trainer import (
     make_schedule,
     make_train_step,
     project_params,
+    step_generator,
 )
 
 __all__ = [
@@ -23,4 +25,5 @@ __all__ = [
     "make_schedule",
     "make_train_step",
     "project_params",
+    "step_generator",
 ]

@@ -37,13 +37,6 @@ _GROUPS = (
 )
 
 
-def _group(name: str) -> str:
-    for label, pattern in _GROUPS:
-        if re.search(pattern, name):
-            return label
-    return "elementwise and copies"
-
-
 def _union_us(intervals) -> float:
     total, end = 0.0, float("-inf")
     for s, e in sorted(intervals):
@@ -51,6 +44,36 @@ def _union_us(intervals) -> float:
             total += e - max(s, end)
             end = e
     return total
+
+
+def summarize_profile(prof, wall_us: float, groups, what: str = "step", top: int = TOP) -> dict:
+    """Print the device side of one profiled window of ``wall_us`` host
+    microseconds: kernel time and launches, the busy share (the union of the
+    kernels' intervals over the wall time), the time by kernel group
+    (``groups``: (label, regex on the kernel's name) pairs, first match wins,
+    the rest is elementwise work and copies) and the ``top`` kernels.
+    Returns ``busy``, ``kernel_ms`` and ``groups_ms``."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name, by_group = defaultdict(float), defaultdict(float)
+    counts = defaultdict(int)
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        label = next((g for g, pattern in groups if re.search(pattern, e.name)),
+                     "elementwise and copies")
+        by_name[e.name] += us
+        by_group[label] += us
+        counts[e.name] += 1
+    kernel_us = sum(by_name.values())
+    busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
+    print(f"[profile] profiled {what}: wall {wall_us / 1e3:.1f} ms, device kernels "
+          f"{kernel_us / 1e3:.1f} ms in {len(kernels)} launches, busy "
+          f"{busy_us / 1e3:.1f} ms = {busy_us / wall_us:.1%} of wall")
+    for label, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"[profile] group {label:44s} {us / 1e3:9.2f} ms  {us / kernel_us:6.1%}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"[profile] {us / 1e3:9.3f} ms  {counts[name]:5d}x  {name[:110]}")
+    return {"busy": busy_us / wall_us, "kernel_ms": kernel_us / 1e3,
+            "groups_ms": {k: v / 1e3 for k, v in by_group.items()}}
 
 
 def main() -> dict:
@@ -79,30 +102,13 @@ def main() -> dict:
         state, metrics = step(state, batches[-1])
         float(metrics["loss"])
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name, by_group = defaultdict(float), defaultdict(float)
-    counts = defaultdict(int)
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        by_name[e.name] += us
-        by_group[_group(e.name)] += us
-        counts[e.name] += 1
-    kernel_us = sum(by_name.values())
-    busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
     b, t, layers = cfg.train.batch_size, cfg.train.seq_len, cfg.model.num_hidden_layers
     tokens = b * t
     print(f"[profile] {torch.cuda.get_device_name(0)}; {layers} layers, B={b} "
           f"T={t}: step {step_s * 1e3:.1f} ms (median of {STEPS}; "
           f"{[round(t * 1e3, 1) for t in times]}) = {tokens / step_s:,.0f} tok/s")
-    print(f"[profile] profiled step: wall {wall_us / 1e3:.1f} ms, device kernels "
-          f"{kernel_us / 1e3:.1f} ms in {len(kernels)} launches, busy "
-          f"{busy_us / 1e3:.1f} ms = {busy_us / wall_us:.1%} of wall")
-    for label, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] group {label:32s} {us / 1e3:9.2f} ms  {us / kernel_us:6.1%}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
-        print(f"[profile] {us / 1e3:9.3f} ms  {counts[name]:5d}x  {name[:110]}")
-    return {"step_ms": step_s * 1e3, "tok_s": tokens / step_s, "busy": busy_us / wall_us,
-            "kernel_ms": kernel_us / 1e3, "groups_ms": {k: v / 1e3 for k, v in by_group.items()}}
+    return {"step_ms": step_s * 1e3, "tok_s": tokens / step_s,
+            **summarize_profile(prof, wall_us, _GROUPS)}
 
 
 if __name__ == "__main__":

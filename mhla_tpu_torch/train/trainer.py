@@ -15,7 +15,9 @@ The optimizer reproduces the JAX package's optax chain rather than
   micro-batch gradients, one inner step every ``accum_steps`` calls and
   zero updates in between;
 - ``project_params``: ``tril(clip(M, 1e-5, 1))`` on every
-  ``mixing_matrix``, in place after each step.
+  ``mixing_matrix`` and ``clip(W, 0, 1)`` on every trainable vision
+  block-mixing weight (``piece_attn`` / ``block_attn``), in place after each
+  step.
 
 Parameters are updated in place with ``torch._foreach_*`` ops (one launch
 per op for all tensors, where a per-tensor loop would pay eager PyTorch's
@@ -171,12 +173,15 @@ def make_optimizer(params: List[torch.Tensor], cfg: OptimizerConfig) -> AdamW:
 
 @torch.no_grad()
 def project_params(model: nn.Module) -> None:
-    """Post-step projection, in place: every causal ``mixing_matrix`` ->
-    tril clamped to [1e-5, 1]. (The vision block-mixing clamps of the JAX
-    trainer belong to models the port does not have yet.)"""
+    """Post-step projections, in place: every causal ``mixing_matrix`` ->
+    tril clamped to [1e-5, 1]; every trainable vision block-mixing weight
+    (a parameter under ``piece_attn`` or ``block_attn``) -> clamped to [0, 1]."""
     for name, p in model.named_parameters():
-        if name.split(".")[-1] == "mixing_matrix":
+        parts = name.split(".")
+        if parts[-1] == "mixing_matrix":
             p.copy_(torch.tril(p.clamp(1e-5, 1.0)))
+        elif "piece_attn" in parts or "block_attn" in parts:
+            p.clamp_(0.0, 1.0)
 
 
 @dataclasses.dataclass
@@ -197,20 +202,36 @@ def init_train_state(model: nn.Module, cfg: OptimizerConfig, ema: bool = False) 
     )
 
 
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The generator of training step ``step`` (0 for the first) of a run
+    seeded with ``seed``, on ``device``: a function of the two numbers alone
+    (the JAX trainer folds the step into its key likewise), so a resumed run
+    draws what an unbroken one would."""
+    return torch.Generator(device).manual_seed(seed * 1_000_003 + step)
+
+
 def make_train_step(
-    loss_fn: Callable[[nn.Module, Any], Tuple[torch.Tensor, dict]],
+    loss_fn: Callable[..., Tuple[torch.Tensor, dict]],
     ema_decay: Optional[float] = None,
+    seed: Optional[int] = None,
 ):
     """``step(state, batch) -> (state, metrics)``: gradients of
     ``loss_fn(model, batch) -> (loss, metrics)``, one optimizer call, the
     projections, the EMA; ``metrics`` gains ``loss`` and ``grad_norm`` (of
-    the raw gradients, before clipping), as 0-d tensors on the device."""
+    the raw gradients, before clipping), as 0-d tensors on the device. With
+    a ``seed`` the loss draws random numbers: it is called as
+    ``loss_fn(model, batch, generator)`` with :func:`step_generator` of
+    ``state.step`` on the device of the model's parameters."""
 
     def step(state: TrainState, batch: Any) -> Tuple[TrainState, dict]:
         opt = state.optimizer
         for p in opt.params:
             p.grad = None
-        loss, metrics = loss_fn(state.model, batch)
+        if seed is None:
+            loss, metrics = loss_fn(state.model, batch)
+        else:
+            gen = step_generator(seed, state.step, opt.params[0].device)
+            loss, metrics = loss_fn(state.model, batch, gen)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in opt.params]
         gnorm = global_norm(grads)

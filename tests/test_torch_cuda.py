@@ -475,3 +475,159 @@ def test_tiny_hybrid_wan_samples_through_the_kernels(dev):
         assert_close("tiny hybrid kernels vs plain", ref, got, chip_smoke.VIDEO_TOL)
         assert torch.equal(model(x, high, ctx), dense(x, high, ctx))
         assert not torch.equal(got, dense(x, low, ctx))
+
+
+# ---------------------------------------------------------------------------
+# video training: K5b, K8b, K7b, K9b
+# ---------------------------------------------------------------------------
+
+
+# odd partitions (7, 6, 5); even ones; 3 and 33 blocks (N * N no multiple of 4)
+@pytest.mark.parametrize("grid,layout", [((21, 12, 10), (3, 2, 2)), ((4, 4, 8), (2, 2, 2)),
+                                         ((3, 4, 4), (3, 1, 1)), ((3, 11, 2), (3, 11, 1))])
+@pytest.mark.parametrize("form", ["rope_bf16_to_f32", "plain_f32", "neg_sin_add", "strided"])
+def test_blockify_and_unblockify_kernels_match_plain(dev, grid, layout, form):
+    """K8b and K5b: the permutation in both directions, with and without
+    RoPE, reading bf16 or float32 and writing float32, K5b also with the
+    second tensor summed in; K8b on a column range of a wider tensor."""
+    h, dh = 2, 128
+    n, t = layout[0] * layout[1] * layout[2], grid[0] * grid[1] * grid[2]
+    tables = None if form == "plain_f32" else rope_tables_flat(grid, dh, device=dev)
+    in_dt = _F32 if form == "plain_f32" else _BF16
+    sign = -1.0 if form == "neg_sin_add" else 1.0
+    x = _randn(dev, 2, t, 3 * h * dh).to(in_dt)
+    x = x[..., h * dh: 2 * h * dh] if form == "strided" else x[..., : h * dh].contiguous()
+    xb = _randn(dev, 2, n, t // n, h * dh, seed=1).to(in_dt)
+    add = _randn(dev, 2, n, t // n, h * dh, seed=2).to(in_dt) if form == "neg_sin_add" else None
+    before = dict(mhla_block.launches)
+    got_b = mhla_block.blockify(x, tables, grid, layout, h, sign, _F32)
+    got_u = mhla_block.unblockify(xb, tables, grid, layout, h, sign, _F32, add)
+    assert mhla_block.launches["blockify"] == before["blockify"] + 1
+    assert mhla_block.launches["unblockify"] == before["unblockify"] + 1
+    assert got_b.dtype == _F32 and got_u.dtype == _F32
+    assert_close(f"blockify {form}",
+                 mhla_block.blockify_plain(x, tables, grid, layout, h, sign, _F32), got_b, 1e-6)
+    assert_close(f"unblockify {form}",
+                 mhla_block.unblockify_plain(xb, tables, grid, layout, h, sign, _F32, add),
+                 got_u, 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("n,c,dk", [(150, 210, 128), (8, 24, 128), (33, 1, 128), (3, 40, 256)])
+def test_block_readout_bwd_kernel_matches_plain(dev, dtype, n, c, dk):
+    """K7b at the video model's 150 blocks of 210 tokens (neither a multiple
+    of a tile), at small sizes and with two 128-row tiles of Dk."""
+    b, h, dv = 2, 2, 128
+    q4 = torch.relu(_randn(dev, b, n, c, h * dk, seed=4)).to(dtype)
+    mixed = _randn(dev, b, n, h * dk, dv, seed=3).to(dtype)
+    do4 = _randn(dev, b, n, c, h * dv, seed=5).to(dtype)
+    before = mhla_block.launches["block_readout_bwd"]
+    dq, dmixed = mhla_block.block_readout_bwd(q4, mixed, do4, h)
+    assert mhla_block.launches["block_readout_bwd"] == before + 1
+    ref_dq, ref_dm = mhla_block.block_readout_bwd_plain(q4, mixed, do4, h)
+    assert dq.dtype == dtype and dmixed.dtype == dtype
+    assert_close("block_readout_bwd dq", ref_dq, dq, KERNEL_TOL)
+    assert_close("block_readout_bwd dmixed", ref_dm, dmixed, KERNEL_TOL)
+
+
+@pytest.mark.parametrize("tq,tk", [(3000, 512), (1000, 1000), (70, 33), (1, 5), (64, 129),
+                                   (200, 1)])
+def test_flash_attention_bwd_kernel_matches_plain(dev, tq, tk):
+    """K9b for Tq != Tk and Tq == Tk, multiples of no tile, and one key:
+    against the plain backward on the kernel forward's own output and
+    log-sum-exp, against float32 autograd of softmax attention, and equal
+    across two runs (no atomics)."""
+    import chip_smoke
+
+    q, k, v = (_randn(dev, 2, t, 3, 128, seed=s).to(_BF16) for s, t in ((1, tq), (2, tk), (3, tk)))
+    do = _randn(dev, 2, tq, 3, 128, seed=4).to(_BF16)
+    out, lse = flash._flash_fwd(q, k, v, None, want_lse=True)
+    assert torch.equal(out, flash.flash_attention(q, k, v))  # the serving form, without lse
+    _, lse_ref = flash.flash_attention_plain(q, k, v, return_lse=True)
+    assert_close("lse", lse_ref, lse, 1e-5)
+    before = flash.launches["flash_attention_bwd"]
+    got = flash.flash_attention_bwd(q, k, v, out, lse, do)
+    assert flash.launches["flash_attention_bwd"] == before + 1
+    ref = flash.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    for name, r, g in zip(("dq", "dk", "dv"), ref, got):
+        assert g.dtype == _BF16 and g.shape == r.shape
+        if name != "dv" and tk == 1:  # one key: P = 1, dS = 0, so dq and dk are rounding noise
+            assert g.abs().max() < 1e-5 and r.abs().max() < 1e-5
+            continue
+        assert_close(f"flash bwd {name} {tq}x{tk}", r, g, chip_smoke.FLASH_BWD_TOL)
+    again = flash.flash_attention_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    # through the autograd Function, against float32 autograd of softmax attention
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    (flash.flash_attention(*leaves).float() * do.float()).sum().backward()
+    f32 = [x.float().requires_grad_() for x in (q, k, v)]
+    (flash.flash_attention_plain(*f32) * do.float()).sum().backward()
+    for name, r, g in zip(("dq", "dk", "dv"), f32, leaves):
+        if name == "dv" or tk > 1:
+            assert_close(f"flash grad {name} {tq}x{tk} vs float32", r.grad, g.grad, 2e-2)
+
+
+def test_video_backward_wrappers_raise_instead_of_falling_back(dev):
+    q = torch.zeros(1, 2, 8, 512, device=dev)  # head dim 256 = Dv: K7b takes Dv = 128
+    with pytest.raises(ValueError):
+        mhla_block.block_readout_bwd(q, torch.zeros(1, 2, 512, 256, device=dev), q, 2)
+    with pytest.raises(TypeError):
+        h16 = torch.zeros(1, 2, 8, 256, dtype=torch.float16, device=dev)
+        mhla_block.block_readout_bwd(
+            h16, torch.zeros(1, 2, 256, 128, dtype=torch.float16, device=dev), h16, 2)
+    with pytest.raises(ValueError):  # blocked shape and geometry disagree
+        mhla_block.unblockify(torch.zeros(1, 8, 9, 256, device=dev), None, (4, 4, 4), (2, 2, 2), 2)
+    with pytest.raises(ValueError):  # head dim 96
+        mhla_block.blockify(torch.zeros(1, 64, 192, device=dev), None, (4, 4, 4), (2, 2, 2), 2)
+    z = torch.zeros(1, 8, 2, 128, device=dev)
+    with pytest.raises(TypeError):  # float32: the kernel takes bf16
+        flash.flash_attention_bwd(z, z, z, z, torch.zeros(1, 2, 8, device=dev), z)
+    with pytest.raises(ValueError):  # lse of another shape
+        zb = z.to(_BF16)
+        flash.flash_attention_bwd(zb, zb, zb, zb, torch.zeros(1, 8, 2, device=dev), zb)
+
+
+@pytest.mark.parametrize("norm_output", [False, True])
+def test_tiny_wan_trains_through_the_kernels(dev, norm_output):
+    """One step of the video trainer on a 3-layer hybrid model (softmax,
+    MHLA, MHLA), bf16 compute over float32 parameters, 2,048 tokens (the
+    flash route) in 8 blocks, per-block remat: every kernel launches the
+    reckoned number of times, and the parameter gradients through the
+    kernels agree with those through the plain versions. ``norm_output``
+    adds the pre-RoPE copies, whose gradients K5b sums in."""
+    import chip_smoke
+    from mhla_tpu_torch.train import wan_train
+
+    cfg = wan_train.parse_cli(wan_train.WanTrainConfig, [
+        "--model.dim=256", "--model.ffn_dim=512", "--model.num_heads=2", "--model.num_layers=3",
+        "--model.linear_attn_idx=(1,2)", "--model.block_layout=(2,2,2)",
+        f"--model.norm_output={norm_output}", "--data.latent_frames=8",
+        "--data.latent_height=32", "--data.latent_width=32", "--data.text_len=128",
+        "--data.text_dim=64", "--optimizer.warmup_steps=1"])
+    model, state, step, data = wan_train.build_training(cfg)
+    z, c = next(data)
+    batch = (torch.from_numpy(z).to(dev), torch.from_numpy(c).to(dev))
+    kernels.reset_launch_counts()
+    state, metrics = step(state, batch)
+    counts = kernels.launch_counts()
+    assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
+    want = chip_smoke.video_train_launches(mhla_layers=2, softmax_layers=1, steps=1)
+    assert want["flash_attention"] == 2 * (3 + 1) and want["unblockify"] == 6
+    assert {name: counts[name] for name in want} == want
+
+    loss_fn = wan_train.make_loss_fn(cfg)
+
+    def grads():
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = loss_fn(model, batch, torch.Generator(dev).manual_seed(5))
+        loss.backward()
+        return torch.cat([p.grad.flatten() for p in model.parameters()])
+
+    got = grads()
+    before = kernels.launch_counts()
+    with chip_smoke.plain_kernels():
+        ref = grads()
+    assert kernels.launch_counts() == before
+    # two bf16 runs of three layers, rounding at the same points: see VIDEO_TOL
+    assert_close("tiny Wan gradients, kernels vs plain", ref, got, chip_smoke.VIDEO_TOL)

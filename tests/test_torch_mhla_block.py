@@ -4,6 +4,7 @@ JAX side runs its Pallas bodies in interpret mode; the port runs its plain
 versions. Inputs come from numpy with fixed seeds.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -282,3 +283,226 @@ def test_wrappers_reject_what_does_not_fit():
                                      (2, 2, 2), 2)
     with pytest.raises(ValueError):  # tensors on several devices
         mhla_block.mix_states_dense(torch.zeros(2, 2), torch.zeros(1, 2, 4, 128, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# gradients: the custom VJPs of the JAX module (Pallas bodies in interpret
+# mode) against the port's autograd Functions (plain versions on the CPU)
+# ---------------------------------------------------------------------------
+
+# float32 sums over tokens in another order (dgamma, dM)
+TOL_SUM = 2e-5
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_blockify_and_unblockify_match_jax(rope, dtype):
+    """K8b's and K5b's functions against the JAX ``blockify``/``unblockify``
+    (RoPE in flat token order), odd partitions."""
+    grid, layout, h, dh = (6, 10, 9), (2, 2, 3), 2, 128
+    n, t = int(np.prod(layout)), int(np.prod(grid))
+    rng = _rng(31)
+    x = rng.normal(size=(2, t, h * dh)).astype(np.float32)
+    xb = rng.normal(size=(2, n, t // n, h * dh)).astype(np.float32)
+    xj, xbj = jnp.asarray(x, _JAX_DT[dtype]), jnp.asarray(xb, _JAX_DT[dtype])
+    tables_j = jax_block.rope_tables_flat(grid, dh, h) if rope else None
+    tables_t = rope_tables_flat(grid, dh) if rope else None
+    tol = TOL if dtype == "float32" else TOL_BF16
+    xt = torch.from_numpy(_f32(xj)).to(_TORCH_DT[dtype])
+    xbt = torch.from_numpy(_f32(xbj)).to(_TORCH_DT[dtype])
+    out = mhla_block.blockify(xt, tables_t, grid, layout, h)
+    assert out.dtype == _TORCH_DT[dtype] and out.shape == (2, n, t // n, h * dh)
+    assert_close("blockify", _f32(jax_block.blockify(xj, tables_j, grid, layout, h)), out, tol)
+    back = mhla_block.unblockify(xbt, tables_t, grid, layout, h)
+    assert back.dtype == _TORCH_DT[dtype] and back.shape == (2, t, h * dh)
+    assert_close("unblockify", _f32(jax_block.unblockify(xbj, tables_j, grid, layout, h)), back,
+                 tol)
+
+
+def test_blockify_and_unblockify_are_transposes_under_negated_sin():
+    """<blockify(x), y> == <x, unblockify(y, -sin)> and the other way round,
+    which is what makes each the other's backward; ``add`` joins without
+    RoPE; autograd goes through exactly these."""
+    grid, layout, h, dh = (4, 6, 4), (2, 3, 2), 2, 128
+    n, t = 12, 96
+    rng = _rng(37)
+    x = torch.from_numpy(rng.normal(size=(2, t, h * dh))).double()
+    y = torch.from_numpy(rng.normal(size=(2, n, t // n, h * dh))).double()
+    z = torch.from_numpy(rng.normal(size=(2, n, t // n, h * dh))).double()
+    tables = rope_tables_flat(grid, dh)
+    for sign in (1.0, -1.0):
+        lhs = (mhla_block.blockify(x, tables, grid, layout, h, sign) * y).sum()
+        rhs = (x * mhla_block.unblockify(y, tables, grid, layout, h, -sign)).sum()
+        np.testing.assert_allclose(lhs.item(), rhs.item(), rtol=1e-6)
+    plain = mhla_block.unblockify(y, tables, grid, layout, h) + mhla_block.unblockify(
+        z, None, grid, layout, h)
+    assert_close("add", plain, mhla_block.unblockify(y, tables, grid, layout, h, add=z), 1e-7)
+    # a rotation back and forth is the identity
+    there = mhla_block.blockify(x, tables, grid, layout, h)
+    assert_close("round trip", x, mhla_block.unblockify(there, tables, grid, layout, h, -1.0), 1e-6)
+    xg, yg, zg = (a.float().requires_grad_() for a in (x, y, z))
+    w = torch.from_numpy(rng.normal(size=(2, t, h * dh)).astype(np.float32))
+    (mhla_block.unblockify(yg, tables, grid, layout, h, add=zg) * w).sum().backward()
+    assert_close("d unblockify", mhla_block.blockify(w, tables, grid, layout, h, -1.0), yg.grad,
+                 1e-6)
+    assert_close("d add", mhla_block.blockify(w, None, grid, layout, h), zg.grad, 1e-6)
+    (mhla_block.blockify(xg, tables, grid, layout, h) * y.float()).sum().backward()
+    assert_close("d blockify", mhla_block.unblockify(y.float(), tables, grid, layout, h, -1.0),
+                 xg.grad, 1e-6)
+
+
+_ISLAND_GRAD_CASES = ["rope", "no_rope", "v_stream_bf16_in", "emit_nope", "mid_bf16",
+                      "odd_partitions"]
+
+
+@pytest.mark.parametrize("case", _ISLAND_GRAD_CASES)
+def test_blockify_island_gradients_match_jax(case):
+    """dx and dgamma of K5's function for random cotangents of both outputs,
+    against ``jax.vjp`` of the JAX ``blockify_island``."""
+    grid, layout, h, in_dt, rope, norm, relu, mid, out_dt, nope, tol = _ISLAND_CASES[case]
+    dh = 128
+    t, f = int(np.prod(grid)), h * dh
+    n = int(np.prod(layout))
+    rng = _rng(40 + _ISLAND_GRAD_CASES.index(case))
+    x = rng.normal(size=(2, t, f)).astype(np.float32)
+    gamma = (1.0 + 0.1 * rng.normal(size=(f,))).astype(np.float32) if norm else None
+    dy = rng.normal(size=(2, n, t // n, f)).astype(np.float32)
+    dn = rng.normal(size=(2, n, t // n, f)).astype(np.float32)
+    eps = 1e-6
+
+    xj = jnp.asarray(x, _JAX_DT[in_dt])
+    tables_j = jax_block.rope_tables_flat(grid, dh, h) if rope else None
+
+    def jax_fn(xx, gg):
+        return jax_block.blockify_island(xx, tables_j, gg, grid, layout, h, eps,
+                                         eps if relu else None, _JAX_DT[mid], _JAX_DT[out_dt],
+                                         nope)
+
+    _, vjp = jax.vjp(jax_fn, xj, None if gamma is None else jnp.asarray(gamma))
+    cot = (jnp.asarray(dy, _JAX_DT[out_dt]), jnp.asarray(dn, _JAX_DT[out_dt]) if nope else None)
+    ref_dx, ref_dg = vjp(cot)
+
+    xt = torch.from_numpy(_f32(xj)).to(_TORCH_DT[in_dt]).requires_grad_()
+    gt = None if gamma is None else torch.from_numpy(gamma).requires_grad_()
+    out, out_nope = mhla_block.blockify_island(
+        xt, rope_tables_flat(grid, dh) if rope else None, gt, grid, layout, h, eps,
+        eps if relu else None, _TORCH_DT[mid], _TORCH_DT[out_dt], nope)
+    loss = (out.float() * torch.from_numpy(_f32(cot[0]))).sum()
+    if nope:
+        loss = loss + (out_nope.float() * torch.from_numpy(_f32(cot[1]))).sum()
+    loss.backward()
+    assert xt.grad.dtype == xt.dtype
+    # a bf16 input's gradient is rounded to bf16 on both sides: single roundings may differ
+    tol_dx = tol if in_dt == "float32" else TOL_BF16
+    assert_close(f"blockify_island {case} dx", _f32(ref_dx), xt.grad, tol_dx)
+    if gamma is not None:
+        assert_close(f"blockify_island {case} dgamma", _f32(ref_dg), gt.grad,
+                     max(tol, TOL_SUM))
+
+
+@pytest.mark.parametrize(
+    "grid,layout,in_dt,mid,out_dt,tol",
+    [
+        ((4, 4, 8), (2, 2, 2), "float32", None, "float32", TOL),
+        ((6, 10, 9), (2, 2, 3), "float32", "bfloat16", "bfloat16", TOL_BF16),
+        ((4, 4, 8), (2, 2, 2), "bfloat16", None, "bfloat16", 2 * TOL_BF16),
+    ],
+)
+def test_unblockify_island_gradients_match_jax(grid, layout, in_dt, mid, out_dt, tol):
+    h, dh = 2, 128
+    n, t = int(np.prod(layout)), int(np.prod(grid))
+    rng = _rng(53)
+    xb = rng.normal(size=(2, n, t // n, h * dh)).astype(np.float32)
+    g = (1.0 + 0.1 * rng.normal(size=(dh,))).astype(np.float32)
+    dy = rng.normal(size=(2, t, h * dh)).astype(np.float32)
+    xj = jnp.asarray(xb, _JAX_DT[in_dt])
+    _, vjp = jax.vjp(
+        lambda xx, gg: jax_block.unblockify_island(xx, gg, grid, layout, h, 1e-6, _JAX_DT[mid],
+                                                   _JAX_DT[out_dt]),
+        xj, jnp.asarray(g))
+    cot = jnp.asarray(dy, _JAX_DT[out_dt])
+    ref_dx, ref_dg = vjp(cot)
+    xt = torch.from_numpy(_f32(xj)).to(_TORCH_DT[in_dt]).requires_grad_()
+    gt = torch.from_numpy(g).requires_grad_()
+    out = mhla_block.unblockify_island(xt, gt, grid, layout, h, 1e-6, _TORCH_DT[mid],
+                                       _TORCH_DT[out_dt])
+    (out.float() * torch.from_numpy(_f32(cot))).sum().backward()
+    assert_close("unblockify_island dxb", _f32(ref_dx), xt.grad, tol)
+    assert_close("unblockify_island dgamma", _f32(ref_dg), gt.grad, max(tol, TOL_SUM))
+
+
+@pytest.mark.parametrize("n,dtype,tol", [(8, "float32", TOL), (150, "float32", TOL),
+                                         (12, "bfloat16", 2 * TOL_BF16)])
+def test_mix_states_dense_gradients_match_jax(n, dtype, tol):
+    """dstates = M^T dmixed (the same op on the transposed matrix) and dM."""
+    rng = _rng(59)
+    m = rng.uniform(0.0, 1.0, size=(n, n)).astype(np.float32)
+    s = rng.normal(size=(2, n, 16, 128)).astype(np.float32)
+    do = rng.normal(size=(2, n, 16, 128)).astype(np.float32)
+    mj, sj = jnp.asarray(m, _JAX_DT[dtype]), jnp.asarray(s, _JAX_DT[dtype])
+    _, vjp = jax.vjp(jax_block.mix_states_dense, mj, sj)
+    ref_dm, ref_ds = vjp(jnp.asarray(do, _JAX_DT[dtype]))
+    mt = torch.from_numpy(_f32(mj)).requires_grad_()
+    st = torch.from_numpy(_f32(sj)).to(_TORCH_DT[dtype]).requires_grad_()
+    out = mhla_block.mix_states_dense(mt, st)
+    out.backward(torch.from_numpy(_f32(jnp.asarray(do, _JAX_DT[dtype]))).to(out.dtype))
+    assert_close(f"mix_states_dense dstates n={n}", _f32(ref_ds), st.grad, tol)
+    assert_close(f"mix_states_dense dM n={n}", _f32(ref_dm), mt.grad, max(tol, TOL_SUM))
+    # a fixed matrix (the video model's buffer) gets no gradient and needs none
+    st2 = st.detach().clone().requires_grad_()
+    mhla_block.mix_states_dense(mt.detach(), st2).sum().backward()
+    assert st2.grad is not None
+
+
+@pytest.mark.parametrize("c,dtype,tol", [(24, "float32", TOL), (210, "float32", TOL),
+                                         (24, "bfloat16", 2 * TOL_BF16)])
+def test_block_readout_gradients_match_jax(c, dtype, tol):
+    b, n, h, dk, dv = 2, 4, 2, 128, 128
+    rng = _rng(61)
+    q = np.maximum(rng.normal(size=(b, n, c, h * dk)), 0).astype(np.float32)
+    mixed = rng.normal(size=(b, n, h * dk, dv)).astype(np.float32)
+    do = rng.normal(size=(b, n, c, h * dv)).astype(np.float32)
+    qj, mj = jnp.asarray(q, _JAX_DT[dtype]), jnp.asarray(mixed, _JAX_DT[dtype])
+    g = 2
+    _, vjp = jax.vjp(lambda qq, mm: jax_block._readout(qq, mm, g, c, h),
+                     qj.reshape(b, n // g, g * c, h * dk), mj)
+    ref_dq, ref_dm = vjp(jnp.asarray(do, _JAX_DT[dtype]).reshape(b, n // g, g * c, h * dv))
+    qt = torch.from_numpy(_f32(qj)).to(_TORCH_DT[dtype]).requires_grad_()
+    mt = torch.from_numpy(_f32(mj)).to(_TORCH_DT[dtype]).requires_grad_()
+    out = mhla_block.block_readout(qt, mt, h)
+    out.backward(torch.from_numpy(_f32(jnp.asarray(do, _JAX_DT[dtype]))).to(out.dtype))
+    assert qt.grad.dtype == qt.dtype and mt.grad.dtype == mt.dtype
+    assert_close(f"block_readout dq c={c}", _f32(ref_dq).reshape(b, n, c, h * dk), qt.grad, tol)
+    assert_close(f"block_readout dmixed c={c}", _f32(ref_dm), mt.grad, tol)
+    dq, dm = mhla_block.block_readout_bwd_plain(qt.detach(), mt.detach(), out.detach(), h)
+    assert dq.shape == qt.shape and dm.shape == mt.shape
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("nope", [False, True])
+def test_mhla_blockwise_fused_gradients_match_jax(normalize, nope):
+    """Every input's gradient, the trainable mixing matrix's included."""
+    b, n, c, h, dk, dv = 2, 8, 24, 2, 128, 128
+    arrays = _blockwise_inputs(b, n, c, h, dk, dv, 67)
+    m = block_mixing_matrix((2, 2, 2))
+    do = _rng(68).normal(size=(b, n, c, h * dv)).astype(np.float32)
+
+    def jax_fn(q, k, v, qn, kn, mm):
+        return jax_block.mhla_blockwise_fused(
+            q, k, v, mm, h, q_nope4=qn if nope else None, k_nope4=kn if nope else None,
+            normalize=normalize)
+
+    _, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in arrays), jnp.asarray(m))
+    ref = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (*arrays, m)]
+    q, k, v, qn, kn, mm = leaves
+    out = mhla_block.mhla_blockwise_fused(
+        q, k, v, mm, h, q_nope4=qn if nope else None, k_nope4=kn if nope else None,
+        normalize=normalize)
+    out.backward(torch.from_numpy(do))
+    for name, r, leaf in zip(("dq", "dk", "dv", "dq_nope", "dk_nope", "dM"), ref, leaves):
+        if name in ("dq_nope", "dk_nope") and not (nope and normalize):
+            assert leaf.grad is None or not leaf.grad.any()
+            continue
+        assert_close(f"mhla_blockwise_fused {name}", np.asarray(r), leaf.grad,
+                     TOL_SUM if name == "dM" else TOL)

@@ -157,6 +157,31 @@ def test_project_params_clamps_mixing_matrices_in_place():
     np.testing.assert_array_equal(np.asarray(ref), mm.detach().numpy())
 
 
+@pytest.mark.parametrize("owner", ["block_attn", "piece_attn"])
+def test_project_params_clamps_trainable_block_mixing_weights(owner):
+    """A trainable vision block-mixing weight is clamped to [0, 1] after each
+    step, as the JAX ``project_params`` clamps every leaf under
+    ``block_attn`` / ``piece_attn``; a fixed one (a buffer) and other
+    parameters are left alone."""
+    from mhla_tpu_torch.layers import BlockMixing
+
+    model = torch.nn.Module()
+    setattr(model, owner, BlockMixing((2, 2, 2), trainable=True))
+    model.fixed = BlockMixing((2, 2, 2))
+    model.other = torch.nn.Linear(4, 4)
+    weight = getattr(model, owner).weight
+    raw = np.linspace(-1.0, 2.0, weight.numel(), dtype=np.float32).reshape(weight.shape)
+    with torch.no_grad():
+        weight.copy_(torch.from_numpy(raw))
+        model.other.weight.fill_(3.0)
+    fixed = model.fixed.weight.clone()
+    project_params(model)
+    ref = jax_trainer.project_params({owner: {"weight": jnp.asarray(raw)}})[owner]["weight"]
+    np.testing.assert_array_equal(np.asarray(ref), weight.detach().numpy())
+    assert weight.min() == 0.0 and weight.max() == 1.0
+    assert torch.equal(model.fixed.weight, fixed) and (model.other.weight == 3.0).all()
+
+
 def test_unported_optimizers_raise():
     for name in ("lion", "came", "adamw8bit", "came8bit"):
         with pytest.raises(NotImplementedError):

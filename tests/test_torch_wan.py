@@ -413,7 +413,7 @@ def test_video_infer_cli_rejects_mismatched_embeddings(tmp_path):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(model_type="i2v"), dict(attn_type="linear"), dict(remat=True), dict(is_lepe=True),
+    dict(model_type="i2v"), dict(attn_type="linear"), dict(attn_type="gla"), dict(is_lepe=True),
 ], ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()))
 def test_unported_model_options_raise(overrides):
     with pytest.raises(NotImplementedError):
