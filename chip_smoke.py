@@ -69,6 +69,24 @@ exits non-zero:
              gradient norms and the exact launch counts of K5-K9 and
              K5b-K9b; prints seconds per step, peak memory and the final
              checkpoint's seconds and size.
+14. kernels (sparse training) — K10 in its training form (which also
+             writes the masked log-sum-exp) and K10b (the radial flash
+             backward) against their plain versions at [1, 31,500, 12, 128]
+             in 21 frames, each beside its bound (allowed pairs counted
+             exactly) and one library call (``scaled_dot_product_attention``
+             with the boolean mask, and its backward); two runs of K10b bit
+             for bit; K10 in both forms and K10b at a small ragged geometry
+             (437 tokens in 4 frames); the gradients of one radial-sparse
+             ``WanSelfAttention`` layer at 31,500 tokens through the kernels
+             against the same layer through the plain versions.
+15. train (video, hybrid_sparse) — ``wan_train.main`` as in 13 with the ten
+             softmax layers under the radial mask (``model.sparse_attn_idx``):
+             K10 and K10b take the place of K9 and K9b in those layers; the
+             exact launch counts.
+16. train (video, hybrid_sparse + LoRA) — the same with ``lora.enable``:
+             the same launch counts, the base parameters bit for bit those
+             of the seeded init after the steps, every adapter's B moved off
+             zero, peak memory and the checkpoint's size (adapters only).
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; there is no CPU mode.
@@ -206,6 +224,8 @@ KERNEL_META = {
                           "mhla_tpu/kernels/mhla_block_pallas.py:116"),
     "flash_attention_bwd": ("cuda", "mhla_tpu_torch/csrc/flash_bwd.cu",
                             "mhla_tpu/kernels/flash_attention.py:115"),
+    "radial_flash_attention_bwd": ("cuda", "mhla_tpu_torch/csrc/radial_bwd.cu",
+                                   "mhla_tpu/kernels/sparse_attention.py:507"),
 }
 FWD_KERNELS = ("fmap_rope", "chunk_states", "mix_states", "chunk_output")
 BWD_KERNELS = ("fmap_rope_bwd", "chunk_output_bwd", "mix_states_bwd", "chunk_states_bwd")
@@ -231,20 +251,24 @@ VIDEO_BWD_KERNELS = ("unblockify", "blockify", "block_readout_bwd", "flash_atten
 
 
 def video_train_launches(mhla_layers: int, softmax_layers: int,
-                          steps: int = VIDEO_TRAIN_STEPS) -> dict:
-    """Launches of K5-K9 and K5b-K9b in ``steps`` training steps with
+                          steps: int = VIDEO_TRAIN_STEPS, sparse_layers: int = 0) -> dict:
+    """Launches of K5-K10 and K5b-K10b in ``steps`` training steps with
     per-block remat: every block's forward runs twice (once with the
     step's forward, once recomputed in the backward), its backward once.
     K6 launches a third time per MHLA layer, on M^T, for the gradient of the
     states; K5b once for each of q, k and v; K9 and K9b in every
-    cross-attention and every softmax self-attention."""
-    attn = mhla_layers + 2 * softmax_layers  # one cross-attention per layer
+    cross-attention and every dense softmax self-attention (the
+    ``softmax_layers``); K10 and K10b in the self-attention of the
+    ``sparse_layers``, which training never runs dense."""
+    # one cross-attention per layer, one more dense attention per dense softmax layer
+    attn = mhla_layers + sparse_layers + 2 * softmax_layers
     per_step = {
         "blockify_island": 2 * 3 * mhla_layers, "mix_states_dense": 3 * mhla_layers,
         "block_readout": 2 * mhla_layers, "unblockify_island": 2 * mhla_layers,
-        "flash_attention": 2 * attn, "radial_flash_attention": 0,
+        "flash_attention": 2 * attn, "radial_flash_attention": 2 * sparse_layers,
         "unblockify": 3 * mhla_layers, "blockify": mhla_layers,
         "block_readout_bwd": mhla_layers, "flash_attention_bwd": attn,
+        "radial_flash_attention_bwd": sparse_layers,
     }
     return {name: steps * n for name, n in per_step.items()}
 
@@ -823,11 +847,34 @@ def plain_flash_attention(q, k, v):
     return flash.flash_attention_plain(q, k, v)
 
 
+def plain_radial_flash_attention(q, k, v, num_frames, scale=None):
+    """``radial_flash_attention_plain``, with ``radial_flash_attention_bwd_plain``
+    as its backward where a gradient is wanted."""
+    from mhla_tpu_torch.kernels import sparse_attention as sparse
+
+    class PlainRadial(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = sparse.radial_flash_attention_plain(q, k, v, num_frames, scale,
+                                                         return_lse=True)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            return sparse.radial_flash_attention_bwd_plain(*ctx.saved_tensors, do, num_frames,
+                                                           scale)
+
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return PlainRadial.apply(q, k, v)
+    return sparse.radial_flash_attention_plain(q, k, v, num_frames, scale)
+
+
 def plain_kernels(only=None):
     """Context in which the video model's wrappers K5-K10 (or those named in
     ``only``) run their plain PyTorch versions on whatever device their
     tensors lie; gradients then come from plain autograd (and the plain flash
-    backward)."""
+    and radial flash backwards)."""
     from mhla_tpu_torch.kernels import mhla_block, sparse_attention
     from mhla_tpu_torch.layers import attention, mhla_vision
 
@@ -838,8 +885,7 @@ def plain_kernels(only=None):
         (mhla_block, "mix_states_dense", mhla_block.mix_states_dense_plain),
         (mhla_block, "block_readout", mhla_block.block_readout_plain),
         (attention, "flash_attention", plain_flash_attention),
-        (sparse_attention, "radial_flash_attention",
-         sparse_attention.radial_flash_attention_plain),
+        (sparse_attention, "radial_flash_attention", plain_radial_flash_attention),
     ):
         if only is None or name in only:
             stack.enter_context(mock.patch.object(module, name, plain))
@@ -1076,11 +1122,10 @@ def phase_kernels_video_train(dev: torch.device) -> dict:
     through the kernels against the same layer through the plain versions."""
     import torch.nn.functional as F
 
-    from mhla_tpu_torch import kernels
     from mhla_tpu_torch.kernels import flash_attention as flash
     from mhla_tpu_torch.kernels import mhla_block
     from mhla_tpu_torch.layers import MHLA3D
-    from mhla_tpu_torch.models.wan import WanSelfAttention, init_wan_params
+    from mhla_tpu_torch.models.wan import WanSelfAttention
     from mhla_tpu_torch.ops.rotary import rope_tables_flat
     from mhla_tpu_torch.utils import get_err_ratio
 
@@ -1170,43 +1215,155 @@ def phase_kernels_video_train(dev: torch.device) -> dict:
 
     # one layer of each kind at 31,500 tokens, bf16 activations over float32
     # parameters: gradients through the kernels against the plain versions
-    x, w = randn(b, t, f).to(bf16), randn(b, t, f)
-    for tag, layer, args in (
-        ("MHLA3D", MHLA3D(f, h, VIDEO_LAYOUT, normalize_out=False, device=dev),
-         (VIDEO_GRID, tables)),
-        ("WanSelfAttention", WanSelfAttention(f, h, device=dev), (VIDEO_GRID,)),
-    ):
-        init_wan_params(layer, torch.Generator(dev).manual_seed(SEED + 13))
-        with torch.no_grad():
-            for name, p in layer.named_parameters():
-                if "norm" in name:  # norm weights away from 1: their gradients are exercised
-                    p.add_(0.1 * randn(*p.shape))
-                elif name.endswith("bias"):
-                    p.add_(0.02 * randn(*p.shape))
-        kernels.reset_launch_counts()
-        got = layer_grads(layer, x, w, *args)
-        launched = {k_: v_ for k_, v_ in kernels.launch_counts().items() if v_}
-        with plain_kernels():
-            ref = layer_grads(layer, x, w, *args)
-        if {k_: v_ for k_, v_ in kernels.launch_counts().items() if v_} != launched:
-            raise AssertionError("the plain layer launched a kernel")
-        torch.cuda.synchronize()
-        rels = {name: get_err_ratio(ref[name], got[name]) for name in ref}
-        worst = max(rels, key=rels.get)
-        log(f"[grads] {tag} at {t} tokens, kernels {launched}: gradients vs plain versions, "
-            f"rel-RMS dx {rels['x']:.3e}, worst {worst} {rels[worst]:.3e} (tol {LAYER_GRAD_TOL})")
-        if not (all(torch.isfinite(g).all() for g in got.values())
-                and rels[worst] < LAYER_GRAD_TOL):
-            raise AssertionError(f"{tag} gradients: kernels != plain: {rels}")
-        del layer, got, ref
+    check_layer_grads(dev, "MHLA3D", MHLA3D(f, h, VIDEO_LAYOUT, normalize_out=False, device=dev),
+                      (VIDEO_GRID, tables))
+    check_layer_grads(dev, "WanSelfAttention", WanSelfAttention(f, h, device=dev), (VIDEO_GRID,))
     return results
 
 
-def phase_train_video(dev: torch.device, tag: str, linear_idx) -> dict:
-    """``wan_train.main`` for VIDEO_TRAIN_STEPS steps of the 30-layer model
-    at 31,500 tokens, batch 1, with the MHLA layers ``linear_idx``."""
+def check_layer_grads(dev: torch.device, tag: str, layer, args) -> None:
+    """The gradients of sum(layer(x, *args) * w) at batch 1 x 31,500 tokens
+    (bf16 activations over float32 parameters from the seeded init, norm
+    weights and biases moved off their start) through the kernels against
+    the same layer through the plain versions."""
     from mhla_tpu_torch import kernels
-    from mhla_tpu_torch.train import wan_train
+    from mhla_tpu_torch.models.wan import init_wan_params
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    t, f = math.prod(VIDEO_GRID), VIDEO_HEADS * VIDEO_HEAD_DIM
+    gen = torch.Generator(dev).manual_seed(SEED + 14)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    x, w = randn(1, t, f).to(torch.bfloat16), randn(1, t, f)
+    init_wan_params(layer, torch.Generator(dev).manual_seed(SEED + 13))
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            if "norm" in name:  # norm weights away from 1: their gradients are exercised
+                p.add_(0.1 * randn(*p.shape))
+            elif name.endswith("bias"):
+                p.add_(0.02 * randn(*p.shape))
+    kernels.reset_launch_counts()
+    got = layer_grads(layer, x, w, *args)
+    launched = {k_: v_ for k_, v_ in kernels.launch_counts().items() if v_}
+    with plain_kernels():
+        ref = layer_grads(layer, x, w, *args)
+    if {k_: v_ for k_, v_ in kernels.launch_counts().items() if v_} != launched:
+        raise AssertionError("the plain layer launched a kernel")
+    torch.cuda.synchronize()
+    rels = {name: get_err_ratio(ref[name], got[name]) for name in ref}
+    worst = max(rels, key=rels.get)
+    log(f"[grads] {tag} at {t} tokens, kernels {launched}: gradients vs plain versions, "
+        f"rel-RMS dx {rels['x']:.3e}, worst {worst} {rels[worst]:.3e} (tol {LAYER_GRAD_TOL})")
+    if not (all(torch.isfinite(g).all() for g in got.values())
+            and rels[worst] < LAYER_GRAD_TOL):
+        raise AssertionError(f"{tag} gradients: kernels != plain: {rels}")
+
+
+def phase_kernels_sparse_train(dev: torch.device) -> dict:
+    """K10's training form and K10b against their plain versions at the
+    shape one radial-sparse layer gives them in a training step of the
+    Wan2.1-1.3B model (batch 1, 31,500 tokens in 21 frames, 12 heads) and at
+    a small ragged geometry, then one sparse layer's gradients."""
+    import torch.nn.functional as F
+
+    from mhla_tpu_torch.kernels import sparse_attention as sparse
+    from mhla_tpu_torch.models.wan import WanSelfAttention
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    b, h, dh, frames = 1, VIDEO_HEADS, VIDEO_HEAD_DIM, VIDEO_GRID[0]
+    t = math.prod(VIDEO_GRID)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(SEED + 15)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    results = {}
+    check = lambda *a, **kw: check_kernel(results, *a, **kw)  # noqa: E731
+    slow = dict(reps=5, inner=2, warmup=1)
+
+    def lse_close(tag, ref, lse):
+        rel = get_err_ratio(ref, lse)
+        log(f"[kernels] {tag}: K10's masked log-sum-exp vs plain rel-RMS {rel:.2e}")
+        if not (torch.isfinite(lse).all() and rel < 1e-5):
+            raise AssertionError(f"{tag}: K10's log-sum-exp disagrees with the plain version")
+
+    # 437 tokens in 4 frames of 109 and a last frame of 1: ragged frames, a ragged last tile
+    rt, rf = 4 * 100 + 37, 4
+    qs, ks, vs, dos = (randn(2, rt, 3, dh).to(bf16) for _ in range(4))
+    check("radial_flash_attention[ragged]", f"T={rt} {rf} frames",
+          lambda: sparse.radial_flash_attention(qs, ks, vs, rf),
+          lambda: sparse.radial_flash_attention_plain(qs, ks, vs, rf), False, tol=FLASH_TOL)
+    os_, lses = sparse.radial_flash_attention(qs, ks, vs, rf, return_lse=True)
+    if not torch.equal(os_, sparse.radial_flash_attention(qs, ks, vs, rf)):
+        raise AssertionError("K10's training form and its serving form disagree (ragged)")
+    lse_close(f"T={rt} {rf} frames",
+              sparse.radial_flash_attention_plain(qs, ks, vs, rf, return_lse=True)[1], lses)
+    check("radial_flash_attention_bwd[ragged]", f"T={rt} {rf} frames",
+          lambda: sparse.radial_flash_attention_bwd(qs, ks, vs, os_, lses, dos, rf),
+          lambda: sparse.radial_flash_attention_bwd_plain(qs, ks, vs, os_, lses, dos, rf), False,
+          tol=FLASH_BWD_TOL)
+
+    q, k, v, do = (randn(b, t, h, dh).to(bf16) for _ in range(4))
+    offsets, tiles, _ = sparse.radial_schedule(t, frames)
+    pairs = sparse.radial_allowed_pairs(t, frames)
+    lengths = np.diff(offsets)
+    log(f"[kernels] radial schedule at {frames} frames of {t // frames}: {len(tiles)} tiles in "
+        f"{len(lengths)} lists (one list serves a query tile in K10 and the dQ kernel and a key "
+        f"tile in the dK/dV kernel): longest {lengths.max()}, mean {lengths.mean():.1f}, "
+        f"shortest {lengths.min()}")
+    mask = torch.cat([sparse.radial_block_mask(r, min(t, r + 2048), t, frames, dev)
+                      for r in range(0, t, 2048)])
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    try:  # the yardsticks only: the port never calls them
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True)
+        torch.cuda.synchronize()
+        lib_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt.detach(), kt.detach(), vt.detach(), attn_mask=mask)
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            sdpa_out, (qt, kt, vt), dot, retain_graph=True)
+    except RuntimeError as exc:
+        log(f"[kernels] masked scaled_dot_product_attention cannot run here: {exc}")
+        sdpa_out = lib_fwd = lib_bwd = None
+
+    check("radial_flash_attention[lse]", f"T={t} {frames} frames B={b}",
+          lambda: sparse.radial_flash_attention(q, k, v, frames, return_lse=True)[0],
+          lambda: sparse.radial_flash_attention_plain(q, k, v, frames), True, tol=FLASH_TOL,
+          work=(4 * nbytes(q) + 4 * b * h * t, 4 * b * h * dh * pairs, bf16), library=lib_fwd,
+          timing=slow)
+    o, lse = sparse.radial_flash_attention(q, k, v, frames, return_lse=True)
+    if not torch.equal(o, sparse.radial_flash_attention(q, k, v, frames)):
+        raise AssertionError("K10's training form and its serving form disagree")
+    lse_close(f"T={t} {frames} frames",
+              sparse.radial_flash_attention_plain(q, k, v, frames, return_lse=True)[1], lse)
+    serving_ms = median_ms(lambda: sparse.radial_flash_attention(q, k, v, frames), **slow)
+    log(f"[kernels] K10 without the log-sum-exp at the same shape: {serving_ms:.4f} ms")
+    results["radial_flash_attention[lse]"]["serving_ms"] = serving_ms
+    check("radial_flash_attention_bwd", f"T={t} {frames} frames B={b}",
+          lambda: sparse.radial_flash_attention_bwd(q, k, v, o, lse, do, frames),
+          lambda: sparse.radial_flash_attention_bwd_plain(q, k, v, o, lse, do, frames), True,
+          tol=FLASH_BWD_TOL,
+          work=(nbytes(q, k, v, o, do, lse) + nbytes(q, k, v), 10 * b * h * dh * pairs, bf16),
+          library=lib_bwd, timing=slow)
+    first = sparse.radial_flash_attention_bwd(q, k, v, o, lse, do, frames)
+    again = sparse.radial_flash_attention_bwd(q, k, v, o, lse, do, frames)
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError("radial_flash_attention_bwd: two runs differ")
+    log("[kernels] radial_flash_attention_bwd: two runs equal")
+    del q, k, v, do, o, lse, qt, kt, vt, dot, sdpa_out, mask, first, again, lib_fwd, lib_bwd
+
+    check_layer_grads(dev, "WanSelfAttention[sparse]",
+                      WanSelfAttention(h * dh, h, sparse=True, device=dev), (VIDEO_GRID,))
+    return results
+
+
+def phase_train_video(dev: torch.device, tag: str, linear_idx, sparse_idx=(),
+                      lora: bool = False) -> dict:
+    """``wan_train.main`` for VIDEO_TRAIN_STEPS steps of the 30-layer model
+    at 31,500 tokens, batch 1, with the MHLA layers ``linear_idx``, the
+    softmax layers ``sparse_idx`` under the radial mask and, with ``lora``,
+    the model frozen but for its adapters."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.models.wan import init_wan_params
+    from mhla_tpu_torch.train import lora_state, wan_train
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="mhla_wan_train_") as work:
@@ -1216,6 +1373,10 @@ def phase_train_video(dev: torch.device, tag: str, linear_idx) -> dict:
             f"--train.max_steps={VIDEO_TRAIN_STEPS}", "--train.log_interval=1",
             "--optimizer.warmup_steps=1",  # the entry point's AdamW, warm-up cut to one step
         ]
+        if sparse_idx:
+            argv.append(f"--model.sparse_attn_idx={tuple(sparse_idx)}".replace(" ", ""))
+        if lora:
+            argv.append("--lora.enable=true")
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         out = wan_train.main(argv)
@@ -1223,8 +1384,13 @@ def phase_train_video(dev: torch.device, tag: str, linear_idx) -> dict:
         counts = kernels.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = out["model"].cfg
-    n_mhla = len(cfg.linear_attn_idx)
-    want = video_train_launches(n_mhla, cfg.num_layers - n_mhla)
+    n_mhla, n_sparse = len(cfg.linear_attn_idx), len(cfg.sparse_attn_idx or ())
+    if n_sparse != len(sparse_idx) or cfg.sparse_dense_from_t is not None:
+        raise AssertionError(f"{n_sparse} radial-sparse layers, dense guard at "
+                             f"{cfg.sparse_dense_from_t}: training runs the mask in "
+                             f"{len(sparse_idx)} layers at every timestep")
+    want = video_train_launches(n_mhla, cfg.num_layers - n_mhla - n_sparse,
+                                sparse_layers=n_sparse)
     log(f"[train {tag}] launches in {VIDEO_TRAIN_STEPS} steps: {counts}")
     losses, norms = out["losses"], out["grad_norms"]
     if len(losses) != VIDEO_TRAIN_STEPS or not all(map(math.isfinite, losses)):
@@ -1237,8 +1403,32 @@ def phase_train_video(dev: torch.device, tag: str, linear_idx) -> dict:
     if (cfg.num_layers, cfg.dim, cfg.remat, cfg.dtype) != (VIDEO_LAYERS, 1536, True,
                                                            torch.bfloat16):
         raise AssertionError(f"not the full-size model: {cfg}")
+    adapters = {}
+    if lora:
+        # the base is the seeded init bit for bit; only the adapters moved
+        run_cfg = wan_train.parse_cli(wan_train.WanTrainConfig, argv)
+        fresh, _ = wan_train.build_model(run_cfg, dev)
+        init_wan_params(fresh, torch.Generator(dev).manual_seed(run_cfg.train.seed))
+        base = {n.replace(".parametrizations.weight.original", ".weight"): p
+                for n, p in out["model"].named_parameters() if not p.requires_grad}
+        if set(base) != set(fresh.state_dict()):
+            raise AssertionError("the frozen parameters are not the base model's")
+        moved = [n for n, p in fresh.named_parameters() if not torch.equal(p, base[n])]
+        if moved:
+            raise AssertionError(f"LoRA training changed base parameters: {moved[:5]}")
+        del fresh, base
+        factors = lora_state(out["model"])
+        still_zero = [n for n, f in factors.items() if not f["b"].any()]
+        if len(factors) != 8 * cfg.num_layers or still_zero:
+            raise AssertionError(f"{len(factors)} adapters, B still zero in {still_zero[:5]}")
+        adapters = {"adapter_params": sum(f["a"].numel() + f["b"].numel()
+                                          for f in factors.values())}
+        log(f"[train {tag}] LoRA rank 16 on q, k, v, o of {2 * cfg.num_layers} attentions: "
+            f"{adapters['adapter_params'] / 1e6:.2f} M adapter params trained, every B off zero; "
+            "the base is bit for bit the seeded init")
     step_s = statistics.median(out["step_seconds"][1:])
-    log(f"[train {tag}] Wan2.1-1.3B, {n_mhla} MHLA + {cfg.num_layers - n_mhla} softmax layers, "
+    log(f"[train {tag}] Wan2.1-1.3B, {n_mhla} MHLA + {cfg.num_layers - n_mhla} softmax layers "
+        f"({n_sparse} radial-sparse), "
         f"{out['params'] / 1e6:.1f} M float32 params, bf16 compute, remat, B=1 x "
         f"{math.prod(VIDEO_GRID)} tokens: losses {[round(x, 4) for x in losses]}; grad norms "
         f"{[round(x, 3) for x in norms]}")
@@ -1248,7 +1438,7 @@ def phase_train_video(dev: torch.device, tag: str, linear_idx) -> dict:
         f"{out['save_seconds']:.1f} s")
     return {"launches": counts, "step_s": step_s, "videos_s": 1 / step_s, "peak_gb": peak_gb,
             "losses": losses, "grad_norms": norms, "save_s": out["save_seconds"],
-            "checkpoint_gb": out["checkpoint_bytes"] / 1e9}
+            "checkpoint_gb": out["checkpoint_bytes"] / 1e9, **adapters}
 
 
 def main() -> None:
@@ -1270,27 +1460,39 @@ def main() -> None:
     kern.update(phase_kernels_video_train(dev))
     train_full = phase_train_video(dev, "full", range(VIDEO_LAYERS))
     train_hybrid = phase_train_video(dev, "hybrid", HYBRID_LINEAR_IDX)
+    kern.update(phase_kernels_sparse_train(dev))
+    train_sparse = phase_train_video(dev, "hybrid_sparse", HYBRID_LINEAR_IDX, SOFTMAX_LAYERS)
+    train_lora = phase_train_video(dev, "hybrid_sparse + LoRA", HYBRID_LINEAR_IDX,
+                                   SOFTMAX_LAYERS, lora=True)
     # each kernel's launches on the path that brought it in; K9's on the hybrid
     # sampling path and K9b's on the hybrid training path, which run them at
-    # both of their shapes
+    # both of their shapes; K10b's on the hybrid_sparse training path
     launches = {**{n: serve["launches"][n] for n in FWD_KERNELS},
                 **{n: train["launches"][n] for n in BWD_KERNELS},
                 **{n: video["launches"][n] for n in VIDEO_KERNELS},
                 "flash_attention": hybrid["launches"]["flash_attention"],
                 "radial_flash_attention": sparse["launches"]["radial_flash_attention"],
                 **{n: train_full["launches"][n] for n in VIDEO_BWD_KERNELS},
-                "flash_attention_bwd": train_hybrid["launches"]["flash_attention_bwd"]}
+                "flash_attention_bwd": train_hybrid["launches"]["flash_attention_bwd"],
+                "radial_flash_attention_bwd":
+                    train_sparse["launches"]["radial_flash_attention_bwd"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": launches[name], **{key: kern[name][key] for key in keys}}
         for name, (route, source, replaces) in KERNEL_META.items()
     ]
-    for phase in (train, video, hybrid, sparse, train_full, train_hybrid):
+    for phase in (train, video, hybrid, sparse, train_full, train_hybrid, train_sparse,
+                  train_lora):
         phase.pop("launches")
     log(json.dumps({"serve": serve["rates"], "train": train, "video": video, "hybrid": hybrid,
                     "hybrid_sparse": sparse, "train_video_full": train_full,
-                    "train_video_hybrid": train_hybrid, "card": smi}))
+                    "train_video_hybrid": train_hybrid,
+                    "train_video_hybrid_sparse": train_sparse,
+                    "train_video_hybrid_sparse_lora": train_lora,
+                    "sparse_train_kernels": {name: kern[name] for name in (
+                        "radial_flash_attention[lse]", "radial_flash_attention_bwd")},
+                    "card": smi}))
     log(json.dumps({"kernels": kernels_line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,6 +1,7 @@
 // Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu, radial_fwd.cu): the bf16 tensor-core product mma.sync m16n8k16, ldmatrix
-// fragment loads from shared memory, cp.async copies into it, and packing.
+// flash_bwd.cu, radial_fwd.cu, radial_bwd.cu): the bf16 tensor-core product
+// mma.sync m16n8k16, ldmatrix fragment loads from shared memory, cp.async
+// copies into it, packing, and the radial mask's rule.
 
 #pragma once
 
@@ -83,6 +84,19 @@ __device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
 
 __device__ __forceinline__ float2 unpack2f(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// The radial mask. Tokens are frame-major in frames of hw: token i lies in
+// frame i / hw at spatial index i % hw (a token count that is no multiple of
+// hw leaves a last, shorter frame). The spatial window at frame distance d
+// is hw for d <= 1 and halves per octave beyond.
+__device__ __forceinline__ int radial_window(int d, int hw) {
+  return hw >> (31 - __clz(max(d, 1)));
+}
+
+// Whether the pair of tokens at (frame fa, spatial sa) and (fb, sb) is allowed.
+__device__ __forceinline__ bool radial_keep(int fa, int sa, int fb, int sb, int hw) {
+  return abs(sa - sb) < radial_window(abs(fa - fb), hw);
 }
 
 }  // namespace flash

@@ -3,11 +3,14 @@
 //
 //   o[b, i, h] = softmax over allowed j of (scale * q[b, i, h] . k[b, j, h]) @ v
 //
-// q, k, v, o: [B, T, H, 128] bf16, T = F * hw tokens in frame-major order:
-// token i lies in frame i / hw at spatial index i % hw. The pair (i, j) is
-// allowed iff |s_i - s_j| < hw >> floor(log2(max(|f_i - f_j|, 1))): the whole
-// frame at frame distance 0 and 1, a band that halves per octave beyond.
-// float32 scores, softmax statistics and accumulation.
+// q, k, v, o: [B, T, H, 128] bf16, T tokens in frame-major order: token i
+// lies in frame i / hw at spatial index i % hw; where T is no multiple of hw
+// the tokens past the last whole frame form one more, shorter frame. The pair
+// (i, j) is allowed iff |s_i - s_j| < hw >> floor(log2(max(|f_i - f_j|, 1))):
+// the whole frame at frame distance 0 and 1, a band that halves per octave
+// beyond. float32 scores, softmax statistics and accumulation. The training
+// form also writes lse [B, H, T] float32, the natural log-sum-exp of each
+// row's allowed scaled scores, which the backward (radial_bwd.cu) reads.
 //
 // Replaces the Pallas TPU kernel _radial_fwd_kernel
 // (mhla_tpu/kernels/sparse_attention.py:312). That kernel processes all
@@ -52,18 +55,14 @@ constexpr int kLd = kD + 8;      // shared-memory row stride in elements
 constexpr int kThreads = 128;
 constexpr int kSmemBytes = 4 * kBlockN * kLd * (int)sizeof(bf16);  // 2 K and 2 V tiles
 
-// Spatial window at frame distance d: hw for d <= 1, halved per octave.
-__device__ __forceinline__ int radial_window(int d, int hw) {
-  return hw >> (31 - __clz(max(d, 1)));
-}
-
 // grid (ceil(T / kBlockM), H, B); dynamic shared memory kSmemBytes.
 // offsets [gridDim.x + 1] and entries [offsets[last]]: query tile i visits
 // the key tiles entries[offsets[i] .. offsets[i + 1]) >> 1; bit 0 of an entry
 // says that every pair of the tile is allowed.
+template <bool kLse>
 __global__ void __launch_bounds__(kThreads)
 radial_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                   const int* __restrict__ offsets, const int* __restrict__ entries,
                   int T, int H, int hw, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -165,8 +164,8 @@ radial_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             ++fk;
           }
           const bool real = kt + off < T;
-          const bool keep0 = real && abs(sq0 - sk) < radial_window(abs(fq0 - fk), hw);
-          const bool keep1 = real && abs(sq1 - sk) < radial_window(abs(fq1 - fk), hw);
+          const bool keep0 = real && radial_keep(fq0, sq0, fk, sk, hw);
+          const bool keep1 = real && radial_keep(fq1, sq1, fk, sk, hw);
           sacc[nt][c] = keep0 ? sacc[nt][c] * scale_log2 : -CUDART_INF_F;
           sacc[nt][2 + c] = keep1 ? sacc[nt][2 + c] * scale_log2 : -CUDART_INF_F;
         }
@@ -230,8 +229,14 @@ radial_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  // every row below T has its own frame allowed, so its sum is positive
+  // every row below T has its own frame allowed, so its sum is positive and
+  // its log-sum-exp finite
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if (kLse && tg == 0) {  // log(sum over allowed j of exp(scale * s_j)) = (m + log2(l)) * ln(2)
+    float* lb = lse + ((int64_t)b * H + h) * T;
+    if (r0 < T) lb[r0] = (m0 + log2f(l0)) * 0.6931471805599453f;
+    if (r1 < T) lb[r1] = (m1 + log2f(l1)) * 0.6931471805599453f;
+  }
 #pragma unroll
   for (int t = 0; t < kD / 8; ++t) {
     const int d = t * 8 + tg * 2;
@@ -244,21 +249,40 @@ radial_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes): launches on the given stream,
-// does not synchronise, returns the launch's cudaError_t. offsets and
-// entries are device pointers to the schedule for T tokens in frames of hw.
-extern "C" int mhla_radial_fwd(const void* q, const void* k, const void* v, void* o,
-                               const void* offsets, const void* entries, int B, int T,
-                               int H, int hw, float scale, void* stream) {
-  if (T < 1 || hw < 1 || T % hw) return (int)cudaErrorInvalidValue;
+template <bool kLse>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+               const void* offsets, const void* entries, int B, int T, int H, int hw,
+               float scale, void* stream) {
+  if (T < 1 || hw < 1) return (int)cudaErrorInvalidValue;
+  auto kern = radial_fwd_kernel<kLse>;
   cudaError_t err = cudaFuncSetAttribute(
-      radial_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + kBlockM - 1) / kBlockM, H, B);
-  radial_fwd_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (const int*)offsets,
-      (const int*)entries, T, H, hw, scale * 1.4426950408889634f);
+  kern<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+      (const int*)offsets, (const int*)entries, T, H, hw, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes): each launches on the given
+// stream, does not synchronise, returns the launch's cudaError_t. offsets and
+// entries are device pointers to the schedule for T tokens in frames of hw.
+extern "C" {
+
+int mhla_radial_fwd(const void* q, const void* k, const void* v, void* o,
+                    const void* offsets, const void* entries, int B, int T, int H, int hw,
+                    float scale, void* stream) {
+  return launch_fwd<false>(q, k, v, o, nullptr, offsets, entries, B, T, H, hw, scale, stream);
+}
+
+// The training form: also writes lse [B, H, T] float32.
+int mhla_radial_fwd_lse(const void* q, const void* k, const void* v, void* o, void* lse,
+                        const void* offsets, const void* entries, int B, int T, int H,
+                        int hw, float scale, void* stream) {
+  return launch_fwd<true>(q, k, v, o, lse, offsets, entries, B, T, H, hw, scale, stream);
+}
+
+}  // extern "C"

@@ -16,7 +16,9 @@ K5b ``unblockify`` and K8b ``blockify`` (Triton) and K7b
 module keeps its name here, as in the JAX package) and its gradient K9b
 ``flash_attention.flash_attention_bwd`` (``csrc/flash_bwd.cu``); K10
 ``sparse_attention.radial_flash_attention`` (CUDA C++,
-``csrc/radial_fwd.cu``) behind ``sparse_flash_attention``.
+``csrc/radial_fwd.cu``) and its gradient K10b
+``sparse_attention.radial_flash_attention_bwd`` (``csrc/radial_bwd.cu``)
+behind ``sparse_flash_attention``.
 
 Every wrapper runs its plain PyTorch version for a CPU tensor, launches its
 kernel for a CUDA tensor or raises, and counts its launches in its module's
@@ -45,7 +47,11 @@ from .mhla_chunk import (
     mix_states,
     mix_states_bwd,
 )
-from .sparse_attention import radial_flash_attention, sparse_flash_attention
+from .sparse_attention import (
+    radial_flash_attention,
+    radial_flash_attention_bwd,
+    sparse_flash_attention,
+)
 
 _COUNTERS = (fmap_rope.launches, mhla_chunk.launches, mhla_block.launches,
              flash_attention.launches, sparse_attention.launches)
@@ -81,6 +87,7 @@ __all__ = [
     "mix_states_bwd",
     "mix_states_dense",
     "radial_flash_attention",
+    "radial_flash_attention_bwd",
     "reset_launch_counts",
     "rms_norm_heads_flat",
     "sparse_attention",

@@ -111,6 +111,7 @@ def flash_attention_bwd_plain(
     do: torch.Tensor,
     scale: Optional[float] = None,
     block_rows: Optional[int] = None,
+    row_mask: Optional[Callable[[int, int], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of :func:`flash_attention_plain` for ``do``,
     from its output ``o`` and row log-sum-exp ``lse`` [B, H, Tq], without ever
@@ -120,7 +121,8 @@ def flash_attention_bwd_plain(
     ``dk += scale * dS^T q``. All sums are float32; P and dS are rounded to
     q's dtype before their products, and P before dS, as the kernel rounds
     them. The result does not depend on the blocking beyond the order of the
-    sums over the query rows."""
+    sums over the query rows. ``row_mask`` is the forward's: P is 0 where it
+    is false (set, not multiplied: a masked score may lie far above ``lse``)."""
     b, tq, h, d = q.shape
     scale = d**-0.5 if scale is None else scale
     if block_rows is None:
@@ -134,7 +136,10 @@ def flash_attention_bwd_plain(
         r1 = min(tq, r0 + block_rows)
         qf, dof = q[:, r0:r1].float(), do[:, r0:r1].float()
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-        p = torch.exp(s - lse[:, :, r0:r1, None]).to(q.dtype).float()
+        p = torch.exp(s - lse[:, :, r0:r1, None])
+        if row_mask is not None:
+            p.masked_fill_(~row_mask(r0, r1), 0.0)
+        p = p.to(q.dtype).float()
         dv += torch.einsum("bhqk,bqhd->bkhd", p, dof)
         dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
         ds = (p * (dp - delta[:, :, r0:r1, None])).to(q.dtype).float()

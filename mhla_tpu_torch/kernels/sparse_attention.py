@@ -1,26 +1,36 @@
-"""Radial (n log n) sparse video attention on [B, T, H, D] tensors
-(counterpart of ``mhla_tpu/kernels/sparse_attention.py``), forward only.
+"""Radial (n log n) sparse video attention on [B, T, H, D] tensors, forward
+and backward (counterpart of ``mhla_tpu/kernels/sparse_attention.py``).
 
 Tokens are frame-major: token i sits in frame ``i // hw`` at spatial index
-``i % hw`` (``hw = T // num_frames``). A query in frame f attends to all of
-frame g when ``|f - g| <= 1`` and to a spatial band that halves per octave
-of temporal distance beyond that:
+``i % hw`` (``hw = T // num_frames``; where T is no multiple of
+``num_frames`` the tokens from ``hw * num_frames`` on fall into further
+frames by the same rule, the last of them shorter). A query in frame f
+attends to all of frame g when ``|f - g| <= 1`` and to a spatial band that
+halves per octave of temporal distance beyond that:
 
     allowed(i, j) = |s_i - s_j| < hw >> floor(log2(max(|f_i - f_j|, 1)))
 
 K10 ``radial_flash_attention`` replaces the Pallas kernel
-``_radial_fwd_kernel`` (``mhla_tpu/kernels/sparse_attention.py:312``): a
-flash forward that walks, per tile of 64 query rows, only the 64-key tiles
-that hold an allowed pair, and recomputes the mask inside the tile from
-index arithmetic (``csrc/radial_fwd.cu``, where its bound and design are
-written). The tile lists come from :func:`radial_schedule`, computed once
-per geometry on frame pieces without any [T, T] array, and sit on the
-device in CSR form.
+``_radial_fwd_kernel`` (``mhla_tpu/kernels/sparse_attention.py:312``) and the
+forward of the JAX library's splash kernel, which the JAX package runs for
+``impl="splash"`` and for ragged frames (``:477-493``): a flash forward that
+walks, per tile of 64 query rows, only the 64-key tiles that hold an allowed
+pair, and recomputes the mask inside the tile from index arithmetic
+(``csrc/radial_fwd.cu``, where its bound and design are written). Its
+training form also writes each row's log-sum-exp. K10b
+``radial_flash_attention_bwd`` replaces the splash kernel's fused backward
+(``:507-517``): dq, dk and dv over the same tiles (``csrc/radial_bwd.cu``).
+Where a gradient is wanted ``radial_flash_attention`` goes through an
+``autograd.Function`` of the two; a call without gradients launches the
+forward that writes no log-sum-exp.
 
-A CPU tensor takes :func:`radial_flash_attention_plain`; a CUDA tensor
-launches the kernel or raises. ``launches`` counts kernel launches. The
-differentiable splash route of the JAX package (``impl="splash"``) is not
-ported.
+The tile lists come from :func:`radial_schedule`, computed once per geometry
+on frame pieces without any [T, T] array, and sit on the device in CSR form;
+one list serves the forward and both backward kernels.
+
+A CPU tensor takes :func:`radial_flash_attention_plain` and
+:func:`radial_flash_attention_bwd_plain`; a CUDA tensor launches the kernels
+or raises. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,10 +43,10 @@ import numpy as np
 import torch
 
 from . import _build
-from .flash_attention import flash_attention_plain
+from .flash_attention import flash_attention_bwd_plain, flash_attention_plain
 from .mhla_chunk import _check, _on_cpu, _raise_on_error, _stream
 
-launches = {"radial_flash_attention": 0}
+launches = {"radial_flash_attention": 0, "radial_flash_attention_bwd": 0}
 
 _HEAD_DIM = 128  # csrc: kD
 _TILE = 64  # csrc: kBlockM = kBlockN
@@ -48,8 +58,11 @@ def _lib() -> ctypes.CDLL:
     if _lib_cache is None:
         lib = _build.load()
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mhla_radial_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
-        lib.mhla_radial_fwd.restype = ctypes.c_int
+        lib.mhla_radial_fwd.argtypes = [p] * 6 + [i, i, i, i, ctypes.c_float, p]
+        lib.mhla_radial_fwd_lse.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_float, p]
+        lib.mhla_radial_bwd.argtypes = [p] * 12 + [i, i, i, i, ctypes.c_float, p]
+        for fn in (lib.mhla_radial_fwd, lib.mhla_radial_fwd_lse, lib.mhla_radial_bwd):
+            fn.restype = ctypes.c_int
         _lib_cache = lib
     return _lib_cache
 
@@ -94,17 +107,32 @@ def radial_mask_dense(seq_len: int, num_frames: int, pad_to: Optional[int] = Non
     return _radial_block(idx, idx, seq_len, num_frames)
 
 
+def _frame_size(seq_len: int, num_frames: int) -> int:
+    hw = seq_len // num_frames if num_frames > 0 else 0
+    if hw < 1:
+        raise ValueError(f"{seq_len} tokens leave no token per frame in {num_frames} frames")
+    return hw
+
+
 def radial_allowed_pairs(seq_len: int, num_frames: int) -> int:
     """Number of allowed (query, key) pairs, counted from the mask's
-    formula: a frame pair at distance d keeps the pairs with
-    ``|s_q - s_k| < w`` for its window w, ``hw + (w - 1) * (2 * hw - w)``
-    of its ``hw * hw``."""
-    hw = seq_len // num_frames
-    total = 0
-    for d in range(num_frames):
+    formula: two whole frames at distance d keep the pairs with
+    ``|s_q - s_k| < w`` for their window w, ``hw + (w - 1) * (2 * hw - w)``
+    of their ``hw * hw``; a shorter last frame of ``tail`` tokens keeps all
+    pairs with itself and, against a whole frame, for each of its tokens the
+    part of the band that lies inside the frame."""
+    hw = _frame_size(seq_len, num_frames)
+    whole, tail = divmod(seq_len, hw)
+    s = np.arange(tail)
+    total = tail * tail
+    for d in range(whole + 1):
         w = int(radial_window(np.array(d), hw))
-        pairs = hw + (w - 1) * (2 * hw - w) if w > 0 else 0
-        total += pairs * (num_frames if d == 0 else 2 * (num_frames - d))
+        if w <= 0:
+            continue
+        if d < whole:
+            total += (hw + (w - 1) * (2 * hw - w)) * (whole if d == 0 else 2 * (whole - d))
+        if d >= 1:  # the last frame against the whole frame d before it, both ways
+            total += 2 * int((np.minimum(hw - 1, s + w - 1) - np.maximum(0, s - w + 1) + 1).sum())
     return total
 
 
@@ -136,10 +164,16 @@ def radial_schedule(
     distance). ``full`` marks tiles in which every pair of real rows is
     allowed and no column lies past ``t``: the kernel skips the mask there.
     The same lists as the JAX package's ``_radial_schedule`` at equal tile
-    sizes; callers must not write into the cached arrays."""
-    hw = t // num_frames
-    if hw * num_frames != t or t < 1:
-        raise ValueError(f"{t} tokens do not split into {num_frames} frames")
+    sizes; callers must not write into the cached arrays.
+
+    With ``bq == bk`` the lists read the same from the key side, which is
+    what the dK/dV kernel of the backward walks: the mask is symmetric, so
+    key tile j meets exactly the query tiles ``tiles[offsets[j]:offsets[j +
+    1]]``, and an entry's ``full`` then says that every pair of real keys of
+    tile j with the listed query tile is allowed and that no *query* of it
+    lies past ``t`` (rows of the listing tile past ``t`` never count: they
+    are not stored on either side)."""
+    hw = _frame_size(t, num_frames)
     pq, pk = (bq - 1) // hw + 2, (bk - 1) // hw + 2
     fq, sq0, sq1, vq = _tile_pieces(t, hw, bq, pq)
     fk, sk0, sk1, vk = _tile_pieces(t, hw, bk, pk)
@@ -182,8 +216,8 @@ def radial_block_mask(r0: int, r1: int, seq_len: int, num_frames: int,
     """Rows ``r0:r1`` of the [T, T] radial mask as a bool tensor on
     ``device``, from index arithmetic there (the windows per frame distance
     come from :func:`radial_window`)."""
-    hw = seq_len // num_frames
-    win = torch.from_numpy(radial_window(np.arange(num_frames), hw)).to(device)
+    hw = _frame_size(seq_len, num_frames)
+    win = torch.from_numpy(radial_window(np.arange(-(-seq_len // hw)), hw)).to(device)
     rows = torch.arange(r0, r1, device=device)
     cols = torch.arange(seq_len, device=device)
     fq, sq = rows // hw, rows % hw
@@ -199,19 +233,61 @@ def radial_flash_attention_plain(
     num_frames: int,
     scale: Optional[float] = None,
     block_rows: Optional[int] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Softmax attention under the radial mask: q, k, v [B, T, H, D] ->
     [B, T, H, D] in q's dtype. Query rows are walked in blocks, each with a
     full softmax over all keys under its rows of the mask, so no [T, T]
     array exists; arithmetic and rounding as in
-    :func:`flash_attention_plain`."""
+    :func:`flash_attention_plain`. ``return_lse`` also returns each row's
+    log-sum-exp of its allowed scaled scores, [B, H, T] float32 (finite: a
+    row always keeps its own frame)."""
     t = q.shape[1]
-    if t % num_frames:
-        raise ValueError(f"{t} tokens do not split into {num_frames} frames")
+    _frame_size(t, num_frames)
     return flash_attention_plain(
         q, k, v, scale, block_rows,
         row_mask=lambda r0, r1: radial_block_mask(r0, r1, t, num_frames, q.device),
+        return_lse=return_lse,
     )
+
+
+def radial_flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    num_frames: int,
+    scale: Optional[float] = None,
+    block_rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of :func:`radial_flash_attention_plain` for
+    ``do`` from its output ``o`` and log-sum-exp ``lse``:
+    :func:`flash_attention_bwd_plain` with P zero outside the mask."""
+    t = q.shape[1]
+    return flash_attention_bwd_plain(
+        q, k, v, o, lse, do, scale, block_rows,
+        row_mask=lambda r0, r1: radial_block_mask(r0, r1, t, num_frames, q.device),
+    )
+
+
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int) -> int:
+    """Shape checks shared by K10 and K10b; returns the frame size."""
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    return _frame_size(q.shape[1], num_frames)
+
+
+def _check_kernel_inputs(**tensors: torch.Tensor) -> None:
+    """What the CUDA kernels take: contiguous 16-byte-aligned bf16 [B, T, H, 128]."""
+    for name, x in tensors.items():
+        _check(name, x, torch.bfloat16, 4)
+    if tensors["q"].shape[-1] != _HEAD_DIM:
+        raise ValueError(f"kernel takes head dim {_HEAD_DIM}, got {tensors['q'].shape[-1]}")
+    if any(x.data_ptr() % 16 for x in tensors.values()):
+        raise ValueError(f"kernel copies 16 bytes at a time: {', '.join(tensors)} must be "
+                         "16-byte aligned")
 
 
 def radial_flash_attention(
@@ -220,34 +296,103 @@ def radial_flash_attention(
     v: torch.Tensor,
     num_frames: int,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """K10 (see :func:`radial_flash_attention_plain`): bf16, head dim 128,
-    any T that splits into ``num_frames`` frames."""
+    any T >= ``num_frames``. Differentiable in q, k and v through K10b.
+    ``return_lse`` gives ``(out, lse)`` from the kernel's training form,
+    outside autograd."""
+    hw = _check_qkv(q, k, v, num_frames)
+    if return_lse:
+        return _radial_fwd(q, k, v, num_frames, hw, scale, True)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _RadialFlashAttention.apply(q, k, v, num_frames, scale)
+    return _radial_fwd(q, k, v, num_frames, hw, scale, False)[0]
+
+
+def _radial_fwd(q, k, v, num_frames: int, hw: int, scale: Optional[float], want_lse: bool):
+    """``(out, lse | None)``: the plain version for CPU tensors, K10 for CUDA
+    tensors, in its training form (which writes ``lse``) when ``want_lse``."""
     b, t, h, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if t < 1 or t % num_frames:
-        raise ValueError(f"{t} tokens do not split into {num_frames} frames")
     if _on_cpu(q, k, v):
-        return radial_flash_attention_plain(q, k, v, num_frames, scale)
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check(name, x, torch.bfloat16, 4)
-    if d != _HEAD_DIM:
-        raise ValueError(f"kernel takes head dim {_HEAD_DIM}, got {d}")
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("kernel copies 16 bytes at a time: q, k and v must be 16-byte aligned")
+        out = radial_flash_attention_plain(q, k, v, num_frames, scale, return_lse=want_lse)
+        return out if want_lse else (out, None)
+    _check_kernel_inputs(q=q, k=k, v=v)
     out = torch.empty_like(q)
+    lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device) if want_lse else None
     if b * h:
         offsets, entries = _schedule_on_device(t, num_frames, str(q.device))
+        scale = d**-0.5 if scale is None else scale
         with torch.cuda.device(q.device):
-            err = _lib().mhla_radial_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                offsets.data_ptr(), entries.data_ptr(), b, t, h, t // num_frames,
-                d**-0.5 if scale is None else scale, _stream(q),
-            )
+            if want_lse:
+                err = _lib().mhla_radial_fwd_lse(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                    offsets.data_ptr(), entries.data_ptr(), b, t, h, hw, scale, _stream(q),
+                )
+            else:
+                err = _lib().mhla_radial_fwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    offsets.data_ptr(), entries.data_ptr(), b, t, h, hw, scale, _stream(q),
+                )
         _raise_on_error("radial_flash_attention", err)
         launches["radial_flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def radial_flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    num_frames: int,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K10b (see :func:`radial_flash_attention_bwd_plain`); the result is the
+    same from run to run (no atomics)."""
+    b, t, h, d = q.shape
+    hw = _check_qkv(q, k, v, num_frames)
+    if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (b, h, t):
+        raise ValueError(f"q {tuple(q.shape)}, o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} disagree")
+    if _on_cpu(q, k, v, o, lse, do):
+        return radial_flash_attention_bwd_plain(q, k, v, o, lse, do, num_frames, scale)
+    _check_kernel_inputs(q=q, k=k, v=v, o=o, do=do)
+    _check("lse", lse, torch.float32, 3)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b * h:
+        offsets, entries = _schedule_on_device(t, num_frames, str(q.device))
+        delta = torch.empty_like(lse)
+        with torch.cuda.device(q.device):
+            err = _lib().mhla_radial_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                offsets.data_ptr(), entries.data_ptr(), b, t, h, hw,
+                d**-0.5 if scale is None else scale, _stream(q),
+            )
+        _raise_on_error("radial_flash_attention_bwd", err)
+        launches["radial_flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _RadialFlashAttention(torch.autograd.Function):
+    """K10 forward in its training form (it also writes the row log-sum-exp),
+    K10b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_frames, scale):
+        o, lse = radial_flash_attention(q, k, v, num_frames, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.num_frames, ctx.scale = num_frames, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        grads = radial_flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.num_frames,
+                                           ctx.scale)
+        return (*grads, None, None)
 
 
 def sparse_flash_attention(
@@ -260,27 +405,25 @@ def sparse_flash_attention(
     impl: Optional[str] = None,  # None (auto) | "radial" | "splash"
 ) -> torch.Tensor:
     """Radial sparse attention, non-causal, over frame-major tokens; the
-    result has q's dtype.
+    result has q's dtype, and so have the gradients (the casts below lie
+    outside the kernels' ``autograd.Function``).
 
     ``compute_dtype`` is the dtype of the q, k and v streams. The default
-    (None) casts float32 CUDA inputs to bf16, the only dtype the kernel
-    takes, and leaves CPU inputs as they are: the JAX package likewise
-    streams bf16 through its kernel and runs its CPU route in the inputs'
+    (None) casts float32 CUDA inputs to bf16, the only dtype the kernels
+    take, and leaves CPU inputs as they are: the JAX package likewise
+    streams bf16 through its kernels and runs its CPU route in the inputs'
     dtype. Scores and softmax statistics are float32 regardless.
-    ``compute_dtype=float32`` raises on a CUDA tensor."""
-    if impl == "splash":
-        raise NotImplementedError("the splash route (the differentiable path) is not ported yet")
-    if impl not in (None, "radial"):
+    ``compute_dtype=float32`` raises on a CUDA tensor.
+
+    ``impl`` names the JAX package's two kernels, which compute the same
+    function; here one kernel serves both. ``"radial"`` keeps that kernel's
+    demand that the tokens split evenly into the frames; ``"splash"`` and the
+    default take ragged frames too."""
+    if impl not in (None, "radial", "splash"):
         raise ValueError(f"unknown impl {impl!r}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "radial-sparse attention has no backward yet (the JAX package differentiates "
-            "through its splash route, which is not ported): training with sparse_attn_idx "
-            "is not supported")
-    if q.shape[1] % num_frames:
-        raise NotImplementedError(
-            f"{q.shape[1]} tokens in {num_frames} frames: ragged frames need the splash route, "
-            "which is not ported yet")
+    if impl == "radial" and q.shape[1] % num_frames:
+        raise ValueError(f"impl='radial': {q.shape[1]} tokens do not split into {num_frames} "
+                         "frames")
     cdt = compute_dtype or (
         torch.bfloat16 if q.dtype == torch.float32 and q.device.type != "cpu" else q.dtype
     )

@@ -25,8 +25,7 @@ the time embedding and the adaLN arithmetic are float32 whatever the dtype.
 
 Not ported yet, raising ``NotImplementedError``: the linear baselines
 (``attn_type`` other than ``mhla_uni``), image-to-video
-(``model_type='i2v'``), ``capture``, and gradients through the radial-sparse
-layers (``sparse_attn_idx`` in training).
+(``model_type='i2v'``) and ``capture``.
 """
 
 from __future__ import annotations
@@ -76,8 +75,9 @@ class WanConfig:
     eps: float = 1e-6
     linear_attn_idx: Optional[Tuple[int, ...]] = None  # the layers that run attn_type
     attn_type: str = "mhla_uni"
-    # layers that run radial-sparse softmax attention; at inference they run
-    # dense attention while max(t) >= sparse_dense_from_t (None: no guard)
+    # layers that run radial-sparse softmax attention; they run dense attention
+    # instead while max(t) >= sparse_dense_from_t (None: no guard, as the video
+    # trainer builds the model)
     sparse_attn_idx: Optional[Tuple[int, ...]] = None
     sparse_dense_from_t: Optional[float] = 850.0
     without_rope: bool = False
@@ -323,7 +323,8 @@ class WanModel(nn.Module):
         if cfg.sparse_attn_idx and cfg.sparse_dense_from_t is not None:
             use_dense = bool(t.max() >= cfg.sparse_dense_from_t)
 
-        # the model holds no dropout, so a recomputation needs no RNG state
+        # the model holds no dropout, so a recomputation needs no RNG state;
+        # use_dense is a plain bool, so it takes the branch of the first pass
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:

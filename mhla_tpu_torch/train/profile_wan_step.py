@@ -1,12 +1,14 @@
 """Profile training steps of the Wan video model on one CUDA device.
 
-    python -m mhla_tpu_torch.train.profile_wan_step [--config=full|hybrid]
+    python -m mhla_tpu_torch.train.profile_wan_step [--config=full|hybrid|hybrid_sparse] [--lora]
 
 Builds what ``wan_train.main`` trains (Wan2.1-1.3B, float32 parameters from
 a seeded init, bf16 compute, per-block remat, AdamW with EMA, one synthetic
 video of 31,500 tokens per step) through ``wan_train.build_training``, in its
-``full`` form (all 30 layers MHLA) or its ``hybrid`` form (the entry point's
-default: layers 0, 3, ..., 27 softmax). It runs a warm-up step, times
+``full`` form (all 30 layers MHLA), its ``hybrid`` form (the entry point's
+default: layers 0, 3, ..., 27 softmax) or ``hybrid_sparse`` (those ten layers
+under the radial mask, ``model.sparse_attn_idx``); ``--lora`` freezes the
+model and trains adapters (``lora.enable``). It runs a warm-up step, times
 ``STEPS`` steps on the host clock (each ending in the loss's device-to-host
 copy) and records one more under ``torch.profiler``. Prints the step time,
 videos per second, peak device memory, the device's busy share of the
@@ -34,6 +36,9 @@ _GROUPS = (
     ("K7 readout (CUDA)", r"readout_kernel"),
     ("K7b readout backward (CUDA)", r"readout_bwd_kernel"),
     ("K9 flash attention (CUDA)", r"flash_fwd_kernel"),
+    ("K10 radial flash attention (CUDA)", r"radial_fwd_kernel"),
+    ("K10b radial flash attention backward (CUDA)", r"radial_bwd_"),
+    ("delta pass of K9b and K10b (CUDA)", r"flash_bwd_delta"),
     ("K9b flash attention backward (CUDA)", r"flash_bwd_"),
     ("GEMM (cuBLAS)", r"gemm|gemv|cutlass|xmma|nvjet|cublas|sm90_"),
     ("optimizer and EMA (foreach)", r"multi_tensor|foreach"),
@@ -43,7 +48,8 @@ _GROUPS = (
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--config", choices=("full", "hybrid"), default="full")
+    parser.add_argument("--config", choices=("full", "hybrid", "hybrid_sparse"), default="full")
+    parser.add_argument("--lora", action="store_true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_wan_step: needs a CUDA device")
@@ -52,6 +58,9 @@ def main(argv=None) -> dict:
     cfg.optimizer.warmup_steps = 1  # the profiled steps move the parameters
     if args.config == "full":
         cfg.model.linear_attn_idx = tuple(range(30))
+    elif args.config == "hybrid_sparse":
+        cfg.model.sparse_attn_idx = tuple(range(0, 30, 3))
+    cfg.lora.enable = args.lora
     model, state, step, data = build_training(cfg)
     dev = torch.device(cfg.device)
 
@@ -81,8 +90,9 @@ def main(argv=None) -> dict:
         float(metrics["loss"])
         wall_us = (time.perf_counter() - t0) * 1e6
     mc = model.cfg
-    print(f"[profile] {torch.cuda.get_device_name(0)}; {args.config}: {mc.num_layers} layers "
-          f"({len(mc.linear_attn_idx or ())} MHLA), B={cfg.train.batch_size}, remat: step "
+    print(f"[profile] {torch.cuda.get_device_name(0)}; {args.config}{' + LoRA' if args.lora else ''}: "
+          f"{mc.num_layers} layers ({len(mc.linear_attn_idx or ())} MHLA, "
+          f"{len(mc.sparse_attn_idx or ())} radial-sparse), B={cfg.train.batch_size}, remat: step "
           f"{step_s * 1e3:.1f} ms (median of {STEPS}; {[round(t * 1e3, 1) for t in times]}) = "
           f"{cfg.train.batch_size / step_s:.3f} videos/s; peak device memory {peak_gb:.1f} GB")
     return {"step_ms": step_s * 1e3, "videos_s": cfg.train.batch_size / step_s,

@@ -167,6 +167,12 @@ class AdamW:
                         dst.copy_(src)
 
 
+def auto_scale_lr(base_lr: float, effective_batch_size: int, base_batch_size: int = 256) -> float:
+    """The linear learning-rate scaling rule: ``base_lr`` holds at
+    ``base_batch_size`` and grows in proportion to the effective batch."""
+    return base_lr * effective_batch_size / base_batch_size
+
+
 def make_optimizer(params: List[torch.Tensor], cfg: OptimizerConfig) -> AdamW:
     return AdamW(params, cfg)
 
@@ -175,8 +181,11 @@ def make_optimizer(params: List[torch.Tensor], cfg: OptimizerConfig) -> AdamW:
 def project_params(model: nn.Module) -> None:
     """Post-step projections, in place: every causal ``mixing_matrix`` ->
     tril clamped to [1e-5, 1]; every trainable vision block-mixing weight
-    (a parameter under ``piece_attn`` or ``block_attn``) -> clamped to [0, 1]."""
+    (a parameter under ``piece_attn`` or ``block_attn``) -> clamped to [0, 1].
+    Frozen parameters (``requires_grad`` false) are left as they are."""
     for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
         parts = name.split(".")
         if parts[-1] == "mixing_matrix":
             p.copy_(torch.tril(p.clamp(1e-5, 1.0)))
@@ -193,12 +202,14 @@ class TrainState:
 
 
 def init_train_state(model: nn.Module, cfg: OptimizerConfig, ema: bool = False) -> TrainState:
-    params = [p for p in model.parameters() if p.requires_grad]
+    """The state of a run over the parameters of ``model`` that want a
+    gradient: they alone reach the optimizer and the EMA."""
+    trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
     return TrainState(
         step=0,
         model=model,
-        optimizer=make_optimizer(params, cfg),
-        ema={n: p.detach().clone() for n, p in model.named_parameters()} if ema else None,
+        optimizer=make_optimizer(list(trainable.values()), cfg),
+        ema={n: p.detach().clone() for n, p in trainable.items()} if ema else None,
     )
 
 
@@ -240,8 +251,9 @@ def make_train_step(
         if state.ema is not None and ema_decay is not None:
             with torch.no_grad():
                 for name, p in state.model.named_parameters():
-                    e = state.ema[name]
-                    e.mul_(ema_decay).add_(p.to(e.dtype), alpha=1 - ema_decay)
+                    if p.requires_grad:
+                        e = state.ema[name]
+                        e.mul_(ema_decay).add_(p.to(e.dtype), alpha=1 - ema_decay)
         metrics = dict(metrics)
         metrics["loss"] = loss.detach()
         metrics["grad_norm"] = gnorm

@@ -1,9 +1,14 @@
 """Wan video flow-matching training entry point (counterpart of
 ``mhla_tpu/train/wan_train.py``): flow-velocity loss with logit-normal
 timesteps, null-text dropout for classifier-free guidance, the full-MHLA or
-hybrid MHLA/softmax model from ``model.linear_attn_idx``, per-block
-rematerialisation, AdamW with clipping, EMA, the NaN circuit breaker,
-time-boxed runs (``early_stop_hours``) with ``latest`` resume, and
+hybrid MHLA/softmax model from ``model.linear_attn_idx``, softmax layers
+under the radial-sparse mask (``model.sparse_attn_idx``; training always runs
+the mask, the dense guard of the early denoising steps belongs to sampling),
+LoRA fine-tuning (``lora.enable``: the base stays frozen and only the
+adapters are trained, averaged and checkpointed), per-block
+rematerialisation, AdamW with clipping and linear learning-rate scaling by
+the effective batch (``auto_scale_lr_base_batch``), EMA, the NaN circuit
+breaker, time-boxed runs (``early_stop_hours``) with ``latest`` resume, and
 deterministic validation sampling.
 
 Latents and text embeddings come from a directory of cached ``*.npz`` files
@@ -16,8 +21,10 @@ Usage:
 The defaults are Wan2.1-1.3B in its hybrid form (layers 0, 3, ..., 27
 softmax, the other 20 MHLA) at latents (21, 60, 100, 16) = 31,500 tokens,
 batch 1, float32 parameters and bf16 compute, on ``--device=cuda``;
-``"--model.linear_attn_idx=(0,1,...,29)"`` gives the full-MHLA form. For a
-tiny run on the CPU:
+``"--model.linear_attn_idx=(0,1,...,29)"`` gives the full-MHLA form,
+``"--model.sparse_attn_idx=(0,3,...,27)"`` puts the ten softmax layers under
+the radial mask, ``--lora.enable=true`` trains adapters on q, k, v and o of
+every attention only. For a tiny run on the CPU:
 
     python -m mhla_tpu_torch.train.wan_train --device=cpu --bf16=false \\
         --model.dim=48 --model.ffn_dim=96 --model.num_heads=4 --model.num_layers=2 \\
@@ -27,10 +34,8 @@ tiny run on the CPU:
         --train.log_interval=1 --work_dir=/tmp/wan
 
 Not ported (``NotImplementedError``): teacher distillation
-(``distill.enable``, which needs the model's ``capture``), LoRA
-(``lora.enable``), tar-shard latents, ``auto_scale_lr_base_batch``, training
-through the radial-sparse layers (``model.sparse_attn_idx``), the LePE
-convolution (``model.is_lepe``), RoPE before the feature map
+(``distill.enable``, which needs the model's ``capture``), tar-shard latents,
+the LePE convolution (``model.is_lepe``), RoPE before the feature map
 (``model.rope_after=false``) and image-to-video models.
 """
 
@@ -56,7 +61,14 @@ from ..utils.checkpoint import (
 from ..utils.config import dump_config, parse_cli
 from ..utils.logging import LogBuffer, Throughput, get_root_logger
 from ..utils.monitor import NaNLossBreaker
-from .trainer import OptimizerConfig, TrainState, init_train_state, make_train_step
+from .lora import apply_lora, lora_param_count, lora_state
+from .trainer import (
+    OptimizerConfig,
+    TrainState,
+    auto_scale_lr,
+    init_train_state,
+    make_train_step,
+)
 
 
 @dataclasses.dataclass
@@ -124,7 +136,7 @@ class WanDistillCfg:
 
 @dataclasses.dataclass
 class WanLoraCfg:
-    """LoRA finetuning (not ported)."""
+    """LoRA fine-tuning of the attention projections (``train.lora``)."""
 
     enable: bool = False
     rank: int = 16
@@ -153,10 +165,6 @@ class WanTrainConfig:
 def _check_ported(cfg: WanTrainConfig) -> None:
     for what, unported in (
         ("teacher distillation (distill.enable)", cfg.distill.enable),
-        ("LoRA finetuning (lora.enable)", cfg.lora.enable),
-        ("auto_scale_lr_base_batch", cfg.auto_scale_lr_base_batch),
-        ("training through radial-sparse layers (model.sparse_attn_idx)",
-         cfg.model.sparse_attn_idx),
         ("RoPE before the feature map (model.rope_after=false)", not cfg.model.rope_after),
         ("the LePE convolution (model.is_lepe)", cfg.model.is_lepe),
         ("image-to-video models", "i2v" in cfg.model.model.lower()),
@@ -167,20 +175,21 @@ def _check_ported(cfg: WanTrainConfig) -> None:
 
 def build_model(cfg: WanTrainConfig, device=None) -> Tuple[WanModel, WanConfig]:
     """The model ``cfg`` describes, with per-block remat on and without the
-    sparse layers' dense guard (it belongs to inference)."""
+    sparse layers' dense guard (it belongs to inference: training always
+    runs the radial mask in the layers of ``model.sparse_attn_idx``)."""
     _check_ported(cfg)
     size_overrides = {
         k: getattr(cfg.model, k)
         for k in ("dim", "ffn_dim", "num_heads", "num_layers")
         if getattr(cfg.model, k) is not None
     }
-    idx = cfg.model.linear_attn_idx
+    idx, sparse_idx = cfg.model.linear_attn_idx, cfg.model.sparse_attn_idx
     mc = build_wan_config(
         cfg.model.model,
         **size_overrides,
         linear_attn_idx=None if idx is None else tuple(idx),
         attn_type=cfg.model.self_attn_type,
-        sparse_attn_idx=None,
+        sparse_attn_idx=None if sparse_idx is None else tuple(sparse_idx),
         sparse_dense_from_t=None,
         without_rope=cfg.model.without_rope,
         normalize_out=cfg.model.norm_output,
@@ -268,8 +277,9 @@ def make_loss_fn(cfg: WanTrainConfig):
 def validation_sample(cfg: WanTrainConfig, state: TrainState, step: int) -> str:
     """A FlowEuler rollout of ``train.eval_solver_steps`` steps from a noise
     and a context that depend on ``train.seed`` alone, through the EMA
-    weights where the run keeps them, so checkpoints can be compared; the
-    latents go to ``work_dir/validation/step_XXXXXX.npy``."""
+    weights where the run keeps them (with LoRA: the averaged adapters merged
+    into the base), so checkpoints can be compared; the latents go to
+    ``work_dir/validation/step_XXXXXX.npy``."""
     model, d = state.model, cfg.data
     device = next(model.parameters()).device
     gen = torch.Generator(device).manual_seed(cfg.train.seed + 777)
@@ -294,10 +304,15 @@ def validation_sample(cfg: WanTrainConfig, state: TrainState, step: int) -> str:
 
 def build_training(cfg: WanTrainConfig):
     """The seeded model, its train state, the train step and the batch stream
-    that ``cfg`` describes: ``(model, state, step_fn, data)``."""
+    that ``cfg`` describes: ``(model, state, step_fn, data)``. With
+    ``lora.enable`` the seeded model is frozen and carries adapters
+    (:func:`apply_lora`), and the state holds the adapters alone."""
     device = torch.device(cfg.device)
     model, _ = build_model(cfg, device)
     init_wan_params(model, torch.Generator(device).manual_seed(cfg.train.seed))
+    if cfg.lora.enable:
+        apply_lora(model, torch.Generator(device).manual_seed(cfg.train.seed + 999),
+                   cfg.lora.rank, cfg.lora.alpha)
     state = init_train_state(model, cfg.optimizer, ema=cfg.train.ema_decay is not None)
     step_fn = make_train_step(make_loss_fn(cfg), cfg.train.ema_decay, seed=cfg.train.seed)
     data = video_batches(cfg, np.random.default_rng(cfg.train.seed))
@@ -305,20 +320,31 @@ def build_training(cfg: WanTrainConfig):
 
 
 def main(argv=None) -> dict:
-    """Train; returns ``final_loss``, ``params`` (the parameter count),
-    ``model``, ``start_step``, per-step ``losses``, ``grad_norms`` and
+    """Train; returns ``final_loss``, ``params`` (the model's parameter
+    count without LoRA adapters), ``model``, ``start_step``, per-step ``losses``, ``grad_norms`` and
     ``step_seconds`` (host clock, each ending in the loss's device-to-host
     copy), and ``save_seconds`` and ``checkpoint_bytes`` of the final
     checkpoint."""
     cfg = parse_cli(WanTrainConfig, argv if argv is not None else sys.argv[1:])
+    if cfg.auto_scale_lr_base_batch:
+        eff = cfg.train.batch_size * max(cfg.optimizer.accum_steps, 1)
+        cfg.optimizer = dataclasses.replace(
+            cfg.optimizer,
+            learning_rate=auto_scale_lr(cfg.optimizer.learning_rate, eff,
+                                        cfg.auto_scale_lr_base_batch),
+        )
     model, state, step_fn, data = build_training(cfg)
     device = torch.device(cfg.device)
     logger = get_root_logger(f"{cfg.work_dir}/train.log")
     dump_config(cfg, f"{cfg.work_dir}/config.yaml")
     mc = model.cfg
-    n_params = sum(p.numel() for p in model.parameters())
+    n_lora = lora_param_count(lora_state(model)) if cfg.lora.enable else 0
+    n_params = sum(p.numel() for p in model.parameters()) - n_lora
     logger.info(f"{cfg.model.model}: {n_params / 1e6:.1f}M params on {device}, compute "
-                f"{mc.dtype}, hybrid={len(mc.linear_attn_idx or ())}/{mc.num_layers} MHLA layers")
+                f"{mc.dtype}, hybrid={len(mc.linear_attn_idx or ())}/{mc.num_layers} MHLA layers, "
+                f"{len(mc.sparse_attn_idx or ())} radial-sparse softmax layers")
+    if cfg.lora.enable:
+        logger.info(f"LoRA: training {n_lora / 1e6:.2f}M adapter params")
 
     start = 0
     if cfg.train.resume_from:

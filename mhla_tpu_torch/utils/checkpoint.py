@@ -2,7 +2,9 @@
 of ``mhla_tpu/utils/checkpoint.py``, which uses orbax).
 
 Layout: ``<work_dir>/checkpoints/step_XXXXXXXX/state.pt`` (``torch.save`` of
-the model's state dict, the optimizer state, the step and the EMA) and a
+the model's state dict without its frozen parameters, which a fine-tuning
+run takes from their own source again, the optimizer state, the step and
+the EMA) and a
 ``latest`` symlink to the newest step directory; the oldest step
 directories beyond ``keep`` are pruned. ``state.pt`` is written to a
 temporary name and renamed, so its presence marks a complete checkpoint:
@@ -29,9 +31,10 @@ def save_checkpoint(work_dir: str, step: int, state, keep: int = 3) -> str:
     """Save a ``TrainState`` (``train.trainer``) and point ``latest`` at it."""
     path = _ckpt_dir(work_dir, step)
     path.mkdir(parents=True, exist_ok=True)
+    frozen = _frozen_names(state.model)
     payload = {
         "step": state.step,
-        "model": state.model.state_dict(),
+        "model": {n: t for n, t in state.model.state_dict().items() if n not in frozen},
         "optimizer": state.optimizer.state_dict(),
         "ema": state.ema,
     }
@@ -44,6 +47,10 @@ def save_checkpoint(work_dir: str, step: int, state, keep: int = 3) -> str:
     link.symlink_to(path.name)
     _prune(path.parent, keep)
     return str(path)
+
+
+def _frozen_names(model) -> set:
+    return {n for n, p in model.named_parameters() if not p.requires_grad}
 
 
 def _prune(root: Path, keep: int) -> None:
@@ -74,7 +81,11 @@ def load_checkpoint(path: str, state):
     """Restore a checkpoint into ``state`` in place (onto the devices its
     tensors live on) and return it."""
     payload = torch.load(Path(path) / _STATE, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(payload["model"])
+    missing, unexpected = state.model.load_state_dict(payload["model"], strict=False)
+    missing = set(missing) - _frozen_names(state.model)  # frozen parameters are not saved
+    if missing or unexpected:
+        raise RuntimeError(f"checkpoint {path} does not fit the model: missing "
+                           f"{sorted(missing)}, unexpected {sorted(unexpected)}")
     state.optimizer.load_state_dict(payload["optimizer"])  # copies onto the state's devices
     if state.ema is not None and payload["ema"] is not None:
         for name, t in payload["ema"].items():

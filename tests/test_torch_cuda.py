@@ -386,8 +386,15 @@ def test_radial_wrapper_raises_instead_of_falling_back(dev):
         sparse.radial_flash_attention(z, z, z, 4)
     with pytest.raises(ValueError):  # tensors on several devices
         sparse.radial_flash_attention(q.to(_BF16), q.to(_BF16).cpu(), q.to(_BF16), 4)
-    with pytest.raises(NotImplementedError):
-        sparse.sparse_flash_attention(q.to(_BF16), q.to(_BF16), q.to(_BF16), 5)
+    qb = q.to(_BF16)
+    with pytest.raises(ValueError):  # the radial route's own demand: whole frames
+        sparse.sparse_flash_attention(qb, qb, qb, 5, impl="radial")
+    with pytest.raises(ValueError):  # more frames than tokens
+        sparse.radial_flash_attention(qb, qb, qb, 129)
+    with pytest.raises(TypeError):  # float32 gradient streams
+        sparse.radial_flash_attention_bwd(qb, qb, qb, qb, torch.zeros(1, 2, 128, device=dev), q, 4)
+    with pytest.raises(ValueError):  # lse of another shape
+        sparse.radial_flash_attention_bwd(qb, qb, qb, qb, torch.zeros(1, 128, 2, device=dev), qb, 4)
 
 
 def test_video_wrappers_raise_instead_of_falling_back(dev):
@@ -567,6 +574,53 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, tq, tk):
             assert_close(f"flash grad {name} {tq}x{tk} vs float32", r.grad, g.grad, 2e-2)
 
 
+# (tokens, frames): T a multiple of the 64-token tile and not; one frame; frames
+# of one token; ragged frames whose tail is shorter than a tile, longer than a
+# frame (24 tokens in "5" frames are 6 frames of 4) and spread over many
+# frames; the video model's frame count; tiles wholly masked for some rows
+_RADIAL_TRAIN_SHAPES = [(256, 4), (437, 4), (500, 5), (100, 1), (40, 40), (24, 5), (29, 10),
+                        (323, 5), (1983, 21), (4544, 8)]
+
+
+@pytest.mark.parametrize("t,frames", _RADIAL_TRAIN_SHAPES)
+@pytest.mark.parametrize("b,h", [(2, 3), (1, 1)])
+def test_radial_flash_training_kernels_match_plain(dev, t, frames, b, h):
+    """K10 in its training form (the serving form's output bit for bit, plus
+    the masked log-sum-exp) and K10b on the kernel forward's own output,
+    against their plain versions, at even and ragged frames; K10b equal across
+    two runs; the gradients through ``sparse_flash_attention`` against float32
+    autograd of the masked softmax, in the inputs' dtype."""
+    import chip_smoke
+
+    q, k, v, do = (_randn(dev, b, t, h, 128, seed=s).to(_BF16) for s in (1, 2, 3, 4))
+    before = dict(sparse.launches)
+    out, lse = sparse.radial_flash_attention(q, k, v, frames, return_lse=True)
+    assert torch.equal(out, sparse.radial_flash_attention(q, k, v, frames))
+    ref_out, ref_lse = sparse.radial_flash_attention_plain(q, k, v, frames, return_lse=True)
+    assert_close(f"radial {t}/{frames}", ref_out, out, chip_smoke.FLASH_TOL)
+    assert lse.shape == (b, h, t) and torch.isfinite(lse).all()
+    assert_close("masked lse", ref_lse, lse, 1e-5)
+    got = sparse.radial_flash_attention_bwd(q, k, v, out, lse, do, frames)
+    assert sparse.launches == {"radial_flash_attention": before["radial_flash_attention"] + 2,
+                               "radial_flash_attention_bwd":
+                                   before["radial_flash_attention_bwd"] + 1}
+    ref = sparse.radial_flash_attention_bwd_plain(q, k, v, out, lse, do, frames)
+    for name, r, g in zip(("dq", "dk", "dv"), ref, got):
+        assert g.dtype == _BF16 and g.shape == r.shape and torch.isfinite(g.float()).all()
+        assert_close(f"radial bwd {name} {t}/{frames}", r, g, chip_smoke.FLASH_BWD_TOL)
+    again = sparse.radial_flash_attention_bwd(q, k, v, out, lse, do, frames)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    # through the autograd Function from float32 leaves (bf16 streams inside),
+    # against float32 autograd of the masked softmax
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    (sparse.sparse_flash_attention(*leaves, frames) * do.float()).sum().backward()
+    f32 = [x.float().requires_grad_() for x in (q, k, v)]
+    (sparse.radial_flash_attention_plain(*f32, frames) * do.float()).sum().backward()
+    for name, r, g in zip(("dq", "dk", "dv"), f32, leaves):
+        assert g.grad.dtype == _F32
+        assert_close(f"radial grad {name} {t}/{frames} vs float32", r.grad, g.grad, 2e-2)
+
+
 def test_video_backward_wrappers_raise_instead_of_falling_back(dev):
     q = torch.zeros(1, 2, 8, 512, device=dev)  # head dim 256 = Dv: K7b takes Dv = 128
     with pytest.raises(ValueError):
@@ -631,3 +685,56 @@ def test_tiny_wan_trains_through_the_kernels(dev, norm_output):
     assert kernels.launch_counts() == before
     # two bf16 runs of three layers, rounding at the same points: see VIDEO_TOL
     assert_close("tiny Wan gradients, kernels vs plain", ref, got, chip_smoke.VIDEO_TOL)
+
+
+@pytest.mark.parametrize("lora", [False, True])
+def test_tiny_sparse_wan_trains_through_the_kernels(dev, lora):
+    """One step of the video trainer on a 3-layer model (radial-sparse
+    softmax, MHLA, MHLA; 2,048 tokens in 8 frames), with and without LoRA:
+    K10 launches twice under remat and K10b once, K9 and K9b only in the
+    cross-attentions, and the gradients of what is trained agree with those
+    through the plain versions; with LoRA nothing but the adapters moves."""
+    import chip_smoke
+    from mhla_tpu_torch.train import wan_train
+
+    cfg = wan_train.parse_cli(wan_train.WanTrainConfig, [
+        "--model.dim=256", "--model.ffn_dim=512", "--model.num_heads=2", "--model.num_layers=3",
+        "--model.linear_attn_idx=(1,2)", "--model.sparse_attn_idx=(0,)",
+        "--model.block_layout=(2,2,2)", "--data.latent_frames=8", "--data.latent_height=32",
+        "--data.latent_width=32", "--data.text_len=128", "--data.text_dim=64",
+        "--optimizer.warmup_steps=0", f"--lora.enable={lora}", "--lora.rank=4"])
+    model, state, step, data = wan_train.build_training(cfg)
+    assert [b.attn_type for b in model.blocks] == ["sparse", "mhla_uni", "mhla_uni"]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    z, c = next(data)
+    batch = (torch.from_numpy(z).to(dev), torch.from_numpy(c).to(dev))
+    kernels.reset_launch_counts()
+    state, metrics = step(state, batch)
+    counts = kernels.launch_counts()
+    assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
+    want = chip_smoke.video_train_launches(mhla_layers=2, softmax_layers=0, steps=1,
+                                           sparse_layers=1)
+    assert want["radial_flash_attention"] == 2 and want["radial_flash_attention_bwd"] == 1
+    assert want["flash_attention"] == 2 * 3 and want["flash_attention_bwd"] == 3
+    assert {name: counts[name] for name in want} == want
+    for name, p in model.named_parameters():
+        if lora and not p.requires_grad:
+            assert torch.equal(p, before[name]), name
+
+    loss_fn = wan_train.make_loss_fn(cfg)
+    trained = [p for p in model.parameters() if p.requires_grad]
+    assert len(trained) == (2 * 8 * 3 if lora else len(before))
+
+    def grads():
+        for p in trained:
+            p.grad = None
+        loss, _ = loss_fn(model, batch, torch.Generator(dev).manual_seed(5))
+        loss.backward()
+        return torch.cat([p.grad.flatten() for p in trained])
+
+    got = grads()
+    launched = kernels.launch_counts()
+    with chip_smoke.plain_kernels():
+        ref = grads()
+    assert kernels.launch_counts() == launched
+    assert_close("tiny sparse Wan gradients, kernels vs plain", ref, got, chip_smoke.VIDEO_TOL)

@@ -55,6 +55,7 @@ _RUN_TINY_WAN_TRAINING = textwrap.dedent(
     cfg = wan_train.parse_cli(wan_train.WanTrainConfig, [
         "--device=cpu", "--bf16=false", "--model.dim=256", "--model.ffn_dim=256",
         "--model.num_heads=2", "--model.num_layers=2", "--model.linear_attn_idx=(0,)",
+        "--model.sparse_attn_idx=(1,)",  # layer 1: softmax under the radial mask
         "--model.block_layout=(2,2,2)", "--data.latent_frames=8", "--data.latent_height=32",
         "--data.latent_width=32", "--data.text_len=128", "--data.text_dim=32",
         "--optimizer.warmup_steps=1"])
@@ -65,7 +66,7 @@ _RUN_TINY_WAN_TRAINING = textwrap.dedent(
     assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
     assert all(p.grad is not None for p in model.parameters())
     counts = kernels.launch_counts()
-    assert len(counts) == 18 and not any(counts.values()), counts
+    assert len(counts) == 19 and not any(counts.values()), counts
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "mhla_tpu", "triton"))
     print("LEAKED", leaked)
@@ -87,8 +88,9 @@ def test_subprocess_runs_tiny_model_without_jax():
 
 
 def test_subprocess_takes_a_tiny_wan_training_step_without_jax():
-    """One step of the video trainer on the CPU, through the fused island's
-    and the flash attention's autograd Functions under remat: every gradient
+    """One step of the video trainer on the CPU, through the fused island's,
+    the flash attention's (cross-attention) and the radial-sparse
+    attention's autograd Functions under remat: every gradient
     arrives, no kernel launches, nothing of JAX is imported."""
     res = subprocess.run(
         [sys.executable, "-c", _RUN_TINY_WAN_TRAINING], cwd=ROOT, capture_output=True, text=True,
@@ -127,6 +129,7 @@ def test_launch_counters_stay_zero_on_cpu():
         "blockify_island", "mix_states_dense", "block_readout", "unblockify_island",
         "flash_attention", "radial_flash_attention",
         "unblockify", "blockify", "block_readout_bwd", "flash_attention_bwd",
+        "radial_flash_attention_bwd",
     }
     assert all(n == 0 for n in counts.values()), counts
 
@@ -161,4 +164,4 @@ def test_launch_counters_stay_zero_on_cpu_through_hybrid_sparse_sampling():
     )
     assert latents.shape == (1, 8, 32, 32, 16) and torch.isfinite(latents).all()
     counts = kernels.launch_counts()
-    assert len(counts) == 18 and all(n == 0 for n in counts.values()), counts
+    assert len(counts) == 19 and all(n == 0 for n in counts.values()), counts

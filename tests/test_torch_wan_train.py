@@ -25,6 +25,7 @@ from mhla_tpu.models.wan import WanModel as JaxWanModel
 from mhla_tpu.models.wan import build_wan_config as jax_build_wan_config
 from mhla_tpu.train import trainer as jax_trainer
 from mhla_tpu.train import wan_train as jax_wan_train
+from mhla_tpu.train.optim8bit import auto_scale_lr as jax_auto_scale_lr
 from mhla_tpu_torch.diffusion import flow_q_sample, flow_training_loss, logit_normal_timesteps
 from mhla_tpu_torch.models import WanModel, build_wan_config, wan_params_from_jax
 from mhla_tpu_torch.train import (
@@ -44,6 +45,14 @@ LATENT = (2, 8, 12, 16)  # patch (1, 2, 2) -> grid (2, 4, 6): nothing for grid_a
 TOL = 1e-4
 FULL = dict(TINY)  # 2 layers, both MHLA
 HYBRID = dict(TINY, num_layers=3, linear_attn_idx=(1, 2))  # layer 0 dense softmax
+# layers: radial-sparse softmax, MHLA, dense softmax; no dense guard, as the
+# video trainer builds the model. 4 frames of 24 tokens (grid (4, 4, 6)), so
+# that frame distances 2 and 3 are banded: with 2 frames the mask keeps all
+SPARSE = dict(TINY, num_layers=3, linear_attn_idx=(1,), sparse_attn_idx=(0,),
+              sparse_dense_from_t=None)
+SPARSE_LATENT = (4, 8, 12, 16)
+FORMS = {"full": (FULL, LATENT), "hybrid": (HYBRID, LATENT), "sparse": (SPARSE, SPARSE_LATENT)}
+_FORM_NAMES = list(FORMS)
 WAN_OPT = dict(learning_rate=1e-4, weight_decay=0.01, grad_clip=0.1, warmup_steps=1,
                total_steps=10, optimizer="adamw")
 
@@ -55,11 +64,12 @@ def _force_interpret():
     mhla_chunk_pallas.FORCE_INTERPRET = False
 
 
-def _models(kw, seed, jax_dtype=jnp.float32, torch_dtype=torch.float32, remat=False):
+def _models(kw, seed, jax_dtype=jnp.float32, torch_dtype=torch.float32, remat=False,
+            latent=LATENT):
     jax_model = JaxWanModel(jax_build_wan_config(remat=False, dtype=jax_dtype, **kw))
     shapes = jax.eval_shape(
         lambda: jax_model.init(
-            jax.random.PRNGKey(0), jnp.zeros((1, *LATENT)), jnp.zeros((1,)),
+            jax.random.PRNGKey(0), jnp.zeros((1, *latent)), jnp.zeros((1,)),
             jnp.zeros((1, kw["text_len"], kw["text_dim"])),
         )
     )
@@ -69,11 +79,11 @@ def _models(kw, seed, jax_dtype=jnp.float32, torch_dtype=torch.float32, remat=Fa
     return jax_model, _to_jax(params_np), port
 
 
-def _batch(seed, b=2):
+def _batch(seed, b=2, latent=LATENT):
     """Latents, text embeddings, timesteps in (0, 1), noise and a dropout
     mask that drops the second sample's text."""
     rng = np.random.default_rng(seed)
-    z = rng.normal(size=(b, *LATENT)).astype(np.float32)
+    z = rng.normal(size=(b, *latent)).astype(np.float32)
     ctx = (rng.normal(size=(b, TINY["text_len"], TINY["text_dim"])) * 0.5).astype(np.float32)
     t01 = rng.uniform(0.1, 0.9, size=(b,)).astype(np.float32)
     noise = rng.normal(size=z.shape).astype(np.float32)
@@ -109,12 +119,12 @@ def _jax_batch(batch):
     return tuple(jnp.asarray(a) for a in batch)
 
 
-@pytest.mark.parametrize("form", ["full", "hybrid"])
+@pytest.mark.parametrize("form", _FORM_NAMES)
 def test_wan_parameter_gradients_match_jax(form):
     """The training loss and every parameter's gradient, float32."""
-    kw = FULL if form == "full" else HYBRID
-    jax_model, params, port = _models(kw, seed=11)
-    batch = _batch(12)
+    kw, latent = FORMS[form]
+    jax_model, params, port = _models(kw, seed=11, latent=latent)
+    batch = _batch(12, latent=latent)
     ref_loss, ref_grads = jax.value_and_grad(lambda p: _jax_loss(jax_model, jnp.float32)(
         p, _jax_batch(batch))[0])(params)
     loss, _ = _port_loss(port, _torch_batch(batch))
@@ -128,15 +138,15 @@ def test_wan_parameter_gradients_match_jax(form):
         assert_close(f"{form} d {name}", want[name], p.grad, TOL)
 
 
-@pytest.mark.parametrize("form", ["full", "hybrid"])
+@pytest.mark.parametrize("form", _FORM_NAMES)
 def test_wan_gradients_bf16_compute_match_jax(form):
     """bf16 compute over float32 parameters: the two frameworks round to bf16
     at other places (the forward agrees to 3e-2, tests/test_torch_wan.py), so
     the gradients are compared as one vector, and each against its own
     float32 run to show that level is bf16's and not a fault."""
-    kw = FULL if form == "full" else HYBRID
-    jax_model, params, port = _models(kw, 13, jnp.bfloat16, torch.bfloat16)
-    batch = _batch(14)
+    kw, latent = FORMS[form]
+    jax_model, params, port = _models(kw, 13, jnp.bfloat16, torch.bfloat16, latent=latent)
+    batch = _batch(14, latent=latent)
     ref = jax.grad(lambda p: _jax_loss(jax_model, jnp.bfloat16)(p, _jax_batch(batch))[0])(params)
     want = wan_params_from_jax(jax.tree_util.tree_map(np.asarray, ref))
     _port_loss(port, _torch_batch(batch))[0].backward()
@@ -152,14 +162,14 @@ def test_wan_gradients_bf16_compute_match_jax(form):
     assert_close(f"{form} bf16 gradients vs float32", exact, got, 5e-2)
 
 
-@pytest.mark.parametrize("form", ["full", "hybrid"])
+@pytest.mark.parametrize("form", _FORM_NAMES)
 def test_remat_on_equals_remat_off_bit_for_bit(form):
     """Recomputing each block in the backward changes no bit of the loss or
     of any gradient; without autograd the flag changes nothing at all."""
-    kw = FULL if form == "full" else HYBRID
-    _, _, plain = _models(kw, seed=15)
-    _, _, remat = _models(kw, seed=15, remat=True)
-    batch = _torch_batch(_batch(16))
+    kw, latent = FORMS[form]
+    _, _, plain = _models(kw, seed=15, latent=latent)
+    _, _, remat = _models(kw, seed=15, remat=True, latent=latent)
+    batch = _torch_batch(_batch(16, latent=latent))
     losses = []
     for model in (plain, remat):
         loss, _ = _port_loss(model, batch)
@@ -204,15 +214,15 @@ def test_flow_loss_pieces_match_jax():
     assert torch.equal(t, torch.sigmoid(u * 2.0 + 0.5)) and 0 < t.min() and t.max() < 1
 
 
-@pytest.mark.parametrize("form", ["full", "hybrid"])
+@pytest.mark.parametrize("form", _FORM_NAMES)
 def test_three_wan_trainer_steps_match_jax(form):
     """make_train_step with the Wan optimizer settings (AdamW 1e-4, wd 0.01,
     clip 0.1; warm-up cut to one step) against the JAX make_train_step on
     the same batches and draws: loss, grad norm, every parameter and its EMA
     after each step. The EMA decays by 0.9 here: at the entry point's 0.9999
     three steps move it by less than float32 resolves."""
-    kw = FULL if form == "full" else HYBRID
-    jax_model, params, port = _models(kw, seed=19, remat=True)
+    kw, latent = FORMS[form]
+    jax_model, params, port = _models(kw, seed=19, remat=True, latent=latent)
     tx = jax_trainer.make_optimizer(jax_trainer.OptimizerConfig(**WAN_OPT))
     state = jax_trainer.init_train_state(params, tx, ema=True)
     jax_step = jax_trainer.make_train_step(_jax_loss(jax_model, jnp.float32), tx,
@@ -221,7 +231,7 @@ def test_three_wan_trainer_steps_match_jax(form):
     port_step = make_train_step(_port_loss, ema_decay=0.9)
     start = {n: p.detach().clone() for n, p in port.named_parameters()}
     for i in range(3):
-        batch = _batch(20 + i)
+        batch = _batch(20 + i, latent=latent)
         state, ref = jax_step(state, _jax_batch(batch), jax.random.PRNGKey(i))
         port_state, got = port_step(port_state, _torch_batch(batch))
         assert_close(f"step {i} loss", np.asarray(ref["loss"]), got["loss"], 1e-5)
@@ -329,6 +339,12 @@ def test_wan_train_few_steps(tmp_path):
     model = out["model"]
     assert model.cfg.remat and model.cfg.sparse_dense_from_t is None
     assert [b.attn_type for b in model.blocks] == ["mhla_uni", "flash"]
+    sparse = wan_train.main(_HYBRID_ARGS + [f"--work_dir={tmp_path}/sparse", "--train.max_steps=2",
+                                            "--model.sparse_attn_idx=(1,)"])
+    assert [b.attn_type for b in sparse["model"].blocks] == ["mhla_uni", "sparse"]
+    # training runs the mask whatever the timestep: the model carries no dense guard
+    assert sparse["model"].cfg.sparse_dense_from_t is None
+    assert math.isfinite(sparse["final_loss"]) and sparse["losses"] != out["losses"]
     assert out["params"] == sum(p.numel() for p in model.parameters())
     assert (tmp_path / "wan" / "config.yaml").exists()
     assert out["checkpoint_bytes"] > 0 and out["save_seconds"] > 0
@@ -394,8 +410,7 @@ def test_wan_train_resumes_from_latest_and_draws_what_an_unbroken_run_would(tmp_
 
 @pytest.mark.parametrize(
     "arg",
-    ["--distill.enable=True", "--lora.enable=True", "--auto_scale_lr_base_batch=8",
-     "--model.sparse_attn_idx=(1,)", "--model.is_lepe=True", "--model.rope_after=False",
+    ["--distill.enable=True", "--model.is_lepe=True", "--model.rope_after=False",
      "--model.model=Wan_I2V_14B", "--model.self_attn_type=gla"],
 )
 def test_wan_train_unported_options_raise(tmp_path, arg):
@@ -403,14 +418,55 @@ def test_wan_train_unported_options_raise(tmp_path, arg):
         wan_train.main(_HYBRID_ARGS + [f"--work_dir={tmp_path}", "--train.max_steps=1", arg])
 
 
-def test_sparse_layers_refuse_gradients():
-    """The radial-sparse layers have no backward yet: a training forward
-    through one raises instead of returning a tensor without a gradient."""
-    kw = dict(TINY, num_layers=1, linear_attn_idx=None, sparse_attn_idx=(0,),
-              sparse_dense_from_t=None)
-    model = WanModel(build_wan_config(**kw))
-    z, ctx, t01, _, _ = _torch_batch(_batch(23))
-    with pytest.raises(NotImplementedError):
-        model(z, t01 * 1000.0, ctx)
-    with torch.no_grad():
-        assert torch.isfinite(model(z, t01 * 1000.0, ctx)).all()
+@pytest.mark.parametrize("side", ["dense_at_900", "sparse_at_300"])
+def test_sparse_layers_refuse_gradients(side):
+    """The radial-sparse layers take gradients (this test's name dates from
+    when they refused them). A model built *with* the dense guard, as a
+    caller outside the video trainer may build it, runs the dense backward
+    while max(t) >= 850 and the sparse one below: every parameter's gradient
+    against ``jax.grad`` of the JAX model, which selects the branch with
+    ``lax.cond``, on both sides of the guard; above it the gradients equal
+    those of the model without ``sparse_attn_idx``, below it they differ."""
+    kw = dict(SPARSE, sparse_dense_from_t=850.0)
+    jax_model, params, port = _models(kw, seed=23, latent=SPARSE_LATENT)
+    z, ctx, _, noise, drop = _batch(24, latent=SPARSE_LATENT)
+    t01 = np.array([0.9, 0.95] if side == "dense_at_900" else [0.3, 0.84], np.float32)
+    batch = (z, ctx, t01, noise, drop)
+    ref = jax.grad(lambda p: _jax_loss(jax_model, jnp.float32)(p, _jax_batch(batch))[0])(params)
+    want = wan_params_from_jax(jax.tree_util.tree_map(np.asarray, ref))
+    _port_loss(port, _torch_batch(batch))[0].backward()
+    dense = WanModel(dataclasses.replace(port.cfg, sparse_attn_idx=None))
+    dense.load_state_dict(port.state_dict())
+    _port_loss(dense, _torch_batch(batch))[0].backward()
+    for (name, p), (_, d) in zip(port.named_parameters(), dense.named_parameters()):
+        assert_close(f"{side} d {name}", want[name], p.grad, TOL)
+        if side == "dense_at_900":
+            assert torch.equal(p.grad, d.grad), name
+    if side == "sparse_at_300":
+        got = torch.cat([p.grad.flatten() for p in port.parameters()])
+        other = torch.cat([p.grad.flatten() for p in dense.parameters()])
+        assert (got - other).norm() > 1e-2 * other.norm()
+
+
+def test_auto_scale_lr_reaches_the_optimizer(tmp_path, monkeypatch):
+    """``auto_scale_lr_base_batch`` scales the learning rate by batch x
+    accumulation over the base batch before the run is built, as the JAX
+    entry point does; the config written to the work dir holds the result."""
+    for fn in (wan_train.auto_scale_lr, jax_auto_scale_lr):  # tests/test_optim8bit.py's cases
+        assert fn(1e-4, 512) == pytest.approx(2e-4)
+        assert fn(1e-4, 256) == pytest.approx(1e-4)
+        assert fn(2e-5, 64, base_batch_size=32) == pytest.approx(4e-5)
+    seen = {}
+    real = wan_train.build_training
+
+    def spy(cfg):
+        seen["lr"] = cfg.optimizer.learning_rate
+        return real(cfg)
+
+    monkeypatch.setattr(wan_train, "build_training", spy)
+    wan_train.main(_HYBRID_ARGS + [
+        f"--work_dir={tmp_path}/wan", "--train.max_steps=1", "--train.batch_size=2",
+        "--optimizer.accum_steps=3", "--optimizer.learning_rate=1e-3",
+        "--auto_scale_lr_base_batch=4"])
+    assert seen["lr"] == pytest.approx(1e-3 * 6 / 4)
+    assert "0.0015" in (tmp_path / "wan" / "config.yaml").read_text()
