@@ -30,22 +30,43 @@ exits non-zero:
              loss, that every backward kernel launched, that the mixing
              matrices stay tril in [1e-5, 1] and got a non-zero gradient;
              prints step time, tok/s and the checkpoint's save time.
-7. kernels (video) — K5-K9 against their plain versions at the shapes of
+7. kernels (LM packed) — the per-row forms of K1/K1b (a rotary row per
+             token), K3/K3b and K4/K4b (a mixing matrix per batch row) and
+             the causal and causal + segment-id forms of K9/K9b against their
+             plain versions at B=8 T=2048 of ``PackedVarlenIterator`` rows
+             (timed, beside the bound and one library call), K9/K9b also at
+             an unaligned length with arbitrary ids; K9's lse; two K9b runs
+             bit for bit; the tiles each masked kernel walked against the
+             rule's count and the full count.
+8. serve (hybrid LM) — ``generate`` with the 340M model whose layers 0, 3,
+             ..., 21 are causal softmax attention (8 heads of 128): the same
+             two requests, prefills on the plain causal product (T < 2048,
+             as in JAX), decode through the KV caches. Checks finite logits,
+             the exact launches, and the decode-step logits against one
+             forward over the whole sequence (2,048 tokens: K9 causal).
+9. train (hybrid LM) — ``lm_train.main --model_json=<the hybrid>
+             --train.varlen=true`` trains it 6 steps on packed documents at
+             B=8 T=2048, then 2 steps on token rows: finite, falling loss,
+             exact launches, mixing matrices tril in [1e-5, 1] with
+             gradients; step time, tok/s, peak memory; then the gradients
+             of an MHLA + softmax block pair on packed rows through the
+             kernels against the plain definitions.
+10. kernels (video) — K5-K9 against their plain versions at the shapes of
              the Wan2.1-1.3B sampler: CFG batch 2, 31,500 tokens in 150
              blocks of 210, cross-attention against 512 text tokens.
-8. video   — ``mhla_tpu_torch.eval.video_infer_cli.main`` samples 4
+11. video   — ``mhla_tpu_torch.eval.video_infer_cli.main`` samples 4
              DPM-Solver++ steps with CFG 5.0 of the 30-layer full-MHLA
              model at latents (21, 60, 100, 16). Checks finite latents, the
              exact launch counts of K5-K9 and one forward through the
              kernels against the same forward through their plain versions.
-9. kernels (hybrid) — K10 (radial flash attention) against its plain
+12. kernels (hybrid) — K10 (radial flash attention) against its plain
              version at [2, 31,500, 12, 128] in 21 frames and at a small
              ragged geometry, and K9 at Tq = Tk = 31,500; each beside its
              bound and one ``scaled_dot_product_attention`` call.
-10. video (hybrid) — the CLI samples the hybrid model (layers 0, 3, ..., 27
+13. video (hybrid) — the CLI samples the hybrid model (layers 0, 3, ..., 27
              dense softmax on K9, the other 20 MHLA), 4 steps: finite
              latents, exact launch counts.
-11. video (hybrid_sparse) — ``sample_video_latents`` on the same weights
+14. video (hybrid_sparse) — ``sample_video_latents`` on the same weights
              with those ten layers radial-sparse, 4 steps at t x 1000 =
              1000, 900, 750, 501: K10 launches in the two steps below the
              dense guard (850) and K9 takes its place in the two above.
@@ -53,7 +74,7 @@ exits non-zero:
              the kernels against the plain versions, and that the guarded
              forward at t = 900 equals the hybrid model's.
 
-12. kernels (video training) — K5b, K8b and K7b against their plain versions
+15. kernels (video training) — K5b, K8b and K7b against their plain versions
              at B=1, 150 blocks of 210 tokens (float32 and bf16, with and
              without RoPE) and K9b at 31,500 x 512 and 31,500 x 31,500, each
              beside its bound and, where one exists, a library call (two
@@ -61,7 +82,7 @@ exits non-zero:
              then the gradients of one ``MHLA3D`` layer and one
              ``WanSelfAttention`` layer at 31,500 tokens through the kernels
              against the same layer through the plain versions.
-13. train (video) — ``mhla_tpu_torch.train.wan_train.main`` trains the
+16. train (video) — ``mhla_tpu_torch.train.wan_train.main`` trains the
              30-layer model 3 steps at 31,500 tokens, batch 1 (float32
              parameters, bf16 compute, per-block remat, AdamW 1e-4 with clip
              0.1 after a 1-step warm-up, EMA), in the full-MHLA and in the
@@ -69,7 +90,7 @@ exits non-zero:
              gradient norms and the exact launch counts of K5-K9 and
              K5b-K9b; prints seconds per step, peak memory and the final
              checkpoint's seconds and size.
-14. kernels (sparse training) — K10 in its training form (which also
+17. kernels (sparse training) — K10 in its training form (which also
              writes the masked log-sum-exp) and K10b (the radial flash
              backward) against their plain versions at [1, 31,500, 12, 128]
              in 21 frames, each beside its bound (allowed pairs counted
@@ -79,11 +100,11 @@ exits non-zero:
              (437 tokens in 4 frames); the gradients of one radial-sparse
              ``WanSelfAttention`` layer at 31,500 tokens through the kernels
              against the same layer through the plain versions.
-15. train (video, hybrid_sparse) — ``wan_train.main`` as in 13 with the ten
+18. train (video, hybrid_sparse) — ``wan_train.main`` as in 13 with the ten
              softmax layers under the radial mask (``model.sparse_attn_idx``):
              K10 and K10b take the place of K9 and K9b in those layers; the
              exact launch counts.
-16. train (video, hybrid_sparse + LoRA) — the same with ``lora.enable``:
+19. train (video, hybrid_sparse + LoRA) — the same with ``lora.enable``:
              the same launch counts, the base parameters bit for bit those
              of the seeded init after the steps, every adapter's B moved off
              zero, peak memory and the checkpoint's size (adapters only).
@@ -226,6 +247,28 @@ KERNEL_META = {
                             "mhla_tpu/kernels/flash_attention.py:115"),
     "radial_flash_attention_bwd": ("cuda", "mhla_tpu_torch/csrc/radial_bwd.cu",
                                    "mhla_tpu/kernels/sparse_attention.py:507"),
+    # the packed-documents and hybrid LM path: per-row forms of K1-K4b and
+    # the causal and segment-id forms of K9 / K9b
+    "fmap_rope[positions]": ("triton", "mhla_tpu_torch/kernels/fmap_rope.py",
+                             "mhla_tpu/kernels/fmap_rope_pallas.py:66"),
+    "fmap_rope_bwd[positions]": ("triton", "mhla_tpu_torch/kernels/fmap_rope.py",
+                                 "mhla_tpu/kernels/fmap_rope_pallas.py:72"),
+    "mix_states[per-row]": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk.cu",
+                            "mhla_tpu/kernels/mhla_chunk_pallas.py:293"),
+    "chunk_output[per-row]": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk.cu",
+                              "mhla_tpu/kernels/mhla_chunk_pallas.py:589"),
+    "chunk_output_bwd[per-row]": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk_bwd.cu",
+                                  "mhla_tpu/kernels/mhla_chunk_pallas.py:623"),
+    "mix_states_bwd[per-row]": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk_bwd.cu",
+                                "mhla_tpu/kernels/mhla_chunk_pallas.py:459"),
+    "flash_attention[causal]": ("cuda", "mhla_tpu_torch/csrc/flash_fwd.cu",
+                                "mhla_tpu/kernels/flash_attention.py:73"),
+    "flash_attention[causal+segment]": ("cuda", "mhla_tpu_torch/csrc/flash_fwd.cu",
+                                        "mhla_tpu/kernels/flash_attention.py:73"),
+    "flash_attention_bwd[causal]": ("cuda", "mhla_tpu_torch/csrc/flash_bwd.cu",
+                                    "mhla_tpu/kernels/flash_attention.py:73"),
+    "flash_attention_bwd[causal+segment]": ("cuda", "mhla_tpu_torch/csrc/flash_bwd.cu",
+                                            "mhla_tpu/kernels/flash_attention.py:73"),
 }
 FWD_KERNELS = ("fmap_rope", "chunk_states", "mix_states", "chunk_output")
 BWD_KERNELS = ("fmap_rope_bwd", "chunk_output_bwd", "mix_states_bwd", "chunk_states_bwd")
@@ -825,26 +868,483 @@ def phase_train(dev: torch.device) -> dict:
             "save_s": out["save_seconds"], "losses": losses, "peak_gb": peak_gb}
 
 
-def plain_flash_attention(q, k, v):
-    """``flash_attention_plain``; where a gradient is wanted, with
-    ``flash_attention_bwd_plain`` as its backward (plain autograd would keep
-    every [B, H, rows, Tk] score block of the forward)."""
+# the hybrid 340M model of the packed-documents path (profile_step.HYBRID_ATTN):
+# causal softmax attention, 8 heads of 128, in layers 0, 3, ..., 21
+LM_MHLA_LAYERS, LM_SOFTMAX_LAYERS = 16, 8
+# per training step of the hybrid on packed rows: K1 on q and k of every MHLA
+# layer, K2-K4 once each, K9 (masked) once per softmax layer; the backward alike
+HYBRID_TRAIN_LAUNCHES = {
+    "fmap_rope": 2 * LM_MHLA_LAYERS, "chunk_states": LM_MHLA_LAYERS,
+    "mix_states": LM_MHLA_LAYERS, "chunk_output": LM_MHLA_LAYERS,
+    "flash_attention_masked": LM_SOFTMAX_LAYERS, "fmap_rope_bwd": 2 * LM_MHLA_LAYERS,
+    "chunk_output_bwd": LM_MHLA_LAYERS, "mix_states_bwd": LM_MHLA_LAYERS,
+    "chunk_states_bwd": LM_MHLA_LAYERS, "flash_attention_masked_bwd": LM_SOFTMAX_LAYERS,
+    "flash_attention": 0, "flash_attention_bwd": 0,
+}
+# the kernel forms of the packed and hybrid path, each under the counter its
+# wrapper adds to, and the phase whose run gives its launches
+PACKED_FORMS = {
+    "fmap_rope[positions]": "fmap_rope", "fmap_rope_bwd[positions]": "fmap_rope_bwd",
+    "mix_states[per-row]": "mix_states", "chunk_output[per-row]": "chunk_output",
+    "chunk_output_bwd[per-row]": "chunk_output_bwd", "mix_states_bwd[per-row]": "mix_states_bwd",
+    "flash_attention[causal+segment]": "flash_attention_masked",
+    "flash_attention_bwd[causal+segment]": "flash_attention_masked_bwd",
+}
+
+
+def hybrid_model_json(directory: str) -> str:
+    """Write the hybrid 340M model as a reference-format model json (the
+    keys of configs/mhla_340m.yaml's model, MHLALMConfig()'s values, plus
+    ``attn``) into ``directory``; returns its path."""
+    from mhla_tpu_torch.train.profile_step import HYBRID_ATTN
+
+    from mhla_tpu_torch.models import MHLALMConfig
+
+    cfg = MHLALMConfig()
+    keys = ("hidden_size", "expand_k", "expand_v", "hidden_ratio", "num_hidden_layers",
+            "num_heads", "feature_map", "attn_mode", "use_output_gate", "hidden_act",
+            "max_position_embeddings", "norm_eps", "vocab_size", "tie_word_embeddings",
+            "initializer_range", "chunk_size")
+    raw = {"model_type": "mhla", **{k: getattr(cfg, k) for k in keys}, "attn": HYBRID_ATTN}
+    path = f"{directory}/mhla_340M_hybrid.json"
+    with open(path, "w") as f:
+        json.dump(raw, f, indent=2)
+    return path
+
+
+def packed_segment_ids(dev: torch.device, b: int, t: int) -> torch.Tensor:
+    """The segment ids of the first packed batch ``lm_train`` takes with
+    ``--train.varlen=true`` (seed 42, the synthetic corpus), [B, T] on dev."""
+    from mhla_tpu_torch.data import make_lm_dataloader
+
+    batch = next(make_lm_dataloader(t, b, 32000, seed=42, varlen=True))
+    return torch.from_numpy(batch["segment_ids"]).to(dev)
+
+
+def kept_pairs(seg: torch.Tensor, causal: bool) -> int:
+    """Query-key pairs the mask keeps, summed over the batch: per id, n^2
+    pairs (n (n + 1) / 2 when causal) for its n tokens, wherever they lie."""
+    total = 0
+    for row in seg.cpu():
+        n = torch.unique(row, return_counts=True)[1].long()
+        total += int((n * (n + 1) // 2).sum() if causal else (n * n).sum())
+    return total
+
+
+def phase_kernels_packed(dev: torch.device) -> dict:
+    """The per-row forms of K1/K1b, K3/K3b and K4/K4b and the causal and
+    causal + segment-id forms of K9/K9b against their plain versions at the
+    shapes the packed hybrid's training step gives them (B=8 T=2048 of
+    ``PackedVarlenIterator`` rows, MHLA 4 heads of 128/256, softmax 8 heads
+    of 128), each beside its bound and one library call; K9 and K9b also at
+    an unaligned geometry with arbitrary ids; the tiles K9 and K9b walk
+    against the rule's count and the full count."""
+    from mhla_tpu_torch.train.profile_step import HYBRID_ATTN
+
+    import torch.nn.functional as F
+
     from mhla_tpu_torch.kernels import flash_attention as flash
+    from mhla_tpu_torch.kernels import fmap_rope, mhla_chunk
+    from mhla_tpu_torch.ops import build_segment_mixing, rotary_cos_sin, segment_positions
+    from mhla_tpu_torch.ops.mhla_chunk import init_causal_mixing_matrix
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    b, t, h, dk, dv, c = TRAIN_BATCH, TRAIN_SEQ, 4, 128, 256, 64
+    n = t // c
+    bf16 = torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(SEED + 17)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    results = {}
+    check = lambda *a, **kw: check_kernel(results, *a, **kw)  # noqa: E731
+    seg = packed_segment_ids(dev, b, t)
+    docs = [len(torch.unique(r)) for r in seg.cpu()]
+    log(f"[kernels packed] B={b} T={t}: {sum(docs)} segments (documents and pad runs), "
+        f"{min(docs)} to {max(docs)} per row")
+    tag = f"B={b} T={t} packed"
+
+    pos = segment_positions(seg)
+    cos, sin = rotary_cos_sin(2048, dk, device=dev)
+    x, dy = randn(b, t, h * dk).to(bf16), randn(b, t, h * dk).to(bf16)
+    check("fmap_rope[positions]", tag,
+          lambda: fmap_rope.fused_fmap_rope_flat(x, cos, sin, h, "relu", positions=pos),
+          lambda: fmap_rope.fmap_rope_plain(x, cos, sin, h, "relu", positions=pos), True,
+          (2 * nbytes(x) + 4 * b * t + nbytes(cos, sin), 6 * x.numel(), torch.float32))
+    check("fmap_rope_bwd[positions]", tag,
+          lambda: fmap_rope.fmap_rope_bwd(dy, x, cos, sin, h, "relu", positions=pos),
+          lambda: fmap_rope.fmap_rope_bwd_plain(dy, x, cos, sin, h, "relu", positions=pos), True,
+          (3 * nbytes(x) + 4 * b * t + nbytes(cos, sin), 8 * x.numel(), torch.float32))
+    del x, dy
+
+    m = torch.tril(build_segment_mixing(init_causal_mixing_matrix(32, device=dev), seg, n, c)
+                   * dk**-0.5)
+    m_strict = torch.tril(m, -1).to(bf16).float().contiguous()
+    m_diag = torch.diagonal(m, dim1=-2, dim2=-1).contiguous()
+    pairs = int(torch.count_nonzero(m_strict))  # (b, i, j < i) pairs that mix
+    q4, k4 = (torch.relu(randn(b, n, c, h * dk)).to(bf16) for _ in range(2))
+    v4, do4 = (randn(b, n, c, h * dv).to(bf16) for _ in range(2))
+    tri = c * (c + 1) // 2
+    states4 = mhla_chunk.chunk_states_plain(k4, v4, h)
+    mixed4 = mhla_chunk.mix_states_plain(m_strict, states4)
+    m_bf = m_strict.to(bf16)
+    check("mix_states[per-row]", tag, lambda: mhla_chunk.mix_states(m_strict, states4),
+          lambda: mhla_chunk.mix_states_plain(m_strict, states4), True,
+          (nbytes(m_strict) + 2 * nbytes(states4), 2 * pairs * h * dk * dv, bf16),
+          lambda: torch.einsum("bij,bjrd->bird", m_bf, states4))
+    check("chunk_output[per-row]", tag,
+          lambda: mhla_chunk.chunk_output(q4, k4, v4, mixed4, m_diag, h),
+          lambda: mhla_chunk.chunk_output_plain(q4, k4, v4, mixed4, m_diag, h), True,
+          (nbytes(q4, k4, v4, mixed4, m_diag) + nbytes(v4),
+           2 * b * n * h * (c * dk * dv + tri * (dk + dv)), bf16))
+    _, _, _, dmixed4, _ = mhla_chunk.chunk_output_bwd_plain(q4, k4, v4, mixed4, m_diag, do4, h)
+    check("chunk_output_bwd[per-row]", tag,
+          lambda: mhla_chunk.chunk_output_bwd(q4, k4, v4, mixed4, m_diag, do4, h),
+          lambda: mhla_chunk.chunk_output_bwd_plain(q4, k4, v4, mixed4, m_diag, do4, h), True,
+          (2 * nbytes(q4, k4, v4, mixed4, m_diag) + nbytes(do4),
+           2 * b * n * h * (2 * c * dk * dv + tri * (2 * dv + 3 * dk)), bf16))
+    check("mix_states_bwd[per-row]", tag,
+          lambda: mhla_chunk.mix_states_bwd(m_strict, dmixed4, states4),
+          lambda: mhla_chunk.mix_states_bwd_plain(m_strict, dmixed4, states4), True,
+          (2 * nbytes(m_strict) + 3 * nbytes(states4), 4 * pairs * h * dk * dv, bf16))
+    del q4, k4, v4, do4, states4, mixed4, dmixed4, m_bf
+
+    # K9 / K9b at the softmax layers' shape: causal, and causal within packed documents
+    ha, dh = HYBRID_ATTN["num_heads"], 128
+    q, k, v, do = (randn(b, t, ha, dh).to(bf16) for _ in range(4))
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    n_tiles = -(-t // 64)
+    walks = {}
+    for form, causal, s in (("causal", True, None), ("causal+segment", True, seg)):
+        keep = None
+        if s is not None:
+            ar = torch.arange(t, device=dev)
+            keep = ((s[:, :, None] == s[:, None, :]) & (ar[:, None] >= ar[None, :]))[:, None]
+        kept = kept_pairs(s, True) * ha if s is not None else b * ha * t * (t + 1) // 2
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt.detach(), kt.detach(), vt.detach(), attn_mask=keep, is_causal=keep is None)
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                                  is_causal=keep is None)
+        check(f"flash_attention[{form}]", tag,
+              lambda: flash.flash_attention(q, k, v, causal=causal, segment_ids=s),
+              lambda: flash.flash_attention_plain(q, k, v, causal=causal, segment_ids=s), True,
+              tol=FLASH_TOL, work=(4 * nbytes(q), 4 * dh * kept, bf16), library=sdpa)
+        o, lse = flash._flash_fwd(q, k, v, None, True, causal, s)
+        if not torch.equal(o, flash.flash_attention(q, k, v, causal=causal, segment_ids=s)):
+            raise AssertionError(f"K9 {form}: the training form and the serving form disagree")
+        lse_rel = get_err_ratio(
+            flash.flash_attention_plain(q, k, v, return_lse=True, causal=causal,
+                                        segment_ids=s)[1], lse)
+        if not lse_rel < 1e-5:
+            raise AssertionError(f"K9 {form}: log-sum-exp vs plain {lse_rel:.3e}")
+        check(f"flash_attention_bwd[{form}]", tag,
+              lambda: flash.flash_attention_bwd(q, k, v, o, lse, do, None, causal, s),
+              lambda: flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                      segment_ids=s), True,
+              tol=FLASH_BWD_TOL,
+              work=(nbytes(q, k, v, o, do, lse) + nbytes(q, k, v), 10 * dh * kept, bf16),
+              library=lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+        first = flash.flash_attention_bwd(q, k, v, o, lse, do, None, causal, s)
+        visits = torch.zeros(3, dtype=torch.int32, device=dev)
+        flash._flash_fwd(q, k, v, None, False, causal, s, visits[:1])
+        again = flash.flash_attention_bwd(q, k, v, o, lse, do, None, causal, s, visits[1:])
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            raise AssertionError(f"K9b {form}: two runs differ")
+        want = ha * flash.visited_tiles(causal, s, t) * (b if s is None else 1)
+        walked = visits.tolist()
+        walks[form] = {"walked": walked[0], "full": b * ha * n_tiles**2, "kept_pairs": kept}
+        log(f"[kernels packed] K9 {form}: lse vs plain rel-RMS {lse_rel:.2e}; K9b two runs "
+            f"equal; tiles walked by K9 / K9b dK,dV / K9b dQ {walked} of {b * ha * n_tiles**2} "
+            f"(the rule's count {want}); kept pairs {kept / (b * ha * t * t):.4f} of all")
+        if walked != [want] * 3:
+            raise AssertionError(f"K9 {form} walked {walked} tiles, the rule says {want}")
+        del o, lse, first, again, sdpa_out
+    results["walks"] = walks
+
+    # an unaligned geometry with arbitrary ids: T no multiple of the tile,
+    # boundaries inside tiles, decreasing and recurring ids
+    ts = 1000
+    sa = torch.stack([(ts - torch.arange(ts)) // 97, torch.arange(ts) % 7]).to(dev)
+    qs, ks, vs, dos = (randn(2, ts, 3, dh).to(bf16) for _ in range(4))
+    for form, causal in (("segment", False), ("causal+segment", True)):
+        check(f"flash_attention[{form}]", f"T={ts} arbitrary ids",
+              lambda: flash.flash_attention(qs, ks, vs, causal=causal, segment_ids=sa),
+              lambda: flash.flash_attention_plain(qs, ks, vs, causal=causal, segment_ids=sa),
+              False, tol=FLASH_TOL)
+        os_, lses = flash._flash_fwd(qs, ks, vs, None, True, causal, sa)
+        check(f"flash_attention_bwd[{form}]", f"T={ts} arbitrary ids",
+              lambda: flash.flash_attention_bwd(qs, ks, vs, os_, lses, dos, None, causal, sa),
+              lambda: flash.flash_attention_bwd_plain(qs, ks, vs, os_, lses, dos, causal=causal,
+                                                      segment_ids=sa), False,
+              tol=FLASH_BWD_TOL)
+    return results
+
+
+def plain_lm_kernels():
+    """Context in which the LM layers' kernel entry points (K1/K1b, the
+    chunk op K2-K4b, and K9/K9b) run their plain PyTorch definitions on
+    whatever device their tensors lie, with plain autograd (and the plain
+    flash backward) for their gradients."""
+    from mhla_tpu_torch.kernels import fmap_rope
+    from mhla_tpu_torch.layers import attention, mhla_causal
+    from mhla_tpu_torch.ops import mhla_chunk as chunk_op
+
+    def fmap_plain(x, cos, sin, num_heads, feature_map=None, offset=0, positions=None):
+        return fmap_rope.fmap_rope_plain(x, cos, sin, num_heads, feature_map, offset, positions)
+
+    def chunk_plain(q, k, v, m, num_heads, chunk_size=64, output_final_state=False,
+                    segment_ids=None):
+        heads = lambda x: x.unflatten(-1, (num_heads, -1))  # noqa: E731
+        o, s = chunk_op(heads(q), heads(k), heads(v), m, chunk_size, output_final_state,
+                        segment_ids)
+        return o.flatten(-2), s
+
+    stack = contextlib.ExitStack()
+    for module, name, plain in ((mhla_causal, "fused_fmap_rope_flat", fmap_plain),
+                                (mhla_causal, "mhla_chunk_fused_flat", chunk_plain),
+                                (attention, "flash_attention", plain_flash_attention)):
+        stack.enter_context(mock.patch.object(module, name, plain))
+    return stack
+
+
+def check_block_grads(dev: torch.device) -> dict:
+    """The gradients of one hybrid block pair (the MHLA block 2 and the
+    softmax block 3 of the 340M hybrid, float32 parameters from the seeded
+    init, norm weights moved off 1) on packed rows, B=2 T=2048, bf16
+    activations: through the kernels against the plain definitions under
+    plain autograd. The whole gradient (dx and every parameter's as one
+    vector) is held to OP_GRAD_TOL, each tensor to LAYER_GRAD_TOL.
+
+    Why the pair starts with the MHLA block, and why a tensor gets the
+    wider bound: the relu feature map's derivative flips wherever two
+    paths round a q or k projection near 0 to different signs, and the q/k
+    projection weights' gradients, sums over 4,096 tokens that largely
+    cancel, carry those flips. Fed the same input, both paths make the same
+    projections; behind a softmax block they do not (K9 rounds its
+    probabilities apart from the plain version, FLASH_TOL), and then the
+    MHLA block's q/k weight gradients differed by 3.2-3.7e-2 on an H100
+    (the plain definitions alone, on the card against the CPU, by
+    2.7-3.1e-2) where dx differed by 7e-3."""
+    from mhla_tpu_torch.train.profile_step import HYBRID_ATTN
+
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.models import MHLALMConfig
+    from mhla_tpu_torch.models.gla_lm import MHLABlock
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    cfg = MHLALMConfig(attn=HYBRID_ATTN)
+    blocks = torch.nn.ModuleList([MHLABlock(cfg, i, device=dev) for i in (2, 3)])
+    if [b.is_softmax for b in blocks] != [False, True]:
+        raise AssertionError("layers 2 and 3 of the hybrid are not MHLA and softmax")
+    gen = torch.Generator(dev).manual_seed(SEED + 18)
+    with torch.no_grad():
+        for name, p in blocks.named_parameters():
+            if p.ndim == 2 and "mixing_matrix" not in name:
+                p.normal_(0.0, cfg.initializer_range, generator=gen)
+            elif "norm" in name:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen, device=dev))
+    b, t = 2, TRAIN_SEQ
+    seg = packed_segment_ids(dev, b, t)
+    x = torch.randn(b, t, cfg.hidden_size, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn(b, t, cfg.hidden_size, generator=gen, device=dev)
+
+    class BlockPair(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.blocks = blocks
+
+        def forward(self, y):
+            for block in self.blocks:
+                y, _ = block(y, segment_ids=seg)
+            return y
+
+    pair = BlockPair()
+    kernels.reset_launch_counts()
+    got = layer_grads(pair, x, w)
+    launched = {k_: v_ for k_, v_ in kernels.launch_counts().items() if v_}
+    kernels.reset_launch_counts()
+    with plain_lm_kernels():
+        ref = layer_grads(pair, x, w)
+    if any(kernels.launch_counts().values()):
+        raise AssertionError("the plain block pair launched a kernel")
+    torch.cuda.synchronize()
+    rels = {name: get_err_ratio(ref[name], got[name]) for name in ref}
+    whole = get_err_ratio(torch.cat([g.flatten().float() for g in ref.values()]),
+                          torch.cat([g.flatten().float() for g in got.values()]))
+    worst = max(rels, key=rels.get)
+    log(f"[grads] hybrid block pair (MHLA + softmax) on packed rows B={b} T={t}, kernels "
+        f"{launched}: gradients vs plain definitions, rel-RMS all as one vector {whole:.3e} "
+        f"(tol {OP_GRAD_TOL}), dx {rels['x']:.3e}, worst tensor {worst} {rels[worst]:.3e} "
+        f"(tol {LAYER_GRAD_TOL})")
+    if not (all(torch.isfinite(g).all() for g in got.values()) and whole < OP_GRAD_TOL
+            and rels[worst] < LAYER_GRAD_TOL):
+        raise AssertionError(f"hybrid block gradients: kernels != plain: {whole:.3e}, {rels}")
+    return {"all": whole, "dx": rels["x"], "worst": worst, "worst_rel": rels[worst]}
+
+
+def phase_serve_hybrid(dev: torch.device) -> dict:
+    """``generate`` with the hybrid 340M model (bf16, seeded init): 4 x 1984
+    + 64 and 1 x 781 + 32 greedy tokens. The prefills take the plain causal
+    product in the softmax layers (T < 2048, as in JAX), the decode steps
+    their KV caches. Checks finite logits, the exact launches, and the
+    decode-step logits against one forward over the whole sequence (for the
+    first request 2,048 tokens: K9's causal form in the 8 softmax layers)."""
+    from mhla_tpu_torch.train.profile_step import HYBRID_ATTN
+
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.models import MHLAForCausalLM, MHLALMConfig, generate, init_lm_params
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    cfg = MHLALMConfig(attn=HYBRID_ATTN, dtype=torch.bfloat16)
+    model = MHLAForCausalLM(cfg, device=dev)
+    init_lm_params(model, torch.Generator(dev).manual_seed(SEED))
+    model = model.to(torch.bfloat16).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve hybrid] 340M hybrid: {LM_MHLA_LAYERS} MHLA + {LM_SOFTMAX_LAYERS} softmax layers "
+        f"(layers {HYBRID_ATTN['layers']}, {HYBRID_ATTN['num_heads']} heads of 128), "
+        f"{n_params / 1e6:.1f} M params bf16")
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    requests = [
+        (torch.randint(0, cfg.vocab_size, (BATCH_A, PROMPT_A), generator=gen, device=dev), NEW_A),
+        (torch.randint(0, cfg.vocab_size, (BATCH_B, PROMPT_B), generator=gen, device=dev), NEW_B),
+    ]
+    generate(model, requests[1][0][:, :100], max_new_tokens=4)  # warm-up
+    torch.cuda.synchronize()
+    out = {"launches": {}, "rates": {}}
+    for ids, new in requests:
+        b, t = ids.shape
+        tag = f"{b} x {t} + {new}"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, scores = generate(model, ids, max_new_tokens=new, output_scores=True)
+        torch.cuda.synchronize()
+        t_total = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        # K1 on q and k of every MHLA layer in the prefill and in each decode
+        # step, K2-K4 in the prefill only; the softmax layers launch nothing
+        want = {"fmap_rope": 2 * LM_MHLA_LAYERS * new, "chunk_states": LM_MHLA_LAYERS,
+                "mix_states": LM_MHLA_LAYERS, "chunk_output": LM_MHLA_LAYERS,
+                "flash_attention_masked": 0, "flash_attention": 0}
+        if {name: counts[name] for name in want} != want:
+            raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            full, _ = model(toks)
+        n_flash = kernels.launch_counts()["flash_attention_masked"]
+        if n_flash != (LM_SOFTMAX_LAYERS if toks.shape[1] >= 2048 else 0):
+            raise AssertionError(f"{tag}: the full forward launched K9's masked form {n_flash}x")
+        ref = full[:, t - 1:-1]
+        if not (torch.isfinite(scores).all() and torch.isfinite(full).all()):
+            raise AssertionError(f"{tag}: non-finite logits")
+        rel = get_err_ratio(ref, scores)
+        log(f"[serve hybrid] {tag}: decode-step logits vs one forward over {toks.shape[1]} tokens "
+            f"(K9 causal in it: {n_flash} launches) rel-RMS {rel:.3e} (tol {SERVE_TOL}); "
+            f"launches {want}")
+        if not rel < SERVE_TOL:
+            raise AssertionError(f"{tag}: decode != full forward ({rel:.3e})")
+        t_pre = median_ms(lambda: model(ids, use_cache=True), reps=3, inner=1, warmup=1) / 1e3
+        t_dec = t_total - t_pre
+        out["rates"][tag] = {"prefill_ms": t_pre * 1e3, "prefill_tok_s": b * t / t_pre,
+                             "decode_ms_per_step": t_dec * 1e3 / (new - 1),
+                             "decode_tok_s": b * (new - 1) / t_dec, "decode_vs_full": rel}
+        log(f"[serve hybrid] {tag}: prefill {t_pre * 1e3:.2f} ms = {b * t / t_pre:,.0f} tok/s; "
+            f"decode {t_dec * 1e3 / (new - 1):.3f} ms/step = {b * (new - 1) / t_dec:,.1f} tok/s")
+        if toks.shape[1] >= 2048:
+            out["launches"] = {"flash_attention[causal]": n_flash}
+    return out
+
+
+def phase_train_hybrid(dev: torch.device, varlen: bool = True,
+                       steps: int = TRAIN_STEPS) -> dict:
+    """``lm_train.main --model_json=<hybrid> --train.varlen=true`` trains the
+    hybrid 340M model ``steps`` steps on packed documents at B=8 T=2048
+    (float32 parameters, bf16 compute, AdamW 3e-4 after a 1-step warm-up);
+    with ``varlen`` false on plain token rows (K9 / K9b in their causal form).
+    Checks a finite, falling loss, the exact launches (HYBRID_TRAIN_LAUNCHES
+    per step), the mixing matrices tril in [1e-5, 1] with non-zero
+    gradients, then (packed) the gradients of one hybrid block pair through
+    the kernels against the plain definitions; prints step time, tok/s and
+    peak memory."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.train import lm_train
+
+    tag = "train hybrid" + ("" if varlen else " unpacked")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="mhla_train_hybrid_") as work:
+        argv = [
+            f"--device={dev.type}", f"--work_dir={work}", f"--model_json={hybrid_model_json(work)}",
+            f"--train.varlen={str(varlen).lower()}", f"--train.batch_size={TRAIN_BATCH}",
+            f"--train.seq_len={TRAIN_SEQ}", f"--train.max_steps={steps}",
+            "--train.log_interval=1", "--optimizer.learning_rate=3e-4",
+            "--optimizer.warmup_steps=1", "--optimizer.total_steps=20000",
+        ]
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out = lm_train.main(argv)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{tag}] launches in {steps} steps: {counts}")
+    want = {name: steps * n for name, n in HYBRID_TRAIN_LAUNCHES.items()}
+    if {name: counts[name] for name in want} != want:
+        raise AssertionError(f"hybrid training launches {counts}, expected {want}")
+    losses = out["losses"]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    model = out["model"]
+    if sum(b.is_softmax for b in model.model.layers) != LM_SOFTMAX_LAYERS:
+        raise AssertionError("not the hybrid model")
+    n_mix = 0
+    for name, p in model.named_parameters():
+        if name.endswith("mixing_matrix"):
+            n_mix += 1
+            low = p[torch.tril(torch.ones_like(p, dtype=torch.bool))]
+            if torch.count_nonzero(torch.triu(p, 1)) or low.min() < 1e-5 or low.max() > 1:
+                raise AssertionError(f"{name} left tril [1e-5, 1] after the steps")
+            if p.grad is None or not torch.count_nonzero(p.grad):
+                raise AssertionError(f"{name} got no gradient")
+    step_s = statistics.median(out["step_seconds"][1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    log(f"[{tag}] 340M hybrid on {'packed' if varlen else 'token'} rows, B={TRAIN_BATCH} "
+        f"T={TRAIN_SEQ}, {out['params'] / 1e6:.1f} M float32 params, bf16 compute: losses "
+        f"{[round(x, 4) for x in losses]}; grad norms {[round(x, 3) for x in out['grad_norms']]}; "
+        f"{n_mix} mixing matrices tril in [1e-5, 1] with non-zero gradients")
+    log(f"[{tag}] step {step_s * 1e3:.1f} ms (median of steps 2-{steps}; step 1 "
+        f"{out['step_seconds'][0] * 1e3:.1f} ms) = {tok_s:,.0f} tok/s; checkpoint save "
+        f"{out['save_seconds']:.2f} s; peak device memory {peak_gb:.1f} GB")
+    del out, model
+    torch.cuda.empty_cache()
+    result = {"launches": counts, "step_ms": step_s * 1e3, "tok_s": tok_s, "losses": losses,
+              "peak_gb": peak_gb}
+    if varlen:
+        result["block_grads"] = check_block_grads(dev)
+    return result
+
+
+def plain_flash_attention(q, k, v, causal=False, segment_ids=None):
+    """``flash_attention_plain`` (in its causal and segment-id forms where
+    asked); where a gradient is wanted, with ``flash_attention_bwd_plain`` as
+    its backward (plain autograd would keep every [B, H, rows, Tk] score
+    block of the forward)."""
+    from mhla_tpu_torch.kernels import flash_attention as flash
+
+    masks = {"causal": causal, "segment_ids": segment_ids}
 
     class PlainFlash(torch.autograd.Function):
         @staticmethod
         def forward(ctx, q, k, v):
-            o, lse = flash.flash_attention_plain(q, k, v, return_lse=True)
+            o, lse = flash.flash_attention_plain(q, k, v, return_lse=True, **masks)
             ctx.save_for_backward(q, k, v, o, lse)
             return o
 
         @staticmethod
         def backward(ctx, do):
-            return flash.flash_attention_bwd_plain(*ctx.saved_tensors, do)
+            return flash.flash_attention_bwd_plain(*ctx.saved_tensors, do, **masks)
 
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return PlainFlash.apply(q, k, v)
-    return flash.flash_attention_plain(q, k, v)
+    return flash.flash_attention_plain(q, k, v, **masks)
 
 
 def plain_radial_flash_attention(q, k, v, num_frames, scale=None):
@@ -1451,6 +1951,10 @@ def main() -> None:
     serve = phase_serve(dev)
     kern.update(phase_grads(dev))
     train = phase_train(dev)
+    kern.update(phase_kernels_packed(dev))
+    serve_hybrid = phase_serve_hybrid(dev)
+    train_packed = phase_train_hybrid(dev)
+    train_unpacked = phase_train_hybrid(dev, varlen=False, steps=2)
     kern.update(phase_kernels_video(dev))
     video = phase_video(dev)
     kern.update(phase_kernels_hybrid(dev))
@@ -1475,7 +1979,12 @@ def main() -> None:
                 **{n: train_full["launches"][n] for n in VIDEO_BWD_KERNELS},
                 "flash_attention_bwd": train_hybrid["launches"]["flash_attention_bwd"],
                 "radial_flash_attention_bwd":
-                    train_sparse["launches"]["radial_flash_attention_bwd"]}
+                    train_sparse["launches"]["radial_flash_attention_bwd"],
+                **{form: train_packed["launches"][counter]
+                   for form, counter in PACKED_FORMS.items()},
+                "flash_attention[causal]": serve_hybrid["launches"]["flash_attention[causal]"],
+                "flash_attention_bwd[causal]":
+                    train_unpacked["launches"]["flash_attention_masked_bwd"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [
         {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -1483,9 +1992,12 @@ def main() -> None:
         for name, (route, source, replaces) in KERNEL_META.items()
     ]
     for phase in (train, video, hybrid, sparse, train_full, train_hybrid, train_sparse,
-                  train_lora):
+                  train_lora, serve_hybrid, train_packed, train_unpacked):
         phase.pop("launches")
-    log(json.dumps({"serve": serve["rates"], "train": train, "video": video, "hybrid": hybrid,
+    log(json.dumps({"serve": serve["rates"], "train": train,
+                    "serve_hybrid_lm": serve_hybrid["rates"], "train_hybrid_lm_packed": train_packed,
+                    "train_hybrid_lm": train_unpacked, "tile_walks": kern["walks"],
+                    "video": video, "hybrid": hybrid,
                     "hybrid_sparse": sparse, "train_video_full": train_full,
                     "train_video_hybrid": train_hybrid,
                     "train_video_hybrid_sparse": train_sparse,

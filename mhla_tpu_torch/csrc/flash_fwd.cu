@@ -1,12 +1,25 @@
-// K9: non-causal flash-attention forward for Hopper (sm_90a), head dim 128.
+// K9: flash-attention forward for Hopper (sm_90a), head dim 128.
 //
-//   o[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h]) @ v[b, :, h]
+//   o[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h] + mask[b, i, j]) @ v[b, :, h]
 //
 // q, o: [B, Tq, H, 128]; k, v: [B, Tk, H, 128]; bf16 in and out, float32
 // scores, softmax statistics and accumulation. Any Tq and Tk >= 1. The
 // training form also writes each row's log-sum-exp of the scaled scores,
 // lse [B, H, Tq] float32 (natural log), which the backward (flash_bwd.cu)
 // reads; the serving form is compiled without that store.
+//
+// Masked forms (Tq == Tk == T, the rule in flash_mask.cuh): causal, keeping
+// key j for query i iff j <= i; segment-id, keeping it iff seg[b, i] ==
+// seg[b, j] (packed documents, any ids); or both. They replace the same
+// library kernel called with causal=True and/or SegmentIds
+// (mhla_tpu/kernels/flash_attention.py:73-104). A block walks only the key
+// tiles that can hold a kept pair: none above its diagonal, none whose
+// segment-id range misses its own (a small pre-pass writes each tile's
+// range); the per-element mask is applied only on the tiles that need it.
+// Every row keeps at least itself, so its maximum and lse are finite; a row
+// that keeps nothing in a walked tile takes exp2 against 0 there instead of
+// its still infinite running maximum. JAX's padding to a block multiple and
+// its -1 / -2 pad ids are not carried over: bounds checks do their work.
 //
 // Replaces the JAX library's Pallas TPU flash kernel that
 // mhla_tpu/kernels/flash_attention.py:59-63,115-118 calls for long queries
@@ -40,8 +53,12 @@
 #include <math_constants.h>
 
 #include "flash_common.cuh"
+#include "flash_mask.cuh"
 
 using namespace flash;
+using flash_mask::TileWalk;
+using flash_mask::kCausal;
+using flash_mask::kSegment;
 
 namespace {
 
@@ -51,17 +68,25 @@ constexpr int kBlockN = 64;      // keys per tile
 constexpr int kLd = kD + 8;      // shared-memory row stride in elements
 constexpr int kThreads = 128;
 constexpr int kSmemBytes = 4 * kBlockN * kLd * (int)sizeof(bf16);  // 2 K and 2 V tiles
+constexpr int kSegSmemBytes = 2 * kBlockN * (int)sizeof(int);      // + 2 tiles of key ids
 
-// grid (ceil(Tq / kBlockM), H, B); dynamic shared memory kSmemBytes.
-template <bool kLse>
+// grid (ceil(Tq / kBlockM), H, B); dynamic shared memory kSmemBytes (+
+// kSegSmemBytes in the segment form). kMask: kCausal and/or kSegment bits, 0
+// for the unmasked form; seg [B, T] int32 and ranges [B, ceil(T / 64)] (the
+// pre-pass's) are read by the segment form only; ``visits``, when not null,
+// gets the number of key tiles the block walked (masked forms).
+template <bool kLse, int kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int Tq, int Tk, int H, float scale_log2) {
+                 float* __restrict__ lse, int Tq, int Tk, int H, float scale_log2,
+                 const int* __restrict__ seg, const int2* __restrict__ ranges,
+                 int* __restrict__ visits) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   typedef bf16 Tile[kBlockN][kLd];
   Tile* ks = reinterpret_cast<Tile*>(smem_raw);  // [2] tiles of K
   Tile* vs = ks + 2;                             // [2] tiles of V
+  int* kseg = reinterpret_cast<int*>(vs + 2);    // [2][kBlockN] key ids (segment form)
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tg = lane & 3;  // fragment row group, column pair
@@ -91,7 +116,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running row maxima (log2 units)
   float l0 = 0.f, l1 = 0.f;                      // this lane's share of the row sums
 
-  // start the copy of the K and V tile at key kt0 into buffer buf
+  // the segment ids of this thread's two rows and of the batch row
+  const int* sb = (kMask & kSegment) ? seg + (int64_t)b * Tq : nullptr;
+  const int sq0 = (kMask & kSegment) && r0 < Tq ? sb[r0] : 0;
+  const int sq1 = (kMask & kSegment) && r1 < Tq ? sb[r1] : 0;
+
+  // start the copy of the K and V tile at key kt0 (and its key ids) into buffer buf
   auto load_tile = [&](int buf, int kt0) {
 #pragma unroll
     for (int i = 0; i < kBlockN * (kD / 8) / kThreads; ++i) {
@@ -102,18 +132,31 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async16(&ks[buf][r][c8], kb + row * ld + c8, valid);
       cp_async16(&vs[buf][r][c8], vb + row * ld + c8, valid);
     }
+    if ((kMask & kSegment) && tid < kBlockN) {
+      const bool valid = kt0 + tid < Tk;
+      cp_async4(reinterpret_cast<float*>(kseg + buf * kBlockN + tid),
+                reinterpret_cast<const float*>(sb + (valid ? kt0 + tid : 0)), valid);
+    }
   };
 
+  // the key tiles this block walks: all of them unmasked; for the masked
+  // forms those that can hold a kept pair (flash_mask.cuh)
   const int ntiles = (Tk + kBlockN - 1) / kBlockN;
-  load_tile(0, 0);
+  const TileWalk<kMask> walk((kMask & kSegment) ? ranges + (int64_t)b * ntiles : nullptr,
+                             blockIdx.x, ntiles, false);
+  int cur = walk.next(walk.first);
+  if (cur <= walk.last) load_tile(0, cur * kBlockN);
   cp_async_commit();
-  for (int it = 0; it < ntiles; ++it) {
-    const int buf = it & 1, kt = it * kBlockN;
+  int it = 0;
+  for (; cur <= walk.last; ++it) {
+    const int buf = it & 1, kt = cur * kBlockN;
+    const int nxt = walk.next(cur + 1);
     // the other buffer's readers finished at the end of the last iteration
-    if (it + 1 < ntiles) load_tile(buf ^ 1, kt + kBlockN);
+    if (nxt <= walk.last) load_tile(buf ^ 1, nxt * kBlockN);
     cp_async_commit();   // an empty group after the last tile keeps the count uniform
     cp_async_wait<1>();  // all but the newest group: this tile has landed
     __syncthreads();
+    const bool masked = kMask != 0 && walk.needs_mask(cur, blockIdx.x);
 
     // S = q k^T for 16 rows x 64 keys: 8 accumulator tiles of 16 x 8
     float sacc[kBlockN / 8][4];
@@ -129,14 +172,21 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // scale, mask the keys past Tk, row maxima
+    // scale, mask the keys past Tk (and, on a tile that needs it, the pairs
+    // the mask drops), row maxima
     float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = kt + nt * 8 + tg * 2 + (e & 1);
-        sacc[nt][e] = key < Tk ? sacc[nt][e] * scale_log2 : -CUDART_INF_F;
+        bool keep = key < Tk;
+        if (kMask != 0 && masked) {
+          const int sk = (kMask & kSegment) ? kseg[buf * kBlockN + key - kt] : 0;
+          keep = keep && flash_mask::keep_pair<kMask>(e < 2 ? r0 : r1, e < 2 ? sq0 : sq1,
+                                                      key, sk);
+        }
+        sacc[nt][e] = keep ? sacc[nt][e] * scale_log2 : -CUDART_INF_F;
       }
       mx0 = fmaxf(mx0, fmaxf(sacc[nt][0], sacc[nt][1]));
       mx1 = fmaxf(mx1, fmaxf(sacc[nt][2], sacc[nt][3]));
@@ -145,9 +195,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // every tile holds at least one key below Tk, so the new maxima are finite
+    // unmasked, every tile holds at least one key below Tk, so the new maxima
+    // are finite; masked, a row may have kept nothing yet: exp2 against 0 then
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+    const float mr0 = kMask != 0 && mn0 == -CUDART_INF_F ? 0.f : mn0;
+    const float mr1 = kMask != 0 && mn1 == -CUDART_INF_F ? 0.f : mn1;
+    const float alpha0 = exp2f(m0 - mr0), alpha1 = exp2f(m1 - mr1);
     m0 = mn0;
     m1 = mn1;
 
@@ -156,8 +209,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      const float p0 = exp2f(sacc[nt][0] - mn0), p1 = exp2f(sacc[nt][1] - mn0);
-      const float p2 = exp2f(sacc[nt][2] - mn1), p3 = exp2f(sacc[nt][3] - mn1);
+      const float p0 = exp2f(sacc[nt][0] - mr0), p1 = exp2f(sacc[nt][1] - mr0);
+      const float p2 = exp2f(sacc[nt][2] - mr1), p3 = exp2f(sacc[nt][3] - mr1);
       sum0 += p0 + p1;
       sum1 += p2 + p3;
       pa[nt / 2][(nt & 1) * 2 + 0] = pack2f(p0, p1);
@@ -182,7 +235,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     __syncthreads();  // this buffer's fragment reads are done before it is refilled
+    cur = nxt;
   }
+  if (kMask != 0 && visits != nullptr && tid == 0) atomicAdd(visits, it);
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -206,19 +261,39 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <bool kLse>
+template <bool kLse, int kMask>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-               int B, int Tq, int Tk, int H, float scale, void* stream) {
-  if (Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
-  auto kern = flash_fwd_kernel<kLse>;
+               int B, int Tq, int Tk, int H, float scale, const int* seg,
+               const int2* ranges, int* visits, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<kLse, kMask>;
+  const int smem = kSmemBytes + ((kMask & kSegment) ? kSegSmemBytes : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + kBlockM - 1) / kBlockM, H, B);
-  kern<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+  kern<<<grid, kThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, Tq,
-      Tk, H, scale * 1.4426950408889634f);
+      Tk, H, scale * 1.4426950408889634f, seg, ranges, visits);
   return (int)cudaGetLastError();
+}
+
+// The masked forms: ``causal`` and / or ``seg`` (not null) pick the
+// instantiation; the segment form runs the range pre-pass into ``ranges``.
+template <bool kLse>
+int launch_fwd_masked(const void* q, const void* k, const void* v, void* o, void* lse,
+                      const int* seg, int2* ranges, int* visits, int B, int T, int H,
+                      bool causal, float scale, cudaStream_t stream) {
+  if (seg != nullptr) {
+    const cudaError_t err = flash_mask::launch_seg_tile_ranges(seg, ranges, B, T, stream);
+    if (err != cudaSuccess) return (int)err;
+    return causal ? launch_fwd<kLse, kCausal | kSegment>(q, k, v, o, lse, B, T, T, H, scale,
+                                                         seg, ranges, visits, stream)
+                  : launch_fwd<kLse, kSegment>(q, k, v, o, lse, B, T, T, H, scale, seg,
+                                               ranges, visits, stream);
+  }
+  if (!causal) return (int)cudaErrorInvalidValue;  // the unmasked form has its own entry
+  return launch_fwd<kLse, kCausal>(q, k, v, o, lse, B, T, T, H, scale, nullptr, nullptr,
+                                   visits, stream);
 }
 
 }  // namespace
@@ -229,14 +304,33 @@ extern "C" {
 
 int mhla_flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
                    int Tq, int Tk, int H, float scale, void* stream) {
-  return launch_fwd<false>(q, k, v, o, nullptr, B, Tq, Tk, H, scale, stream);
+  if (Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
+  return launch_fwd<false, 0>(q, k, v, o, nullptr, B, Tq, Tk, H, scale, nullptr, nullptr,
+                              nullptr, (cudaStream_t)stream);
 }
 
 // The training form: also writes lse [B, H, Tq] float32.
 int mhla_flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int Tq, int Tk, int H, float scale,
                        void* stream) {
-  return launch_fwd<true>(q, k, v, o, lse, B, Tq, Tk, H, scale, stream);
+  if (Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
+  return launch_fwd<true, 0>(q, k, v, o, lse, B, Tq, Tk, H, scale, nullptr, nullptr, nullptr,
+                             (cudaStream_t)stream);
+}
+
+// The causal and / or segment-id forms, Tq == Tk == T: ``seg`` [B, T] int32 or
+// null, ``ranges`` int32 scratch [B, ceil(T / 64), 2] (segment form),
+// ``visits`` null or an int32 that gets the number of walked tiles added;
+// ``lse`` null for the serving form.
+int mhla_flash_fwd_masked(const void* q, const void* k, const void* v, void* o, void* lse,
+                          const void* seg, void* ranges, void* visits, int B, int T, int H,
+                          int causal, float scale, void* stream) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  auto args = [&](auto launch) {
+    return launch(q, k, v, o, lse, (const int*)seg, (int2*)ranges, (int*)visits, B, T, H,
+                  causal != 0, scale, (cudaStream_t)stream);
+  };
+  return lse != nullptr ? args(launch_fwd_masked<true>) : args(launch_fwd_masked<false>);
 }
 
 }  // extern "C"

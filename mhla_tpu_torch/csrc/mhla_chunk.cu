@@ -12,6 +12,9 @@
 //
 // Layout: token tensors are head-flat [B, N, C, H*D] (the padded [B, T, H*D]
 // rows, chunked by a free reshape); states and mixed are [B, N, H*Dk, Dv].
+// Ms and md are shared by the batch, or one per batch row for packed varlen
+// rows: K3 and K4 read them with a batch stride (0 when shared), as the JAX
+// kernels give their M blocks a batch index (mhla_chunk_pallas.py:726).
 //
 // What each kernel replaces, what bounds it on the H100 and what the design
 // does about it:
@@ -115,13 +118,15 @@ chunk_states_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
   }
 }
 
-// K3. grid (ceil(R/2 / kThreads), B). m: [N, N] fp32 (strictly lower),
-// s, out: [B, N, R] with R = H*Dk*Dv.
+// K3. grid (ceil(R/2 / kThreads), B). m: [N, N] fp32 (strictly lower), or
+// [B, N, N] with m_bstride = N*N (0 when shared); s, out: [B, N, R] with
+// R = H*Dk*Dv.
 __global__ void __launch_bounds__(kThreads)
 mix_states_kernel(const float* __restrict__ m, const bf16* __restrict__ s,
-                  bf16* __restrict__ out, int N, int64_t R) {
+                  bf16* __restrict__ out, int N, int64_t R, int64_t m_bstride) {
   __shared__ float ms[kMaxSlots * kMaxSlots];
-  for (int e = threadIdx.x; e < N * N; e += blockDim.x) ms[e] = m[e];
+  const float* mb = m + blockIdx.y * m_bstride;
+  for (int e = threadIdx.x; e < N * N; e += blockDim.x) ms[e] = mb[e];
   __syncthreads();
   const int64_t pairs = R / 2;
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -149,12 +154,13 @@ mix_states_kernel(const float* __restrict__ m, const bf16* __restrict__ s,
 }
 
 // K4. grid (B*N, H, Dv/kTileN); dynamic shared memory C*C*(4 + 2) bytes.
-// q, k: [B,N,C,H*Dk]; v, o: [B,N,C,H*Dv]; mixed: [B,N,H*Dk,Dv]; md: [N].
+// q, k: [B,N,C,H*Dk]; v, o: [B,N,C,H*Dv]; mixed: [B,N,H*Dk,Dv]; md: [N], or
+// [B, N] with md_bstride = N (0 when shared).
 __global__ void __launch_bounds__(kThreads)
 chunk_output_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ mixed,
                     const float* __restrict__ md, bf16* __restrict__ o, int N,
-                    int C, int H, int Dk, int Dv) {
+                    int C, int H, int Dk, int Dv, int md_bstride) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* scores = reinterpret_cast<float*>(smem);    // [C, C] fp32
   bf16* pm = reinterpret_cast<bf16*>(scores + C * C);  // [C, C] masked, bf16
@@ -197,7 +203,7 @@ chunk_output_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   // 3. o = md[n] * (P @ v) + q @ mixed, one fp32 fragment per output tile
-  const float mdn = md[n];
+  const float mdn = md[(bn / N) * md_bstride + n];
   const int nt = kTileN / kFrag;
   for (int f = warp; f < ct * nt; f += kWarps) {
     const int fm = f / nt, fn = f % nt;
@@ -238,22 +244,22 @@ int mhla_chunk_states(const void* k, const void* v, void* s, int bn, int C,
 }
 
 int mhla_mix_states(const void* m, const void* s, void* out, int B, int N,
-                    long long R, void* stream) {
+                    long long R, long long m_bstride, void* stream) {
   const long long pairs = R / 2;
   dim3 grid((unsigned)((pairs + kThreads - 1) / kThreads), B);
   mix_states_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)m, (const bf16*)s, (bf16*)out, N, (int64_t)R);
+      (const float*)m, (const bf16*)s, (bf16*)out, N, (int64_t)R, (int64_t)m_bstride);
   return (int)cudaGetLastError();
 }
 
 int mhla_chunk_output(const void* q, const void* k, const void* v,
                       const void* mixed, const void* md, void* o, int bn, int N,
-                      int C, int H, int Dk, int Dv, void* stream) {
+                      int C, int H, int Dk, int Dv, int md_bstride, void* stream) {
   dim3 grid(bn, H, Dv / kTileN);
   const size_t smem = (size_t)C * C * (sizeof(float) + sizeof(bf16));
   chunk_output_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)mixed,
-      (const float*)md, (bf16*)o, N, C, H, Dk, Dv);
+      (const float*)md, (bf16*)o, N, C, H, Dk, Dv, md_bstride);
   return (int)cudaGetLastError();
 }
 

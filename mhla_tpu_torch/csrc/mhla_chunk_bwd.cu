@@ -19,7 +19,11 @@
 // 184-207). d md and dMs stay float32.
 //
 // Layout as in csrc/mhla_chunk.cu: token tensors [B, N, C, H*D], states,
-// mixed and their gradients [B, N, H*Dk, Dv].
+// mixed and their gradients [B, N, H*Dk, Dv]. Ms and md are shared by the
+// batch or one per batch row (packed varlen rows); then d md is [B, N] (K4b
+// sums over heads only) and dMs [B, N, N] (K3b's blocks each work on one
+// batch row and add into that row's matrix), as the JAX kernels give dM a
+// batch index (_dm_pallas(batched=True), mhla_chunk_pallas.py:422).
 //
 // What each kernel replaces, what bounds it on the H100 and what the design
 // does about it:
@@ -112,14 +116,16 @@ __device__ __forceinline__ void store_tile_bf16(const Acc& acc, float* stage, bf
 
 // K4b. grid (B*N, H); dynamic shared memory C*C*(2*4 + 2*2) bytes.
 // q, k, dq, dk_i: [B,N,C,H*Dk]; v, dout, dv_i: [B,N,C,H*Dv];
-// mixed, dmixed: [B,N,H*Dk,Dv]; md, dmd: [N] fp32 (dmd zeroed by the caller).
+// mixed, dmixed: [B,N,H*Dk,Dv]; md, dmd: [N] fp32, or [B, N] with
+// md_bstride = N (0 when shared); dmd zeroed by the caller.
 __global__ void __launch_bounds__(kThreads)
 chunk_output_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ mixed,
                         const float* __restrict__ md, const bf16* __restrict__ dout,
                         bf16* __restrict__ dq, bf16* __restrict__ dk_i,
                         bf16* __restrict__ dv_i, bf16* __restrict__ dmixed,
-                        float* __restrict__ dmd, int N, int C, int H, int Dk, int Dv) {
+                        float* __restrict__ dmd, int N, int C, int H, int Dk, int Dv,
+                        int md_bstride) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* sa = reinterpret_cast<float*>(smem);     // [C, C] A = q k^T
   float* sdp = sa + C * C;                         // [C, C] dP = dO v^T
@@ -164,7 +170,8 @@ chunk_output_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   // 2. causal mask, the two bf16 tiles, and this block's part of d md
-  const float mdn = md[n];
+  const int64_t md_off = (bn / N) * md_bstride + n;
+  const float mdn = md[md_off];
   float part = 0.f;
   for (int e = threadIdx.x; e < C * C; e += blockDim.x) {
     const int r = e / C, c = e % C;
@@ -183,7 +190,7 @@ chunk_output_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += red[w];
-    atomicAdd(dmd + n, s);
+    atomicAdd(dmd + md_off, s);
   }
 
   // 3. dv_intra = md * P^T dO  [C, Dv]; P^T is zero below the diagonal
@@ -260,15 +267,21 @@ chunk_output_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// K3b. grid (min(slabs, kMixBlocks)); each block walks slabs s = blockIdx.x,
-// blockIdx.x + gridDim.x, ... of kSlab columns. m: [N, N] fp32 (read below
-// the diagonal only); dmix, st, ds: [B, N, R]; dm: [N, N] fp32 zeroed by the
-// caller, accumulated atomically below the diagonal.
+// K3b. Shared m: grid (min(slabs, kMixBlocks)); each block walks slabs
+// s = blockIdx.x, blockIdx.x + gridDim.x, ... of kSlab columns over all batch
+// rows (n_slabs = B * slabs_per_row). Per-row m (m_bstride = N*N): grid
+// (blocks per row, B); block row blockIdx.y walks the slabs of batch row
+// blockIdx.y only (n_slabs = slabs_per_row) and reads and writes that row's
+// matrices. m: [N, N] or [B, N, N] fp32 (read below the diagonal only); dmix,
+// st, ds: [B, N, R]; dm: m's shape, fp32 zeroed by the caller, accumulated
+// atomically below the diagonal.
 __global__ void __launch_bounds__(kThreads)
 mix_states_bwd_kernel(const float* __restrict__ m, const bf16* __restrict__ dmix,
                       const bf16* __restrict__ st, bf16* __restrict__ ds,
                       float* __restrict__ dm, int N, int64_t R, int64_t slabs_per_row,
-                      int64_t n_slabs) {
+                      int64_t n_slabs, int64_t m_bstride) {
+  m += blockIdx.y * m_bstride;
+  dm += blockIdx.y * m_bstride;
   __shared__ float ms[kMaxSlots * kMaxSlots];
   __shared__ __align__(32) bf16 sd[kMaxSlots * kSlab];
   __shared__ __align__(32) bf16 ss[kMaxSlots * kSlab];
@@ -291,8 +304,9 @@ mix_states_bwd_kernel(const float* __restrict__ m, const bf16* __restrict__ dmix
   wmma::fill_fragment(acc, 0.0f);
 
   for (int64_t s = blockIdx.x; s < n_slabs; s += gridDim.x) {
-    const int64_t b = s / slabs_per_row;
-    const int64_t col0 = (s % slabs_per_row) * kSlab;
+    const int64_t g = blockIdx.y * n_slabs + s;  // blockIdx.y is 0 when m is shared
+    const int64_t b = g / slabs_per_row;
+    const int64_t col0 = (g % slabs_per_row) * kSlab;
     __syncthreads();  // the previous slab's readers are done
     for (int e = threadIdx.x; e < N * (kSlab / 8); e += blockDim.x) {
       const int row = e / (kSlab / 8), c8 = (e % (kSlab / 8)) * 8;
@@ -394,7 +408,7 @@ extern "C" {
 int mhla_chunk_output_bwd(const void* q, const void* k, const void* v, const void* mixed,
                           const void* md, const void* dout, void* dq, void* dk_i, void* dv_i,
                           void* dmixed, void* dmd, int bn, int N, int C, int H, int Dk, int Dv,
-                          void* stream) {
+                          int md_bstride, void* stream) {
   const int smem = C * C * (2 * (int)sizeof(float) + 2 * (int)sizeof(bf16));
   cudaError_t err = cudaFuncSetAttribute(
       chunk_output_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -403,18 +417,21 @@ int mhla_chunk_output_bwd(const void* q, const void* k, const void* v, const voi
   chunk_output_bwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)mixed, (const float*)md,
       (const bf16*)dout, (bf16*)dq, (bf16*)dk_i, (bf16*)dv_i, (bf16*)dmixed, (float*)dmd, N, C,
-      H, Dk, Dv);
+      H, Dk, Dv, md_bstride);
   return (int)cudaGetLastError();
 }
 
 int mhla_mix_states_bwd(const void* m, const void* dmix, const void* st, void* ds, void* dm,
-                        int B, int N, long long R, void* stream) {
+                        int B, int N, long long R, long long m_bstride, void* stream) {
   const long long slabs_per_row = R / kSlab;
-  const long long n_slabs = (long long)B * slabs_per_row;
-  const unsigned blocks = (unsigned)(n_slabs < kMixBlocks ? n_slabs : kMixBlocks);
-  mix_states_bwd_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  // shared m: one row of blocks over all slabs; per-row m: a row of blocks per batch row
+  const int rows = m_bstride ? B : 1;
+  const long long n_slabs = (m_bstride ? 1LL : (long long)B) * slabs_per_row;
+  const long long per_row = kMixBlocks / rows > 0 ? kMixBlocks / rows : 1;
+  dim3 grid((unsigned)(n_slabs < per_row ? n_slabs : per_row), rows);
+  mix_states_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)m, (const bf16*)dmix, (const bf16*)st, (bf16*)ds, (float*)dm, N,
-      (int64_t)R, (int64_t)slabs_per_row, (int64_t)n_slabs);
+      (int64_t)R, (int64_t)slabs_per_row, (int64_t)n_slabs, (int64_t)m_bstride);
   return (int)cudaGetLastError();
 }
 

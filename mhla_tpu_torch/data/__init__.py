@@ -2,6 +2,7 @@
 
 from .lm_data import (
     PackedTokenIterator,
+    PackedVarlenIterator,
     PackingState,
     batched,
     make_lm_dataloader,
@@ -11,6 +12,7 @@ from .lm_data import (
 
 __all__ = [
     "PackedTokenIterator",
+    "PackedVarlenIterator",
     "PackingState",
     "batched",
     "make_lm_dataloader",

@@ -1,5 +1,5 @@
-"""Non-causal flash (softmax) attention on [B, T, H, D] tensors, forward
-and backward (counterpart of ``mhla_tpu/kernels/flash_attention.py``).
+"""Flash (softmax) attention on [B, T, H, D] tensors, forward and backward
+(counterpart of ``mhla_tpu/kernels/flash_attention.py``).
 
 K9 ``flash_attention`` replaces the JAX library's Pallas TPU flash kernel
 that ``mhla_tpu/kernels/flash_attention.py:59-63,115-118`` calls for long
@@ -17,6 +17,16 @@ whose forward is K9 in its training form, which also writes the row
 log-sum-exp [B, H, Tq]; a call without gradients launches the same kernel as
 before and writes none.
 
+The causal and segment-id forms (``causal=True`` and / or ``segment_ids``
+[B, T], Tq == Tk, as the JAX wrapper requires) replace the same library
+kernel called with ``causal=True`` and ``SegmentIds``
+(``flash_attention.py:73-104``): key j is kept for query i iff j <= i
+(causal) and seg[b, i] == seg[b, j]. Their kernels (``mhla_flash_fwd_masked``
+and ``mhla_flash_bwd_masked`` in the same sources, counted as
+``flash_attention_masked`` and ``flash_attention_masked_bwd``) walk only the
+64 x 64 tiles that can hold a kept pair; ``visited_tiles`` gives their
+count.
+
 A CPU tensor takes :func:`flash_attention_plain` and
 :func:`flash_attention_bwd_plain`; a CUDA tensor launches the kernels or
 raises. ``launches`` counts kernel launches.
@@ -32,9 +42,11 @@ import torch
 from . import _build
 from .mhla_chunk import _check, _on_cpu, _raise_on_error, _stream
 
-launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+launches = {"flash_attention": 0, "flash_attention_bwd": 0,
+            "flash_attention_masked": 0, "flash_attention_masked_bwd": 0}
 
 _HEAD_DIM = 128  # csrc: kD
+_TILE = 64  # csrc: kBlockM, kBlockN, kTile
 _lib_cache: Optional[ctypes.CDLL] = None
 
 
@@ -46,7 +58,10 @@ def _lib() -> ctypes.CDLL:
         lib.mhla_flash_fwd.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p]
         lib.mhla_flash_fwd_lse.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
         lib.mhla_flash_bwd.argtypes = [p] * 10 + [i, i, i, i, ctypes.c_float, p]
-        for fn in (lib.mhla_flash_fwd, lib.mhla_flash_fwd_lse, lib.mhla_flash_bwd):
+        lib.mhla_flash_fwd_masked.argtypes = [p] * 8 + [i, i, i, i, ctypes.c_float, p]
+        lib.mhla_flash_bwd_masked.argtypes = [p] * 13 + [i, i, i, i, ctypes.c_float, p]
+        for fn in (lib.mhla_flash_fwd, lib.mhla_flash_fwd_lse, lib.mhla_flash_bwd,
+                   lib.mhla_flash_fwd_masked, lib.mhla_flash_bwd_masked):
             fn.restype = ctypes.c_int
         _lib_cache = lib
     return _lib_cache
@@ -54,6 +69,35 @@ def _lib() -> ctypes.CDLL:
 
 # float32 score elements one row block of the plain version may hold (2 GiB)
 _PLAIN_SCORE_ELEMS = 1 << 29
+
+
+def keep_mask(
+    causal: bool, segment_ids: Optional[torch.Tensor], tk: int, device
+) -> Optional[Callable[[int, int], torch.Tensor]]:
+    """``row_mask`` of the causal and segment-id forms for the plain
+    versions: ``(r0, r1) ->`` bool [B or 1, 1, r1 - r0, Tk], true where key
+    j is kept for query i (j <= i when causal; equal segment ids); None
+    when neither is asked for."""
+    if not causal and segment_ids is None:
+        return None
+
+    def row_mask(r0: int, r1: int) -> torch.Tensor:
+        keep = None
+        if causal:
+            rows = torch.arange(r0, r1, device=device)[:, None]
+            keep = (rows >= torch.arange(tk, device=device)[None, :])[None, None]
+        if segment_ids is not None:
+            same = (segment_ids[:, r0:r1, None] == segment_ids[:, None, :tk])[:, None]
+            keep = same if keep is None else keep & same
+        return keep
+
+    return row_mask
+
+
+def _and_masks(a, b):
+    if a is None or b is None:
+        return a or b
+    return lambda r0, r1: a(r0, r1) & b(r0, r1)
 
 
 def flash_attention_plain(
@@ -64,6 +108,8 @@ def flash_attention_plain(
     block_rows: Optional[int] = None,
     row_mask: Optional[Callable[[int, int], torch.Tensor]] = None,
     return_lse: bool = False,
+    causal: bool = False,
+    segment_ids: Optional[torch.Tensor] = None,
 ):
     """softmax(scale * q k^T) v per batch row and head: q [B, Tq, H, D],
     k, v [B, Tk, H, D] -> [B, Tq, H, D] in q's dtype. Scores, softmax and
@@ -75,11 +121,14 @@ def flash_attention_plain(
     model's cross-attention, 710 at its 31,500-token self-attention). Each
     block takes one full softmax over all keys, so the result does not
     depend on the blocking beyond the order of the products' sums.
-    ``row_mask(r0, r1)`` gives a bool keep-mask [r1 - r0, Tk] for those
-    query rows; every row must keep at least one key. ``return_lse`` also
-    returns each row's log-sum-exp of the scaled scores, [B, H, Tq] float32."""
+    ``row_mask(r0, r1)`` gives a bool keep-mask for those query rows,
+    broadcastable to [B, H, r1 - r0, Tk]; ``causal`` and ``segment_ids``
+    [B, T] add the masks of :func:`keep_mask`. Every row must keep at least
+    one key. ``return_lse`` also returns each row's log-sum-exp of the
+    scaled scores, [B, H, Tq] float32."""
     b, tq, h, d = q.shape
     scale = d**-0.5 if scale is None else scale
+    row_mask = _and_masks(row_mask, keep_mask(causal, segment_ids, k.shape[1], q.device))
     if block_rows is None:
         block_rows = max(1, _PLAIN_SCORE_ELEMS // max(1, b * h * k.shape[1]))
     kf, vf = k.float(), v.float()
@@ -112,6 +161,8 @@ def flash_attention_bwd_plain(
     scale: Optional[float] = None,
     block_rows: Optional[int] = None,
     row_mask: Optional[Callable[[int, int], torch.Tensor]] = None,
+    causal: bool = False,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of :func:`flash_attention_plain` for ``do``,
     from its output ``o`` and row log-sum-exp ``lse`` [B, H, Tq], without ever
@@ -121,10 +172,12 @@ def flash_attention_bwd_plain(
     ``dk += scale * dS^T q``. All sums are float32; P and dS are rounded to
     q's dtype before their products, and P before dS, as the kernel rounds
     them. The result does not depend on the blocking beyond the order of the
-    sums over the query rows. ``row_mask`` is the forward's: P is 0 where it
-    is false (set, not multiplied: a masked score may lie far above ``lse``)."""
+    sums over the query rows. ``row_mask``, ``causal`` and ``segment_ids``
+    are the forward's: P is 0 where the mask drops a pair (set, not
+    multiplied: a masked score may lie far above ``lse``)."""
     b, tq, h, d = q.shape
     scale = d**-0.5 if scale is None else scale
+    row_mask = _and_masks(row_mask, keep_mask(causal, segment_ids, k.shape[1], q.device))
     if block_rows is None:
         block_rows = max(1, _PLAIN_BWD_SCORE_ELEMS // max(1, b * h * k.shape[1]))
     kf, vf = k.float(), v.float()
@@ -148,6 +201,43 @@ def flash_attention_bwd_plain(
     return dq, (dk * scale).to(k.dtype), dv.to(v.dtype)
 
 
+def visited_tiles(causal: bool, segment_ids: Optional[torch.Tensor], t: int) -> int:
+    """The number of 64 x 64 tiles of one head that the masked forms walk
+    (the forward and the dQ kernel by query tile, the dK/dV kernel by key
+    tile: the same set), summed over the batch rows of ``segment_ids`` (or
+    for one row): on or below the diagonal when causal, and with meeting
+    [min, max] segment-id ranges."""
+    n = -(-t // _TILE)
+    tri = torch.ones(n, n, dtype=torch.bool)
+    if causal:
+        tri = torch.tril(tri)
+    if segment_ids is None:
+        return int(tri.sum())
+    ids = segment_ids.detach().to("cpu", torch.int64)
+    last = ids[:, -1:].expand(-1, n * _TILE - t)  # repeats a real id: the ranges stay the same
+    tiles = torch.cat([ids, last], dim=1).reshape(ids.shape[0], n, _TILE)
+    lo, hi = tiles.amin(-1), tiles.amax(-1)
+    meets = (lo[:, :, None] <= hi[:, None, :]) & (lo[:, None, :] <= hi[:, :, None])
+    return int((meets & tri).sum())
+
+
+def _masked_args(q: torch.Tensor, causal: bool, segment_ids: Optional[torch.Tensor]):
+    """Checks of the masked forms; (seg int32 [B, T] or None, the range
+    scratch or None) on q's device."""
+    b, t = q.shape[:2]
+    if segment_ids is None:
+        return None, None
+    if tuple(segment_ids.shape) != (b, t) or segment_ids.device != q.device:
+        raise ValueError(f"segment_ids {tuple(segment_ids.shape)} on {segment_ids.device} do "
+                         f"not match q {tuple(q.shape)} on {q.device}")
+    seg = segment_ids.to(torch.int32).contiguous()
+    return seg, torch.empty(b, -(-t // _TILE), 2, dtype=torch.int32, device=q.device)
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
 def flash_attention_bwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -156,17 +246,27 @@ def flash_attention_bwd(
     lse: torch.Tensor,
     do: torch.Tensor,
     scale: Optional[float] = None,
+    causal: bool = False,
+    segment_ids: Optional[torch.Tensor] = None,
+    visits: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K9b (see :func:`flash_attention_bwd_plain`): any Tq and Tk >= 1; the
-    result is the same from run to run (no atomics)."""
+    """K9b (see :func:`flash_attention_bwd_plain`): any Tq and Tk >= 1, or,
+    with ``causal`` and / or ``segment_ids`` [B, T], Tq == Tk; the result is
+    the same from run to run (no atomics). ``visits`` (int32 [2] on the
+    card, masked forms) gets the tiles walked by the dK/dV and the dQ kernel
+    added."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if (tuple(k.shape) != (b, tk, h, d) or v.shape != k.shape or o.shape != q.shape
             or do.shape != q.shape or tuple(lse.shape) != (b, h, tq)):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, o "
                          f"{tuple(o.shape)}, do {tuple(do.shape)}, lse {tuple(lse.shape)} disagree")
+    masked = causal or segment_ids is not None
+    if masked and tq != tk:
+        raise ValueError(f"causal and segment-id attention need Tq == Tk, got {tq} and {tk}")
     if _on_cpu(q, k, v, o, lse, do):
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, scale, causal=causal,
+                                         segment_ids=segment_ids)
     for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check(name, x, torch.bfloat16, 4)
     _check("lse", lse, torch.float32, 3)
@@ -174,17 +274,27 @@ def flash_attention_bwd(
         raise ValueError(f"kernel takes head dim {_HEAD_DIM}, got {d}")
     if any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
         raise ValueError("kernel copies 16 bytes at a time: its inputs must be 16-byte aligned")
+    seg, ranges = _masked_args(q, causal, segment_ids)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b * tq * h:
         delta = torch.empty_like(lse)
+        scale = d**-0.5 if scale is None else scale
         with torch.cuda.device(q.device):
-            err = _lib().mhla_flash_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b, tq, tk, h, d**-0.5 if scale is None else scale, _stream(q),
-            )
+            if masked:
+                err = _lib().mhla_flash_bwd_masked(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), _ptr(seg), _ptr(ranges), _ptr(visits), b, tq, h,
+                    int(causal), scale, _stream(q),
+                )
+            else:
+                err = _lib().mhla_flash_bwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), b, tq, tk, h, scale, _stream(q),
+                )
         _raise_on_error("flash_attention_bwd", err)
-        launches["flash_attention_bwd"] += 1
+        launches["flash_attention_masked_bwd" if masked else "flash_attention_bwd"] += 1
     else:
         dk.zero_()
         dv.zero_()
@@ -196,16 +306,18 @@ class _FlashAttention(torch.autograd.Function):
     K9b backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        o, lse = _flash_fwd(q, k, v, scale, want_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
+    def forward(ctx, q, k, v, scale, causal, segment_ids):
+        o, lse = _flash_fwd(q, k, v, scale, True, causal, segment_ids)
+        ctx.save_for_backward(q, k, v, o, lse, segment_ids)
+        ctx.scale, ctx.causal = scale, causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        return (*flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.scale), None)
+        q, k, v, o, lse, segment_ids = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.scale, ctx.causal,
+                                    segment_ids)
+        return (*grads, None, None, None)
 
 
 def flash_attention(
@@ -216,29 +328,34 @@ def flash_attention(
     scale: Optional[float] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K9 (see :func:`flash_attention_plain`): any Tq and Tk >= 1.
-    Differentiable in q, k and v through K9b."""
-    if causal or segment_ids is not None:
-        raise NotImplementedError("causal and packed (segment_ids) flash attention "
-                                  "are not ported yet")
+    """K9 (see :func:`flash_attention_plain`): any Tq and Tk >= 1; with
+    ``causal`` and / or ``segment_ids`` [B, T] (tokens attend within their
+    own segment), Tq == Tk. Differentiable in q, k and v through K9b."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if tuple(k.shape) != (b, tk, h, d) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if tk < 1:
         raise ValueError("attention over no keys")
+    if (causal or segment_ids is not None) and tq != tk:
+        raise ValueError(f"causal and segment-id attention need Tq == Tk, got {tq} and {tk}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, scale)
-    return _flash_fwd(q, k, v, scale, want_lse=False)[0]
+        return _FlashAttention.apply(q, k, v, scale, causal, segment_ids)
+    return _flash_fwd(q, k, v, scale, False, causal, segment_ids)[0]
 
 
-def _flash_fwd(q, k, v, scale: Optional[float], want_lse: bool):
+def _flash_fwd(q, k, v, scale: Optional[float], want_lse: bool, causal: bool = False,
+               segment_ids: Optional[torch.Tensor] = None,
+               visits: Optional[torch.Tensor] = None):
     """``(out, lse | None)``: the plain version for CPU tensors, K9 for CUDA
-    tensors, in its training form (which writes ``lse``) when ``want_lse``."""
+    tensors, in its training form (which writes ``lse``) when ``want_lse``,
+    in its masked form with ``causal`` or ``segment_ids`` (``visits``, int32
+    [1] on the card, then gets the walked key tiles added)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if _on_cpu(q, k, v):
-        out = flash_attention_plain(q, k, v, scale, return_lse=want_lse)
+        out = flash_attention_plain(q, k, v, scale, return_lse=want_lse, causal=causal,
+                                    segment_ids=segment_ids)
         return out if want_lse else (out, None)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check(name, x, torch.bfloat16, 4)
@@ -246,12 +363,20 @@ def _flash_fwd(q, k, v, scale: Optional[float], want_lse: bool):
         raise ValueError(f"kernel takes head dim {_HEAD_DIM}, got {d}")
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("kernel copies 16 bytes at a time: q, k and v must be 16-byte aligned")
+    masked = causal or segment_ids is not None
+    seg, ranges = _masked_args(q, causal, segment_ids)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device) if want_lse else None
     if b * tq * h:
         scale = d**-0.5 if scale is None else scale
         with torch.cuda.device(q.device):
-            if want_lse:
+            if masked:
+                err = _lib().mhla_flash_fwd_masked(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+                    _ptr(seg), _ptr(ranges), _ptr(visits), b, tq, h, int(causal), scale,
+                    _stream(q),
+                )
+            elif want_lse:
                 err = _lib().mhla_flash_fwd_lse(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                     b, tq, tk, h, scale, _stream(q),
@@ -262,5 +387,5 @@ def _flash_fwd(q, k, v, scale: Optional[float], want_lse: bool):
                     scale, _stream(q),
                 )
         _raise_on_error("flash_attention", err)
-        launches["flash_attention"] += 1
+        launches["flash_attention_masked" if masked else "flash_attention"] += 1
     return out, lse

@@ -17,7 +17,10 @@ recomputes the map's derivative from it.
   memory could exploit.
 - Design: one program per 16 rows x one head loads the two halves of the
   head segment as two [16, Dh/2] blocks, with the matching rows of the
-  [max_len, Dh/2] cos/sin tables at ``offset + t``, and writes both halves
+  [max_len, Dh/2] cos/sin tables at ``offset + t`` (or, for packed varlen
+  rows, at each token's own position ``positions[b, t]``, read per row: the
+  JAX kernel streams [B, T, Dh] tables gathered by those positions,
+  ``fmap_rope_pallas.py:97-128,181-183``), and writes both halves
   back. The tables are indexed in the kernel, so no [T, Dh] signed copy is
   built per call, and the decode step (T = 1) launches the same kernel
   (the JAX package falls back to jnp there). Both kernels read strided
@@ -50,10 +53,10 @@ _kernels = None
 
 
 def _fmap_rope_fwd(
-    x_ptr, cos_ptr, sin_ptr, o_ptr,
-    n_rows, seq_len, offset, stride_b, stride_t,
+    x_ptr, cos_ptr, sin_ptr, o_ptr, pos_ptr,
+    n_rows, seq_len, offset, max_row, stride_b, stride_t,
     ROW: tl.constexpr, DH: tl.constexpr, HALF: tl.constexpr,
-    FMAP: tl.constexpr, BLOCK_R: tl.constexpr,
+    FMAP: tl.constexpr, BLOCK_R: tl.constexpr, HAS_POS: tl.constexpr,
 ):
     rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
     head = tl.program_id(1)
@@ -64,7 +67,12 @@ def _fmap_rope_fwd(
     src = (rows64 // seq_len) * stride_b + t.to(tl.int64) * stride_t
     x_off = src[:, None] + head * DH + cols[None, :]
     o_off = rows64[:, None] * ROW + head * DH + cols[None, :]
-    t_off = (t + offset)[:, None] * HALF + cols[None, :]
+    if HAS_POS:  # each token's own table row, clamped as the JAX gather clamps
+        tab = tl.load(pos_ptr + rows, mask=rows < n_rows, other=0)
+        tab = tl.minimum(tl.maximum(tab, 0), max_row)
+    else:
+        tab = t + offset
+    t_off = tab[:, None] * HALF + cols[None, :]
     x1 = tl.load(x_ptr + x_off, mask=mask, other=0.0).to(tl.float32)
     x2 = tl.load(x_ptr + x_off + HALF, mask=mask, other=0.0).to(tl.float32)
     if FMAP == 1:  # relu
@@ -82,10 +90,10 @@ def _fmap_rope_fwd(
 
 
 def _fmap_rope_bwd(
-    dy_ptr, x_ptr, cos_ptr, sin_ptr, dx_ptr,
-    n_rows, seq_len, offset, dy_stride_b, dy_stride_t, x_stride_b, x_stride_t,
+    dy_ptr, x_ptr, cos_ptr, sin_ptr, dx_ptr, pos_ptr,
+    n_rows, seq_len, offset, max_row, dy_stride_b, dy_stride_t, x_stride_b, x_stride_t,
     ROW: tl.constexpr, DH: tl.constexpr, HALF: tl.constexpr,
-    FMAP: tl.constexpr, BLOCK_R: tl.constexpr,
+    FMAP: tl.constexpr, BLOCK_R: tl.constexpr, HAS_POS: tl.constexpr,
 ):
     rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
     head = tl.program_id(1)
@@ -97,7 +105,12 @@ def _fmap_rope_bwd(
     dy_off = (bidx * dy_stride_b + t64 * dy_stride_t)[:, None] + head * DH + cols[None, :]
     x_off = (bidx * x_stride_b + t64 * x_stride_t)[:, None] + head * DH + cols[None, :]
     o_off = rows64[:, None] * ROW + head * DH + cols[None, :]
-    t_off = (t + offset)[:, None] * HALF + cols[None, :]
+    if HAS_POS:
+        tab = tl.load(pos_ptr + rows, mask=rows < n_rows, other=0)
+        tab = tl.minimum(tl.maximum(tab, 0), max_row)
+    else:
+        tab = t + offset
+    t_off = tab[:, None] * HALF + cols[None, :]
     dy1 = tl.load(dy_ptr + dy_off, mask=mask, other=0.0).to(tl.float32)
     dy2 = tl.load(dy_ptr + dy_off + HALF, mask=mask, other=0.0).to(tl.float32)
     cos = tl.load(cos_ptr + t_off, mask=mask, other=0.0)
@@ -122,7 +135,7 @@ def _load_triton():
     if _kernels is None:
         triton, tl = _build.import_triton()
         # one compiled variant for every batch, length and decode position
-        unspec = ["n_rows", "seq_len", "offset"]
+        unspec = ["n_rows", "seq_len", "offset", "max_row"]
         _kernels = (
             triton.jit(_fmap_rope_fwd, do_not_specialize=unspec),
             triton.jit(_fmap_rope_bwd, do_not_specialize=unspec),
@@ -153,9 +166,12 @@ def fmap_rope_plain(
     num_heads: int,
     feature_map: Optional[str] = None,
     offset: int = 0,
+    positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``rope(fmap(x))`` in float32, returned in x's dtype."""
-    y = apply_rotary_flat(_fmap_fwd(x.float(), feature_map), cos, sin, num_heads, offset)
+    """``rope(fmap(x))`` in float32, returned in x's dtype; ``positions``
+    [B, T] gives each token its own table row."""
+    y = apply_rotary_flat(_fmap_fwd(x.float(), feature_map), cos, sin, num_heads, offset,
+                          positions)
     return y.to(x.dtype)
 
 
@@ -167,11 +183,23 @@ def fmap_rope_bwd_plain(
     num_heads: int,
     feature_map: Optional[str] = None,
     offset: int = 0,
+    positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``fmap'(x) * rope_{-sin}(dy)`` in float32 from dy rounded to x's
     dtype (as ``_fused_bwd`` casts it), returned in x's dtype."""
-    g = apply_rotary_flat(dy.to(x.dtype).float(), cos, -sin, num_heads, offset)
+    g = apply_rotary_flat(dy.to(x.dtype).float(), cos, -sin, num_heads, offset, positions)
     return (g * _fmap_deriv(x.float(), feature_map)).to(x.dtype)
+
+
+def _positions_arg(positions: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """The kernels' ``pos_ptr``: contiguous int32 [B, T] positions on x's
+    device, or x itself (never read) when there are none."""
+    if positions is None:
+        return x
+    if tuple(positions.shape) != tuple(x.shape[:2]) or positions.device != x.device:
+        raise ValueError(f"positions {tuple(positions.shape)} on {positions.device} do not "
+                         f"match x {tuple(x.shape)} on {x.device}")
+    return positions.to(torch.int32).contiguous()
 
 
 def _launch_checks(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, half: int):
@@ -188,13 +216,14 @@ def _launch_checks(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, half: 
         raise ValueError(f"kernel needs a power-of-two Dh/2, got {half}")
 
 
-def _fmap_rope(x, cos, sin, num_heads, feature_map, offset) -> torch.Tensor:
+def _fmap_rope(x, cos, sin, num_heads, feature_map, offset, positions=None) -> torch.Tensor:
     """K1 on a checked input: the plain version for a CPU tensor."""
     if x.device.type == "cpu":
-        return fmap_rope_plain(x, cos, sin, num_heads, feature_map, offset)
+        return fmap_rope_plain(x, cos, sin, num_heads, feature_map, offset, positions)
     b, t, f = x.shape
     dh = f // num_heads
     _launch_checks(x, cos, sin, dh // 2)
+    pos = _positions_arg(positions, x)
     out = torch.empty(b, t, f, dtype=x.dtype, device=x.device)
     if b * t == 0:
         return out
@@ -202,9 +231,9 @@ def _fmap_rope(x, cos, sin, num_heads, feature_map, offset) -> torch.Tensor:
     grid = (triton.cdiv(b * t, _BLOCK_R), num_heads)
     with torch.cuda.device(x.device):
         kernel[grid](
-            x, cos, sin, out, b * t, t, offset, x.stride(0), x.stride(1),
+            x, cos, sin, out, pos, b * t, t, offset, cos.shape[0] - 1, x.stride(0), x.stride(1),
             ROW=f, DH=dh, HALF=dh // 2, FMAP=_FMAP_CODE[feature_map],
-            BLOCK_R=_BLOCK_R, num_warps=4,
+            BLOCK_R=_BLOCK_R, HAS_POS=positions is not None, num_warps=4,
         )
     launches["fmap_rope"] += 1
     return out
@@ -218,6 +247,7 @@ def fmap_rope_bwd(
     num_heads: int,
     feature_map: Optional[str] = None,
     offset: int = 0,
+    positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K1b: the gradient of :func:`fused_fmap_rope_flat` for the output
     gradient ``dy`` at the input ``x`` (both [B, T, H*Dh], any row strides);
@@ -225,10 +255,11 @@ def fmap_rope_bwd(
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} and x {tuple(x.shape)} disagree")
     if x.device.type == "cpu" and dy.device.type == "cpu":
-        return fmap_rope_bwd_plain(dy, x, cos, sin, num_heads, feature_map, offset)
+        return fmap_rope_bwd_plain(dy, x, cos, sin, num_heads, feature_map, offset, positions)
     b, t, f = x.shape
     dh = f // num_heads
     _launch_checks(x, cos, sin, dh // 2)
+    pos = _positions_arg(positions, x)
     if dy.device != x.device:
         raise ValueError(f"dy on {dy.device}, x on {x.device}")
     dy = dy.to(x.dtype)
@@ -241,10 +272,10 @@ def fmap_rope_bwd(
     grid = (triton.cdiv(b * t, _BLOCK_R), num_heads)
     with torch.cuda.device(x.device):
         kernel[grid](
-            dy, x, cos, sin, dx, b * t, t, offset,
+            dy, x, cos, sin, dx, pos, b * t, t, offset, cos.shape[0] - 1,
             dy.stride(0), dy.stride(1), x.stride(0), x.stride(1),
             ROW=f, DH=dh, HALF=dh // 2, FMAP=_FMAP_CODE[feature_map],
-            BLOCK_R=_BLOCK_R, num_warps=4,
+            BLOCK_R=_BLOCK_R, HAS_POS=positions is not None, num_warps=4,
         )
     launches["fmap_rope_bwd"] += 1
     return dx
@@ -254,15 +285,16 @@ class _FmapRope(torch.autograd.Function):
     """K1 forward, K1b backward; saves x before the feature map."""
 
     @staticmethod
-    def forward(ctx, x, cos, sin, num_heads, feature_map, offset):
-        ctx.save_for_backward(x, cos, sin)
+    def forward(ctx, x, cos, sin, num_heads, feature_map, offset, positions):
+        ctx.save_for_backward(x, cos, sin, positions)
         ctx.args = (num_heads, feature_map, offset)
-        return _fmap_rope(x, cos, sin, num_heads, feature_map, offset)
+        return _fmap_rope(x, cos, sin, num_heads, feature_map, offset, positions)
 
     @staticmethod
     def backward(ctx, dy):
-        x, cos, sin = ctx.saved_tensors
-        return fmap_rope_bwd(dy, x, cos, sin, *ctx.args), None, None, None, None, None
+        x, cos, sin, positions = ctx.saved_tensors
+        dx = fmap_rope_bwd(dy, x, cos, sin, *ctx.args, positions=positions)
+        return dx, None, None, None, None, None, None
 
 
 def fused_fmap_rope_flat(
@@ -279,9 +311,10 @@ def fused_fmap_rope_flat(
     through K1b).
 
     ``offset`` is the position of x's first token (the decode position);
-    a token past the tables' last row raises ``ValueError``."""
-    if positions is not None:
-        raise NotImplementedError("per-token positions (packed varlen) are not ported yet")
+    a token past the tables' last row raises ``ValueError``. ``positions``
+    [B, T] (packed varlen rows: each document restarts at 0) gives every
+    token its own table row instead, clamped to the tables as the JAX
+    gather clamps; ``offset`` is then unused."""
     if feature_map not in _FMAPS:
         raise ValueError(f"feature map {feature_map!r} is not a flat map {_FMAPS}")
     b, t, f = x.shape
@@ -290,12 +323,12 @@ def fused_fmap_rope_flat(
     half = f // num_heads // 2
     if cos.shape[-1] != half or sin.shape != cos.shape:
         raise ValueError("full-head-dim rotary tables [max_len, Dh/2] required")
-    if offset < 0 or offset + t > cos.shape[0]:
+    if positions is None and (offset < 0 or offset + t > cos.shape[0]):
         raise ValueError(
             f"positions [{offset}, {offset + t}) exceed the rotary tables' "
             f"{cos.shape[0]} rows (the context bound)"
         )
     if torch.is_grad_enabled() and x.requires_grad:
-        return _FmapRope.apply(x, cos, sin, num_heads, feature_map, offset)
+        return _FmapRope.apply(x, cos, sin, num_heads, feature_map, offset, positions)
     # no gradient (serving): skip the autograd Function's host cost per call
-    return _fmap_rope(x, cos, sin, num_heads, feature_map, offset)
+    return _fmap_rope(x, cos, sin, num_heads, feature_map, offset, positions)

@@ -13,7 +13,12 @@ CUDA kernels (counterpart of ``mhla_tpu/kernels/mhla_chunk_pallas.py``):
 The q scale ``Dk**-0.5`` is folded into the mixing matrix once, as the JAX
 entry point does (``mhla_chunk_pallas.py:1005-1013``): Ms is the scaled
 strict lower triangle rounded to the compute dtype, md the scaled diagonal
-in float32. The TPU kernels group 4 chunks into supertiles; here every
+in float32. Both are shared by the batch ([N, N] and [N]) or, for packed
+varlen rows, one per batch row ([B, N, N] and [B, N], built by
+``ops.mhla_chunk.build_segment_mixing``): the kernels then read them with a
+batch stride, K4b gives d md per row and K3b dMs per row, as the JAX
+kernels do with a batch index on the M block specs
+(``mhla_chunk_pallas.py:726``, ``_dm_pallas(batched=True)`` :422). The TPU kernels group 4 chunks into supertiles; here every
 kernel works per chunk, so K3 mixes all earlier chunks and K4 adds only the
 chunk's own term. ``_ChunkOp`` is the ``torch.autograd.Function`` around
 K2 -> K3 -> K4 with K4b -> K3b -> K2b as its backward (the JAX ``_st_path``
@@ -32,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.mhla_chunk import _pad_to_chunks, prepare_mixing_matrix
+from ..ops.mhla_chunk import _pad_to_chunks, build_segment_mixing, prepare_mixing_matrix
 from . import _build
 
 launches = {
@@ -54,10 +59,11 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load()
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mhla_chunk_states.argtypes = [p, p, p, i, i, i, i, i, p]
-        lib.mhla_mix_states.argtypes = [p, p, p, i, i, ctypes.c_longlong, p]
-        lib.mhla_chunk_output.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.mhla_chunk_output_bwd.argtypes = [p] * 11 + [i] * 6 + [p]
-        lib.mhla_mix_states_bwd.argtypes = [p, p, p, p, p, i, i, ctypes.c_longlong, p]
+        ll = ctypes.c_longlong
+        lib.mhla_mix_states.argtypes = [p, p, p, i, i, ll, ll, p]
+        lib.mhla_chunk_output.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.mhla_chunk_output_bwd.argtypes = [p] * 11 + [i] * 7 + [p]
+        lib.mhla_mix_states_bwd.argtypes = [p, p, p, p, p, i, i, ll, ll, p]
         lib.mhla_chunk_states_bwd.argtypes = [p] * 7 + [i] * 5 + [p]
         for fn in (lib.mhla_chunk_states, lib.mhla_mix_states, lib.mhla_chunk_output,
                    lib.mhla_chunk_output_bwd, lib.mhla_mix_states_bwd,
@@ -157,11 +163,24 @@ def chunk_states(k4: torch.Tensor, v4: torch.Tensor, num_heads: int) -> torch.Te
 # ---------------------------------------------------------------------------
 
 
+def _batch_stride(m: torch.Tensor, per_row_ndim: int, name: str, b: int, n: int) -> int:
+    """Elements between two batch rows' matrices in ``m``: 0 for a shared
+    one ([N, N] or [N]), its size for one per row ([B, N, N] or [B, N])."""
+    shared = (n,) * (per_row_ndim - 1)
+    if tuple(m.shape) == shared:
+        return 0
+    if tuple(m.shape) == (b, *shared):
+        return m[0].numel()
+    raise ValueError(f"{name} {tuple(m.shape)} is neither {shared} nor {(b, *shared)}")
+
+
 def mix_states_plain(m_strict: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
-    """mixed[b, i] = sum_j m_strict[i, j] states[b, j], float32 accumulation,
-    result in the states' dtype. m_strict: [N, N] float32 holding values
-    already rounded to the compute dtype."""
-    out = torch.einsum("ij,bjrd->bird", m_strict.float(), states4.float())
+    """mixed[b, i] = sum_j m_strict[(b,) i, j] states[b, j], float32
+    accumulation, result in the states' dtype. m_strict: [N, N] or, one per
+    batch row, [B, N, N] float32 holding values already rounded to the
+    compute dtype."""
+    eq = "ij,bjrd->bird" if m_strict.ndim == 2 else "bij,bjrd->bird"
+    out = torch.einsum(eq, m_strict.float(), states4.float())
     return out.to(states4.dtype).contiguous()
 
 
@@ -170,11 +189,10 @@ def mix_states(m_strict: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
     lower triangle of ``m_strict``."""
     if _on_cpu(m_strict, states4):
         return mix_states_plain(m_strict, states4)
-    _check("m_strict", m_strict, torch.float32, 2)
+    _check("m_strict", m_strict, torch.float32, m_strict.ndim)
     _check("states4", states4, torch.bfloat16, 4)
     b, n, hdk, dv = states4.shape
-    if tuple(m_strict.shape) != (n, n):
-        raise ValueError(f"m_strict {tuple(m_strict.shape)} does not match N={n}")
+    m_bstride = _batch_stride(m_strict, 3, "m_strict", b, n)
     if n > _MAX_SLOTS:
         raise ValueError(f"kernel mixes at most {_MAX_SLOTS} chunks, got {n}")
     r = hdk * dv
@@ -184,7 +202,7 @@ def mix_states(m_strict: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(states4.device):
         err = _lib().mhla_mix_states(
             m_strict.data_ptr(), states4.data_ptr(), out.data_ptr(),
-            b, n, r, _stream(states4),
+            b, n, r, m_bstride, _stream(states4),
         )
     _raise_on_error("mix_states", err)
     launches["mix_states"] += 1
@@ -204,9 +222,9 @@ def chunk_output_plain(
     m_diag: torch.Tensor,
     num_heads: int,
 ) -> torch.Tensor:
-    """o_j = q_j @ mixed_j + m_diag[j] * (bf16(tril(q_j k_j^T)) @ v_j) per
-    chunk, float32 accumulation; [B,N,C,H*Dv] in q's dtype (the JAX
-    ``_core_xla``, ``mhla_chunk_pallas.py:819``)."""
+    """o_j = q_j @ mixed_j + m_diag[(b,) j] * (bf16(tril(q_j k_j^T)) @ v_j)
+    per chunk, float32 accumulation; [B,N,C,H*Dv] in q's dtype (the JAX
+    ``_core_xla``, ``mhla_chunk_pallas.py:819``). m_diag: [N] or [B, N]."""
     b, n, c, hdk = q4.shape
     h = num_heads
     dk, dv = hdk // h, v4.shape[-1] // h
@@ -220,7 +238,7 @@ def chunk_output_plain(
     tril = torch.tril(torch.ones(c, c, device=q4.device))
     attn = (attn * tril).to(q4.dtype).float()
     o_intra = torch.einsum("bnhcm,bnmhv->bnchv", attn, v5)
-    o = o_inter + o_intra * m_diag.float()[None, :, None, None, None]
+    o = o_inter + o_intra * m_diag.float()[..., :, None, None, None]
     return o.to(q4.dtype).reshape(b, n, c, h * dv).contiguous()
 
 
@@ -237,13 +255,14 @@ def chunk_output(
         return chunk_output_plain(q4, k4, v4, mixed4, m_diag, num_heads)
     for name, x in (("q4", q4), ("k4", k4), ("v4", v4), ("mixed4", mixed4)):
         _check(name, x, torch.bfloat16, 4)
-    _check("m_diag", m_diag, torch.float32, 1)
+    _check("m_diag", m_diag, torch.float32, m_diag.ndim)
     b, n, c, hdk = q4.shape
     dk, dv = _check_heads(num_heads, hdk, v4.shape[-1])
     if k4.shape != q4.shape or v4.shape[:3] != q4.shape[:3]:
         raise ValueError("q4, k4 and v4 disagree in shape")
-    if tuple(mixed4.shape) != (b, n, hdk, dv) or tuple(m_diag.shape) != (n,):
-        raise ValueError("mixed4 or m_diag does not match q4")
+    if tuple(mixed4.shape) != (b, n, hdk, dv):
+        raise ValueError("mixed4 does not match q4")
+    md_bstride = _batch_stride(m_diag, 2, "m_diag", b, n)
     if c % 16 or c > _MAX_CHUNK:
         raise ValueError(f"kernel needs chunk_size % 16 == 0 and <= {_MAX_CHUNK}, got {c}")
     out = torch.empty(b, n, c, num_heads * dv, dtype=q4.dtype, device=q4.device)
@@ -251,7 +270,7 @@ def chunk_output(
         err = _lib().mhla_chunk_output(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mixed4.data_ptr(),
             m_diag.data_ptr(), out.data_ptr(),
-            b * n, n, c, num_heads, dk, dv, _stream(q4),
+            b * n, n, c, num_heads, dk, dv, md_bstride, _stream(q4),
         )
     _raise_on_error("chunk_output", err)
     launches["chunk_output"] += 1
@@ -277,10 +296,10 @@ def chunk_output_bwd_plain(
     dA = bf16(md * dP) per chunk and head, float32 accumulation:
 
       dq = dA k + dO mixed^T,  dk_intra = dA^T q,  dv_intra = md * P^T dO,
-      dmixed = q^T dO,  d md[n] = sum over b, h of sum(dP * A).
+      dmixed = q^T dO,  d md[(b,) n] = sum over (b,) h of sum(dP * A).
 
-    Returns (dq4, dk_intra4, dv_intra4, dmixed4) in q's dtype and d md [N]
-    float32. dA is rounded where the JAX backward rounds it
+    Returns (dq4, dk_intra4, dv_intra4, dmixed4) in q's dtype and d md in
+    m_diag's shape ([N] shared, [B, N] per row), float32. dA is rounded where the JAX backward rounds it
     (``mhla_chunk_pallas.py:680``)."""
     b, n, c, hdk = q4.shape
     h = num_heads
@@ -291,7 +310,7 @@ def chunk_output_bwd_plain(
     v5 = v4.reshape(b, n, c, h, dv).float()
     do5 = do4.reshape(b, n, c, h, dv).float()
     tril = torch.tril(torch.ones(c, c, device=q4.device))
-    md = m_diag.float()[None, :, None, None, None]
+    md = m_diag.float()[..., :, None, None, None]
     a = torch.einsum("bnchk,bnmhk->bnhcm", q5, k5) * tril
     p = a.to(cdt).float()
     dp = torch.einsum("bnchv,bnmhv->bnhcm", do5, v5) * tril
@@ -302,7 +321,7 @@ def chunk_output_bwd_plain(
     dk_i = torch.einsum("bnhcm,bnchk->bnmhk", da, q5)
     dv_i = torch.einsum("bnhcm,bnchv->bnmhv", p, do5) * md
     dmixed = torch.einsum("bnchk,bnchv->bnhkv", q5, do5)
-    dmd = (dp * a).sum(dim=(0, 2, 3, 4))
+    dmd = (dp * a).sum(dim=(0, 2, 3, 4) if m_diag.ndim == 1 else (2, 3, 4))
     out = lambda x, d: x.to(cdt).reshape(b, n, c, h * d).contiguous()  # noqa: E731
     return (
         out(dq, dk), out(dk_i, dk), out(dv_i, dv),
@@ -319,31 +338,33 @@ def chunk_output_bwd(
     do4: torch.Tensor,
     num_heads: int,
 ) -> Tuple[torch.Tensor, ...]:
-    """K4b (see :func:`chunk_output_bwd_plain`). d md sums over batch and
-    heads with float32 atomics, so its last bits change from run to run."""
+    """K4b (see :func:`chunk_output_bwd_plain`). d md sums over heads (and,
+    shared, over the batch) with float32 atomics, so its last bits change
+    from run to run."""
     if _on_cpu(q4, k4, v4, mixed4, m_diag, do4):
         return chunk_output_bwd_plain(q4, k4, v4, mixed4, m_diag, do4, num_heads)
     for name, x in (("q4", q4), ("k4", k4), ("v4", v4), ("mixed4", mixed4), ("do4", do4)):
         _check(name, x, torch.bfloat16, 4)
-    _check("m_diag", m_diag, torch.float32, 1)
+    _check("m_diag", m_diag, torch.float32, m_diag.ndim)
     b, n, c, hdk = q4.shape
     dk, dv = _check_heads(num_heads, hdk, v4.shape[-1])
     if k4.shape != q4.shape or v4.shape[:3] != q4.shape[:3] or do4.shape != v4.shape:
         raise ValueError("q4, k4, v4 and do4 disagree in shape")
-    if tuple(mixed4.shape) != (b, n, hdk, dv) or tuple(m_diag.shape) != (n,):
-        raise ValueError("mixed4 or m_diag does not match q4")
+    if tuple(mixed4.shape) != (b, n, hdk, dv):
+        raise ValueError("mixed4 does not match q4")
+    md_bstride = _batch_stride(m_diag, 2, "m_diag", b, n)
     if c % 16 or c > _MAX_CHUNK:
         raise ValueError(f"kernel needs chunk_size % 16 == 0 and <= {_MAX_CHUNK}, got {c}")
     dq4, dk_i = torch.empty_like(q4), torch.empty_like(q4)
     dv_i = torch.empty_like(v4)
     dmixed4 = torch.empty_like(mixed4)
-    dmd = torch.zeros(n, dtype=torch.float32, device=q4.device)
+    dmd = torch.zeros(m_diag.shape, dtype=torch.float32, device=q4.device)
     with torch.cuda.device(q4.device):
         err = _lib().mhla_chunk_output_bwd(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mixed4.data_ptr(),
             m_diag.data_ptr(), do4.data_ptr(), dq4.data_ptr(), dk_i.data_ptr(),
             dv_i.data_ptr(), dmixed4.data_ptr(), dmd.data_ptr(),
-            b * n, n, c, num_heads, dk, dv, _stream(q4),
+            b * n, n, c, num_heads, dk, dv, md_bstride, _stream(q4),
         )
     _raise_on_error("chunk_output_bwd", err)
     launches["chunk_output_bwd"] += 1
@@ -359,12 +380,15 @@ def mix_states_bwd_plain(
     m_strict: torch.Tensor, dmixed4: torch.Tensor, states4: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gradient of :func:`mix_states_plain` for dmixed4: dstates[b, j] =
-    sum_{i>j} Ms[i, j] dmixed[b, i] in the states' dtype, and dMs[i, j] =
-    sum over b of <dmixed[b, i], states[b, j]> for i > j (zero elsewhere,
-    the strict-part mask of ``mhla_chunk_pallas.py:932-936``), float32."""
+    sum_{i>j} Ms[(b,) i, j] dmixed[b, i] in the states' dtype, and dMs[i, j]
+    = sum over b of <dmixed[b, i], states[b, j]> for i > j (zero elsewhere,
+    the strict-part mask of ``mhla_chunk_pallas.py:932-936``), float32; for
+    a per-row Ms [B, N, N], dMs[b, i, j] of each row, not summed."""
     ms = torch.tril(m_strict.float(), diagonal=-1)
-    dstates = torch.einsum("ij,bird->bjrd", ms, dmixed4.float())
-    dms = torch.einsum("bird,bjrd->ij", dmixed4.float(), states4.float())
+    per_row = m_strict.ndim == 3
+    dstates = torch.einsum("bij,bird->bjrd" if per_row else "ij,bird->bjrd", ms, dmixed4.float())
+    dms = torch.einsum("bird,bjrd->bij" if per_row else "bird,bjrd->ij",
+                       dmixed4.float(), states4.float())
     return dstates.to(states4.dtype).contiguous(), torch.tril(dms, diagonal=-1)
 
 
@@ -375,23 +399,24 @@ def mix_states_bwd(
     float32 atomics, so its last bits change from run to run."""
     if _on_cpu(m_strict, dmixed4, states4):
         return mix_states_bwd_plain(m_strict, dmixed4, states4)
-    _check("m_strict", m_strict, torch.float32, 2)
+    _check("m_strict", m_strict, torch.float32, m_strict.ndim)
     _check("dmixed4", dmixed4, torch.bfloat16, 4)
     _check("states4", states4, torch.bfloat16, 4)
     b, n, hdk, dv = states4.shape
-    if dmixed4.shape != states4.shape or tuple(m_strict.shape) != (n, n):
-        raise ValueError("m_strict, dmixed4 and states4 disagree in shape")
+    if dmixed4.shape != states4.shape:
+        raise ValueError("dmixed4 and states4 disagree in shape")
+    m_bstride = _batch_stride(m_strict, 3, "m_strict", b, n)
     if n > _MAX_SLOTS:
         raise ValueError(f"kernel mixes at most {_MAX_SLOTS} chunks, got {n}")
     r = hdk * dv
     if r % _SLAB:
         raise ValueError(f"kernel needs a state size divisible by {_SLAB}, got {r}")
     dstates4 = torch.empty_like(states4)
-    dms = torch.zeros(n, n, dtype=torch.float32, device=states4.device)
+    dms = torch.zeros(m_strict.shape, dtype=torch.float32, device=states4.device)
     with torch.cuda.device(states4.device):
         err = _lib().mhla_mix_states_bwd(
             m_strict.data_ptr(), dmixed4.data_ptr(), states4.data_ptr(),
-            dstates4.data_ptr(), dms.data_ptr(), b, n, r, _stream(states4),
+            dstates4.data_ptr(), dms.data_ptr(), b, n, r, m_bstride, _stream(states4),
         )
     _raise_on_error("mix_states_bwd", err)
     launches["mix_states_bwd"] += 1
@@ -466,7 +491,9 @@ def chunk_states_bwd(
 class _ChunkOp(torch.autograd.Function):
     """(q4, k4, v4, m_strict, m_diag) -> (o4, states4) through K2 -> K3 ->
     K4; the backward runs K4b -> K3b -> K2b. states4 is not
-    differentiable (the decode cache). The gradient for m_strict holds the
+    differentiable (the decode cache). m_strict and m_diag are shared
+    ([N, N], [N]) or per batch row ([B, N, N], [B, N]), and so are their
+    gradients. The gradient for m_strict holds the
     strict lower triangle only, in float32; the cast of m_strict to the
     compute dtype around this Function rounds it there, as JAX returns the
     strict-part dM in the compute dtype (``mhla_chunk_pallas.py:945``)."""
@@ -515,9 +542,13 @@ def mhla_chunk_fused_flat(
     the JAX entry returns them (``mhla_chunk_pallas.py:1079-1089``).
     o is differentiable in q, k, v and ``mixing_matrix`` through K4b, K3b
     and K2b; the states are not.
+
+    ``segment_ids`` [B, T] (packed documents, boundaries on chunk
+    boundaries) gives every batch row its own [N, N] matrix from
+    :func:`~mhla_tpu_torch.ops.mhla_chunk.build_segment_mixing`; the same
+    kernels read it with a batch stride, and its gradient reaches
+    ``mixing_matrix`` through that function's gather.
     """
-    if segment_ids is not None:
-        raise NotImplementedError("segment_ids (packed varlen) is not ported yet")
     in_dtype = q.dtype
     b, t, hdk = q.shape
     h = num_heads
@@ -529,9 +560,13 @@ def mhla_chunk_fused_flat(
     c = chunk_size
 
     # fold the q scale into the mixing matrix, exactly once
-    m = torch.tril(prepare_mixing_matrix(mixing_matrix, n) * dk**-0.5)
+    if segment_ids is None:
+        m = prepare_mixing_matrix(mixing_matrix, n)  # [N, N]
+    else:
+        m = build_segment_mixing(mixing_matrix, segment_ids, n, c)  # [B, N, N]
+    m = torch.tril(m * dk**-0.5)
     m_strict = torch.tril(m, diagonal=-1).to(cdt).float().contiguous()
-    m_diag = torch.diagonal(m).contiguous()
+    m_diag = torch.diagonal(m, dim1=-2, dim2=-1).contiguous()
 
     q4 = q.reshape(b, n, c, h * dk).to(cdt).contiguous()
     k4 = k.reshape(b, n, c, h * dk).to(cdt).contiguous()

@@ -7,10 +7,15 @@ clamped to [1e-5, 1] * tril on every forward, the chunked op (K2-K4) for a
 prefill or the recurrent op for decode, and a per-head RMSNorm + swish
 output gate before the output projection.
 
+A right-padded batch passes ``attention_mask`` [B, T] (1 real, 0 pad):
+padded k and v are zeroed, so they add nothing to any state. Packed varlen
+rows pass ``segment_ids`` [B, T]: rotary positions restart at every
+document and the chunked op isolates the documents (a training-path
+feature; decode with them raises ``ValueError``, as in the JAX package).
+
 Waits for a later port (raises ``NotImplementedError``): short convolution,
-XPos in the layer, ``attention_mask``, ``segment_ids``, head-axis tensor
-parallelism, the ``fused_recurrent`` mode, and continuing a cache with
-more than ``chunk_size`` tokens.
+XPos in the layer, head-axis tensor parallelism, the ``fused_recurrent``
+mode, and continuing a cache with more than ``chunk_size`` tokens.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from ..ops import (
     init_causal_mixing_matrix,
     mhla_recurrent,
     rotary_cos_sin,
+    segment_positions,
     state_from_chunk,
 )
 from ..ops.mhla_recurrent import MHLAState
@@ -102,16 +108,17 @@ class MHLACausal(nn.Module):
         hidden_states: torch.Tensor,  # [B, T, hidden]
         state: Optional[MHLACausalState] = None,
         use_cache: bool = False,
-        attention_mask: Optional[torch.Tensor] = None,
-        segment_ids: Optional[torch.Tensor] = None,
+        attention_mask: Optional[torch.Tensor] = None,  # [B, T] 1 real, 0 pad
+        segment_ids: Optional[torch.Tensor] = None,  # [B, T] packed documents
     ) -> Tuple[torch.Tensor, Optional[MHLACausalState]]:
-        if attention_mask is not None:
-            raise NotImplementedError("attention_mask is not ported yet")
-        if segment_ids is not None:
-            raise NotImplementedError("segment_ids (packed varlen) is not ported yet")
         b, t, _ = hidden_states.shape
         h = self.num_heads
         decode = state is not None
+        if decode and segment_ids is not None and t <= self.chunk_size:
+            raise ValueError(
+                "segment_ids (packed varlen) is a training-path feature; "
+                "the recurrent decode path carries one document per row"
+            )
         if decode and t > self.chunk_size:
             raise NotImplementedError(
                 "continuing a cache with more than chunk_size tokens is not ported yet"
@@ -136,13 +143,22 @@ class MHLACausal(nn.Module):
             q = fmap(q.unflatten(-1, (h, -1))).flatten(-2)
             k = fmap(k.unflatten(-1, (h, -1))).flatten(-2)
 
-        # feature map + rotary after it, one fused pass (K1)
+        if attention_mask is not None:
+            # zeroed k and v add nothing to the chunk states or the intra-chunk
+            # terms (and commute with the feature map and the rotation)
+            mask = attention_mask[..., None].to(k.dtype)
+            k = k * mask
+            v = v * mask
+
+        # feature map + rotary after it, one fused pass (K1); packed rows
+        # restart the positions at every document
         cos, sin = rotary_cos_sin(
             self.num_slots * self.chunk_size, self.head_k_dim, self.rope_base, q.device
         )
         offset = state.recurrent.t if decode else 0
-        q = fused_fmap_rope_flat(q, cos, sin, h, fm, offset=offset)
-        k = fused_fmap_rope_flat(k, cos, sin, h, fm, offset=offset)
+        positions = segment_positions(segment_ids) if segment_ids is not None else None
+        q = fused_fmap_rope_flat(q, cos, sin, h, fm, offset=offset, positions=positions)
+        k = fused_fmap_rope_flat(k, cos, sin, h, fm, offset=offset, positions=positions)
 
         mixing = clamp_causal_mixing_matrix(self.mixing_matrix)
         rec = None
@@ -159,7 +175,7 @@ class MHLACausal(nn.Module):
         else:
             o, states = mhla_chunk_fused_flat(
                 q, k, v, mixing, num_heads=h, chunk_size=self.chunk_size,
-                output_final_state=use_cache,
+                output_final_state=use_cache, segment_ids=segment_ids,
             )
             if use_cache:
                 rec = state_from_chunk(

@@ -27,7 +27,9 @@ def _t(x) -> torch.Tensor:
 
 def params_from_jax(params: Mapping[str, Any], cfg: MHLALMConfig) -> Dict[str, torch.Tensor]:
     """flax params (``{"params": {"model": ...}}`` or the inner tree) ->
-    float32 state dict for ``MHLAForCausalLM(cfg)``."""
+    float32 state dict for ``MHLAForCausalLM(cfg)``, MHLA and softmax
+    (``SelfAttention``: q/k/v/o projections, their biases, q/k norms)
+    layers alike."""
     tree = params.get("params", params)
     model = tree["model"]
     sd: Dict[str, torch.Tensor] = {
@@ -41,9 +43,12 @@ def params_from_jax(params: Mapping[str, Any], cfg: MHLALMConfig) -> Dict[str, t
         for name in _ATTN_DENSE:
             if name in attn:
                 sd[f"{dst}attn.{name}.weight"] = _t(attn[name]["kernel"]).T.contiguous()
-        n = cfg.num_slots
-        sd[f"{dst}attn.mixing_matrix"] = _t(attn["mixing_matrix"]).reshape(n, n)
-        for norm in ("g_norm_swish_gate", "g_norm"):
+                if "bias" in attn[name]:  # a softmax layer's qkv bias
+                    sd[f"{dst}attn.{name}.bias"] = _t(attn[name]["bias"])
+        if "mixing_matrix" in attn:  # an MHLA layer
+            n = cfg.num_slots
+            sd[f"{dst}attn.mixing_matrix"] = _t(attn["mixing_matrix"]).reshape(n, n)
+        for norm in ("g_norm_swish_gate", "g_norm", "q_norm", "k_norm"):
             if norm in attn:
                 sd[f"{dst}attn.{norm}.weight"] = _t(attn[norm]["weight"])
         for name in _MLP_DENSE:

@@ -1,6 +1,9 @@
 """Autoregressive generation for the MHLA LM (counterpart of
 ``mhla_tpu/models/generation.py``): one prefill through the chunked op
-(K1-K4 on the card), then O(1)-per-token recurrent decode.
+(K1-K4 on the card), then O(1)-per-token recurrent decode. The softmax
+layers of a hybrid model keep KV caches: the prefill returns (k, v, T),
+:func:`_pad_softmax_caches` grows them to the full length once, and every
+decode step writes its token into them in place.
 
 The JAX package runs its decode loop as one jitted scan; PyTorch runs
 eagerly, so the loop here is a plain Python loop with the caches updated
@@ -13,6 +16,22 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
+
+
+def _pad_softmax_caches(states, max_length: int):
+    """Grow the softmax layers' KV caches (plain (k, v, t) tuples; the MHLA
+    layers' states are named tuples and pass through) from the prefill
+    length to ``max_length`` tokens, zero-filled."""
+    out = []
+    for s in states:
+        if isinstance(s, tuple) and len(s) == 3 and not hasattr(s, "_fields"):
+            k, v, t = s
+            pad = (0, 0, 0, 0, 0, max_length - k.shape[1])
+            out.append((F.pad(k, pad), F.pad(v, pad), t))
+        else:
+            out.append(s)
+    return out
 
 
 def _make_sampler(temperature: float, top_k: Optional[int]):
@@ -59,6 +78,7 @@ def generate(
         )
     sample = _make_sampler(temperature, top_k)
     logits, states = model(input_ids, use_cache=True)
+    states = _pad_softmax_caches(states, t + max_new_tokens)
     tok = sample(logits, generator)
     out = [input_ids, tok[:, None]]
     scores = [logits[:, -1]] if output_scores else None

@@ -1,19 +1,25 @@
 """MHLA causal language model (counterpart of ``mhla_tpu/models/gla_lm.py``,
-the ``attn_extends='mhla'`` family).
+the ``attn_extends='mhla'`` family, its softmax hybrid and the all-softmax
+``'transformer'`` family).
 
-Pre-norm blocks of [RMSNorm -> MHLA -> residual -> RMSNorm -> GatedMLP ->
-residual], a final RMSNorm and tied (or separate) unembedding. The
-``MHLALMConfig`` defaults are the 340M model of ``configs/mhla_340m.yaml``,
-so that model needs no yaml reader.
+Pre-norm blocks of [RMSNorm -> attention -> residual -> RMSNorm -> GatedMLP
+-> residual], a final RMSNorm and tied (or separate) unembedding. The
+attention of a layer is ``SelfAttention`` (causal softmax with RoPE) when
+the layer is listed in ``config.attn["layers"]`` or ``attn_extends ==
+"transformer"``, else ``MHLACausal``. The ``MHLALMConfig`` defaults are the
+340M model of ``configs/mhla_340m.yaml``, so that model needs no yaml
+reader; ``MHLALMConfig.from_json`` reads a reference-format model json.
 
-Waits for a later port (raises ``NotImplementedError``): the softmax hybrid
-layers (``attn``), every other ``attn_extends`` family, ``attention_mask``,
-``segment_ids`` and tensor parallelism.
+``attention_mask`` reaches the MHLA layers only and ``segment_ids`` every
+layer, as in the JAX package. Waits for a later port (raises
+``NotImplementedError``): every other ``attn_extends`` family and tensor
+parallelism.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 from typing import Any, Dict, List, Optional
 
@@ -21,6 +27,7 @@ import torch
 import torch.nn as nn
 
 from ..layers import GatedMLP, MHLACausal, RMSNorm, dense
+from ..layers.attention import SelfAttention
 
 
 @dataclasses.dataclass
@@ -62,47 +69,79 @@ class MHLALMConfig:
         """The longest prompt + decoded context the mixing matrix covers."""
         return self.num_slots * self.chunk_size
 
+    def is_softmax(self, layer_idx: int) -> bool:
+        """Whether layer ``layer_idx`` is a softmax ``SelfAttention`` layer."""
+        return self.attn_extends == "transformer" or (
+            self.attn is not None and layer_idx in self.attn.get("layers", ())
+        )
+
+    @classmethod
+    def from_json(cls, path: str, **overrides) -> "MHLALMConfig":
+        """Load a reference-format model json (e.g. ``mhla_340M.json``): its
+        keys that name a field of this config, then ``overrides``."""
+        with open(path) as f:
+            raw = json.load(f)
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {k: v for k, v in raw.items() if k in fields}
+        kwargs.update(overrides)
+        return cls(**kwargs)
+
 
 class MHLABlock(nn.Module):
     def __init__(self, config: MHLALMConfig, layer_idx: int, device=None):
         super().__init__()
         cfg = config
-        if cfg.attn_extends != "mhla" or (
-            cfg.attn is not None and layer_idx in cfg.attn.get("layers", ())
-        ):
+        self.is_softmax = cfg.is_softmax(layer_idx)
+        if not self.is_softmax and cfg.attn_extends != "mhla":
             raise NotImplementedError(
-                f"only the mhla attention family is ported (layer {layer_idx}, "
-                f"attn_extends={cfg.attn_extends!r}, attn={cfg.attn!r})"
+                f"only the mhla and softmax attention families are ported (layer "
+                f"{layer_idx}, attn_extends={cfg.attn_extends!r})"
             )
         if cfg.tp_mesh is not None:
             raise NotImplementedError("tensor parallelism is not ported yet")
         self.attn_norm = RMSNorm(cfg.hidden_size, eps=cfg.norm_eps, device=device)
-        self.attn = MHLACausal(
-            hidden_size=cfg.hidden_size,
-            expand_k=cfg.expand_k,
-            expand_v=cfg.expand_v,
-            num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads,
-            feature_map=cfg.feature_map,
-            use_short_conv=cfg.use_short_conv,
-            conv_size=cfg.conv_size,
-            use_output_gate=cfg.use_output_gate,
-            elementwise_affine=cfg.elementwise_affine,
-            norm_eps=cfg.norm_eps,
-            chunk_size=cfg.chunk_size,
-            num_slots=cfg.num_slots,
-            mode=cfg.attn_mode,
-            device=device,
-        )
+        if self.is_softmax:
+            attn_cfg = cfg.attn or {}
+            self.attn = SelfAttention(
+                hidden_size=cfg.hidden_size,
+                num_heads=attn_cfg.get("num_heads", cfg.num_heads),
+                num_kv_heads=attn_cfg.get("num_kv_heads"),
+                qkv_bias=attn_cfg.get("qkv_bias", False),
+                window_size=attn_cfg.get("window_size"),
+                rope_theta=attn_cfg.get("rope_theta", 10000.0),
+                max_position_embeddings=cfg.max_position_embeddings,
+                device=device,
+            )
+        else:
+            self.attn = MHLACausal(
+                hidden_size=cfg.hidden_size,
+                expand_k=cfg.expand_k,
+                expand_v=cfg.expand_v,
+                num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads,
+                feature_map=cfg.feature_map,
+                use_short_conv=cfg.use_short_conv,
+                conv_size=cfg.conv_size,
+                use_output_gate=cfg.use_output_gate,
+                elementwise_affine=cfg.elementwise_affine,
+                norm_eps=cfg.norm_eps,
+                chunk_size=cfg.chunk_size,
+                num_slots=cfg.num_slots,
+                mode=cfg.attn_mode,
+                device=device,
+            )
         self.mlp_norm = RMSNorm(cfg.hidden_size, eps=cfg.norm_eps, device=device)
         self.mlp = GatedMLP(
             cfg.hidden_size, cfg.hidden_ratio, cfg.intermediate_size, device=device
         )
 
     def forward(self, x, state=None, use_cache=False, attention_mask=None, segment_ids=None):
-        h, new_state = self.attn(
-            self.attn_norm(x), state, use_cache, attention_mask, segment_ids
-        )
+        if self.is_softmax:
+            h, new_state = self.attn(self.attn_norm(x), state, use_cache, segment_ids)
+        else:
+            h, new_state = self.attn(
+                self.attn_norm(x), state, use_cache, attention_mask, segment_ids
+            )
         x = x + h
         return x + self.mlp(self.mlp_norm(x)), new_state
 
@@ -160,8 +199,9 @@ class MHLAForCausalLM(nn.Module):
 def init_lm_params(model: MHLAForCausalLM, generator: torch.Generator) -> MHLAForCausalLM:
     """Reference init scheme, in place: normal(initializer_range) for the
     embedding and every Linear weight, o_proj/down_proj rescaled by
-    1/sqrt(2 * num_layers); norms stay ones and mixing matrices keep their
-    causal init. ``generator`` lives on the parameters' device."""
+    1/sqrt(2 * num_layers); biases zero (flax's), norms stay ones and mixing
+    matrices keep their causal init. ``generator`` lives on the parameters'
+    device."""
     cfg = model.config
     scale = 1.0 / math.sqrt(2 * cfg.num_hidden_layers)
     for name, p in model.named_parameters():
@@ -169,6 +209,8 @@ def init_lm_params(model: MHLAForCausalLM, generator: torch.Generator) -> MHLAFo
             p.normal_(0.0, cfg.initializer_range, generator=generator)
             if name.endswith(("o_proj.weight", "down_proj.weight")):
                 p.mul_(scale)
+        elif name.endswith(".bias"):
+            p.zero_()
     return model
 
 

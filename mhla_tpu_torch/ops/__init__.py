@@ -6,10 +6,14 @@ from .feature_maps import FEATURE_MAPS, get_feature_map
 from .mhla_blockwise import mhla_blockwise_mh
 from .mhla_chunk import (
     DEFAULT_CHUNK_SIZE,
+    build_segment_mixing,
+    chunk_segments,
     clamp_causal_mixing_matrix,
     init_causal_mixing_matrix,
     mhla_chunk,
+    mhla_chunk_ref,
     prepare_mixing_matrix,
+    segment_positions,
 )
 from .mhla_recurrent import MHLAState, init_mhla_state, mhla_recurrent, state_from_chunk
 from .rotary import (
@@ -31,12 +35,15 @@ __all__ = [
     "apply_rotary_3d_halves",
     "apply_rotary_flat",
     "block_mixing_matrix",
+    "build_segment_mixing",
+    "chunk_segments",
     "clamp_causal_mixing_matrix",
     "get_feature_map",
     "init_causal_mixing_matrix",
     "init_mhla_state",
     "mhla_blockwise_mh",
     "mhla_chunk",
+    "mhla_chunk_ref",
     "mhla_recurrent",
     "prepare_mixing_matrix",
     "rope_angles_3d",
@@ -44,5 +51,6 @@ __all__ = [
     "rotary_cos_sin",
     "rotary_freqs",
     "rotary_xpos_tables",
+    "segment_positions",
     "state_from_chunk",
 ]

@@ -90,13 +90,15 @@ def apply_rotary_flat(
 ) -> torch.Tensor:
     """Rotate-half rotary on head-flat x [B, T, H*D] with the same
     [>=T+offset, D/2] tables as :func:`apply_rotary`, computed in float32.
-    ``positions`` [B, T] selects explicit table rows per token."""
+    ``positions`` [B, T] selects explicit table rows per token (clamped to
+    the tables, as the JAX gather clamps)."""
     b, t, f = x.shape
     dh = f // num_heads
     half = dh // 2
     if cos.shape[-1] != half:
         raise ValueError("flat rotary requires full-head-dim tables")
     if positions is not None:
+        positions = positions.clamp(0, cos.shape[0] - 1)
         cos_t = cos[positions].float()[:, :, None, :]  # [B, T, 1, half]
         sin_t = sin[positions].float()[:, :, None, :]
     else:

@@ -10,15 +10,18 @@ Usage:
 The defaults are the 340M model (``MHLALMConfig()``) with float32
 parameters and bf16 compute (``bf16: true``), on ``--device=cuda``. A
 machine without PyYAML takes no yaml file: the dataclass defaults plus
-``--a.b=v`` overrides describe every run. For a tiny run on the CPU:
+``--a.b=v`` overrides describe every run. ``--model_json=<file>`` replaces
+the model section with a reference-format model json (``attn`` there makes
+a hybrid with softmax layers); ``--train.varlen=true`` packs several
+documents per row with exact boundaries (segment ids; the loss reads each
+row's ``targets``). For a tiny run on the CPU:
 
     python -m mhla_tpu_torch.train.lm_train --device=cpu --model.num_hidden_layers=2 \
         --model.hidden_size=512 --model.num_heads=2 --model.vocab_size=100 \
         --train.batch_size=2 --train.seq_len=130 --train.max_steps=4 --work_dir=/tmp/lm
 
 Not ported (``NotImplementedError``): data and tensor parallelism
-(``n_data``/``n_tensor`` > 1), packed varlen rows, L2Wrap and
-reference-format model json.
+(``n_data``/``n_tensor`` > 1) and L2Wrap.
 """
 
 from __future__ import annotations
@@ -74,10 +77,8 @@ class LMTrainConfig:
 
 def _check_ported(cfg: LMTrainConfig) -> None:
     for what, unported in (
-        ("model_json (reference-format model config)", cfg.model_json),
         ("data parallelism (train.n_data > 1)", cfg.train.n_data > 1),
         ("tensor parallelism (train.n_tensor > 1)", cfg.train.n_tensor > 1),
-        ("packed varlen training (train.varlen)", cfg.train.varlen),
         ("L2Wrap (model.use_l2warp)", cfg.model.use_l2warp),
     ):
         if unported:
@@ -85,16 +86,32 @@ def _check_ported(cfg: LMTrainConfig) -> None:
 
 
 def lm_loss(model, batch):
-    """Shifted next-token cross-entropy of ``model`` on token ids ``batch``."""
+    """Shifted next-token cross-entropy of ``model`` on token ids ``batch``,
+    or on a packed varlen batch (a dict of ``input_ids``, ``segment_ids`` and
+    ``targets``: documents isolated, the loss on ``targets``)."""
+    if isinstance(batch, dict):
+        logits, _ = model(batch["input_ids"], segment_ids=batch["segment_ids"])
+        return cross_entropy_loss(logits, batch["targets"]), {}
     logits, _ = model(batch)
     return cross_entropy_loss(logits, batch), {}
+
+
+def to_device(raw, device: torch.device):
+    """A numpy batch (an array, or the dict of a varlen batch) as int64
+    tensors on ``device``."""
+    if isinstance(raw, dict):
+        return {k: torch.from_numpy(v).to(device=device, dtype=torch.long) for k, v in raw.items()}
+    return torch.from_numpy(raw).to(device=device, dtype=torch.long)
 
 
 def build_training(cfg: LMTrainConfig):
     """The seeded model, its train state, the train step and the token
     stream that ``cfg`` describes: ``(model, state, step_fn, data)``.
-    With ``cfg.bf16`` the model computes in bf16 over float32 parameters."""
+    With ``cfg.bf16`` the model computes in bf16 over float32 parameters;
+    ``cfg.model_json`` replaces ``cfg.model``."""
     _check_ported(cfg)
+    if cfg.model_json:
+        cfg.model = MHLALMConfig.from_json(cfg.model_json)
     if cfg.bf16:
         cfg.model = dataclasses.replace(cfg.model, dtype=torch.bfloat16)
     device = torch.device(cfg.device)
@@ -104,7 +121,8 @@ def build_training(cfg: LMTrainConfig):
     step_fn = make_train_step(lm_loss, ema_decay=cfg.train.ema_decay)
     data = make_lm_dataloader(
         cfg.train.seq_len, cfg.train.batch_size, cfg.model.vocab_size,
-        seed=cfg.train.seed, chunk_size=cfg.model.chunk_size, num_slots=cfg.model.num_slots,
+        seed=cfg.train.seed, varlen=cfg.train.varlen, chunk_size=cfg.model.chunk_size,
+        num_slots=cfg.model.num_slots,
     )
     return model, state, step_fn, data
 
@@ -138,7 +156,7 @@ def main(argv=None) -> dict:
     last_loss = float("nan")
 
     for step_idx in range(start_step, cfg.train.max_steps):
-        batch = torch.from_numpy(next(data)).to(device=device, dtype=torch.long)
+        batch = to_device(next(data), device)
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         last_loss = float(metrics["loss"])  # waits for the step on the device

@@ -1,10 +1,13 @@
 """Profile training steps of the causal MHLA LM on one CUDA device.
 
-    python -m mhla_tpu_torch.train.profile_step
+    python -m mhla_tpu_torch.train.profile_step [--config=mhla|hybrid] [--varlen]
 
 Builds what ``lm_train.main`` trains by default (the 340M model,
 ``MHLALMConfig()`` widths, float32 parameters, bf16 compute, seeded init,
-B=8 T=2048 synthetic tokens) through ``lm_train.build_training``, runs
+B=8 T=2048 synthetic tokens) through ``lm_train.build_training``; with
+``--config=hybrid`` the same model with causal softmax attention (8 heads of
+128) in every third layer from 0 (``HYBRID_ATTN``), and with ``--varlen``
+packed documents with segment ids (``--train.varlen=true``). It runs
 warm-up steps, then times ``STEPS`` steps on the host clock (each ending in
 a device sync) and records one more under ``torch.profiler``. Prints the
 step time, tokens per second, the device's busy share of that step (the
@@ -15,6 +18,7 @@ mode.
 
 from __future__ import annotations
 
+import argparse
 import re
 import statistics
 import time
@@ -22,12 +26,18 @@ from collections import defaultdict
 
 import torch
 
-from .lm_train import LMTrainConfig, build_training
+from ..models import MHLALMConfig
+from .lm_train import LMTrainConfig, TrainLoopConfig, build_training, to_device
 from .trainer import OptimizerConfig
 
 WARMUP, STEPS, TOP = 3, 5, 25
+# the hybrid 340M model: the Wan hybrid schedule (softmax in every third layer
+# from 0, configs/wan_1300m_hybrid_mhla.yaml) on the 24 layers, 8 heads of 128
+HYBRID_ATTN = {"layers": list(range(0, 24, 3)), "num_heads": 8}
 
 _GROUPS = (
+    ("K9 flash forward (CUDA)", r"flash_fwd_kernel|seg_tile_ranges"),
+    ("K9b flash backward (CUDA)", r"flash_bwd_"),
     ("K1/K1b fmap_rope (Triton)", r"_fmap_rope"),
     ("K2-K4 chunk forward (CUDA)", r"chunk_states_kernel|mix_states_kernel|chunk_output_kernel"),
     ("K2b-K4b chunk backward (CUDA)", r"_bwd_kernel"),
@@ -76,15 +86,21 @@ def summarize_profile(prof, wall_us: float, groups, what: str = "step", top: int
             "groups_ms": {k: v / 1e3 for k, v in by_group.items()}}
 
 
-def main() -> dict:
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("mhla", "hybrid"), default="mhla")
+    ap.add_argument("--varlen", action="store_true")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = LMTrainConfig(optimizer=OptimizerConfig(warmup_steps=1, total_steps=20000))
+    model = MHLALMConfig(attn=HYBRID_ATTN if args.config == "hybrid" else None)
+    cfg = LMTrainConfig(model=model,
+                        optimizer=OptimizerConfig(warmup_steps=1, total_steps=20000),
+                        train=TrainLoopConfig(varlen=args.varlen))
     _, state, step, data = build_training(cfg)
     dev = torch.device(cfg.device)
-    batches = [torch.from_numpy(next(data)).to(dev, torch.long)
-               for _ in range(WARMUP + STEPS + 1)]
+    batches = [to_device(next(data), dev) for _ in range(WARMUP + STEPS + 1)]
     for b in batches[:WARMUP]:
         state, metrics = step(state, b)
     torch.cuda.synchronize()
@@ -104,8 +120,8 @@ def main() -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     b, t, layers = cfg.train.batch_size, cfg.train.seq_len, cfg.model.num_hidden_layers
     tokens = b * t
-    print(f"[profile] {torch.cuda.get_device_name(0)}; {layers} layers, B={b} "
-          f"T={t}: step {step_s * 1e3:.1f} ms (median of {STEPS}; "
+    print(f"[profile] {torch.cuda.get_device_name(0)}; {args.config}"
+          f"{' varlen' if args.varlen else ''}, {layers} layers, B={b} T={t}: step {step_s * 1e3:.1f} ms (median of {STEPS}; "
           f"{[round(t * 1e3, 1) for t in times]}) = {tokens / step_s:,.0f} tok/s")
     return {"step_ms": step_s * 1e3, "tok_s": tokens / step_s,
             **summarize_profile(prof, wall_us, _GROUPS)}

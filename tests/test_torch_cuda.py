@@ -738,3 +738,231 @@ def test_tiny_sparse_wan_trains_through_the_kernels(dev, lora):
         ref = grads()
     assert kernels.launch_counts() == launched
     assert_close("tiny sparse Wan gradients, kernels vs plain", ref, got, chip_smoke.VIDEO_TOL)
+
+
+# ---------------------------------------------------------------------------
+# LM on packed documents and the hybrid LM: per-row K1-K4b, masked K9 / K9b
+# ---------------------------------------------------------------------------
+
+
+def _doc_ids(lengths, t):
+    """[t] int32 ids of documents of the given lengths back to back (the
+    rest one more document)."""
+    ids = torch.full((t,), len(lengths), dtype=torch.int32)
+    pos = 0
+    for i, n in enumerate(lengths):
+        ids[pos:pos + n] = i
+        pos += n
+    return ids
+
+
+def _seg_geometry(name):
+    """(segment ids [B, T] on the CPU, heads) of one masked-flash geometry."""
+    t = {"packed": 2048, "unaligned": 1000, "one_token": 130, "decreasing": 777,
+         "repeated": 300, "bh1": 777, "one_tile": 64, "one": 1}[name]
+    if name == "packed":  # the varlen packer's rows: chunk-aligned documents and pad runs
+        return torch.stack([_doc_ids([448, 64, 640, 192, 576], t),
+                            _doc_ids([1024, 960], t)]), 3
+    if name == "unaligned":  # boundaries inside tiles, a last tile of 40
+        return torch.stack([_doc_ids([10, 300, 1, 333], t), _doc_ids([999], t)]), 3
+    if name == "one_token":  # every token its own segment
+        return torch.arange(t, dtype=torch.int32).expand(2, t).contiguous(), 3
+    if name == "decreasing":
+        return ((t - torch.arange(t)) // 37).to(torch.int32).expand(2, t).contiguous(), 2
+    if name == "repeated":  # ids that recur out of order: every tile's range meets every other's
+        return (torch.arange(t) % 5).to(torch.int32).expand(2, t).contiguous(), 2
+    if name == "bh1":
+        return _doc_ids([100, 200, 65], t)[None], 1
+    return _doc_ids([40], t)[None].expand(2, t).contiguous(), 2
+
+
+@pytest.mark.parametrize("form", ["causal", "segment", "causal_segment"])
+@pytest.mark.parametrize("geometry", ["packed", "unaligned", "one_token", "decreasing",
+                                      "repeated", "bh1", "one_tile", "one"])
+def test_masked_flash_kernels_match_plain(dev, geometry, form):
+    """K9 (serving and training forms) and K9b in their causal, segment-id
+    and combined forms against the plain versions; the lse; two K9b runs
+    bit for bit; and the tiles each kernel walked against the rule's count
+    (``visited_tiles``), which is below the full count where a tile can be
+    skipped."""
+    import chip_smoke
+
+    seg_cpu, h = _seg_geometry(geometry)
+    b, t = seg_cpu.shape
+    causal = form.startswith("causal")
+    seg = seg_cpu.to(dev) if "segment" in form else None
+    q, k, v, do = (_randn(dev, b, t, h, 128, seed=s).to(_BF16) for s in range(4))
+    visits = torch.zeros(3, dtype=torch.int32, device=dev)
+    before = dict(flash.launches)
+    out, lse = flash._flash_fwd(q, k, v, None, True, causal, seg, visits[:1])
+    assert torch.equal(out, flash.flash_attention(q, k, v, causal=causal, segment_ids=seg))
+    ref, lse_ref = flash.flash_attention_plain(q, k, v, return_lse=True, causal=causal,
+                                               segment_ids=seg)
+    assert_close(f"K9 {form} {geometry}", ref, out, chip_smoke.FLASH_TOL)
+    assert_close(f"K9 lse {form} {geometry}", lse_ref, lse, 1e-5)
+    got = flash.flash_attention_bwd(q, k, v, out, lse, do, None, causal, seg, visits[1:])
+    want = flash.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal, segment_ids=seg)
+    one_key = t == 1 or (geometry == "one_token" and seg is not None)
+    for name, r, g in zip(("dq", "dk", "dv"), want, got):
+        if one_key and name != "dv":  # every row keeps one key: P = 1, dS = 0
+            assert g.abs().max() < 1e-5 and r.abs().max() < 1e-5
+            continue
+        assert_close(f"K9b {name} {form} {geometry}", r, g, chip_smoke.FLASH_BWD_TOL)
+    again = flash.flash_attention_bwd(q, k, v, out, lse, do, None, causal, seg)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    assert flash.launches["flash_attention_masked"] == before["flash_attention_masked"] + 2
+    assert flash.launches["flash_attention_masked_bwd"] == before["flash_attention_masked_bwd"] + 2
+    assert flash.launches["flash_attention"] == before["flash_attention"]
+    n = -(-t // 64)
+    want_tiles = h * flash.visited_tiles(causal, seg_cpu if seg is not None else None, t)
+    if seg is None:
+        want_tiles *= b
+    assert visits.tolist() == [want_tiles] * 3
+    assert want_tiles <= b * h * n * n
+
+
+def test_masked_flash_refuses_unequal_lengths(dev):
+    q = torch.zeros(1, 128, 1, 128, dtype=_BF16, device=dev)
+    with pytest.raises(ValueError):
+        flash.flash_attention(q, q[:, :64], q[:, :64], causal=True)
+
+
+def _per_row_mixing(dev, b, t, seed=5):
+    """Segment ids of packed rows and the [B, N, N] / [B, N] per-row matrices
+    the fused op builds from them."""
+    from mhla_tpu_torch.ops import build_segment_mixing
+
+    seg = torch.stack([_doc_ids([256, 64, 448], t), _doc_ids([128] * (t // 128), t)]).to(dev)[:b]
+    m = torch.rand(32, 32, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+    n = -(-t // 64)
+    mv = torch.tril(build_segment_mixing(m, seg, n, 64) * 128**-0.5)
+    return seg, m, torch.tril(mv, -1).to(_BF16).float().contiguous(), \
+        torch.diagonal(mv, dim1=-2, dim2=-1).contiguous()
+
+
+@pytest.mark.parametrize("b,t", [(2, 2048), (1, 781)])
+def test_per_row_chunk_kernels_match_plain(dev, b, t):
+    """K3, K4, K4b and K3b with one mixing matrix per batch row (d md [B, N]
+    and dMs [B, N, N] per row), K1/K1b with per-token positions, and the
+    fused op on packed rows against its plain version."""
+    h, dk, dv, c = 4, 128, 256, 64
+    n = -(-t // c)
+    seg, m, m_strict, m_diag = _per_row_mixing(dev, b, t)
+
+    def tokens(d, relu, seed):
+        y = _randn(dev, b, n * c, h * d, seed=seed)
+        y[:, t:] = 0
+        y = torch.relu(y) if relu else y
+        return y.to(_BF16).reshape(b, n, c, h * d).contiguous()
+
+    q4, k4, v4, do4 = tokens(dk, True, 1), tokens(dk, True, 2), tokens(dv, False, 3), tokens(dv, False, 4)
+    states4 = mhla_chunk.chunk_states_plain(k4, v4, h)
+    assert_close("K3 per row", mhla_chunk.mix_states_plain(m_strict, states4),
+                 mhla_chunk.mix_states(m_strict, states4), KERNEL_TOL)
+    mixed4 = mhla_chunk.mix_states_plain(m_strict, states4)
+    assert_close("K4 per row", mhla_chunk.chunk_output_plain(q4, k4, v4, mixed4, m_diag, h),
+                 mhla_chunk.chunk_output(q4, k4, v4, mixed4, m_diag, h), KERNEL_TOL)
+    ref = mhla_chunk.chunk_output_bwd_plain(q4, k4, v4, mixed4, m_diag, do4, h)
+    got = mhla_chunk.chunk_output_bwd(q4, k4, v4, mixed4, m_diag, do4, h)
+    assert got[4].shape == (b, n)
+    for name, r, g in zip(("dq", "dk_intra", "dv_intra", "dmixed", "dmd"), ref, got):
+        assert_close(f"K4b per row {name}", r, g, KERNEL_TOL)
+    ref = mhla_chunk.mix_states_bwd_plain(m_strict, ref[3], states4)
+    got = mhla_chunk.mix_states_bwd(m_strict, got[3], states4)
+    assert got[1].shape == (b, n, n)
+    for name, r, g in zip(("dstates", "dMs"), ref, got):
+        assert_close(f"K3b per row {name}", r, g, KERNEL_TOL)
+
+    from mhla_tpu_torch.ops import segment_positions
+
+    pos = segment_positions(seg)
+    cos, sin = rotary_cos_sin(2048, 128, device=dev)
+    x, dy = (_randn(dev, b, t, h * 128, seed=s).to(_BF16) for s in (6, 7))
+    assert_close("K1 positions", fmap_rope.fmap_rope_plain(x, cos, sin, h, "relu", positions=pos),
+                 fmap_rope.fused_fmap_rope_flat(x, cos, sin, h, "relu", positions=pos),
+                 KERNEL_TOL)
+    assert_close("K1b positions",
+                 fmap_rope.fmap_rope_bwd_plain(dy, x, cos, sin, h, "relu", positions=pos),
+                 fmap_rope.fmap_rope_bwd(dy, x, cos, sin, h, "relu", positions=pos), KERNEL_TOL)
+
+    qf, kf = (torch.relu(_randn(dev, b, t, h * dk, seed=s)).to(_BF16) for s in (8, 9))
+    vf = _randn(dev, b, t, h * dv, seed=10).to(_BF16)
+    o, _ = mhla_chunk.mhla_chunk_fused_flat(qf, kf, vf, m, h, segment_ids=seg)
+    o_cpu, _ = mhla_chunk.mhla_chunk_fused_flat(qf.cpu(), kf.cpu(), vf.cpu(), m.cpu(), h,
+                                                segment_ids=seg.cpu())
+    assert_close("fused op on packed rows", o_cpu, o, KERNEL_TOL)
+
+
+def test_per_row_kernels_equal_shared_ones_for_equal_rows(dev):
+    """A per-row matrix whose rows are all the shared one gives the shared
+    kernels' results bit for bit (K3, K4, K4b but its summed d md, K3b's dS),
+    and the shared kernels' own results are those of the plain versions."""
+    b, t, h, dk, dv, c = 2, 1024, 4, 128, 256, 64
+    n = t // c
+    m = torch.tril(torch.rand(n, n, generator=torch.Generator(dev).manual_seed(3), device=dev))
+    ms, md = torch.tril(m, -1).to(_BF16).float().contiguous(), torch.diagonal(m).contiguous()
+    ms_b, md_b = ms.expand(b, n, n).contiguous(), md.expand(b, n).contiguous()
+    q4, k4 = (torch.relu(_randn(dev, b, n, c, h * dk, seed=s)).to(_BF16) for s in (1, 2))
+    v4, do4 = (_randn(dev, b, n, c, h * dv, seed=s).to(_BF16) for s in (3, 4))
+    states4 = mhla_chunk.chunk_states(k4, v4, h)
+    mixed4 = mhla_chunk.mix_states(ms, states4)
+    assert torch.equal(mixed4, mhla_chunk.mix_states(ms_b, states4))
+    assert_close("K3 shared", mhla_chunk.mix_states_plain(ms, states4), mixed4, KERNEL_TOL)
+    o4 = mhla_chunk.chunk_output(q4, k4, v4, mixed4, md, h)
+    assert torch.equal(o4, mhla_chunk.chunk_output(q4, k4, v4, mixed4, md_b, h))
+    shared = mhla_chunk.chunk_output_bwd(q4, k4, v4, mixed4, md, do4, h)
+    per_row = mhla_chunk.chunk_output_bwd(q4, k4, v4, mixed4, md_b, do4, h)
+    assert all(torch.equal(x, y) for x, y in zip(shared[:4], per_row[:4]))
+    assert_close("K4b d md summed over rows", shared[4], per_row[4].sum(0), 1e-6)
+    ds_shared, dm_shared = mhla_chunk.mix_states_bwd(ms, shared[3], states4)
+    ds_row, dm_row = mhla_chunk.mix_states_bwd(ms_b, shared[3], states4)
+    assert torch.equal(ds_shared, ds_row)
+    assert_close("K3b dMs summed over rows", dm_shared, dm_row.sum(0), 1e-5)
+
+
+def _tiny_hybrid(dev, dtype=torch.bfloat16):
+    """Three layers (softmax, MHLA, softmax), the softmax ones 4 heads of 128."""
+    cfg = MHLALMConfig(hidden_size=512, num_hidden_layers=3, num_heads=2, vocab_size=100,
+                       attn={"layers": [0, 2], "num_heads": 4}, dtype=dtype)
+    return init_lm_params(MHLAForCausalLM(cfg, device=dev), torch.Generator(dev).manual_seed(0))
+
+
+def test_tiny_hybrid_lm_serves_through_the_kernels(dev):
+    """A 2,040-token prompt takes the plain causal product in the softmax
+    layers (Tq < 2048) and 8 decode steps their KV caches; one forward over
+    the 2,048 tokens runs K9's causal form there."""
+    model = _tiny_hybrid(dev).to(_BF16).eval()
+    ids = torch.randint(0, 100, (2, 2040), generator=torch.Generator(dev).manual_seed(1),
+                        device=dev)
+    kernels.reset_launch_counts()
+    out, scores = generate(model, ids, max_new_tokens=8, output_scores=True)
+    assert kernels.launch_counts()["flash_attention_masked"] == 0
+    with torch.no_grad():
+        full, _ = model(out)
+    assert kernels.launch_counts()["flash_attention_masked"] == 2
+    assert_close("tiny hybrid LM decode vs full forward", full[:, 2039:-1], scores, 5e-2)
+
+
+def test_tiny_hybrid_lm_trains_on_packed_rows_through_the_kernels(dev):
+    """Two steps on packed rows of 2,048 tokens: every per-row kernel and
+    K9 / K9b's causal segment-id form launch as the schedule says, and the
+    loss is finite."""
+    from mhla_tpu_torch.data import make_lm_dataloader
+    from mhla_tpu_torch.train.lm_train import lm_loss, to_device
+
+    model = _tiny_hybrid(dev)
+    state = init_train_state(model, OptimizerConfig(warmup_steps=1, learning_rate=1e-3))
+    step = make_train_step(lm_loss)
+    data = make_lm_dataloader(2048, 2, 100, varlen=True)
+    kernels.reset_launch_counts()
+    losses = []
+    for _ in range(2):
+        state, metrics = step(state, to_device(next(data), dev))
+        losses.append(float(metrics["loss"]))
+    counts = kernels.launch_counts()
+    want = {"fmap_rope": 4, "fmap_rope_bwd": 4, "flash_attention_masked": 4,
+            "flash_attention_masked_bwd": 4, "flash_attention": 0, "flash_attention_bwd": 0,
+            **{n: 2 for n in _FWD_CHUNK + tuple(f"{n}_bwd" for n in _FWD_CHUNK)}}
+    assert {n: counts[n] for n in want} == want, counts
+    assert all(torch.isfinite(torch.tensor(losses))), losses
+    assert torch.count_nonzero(model.model.layers[1].attn.mixing_matrix.grad) > 0

@@ -57,7 +57,7 @@ def test_sdpa_matches_jax(tq, tk, monkeypatch):
     q, k, v = _qkv(1, tq, tk, 2, 128, seed=7)
     routed = []
     monkeypatch.setattr(attention, "flash_attention",
-                        lambda *a: routed.append("flash") or flash.flash_attention(*a))
+                        lambda *a, **kw: routed.append("flash") or flash.flash_attention(*a, **kw))
     ref = jax_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     out = attention.sdpa(*(torch.from_numpy(a) for a in (q, k, v)))
     assert_close(f"sdpa {tq}x{tk}", np.asarray(ref), out, TOL)
@@ -65,17 +65,15 @@ def test_sdpa_matches_jax(tq, tk, monkeypatch):
 
 
 def test_unported_attention_options_raise():
+    """The causal and segment-id forms are ported (``test_torch_attention.py``);
+    what the JAX wrapper refuses the port refuses too: those forms need
+    Tq == Tk."""
     q = torch.zeros(1, 8, 2, 128)
-    with pytest.raises(NotImplementedError):
-        flash.flash_attention(q, q, q, causal=True)
-    with pytest.raises(NotImplementedError):
-        flash.flash_attention(q, q, q, segment_ids=torch.zeros(1, 8, dtype=torch.long))
-    for kwargs in ({"causal": True}, {"window": 4}, {"mask": torch.ones(1, 1, 8, 8).bool()},
-                   {"segment_ids": torch.zeros(1, 8, dtype=torch.long)}):
-        with pytest.raises(NotImplementedError):
-            attention.sdpa(q, q, q, **kwargs)
-    with pytest.raises(NotImplementedError):
-        attention.SelfAttention(dim=256, num_heads=2)
+    with pytest.raises(ValueError):
+        flash.flash_attention(q, q[:, :4], q[:, :4], causal=True)
+    with pytest.raises(ValueError):
+        flash.flash_attention(q, q[:, :4], q[:, :4],
+                              segment_ids=torch.zeros(1, 8, dtype=torch.long))
     with pytest.raises(ValueError):  # k and v disagree
         flash.flash_attention(q, q, torch.zeros(1, 9, 2, 128))
 

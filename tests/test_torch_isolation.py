@@ -66,7 +66,7 @@ _RUN_TINY_WAN_TRAINING = textwrap.dedent(
     assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
     assert all(p.grad is not None for p in model.parameters())
     counts = kernels.launch_counts()
-    assert len(counts) == 19 and not any(counts.values()), counts
+    assert len(counts) == 21 and not any(counts.values()), counts
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "mhla_tpu", "triton"))
     print("LEAKED", leaked)
@@ -122,6 +122,11 @@ def test_launch_counters_stay_zero_on_cpu():
     generate(model, ids, max_new_tokens=3)
     logits, _ = model(ids)
     logits.float().sum().backward()  # the training path's backward
+    # the hybrid on packed rows at a length that takes the masked flash route
+    hybrid = MHLAForCausalLM(MHLALMConfig(**{**TINY, "attn": {"layers": [0], "num_heads": 4}}))
+    seg = torch.repeat_interleave(torch.arange(4), 512)[None]
+    logits, _ = hybrid(torch.zeros(1, 2048, dtype=torch.long), segment_ids=seg)
+    logits.float().sum().backward()
     counts = kernels.launch_counts()
     assert set(counts) == {
         "fmap_rope", "chunk_states", "mix_states", "chunk_output",
@@ -129,7 +134,7 @@ def test_launch_counters_stay_zero_on_cpu():
         "blockify_island", "mix_states_dense", "block_readout", "unblockify_island",
         "flash_attention", "radial_flash_attention",
         "unblockify", "blockify", "block_readout_bwd", "flash_attention_bwd",
-        "radial_flash_attention_bwd",
+        "radial_flash_attention_bwd", "flash_attention_masked", "flash_attention_masked_bwd",
     }
     assert all(n == 0 for n in counts.values()), counts
 
@@ -164,4 +169,4 @@ def test_launch_counters_stay_zero_on_cpu_through_hybrid_sparse_sampling():
     )
     assert latents.shape == (1, 8, 32, 32, 16) and torch.isfinite(latents).all()
     counts = kernels.launch_counts()
-    assert len(counts) == 19 and all(n == 0 for n in counts.values()), counts
+    assert len(counts) == 21 and all(n == 0 for n in counts.values()), counts

@@ -243,11 +243,11 @@ def test_mhla_causal_layer_matches_jax(kv_heads, gate, fmap):
 @pytest.mark.parametrize(
     "over,call",
     [
-        ({}, {"attention_mask": True}),
-        ({}, {"segment_ids": True}),
+        ({"attn_extends": "gated_deltanet"}, {}),
+        ({"attn_extends": "linear_attn"}, {}),
         ({"use_short_conv": True}, {}),
         ({"attn_extends": "gla"}, {}),
-        ({"attn": {"layers": [0]}}, {}),
+        ({"tp_mesh": object()}, {}),
         ({"attn_mode": "fused_recurrent"}, {}),
     ],
 )

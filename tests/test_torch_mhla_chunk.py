@@ -207,8 +207,5 @@ def test_wrappers_raise_off_cpu_and_cuda():
     x = torch.empty(1, 1, 64, 256, device="meta")
     with pytest.raises(NotImplementedError):
         port_kernels.chunk_states(x, x, 2)
-    with pytest.raises(NotImplementedError):
-        port_kernels.mhla_chunk_fused_flat(
-            torch.zeros(1, 64, 256), torch.zeros(1, 64, 256), torch.zeros(1, 64, 256),
-            torch.eye(2), num_heads=2, segment_ids=torch.zeros(1, 64, dtype=torch.int64),
-        )
+    with pytest.raises(NotImplementedError):  # the per-row form too
+        port_kernels.mix_states(torch.empty(1, 1, 1, device="meta"), x[:, :, 0].unsqueeze(-1))
