@@ -51,22 +51,36 @@ exits non-zero:
              gradients; step time, tok/s, peak memory; then the gradients
              of an MHLA + softmax block pair on packed rows through the
              kernels against the plain definitions.
-10. kernels (video) — K5-K9 against their plain versions at the shapes of
+10. kernels (delta) — K11 (the chunked gated delta rule, csrc/delta_chunk.cu)
+             and K11b (its backward, csrc/delta_chunk_bwd.cu) against their
+             plain versions at [8, 2048, 4, 128|256] (timed, beside the
+             bound) and at 1 x 781 (a ragged last chunk), bf16 with a nonzero
+             initial state; two K11b runs bit for bit; the op's gradients
+             through the kernels against autograd of the plain op.
+11. serve (gdn) — ``generate`` with the 340M Gated DeltaNet LM
+             (``attn_extends='gated_deltanet'``, bf16, seeded init): the same
+             two requests; K11 in every layer of the prefill, decode on the
+             token recurrence. Checks the exact launches and the decode-step
+             logits against one chunked forward over the whole sequence.
+12. train (gdn) — ``lm_train.main --model.attn_extends=gated_deltanet`` 6
+             steps at B=8 T=2048: finite, falling loss, K11 and K11b once per
+             layer and step; step time, tok/s, peak memory.
+13. kernels (video) — K5-K9 against their plain versions at the shapes of
              the Wan2.1-1.3B sampler: CFG batch 2, 31,500 tokens in 150
              blocks of 210, cross-attention against 512 text tokens.
-11. video   — ``mhla_tpu_torch.eval.video_infer_cli.main`` samples 4
+14. video   — ``mhla_tpu_torch.eval.video_infer_cli.main`` samples 4
              DPM-Solver++ steps with CFG 5.0 of the 30-layer full-MHLA
              model at latents (21, 60, 100, 16). Checks finite latents, the
              exact launch counts of K5-K9 and one forward through the
              kernels against the same forward through their plain versions.
-12. kernels (hybrid) — K10 (radial flash attention) against its plain
+15. kernels (hybrid) — K10 (radial flash attention) against its plain
              version at [2, 31,500, 12, 128] in 21 frames and at a small
              ragged geometry, and K9 at Tq = Tk = 31,500; each beside its
              bound and one ``scaled_dot_product_attention`` call.
-13. video (hybrid) — the CLI samples the hybrid model (layers 0, 3, ..., 27
+16. video (hybrid) — the CLI samples the hybrid model (layers 0, 3, ..., 27
              dense softmax on K9, the other 20 MHLA), 4 steps: finite
              latents, exact launch counts.
-14. video (hybrid_sparse) — ``sample_video_latents`` on the same weights
+17. video (hybrid_sparse) — ``sample_video_latents`` on the same weights
              with those ten layers radial-sparse, 4 steps at t x 1000 =
              1000, 900, 750, 501: K10 launches in the two steps below the
              dense guard (850) and K9 takes its place in the two above.
@@ -74,7 +88,7 @@ exits non-zero:
              the kernels against the plain versions, and that the guarded
              forward at t = 900 equals the hybrid model's.
 
-15. kernels (video training) — K5b, K8b and K7b against their plain versions
+18. kernels (video training) — K5b, K8b and K7b against their plain versions
              at B=1, 150 blocks of 210 tokens (float32 and bf16, with and
              without RoPE) and K9b at 31,500 x 512 and 31,500 x 31,500, each
              beside its bound and, where one exists, a library call (two
@@ -82,7 +96,7 @@ exits non-zero:
              then the gradients of one ``MHLA3D`` layer and one
              ``WanSelfAttention`` layer at 31,500 tokens through the kernels
              against the same layer through the plain versions.
-16. train (video) — ``mhla_tpu_torch.train.wan_train.main`` trains the
+19. train (video) — ``mhla_tpu_torch.train.wan_train.main`` trains the
              30-layer model 3 steps at 31,500 tokens, batch 1 (float32
              parameters, bf16 compute, per-block remat, AdamW 1e-4 with clip
              0.1 after a 1-step warm-up, EMA), in the full-MHLA and in the
@@ -90,7 +104,7 @@ exits non-zero:
              gradient norms and the exact launch counts of K5-K9 and
              K5b-K9b; prints seconds per step, peak memory and the final
              checkpoint's seconds and size.
-17. kernels (sparse training) — K10 in its training form (which also
+20. kernels (sparse training) — K10 in its training form (which also
              writes the masked log-sum-exp) and K10b (the radial flash
              backward) against their plain versions at [1, 31,500, 12, 128]
              in 21 frames, each beside its bound (allowed pairs counted
@@ -100,11 +114,11 @@ exits non-zero:
              (437 tokens in 4 frames); the gradients of one radial-sparse
              ``WanSelfAttention`` layer at 31,500 tokens through the kernels
              against the same layer through the plain versions.
-18. train (video, hybrid_sparse) — ``wan_train.main`` as in 13 with the ten
+21. train (video, hybrid_sparse) — ``wan_train.main`` as in 19 with the ten
              softmax layers under the radial mask (``model.sparse_attn_idx``):
              K10 and K10b take the place of K9 and K9b in those layers; the
              exact launch counts.
-19. train (video, hybrid_sparse + LoRA) — the same with ``lora.enable``:
+22. train (video, hybrid_sparse + LoRA) — the same with ``lora.enable``:
              the same launch counts, the base parameters bit for bit those
              of the seeded init after the steps, every adapter's B moved off
              zero, peak memory and the checkpoint's size (adapters only).
@@ -269,6 +283,11 @@ KERNEL_META = {
                                     "mhla_tpu/kernels/flash_attention.py:73"),
     "flash_attention_bwd[causal+segment]": ("cuda", "mhla_tpu_torch/csrc/flash_bwd.cu",
                                             "mhla_tpu/kernels/flash_attention.py:73"),
+    # the Gated DeltaNet LM: the chunked gated delta rule, forward and backward
+    "delta_chunk_fwd": ("cuda", "mhla_tpu_torch/csrc/delta_chunk.cu",
+                        "mhla_tpu/kernels/delta_chunk_pallas.py:126"),
+    "delta_chunk_bwd": ("cuda", "mhla_tpu_torch/csrc/delta_chunk_bwd.cu",
+                        "mhla_tpu/kernels/delta_chunk_pallas.py:207"),
 }
 FWD_KERNELS = ("fmap_rope", "chunk_states", "mix_states", "chunk_output")
 BWD_KERNELS = ("fmap_rope_bwd", "chunk_output_bwd", "mix_states_bwd", "chunk_states_bwd")
@@ -1241,7 +1260,9 @@ def phase_serve_hybrid(dev: torch.device) -> dict:
             f"launches {want}")
         if not rel < SERVE_TOL:
             raise AssertionError(f"{tag}: decode != full forward ({rel:.3e})")
-        t_pre = median_ms(lambda: model(ids, use_cache=True), reps=3, inner=1, warmup=1) / 1e3
+        with torch.no_grad():  # as generate runs it: no autograd graph
+            t_pre = median_ms(lambda: model(ids, use_cache=True), reps=3, inner=1,
+                              warmup=1) / 1e3
         t_dec = t_total - t_pre
         out["rates"][tag] = {"prefill_ms": t_pre * 1e3, "prefill_tok_s": b * t / t_pre,
                              "decode_ms_per_step": t_dec * 1e3 / (new - 1),
@@ -1320,6 +1341,274 @@ def phase_train_hybrid(dev: torch.device, varlen: bool = True,
     if varlen:
         result["block_grads"] = check_block_grads(dev)
     return result
+
+
+# The Gated DeltaNet LM (attn_extends='gated_deltanet') at the 340M widths:
+# 24 layers, 4 heads, Dk 128, Dv 256 (gla_lm.py's branch turns expand_k 0.5
+# and expand_v 1.0 into head_dim 128 and expand_v 2), chunk 64, short convs
+# of 4 taps; K11 in every layer of a prefill longer than 64 tokens and of a
+# training forward, K11b in every layer of a training backward
+GDN_LAYERS, GDN_HEADS, GDN_DK, GDN_DV, GDN_CHUNK = 24, 4, 128, 256, 64
+# Relative-RMS tolerance of the op's gradients (q, k, v, g, beta, s0)
+# through K11 / K11b (bf16 q, k, v; bf16 entry states and products at the
+# TPU kernel's rounding points) against autograd of the plain op
+# ``ops.delta_rule.gated_delta_chunk`` (float32 throughout) on the same CUDA
+# tensors. The same comparison on the CPU's plain paths gives at most
+# 6.1e-3 over [1, 781], [2, 1024], [2, 2048] and [8, 2048] (dg at 2 x 1024;
+# 4.6e-3 at the training shape): the bf16 floor. A dropped term, a wrong
+# transpose or a lost decay gives O(1).
+DELTA_GRAD_FLOOR_CPU = 6.1e-3
+DELTA_GRAD_TOL = 1e-2
+
+
+def delta_inputs(dev: torch.device, b: int, t: int, seed: int = SEED):
+    """Raw op inputs as the Gated DeltaNet layer makes them at the 340M
+    widths: q, k, v bf16 [B, T, H, D]; g = -A softplus(x + dt_bias) with A
+    up to 16 and dt log-uniform in [1e-3, 0.1] (the layer's init); beta a
+    sigmoid; a nonzero initial state."""
+    h, dk, dv = GDN_HEADS, GDN_DK, GDN_DV
+    gen = torch.Generator(dev).manual_seed(seed)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    q, k, v = randn(b, t, h, dk), randn(b, t, h, dk), randn(b, t, h, dv)
+    a = torch.rand(h, generator=gen, device=dev) * 16
+    dt = torch.exp(torch.rand(h, generator=gen, device=dev) * (math.log(0.1) - math.log(1e-3))
+                   + math.log(1e-3))
+    g = -a * torch.nn.functional.softplus(randn(b, t, h) + torch.log(torch.expm1(dt)))
+    beta = torch.sigmoid(randn(b, t, h))
+    s0 = 0.1 * randn(b, h, dk, dv)
+    bf16 = torch.bfloat16
+    return q.to(bf16), k.to(bf16), v.to(bf16), g, beta, s0
+
+
+def delta_kernel_inputs(dev: torch.device, b: int, t: int, seed: int = SEED):
+    """The padded, chunk-major inputs ``gated_delta_chunk_fused`` hands K11
+    and K11b: L2-normed q, k and v in bf16, the within-chunk cumsum G and
+    beta float32 (the ragged tail zero: g = 0, beta = 0), s0, and the
+    cotangents dO (zero on the tail) and dS."""
+    from mhla_tpu_torch.ops.delta_rule import l2norm
+    from mhla_tpu_torch.ops.mhla_chunk import _pad_to_chunks
+
+    c = GDN_CHUNK
+    q, k, v, g, beta, s0 = delta_inputs(dev, b, t, seed)
+    bf16 = torch.bfloat16
+    q4, k4 = (_pad_to_chunks(l2norm(x.float()), c).to(bf16) for x in (q, k))
+    v4 = _pad_to_chunks(v, c)
+    n = q4.shape[1] // c
+    g_cum = torch.cumsum(_pad_to_chunks(g, c).reshape(b, n, c, -1), 2).reshape(b, n * c, -1)
+    bp = _pad_to_chunks(beta, c)
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    do4 = torch.randn(v4.shape, generator=gen, device=dev)
+    do4[:, t:] = 0
+    ds = torch.randn(s0.shape, generator=gen, device=dev)
+    return q4, k4, v4, g_cum.contiguous(), bp, s0, do4.to(bf16), ds
+
+
+def delta_work(b: int, n: int, backward: bool):
+    """(bytes, operations, dtype) of K11 (training form: the entry states
+    are an output) or K11b over B x N chunks of the 340M heads: every input
+    read once and every output written once; the products of the formulas
+    (the backward recomputes the forward's per-chunk products, as only the
+    entry states are kept) in bf16, and the float32 triangular solve
+    (C^3/3 multiply-adds per chunk and head) counted at its bf16-equivalent
+    cost (989 / 67 operations each)."""
+    h, dk, dv, c = GDN_HEADS, GDN_DK, GDN_DV, GDN_CHUNK
+    tok = b * n * c * h
+    state = b * h * dk * dv * 4
+    states = b * n * h * dk * dv * 2
+    qkv = tok * (2 * dk + dv) * 2
+    gates = 2 * tok * 4
+    if not backward:
+        moved = qkv + gates + state + tok * dv * 2 + state + states
+        ops = 2 * c * c * (3 * dk + 2 * dv) + 6 * c * dk * dv
+    else:
+        moved = (qkv + gates + states + tok * dv * 2 + state
+                 + qkv + gates + state)
+        ops = 2 * c * c * (9 * dk + 5 * dv) + 14 * c * dk * dv
+    solve = 2 * c ** 3 / 3 * PEAK_FLOPS[torch.bfloat16] / PEAK_FLOPS[torch.float32]
+    return moved, b * n * h * (ops + solve), torch.bfloat16
+
+
+def delta_op_grads(dev: torch.device, b: int, t: int, kernels_path: bool):
+    """Gradients of q, k, v, g, beta and s0 of sum(o * w) + sum(S * ws)
+    through ``gated_delta_chunk_fused`` (K11 / K11b) or autograd of the
+    plain op ``gated_delta_chunk``, same CUDA tensors."""
+    from mhla_tpu_torch.kernels.delta_chunk import gated_delta_chunk_fused
+    from mhla_tpu_torch.ops.delta_rule import gated_delta_chunk
+
+    xs = [x.requires_grad_() for x in delta_inputs(dev, b, t, SEED + 5)]
+    gen = torch.Generator(dev).manual_seed(SEED + 6)
+    w = torch.randn(b, t, GDN_HEADS, GDN_DV, generator=gen, device=dev)
+    ws = torch.randn(xs[5].shape, generator=gen, device=dev)
+    fn = gated_delta_chunk_fused if kernels_path else gated_delta_chunk
+    o, s = fn(*xs[:5], initial_state=xs[5], output_final_state=True)
+    ((o.float() * w).sum() + (s * ws).sum()).backward()
+    return [x.grad for x in xs]
+
+
+def phase_kernels_delta(dev: torch.device) -> dict:
+    """K11 and K11b against their plain versions at the training shape
+    [8, 2048, 4, 128|256] (timed) and at 1 x 781 (a ragged last chunk), bf16
+    with a nonzero initial state; K11b twice, bit for bit; then the op's
+    gradients through the kernels against plain autograd at both shapes."""
+    from mhla_tpu_torch.kernels import delta_chunk as dc
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    results = {}
+    c = GDN_CHUNK
+    for b, t, timed in ((TRAIN_BATCH, TRAIN_SEQ, True), (1, 781, False)):
+        tag = f"B={b} T={t}"
+        q4, k4, v4, g_cum, beta, s0, do4, ds = delta_kernel_inputs(dev, b, t)
+        n = q4.shape[1] // c
+        check_kernel(results, "delta_chunk_fwd", tag,
+                     lambda: dc.delta_chunk_fwd(q4, k4, v4, g_cum, beta, s0, c, True),
+                     lambda: dc.delta_chunk_fwd_plain(q4, k4, v4, g_cum, beta, s0, c, True),
+                     timed, delta_work(b, n, False))
+        states = dc.delta_chunk_fwd_plain(q4, k4, v4, g_cum, beta, s0, c, True)[2]
+        bwd = lambda: dc.delta_chunk_bwd(q4, k4, v4, g_cum, beta, states, do4, ds, c)  # noqa: E731
+        check_kernel(results, "delta_chunk_bwd", tag, bwd,
+                     lambda: dc.delta_chunk_bwd_plain(q4, k4, v4, g_cum, beta, states, do4, ds, c),
+                     timed, delta_work(b, n, True))
+        first, second = bwd(), bwd()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"delta_chunk_bwd {tag}: two runs differ")
+        log(f"[kernels delta] delta_chunk_bwd {tag}: two runs bit for bit equal")
+        del first, second, states
+    names = ("q", "k", "v", "g", "beta", "s0")
+    for b, t in ((TRAIN_BATCH, TRAIN_SEQ), (1, 781)):
+        got = delta_op_grads(dev, b, t, kernels_path=True)
+        ref = delta_op_grads(dev, b, t, kernels_path=False)
+        torch.cuda.synchronize()
+        rels = {name: get_err_ratio(r, x) for name, r, x in zip(names, ref, got)}
+        log(f"[grads delta] op B={b} T={t}: rel-RMS " + " ".join(
+            f"d{name} {rel:.3e}" for name, rel in rels.items())
+            + f" (tol {DELTA_GRAD_TOL}; CPU floor {DELTA_GRAD_FLOOR_CPU})")
+        if not (all(torch.isfinite(x).all() for x in got) and max(rels.values()) < DELTA_GRAD_TOL):
+            raise AssertionError(f"delta op gradients B={b} T={t} disagree: {rels}")
+    return results
+
+
+def phase_serve_gdn(dev: torch.device) -> dict:
+    """``generate`` with the 340M Gated DeltaNet LM (bf16): 4 x 1984 + 64 and
+    1 x 781 + 32 greedy tokens. The prefills run K11 in every layer; the
+    decode steps the exact token recurrence (T = 1). Checks finite logits,
+    the exact launches, and the decode-step logits against one chunked
+    forward over the whole sequence (K11 again)."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.layers import GatedDeltaNet
+    from mhla_tpu_torch.models import MHLAForCausalLM, MHLALMConfig, generate, init_lm_params
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    cfg = MHLALMConfig(attn_extends="gated_deltanet", dtype=torch.bfloat16)
+    model = MHLAForCausalLM(cfg, device=dev)
+    init_lm_params(model, torch.Generator(dev).manual_seed(SEED))
+    model = model.to(torch.bfloat16).eval()
+    attn = model.model.layers[0].attn
+    if not (isinstance(attn, GatedDeltaNet) and (attn.num_heads, attn.head_k_dim, attn.head_v_dim)
+            == (GDN_HEADS, GDN_DK, GDN_DV) and cfg.num_hidden_layers == GDN_LAYERS):
+        raise AssertionError("not the 340M Gated DeltaNet geometry")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve gdn] 340M Gated DeltaNet LM: {GDN_LAYERS} layers, {GDN_HEADS} heads, Dk "
+        f"{GDN_DK}, Dv {GDN_DV}, short convs of 4, {n_params / 1e6:.1f} M params bf16")
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    requests = [
+        (torch.randint(0, cfg.vocab_size, (BATCH_A, PROMPT_A), generator=gen, device=dev), NEW_A),
+        (torch.randint(0, cfg.vocab_size, (BATCH_B, PROMPT_B), generator=gen, device=dev), NEW_B),
+    ]
+    generate(model, requests[1][0][:, :100], max_new_tokens=4)  # warm-up
+    torch.cuda.synchronize()
+    out = {"launches": {}, "rates": {}}
+    for ids, new in requests:
+        b, t = ids.shape
+        tag = f"{b} x {t} + {new}"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, scores = generate(model, ids, max_new_tokens=new, output_scores=True)
+        torch.cuda.synchronize()
+        t_total = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        want = {name: 0 for name in counts}
+        want["delta_chunk_fwd"] = GDN_LAYERS  # the prefill; decode launches nothing
+        if counts != want:
+            raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+        out["launches"] = counts
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            full, _ = model(toks[:, :-1])
+        if kernels.launch_counts()["delta_chunk_fwd"] != GDN_LAYERS:
+            raise AssertionError(f"{tag}: the full forward did not run K11 in every layer")
+        ref = full[:, t - 1:]
+        if toks.shape != (b, t + new) or not (torch.isfinite(scores).all()
+                                               and torch.isfinite(full).all()):
+            raise AssertionError(f"{tag}: shapes {tuple(toks.shape)} or non-finite logits")
+        rel = get_err_ratio(ref, scores)
+        log(f"[serve gdn] {tag}: decode-step logits vs one chunked forward over "
+            f"{toks.shape[1] - 1} tokens rel-RMS {rel:.3e} (tol {SERVE_TOL}); launches: "
+            f"delta_chunk_fwd {counts['delta_chunk_fwd']}, every other kernel 0")
+        if not rel < SERVE_TOL:
+            raise AssertionError(f"{tag}: chunk != recurrent ({rel:.3e})")
+        with torch.no_grad():  # as generate runs it: no autograd graph
+            t_pre = median_ms(lambda: model(ids, use_cache=True), reps=3, inner=1,
+                              warmup=1) / 1e3
+        t_dec = t_total - t_pre
+        out["rates"][tag] = {"prefill_ms": t_pre * 1e3, "prefill_tok_s": b * t / t_pre,
+                             "decode_ms_per_step": t_dec * 1e3 / (new - 1),
+                             "decode_tok_s": b * (new - 1) / t_dec, "decode_vs_full": rel}
+        log(f"[serve gdn] {tag}: prefill {t_pre * 1e3:.2f} ms = {b * t / t_pre:,.0f} tok/s; "
+            f"decode {t_dec * 1e3 / (new - 1):.3f} ms/step = {b * (new - 1) / t_dec:,.1f} tok/s")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_gdn(dev: torch.device) -> dict:
+    """``lm_train.main --model.attn_extends=gated_deltanet`` trains the 340M
+    Gated DeltaNet LM 6 steps at B=8 T=2048 (float32 parameters, bf16
+    compute, AdamW 3e-4 after a 1-step warm-up): finite, falling loss, the
+    exact launches (K11 and K11b once per layer and step); step time,
+    tok/s, peak memory."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.train import lm_train
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="mhla_train_gdn_") as work:
+        argv = [
+            f"--device={dev.type}", f"--work_dir={work}", "--model.attn_extends=gated_deltanet",
+            f"--train.batch_size={TRAIN_BATCH}", f"--train.seq_len={TRAIN_SEQ}",
+            f"--train.max_steps={TRAIN_STEPS}", "--train.log_interval=1",
+            "--optimizer.learning_rate=3e-4", "--optimizer.warmup_steps=1",
+            "--optimizer.total_steps=20000",
+        ]
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out = lm_train.main(argv)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train gdn] launches in {TRAIN_STEPS} steps: {counts}")
+    want = {name: 0 for name in counts}
+    want["delta_chunk_fwd"] = want["delta_chunk_bwd"] = TRAIN_STEPS * GDN_LAYERS
+    if counts != want:
+        raise AssertionError(f"Gated DeltaNet training launches {counts}, expected {want}")
+    losses = out["losses"]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if out["model"].config.attn_extends != "gated_deltanet":
+        raise AssertionError("not the Gated DeltaNet model")
+    step_s = statistics.median(out["step_seconds"][1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    log(f"[train gdn] 340M Gated DeltaNet, B={TRAIN_BATCH} T={TRAIN_SEQ}, "
+        f"{out['params'] / 1e6:.1f} M float32 params, bf16 compute: losses "
+        f"{[round(x, 4) for x in losses]}; grad norms {[round(x, 3) for x in out['grad_norms']]}")
+    log(f"[train gdn] step {step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; step 1 "
+        f"{out['step_seconds'][0] * 1e3:.1f} ms) = {tok_s:,.0f} tok/s; checkpoint save "
+        f"{out['save_seconds']:.2f} s; peak device memory {peak_gb:.1f} GB")
+    del out
+    torch.cuda.empty_cache()
+    return {"launches": counts, "step_ms": step_s * 1e3, "tok_s": tok_s, "losses": losses,
+            "peak_gb": peak_gb}
 
 
 def plain_flash_attention(q, k, v, causal=False, segment_ids=None):
@@ -1955,6 +2244,9 @@ def main() -> None:
     serve_hybrid = phase_serve_hybrid(dev)
     train_packed = phase_train_hybrid(dev)
     train_unpacked = phase_train_hybrid(dev, varlen=False, steps=2)
+    kern.update(phase_kernels_delta(dev))
+    serve_gdn = phase_serve_gdn(dev)
+    train_gdn = phase_train_gdn(dev)
     kern.update(phase_kernels_video(dev))
     video = phase_video(dev)
     kern.update(phase_kernels_hybrid(dev))
@@ -1984,7 +2276,9 @@ def main() -> None:
                    for form, counter in PACKED_FORMS.items()},
                 "flash_attention[causal]": serve_hybrid["launches"]["flash_attention[causal]"],
                 "flash_attention_bwd[causal]":
-                    train_unpacked["launches"]["flash_attention_masked_bwd"]}
+                    train_unpacked["launches"]["flash_attention_masked_bwd"],
+                "delta_chunk_fwd": serve_gdn["launches"]["delta_chunk_fwd"],
+                "delta_chunk_bwd": train_gdn["launches"]["delta_chunk_bwd"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [
         {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -1992,11 +2286,12 @@ def main() -> None:
         for name, (route, source, replaces) in KERNEL_META.items()
     ]
     for phase in (train, video, hybrid, sparse, train_full, train_hybrid, train_sparse,
-                  train_lora, serve_hybrid, train_packed, train_unpacked):
+                  train_lora, serve_hybrid, train_packed, train_unpacked, serve_gdn, train_gdn):
         phase.pop("launches")
     log(json.dumps({"serve": serve["rates"], "train": train,
                     "serve_hybrid_lm": serve_hybrid["rates"], "train_hybrid_lm_packed": train_packed,
                     "train_hybrid_lm": train_unpacked, "tile_walks": kern["walks"],
+                    "serve_gdn": serve_gdn["rates"], "train_gdn": train_gdn,
                     "video": video, "hybrid": hybrid,
                     "hybrid_sparse": sparse, "train_video_full": train_full,
                     "train_video_hybrid": train_hybrid,

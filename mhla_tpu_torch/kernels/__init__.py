@@ -20,12 +20,18 @@ module keeps its name here, as in the JAX package) and its gradient K9b
 ``sparse_attention.radial_flash_attention_bwd`` (``csrc/radial_bwd.cu``)
 behind ``sparse_flash_attention``.
 
+Gated DeltaNet LM: K11 ``delta_chunk.delta_chunk_fwd`` (CUDA C++,
+``csrc/delta_chunk.cu``) and its gradient K11b
+``delta_chunk.delta_chunk_bwd`` (``csrc/delta_chunk_bwd.cu``) behind
+``gated_delta_chunk_fused``.
+
 Every wrapper runs its plain PyTorch version for a CPU tensor, launches its
 kernel for a CUDA tensor or raises, and counts its launches in its module's
 ``launches``.
 """
 
-from . import flash_attention, fmap_rope, mhla_block, mhla_chunk, sparse_attention
+from . import delta_chunk, flash_attention, fmap_rope, mhla_block, mhla_chunk, sparse_attention
+from .delta_chunk import delta_chunk_bwd, delta_chunk_fwd, gated_delta_chunk_fused
 from .fmap_rope import fmap_rope_bwd, fused_fmap_rope_flat
 from .mhla_block import (
     block_readout,
@@ -54,7 +60,7 @@ from .sparse_attention import (
 )
 
 _COUNTERS = (fmap_rope.launches, mhla_chunk.launches, mhla_block.launches,
-             flash_attention.launches, sparse_attention.launches)
+             flash_attention.launches, sparse_attention.launches, delta_chunk.launches)
 
 
 def launch_counts() -> dict:
@@ -77,9 +83,12 @@ __all__ = [
     "chunk_output_bwd",
     "chunk_states",
     "chunk_states_bwd",
+    "delta_chunk_bwd",
+    "delta_chunk_fwd",
     "flash_attention",
     "fmap_rope_bwd",
     "fused_fmap_rope_flat",
+    "gated_delta_chunk_fused",
     "launch_counts",
     "mhla_blockwise_fused",
     "mhla_chunk_fused_flat",

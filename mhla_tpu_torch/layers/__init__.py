@@ -2,14 +2,26 @@
 
 from .attention import sdpa
 from .fused_dense import dense, fused_projections
+from .gated_deltanet import DeltaNetState, GatedDeltaNet
 from .mhla_causal import MHLACausal, MHLACausalState
 from .mhla_vision import MHLA3D, BlockMixing
 from .mlp import GatedMLP, default_intermediate_size, swiglu
-from .norms import GatedRMSNormHeadsFlat, LayerNorm, RMSNorm, RMSNormHeadsFlat, rms_norm
+from .norms import (
+    GatedRMSNorm,
+    GatedRMSNormHeadsFlat,
+    LayerNorm,
+    RMSNorm,
+    RMSNormHeadsFlat,
+    rms_norm,
+)
+from .short_conv import ShortConvolution
 
 __all__ = [
     "BlockMixing",
+    "DeltaNetState",
+    "GatedDeltaNet",
     "GatedMLP",
+    "GatedRMSNorm",
     "GatedRMSNormHeadsFlat",
     "LayerNorm",
     "MHLA3D",
@@ -17,6 +29,7 @@ __all__ = [
     "MHLACausalState",
     "RMSNorm",
     "RMSNormHeadsFlat",
+    "ShortConvolution",
     "default_intermediate_size",
     "dense",
     "fused_projections",

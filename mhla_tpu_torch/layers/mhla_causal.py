@@ -1,8 +1,10 @@
 """Causal MHLA attention layer, the LM attention module (counterpart of
 ``mhla_tpu/layers/mhla_causal.py``).
 
-q/k/v/g projections (one concatenated matmul) with optional GQA repeat,
-feature map then rotary (K1), a learned lower-triangular chunk mixing matrix
+q/k/v/g projections (one concatenated matmul), optional causal short
+convolutions of q, k and v (k and v at their grouped widths, before the GQA
+repeat; SiLU; their caches in the state), optional GQA repeat, feature map
+then rotary (K1), a learned lower-triangular chunk mixing matrix
 clamped to [1e-5, 1] * tril on every forward, the chunked op (K2-K4) for a
 prefill or the recurrent op for decode, and a per-head RMSNorm + swish
 output gate before the output projection.
@@ -10,12 +12,13 @@ output gate before the output projection.
 A right-padded batch passes ``attention_mask`` [B, T] (1 real, 0 pad):
 padded k and v are zeroed, so they add nothing to any state. Packed varlen
 rows pass ``segment_ids`` [B, T]: rotary positions restart at every
-document and the chunked op isolates the documents (a training-path
+document, the short convolutions zero their taps across document
+boundaries, and the chunked op isolates the documents (a training-path
 feature; decode with them raises ``ValueError``, as in the JAX package).
 
-Waits for a later port (raises ``NotImplementedError``): short convolution,
-XPos in the layer, head-axis tensor parallelism, the ``fused_recurrent``
-mode, and continuing a cache with more than ``chunk_size`` tokens.
+Waits for a later port (raises ``NotImplementedError``): XPos in the layer,
+head-axis tensor parallelism, the ``fused_recurrent`` mode, and continuing
+a cache with more than ``chunk_size`` tokens.
 """
 
 from __future__ import annotations
@@ -38,12 +41,16 @@ from ..ops import (
 from ..ops.mhla_recurrent import MHLAState
 from .fused_dense import dense, fused_projections
 from .norms import GatedRMSNormHeadsFlat, RMSNormHeadsFlat
+from .short_conv import ShortConvolution
 
 _FLAT_FMAPS = (None, "relu", "elu", "identity", "t2r")
 
 
 class MHLACausalState(NamedTuple):
     recurrent: MHLAState
+    conv_q: Optional[torch.Tensor] = None  # [B, conv_size - 1, key_dim]
+    conv_k: Optional[torch.Tensor] = None  # [B, conv_size - 1, key_dim / groups]
+    conv_v: Optional[torch.Tensor] = None  # [B, conv_size - 1, value_dim / groups]
 
 
 class MHLACausal(nn.Module):
@@ -68,8 +75,6 @@ class MHLACausal(nn.Module):
         device=None,
     ):
         super().__init__()
-        if use_short_conv:
-            raise NotImplementedError("use_short_conv is not ported yet")
         if rope_scale_base is not None:
             raise NotImplementedError("XPos (rope_scale_base) is not ported yet")
         if mode != "chunk":
@@ -102,6 +107,13 @@ class MHLACausal(nn.Module):
         else:
             self.g_norm = norm
         self.o_proj = linear(self.value_dim, hidden_size)
+        self.use_short_conv = use_short_conv
+        if use_short_conv:
+            self.q_conv1d = ShortConvolution(self.key_dim, conv_size, device=device)
+            self.k_conv1d = ShortConvolution(self.key_dim // self.groups, conv_size,
+                                             device=device)
+            self.v_conv1d = ShortConvolution(self.value_dim // self.groups, conv_size,
+                                             device=device)
 
     def forward(
         self,
@@ -128,6 +140,15 @@ class MHLACausal(nn.Module):
         projs = fused_projections(hidden_states, self, names)
         q, k, v = projs[:3]
         g_raw = projs[3] if self.use_output_gate else None
+
+        conv_q = conv_k = conv_v = None
+        if self.use_short_conv:
+            q, conv_q = self.q_conv1d(q, state.conv_q if decode else None, use_cache,
+                                      segment_ids)
+            k, conv_k = self.k_conv1d(k, state.conv_k if decode else None, use_cache,
+                                      segment_ids)
+            v, conv_v = self.v_conv1d(v, state.conv_v if decode else None, use_cache,
+                                      segment_ids)
 
         if self.groups > 1:
             kv_heads = self.num_kv_heads
@@ -181,7 +202,10 @@ class MHLACausal(nn.Module):
                 rec = state_from_chunk(
                     states, t, mixing, chunk_size=self.chunk_size, num_slots=self.num_slots
                 )
-        new_state = MHLACausalState(recurrent=rec) if use_cache else None
+        new_state = (
+            MHLACausalState(recurrent=rec, conv_q=conv_q, conv_k=conv_k, conv_v=conv_v)
+            if use_cache else None
+        )
 
         if self.use_output_gate:
             o = self.g_norm_swish_gate(o, g_raw)

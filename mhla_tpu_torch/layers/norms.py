@@ -34,6 +34,26 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.weight, self.eps)
 
 
+class GatedRMSNorm(nn.Module):
+    """RMSNorm(x) * swish(g) over the last axis (the JAX ``GatedRMSNorm``,
+    ``mhla_tpu/layers/norms.py:44-62``): the norm is rounded to x's dtype,
+    then multiplied by silu(g) in float32 and rounded again. (Not the
+    rounding of :class:`GatedRMSNormHeadsFlat`, which rounds the scale and
+    the gate separately.)"""
+
+    def __init__(self, dim: int, eps: float = 1e-6, elementwise_affine: bool = True,
+                 device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = (
+            nn.Parameter(torch.ones(dim, device=device)) if elementwise_affine else None
+        )
+
+    def forward(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        y = rms_norm(x, self.weight, self.eps)
+        return (y.float() * F.silu(g.float())).to(x.dtype)
+
+
 def _head_inv_rms(x: torch.Tensor, num_heads: int, eps: float) -> torch.Tensor:
     """Per-head 1/rms of head-flat x [..., H*Dh] -> [..., H] float32 (the
     squares of bf16 values are exact in float32)."""

@@ -17,7 +17,8 @@ import torch
 
 from .gla_lm import MHLALMConfig
 
-_ATTN_DENSE = ("q_proj", "k_proj", "v_proj", "g_proj", "o_proj")
+_ATTN_DENSE = ("q_proj", "k_proj", "v_proj", "g_proj", "o_proj", "a_proj", "b_proj")
+_ATTN_CONV = ("q_conv1d", "k_conv1d", "v_conv1d")
 _MLP_DENSE = ("gate_proj", "up_proj", "down_proj")
 
 
@@ -27,9 +28,11 @@ def _t(x) -> torch.Tensor:
 
 def params_from_jax(params: Mapping[str, Any], cfg: MHLALMConfig) -> Dict[str, torch.Tensor]:
     """flax params (``{"params": {"model": ...}}`` or the inner tree) ->
-    float32 state dict for ``MHLAForCausalLM(cfg)``, MHLA and softmax
-    (``SelfAttention``: q/k/v/o projections, their biases, q/k norms)
-    layers alike."""
+    float32 state dict for ``MHLAForCausalLM(cfg)``, MHLA, softmax
+    (``SelfAttention``: q/k/v/o projections, their biases, q/k norms) and
+    Gated DeltaNet layers alike (its a/b projections, ``A_log``,
+    ``dt_bias`` and ``o_norm``). Short-convolution kernels ([kernel_size,
+    features], in both packages) are copied as they are."""
     tree = params.get("params", params)
     model = tree["model"]
     sd: Dict[str, torch.Tensor] = {
@@ -48,7 +51,15 @@ def params_from_jax(params: Mapping[str, Any], cfg: MHLALMConfig) -> Dict[str, t
         if "mixing_matrix" in attn:  # an MHLA layer
             n = cfg.num_slots
             sd[f"{dst}attn.mixing_matrix"] = _t(attn["mixing_matrix"]).reshape(n, n)
-        for norm in ("g_norm_swish_gate", "g_norm", "q_norm", "k_norm"):
+        for conv in _ATTN_CONV:
+            if conv in attn:
+                sd[f"{dst}attn.{conv}.weight"] = _t(attn[conv]["kernel"])
+                if "bias" in attn[conv]:
+                    sd[f"{dst}attn.{conv}.bias"] = _t(attn[conv]["bias"])
+        for name in ("A_log", "dt_bias"):  # a Gated DeltaNet layer
+            if name in attn:
+                sd[f"{dst}attn.{name}"] = _t(attn[name])
+        for norm in ("g_norm_swish_gate", "g_norm", "q_norm", "k_norm", "o_norm"):
             if norm in attn:
                 sd[f"{dst}attn.{norm}.weight"] = _t(attn[norm]["weight"])
         for name in _MLP_DENSE:

@@ -1,19 +1,23 @@
 """MHLA causal language model (counterpart of ``mhla_tpu/models/gla_lm.py``,
-the ``attn_extends='mhla'`` family, its softmax hybrid and the all-softmax
-``'transformer'`` family).
+the ``attn_extends='mhla'`` family, its softmax hybrid, the all-softmax
+``'transformer'`` family and the ``'gated_deltanet'`` baseline).
 
 Pre-norm blocks of [RMSNorm -> attention -> residual -> RMSNorm -> GatedMLP
 -> residual], a final RMSNorm and tied (or separate) unembedding. The
 attention of a layer is ``SelfAttention`` (causal softmax with RoPE) when
 the layer is listed in ``config.attn["layers"]`` or ``attn_extends ==
-"transformer"``, else ``MHLACausal``. The ``MHLALMConfig`` defaults are the
+"transformer"``, else ``GatedDeltaNet`` for ``attn_extends ==
+"gated_deltanet"`` (head dim hidden * expand_k / heads, value expansion
+expand_v / expand_k, as the JAX branch sets them) and ``MHLACausal``
+otherwise. The ``MHLALMConfig`` defaults are the
 340M model of ``configs/mhla_340m.yaml``, so that model needs no yaml
 reader; ``MHLALMConfig.from_json`` reads a reference-format model json.
 
 ``attention_mask`` reaches the MHLA layers only and ``segment_ids`` every
-layer, as in the JAX package. Waits for a later port (raises
-``NotImplementedError``): every other ``attn_extends`` family and tensor
-parallelism.
+layer, as in the JAX package; ``segment_ids`` with a Gated DeltaNet layer
+raises ``NotImplementedError``, as it does there. Waits for a later port
+(raises ``NotImplementedError``): every other ``attn_extends`` family and
+tensor parallelism.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch.nn as nn
 
 from ..layers import GatedMLP, MHLACausal, RMSNorm, dense
 from ..layers.attention import SelfAttention
+from ..layers.gated_deltanet import GatedDeltaNet
 
 
 @dataclasses.dataclass
@@ -92,10 +97,11 @@ class MHLABlock(nn.Module):
         super().__init__()
         cfg = config
         self.is_softmax = cfg.is_softmax(layer_idx)
-        if not self.is_softmax and cfg.attn_extends != "mhla":
+        self.is_delta = not self.is_softmax and cfg.attn_extends == "gated_deltanet"
+        if not (self.is_softmax or self.is_delta or cfg.attn_extends == "mhla"):
             raise NotImplementedError(
-                f"only the mhla and softmax attention families are ported (layer "
-                f"{layer_idx}, attn_extends={cfg.attn_extends!r})"
+                f"only the mhla, gated_deltanet and softmax attention families are "
+                f"ported (layer {layer_idx}, attn_extends={cfg.attn_extends!r})"
             )
         if cfg.tp_mesh is not None:
             raise NotImplementedError("tensor parallelism is not ported yet")
@@ -110,6 +116,15 @@ class MHLABlock(nn.Module):
                 window_size=attn_cfg.get("window_size"),
                 rope_theta=attn_cfg.get("rope_theta", 10000.0),
                 max_position_embeddings=cfg.max_position_embeddings,
+                device=device,
+            )
+        elif self.is_delta:
+            self.attn = GatedDeltaNet(
+                hidden_size=cfg.hidden_size,
+                head_dim=int(cfg.hidden_size * cfg.expand_k) // cfg.num_heads,
+                num_heads=cfg.num_heads,
+                expand_v=cfg.expand_v / cfg.expand_k,
+                norm_eps=cfg.norm_eps,
                 device=device,
             )
         else:
@@ -138,6 +153,13 @@ class MHLABlock(nn.Module):
     def forward(self, x, state=None, use_cache=False, attention_mask=None, segment_ids=None):
         if self.is_softmax:
             h, new_state = self.attn(self.attn_norm(x), state, use_cache, segment_ids)
+        elif self.is_delta:
+            if segment_ids is not None:
+                raise NotImplementedError(
+                    "packed-varlen segment_ids is implemented for the mhla and softmax "
+                    "attention paths, not attn_extends=gated_deltanet"
+                )
+            h, new_state = self.attn(self.attn_norm(x), state, use_cache)
         else:
             h, new_state = self.attn(
                 self.attn_norm(x), state, use_cache, attention_mask, segment_ids
@@ -200,8 +222,10 @@ def init_lm_params(model: MHLAForCausalLM, generator: torch.Generator) -> MHLAFo
     """Reference init scheme, in place: normal(initializer_range) for the
     embedding and every Linear weight, o_proj/down_proj rescaled by
     1/sqrt(2 * num_layers); biases zero (flax's), norms stay ones and mixing
-    matrices keep their causal init. ``generator`` lives on the parameters'
-    device."""
+    matrices keep their causal init. Every 2-D parameter counts, the short
+    convolutions' [kernel_size, features] weights too, as in JAX; the Gated
+    DeltaNet layers draw their ``A_log`` and ``dt_bias`` from ``generator``
+    as well. ``generator`` lives on the parameters' device."""
     cfg = model.config
     scale = 1.0 / math.sqrt(2 * cfg.num_hidden_layers)
     for name, p in model.named_parameters():
@@ -211,6 +235,9 @@ def init_lm_params(model: MHLAForCausalLM, generator: torch.Generator) -> MHLAFo
                 p.mul_(scale)
         elif name.endswith(".bias"):
             p.zero_()
+    for module in model.modules():
+        if isinstance(module, GatedDeltaNet):
+            module.reset_gate_parameters(generator)
     return model
 
 

@@ -2,6 +2,7 @@
 kernels in ``mhla_tpu_torch.kernels`` are held to."""
 
 from .block_mix import block_mixing_matrix
+from .delta_rule import gated_delta_chunk, gated_delta_recurrent, l2norm
 from .feature_maps import FEATURE_MAPS, get_feature_map
 from .mhla_blockwise import mhla_blockwise_mh
 from .mhla_chunk import (
@@ -38,9 +39,12 @@ __all__ = [
     "build_segment_mixing",
     "chunk_segments",
     "clamp_causal_mixing_matrix",
+    "gated_delta_chunk",
+    "gated_delta_recurrent",
     "get_feature_map",
     "init_causal_mixing_matrix",
     "init_mhla_state",
+    "l2norm",
     "mhla_blockwise_mh",
     "mhla_chunk",
     "mhla_chunk_ref",

@@ -1,12 +1,15 @@
 """Profile training steps of the causal MHLA LM on one CUDA device.
 
-    python -m mhla_tpu_torch.train.profile_step [--config=mhla|hybrid] [--varlen]
+    python -m mhla_tpu_torch.train.profile_step [--config=mhla|hybrid|gated_deltanet] [--varlen]
 
 Builds what ``lm_train.main`` trains by default (the 340M model,
 ``MHLALMConfig()`` widths, float32 parameters, bf16 compute, seeded init,
 B=8 T=2048 synthetic tokens) through ``lm_train.build_training``; with
 ``--config=hybrid`` the same model with causal softmax attention (8 heads of
-128) in every third layer from 0 (``HYBRID_ATTN``), and with ``--varlen``
+128) in every third layer from 0 (``HYBRID_ATTN``); with
+``--config=gated_deltanet`` the Gated DeltaNet LM at the same widths
+(``attn_extends='gated_deltanet'``: 4 heads, Dk 128, Dv 256, K11 / K11b in
+every layer); and with ``--varlen`` (not with gated_deltanet)
 packed documents with segment ids (``--train.varlen=true``). It runs
 warm-up steps, then times ``STEPS`` steps on the host clock (each ending in
 a device sync) and records one more under ``torch.profiler``. Prints the
@@ -36,6 +39,7 @@ WARMUP, STEPS, TOP = 3, 5, 25
 HYBRID_ATTN = {"layers": list(range(0, 24, 3)), "num_heads": 8}
 
 _GROUPS = (
+    ("K11/K11b delta rule (CUDA)", r"delta_(prep|fwd_chain|bwd_chain|bwd_grads)"),
     ("K9 flash forward (CUDA)", r"flash_fwd_kernel|seg_tile_ranges"),
     ("K9b flash backward (CUDA)", r"flash_bwd_"),
     ("K1/K1b fmap_rope (Triton)", r"_fmap_rope"),
@@ -88,13 +92,16 @@ def summarize_profile(prof, wall_us: float, groups, what: str = "step", top: int
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("mhla", "hybrid"), default="mhla")
+    ap.add_argument("--config", choices=("mhla", "hybrid", "gated_deltanet"), default="mhla")
     ap.add_argument("--varlen", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = MHLALMConfig(attn=HYBRID_ATTN if args.config == "hybrid" else None)
+    model = MHLALMConfig(
+        attn=HYBRID_ATTN if args.config == "hybrid" else None,
+        attn_extends="gated_deltanet" if args.config == "gated_deltanet" else "mhla",
+    )
     cfg = LMTrainConfig(model=model,
                         optimizer=OptimizerConfig(warmup_steps=1, total_steps=20000),
                         train=TrainLoopConfig(varlen=args.varlen))

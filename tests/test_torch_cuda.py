@@ -966,3 +966,133 @@ def test_tiny_hybrid_lm_trains_on_packed_rows_through_the_kernels(dev):
     assert {n: counts[n] for n in want} == want, counts
     assert all(torch.isfinite(torch.tensor(losses))), losses
     assert torch.count_nonzero(model.model.layers[1].attn.mixing_matrix.grad) > 0
+
+
+def _delta_inputs(dev, b, t, h, dv, c, seed=0):
+    """K11 / K11b's padded inputs: normed bf16 q, k, bf16 v, the within-chunk
+    cumsum G of a layer-like decay and beta (zero on the ragged tail), a
+    nonzero initial state and the cotangents."""
+    import math
+
+    from mhla_tpu_torch.ops.delta_rule import l2norm
+    from mhla_tpu_torch.ops.mhla_chunk import _pad_to_chunks
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    q, k, v = (_pad_to_chunks(x, c) for x in (rn(b, t, h, 128), rn(b, t, h, 128),
+                                               rn(b, t, h, dv)))
+    a = torch.rand(h, generator=gen, device=dev) * 16
+    g = -a * torch.nn.functional.softplus(rn(b, t, h) + math.log(math.expm1(0.01)))
+    g, beta = _pad_to_chunks(g, c), _pad_to_chunks(torch.sigmoid(rn(b, t, h)), c)
+    n = g.shape[1] // c
+    g_cum = torch.cumsum(g.reshape(b, n, c, h), 2).reshape(b, n * c, h)
+    do = _pad_to_chunks(rn(b, t, h, dv), c).to(_BF16)
+    return (l2norm(q).to(_BF16), l2norm(k).to(_BF16), v.to(_BF16), g_cum, beta,
+            0.1 * rn(b, h, 128, dv), do, rn(b, h, 128, dv))
+
+
+@pytest.mark.parametrize("b,t,h,dv,c", [(2, 2048, 4, 256, 64), (1, 781, 4, 256, 64),
+                                        (1, 200, 2, 128, 32), (3, 64, 1, 64, 16)])
+def test_delta_chunk_kernels_match_plain(dev, b, t, h, dv, c):
+    """K11 (o, the final state and the entry states) and K11b (dq, dk, dv,
+    dG, dbeta, ds0) against their plain versions; K11b twice, bit for bit;
+    one launch each per call."""
+    from mhla_tpu_torch.kernels import delta_chunk as dc
+
+    q, k, v, g_cum, beta, s0, do, ds = _delta_inputs(dev, b, t, h, dv, c)
+    before = dict(dc.launches)
+    out = dc.delta_chunk_fwd(q, k, v, g_cum, beta, s0, c, True)
+    ref = dc.delta_chunk_fwd_plain(q, k, v, g_cum, beta, s0, c, True)
+    for name, r, x in zip(("o", "state", "entry states"), ref, out):
+        assert_close(f"K11 {name}", r, x, KERNEL_TOL)
+    serving = dc.delta_chunk_fwd(q, k, v, g_cum, beta, s0, c)
+    assert serving[2] is None and torch.equal(serving[0], out[0])
+    got = dc.delta_chunk_bwd(q, k, v, g_cum, beta, ref[2], do, ds, c)
+    again = dc.delta_chunk_bwd(q, k, v, g_cum, beta, ref[2], do, ds, c)
+    want = dc.delta_chunk_bwd_plain(q, k, v, g_cum, beta, ref[2], do, ds, c)
+    for name, r, x, y in zip(("dq", "dk", "dv", "dG", "dbeta", "ds0"), want, got, again):
+        assert_close(f"K11b {name}", r, x, KERNEL_TOL)
+        assert torch.equal(x, y), name
+    assert dc.launches == {"delta_chunk_fwd": before["delta_chunk_fwd"] + 2,
+                           "delta_chunk_bwd": before["delta_chunk_bwd"] + 2}
+
+
+def test_delta_op_gradients_through_the_kernels(dev):
+    """gated_delta_chunk_fused's gradients (through K11 / K11b and the
+    autograd around them) against autograd of the plain op, bf16 inputs,
+    within the bf16 floor (chip_smoke.DELTA_GRAD_TOL)."""
+    from mhla_tpu_torch.kernels.delta_chunk import gated_delta_chunk_fused
+    from mhla_tpu_torch.ops.delta_rule import gated_delta_chunk
+
+    gen = torch.Generator(dev).manual_seed(3)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    raw = [rn(1, 300, 2, 128).to(_BF16), rn(1, 300, 2, 128).to(_BF16),
+           rn(1, 300, 2, 256).to(_BF16), -torch.rand(1, 300, 2, generator=gen, device=dev),
+           torch.rand(1, 300, 2, generator=gen, device=dev), 0.1 * rn(1, 2, 128, 256)]
+    w = rn(1, 300, 2, 256)
+    grads = []
+    for fn in (gated_delta_chunk_fused, gated_delta_chunk):
+        xs = [x.clone().requires_grad_() for x in raw]
+        o, s = fn(*xs[:5], initial_state=xs[5], output_final_state=True)
+        ((o.float() * w).sum() + s.sum()).backward()
+        grads.append([x.grad for x in xs])
+    for name, x, r in zip(("q", "k", "v", "g", "beta", "s0"), *grads):
+        assert_close(f"d{name}", r, x, 1e-2)
+
+
+def test_delta_wrappers_raise_instead_of_falling_back(dev):
+    from mhla_tpu_torch.kernels import delta_chunk as dc
+
+    q, k, v, g_cum, beta, s0, do, ds = _delta_inputs(dev, 1, 128, 1, 128, 64)
+    with pytest.raises(TypeError):  # the kernels take bf16 q, k, v
+        dc.delta_chunk_fwd(q.float(), k.float(), v.float(), g_cum, beta, s0, 64)
+    with pytest.raises(ValueError):  # Dk != 128
+        dc.delta_chunk_fwd(q[..., :64].contiguous(), k[..., :64].contiguous(), v, g_cum,
+                           beta, s0[:, :, :64].contiguous(), 64)
+    with pytest.raises(ValueError):  # not whole chunks
+        dc.delta_chunk_fwd(q[:, :100], k[:, :100], v[:, :100], g_cum[:, :100],
+                           beta[:, :100], s0, 64)
+
+
+@pytest.mark.parametrize("dk,c", [(256, 64), (128, 8), (128, 128)])
+def test_delta_routed_shapes_the_kernels_lack_raise(dev, dk, c):
+    """Shapes JAX's rule sends to its Pallas kernel but K11 does not hold yet
+    (Dk = 256, a chunk not a multiple of 16 or above 64): the fused path
+    raises on the card instead of running the plain op."""
+    from mhla_tpu_torch.kernels.delta_chunk import gated_delta_chunk_fused, kernel_route
+
+    gen = torch.Generator(dev).manual_seed(4)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    q, k, v = rn(1, 128, 1, dk).to(_BF16), rn(1, 128, 1, dk).to(_BF16), rn(1, 128, 1, 128)
+    g, beta = -torch.rand(1, 128, 1, device=dev), torch.rand(1, 128, 1, device=dev)
+    assert kernel_route(128, c, dk, 128)
+    with pytest.raises(ValueError):
+        gated_delta_chunk_fused(q, k, v.to(_BF16), g, beta, chunk_size=c)
+
+
+def test_tiny_gdn_lm_serves_and_trains_through_the_kernels(dev):
+    """A 2-layer Gated DeltaNet LM at Dk = 128: a 130-token prefill on K11,
+    decode on the recurrence, decode-step logits against one forward, and a
+    training step through K11 / K11b."""
+    from mhla_tpu_torch.train.lm_train import lm_loss
+
+    cfg = MHLALMConfig(hidden_size=512, num_hidden_layers=2, num_heads=2, vocab_size=100,
+                       attn_extends="gated_deltanet", dtype=_BF16)
+    model = init_lm_params(MHLAForCausalLM(cfg, device=dev), torch.Generator(dev).manual_seed(0))
+    serving = MHLAForCausalLM(cfg, device=dev).to(_BF16).eval()
+    serving.load_state_dict(model.state_dict())
+    ids = torch.randint(0, 100, (2, 130), generator=torch.Generator(dev).manual_seed(1),
+                        device=dev)
+    kernels.reset_launch_counts()
+    out, scores = generate(serving, ids, max_new_tokens=6, output_scores=True)
+    assert kernels.launch_counts()["delta_chunk_fwd"] == 2
+    with torch.no_grad():
+        full, _ = serving(out[:, :-1])
+    assert_close("tiny GDN LM decode vs full forward", full[:, 129:], scores, 5e-2)
+    state = init_train_state(model, OptimizerConfig(warmup_steps=1, learning_rate=1e-3))
+    kernels.reset_launch_counts()
+    state, metrics = make_train_step(lm_loss)(state, ids)
+    counts = kernels.launch_counts()
+    assert counts["delta_chunk_fwd"] == counts["delta_chunk_bwd"] == 2, counts
+    assert torch.isfinite(metrics["loss"])
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())

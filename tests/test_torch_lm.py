@@ -243,9 +243,7 @@ def test_mhla_causal_layer_matches_jax(kv_heads, gate, fmap):
 @pytest.mark.parametrize(
     "over,call",
     [
-        ({"attn_extends": "gated_deltanet"}, {}),
         ({"attn_extends": "linear_attn"}, {}),
-        ({"use_short_conv": True}, {}),
         ({"attn_extends": "gla"}, {}),
         ({"tp_mesh": object()}, {}),
         ({"attn_mode": "fused_recurrent"}, {}),
