@@ -65,22 +65,39 @@ exits non-zero:
 12. train (gdn) — ``lm_train.main --model.attn_extends=gated_deltanet`` 6
              steps at B=8 T=2048: finite, falling loss, K11 and K11b once per
              layer and step; step time, tok/s, peak memory.
-13. kernels (video) — K5-K9 against their plain versions at the shapes of
+13. kernels (gla) — K12 (chunked gated linear attention, csrc/gla_chunk.cu)
+             and K12b (its backward, csrc/gla_chunk_bwd.cu) against their
+             plain versions at [8, 2048, 4, 128|256] in float32 (the layer's
+             form) and bf16, at 1 x 781 (a ragged last chunk) in both, and at
+             the bench shape [1, 32768, 8, 128|128] in bf16, with a nonzero
+             initial state (timed beside the bound at [8, 2048] and the bench
+             shape); two K12b runs bit for bit at every shape; the op's
+             gradients through the kernels against autograd of the plain op.
+14. serve (gla) — ``generate`` with the 340M GLA LM (``attn_extends='gla'``,
+             bf16, seeded init): the same two requests; K12 in every layer of
+             the prefill, decode on the token recurrence. Checks the exact
+             launches and the decode-step logits against one chunked forward.
+15. train (gla) — ``lm_train.main --model.attn_extends=gla`` 6 steps at B=8
+             T=2048: finite, falling loss, K12 and K12b once per layer and
+             step; step time, tok/s, peak memory.
+16. train (simple_gla) — the same, 2 steps, with one decay per head
+             (``attn_extends='simple_gla'``): finite losses, exact launches.
+17. kernels (video) — K5-K9 against their plain versions at the shapes of
              the Wan2.1-1.3B sampler: CFG batch 2, 31,500 tokens in 150
              blocks of 210, cross-attention against 512 text tokens.
-14. video   — ``mhla_tpu_torch.eval.video_infer_cli.main`` samples 4
+18. video   — ``mhla_tpu_torch.eval.video_infer_cli.main`` samples 4
              DPM-Solver++ steps with CFG 5.0 of the 30-layer full-MHLA
              model at latents (21, 60, 100, 16). Checks finite latents, the
              exact launch counts of K5-K9 and one forward through the
              kernels against the same forward through their plain versions.
-15. kernels (hybrid) — K10 (radial flash attention) against its plain
+19. kernels (hybrid) — K10 (radial flash attention) against its plain
              version at [2, 31,500, 12, 128] in 21 frames and at a small
              ragged geometry, and K9 at Tq = Tk = 31,500; each beside its
              bound and one ``scaled_dot_product_attention`` call.
-16. video (hybrid) — the CLI samples the hybrid model (layers 0, 3, ..., 27
+20. video (hybrid) — the CLI samples the hybrid model (layers 0, 3, ..., 27
              dense softmax on K9, the other 20 MHLA), 4 steps: finite
              latents, exact launch counts.
-17. video (hybrid_sparse) — ``sample_video_latents`` on the same weights
+21. video (hybrid_sparse) — ``sample_video_latents`` on the same weights
              with those ten layers radial-sparse, 4 steps at t x 1000 =
              1000, 900, 750, 501: K10 launches in the two steps below the
              dense guard (850) and K9 takes its place in the two above.
@@ -88,7 +105,7 @@ exits non-zero:
              the kernels against the plain versions, and that the guarded
              forward at t = 900 equals the hybrid model's.
 
-18. kernels (video training) — K5b, K8b and K7b against their plain versions
+22. kernels (video training) — K5b, K8b and K7b against their plain versions
              at B=1, 150 blocks of 210 tokens (float32 and bf16, with and
              without RoPE) and K9b at 31,500 x 512 and 31,500 x 31,500, each
              beside its bound and, where one exists, a library call (two
@@ -96,7 +113,7 @@ exits non-zero:
              then the gradients of one ``MHLA3D`` layer and one
              ``WanSelfAttention`` layer at 31,500 tokens through the kernels
              against the same layer through the plain versions.
-19. train (video) — ``mhla_tpu_torch.train.wan_train.main`` trains the
+23. train (video) — ``mhla_tpu_torch.train.wan_train.main`` trains the
              30-layer model 3 steps at 31,500 tokens, batch 1 (float32
              parameters, bf16 compute, per-block remat, AdamW 1e-4 with clip
              0.1 after a 1-step warm-up, EMA), in the full-MHLA and in the
@@ -104,7 +121,7 @@ exits non-zero:
              gradient norms and the exact launch counts of K5-K9 and
              K5b-K9b; prints seconds per step, peak memory and the final
              checkpoint's seconds and size.
-20. kernels (sparse training) — K10 in its training form (which also
+24. kernels (sparse training) — K10 in its training form (which also
              writes the masked log-sum-exp) and K10b (the radial flash
              backward) against their plain versions at [1, 31,500, 12, 128]
              in 21 frames, each beside its bound (allowed pairs counted
@@ -114,11 +131,11 @@ exits non-zero:
              (437 tokens in 4 frames); the gradients of one radial-sparse
              ``WanSelfAttention`` layer at 31,500 tokens through the kernels
              against the same layer through the plain versions.
-21. train (video, hybrid_sparse) — ``wan_train.main`` as in 19 with the ten
+25. train (video, hybrid_sparse) — ``wan_train.main`` as in 23 with the ten
              softmax layers under the radial mask (``model.sparse_attn_idx``):
              K10 and K10b take the place of K9 and K9b in those layers; the
              exact launch counts.
-22. train (video, hybrid_sparse + LoRA) — the same with ``lora.enable``:
+26. train (video, hybrid_sparse + LoRA) — the same with ``lora.enable``:
              the same launch counts, the base parameters bit for bit those
              of the seeded init after the steps, every adapter's B moved off
              zero, peak memory and the checkpoint's size (adapters only).
@@ -288,6 +305,11 @@ KERNEL_META = {
                         "mhla_tpu/kernels/delta_chunk_pallas.py:126"),
     "delta_chunk_bwd": ("cuda", "mhla_tpu_torch/csrc/delta_chunk_bwd.cu",
                         "mhla_tpu/kernels/delta_chunk_pallas.py:207"),
+    # the GLA LM: chunked gated linear attention, forward and backward
+    "gla_chunk_fwd": ("cuda", "mhla_tpu_torch/csrc/gla_chunk.cu",
+                      "mhla_tpu/kernels/gla_chunk_pallas.py:85"),
+    "gla_chunk_bwd": ("cuda", "mhla_tpu_torch/csrc/gla_chunk_bwd.cu",
+                      "mhla_tpu/kernels/gla_chunk_pallas.py:160"),
 }
 FWD_KERNELS = ("fmap_rope", "chunk_states", "mix_states", "chunk_output")
 BWD_KERNELS = ("fmap_rope_bwd", "chunk_output_bwd", "mix_states_bwd", "chunk_states_bwd")
@@ -1343,12 +1365,16 @@ def phase_train_hybrid(dev: torch.device, varlen: bool = True,
     return result
 
 
-# The Gated DeltaNet LM (attn_extends='gated_deltanet') at the 340M widths:
-# 24 layers, 4 heads, Dk 128, Dv 256 (gla_lm.py's branch turns expand_k 0.5
-# and expand_v 1.0 into head_dim 128 and expand_v 2), chunk 64, short convs
-# of 4 taps; K11 in every layer of a prefill longer than 64 tokens and of a
-# training forward, K11b in every layer of a training backward
-GDN_LAYERS, GDN_HEADS, GDN_DK, GDN_DV, GDN_CHUNK = 24, 4, 128, 256, 64
+# The baseline LMs at the 340M widths, the Gated DeltaNet LM
+# (attn_extends='gated_deltanet'; gla_lm.py's branch turns expand_k 0.5 and
+# expand_v 1.0 into head_dim 128 and expand_v 2; short convs of 4 taps) and
+# the GLA LMs ('gla', 'simple_gla'): 24 layers, 4 heads, Dk 128, Dv 256,
+# chunk 64. Their kernels, forward and backward (BASE_KERNELS), run in every
+# layer of a prefill longer than 64 tokens and of a training step.
+BASE_LAYERS, BASE_HEADS, BASE_DK, BASE_DV, BASE_CHUNK = 24, 4, 128, 256, 64
+BASE_KERNELS = {"gated_deltanet": ("delta_chunk_fwd", "delta_chunk_bwd"),
+                "gla": ("gla_chunk_fwd", "gla_chunk_bwd"),
+                "simple_gla": ("gla_chunk_fwd", "gla_chunk_bwd")}
 # Relative-RMS tolerance of the op's gradients (q, k, v, g, beta, s0)
 # through K11 / K11b (bf16 q, k, v; bf16 entry states and products at the
 # TPU kernel's rounding points) against autograd of the plain op
@@ -1366,7 +1392,7 @@ def delta_inputs(dev: torch.device, b: int, t: int, seed: int = SEED):
     widths: q, k, v bf16 [B, T, H, D]; g = -A softplus(x + dt_bias) with A
     up to 16 and dt log-uniform in [1e-3, 0.1] (the layer's init); beta a
     sigmoid; a nonzero initial state."""
-    h, dk, dv = GDN_HEADS, GDN_DK, GDN_DV
+    h, dk, dv = BASE_HEADS, BASE_DK, BASE_DV
     gen = torch.Generator(dev).manual_seed(seed)
     randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
     q, k, v = randn(b, t, h, dk), randn(b, t, h, dk), randn(b, t, h, dv)
@@ -1388,7 +1414,7 @@ def delta_kernel_inputs(dev: torch.device, b: int, t: int, seed: int = SEED):
     from mhla_tpu_torch.ops.delta_rule import l2norm
     from mhla_tpu_torch.ops.mhla_chunk import _pad_to_chunks
 
-    c = GDN_CHUNK
+    c = BASE_CHUNK
     q, k, v, g, beta, s0 = delta_inputs(dev, b, t, seed)
     bf16 = torch.bfloat16
     q4, k4 = (_pad_to_chunks(l2norm(x.float()), c).to(bf16) for x in (q, k))
@@ -1411,7 +1437,7 @@ def delta_work(b: int, n: int, backward: bool):
     entry states are kept) in bf16, and the float32 triangular solve
     (C^3/3 multiply-adds per chunk and head) counted at its bf16-equivalent
     cost (989 / 67 operations each)."""
-    h, dk, dv, c = GDN_HEADS, GDN_DK, GDN_DV, GDN_CHUNK
+    h, dk, dv, c = BASE_HEADS, BASE_DK, BASE_DV, BASE_CHUNK
     tok = b * n * c * h
     state = b * h * dk * dv * 4
     states = b * n * h * dk * dv * 2
@@ -1437,7 +1463,7 @@ def delta_op_grads(dev: torch.device, b: int, t: int, kernels_path: bool):
 
     xs = [x.requires_grad_() for x in delta_inputs(dev, b, t, SEED + 5)]
     gen = torch.Generator(dev).manual_seed(SEED + 6)
-    w = torch.randn(b, t, GDN_HEADS, GDN_DV, generator=gen, device=dev)
+    w = torch.randn(b, t, BASE_HEADS, BASE_DV, generator=gen, device=dev)
     ws = torch.randn(xs[5].shape, generator=gen, device=dev)
     fn = gated_delta_chunk_fused if kernels_path else gated_delta_chunk
     o, s = fn(*xs[:5], initial_state=xs[5], output_final_state=True)
@@ -1454,7 +1480,7 @@ def phase_kernels_delta(dev: torch.device) -> dict:
     from mhla_tpu_torch.utils import get_err_ratio
 
     results = {}
-    c = GDN_CHUNK
+    c = BASE_CHUNK
     for b, t, timed in ((TRAIN_BATCH, TRAIN_SEQ, True), (1, 781, False)):
         tag = f"B={b} T={t}"
         q4, k4, v4, g_cum, beta, s0, do4, ds = delta_kernel_inputs(dev, b, t)
@@ -1488,28 +1514,170 @@ def phase_kernels_delta(dev: torch.device) -> dict:
     return results
 
 
-def phase_serve_gdn(dev: torch.device) -> dict:
-    """``generate`` with the 340M Gated DeltaNet LM (bf16): 4 x 1984 + 64 and
-    1 x 781 + 32 greedy tokens. The prefills run K11 in every layer; the
+# The layer hands K12 / K12b float32 q, k, v and gk, as JAX's op computes:
+# kernel and plain version then differ in the order of float32 sums only,
+# and JAX holds its fused kernel to its op at 1e-4 (tests/test_kernels.py
+# TestGLAFused). The bf16 form keeps KERNEL_TOL.
+GLA_TOL = 1e-4
+# The op's gradients through K12 / K12b against autograd of the plain op are
+# held to GLA_TOL in float32 and, for bf16 inputs, to OP_GRAD_TOL: the kernels
+# round qd, kd, the scores, dp, the entry states and the exit cotangents to
+# bf16 as the TPU kernel does, the plain op rounds nothing.
+GLA_BENCH = (1, 32768, 8, 128, 128)  # benchmarks/gla_bench.py's default (B, T, H, Dk, Dv)
+
+
+def gla_kernel_inputs(dev: torch.device, b: int, t: int, h: int, dv: int, dtype,
+                      seed: int = SEED):
+    """K12 / K12b's inputs as ``gla_chunk_fused`` makes them from layer-like
+    raw inputs: relu q, k (the LM's feature map) and v in ``dtype``, the
+    decay logsigmoid(x) / 16 (per key channel), a nonzero initial state; then
+    qd, kd, v in the compute dtype and e^{G_last}, padded to whole chunks;
+    and the cotangents dO (zero on the ragged tail) and dS."""
+    from mhla_tpu_torch.kernels import gla_chunk as gc
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    q, k = torch.relu(randn(b, t, h, BASE_DK)), torch.relu(randn(b, t, h, BASE_DK))
+    v = randn(b, t, h, dv)
+    gk = torch.nn.functional.logsigmoid(randn(b, t, h, BASE_DK)) / 16
+    qd, kd, v4, egl, _ = gc._prep(q.to(dtype), k.to(dtype), v.to(dtype), gk, BASE_CHUNK)
+    s0 = 0.1 * randn(b, h, BASE_DK, dv)
+    do = randn(*v4.shape)
+    do[:, t:] = 0
+    return (qd.contiguous(), kd.contiguous(), v4, egl, s0, do.to(v4.dtype),
+            randn(b, h, BASE_DK, dv))
+
+
+def gla_work(b: int, n: int, h: int, dv: int, dtype, backward: bool):
+    """(bytes, operations, dtype) of K12 (training form: the entry states
+    are an output) or K12b over B x N chunks of C tokens: every input read
+    once and every output written once; the products over the kept (causal)
+    pairs of each chunk and the state products (forward: q k^T and its
+    product with v, qd S and kc^T v; backward: q k^T, dO v^T, the three
+    intra products, qd^T dO and the three products with the states)."""
+    c, dk = BASE_CHUNK, BASE_DK
+    e = torch.tensor([], dtype=dtype).element_size()
+    tok = b * n * c * h
+    state = b * h * dk * dv * 4
+    states = b * n * h * dk * dv * 4
+    egl = b * n * h * dk * 4
+    pairs = c * (c + 1) // 2
+    if not backward:
+        moved = tok * (2 * dk + dv) * e + egl + state + tok * dv * e + state + states
+        ops = 2 * pairs * (dk + dv) + 4 * c * dk * dv
+    else:
+        moved = (tok * (2 * dk + 2 * dv) * e + egl + states + state
+                 + tok * (2 * dk + dv) * 4 + egl + state)
+        ops = 2 * pairs * (3 * dk + 2 * dv) + 8 * c * dk * dv
+    return moved, b * n * h * ops, dtype
+
+
+def gla_op_grads(dev: torch.device, b: int, t: int, dtype, kernels_path: bool):
+    """Gradients of q, k, v, gk and s0 of sum(o * w) + sum(S * ws) through
+    ``gla_chunk_fused`` (K12 / K12b) or autograd of the plain op
+    ``gla_chunk``, same CUDA tensors."""
+    from mhla_tpu_torch.kernels.gla_chunk import gla_chunk_fused
+    from mhla_tpu_torch.ops.gla_chunk import gla_chunk
+
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    h, dk, dv = BASE_HEADS, BASE_DK, BASE_DV
+    xs = [torch.relu(randn(b, t, h, dk)).to(dtype), torch.relu(randn(b, t, h, dk)).to(dtype),
+          randn(b, t, h, dv).to(dtype),
+          torch.nn.functional.logsigmoid(randn(b, t, h, dk)) / 16, 0.1 * randn(b, h, dk, dv)]
+    xs = [x.requires_grad_() for x in xs]
+    w, ws = randn(b, t, h, dv), randn(b, h, dk, dv)
+    fn = gla_chunk_fused if kernels_path else gla_chunk
+    o, s = fn(*xs[:4], initial_state=xs[4], output_final_state=True)
+    ((o.float() * w).sum() + (s * ws).sum()).backward()
+    return [x.grad for x in xs]
+
+
+def phase_kernels_gla(dev: torch.device) -> dict:
+    """K12 and K12b against their plain versions: at [8, 2048, 4, 128|256]
+    in float32 (the layer's form; timed, the kernels line's row) and bf16, at
+    1 x 781 (a ragged last chunk) in both, and at the bench shape [1, 32768,
+    8, 128|128] in bf16 (timed); a nonzero initial state; K12b twice, bit
+    for bit, everywhere; then the op's gradients through the kernels against
+    plain autograd at [8, 2048] and 1 x 781, in float32 and bf16. The
+    float32 rows are the kernels line's; the bf16 ones are returned under
+    ``gla_shapes``."""
+    from mhla_tpu_torch.kernels import gla_chunk as gc
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    results, shapes = {}, {}
+    c = BASE_CHUNK
+    f32, bf16 = torch.float32, torch.bfloat16
+    b_bench, t_bench, h_bench, _, dv_bench = GLA_BENCH
+    cases = ((TRAIN_BATCH, TRAIN_SEQ, BASE_HEADS, BASE_DV, f32, True),  # (b, t, h, dv, dtype, timed)
+             (1, 781, BASE_HEADS, BASE_DV, f32, False),
+             (TRAIN_BATCH, TRAIN_SEQ, BASE_HEADS, BASE_DV, bf16, True),
+             (1, 781, BASE_HEADS, BASE_DV, bf16, False),
+             (b_bench, t_bench, h_bench, dv_bench, bf16, True))
+    for b, t, h, dv, dtype, timed in cases:
+        tag = f"{b}x{t}x{h}|{dv} {'f32' if dtype == f32 else 'bf16'}"
+        # the float32 form is the layer's: its rows are the kernels line's
+        sink, suffix = (results, "") if dtype == f32 else (shapes, f"[{tag}]")
+        tol = GLA_TOL if dtype == f32 else KERNEL_TOL
+        timing = {"reps": 3, "inner": 3, "warmup": 1} if t == t_bench else None
+        qd, kd, v4, egl, s0, do, ds = gla_kernel_inputs(dev, b, t, h, dv, dtype)
+        n = egl.shape[1]
+        check_kernel(sink, "gla_chunk_fwd" + suffix, tag,
+                     lambda: gc.gla_chunk_fwd(qd, kd, v4, egl, s0, c, True),
+                     lambda: gc.gla_chunk_fwd_plain(qd, kd, v4, egl, s0, c, True),
+                     timed, gla_work(b, n, h, dv, dtype, False), tol=tol, timing=timing)
+        states = gc.gla_chunk_fwd_plain(qd, kd, v4, egl, s0, c, True)[2]
+        bwd = lambda: gc.gla_chunk_bwd(qd, kd, v4, egl, states, do, ds, c)  # noqa: E731
+        check_kernel(sink, "gla_chunk_bwd" + suffix, tag, bwd,
+                     lambda: gc.gla_chunk_bwd_plain(qd, kd, v4, egl, states, do, ds, c),
+                     timed, gla_work(b, n, h, dv, dtype, True), tol=tol, timing=timing)
+        first, second = bwd(), bwd()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"gla_chunk_bwd {tag}: two runs differ")
+        log(f"[kernels gla] gla_chunk_bwd {tag}: two runs bit for bit equal")
+        del first, second, states, qd, kd, v4, egl, s0, do, ds
+        torch.cuda.empty_cache()
+    names = ("q", "k", "v", "gk", "s0")
+    for b, t in ((TRAIN_BATCH, TRAIN_SEQ), (1, 781)):
+        for dtype, tol in ((f32, GLA_TOL), (bf16, OP_GRAD_TOL)):
+            got = gla_op_grads(dev, b, t, dtype, kernels_path=True)
+            ref = gla_op_grads(dev, b, t, dtype, kernels_path=False)
+            torch.cuda.synchronize()
+            rels = {name: get_err_ratio(r, x) for name, r, x in zip(names, ref, got)}
+            log(f"[grads gla] op B={b} T={t} {dtype}: rel-RMS " + " ".join(
+                f"d{name} {rel:.3e}" for name, rel in rels.items()) + f" (tol {tol})")
+            if not (all(torch.isfinite(x).all() for x in got) and max(rels.values()) < tol):
+                raise AssertionError(f"gla op gradients B={b} T={t} {dtype} disagree: {rels}")
+            del got, ref
+    results["gla_shapes"] = shapes
+    return results
+
+
+def phase_serve_baseline(dev: torch.device, extends: str, tag: str) -> dict:
+    """``generate`` with a 340M baseline LM (``attn_extends=extends``, bf16):
+    4 x 1984 + 64 and 1 x 781 + 32 greedy tokens. The prefills run its
+    forward kernel (K11, or K12 in its float32 form) in every layer; the
     decode steps the exact token recurrence (T = 1). Checks finite logits,
     the exact launches, and the decode-step logits against one chunked
-    forward over the whole sequence (K11 again)."""
+    forward over the whole sequence (the forward kernel again)."""
     from mhla_tpu_torch import kernels
-    from mhla_tpu_torch.layers import GatedDeltaNet
     from mhla_tpu_torch.models import MHLAForCausalLM, MHLALMConfig, generate, init_lm_params
     from mhla_tpu_torch.utils import get_err_ratio
 
-    cfg = MHLALMConfig(attn_extends="gated_deltanet", dtype=torch.bfloat16)
+    fwd = BASE_KERNELS[extends][0]
+    cfg = MHLALMConfig(attn_extends=extends, dtype=torch.bfloat16)
     model = MHLAForCausalLM(cfg, device=dev)
     init_lm_params(model, torch.Generator(dev).manual_seed(SEED))
     model = model.to(torch.bfloat16).eval()
-    attn = model.model.layers[0].attn
-    if not (isinstance(attn, GatedDeltaNet) and (attn.num_heads, attn.head_k_dim, attn.head_v_dim)
-            == (GDN_HEADS, GDN_DK, GDN_DV) and cfg.num_hidden_layers == GDN_LAYERS):
-        raise AssertionError("not the 340M Gated DeltaNet geometry")
+    block = model.model.layers[0]
+    if not (block.extends == extends and cfg.num_hidden_layers == BASE_LAYERS and (
+            block.attn.num_heads, block.attn.head_k_dim, block.attn.head_v_dim)
+            == (BASE_HEADS, BASE_DK, BASE_DV)):
+        raise AssertionError(f"not the 340M {extends} geometry")
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[serve gdn] 340M Gated DeltaNet LM: {GDN_LAYERS} layers, {GDN_HEADS} heads, Dk "
-        f"{GDN_DK}, Dv {GDN_DV}, short convs of 4, {n_params / 1e6:.1f} M params bf16")
+    log(f"[serve {tag}] 340M {extends} LM: {BASE_LAYERS} layers, {BASE_HEADS} heads, Dk "
+        f"{BASE_DK}, Dv {BASE_DV}, {n_params / 1e6:.1f} M params bf16")
     gen = torch.Generator(dev).manual_seed(SEED + 1)
     requests = [
         (torch.randint(0, cfg.vocab_size, (BATCH_A, PROMPT_A), generator=gen, device=dev), NEW_A),
@@ -1520,7 +1688,7 @@ def phase_serve_gdn(dev: torch.device) -> dict:
     out = {"launches": {}, "rates": {}}
     for ids, new in requests:
         b, t = ids.shape
-        tag = f"{b} x {t} + {new}"
+        what = f"{b} x {t} + {new}"
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         toks, scores = generate(model, ids, max_new_tokens=new, output_scores=True)
@@ -1528,54 +1696,56 @@ def phase_serve_gdn(dev: torch.device) -> dict:
         t_total = time.perf_counter() - t0
         counts = kernels.launch_counts()
         want = {name: 0 for name in counts}
-        want["delta_chunk_fwd"] = GDN_LAYERS  # the prefill; decode launches nothing
+        want[fwd] = BASE_LAYERS  # the prefill; decode launches nothing
         if counts != want:
-            raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+            raise AssertionError(f"{what}: launches {counts}, expected {want}")
         out["launches"] = counts
         kernels.reset_launch_counts()
         with torch.no_grad():
             full, _ = model(toks[:, :-1])
-        if kernels.launch_counts()["delta_chunk_fwd"] != GDN_LAYERS:
-            raise AssertionError(f"{tag}: the full forward did not run K11 in every layer")
+        if kernels.launch_counts()[fwd] != BASE_LAYERS:
+            raise AssertionError(f"{what}: the full forward did not run {fwd} in every layer")
         ref = full[:, t - 1:]
         if toks.shape != (b, t + new) or not (torch.isfinite(scores).all()
                                                and torch.isfinite(full).all()):
-            raise AssertionError(f"{tag}: shapes {tuple(toks.shape)} or non-finite logits")
+            raise AssertionError(f"{what}: shapes {tuple(toks.shape)} or non-finite logits")
         rel = get_err_ratio(ref, scores)
-        log(f"[serve gdn] {tag}: decode-step logits vs one chunked forward over "
+        log(f"[serve {tag}] {what}: decode-step logits vs one chunked forward over "
             f"{toks.shape[1] - 1} tokens rel-RMS {rel:.3e} (tol {SERVE_TOL}); launches: "
-            f"delta_chunk_fwd {counts['delta_chunk_fwd']}, every other kernel 0")
+            f"{fwd} {counts[fwd]}, every other kernel 0")
         if not rel < SERVE_TOL:
-            raise AssertionError(f"{tag}: chunk != recurrent ({rel:.3e})")
+            raise AssertionError(f"{what}: chunk != recurrent ({rel:.3e})")
         with torch.no_grad():  # as generate runs it: no autograd graph
             t_pre = median_ms(lambda: model(ids, use_cache=True), reps=3, inner=1,
                               warmup=1) / 1e3
         t_dec = t_total - t_pre
-        out["rates"][tag] = {"prefill_ms": t_pre * 1e3, "prefill_tok_s": b * t / t_pre,
-                             "decode_ms_per_step": t_dec * 1e3 / (new - 1),
-                             "decode_tok_s": b * (new - 1) / t_dec, "decode_vs_full": rel}
-        log(f"[serve gdn] {tag}: prefill {t_pre * 1e3:.2f} ms = {b * t / t_pre:,.0f} tok/s; "
+        out["rates"][what] = {"prefill_ms": t_pre * 1e3, "prefill_tok_s": b * t / t_pre,
+                              "decode_ms_per_step": t_dec * 1e3 / (new - 1),
+                              "decode_tok_s": b * (new - 1) / t_dec, "decode_vs_full": rel}
+        log(f"[serve {tag}] {what}: prefill {t_pre * 1e3:.2f} ms = {b * t / t_pre:,.0f} tok/s; "
             f"decode {t_dec * 1e3 / (new - 1):.3f} ms/step = {b * (new - 1) / t_dec:,.1f} tok/s")
     del model
     torch.cuda.empty_cache()
     return out
 
 
-def phase_train_gdn(dev: torch.device) -> dict:
-    """``lm_train.main --model.attn_extends=gated_deltanet`` trains the 340M
-    Gated DeltaNet LM 6 steps at B=8 T=2048 (float32 parameters, bf16
-    compute, AdamW 3e-4 after a 1-step warm-up): finite, falling loss, the
-    exact launches (K11 and K11b once per layer and step); step time,
-    tok/s, peak memory."""
+def phase_train_baseline(dev: torch.device, extends: str, tag: str,
+                         steps: int = TRAIN_STEPS) -> dict:
+    """``lm_train.main --model.attn_extends=<extends>`` trains a 340M baseline
+    LM ``steps`` steps at B=8 T=2048 (float32 parameters, bf16 compute,
+    AdamW 3e-4 after a 1-step warm-up): finite losses, falling over 6 steps
+    (the first step's learning rate is 0, so 2 steps only show them finite),
+    the exact launches (its forward and backward kernels once per layer and
+    step); step time, tok/s, peak memory."""
     from mhla_tpu_torch import kernels
     from mhla_tpu_torch.train import lm_train
 
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="mhla_train_gdn_") as work:
+    with tempfile.TemporaryDirectory(prefix=f"mhla_train_{extends}_") as work:
         argv = [
-            f"--device={dev.type}", f"--work_dir={work}", "--model.attn_extends=gated_deltanet",
+            f"--device={dev.type}", f"--work_dir={work}", f"--model.attn_extends={extends}",
             f"--train.batch_size={TRAIN_BATCH}", f"--train.seq_len={TRAIN_SEQ}",
-            f"--train.max_steps={TRAIN_STEPS}", "--train.log_interval=1",
+            f"--train.max_steps={steps}", "--train.log_interval=1",
             "--optimizer.learning_rate=3e-4", "--optimizer.warmup_steps=1",
             "--optimizer.total_steps=20000",
         ]
@@ -1585,24 +1755,25 @@ def phase_train_gdn(dev: torch.device) -> dict:
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[train gdn] launches in {TRAIN_STEPS} steps: {counts}")
+    log(f"[train {tag}] launches in {steps} steps: {counts}")
     want = {name: 0 for name in counts}
-    want["delta_chunk_fwd"] = want["delta_chunk_bwd"] = TRAIN_STEPS * GDN_LAYERS
+    for name in BASE_KERNELS[extends]:
+        want[name] = steps * BASE_LAYERS
     if counts != want:
-        raise AssertionError(f"Gated DeltaNet training launches {counts}, expected {want}")
+        raise AssertionError(f"{extends} training launches {counts}, expected {want}")
     losses = out["losses"]
-    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
         raise AssertionError(f"training losses {losses}")
-    if not losses[-1] < losses[0]:
+    if steps > 2 and not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    if out["model"].config.attn_extends != "gated_deltanet":
-        raise AssertionError("not the Gated DeltaNet model")
+    if out["model"].config.attn_extends != extends:
+        raise AssertionError(f"not the {extends} model")
     step_s = statistics.median(out["step_seconds"][1:])
     tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
-    log(f"[train gdn] 340M Gated DeltaNet, B={TRAIN_BATCH} T={TRAIN_SEQ}, "
+    log(f"[train {tag}] 340M {extends}, B={TRAIN_BATCH} T={TRAIN_SEQ}, "
         f"{out['params'] / 1e6:.1f} M float32 params, bf16 compute: losses "
         f"{[round(x, 4) for x in losses]}; grad norms {[round(x, 3) for x in out['grad_norms']]}")
-    log(f"[train gdn] step {step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; step 1 "
+    log(f"[train {tag}] step {step_s * 1e3:.1f} ms (median of steps 2-{steps}; step 1 "
         f"{out['step_seconds'][0] * 1e3:.1f} ms) = {tok_s:,.0f} tok/s; checkpoint save "
         f"{out['save_seconds']:.2f} s; peak device memory {peak_gb:.1f} GB")
     del out
@@ -2245,8 +2416,12 @@ def main() -> None:
     train_packed = phase_train_hybrid(dev)
     train_unpacked = phase_train_hybrid(dev, varlen=False, steps=2)
     kern.update(phase_kernels_delta(dev))
-    serve_gdn = phase_serve_gdn(dev)
-    train_gdn = phase_train_gdn(dev)
+    serve_gdn = phase_serve_baseline(dev, "gated_deltanet", "gdn")
+    train_gdn = phase_train_baseline(dev, "gated_deltanet", "gdn")
+    kern.update(phase_kernels_gla(dev))
+    serve_gla = phase_serve_baseline(dev, "gla", "gla")
+    train_gla = phase_train_baseline(dev, "gla", "gla")
+    train_simple_gla = phase_train_baseline(dev, "simple_gla", "simple_gla", steps=2)
     kern.update(phase_kernels_video(dev))
     video = phase_video(dev)
     kern.update(phase_kernels_hybrid(dev))
@@ -2278,7 +2453,9 @@ def main() -> None:
                 "flash_attention_bwd[causal]":
                     train_unpacked["launches"]["flash_attention_masked_bwd"],
                 "delta_chunk_fwd": serve_gdn["launches"]["delta_chunk_fwd"],
-                "delta_chunk_bwd": train_gdn["launches"]["delta_chunk_bwd"]}
+                "delta_chunk_bwd": train_gdn["launches"]["delta_chunk_bwd"],
+                "gla_chunk_fwd": serve_gla["launches"]["gla_chunk_fwd"],
+                "gla_chunk_bwd": train_gla["launches"]["gla_chunk_bwd"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [
         {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -2286,12 +2463,15 @@ def main() -> None:
         for name, (route, source, replaces) in KERNEL_META.items()
     ]
     for phase in (train, video, hybrid, sparse, train_full, train_hybrid, train_sparse,
-                  train_lora, serve_hybrid, train_packed, train_unpacked, serve_gdn, train_gdn):
+                  train_lora, serve_hybrid, train_packed, train_unpacked, serve_gdn, train_gdn,
+                  serve_gla, train_gla, train_simple_gla):
         phase.pop("launches")
     log(json.dumps({"serve": serve["rates"], "train": train,
                     "serve_hybrid_lm": serve_hybrid["rates"], "train_hybrid_lm_packed": train_packed,
                     "train_hybrid_lm": train_unpacked, "tile_walks": kern["walks"],
                     "serve_gdn": serve_gdn["rates"], "train_gdn": train_gdn,
+                    "gla_kernel_forms": kern["gla_shapes"], "serve_gla": serve_gla["rates"],
+                    "train_gla": train_gla, "train_simple_gla": train_simple_gla,
                     "video": video, "hybrid": hybrid,
                     "hybrid_sparse": sparse, "train_video_full": train_full,
                     "train_video_hybrid": train_hybrid,

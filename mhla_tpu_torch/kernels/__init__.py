@@ -25,14 +25,27 @@ Gated DeltaNet LM: K11 ``delta_chunk.delta_chunk_fwd`` (CUDA C++,
 ``delta_chunk.delta_chunk_bwd`` (``csrc/delta_chunk_bwd.cu``) behind
 ``gated_delta_chunk_fused``.
 
+GLA LM: K12 ``gla_chunk.gla_chunk_fwd`` (CUDA C++, ``csrc/gla_chunk.cu``)
+and its gradient K12b ``gla_chunk.gla_chunk_bwd`` (``csrc/gla_chunk_bwd.cu``)
+behind ``gla_chunk_fused``.
+
 Every wrapper runs its plain PyTorch version for a CPU tensor, launches its
 kernel for a CUDA tensor or raises, and counts its launches in its module's
 ``launches``.
 """
 
-from . import delta_chunk, flash_attention, fmap_rope, mhla_block, mhla_chunk, sparse_attention
+from . import (
+    delta_chunk,
+    flash_attention,
+    fmap_rope,
+    gla_chunk,
+    mhla_block,
+    mhla_chunk,
+    sparse_attention,
+)
 from .delta_chunk import delta_chunk_bwd, delta_chunk_fwd, gated_delta_chunk_fused
 from .fmap_rope import fmap_rope_bwd, fused_fmap_rope_flat
+from .gla_chunk import gla_chunk_bwd, gla_chunk_fused, gla_chunk_fwd
 from .mhla_block import (
     block_readout,
     block_readout_bwd,
@@ -60,7 +73,8 @@ from .sparse_attention import (
 )
 
 _COUNTERS = (fmap_rope.launches, mhla_chunk.launches, mhla_block.launches,
-             flash_attention.launches, sparse_attention.launches, delta_chunk.launches)
+             flash_attention.launches, sparse_attention.launches, delta_chunk.launches,
+             gla_chunk.launches)
 
 
 def launch_counts() -> dict:
@@ -88,6 +102,9 @@ __all__ = [
     "flash_attention",
     "fmap_rope_bwd",
     "fused_fmap_rope_flat",
+    "gla_chunk_bwd",
+    "gla_chunk_fused",
+    "gla_chunk_fwd",
     "gated_delta_chunk_fused",
     "launch_counts",
     "mhla_blockwise_fused",

@@ -3,6 +3,7 @@
 from .attention import sdpa
 from .fused_dense import dense, fused_projections
 from .gated_deltanet import DeltaNetState, GatedDeltaNet
+from .gla import GatedLinearAttention, GLAState
 from .mhla_causal import MHLACausal, MHLACausalState
 from .mhla_vision import MHLA3D, BlockMixing
 from .mlp import GatedMLP, default_intermediate_size, swiglu
@@ -20,9 +21,11 @@ __all__ = [
     "BlockMixing",
     "DeltaNetState",
     "GatedDeltaNet",
+    "GatedLinearAttention",
     "GatedMLP",
     "GatedRMSNorm",
     "GatedRMSNormHeadsFlat",
+    "GLAState",
     "LayerNorm",
     "MHLA3D",
     "MHLACausal",

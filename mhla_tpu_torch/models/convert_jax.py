@@ -17,7 +17,8 @@ import torch
 
 from .gla_lm import MHLALMConfig
 
-_ATTN_DENSE = ("q_proj", "k_proj", "v_proj", "g_proj", "o_proj", "a_proj", "b_proj")
+_ATTN_DENSE = ("q_proj", "k_proj", "v_proj", "g_proj", "o_proj", "a_proj", "b_proj",
+               "gk_proj", "gk_proj_low", "gk_proj_up")
 _ATTN_CONV = ("q_conv1d", "k_conv1d", "v_conv1d")
 _MLP_DENSE = ("gate_proj", "up_proj", "down_proj")
 
@@ -29,10 +30,12 @@ def _t(x) -> torch.Tensor:
 def params_from_jax(params: Mapping[str, Any], cfg: MHLALMConfig) -> Dict[str, torch.Tensor]:
     """flax params (``{"params": {"model": ...}}`` or the inner tree) ->
     float32 state dict for ``MHLAForCausalLM(cfg)``, MHLA, softmax
-    (``SelfAttention``: q/k/v/o projections, their biases, q/k norms) and
-    Gated DeltaNet layers alike (its a/b projections, ``A_log``,
-    ``dt_bias`` and ``o_norm``). Short-convolution kernels ([kernel_size,
-    features], in both packages) are copied as they are."""
+    (``SelfAttention``: q/k/v/o projections, their biases, q/k norms),
+    Gated DeltaNet (its a/b projections, ``A_log``, ``dt_bias`` and
+    ``o_norm``) and GLA layers alike (the gate projections ``gk_proj`` or
+    ``gk_proj_low`` / ``gk_proj_up`` with its bias, and ``g_norm_swish_gate``
+    or ``g_norm``). Short-convolution kernels ([kernel_size, features], in
+    both packages) are copied as they are."""
     tree = params.get("params", params)
     model = tree["model"]
     sd: Dict[str, torch.Tensor] = {
@@ -46,7 +49,7 @@ def params_from_jax(params: Mapping[str, Any], cfg: MHLALMConfig) -> Dict[str, t
         for name in _ATTN_DENSE:
             if name in attn:
                 sd[f"{dst}attn.{name}.weight"] = _t(attn[name]["kernel"]).T.contiguous()
-                if "bias" in attn[name]:  # a softmax layer's qkv bias
+                if "bias" in attn[name]:  # a softmax layer's qkv bias, GLA's gk_proj_up
                     sd[f"{dst}attn.{name}.bias"] = _t(attn[name]["bias"])
         if "mixing_matrix" in attn:  # an MHLA layer
             n = cfg.num_slots

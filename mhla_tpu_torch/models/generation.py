@@ -20,9 +20,9 @@ import torch.nn.functional as F
 
 
 def _pad_softmax_caches(states, max_length: int):
-    """Grow the softmax layers' KV caches (plain (k, v, t) tuples; the MHLA
-    layers' states are named tuples and pass through) from the prefill
-    length to ``max_length`` tokens, zero-filled."""
+    """Grow the softmax layers' KV caches (plain (k, v, t) tuples; the MHLA,
+    Gated DeltaNet and GLA layers' states are named tuples and pass through)
+    from the prefill length to ``max_length`` tokens, zero-filled."""
     out = []
     for s in states:
         if isinstance(s, tuple) and len(s) == 3 and not hasattr(s, "_fields"):

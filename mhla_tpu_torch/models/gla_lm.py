@@ -1,6 +1,7 @@
 """MHLA causal language model (counterpart of ``mhla_tpu/models/gla_lm.py``,
 the ``attn_extends='mhla'`` family, its softmax hybrid, the all-softmax
-``'transformer'`` family and the ``'gated_deltanet'`` baseline).
+``'transformer'`` family and the ``'gated_deltanet'``, ``'gla'`` and
+``'simple_gla'`` baselines).
 
 Pre-norm blocks of [RMSNorm -> attention -> residual -> RMSNorm -> GatedMLP
 -> residual], a final RMSNorm and tied (or separate) unembedding. The
@@ -8,14 +9,16 @@ attention of a layer is ``SelfAttention`` (causal softmax with RoPE) when
 the layer is listed in ``config.attn["layers"]`` or ``attn_extends ==
 "transformer"``, else ``GatedDeltaNet`` for ``attn_extends ==
 "gated_deltanet"`` (head dim hidden * expand_k / heads, value expansion
-expand_v / expand_k, as the JAX branch sets them) and ``MHLACausal``
-otherwise. The ``MHLALMConfig`` defaults are the
+expand_v / expand_k, as the JAX branch sets them),
+``GatedLinearAttention`` for ``"gla"`` and ``"simple_gla"`` (the config's
+widths, feature map, output gate and chunk size; simple GLA with one
+decay per head) and ``MHLACausal`` otherwise. The ``MHLALMConfig`` defaults are the
 340M model of ``configs/mhla_340m.yaml``, so that model needs no yaml
 reader; ``MHLALMConfig.from_json`` reads a reference-format model json.
 
 ``attention_mask`` reaches the MHLA layers only and ``segment_ids`` every
-layer, as in the JAX package; ``segment_ids`` with a Gated DeltaNet layer
-raises ``NotImplementedError``, as it does there. Waits for a later port
+layer, as in the JAX package; ``segment_ids`` with a Gated DeltaNet or GLA
+layer raises ``NotImplementedError``, as it does there. Waits for a later port
 (raises ``NotImplementedError``): every other ``attn_extends`` family and
 tensor parallelism.
 """
@@ -33,6 +36,7 @@ import torch.nn as nn
 from ..layers import GatedMLP, MHLACausal, RMSNorm, dense
 from ..layers.attention import SelfAttention
 from ..layers.gated_deltanet import GatedDeltaNet
+from ..layers.gla import GatedLinearAttention
 
 
 @dataclasses.dataclass
@@ -97,11 +101,11 @@ class MHLABlock(nn.Module):
         super().__init__()
         cfg = config
         self.is_softmax = cfg.is_softmax(layer_idx)
-        self.is_delta = not self.is_softmax and cfg.attn_extends == "gated_deltanet"
-        if not (self.is_softmax or self.is_delta or cfg.attn_extends == "mhla"):
+        self.extends = "softmax" if self.is_softmax else cfg.attn_extends
+        if self.extends not in ("softmax", "mhla", "gated_deltanet", "gla", "simple_gla"):
             raise NotImplementedError(
-                f"only the mhla, gated_deltanet and softmax attention families are "
-                f"ported (layer {layer_idx}, attn_extends={cfg.attn_extends!r})"
+                f"only the mhla, gated_deltanet, gla, simple_gla and softmax attention "
+                f"families are ported (layer {layer_idx}, attn_extends={cfg.attn_extends!r})"
             )
         if cfg.tp_mesh is not None:
             raise NotImplementedError("tensor parallelism is not ported yet")
@@ -118,13 +122,28 @@ class MHLABlock(nn.Module):
                 max_position_embeddings=cfg.max_position_embeddings,
                 device=device,
             )
-        elif self.is_delta:
+        elif self.extends == "gated_deltanet":
             self.attn = GatedDeltaNet(
                 hidden_size=cfg.hidden_size,
                 head_dim=int(cfg.hidden_size * cfg.expand_k) // cfg.num_heads,
                 num_heads=cfg.num_heads,
                 expand_v=cfg.expand_v / cfg.expand_k,
                 norm_eps=cfg.norm_eps,
+                device=device,
+            )
+        elif self.extends in ("gla", "simple_gla"):
+            self.attn = GatedLinearAttention(
+                hidden_size=cfg.hidden_size,
+                expand_k=cfg.expand_k,
+                expand_v=cfg.expand_v,
+                num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads,
+                feature_map=cfg.feature_map,
+                use_output_gate=cfg.use_output_gate,
+                elementwise_affine=cfg.elementwise_affine,
+                norm_eps=cfg.norm_eps,
+                chunk_size=cfg.chunk_size,
+                simple=self.extends == "simple_gla",
                 device=device,
             )
         else:
@@ -153,11 +172,11 @@ class MHLABlock(nn.Module):
     def forward(self, x, state=None, use_cache=False, attention_mask=None, segment_ids=None):
         if self.is_softmax:
             h, new_state = self.attn(self.attn_norm(x), state, use_cache, segment_ids)
-        elif self.is_delta:
+        elif self.extends != "mhla":
             if segment_ids is not None:
                 raise NotImplementedError(
                     "packed-varlen segment_ids is implemented for the mhla and softmax "
-                    "attention paths, not attn_extends=gated_deltanet"
+                    f"attention paths, not attn_extends={self.extends}"
                 )
             h, new_state = self.attn(self.attn_norm(x), state, use_cache)
         else:

@@ -4,6 +4,7 @@ kernels in ``mhla_tpu_torch.kernels`` are held to."""
 from .block_mix import block_mixing_matrix
 from .delta_rule import gated_delta_chunk, gated_delta_recurrent, l2norm
 from .feature_maps import FEATURE_MAPS, get_feature_map
+from .gla_chunk import gla_chunk, gla_recurrent
 from .mhla_blockwise import mhla_blockwise_mh
 from .mhla_chunk import (
     DEFAULT_CHUNK_SIZE,
@@ -42,6 +43,8 @@ __all__ = [
     "gated_delta_chunk",
     "gated_delta_recurrent",
     "get_feature_map",
+    "gla_chunk",
+    "gla_recurrent",
     "init_causal_mixing_matrix",
     "init_mhla_state",
     "l2norm",

@@ -15,16 +15,17 @@ the model section with a reference-format model json (``attn`` there makes
 a hybrid with softmax layers); ``--train.varlen=true`` packs several
 documents per row with exact boundaries (segment ids; the loss reads each
 row's ``targets``). ``--model.attn_extends=gated_deltanet`` trains the Gated
-DeltaNet baseline at the same widths (K11 / K11b on the card; not with
-``--train.varlen``). For a tiny run on the CPU:
+DeltaNet baseline at the same widths (K11 / K11b on the card),
+``--model.attn_extends=gla`` or ``simple_gla`` the GLA baselines (K12 / K12b);
+none of them with ``--train.varlen``. For a tiny run on the CPU:
 
     python -m mhla_tpu_torch.train.lm_train --device=cpu --model.num_hidden_layers=2 \
         --model.hidden_size=512 --model.num_heads=2 --model.vocab_size=100 \
         --train.batch_size=2 --train.seq_len=130 --train.max_steps=4 --work_dir=/tmp/lm
 
-(add ``--model.attn_extends=gated_deltanet`` for the Gated DeltaNet LM: at
-hidden 512 and 2 heads its Dk is 128, so a prefill of 130 tokens takes the
-fused chunked path).
+(add ``--model.attn_extends=gated_deltanet`` for the Gated DeltaNet LM, or
+``--model.attn_extends=gla`` for the GLA LM: at hidden 512 and 2 heads their
+Dk is 128, so a prefill of 130 tokens takes the fused chunked path).
 
 Not ported (``NotImplementedError``): data and tensor parallelism
 (``n_data``/``n_tensor`` > 1) and L2Wrap.

@@ -1,6 +1,7 @@
 """Profile training steps of the causal MHLA LM on one CUDA device.
 
-    python -m mhla_tpu_torch.train.profile_step [--config=mhla|hybrid|gated_deltanet] [--varlen]
+    python -m mhla_tpu_torch.train.profile_step [--config=mhla|hybrid|gated_deltanet|gla|simple_gla]
+        [--varlen]
 
 Builds what ``lm_train.main`` trains by default (the 340M model,
 ``MHLALMConfig()`` widths, float32 parameters, bf16 compute, seeded init,
@@ -9,7 +10,10 @@ B=8 T=2048 synthetic tokens) through ``lm_train.build_training``; with
 128) in every third layer from 0 (``HYBRID_ATTN``); with
 ``--config=gated_deltanet`` the Gated DeltaNet LM at the same widths
 (``attn_extends='gated_deltanet'``: 4 heads, Dk 128, Dv 256, K11 / K11b in
-every layer); and with ``--varlen`` (not with gated_deltanet)
+every layer); with ``--config=gla`` the GLA LM at the same widths
+(``attn_extends='gla'``: 4 heads, Dk 128, Dv 256, K12 / K12b in every layer)
+and with ``--config=simple_gla`` its one-decay-per-head form; and with
+``--varlen`` (not with gated_deltanet or the GLA forms)
 packed documents with segment ids (``--train.varlen=true``). It runs
 warm-up steps, then times ``STEPS`` steps on the host clock (each ending in
 a device sync) and records one more under ``torch.profiler``. Prints the
@@ -40,6 +44,7 @@ HYBRID_ATTN = {"layers": list(range(0, 24, 3)), "num_heads": 8}
 
 _GROUPS = (
     ("K11/K11b delta rule (CUDA)", r"delta_(prep|fwd_chain|bwd_chain|bwd_grads)"),
+    ("K12/K12b GLA (CUDA)", r"chunk_outer_kernel|chain_kernel|readout_kernel|grads_kernel"),
     ("K9 flash forward (CUDA)", r"flash_fwd_kernel|seg_tile_ranges"),
     ("K9b flash backward (CUDA)", r"flash_bwd_"),
     ("K1/K1b fmap_rope (Triton)", r"_fmap_rope"),
@@ -92,7 +97,8 @@ def summarize_profile(prof, wall_us: float, groups, what: str = "step", top: int
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("mhla", "hybrid", "gated_deltanet"), default="mhla")
+    ap.add_argument("--config", choices=("mhla", "hybrid", "gated_deltanet", "gla", "simple_gla"),
+                    default="mhla")
     ap.add_argument("--varlen", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -100,7 +106,7 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     model = MHLALMConfig(
         attn=HYBRID_ATTN if args.config == "hybrid" else None,
-        attn_extends="gated_deltanet" if args.config == "gated_deltanet" else "mhla",
+        attn_extends="mhla" if args.config in ("mhla", "hybrid") else args.config,
     )
     cfg = LMTrainConfig(model=model,
                         optimizer=OptimizerConfig(warmup_steps=1, total_steps=20000),

@@ -1096,3 +1096,134 @@ def test_tiny_gdn_lm_serves_and_trains_through_the_kernels(dev):
     assert counts["delta_chunk_fwd"] == counts["delta_chunk_bwd"] == 2, counts
     assert torch.isfinite(metrics["loss"])
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+def _gla_inputs(dev, b, t, h, dv, dtype, c=64, seed=0):
+    """K12 / K12b's padded inputs as ``gla_chunk_fused`` makes them: relu q,
+    k and v in ``dtype``, a layer-like decay logsigmoid(x) / 16, then qd, kd,
+    v in the compute dtype and e^{G_last}; a nonzero initial state and the
+    cotangents (dO zero on the ragged tail)."""
+    from mhla_tpu_torch.kernels import gla_chunk as gc
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    q, k, v = torch.relu(rn(b, t, h, 128)), torch.relu(rn(b, t, h, 128)), rn(b, t, h, dv)
+    gk = torch.nn.functional.logsigmoid(2 * rn(b, t, h, 128) + 1) / 16
+    qd, kd, v4, egl, _ = gc._prep(q.to(dtype), k.to(dtype), v.to(dtype), gk, c)
+    do = rn(*v4.shape)
+    do[:, t:] = 0
+    return (qd.contiguous(), kd.contiguous(), v4, egl, 0.1 * rn(b, h, 128, dv),
+            do.to(v4.dtype), rn(b, h, 128, dv))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (_BF16, KERNEL_TOL)])
+@pytest.mark.parametrize("b,t,h,dv,c", [(2, 2048, 4, 256, 64), (1, 781, 4, 256, 64),
+                                        (1, 200, 2, 128, 32), (3, 64, 1, 64, 16)])
+def test_gla_chunk_kernels_match_plain(dev, b, t, h, dv, c, dtype, tol):
+    """K12 (o, the final state and the entry states) and K12b (dqd, dkd, dv,
+    degl, ds0) against their plain versions in the layer's float32 form
+    (JAX's bound between its fused kernel and its op) and in bf16; K12b
+    twice, bit for bit; one launch each per call."""
+    from mhla_tpu_torch.kernels import gla_chunk as gc
+
+    qd, kd, v, egl, s0, do, ds = _gla_inputs(dev, b, t, h, dv, dtype, c)
+    before = dict(gc.launches)
+    out = gc.gla_chunk_fwd(qd, kd, v, egl, s0, c, True)
+    ref = gc.gla_chunk_fwd_plain(qd, kd, v, egl, s0, c, True)
+    for name, r, x in zip(("o", "state", "entry states"), ref, out):
+        assert_close(f"K12 {name}", r.float(), x.float(), tol)
+    serving = gc.gla_chunk_fwd(qd, kd, v, egl, s0, c)
+    assert serving[2] is None and torch.equal(serving[0], out[0])
+    got = gc.gla_chunk_bwd(qd, kd, v, egl, ref[2], do, ds, c)
+    again = gc.gla_chunk_bwd(qd, kd, v, egl, ref[2], do, ds, c)
+    want = gc.gla_chunk_bwd_plain(qd, kd, v, egl, ref[2], do, ds, c)
+    for name, r, x, y in zip(("dqd", "dkd", "dv", "degl", "ds0"), want, got, again):
+        assert_close(f"K12b {name}", r, x, tol)
+        assert torch.equal(x, y), name
+    assert gc.launches == {"gla_chunk_fwd": before["gla_chunk_fwd"] + 2,
+                           "gla_chunk_bwd": before["gla_chunk_bwd"] + 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, _BF16])
+def test_gla_op_gradients_through_the_kernels(dev, dtype):
+    """gla_chunk_fused's gradients (through K12 / K12b and the decay chains
+    around them) against autograd of the plain op on the same inputs: the
+    float32 op (JAX's bound, 1e-4) and, for bf16 inputs, within the bf16
+    floor (chip_smoke.OP_GRAD_TOL)."""
+    from mhla_tpu_torch.kernels.gla_chunk import gla_chunk_fused
+    from mhla_tpu_torch.ops.gla_chunk import gla_chunk
+
+    gen = torch.Generator(dev).manual_seed(3)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    raw = [torch.relu(rn(1, 300, 2, 128)).to(dtype), torch.relu(rn(1, 300, 2, 128)).to(dtype),
+           rn(1, 300, 2, 256).to(dtype), torch.nn.functional.logsigmoid(rn(1, 300, 2, 128)) / 16,
+           0.1 * rn(1, 2, 128, 256)]
+    w = rn(1, 300, 2, 256)
+    grads = []
+    for fn in (gla_chunk_fused, gla_chunk):
+        xs = [x.clone().requires_grad_() for x in raw]
+        o, s = fn(*xs[:4], initial_state=xs[4], output_final_state=True)
+        ((o.float() * w).sum() + s.sum()).backward()
+        grads.append([x.grad for x in xs])
+    for name, x, r in zip(("q", "k", "v", "gk", "s0"), *grads):
+        assert_close(f"d{name}", r.float(), x.float(), 1e-4 if dtype == torch.float32 else 1e-2)
+
+
+def test_gla_wrappers_raise_instead_of_falling_back(dev):
+    from mhla_tpu_torch.kernels import gla_chunk as gc
+
+    qd, kd, v, egl, s0, do, ds = _gla_inputs(dev, 1, 128, 1, 128, torch.float32)
+    with pytest.raises(TypeError):  # mixed dtypes
+        gc.gla_chunk_fwd(qd.to(_BF16), kd, v, egl, s0, 64)
+    with pytest.raises(TypeError):  # neither bf16 nor float32
+        gc.gla_chunk_fwd(qd.half(), kd.half(), v.half(), egl, s0, 64)
+    with pytest.raises(ValueError):  # Dk != 128
+        gc.gla_chunk_fwd(qd[..., :64].contiguous(), kd[..., :64].contiguous(), v,
+                         egl[..., :64].contiguous(), s0[:, :, :64].contiguous(), 64)
+    with pytest.raises(ValueError):  # not whole chunks
+        gc.gla_chunk_fwd(qd[:, :100], kd[:, :100], v[:, :100], egl, s0, 64)
+
+
+@pytest.mark.parametrize("dk,dv,c", [(256, 128, 64), (128, 128, 8), (128, 128, 128)])
+def test_gla_routed_shapes_the_kernels_lack_raise(dev, dk, dv, c):
+    """Shapes JAX's rule sends to its Pallas kernel but K12 does not hold yet
+    (Dk = 256, a chunk not a multiple of 16 or above 64): the fused path
+    raises on the card instead of running the plain op."""
+    from mhla_tpu_torch.kernels.gla_chunk import gla_chunk_fused, kernel_route
+
+    gen = torch.Generator(dev).manual_seed(4)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    q, k, v = rn(1, 128, 1, dk), rn(1, 128, 1, dk), rn(1, 128, 1, dv)
+    gk = -torch.rand(1, 128, 1, dk, generator=gen, device=dev) / 16
+    assert kernel_route(128, c, dk, dv)
+    with pytest.raises(ValueError):
+        gla_chunk_fused(q, k, v, gk, chunk_size=c)
+
+
+@pytest.mark.parametrize("extends", ["gla", "simple_gla"])
+def test_tiny_gla_lm_serves_and_trains_through_the_kernels(dev, extends):
+    """A 2-layer GLA LM at Dk = 128: a 130-token prefill on K12, decode on
+    the recurrence, decode-step logits against one forward, and a training
+    step through K12 / K12b."""
+    from mhla_tpu_torch.train.lm_train import lm_loss
+
+    cfg = MHLALMConfig(hidden_size=512, num_hidden_layers=2, num_heads=2, vocab_size=100,
+                       attn_extends=extends, dtype=_BF16)
+    model = init_lm_params(MHLAForCausalLM(cfg, device=dev), torch.Generator(dev).manual_seed(0))
+    serving = MHLAForCausalLM(cfg, device=dev).to(_BF16).eval()
+    serving.load_state_dict(model.state_dict())
+    ids = torch.randint(0, 100, (2, 130), generator=torch.Generator(dev).manual_seed(1),
+                        device=dev)
+    kernels.reset_launch_counts()
+    out, scores = generate(serving, ids, max_new_tokens=6, output_scores=True)
+    assert kernels.launch_counts()["gla_chunk_fwd"] == 2
+    with torch.no_grad():
+        full, _ = serving(out[:, :-1])
+    assert_close("tiny GLA LM decode vs full forward", full[:, 129:], scores, 5e-2)
+    state = init_train_state(model, OptimizerConfig(warmup_steps=1, learning_rate=1e-3))
+    kernels.reset_launch_counts()
+    state, metrics = make_train_step(lm_loss)(state, ids)
+    counts = kernels.launch_counts()
+    assert counts["gla_chunk_fwd"] == counts["gla_chunk_bwd"] == 2, counts
+    assert torch.isfinite(metrics["loss"])
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())

@@ -66,7 +66,7 @@ _RUN_TINY_WAN_TRAINING = textwrap.dedent(
     assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
     assert all(p.grad is not None for p in model.parameters())
     counts = kernels.launch_counts()
-    assert len(counts) == 23 and not any(counts.values()), counts
+    assert len(counts) == 25 and not any(counts.values()), counts
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "mhla_tpu", "triton"))
     print("LEAKED", leaked)
@@ -135,7 +135,7 @@ def test_launch_counters_stay_zero_on_cpu():
         "flash_attention", "radial_flash_attention",
         "unblockify", "blockify", "block_readout_bwd", "flash_attention_bwd",
         "radial_flash_attention_bwd", "flash_attention_masked", "flash_attention_masked_bwd",
-        "delta_chunk_fwd", "delta_chunk_bwd",
+        "delta_chunk_fwd", "delta_chunk_bwd", "gla_chunk_fwd", "gla_chunk_bwd",
     }
     assert all(n == 0 for n in counts.values()), counts
 
@@ -156,6 +156,24 @@ def test_launch_counters_stay_zero_on_cpu_through_a_gated_deltanet_step():
     counts = kernels.launch_counts()
     assert counts["delta_chunk_fwd"] == counts["delta_chunk_bwd"] == 0
     assert all(n == 0 for n in counts.values()), counts
+
+
+def test_launch_counters_stay_zero_on_cpu_through_a_gla_step():
+    """The GLA LM (and simple GLA) at Dk = 128 (the fused path's route): a
+    prefill of 130 tokens, decode, and a training step's backward through
+    K12 / K12b's autograd Function, all on their plain versions."""
+    for extends in ("gla", "simple_gla"):
+        kernels.reset_launch_counts()
+        cfg = MHLALMConfig(**{**TINY, "attn_extends": extends})
+        model = init_lm_params(MHLAForCausalLM(cfg), torch.Generator().manual_seed(0))
+        ids = torch.randint(0, cfg.vocab_size, (2, 130),
+                            generator=torch.Generator().manual_seed(3))
+        assert generate(model, ids, max_new_tokens=3).shape == (2, 133)
+        logits, _ = model(ids)
+        logits.float().sum().backward()
+        assert all(p.grad is not None for p in model.parameters())
+        counts = kernels.launch_counts()
+        assert all(n == 0 for n in counts.values()), counts
 
 
 def test_launch_counters_stay_zero_on_cpu_through_video_sampling():
@@ -188,4 +206,4 @@ def test_launch_counters_stay_zero_on_cpu_through_hybrid_sparse_sampling():
     )
     assert latents.shape == (1, 8, 32, 32, 16) and torch.isfinite(latents).all()
     counts = kernels.launch_counts()
-    assert len(counts) == 23 and all(n == 0 for n in counts.values()), counts
+    assert len(counts) == 25 and all(n == 0 for n in counts.values()), counts

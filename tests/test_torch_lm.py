@@ -244,7 +244,7 @@ def test_mhla_causal_layer_matches_jax(kv_heads, gate, fmap):
     "over,call",
     [
         ({"attn_extends": "linear_attn"}, {}),
-        ({"attn_extends": "gla"}, {}),
+        ({"attn_extends": "mamba2"}, {}),
         ({"tp_mesh": object()}, {}),
         ({"attn_mode": "fused_recurrent"}, {}),
     ],
