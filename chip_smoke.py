@@ -51,21 +51,46 @@ exits non-zero:
              gradients; step time, tok/s, peak memory; then the gradients
              of an MHLA + softmax block pair on packed rows through the
              kernels against the plain definitions.
-10. kernels (delta) — K11 (the chunked gated delta rule, csrc/delta_chunk.cu)
+10. kernels (long context) — K9 / K9b at head dim 256 (the default 4 heads
+             of the 340M hybrid's softmax layers) in the non-causal, causal
+             and causal + segment-id forms at [8, 2048, 4, 256] of
+             ``PackedVarlenIterator`` rows and at an unaligned length with
+             arbitrary ids (lse, two K9b runs bit for bit, tiles walked against
+             the rule's count); the wide K3 / K3b at N = 64, 256, 448 and 512
+             chunks (two K3b runs bit for bit); each timed beside its plain
+             version, its bound and one library call.
+11. ppl (long context) — ``eval.ppl_cli.main`` on the long-context hybrid
+             (its json: heads of 256, 32,768 positions, 512 mixing slots;
+             seeded init, bf16 compute) over 2 x 28,672 seeded tokens in
+             blocks of 28,672 with buckets of 2,048: a finite report with its
+             14 buckets, the exact launches (K9 causal 8 and the wide K3 16 a
+             block, at N = 448), tok/s, peak memory; then the mean NLL of a
+             4,096-token block through the kernels against the plain versions.
+12. serve (long context) — ``generate`` 1 x 4,096 + 32 greedy tokens with
+             the same model in bf16: the exact launches, the decode-step
+             logits against one forward over the whole sequence.
+13. train (long context) — ``lm_train.main --model_json=<the long-context
+             hybrid>`` 3 steps at B=1 T=16,384 (N = 256: the wide K3 / K3b; K9
+             / K9b causal at head dim 256): finite, falling loss, exact
+             launches, mixing matrices; step time, tok/s, peak memory.
+14. train (d256 packed) — 3 steps of ``--train.varlen=true`` at B=8 T=2048
+             with the default-heads hybrid at a 2,048 context: K9 / K9b's
+             causal + segment-id forms at head dim 256.
+15. kernels (delta) — K11 (the chunked gated delta rule, csrc/delta_chunk.cu)
              and K11b (its backward, csrc/delta_chunk_bwd.cu) against their
              plain versions at [8, 2048, 4, 128|256] (timed, beside the
              bound) and at 1 x 781 (a ragged last chunk), bf16 with a nonzero
              initial state; two K11b runs bit for bit; the op's gradients
              through the kernels against autograd of the plain op.
-11. serve (gdn) — ``generate`` with the 340M Gated DeltaNet LM
+16. serve (gdn) — ``generate`` with the 340M Gated DeltaNet LM
              (``attn_extends='gated_deltanet'``, bf16, seeded init): the same
              two requests; K11 in every layer of the prefill, decode on the
              token recurrence. Checks the exact launches and the decode-step
              logits against one chunked forward over the whole sequence.
-12. train (gdn) — ``lm_train.main --model.attn_extends=gated_deltanet`` 6
+17. train (gdn) — ``lm_train.main --model.attn_extends=gated_deltanet`` 6
              steps at B=8 T=2048: finite, falling loss, K11 and K11b once per
              layer and step; step time, tok/s, peak memory.
-13. kernels (gla) — K12 (chunked gated linear attention, csrc/gla_chunk.cu)
+18. kernels (gla) — K12 (chunked gated linear attention, csrc/gla_chunk.cu)
              and K12b (its backward, csrc/gla_chunk_bwd.cu) against their
              plain versions at [8, 2048, 4, 128|256] in float32 (the layer's
              form) and bf16, at 1 x 781 (a ragged last chunk) in both, and at
@@ -73,31 +98,31 @@ exits non-zero:
              initial state (timed beside the bound at [8, 2048] and the bench
              shape); two K12b runs bit for bit at every shape; the op's
              gradients through the kernels against autograd of the plain op.
-14. serve (gla) — ``generate`` with the 340M GLA LM (``attn_extends='gla'``,
+19. serve (gla) — ``generate`` with the 340M GLA LM (``attn_extends='gla'``,
              bf16, seeded init): the same two requests; K12 in every layer of
              the prefill, decode on the token recurrence. Checks the exact
              launches and the decode-step logits against one chunked forward.
-15. train (gla) — ``lm_train.main --model.attn_extends=gla`` 6 steps at B=8
+20. train (gla) — ``lm_train.main --model.attn_extends=gla`` 6 steps at B=8
              T=2048: finite, falling loss, K12 and K12b once per layer and
              step; step time, tok/s, peak memory.
-16. train (simple_gla) — the same, 2 steps, with one decay per head
+21. train (simple_gla) — the same, 2 steps, with one decay per head
              (``attn_extends='simple_gla'``): finite losses, exact launches.
-17. kernels (video) — K5-K9 against their plain versions at the shapes of
+22. kernels (video) — K5-K9 against their plain versions at the shapes of
              the Wan2.1-1.3B sampler: CFG batch 2, 31,500 tokens in 150
              blocks of 210, cross-attention against 512 text tokens.
-18. video   — ``mhla_tpu_torch.eval.video_infer_cli.main`` samples 4
+23. video   — ``mhla_tpu_torch.eval.video_infer_cli.main`` samples 4
              DPM-Solver++ steps with CFG 5.0 of the 30-layer full-MHLA
              model at latents (21, 60, 100, 16). Checks finite latents, the
              exact launch counts of K5-K9 and one forward through the
              kernels against the same forward through their plain versions.
-19. kernels (hybrid) — K10 (radial flash attention) against its plain
+24. kernels (hybrid) — K10 (radial flash attention) against its plain
              version at [2, 31,500, 12, 128] in 21 frames and at a small
              ragged geometry, and K9 at Tq = Tk = 31,500; each beside its
              bound and one ``scaled_dot_product_attention`` call.
-20. video (hybrid) — the CLI samples the hybrid model (layers 0, 3, ..., 27
+25. video (hybrid) — the CLI samples the hybrid model (layers 0, 3, ..., 27
              dense softmax on K9, the other 20 MHLA), 4 steps: finite
              latents, exact launch counts.
-21. video (hybrid_sparse) — ``sample_video_latents`` on the same weights
+26. video (hybrid_sparse) — ``sample_video_latents`` on the same weights
              with those ten layers radial-sparse, 4 steps at t x 1000 =
              1000, 900, 750, 501: K10 launches in the two steps below the
              dense guard (850) and K9 takes its place in the two above.
@@ -105,7 +130,7 @@ exits non-zero:
              the kernels against the plain versions, and that the guarded
              forward at t = 900 equals the hybrid model's.
 
-22. kernels (video training) — K5b, K8b and K7b against their plain versions
+27. kernels (video training) — K5b, K8b and K7b against their plain versions
              at B=1, 150 blocks of 210 tokens (float32 and bf16, with and
              without RoPE) and K9b at 31,500 x 512 and 31,500 x 31,500, each
              beside its bound and, where one exists, a library call (two
@@ -113,7 +138,7 @@ exits non-zero:
              then the gradients of one ``MHLA3D`` layer and one
              ``WanSelfAttention`` layer at 31,500 tokens through the kernels
              against the same layer through the plain versions.
-23. train (video) — ``mhla_tpu_torch.train.wan_train.main`` trains the
+28. train (video) — ``mhla_tpu_torch.train.wan_train.main`` trains the
              30-layer model 3 steps at 31,500 tokens, batch 1 (float32
              parameters, bf16 compute, per-block remat, AdamW 1e-4 with clip
              0.1 after a 1-step warm-up, EMA), in the full-MHLA and in the
@@ -121,7 +146,7 @@ exits non-zero:
              gradient norms and the exact launch counts of K5-K9 and
              K5b-K9b; prints seconds per step, peak memory and the final
              checkpoint's seconds and size.
-24. kernels (sparse training) — K10 in its training form (which also
+29. kernels (sparse training) — K10 in its training form (which also
              writes the masked log-sum-exp) and K10b (the radial flash
              backward) against their plain versions at [1, 31,500, 12, 128]
              in 21 frames, each beside its bound (allowed pairs counted
@@ -131,11 +156,11 @@ exits non-zero:
              (437 tokens in 4 frames); the gradients of one radial-sparse
              ``WanSelfAttention`` layer at 31,500 tokens through the kernels
              against the same layer through the plain versions.
-25. train (video, hybrid_sparse) — ``wan_train.main`` as in 23 with the ten
+30. train (video, hybrid_sparse) — ``wan_train.main`` as in 28 with the ten
              softmax layers under the radial mask (``model.sparse_attn_idx``):
              K10 and K10b take the place of K9 and K9b in those layers; the
              exact launch counts.
-26. train (video, hybrid_sparse + LoRA) — the same with ``lora.enable``:
+31. train (video, hybrid_sparse + LoRA) — the same with ``lora.enable``:
              the same launch counts, the base parameters bit for bit those
              of the seeded init after the steps, every adapter's B moved off
              zero, peak memory and the checkpoint's size (adapters only).
@@ -310,6 +335,19 @@ KERNEL_META = {
                       "mhla_tpu/kernels/gla_chunk_pallas.py:85"),
     "gla_chunk_bwd": ("cuda", "mhla_tpu_torch/csrc/gla_chunk_bwd.cu",
                       "mhla_tpu/kernels/gla_chunk_pallas.py:160"),
+    # the long-context path: K9 / K9b at head dim 256, K3 / K3b beyond 32 chunks
+    "flash_attention[causal,d256]": ("cuda", "mhla_tpu_torch/csrc/flash_fwd.cu",
+                                     "mhla_tpu/kernels/flash_attention.py:73"),
+    "flash_attention[causal+segment,d256]": ("cuda", "mhla_tpu_torch/csrc/flash_fwd.cu",
+                                             "mhla_tpu/kernels/flash_attention.py:73"),
+    "flash_attention_bwd[causal,d256]": ("cuda", "mhla_tpu_torch/csrc/flash_bwd.cu",
+                                         "mhla_tpu/kernels/flash_attention.py:73"),
+    "flash_attention_bwd[causal+segment,d256]": ("cuda", "mhla_tpu_torch/csrc/flash_bwd.cu",
+                                                 "mhla_tpu/kernels/flash_attention.py:73"),
+    "mix_states[wide]": ("cuda", "mhla_tpu_torch/csrc/mhla_mix_wide.cu",
+                         "mhla_tpu/kernels/mhla_chunk_pallas.py:293"),
+    "mix_states_bwd[wide]": ("cuda", "mhla_tpu_torch/csrc/mhla_mix_wide.cu",
+                             "mhla_tpu/kernels/mhla_chunk_pallas.py:459"),
 }
 FWD_KERNELS = ("fmap_rope", "chunk_states", "mix_states", "chunk_output")
 BWD_KERNELS = ("fmap_rope_bwd", "chunk_output_bwd", "mix_states_bwd", "chunk_states_bwd")
@@ -860,6 +898,20 @@ def phase_grads(dev: torch.device) -> dict:
     return results
 
 
+def check_mixing_matrices(model) -> int:
+    """Every mixing matrix tril in [1e-5, 1] with a non-zero gradient; their count."""
+    n_mix = 0
+    for name, p in model.named_parameters():
+        if name.endswith("mixing_matrix"):
+            n_mix += 1
+            low = p[torch.tril(torch.ones_like(p, dtype=torch.bool))]
+            if torch.count_nonzero(torch.triu(p, 1)) or low.min() < 1e-5 or low.max() > 1:
+                raise AssertionError(f"{name} left tril [1e-5, 1] after the steps")
+            if p.grad is None or not torch.count_nonzero(p.grad):
+                raise AssertionError(f"{name} got no gradient")
+    return n_mix
+
+
 def phase_train(dev: torch.device) -> dict:
     from mhla_tpu_torch import kernels
     from mhla_tpu_torch.train import lm_train
@@ -887,15 +939,7 @@ def phase_train(dev: torch.device) -> dict:
         raise AssertionError(f"loss did not fall: {losses}")
     if not all(counts[name] > 0 for name in FWD_KERNELS + BWD_KERNELS):
         raise AssertionError(f"a kernel of the training path never launched: {counts}")
-    n_mix = 0
-    for name, p in out["model"].named_parameters():
-        if name.endswith("mixing_matrix"):
-            n_mix += 1
-            low = p[torch.tril(torch.ones_like(p, dtype=torch.bool))]
-            if torch.count_nonzero(torch.triu(p, 1)) or low.min() < 1e-5 or low.max() > 1:
-                raise AssertionError(f"{name} left tril [1e-5, 1] after the steps")
-            if p.grad is None or not torch.count_nonzero(p.grad):
-                raise AssertionError(f"{name} got no gradient")
+    n_mix = check_mixing_matrices(out["model"])
     step_s = statistics.median(out["step_seconds"][1:])
     tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
     log(f"[train] 340M, B={TRAIN_BATCH} T={TRAIN_SEQ}, float32 params, bf16 compute: "
@@ -1338,15 +1382,7 @@ def phase_train_hybrid(dev: torch.device, varlen: bool = True,
     model = out["model"]
     if sum(b.is_softmax for b in model.model.layers) != LM_SOFTMAX_LAYERS:
         raise AssertionError("not the hybrid model")
-    n_mix = 0
-    for name, p in model.named_parameters():
-        if name.endswith("mixing_matrix"):
-            n_mix += 1
-            low = p[torch.tril(torch.ones_like(p, dtype=torch.bool))]
-            if torch.count_nonzero(torch.triu(p, 1)) or low.min() < 1e-5 or low.max() > 1:
-                raise AssertionError(f"{name} left tril [1e-5, 1] after the steps")
-            if p.grad is None or not torch.count_nonzero(p.grad):
-                raise AssertionError(f"{name} got no gradient")
+    n_mix = check_mixing_matrices(model)
     step_s = statistics.median(out["step_seconds"][1:])
     tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
     log(f"[{tag}] 340M hybrid on {'packed' if varlen else 'token'} rows, B={TRAIN_BATCH} "
@@ -1363,6 +1399,470 @@ def phase_train_hybrid(dev: torch.device, varlen: bool = True,
     if varlen:
         result["block_grads"] = check_block_grads(dev)
     return result
+
+
+# The long-context hybrid (the 340M widths, softmax in layers 0, 3, ..., 21
+# with the LM's default 4 heads of 256, 16 MHLA layers, 32,768 positions:
+# 512 mixing slots). ppl_cli's blocks of 28,672 tokens mix 448 chunks, a
+# 4,096-token prompt 64, a 16,384-token training row 256: every MHLA layer
+# there takes the wide K3 / K3b, every softmax layer K9 / K9b at head dim 256.
+LONG_POSITIONS, LONG_HEAD_DIM = 32768, 256
+PPL_BLOCK, PPL_BUCKET, PPL_BLOCKS = 28672, 2048, 2
+# Relative-RMS tolerance of the logits of a 28,672-token block through the
+# kernels against the plain versions, over the block and in each 2,048-token
+# bucket. Measured on an H100: 4.3e-2 over the block, 3.2e-2 in the first
+# bucket growing to 4.8e-2 in the last (the bf16 noise of 24 layers on a
+# bf16 residual stream, as decode vs full's 3.2e-2); K9 with its output past
+# 2,048 tokens shifted by one row gives 1.6e-1 (bucket 1.9e-1), with its keys
+# cut to a 2,048-token window 1.09. The limit sits between.
+PPL_TOL = 1e-1
+# Relative tolerance of the block's mean NLL, kernels vs plain: a coarse
+# check (over a 4,096-token block the faults above moved it 7.8e-5, 4.1e-4)
+PPL_NLL_TOL = 1e-2
+LONG_PROMPT, LONG_NEW = 4096, 32
+LONG_TRAIN_SEQ, LONG_TRAIN_STEPS = 16384, 3
+# per forward of the long-context hybrid on token rows: K1 on q and k of
+# every MHLA layer, K2, the wide K3 and K4 once each, K9 (causal) once per
+# softmax layer; the backward alike
+LONG_FWD_LAUNCHES = {
+    "fmap_rope": 2 * LM_MHLA_LAYERS, "chunk_states": LM_MHLA_LAYERS,
+    "mix_states_wide": LM_MHLA_LAYERS, "mix_states": 0, "chunk_output": LM_MHLA_LAYERS,
+    "flash_attention_masked": LM_SOFTMAX_LAYERS, "flash_attention": 0,
+}
+LONG_BWD_LAUNCHES = {
+    "fmap_rope_bwd": 2 * LM_MHLA_LAYERS, "chunk_output_bwd": LM_MHLA_LAYERS,
+    "mix_states_wide_bwd": LM_MHLA_LAYERS, "mix_states_bwd": 0,
+    "chunk_states_bwd": LM_MHLA_LAYERS, "flash_attention_masked_bwd": LM_SOFTMAX_LAYERS,
+    "flash_attention_bwd": 0,
+}
+# the new kernel forms of this path, each under the counter its wrapper adds to
+LONG_FORMS = {
+    "flash_attention[causal,d256]": ("ppl", "flash_attention_masked"),
+    "flash_attention_bwd[causal,d256]": ("train_long", "flash_attention_masked_bwd"),
+    "flash_attention[causal+segment,d256]": ("train_d256_packed", "flash_attention_masked"),
+    "flash_attention_bwd[causal+segment,d256]": ("train_d256_packed",
+                                                 "flash_attention_masked_bwd"),
+    "mix_states[wide]": ("ppl", "mix_states_wide"),
+    "mix_states_bwd[wide]": ("train_long", "mix_states_wide_bwd"),
+}
+
+
+def long_model_json(directory: str, positions: int = LONG_POSITIONS) -> str:
+    """Write the long-context hybrid as a reference-format model json: the
+    hybrid's keys with ``max_position_embeddings`` = ``positions`` and an
+    ``attn`` without ``num_heads`` (the LM's 4 heads of 256)."""
+    with open(hybrid_model_json(directory)) as f:
+        raw = json.load(f)
+    raw["max_position_embeddings"] = positions
+    raw["attn"] = {"layers": list(range(0, 24, 3))}
+    path = f"{directory}/mhla_340M_hybrid_{positions}.json"
+    with open(path, "w") as f:
+        json.dump(raw, f, indent=2)
+    return path
+
+
+def phase_kernels_long(dev: torch.device) -> dict:
+    """K9 / K9b at head dim 256 in the non-causal, causal and causal +
+    segment-id forms at [8, 2048, 4, 256] (segment ids from
+    ``PackedVarlenIterator`` rows), in the causal form at the long-context
+    path's own shapes ([1, 16,384, 4, 256] of (u), forward and backward;
+    [1, 28,672, 4, 256] of (s), forward), and at an unaligned length with
+    arbitrary ids; the lse; two K9b runs bit for bit; the tiles walked
+    against the rule's count. Then the wide K3 / K3b at N = 64, 256, 448 and
+    512 chunks of the 340M's states (B=1, 4 heads of 128 x 256); two K3b runs
+    bit for bit; and, at the 340M's N = 32 shapes, the wide forms timed
+    beside the 32-slot ones. Each timed beside its plain version, its bound
+    and one library call (SDPA with its flash or memory-efficient backend;
+    ``torch.matmul`` of the masked M). The kernels line keeps each form's
+    time at the shape its main-path phase runs (the last timed)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from mhla_tpu_torch.kernels import flash_attention as flash
+    from mhla_tpu_torch.kernels import mhla_chunk
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    h, dh = 4, LONG_HEAD_DIM
+    bf16 = torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(SEED + 31)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    results = {}
+    check = lambda *a, **kw: check_kernel(results, *a, **kw)  # noqa: E731
+    slow = dict(reps=5, inner=2, warmup=1)
+    walks, flash_times = {}, {}
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+
+    def flash_form(b, t, form, causal, s, backward=True):
+        tag = f"B={b} T={t} H={h} D={dh}"
+        q, k, v, do = (randn(b, t, h, dh).to(bf16) for _ in range(4))
+        keep = None
+        if s is not None:
+            ar = torch.arange(t, device=dev)
+            keep = ((s[:, :, None] == s[:, None, :]) & (ar[:, None] >= ar[None, :]))[:, None]
+        kept = (kept_pairs(s, True) * h if s is not None
+                else b * h * (t * (t + 1) // 2 if causal else t * t))
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(backward) for x in (q, k, v))
+
+        def sdpa():
+            with sdpa_kernel(backends):
+                return F.scaled_dot_product_attention(qt.detach(), kt.detach(), vt.detach(),
+                                                      attn_mask=keep,
+                                                      is_causal=causal and keep is None)
+
+        name = f"flash_attention[{form},d256]" if form else "flash_attention[d256]"
+        check(name, tag,
+              lambda: flash.flash_attention(q, k, v, causal=causal, segment_ids=s),
+              lambda: flash.flash_attention_plain(q, k, v, causal=causal, segment_ids=s), True,
+              tol=FLASH_TOL, work=(4 * nbytes(q), 4 * dh * kept, bf16), library=sdpa,
+              timing=slow)
+        flash_times[f"{name} {tag}"] = {key: results[name][key] for key in
+                                        ("ms", "plain_ms", "bound_ms", "library_ms")}
+        o, lse = flash._flash_fwd(q, k, v, None, True, causal, s)
+        if not torch.equal(o, flash.flash_attention(q, k, v, causal=causal, segment_ids=s)):
+            raise AssertionError(f"K9 d256 {form} {tag}: the training and serving forms disagree")
+        lse_rel = get_err_ratio(
+            flash.flash_attention_plain(q, k, v, return_lse=True, causal=causal,
+                                        segment_ids=s)[1], lse)
+        if not lse_rel < 1e-5:
+            raise AssertionError(f"K9 d256 {form} {tag}: log-sum-exp vs plain {lse_rel:.3e}")
+        msg = f"[kernels long] K9 d256 {form or 'plain'} {tag}: lse vs plain rel-RMS {lse_rel:.2e}"
+        if backward:
+            with sdpa_kernel(backends):
+                sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                                          is_causal=causal and keep is None)
+            dot = do.transpose(1, 2)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True)
+
+            bwd_name = name.replace("flash_attention", "flash_attention_bwd")
+            check(bwd_name, tag,
+                  lambda: flash.flash_attention_bwd(q, k, v, o, lse, do, None, causal, s),
+                  lambda: flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                          segment_ids=s), True,
+                  tol=FLASH_BWD_TOL,
+                  work=(nbytes(q, k, v, o, do, lse) + nbytes(q, k, v), 10 * dh * kept, bf16),
+                  library=sdpa_bwd, timing=slow)
+            flash_times[f"{bwd_name} {tag}"] = {key: results[bwd_name][key] for key in
+                                                ("ms", "plain_ms", "bound_ms", "library_ms")}
+            first = flash.flash_attention_bwd(q, k, v, o, lse, do, None, causal, s)
+            again = flash.flash_attention_bwd(q, k, v, o, lse, do, None, causal, s)
+            if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                raise AssertionError(f"K9b d256 {form} {tag}: two runs differ")
+            msg += "; K9b two runs equal"
+            del sdpa_out, first, again
+        if causal:
+            n_tiles = -(-t // 64)
+            visits = torch.zeros(3, dtype=torch.int32, device=dev)
+            flash._flash_fwd(q, k, v, None, False, causal, s, visits[:1])
+            if backward:
+                flash.flash_attention_bwd(q, k, v, o, lse, do, None, causal, s, visits[1:])
+            want = h * flash.visited_tiles(causal, s, t) * (b if s is None else 1)
+            walked = visits.tolist()[:3 if backward else 1]
+            walks[f"{form} {tag}"] = {"walked": walked[0], "full": b * h * n_tiles**2,
+                                      "kept_pairs": kept}
+            msg += (f"; tiles walked by K9{' / K9b dK,dV / K9b dQ' if backward else ''} "
+                    f"{walked} of {b * h * n_tiles**2} (the rule's count {want})")
+            if walked != [want] * len(walked):
+                raise AssertionError(f"K9 d256 {form} {tag} walked {walked} tiles, "
+                                     f"the rule says {want}")
+        log(msg)
+        del q, k, v, do, o, lse, qt, kt, vt, keep
+        torch.cuda.empty_cache()
+
+    b, t = TRAIN_BATCH, TRAIN_SEQ
+    seg = packed_segment_ids(dev, b, t)
+    # the causal form last at the long path's shapes: (u)'s 16,384-token row
+    # (K9b's main-path shape), then (s)'s 28,672-token block (K9's)
+    for fb, ft, form, causal, s, backward in (
+            (b, t, "", False, None, True), (b, t, "causal", True, None, True),
+            (b, t, "causal+segment", True, seg, True),
+            (1, LONG_TRAIN_SEQ, "causal", True, None, True),
+            (1, PPL_BLOCK, "causal", True, None, False)):
+        flash_form(fb, ft, form, causal, s, backward)
+
+    # an unaligned length with arbitrary ids: boundaries inside tiles,
+    # decreasing and recurring ids
+    ts = 1000
+    sa = torch.stack([(ts - torch.arange(ts)) // 97, torch.arange(ts) % 7]).to(dev)
+    qs, ks, vs, dos = (randn(2, ts, 3, dh).to(bf16) for _ in range(4))
+    for form, causal in (("segment", False), ("causal+segment", True)):
+        check(f"flash_attention[{form},d256]", f"T={ts} arbitrary ids",
+              lambda: flash.flash_attention(qs, ks, vs, causal=causal, segment_ids=sa),
+              lambda: flash.flash_attention_plain(qs, ks, vs, causal=causal, segment_ids=sa),
+              False, tol=FLASH_TOL)
+        os_, lses = flash._flash_fwd(qs, ks, vs, None, True, causal, sa)
+        check(f"flash_attention_bwd[{form},d256]", f"T={ts} arbitrary ids",
+              lambda: flash.flash_attention_bwd(qs, ks, vs, os_, lses, dos, None, causal, sa),
+              lambda: flash.flash_attention_bwd_plain(qs, ks, vs, os_, lses, dos, causal=causal,
+                                                      segment_ids=sa), False,
+              tol=FLASH_BWD_TOL)
+    results["walks_d256"] = walks
+    results["flash_d256_times"] = flash_times
+
+    # the wide K3 / K3b; the main path's N last, so its timing is the one kept
+    hdk, dv = 4 * 128, 256
+    r = hdk * dv
+    mix_times = {}
+    for kind, order in (("mix_states[wide]", (64, 256, 512, 448)),
+                        ("mix_states_bwd[wide]", (64, 448, 512, 256))):
+        for n in order:
+            m = torch.rand(n, n, generator=gen, device=dev)
+            m_strict = torch.tril(m * 128**-0.5, -1).to(bf16).float().contiguous()
+            m_bf = m_strict.to(bf16)
+            pairs = n * (n - 1) // 2
+            states4 = randn(1, n, hdk, dv).to(bf16)
+            if kind == "mix_states[wide]":
+                check(kind, f"N={n}", lambda: mhla_chunk.mix_states(m_strict, states4),
+                      lambda: mhla_chunk.mix_states_plain(m_strict, states4), True,
+                      (nbytes(m_strict) + 2 * nbytes(states4), 2 * pairs * r, bf16),
+                      lambda: torch.matmul(m_bf, states4.view(n, r)))
+            else:
+                dmixed4 = randn(1, n, hdk, dv).to(bf16)
+                check(kind, f"N={n}", lambda: mhla_chunk.mix_states_bwd(m_strict, dmixed4, states4),
+                      lambda: mhla_chunk.mix_states_bwd_plain(m_strict, dmixed4, states4), True,
+                      (2 * nbytes(m_strict) + 3 * nbytes(states4), 4 * pairs * r, bf16),
+                      lambda: (torch.matmul(m_bf.T, dmixed4.view(n, r)),
+                               torch.matmul(dmixed4.view(n, r), states4.view(n, r).T)))
+                first = mhla_chunk.mix_states_bwd(m_strict, dmixed4, states4)
+                again = mhla_chunk.mix_states_bwd(m_strict, dmixed4, states4)
+                if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                    raise AssertionError(f"K3b wide N={n}: two runs differ")
+                del dmixed4, first, again
+            mix_times[f"{kind} N={n}"] = {key: results[kind][key] for key in
+                                          ("ms", "plain_ms", "bound_ms", "library_ms")}
+            del states4
+    log("[kernels long] K3b wide: two runs equal bit for bit at every N")
+    results["mix_wide_times"] = mix_times
+
+    # the wide forms against the 32-slot ones at the 340M's N = 32: serving
+    # 4 x 1984 tokens, training 8 x 2048 on token and on packed rows
+    n, pairs = 32, 32 * 31 // 2
+    forms = {}
+    for b, per_row in ((4, False), (TRAIN_BATCH, False), (TRAIN_BATCH, True)):
+        shape = (b, n, n) if per_row else (n, n)
+        m_strict = torch.tril(torch.rand(*shape, generator=gen, device=dev) * 128**-0.5,
+                              -1).to(bf16).float().contiguous()
+        states4, dmixed4 = (randn(b, n, hdk, dv).to(bf16) for _ in range(2))
+        fwd_work = (nbytes(m_strict) + 2 * nbytes(states4), 2 * pairs * b * r, bf16)
+        bwd_work = (2 * nbytes(m_strict) + 3 * nbytes(states4), 4 * pairs * b * r, bf16)
+        row = {}
+        for label, fwd, bwd in (
+                ("32-slot", mhla_chunk.mix_states, mhla_chunk.mix_states_bwd),
+                ("wide", mhla_chunk._mix_states_wide, mhla_chunk._mix_states_wide_bwd)):
+            times = {}
+            check_kernel(times, "K3", f"N=32 B={b} {label}", lambda: fwd(m_strict, states4),
+                         lambda: mhla_chunk.mix_states_plain(m_strict, states4), True, fwd_work)
+            check_kernel(times, "K3b", f"N=32 B={b} {label}",
+                         lambda: bwd(m_strict, dmixed4, states4),
+                         lambda: mhla_chunk.mix_states_bwd_plain(m_strict, dmixed4, states4),
+                         True, bwd_work)
+            row[label] = {kind: times[kind]["ms"] for kind in ("K3", "K3b")}
+        key = f"B={b} {'per-row' if per_row else 'shared'} M"
+        forms[key] = row
+        log(f"[kernels long] N=32 {key}: K3 32-slot {row['32-slot']['K3']:.4f} ms, wide "
+            f"{row['wide']['K3']:.4f} ms; K3b 32-slot {row['32-slot']['K3b']:.4f} ms, wide "
+            f"{row['wide']['K3b']:.4f} ms")
+        del states4, dmixed4
+    results["mix_n32_times"] = forms
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_ppl(dev: torch.device, work: str) -> dict:
+    """(s) ``ppl_cli.main`` on the long-context json: seeded init, bf16
+    compute, 2 x 28,672 tokens made from the seed, blocks of 28,672 with
+    buckets of 2,048. Checks a finite report with its 14 buckets and the
+    exact launches; times the evaluator alone (tok/s, peak memory); then the
+    logits of a whole 28,672-token block through the kernels against the
+    same model on the plain versions, over the block and in each 2,048-token
+    bucket, and the block's mean NLL. Returns the report and the model."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.eval import PerplexityEvaluator, ppl_cli
+    from mhla_tpu_torch.models import MHLALMConfig
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    model_json = long_model_json(work)
+    vocab = MHLALMConfig.from_json(model_json).vocab_size
+    tokens = np.random.default_rng(SEED + 32).integers(0, vocab, PPL_BLOCKS * PPL_BLOCK)
+    shard = f"{work}/tokens.npy"
+    np.save(shard, tokens.astype(np.int32))
+    argv = [f"--model_json={model_json}", f"--tokens={shard}",
+            f"--block_size={PPL_BLOCK}", f"--bucket_size={PPL_BUCKET}", "--bf16=true",
+            f"--device={dev.type}", f"--out={work}/ppl.json"]
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = ppl_cli.main(argv)
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = {name: PPL_BLOCKS * n for name, n in LONG_FWD_LAUNCHES.items()}
+    if {name: counts[name] for name in want} != want:
+        raise AssertionError(f"ppl launches {counts}, expected {want}")
+    buckets = [key for key in report if key.startswith("ppl@")]
+    if len(buckets) != PPL_BLOCK // PPL_BUCKET or not all(map(math.isfinite, report.values())):
+        raise AssertionError(f"ppl report {report}")
+    cfg = ppl_cli.PPLConfig(model_json=model_json, device=dev.type)
+    model = ppl_cli.build_model(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    evaluator = PerplexityEvaluator(model, PPL_BLOCK, PPL_BUCKET)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = evaluator.evaluate_tokens(tokens)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if again != report:
+        raise AssertionError(f"the evaluator on the CLI's model disagrees: {again} != {report}")
+    tok_s = PPL_BLOCKS * PPL_BLOCK / t_eval
+    log(f"[ppl] 340M long-context hybrid ({n_params / 1e6:.1f} M params, "
+        f"{model.config.num_slots} mixing slots, softmax heads of {LONG_HEAD_DIM}), "
+        f"{PPL_BLOCKS} blocks of {PPL_BLOCK}: ppl {report['ppl']:.2f}, ppl@{PPL_BUCKET} "
+        f"{report[f'ppl@{PPL_BUCKET}']:.2f} .. ppl@{PPL_BLOCK} {report[f'ppl@{PPL_BLOCK}']:.2f} "
+        f"({len(buckets)} buckets); launches {want}")
+    log(f"[ppl] evaluator {t_eval:.3f} s = {tok_s:,.0f} tok/s (CLI with model build "
+        f"{t_cli:.2f} s); peak device memory {peak_gb:.1f} GB")
+
+    ids = torch.from_numpy(tokens[:PPL_BLOCK]).to(dev, torch.long)[None]
+    with torch.no_grad():
+        logits_k = model(ids)[0][0].float()
+        with plain_lm_kernels():
+            kernels.reset_launch_counts()
+            logits_p = model(ids)[0][0].float()
+            if any(kernels.launch_counts().values()):
+                raise AssertionError("the plain forward launched a kernel")
+    rel = get_err_ratio(logits_p, logits_k)
+    rel_buckets = [get_err_ratio(logits_p[i:i + PPL_BUCKET], logits_k[i:i + PPL_BUCKET])
+                   for i in range(0, PPL_BLOCK, PPL_BUCKET)]
+    labels = ids[0, 1:, None]
+    nll_k, nll_p = (float((torch.logsumexp(x[:-1], -1) - x[:-1].gather(-1, labels)[:, 0]).mean())
+                    for x in (logits_k, logits_p))
+    nll_rel = abs(nll_k - nll_p) / abs(nll_p)
+    del logits_k, logits_p
+    worst = max(range(len(rel_buckets)), key=rel_buckets.__getitem__)
+    log(f"[ppl] logits of a {PPL_BLOCK}-token block through the kernels vs the plain versions: "
+        f"rel-RMS {rel:.3e}, worst bucket ppl@{(worst + 1) * PPL_BUCKET} "
+        f"{rel_buckets[worst]:.3e} (tol {PPL_TOL}); by bucket "
+        f"{[float(f'{x:.3e}') for x in rel_buckets]}")
+    log(f"[ppl] mean NLL of that block through the kernels {nll_k:.5f} vs the plain versions "
+        f"{nll_p:.5f}: rel {nll_rel:.3e} (tol {PPL_NLL_TOL})")
+    if not (max(rel, *rel_buckets) < PPL_TOL and nll_rel < PPL_NLL_TOL):
+        raise AssertionError(f"ppl kernels != plain: logits {rel:.3e}, buckets {rel_buckets}, "
+                             f"mean NLL {nll_rel:.3e}")
+    out = {"launches": counts, "report": report, "eval_s": t_eval, "tok_s": tok_s,
+           "peak_gb": peak_gb, "logits_rel": rel, "logits_rel_buckets": rel_buckets,
+           "nll_kernels": nll_k, "nll_plain": nll_p, "nll_rel": nll_rel, "params": n_params}
+    return out, model
+
+
+def phase_serve_long(dev: torch.device, model) -> dict:
+    """(t) ``generate`` with 1 x 4,096 + 32 greedy tokens on the long-context
+    hybrid (bf16): the prefill mixes 64 chunks (wide K3) and runs K9 causal
+    at head dim 256; decode on the 512-slot states and the KV caches. Checks
+    finite logits, the exact launches and the decode-step logits against one
+    forward over the whole sequence."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.models import generate
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    model = model.to(torch.bfloat16).eval()
+    cfg = model.config
+    ids = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
+                        generator=torch.Generator(dev).manual_seed(SEED + 33), device=dev)
+    generate(model, ids[:, :100], max_new_tokens=4)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, scores = generate(model, ids, max_new_tokens=LONG_NEW, output_scores=True)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = kernels.launch_counts()
+    want = {**LONG_FWD_LAUNCHES, "fmap_rope": 2 * LM_MHLA_LAYERS * LONG_NEW}
+    if {name: counts[name] for name in want} != want:
+        raise AssertionError(f"long serve launches {counts}, expected {want}")
+    with torch.no_grad():
+        full, _ = model(toks)
+    ref = full[:, LONG_PROMPT - 1:-1]
+    if not (torch.isfinite(scores).all() and torch.isfinite(full).all()):
+        raise AssertionError("long serve: non-finite logits")
+    rel = get_err_ratio(ref, scores)
+    with torch.no_grad():
+        t_pre = median_ms(lambda: model(ids, use_cache=True), reps=3, inner=1, warmup=1) / 1e3
+    t_dec = t_total - t_pre
+    tag = f"1 x {LONG_PROMPT} + {LONG_NEW}"
+    log(f"[serve long] {tag}: decode-step logits vs one forward over {toks.shape[1]} tokens "
+        f"rel-RMS {rel:.3e} (tol {SERVE_TOL}); launches {want}")
+    log(f"[serve long] {tag}: prefill {t_pre * 1e3:.2f} ms = {LONG_PROMPT / t_pre:,.0f} tok/s; "
+        f"decode {t_dec * 1e3 / (LONG_NEW - 1):.3f} ms/step; peak device memory {peak_gb:.1f} GB")
+    if not rel < SERVE_TOL:
+        raise AssertionError(f"long serve: decode != full forward ({rel:.3e})")
+    return {"launches": counts, "prefill_ms": t_pre * 1e3, "prefill_tok_s": LONG_PROMPT / t_pre,
+            "decode_ms_per_step": t_dec * 1e3 / (LONG_NEW - 1), "decode_vs_full": rel,
+            "peak_gb": peak_gb}
+
+
+def phase_train_long(dev: torch.device, tag: str, positions: int, batch: int, seq: int,
+                     steps: int, varlen: bool) -> dict:
+    """``lm_train.main --model_json=<the long-context hybrid at ``positions``>``
+    ``steps`` steps at B=``batch`` T=``seq`` (float32 parameters, bf16
+    compute, AdamW 3e-4 after a 1-step warm-up, so the loss can fall from
+    step 3 on): (u) token rows of 16,384
+    (wide K3 / K3b at 256 chunks, K9 / K9b causal at head dim 256); (v)
+    packed documents at 2,048 (K9 / K9b's causal + segment forms at head dim
+    256, the per-row K3 / K3b). Checks finite, falling losses, the exact
+    launches and the mixing matrices; step time, tok/s, peak memory."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.train import lm_train
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="mhla_train_long_") as work:
+        argv = [
+            f"--device={dev.type}", f"--work_dir={work}",
+            f"--model_json={long_model_json(work, positions)}",
+            f"--train.varlen={str(varlen).lower()}", f"--train.batch_size={batch}",
+            f"--train.seq_len={seq}", f"--train.max_steps={steps}",
+            "--train.log_interval=1", "--optimizer.learning_rate=3e-4",
+            "--optimizer.warmup_steps=1", "--optimizer.total_steps=20000",
+        ]
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out = lm_train.main(argv)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{tag}] launches in {steps} steps: { {k_: v_ for k_, v_ in counts.items() if v_} }")
+    if varlen:
+        want = {name: steps * n for name, n in HYBRID_TRAIN_LAUNCHES.items()}
+    else:
+        want = {name: steps * n for name, n in {**LONG_FWD_LAUNCHES, **LONG_BWD_LAUNCHES}.items()}
+    if {name: counts[name] for name in want} != want:
+        raise AssertionError(f"{tag} launches {counts}, expected {want}")
+    losses = out["losses"]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{tag} losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: loss did not fall: {losses}")
+    model = out["model"]
+    attn = model.model.layers[0].attn
+    if (attn.num_heads, attn.head_dim) != (model.config.num_heads, LONG_HEAD_DIM):
+        raise AssertionError(f"{tag}: softmax layer has {attn.num_heads} heads of {attn.head_dim}")
+    n_mix = check_mixing_matrices(model)
+    step_s = statistics.median(out["step_seconds"][1:])
+    tok_s = batch * seq / step_s
+    log(f"[{tag}] 340M hybrid with heads of {LONG_HEAD_DIM}, {model.config.num_slots} slots, "
+        f"{'packed' if varlen else 'token'} rows B={batch} T={seq}, "
+        f"{out['params'] / 1e6:.1f} M params: losses {[round(x, 4) for x in losses]}; "
+        f"{n_mix} mixing matrices tril in [1e-5, 1] with non-zero gradients")
+    log(f"[{tag}] step {step_s * 1e3:.1f} ms (median of steps 2-{steps}; step 1 "
+        f"{out['step_seconds'][0] * 1e3:.1f} ms) = {tok_s:,.0f} tok/s; peak device memory "
+        f"{peak_gb:.1f} GB")
+    del out, model
+    torch.cuda.empty_cache()
+    return {"launches": counts, "step_ms": step_s * 1e3, "tok_s": tok_s, "losses": losses,
+            "peak_gb": peak_gb}
 
 
 # The baseline LMs at the 340M widths, the Gated DeltaNet LM
@@ -2415,6 +2915,16 @@ def main() -> None:
     serve_hybrid = phase_serve_hybrid(dev)
     train_packed = phase_train_hybrid(dev)
     train_unpacked = phase_train_hybrid(dev, varlen=False, steps=2)
+    kern.update(phase_kernels_long(dev))
+    with tempfile.TemporaryDirectory(prefix="mhla_ppl_") as work:
+        ppl, long_model = phase_ppl(dev, work)
+    serve_long = phase_serve_long(dev, long_model)
+    del long_model
+    train_long = phase_train_long(dev, "train long", LONG_POSITIONS, 1, LONG_TRAIN_SEQ,
+                                  LONG_TRAIN_STEPS, varlen=False)
+    train_d256_packed = phase_train_long(dev, "train d256 packed", TRAIN_SEQ, TRAIN_BATCH,
+                                         TRAIN_SEQ, LONG_TRAIN_STEPS, varlen=True)
+    long_phases = {"ppl": ppl, "train_long": train_long, "train_d256_packed": train_d256_packed}
     kern.update(phase_kernels_delta(dev))
     serve_gdn = phase_serve_baseline(dev, "gated_deltanet", "gdn")
     train_gdn = phase_train_baseline(dev, "gated_deltanet", "gdn")
@@ -2455,7 +2965,9 @@ def main() -> None:
                 "delta_chunk_fwd": serve_gdn["launches"]["delta_chunk_fwd"],
                 "delta_chunk_bwd": train_gdn["launches"]["delta_chunk_bwd"],
                 "gla_chunk_fwd": serve_gla["launches"]["gla_chunk_fwd"],
-                "gla_chunk_bwd": train_gla["launches"]["gla_chunk_bwd"]}
+                "gla_chunk_bwd": train_gla["launches"]["gla_chunk_bwd"],
+                **{form: long_phases[phase]["launches"][counter]
+                   for form, (phase, counter) in LONG_FORMS.items()}}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [
         {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -2464,11 +2976,19 @@ def main() -> None:
     ]
     for phase in (train, video, hybrid, sparse, train_full, train_hybrid, train_sparse,
                   train_lora, serve_hybrid, train_packed, train_unpacked, serve_gdn, train_gdn,
-                  serve_gla, train_gla, train_simple_gla):
+                  serve_gla, train_gla, train_simple_gla, ppl, serve_long, train_long,
+                  train_d256_packed):
         phase.pop("launches")
     log(json.dumps({"serve": serve["rates"], "train": train,
                     "serve_hybrid_lm": serve_hybrid["rates"], "train_hybrid_lm_packed": train_packed,
                     "train_hybrid_lm": train_unpacked, "tile_walks": kern["walks"],
+                    "ppl_long": ppl, "serve_long": serve_long, "train_long": train_long,
+                    "train_hybrid_d256_packed": train_d256_packed,
+                    "tile_walks_d256": kern["walks_d256"], "mix_wide": kern["mix_wide_times"],
+                    "mix_n32": kern["mix_n32_times"],
+                    "flash_d256_times": kern["flash_d256_times"],
+                    "flash_d256_unmasked": {name: kern[name] for name in (
+                        "flash_attention[d256]", "flash_attention_bwd[d256]")},
                     "serve_gdn": serve_gdn["rates"], "train_gdn": train_gdn,
                     "gla_kernel_forms": kern["gla_shapes"], "serve_gla": serve_gla["rates"],
                     "train_gla": train_gla, "train_simple_gla": train_simple_gla,

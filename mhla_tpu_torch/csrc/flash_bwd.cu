@@ -1,11 +1,11 @@
-// K9b: flash-attention backward for Hopper (sm_90a), head dim 128.
+// K9b: flash-attention backward for Hopper (sm_90a), head dim 128 or 256.
 //
 // With S = scale * q k^T, P = exp(S - lse) and delta_i = sum_d dO[i, d] O[i, d]:
 //
 //   dV = P^T dO          dP = dO V^T          dS = P * (dP - delta)
 //   dQ = scale * dS K    dK = scale * dS^T Q
 //
-// q, o, dO, dq: [B, Tq, H, 128]; k, v, dk, dv: [B, Tk, H, 128], bf16;
+// q, o, dO, dq: [B, Tq, H, D]; k, v, dk, dv: [B, Tk, H, D], bf16, D = 128 or 256;
 // lse [B, H, Tq] float32 from the forward (flash_fwd.cu, natural log);
 // delta [B, H, Tq] float32 scratch. Any Tq and Tk >= 1. Scores, P, dP and all
 // sums are float32; P is rounded to bf16 before P^T dO and before dS, and dS
@@ -16,9 +16,10 @@
 // kernels), which jax.grad reaches through
 // mhla_tpu/kernels/flash_attention.py:115-118 with the block sizes of :109-114.
 //
-// Bound: operations. 10*Tq*Tk*128 FLOP per batch row and head (five
-// products) against 2*(4*Tq + 4*Tk)*128 bytes: far above the card's bf16
-// ridge (295 FLOP/byte) at both of the video model's shapes.
+// Bound: operations. 10*Tq*Tk*D FLOP per batch row and head (five
+// products) against 2*(4*Tq + 4*Tk)*D bytes: far above the card's bf16
+// ridge (295 FLOP/byte) at both of the video model's shapes and at the
+// LM's causal 2,048 to 16,384 tokens.
 // Design: three launches, no atomics, so the result is the same from run to
 // run. (1) delta: one warp per (token, head) row. (2) dK, dV: a block of 4
 // warps owns 64 keys of one (batch row, head); its K and V tiles stay in
@@ -38,6 +39,15 @@
 // to spread over the card; splitting its query range is not done yet, nor
 // are wgmma and TMA.
 //
+// Head dim 256: a thread's dK and dV accumulators would take 2 x 128
+// float32 registers, beyond the 255 a thread has (at 128 the kernel already
+// uses 249-255). So the dK/dV kernel runs twice over the same walk, once
+// for dV (S^T and P^T dO only) and once for dK (S^T, dP^T and dS^T Q), each
+// with one [16 x 256] accumulator: eight products for the backward's five
+// instead of seven. Six 64 x 256 tiles take 198 KB of shared memory, one
+// block per SM; the dQ kernel is the same kernel at the wider tile. Still
+// no atomics, so the result is the same from run to run.
+//
 // Masked forms (Tq == Tk == T; causal and / or segment ids, the rule in
 // flash_mask.cuh; the backward of the same library kernel called with
 // causal=True and/or SegmentIds, flash_attention.py:73-104): the same three
@@ -48,6 +58,8 @@
 // P = 0 by selection (a dropped score may lie far above lse); the unmasked
 // kernels below are not changed by it.
 
+#include <type_traits>
+
 #include "flash_bwd_common.cuh"
 #include "flash_mask.cuh"
 
@@ -57,16 +69,27 @@ using flash_mask::kSegment;
 
 namespace {
 
-constexpr int kDqSmem = 6 * (int)sizeof(Tile);                       // Q, dO, 2 K, 2 V
-constexpr int kDkvSmem = 6 * (int)sizeof(Tile) + 4 * kTile * (int)sizeof(float);  // + lse, delta
+// Q, dO, 2 K, 2 V tiles
+template <int D>
+constexpr int dq_smem() { return 6 * (int)sizeof(TileT<D>); }
+// K, V, 2 Q, 2 dO tiles + lse, delta
+template <int D>
+constexpr int dkv_smem() { return 6 * (int)sizeof(TileT<D>) + 4 * kTile * (int)sizeof(float); }
 
-// dK and dV. grid (ceil(Tk / 64), H, B); dynamic shared memory kDkvSmem.
+// What a dK/dV launch computes: both (D = 128), or at D = 256 one of them.
+constexpr int kBoth = 0, kDvOnly = 1, kDkOnly = 2;
+
+// dK and / or dV (kPass). grid (ceil(Tk / 64), H, B); dynamic shared memory
+// dkv_smem<kD>().
+template <int kD, int kPass>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk, int H,
                      float scale_log2, float scale) {
+  typedef TileT<kD> Tile;
+  constexpr bool kDv = kPass != kDkOnly, kDk = kPass != kDvOnly;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Tile* kst = reinterpret_cast<Tile*>(smem_raw);  // this block's keys
   Tile* vst = kst + 1;
@@ -88,24 +111,24 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float* db = delta + ((int64_t)b * H + h) * Tq;
 
   auto load_tile = [&](int buf, int qt0) {
-    copy_tile(qs[buf], qb, ld, qt0, Tq, tid);
-    copy_tile(dos[buf], dob, ld, qt0, Tq, tid);
+    copy_tile<kD>(qs[buf], qb, ld, qt0, Tq, tid);
+    copy_tile<kD>(dos[buf], dob, ld, qt0, Tq, tid);
     const int j = tid & (kTile - 1);
     const bool valid = qt0 + j < Tq;
     const float* src = (tid < kTile ? lb : db) + (valid ? qt0 + j : 0);
     cp_async4(stat + (buf * 2 + (tid >= kTile)) * kTile + j, src, valid);
   };
 
-  copy_tile(kst[0], kb, ld, k0, Tk, tid);
-  copy_tile(vst[0], vb, ld, k0, Tk, tid);
+  copy_tile<kD>(kst[0], kb, ld, k0, Tk, tid);
+  if (kDk) copy_tile<kD>(vst[0], vb, ld, k0, Tk, tid);
   load_tile(0, 0);
   cp_async_commit();
 
-  float dkacc[kD / 8][4], dvacc[kD / 8][4];
+  float dkacc[kDk ? kD / 8 : 1][4], dvacc[kDv ? kD / 8 : 1][4];
 #pragma unroll
   for (int t = 0; t < kD / 8; ++t) {
-    dkacc[t][0] = dkacc[t][1] = dkacc[t][2] = dkacc[t][3] = 0.f;
-    dvacc[t][0] = dvacc[t][1] = dvacc[t][2] = dvacc[t][3] = 0.f;
+    if constexpr (kDk) dkacc[t][0] = dkacc[t][1] = dkacc[t][2] = dkacc[t][3] = 0.f;
+    if constexpr (kDv) dvacc[t][0] = dvacc[t][1] = dvacc[t][2] = dvacc[t][3] = 0.f;
   }
 
   const int ntiles = (Tq + kTile - 1) / kTile;
@@ -121,7 +144,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // S^T = K Q^T for this warp's 16 keys x 64 queries, then P^T as A fragments
     float acc[kTile / 8][4];
-    warp_abt(acc, kst[0], warp * 16, qs[buf], lrow, lmat);
+    warp_abt<kD>(acc, kst[0], warp * 16, qs[buf], lrow, lmat);
     uint32_t pa[kTile / 16][4];
 #pragma unroll
     for (int nt = 0; nt < kTile / 8; ++nt) {
@@ -135,36 +158,42 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       pa[nt / 2][(nt & 1) * 2 + 0] = pack2f(p0, p1);
       pa[nt / 2][(nt & 1) * 2 + 1] = pack2f(p2, p3);
     }
-    warp_ab(dvacc, pa, dos[buf], lrow, lmat);  // dV += P^T dO
+    if constexpr (kDv) warp_ab<kD>(dvacc, pa, dos[buf], lrow, lmat);  // dV += P^T dO
 
-    // dP^T = V dO^T, then dS^T = P^T * (dP^T - delta) in place of P^T
-    warp_abt(acc, vst[0], warp * 16, dos[buf], lrow, lmat);
+    if constexpr (kDk) {
+      // dP^T = V dO^T, then dS^T = P^T * (dP^T - delta) in place of P^T
+      warp_abt<kD>(acc, vst[0], warp * 16, dos[buf], lrow, lmat);
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      const int c0 = nt * 8 + tg * 2;
-      const float d0 = dl[c0], d1 = dl[c0 + 1];
-      uint32_t& lo = pa[nt / 2][(nt & 1) * 2 + 0];
-      uint32_t& hi = pa[nt / 2][(nt & 1) * 2 + 1];
-      const float2 pl = unpack2f(lo), ph = unpack2f(hi);
-      lo = pack2f(pl.x * (acc[nt][0] - d0), pl.y * (acc[nt][1] - d1));
-      hi = pack2f(ph.x * (acc[nt][2] - d0), ph.y * (acc[nt][3] - d1));
+      for (int nt = 0; nt < kTile / 8; ++nt) {
+        const int c0 = nt * 8 + tg * 2;
+        const float d0 = dl[c0], d1 = dl[c0 + 1];
+        uint32_t& lo = pa[nt / 2][(nt & 1) * 2 + 0];
+        uint32_t& hi = pa[nt / 2][(nt & 1) * 2 + 1];
+        const float2 pl = unpack2f(lo), ph = unpack2f(hi);
+        lo = pack2f(pl.x * (acc[nt][0] - d0), pl.y * (acc[nt][1] - d1));
+        hi = pack2f(ph.x * (acc[nt][2] - d0), ph.y * (acc[nt][3] - d1));
+      }
+      warp_ab<kD>(dkacc, pa, qs[buf], lrow, lmat);  // dK += dS^T Q
     }
-    warp_ab(dkacc, pa, qs[buf], lrow, lmat);  // dK += dS^T Q
     __syncthreads();  // this buffer's fragment reads are done before it is refilled
   }
 
   const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
-  store_rows(dk + (int64_t)b * Tk * ld + h * kD, ld, dkacc, scale, r0, r1, Tk, tg);
-  store_rows(dv + (int64_t)b * Tk * ld + h * kD, ld, dvacc, 1.f, r0, r1, Tk, tg);
+  if constexpr (kDk)
+    store_rows<kD>(dk + (int64_t)b * Tk * ld + h * kD, ld, dkacc, scale, r0, r1, Tk, tg);
+  if constexpr (kDv)
+    store_rows<kD>(dv + (int64_t)b * Tk * ld + h * kD, ld, dvacc, 1.f, r0, r1, Tk, tg);
 }
 
-// dQ. grid (ceil(Tq / 64), H, B); dynamic shared memory kDqSmem.
+// dQ. grid (ceil(Tq / 64), H, B); dynamic shared memory dq_smem<kD>().
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dq, int Tq, int Tk, int H, float scale_log2,
                     float scale) {
+  typedef TileT<kD> Tile;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Tile* qst = reinterpret_cast<Tile*>(smem_raw);  // this block's queries
   Tile* dost = qst + 1;
@@ -190,12 +219,12 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float d0 = r0 < Tq ? db[r0] : 0.f, d1 = r1 < Tq ? db[r1] : 0.f;
 
   auto load_tile = [&](int buf, int kt0) {
-    copy_tile(ks[buf], kb, ld, kt0, Tk, tid);
-    copy_tile(vs[buf], vb, ld, kt0, Tk, tid);
+    copy_tile<kD>(ks[buf], kb, ld, kt0, Tk, tid);
+    copy_tile<kD>(vs[buf], vb, ld, kt0, Tk, tid);
   };
 
-  copy_tile(qst[0], qb, ld, q0, Tq, tid);
-  copy_tile(dost[0], dob, ld, q0, Tq, tid);
+  copy_tile<kD>(qst[0], qb, ld, q0, Tq, tid);
+  copy_tile<kD>(dost[0], dob, ld, q0, Tq, tid);
   load_tile(0, 0);
   cp_async_commit();
 
@@ -213,7 +242,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // S = Q K^T for this warp's 16 queries x 64 keys, then P as A fragments
     float acc[kTile / 8][4];
-    warp_abt(acc, qst[0], warp * 16, ks[buf], lrow, lmat);
+    warp_abt<kD>(acc, qst[0], warp * 16, ks[buf], lrow, lmat);
     uint32_t pa[kTile / 16][4];
 #pragma unroll
     for (int nt = 0; nt < kTile / 8; ++nt) {
@@ -228,7 +257,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // dP = dO V^T, then dS = P * (dP - delta) in place of P
-    warp_abt(acc, dost[0], warp * 16, vs[buf], lrow, lmat);
+    warp_abt<kD>(acc, dost[0], warp * 16, vs[buf], lrow, lmat);
 #pragma unroll
     for (int nt = 0; nt < kTile / 8; ++nt) {
       uint32_t& lo = pa[nt / 2][(nt & 1) * 2 + 0];
@@ -237,19 +266,19 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lo = pack2f(pl.x * (acc[nt][0] - d0), pl.y * (acc[nt][1] - d0));
       hi = pack2f(ph.x * (acc[nt][2] - d1), ph.y * (acc[nt][3] - d1));
     }
-    warp_ab(dqacc, pa, ks[buf], lrow, lmat);  // dQ += dS K
+    warp_ab<kD>(dqacc, pa, ks[buf], lrow, lmat);  // dQ += dS K
     __syncthreads();
   }
-  store_rows(dq + (int64_t)b * Tq * ld + h * kD, ld, dqacc, scale, r0, r1, Tq, tg);
+  store_rows<kD>(dq + (int64_t)b * Tq * ld + h * kD, ld, dqacc, scale, r0, r1, Tq, tg);
 }
 
 constexpr int kSegSmem = 2 * kTile * (int)sizeof(int);  // 2 tiles of ids (segment forms)
 
-// dK and dV, masked forms. grid (ceil(T / 64), H, B); dynamic shared memory
-// kDkvSmem (+ kSegSmem in the segment forms). Key tile j walks the query
-// tiles of its column of the mask; ``visits``, when not null, gets their
-// count added.
-template <int kMask>
+// dK and / or dV (kPass), masked forms. grid (ceil(T / 64), H, B); dynamic
+// shared memory dkv_smem<kD>() (+ kSegSmem in the segment forms). Key tile j
+// walks the query tiles of its column of the mask; ``visits``, when not
+// null, gets their count added.
+template <int kD, int kPass, int kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -258,6 +287,8 @@ flash_bwd_dkv_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__
                             int* __restrict__ visits, bf16* __restrict__ dk,
                             bf16* __restrict__ dv, int T, int H, float scale_log2,
                             float scale) {
+  typedef TileT<kD> Tile;
+  constexpr bool kDv = kPass != kDkOnly, kDk = kPass != kDvOnly;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Tile* kst = reinterpret_cast<Tile*>(smem_raw);  // this block's keys
   Tile* vst = kst + 1;
@@ -285,8 +316,8 @@ flash_bwd_dkv_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const int sk1 = (kMask & kSegment) && r1 < T ? sb[r1] : 0;
 
   auto load_tile = [&](int buf, int qt0) {
-    copy_tile(qs[buf], qb, ld, qt0, T, tid);
-    copy_tile(dos[buf], dob, ld, qt0, T, tid);
+    copy_tile<kD>(qs[buf], qb, ld, qt0, T, tid);
+    copy_tile<kD>(dos[buf], dob, ld, qt0, T, tid);
     const int j = tid & (kTile - 1);
     const bool valid = qt0 + j < T;
     const float* src = (tid < kTile ? lb : db) + (valid ? qt0 + j : 0);
@@ -300,16 +331,16 @@ flash_bwd_dkv_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const TileWalk<kMask> walk((kMask & kSegment) ? ranges + (int64_t)b * ntiles : nullptr,
                              blockIdx.x, ntiles, true);
   int cur = walk.next(walk.first);
-  copy_tile(kst[0], k + base, ld, k0, T, tid);
-  copy_tile(vst[0], v + base, ld, k0, T, tid);
+  copy_tile<kD>(kst[0], k + base, ld, k0, T, tid);
+  if (kDk) copy_tile<kD>(vst[0], v + base, ld, k0, T, tid);
   if (cur <= walk.last) load_tile(0, cur * kTile);
   cp_async_commit();
 
-  float dkacc[kD / 8][4], dvacc[kD / 8][4];
+  float dkacc[kDk ? kD / 8 : 1][4], dvacc[kDv ? kD / 8 : 1][4];
 #pragma unroll
   for (int t = 0; t < kD / 8; ++t) {
-    dkacc[t][0] = dkacc[t][1] = dkacc[t][2] = dkacc[t][3] = 0.f;
-    dvacc[t][0] = dvacc[t][1] = dvacc[t][2] = dvacc[t][3] = 0.f;
+    if constexpr (kDk) dkacc[t][0] = dkacc[t][1] = dkacc[t][2] = dkacc[t][3] = 0.f;
+    if constexpr (kDv) dvacc[t][0] = dvacc[t][1] = dvacc[t][2] = dvacc[t][3] = 0.f;
   }
 
   int it = 0;
@@ -329,7 +360,7 @@ flash_bwd_dkv_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     // S^T = K Q^T for this warp's 16 keys x 64 queries, then P^T as A
     // fragments: 0 for queries past T and, on a masked tile, for dropped pairs
     float acc[kTile / 8][4];
-    warp_abt(acc, kst[0], warp * 16, qs[buf], lrow, lmat);
+    warp_abt<kD>(acc, kst[0], warp * 16, qs[buf], lrow, lmat);
     uint32_t pa[kTile / 16][4];
 #pragma unroll
     for (int nt = 0; nt < kTile / 8; ++nt) {
@@ -350,35 +381,37 @@ flash_bwd_dkv_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__
       pa[nt / 2][(nt & 1) * 2 + 0] = pack2f(p[0], p[1]);
       pa[nt / 2][(nt & 1) * 2 + 1] = pack2f(p[2], p[3]);
     }
-    warp_ab(dvacc, pa, dos[buf], lrow, lmat);  // dV += P^T dO
+    if constexpr (kDv) warp_ab<kD>(dvacc, pa, dos[buf], lrow, lmat);  // dV += P^T dO
 
-    // dP^T = V dO^T, then dS^T = P^T * (dP^T - delta) in place of P^T
-    warp_abt(acc, vst[0], warp * 16, dos[buf], lrow, lmat);
+    if constexpr (kDk) {
+      // dP^T = V dO^T, then dS^T = P^T * (dP^T - delta) in place of P^T
+      warp_abt<kD>(acc, vst[0], warp * 16, dos[buf], lrow, lmat);
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      const int c0 = nt * 8 + tg * 2;
-      const float d0 = dl[c0], d1 = dl[c0 + 1];
-      uint32_t& lo = pa[nt / 2][(nt & 1) * 2 + 0];
-      uint32_t& hi = pa[nt / 2][(nt & 1) * 2 + 1];
-      const float2 pl = unpack2f(lo), ph = unpack2f(hi);
-      lo = pack2f(pl.x * (acc[nt][0] - d0), pl.y * (acc[nt][1] - d1));
-      hi = pack2f(ph.x * (acc[nt][2] - d0), ph.y * (acc[nt][3] - d1));
+      for (int nt = 0; nt < kTile / 8; ++nt) {
+        const int c0 = nt * 8 + tg * 2;
+        const float d0 = dl[c0], d1 = dl[c0 + 1];
+        uint32_t& lo = pa[nt / 2][(nt & 1) * 2 + 0];
+        uint32_t& hi = pa[nt / 2][(nt & 1) * 2 + 1];
+        const float2 pl = unpack2f(lo), ph = unpack2f(hi);
+        lo = pack2f(pl.x * (acc[nt][0] - d0), pl.y * (acc[nt][1] - d1));
+        hi = pack2f(ph.x * (acc[nt][2] - d0), ph.y * (acc[nt][3] - d1));
+      }
+      warp_ab<kD>(dkacc, pa, qs[buf], lrow, lmat);  // dK += dS^T Q
     }
-    warp_ab(dkacc, pa, qs[buf], lrow, lmat);  // dK += dS^T Q
     __syncthreads();  // this buffer's fragment reads are done before it is refilled
     cur = nxt;
   }
   cp_async_wait<0>();
   if (visits != nullptr && tid == 0) atomicAdd(visits, it);
 
-  store_rows(dk + base, ld, dkacc, scale, r0, r1, T, tg);
-  store_rows(dv + base, ld, dvacc, 1.f, r0, r1, T, tg);
+  if constexpr (kDk) store_rows<kD>(dk + base, ld, dkacc, scale, r0, r1, T, tg);
+  if constexpr (kDv) store_rows<kD>(dv + base, ld, dvacc, 1.f, r0, r1, T, tg);
 }
 
-// dQ, masked forms. grid (ceil(T / 64), H, B); dynamic shared memory kDqSmem
-// (+ kSegSmem in the segment forms). Query tile i walks the key tiles of its
-// row of the mask, as the forward does.
-template <int kMask>
+// dQ, masked forms. grid (ceil(T / 64), H, B); dynamic shared memory
+// dq_smem<kD>() (+ kSegSmem in the segment forms). Query tile i walks the key
+// tiles of its row of the mask, as the forward does.
+template <int kD, int kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -386,6 +419,7 @@ flash_bwd_dq_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
                            const int* __restrict__ seg, const int2* __restrict__ ranges,
                            int* __restrict__ visits, bf16* __restrict__ dq, int T, int H,
                            float scale_log2, float scale) {
+  typedef TileT<kD> Tile;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Tile* qst = reinterpret_cast<Tile*>(smem_raw);  // this block's queries
   Tile* dost = qst + 1;
@@ -414,8 +448,8 @@ flash_bwd_dq_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const int sq1 = (kMask & kSegment) && r1 < T ? sb[r1] : 0;
 
   auto load_tile = [&](int buf, int kt0) {
-    copy_tile(ks[buf], kb, ld, kt0, T, tid);
-    copy_tile(vs[buf], vb, ld, kt0, T, tid);
+    copy_tile<kD>(ks[buf], kb, ld, kt0, T, tid);
+    copy_tile<kD>(vs[buf], vb, ld, kt0, T, tid);
     if ((kMask & kSegment) && tid < kTile) {
       const bool valid = kt0 + tid < T;
       cp_async4(reinterpret_cast<float*>(kseg + buf * kTile + tid),
@@ -427,8 +461,8 @@ flash_bwd_dq_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const TileWalk<kMask> walk((kMask & kSegment) ? ranges + (int64_t)b * ntiles : nullptr,
                              blockIdx.x, ntiles, false);
   int cur = walk.next(walk.first);
-  copy_tile(qst[0], q + base, ld, q0, T, tid);
-  copy_tile(dost[0], dout + base, ld, q0, T, tid);
+  copy_tile<kD>(qst[0], q + base, ld, q0, T, tid);
+  copy_tile<kD>(dost[0], dout + base, ld, q0, T, tid);
   if (cur <= walk.last) load_tile(0, cur * kTile);
   cp_async_commit();
 
@@ -449,7 +483,7 @@ flash_bwd_dq_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 
     // S = Q K^T for this warp's 16 queries x 64 keys, then P as A fragments
     float acc[kTile / 8][4];
-    warp_abt(acc, qst[0], warp * 16, ks[buf], lrow, lmat);
+    warp_abt<kD>(acc, qst[0], warp * 16, ks[buf], lrow, lmat);
     uint32_t pa[kTile / 16][4];
 #pragma unroll
     for (int nt = 0; nt < kTile / 8; ++nt) {
@@ -471,7 +505,7 @@ flash_bwd_dq_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     }
 
     // dP = dO V^T, then dS = P * (dP - delta) in place of P
-    warp_abt(acc, dost[0], warp * 16, vs[buf], lrow, lmat);
+    warp_abt<kD>(acc, dost[0], warp * 16, vs[buf], lrow, lmat);
 #pragma unroll
     for (int nt = 0; nt < kTile / 8; ++nt) {
       uint32_t& lo = pa[nt / 2][(nt & 1) * 2 + 0];
@@ -480,93 +514,103 @@ flash_bwd_dq_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       lo = pack2f(pl.x * (acc[nt][0] - d0), pl.y * (acc[nt][1] - d0));
       hi = pack2f(ph.x * (acc[nt][2] - d1), ph.y * (acc[nt][3] - d1));
     }
-    warp_ab(dqacc, pa, ks[buf], lrow, lmat);  // dQ += dS K
+    warp_ab<kD>(dqacc, pa, ks[buf], lrow, lmat);  // dQ += dS K
     __syncthreads();
     cur = nxt;
   }
   cp_async_wait<0>();
   if (visits != nullptr && tid == 0) atomicAdd(visits, it);
-  store_rows(dq + base, ld, dqacc, scale, r0, r1, T, tg);
+  store_rows<kD>(dq + base, ld, dqacc, scale, r0, r1, T, tg);
 }
 
-template <int kMask>
+// The dK/dV launches of head dim kD: one kernel computing both at 128, the
+// dV and the dK pass at 256. ``launch(pass)`` launches the kernel of one
+// pass (a std::integral_constant).
+template <int kD, typename Launch>
+cudaError_t for_dkv_passes(Launch launch) {
+  if constexpr (kD == 128) {
+    return launch(std::integral_constant<int, kBoth>());
+  } else {
+    const cudaError_t err = launch(std::integral_constant<int, kDvOnly>());
+    if (err != cudaSuccess) return err;
+    return launch(std::integral_constant<int, kDkOnly>());
+  }
+}
+
+template <int kD, int kMask>
 int launch_bwd_masked(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                       const float* lse, const float* delta, const int* seg,
                       const int2* ranges, int* visits_dkv, int* visits_dq, bf16* dq, bf16* dk,
                       bf16* dv, int B, int T, int H, float scale, cudaStream_t stream) {
   const int extra = (kMask & kSegment) ? kSegSmem : 0;
-  auto dkv = flash_bwd_dkv_masked_kernel<kMask>;
-  auto dqk = flash_bwd_dq_masked_kernel<kMask>;
-  cudaError_t err =
-      cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem + extra);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem + extra);
-  if (err != cudaSuccess) return (int)err;
   const float scale_log2 = scale * kLog2e;
   const dim3 grid((T + kTile - 1) / kTile, H, B);
-  dkv<<<grid, kThreads, kDkvSmem + extra, stream>>>(q, k, v, dout, lse, delta, seg, ranges,
-                                                    visits_dkv, dk, dv, T, H, scale_log2,
-                                                    scale);
-  err = cudaGetLastError();
+  cudaError_t err = for_dkv_passes<kD>([&](auto pass) {
+    constexpr int kPass = decltype(pass)::value;
+    auto dkv = flash_bwd_dkv_masked_kernel<kD, kPass, kMask>;
+    cudaError_t e = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         dkv_smem<kD>() + extra);
+    if (e != cudaSuccess) return e;
+    // both passes walk the same tiles: count them once
+    int* vis = kPass == kDkOnly ? nullptr : visits_dkv;
+    dkv<<<grid, kThreads, dkv_smem<kD>() + extra, stream>>>(q, k, v, dout, lse, delta, seg,
+                                                             ranges, vis, dk, dv, T, H,
+                                                             scale_log2, scale);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return (int)err;
-  dqk<<<grid, kThreads, kDqSmem + extra, stream>>>(q, k, v, dout, lse, delta, seg, ranges,
-                                                   visits_dq, dq, T, H, scale_log2, scale);
+  auto dqk = flash_bwd_dq_masked_kernel<kD, kMask>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dq_smem<kD>() + extra);
+  if (err != cudaSuccess) return (int)err;
+  dqk<<<grid, kThreads, dq_smem<kD>() + extra, stream>>>(q, k, v, dout, lse, delta, seg, ranges,
+                                                         visits_dq, dq, T, H, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes): launches the three kernels on
-// the given stream, does not synchronise, returns the first cudaError_t that
-// is not 0. ``delta`` is float32 scratch [B, H, Tq].
-extern "C" int mhla_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                              const void* dout, const void* lse, void* delta, void* dq,
-                              void* dk, void* dv, int B, int Tq, int Tk, int H, float scale,
-                              void* stream_) {
-  if (Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDqSmem);
-  if (err != cudaSuccess) return (int)err;
+// The unmasked form: the delta pass, the dK/dV pass(es), the dQ kernel.
+template <int kD>
+int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
+               const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int Tq,
+               int Tk, int H, float scale, cudaStream_t stream) {
   const float scale_log2 = scale * kLog2e;
   const int64_t rows = (int64_t)B * Tq * H;
-  flash_bwd_delta_kernel<<<(unsigned)((rows + 3) / 4), kThreads, 0, stream>>>(
-      (const bf16*)o, (const bf16*)dout, (float*)delta, rows, Tq, H);
-  err = cudaGetLastError();
+  flash_bwd_delta_kernel<kD><<<(unsigned)((rows + 3) / 4), kThreads, 0, stream>>>(
+      o, dout, delta, rows, Tq, H);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<<<dim3((Tk + kTile - 1) / kTile, H, B), kThreads, kDkvSmem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dk, (bf16*)dv, Tq, Tk, H, scale_log2, scale);
-  err = cudaGetLastError();
+  err = for_dkv_passes<kD>([&](auto pass) {
+    auto dkv = flash_bwd_dkv_kernel<kD, decltype(pass)::value>;
+    cudaError_t e = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         dkv_smem<kD>());
+    if (e != cudaSuccess) return e;
+    dkv<<<dim3((Tk + kTile - 1) / kTile, H, B), kThreads, dkv_smem<kD>(), stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, Tq, Tk, H, scale_log2, scale);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<<<dim3((Tq + kTile - 1) / kTile, H, B), kThreads, kDqSmem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dq, Tq, Tk, H, scale_log2, scale);
+  auto dqk = flash_bwd_dq_kernel<kD>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<kD>());
+  if (err != cudaSuccess) return (int)err;
+  dqk<<<dim3((Tq + kTile - 1) / kTile, H, B), kThreads, dq_smem<kD>(), stream>>>(
+      q, k, v, dout, lse, delta, dq, Tq, Tk, H, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
-// The causal and / or segment-id forms, Tq == Tk == T: the range pre-pass
-// (segment forms; ``seg`` [B, T] int32 or null, ``ranges`` int32 scratch
-// [B, ceil(T / 64), 2]), the delta pass and the two masked kernels.
-// ``visits`` is null or two int32 that get the tiles walked by the dK/dV and
-// the dQ kernel added.
-extern "C" int mhla_flash_bwd_masked(const void* q, const void* k, const void* v,
-                                     const void* o, const void* dout, const void* lse,
-                                     void* delta, void* dq, void* dk, void* dv, const void* seg,
-                                     void* ranges, void* visits, int B, int T, int H,
-                                     int causal, float scale, void* stream_) {
-  if (T < 1 || (seg == nullptr && !causal)) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_;
+// The masked forms: the range pre-pass (segment forms), the delta pass and
+// the masked kernels of the form ``causal`` and ``seg`` ask for.
+template <int kD>
+int launch_bwd_masked_forms(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const void* lse, void* delta, void* dq, void* dk,
+                            void* dv, const void* seg, void* ranges, void* visits, int B, int T,
+                            int H, int causal, float scale, cudaStream_t stream) {
   cudaError_t err;
   if (seg != nullptr) {
     err = flash_mask::launch_seg_tile_ranges((const int*)seg, (int2*)ranges, B, T, stream);
     if (err != cudaSuccess) return (int)err;
   }
   const int64_t rows = (int64_t)B * T * H;
-  flash_bwd_delta_kernel<<<(unsigned)((rows + 3) / 4), kThreads, 0, stream>>>(
+  flash_bwd_delta_kernel<kD><<<(unsigned)((rows + 3) / 4), kThreads, 0, stream>>>(
       (const bf16*)o, (const bf16*)dout, (float*)delta, rows, T, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -578,6 +622,49 @@ extern "C" int mhla_flash_bwd_masked(const void* q, const void* k, const void* v
                   (bf16*)dv, B, T, H, scale, stream);
   };
   using flash_mask::kCausal;
-  if (seg == nullptr) return run(launch_bwd_masked<kCausal>);
-  return causal ? run(launch_bwd_masked<kCausal | kSegment>) : run(launch_bwd_masked<kSegment>);
+  if (seg == nullptr) return run(launch_bwd_masked<kD, kCausal>);
+  return causal ? run(launch_bwd_masked<kD, kCausal | kSegment>)
+                : run(launch_bwd_masked<kD, kSegment>);
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes): each launches its kernels on
+// the given stream, does not synchronise, returns the first cudaError_t that
+// is not 0. ``delta`` is float32 scratch [B, H, Tq]; ``D`` the head dim, 128
+// or 256 (any other: cudaErrorInvalidValue).
+extern "C" int mhla_flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                              const void* dout, const void* lse, void* delta, void* dq,
+                              void* dk, void* dv, int B, int Tq, int Tk, int H, int D,
+                              float scale, void* stream) {
+  if (Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto launch) {
+    return launch((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
+                  (const bf16*)dout, (const float*)lse, (float*)delta, (bf16*)dq, (bf16*)dk,
+                  (bf16*)dv, B, Tq, Tk, H, scale, (cudaStream_t)stream);
+  };
+  if (D == 128) return run(launch_bwd<128>);
+  if (D == 256) return run(launch_bwd<256>);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The causal and / or segment-id forms, Tq == Tk == T: the range pre-pass
+// (segment forms; ``seg`` [B, T] int32 or null, ``ranges`` int32 scratch
+// [B, ceil(T / 64), 2]), the delta pass and the masked kernels.
+// ``visits`` is null or two int32 that get the tiles walked by the dK/dV and
+// the dQ kernel added (at D = 256 the dK/dV walk is counted once, by its dV
+// pass).
+extern "C" int mhla_flash_bwd_masked(const void* q, const void* k, const void* v,
+                                     const void* o, const void* dout, const void* lse,
+                                     void* delta, void* dq, void* dk, void* dv, const void* seg,
+                                     void* ranges, void* visits, int B, int T, int H, int D,
+                                     int causal, float scale, void* stream) {
+  if (T < 1 || (seg == nullptr && !causal)) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto launch) {
+    return launch(q, k, v, o, dout, lse, delta, dq, dk, dv, seg, ranges, visits, B, T, H,
+                  causal, scale, (cudaStream_t)stream);
+  };
+  if (D == 128) return run(launch_bwd_masked_forms<128>);
+  if (D == 256) return run(launch_bwd_masked_forms<256>);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,9 @@
-// K9: flash-attention forward for Hopper (sm_90a), head dim 128.
+// K9: flash-attention forward for Hopper (sm_90a), head dim 128 or 256.
 //
 //   o[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h] + mask[b, i, j]) @ v[b, :, h]
 //
-// q, o: [B, Tq, H, 128]; k, v: [B, Tk, H, 128]; bf16 in and out, float32
-// scores, softmax statistics and accumulation. Any Tq and Tk >= 1. The
+// q, o: [B, Tq, H, D]; k, v: [B, Tk, H, D] with D = 128 or 256; bf16 in and
+// out, float32 scores, softmax statistics and accumulation. Any Tq and Tk >= 1. The
 // training form also writes each row's log-sum-exp of the scaled scores,
 // lse [B, H, Tq] float32 (natural log), which the backward (flash_bwd.cu)
 // reads; the serving form is compiled without that store.
@@ -23,19 +23,24 @@
 //
 // Replaces the JAX library's Pallas TPU flash kernel that
 // mhla_tpu/kernels/flash_attention.py:59-63,115-118 calls for long queries
-// (the video model's text cross-attention: Tq = 31,500, Tk = 512). That
+// (the video model's text cross-attention: Tq = 31,500, Tk = 512; the LM's
+// softmax layers from 2,048 tokens on, at head dim 256 when a hybrid keeps
+// the LM's 4 heads). That
 // wrapper zero-pads both lengths to its block sizes and masks the padding
 // with segment ids (flash_attention.py:69-104); here bounds checks do both
 // jobs: query rows past Tq are never stored, and keys past Tk get a score
 // of -inf before the softmax, so they receive no probability mass.
 //
-// Bound: operations. 4*Tq*Tk*128 FLOP per batch row and head against
-// 2*(2*Tq + 2*Tk)*128 bytes: Tk/2 = 256 FLOP/byte at Tk = 512 and Tq >> Tk,
+// Bound: operations. 4*Tq*Tk*D FLOP per batch row and head against
+// 2*(2*Tq + 2*Tk)*D bytes: Tk/2 = 256 FLOP/byte at Tk = 512 and Tq >> Tk,
 // at the card's bf16 ridge (989 TFLOP/s over 3.35 TB/s = 295 FLOP/byte)
-// and above it for self-attention lengths.
+// and above it for self-attention lengths, whatever D.
 // Design: the [Tq, Tk] scores never reach device memory. A block of 4 warps
-// owns 64 query rows of one (batch row, head); each warp keeps its 16 rows
-// of q as mma.sync A fragments in registers for the whole kernel, and the
+// owns 64 query rows of one (batch row, head); at D = 128 each warp keeps its
+// 16 rows of q as mma.sync A fragments in registers for the whole kernel; at
+// D = 256 those would take 64 registers beside the 128 of the float32 O
+// accumulator, so the block's q tile stays in shared memory and each warp
+// reads its A fragments with ldmatrix at every key tile. The
 // block walks over the keys 64 at a time. The K and V tiles go through
 // shared memory (rows padded by 16 bytes, so the 8 row reads of an ldmatrix
 // phase hit 32 distinct banks); one ldmatrix.x4 brings the B fragments of
@@ -48,9 +53,13 @@
 // exp2(m_old - m_new) per row. One division by the row sum at the end.
 // The tiles arrive by cp.async into two buffers: while the block computes on
 // one tile the next one is in flight, and no register stages the copy (keys
-// past Tk are zero-filled by a copy of size 0). Not done yet: wgmma, TMA.
+// past Tk are zero-filled by a copy of size 0). At D = 256 the q tile and
+// the four K / V tiles take 165 KB of shared memory: one block per SM.
+// Not done yet: wgmma, TMA.
 
 #include <math_constants.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "flash_mask.cuh"
@@ -62,31 +71,39 @@ using flash_mask::kSegment;
 
 namespace {
 
-constexpr int kD = 128;          // head dim
 constexpr int kBlockM = 64;      // query rows per block (16 per warp)
 constexpr int kBlockN = 64;      // keys per tile
-constexpr int kLd = kD + 8;      // shared-memory row stride in elements
 constexpr int kThreads = 128;
-constexpr int kSmemBytes = 4 * kBlockN * kLd * (int)sizeof(bf16);  // 2 K and 2 V tiles
-constexpr int kSegSmemBytes = 2 * kBlockN * (int)sizeof(int);      // + 2 tiles of key ids
+constexpr int kSegSmemBytes = 2 * kBlockN * (int)sizeof(int);  // + 2 tiles of key ids
 
-// grid (ceil(Tq / kBlockM), H, B); dynamic shared memory kSmemBytes (+
+// 2 K and 2 V tiles of head dim D (rows padded by 8 elements), and at D = 256
+// the block's q tile
+template <int D>
+constexpr int smem_bytes() {
+  return (D == 128 ? 4 : 5) * kBlockN * (D + 8) * (int)sizeof(bf16);
+}
+
+// grid (ceil(Tq / kBlockM), H, B); dynamic shared memory smem_bytes<kD>() (+
 // kSegSmemBytes in the segment form). kMask: kCausal and/or kSegment bits, 0
 // for the unmasked form; seg [B, T] int32 and ranges [B, ceil(T / 64)] (the
 // pre-pass's) are read by the segment form only; ``visits``, when not null,
 // gets the number of key tiles the block walked (masked forms).
-template <bool kLse, int kMask>
+template <int kD, bool kLse, int kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, int Tq, int Tk, int H, float scale_log2,
                  const int* __restrict__ seg, const int2* __restrict__ ranges,
                  int* __restrict__ visits) {
+  constexpr int kLd = kD + 8;  // shared-memory row stride in elements
+  constexpr bool kQInRegs = kD == 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   typedef bf16 Tile[kBlockN][kLd];
   Tile* ks = reinterpret_cast<Tile*>(smem_raw);  // [2] tiles of K
   Tile* vs = ks + 2;                             // [2] tiles of V
-  int* kseg = reinterpret_cast<int*>(vs + 2);    // [2][kBlockN] key ids (segment form)
+  Tile* qs = vs + 2;                             // the q tile (D = 256)
+  int* kseg = reinterpret_cast<int*>(kQInRegs ? (void*)(vs + 2) : (void*)(qs + 1));
+  // [2][kBlockN] key ids (segment form)
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tg = lane & 3;  // fragment row group, column pair
@@ -98,16 +115,28 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + (int64_t)b * Tk * ld + h * kD;
   bf16* ob = o + (int64_t)b * Tq * ld + h * kD;
 
-  // this warp's 16 query rows as A fragments: rows r0 = g, r1 = g + 8
+  // this warp's 16 query rows as A fragments: rows r0 = g, r1 = g + 8; at
+  // D = 256 the q tile goes to shared memory with the first K / V tile
   const int r0 = blockIdx.x * kBlockM + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[kD / 16][4];
+  uint32_t qa[kQInRegs ? kD / 16 : 1][4];
+  if constexpr (kQInRegs) {
 #pragma unroll
-  for (int s = 0; s < kD / 16; ++s) {
-    const int d = s * 16 + tg * 2;
-    qa[s][0] = r0 < Tq ? ld32(qb + r0 * ld + d) : 0u;
-    qa[s][1] = r1 < Tq ? ld32(qb + r1 * ld + d) : 0u;
-    qa[s][2] = r0 < Tq ? ld32(qb + r0 * ld + d + 8) : 0u;
-    qa[s][3] = r1 < Tq ? ld32(qb + r1 * ld + d + 8) : 0u;
+    for (int s = 0; s < kD / 16; ++s) {
+      const int d = s * 16 + tg * 2;
+      qa[s][0] = r0 < Tq ? ld32(qb + r0 * ld + d) : 0u;
+      qa[s][1] = r1 < Tq ? ld32(qb + r1 * ld + d) : 0u;
+      qa[s][2] = r0 < Tq ? ld32(qb + r0 * ld + d + 8) : 0u;
+      qa[s][3] = r1 < Tq ? ld32(qb + r1 * ld + d + 8) : 0u;
+    }
+  } else {
+    const int q0 = blockIdx.x * kBlockM;
+#pragma unroll
+    for (int i = 0; i < kBlockM * (kD / 8) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e / (kD / 8), c8 = (e % (kD / 8)) * 8;
+      const bool valid = q0 + r < Tq;
+      cp_async16(&qs[0][r][c8], qb + (valid ? q0 + r : 0) * ld + c8, valid);
+    }
   }
 
   float oacc[kD / 8][4];
@@ -161,14 +190,28 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // S = q k^T for 16 rows x 64 keys: 8 accumulator tiles of 16 x 8
     float sacc[kBlockN / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
+    for (int nt = 0; nt < kBlockN / 8; ++nt)
       sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
 #pragma unroll
-      for (int s2 = 0; s2 < kD / 32; ++s2) {  // 32 of d: the B fragments of two steps
+    for (int s2 = 0; s2 < kD / 32; ++s2) {  // 32 of d: the fragments of two steps
+      uint32_t a0[4], a1[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a0[e] = qa[2 * s2][e];
+          a1[e] = qa[2 * s2 + 1][e];
+        }
+      } else {
+        const bf16* ap = &qs[0][warp * 16 + (lmat & 1) * 8 + lrow][s2 * 32 + (lmat >> 1) * 8];
+        ldmatrix_x4(a0, ap);
+        ldmatrix_x4(a1, ap + 16);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
         uint32_t kf[4];
         ldmatrix_x4(kf, &ks[buf][nt * 8 + lrow][s2 * 32 + lmat * 8]);
-        mma_bf16(sacc[nt], qa[2 * s2], kf[0], kf[1]);
-        mma_bf16(sacc[nt], qa[2 * s2 + 1], kf[2], kf[3]);
+        mma_bf16(sacc[nt], a0, kf[0], kf[1]);
+        mma_bf16(sacc[nt], a1, kf[2], kf[3]);
       }
     }
 
@@ -261,12 +304,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <bool kLse, int kMask>
+template <int kD, bool kLse, int kMask>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int B, int Tq, int Tk, int H, float scale, const int* seg,
                const int2* ranges, int* visits, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<kLse, kMask>;
-  const int smem = kSmemBytes + ((kMask & kSegment) ? kSegSmemBytes : 0);
+  auto kern = flash_fwd_kernel<kD, kLse, kMask>;
+  const int smem = smem_bytes<kD>() + ((kMask & kSegment) ? kSegSmemBytes : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -279,43 +322,58 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 
 // The masked forms: ``causal`` and / or ``seg`` (not null) pick the
 // instantiation; the segment form runs the range pre-pass into ``ranges``.
-template <bool kLse>
+template <int kD, bool kLse>
 int launch_fwd_masked(const void* q, const void* k, const void* v, void* o, void* lse,
                       const int* seg, int2* ranges, int* visits, int B, int T, int H,
                       bool causal, float scale, cudaStream_t stream) {
   if (seg != nullptr) {
     const cudaError_t err = flash_mask::launch_seg_tile_ranges(seg, ranges, B, T, stream);
     if (err != cudaSuccess) return (int)err;
-    return causal ? launch_fwd<kLse, kCausal | kSegment>(q, k, v, o, lse, B, T, T, H, scale,
-                                                         seg, ranges, visits, stream)
-                  : launch_fwd<kLse, kSegment>(q, k, v, o, lse, B, T, T, H, scale, seg,
-                                               ranges, visits, stream);
+    return causal ? launch_fwd<kD, kLse, kCausal | kSegment>(q, k, v, o, lse, B, T, T, H,
+                                                             scale, seg, ranges, visits, stream)
+                  : launch_fwd<kD, kLse, kSegment>(q, k, v, o, lse, B, T, T, H, scale, seg,
+                                                   ranges, visits, stream);
   }
   if (!causal) return (int)cudaErrorInvalidValue;  // the unmasked form has its own entry
-  return launch_fwd<kLse, kCausal>(q, k, v, o, lse, B, T, T, H, scale, nullptr, nullptr,
-                                   visits, stream);
+  return launch_fwd<kD, kLse, kCausal>(q, k, v, o, lse, B, T, T, H, scale, nullptr, nullptr,
+                                       visits, stream);
+}
+
+// Call ``fn`` with the head dim as a template argument (std::integral_constant).
+template <typename Fn>
+int with_head_dim(int D, Fn fn) {
+  if (D == 128) return fn(std::integral_constant<int, 128>());
+  if (D == 256) return fn(std::integral_constant<int, 256>());
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes): each launches on the given
-// stream, does not synchronise, returns the launch's cudaError_t.
+// stream, does not synchronise, returns the launch's cudaError_t. ``D`` is
+// the head dim, 128 or 256 (any other: cudaErrorInvalidValue).
 extern "C" {
 
 int mhla_flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                   int Tq, int Tk, int H, float scale, void* stream) {
+                   int Tq, int Tk, int H, int D, float scale, void* stream) {
   if (Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
-  return launch_fwd<false, 0>(q, k, v, o, nullptr, B, Tq, Tk, H, scale, nullptr, nullptr,
-                              nullptr, (cudaStream_t)stream);
+  return with_head_dim(D, [&](auto d) {
+    return launch_fwd<decltype(d)::value, false, 0>(q, k, v, o, nullptr, B, Tq, Tk, H, scale,
+                                                    nullptr, nullptr, nullptr,
+                                                    (cudaStream_t)stream);
+  });
 }
 
 // The training form: also writes lse [B, H, Tq] float32.
 int mhla_flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int B, int Tq, int Tk, int H, float scale,
+                       void* lse, int B, int Tq, int Tk, int H, int D, float scale,
                        void* stream) {
   if (Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
-  return launch_fwd<true, 0>(q, k, v, o, lse, B, Tq, Tk, H, scale, nullptr, nullptr, nullptr,
-                             (cudaStream_t)stream);
+  return with_head_dim(D, [&](auto d) {
+    return launch_fwd<decltype(d)::value, true, 0>(q, k, v, o, lse, B, Tq, Tk, H, scale,
+                                                   nullptr, nullptr, nullptr,
+                                                   (cudaStream_t)stream);
+  });
 }
 
 // The causal and / or segment-id forms, Tq == Tk == T: ``seg`` [B, T] int32 or
@@ -324,13 +382,14 @@ int mhla_flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
 // ``lse`` null for the serving form.
 int mhla_flash_fwd_masked(const void* q, const void* k, const void* v, void* o, void* lse,
                           const void* seg, void* ranges, void* visits, int B, int T, int H,
-                          int causal, float scale, void* stream) {
+                          int D, int causal, float scale, void* stream) {
   if (T < 1) return (int)cudaErrorInvalidValue;
-  auto args = [&](auto launch) {
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    auto launch = lse != nullptr ? launch_fwd_masked<kD, true> : launch_fwd_masked<kD, false>;
     return launch(q, k, v, o, lse, (const int*)seg, (int2*)ranges, (int*)visits, B, T, H,
                   causal != 0, scale, (cudaStream_t)stream);
-  };
-  return lse != nullptr ? args(launch_fwd_masked<true>) : args(launch_fwd_masked<false>);
+  });
 }
 
 }  // extern "C"

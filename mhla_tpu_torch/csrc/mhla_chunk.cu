@@ -119,14 +119,15 @@ chunk_states_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
 }
 
 // K3. grid (ceil(R/2 / kThreads), B). m: [N, N] fp32 (strictly lower), or
-// [B, N, N] with m_bstride = N*N (0 when shared); s, out: [B, N, R] with
-// R = H*Dk*Dv.
+// [B, N, N] with m_bstride = N*N (0 when shared), its values taken at bf16,
+// as the wide form takes them; s, out: [B, N, R] with R = H*Dk*Dv.
 __global__ void __launch_bounds__(kThreads)
 mix_states_kernel(const float* __restrict__ m, const bf16* __restrict__ s,
                   bf16* __restrict__ out, int N, int64_t R, int64_t m_bstride) {
   __shared__ float ms[kMaxSlots * kMaxSlots];
   const float* mb = m + blockIdx.y * m_bstride;
-  for (int e = threadIdx.x; e < N * N; e += blockDim.x) ms[e] = mb[e];
+  for (int e = threadIdx.x; e < N * N; e += blockDim.x)
+    ms[e] = __bfloat162float(__float2bfloat16(mb[e]));
   __syncthreads();
   const int64_t pairs = R / 2;
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;

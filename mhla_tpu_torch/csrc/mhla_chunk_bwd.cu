@@ -272,7 +272,8 @@ chunk_output_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // rows (n_slabs = B * slabs_per_row). Per-row m (m_bstride = N*N): grid
 // (blocks per row, B); block row blockIdx.y walks the slabs of batch row
 // blockIdx.y only (n_slabs = slabs_per_row) and reads and writes that row's
-// matrices. m: [N, N] or [B, N, N] fp32 (read below the diagonal only); dmix,
+// matrices. m: [N, N] or [B, N, N] fp32 (read below the diagonal only, its
+// values taken at bf16 as the wide form takes them); dmix,
 // st, ds: [B, N, R]; dm: m's shape, fp32 zeroed by the caller, accumulated
 // atomically below the diagonal.
 __global__ void __launch_bounds__(kThreads)
@@ -289,7 +290,7 @@ mix_states_bwd_kernel(const float* __restrict__ m, const bf16* __restrict__ dmix
   const int warp = threadIdx.x >> 5;
   for (int e = threadIdx.x; e < kMaxSlots * kMaxSlots; e += blockDim.x) {
     const int i = e / kMaxSlots, j = e % kMaxSlots;
-    ms[e] = (i < N && j < i) ? m[i * N + j] : 0.f;
+    ms[e] = (i < N && j < i) ? __bfloat162float(__float2bfloat16(m[i * N + j])) : 0.f;
   }
   // slot rows N..31 stay zero for every slab
   for (int e = threadIdx.x; e < (kMaxSlots - N) * kSlab; e += blockDim.x) {

@@ -294,7 +294,7 @@ extern "C" int mhla_radial_bwd(const void* q, const void* k, const void* v, cons
   const float scale_log2 = scale * kLog2e;
   const int64_t rows = (int64_t)B * T * H;
   const dim3 grid((T + kTile - 1) / kTile, H, B);
-  flash_bwd_delta_kernel<<<(unsigned)((rows + 3) / 4), kThreads, 0, stream>>>(
+  flash_bwd_delta_kernel<kD><<<(unsigned)((rows + 3) / 4), kThreads, 0, stream>>>(
       (const bf16*)o, (const bf16*)dout, (float*)delta, rows, T, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

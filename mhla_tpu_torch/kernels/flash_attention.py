@@ -4,10 +4,13 @@
 K9 ``flash_attention`` replaces the JAX library's Pallas TPU flash kernel
 that ``mhla_tpu/kernels/flash_attention.py:59-63,115-118`` calls for long
 queries: the video model's text cross-attention (31,500 queries against
-512 keys) and, with equal lengths, its softmax self-attention. The kernel
-(``csrc/flash_fwd.cu``, where its bound and design are written) takes bf16
-with a head dim of 128 and any two lengths; it needs no padding and no
-segment ids, because it checks its own bounds.
+512 keys) and, with equal lengths, its softmax self-attention and the LM's
+softmax layers. The kernel (``csrc/flash_fwd.cu``, where its bound and
+design are written) takes bf16 with a head dim of 128 or 256 and any two
+lengths; it needs no padding and no segment ids, because it checks its own
+bounds. The JAX rule sends every head dim that is a multiple of 128 to the
+library kernel; on a CUDA tensor any other than 128 and 256 (384, ...)
+raises here.
 
 K9b ``flash_attention_bwd`` replaces that library's backward kernels, which
 ``jax.grad`` reaches through the same call: from q, k, v, the output, its
@@ -45,7 +48,7 @@ from .mhla_chunk import _check, _on_cpu, _raise_on_error, _stream
 launches = {"flash_attention": 0, "flash_attention_bwd": 0,
             "flash_attention_masked": 0, "flash_attention_masked_bwd": 0}
 
-_HEAD_DIM = 128  # csrc: kD
+_HEAD_DIMS = (128, 256)  # the instantiations of csrc/flash_fwd.cu and flash_bwd.cu
 _TILE = 64  # csrc: kBlockM, kBlockN, kTile
 _lib_cache: Optional[ctypes.CDLL] = None
 
@@ -55,11 +58,11 @@ def _lib() -> ctypes.CDLL:
     if _lib_cache is None:
         lib = _build.load()
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mhla_flash_fwd.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p]
-        lib.mhla_flash_fwd_lse.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
-        lib.mhla_flash_bwd.argtypes = [p] * 10 + [i, i, i, i, ctypes.c_float, p]
-        lib.mhla_flash_fwd_masked.argtypes = [p] * 8 + [i, i, i, i, ctypes.c_float, p]
-        lib.mhla_flash_bwd_masked.argtypes = [p] * 13 + [i, i, i, i, ctypes.c_float, p]
+        lib.mhla_flash_fwd.argtypes = [p, p, p, p] + [i] * 5 + [ctypes.c_float, p]
+        lib.mhla_flash_fwd_lse.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float, p]
+        lib.mhla_flash_bwd.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_float, p]
+        lib.mhla_flash_fwd_masked.argtypes = [p] * 8 + [i] * 5 + [ctypes.c_float, p]
+        lib.mhla_flash_bwd_masked.argtypes = [p] * 13 + [i] * 5 + [ctypes.c_float, p]
         for fn in (lib.mhla_flash_fwd, lib.mhla_flash_fwd_lse, lib.mhla_flash_bwd,
                    lib.mhla_flash_fwd_masked, lib.mhla_flash_bwd_masked):
             fn.restype = ctypes.c_int
@@ -234,6 +237,11 @@ def _masked_args(q: torch.Tensor, causal: bool, segment_ids: Optional[torch.Tens
     return seg, torch.empty(b, -(-t // _TILE), 2, dtype=torch.int32, device=q.device)
 
 
+def _check_head_dim(d: int) -> None:
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"kernel takes head dim {' or '.join(map(str, _HEAD_DIMS))}, got {d}")
+
+
 def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
     return None if x is None else x.data_ptr()
 
@@ -270,8 +278,7 @@ def flash_attention_bwd(
     for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check(name, x, torch.bfloat16, 4)
     _check("lse", lse, torch.float32, 3)
-    if d != _HEAD_DIM:
-        raise ValueError(f"kernel takes head dim {_HEAD_DIM}, got {d}")
+    _check_head_dim(d)
     if any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
         raise ValueError("kernel copies 16 bytes at a time: its inputs must be 16-byte aligned")
     seg, ranges = _masked_args(q, causal, segment_ids)
@@ -284,14 +291,14 @@ def flash_attention_bwd(
                 err = _lib().mhla_flash_bwd_masked(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                    dv.data_ptr(), _ptr(seg), _ptr(ranges), _ptr(visits), b, tq, h,
+                    dv.data_ptr(), _ptr(seg), _ptr(ranges), _ptr(visits), b, tq, h, d,
                     int(causal), scale, _stream(q),
                 )
             else:
                 err = _lib().mhla_flash_bwd(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                    dv.data_ptr(), b, tq, tk, h, scale, _stream(q),
+                    dv.data_ptr(), b, tq, tk, h, d, scale, _stream(q),
                 )
         _raise_on_error("flash_attention_bwd", err)
         launches["flash_attention_masked_bwd" if masked else "flash_attention_bwd"] += 1
@@ -359,8 +366,7 @@ def _flash_fwd(q, k, v, scale: Optional[float], want_lse: bool, causal: bool = F
         return out if want_lse else (out, None)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check(name, x, torch.bfloat16, 4)
-    if d != _HEAD_DIM:
-        raise ValueError(f"kernel takes head dim {_HEAD_DIM}, got {d}")
+    _check_head_dim(d)
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("kernel copies 16 bytes at a time: q, k and v must be 16-byte aligned")
     masked = causal or segment_ids is not None
@@ -373,17 +379,17 @@ def _flash_fwd(q, k, v, scale: Optional[float], want_lse: bool, causal: bool = F
             if masked:
                 err = _lib().mhla_flash_fwd_masked(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-                    _ptr(seg), _ptr(ranges), _ptr(visits), b, tq, h, int(causal), scale,
+                    _ptr(seg), _ptr(ranges), _ptr(visits), b, tq, h, d, int(causal), scale,
                     _stream(q),
                 )
             elif want_lse:
                 err = _lib().mhla_flash_fwd_lse(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                    b, tq, tk, h, scale, _stream(q),
+                    b, tq, tk, h, d, scale, _stream(q),
                 )
             else:
                 err = _lib().mhla_flash_fwd(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, tq, tk, h,
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, tq, tk, h, d,
                     scale, _stream(q),
                 )
         _raise_on_error("flash_attention", err)

@@ -10,6 +10,13 @@ CUDA kernels (counterpart of ``mhla_tpu/kernels/mhla_chunk_pallas.py``):
   K3b ``mix_states_bwd``    dS = Ms^T dmixed and dMs[i, j] = <dmixed_i, S_j>
   K2b ``chunk_states_bwd``  dk = v dS^T + dk_intra, dv = k dS + dv_intra
 
+K3 and K3b hold at most 32 chunks in registers; beyond 32 (a long context:
+512 slots at 32,768 positions) the same wrappers launch their wide forms
+(``csrc/mhla_mix_wide.cu``, counted as ``mix_states_wide`` and
+``mix_states_wide_bwd``): tensor-core products over 128-column strips of
+the states, and dMs from fixed slices of the state columns summed in a
+second pass, the same bit for bit from run to run.
+
 The q scale ``Dk**-0.5`` is folded into the mixing matrix once, as the JAX
 entry point does (``mhla_chunk_pallas.py:1005-1013``): Ms is the scaled
 strict lower triangle rounded to the compute dtype, md the scaled diagonal
@@ -43,10 +50,15 @@ from . import _build
 launches = {
     "chunk_states": 0, "mix_states": 0, "chunk_output": 0,
     "chunk_output_bwd": 0, "mix_states_bwd": 0, "chunk_states_bwd": 0,
+    "mix_states_wide": 0, "mix_states_wide_bwd": 0,
 }
 
 _TILE_N = 128  # Dv columns per block of K2 and K4 (csrc: kTileN)
 _MAX_SLOTS = 32  # chunk slots K3 holds in registers (csrc: kMaxSlots)
+_MAX_SLOTS_WIDE = 832  # slots the wide forms stage in shared memory (csrc: kMaxSlotsWide)
+_WIDE_COLS = 128  # state columns per block of the wide forms (csrc: kCols)
+_GRAM_COLS = 64  # state columns per stage of the wide dMs (csrc: kGramCols)
+_GRAM_BLOCKS = 1056  # wide dMs: ~8 blocks on each of the H100's 132 SMs
 _MAX_CHUNK = 64  # K4 keeps two [C, C] score tiles in 48 KB of shared memory
 _SLAB = 256  # state columns per slab of K3b (csrc: kSlab)
 
@@ -65,9 +77,12 @@ def _lib() -> ctypes.CDLL:
         lib.mhla_chunk_output_bwd.argtypes = [p] * 11 + [i] * 7 + [p]
         lib.mhla_mix_states_bwd.argtypes = [p, p, p, p, p, i, i, ll, ll, p]
         lib.mhla_chunk_states_bwd.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.mhla_mix_states_wide.argtypes = [p, p, p, p, i, i, ll, ll, p]
+        lib.mhla_mix_states_wide_bwd.argtypes = [p] * 7 + [i, i, ll, ll, i, ll, p]
         for fn in (lib.mhla_chunk_states, lib.mhla_mix_states, lib.mhla_chunk_output,
                    lib.mhla_chunk_output_bwd, lib.mhla_mix_states_bwd,
-                   lib.mhla_chunk_states_bwd):
+                   lib.mhla_chunk_states_bwd, lib.mhla_mix_states_wide,
+                   lib.mhla_mix_states_wide_bwd):
             fn.restype = ctypes.c_int
         _lib_cache = lib
     return _lib_cache
@@ -177,24 +192,70 @@ def _batch_stride(m: torch.Tensor, per_row_ndim: int, name: str, b: int, n: int)
 def mix_states_plain(m_strict: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
     """mixed[b, i] = sum_j m_strict[(b,) i, j] states[b, j], float32
     accumulation, result in the states' dtype. m_strict: [N, N] or, one per
-    batch row, [B, N, N] float32 holding values already rounded to the
-    compute dtype."""
+    batch row, [B, N, N] float32; its values are taken rounded to the
+    states' dtype, as JAX's kernel takes M in the compute dtype (the op
+    rounds its M before, so nothing is lost there)."""
     eq = "ij,bjrd->bird" if m_strict.ndim == 2 else "bij,bjrd->bird"
-    out = torch.einsum(eq, m_strict.float(), states4.float())
+    out = torch.einsum(eq, m_strict.to(states4.dtype).float(), states4.float())
     return out.to(states4.dtype).contiguous()
+
+
+def _wide_args(states4: torch.Tensor, m_bstride: int, *streams: torch.Tensor):
+    """Checks of the wide forms, which copy 16 bytes at a time from the
+    states (and ``streams``); (R, the bf16 scratch for M's padded copy)."""
+    b, n, hdk, dv = states4.shape
+    if n > _MAX_SLOTS_WIDE:
+        raise ValueError(f"kernel mixes at most {_MAX_SLOTS_WIDE} chunks, got {n}")
+    r = hdk * dv
+    if r % _WIDE_COLS:
+        raise ValueError(f"kernel needs a state size divisible by {_WIDE_COLS}, got {r}")
+    if any(x.data_ptr() % 16 for x in (states4, *streams)):
+        raise ValueError("kernel copies 16 bytes at a time: its inputs must be 16-byte aligned")
+    np_ = -(-n // 64) * 64
+    scratch = torch.empty(b if m_bstride else 1, np_, np_, dtype=torch.bfloat16,
+                          device=states4.device)
+    return r, scratch
+
+
+def _mix_args(m_strict: torch.Tensor, states4: torch.Tensor, *others: torch.Tensor) -> int:
+    """Checks shared by both forms of K3 and K3b; M's batch stride."""
+    _check("m_strict", m_strict, torch.float32, m_strict.ndim)
+    for name, x in (("states4", states4), *(("dmixed4", y) for y in others)):
+        _check(name, x, torch.bfloat16, 4)
+        if x.shape != states4.shape:
+            raise ValueError("dmixed4 and states4 disagree in shape")
+    b, n = states4.shape[:2]
+    return _batch_stride(m_strict, 3, "m_strict", b, n)
+
+
+def _mix_states_wide(m_strict: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
+    """The wide K3 at any N up to 832 (``mix_states`` launches it beyond 32
+    chunks; ``chip_smoke.py`` also times it at 32 beside the 32-slot form)."""
+    m_bstride = _mix_args(m_strict, states4)
+    b, n = states4.shape[:2]
+    r, scratch = _wide_args(states4, m_bstride)
+    out = torch.empty_like(states4)
+    with torch.cuda.device(states4.device):
+        err = _lib().mhla_mix_states_wide(
+            m_strict.data_ptr(), states4.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            b, n, r, m_bstride, _stream(states4),
+        )
+    _raise_on_error("mix_states", err)
+    launches["mix_states_wide"] += 1
+    return out
 
 
 def mix_states(m_strict: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
     """K3 (see :func:`mix_states_plain`). The kernel reads only the strict
-    lower triangle of ``m_strict``."""
+    lower triangle of ``m_strict`` and takes its values at bf16. Up to 32
+    chunks it mixes in float32 FMAs; beyond, the wide form runs bf16
+    products on the tensor cores."""
     if _on_cpu(m_strict, states4):
         return mix_states_plain(m_strict, states4)
-    _check("m_strict", m_strict, torch.float32, m_strict.ndim)
-    _check("states4", states4, torch.bfloat16, 4)
+    if states4.shape[1] > _MAX_SLOTS:
+        return _mix_states_wide(m_strict, states4)
+    m_bstride = _mix_args(m_strict, states4)
     b, n, hdk, dv = states4.shape
-    m_bstride = _batch_stride(m_strict, 3, "m_strict", b, n)
-    if n > _MAX_SLOTS:
-        raise ValueError(f"kernel mixes at most {_MAX_SLOTS} chunks, got {n}")
     r = hdk * dv
     if r % 2:
         raise ValueError(f"kernel needs an even state size, got {r}")
@@ -383,8 +444,9 @@ def mix_states_bwd_plain(
     sum_{i>j} Ms[(b,) i, j] dmixed[b, i] in the states' dtype, and dMs[i, j]
     = sum over b of <dmixed[b, i], states[b, j]> for i > j (zero elsewhere,
     the strict-part mask of ``mhla_chunk_pallas.py:932-936``), float32; for
-    a per-row Ms [B, N, N], dMs[b, i, j] of each row, not summed."""
-    ms = torch.tril(m_strict.float(), diagonal=-1)
+    a per-row Ms [B, N, N], dMs[b, i, j] of each row, not summed. Ms's
+    values are taken rounded to the states' dtype, as in the forward."""
+    ms = torch.tril(m_strict.to(states4.dtype).float(), diagonal=-1)
     per_row = m_strict.ndim == 3
     dstates = torch.einsum("bij,bird->bjrd" if per_row else "ij,bird->bjrd", ms, dmixed4.float())
     dms = torch.einsum("bird,bjrd->bij" if per_row else "bird,bjrd->ij",
@@ -392,22 +454,54 @@ def mix_states_bwd_plain(
     return dstates.to(states4.dtype).contiguous(), torch.tril(dms, diagonal=-1)
 
 
+def _gram_splits(n: int, r: int, rows: int) -> Tuple[int, int]:
+    """(splits, slice): the fixed slices of the R state columns over which
+    the wide K3b sums dMs, each of ``slice`` columns (a multiple of 64), as
+    many as give about _GRAM_BLOCKS blocks with the 64 x 64 tiles on and
+    below dMs's diagonal and the ``rows`` batch rows."""
+    tiles = -(-n // 64)
+    pairs = tiles * (tiles + 1) // 2
+    want = max(1, min(r // _GRAM_COLS, -(-_GRAM_BLOCKS // (pairs * rows))))
+    slice_ = -(-r // (want * _GRAM_COLS)) * _GRAM_COLS
+    return -(-r // slice_), slice_
+
+
+def _mix_states_wide_bwd(
+    m_strict: torch.Tensor, dmixed4: torch.Tensor, states4: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wide K3b at any N up to 832 (see :func:`_mix_states_wide`)."""
+    m_bstride = _mix_args(m_strict, states4, dmixed4)
+    b, n = states4.shape[:2]
+    r, scratch = _wide_args(states4, m_bstride, dmixed4)
+    splits, slice_ = _gram_splits(n, r, b)
+    np_ = scratch.shape[-1]
+    part = torch.empty(b, splits, np_, np_, dtype=torch.float32, device=states4.device)
+    dstates4 = torch.empty_like(states4)
+    dms = torch.empty(m_strict.shape, dtype=torch.float32, device=states4.device)
+    with torch.cuda.device(states4.device):
+        err = _lib().mhla_mix_states_wide_bwd(
+            m_strict.data_ptr(), dmixed4.data_ptr(), states4.data_ptr(),
+            dstates4.data_ptr(), dms.data_ptr(), scratch.data_ptr(), part.data_ptr(),
+            b, n, r, m_bstride, splits, slice_, _stream(states4),
+        )
+    _raise_on_error("mix_states_bwd", err)
+    launches["mix_states_wide_bwd"] += 1
+    return dstates4, dms
+
+
 def mix_states_bwd(
     m_strict: torch.Tensor, dmixed4: torch.Tensor, states4: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3b (see :func:`mix_states_bwd_plain`). dMs sums over blocks with
-    float32 atomics, so its last bits change from run to run."""
+    """K3b (see :func:`mix_states_bwd_plain`), taking M's values at bf16 as
+    K3 does. Up to 32 chunks dMs sums over blocks with float32 atomics, so
+    its last bits change from run to run; beyond, the wide form sums fixed
+    slices in a fixed order (bit-equal over runs)."""
     if _on_cpu(m_strict, dmixed4, states4):
         return mix_states_bwd_plain(m_strict, dmixed4, states4)
-    _check("m_strict", m_strict, torch.float32, m_strict.ndim)
-    _check("dmixed4", dmixed4, torch.bfloat16, 4)
-    _check("states4", states4, torch.bfloat16, 4)
+    if states4.shape[1] > _MAX_SLOTS:
+        return _mix_states_wide_bwd(m_strict, dmixed4, states4)
+    m_bstride = _mix_args(m_strict, states4, dmixed4)
     b, n, hdk, dv = states4.shape
-    if dmixed4.shape != states4.shape:
-        raise ValueError("dmixed4 and states4 disagree in shape")
-    m_bstride = _batch_stride(m_strict, 3, "m_strict", b, n)
-    if n > _MAX_SLOTS:
-        raise ValueError(f"kernel mixes at most {_MAX_SLOTS} chunks, got {n}")
     r = hdk * dv
     if r % _SLAB:
         raise ValueError(f"kernel needs a state size divisible by {_SLAB}, got {r}")

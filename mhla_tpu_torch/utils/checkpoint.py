@@ -94,6 +94,20 @@ def load_checkpoint(path: str, state):
     return state
 
 
+def load_model_params(path: str, model) -> None:
+    """Load a model's weights, in place, from a checkpoint: ``path`` is a
+    step directory or a run's ``work_dir`` (its newest complete checkpoint).
+    The EMA weights replace the raw ones where the run kept an EMA, as the
+    JAX package's ``load_params_from_checkpoint`` prefers them."""
+    step_dir = path if _is_complete(Path(path)) else resolve_resume_path(path, "latest")
+    if step_dir is None:
+        raise FileNotFoundError(f"no complete checkpoint at {path}")
+    payload = torch.load(Path(step_dir) / _STATE, map_location="cpu", weights_only=True)
+    weights = dict(payload["model"])
+    weights.update(payload.get("ema") or {})
+    model.load_state_dict(weights, strict=True)
+
+
 def checkpoint_step(path: str) -> int:
     name = os.path.basename(path.rstrip("/"))
     return int(name.split("_")[-1]) if name.startswith("step_") else -1

@@ -97,9 +97,9 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     k4 = torch.zeros(1, 2, 64, 512, device=dev)  # float32: the kernel takes bf16
     with pytest.raises(TypeError):
         mhla_chunk.chunk_states(k4, k4, 4)
-    with pytest.raises(ValueError):
-        mhla_chunk.mix_states(torch.zeros(40, 40, device=dev),
-                              torch.zeros(1, 40, 512, 256, dtype=torch.bfloat16, device=dev))
+    with pytest.raises(ValueError):  # beyond the 832 slots the wide form stages
+        mhla_chunk.mix_states(torch.zeros(900, 900, device=dev),
+                              torch.zeros(1, 900, 16, 128, dtype=torch.bfloat16, device=dev))
 
 
 def test_tiny_lm_serves_through_the_kernels(dev):
@@ -187,9 +187,9 @@ def test_backward_wrappers_raise_instead_of_falling_back(dev):
                                     torch.zeros(2, device=dev), x, 4)
     with pytest.raises(TypeError):
         mhla_chunk.chunk_states_bwd(x, x, torch.zeros(1, 2, 512, 128, device=dev), x, x, 4)
-    big = torch.zeros(1, 40, 512, 256, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError):
-        mhla_chunk.mix_states_bwd(torch.zeros(40, 40, device=dev), big, big)
+    big = torch.zeros(1, 900, 16, 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # beyond the 832 slots the wide form stages
+        mhla_chunk.mix_states_bwd(torch.zeros(900, 900, device=dev), big, big)
     with pytest.raises(TypeError):
         mhla_chunk.mix_states_bwd(m, big[:, :2].float(), big[:, :2].float())
     with pytest.raises(ValueError):  # Dv = 64 is not a multiple of the 128-column tile
@@ -1227,3 +1227,158 @@ def test_tiny_gla_lm_serves_and_trains_through_the_kernels(dev, extends):
     assert counts["gla_chunk_fwd"] == counts["gla_chunk_bwd"] == 2, counts
     assert torch.isfinite(metrics["loss"])
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+# --- the long-context path: head dim 256 (K9 / K9b) and wide mixing (K3 / K3b)
+
+
+@pytest.mark.parametrize("tq,tk", [(3000, 512), (1000, 1000), (70, 33), (64, 129), (2048, 2048)])
+def test_flash_kernels_at_head_dim_256(dev, tq, tk):
+    """K9 (serving and training forms) and K9b at head dim 256, the softmax
+    layers of a hybrid LM with the LM's 4 heads, against their plain
+    versions; K9b equal across two runs."""
+    import chip_smoke
+
+    q, k, v = (_randn(dev, 2, t, 2, 256, seed=s).to(_BF16) for s, t in ((1, tq), (2, tk), (3, tk)))
+    do = _randn(dev, 2, tq, 2, 256, seed=4).to(_BF16)
+    before = dict(flash.launches)
+    out, lse = flash._flash_fwd(q, k, v, None, want_lse=True)
+    assert torch.equal(out, flash.flash_attention(q, k, v))
+    ref, lse_ref = flash.flash_attention_plain(q, k, v, return_lse=True)
+    assert_close(f"K9 d256 {tq}x{tk}", ref, out, chip_smoke.FLASH_TOL)
+    assert_close(f"K9 d256 lse {tq}x{tk}", lse_ref, lse, 1e-5)
+    got = flash.flash_attention_bwd(q, k, v, out, lse, do)
+    want = flash.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    for name, r, g in zip(("dq", "dk", "dv"), want, got):
+        assert_close(f"K9b d256 {name} {tq}x{tk}", r, g, chip_smoke.FLASH_BWD_TOL)
+    again = flash.flash_attention_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    assert flash.launches["flash_attention"] == before["flash_attention"] + 2
+    assert flash.launches["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+
+
+@pytest.mark.parametrize("form", ["causal", "segment", "causal_segment"])
+@pytest.mark.parametrize("geometry", ["packed", "unaligned", "one_token", "one"])
+def test_masked_flash_kernels_at_head_dim_256(dev, geometry, form):
+    """The causal and segment-id forms of K9 / K9b at head dim 256 against
+    the plain versions, two K9b runs bit for bit, and the tiles walked
+    against the rule's count (the dK/dV walk counted once for its two
+    passes)."""
+    import chip_smoke
+
+    seg_cpu, h = _seg_geometry(geometry)
+    b, t = seg_cpu.shape
+    causal = form.startswith("causal")
+    seg = seg_cpu.to(dev) if "segment" in form else None
+    q, k, v, do = (_randn(dev, b, t, h, 256, seed=s).to(_BF16) for s in range(4))
+    visits = torch.zeros(3, dtype=torch.int32, device=dev)
+    out, lse = flash._flash_fwd(q, k, v, None, True, causal, seg, visits[:1])
+    assert torch.equal(out, flash.flash_attention(q, k, v, causal=causal, segment_ids=seg))
+    ref, lse_ref = flash.flash_attention_plain(q, k, v, return_lse=True, causal=causal,
+                                               segment_ids=seg)
+    assert_close(f"K9 d256 {form} {geometry}", ref, out, chip_smoke.FLASH_TOL)
+    assert_close(f"K9 d256 lse {form} {geometry}", lse_ref, lse, 1e-5)
+    got = flash.flash_attention_bwd(q, k, v, out, lse, do, None, causal, seg, visits[1:])
+    want = flash.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal, segment_ids=seg)
+    one_key = t == 1 or (geometry == "one_token" and seg is not None)
+    for name, r, g in zip(("dq", "dk", "dv"), want, got):
+        if one_key and name != "dv":  # every row keeps one key: P = 1, dS = 0
+            assert g.abs().max() < 1e-5 and r.abs().max() < 1e-5
+            continue
+        assert_close(f"K9b d256 {name} {form} {geometry}", r, g, chip_smoke.FLASH_BWD_TOL)
+    again = flash.flash_attention_bwd(q, k, v, out, lse, do, None, causal, seg)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    want_tiles = h * flash.visited_tiles(causal, seg_cpu if seg is not None else None, t)
+    if seg is None:
+        want_tiles *= b
+    assert visits.tolist() == [want_tiles] * 3
+
+
+def _wide_mixing(dev, b, n, per_row, seed=7):
+    """A scaled strict lower mixing matrix rounded to bf16, [N, N] or one per
+    batch row [B, N, N], as the chunked op hands it to K3 / K3b."""
+    shape = (b, n, n) if per_row else (n, n)
+    m = torch.rand(*shape, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+    return torch.tril(m * 128**-0.5, -1).to(_BF16).float().contiguous()
+
+
+@pytest.mark.parametrize("b,n,per_row", [(1, 33, False), (1, 64, False), (2, 100, False),
+                                         (1, 448, False), (1, 512, False), (2, 96, True)])
+def test_wide_mix_kernels_match_plain(dev, b, n, per_row):
+    """K3 and K3b beyond 32 chunks (the wide forms) against their plain
+    versions, shared and per-row M, ragged N included; dMs bit for bit over
+    two runs (fixed slices, no atomics)."""
+    states4 = _randn(dev, b, n, 512, 256, seed=1).to(_BF16)
+    dmixed4 = _randn(dev, b, n, 512, 256, seed=2).to(_BF16)
+    m = _wide_mixing(dev, b, n, per_row)
+    before = dict(mhla_chunk.launches)
+    out = mhla_chunk.mix_states(m, states4)
+    assert_close(f"K3 wide N={n}", mhla_chunk.mix_states_plain(m, states4), out, KERNEL_TOL)
+    ds, dm = mhla_chunk.mix_states_bwd(m, dmixed4, states4)
+    ds_ref, dm_ref = mhla_chunk.mix_states_bwd_plain(m, dmixed4, states4)
+    assert_close(f"K3b wide dS N={n}", ds_ref, ds, KERNEL_TOL)
+    assert_close(f"K3b wide dM N={n}", dm_ref, dm, KERNEL_TOL)
+    assert dm.shape == m.shape and not torch.count_nonzero(torch.triu(dm))
+    ds2, dm2 = mhla_chunk.mix_states_bwd(m, dmixed4, states4)
+    assert torch.equal(ds, ds2) and torch.equal(dm, dm2)
+    after = mhla_chunk.launches
+    assert after["mix_states_wide"] == before["mix_states_wide"] + 1
+    assert after["mix_states_wide_bwd"] == before["mix_states_wide_bwd"] + 2
+    assert after["mix_states"] == before["mix_states"]
+
+
+@pytest.mark.parametrize("n", [32, 33])
+def test_mix_kernels_take_m_at_bf16(dev, n):
+    """The 32-slot K3 / K3b (N = 32) and the wide forms (N = 33) both take
+    an unrounded M at bf16: the same bits as M rounded first, and the plain
+    versions' result."""
+    states4 = _randn(dev, 2, n, 512, 256, seed=3).to(_BF16)
+    dmixed4 = _randn(dev, 2, n, 512, 256, seed=4).to(_BF16)
+    m = torch.tril(torch.rand(n, n, generator=torch.Generator(dev).manual_seed(6),
+                              device=dev) * 128**-0.5, -1)
+    m_bf = m.to(_BF16).float()
+    out = mhla_chunk.mix_states(m, states4)
+    assert torch.equal(out, mhla_chunk.mix_states(m_bf, states4))
+    assert_close(f"K3 N={n}", mhla_chunk.mix_states_plain(m, states4), out, KERNEL_TOL)
+    ds = mhla_chunk.mix_states_bwd(m, dmixed4, states4)[0]
+    assert torch.equal(ds, mhla_chunk.mix_states_bwd(m_bf, dmixed4, states4)[0])
+    assert_close(f"K3b dS N={n}", mhla_chunk.mix_states_bwd_plain(m, dmixed4, states4)[0], ds,
+                 KERNEL_TOL)
+
+
+def test_long_context_shapes_the_kernels_lack_raise(dev):
+    """Head dim 384 (a multiple of 128 that the JAX rule sends to flash)
+    and a sequence longer than the mixing matrix's slots raise."""
+    from mhla_tpu_torch.kernels import mhla_chunk_fused_flat
+
+    q = torch.zeros(1, 2048, 1, 384, dtype=_BF16, device=dev)
+    with pytest.raises(ValueError):
+        flash.flash_attention(q, q, q, causal=True)
+    x = torch.zeros(1, 65 * 64, 2 * 128, dtype=_BF16, device=dev)
+    with pytest.raises(ValueError):  # 65 chunks, 64 slots
+        mhla_chunk_fused_flat(x, x, x, torch.ones(64, 64, device=dev), num_heads=2)
+
+
+def test_tiny_long_context_hybrid_lm_through_the_kernels(dev):
+    """A 2-layer hybrid with one softmax layer of 2 heads of 256 and 64
+    mixing slots serves a 2,112-token prompt (33 chunks: K3 wide; K9 causal
+    at head dim 256) and trains one step at that length (K9b, K3b wide)."""
+    cfg = MHLALMConfig(hidden_size=512, num_hidden_layers=2, num_heads=2, vocab_size=128,
+                       max_position_embeddings=4096, attn={"layers": [0]},
+                       dtype=torch.bfloat16)
+    model = MHLAForCausalLM(cfg, device=dev)
+    init_lm_params(model, torch.Generator(dev).manual_seed(0))
+    ids = torch.randint(0, 128, (1, 2112), generator=torch.Generator(dev).manual_seed(1),
+                        device=dev)
+    kernels.reset_launch_counts()
+    toks = generate(model, ids, max_new_tokens=4)
+    counts = kernels.launch_counts()
+    assert toks.shape == (1, 2116)
+    assert counts["flash_attention_masked"] == 1 and counts["mix_states_wide"] == 1
+    state = init_train_state(model, OptimizerConfig(warmup_steps=1))
+    step = make_train_step(lambda mdl, batch: (cross_entropy_loss(mdl(batch)[0], batch), {}))
+    kernels.reset_launch_counts()
+    _, metrics = step(state, ids)
+    counts = kernels.launch_counts()
+    assert torch.isfinite(torch.as_tensor(float(metrics["loss"])))
+    assert counts["flash_attention_masked_bwd"] == 1 and counts["mix_states_wide_bwd"] == 1
