@@ -260,6 +260,30 @@ VIDEO_TOL = 3e-2
 # transpose, a missing rotation sign or a dropped term gives O(1).
 LAYER_GRAD_TOL = 2e-2
 
+# K9 / K9b's times with their earlier mma.sync kernels, before the Hopper
+# redesign (wgmma, TMA, a producer warpgroup), by (kernel, shape tag) as this
+# script times them: the bracketed times of PERF.md section 6's table
+# (NVIDIA H100 80GB HBM3, 700.00 W). Each is printed beside this run's time,
+# its bound and the library call's.
+FLASH_MMA_SYNC_MS = {
+    ("flash_attention", "Tq=31500 Tk=512"): 0.9334,
+    ("flash_attention[self]", "Tq=Tk=31500"): 47.7022,
+    ("flash_attention_bwd", "Tq=31500 Tk=512"): 2.0151,
+    ("flash_attention_bwd[self]", "Tq=31500 Tk=31500"): 79.4776,
+    ("flash_attention[causal]", "B=8 T=2048 packed"): 0.3475,
+    ("flash_attention[causal+segment]", "B=8 T=2048 packed"): 0.2409,
+    ("flash_attention_bwd[causal]", "B=8 T=2048 packed"): 1.2050,
+    ("flash_attention_bwd[causal+segment]", "B=8 T=2048 packed"): 0.6310,
+    ("flash_attention[causal,d256]", "B=8 T=2048 H=4 D=256"): 0.7655,
+    ("flash_attention[causal,d256]", "B=1 T=16384 H=4 D=256"): 5.6137,
+    ("flash_attention[causal,d256]", "B=1 T=28672 H=4 D=256"): 15.9672,
+    ("flash_attention_bwd[causal,d256]", "B=8 T=2048 H=4 D=256"): 2.3050,
+    ("flash_attention_bwd[causal,d256]", "B=1 T=16384 H=4 D=256"): 15.3931,
+    ("flash_attention[causal+segment,d256]", "B=8 T=2048 H=4 D=256"): 0.2845,
+    ("flash_attention_bwd[causal+segment,d256]", "B=8 T=2048 H=4 D=256"): 1.2272,
+}
+FLASH_TIMES = {}  # this run's timed K9 / K9b forms beside FLASH_MMA_SYNC_MS
+
 SEED = 0
 PROMPT_A, NEW_A, BATCH_A = 1984, 64, 4
 PROMPT_B, NEW_B, BATCH_B = 781, 32, 1
@@ -408,6 +432,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+_T0 = time.perf_counter()
+
+
+def log_time(phase: str) -> None:
+    """Print the seconds since the script started, after ``phase``: the run
+    must stay within its time limit as phases are added."""
+    log(f"[time] {phase} done at {time.perf_counter() - _T0:.1f} s")
+
+
 def median_ms(fn, reps: int = 10, inner: int = 10, warmup: int = 3) -> float:
     """Time per call of ``fn()``: the median over ``reps`` CUDA-event
     timings of ``inner`` back-to-back calls, after warm-up. Where the host
@@ -512,6 +545,25 @@ def check_kernel(results: dict, name: str, shape_tag: str, kern, plain, timed: b
                 f"({r['bound_by']})")
         if library is not None:
             msg += f"  library {r['library_ms']:.4f} ms"
+    log(msg)
+    if timed and name.startswith("flash_attention"):
+        log_flash_time(name, shape_tag, r)
+
+
+def log_flash_time(name: str, shape_tag: str, r: dict) -> None:
+    """Keep and print a timed K9 / K9b form beside its time with the earlier
+    mma.sync kernels, its bound and the library call's time, with the ratios."""
+    before, lib = FLASH_MMA_SYNC_MS.get((name, shape_tag)), r["library_ms"]
+    FLASH_TIMES[f"{name} {shape_tag}"] = {
+        "ms": r["ms"], "mma_sync_ms": before, "bound_ms": r["bound_ms"], "library_ms": lib,
+        "mma_sync_over_ms": before / r["ms"] if before else None,
+        "bound_over_ms": r["bound_ms"] / r["ms"], "ms_over_library": r["ms"] / lib if lib else None}
+    msg = f"[flash vs mma.sync] {name} {shape_tag}: {r['ms']:.4f} ms"
+    msg += (f"; mma.sync kernels {before:.4f} ms ({before / r['ms']:.2f}x)" if before
+            else "; mma.sync kernels not timed")
+    msg += f"; bound {r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of it)"
+    if lib:
+        msg += f"; library {lib:.4f} ms (kernel / library {r['ms'] / lib:.2f})"
     log(msg)
 
 
@@ -875,15 +927,22 @@ def phase_grads(dev: torch.device) -> dict:
               timed,
               (2 * nbytes(q4, k4, v4, mixed4, m_diag) + nbytes(do4),
                2 * b * n * h * (2 * c * dk * dv + tri * (2 * dv + 3 * dk)), bf16))
+        m_bf, flat = m_strict.to(bf16), (b, n, h * dk * dv)
         check("mix_states_bwd", tag,
               lambda: mhla_chunk.mix_states_bwd(m_strict, dmixed4, states4),
               lambda: mhla_chunk.mix_states_bwd_plain(m_strict, dmixed4, states4), timed,
-              (2 * nbytes(m_strict) + 3 * nbytes(states4), 4 * pairs * b * h * dk * dv, bf16))
+              (2 * nbytes(m_strict) + 3 * nbytes(states4), 4 * pairs * b * h * dk * dv, bf16),
+              lambda: (torch.matmul(m_bf.T, dmixed4.view(flat)),
+                       torch.einsum("bir,bjr->ij", dmixed4.view(flat), states4.view(flat))))
+        k5, v5 = k4.view(b, n, c, h, dk), v4.view(b, n, c, h, dv)
+        ds5 = dstates4.view(b, n, h, dk, dv)
         check("chunk_states_bwd", tag,
               lambda: mhla_chunk.chunk_states_bwd(k4, v4, dstates4, dk_i, dv_i, h),
               lambda: mhla_chunk.chunk_states_bwd_plain(k4, v4, dstates4, dk_i, dv_i, h),
               timed,
-              (3 * nbytes(k4, v4) + nbytes(dstates4), 4 * b * n * c * h * dk * dv, bf16))
+              (3 * nbytes(k4, v4) + nbytes(dstates4), 4 * b * n * c * h * dk * dv, bf16),
+              lambda: (torch.einsum("bnchv,bnhkv->bnchk", v5, ds5),
+                       torch.einsum("bnchk,bnhkv->bnchv", k5, ds5)))
 
     for b, t in ((TRAIN_BATCH, TRAIN_SEQ), (1, 781)):
         got = op_grads(dev, b, t, kernels_path=True)
@@ -1086,10 +1145,13 @@ def phase_kernels_packed(dev: torch.device) -> dict:
           lambda: mhla_chunk.chunk_output_bwd_plain(q4, k4, v4, mixed4, m_diag, do4, h), True,
           (2 * nbytes(q4, k4, v4, mixed4, m_diag) + nbytes(do4),
            2 * b * n * h * (2 * c * dk * dv + tri * (2 * dv + 3 * dk)), bf16))
+    flat = (b, n, h * dk * dv)
     check("mix_states_bwd[per-row]", tag,
           lambda: mhla_chunk.mix_states_bwd(m_strict, dmixed4, states4),
           lambda: mhla_chunk.mix_states_bwd_plain(m_strict, dmixed4, states4), True,
-          (2 * nbytes(m_strict) + 3 * nbytes(states4), 4 * pairs * h * dk * dv, bf16))
+          (2 * nbytes(m_strict) + 3 * nbytes(states4), 4 * pairs * h * dk * dv, bf16),
+          lambda: (torch.matmul(m_bf.transpose(1, 2), dmixed4.view(flat)),
+                   torch.matmul(dmixed4.view(flat), states4.view(flat).transpose(1, 2))))
     del q4, k4, v4, do4, states4, mixed4, dmixed4, m_bf
 
     # K9 / K9b at the softmax layers' shape: causal, and causal within packed documents
@@ -1134,13 +1196,15 @@ def phase_kernels_packed(dev: torch.device) -> dict:
         again = flash.flash_attention_bwd(q, k, v, o, lse, do, None, causal, s, visits[1:])
         if not all(torch.equal(x, y) for x, y in zip(first, again)):
             raise AssertionError(f"K9b {form}: two runs differ")
-        want = ha * flash.visited_tiles(causal, s, t) * (b if s is None else 1)
+        want = flash.kernel_visits(causal, s, t, dh, ha, b)
         walked = visits.tolist()
-        walks[form] = {"walked": walked[0], "full": b * ha * n_tiles**2, "kept_pairs": kept}
+        walks[form] = {"walked": walked, "rule": want, "full_64": b * ha * n_tiles**2,
+                       "kept_pairs": kept}
         log(f"[kernels packed] K9 {form}: lse vs plain rel-RMS {lse_rel:.2e}; K9b two runs "
-            f"equal; tiles walked by K9 / K9b dK,dV / K9b dQ {walked} of {b * ha * n_tiles**2} "
-            f"(the rule's count {want}); kept pairs {kept / (b * ha * t * t):.4f} of all")
-        if walked != [want] * 3:
+            f"equal; tiles walked by K9 / K9b dK,dV / K9b dQ {walked} (the rule's count "
+            f"{want}; {b * ha * n_tiles**2} tiles of 64 x 64); kept pairs "
+            f"{kept / (b * ha * t * t):.4f} of all")
+        if walked != want:
             raise AssertionError(f"K9 {form} walked {walked} tiles, the rule says {want}")
         del o, lse, first, again, sdpa_out
     results["walks"] = walks
@@ -1557,13 +1621,13 @@ def phase_kernels_long(dev: torch.device) -> dict:
             flash._flash_fwd(q, k, v, None, False, causal, s, visits[:1])
             if backward:
                 flash.flash_attention_bwd(q, k, v, o, lse, do, None, causal, s, visits[1:])
-            want = h * flash.visited_tiles(causal, s, t) * (b if s is None else 1)
+            want = flash.kernel_visits(causal, s, t, dh, h, b)[:3 if backward else 1]
             walked = visits.tolist()[:3 if backward else 1]
-            walks[f"{form} {tag}"] = {"walked": walked[0], "full": b * h * n_tiles**2,
-                                      "kept_pairs": kept}
+            walks[f"{form} {tag}"] = {"walked": walked, "rule": want,
+                                      "full_64": b * h * n_tiles**2, "kept_pairs": kept}
             msg += (f"; tiles walked by K9{' / K9b dK,dV / K9b dQ' if backward else ''} "
-                    f"{walked} of {b * h * n_tiles**2} (the rule's count {want})")
-            if walked != [want] * len(walked):
+                    f"{walked} (the rule's count {want}; {b * h * n_tiles**2} tiles of 64 x 64)")
+            if walked != want:
                 raise AssertionError(f"K9 d256 {form} {tag} walked {walked} tiles, "
                                      f"the rule says {want}")
         log(msg)
@@ -2907,14 +2971,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build(dev)
+    log_time("build")
     kern = phase_kernels(dev)
     serve = phase_serve(dev)
     kern.update(phase_grads(dev))
     train = phase_train(dev)
+    log_time("340M LM")
     kern.update(phase_kernels_packed(dev))
     serve_hybrid = phase_serve_hybrid(dev)
     train_packed = phase_train_hybrid(dev)
     train_unpacked = phase_train_hybrid(dev, varlen=False, steps=2)
+    log_time("hybrid LM")
     kern.update(phase_kernels_long(dev))
     with tempfile.TemporaryDirectory(prefix="mhla_ppl_") as work:
         ppl, long_model = phase_ppl(dev, work)
@@ -2924,27 +2991,33 @@ def main() -> None:
                                   LONG_TRAIN_STEPS, varlen=False)
     train_d256_packed = phase_train_long(dev, "train d256 packed", TRAIN_SEQ, TRAIN_BATCH,
                                          TRAIN_SEQ, LONG_TRAIN_STEPS, varlen=True)
+    log_time("long context")
     long_phases = {"ppl": ppl, "train_long": train_long, "train_d256_packed": train_d256_packed}
     kern.update(phase_kernels_delta(dev))
     serve_gdn = phase_serve_baseline(dev, "gated_deltanet", "gdn")
     train_gdn = phase_train_baseline(dev, "gated_deltanet", "gdn")
+    log_time("Gated DeltaNet LM")
     kern.update(phase_kernels_gla(dev))
     serve_gla = phase_serve_baseline(dev, "gla", "gla")
     train_gla = phase_train_baseline(dev, "gla", "gla")
     train_simple_gla = phase_train_baseline(dev, "simple_gla", "simple_gla", steps=2)
+    log_time("GLA LM")
     kern.update(phase_kernels_video(dev))
     video = phase_video(dev)
     kern.update(phase_kernels_hybrid(dev))
     hybrid, hybrid_model = phase_video_hybrid(dev)
     sparse = phase_video_sparse(dev, hybrid_model)
     del hybrid_model
+    log_time("video sampling")
     kern.update(phase_kernels_video_train(dev))
     train_full = phase_train_video(dev, "full", range(VIDEO_LAYERS))
     train_hybrid = phase_train_video(dev, "hybrid", HYBRID_LINEAR_IDX)
+    log_time("video training (full, hybrid)")
     kern.update(phase_kernels_sparse_train(dev))
     train_sparse = phase_train_video(dev, "hybrid_sparse", HYBRID_LINEAR_IDX, SOFTMAX_LAYERS)
     train_lora = phase_train_video(dev, "hybrid_sparse + LoRA", HYBRID_LINEAR_IDX,
                                    SOFTMAX_LAYERS, lora=True)
+    log_time("video training (sparse, LoRA)")
     # each kernel's launches on the path that brought it in; K9's on the hybrid
     # sampling path and K9b's on the hybrid training path, which run them at
     # both of their shapes; K10b's on the hybrid_sparse training path
@@ -2986,7 +3059,7 @@ def main() -> None:
                     "train_hybrid_d256_packed": train_d256_packed,
                     "tile_walks_d256": kern["walks_d256"], "mix_wide": kern["mix_wide_times"],
                     "mix_n32": kern["mix_n32_times"],
-                    "flash_d256_times": kern["flash_d256_times"],
+                    "flash_d256_times": kern["flash_d256_times"], "flash_vs_mma_sync": FLASH_TIMES,
                     "flash_d256_unmasked": {name: kern[name] for name in (
                         "flash_attention[d256]", "flash_attention_bwd[d256]")},
                     "serve_gdn": serve_gdn["rates"], "train_gdn": train_gdn,

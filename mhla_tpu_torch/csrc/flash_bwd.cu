@@ -20,611 +20,566 @@
 // products) against 2*(4*Tq + 4*Tk)*D bytes: far above the card's bf16
 // ridge (295 FLOP/byte) at both of the video model's shapes and at the
 // LM's causal 2,048 to 16,384 tokens.
-// Design: three launches, no atomics, so the result is the same from run to
-// run. (1) delta: one warp per (token, head) row. (2) dK, dV: a block of 4
-// warps owns 64 keys of one (batch row, head); its K and V tiles stay in
-// shared memory as the A operands (each warp its 16 keys), and the block
-// walks over the queries 64 at a time: Q, dO, lse and delta tiles arrive by
-// cp.async into two buffers. S^T = K Q^T and dP^T = V dO^T run on the tensor
-// cores (mma.sync m16n8k16), P^T and dS^T are formed on the accumulator
-// fragments in registers and reused in place as the A fragments of
-// dV += P^T dO and dK += dS^T Q, whose float32 accumulators live in
-// registers for the whole kernel. (3) dQ: the mirror image: a block owns 64
-// queries (Q and dO in shared memory, lse and delta of its rows in
-// registers), walks over the keys and accumulates dQ += dS K. The scores and
-// dP are computed twice, once in each kernel: seven products for the
-// backward's five, the price of needing no reduction across blocks. Rows and
-// columns past Tq and Tk are zero-filled on the way in, get P = 0, and are
-// never stored. At Tk = 512 the dK/dV kernel has only 8 key tiles per head
-// to spread over the card; splitting its query range is not done yet, nor
-// are wgmma and TMA.
 //
-// Head dim 256: a thread's dK and dV accumulators would take 2 x 128
-// float32 registers, beyond the 255 a thread has (at 128 the kernel already
-// uses 249-255). So the dK/dV kernel runs twice over the same walk, once
-// for dV (S^T and P^T dO only) and once for dK (S^T, dP^T and dS^T Q), each
-// with one [16 x 256] accumulator: eight products for the backward's five
-// instead of seven. Six 64 x 256 tiles take 198 KB of shared memory, one
-// block per SM; the dQ kernel is the same kernel at the wider tile. Still
-// no atomics, so the result is the same from run to run.
+// Design (hopper.cuh has the primitives): three launches and no atomics, so
+// the result is the same from run to run. (1) delta: one warp per (token,
+// head) row (flash_bwd_common.cuh). (2) dK, dV: a block of three
+// warpgroups owns 64 keys of one (batch row, head) and walks over the
+// queries 128 at a time at D = 128, 64 at D = 256 (where the accumulator
+// leaves no registers for more). Warpgroup 0 produces: one thread loads the
+// block's K and V tiles once and the Q and dO tiles of the walk by TMA into
+// a ring of two stages, 96 of its threads copy the tiles' lse, delta (and
+// query ids) beside them; then it hands its registers over (setmaxnreg
+// 24 / 240).
+// The two consumer warpgroups share the same 64 keys and split the work:
+// warpgroup 1 computes S^T = K Q^T (wgmma, both operands K-major in shared
+// memory), forms P^T in registers, hands it to warpgroup 2 as bf16 through
+// 16 or 8 KB of shared memory under a named barrier, and accumulates dV += P^T dO
+// (register A operand, dO read MN-major); warpgroup 2 computes dP^T = V dO^T
+// meanwhile, forms dS^T = P^T * (dP^T - delta) and accumulates dK += dS^T Q.
+// Each thread holds one [64 x D] accumulator (D / 2 float32 registers), so
+// both head dims take the backward's four products here without splitting
+// the walk. (3) dQ: the mirror image of the forward: a block owns 64 query
+// rows per consumer warpgroup (two at D = 128, one at D = 256 for shared
+// memory: q and dO 64 KB, two stages of K and V 128 KB), loads Q and dO
+// once and walks the key tiles of 64: S = Q K^T and dP = dO V^T (both
+// K-major), then dS, then dQ += dS K with K read MN-major. The scores and dP
+// are computed in both kernels: seven products for the backward's five, the
+// price of needing no reduction across blocks. Rows and columns past Tq and
+// Tk are zero-filled by TMA, get P = 0, and are never stored. At Tk = 512
+// the dK/dV kernel has only 8 key blocks per head to spread over the card;
+// splitting its query range is not done.
+// Registers (-Xptxas -v, nvcc 12.9): 168 a thread at launch for the
+// three-warpgroup kernels, 224-230 for the dQ kernel at D = 256; the masked
+// dK/dV kernels spill 4-36 bytes, the others none; no serialized wgmma.
 //
 // Masked forms (Tq == Tk == T; causal and / or segment ids, the rule in
 // flash_mask.cuh; the backward of the same library kernel called with
 // causal=True and/or SegmentIds, flash_attention.py:73-104): the same three
 // launches after the forward's range pre-pass, each walk cut to the tiles
-// that can hold a kept pair, read from the key side in the dK/dV kernel (for
-// causal, the query tiles on and below the diagonal only; for segments, the
-// same disjointness test). On the tiles that need it a dropped pair gets
-// P = 0 by selection (a dropped score may lie far above lse); the unmasked
-// kernels below are not changed by it.
+// that can hold a kept pair, read from the key side in the dK/dV kernel. On
+// the tiles that need it a dropped pair gets P = 0 by selection (a dropped
+// score may lie far above lse).
 
-#include <type_traits>
 
 #include "flash_bwd_common.cuh"
 #include "flash_mask.cuh"
+#include "hopper.cuh"
 
-using namespace flash_bwd;
+using namespace hopper;
+using flash::bf16;
+using flash::pack2f;
+using flash::unpack2f;
 using flash_mask::TileWalk;
+using flash_mask::kCausal;
 using flash_mask::kSegment;
 
 namespace {
 
-// Q, dO, 2 K, 2 V tiles
-template <int D>
-constexpr int dq_smem() { return 6 * (int)sizeof(TileT<D>); }
-// K, V, 2 Q, 2 dO tiles + lse, delta
-template <int D>
-constexpr int dkv_smem() { return 6 * (int)sizeof(TileT<D>) + 4 * kTile * (int)sizeof(float); }
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kStages = 2;
+constexpr int kTileRows = 64;  // keys of a dK/dV block and of a dQ step
+constexpr int kBarPFull = 1, kBarPEmpty = 2;  // named barriers of the P^T hand-over
 
-// What a dK/dV launch computes: both (D = 128), or at D = 256 one of them.
-constexpr int kBoth = 0, kDvOnly = 1, kDkOnly = 2;
+// Round a [64 x D] float32 accumulator of a warpgroup times ``scale`` to
+// bf16 and store its rows r0 and r0 + 8 (below ``limit``) of [*, H*D].
+template <int kD>
+__device__ __forceinline__ void store_acc(bf16* dst, int64_t ld, const float (&acc)[kD / 8][4],
+                                          float scale, int r0, int limit, int tg) {
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int i = 0; i < kD / 8; ++i) {
+    const int d = i * 8 + tg * 2;
+    if (r0 < limit)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r0 * ld + d) =
+          __floats2bfloat162_rn(acc[i][0] * scale, acc[i][1] * scale);
+    if (r1 < limit)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r1 * ld + d) =
+          __floats2bfloat162_rn(acc[i][2] * scale, acc[i][3] * scale);
+  }
+}
 
-// dK and / or dV (kPass). grid (ceil(Tk / 64), H, B); dynamic shared memory
-// dkv_smem<kD>().
-template <int kD, int kPass>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
+template <int kD>
+struct DkvGeom {
+  // queries per step of the walk: 128 at D = 128; at D = 256 the
+  // accumulator leaves registers for 64
+  static constexpr int kQT = kD == 128 ? 128 : 64;
+  static constexpr int kKVBytes = kTileRows * kD * 2;  // the block's K or V
+  static constexpr int kQBytes = kQT * kD * 2;         // a Q or dO tile
+  // K, V; stages of Q, dO; stages of lse, delta, query ids; the P^T hand-over
+  static constexpr int kStatBytes = kStages * 3 * kQT * 4;
+  static constexpr int kPBytes = kQT / 4 * 128 * 4;
+  static constexpr int kSmem =
+      2 * kKVBytes + 2 * kStages * kQBytes + kStatBytes + kPBytes + 1024 + 64;
+};
+
+// dK and dV. grid (ceil(Tk / 64), H, B), 384 threads, dynamic shared memory
+// DkvGeom<kD>::kSmem. The maps of k and v have boxes of 64 rows, those of q
+// and dO of DkvGeom<kD>::kQT. kMask as in the forward; ``visits``, when not
+// null, gets the number of query tiles the block walked (masked forms).
+template <int kD, int kMask>
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
+                     const float* __restrict__ delta, const int* __restrict__ seg,
+                     const int2* __restrict__ ranges, int* __restrict__ visits,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk, int H,
                      float scale_log2, float scale) {
-  typedef TileT<kD> Tile;
-  constexpr bool kDv = kPass != kDkOnly, kDk = kPass != kDvOnly;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Tile* kst = reinterpret_cast<Tile*>(smem_raw);  // this block's keys
-  Tile* vst = kst + 1;
-  Tile* qs = kst + 2;   // [2] query tiles
-  Tile* dos = kst + 4;  // [2] dO tiles
-  float* stat = reinterpret_cast<float*>(smem_raw + 6 * sizeof(Tile));  // [2][lse, delta][64]
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int lrow = lane & 7, lmat = lane >> 3;
+  typedef DkvGeom<kD> G;
+  constexpr int kQT = G::kQT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* kst = smem;
+  unsigned char* vst = smem + G::kKVBytes;
+  auto qst = [&](int s) { return smem + 2 * G::kKVBytes + s * G::kQBytes; };
+  auto dost = [&](int s) { return smem + 2 * G::kKVBytes + (kStages + s) * G::kQBytes; };
+  float* stat = reinterpret_cast<float*>(smem + 2 * G::kKVBytes + 2 * kStages * G::kQBytes);
+  // stage s: lse * log2(e) at stat[s][0], delta at [s][1], query ids at [s][2]
+  auto stat_of = [&](int s, int which) { return stat + (s * 3 + which) * kQT; };
+  uint32_t* pbuf = reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(stat) +
+                                               G::kStatBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(pbuf) +
+                                               G::kPBytes);
+  uint64_t* bar_kv = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
   const int b = blockIdx.z, h = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  const int64_t ld = (int64_t)H * kD;
-  const bf16* qb = q + (int64_t)b * Tq * ld + h * kD;
-  const bf16* dob = dout + (int64_t)b * Tq * ld + h * kD;
-  const bf16* kb = k + (int64_t)b * Tk * ld + h * kD;
-  const bf16* vb = v + (int64_t)b * Tk * ld + h * kD;
-  const float* lb = lse + ((int64_t)b * H + h) * Tq;
-  const float* db = delta + ((int64_t)b * H + h) * Tq;
+  const int k0 = blockIdx.x * kTileRows;
+  const int* sb = (kMask & kSegment) ? seg + (int64_t)b * Tq : nullptr;
+  const TileWalk<kMask, kTileRows, kQT, true> walk(
+      (kMask & kSegment) ? ranges + (int64_t)b * ((Tq + 63) / 64) : nullptr, blockIdx.x,
+      kMask ? Tk : Tq);
 
-  auto load_tile = [&](int buf, int qt0) {
-    copy_tile<kD>(qs[buf], qb, ld, qt0, Tq, tid);
-    copy_tile<kD>(dos[buf], dob, ld, qt0, Tq, tid);
-    const int j = tid & (kTile - 1);
-    const bool valid = qt0 + j < Tq;
-    const float* src = (tid < kTile ? lb : db) + (valid ? qt0 + j : 0);
-    cp_async4(stat + (buf * 2 + (tid >= kTile)) * kTile + j, src, valid);
-  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1 + 96);  // the TMA thread and the 96 stat copiers
+      mbar_init(&empty[s], 2 * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  copy_tile<kD>(kst[0], kb, ld, k0, Tk, tid);
-  if (kDk) copy_tile<kD>(vst[0], vb, ld, k0, Tk, tid);
-  load_tile(0, 0);
-  cp_async_commit();
-
-  float dkacc[kDk ? kD / 8 : 1][4], dvacc[kDv ? kD / 8 : 1][4];
-#pragma unroll
-  for (int t = 0; t < kD / 8; ++t) {
-    if constexpr (kDk) dkacc[t][0] = dkacc[t][1] = dkacc[t][2] = dkacc[t][3] = 0.f;
-    if constexpr (kDv) dvacc[t][0] = dvacc[t][1] = dvacc[t][2] = dvacc[t][3] = 0.f;
+  const int tid = threadIdx.x;
+  if (tid < 128) {  // the producer warpgroup
+    regs_dec<24>();
+    // warp 0 walks the tiles, its lane 0 loading them; warps 1 to 3 walk
+    // beside it, copying each tile's statistics
+    {
+      const float* lb = lse + ((int64_t)b * H + h) * Tq;
+      const float* db = delta + ((int64_t)b * H + h) * Tq;
+      if (tid == 0) {
+        mbar_arrive_expect_tx(bar_kv, 2 * G::kKVBytes);
+        tma_load_tile<kD, kTileRows>(kst, &map_k, bar_kv, k0, h, b);
+        tma_load_tile<kD, kTileRows>(vst, &map_v, bar_kv, k0, h, b);
+      }
+      int stage = 0, n = 0;
+      uint32_t phase = 0;
+      for (int i = walk.next(walk.first); i <= walk.last; i = walk.next(i + 1), ++n) {
+        const int qt = i * kQT;
+        mbar_wait(&empty[stage], phase ^ 1);
+        if (tid < 32) {
+          if (tid == 0) {
+            mbar_arrive_expect_tx(&full[stage], 2 * G::kQBytes);
+            tma_load_tile<kD, kQT>(qst(stage), &map_q, &full[stage], qt, h, b);
+            tma_load_tile<kD, kQT>(dost(stage), &map_do, &full[stage], qt, h, b);
+          }
+        } else {
+          for (int j = tid - 32; j < kQT; j += 96) {
+            const int q = qt + j;
+            const bool valid = q < Tq;
+            stat_of(stage, 0)[j] = valid ? lb[q] * kLog2e : 0.f;
+            stat_of(stage, 1)[j] = valid ? db[q] : 0.f;
+            if (kMask & kSegment)
+              reinterpret_cast<int*>(stat_of(stage, 2))[j] = valid ? sb[q] : 0;
+          }
+          mbar_arrive(&full[stage]);
+        }
+        if (++stage == kStages) stage = 0, phase ^= 1;
+      }
+      if (tid == 0 && kMask != 0 && visits != nullptr) atomicAdd(visits, n);
+    }
+    return;
   }
 
-  const int ntiles = (Tq + kTile - 1) / kTile;
-  for (int it = 0; it < ntiles; ++it) {
-    const int buf = it & 1, qt = it * kTile;
-    // the other buffer's readers finished at the end of the last iteration
-    if (it + 1 < ntiles) load_tile(buf ^ 1, qt + kTile);
-    cp_async_commit();   // an empty group after the last tile keeps the count uniform
-    cp_async_wait<1>();  // all but the newest group: this tile (and K, V) has landed
-    __syncthreads();
-    const float* ls = stat + buf * 2 * kTile;
-    const float* dl = ls + kTile;
+  // the consumers: warpgroup 1 S^T, P^T and dV; warpgroup 2 dP^T, dS^T and dK
+  regs_inc<240>();
+  const bool is_p = tid < 256;
+  const int t = tid % 128;
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;  // this thread's keys (rows of S^T)
+  const int sk0 = (kMask & kSegment) && kr0 < Tk ? sb[kr0] : 0;
+  const int sk1 = (kMask & kSegment) && kr1 < Tk ? sb[kr1] : 0;
 
-    // S^T = K Q^T for this warp's 16 keys x 64 queries, then P^T as A fragments
-    float acc[kTile / 8][4];
-    warp_abt<kD>(acc, kst[0], warp * 16, qs[buf], lrow, lmat);
-    uint32_t pa[kTile / 16][4];
+  float acc[kD / 8][4];  // dV (warpgroup 1) or dK (warpgroup 2)
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      const int c0 = nt * 8 + tg * 2;
-      const bool ok0 = qt + c0 < Tq, ok1 = qt + c0 + 1 < Tq;
-      const float l0 = ls[c0] * kLog2e, l1 = ls[c0 + 1] * kLog2e;
-      const float p0 = ok0 ? exp2f(fmaf(acc[nt][0], scale_log2, -l0)) : 0.f;
-      const float p1 = ok1 ? exp2f(fmaf(acc[nt][1], scale_log2, -l1)) : 0.f;
-      const float p2 = ok0 ? exp2f(fmaf(acc[nt][2], scale_log2, -l0)) : 0.f;
-      const float p3 = ok1 ? exp2f(fmaf(acc[nt][3], scale_log2, -l1)) : 0.f;
-      pa[nt / 2][(nt & 1) * 2 + 0] = pack2f(p0, p1);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack2f(p2, p3);
-    }
-    if constexpr (kDv) warp_ab<kD>(dvacc, pa, dos[buf], lrow, lmat);  // dV += P^T dO
+  for (int i = 0; i < kD / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-    if constexpr (kDk) {
-      // dP^T = V dO^T, then dS^T = P^T * (dP^T - delta) in place of P^T
-      warp_abt<kD>(acc, vst[0], warp * 16, dos[buf], lrow, lmat);
+  mbar_wait(bar_kv, 0);
+  int stage = 0, it = 0;
+  uint32_t phase = 0;
+  for (int i = walk.next(walk.first); i <= walk.last; ++it) {
+    const int qt = i * kQT;
+    const int nxt = walk.next(i + 1);
+    const bool masked = kMask != 0 && walk.needs_mask(i);
+    const bool tail = qt + kQT > Tq;
+    mbar_wait(&full[stage], phase);
+    const unsigned char* qs = qst(stage);
+    const unsigned char* dos = dost(stage);
+    uint32_t pa[kQT / 16][4];  // P^T, then (warpgroup 2) dS^T, as A fragments over the queries
+    float sacc[kQT / 8][4];
+    if (is_p) {
+      // S^T = K Q^T for 64 keys x kQT queries, then P^T: 0 for queries past
+      // Tq and, on a masked tile, for dropped pairs
+      const uint64_t da = desc_kmajor(kst, 0), db = desc_kmajor(qs, 0);
+      wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
+      for (int s = 0; s < kD / 16; ++s)
+        wgmma_ss(sacc, da + kstep_kmajor<kTileRows>(s), db + kstep_kmajor<kQT>(s), s > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sacc);
+      const float* ls = stat_of(stage, 0);
+      const int* ids = reinterpret_cast<const int*>(stat_of(stage, 2));
+#pragma unroll
+      for (int nt = 0; nt < kQT / 8; ++nt) {
+        float p[4];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int off = nt * 8 + tg * 2 + c, col = qt + off;
+          const float l = ls[off];
+          bool ok0 = !tail || col < Tq, ok1 = ok0;
+          if (kMask != 0 && masked) {
+            const int sq = (kMask & kSegment) ? ids[off] : 0;
+            ok0 = ok0 && flash_mask::keep_pair<kMask>(col, sq, kr0, sk0);
+            ok1 = ok1 && flash_mask::keep_pair<kMask>(col, sq, kr1, sk1);
+          }
+          p[c] = ok0 ? exp2f(fmaf(sacc[nt][c], scale_log2, -l)) : 0.f;
+          p[2 + c] = ok1 ? exp2f(fmaf(sacc[nt][2 + c], scale_log2, -l)) : 0.f;
+        }
+        pa[nt / 2][(nt & 1) * 2 + 0] = pack2f(p[0], p[1]);
+        pa[nt / 2][(nt & 1) * 2 + 1] = pack2f(p[2], p[3]);
+      }
+      // hand P^T over: thread t's fragment to thread t of warpgroup 2
+      if (it > 0) named_sync(kBarPEmpty, 256);
+#pragma unroll
+      for (int r = 0; r < kQT / 4; ++r) pbuf[r * 128 + t] = pa[r / 4][r % 4];
+      named_arrive(kBarPFull, 256);
+      // dV += P^T dO
+      const uint64_t dd = desc_mnmajor<kQT>(dos);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kQT / 16; ++s) wgmma_rs(acc, pa[s], dd + kstep_mnmajor(s), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+    } else {
+      // dP^T = V dO^T, then dS^T = P^T * (dP^T - delta)
+      const uint64_t da = desc_kmajor(vst, 0), db = desc_kmajor(dos, 0);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kD / 16; ++s)
+        wgmma_ss(sacc, da + kstep_kmajor<kTileRows>(s), db + kstep_kmajor<kQT>(s), s > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sacc);
+      named_sync(kBarPFull, 256);
+#pragma unroll
+      for (int r = 0; r < kQT / 4; ++r) pa[r / 4][r % 4] = pbuf[r * 128 + t];
+      if (nxt <= walk.last) named_arrive(kBarPEmpty, 256);
+      const float* dl = stat_of(stage, 1);
+#pragma unroll
+      for (int nt = 0; nt < kQT / 8; ++nt) {
         const int c0 = nt * 8 + tg * 2;
         const float d0 = dl[c0], d1 = dl[c0 + 1];
         uint32_t& lo = pa[nt / 2][(nt & 1) * 2 + 0];
         uint32_t& hi = pa[nt / 2][(nt & 1) * 2 + 1];
         const float2 pl = unpack2f(lo), ph = unpack2f(hi);
-        lo = pack2f(pl.x * (acc[nt][0] - d0), pl.y * (acc[nt][1] - d1));
-        hi = pack2f(ph.x * (acc[nt][2] - d0), ph.y * (acc[nt][3] - d1));
+        lo = pack2f(pl.x * (sacc[nt][0] - d0), pl.y * (sacc[nt][1] - d1));
+        hi = pack2f(ph.x * (sacc[nt][2] - d0), ph.y * (sacc[nt][3] - d1));
       }
-      warp_ab<kD>(dkacc, pa, qs[buf], lrow, lmat);  // dK += dS^T Q
+      // dK += dS^T Q
+      const uint64_t dd = desc_mnmajor<kQT>(qs);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kQT / 16; ++s) wgmma_rs(acc, pa[s], dd + kstep_mnmajor(s), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
     }
-    __syncthreads();  // this buffer's fragment reads are done before it is refilled
+    fence_acc(acc);
+    fence_frag(pa);
+    mbar_arrive(&empty[stage]);
+    if (++stage == kStages) stage = 0, phase ^= 1;
+    i = nxt;
   }
 
-  const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
-  if constexpr (kDk)
-    store_rows<kD>(dk + (int64_t)b * Tk * ld + h * kD, ld, dkacc, scale, r0, r1, Tk, tg);
-  if constexpr (kDv)
-    store_rows<kD>(dv + (int64_t)b * Tk * ld + h * kD, ld, dvacc, 1.f, r0, r1, Tk, tg);
+  const int64_t ld = (int64_t)H * kD;
+  bf16* dst = (is_p ? dv : dk) + (int64_t)b * Tk * ld + h * kD;
+  store_acc<kD>(dst, ld, acc, is_p ? 1.f : scale, kr0, Tk, tg);
 }
 
-// dQ. grid (ceil(Tq / 64), H, B); dynamic shared memory dq_smem<kD>().
 template <int kD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
+struct DqGeom {
+  static constexpr int kWG = kD == 128 ? 2 : 1;  // consumer warpgroups, 64 query rows each
+  static constexpr int kBlockM = 64 * kWG;
+  static constexpr int kThreads = 128 * (1 + kWG);
+  static constexpr int kQBytes = kBlockM * kD * 2;
+  static constexpr int kKVBytes = kTileRows * kD * 2;
+  static constexpr int kSegBytes = kStages * kTileRows * 4;  // key ids (segment forms)
+  static constexpr int kSmem = 2 * kQBytes + 2 * kStages * kKVBytes + kSegBytes + 1024 + 64;
+};
+
+// dQ. grid (ceil(Tq / kBlockM), H, B), DqGeom<kD>::kThreads threads, dynamic
+// shared memory DqGeom<kD>::kSmem. The maps of q and dO have boxes of
+// kBlockM rows, those of k and v 64. ``visits`` as in the dK/dV kernel
+// (key tiles).
+template <int kD, int kMask>
+__global__ void __launch_bounds__(DqGeom<kD>::kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const int* __restrict__ seg,
+                    const int2* __restrict__ ranges, int* __restrict__ visits,
                     bf16* __restrict__ dq, int Tq, int Tk, int H, float scale_log2,
                     float scale) {
-  typedef TileT<kD> Tile;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Tile* qst = reinterpret_cast<Tile*>(smem_raw);  // this block's queries
-  Tile* dost = qst + 1;
-  Tile* ks = qst + 2;  // [2] key tiles
-  Tile* vs = qst + 4;  // [2] value tiles
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int lrow = lane & 7, lmat = lane >> 3;
+  typedef DqGeom<kD> G;
+  constexpr int kBlockM = G::kBlockM;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qsm = smem;
+  unsigned char* dosm = smem + G::kQBytes;
+  auto kst = [&](int s) { return smem + 2 * G::kQBytes + s * G::kKVBytes; };
+  auto vst = [&](int s) { return smem + 2 * G::kQBytes + (kStages + s) * G::kKVBytes; };
+  int* kseg = reinterpret_cast<int*>(smem + 2 * G::kQBytes + 2 * kStages * G::kKVBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(kseg) +
+                                               G::kSegBytes);
+  uint64_t* bar_q = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
   const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const int64_t ld = (int64_t)H * kD;
-  const bf16* qb = q + (int64_t)b * Tq * ld + h * kD;
-  const bf16* dob = dout + (int64_t)b * Tq * ld + h * kD;
-  const bf16* kb = k + (int64_t)b * Tk * ld + h * kD;
-  const bf16* vb = v + (int64_t)b * Tk * ld + h * kD;
+  const int qblk = (kMask & kCausal) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qblk * kBlockM;
+  const int* sb = (kMask & kSegment) ? seg + (int64_t)b * Tq : nullptr;
+  const TileWalk<kMask, kBlockM, kTileRows, false> walk(
+      (kMask & kSegment) ? ranges + (int64_t)b * ((Tk + 63) / 64) : nullptr, qblk,
+      kMask ? Tq : Tk);
 
-  // the statistics of this thread's two rows
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const float* lb = lse + ((int64_t)b * H + h) * Tq;
-  const float* db = delta + ((int64_t)b * H + h) * Tq;
-  const float l0 = r0 < Tq ? lb[r0] * kLog2e : 0.f, l1 = r1 < Tq ? lb[r1] * kLog2e : 0.f;
-  const float d0 = r0 < Tq ? db[r0] : 0.f, d1 = r1 < Tq ? db[r1] : 0.f;
-
-  auto load_tile = [&](int buf, int kt0) {
-    copy_tile<kD>(ks[buf], kb, ld, kt0, Tk, tid);
-    copy_tile<kD>(vs[buf], vb, ld, kt0, Tk, tid);
-  };
-
-  copy_tile<kD>(qst[0], qb, ld, q0, Tq, tid);
-  copy_tile<kD>(dost[0], dob, ld, q0, Tq, tid);
-  load_tile(0, 0);
-  cp_async_commit();
-
-  float dqacc[kD / 8][4];
-#pragma unroll
-  for (int t = 0; t < kD / 8; ++t) dqacc[t][0] = dqacc[t][1] = dqacc[t][2] = dqacc[t][3] = 0.f;
-
-  const int ntiles = (Tk + kTile - 1) / kTile;
-  for (int it = 0; it < ntiles; ++it) {
-    const int buf = it & 1, kt = it * kTile;
-    if (it + 1 < ntiles) load_tile(buf ^ 1, kt + kTile);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 queries x 64 keys, then P as A fragments
-    float acc[kTile / 8][4];
-    warp_abt<kD>(acc, qst[0], warp * 16, ks[buf], lrow, lmat);
-    uint32_t pa[kTile / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      const int key = kt + nt * 8 + tg * 2;
-      const bool ok0 = key < Tk, ok1 = key + 1 < Tk;
-      const float p0 = ok0 ? exp2f(fmaf(acc[nt][0], scale_log2, -l0)) : 0.f;
-      const float p1 = ok1 ? exp2f(fmaf(acc[nt][1], scale_log2, -l0)) : 0.f;
-      const float p2 = ok0 ? exp2f(fmaf(acc[nt][2], scale_log2, -l1)) : 0.f;
-      const float p3 = ok1 ? exp2f(fmaf(acc[nt][3], scale_log2, -l1)) : 0.f;
-      pa[nt / 2][(nt & 1) * 2 + 0] = pack2f(p0, p1);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack2f(p2, p3);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA thread, and in the segment forms the 32 key-id copiers
+      mbar_init(&full[s], (kMask & kSegment) ? 1 + 32 : 1);
+      mbar_init(&empty[s], G::kWG * 128);
     }
-
-    // dP = dO V^T, then dS = P * (dP - delta) in place of P
-    warp_abt<kD>(acc, dost[0], warp * 16, vs[buf], lrow, lmat);
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      uint32_t& lo = pa[nt / 2][(nt & 1) * 2 + 0];
-      uint32_t& hi = pa[nt / 2][(nt & 1) * 2 + 1];
-      const float2 pl = unpack2f(lo), ph = unpack2f(hi);
-      lo = pack2f(pl.x * (acc[nt][0] - d0), pl.y * (acc[nt][1] - d0));
-      hi = pack2f(ph.x * (acc[nt][2] - d1), ph.y * (acc[nt][3] - d1));
-    }
-    warp_ab<kD>(dqacc, pa, ks[buf], lrow, lmat);  // dQ += dS K
-    __syncthreads();
+    fence_barrier_init();
   }
-  store_rows<kD>(dq + (int64_t)b * Tq * ld + h * kD, ld, dqacc, scale, r0, r1, Tq, tg);
-}
+  __syncthreads();
 
-constexpr int kSegSmem = 2 * kTile * (int)sizeof(int);  // 2 tiles of ids (segment forms)
-
-// dK and / or dV (kPass), masked forms. grid (ceil(T / 64), H, B); dynamic
-// shared memory dkv_smem<kD>() (+ kSegSmem in the segment forms). Key tile j
-// walks the query tiles of its column of the mask; ``visits``, when not
-// null, gets their count added.
-template <int kD, int kPass, int kMask>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                            const float* __restrict__ lse, const float* __restrict__ delta,
-                            const int* __restrict__ seg, const int2* __restrict__ ranges,
-                            int* __restrict__ visits, bf16* __restrict__ dk,
-                            bf16* __restrict__ dv, int T, int H, float scale_log2,
-                            float scale) {
-  typedef TileT<kD> Tile;
-  constexpr bool kDv = kPass != kDkOnly, kDk = kPass != kDvOnly;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Tile* kst = reinterpret_cast<Tile*>(smem_raw);  // this block's keys
-  Tile* vst = kst + 1;
-  Tile* qs = kst + 2;   // [2] query tiles
-  Tile* dos = kst + 4;  // [2] dO tiles
-  float* stat = reinterpret_cast<float*>(smem_raw + 6 * sizeof(Tile));  // [2][lse, delta][64]
-  int* qseg = reinterpret_cast<int*>(stat + 4 * kTile);                 // [2][64] query ids
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int lrow = lane & 7, lmat = lane >> 3;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  const int64_t ld = (int64_t)H * kD;
-  const int64_t base = (int64_t)b * T * ld + h * kD;
-  const bf16* qb = q + base;
-  const bf16* dob = dout + base;
-  const float* lb = lse + ((int64_t)b * H + h) * T;
-  const float* db = delta + ((int64_t)b * H + h) * T;
-  const int* sb = (kMask & kSegment) ? seg + (int64_t)b * T : nullptr;
-
-  // this thread's two keys (the rows of S^T) and their ids
-  const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
-  const int sk0 = (kMask & kSegment) && r0 < T ? sb[r0] : 0;
-  const int sk1 = (kMask & kSegment) && r1 < T ? sb[r1] : 0;
-
-  auto load_tile = [&](int buf, int qt0) {
-    copy_tile<kD>(qs[buf], qb, ld, qt0, T, tid);
-    copy_tile<kD>(dos[buf], dob, ld, qt0, T, tid);
-    const int j = tid & (kTile - 1);
-    const bool valid = qt0 + j < T;
-    const float* src = (tid < kTile ? lb : db) + (valid ? qt0 + j : 0);
-    cp_async4(stat + (buf * 2 + (tid >= kTile)) * kTile + j, src, valid);
-    if ((kMask & kSegment) && tid < kTile)
-      cp_async4(reinterpret_cast<float*>(qseg + buf * kTile + j),
-                reinterpret_cast<const float*>(sb + (valid ? qt0 + j : 0)), valid);
-  };
-
-  const int ntiles = (T + kTile - 1) / kTile;
-  const TileWalk<kMask> walk((kMask & kSegment) ? ranges + (int64_t)b * ntiles : nullptr,
-                             blockIdx.x, ntiles, true);
-  int cur = walk.next(walk.first);
-  copy_tile<kD>(kst[0], k + base, ld, k0, T, tid);
-  if (kDk) copy_tile<kD>(vst[0], v + base, ld, k0, T, tid);
-  if (cur <= walk.last) load_tile(0, cur * kTile);
-  cp_async_commit();
-
-  float dkacc[kDk ? kD / 8 : 1][4], dvacc[kDv ? kD / 8 : 1][4];
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    if constexpr (G::kWG == 2) regs_dec<24>();
+    // warp 0 walks the tiles, its lane 0 loading them; in the segment forms
+    // warp 1 walks beside it, copying each tile's key ids
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp == 0 || ((kMask & kSegment) && warp == 1)) {
+      if (warp == 0 && lane == 0) {
+        mbar_arrive_expect_tx(bar_q, 2 * G::kQBytes);
+        tma_load_tile<kD, kBlockM>(qsm, &map_q, bar_q, q0, h, b);
+        tma_load_tile<kD, kBlockM>(dosm, &map_do, bar_q, q0, h, b);
+      }
+      int stage = 0, n = 0;
+      uint32_t phase = 0;
+      for (int j = walk.next(walk.first); j <= walk.last; j = walk.next(j + 1), ++n) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        if (warp == 0) {
+          if (lane == 0) {
+            mbar_arrive_expect_tx(&full[stage], 2 * G::kKVBytes);
+            tma_load_tile<kD, kTileRows>(kst(stage), &map_k, &full[stage], j * kTileRows, h, b);
+            tma_load_tile<kD, kTileRows>(vst(stage), &map_v, &full[stage], j * kTileRows, h, b);
+          }
+        } else {
 #pragma unroll
-  for (int t = 0; t < kD / 8; ++t) {
-    if constexpr (kDk) dkacc[t][0] = dkacc[t][1] = dkacc[t][2] = dkacc[t][3] = 0.f;
-    if constexpr (kDv) dvacc[t][0] = dvacc[t][1] = dvacc[t][2] = dvacc[t][3] = 0.f;
-  }
-
-  int it = 0;
-  for (; cur <= walk.last; ++it) {
-    const int buf = it & 1, qt = cur * kTile;
-    const int nxt = walk.next(cur + 1);
-    // the other buffer's readers finished at the end of the last iteration
-    if (nxt <= walk.last) load_tile(buf ^ 1, nxt * kTile);
-    cp_async_commit();   // an empty group after the last tile keeps the count uniform
-    cp_async_wait<1>();  // all but the newest group: this tile (and K, V) has landed
-    __syncthreads();
-    const float* ls = stat + buf * 2 * kTile;
-    const float* dl = ls + kTile;
-    const int* qs_ids = qseg + buf * kTile;
-    const bool masked = walk.needs_mask(cur, blockIdx.x);
-
-    // S^T = K Q^T for this warp's 16 keys x 64 queries, then P^T as A
-    // fragments: 0 for queries past T and, on a masked tile, for dropped pairs
-    float acc[kTile / 8][4];
-    warp_abt<kD>(acc, kst[0], warp * 16, qs[buf], lrow, lmat);
-    uint32_t pa[kTile / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      float p[4];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int off = nt * 8 + tg * 2 + c, col = qt + off;
-        const float l = ls[off] * kLog2e;
-        bool ok0 = col < T, ok1 = ok0;
-        if (masked) {
-          const int sq = (kMask & kSegment) ? qs_ids[off] : 0;
-          ok0 = ok0 && flash_mask::keep_pair<kMask>(col, sq, r0, sk0);
-          ok1 = ok1 && flash_mask::keep_pair<kMask>(col, sq, r1, sk1);
+          for (int i = lane; i < kTileRows; i += 32) {
+            const int key = j * kTileRows + i;
+            kseg[stage * kTileRows + i] = key < Tk ? sb[key] : 0;
+          }
+          mbar_arrive(&full[stage]);
         }
-        p[c] = ok0 ? exp2f(fmaf(acc[nt][c], scale_log2, -l)) : 0.f;
-        p[2 + c] = ok1 ? exp2f(fmaf(acc[nt][2 + c], scale_log2, -l)) : 0.f;
+        if (++stage == kStages) stage = 0, phase ^= 1;
       }
-      pa[nt / 2][(nt & 1) * 2 + 0] = pack2f(p[0], p[1]);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack2f(p[2], p[3]);
+      if (kMask != 0 && visits != nullptr && threadIdx.x == 0) atomicAdd(visits, n);
     }
-    if constexpr (kDv) warp_ab<kD>(dvacc, pa, dos[buf], lrow, lmat);  // dV += P^T dO
+  } else {  // the consumer warpgroups, 64 query rows each
+    if constexpr (G::kWG == 2) regs_inc<240>();
+    const int wg = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int warp = t >> 5, lane = t & 31;
+    const int g = lane >> 2, tg = lane & 3;
+    const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
+    const float* lb = lse + ((int64_t)b * H + h) * Tq;
+    const float* db = delta + ((int64_t)b * H + h) * Tq;
+    const float l0 = r0 < Tq ? lb[r0] * kLog2e : 0.f, l1 = r1 < Tq ? lb[r1] * kLog2e : 0.f;
+    const float d0 = r0 < Tq ? db[r0] : 0.f, d1 = r1 < Tq ? db[r1] : 0.f;
+    const int sq0 = (kMask & kSegment) && r0 < Tq ? sb[r0] : 0;
+    const int sq1 = (kMask & kSegment) && r1 < Tq ? sb[r1] : 0;
 
-    if constexpr (kDk) {
-      // dP^T = V dO^T, then dS^T = P^T * (dP^T - delta) in place of P^T
-      warp_abt<kD>(acc, vst[0], warp * 16, dos[buf], lrow, lmat);
+    float dqacc[kD / 8][4];
 #pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-        const int c0 = nt * 8 + tg * 2;
-        const float d0 = dl[c0], d1 = dl[c0 + 1];
-        uint32_t& lo = pa[nt / 2][(nt & 1) * 2 + 0];
-        uint32_t& hi = pa[nt / 2][(nt & 1) * 2 + 1];
-        const float2 pl = unpack2f(lo), ph = unpack2f(hi);
-        lo = pack2f(pl.x * (acc[nt][0] - d0), pl.y * (acc[nt][1] - d1));
-        hi = pack2f(ph.x * (acc[nt][2] - d0), ph.y * (acc[nt][3] - d1));
-      }
-      warp_ab<kD>(dkacc, pa, qs[buf], lrow, lmat);  // dK += dS^T Q
-    }
-    __syncthreads();  // this buffer's fragment reads are done before it is refilled
-    cur = nxt;
-  }
-  cp_async_wait<0>();
-  if (visits != nullptr && tid == 0) atomicAdd(visits, it);
+    for (int i = 0; i < kD / 8; ++i) dqacc[i][0] = dqacc[i][1] = dqacc[i][2] = dqacc[i][3] = 0.f;
 
-  if constexpr (kDk) store_rows<kD>(dk + base, ld, dkacc, scale, r0, r1, T, tg);
-  if constexpr (kDv) store_rows<kD>(dv + base, ld, dvacc, 1.f, r0, r1, T, tg);
-}
+    mbar_wait(bar_q, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = walk.next(walk.first); j <= walk.last; j = walk.next(j + 1)) {
+      const int kt = j * kTileRows;
+      const bool masked = kMask != 0 && walk.needs_mask(j);
+      const bool tail = kt + kTileRows > Tk;
+      mbar_wait(&full[stage], phase);
+      const unsigned char* ks = kst(stage);
+      const unsigned char* vs = vst(stage);
 
-// dQ, masked forms. grid (ceil(T / 64), H, B); dynamic shared memory
-// dq_smem<kD>() (+ kSegSmem in the segment forms). Query tile i walks the key
-// tiles of its row of the mask, as the forward does.
-template <int kD, int kMask>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           const int* __restrict__ seg, const int2* __restrict__ ranges,
-                           int* __restrict__ visits, bf16* __restrict__ dq, int T, int H,
-                           float scale_log2, float scale) {
-  typedef TileT<kD> Tile;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Tile* qst = reinterpret_cast<Tile*>(smem_raw);  // this block's queries
-  Tile* dost = qst + 1;
-  Tile* ks = qst + 2;  // [2] key tiles
-  Tile* vs = qst + 4;  // [2] value tiles
-  int* kseg = reinterpret_cast<int*>(qst + 6);  // [2][64] key ids
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int lrow = lane & 7, lmat = lane >> 3;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const int64_t ld = (int64_t)H * kD;
-  const int64_t base = (int64_t)b * T * ld + h * kD;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
-  const int* sb = (kMask & kSegment) ? seg + (int64_t)b * T : nullptr;
-
-  // the statistics and ids of this thread's two rows
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const float* lb = lse + ((int64_t)b * H + h) * T;
-  const float* db = delta + ((int64_t)b * H + h) * T;
-  const float l0 = r0 < T ? lb[r0] * kLog2e : 0.f, l1 = r1 < T ? lb[r1] * kLog2e : 0.f;
-  const float d0 = r0 < T ? db[r0] : 0.f, d1 = r1 < T ? db[r1] : 0.f;
-  const int sq0 = (kMask & kSegment) && r0 < T ? sb[r0] : 0;
-  const int sq1 = (kMask & kSegment) && r1 < T ? sb[r1] : 0;
-
-  auto load_tile = [&](int buf, int kt0) {
-    copy_tile<kD>(ks[buf], kb, ld, kt0, T, tid);
-    copy_tile<kD>(vs[buf], vb, ld, kt0, T, tid);
-    if ((kMask & kSegment) && tid < kTile) {
-      const bool valid = kt0 + tid < T;
-      cp_async4(reinterpret_cast<float*>(kseg + buf * kTile + tid),
-                reinterpret_cast<const float*>(sb + (valid ? kt0 + tid : 0)), valid);
-    }
-  };
-
-  const int ntiles = (T + kTile - 1) / kTile;
-  const TileWalk<kMask> walk((kMask & kSegment) ? ranges + (int64_t)b * ntiles : nullptr,
-                             blockIdx.x, ntiles, false);
-  int cur = walk.next(walk.first);
-  copy_tile<kD>(qst[0], q + base, ld, q0, T, tid);
-  copy_tile<kD>(dost[0], dout + base, ld, q0, T, tid);
-  if (cur <= walk.last) load_tile(0, cur * kTile);
-  cp_async_commit();
-
-  float dqacc[kD / 8][4];
+      // S = Q K^T and dP = dO V^T for 64 rows x 64 keys
+      float sacc[8][4], dpacc[8][4];
+      const uint64_t dq0 = desc_kmajor(qsm, wg * 64), dk0 = desc_kmajor(ks, 0);
+      const uint64_t ddo0 = desc_kmajor(dosm, wg * 64), dv0 = desc_kmajor(vs, 0);
+      wgmma_fence();
 #pragma unroll
-  for (int t = 0; t < kD / 8; ++t) dqacc[t][0] = dqacc[t][1] = dqacc[t][2] = dqacc[t][3] = 0.f;
-
-  int it = 0;
-  for (; cur <= walk.last; ++it) {
-    const int buf = it & 1, kt = cur * kTile;
-    const int nxt = walk.next(cur + 1);
-    if (nxt <= walk.last) load_tile(buf ^ 1, nxt * kTile);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int* ks_ids = kseg + buf * kTile;
-    const bool masked = walk.needs_mask(cur, blockIdx.x);
-
-    // S = Q K^T for this warp's 16 queries x 64 keys, then P as A fragments
-    float acc[kTile / 8][4];
-    warp_abt<kD>(acc, qst[0], warp * 16, ks[buf], lrow, lmat);
-    uint32_t pa[kTile / 16][4];
+      for (int s = 0; s < kD / 16; ++s)
+        wgmma_ss(sacc, dq0 + kstep_kmajor<kBlockM>(s), dk0 + kstep_kmajor<kTileRows>(s), s > 0);
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      float p[4];
+      for (int s = 0; s < kD / 16; ++s)
+        wgmma_ss(dpacc, ddo0 + kstep_kmajor<kBlockM>(s), dv0 + kstep_kmajor<kTileRows>(s),
+                 s > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sacc);
+      fence_acc(dpacc);
+
+      // P (0 for keys past Tk and dropped pairs), rounded to bf16, then
+      // dS = P * (dP - delta) as A fragments
+      uint32_t ds[4][4];
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int off = nt * 8 + tg * 2 + c, key = kt + off;
-        bool ok0 = key < T, ok1 = ok0;
-        if (masked) {
-          const int sk = (kMask & kSegment) ? ks_ids[off] : 0;
-          ok0 = ok0 && flash_mask::keep_pair<kMask>(r0, sq0, key, sk);
-          ok1 = ok1 && flash_mask::keep_pair<kMask>(r1, sq1, key, sk);
+      for (int nt = 0; nt < 8; ++nt) {
+        float p[4];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = kt + nt * 8 + tg * 2 + c;
+          bool ok0 = !tail || key < Tk, ok1 = ok0;
+          if (kMask != 0 && masked) {
+            const int sk = (kMask & kSegment) ? kseg[stage * kTileRows + key - kt] : 0;
+            ok0 = ok0 && flash_mask::keep_pair<kMask>(r0, sq0, key, sk);
+            ok1 = ok1 && flash_mask::keep_pair<kMask>(r1, sq1, key, sk);
+          }
+          p[c] = ok0 ? exp2f(fmaf(sacc[nt][c], scale_log2, -l0)) : 0.f;
+          p[2 + c] = ok1 ? exp2f(fmaf(sacc[nt][2 + c], scale_log2, -l1)) : 0.f;
         }
-        p[c] = ok0 ? exp2f(fmaf(acc[nt][c], scale_log2, -l0)) : 0.f;
-        p[2 + c] = ok1 ? exp2f(fmaf(acc[nt][2 + c], scale_log2, -l1)) : 0.f;
+        const float2 pl = unpack2f(pack2f(p[0], p[1])), ph = unpack2f(pack2f(p[2], p[3]));
+        ds[nt / 2][(nt & 1) * 2 + 0] =
+            pack2f(pl.x * (dpacc[nt][0] - d0), pl.y * (dpacc[nt][1] - d0));
+        ds[nt / 2][(nt & 1) * 2 + 1] =
+            pack2f(ph.x * (dpacc[nt][2] - d1), ph.y * (dpacc[nt][3] - d1));
       }
-      pa[nt / 2][(nt & 1) * 2 + 0] = pack2f(p[0], p[1]);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack2f(p[2], p[3]);
-    }
 
-    // dP = dO V^T, then dS = P * (dP - delta) in place of P
-    warp_abt<kD>(acc, dost[0], warp * 16, vs[buf], lrow, lmat);
+      // dQ += dS K
+      const uint64_t dkm = desc_mnmajor<kTileRows>(ks);
+      wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      uint32_t& lo = pa[nt / 2][(nt & 1) * 2 + 0];
-      uint32_t& hi = pa[nt / 2][(nt & 1) * 2 + 1];
-      const float2 pl = unpack2f(lo), ph = unpack2f(hi);
-      lo = pack2f(pl.x * (acc[nt][0] - d0), pl.y * (acc[nt][1] - d0));
-      hi = pack2f(ph.x * (acc[nt][2] - d1), ph.y * (acc[nt][3] - d1));
+      for (int s = 0; s < 4; ++s) wgmma_rs(dqacc, ds[s], dkm + kstep_mnmajor(s), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dqacc);
+      fence_frag(ds);
+      mbar_arrive(&empty[stage]);
+      if (++stage == kStages) stage = 0, phase ^= 1;
     }
-    warp_ab<kD>(dqacc, pa, ks[buf], lrow, lmat);  // dQ += dS K
-    __syncthreads();
-    cur = nxt;
-  }
-  cp_async_wait<0>();
-  if (visits != nullptr && tid == 0) atomicAdd(visits, it);
-  store_rows<kD>(dq + base, ld, dqacc, scale, r0, r1, T, tg);
-}
-
-// The dK/dV launches of head dim kD: one kernel computing both at 128, the
-// dV and the dK pass at 256. ``launch(pass)`` launches the kernel of one
-// pass (a std::integral_constant).
-template <int kD, typename Launch>
-cudaError_t for_dkv_passes(Launch launch) {
-  if constexpr (kD == 128) {
-    return launch(std::integral_constant<int, kBoth>());
-  } else {
-    const cudaError_t err = launch(std::integral_constant<int, kDvOnly>());
-    if (err != cudaSuccess) return err;
-    return launch(std::integral_constant<int, kDkOnly>());
+    const int64_t ld = (int64_t)H * kD;
+    store_acc<kD>(dq + (int64_t)b * Tq * ld + h * kD, ld, dqacc, scale, r0, Tq, tg);
   }
 }
 
+// The dK/dV and dQ launches of one mask form (the delta pass has run).
 template <int kD, int kMask>
-int launch_bwd_masked(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                      const float* lse, const float* delta, const int* seg,
-                      const int2* ranges, int* visits_dkv, int* visits_dq, bf16* dq, bf16* dk,
-                      bf16* dv, int B, int T, int H, float scale, cudaStream_t stream) {
-  const int extra = (kMask & kSegment) ? kSegSmem : 0;
+int launch_bwd_kernels(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, const int* seg, const int2* ranges,
+                       int* visits_dkv, int* visits_dq, void* dq, void* dk, void* dv, int B,
+                       int Tq, int Tk, int H, float scale, cudaStream_t stream) {
+  typedef DkvGeom<kD> GK;
+  typedef DqGeom<kD> GQ;
   const float scale_log2 = scale * kLog2e;
-  const dim3 grid((T + kTile - 1) / kTile, H, B);
-  cudaError_t err = for_dkv_passes<kD>([&](auto pass) {
-    constexpr int kPass = decltype(pass)::value;
-    auto dkv = flash_bwd_dkv_masked_kernel<kD, kPass, kMask>;
-    cudaError_t e = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         dkv_smem<kD>() + extra);
-    if (e != cudaSuccess) return e;
-    // both passes walk the same tiles: count them once
-    int* vis = kPass == kDkOnly ? nullptr : visits_dkv;
-    dkv<<<grid, kThreads, dkv_smem<kD>() + extra, stream>>>(q, k, v, dout, lse, delta, seg,
-                                                             ranges, vis, dk, dv, T, H,
-                                                             scale_log2, scale);
-    return cudaGetLastError();
-  });
-  if (err != cudaSuccess) return (int)err;
-  auto dqk = flash_bwd_dq_masked_kernel<kD, kMask>;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dq_smem<kD>() + extra);
-  if (err != cudaSuccess) return (int)err;
-  dqk<<<grid, kThreads, dq_smem<kD>() + extra, stream>>>(q, k, v, dout, lse, delta, seg, ranges,
-                                                         visits_dq, dq, T, H, scale_log2, scale);
+  // both kernels read q and dO in tiles of GK::kQT == GQ::kBlockM rows, k and v of 64
+  static_assert(GK::kQT == GQ::kBlockM, "one pair of q / dO maps serves both kernels");
+  CUtensorMap mq, mk, mv, mdo;
+  int err = hopper_host::make_tile_map(&mq, q, B, Tq, H, kD, GK::kQT);
+  if (!err) err = hopper_host::make_tile_map(&mk, k, B, Tk, H, kD, kTileRows);
+  if (!err) err = hopper_host::make_tile_map(&mv, v, B, Tk, H, kD, kTileRows);
+  if (!err) err = hopper_host::make_tile_map(&mdo, dout, B, Tq, H, kD, GK::kQT);
+  if (err) return err;
+  auto dkv = flash_bwd_dkv_kernel<kD, kMask>;
+  cudaError_t e = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       GK::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  dkv<<<dim3((Tk + kTileRows - 1) / kTileRows, H, B), 384, GK::kSmem, stream>>>(
+      mq, mk, mv, mdo, lse, delta, seg, ranges, visits_dkv, (bf16*)dk, (bf16*)dv, Tq, Tk, H,
+      scale_log2, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  auto dqk = flash_bwd_dq_kernel<kD, kMask>;
+  e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, GQ::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  dqk<<<dim3((Tq + GQ::kBlockM - 1) / GQ::kBlockM, H, B), GQ::kThreads, GQ::kSmem, stream>>>(
+      mq, mk, mv, mdo, lse, delta, seg, ranges, visits_dq, (bf16*)dq, Tq, Tk, H, scale_log2,
+      scale);
   return (int)cudaGetLastError();
 }
 
-// The unmasked form: the delta pass, the dK/dV pass(es), the dQ kernel.
+// delta[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d]
 template <int kD>
-int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
-               const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int Tq,
-               int Tk, int H, float scale, cudaStream_t stream) {
-  const float scale_log2 = scale * kLog2e;
+int launch_delta(const void* o, const void* dout, void* delta, int B, int Tq, int H,
+                 cudaStream_t stream) {
   const int64_t rows = (int64_t)B * Tq * H;
-  flash_bwd_delta_kernel<kD><<<(unsigned)((rows + 3) / 4), kThreads, 0, stream>>>(
-      o, dout, delta, rows, Tq, H);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = for_dkv_passes<kD>([&](auto pass) {
-    auto dkv = flash_bwd_dkv_kernel<kD, decltype(pass)::value>;
-    cudaError_t e = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         dkv_smem<kD>());
-    if (e != cudaSuccess) return e;
-    dkv<<<dim3((Tk + kTile - 1) / kTile, H, B), kThreads, dkv_smem<kD>(), stream>>>(
-        q, k, v, dout, lse, delta, dk, dv, Tq, Tk, H, scale_log2, scale);
-    return cudaGetLastError();
-  });
-  if (err != cudaSuccess) return (int)err;
-  auto dqk = flash_bwd_dq_kernel<kD>;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<kD>());
-  if (err != cudaSuccess) return (int)err;
-  dqk<<<dim3((Tq + kTile - 1) / kTile, H, B), kThreads, dq_smem<kD>(), stream>>>(
-      q, k, v, dout, lse, delta, dq, Tq, Tk, H, scale_log2, scale);
+  flash_bwd::flash_bwd_delta_kernel<kD>
+      <<<(unsigned)((rows + 3) / 4), flash_bwd::kThreads, 0, stream>>>(
+          (const bf16*)o, (const bf16*)dout, (float*)delta, rows, Tq, H);
   return (int)cudaGetLastError();
+}
+
+template <int kD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int Tq,
+               int Tk, int H, float scale, cudaStream_t stream) {
+  const int err = launch_delta<kD>(o, dout, delta, B, Tq, H, stream);
+  if (err) return err;
+  return launch_bwd_kernels<kD, 0>(q, k, v, dout, (const float*)lse, (const float*)delta,
+                                   nullptr, nullptr, nullptr, nullptr, dq, dk, dv, B, Tq, Tk, H,
+                                   scale, stream);
 }
 
 // The masked forms: the range pre-pass (segment forms), the delta pass and
-// the masked kernels of the form ``causal`` and ``seg`` ask for.
+// the kernels of the form ``causal`` and ``seg`` ask for.
 template <int kD>
-int launch_bwd_masked_forms(const void* q, const void* k, const void* v, const void* o,
-                            const void* dout, const void* lse, void* delta, void* dq, void* dk,
-                            void* dv, const void* seg, void* ranges, void* visits, int B, int T,
-                            int H, int causal, float scale, cudaStream_t stream) {
-  cudaError_t err;
+int launch_bwd_masked(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const void* lse, void* delta, void* dq, void* dk,
+                      void* dv, const void* seg, void* ranges, void* visits, int B, int T, int H,
+                      int causal, float scale, cudaStream_t stream) {
   if (seg != nullptr) {
-    err = flash_mask::launch_seg_tile_ranges((const int*)seg, (int2*)ranges, B, T, stream);
-    if (err != cudaSuccess) return (int)err;
+    const cudaError_t e =
+        flash_mask::launch_seg_tile_ranges((const int*)seg, (int2*)ranges, B, T, stream);
+    if (e != cudaSuccess) return (int)e;
   }
-  const int64_t rows = (int64_t)B * T * H;
-  flash_bwd_delta_kernel<kD><<<(unsigned)((rows + 3) / 4), kThreads, 0, stream>>>(
-      (const bf16*)o, (const bf16*)dout, (float*)delta, rows, T, H);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = launch_delta<kD>(o, dout, delta, B, T, H, stream);
+  if (err) return err;
   int* vis = (int*)visits;
   auto run = [&](auto launch) {
-    return launch((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-                  (const float*)lse, (const float*)delta, (const int*)seg,
-                  (const int2*)ranges, vis, vis ? vis + 1 : nullptr, (bf16*)dq, (bf16*)dk,
-                  (bf16*)dv, B, T, H, scale, stream);
+    return launch(q, k, v, dout, (const float*)lse, (const float*)delta, (const int*)seg,
+                  (const int2*)ranges, vis, vis ? vis + 1 : nullptr, dq, dk, dv, B, T, T, H,
+                  scale, stream);
   };
-  using flash_mask::kCausal;
-  if (seg == nullptr) return run(launch_bwd_masked<kD, kCausal>);
-  return causal ? run(launch_bwd_masked<kD, kCausal | kSegment>)
-                : run(launch_bwd_masked<kD, kSegment>);
+  if (seg == nullptr) return run(launch_bwd_kernels<kD, kCausal>);
+  return causal ? run(launch_bwd_kernels<kD, kCausal | kSegment>)
+                : run(launch_bwd_kernels<kD, kSegment>);
 }
 
 }  // namespace
@@ -639,9 +594,8 @@ extern "C" int mhla_flash_bwd(const void* q, const void* k, const void* v, const
                               float scale, void* stream) {
   if (Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
   auto run = [&](auto launch) {
-    return launch((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
-                  (const bf16*)dout, (const float*)lse, (float*)delta, (bf16*)dq, (bf16*)dk,
-                  (bf16*)dv, B, Tq, Tk, H, scale, (cudaStream_t)stream);
+    return launch(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Tq, Tk, H, scale,
+                  (cudaStream_t)stream);
   };
   if (D == 128) return run(launch_bwd<128>);
   if (D == 256) return run(launch_bwd<256>);
@@ -652,8 +606,7 @@ extern "C" int mhla_flash_bwd(const void* q, const void* k, const void* v, const
 // (segment forms; ``seg`` [B, T] int32 or null, ``ranges`` int32 scratch
 // [B, ceil(T / 64), 2]), the delta pass and the masked kernels.
 // ``visits`` is null or two int32 that get the tiles walked by the dK/dV and
-// the dQ kernel added (at D = 256 the dK/dV walk is counted once, by its dV
-// pass).
+// the dQ kernel added.
 extern "C" int mhla_flash_bwd_masked(const void* q, const void* k, const void* v,
                                      const void* o, const void* dout, const void* lse,
                                      void* delta, void* dq, void* dk, void* dv, const void* seg,
@@ -664,7 +617,7 @@ extern "C" int mhla_flash_bwd_masked(const void* q, const void* k, const void* v
     return launch(q, k, v, o, dout, lse, delta, dq, dk, dv, seg, ranges, visits, B, T, H,
                   causal, scale, (cudaStream_t)stream);
   };
-  if (D == 128) return run(launch_bwd_masked_forms<128>);
-  if (D == 256) return run(launch_bwd_masked_forms<256>);
+  if (D == 128) return run(launch_bwd_masked<128>);
+  if (D == 256) return run(launch_bwd_masked<256>);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,309 +14,316 @@
 // library kernel called with causal=True and/or SegmentIds
 // (mhla_tpu/kernels/flash_attention.py:73-104). A block walks only the key
 // tiles that can hold a kept pair: none above its diagonal, none whose
-// segment-id range misses its own (a small pre-pass writes each tile's
-// range); the per-element mask is applied only on the tiles that need it.
-// Every row keeps at least itself, so its maximum and lse are finite; a row
-// that keeps nothing in a walked tile takes exp2 against 0 there instead of
-// its still infinite running maximum. JAX's padding to a block multiple and
-// its -1 / -2 pad ids are not carried over: bounds checks do their work.
+// segment-id range misses its own (a small pre-pass writes the range of
+// every 64 tokens); the per-element mask is applied only on the tiles that
+// need it. Every row keeps at least itself, so its maximum and lse are
+// finite; a row that keeps nothing in a walked tile takes exp2 against 0
+// there instead of its still infinite running maximum. JAX's padding to a
+// block multiple and its -1 / -2 pad ids are not carried over: bounds checks
+// do their work.
 //
 // Replaces the JAX library's Pallas TPU flash kernel that
 // mhla_tpu/kernels/flash_attention.py:59-63,115-118 calls for long queries
-// (the video model's text cross-attention: Tq = 31,500, Tk = 512; the LM's
-// softmax layers from 2,048 tokens on, at head dim 256 when a hybrid keeps
-// the LM's 4 heads). That
-// wrapper zero-pads both lengths to its block sizes and masks the padding
-// with segment ids (flash_attention.py:69-104); here bounds checks do both
-// jobs: query rows past Tq are never stored, and keys past Tk get a score
-// of -inf before the softmax, so they receive no probability mass.
+// (the video model's text cross-attention: Tq = 31,500, Tk = 512; its softmax
+// self-attention at 31,500; the LM's softmax layers from 2,048 tokens on, at
+// head dim 256 when a hybrid keeps the LM's 4 heads). That wrapper zero-pads
+// both lengths to its block sizes and masks the padding with segment ids
+// (flash_attention.py:69-104); here bounds checks do both jobs: query rows
+// past Tq are never stored, and keys past Tk get a score of -inf before the
+// softmax, so they receive no probability mass.
 //
 // Bound: operations. 4*Tq*Tk*D FLOP per batch row and head against
 // 2*(2*Tq + 2*Tk)*D bytes: Tk/2 = 256 FLOP/byte at Tk = 512 and Tq >> Tk,
 // at the card's bf16 ridge (989 TFLOP/s over 3.35 TB/s = 295 FLOP/byte)
 // and above it for self-attention lengths, whatever D.
-// Design: the [Tq, Tk] scores never reach device memory. A block of 4 warps
-// owns 64 query rows of one (batch row, head); at D = 128 each warp keeps its
-// 16 rows of q as mma.sync A fragments in registers for the whole kernel; at
-// D = 256 those would take 64 registers beside the 128 of the float32 O
-// accumulator, so the block's q tile stays in shared memory and each warp
-// reads its A fragments with ldmatrix at every key tile. The
-// block walks over the keys 64 at a time. The K and V tiles go through
-// shared memory (rows padded by 16 bytes, so the 8 row reads of an ldmatrix
-// phase hit 32 distinct banks); one ldmatrix.x4 brings the B fragments of
-// two mma steps, plain for K (stored [key][d], read as k^T) and transposed
-// for V. S = q k^T runs on the tensor cores (mma.sync m16n8k16, bf16 in,
-// float32 out); the online softmax works on the accumulator fragments in
-// registers (a row lives in the 4 lanes of a quad: two shuffles reduce it);
-// the probabilities are rounded to bf16 and reused in place as the A
-// fragments of P @ V, whose float32 accumulator is rescaled by
-// exp2(m_old - m_new) per row. One division by the row sum at the end.
-// The tiles arrive by cp.async into two buffers: while the block computes on
-// one tile the next one is in flight, and no register stages the copy (keys
-// past Tk are zero-filled by a copy of size 0). At D = 256 the q tile and
-// the four K / V tiles take 165 KB of shared memory: one block per SM.
-// Not done yet: wgmma, TMA.
+//
+// Design (hopper.cuh has the primitives): the [Tq, Tk] scores never reach
+// device memory, and only wgmma reaches the tensor cores' full rate. A block
+// of three warpgroups owns 128 query rows of one (batch row, head).
+// Warpgroup 0 is the producer: one thread loads the q tile once and the K
+// and V tiles of the walk by TMA into a ring of two shared-memory stages,
+// each guarded by a full and an empty mbarrier; the warpgroup hands its
+// registers to the consumers (setmaxnreg 24 / 240). Warpgroups 1 and 2
+// consume, 64 query rows each: S = q k^T is a wgmma with both operands in
+// shared memory (K-major), the online softmax runs on the accumulator
+// fragments in registers (a row lives in the 4 lanes of a quad: two shuffles
+// reduce it), the probabilities are rounded to bf16 and reused in place as
+// the register A operand of O += P V, whose B operand is the V tile read
+// MN-major; the float32 O is rescaled by exp2(m_old - m_new) per row between
+// the two products (hence a wgmma fence before P V), and divided by the row
+// sum once at the end. Key tiles: 128 keys at D = 128 (q 32 KB + 2 stages of
+// K and V 128 KB), 64 at D = 256 (q 64 KB + 128 KB): one block per SM, eight
+// consumer warps. The causal forms start their grid at the last query block
+// (the longest walk). In the segment forms a producer warp copies each key
+// tile's ids into shared memory beside it; the walk's range tests run 32
+// tiles at a time on a warp's lanes. Not done: overlapping one warpgroup's
+// softmax with the other's products, or the next tile's S with this tile's
+// P V.
+// Registers (-Xptxas -v, nvcc 12.9): 168 a thread at launch, no spills and
+// no serialized wgmma in any of the 16 instantiations.
 
 #include <math_constants.h>
 
 #include <type_traits>
 
-#include "flash_common.cuh"
 #include "flash_mask.cuh"
+#include "hopper.cuh"
 
-using namespace flash;
+using namespace hopper;
 using flash_mask::TileWalk;
 using flash_mask::kCausal;
 using flash_mask::kSegment;
 
 namespace {
 
-constexpr int kBlockM = 64;      // query rows per block (16 per warp)
-constexpr int kBlockN = 64;      // keys per tile
-constexpr int kThreads = 128;
-constexpr int kSegSmemBytes = 2 * kBlockN * (int)sizeof(int);  // + 2 tiles of key ids
+typedef __nv_bfloat16 bf16;
 
-// 2 K and 2 V tiles of head dim D (rows padded by 8 elements), and at D = 256
-// the block's q tile
-template <int D>
-constexpr int smem_bytes() {
-  return (D == 128 ? 4 : 5) * kBlockN * (D + 8) * (int)sizeof(bf16);
+constexpr int kBlockM = 128;  // query rows per block: 64 per consumer warpgroup
+constexpr int kThreads = 384;
+constexpr int kStages = 2;
+
+template <int kD>
+struct FwdGeom {
+  static constexpr int kBlockN = kD == 128 ? 128 : 64;  // keys per tile
+  static constexpr int kQBytes = kBlockM * kD * 2;
+  static constexpr int kKVBytes = kBlockN * kD * 2;  // one K or V tile
+  static constexpr int kSegBytes = kStages * kBlockN * 4;  // key ids (segment forms)
+  static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + kSegBytes + 1024 + 64;
+};
+
+__device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// grid (ceil(Tq / kBlockM), H, B); dynamic shared memory smem_bytes<kD>() (+
-// kSegSmemBytes in the segment form). kMask: kCausal and/or kSegment bits, 0
-// for the unmasked form; seg [B, T] int32 and ranges [B, ceil(T / 64)] (the
+// grid (ceil(Tq / 128), H, B), 384 threads, dynamic shared memory
+// FwdGeom<kD>::kSmem. kMask: kCausal and/or kSegment bits, 0 for the
+// unmasked form; seg [B, T] int32 and ranges [B, ceil(T / 64)] (the
 // pre-pass's) are read by the segment form only; ``visits``, when not null,
-// gets the number of key tiles the block walked (masked forms).
+// gets the number of key tiles the block walked (masked forms). The maps
+// are those of q (boxes of 128 rows), k and v (kBlockN rows).
 template <int kD, bool kLse, int kMask>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
                  float* __restrict__ lse, int Tq, int Tk, int H, float scale_log2,
                  const int* __restrict__ seg, const int2* __restrict__ ranges,
                  int* __restrict__ visits) {
-  constexpr int kLd = kD + 8;  // shared-memory row stride in elements
-  constexpr bool kQInRegs = kD == 128;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  typedef bf16 Tile[kBlockN][kLd];
-  Tile* ks = reinterpret_cast<Tile*>(smem_raw);  // [2] tiles of K
-  Tile* vs = ks + 2;                             // [2] tiles of V
-  Tile* qs = vs + 2;                             // the q tile (D = 256)
-  int* kseg = reinterpret_cast<int*>(kQInRegs ? (void*)(vs + 2) : (void*)(qs + 1));
-  // [2][kBlockN] key ids (segment form)
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;  // fragment row group, column pair
-  const int lrow = lane & 7, lmat = lane >> 3;  // this lane's row and matrix of an ldmatrix
+  typedef FwdGeom<kD> G;
+  constexpr int kBlockN = G::kBlockN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  auto kst = [&](int s) { return smem + G::kQBytes + s * G::kKVBytes; };
+  auto vst = [&](int s) { return smem + G::kQBytes + (kStages + s) * G::kKVBytes; };
+  int* kseg = reinterpret_cast<int*>(smem + G::kQBytes + 2 * kStages * G::kKVBytes);  // [stage][key]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::kQBytes + 2 * kStages * G::kKVBytes +
+                                               G::kSegBytes);
+  uint64_t* bar_q = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
   const int b = blockIdx.z, h = blockIdx.y;
-  const int64_t ld = (int64_t)H * kD;
-  const bf16* qb = q + (int64_t)b * Tq * ld + h * kD;
-  const bf16* kb = k + (int64_t)b * Tk * ld + h * kD;
-  const bf16* vb = v + (int64_t)b * Tk * ld + h * kD;
-  bf16* ob = o + (int64_t)b * Tq * ld + h * kD;
-
-  // this warp's 16 query rows as A fragments: rows r0 = g, r1 = g + 8; at
-  // D = 256 the q tile goes to shared memory with the first K / V tile
-  const int r0 = blockIdx.x * kBlockM + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[kQInRegs ? kD / 16 : 1][4];
-  if constexpr (kQInRegs) {
-#pragma unroll
-    for (int s = 0; s < kD / 16; ++s) {
-      const int d = s * 16 + tg * 2;
-      qa[s][0] = r0 < Tq ? ld32(qb + r0 * ld + d) : 0u;
-      qa[s][1] = r1 < Tq ? ld32(qb + r1 * ld + d) : 0u;
-      qa[s][2] = r0 < Tq ? ld32(qb + r0 * ld + d + 8) : 0u;
-      qa[s][3] = r1 < Tq ? ld32(qb + r1 * ld + d + 8) : 0u;
-    }
-  } else {
-    const int q0 = blockIdx.x * kBlockM;
-#pragma unroll
-    for (int i = 0; i < kBlockM * (kD / 8) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int r = e / (kD / 8), c8 = (e % (kD / 8)) * 8;
-      const bool valid = q0 + r < Tq;
-      cp_async16(&qs[0][r][c8], qb + (valid ? q0 + r : 0) * ld + c8, valid);
-    }
-  }
-
-  float oacc[kD / 8][4];
-#pragma unroll
-  for (int t = 0; t < kD / 8; ++t) oacc[t][0] = oacc[t][1] = oacc[t][2] = oacc[t][3] = 0.f;
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running row maxima (log2 units)
-  float l0 = 0.f, l1 = 0.f;                      // this lane's share of the row sums
-
-  // the segment ids of this thread's two rows and of the batch row
   const int* sb = (kMask & kSegment) ? seg + (int64_t)b * Tq : nullptr;
-  const int sq0 = (kMask & kSegment) && r0 < Tq ? sb[r0] : 0;
-  const int sq1 = (kMask & kSegment) && r1 < Tq ? sb[r1] : 0;
-
-  // start the copy of the K and V tile at key kt0 (and its key ids) into buffer buf
-  auto load_tile = [&](int buf, int kt0) {
-#pragma unroll
-    for (int i = 0; i < kBlockN * (kD / 8) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int r = e / (kD / 8), c8 = (e % (kD / 8)) * 8;
-      const bool valid = kt0 + r < Tk;
-      const int64_t row = valid ? kt0 + r : 0;  // a readable address either way
-      cp_async16(&ks[buf][r][c8], kb + row * ld + c8, valid);
-      cp_async16(&vs[buf][r][c8], vb + row * ld + c8, valid);
-    }
-    if ((kMask & kSegment) && tid < kBlockN) {
-      const bool valid = kt0 + tid < Tk;
-      cp_async4(reinterpret_cast<float*>(kseg + buf * kBlockN + tid),
-                reinterpret_cast<const float*>(sb + (valid ? kt0 + tid : 0)), valid);
-    }
-  };
-
+  // the causal forms' longest walks first
+  const int qblk = (kMask & kCausal) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qblk * kBlockM;
   // the key tiles this block walks: all of them unmasked; for the masked
   // forms those that can hold a kept pair (flash_mask.cuh)
-  const int ntiles = (Tk + kBlockN - 1) / kBlockN;
-  const TileWalk<kMask> walk((kMask & kSegment) ? ranges + (int64_t)b * ntiles : nullptr,
-                             blockIdx.x, ntiles, false);
-  int cur = walk.next(walk.first);
-  if (cur <= walk.last) load_tile(0, cur * kBlockN);
-  cp_async_commit();
-  int it = 0;
-  for (; cur <= walk.last; ++it) {
-    const int buf = it & 1, kt = cur * kBlockN;
-    const int nxt = walk.next(cur + 1);
-    // the other buffer's readers finished at the end of the last iteration
-    if (nxt <= walk.last) load_tile(buf ^ 1, nxt * kBlockN);
-    cp_async_commit();   // an empty group after the last tile keeps the count uniform
-    cp_async_wait<1>();  // all but the newest group: this tile has landed
-    __syncthreads();
-    const bool masked = kMask != 0 && walk.needs_mask(cur, blockIdx.x);
+  const TileWalk<kMask, kBlockM, kBlockN, false> walk(
+      (kMask & kSegment) ? ranges + (int64_t)b * ((Tk + 63) / 64) : nullptr, qblk,
+      kMask ? Tq : Tk);
 
-    // S = q k^T for 16 rows x 64 keys: 8 accumulator tiles of 16 x 8
-    float sacc[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-      sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
-#pragma unroll
-    for (int s2 = 0; s2 < kD / 32; ++s2) {  // 32 of d: the fragments of two steps
-      uint32_t a0[4], a1[4];
-      if constexpr (kQInRegs) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          a0[e] = qa[2 * s2][e];
-          a1[e] = qa[2 * s2 + 1][e];
-        }
-      } else {
-        const bf16* ap = &qs[0][warp * 16 + (lmat & 1) * 8 + lrow][s2 * 32 + (lmat >> 1) * 8];
-        ldmatrix_x4(a0, ap);
-        ldmatrix_x4(a1, ap + 16);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA thread, and in the segment forms the 32 key-id copiers
+      mbar_init(&full[s], (kMask & kSegment) ? 1 + 32 : 1);
+      mbar_init(&empty[s], 2 * 128);  // every consumer thread releases the stage
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    regs_dec<24>();
+    // warp 0 walks the tiles, its lane 0 loading them; in the segment forms
+    // warp 1 walks beside it, copying each tile's key ids
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp == 0 || ((kMask & kSegment) && warp == 1)) {
+      if (warp == 0 && lane == 0) {
+        mbar_arrive_expect_tx(bar_q, G::kQBytes);
+        tma_load_tile<kD, kBlockM>(qs, &map_q, bar_q, q0, h, b);
       }
+      int stage = 0, n = 0;
+      uint32_t phase = 0;
+      for (int j = walk.next(walk.first); j <= walk.last; j = walk.next(j + 1), ++n) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        if (warp == 0) {
+          if (lane == 0) {
+            mbar_arrive_expect_tx(&full[stage], 2 * G::kKVBytes);
+            tma_load_tile<kD, kBlockN>(kst(stage), &map_k, &full[stage], j * kBlockN, h, b);
+            tma_load_tile<kD, kBlockN>(vst(stage), &map_v, &full[stage], j * kBlockN, h, b);
+          }
+        } else {
+#pragma unroll
+          for (int i = lane; i < kBlockN; i += 32) {
+            const int key = j * kBlockN + i;
+            kseg[stage * kBlockN + i] = key < Tk ? sb[key] : 0;
+          }
+          mbar_arrive(&full[stage]);
+        }
+        if (++stage == kStages) stage = 0, phase ^= 1;
+      }
+      if (kMask != 0 && visits != nullptr && threadIdx.x == 0) atomicAdd(visits, n);
+    }
+  } else {  // the consumer warpgroups, 64 query rows each
+    regs_inc<240>();
+    const int wg = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int warp = t >> 5, lane = t & 31;
+    const int g = lane >> 2, tg = lane & 3;  // fragment row group, column pair
+    const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
+    const int sq0 = (kMask & kSegment) && r0 < Tq ? sb[r0] : 0;
+    const int sq1 = (kMask & kSegment) && r1 < Tq ? sb[r1] : 0;
+
+    float oacc[kD / 8][4];
+#pragma unroll
+    for (int i = 0; i < kD / 8; ++i) oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running row maxima (log2 units)
+    float l0 = 0.f, l1 = 0.f;                      // this lane's share of the row sums
+
+    mbar_wait(bar_q, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = walk.next(walk.first); j <= walk.last; j = walk.next(j + 1)) {
+      const int kt = j * kBlockN;
+      const bool masked = kMask != 0 && walk.needs_mask(j);
+      const bool tail = kt + kBlockN > Tk;
+      mbar_wait(&full[stage], phase);
+      const unsigned char* ks = kst(stage);
+      const unsigned char* vs = vst(stage);
+
+      // S = q k^T for 64 rows x kBlockN keys
+      float sacc[kBlockN / 8][4];
+      const uint64_t dq0 = desc_kmajor(qs, wg * 64), dk0 = desc_kmajor(ks, 0);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kD / 16; ++s)
+        wgmma_ss(sacc, dq0 + kstep_kmajor<kBlockM>(s), dk0 + kstep_kmajor<kBlockN>(s), s > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sacc);
+
+      // scale, mask the keys past Tk (and, on a tile that needs it, the pairs
+      // the mask drops), row maxima
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, &ks[buf][nt * 8 + lrow][s2 * 32 + lmat * 8]);
-        mma_bf16(sacc[nt], a0, kf[0], kf[1]);
-        mma_bf16(sacc[nt], a1, kf[2], kf[3]);
-      }
-    }
-
-    // scale, mask the keys past Tk (and, on a tile that needs it, the pairs
-    // the mask drops), row maxima
-    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt + nt * 8 + tg * 2 + (e & 1);
-        bool keep = key < Tk;
-        if (kMask != 0 && masked) {
-          const int sk = (kMask & kSegment) ? kseg[buf * kBlockN + key - kt] : 0;
-          keep = keep && flash_mask::keep_pair<kMask>(e < 2 ? r0 : r1, e < 2 ? sq0 : sq1,
-                                                      key, sk);
+        for (int e = 0; e < 4; ++e) {
+          const int key = kt + nt * 8 + tg * 2 + (e & 1);
+          bool keep = !tail || key < Tk;
+          if (kMask != 0 && masked) {
+            const int sk = (kMask & kSegment) ? kseg[stage * kBlockN + key - kt] : 0;
+            keep = keep && flash_mask::keep_pair<kMask>(e < 2 ? r0 : r1, e < 2 ? sq0 : sq1,
+                                                        key, sk);
+          }
+          sacc[nt][e] = keep ? sacc[nt][e] * scale_log2 : -CUDART_INF_F;
         }
-        sacc[nt][e] = keep ? sacc[nt][e] * scale_log2 : -CUDART_INF_F;
+        mx0 = fmaxf(mx0, fmaxf(sacc[nt][0], sacc[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(sacc[nt][2], sacc[nt][3]));
       }
-      mx0 = fmaxf(mx0, fmaxf(sacc[nt][0], sacc[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(sacc[nt][2], sacc[nt][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // unmasked, every tile holds at least one key below Tk, so the new maxima
-    // are finite; masked, a row may have kept nothing yet: exp2 against 0 then
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float mr0 = kMask != 0 && mn0 == -CUDART_INF_F ? 0.f : mn0;
-    const float mr1 = kMask != 0 && mn1 == -CUDART_INF_F ? 0.f : mn1;
-    const float alpha0 = exp2f(m0 - mr0), alpha1 = exp2f(m1 - mr1);
-    m0 = mn0;
-    m1 = mn1;
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      // unmasked, every tile holds at least one key below Tk, so the new maxima
+      // are finite; masked, a row may have kept nothing yet: exp2 against 0 then
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float mr0 = kMask != 0 && mn0 == -CUDART_INF_F ? 0.f : mn0;
+      const float mr1 = kMask != 0 && mn1 == -CUDART_INF_F ? 0.f : mn1;
+      const float alpha0 = exp2f(m0 - mr0), alpha1 = exp2f(m1 - mr1);
+      m0 = mn0;
+      m1 = mn1;
 
-    // p = exp2(s - m), rounded to bf16 as the A fragments of P @ V
-    uint32_t pa[kBlockN / 16][4];
-    float sum0 = 0.f, sum1 = 0.f;
+      // p = exp2(s - m), rounded to bf16 as the A fragments of P @ V
+      uint32_t pa[kBlockN / 16][4];
+      float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      const float p0 = exp2f(sacc[nt][0] - mr0), p1 = exp2f(sacc[nt][1] - mr0);
-      const float p2 = exp2f(sacc[nt][2] - mr1), p3 = exp2f(sacc[nt][3] - mr1);
-      sum0 += p0 + p1;
-      sum1 += p2 + p3;
-      pa[nt / 2][(nt & 1) * 2 + 0] = pack2f(p0, p1);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack2f(p2, p3);
-    }
-    l0 = l0 * alpha0 + sum0;
-    l1 = l1 * alpha1 + sum1;
-
-    // o = alpha * o + P @ V
-#pragma unroll
-    for (int t = 0; t < kD / 8; ++t) {
-      oacc[t][0] *= alpha0;
-      oacc[t][1] *= alpha0;
-      oacc[t][2] *= alpha1;
-      oacc[t][3] *= alpha1;
-#pragma unroll
-      for (int s2 = 0; s2 < kBlockN / 32; ++s2) {  // 32 keys: the B fragments of two steps
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, &vs[buf][s2 * 32 + lmat * 8 + lrow][t * 8]);
-        mma_bf16(oacc[t], pa[2 * s2], vf[0], vf[1]);
-        mma_bf16(oacc[t], pa[2 * s2 + 1], vf[2], vf[3]);
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
+        const float p0 = exp2f(sacc[nt][0] - mr0), p1 = exp2f(sacc[nt][1] - mr0);
+        const float p2 = exp2f(sacc[nt][2] - mr1), p3 = exp2f(sacc[nt][3] - mr1);
+        sum0 += p0 + p1;
+        sum1 += p2 + p3;
+        pa[nt / 2][(nt & 1) * 2 + 0] = pack2f(p0, p1);
+        pa[nt / 2][(nt & 1) * 2 + 1] = pack2f(p2, p3);
       }
-    }
-    __syncthreads();  // this buffer's fragment reads are done before it is refilled
-    cur = nxt;
-  }
-  if (kMask != 0 && visits != nullptr && tid == 0) atomicAdd(visits, it);
+      l0 = l0 * alpha0 + sum0;
+      l1 = l1 * alpha1 + sum1;
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  if (kLse && tg == 0) {  // log(sum_j exp(scale * s_j)) = (m + log2(l)) * ln(2)
-    float* lb = lse + ((int64_t)b * H + h) * Tq;
-    if (r0 < Tq) lb[r0] = (m0 + log2f(l0)) * 0.6931471805599453f;
-    if (r1 < Tq) lb[r1] = (m1 + log2f(l1)) * 0.6931471805599453f;
-  }
+      // o = alpha * o + P @ V
 #pragma unroll
-  for (int t = 0; t < kD / 8; ++t) {
-    const int d = t * 8 + tg * 2;
-    if (r0 < Tq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * ld + d) =
-          __floats2bfloat162_rn(oacc[t][0] * inv0, oacc[t][1] * inv0);
-    if (r1 < Tq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * ld + d) =
-          __floats2bfloat162_rn(oacc[t][2] * inv1, oacc[t][3] * inv1);
+      for (int i = 0; i < kD / 8; ++i) {
+        oacc[i][0] *= alpha0;
+        oacc[i][1] *= alpha0;
+        oacc[i][2] *= alpha1;
+        oacc[i][3] *= alpha1;
+      }
+      const uint64_t dv0 = desc_mnmajor<kBlockN>(vs);
+      wgmma_fence();  // the rescaled accumulator was written by ordinary code
+#pragma unroll
+      for (int s = 0; s < kBlockN / 16; ++s) wgmma_rs(oacc, pa[s], dv0 + kstep_mnmajor(s), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(oacc);
+      fence_frag(pa);
+      mbar_arrive(&empty[stage]);  // this stage's tiles are no longer read
+      if (++stage == kStages) stage = 0, phase ^= 1;
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    if (kLse && tg == 0) {  // log(sum_j exp(scale * s_j)) = (m + log2(l)) * ln(2)
+      float* lb = lse + ((int64_t)b * H + h) * Tq;
+      if (r0 < Tq) lb[r0] = (m0 + log2f(l0)) * 0.6931471805599453f;
+      if (r1 < Tq) lb[r1] = (m1 + log2f(l1)) * 0.6931471805599453f;
+    }
+    const int64_t ld = (int64_t)H * kD;
+    bf16* ob = o + (int64_t)b * Tq * ld + h * kD;
+#pragma unroll
+    for (int i = 0; i < kD / 8; ++i) {
+      const int d = i * 8 + tg * 2;
+      if (r0 < Tq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r0 * ld + d) =
+            __floats2bfloat162_rn(oacc[i][0] * inv0, oacc[i][1] * inv0);
+      if (r1 < Tq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r1 * ld + d) =
+            __floats2bfloat162_rn(oacc[i][2] * inv1, oacc[i][3] * inv1);
+    }
   }
 }
 
 template <int kD, bool kLse, int kMask>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-               int B, int Tq, int Tk, int H, float scale, const int* seg,
-               const int2* ranges, int* visits, cudaStream_t stream) {
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Tq,
+               int Tk, int H, float scale, const int* seg, const int2* ranges, int* visits,
+               cudaStream_t stream) {
+  typedef FwdGeom<kD> G;
+  CUtensorMap mq, mk, mv;
+  int err = hopper_host::make_tile_map(&mq, q, B, Tq, H, kD, kBlockM);
+  if (!err) err = hopper_host::make_tile_map(&mk, k, B, Tk, H, kD, G::kBlockN);
+  if (!err) err = hopper_host::make_tile_map(&mv, v, B, Tk, H, kD, G::kBlockN);
+  if (err) return err;
   auto kern = flash_fwd_kernel<kD, kLse, kMask>;
-  const int smem = smem_bytes<kD>() + ((kMask & kSegment) ? kSegSmemBytes : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Tq + kBlockM - 1) / kBlockM, H, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, Tq,
-      Tk, H, scale * 1.4426950408889634f, seg, ranges, visits);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       G::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Tq + kBlockM - 1) / kBlockM, H, B);
+  kern<<<grid, kThreads, G::kSmem, stream>>>(mq, mk, mv, (bf16*)o, (float*)lse, Tq, Tk, H,
+                                             scale * 1.4426950408889634f, seg, ranges, visits);
   return (int)cudaGetLastError();
 }
 

@@ -1,17 +1,19 @@
 // The causal and segment-id masks of the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): which 64 x 64 tiles of the [T, T] score
-// matrix a block walks, which of those need a per-element mask, and the
-// per-element rule. Tq == Tk == T; query tile i and key tile i hold the same
-// tokens.
+// (flash_fwd.cu, flash_bwd.cu): which tiles of the [T, T] score matrix a
+// block walks, which of those need a per-element mask, and the per-element
+// rule. Tq == Tk == T. A block's own span and the tiles it walks are
+// multiples of 64 tokens (the range pre-pass's tiles), in sizes that differ
+// by kernel and head dim.
 //
 // Key j is kept for query i iff seg[i] == seg[j] (segment form) and j <= i
-// (causal form). A tile can hold a kept pair only if it is on or below the
-// diagonal (causal) and the [min, max] ranges of the ids of its query rows
-// and of its key columns meet (segment): two disjoint ranges share no id,
-// whatever the order of the ids, so skipping such a tile is exact for any
-// ids. A walked tile needs the per-element rule only on the diagonal
-// (causal) or where the ids of its rows and columns are not all one value
-// (segment); elsewhere every pair in it is kept, bar keys past T.
+// (causal form). A tile can hold a kept pair only if it reaches the
+// diagonal or lies below it (causal) and the [min, max] ranges of the ids of
+// its query rows and of its key columns meet (segment): two disjoint ranges
+// share no id, whatever the order of the ids, so skipping such a tile is
+// exact for any ids. A walked tile needs the per-element rule only where the
+// diagonal crosses it (causal) or where the ids of its rows and columns are
+// not all one value (segment); elsewhere every pair in it is kept, bar keys
+// past T.
 
 #pragma once
 
@@ -20,7 +22,7 @@
 
 namespace flash_mask {
 
-constexpr int kTile = 64;  // query rows and keys per tile
+constexpr int kTile = 64;  // tokens per tile of the range pre-pass
 constexpr int kCausal = 1, kSegment = 2;  // bits of a kernel's mask form
 
 // ranges[b * ntiles + j] = (min, max) of seg[b, 64 j .. min(64 j + 63, T - 1)].
@@ -51,43 +53,72 @@ static inline cudaError_t launch_seg_tile_ranges(const int* seg, int2* ranges, i
   return cudaGetLastError();
 }
 
-// The tiles a block walks along its other axis, in increasing order. A
-// query-tile block (forward, dQ) walks key tiles 0 .. its own; a key-tile
-// block (dK/dV) walks query tiles from its own on. ``own`` is the range of
-// the block's own tile, ``ranges`` those of this batch row's tiles.
-template <int kMask>
+// The walk of a block that owns kOwn tokens of one axis, block ``own_block``
+// (the queries of a forward or dQ block; the keys of a dK/dV block, with
+// kKeySide), over the tiles of kStep tokens of the other axis, in increasing
+// order. kOwn and kStep are multiples of kTile; a span's id range is that of
+// its kTile tiles (``ranges``, this batch row's, from the pre-pass), so the
+// test stays exact for any ids. With query span [qa, qb] and key span
+// [ka, kb] (the last tile cut at T): causal walks the pair iff ka <= qb and
+// needs the per-element rule iff kb > qa (the diagonal crosses it); the
+// segment form walks it iff the two id ranges meet and needs the rule unless
+// both hold one and the same id.
+template <int kMask, int kOwn, int kStep, bool kKeySide>
 struct TileWalk {
   const int2* ranges;
-  int2 own;
-  int first, last;  // the walk's bounds before the segment test
+  int T, own0, own1;  // the block's first and last token
+  int2 own;           // the id range of its span (segment form)
+  int first, last;    // the walk's bounds before the segment test
 
-  __device__ __forceinline__ TileWalk(const int2* ranges_, int own_tile, int ntiles,
-                                      bool from_key_side)
-      : ranges(ranges_), own(make_int2(0, 0)) {
-    if (kMask & kSegment) own = ranges_[own_tile];
-    first = (kMask & kCausal) && from_key_side ? own_tile : 0;
-    last = (kMask & kCausal) && !from_key_side ? own_tile : ntiles - 1;
+  __device__ __forceinline__ TileWalk(const int2* ranges_, int own_block, int T_)
+      : ranges(ranges_), T(T_), own(make_int2(0, 0)) {
+    own0 = own_block * kOwn;
+    own1 = min(own0 + kOwn, T) - 1;
+    const int nsteps = (T + kStep - 1) / kStep;
+    if (kMask & kSegment) own = span_range(own0, own1);
+    first = (kMask & kCausal) && kKeySide ? own0 / kStep : 0;
+    last = (kMask & kCausal) && !kKeySide ? min(nsteps - 1, own1 / kStep) : nsteps - 1;
   }
 
-  // Whether tile j can hold a kept pair with the block's own tile.
+  // The id range of tokens [a, b] (a a multiple of kTile).
+  __device__ __forceinline__ int2 span_range(int a, int b) const {
+    int2 r = ranges[a / kTile];
+#pragma unroll
+    for (int i = 1; i < (kOwn > kStep ? kOwn : kStep) / kTile; ++i) {
+      if (a + i * kTile > b) break;
+      const int2 s = ranges[a / kTile + i];
+      r.x = min(r.x, s.x);
+      r.y = max(r.y, s.y);
+    }
+    return r;
+  }
+
+  // Whether step tile j can hold a kept pair with the block's span.
   __device__ __forceinline__ bool meets(int j) const {
     if (!(kMask & kSegment)) return true;
-    const int2 r = ranges[j];
+    const int2 r = span_range(j * kStep, min((j + 1) * kStep, T) - 1);
     return r.x <= own.y && own.x <= r.y;
   }
 
-  // The first tile from j on that the walk visits, or last + 1.
+  // The first tile from j on that the walk visits, or a tile past last. All
+  // 32 lanes of the calling warp take part: they test 32 tiles at once, so
+  // a long run of skipped tiles costs one round of range loads, not one each.
   __device__ __forceinline__ int next(int j) const {
-    while (j <= last && !meets(j)) ++j;
+    if (!(kMask & kSegment)) return j;
+    const int lane = threadIdx.x & 31;
+    for (; j <= last; j += 32) {
+      const unsigned hit = __ballot_sync(0xffffffffu, j + lane <= last && meets(j + lane));
+      if (hit) return j + __ffs(hit) - 1;
+    }
     return j;
   }
 
-  // Whether the walked tile j needs the per-element rule (``own_tile`` is the
-  // block's own tile index).
-  __device__ __forceinline__ bool needs_mask(int j, int own_tile) const {
-    if ((kMask & kCausal) && j == own_tile) return true;
+  // Whether the walked tile j needs the per-element rule.
+  __device__ __forceinline__ bool needs_mask(int j) const {
+    const int s0 = j * kStep, s1 = min(s0 + kStep, T) - 1;
+    if ((kMask & kCausal) && (kKeySide ? own1 > s0 : s1 > own0)) return true;
     if (kMask & kSegment) {
-      const int2 r = ranges[j];
+      const int2 r = span_range(s0, s1);
       return !(own.x == own.y && r.x == r.y && r.x == own.x);
     }
     return false;

@@ -1,0 +1,160 @@
+// One-tile checks of the wgmma operand layouts of hopper.cuh over tiles
+// loaded by TMA, for each layout the flash-attention kernels use; the card
+// tests hold each against torch.matmul. A wrong descriptor offset, swizzle
+// or fragment order gives a wrong product here, where it is one product and
+// not one step of a softmax.
+
+#include "hopper.cuh"
+
+using namespace hopper;
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+// Store a warpgroup's [64 x N] accumulator row-major into c.
+template <int N>
+__device__ void store_c(float* c, const float (&acc)[N / 8][4]) {
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int r0 = warp * 16 + (lane >> 2), tg = lane & 3;
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const int col = i * 8 + tg * 2;
+    c[r0 * N + col] = acc[i][0];
+    c[r0 * N + col + 1] = acc[i][1];
+    c[(r0 + 8) * N + col] = acc[i][2];
+    c[(r0 + 8) * N + col + 1] = acc[i][3];
+  }
+}
+
+// C[64 x N] = A[rows kARows - 64 .. kARows) B^T: a [kARows][K] and b [N][K]
+// tiles, both K-major in shared memory (S = q k^T and its kin).
+template <int kARows, int N, int K>
+__global__ void __launch_bounds__(128)
+ss_check_kernel(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b, float* c) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* as = smem;
+  unsigned char* bs = smem + kARows * K * 2;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bs + N * K * 2);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(bar, (kARows + N) * K * 2);
+    tma_load_tile<K, kARows>(as, &map_a, bar, 0, 0, 0);
+    tma_load_tile<K, N>(bs, &map_b, bar, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  float acc[N / 8][4];
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < K / 16; ++s)
+    wgmma_ss(acc, desc_kmajor(as, kARows - 64) + kstep_kmajor<kARows>(s),
+             desc_kmajor(bs, 0) + kstep_kmajor<N>(s), s > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+  store_c<N>(c, acc);
+}
+
+// C[64 x N] = A B: A [64][K] row-major in device memory, taken into
+// registers as A fragments; b a [K][N] tile read MN-major (P V and its kin).
+template <int N, int K>
+__global__ void __launch_bounds__(128)
+rs_check_kernel(const bf16* __restrict__ a, const __grid_constant__ CUtensorMap map_b,
+                float* c) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* bs = smem;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bs + K * N * 2);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(bar, K * N * 2);
+    tma_load_tile<N, K>(bs, &map_b, bar, 0, 0, 0);
+  }
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int r0 = warp * 16 + (lane >> 2), tg = lane & 3;
+  uint32_t af[K / 16][4];
+#pragma unroll
+  for (int s = 0; s < K / 16; ++s) {
+    const int col = s * 16 + tg * 2;
+    af[s][0] = *reinterpret_cast<const uint32_t*>(a + r0 * K + col);
+    af[s][1] = *reinterpret_cast<const uint32_t*>(a + (r0 + 8) * K + col);
+    af[s][2] = *reinterpret_cast<const uint32_t*>(a + r0 * K + col + 8);
+    af[s][3] = *reinterpret_cast<const uint32_t*>(a + (r0 + 8) * K + col + 8);
+  }
+  mbar_wait(bar, 0);
+  float acc[N / 8][4];
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < K / 16; ++s)
+    wgmma_rs(acc, af[s], desc_mnmajor<K>(bs) + kstep_mnmajor(s), s > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+  fence_frag(af);
+  store_c<N>(c, acc);
+}
+
+template <int kARows, int N, int K>
+int launch_ss(const void* a, const void* b, float* c, cudaStream_t stream) {
+  CUtensorMap ma, mb;
+  int err = hopper_host::make_tile_map(&ma, a, 1, kARows, 1, K, kARows);
+  if (!err) err = hopper_host::make_tile_map(&mb, b, 1, N, 1, K, N);
+  if (err) return err;
+  const int smem = (kARows + N) * K * 2 + 1024 + 64;
+  auto kern = ss_check_kernel<kARows, N, K>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<1, 128, smem, stream>>>(ma, mb, c);
+  return (int)cudaGetLastError();
+}
+
+template <int N, int K>
+int launch_rs(const void* a, const void* b, float* c, cudaStream_t stream) {
+  CUtensorMap mb;
+  const int err = hopper_host::make_tile_map(&mb, b, 1, K, 1, N, K);
+  if (err) return err;
+  const int smem = K * N * 2 + 1024 + 64;
+  auto kern = rs_check_kernel<N, K>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<1, 128, smem, stream>>>((const bf16*)a, mb, c);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ``layout`` picks the product (the kernels that use it in brackets):
+//   0: ss, a [128][128] (rows 64..127), b [128][128]   (K9 S at D = 128)
+//   1: ss, a [128][256] (rows 64..127), b [64][256]    (K9 S at D = 256)
+//   2: ss, a [128][128] (rows 64..127), b [64][128]    (K9b dQ's S, dP at D = 128)
+//   3: ss, a [64][128], b [128][128]                   (K9b dK/dV's S^T, dP^T at D = 128)
+//   4: ss, a [64][256], b [64][256]                    (K9b's S^T, dP^T, S, dP at D = 256)
+//   5: rs, a [64][128], b [128][128]                   (K9 P V, K9b's dV, dK at D = 128)
+//   6: rs, a [64][64], b [64][256]                     (K9 P V, K9b's three at D = 256)
+//   7: rs, a [64][64], b [64][128]                     (K9b's dQ at D = 128)
+// c gets the float32 [64 x N] product. Returns a cudaError_t.
+extern "C" int mhla_wgmma_check(int layout, const void* a, const void* b, float* c,
+                                void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (layout) {
+    case 0: return launch_ss<128, 128, 128>(a, b, c, s);
+    case 1: return launch_ss<128, 64, 256>(a, b, c, s);
+    case 2: return launch_ss<128, 64, 128>(a, b, c, s);
+    case 3: return launch_ss<64, 128, 128>(a, b, c, s);
+    case 4: return launch_ss<64, 64, 256>(a, b, c, s);
+    case 5: return launch_rs<128, 128>(a, b, c, s);
+    case 6: return launch_rs<256, 64>(a, b, c, s);
+    case 7: return launch_rs<128, 64>(a, b, c, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -6,7 +6,8 @@ that ``mhla_tpu/kernels/flash_attention.py:59-63,115-118`` calls for long
 queries: the video model's text cross-attention (31,500 queries against
 512 keys) and, with equal lengths, its softmax self-attention and the LM's
 softmax layers. The kernel (``csrc/flash_fwd.cu``, where its bound and
-design are written) takes bf16 with a head dim of 128 or 256 and any two
+design are written: TMA loads, wgmma products and a producer warpgroup,
+``csrc/hopper.cuh``) takes bf16 with a head dim of 128 or 256 and any two
 lengths; it needs no padding and no segment ids, because it checks its own
 bounds. The JAX rule sends every head dim that is a multiple of 128 to the
 library kernel; on a CUDA tensor any other than 128 and 256 (384, ...)
@@ -27,7 +28,8 @@ kernel called with ``causal=True`` and ``SegmentIds``
 (causal) and seg[b, i] == seg[b, j]. Their kernels (``mhla_flash_fwd_masked``
 and ``mhla_flash_bwd_masked`` in the same sources, counted as
 ``flash_attention_masked`` and ``flash_attention_masked_bwd``) walk only the
-64 x 64 tiles that can hold a kept pair; ``visited_tiles`` gives their
+tiles that can hold a kept pair, in each kernel's own geometry
+(``WALK_TILES``); ``visited_tiles`` and ``kernel_visits`` give their
 count.
 
 A CPU tensor takes :func:`flash_attention_plain` and
@@ -49,7 +51,15 @@ launches = {"flash_attention": 0, "flash_attention_bwd": 0,
             "flash_attention_masked": 0, "flash_attention_masked_bwd": 0}
 
 _HEAD_DIMS = (128, 256)  # the instantiations of csrc/flash_fwd.cu and flash_bwd.cu
-_TILE = 64  # csrc: kBlockM, kBlockN, kTile
+_RANGE_TILE = 64  # tokens per segment-id range of the pre-pass (csrc/flash_mask.cuh kTile)
+# (query rows, keys) of one step of each masked kernel's walk, per head dim:
+# K9's query block x key tile, K9b's dK/dV kernel (a query tile x its block
+# of 64 keys) and its dQ kernel (a query block x key tiles of 64); the
+# kernels' kBlockM / kBlockN, DkvGeom::kQT and DqGeom::kBlockM
+WALK_TILES = {
+    128: {"fwd": (128, 128), "dkv": (128, 64), "dq": (128, 64)},
+    256: {"fwd": (128, 64), "dkv": (64, 64), "dq": (64, 64)},
+}
 _lib_cache: Optional[ctypes.CDLL] = None
 
 
@@ -204,24 +214,59 @@ def flash_attention_bwd_plain(
     return dq, (dk * scale).to(k.dtype), dv.to(v.dtype)
 
 
-def visited_tiles(causal: bool, segment_ids: Optional[torch.Tensor], t: int) -> int:
-    """The number of 64 x 64 tiles of one head that the masked forms walk
-    (the forward and the dQ kernel by query tile, the dK/dV kernel by key
-    tile: the same set), summed over the batch rows of ``segment_ids`` (or
-    for one row): on or below the diagonal when causal, and with meeting
-    [min, max] segment-id ranges."""
-    n = -(-t // _TILE)
-    tri = torch.ones(n, n, dtype=torch.bool)
+def walk_tiles(causal: bool, segment_ids: Optional[torch.Tensor], t: int, block_q: int,
+               block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (query block, key tile) pairs of one head that the masked kernels
+    walk, with blocks of ``block_q`` query rows and tiles of ``block_k``
+    keys (multiples of 64; the last of each cut at ``t``), and which of
+    those need the per-element rule (``csrc/flash_mask.cuh``): bool
+    [B or 1, ceil(t / block_q), ceil(t / block_k)] each. With query span
+    [qa, qb] and key span [ka, kb], causal walks the pair iff ka <= qb and
+    needs the rule iff kb > qa; with ``segment_ids`` [B, t] the pair is
+    walked iff the [min, max] id ranges of the two spans meet and needs the
+    rule unless both hold one and the same id."""
+    nq, nk = -(-t // block_q), -(-t // block_k)
+    qa, qb = torch.arange(nq) * block_q, (torch.arange(nq) * block_q + block_q).clamp(max=t) - 1
+    ka, kb = torch.arange(nk) * block_k, (torch.arange(nk) * block_k + block_k).clamp(max=t) - 1
+    walked = torch.ones(1, nq, nk, dtype=torch.bool)
+    rule = torch.zeros(1, nq, nk, dtype=torch.bool)
     if causal:
-        tri = torch.tril(tri)
+        walked = walked & (ka[None, :] <= qb[:, None])[None]
+        rule = rule | (kb[None, :] > qa[:, None])[None]
     if segment_ids is None:
-        return int(tri.sum())
+        return walked, rule & walked
     ids = segment_ids.detach().to("cpu", torch.int64)
-    last = ids[:, -1:].expand(-1, n * _TILE - t)  # repeats a real id: the ranges stay the same
-    tiles = torch.cat([ids, last], dim=1).reshape(ids.shape[0], n, _TILE)
-    lo, hi = tiles.amin(-1), tiles.amax(-1)
-    meets = (lo[:, :, None] <= hi[:, None, :]) & (lo[:, None, :] <= hi[:, :, None])
-    return int((meets & tri).sum())
+
+    def span_ranges(size: int, n: int):
+        last = ids[:, -1:].expand(-1, n * size - t)  # repeats a real id: the ranges stay the same
+        spans = torch.cat([ids, last], dim=1).reshape(ids.shape[0], n, size)
+        return spans.amin(-1), spans.amax(-1)
+
+    (qlo, qhi), (klo, khi) = span_ranges(block_q, nq), span_ranges(block_k, nk)
+    meets = (qlo[:, :, None] <= khi[:, None, :]) & (klo[:, None, :] <= qhi[:, :, None])
+    one_id = ((qlo == qhi)[:, :, None] & (klo == khi)[:, None, :]
+              & (qlo[:, :, None] == klo[:, None, :]))
+    walked = walked & meets
+    return walked, (rule | ~one_id) & walked
+
+
+def visited_tiles(causal: bool, segment_ids: Optional[torch.Tensor], t: int,
+                  block_q: int = 64, block_k: int = 64) -> int:
+    """The number of (query block, key tile) pairs of one head that a masked
+    kernel with that geometry walks (:func:`walk_tiles`; a dK/dV kernel
+    walks query tiles from its key block: the same set), summed over the
+    batch rows of ``segment_ids`` (or for one row)."""
+    return int(walk_tiles(causal, segment_ids, t, block_q, block_k)[0].sum())
+
+
+def kernel_visits(causal: bool, segment_ids: Optional[torch.Tensor], t: int, d: int,
+                  heads: int, batch: int) -> list:
+    """What the ``visits`` counters of K9 and K9b's dK/dV and dQ kernels read
+    after one masked call each on [batch, t, heads, d]: the walked tiles at
+    each kernel's geometry (:data:`WALK_TILES`) over all heads and rows."""
+    rows = 1 if segment_ids is not None else batch
+    return [heads * rows * visited_tiles(causal, segment_ids, t, *WALK_TILES[d][kernel])
+            for kernel in ("fwd", "dkv", "dq")]
 
 
 def _masked_args(q: torch.Tensor, causal: bool, segment_ids: Optional[torch.Tensor]):
@@ -234,7 +279,7 @@ def _masked_args(q: torch.Tensor, causal: bool, segment_ids: Optional[torch.Tens
         raise ValueError(f"segment_ids {tuple(segment_ids.shape)} on {segment_ids.device} do "
                          f"not match q {tuple(q.shape)} on {q.device}")
     seg = segment_ids.to(torch.int32).contiguous()
-    return seg, torch.empty(b, -(-t // _TILE), 2, dtype=torch.int32, device=q.device)
+    return seg, torch.empty(b, -(-t // _RANGE_TILE), 2, dtype=torch.int32, device=q.device)
 
 
 def _check_head_dim(d: int) -> None:

@@ -783,8 +783,8 @@ def test_masked_flash_kernels_match_plain(dev, geometry, form):
     """K9 (serving and training forms) and K9b in their causal, segment-id
     and combined forms against the plain versions; the lse; two K9b runs
     bit for bit; and the tiles each kernel walked against the rule's count
-    (``visited_tiles``), which is below the full count where a tile can be
-    skipped."""
+    at its own geometry (``kernel_visits``), which is below the full count
+    where a tile can be skipped."""
     import chip_smoke
 
     seg_cpu, h = _seg_geometry(geometry)
@@ -814,11 +814,9 @@ def test_masked_flash_kernels_match_plain(dev, geometry, form):
     assert flash.launches["flash_attention_masked_bwd"] == before["flash_attention_masked_bwd"] + 2
     assert flash.launches["flash_attention"] == before["flash_attention"]
     n = -(-t // 64)
-    want_tiles = h * flash.visited_tiles(causal, seg_cpu if seg is not None else None, t)
-    if seg is None:
-        want_tiles *= b
-    assert visits.tolist() == [want_tiles] * 3
-    assert want_tiles <= b * h * n * n
+    want_tiles = flash.kernel_visits(causal, seg_cpu if seg is not None else None, t, 128, h, b)
+    assert visits.tolist() == want_tiles
+    assert all(w <= b * h * n * n for w in want_tiles)
 
 
 def test_masked_flash_refuses_unequal_lengths(dev):
@@ -1262,8 +1260,7 @@ def test_flash_kernels_at_head_dim_256(dev, tq, tk):
 def test_masked_flash_kernels_at_head_dim_256(dev, geometry, form):
     """The causal and segment-id forms of K9 / K9b at head dim 256 against
     the plain versions, two K9b runs bit for bit, and the tiles walked
-    against the rule's count (the dK/dV walk counted once for its two
-    passes)."""
+    against the rule's count at each kernel's geometry."""
     import chip_smoke
 
     seg_cpu, h = _seg_geometry(geometry)
@@ -1288,10 +1285,8 @@ def test_masked_flash_kernels_at_head_dim_256(dev, geometry, form):
         assert_close(f"K9b d256 {name} {form} {geometry}", r, g, chip_smoke.FLASH_BWD_TOL)
     again = flash.flash_attention_bwd(q, k, v, out, lse, do, None, causal, seg)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
-    want_tiles = h * flash.visited_tiles(causal, seg_cpu if seg is not None else None, t)
-    if seg is None:
-        want_tiles *= b
-    assert visits.tolist() == [want_tiles] * 3
+    want_tiles = flash.kernel_visits(causal, seg_cpu if seg is not None else None, t, 256, h, b)
+    assert visits.tolist() == want_tiles
 
 
 def _wide_mixing(dev, b, n, per_row, seed=7):
@@ -1382,3 +1377,90 @@ def test_tiny_long_context_hybrid_lm_through_the_kernels(dev):
     counts = kernels.launch_counts()
     assert torch.isfinite(torch.as_tensor(float(metrics["loss"])))
     assert counts["flash_attention_masked_bwd"] == 1 and counts["mix_states_wide_bwd"] == 1
+
+
+# (rows of a, N, K, register A operand) of mhla_wgmma_check's layouts
+# (csrc/hopper_check.cu): the products K9 and K9b run
+_WGMMA_LAYOUTS = [(128, 128, 128, False), (128, 64, 256, False), (128, 64, 128, False),
+                  (64, 128, 128, False), (64, 64, 256, False), (64, 128, 128, True),
+                  (64, 256, 64, True), (64, 128, 64, True)]
+
+
+@pytest.mark.parametrize("layout", range(len(_WGMMA_LAYOUTS)))
+def test_wgmma_over_tma_tiles_matches_matmul(dev, layout):
+    """One wgmma product over TMA-loaded, 128-byte-swizzled tiles for each
+    operand layout of K9 / K9b (K-major a and b; register a with b read
+    MN-major) against torch.matmul of the same bf16 values in float32."""
+    import ctypes
+
+    from mhla_tpu_torch.kernels import _build
+
+    rows, n, k, regs = _WGMMA_LAYOUTS[layout]
+    lib = _build.load()
+    lib.mhla_wgmma_check.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    lib.mhla_wgmma_check.restype = ctypes.c_int
+    a = _randn(dev, rows, k, seed=layout).to(_BF16)
+    b = _randn(dev, k, n, seed=layout + 10).to(_BF16) if regs else \
+        _randn(dev, n, k, seed=layout + 10).to(_BF16)
+    c = torch.full((64, n), float("nan"), device=dev)
+    err = lib.mhla_wgmma_check(layout, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    ref = a[rows - 64:].float() @ (b.float() if regs else b.float().T)
+    assert torch.allclose(c, ref, rtol=1e-4, atol=1e-3), (c - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("form", ["square", "cross", "ragged", "causal", "segment",
+                                  "causal_segment"])
+def test_flash_bwd_is_bit_equal_over_two_runs(dev, d, form):
+    """K9b gives the same bits twice in every form at both head dims (three
+    launches, no atomics)."""
+    tq, tk = {"square": (512, 512), "cross": (1000, 512), "ragged": (781, 33),
+              "causal": (781, 781), "segment": (1000, 1000), "causal_segment": (2048, 2048)}[form]
+    seg = None
+    if "segment" in form:
+        seg = torch.stack([_doc_ids([10, 300, 1, 333], tq), _doc_ids([tq - 1], tq)]).to(dev)
+    causal = form.startswith("causal")
+    q, do = (_randn(dev, 2, tq, 2, d, seed=s).to(_BF16) for s in (1, 4))
+    k, v = (_randn(dev, 2, tk, 2, d, seed=s).to(_BF16) for s in (2, 3))
+    out, lse = flash._flash_fwd(q, k, v, None, True, causal, seg)
+    first = flash.flash_attention_bwd(q, k, v, out, lse, do, None, causal, seg)
+    again = flash.flash_attention_bwd(q, k, v, out, lse, do, None, causal, seg)
+    assert all(torch.equal(a, g) for a, g in zip(first, again))
+    assert all(torch.isfinite(g.float()).all() for g in first)
+
+
+def test_flash_kernels_run_on_wgmma_and_tma(dev):
+    """The built library's K9 and K9b kernels hold HGMMA (wgmma) and
+    UTMALDG (TMA loads) and no HMMA (mma.sync), in every instantiation."""
+    import os
+    import shutil
+    import subprocess
+
+    from mhla_tpu_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    assert os.path.exists(tool), "cuobjdump not found"
+    sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True,
+                          check=True).stdout
+    bodies = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            bodies[name] = []
+        elif name is not None:
+            bodies[name].append(line)
+    found = {kind: 0 for kind in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                                  "flash_bwd_dq_kernel")}
+    for fn, body in bodies.items():
+        kind = next((k for k in found if k in fn), None)
+        if kind is None:
+            continue
+        text = "\n".join(body)
+        assert "HGMMA" in text and "UTMALDG" in text, fn
+        assert " HMMA" not in text, fn
+        found[kind] += 1
+    assert found == {"flash_fwd_kernel": 16, "flash_bwd_dkv_kernel": 8, "flash_bwd_dq_kernel": 8}
