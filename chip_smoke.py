@@ -20,8 +20,10 @@ exits non-zero:
              kernel launched, and chunk == recurrent: the decode-step logits
              match one full forward over prompt + generated tokens.
 5. grads   — each backward kernel (K1b-K4b) against its plain version at
-             the training shape B=8 T=2048 (timed) and at B=1 T=781 (the
-             ragged last chunk), bf16; then the gradients of fmap+RoPE and
+             the training shape B=8 T=2048 (timed; K2b beside its earlier
+             kernel's time and two einsums that add the intra terms in place,
+             bit for bit over two runs) and at B=1 T=781 (the ragged last
+             chunk), bf16; then the gradients of fmap+RoPE and
              the chunk op through the kernels against autograd of the
              plain definitions on the same CUDA tensors, at both shapes.
 6. train   — ``mhla_tpu_torch.train.lm_train.main`` trains the 340M model
@@ -57,8 +59,10 @@ exits non-zero:
              ``PackedVarlenIterator`` rows and at an unaligned length with
              arbitrary ids (lse, two K9b runs bit for bit, tiles walked against
              the rule's count); the wide K3 / K3b at N = 64, 256, 448 and 512
-             chunks (two K3b runs bit for bit); each timed beside its plain
-             version, its bound and one library call.
+             chunks (two K3b runs bit for bit) and K2b at (u)'s row of 16,384
+             tokens (two runs bit for bit); each timed beside its plain
+             version, its bound and one library call, and K2b and the wide
+             K3 / K3b beside their earlier kernels' times.
 11. ppl (long context) — ``eval.ppl_cli.main`` on the long-context hybrid
              (its json: heads of 256, 32,768 positions, 512 mixing slots;
              seeded init, bf16 compute) over 2 x 28,672 seeded tokens in
@@ -282,7 +286,28 @@ FLASH_MMA_SYNC_MS = {
     ("flash_attention[causal+segment,d256]", "B=8 T=2048 H=4 D=256"): 0.2845,
     ("flash_attention_bwd[causal+segment,d256]", "B=8 T=2048 H=4 D=256"): 1.2272,
 }
-FLASH_TIMES = {}  # this run's timed K9 / K9b forms beside FLASH_MMA_SYNC_MS
+# K2b's and the wide K3 / K3b's times with their earlier kernels (K2b on
+# WMMA fragments read from device memory, the wide forms on mma.sync over
+# cp.async), before the Hopper redesign (wgmma, TMA), by (kernel, shape tag)
+# as this script times them: the bracketed times of PERF.md section 6's table
+# (NVIDIA H100 80GB HBM3, 700.00 W), K2b's from two runs.
+CHUNK_MMA_SYNC_MS = {
+    ("chunk_states_bwd", "B=8 T=2048"): (0.4231, 0.4147),
+    # N = 32: the 32-slot K3b the Hopper one replaced there (float32 atomics on dM)
+    ("mix_states_bwd", "B=8 T=2048"): (0.1782,),
+    ("mix_states_bwd[per-row]", "B=8 T=2048 packed"): (0.1898,),
+    ("mix_states[wide]", "N=64"): (0.0374,),
+    ("mix_states[wide]", "N=256"): (0.1497,),
+    ("mix_states[wide]", "N=448"): (0.3432,),
+    ("mix_states[wide]", "N=512"): (0.4473,),
+    ("mix_states_bwd[wide]", "N=64"): (0.0857,),
+    ("mix_states_bwd[wide]", "N=256"): (0.2594,),
+    ("mix_states_bwd[wide]", "N=448"): (0.5824,),
+    ("mix_states_bwd[wide]", "N=512"): (0.7422,),
+}
+# this run's timed K9 / K9b, K2b and wide K3 / K3b forms beside their earlier
+# kernels' times
+REDESIGN_TIMES = {}
 
 SEED = 0
 PROMPT_A, NEW_A, BATCH_A = 1984, 64, 4
@@ -301,7 +326,7 @@ KERNEL_META = {
                       "mhla_tpu/kernels/fmap_rope_pallas.py:72"),
     "chunk_output_bwd": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk_bwd.cu",
                          "mhla_tpu/kernels/mhla_chunk_pallas.py:623"),
-    "mix_states_bwd": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk_bwd.cu",
+    "mix_states_bwd": ("cuda", "mhla_tpu_torch/csrc/mhla_mix_wide.cu",
                        "mhla_tpu/kernels/mhla_chunk_pallas.py:459"),
     "chunk_states_bwd": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk_bwd.cu",
                          "mhla_tpu/kernels/mhla_chunk_pallas.py:184"),
@@ -339,7 +364,7 @@ KERNEL_META = {
                               "mhla_tpu/kernels/mhla_chunk_pallas.py:589"),
     "chunk_output_bwd[per-row]": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk_bwd.cu",
                                   "mhla_tpu/kernels/mhla_chunk_pallas.py:623"),
-    "mix_states_bwd[per-row]": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk_bwd.cu",
+    "mix_states_bwd[per-row]": ("cuda", "mhla_tpu_torch/csrc/mhla_mix_wide.cu",
                                 "mhla_tpu/kernels/mhla_chunk_pallas.py:459"),
     "flash_attention[causal]": ("cuda", "mhla_tpu_torch/csrc/flash_fwd.cu",
                                 "mhla_tpu/kernels/flash_attention.py:73"),
@@ -546,21 +571,27 @@ def check_kernel(results: dict, name: str, shape_tag: str, kern, plain, timed: b
         if library is not None:
             msg += f"  library {r['library_ms']:.4f} ms"
     log(msg)
-    if timed and name.startswith("flash_attention"):
-        log_flash_time(name, shape_tag, r)
+    if timed and (name.startswith("flash_attention") or (name, shape_tag) in CHUNK_MMA_SYNC_MS):
+        log_redesign_time(name, shape_tag, r)
 
 
-def log_flash_time(name: str, shape_tag: str, r: dict) -> None:
-    """Keep and print a timed K9 / K9b form beside its time with the earlier
-    mma.sync kernels, its bound and the library call's time, with the ratios."""
-    before, lib = FLASH_MMA_SYNC_MS.get((name, shape_tag)), r["library_ms"]
-    FLASH_TIMES[f"{name} {shape_tag}"] = {
-        "ms": r["ms"], "mma_sync_ms": before, "bound_ms": r["bound_ms"], "library_ms": lib,
-        "mma_sync_over_ms": before / r["ms"] if before else None,
+def log_redesign_time(name: str, shape_tag: str, r: dict) -> None:
+    """Keep and print a timed K9 / K9b, K2b or wide K3 / K3b form beside its
+    time with the earlier kernels, its bound and the library call's time,
+    with the ratios."""
+    flash = name.startswith("flash_attention")
+    before = (FLASH_MMA_SYNC_MS.get((name, shape_tag)),) if flash else \
+        CHUNK_MMA_SYNC_MS[(name, shape_tag)]
+    before = tuple(x for x in before if x)
+    lib = r["library_ms"]
+    REDESIGN_TIMES[f"{name} {shape_tag}"] = {
+        "ms": r["ms"], "earlier_ms": list(before), "bound_ms": r["bound_ms"], "library_ms": lib,
+        "earlier_over_ms": [x / r["ms"] for x in before],
         "bound_over_ms": r["bound_ms"] / r["ms"], "ms_over_library": r["ms"] / lib if lib else None}
-    msg = f"[flash vs mma.sync] {name} {shape_tag}: {r['ms']:.4f} ms"
-    msg += (f"; mma.sync kernels {before:.4f} ms ({before / r['ms']:.2f}x)" if before
-            else "; mma.sync kernels not timed")
+    msg = f"[vs earlier kernels] {name} {shape_tag}: {r['ms']:.4f} ms"
+    msg += ("; earlier kernels " + " / ".join(f"{x:.4f}" for x in before) + " ms (" +
+            " / ".join(f"{x / r['ms']:.2f}x" for x in before) + ")" if before
+            else "; earlier kernels not timed")
     msg += f"; bound {r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of it)"
     if lib:
         msg += f"; library {lib:.4f} ms (kernel / library {r['ms'] / lib:.2f})"
@@ -880,6 +911,30 @@ def op_grads(dev: torch.device, b: int, t: int, kernels_path: bool, seed: int = 
     return xq.grad, xk.grad, v.grad, m.grad
 
 
+def check_states_bwd(results: dict, tag: str, h: int, k4, v4, dstates4, dk_i, dv_i,
+                     timed: bool) -> None:
+    """K2b against its plain version, bit for bit over two runs; timed beside
+    its bound and the library's two einsums, each adding its intra term in
+    place (the same function: dk = v dS^T + dk_intra, dv = k dS + dv_intra)."""
+    from mhla_tpu_torch.kernels import mhla_chunk
+
+    b, n, c, hdk = k4.shape
+    dk, dv = hdk // h, v4.shape[-1] // h
+    k5, v5 = k4.view(b, n, c, h, dk), v4.view(b, n, c, h, dv)
+    ds5 = dstates4.view(b, n, h, dk, dv)
+    dki5, dvi5 = dk_i.view(b, n, c, h, dk), dv_i.view(b, n, c, h, dv)
+    run = lambda: mhla_chunk.chunk_states_bwd(k4, v4, dstates4, dk_i, dv_i, h)  # noqa: E731
+    check_kernel(results, "chunk_states_bwd", tag, run,
+                 lambda: mhla_chunk.chunk_states_bwd_plain(k4, v4, dstates4, dk_i, dv_i, h),
+                 timed,
+                 (3 * nbytes(k4, v4) + nbytes(dstates4), 4 * b * n * c * h * dk * dv,
+                  torch.bfloat16),
+                 lambda: (torch.einsum("bnchv,bnhkv->bnchk", v5, ds5).add_(dki5),
+                          torch.einsum("bnchk,bnhkv->bnchv", k5, ds5).add_(dvi5)))
+    if not all(torch.equal(x, y) for x, y in zip(run(), run())):
+        raise AssertionError(f"K2b {tag}: two runs differ")
+
+
 def phase_grads(dev: torch.device) -> dict:
     """Each backward kernel against its plain version, then the op's
     gradients through the kernels against plain autograd."""
@@ -934,15 +989,7 @@ def phase_grads(dev: torch.device) -> dict:
               (2 * nbytes(m_strict) + 3 * nbytes(states4), 4 * pairs * b * h * dk * dv, bf16),
               lambda: (torch.matmul(m_bf.T, dmixed4.view(flat)),
                        torch.einsum("bir,bjr->ij", dmixed4.view(flat), states4.view(flat))))
-        k5, v5 = k4.view(b, n, c, h, dk), v4.view(b, n, c, h, dv)
-        ds5 = dstates4.view(b, n, h, dk, dv)
-        check("chunk_states_bwd", tag,
-              lambda: mhla_chunk.chunk_states_bwd(k4, v4, dstates4, dk_i, dv_i, h),
-              lambda: mhla_chunk.chunk_states_bwd_plain(k4, v4, dstates4, dk_i, dv_i, h),
-              timed,
-              (3 * nbytes(k4, v4) + nbytes(dstates4), 4 * b * n * c * h * dk * dv, bf16),
-              lambda: (torch.einsum("bnchv,bnhkv->bnchk", v5, ds5),
-                       torch.einsum("bnchk,bnhkv->bnchv", k5, ds5)))
+        check_states_bwd(results, tag, h, k4, v4, dstates4, dk_i, dv_i, timed)
 
     for b, t in ((TRAIN_BATCH, TRAIN_SEQ), (1, 781)):
         got = op_grads(dev, b, t, kernels_path=True)
@@ -1495,7 +1542,7 @@ LONG_FWD_LAUNCHES = {
 }
 LONG_BWD_LAUNCHES = {
     "fmap_rope_bwd": 2 * LM_MHLA_LAYERS, "chunk_output_bwd": LM_MHLA_LAYERS,
-    "mix_states_wide_bwd": LM_MHLA_LAYERS, "mix_states_bwd": 0,
+    "mix_states_bwd": LM_MHLA_LAYERS,
     "chunk_states_bwd": LM_MHLA_LAYERS, "flash_attention_masked_bwd": LM_SOFTMAX_LAYERS,
     "flash_attention_bwd": 0,
 }
@@ -1507,7 +1554,7 @@ LONG_FORMS = {
     "flash_attention_bwd[causal+segment,d256]": ("train_d256_packed",
                                                  "flash_attention_masked_bwd"),
     "mix_states[wide]": ("ppl", "mix_states_wide"),
-    "mix_states_bwd[wide]": ("train_long", "mix_states_wide_bwd"),
+    "mix_states_bwd[wide]": ("train_long", "mix_states_bwd"),
 }
 
 
@@ -1699,8 +1746,20 @@ def phase_kernels_long(dev: torch.device) -> dict:
     log("[kernels long] K3b wide: two runs equal bit for bit at every N")
     results["mix_wide_times"] = mix_times
 
-    # the wide forms against the 32-slot ones at the 340M's N = 32: serving
-    # 4 x 1984 tokens, training 8 x 2048 on token and on packed rows
+    # K2b at (u)'s row: 256 chunks of one 16,384-token row, 4 heads of 128 | 256
+    n, h = LONG_TRAIN_SEQ // 64, 4
+    k4, dk_i = (randn(1, n, 64, h * 128).to(bf16) for _ in range(2))
+    v4, dv_i = (randn(1, n, 64, h * 256).to(bf16) for _ in range(2))
+    ds4 = randn(1, n, h * 128, 256).to(bf16)
+    k2b = {}
+    check_states_bwd(k2b, f"B=1 T={LONG_TRAIN_SEQ}", h, k4, v4, ds4, dk_i, dv_i, True)
+    results["k2b_long"] = {key: k2b["chunk_states_bwd"][key] for key in
+                           ("ms", "plain_ms", "bound_ms", "library_ms")}
+    del k4, v4, ds4, dk_i, dv_i
+
+    # the wide K3 against the 32-slot one at the 340M's N = 32: serving 4 x
+    # 1984 tokens, training 8 x 2048 on token and on packed rows; K3b beside
+    # them (one kernel at every N)
     n, pairs = 32, 32 * 31 // 2
     forms = {}
     for b, per_row in ((4, False), (TRAIN_BATCH, False), (TRAIN_BATCH, True)):
@@ -1710,23 +1769,21 @@ def phase_kernels_long(dev: torch.device) -> dict:
         states4, dmixed4 = (randn(b, n, hdk, dv).to(bf16) for _ in range(2))
         fwd_work = (nbytes(m_strict) + 2 * nbytes(states4), 2 * pairs * b * r, bf16)
         bwd_work = (2 * nbytes(m_strict) + 3 * nbytes(states4), 4 * pairs * b * r, bf16)
-        row = {}
-        for label, fwd, bwd in (
-                ("32-slot", mhla_chunk.mix_states, mhla_chunk.mix_states_bwd),
-                ("wide", mhla_chunk._mix_states_wide, mhla_chunk._mix_states_wide_bwd)):
-            times = {}
+        times, row = {}, {}
+        for label, fwd in (("32-slot", mhla_chunk.mix_states),
+                           ("wide", mhla_chunk._mix_states_wide)):
             check_kernel(times, "K3", f"N=32 B={b} {label}", lambda: fwd(m_strict, states4),
                          lambda: mhla_chunk.mix_states_plain(m_strict, states4), True, fwd_work)
-            check_kernel(times, "K3b", f"N=32 B={b} {label}",
-                         lambda: bwd(m_strict, dmixed4, states4),
-                         lambda: mhla_chunk.mix_states_bwd_plain(m_strict, dmixed4, states4),
-                         True, bwd_work)
-            row[label] = {kind: times[kind]["ms"] for kind in ("K3", "K3b")}
+            row[f"K3 {label}"] = times["K3"]["ms"]
+        check_kernel(times, "K3b", f"N=32 B={b}",
+                     lambda: mhla_chunk.mix_states_bwd(m_strict, dmixed4, states4),
+                     lambda: mhla_chunk.mix_states_bwd_plain(m_strict, dmixed4, states4),
+                     True, bwd_work)
+        row["K3b"] = times["K3b"]["ms"]
         key = f"B={b} {'per-row' if per_row else 'shared'} M"
         forms[key] = row
-        log(f"[kernels long] N=32 {key}: K3 32-slot {row['32-slot']['K3']:.4f} ms, wide "
-            f"{row['wide']['K3']:.4f} ms; K3b 32-slot {row['32-slot']['K3b']:.4f} ms, wide "
-            f"{row['wide']['K3b']:.4f} ms")
+        log(f"[kernels long] N=32 {key}: K3 32-slot {row['K3 32-slot']:.4f} ms, wide "
+            f"{row['K3 wide']:.4f} ms; K3b {row['K3b']:.4f} ms")
         del states4, dmixed4
     results["mix_n32_times"] = forms
     torch.cuda.empty_cache()
@@ -3058,8 +3115,8 @@ def main() -> None:
                     "ppl_long": ppl, "serve_long": serve_long, "train_long": train_long,
                     "train_hybrid_d256_packed": train_d256_packed,
                     "tile_walks_d256": kern["walks_d256"], "mix_wide": kern["mix_wide_times"],
-                    "mix_n32": kern["mix_n32_times"],
-                    "flash_d256_times": kern["flash_d256_times"], "flash_vs_mma_sync": FLASH_TIMES,
+                    "mix_n32": kern["mix_n32_times"], "k2b_long": kern["k2b_long"],
+                    "flash_d256_times": kern["flash_d256_times"], "vs_earlier_kernels": REDESIGN_TIMES,
                     "flash_d256_unmasked": {name: kern[name] for name in (
                         "flash_attention[d256]", "flash_attention_bwd[d256]")},
                     "serve_gdn": serve_gdn["rates"], "train_gdn": train_gdn,

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): mbarriers, TMA tile loads through tensor
+// (flash_fwd.cu, flash_bwd.cu), K2b (mhla_chunk_bwd.cu) and the wide K3 /
+// K3b (mhla_mix_wide.cu): mbarriers, TMA tile loads through tensor
 // maps, wgmma products with their shared-memory descriptors and fences,
 // named barriers and setmaxnreg. The kernels' tiles live in shared memory
 // in the layout a TMA load with 128-byte swizzle writes: a [rows][D] bf16
@@ -15,7 +16,9 @@
 // - MN-major (the K index runs down the rows: v for P v, where the keys are
 //   the K index and the head dim is N): k-step s starts at row 16 s of panel
 //   0; the N index crosses panels, rows * 128 bytes apart (leading offset);
-//   8-row groups along K 1024 bytes apart (stride offset).
+//   8-row groups along K 1024 bytes apart (stride offset). An A operand
+//   read MN-major (M^T from M's rows) takes the same descriptor, its 64
+//   rows being one panel's columns.
 // The float32 accumulator of m64nN is N / 8 tiles of 4 registers a thread:
 // in warp w of the warpgroup, lane l holds tile i's rows 16 w + l / 4 (regs
 // 0, 1) and + 8 (regs 2, 3), columns 8 i + 2 (l % 4) and + 1: the layout of
@@ -29,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace hopper {
 
@@ -111,14 +116,56 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// Load rows [t0, t0 + rows) of head h, batch row b of a [B, T, H, D] map
-// (box 64 x 1 x rows x 1) into a tile of D / 64 panels at ``dst``.
+// Load columns [c0, c0 + kCols) of rows [t0, t0 + rows) of head h, batch
+// row b of a [B, T, H, D] map (box 64 x 1 x rows x 1) into a tile of
+// kCols / 64 panels at ``dst``.
+template <int kCols, int kRows>
+__device__ __forceinline__ void tma_load_cols(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int c0, int t0, int h, int b) {
+#pragma unroll
+  for (int p = 0; p < kCols / 64; ++p)
+    tma_load_4d(static_cast<char*>(dst) + p * kRows * 128, map, bar, c0 + p * 64, h, t0, b);
+}
+
+// Store a box of a 4-D tensor map from shared memory (its coordinates
+// innermost first; parts outside the tensor are not written), as one bulk
+// group of the issuing thread.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Wait until at most N of this thread's bulk stores still read shared memory.
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until all of this thread's bulk stores are done.
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Make this thread's ordinary shared-memory writes visible to TMA.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of element (r, c) in a [rows][64] bf16 panel in the 128-byte
+// swizzle layout (the one TMA reads and writes).
+__device__ __forceinline__ int swizzle128(int r, int c) {
+  return r * 128 + ((((c * 2) >> 4) ^ (r & 7)) << 4) + ((c * 2) & 15);
+}
+
+// All D columns: a tile of D / 64 panels.
 template <int kD, int kRows>
 __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
                                               int t0, int h, int b) {
-#pragma unroll
-  for (int p = 0; p < kD / 64; ++p)
-    tma_load_4d(static_cast<char*>(dst) + p * kRows * 128, map, bar, p * 64, h, t0, b);
+  tma_load_cols<kD, kRows>(dst, map, bar, 0, t0, h, b);
 }
 
 // ---- wgmma
@@ -185,138 +232,93 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[R][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// D[64 x 64] (+)= A B: A and B from shared memory, both K-major.
+// The float32 accumulator operands of an m64nN product: N / 8 tiles of 4.
+#define HOPPER_ACC4(d, i) "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+#define HOPPER_ACC8(d)                                                                  \
+  HOPPER_ACC4(d, 0), HOPPER_ACC4(d, 1), HOPPER_ACC4(d, 2), HOPPER_ACC4(d, 3),           \
+      HOPPER_ACC4(d, 4), HOPPER_ACC4(d, 5), HOPPER_ACC4(d, 6), HOPPER_ACC4(d, 7)
+#define HOPPER_ACC16(d)                                                                 \
+  HOPPER_ACC8(d), HOPPER_ACC4(d, 8), HOPPER_ACC4(d, 9), HOPPER_ACC4(d, 10),             \
+      HOPPER_ACC4(d, 11), HOPPER_ACC4(d, 12), HOPPER_ACC4(d, 13), HOPPER_ACC4(d, 14),   \
+      HOPPER_ACC4(d, 15)
+#define HOPPER_ACC32(d)                                                                 \
+  HOPPER_ACC16(d), HOPPER_ACC4(d, 16), HOPPER_ACC4(d, 17), HOPPER_ACC4(d, 18),          \
+      HOPPER_ACC4(d, 19), HOPPER_ACC4(d, 20), HOPPER_ACC4(d, 21), HOPPER_ACC4(d, 22),   \
+      HOPPER_ACC4(d, 23), HOPPER_ACC4(d, 24), HOPPER_ACC4(d, 25), HOPPER_ACC4(d, 26),   \
+      HOPPER_ACC4(d, 27), HOPPER_ACC4(d, 28), HOPPER_ACC4(d, 29), HOPPER_ACC4(d, 30),   \
+      HOPPER_ACC4(d, 31)
+#define HOPPER_REGS32                                                                   \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "              \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define HOPPER_REGS64                                                                   \
+  HOPPER_REGS32 ", "                                                                    \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "    \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define HOPPER_REGS128                                                                  \
+  HOPPER_REGS64 ", "                                                                    \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "    \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "    \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "    \
+  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "      \
+  "%123, %124, %125, %126, %127"
+
+// D[64 x N] (+)= A B, N = 64, 128 or 256 (the accumulator's size picks it): A
+// and B from shared memory, K-major unless kTransA / kTransB is 1 (then
+// MN-major: the K index runs down the tile's rows, as desc_mnmajor describes).
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
-        , "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-        , "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
-        , "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        , "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3])
-        , "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3])
-        , "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3])
-        , "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HOPPER_REGS32
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : HOPPER_ACC8(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
-// D[64 x 128] (+)= A B: A and B from shared memory, both K-major.
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
-        , "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-        , "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
-        , "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        , "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3])
-        , "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3])
-        , "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3])
-        , "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        , "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3])
-        , "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
-        , "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3])
-        , "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
-        , "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3])
-        , "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3])
-        , "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3])
-        , "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" HOPPER_REGS64
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : HOPPER_ACC16(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
-// D[64 x 128] (+)= A B: A from registers (the m64k16 A fragments), B from
-// shared memory, MN-major (its rows are the K index).
+template <int kTransA = 0, int kTransB = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32][4], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" HOPPER_REGS128
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : HOPPER_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// D[64 x N] (+)= A B, N = 128 or 256: A from registers (the m64k16 A
+// fragments), B from shared memory, MN-major (its rows are the K index).
 __device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[4],
                                          uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" HOPPER_REGS64
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
-        , "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-        , "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
-        , "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        , "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3])
-        , "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3])
-        , "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3])
-        , "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        , "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3])
-        , "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
-        , "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3])
-        , "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
-        , "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3])
-        , "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3])
-        , "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3])
-        , "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : HOPPER_ACC16(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
-// D[64 x 256] (+)= A B: A from registers (the m64k16 A fragments), B from
-// shared memory, MN-major (its rows are the K index).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32][4], const uint32_t (&a)[4],
                                          uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" HOPPER_REGS128
       "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
-        , "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-        , "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
-        , "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        , "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3])
-        , "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3])
-        , "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3])
-        , "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        , "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3])
-        , "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
-        , "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3])
-        , "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
-        , "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3])
-        , "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3])
-        , "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3])
-        , "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        , "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3])
-        , "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3])
-        , "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3])
-        , "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3])
-        , "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3])
-        , "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3])
-        , "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3])
-        , "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
-        , "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3])
-        , "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3])
-        , "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3])
-        , "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3])
-        , "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3])
-        , "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3])
-        , "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3])
-        , "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : HOPPER_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
-
 
 }  // namespace hopper
 
@@ -357,6 +359,45 @@ static inline int make_tile_map(CUtensorMap* map, const void* base, int B, int T
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// How many blocks of ``fn`` (``threads`` threads, ``smem`` bytes of dynamic
+// shared memory) the current device holds at once, its SMs times the blocks
+// an SM takes, into *blocks, after raising ``fn``'s shared-memory limit to
+// at least ``smem``. The limit is only ever raised (to the largest size asked
+// of ``fn`` on the device so far), so a size met before stays launchable
+// whatever was asked in between. Asked of the runtime once per kernel, device
+// and size and kept, so a launch of a persistent grid pays for neither again.
+// Returns a cudaError_t.
+static inline int resident_blocks(const void* fn, int threads, int smem, int* blocks) {
+  struct Entry {
+    const void* fn;
+    int dev, smem, blocks;
+  };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int cached = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < cached; ++i)
+    if (cache[i].fn == fn && cache[i].dev == dev && cache[i].smem == smem) {
+      *blocks = cache[i].blocks;
+      return 0;
+    }
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess && attr.maxDynamicSharedSizeBytes < smem)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  *blocks = sms * per_sm;
+  if (cached < 64) cache[cached++] = {fn, dev, smem, *blocks};
+  return 0;
 }
 
 }  // namespace hopper_host

@@ -1,6 +1,6 @@
 // One-tile checks of the wgmma operand layouts of hopper.cuh over tiles
-// loaded by TMA, for each layout the flash-attention kernels use; the card
-// tests hold each against torch.matmul. A wrong descriptor offset, swizzle
+// loaded by TMA, for each layout the flash-attention kernels, K2b and the
+// wide K3 / K3b use; the card tests hold each against torch.matmul. A wrong descriptor offset, swizzle
 // or fragment order gives a wrong product here, where it is one product and
 // not one step of a softmax.
 
@@ -104,6 +104,45 @@ rs_check_kernel(const bf16* __restrict__ a, const __grid_constant__ CUtensorMap 
   store_c<N>(c, acc);
 }
 
+// C[64 x N] = A B with both operands in shared memory in either form: A
+// K-major [64][K] or (kTransA) MN-major [K][64] (M^T read from M's rows);
+// B K-major [N][K] or (kTransB) MN-major [K][N].
+template <int kTransA, int kTransB, int N, int K>
+__global__ void __launch_bounds__(128)
+ss_t_check_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b, float* c) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* as = smem;
+  unsigned char* bs = smem + 64 * K * 2;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bs + N * K * 2);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(bar, (64 + N) * K * 2);
+    if (kTransA) tma_load_tile<64, K>(as, &map_a, bar, 0, 0, 0);
+    else tma_load_tile<K, 64>(as, &map_a, bar, 0, 0, 0);
+    if (kTransB) tma_load_tile<N, K>(bs, &map_b, bar, 0, 0, 0);
+    else tma_load_tile<K, N>(bs, &map_b, bar, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  float acc[N / 8][4];
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < K / 16; ++s)
+    wgmma_ss<kTransA, kTransB>(
+        acc, kTransA ? desc_mnmajor<K>(as) + kstep_mnmajor(s) : desc_kmajor(as, 0) + kstep_kmajor<64>(s),
+        kTransB ? desc_mnmajor<K>(bs) + kstep_mnmajor(s) : desc_kmajor(bs, 0) + kstep_kmajor<N>(s),
+        s > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+  store_c<N>(c, acc);
+}
+
 template <int kARows, int N, int K>
 int launch_ss(const void* a, const void* b, float* c, cudaStream_t stream) {
   CUtensorMap ma, mb;
@@ -131,6 +170,23 @@ int launch_rs(const void* a, const void* b, float* c, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int kTransA, int kTransB, int N, int K>
+int launch_ss_t(const void* a, const void* b, float* c, cudaStream_t stream) {
+  CUtensorMap ma, mb;
+  int err = kTransA ? hopper_host::make_tile_map(&ma, a, 1, K, 1, 64, K)
+                    : hopper_host::make_tile_map(&ma, a, 1, 64, 1, K, 64);
+  if (!err)
+    err = kTransB ? hopper_host::make_tile_map(&mb, b, 1, K, 1, N, K)
+                  : hopper_host::make_tile_map(&mb, b, 1, N, 1, K, N);
+  if (err) return err;
+  const int smem = (64 + N) * K * 2 + 1024 + 64;
+  auto kern = ss_t_check_kernel<kTransA, kTransB, N, K>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<1, 128, smem, stream>>>(ma, mb, c);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ``layout`` picks the product (the kernels that use it in brackets):
@@ -142,7 +198,14 @@ int launch_rs(const void* a, const void* b, float* c, cudaStream_t stream) {
 //   5: rs, a [64][128], b [128][128]                   (K9 P V, K9b's dV, dK at D = 128)
 //   6: rs, a [64][64], b [64][256]                     (K9 P V, K9b's three at D = 256)
 //   7: rs, a [64][64], b [64][128]                     (K9b's dQ at D = 128)
-// c gets the float32 [64 x N] product. Returns a cudaError_t.
+//   8: ss, a [64][128], b [128][128] MN-major          (K2b's dv at Dk = 128)
+//   9: ss, a [64][256], b [256][128] MN-major          (K2b's dv at Dk = 256)
+//  10: ss, a [64][128], b [256][128]                   (K2b's dk at Dk = 256)
+//  11: ss, a [64][64] MN-major, b [64][64] MN-major    (wide dS, 128 columns)
+//  12: ss, a [64][64] MN-major, b [64][128] MN-major   (wide dS, 256 columns)
+//  13: ss, a [64][64], b [64][64] MN-major             (wide K3, 128 columns)
+// An MN-major a [K][64] gives A = a^T; an MN-major b [K][N] gives B = b
+// (else B = b^T). c gets the float32 [64 x N] product. Returns a cudaError_t.
 extern "C" int mhla_wgmma_check(int layout, const void* a, const void* b, float* c,
                                 void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
@@ -155,6 +218,12 @@ extern "C" int mhla_wgmma_check(int layout, const void* a, const void* b, float*
     case 5: return launch_rs<128, 128>(a, b, c, s);
     case 6: return launch_rs<256, 64>(a, b, c, s);
     case 7: return launch_rs<128, 64>(a, b, c, s);
+    case 8: return launch_ss_t<0, 1, 128, 128>(a, b, c, s);
+    case 9: return launch_ss_t<0, 1, 128, 256>(a, b, c, s);
+    case 10: return launch_ss_t<0, 0, 256, 128>(a, b, c, s);
+    case 11: return launch_ss_t<1, 1, 64, 64>(a, b, c, s);
+    case 12: return launch_ss_t<1, 1, 128, 64>(a, b, c, s);
+    case 13: return launch_ss_t<0, 1, 64, 64>(a, b, c, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,21 +9,21 @@
 //                            dk_intra = dA^T q
 //                            dmixed   = q^T dO                  [Dk, Dv]
 //                            d md[n] += sum(dP * A)             over B, H
-//   K3b mix_states_bwd     dS_j = sum_{i>j} Ms[i, j] dmixed_i
-//                          dMs[i, j] += <dmixed_i, S_j>  (i > j), over B, H*Dk*Dv
 //   K2b chunk_states_bwd   dk = v dS^T + dk_intra,  dv = k dS + dv_intra
 //
+// K3b between them, dS_j = sum_{i>j} Ms[i, j] dmixed_i and dMs[i, j] =
+// <dmixed_i, S_j>, is csrc/mhla_mix_wide.cu's at every N.
+//
 // All products accumulate in float32 from bf16 operands; dA, dq, dk, dv,
-// dmixed, dS and the intra terms are rounded to bf16, the rounding points of
-// the JAX backward (mhla_tpu/kernels/mhla_chunk_pallas.py:623-707, 459-534,
-// 184-207). d md and dMs stay float32.
+// dmixed and the intra terms are rounded to bf16, the rounding points of the
+// JAX backward (mhla_tpu/kernels/mhla_chunk_pallas.py:623-707, 184-207). d md
+// stays float32.
 //
 // Layout as in csrc/mhla_chunk.cu: token tensors [B, N, C, H*D], states,
-// mixed and their gradients [B, N, H*Dk, Dv]. Ms and md are shared by the
-// batch or one per batch row (packed varlen rows); then d md is [B, N] (K4b
-// sums over heads only) and dMs [B, N, N] (K3b's blocks each work on one
-// batch row and add into that row's matrix), as the JAX kernels give dM a
-// batch index (_dm_pallas(batched=True), mhla_chunk_pallas.py:422).
+// mixed and their gradients [B, N, H*Dk, Dv]. md is shared by the batch or
+// one per batch row (packed varlen rows); then d md is [B, N] (K4b sums over
+// heads only), as the JAX kernels give it a batch index
+// (mhla_chunk_pallas.py:726).
 //
 // What each kernel replaces, what bounds it on the H100 and what the design
 // does about it:
@@ -43,35 +43,42 @@
 //   shared memory and adds it with one float32 atomicAdd, so the sum's order
 //   (not its terms) changes from run to run.
 //
-// K3b replaces _mix_bwd_fused_kernel (mhla_chunk_pallas.py:459) and the math
-//   of its fallbacks, _mix_kernel in its upper form (:293) and _dm_kernel
-//   (:394): one pass over dmixed gives both dS and dMs.
-//   Bound: bytes. It reads dmixed and the states once (134 MB at the
-//   training shape) and writes dS (67 MB); dMs is an [N, N] reduction over
-//   B*H*Dk*Dv = 8 * 2^17 values per entry.
-//   Design: a block walks slabs of 256 state columns of one batch row,
-//   staging the N x 256 slabs of dmixed and S in shared memory. Each thread
-//   forms dS for one column from the slab (the zero upper triangle of Ms is
-//   never read); the warps accumulate D S^T for the slab on the tensor cores
-//   (WMMA, 16x16 tiles of the 32x32 slot matrix, the upper tile skipped) in
-//   fragments that persist across the block's slabs. At the end each block
-//   adds its [N, N] strict lower partial with float32 atomicAdd, one per
-//   entry, so the sum over blocks runs in no fixed order.
-//
 // K2b replaces _phase_a_bwd_acc_kernel (mhla_chunk_pallas.py:184) and
 //   _phase_a_bwd_kernel (:142), which is the same kernel without the added
 //   intra terms.
 //   Bound: bytes. It reads k/v (50 MB), dS (67 MB) and the intra terms
-//   (50 MB) and writes dk/dv (50 MB) for ~8.6 GFLOP at the training shape.
-//   Design: one block per (chunk, head); each warp owns 16x16 output tiles
-//   of dk and dv, reduces on the tensor cores reading its fragments from
-//   global memory, and adds the bf16 intra term while rounding the tile.
+//   (50 MB) and writes dk/dv (50 MB) for ~8.6 GFLOP at the training shape:
+//   0.065 ms at 3.35 TB/s.
+//   Design (Hopper, hopper.cuh): a persistent grid, one block of three
+//   warpgroups on each SM, walks the work items (64 rows of a chunk, head)
+//   in a fixed order. Warpgroup 0 is the producer: one thread loads the
+//   item's k tile [64, Dk] by TMA into one of two k buffers, then for each
+//   128-column piece of Dv the v piece [64, 128] and the dS piece [Dk, 128]
+//   into a ring of stages (4 at Dk = 128: 48 KB each), every tile read
+//   once from device memory in the 128-byte swizzle. Splitting dS by Dv
+//   keeps a stage small enough for a deep ring (two 112 KB stages of whole
+//   items would leave no room to stage anything else) and bounds both
+//   accumulators at 64 float32 registers at Dk = 128. Warpgroup 1 forms dk
+//   = v dS^T (wgmma m64nDk, A = v and B = dS both K-major over the piece),
+//   summed over the pieces in registers; warpgroup 2 forms dv = k dS one
+//   piece at a time (m64n128, A = k K-major, B = dS MN-major). Each
+//   consumer loads its bf16 intra terms into registers before it waits for
+//   the stage, releases the stage as soon as its products are done, adds
+//   the intra terms in float32 and rounds once to bf16 in the accumulator
+//   layout, so the next tiles land while it stores. No atomics: the same
+//   bits from run to run. Chunks of any multiple of 16: an item is 64 rows
+//   of one chunk; rows past the chunk are loaded (the next chunk's, or
+//   zeros past the tensor) and neither read for intra terms nor stored.
+//   Key head dims of any multiple of 16 up to 256 run on the tile width kDk
+//   = 64, 128 or 256 just above: the tensor maps end at the head's Dk, so
+//   TMA fills k's columns and dS's rows past it with zeros, which add
+//   nothing to dv, and dk's columns past it are neither read nor stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
 
+#include "hopper.cuh"
+
+using namespace hopper;
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
@@ -80,9 +87,6 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kFrag = 16;      // WMMA tile: m = n = k = 16 for bf16
-constexpr int kMaxSlots = 32;  // K3b: chunk slots (two 16-row WMMA tiles)
-constexpr int kSlab = 256;     // K3b: state columns per slab, one per thread
-constexpr int kMixBlocks = 528;  // K3b: 4 blocks on each of the H100's 132 SMs
 
 typedef wmma::fragment<wmma::accumulator, kFrag, kFrag, kFrag, float> Acc;
 typedef wmma::fragment<wmma::matrix_a, kFrag, kFrag, kFrag, bf16, wmma::row_major> ARow;
@@ -90,26 +94,17 @@ typedef wmma::fragment<wmma::matrix_a, kFrag, kFrag, kFrag, bf16, wmma::col_majo
 typedef wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, bf16, wmma::row_major> BRow;
 typedef wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, bf16, wmma::col_major> BCol;
 
-// Round a 16x16 fp32 accumulator, plus the bf16 tile `add` (row stride
-// ld_add) when it is not null, to bf16 and write it to dst (row stride ld)
-// through the warp's staging tile, 16 bytes per lane.
+// Round a 16x16 fp32 accumulator to bf16 and write it to dst (row stride
+// ld) through the warp's staging tile, 16 bytes per lane.
 __device__ __forceinline__ void store_tile_bf16(const Acc& acc, float* stage, bf16* dst,
-                                                int64_t ld, const bf16* add,
-                                                int64_t ld_add) {
+                                                int64_t ld) {
   wmma::store_matrix_sync(stage, acc, kFrag, wmma::mem_row_major);
   __syncwarp();
   const int lane = threadIdx.x & 31;
   const int r = lane >> 1, c0 = (lane & 1) * 8;
-  float extra[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (add != nullptr) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(add + r * ld_add + c0);
-    const bf16* a = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) extra[i] = __bfloat162float(a[i]);
-  }
   __align__(16) bf16 vals[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) vals[i] = __float2bfloat16(stage[r * kFrag + c0 + i] + extra[i]);
+  for (int i = 0; i < 8; ++i) vals[i] = __float2bfloat16(stage[r * kFrag + c0 + i]);
   *reinterpret_cast<uint4*>(dst + r * ld + c0) = *reinterpret_cast<const uint4*>(vals);
   __syncwarp();
 }
@@ -209,7 +204,7 @@ chunk_output_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < acc.num_elements; ++i) acc.x[i] *= mdn;
     store_tile_bf16(acc, stage[warp], dv_i + bn * C * ldv + h * Dv + fm * kFrag * ldv + fn * kFrag,
-                    ldv, nullptr, 0);
+                    ldv);
   }
 
   // 4. dq = dA k + dO mixed^T and 5. dk_intra = dA^T q  [C, Dk]
@@ -234,7 +229,7 @@ chunk_output_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         wmma::mma_sync(acc, a, b, acc);
       }
       store_tile_bf16(acc, stage[warp], dq + bn * C * ldk + h * Dk + fm * kFrag * ldk + fn * kFrag,
-                      ldk, nullptr, 0);
+                      ldk);
     } else {
       for (int kk = fm * kFrag; kk < C; kk += kFrag) {  // dA^T is zero below the diagonal
         ACol a;  // A = dA^T: element (m, kk) = dA[kk][m]
@@ -244,8 +239,7 @@ chunk_output_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         wmma::mma_sync(acc, a, b, acc);
       }
       store_tile_bf16(acc, stage[warp],
-                      dk_i + bn * C * ldk + h * Dk + fm * kFrag * ldk + fn * kFrag, ldk,
-                      nullptr, 0);
+                      dk_i + bn * C * ldk + h * Dk + fm * kFrag * ldk + fn * kFrag, ldk);
     }
   }
 
@@ -262,142 +256,216 @@ chunk_output_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wmma::load_matrix_sync(b, doc + kk * ldv + fn * kFrag, (unsigned)ldv);
       wmma::mma_sync(acc, a, b, acc);
     }
-    store_tile_bf16(acc, stage[warp], dmc + (int64_t)fm * kFrag * Dv + fn * kFrag, Dv, nullptr,
-                    0);
+    store_tile_bf16(acc, stage[warp], dmc + (int64_t)fm * kFrag * Dv + fn * kFrag, Dv);
   }
 }
 
-// K3b. Shared m: grid (min(slabs, kMixBlocks)); each block walks slabs
-// s = blockIdx.x, blockIdx.x + gridDim.x, ... of kSlab columns over all batch
-// rows (n_slabs = B * slabs_per_row). Per-row m (m_bstride = N*N): grid
-// (blocks per row, B); block row blockIdx.y walks the slabs of batch row
-// blockIdx.y only (n_slabs = slabs_per_row) and reads and writes that row's
-// matrices. m: [N, N] or [B, N, N] fp32 (read below the diagonal only, its
-// values taken at bf16 as the wide form takes them); dmix,
-// st, ds: [B, N, R]; dm: m's shape, fp32 zeroed by the caller, accumulated
-// atomically below the diagonal.
-__global__ void __launch_bounds__(kThreads)
-mix_states_bwd_kernel(const float* __restrict__ m, const bf16* __restrict__ dmix,
-                      const bf16* __restrict__ st, bf16* __restrict__ ds,
-                      float* __restrict__ dm, int N, int64_t R, int64_t slabs_per_row,
-                      int64_t n_slabs, int64_t m_bstride) {
-  m += blockIdx.y * m_bstride;
-  dm += blockIdx.y * m_bstride;
-  __shared__ float ms[kMaxSlots * kMaxSlots];
-  __shared__ __align__(32) bf16 sd[kMaxSlots * kSlab];
-  __shared__ __align__(32) bf16 ss[kMaxSlots * kSlab];
-  __shared__ __align__(32) float part[kWarps][kFrag * kFrag];
-  const int warp = threadIdx.x >> 5;
-  for (int e = threadIdx.x; e < kMaxSlots * kMaxSlots; e += blockDim.x) {
-    const int i = e / kMaxSlots, j = e % kMaxSlots;
-    ms[e] = (i < N && j < i) ? __bfloat162float(__float2bfloat16(m[i * N + j])) : 0.f;
-  }
-  // slot rows N..31 stay zero for every slab
-  for (int e = threadIdx.x; e < (kMaxSlots - N) * kSlab; e += blockDim.x) {
-    sd[N * kSlab + e] = __float2bfloat16(0.f);
-    ss[N * kSlab + e] = __float2bfloat16(0.f);
-  }
-  // warps 0-3 and 4-7 each own the tiles (0,0), (0,1), (1,0), (1,1) of the
-  // 32x32 slot matrix for one half of the slab; (0,1) is above the diagonal
-  const int tile = warp & 3, ti = tile >> 1, tj = tile & 1, half = warp >> 2;
-  const bool active = tile != 1 && ti * kFrag < N;
-  Acc acc;
-  wmma::fill_fragment(acc, 0.0f);
+// K2b geometry at key tile width kDk (64, 128 or 256): 64-row items, Dv in
+// pieces of 128 columns, as many ring stages as fit beside two k buffers.
+template <int kDk>
+struct StatesBwdGeom {
+  static constexpr int kRows = 64;     // chunk rows per item (wgmma's M)
+  static constexpr int kPiece = 128;   // Dv columns per stage
+  static constexpr int kKBytes = kRows * kDk * 2;
+  static constexpr int kVBytes = kRows * kPiece * 2;
+  static constexpr int kSBytes = kDk * kPiece * 2;
+  static constexpr int kStageBytes = kVBytes + kSBytes;
+  static constexpr int kFit = (232448 - 1024 - 256 - 2 * kKBytes) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kSmem = 2 * kKBytes + kStages * kStageBytes + 1024 + 256;
+  static_assert(kStages >= 2, "K2b needs two stages");
+};
 
-  for (int64_t s = blockIdx.x; s < n_slabs; s += gridDim.x) {
-    const int64_t g = blockIdx.y * n_slabs + s;  // blockIdx.y is 0 when m is shared
-    const int64_t b = g / slabs_per_row;
-    const int64_t col0 = (g % slabs_per_row) * kSlab;
-    __syncthreads();  // the previous slab's readers are done
-    for (int e = threadIdx.x; e < N * (kSlab / 8); e += blockDim.x) {
-      const int row = e / (kSlab / 8), c8 = (e % (kSlab / 8)) * 8;
-      const int64_t off = (b * N + row) * R + col0 + c8;
-      *reinterpret_cast<uint4*>(sd + row * kSlab + c8) = *reinterpret_cast<const uint4*>(dmix + off);
-      *reinterpret_cast<uint4*>(ss + row * kSlab + c8) = *reinterpret_cast<const uint4*>(st + off);
-    }
-    __syncthreads();
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
-    // dS_j = sum_{i>j} Ms[i, j] dmixed_i for this thread's column
-    const int col = threadIdx.x;
-    float d[kMaxSlots];
+// Round acc + add (the bf16 pairs of the same fragment positions) to bf16 and
+// store rows r0 and r0 + 8 (those below ``rows``) and the columns below
+// ``cols`` (even) of a [64 x kN] tile whose row r starts at out + r * ld.
+template <int kN>
+__device__ __forceinline__ void store_tile(bf16* out, int64_t ld, int r0, int rows, int cols,
+                                           const float (&acc)[kN / 8][4],
+                                           const uint32_t (&add)[kN / 8][2]) {
+  const int tg = threadIdx.x & 3;
 #pragma unroll
-    for (int i = 0; i < kMaxSlots; ++i) d[i] = __bfloat162float(sd[i * kSlab + col]);
-#pragma unroll
-    for (int j = 0; j < kMaxSlots; ++j) {
-      if (j < N) {
-        float a = 0.f;
-#pragma unroll
-        for (int i = j + 1; i < kMaxSlots; ++i) a = fmaf(ms[i * kMaxSlots + j], d[i], a);
-        ds[(b * N + j) * R + col0 + col] = __float2bfloat16(a);
-      }
-    }
-
-    // dMs partial: D S^T over this warp's half of the slab
-    if (active) {
-      for (int kk = half * (kSlab / 2); kk < (half + 1) * (kSlab / 2); kk += kFrag) {
-        ARow a;
-        BCol bt;  // B = S^T: element (kk, j) = S[j][kk], column-major with ld kSlab
-        wmma::load_matrix_sync(a, sd + ti * kFrag * kSlab + kk, (unsigned)kSlab);
-        wmma::load_matrix_sync(bt, ss + tj * kFrag * kSlab + kk, (unsigned)kSlab);
-        wmma::mma_sync(acc, a, bt, acc);
-      }
-    }
+  for (int i = 0; i < kN / 8; ++i) {
+    const int c = i * 8 + tg * 2;
+    if (c >= cols) continue;
+    const float2 a0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&add[i][0]));
+    const float2 a1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&add[i][1]));
+    if (r0 < rows)
+      *reinterpret_cast<uint32_t*>(out + r0 * ld + c) =
+          pack_bf16(acc[i][0] + a0.x, acc[i][1] + a0.y);
+    if (r0 + 8 < rows)
+      *reinterpret_cast<uint32_t*>(out + (r0 + 8) * ld + c) =
+          pack_bf16(acc[i][2] + a1.x, acc[i][3] + a1.y);
   }
+}
 
-  wmma::store_matrix_sync(part[warp], acc, kFrag, wmma::mem_row_major);
+// The bf16 pairs at the accumulator positions of rows r0, r0 + 8 (zeros at
+// and past ``rows``, and at and past column ``cols``) of a [64 x kN] tile at
+// src (row stride ld).
+template <int kN>
+__device__ __forceinline__ void load_tile(uint32_t (&add)[kN / 8][2], const bf16* src,
+                                          int64_t ld, int r0, int rows, int cols) {
+  const int tg = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < kN / 8; ++i) {
+    const int c = i * 8 + tg * 2;
+    if (c >= cols) {
+      add[i][0] = add[i][1] = 0u;
+      continue;
+    }
+    add[i][0] = r0 < rows ? *reinterpret_cast<const uint32_t*>(src + r0 * ld + c) : 0u;
+    add[i][1] = r0 + 8 < rows ? *reinterpret_cast<const uint32_t*>(src + (r0 + 8) * ld + c) : 0u;
+  }
+}
+
+// K2b. Persistent grid of at most one block per SM, 384 threads, dynamic
+// shared memory StatesBwdGeom<kDk>::kSmem. Item i = ((bn * row_tiles + rt)
+// * H + h): rows [64 rt, 64 rt + 64) of chunk bn (of the B*N) and head h.
+// Maps: k and v as [1, bn * C, H, D] (boxes of 64 rows), dS as [bn * H,
+// Dk, 1, Dv] (boxes of kDk rows), both ending at the head dim Dk <= kDk.
+// dk_i, dk: [bn, C, H*Dk]; dv_i, dv: [bn, C, H*Dv].
+template <int kDk>
+__global__ void __launch_bounds__(384, 1)
+chunk_states_bwd_kernel(const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_ds,
+                        const bf16* __restrict__ dk_i, const bf16* __restrict__ dv_i,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int C, int H, int Dk,
+                        int Dv, int row_tiles, int items) {
+  typedef StatesBwdGeom<kDk> G;
+  constexpr int kStages = G::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* kbuf = smem;                        // [2][64][kDk]
+  unsigned char* ring = smem + 2 * G::kKBytes;       // [kStages][v piece, dS piece]
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(ring + kStages * G::kStageBytes);
+  uint64_t* kempty = kfull + 2;
+  uint64_t* full = kfull + 4;
+  uint64_t* empty = full + kStages;
+  const int pieces = Dv / G::kPiece;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&kfull[i], 1);
+      mbar_init(&kempty[i], 128);  // the dv warpgroup releases a k buffer
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // both consumer warpgroups release a stage
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
-  for (int e = threadIdx.x; e < 4 * kFrag * kFrag; e += blockDim.x) {
-    const int t = e / (kFrag * kFrag), idx = e % (kFrag * kFrag);
-    const int i = (t >> 1) * kFrag + idx / kFrag, j = (t & 1) * kFrag + idx % kFrag;
-    if (t != 1 && i < N && j < i) atomicAdd(dm + i * N + j, part[t][idx] + part[t + 4][idx]);
+
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it) {
+        const int h = item % H, rest = item / H;
+        const int bn = rest / row_tiles, t0 = bn * C + (rest % row_tiles) * G::kRows;
+        const int kb = it & 1;
+        mbar_wait(&kempty[kb], ((it >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(&kfull[kb], G::kKBytes);
+        tma_load_tile<kDk, G::kRows>(kbuf + kb * G::kKBytes, &map_k, &kfull[kb], t0, h, 0);
+        for (int p = 0; p < pieces; ++p) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_arrive_expect_tx(&full[stage], G::kStageBytes);
+          unsigned char* st = ring + stage * G::kStageBytes;
+          tma_load_cols<G::kPiece, G::kRows>(st, &map_v, &full[stage], p * G::kPiece, t0, h, 0);
+          tma_load_cols<G::kPiece, kDk>(st + G::kVBytes, &map_ds, &full[stage], p * G::kPiece,
+                                        0, 0, bn * H + h);
+          if (++stage == kStages) stage = 0, phase ^= 1;
+        }
+      }
+    }
+  } else {  // the consumer warpgroups: 1 forms dk, 2 forms dv
+    regs_inc<240>();
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int r0 = (t >> 5) * 16 + ((t & 31) >> 2);  // this thread's rows r0, r0 + 8
+    const int64_t ldk = (int64_t)H * Dk, ldv = (int64_t)H * Dv;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it) {
+      const int h = item % H, rest = item / H;
+      const int rt = rest % row_tiles, bn = rest / row_tiles;
+      const int rows = min(G::kRows, C - rt * G::kRows);
+      const int64_t row0 = (int64_t)bn * C + rt * G::kRows;  // the item's first token
+      if (wg == 1) {
+        const int64_t off = row0 * ldk + h * Dk;
+        uint32_t add[kDk / 8][2];
+        load_tile<kDk>(add, dk_i + off, ldk, r0, rows, Dk);
+        float acc[kDk / 8][4];
+        for (int p = 0; p < pieces; ++p) {
+          mbar_wait(&full[stage], phase);
+          const unsigned char* st = ring + stage * G::kStageBytes;
+          const uint64_t da = desc_kmajor(st, 0), db = desc_kmajor(st + G::kVBytes, 0);
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < G::kPiece / 16; ++s)
+            wgmma_ss(acc, da + kstep_kmajor<G::kRows>(s), db + kstep_kmajor<kDk>(s),
+                     p > 0 || s > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(acc);
+          mbar_arrive(&empty[stage]);
+          if (++stage == kStages) stage = 0, phase ^= 1;
+        }
+        store_tile<kDk>(dk + off, ldk, r0, rows, Dk, acc, add);
+      } else {
+        const int kb = it & 1;
+        mbar_wait(&kfull[kb], (it >> 1) & 1);
+        const uint64_t da = desc_kmajor(kbuf + kb * G::kKBytes, 0);
+        for (int p = 0; p < pieces; ++p) {
+          const int64_t off = row0 * ldv + (int64_t)h * Dv + p * G::kPiece;
+          uint32_t add[G::kPiece / 8][2];
+          load_tile<G::kPiece>(add, dv_i + off, ldv, r0, rows, G::kPiece);
+          mbar_wait(&full[stage], phase);
+          const uint64_t db = desc_mnmajor<kDk>(ring + stage * G::kStageBytes + G::kVBytes);
+          float acc[G::kPiece / 8][4];
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < kDk / 16; ++s)
+            wgmma_ss<0, 1>(acc, da + kstep_kmajor<G::kRows>(s), db + kstep_mnmajor(s), s > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(acc);
+          mbar_arrive(&empty[stage]);
+          if (p == pieces - 1) mbar_arrive(&kempty[kb]);
+          if (++stage == kStages) stage = 0, phase ^= 1;
+          store_tile<G::kPiece>(dv + off, ldv, r0, rows, G::kPiece, acc, add);
+        }
+      }
+    }
   }
 }
 
-// K2b. grid (B*N, H). k, dk_i, dk: [B,N,C,H*Dk]; v, dv_i, dv: [B,N,C,H*Dv];
-// ds: [B,N,H*Dk,Dv].
-__global__ void __launch_bounds__(kThreads)
-chunk_states_bwd_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
-                        const bf16* __restrict__ ds, const bf16* __restrict__ dk_i,
-                        const bf16* __restrict__ dv_i, bf16* __restrict__ dk,
-                        bf16* __restrict__ dv, int C, int H, int Dk, int Dv) {
-  __shared__ __align__(32) float stage[kWarps][kFrag * kFrag];
-  const int warp = threadIdx.x >> 5;
-  const int64_t bn = blockIdx.x;
-  const int h = blockIdx.y;
-  const int64_t ldk = (int64_t)H * Dk, ldv = (int64_t)H * Dv;
-  const int64_t kbase = bn * C * ldk + h * Dk, vbase = bn * C * ldv + h * Dv;
-  const bf16* kc = k + kbase;
-  const bf16* vc = v + vbase;
-  const bf16* dsc = ds + (bn * H + h) * Dk * Dv;
-  const int ct = C / kFrag, ntk = Dk / kFrag, ntv = Dv / kFrag;
-  for (int f = warp; f < ct * (ntk + ntv); f += kWarps) {
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    if (f < ct * ntk) {  // dk = v dS^T  [C, Dk]
-      const int fm = f / ntk, fn = f % ntk;
-      for (int kk = 0; kk < Dv; kk += kFrag) {
-        ARow a;
-        BCol b;  // B = dS^T: element (kk, c) = dS[c][kk], column-major with ld Dv
-        wmma::load_matrix_sync(a, vc + fm * kFrag * ldv + kk, (unsigned)ldv);
-        wmma::load_matrix_sync(b, dsc + (int64_t)fn * kFrag * Dv + kk, (unsigned)Dv);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      const int64_t off = kbase + fm * kFrag * ldk + fn * kFrag;
-      store_tile_bf16(acc, stage[warp], dk + off, ldk, dk_i + off, ldk);
-    } else {  // dv = k dS  [C, Dv]
-      const int g = f - ct * ntk;
-      const int fm = g / ntv, fn = g % ntv;
-      for (int kk = 0; kk < Dk; kk += kFrag) {
-        ARow a;
-        BRow b;
-        wmma::load_matrix_sync(a, kc + fm * kFrag * ldk + kk, (unsigned)ldk);
-        wmma::load_matrix_sync(b, dsc + (int64_t)kk * Dv + fn * kFrag, (unsigned)Dv);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      const int64_t off = vbase + fm * kFrag * ldv + fn * kFrag;
-      store_tile_bf16(acc, stage[warp], dv + off, ldv, dv_i + off, ldv);
-    }
-  }
+template <int kDk>
+int launch_states_bwd(const void* k, const void* v, const void* ds, const void* dk_i,
+                      const void* dv_i, void* dk, void* dv, int bn, int C, int H, int Dk, int Dv,
+                      cudaStream_t stream) {
+  typedef StatesBwdGeom<kDk> G;
+  CUtensorMap mk, mv, mds;
+  int err = hopper_host::make_tile_map(&mk, k, 1, bn * C, H, Dk, G::kRows);
+  if (!err) err = hopper_host::make_tile_map(&mv, v, 1, bn * C, H, Dv, G::kRows);
+  if (!err) err = hopper_host::make_tile_map(&mds, ds, bn * H, Dk, 1, Dv, kDk);
+  if (err) return err;
+  auto kern = chunk_states_bwd_kernel<kDk>;
+  int sms = 0;  // one block an SM
+  err = hopper_host::resident_blocks((const void*)kern, 384, G::kSmem, &sms);
+  if (err) return err;
+  const int row_tiles = (C + G::kRows - 1) / G::kRows;
+  const int items = bn * row_tiles * H;
+  kern<<<items < sms ? items : sms, 384, G::kSmem, stream>>>(
+      mk, mv, mds, (const bf16*)dk_i, (const bf16*)dv_i, (bf16*)dk, (bf16*)dv, C, H, Dk, Dv,
+      row_tiles, items);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -422,28 +490,17 @@ int mhla_chunk_output_bwd(const void* q, const void* k, const void* v, const voi
   return (int)cudaGetLastError();
 }
 
-int mhla_mix_states_bwd(const void* m, const void* dmix, const void* st, void* ds, void* dm,
-                        int B, int N, long long R, long long m_bstride, void* stream) {
-  const long long slabs_per_row = R / kSlab;
-  // shared m: one row of blocks over all slabs; per-row m: a row of blocks per batch row
-  const int rows = m_bstride ? B : 1;
-  const long long n_slabs = (m_bstride ? 1LL : (long long)B) * slabs_per_row;
-  const long long per_row = kMixBlocks / rows > 0 ? kMixBlocks / rows : 1;
-  dim3 grid((unsigned)(n_slabs < per_row ? n_slabs : per_row), rows);
-  mix_states_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)m, (const bf16*)dmix, (const bf16*)st, (bf16*)ds, (float*)dm, N,
-      (int64_t)R, (int64_t)slabs_per_row, (int64_t)n_slabs, (int64_t)m_bstride);
-  return (int)cudaGetLastError();
-}
-
+// Dk % 16 == 0 with 16 <= Dk <= 256 and Dv % 128 == 0, or
+// cudaErrorInvalidValue; every pointer 16-byte aligned (TMA).
 int mhla_chunk_states_bwd(const void* k, const void* v, const void* ds, const void* dk_i,
                           const void* dv_i, void* dk, void* dv, int bn, int C, int H, int Dk,
                           int Dv, void* stream) {
-  dim3 grid(bn, H);
-  chunk_states_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)k, (const bf16*)v, (const bf16*)ds, (const bf16*)dk_i, (const bf16*)dv_i,
-      (bf16*)dk, (bf16*)dv, C, H, Dk, Dv);
-  return (int)cudaGetLastError();
+  if (bn < 1 || C < 1 || Dv < 128 || Dv % 128 || Dk < 16 || Dk > 256 || Dk % 16)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  auto launch = Dk <= 64 ? launch_states_bwd<64> : Dk <= 128 ? launch_states_bwd<128>
+                                                             : launch_states_bwd<256>;
+  return launch(k, v, ds, dk_i, dv_i, dk, dv, bn, C, H, Dk, Dv, s);
 }
 
 }  // extern "C"

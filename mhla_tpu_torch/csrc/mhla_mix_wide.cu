@@ -1,5 +1,5 @@
 // K3 and K3b for more than 32 chunk slots, for Hopper (sm_90a): the state
-// mixing of the chunked MHLA op as products on the tensor cores.
+// mixing of the chunked MHLA op as wgmma products over TMA tiles.
 //
 //   K3 wide   mixed_i = sum_{j<i} Ms[i, j] S_j                 [N, N] x [N, R]
 //   K3b wide  dS_j    = sum_{i>j} Ms[i, j] dmixed_i            [N, N]^T x [N, R]
@@ -20,252 +20,490 @@
 // other N > 32: _mix_kernel, lower form (:293) for K3; _mix_bwd_fused_kernel
 // (:459), or _mix_kernel in its upper form (:293) with _dm_kernel (:394), for
 // K3b. JAX's halving row bands (_mix_bands, :279) keep the TPU's VMEM within
-// bounds; here the skipped upper triangle does the same work.
+// bounds; here the skipped triangle does the same work.
 //
 // Bound: bytes. At N = 448 (a 28,672-token block) K3 reads and writes
 // 2 x 448 x 131,072 bf16 (235 MB) for 448^2 / 2 x 131,072 x 2 = 26 GFLOP:
-// 112 FLOP/byte, below the card's bf16 ridge (295 FLOP/byte), as long as
-// the products run on the tensor cores; in float32 FMAs it would be bound by
-// operations 8x over. K3b moves 1.5x the bytes for twice the operations.
+// 112 FLOP/byte, below the card's bf16 ridge (295 FLOP/byte). K3b reads
+// dmixed twice and S once and writes dS (268 MB at N = 256: 80 us).
 //
-// Design:
-// - M to bf16 once (mix_prep_kernel): a zero-padded [Np, Np] copy (Np = N
-//   rounded up to 64) of the strict lower triangle, or of its transpose for
-//   dS, so both products read an A operand that is zero wherever the
-//   triangle is. Exact: M's values are bf16 already.
-// - K3 and dS (mix_wide_kernel): one block of 8 warps per 128-column strip
-//   of R and batch row. The block stages its strip of all N source rows in
-//   shared memory (Np x 136 bf16, 139 KB at N = 512) by cp.async, one
-//   commit group per 64 rows, issued in the order the block consumes them;
-//   it then walks its output rows 64 at a time and waits only for the
-//   groups that row tile reads, so later rows land while earlier ones
-//   compute. Each warp owns 16 output rows x 64 columns in float32
-//   registers and runs mma.sync m16n8k16 (bf16 in, float32 out): A = M's
-//   rows read from the bf16 copy (L2-resident, 0.5 MB at N = 512; the next
-//   step's fragments are loaded before the current step's products), B =
-//   the staged rows by ldmatrix.trans. Steps wholly above the diagonal (K3)
-//   or below it (dS) are skipped. Every source element is read from device
-//   memory once and every output written once.
+// Design (hopper.cuh has the primitives):
+// - M to bf16 once (mix_prep_kernel for K3; for K3b the prologue of its
+//   Gram kernel, which runs before its dS pass): a zero-padded [Np, Np] copy
+//   (Np = N rounded up to 64) of the strict lower triangle, so every 64 x 64
+//   tile of it is zero wherever the triangle is. Exact: M's values are bf16
+//   already.
+//   K3 reads its tiles K-major (A = M); dS reads the same copy MN-major (A =
+//   M^T, wgmma's transposed A), so no transposed copy is made.
+// - K3 and dS, two kernels chosen by N, each a persistent grid over the
+//   strips of 128 state columns of each batch row whose blocks have two
+//   producer warps and two consumer warpgroups, each owning 64 columns of the
+//   output in float32 registers. A step is four wgmma m64n64k16 products, A
+//   = a 64 x 64 tile of M, B = 64 source rows read MN-major; only the tiles
+//   that can hold a nonzero coefficient (j <= i for K3, j >= i for dS) are
+//   loaded or multiplied. Every source element is read from device memory
+//   once and every output written once, by a TMA store of a tile staged in
+//   swizzled shared memory: 4-byte stores of the accumulators into rows
+//   R apart halved the byte rate.
+//   N <= 256 (mix_stream_kernel): all kT <= 4 output tiles of a strip stay
+//   in registers, so each source tile is used by every output it feeds as
+//   it arrives and its stage freed at once: a GEMM's main loop, the ring of
+//   source tiles running ahead across the strips. M's triangle (10 tiles at
+//   N = 256) stays in shared memory for all of a block's strips, loaded
+//   again only when a per-row M changes with the batch row. Timed in turns
+//   against the strip kernel run at these N, it keeps K3b's dS at N = 256
+//   7% faster (PERF.md section 6), so the two forms stay.
+//   N > 256 (mix_strip_kernel): a strip's rows stay in shared memory (Np x
+//   128 bf16: 208 KB at N = 832), two strips' worth where they fit (N <=
+//   320); the walk goes over the output tiles first to last (K3) or last to
+//   first (dS), M's tiles through a ring of stages, each released one step
+//   late so the next step's products issue before this one's finish.
 // - dMs (gram_partial_kernel, gram_reduce_kernel): a Gram product over R
-//   with fixed R slices. Each block takes one 64 x 64 tile on or below the
-//   diagonal of dMs and one slice of R, streams 64 columns of dmixed's and
-//   S's rows at a time through two cp.async buffers, and writes its float32
-//   partial tile; a second pass sums the slices (and, for a shared M, the
-//   batch rows) in a fixed order. No atomics, so dMs is the same bit for bit
-//   from run to run.
-// Not done yet: wgmma, TMA, a wider strip to halve M's reads from L2.
+//   with fixed R slices. Each block takes one 128 x 128 tile on or below
+//   the diagonal of dMs and one slice of R; a producer warp streams 64
+//   columns of dmixed's and S's 128 rows at a time by TMA through a ring of
+//   three stages and two warpgroups sum wgmma m64n128k16 products (A and B
+//   both K-major) in registers, 64 rows each, then write the float32
+//   partial tile (each stage released one step late); a second pass sums
+//   the slices (and, for a shared M, the batch rows) in a fixed order, just
+//   after the first while the partials are in L2. No atomics, so dMs is the
+//   same bit for bit from run to run. Tiles of 128 rows read each row of a
+//   slice from L2 about half as often as tiles of 64 would.
+// Not done: the Gram pass still reads 1.5x its rows from L2 at N = 256
+// (three tile pairs a slice) and takes as long as the dS pass; clusters
+// sharing a row tile by TMA multicast would cut that.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
-#include "flash_common.cuh"
-
-using namespace flash;
+using namespace hopper;
 
 namespace {
 
-constexpr int kThreads = 256;        // 8 warps: 4 row groups x 2 column halves
-constexpr int kCols = 128;           // state columns per block of the strip kernels
-constexpr int kLdS = kCols + 8;      // shared-memory row stride (elements)
-constexpr int kRowTile = 64;         // output rows per step of a strip block
-constexpr int kMaxSlotsWide = 832;   // 832 staged rows x 272 bytes = 221 KB
-constexpr int kGramThreads = 128;    // 4 warps, 16 rows of a 64 x 64 dMs tile each
-constexpr int kGramCols = 64;        // columns of R per stage of the Gram kernel
-constexpr int kLdG = kGramCols + 8;
+typedef __nv_bfloat16 bf16;
 
-// Wait until at most n of this thread's cp.async groups are in flight (n is
-// known only at run time; the instruction takes an immediate).
-__device__ __forceinline__ void cp_async_wait_dyn(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    case 7: cp_async_wait<7>(); break;
-    case 8: cp_async_wait<8>(); break;
-    case 9: cp_async_wait<9>(); break;
-    case 10: cp_async_wait<10>(); break;
-    case 11: cp_async_wait<11>(); break;
-    case 12: cp_async_wait<12>(); break;
-    default: cp_async_wait<0>(); break;
+constexpr int kThreads = 256;        // the prep and reduce kernels
+constexpr int kStripThreads = 320;   // two consumer warpgroups and two producer warps
+constexpr int kGramThreads = 288;    // two consumer warpgroups and a producer warp
+constexpr int kTile = 64;            // rows (and M columns) per tile
+constexpr int kCols = 128;           // state columns per strip
+constexpr int kTileBytes = kTile * kTile * 2;
+constexpr int kMaxSlotsWide = 832;   // 832 staged rows x 256 bytes = 208 KB
+constexpr int kMaxTiles = kMaxSlotsWide / kTile;
+constexpr int kMaxStages = 4;       // ring stages of M in the strip kernel
+constexpr int kStreamTiles = 4;     // the streamed form up to N = 256: 4 output tiles a strip
+constexpr int kSrcStages = 6;       // its ring of 16 KB source tiles
+constexpr int kStageOutBytes = 4 * kTileBytes;  // two staging panels per consumer warpgroup
+constexpr int kGramStages = 3;     // 96 KB: two Gram blocks on an SM
+constexpr int kSmemLimit = 232448;   // what a block of the H100 may use
+constexpr int kSmemExtra = 1024 + 512;  // 1024-byte alignment, mbarriers (< 60)
+
+// a[y][r][c] = bf16(m[y][r][c]) for c < r < N, 0 elsewhere in [Np, Np], for
+// the flat cells e = first, first + step, ... of the ``rows`` matrices.
+__device__ __forceinline__ void prep_cells(const float* __restrict__ m, bf16* __restrict__ a,
+                                           int N, int Np, int64_t m_bstride, int rows,
+                                           int64_t first, int64_t step) {
+  const int64_t cells = (int64_t)Np * Np;
+  for (int64_t e = first; e < rows * cells; e += step) {
+    const int64_t y = e / cells;
+    const int r = (int)(e % cells / Np), c = (int)(e % Np);
+    const float x = r < N && c < r ? m[y * m_bstride + (int64_t)r * N + c] : 0.f;
+    a[e] = __float2bfloat16(x);
   }
 }
 
-// a[y][r][c] = bf16(m[y][r][c]) for c < r < N (kUpper false) or
-// bf16(m[y][c][r]) for r < c < N (kUpper true), 0 elsewhere in [Np, Np].
-// grid (ceil(Np^2 / 256), rows); rows = B for a per-row m, else 1.
-template <bool kUpper>
+// M's bf16 copy for K3: grid (ceil(rows * Np^2 / 256)); rows = B for a
+// per-row m, else 1. (K3b makes it in the Gram kernel's prologue.)
 __global__ void __launch_bounds__(kThreads)
 mix_prep_kernel(const float* __restrict__ m, bf16* __restrict__ a, int N, int Np,
-                int64_t m_bstride) {
-  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= (int64_t)Np * Np) return;
-  const int r = (int)(e / Np), c = (int)(e % Np);
-  const float* mb = m + blockIdx.y * m_bstride;
-  float x = 0.f;
-  if (r < N && c < N) {
-    if (!kUpper && c < r) x = mb[(int64_t)r * N + c];
-    if (kUpper && c > r) x = mb[(int64_t)c * N + r];
-  }
-  a[(int64_t)blockIdx.y * Np * Np + e] = __float2bfloat16(x);
+                int64_t m_bstride, int rows) {
+  prep_cells(m, a, N, Np, m_bstride, rows, (int64_t)blockIdx.x * kThreads + threadIdx.x,
+             (int64_t)gridDim.x * kThreads);
 }
 
-// out[b, i] = sum_j a[i, j] x[b, j] over one 128-column strip of R: the
-// forward mix with a = strict lower M (rows walked first to last), or dS
-// with a = M^T strictly upper (kUpper: rows walked last to first).
-// grid (R / kCols, B); dynamic shared memory Np * kLdS * 2 bytes.
+// Source tile q of output tile J's walk: K3 takes tiles 0 .. J, dS J .. T-1;
+// the diagonal tile J, which the walk's step loads just before, comes last.
 template <bool kUpper>
-__global__ void __launch_bounds__(kThreads)
-mix_wide_kernel(const bf16* __restrict__ a, const bf16* __restrict__ x,
-                bf16* __restrict__ out, int N, int Np, int64_t R, int64_t a_bstride) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16 (*xs)[kLdS] = reinterpret_cast<bf16 (*)[kLdS]>(smem_raw);  // [Np][kLdS]
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int lrow = lane & 7, lmat = lane >> 3;
-  const int b = blockIdx.y;
-  const int64_t col0 = (int64_t)blockIdx.x * kCols;
-  const bf16* xb = x + (int64_t)b * N * R + col0;
-  bf16* ob = out + (int64_t)b * N * R + col0;
-  const bf16* ab = a + b * a_bstride;
-  const int ntiles = Np / kRowTile;
+__device__ __forceinline__ int walk_src(int J, int q, int steps) {
+  if (!kUpper) return q;
+  return q < steps - 1 ? J + 1 + q : J;
+}
 
-  // stage the strip: one commit group per 64 rows, in the order of the walk
-  for (int t = 0; t < ntiles; ++t) {
-    const int r0 = (kUpper ? ntiles - 1 - t : t) * kRowTile;
+// The slot of M's tile (row block r, column block c <= r) among the
+// triangle's tiles the streamed kernel keeps.
+__device__ __forceinline__ int tri_slot(int r, int c) { return r * (r + 1) / 2 + c; }
+
+// Round a consumer warpgroup's [64 x 64] float32 output tile to bf16 and
+// write it at (column col, row row, batch row b) of ``map`` by one TMA store
+// from its staging panel ``panel`` (8 KB, 128-byte swizzle; each warpgroup
+// alternates two, so thread 0 waits for the store two tiles back to have read
+// this one). Rows past the tensor are not written.
+__device__ __forceinline__ void store_tile_tma(const CUtensorMap* map, unsigned char* panel,
+                                               const float (&acc)[8][4], int wg, int col,
+                                               int row, int b) {
+  const int t = threadIdx.x % 128, r0 = (t >> 5) * 16 + ((t & 31) >> 2), tg = t & 3;
+  if (t == 0) tma_store_wait_read<1>();
+  named_sync(1 + wg, 128);
 #pragma unroll
-    for (int i = 0; i < kRowTile * (kCols / 8) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int r = r0 + e / (kCols / 8), c8 = (e % (kCols / 8)) * 8;
-      const bool valid = r < N;
-      cp_async16(&xs[r][c8], xb + (valid ? r : 0) * R + c8, valid);
-    }
-    cp_async_commit();
+  for (int i = 0; i < 8; ++i) {
+    const int c = i * 8 + tg * 2;
+    *reinterpret_cast<__nv_bfloat162*>(panel + swizzle128(r0, c)) =
+        __floats2bfloat162_rn(acc[i][0], acc[i][1]);
+    *reinterpret_cast<__nv_bfloat162*>(panel + swizzle128(r0 + 8, c)) =
+        __floats2bfloat162_rn(acc[i][2], acc[i][3]);
   }
+  fence_async_shared();
+  named_sync(1 + wg, 128);
+  if (t == 0) tma_store_4d(map, panel, col, 0, row, b);
+}
 
-  const int c_half = warp >> 2;  // this warp's 64 columns of the strip
-  for (int t = 0; t < ntiles; ++t) {
-    const int ti = kUpper ? ntiles - 1 - t : t;
-    cp_async_wait_dyn(ntiles - 1 - t);  // the groups of tiles 0..t have landed
-    __syncthreads();
-    const int r0 = ti * kRowTile + (warp & 3) * 16;  // this warp's 16 output rows
-    // the k range that can hold a nonzero a[r][*]: j < r (lower), j > r (upper)
-    const int k_lo = kUpper ? (r0 / 32) * 32 : 0;
-    const int k_hi = kUpper ? Np : min(Np, ((r0 + 16 + 31) / 32) * 32);
-    float acc[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    const bf16* a0p = ab + (int64_t)(r0 + g) * Np + tg * 2;
-    const bf16* a1p = a0p + 8 * (int64_t)Np;
-    // A fragments of the steps at k and k + 16, loaded one 32-step ahead
-    auto load_a = [&](uint32_t (&f)[2][4], int k) {
-      f[0][0] = ld32(a0p + k), f[0][1] = ld32(a1p + k);
-      f[0][2] = ld32(a0p + k + 8), f[0][3] = ld32(a1p + k + 8);
-      f[1][0] = ld32(a0p + k + 16), f[1][1] = ld32(a1p + k + 16);
-      f[1][2] = ld32(a0p + k + 24), f[1][3] = ld32(a1p + k + 24);
-    };
-    uint32_t af[2][4];
-    if (k_lo < k_hi) load_a(af, k_lo);
-    for (int k = k_lo; k < k_hi; k += 32) {
-      uint32_t cur[2][4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) cur[0][e] = af[0][e], cur[1][e] = af[1][e];
-      if (k + 32 < k_hi) load_a(af, k + 32);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, &xs[k + lmat * 8 + lrow][c_half * 64 + nt * 8]);
-        mma_bf16(acc[nt], cur[0], bf[0], bf[1]);
-        mma_bf16(acc[nt], cur[1], bf[2], bf[3]);
+// out[b, i] = sum_j a[i, j] x[b, j] over kCols-column strips of R for N >
+// 256: the forward mix with a = strict lower M (K3), or dS with a = M^T
+// (kUpper). A persistent grid walks the strips g = blockIdx.x, + gridDim.x,
+// ... (strip g: batch row g / strips_per_row, columns (g % strips_per_row) *
+// kCols on), kStripThreads threads, dynamic shared memory from strip_smem:
+// ``nbuf`` buffers of the strip's rows, a ring of ``mt`` stages of M's tiles
+// and, when ``staged``, the staging panels of the TMA stores. Maps: x and
+// out as [B, N, 1, R] (boxes of 64 x 64), the bf16 copy of M as [rows, Np,
+// 1, Np] (64 x 64).
+template <bool kUpper>
+__global__ void __launch_bounds__(kStripThreads, 1)
+mix_strip_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_m,
+                 const __grid_constant__ CUtensorMap map_out, bf16* __restrict__ out, int N,
+                 int Np, int64_t R, int mt, int nbuf, int staged, int m_per_row,
+                 int strips_per_row, int strips) {
+  constexpr int kHalf = kCols / 2;  // columns per consumer warpgroup
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int64_t buf_bytes = (int64_t)Np * kCols * 2;
+  unsigned char* xs = smem;                        // [nbuf][2 panels][Np][64]
+  unsigned char* ms = smem + nbuf * buf_bytes;     // [mt][64][64]
+  unsigned char* so = ms + mt * kTileBytes;        // [2 warpgroups][2][64][64] when staged
+  uint64_t* src_full = reinterpret_cast<uint64_t*>(so + staged * kStageOutBytes);  // [2][kMaxTiles]
+  uint64_t* src_empty = src_full + 2 * kMaxTiles;
+  uint64_t* full = src_empty + 2;
+  uint64_t* empty = full + kMaxStages;
+  const int tiles = Np / kTile;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < nbuf; ++i) {
+      for (int t = 0; t < tiles; ++t) mbar_init(&src_full[i * kMaxTiles + t], 1);
+      mbar_init(&src_empty[i], 256);  // every consumer thread releases a strip's rows
+    }
+    for (int s = 0; s < mt; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x == 256) {  // warp 8: the tiles of M through the ring, in the order of the walk
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int g = blockIdx.x; g < strips; g += gridDim.x) {
+      const int bm = m_per_row ? g / strips_per_row : 0;
+      for (int t = 0; t < tiles; ++t) {
+        const int J = kUpper ? tiles - 1 - t : t, steps = kUpper ? tiles - J : J + 1;
+        for (int q = 0; q < steps; ++q) {
+          const int I = walk_src<kUpper>(J, q, steps);
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_arrive_expect_tx(&full[stage], kTileBytes);
+          // K3: rows J, columns I of M; dS: rows I, columns J (read transposed)
+          tma_load_4d(ms + stage * kTileBytes, &map_m, &full[stage],
+                      (kUpper ? J : I) * kTile, 0, (kUpper ? I : J) * kTile, bm);
+          if (++stage == mt) stage = 0, phase ^= 1;
+        }
       }
     }
-    const int ra = r0 + g, rb = ra + 8;
+  } else if (threadIdx.x == 288) {  // warp 9: each strip's source rows, a buffer ahead
+    for (int g = blockIdx.x, k = 0; g < strips; g += gridDim.x, ++k) {
+      const int kb = k % nbuf, use = k / nbuf;
+      mbar_wait(&src_empty[kb], (use & 1) ^ 1);
+      const int b = g / strips_per_row;
+      const int col0 = (g % strips_per_row) * kCols;
+      for (int t = 0; t < tiles; ++t) {  // in the order of the walk
+        const int I = kUpper ? tiles - 1 - t : t;
+        uint64_t* bar = &src_full[kb * kMaxTiles + I];
+        mbar_arrive_expect_tx(bar, kTile * kCols * 2);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int c = c_half * 64 + nt * 8 + tg * 2;
-      if (ra < N)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)ra * R + c) =
-            __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
-      if (rb < N)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)rb * R + c) =
-            __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+        for (int p = 0; p < kCols / 64; ++p)
+          tma_load_4d(xs + kb * buf_bytes + ((int64_t)p * Np + I * kTile) * 128, &map_x, bar,
+                      col0 + p * 64, 0, I * kTile, b);
+      }
     }
+  } else if (threadIdx.x < 256) {  // two consumer warpgroups, kHalf columns each
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int r0 = (t >> 5) * 16 + ((t & 31) >> 2), tg = t & 3;
+    int stage = 0, stored = 0;
+    uint32_t phase = 0;
+    for (int g = blockIdx.x, k = 0; g < strips; g += gridDim.x, ++k) {
+      const int kb = k % nbuf;
+      const uint32_t src_phase = (k / nbuf) & 1;
+      const unsigned char* xw = xs + kb * buf_bytes + (int64_t)wg * (kHalf / 64) * Np * 128;
+      const int b = g / strips_per_row;
+      bf16* ob = out + (int64_t)b * N * R + (int64_t)(g % strips_per_row) * kCols + wg * kHalf;
+      for (int t2 = 0; t2 < tiles; ++t2) {
+        const int J = kUpper ? tiles - 1 - t2 : t2, steps = kUpper ? tiles - J : J + 1;
+        float acc[kHalf / 8][4];
+        int prev = -1;
+        wgmma_fence();
+        for (int q = 0; q < steps; ++q) {
+          const int I = walk_src<kUpper>(J, q, steps);
+          mbar_wait(&src_full[kb * kMaxTiles + I], src_phase);
+          mbar_wait(&full[stage], phase);
+          const unsigned char* mtile = ms + stage * kTileBytes;
+          const uint64_t da = kUpper ? desc_mnmajor<kTile>(mtile) : desc_kmajor(mtile, 0);
+          const uint64_t db = make_desc(xw + I * kTile * 128, Np * 128, 1024);
+#pragma unroll
+          for (int s = 0; s < kTile / 16; ++s)
+            wgmma_ss<kUpper ? 1 : 0, 1>(
+                acc, da + (kUpper ? kstep_mnmajor(s) : kstep_kmajor<kTile>(s)),
+                db + kstep_mnmajor(s), q > 0 || s > 0);
+          wgmma_commit();
+          wgmma_wait<1>();  // the step before this one is done: release its stage
+          if (prev >= 0) mbar_arrive(&empty[prev]);
+          prev = stage;
+          if (++stage == mt) stage = 0, phase ^= 1;
+        }
+        wgmma_wait<0>();
+        fence_acc(acc);
+        mbar_arrive(&empty[prev]);
+        if (staged) {
+          store_tile_tma(&map_out, so + (wg * 2 + (stored++ & 1)) * kTileBytes, acc, wg,
+                         (g % strips_per_row) * kCols + wg * kHalf, J * kTile, b);
+          continue;
+        }
+        const int ra = J * kTile + r0, rb = ra + 8;  // no room to stage: 4-byte stores
+#pragma unroll
+        for (int i = 0; i < kHalf / 8; ++i) {
+          const int c = i * 8 + tg * 2;
+          if (ra < N)
+            *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)ra * R + c) =
+                __floats2bfloat162_rn(acc[i][0], acc[i][1]);
+          if (rb < N)
+            *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)rb * R + c) =
+                __floats2bfloat162_rn(acc[i][2], acc[i][3]);
+        }
+      }
+      mbar_arrive(&src_empty[kb]);  // this strip's rows are no longer read
+    }
+    if (staged && t == 0) tma_store_wait_all();
+  }
+}
+
+// The same products for N <= 256 (kT = Np / 64 <= 4 row tiles), streamed:
+// every output tile of a strip stays in float32 registers (kT x 32 a
+// thread), so each source tile is used once, by all the outputs it feeds,
+// as it arrives, and its ring stage is freed at once; the producer keeps a
+// ring of kSrcStages source tiles of 64 rows x 128 columns in flight across
+// the strips, the loads of the next strip landing while this one's outputs
+// are stored. M's triangle stays in shared memory for all the block's
+// strips, loaded again only when a per-row M changes with the batch row.
+// Source tiles arrive in ascending order; an output's products are summed in
+// that order (fixed, so the same bits every run). Shared memory kSrcStages x
+// 16 KB + kT (kT + 1) / 2 x 8 KB + kStageOutBytes + kSmemExtra.
+template <bool kUpper, int kT>
+__global__ void __launch_bounds__(kStripThreads, 1)
+mix_stream_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_m,
+                  const __grid_constant__ CUtensorMap map_out, int m_per_row,
+                  int strips_per_row, int strips) {
+  constexpr int kHalf = kCols / 2;
+  constexpr int kSrcBytes = kTile * kCols * 2;
+  constexpr int kTri = kT * (kT + 1) / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* xs = smem;                           // [kSrcStages][2 panels][64][64]
+  unsigned char* ms = smem + kSrcStages * kSrcBytes;  // [kTri][64][64]
+  unsigned char* so = ms + kTri * kTileBytes;         // [2 warpgroups][2][64][64]
+  uint64_t* src_full = reinterpret_cast<uint64_t*>(so + kStageOutBytes);
+  uint64_t* src_empty = src_full + kSrcStages;
+  uint64_t* m_full = src_empty + kSrcStages;  // [kTri]
+  uint64_t* m_empty = m_full + kTri;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kSrcStages; ++i) {
+      mbar_init(&src_full[i], 1);
+      mbar_init(&src_empty[i], 256);
+    }
+    for (int i = 0; i < kTri; ++i) mbar_init(&m_full[i], 1);
+    mbar_init(m_empty, 256);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x == 256) {  // warp 8: M's triangle, once for each M the block meets
+    int cur_bm = -1, loads = 0;
+    for (int g = blockIdx.x; g < strips; g += gridDim.x) {
+      const int bm = m_per_row ? g / strips_per_row : 0;
+      if (bm == cur_bm) continue;
+      if (loads > 0) mbar_wait(m_empty, (loads - 1) & 1);
+      for (int r = 0; r < kT; ++r)
+        for (int c = 0; c <= r; ++c) {
+          const int slot = tri_slot(r, c);
+          mbar_arrive_expect_tx(&m_full[slot], kTileBytes);
+          tma_load_4d(ms + slot * kTileBytes, &map_m, &m_full[slot], c * kTile, 0, r * kTile, bm);
+        }
+      cur_bm = bm, ++loads;
+    }
+  } else if (threadIdx.x == 288) {  // warp 9: the source tiles, through the ring
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int g = blockIdx.x; g < strips; g += gridDim.x) {
+      const int b = g / strips_per_row, col0 = (g % strips_per_row) * kCols;
+      for (int I = 0; I < kT; ++I) {
+        mbar_wait(&src_empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&src_full[stage], kSrcBytes);
+        unsigned char* dst = xs + stage * kSrcBytes;
+        tma_load_4d(dst, &map_x, &src_full[stage], col0, 0, I * kTile, b);
+        tma_load_4d(dst + kTileBytes, &map_x, &src_full[stage], col0 + 64, 0, I * kTile, b);
+        if (++stage == kSrcStages) stage = 0, phase ^= 1;
+      }
+    }
+  } else if (threadIdx.x < 256) {  // two consumer warpgroups, 64 columns each
+    const int wg = threadIdx.x / 128;
+    int stage = 0, cur_bm = -1, loads = 0, stored = 0;
+    uint32_t phase = 0;
+    for (int g = blockIdx.x; g < strips; g += gridDim.x) {
+      const int bm = m_per_row ? g / strips_per_row : 0;
+      if (bm != cur_bm) {  // done with the last M's triangle
+        if (loads > 0) mbar_arrive(m_empty);
+        cur_bm = bm, ++loads;
+      }
+      const uint32_t m_phase = (loads - 1) & 1;
+      float acc[kT][kHalf / 8][4];
+      int prev = -1;
+      wgmma_fence();
+      for (int I = 0; I < kT; ++I) {
+        mbar_wait(&src_full[stage], phase);
+        const uint64_t db = make_desc(xs + stage * kSrcBytes + wg * kTileBytes, 64 * 128, 1024);
+#pragma unroll
+        for (int J = 0; J < kT; ++J) {
+          if (kUpper ? J > I : J < I) continue;  // dS: sources i >= j; K3: i <= j
+          const int slot = kUpper ? tri_slot(I, J) : tri_slot(J, I);
+          mbar_wait(&m_full[slot], m_phase);
+          const unsigned char* mtile = ms + slot * kTileBytes;
+          const uint64_t da = kUpper ? desc_mnmajor<kTile>(mtile) : desc_kmajor(mtile, 0);
+          const int first = kUpper ? I == J : I == 0;  // this output's first source
+#pragma unroll
+          for (int s = 0; s < kTile / 16; ++s)
+            wgmma_ss<kUpper ? 1 : 0, 1>(
+                acc[J], da + (kUpper ? kstep_mnmajor(s) : kstep_kmajor<kTile>(s)),
+                db + kstep_mnmajor(s), !first || s > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the source tile before this one is done: release its stage
+        if (prev >= 0) mbar_arrive(&src_empty[prev]);
+        prev = stage;
+        if (++stage == kSrcStages) stage = 0, phase ^= 1;
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int J = 0; J < kT; ++J) fence_acc(acc[J]);
+      mbar_arrive(&src_empty[prev]);
+      const int b = g / strips_per_row, col = (g % strips_per_row) * kCols + wg * kHalf;
+#pragma unroll
+      for (int J = 0; J < kT; ++J)
+        store_tile_tma(&map_out, so + (wg * 2 + (stored++ & 1)) * kTileBytes, acc[J], wg, col,
+                       J * kTile, b);
+    }
+    if (threadIdx.x % 128 == 0) tma_store_wait_all();
   }
 }
 
 // One partial tile of dMs: part[b * splits + s][I-tile rows][J-tile cols] =
-// sum over c in R slice s of dmix[b, i, c] * st[b, j, c], for the tile pair
-// (I, J <= I) blockIdx.x enumerates (row by row). grid (pairs, splits, B).
+// sum over c in R slice s of dmix[b, i, c] * st[b, j, c], for the pair of
+// 128-row tiles (I, J <= I) blockIdx.x enumerates (row by row). grid
+// (pairs, splits, B), kGramThreads threads: consumer warpgroup w sums rows
+// 64 w .. 64 w + 63 of the I tile against all 128 rows of the J tile.
+// Maps: dmix and st as [B, N, 1, R] (boxes of 64 x 64); part holds Ng =
+// ceil(N / 128) * 128 rows and columns, written below N only. The grid's
+// threads first make M's bf16 copy ``a`` for the dS pass (prep_cells).
 __global__ void __launch_bounds__(kGramThreads)
-gram_partial_kernel(const bf16* __restrict__ dmix, const bf16* __restrict__ st,
-                    float* __restrict__ part, int N, int Np, int64_t R, int64_t slice,
-                    int splits) {
-  __shared__ __align__(16) bf16 ds[2][64][kLdG];
-  __shared__ __align__(16) bf16 ss[2][64][kLdG];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int lrow = lane & 7, lmat = lane >> 3;
+gram_partial_kernel(const __grid_constant__ CUtensorMap map_d,
+                    const __grid_constant__ CUtensorMap map_s, float* __restrict__ part,
+                    int N, int Ng, int64_t R, int64_t slice, int splits,
+                    const float* __restrict__ m, bf16* __restrict__ a, int Np,
+                    int64_t m_bstride, int m_rows) {
+  constexpr int kHalfBytes = 2 * kTileBytes;  // one operand: [128 rows][64 columns]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kGramStages * 2 * kHalfBytes);
+  uint64_t* empty = full + kGramStages;
   int ti = 0, p = blockIdx.x;
   while (p > ti) p -= ++ti;  // pair index -> (ti, tj = p), tj <= ti
   const int tj = p;
   const int s = blockIdx.y, b = blockIdx.z;
   const int64_t c_lo = (int64_t)s * slice, c_hi = c_lo + slice < R ? c_lo + slice : R;
-  const bf16* db = dmix + (int64_t)b * N * R;
-  const bf16* sb = st + (int64_t)b * N * R;
+  const int steps = (int)((c_hi - c_lo) / 64);
+  // M's bf16 copy for the dS pass that follows, spread over the whole grid
+  const int64_t block = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  prep_cells(m, a, N, Np, m_bstride, m_rows, block * kGramThreads + threadIdx.x,
+             (int64_t)gridDim.x * gridDim.y * gridDim.z * kGramThreads);
 
-  auto load = [&](int buf, int64_t c0) {
-#pragma unroll
-    for (int i = 0; i < 64 * (kGramCols / 8) / kGramThreads; ++i) {
-      const int e = tid + i * kGramThreads;
-      const int r = e / (kGramCols / 8), c8 = (e % (kGramCols / 8)) * 8;
-      const int ri = ti * 64 + r, rj = tj * 64 + r;
-      cp_async16(&ds[buf][r][c8], db + (ri < N ? ri : 0) * R + c0 + c8, ri < N);
-      cp_async16(&ss[buf][r][c8], sb + (rj < N ? rj : 0) * R + c0 + c8, rj < N);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kGramStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 256);
     }
-  };
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  float acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  load(0, c_lo);
-  cp_async_commit();
-  int it = 0;
-  for (int64_t c0 = c_lo; c0 < c_hi; c0 += kGramCols, ++it) {
-    const int buf = it & 1;
-    if (c0 + kGramCols < c_hi) load(buf ^ 1, c0 + kGramCols);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-#pragma unroll
-    for (int s2 = 0; s2 < kGramCols / 32; ++s2) {
-      uint32_t a0[4], a1[4];
-      const bf16* ap = &ds[buf][warp * 16 + (lmat & 1) * 8 + lrow][s2 * 32 + (lmat >> 1) * 8];
-      ldmatrix_x4(a0, ap);
-      ldmatrix_x4(a1, ap + 16);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, &ss[buf][nt * 8 + lrow][s2 * 32 + lmat * 8]);
-        mma_bf16(acc[nt], a0, bf[0], bf[1]);
-        mma_bf16(acc[nt], a1, bf[2], bf[3]);
+  if (threadIdx.x >= 256) {  // the producer warp
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int k = 0; k < steps; ++k) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], 2 * kHalfBytes);
+        unsigned char* st = smem + stage * 2 * kHalfBytes;
+        const int c0 = (int)(c_lo + k * 64);
+        for (int h = 0; h < 2; ++h) {
+          tma_load_4d(st + h * kTileBytes, &map_d, &full[stage], c0, 0, ti * 128 + h * kTile, b);
+          tma_load_4d(st + kHalfBytes + h * kTileBytes, &map_s, &full[stage], c0, 0,
+                      tj * 128 + h * kTile, b);
+        }
+        if (++stage == kGramStages) stage = 0, phase ^= 1;
       }
     }
-    __syncthreads();  // this buffer's reads are done before it is refilled
-  }
-  cp_async_wait<0>();
-  float* pb = part + ((int64_t)b * splits + s) * Np * Np;
-  const int ra = ti * 64 + warp * 16 + g, rb = ra + 8;
+  } else {  // two consumer warpgroups, 64 rows of the I tile each
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int r0 = (t >> 5) * 16 + ((t & 31) >> 2), tg = t & 3;
+    float acc[16][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int c = tj * 64 + nt * 8 + tg * 2;
-    *reinterpret_cast<float2*>(pb + (int64_t)ra * Np + c) = make_float2(acc[nt][0], acc[nt][1]);
-    *reinterpret_cast<float2*>(pb + (int64_t)rb * Np + c) = make_float2(acc[nt][2], acc[nt][3]);
+    for (int i = 0; i < 16; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    int stage = 0, prev = -1;
+    uint32_t phase = 0;
+    wgmma_fence();
+    for (int k = 0; k < steps; ++k) {
+      mbar_wait(&full[stage], phase);
+      const unsigned char* st = smem + stage * 2 * kHalfBytes;
+      const uint64_t da = desc_kmajor(st, wg * kTile), db = desc_kmajor(st + kHalfBytes, 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(acc, da + kstep_kmajor<128>(kk), db + kstep_kmajor<128>(kk), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the step before this one is done: release its stage
+      if (prev >= 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == kGramStages) stage = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (prev >= 0) mbar_arrive(&empty[prev]);
+    float* pb = part + ((int64_t)b * splits + s) * Ng * Ng;
+    const int ra = ti * 128 + wg * kTile + r0, rb = ra + 8;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {  // the rows and columns below N, which the reduce reads
+      const int c = tj * 128 + i * 8 + tg * 2;
+      if (c >= N) continue;
+      if (ra < N)
+        *reinterpret_cast<float2*>(pb + (int64_t)ra * Ng + c) = make_float2(acc[i][0], acc[i][1]);
+      if (rb < N)
+        *reinterpret_cast<float2*>(pb + (int64_t)rb * Ng + c) = make_float2(acc[i][2], acc[i][3]);
+    }
   }
 }
 
@@ -273,7 +511,7 @@ gram_partial_kernel(const bf16* __restrict__ dmix, const bf16* __restrict__ st,
 // shared, row o alone when per-row) and the splits, in that fixed order, of
 // part[.][i][j] for j < i; 0 for j >= i. grid (ceil(N^2 / 256), outs).
 __global__ void __launch_bounds__(kThreads)
-gram_reduce_kernel(const float* __restrict__ part, float* __restrict__ dm, int N, int Np,
+gram_reduce_kernel(const float* __restrict__ part, float* __restrict__ dm, int N, int Ng,
                    int splits, int rows_per_out) {
   const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (e >= (int64_t)N * N) return;
@@ -282,71 +520,144 @@ gram_reduce_kernel(const float* __restrict__ part, float* __restrict__ dm, int N
   if (j < i) {
     const int64_t first = (int64_t)blockIdx.y * rows_per_out * splits;
     for (int64_t p = first; p < first + (int64_t)rows_per_out * splits; ++p)
-      acc += part[p * Np * Np + (int64_t)i * Np + j];
+      acc += part[p * Ng * Ng + (int64_t)i * Ng + j];
   }
   dm[(int64_t)blockIdx.y * N * N + e] = acc;
 }
 
 int round_up64(int n) { return (n + 63) / 64 * 64; }
 
-// The prep and the strip kernel for one product; ``a`` bf16 scratch
-// [rows, Np, Np].
+// The shared memory of a strip block (N > 256), or 0 when one buffer of the
+// strip's rows and two ring stages of M do not fit. Two buffers of rows
+// where they fit beside four stages and the staging panels (the next strip's
+// rows land while this one's outputs are stored: N <= 320), else one; the
+// staging panels of the TMA stores where they fit beside two stages (N <=
+// 704), else 4-byte stores from the accumulators; as many stages as then
+// fit, up to four.
+int strip_smem(int Np, int* nbuf, int* mt, int* staged) {
+  const int rows = Np * kCols * 2;
+  *nbuf = 2 * rows + 4 * kTileBytes + kStageOutBytes + kSmemExtra <= kSmemLimit ? 2 : 1;
+  int room = kSmemLimit - *nbuf * rows - kSmemExtra;
+  *staged = room >= kStageOutBytes + 2 * kTileBytes;
+  room = (room - *staged * kStageOutBytes) / kTileBytes;
+  *mt = room < kMaxStages ? room : kMaxStages;
+  if (*mt < 2) return 0;
+  return *nbuf * rows + *mt * kTileBytes + *staged * kStageOutBytes + kSmemExtra;
+}
+
+// A [B, N, 1, R] map of the states with 64 x 64 boxes.
+int states_map(CUtensorMap* map, const void* x, int B, int N, int64_t R) {
+  return hopper_host::make_tile_map(map, x, B, N, 1, (int)R, kTile);
+}
+
+// A persistent grid of the streamed form: as many blocks as fit on the SMs,
+// at most one per strip.
+template <bool kUpper, int kT>
+int launch_stream(const CUtensorMap& mx, const CUtensorMap& mm, const CUtensorMap& mo,
+                  int64_t m_bstride, int strips_per_row, int strips, cudaStream_t stream) {
+  const int smem = kSrcStages * kTile * kCols * 2 + kT * (kT + 1) / 2 * kTileBytes +
+                   kStageOutBytes + kSmemExtra;
+  auto kern = mix_stream_kernel<kUpper, kT>;
+  int fill = 0;
+  const int e = hopper_host::resident_blocks((const void*)kern, kStripThreads, smem, &fill);
+  if (e) return e;
+  const int grid = strips < fill ? strips : fill;
+  kern<<<grid, kStripThreads, smem, stream>>>(mx, mm, mo, m_bstride ? 1 : 0, strips_per_row,
+                                              strips);
+  return (int)cudaGetLastError();
+}
+
+// One product through the streamed or the strip kernel, after M's bf16 copy
+// for K3 (K3b's comes from its Gram kernel, which runs first); ``a`` bf16
+// scratch [rows, Np, Np].
 template <bool kUpper>
-cudaError_t launch_mix(const float* m, const bf16* x, bf16* out, bf16* a, int B, int N,
-                       int64_t R, int64_t m_bstride, cudaStream_t stream) {
-  const int Np = round_up64(N);
+int launch_mix(const float* m, const bf16* x, bf16* out, bf16* a, int B, int N, int64_t R,
+               int64_t m_bstride, cudaStream_t stream) {
+  const int Np = round_up64(N), tiles = Np / kTile;
   const int rows = m_bstride ? B : 1;
-  const int64_t cells = (int64_t)Np * Np;
-  mix_prep_kernel<kUpper><<<dim3((unsigned)((cells + kThreads - 1) / kThreads), rows),
-                            kThreads, 0, stream>>>(m, a, N, Np, m_bstride);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int smem = Np * kLdS * (int)sizeof(bf16);
-  err = cudaFuncSetAttribute(mix_wide_kernel<kUpper>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  mix_wide_kernel<kUpper><<<dim3((unsigned)(R / kCols), B), kThreads, smem, stream>>>(
-      a, x, out, N, Np, R, m_bstride ? cells : 0);
-  return cudaGetLastError();
+  int nbuf = 0, mt = 0, staged = 0;
+  const int smem = tiles <= kStreamTiles ? 0 : strip_smem(Np, &nbuf, &mt, &staged);
+  if (tiles > kStreamTiles && smem == 0) return (int)cudaErrorInvalidValue;
+  if (!kUpper) {
+    const int64_t cells = (int64_t)rows * Np * Np;
+    mix_prep_kernel<<<(unsigned)((cells + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+        m, a, N, Np, m_bstride, rows);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  CUtensorMap mx, mm, mo;
+  int e = states_map(&mx, x, B, N, R);
+  if (!e) e = states_map(&mo, out, B, N, R);
+  if (!e) e = hopper_host::make_tile_map(&mm, a, rows, Np, 1, Np, kTile);
+  if (e) return e;
+  const int strips_per_row = (int)(R / kCols), strips = strips_per_row * B;
+  if (tiles <= kStreamTiles) {
+    auto launch = tiles == 1   ? launch_stream<kUpper, 1>
+                  : tiles == 2 ? launch_stream<kUpper, 2>
+                  : tiles == 3 ? launch_stream<kUpper, 3>
+                               : launch_stream<kUpper, 4>;
+    return launch(mx, mm, mo, m_bstride, strips_per_row, strips, stream);
+  }
+  auto kern = mix_strip_kernel<kUpper>;
+  int fill = 0;
+  e = hopper_host::resident_blocks((const void*)kern, kStripThreads, smem, &fill);
+  if (e) return e;
+  const int grid = strips < fill ? strips : fill;
+  kern<<<grid, kStripThreads, smem, stream>>>(mx, mm, mo, out, N, Np, R, mt, nbuf, staged,
+                                              m_bstride ? 1 : 0, strips_per_row, strips);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes): each launches on the given
 // stream, does not synchronise, returns the first cudaError_t that is not 0.
-// N <= kMaxSlotsWide and R % 128 == 0, or cudaErrorInvalidValue. Scratch
-// from the caller: ``a`` bf16 [rows, Np, Np] (rows = B for a per-row m, else
-// 1; Np = N rounded up to 64), ``part`` float32 [B, splits, Np, Np].
+// N <= kMaxSlotsWide and R % 128 == 0, or cudaErrorInvalidValue; every
+// pointer 16-byte aligned (TMA). Scratch from the caller: ``a`` bf16 [rows,
+// Np, Np] (rows = B for a per-row m, else 1; Np = N rounded up to 64),
+// ``part`` float32 [B, splits, Ng, Ng] (Ng = N rounded up to 128).
 extern "C" {
 
 int mhla_mix_states_wide(const void* m, const void* s, void* out, void* a, int B, int N,
                          long long R, long long m_bstride, void* stream) {
   if (N < 1 || N > kMaxSlotsWide || R % kCols) return (int)cudaErrorInvalidValue;
-  return (int)launch_mix<false>((const float*)m, (const bf16*)s, (bf16*)out, (bf16*)a, B, N,
-                                R, m_bstride, (cudaStream_t)stream);
+  return launch_mix<false>((const float*)m, (const bf16*)s, (bf16*)out, (bf16*)a, B, N, R,
+                           m_bstride, (cudaStream_t)stream);
 }
 
-// dS = Ms^T dmixed, then dMs over ``splits`` slices of R of ``slice``
-// columns each (a multiple of 64; splits * slice >= R).
-int mhla_mix_states_wide_bwd(const void* m, const void* dmix, const void* st, void* ds,
-                             void* dm, void* a, void* part, int B, int N, long long R,
-                             long long m_bstride, int splits, long long slice, void* stream) {
-  if (N < 1 || N > kMaxSlotsWide || R % kCols || slice % kGramCols || splits < 1)
+// dMs over ``splits`` slices of R of ``slice`` columns each (a multiple of
+// 64; the last may be shorter, none empty), with M's bf16 copy made in the
+// same kernel; then the fixed-order sum of dMs; then dS = Ms^T dmixed.
+int mhla_mix_states_bwd(const void* m, const void* dmix, const void* st, void* ds, void* dm,
+                        void* a, void* part, int B, int N, long long R, long long m_bstride,
+                        int splits, long long slice, void* stream) {
+  if (N < 1 || N > kMaxSlotsWide || R % kCols || slice % 64 || splits < 1 ||
+      (long long)(splits - 1) * slice >= R)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st_ = (cudaStream_t)stream;
-  cudaError_t err = launch_mix<true>((const float*)m, (const bf16*)dmix, (bf16*)ds, (bf16*)a,
-                                     B, N, R, m_bstride, st_);
+  const int nt = (N + 127) / 128, Ng = nt * 128, Np = round_up64(N);
+  CUtensorMap md, ms;
+  int e = states_map(&md, dmix, B, N, R);
+  if (!e) e = states_map(&ms, st, B, N, R);
+  if (e) return e;
+  const int smem = kGramStages * 4 * kTileBytes + kSmemExtra;
+  int fill = 0;  // (the Gram grid is one block per tile pair, slice and batch row)
+  e = hopper_host::resident_blocks((const void*)gram_partial_kernel, kGramThreads, smem, &fill);
+  if (e) return e;
+  gram_partial_kernel<<<dim3(nt * (nt + 1) / 2, splits, B), kGramThreads, smem, st_>>>(
+      md, ms, (float*)part, N, Ng, R, slice, splits, (const float*)m, (bf16*)a, Np, m_bstride,
+      m_bstride ? B : 1);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int Np = round_up64(N), nt = Np / 64;
-  gram_partial_kernel<<<dim3(nt * (nt + 1) / 2, splits, B), kGramThreads, 0, st_>>>(
-      (const bf16*)dmix, (const bf16*)st, (float*)part, N, Np, R, slice, splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  // the partials' sum while they are still in L2, then dS
   const int outs = m_bstride ? B : 1;
   gram_reduce_kernel<<<dim3((unsigned)(((int64_t)N * N + kThreads - 1) / kThreads), outs),
-                       kThreads, 0, st_>>>((const float*)part, (float*)dm, N, Np, splits,
+                       kThreads, 0, st_>>>((const float*)part, (float*)dm, N, Ng, splits,
                                            m_bstride ? 1 : B);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_mix<true>((const float*)m, (const bf16*)dmix, (bf16*)ds, (bf16*)a, B, N, R,
+                          m_bstride, st_);
 }
 
 }  // extern "C"

@@ -5,17 +5,19 @@ CUDA kernels (counterpart of ``mhla_tpu/kernels/mhla_chunk_pallas.py``):
   K2  ``chunk_states``      S_j = k_j^T v_j
   K3  ``mix_states``        mixed_i = sum_{j<i} Ms[i, j] S_j
   K4  ``chunk_output``      o_i = q_i @ mixed_i + md_i * (tril(q_i k_i^T) @ v_i)
-  backward (``csrc/mhla_chunk_bwd.cu``)
+  backward (``csrc/mhla_chunk_bwd.cu``; K3b ``csrc/mhla_mix_wide.cu``)
   K4b ``chunk_output_bwd``  dq, the intra-chunk dk/dv, dmixed and d md
   K3b ``mix_states_bwd``    dS = Ms^T dmixed and dMs[i, j] = <dmixed_i, S_j>
   K2b ``chunk_states_bwd``  dk = v dS^T + dk_intra, dv = k dS + dv_intra
 
-K3 and K3b hold at most 32 chunks in registers; beyond 32 (a long context:
-512 slots at 32,768 positions) the same wrappers launch their wide forms
-(``csrc/mhla_mix_wide.cu``, counted as ``mix_states_wide`` and
-``mix_states_wide_bwd``): tensor-core products over 128-column strips of
-the states, and dMs from fixed slices of the state columns summed in a
-second pass, the same bit for bit from run to run.
+K3 holds at most 32 chunks in registers; beyond 32 (a long context: 512
+slots at 32,768 positions) the same wrapper launches its wide form
+(``csrc/mhla_mix_wide.cu``, counted as ``mix_states_wide``). K3b is that
+file's at every N: wgmma products over strips of 128 state columns fed by
+TMA, and dMs from fixed slices of the state columns (:func:`_gram_slices`)
+summed in a second pass, the same bit for bit from run to run. K2b, the
+wide K3 and K3b are Hopper kernels built from ``csrc/hopper.cuh`` (TMA,
+mbarriers, wgmma), like the flash kernels.
 
 The q scale ``Dk**-0.5`` is folded into the mixing matrix once, as the JAX
 entry point does (``mhla_chunk_pallas.py:1005-1013``): Ms is the scaled
@@ -50,17 +52,18 @@ from . import _build
 launches = {
     "chunk_states": 0, "mix_states": 0, "chunk_output": 0,
     "chunk_output_bwd": 0, "mix_states_bwd": 0, "chunk_states_bwd": 0,
-    "mix_states_wide": 0, "mix_states_wide_bwd": 0,
+    "mix_states_wide": 0,
 }
 
 _TILE_N = 128  # Dv columns per block of K2 and K4 (csrc: kTileN)
 _MAX_SLOTS = 32  # chunk slots K3 holds in registers (csrc: kMaxSlots)
 _MAX_SLOTS_WIDE = 832  # slots the wide forms stage in shared memory (csrc: kMaxSlotsWide)
-_WIDE_COLS = 128  # state columns per block of the wide forms (csrc: kCols)
-_GRAM_COLS = 64  # state columns per stage of the wide dMs (csrc: kGramCols)
-_GRAM_BLOCKS = 1056  # wide dMs: ~8 blocks on each of the H100's 132 SMs
+_WIDE_COLS = 128  # state columns per strip of the wide forms (csrc: kCols)
+_GRAM_COLS = 64  # state columns per stage of the wide dMs
+_GRAM_ROWS = 128  # rows (and columns) of a dMs tile of the wide dMs
+_GRAM_BLOCKS = 264  # wide dMs: two blocks on each of the H100's 132 SMs
+_K2B_MAX_HEAD_DIM = 256  # K2b pads Dk to a tile of 64, 128 or 256 (csrc: StatesBwdGeom)
 _MAX_CHUNK = 64  # K4 keeps two [C, C] score tiles in 48 KB of shared memory
-_SLAB = 256  # state columns per slab of K3b (csrc: kSlab)
 
 _lib_cache: Optional[ctypes.CDLL] = None
 
@@ -75,14 +78,13 @@ def _lib() -> ctypes.CDLL:
         lib.mhla_mix_states.argtypes = [p, p, p, i, i, ll, ll, p]
         lib.mhla_chunk_output.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.mhla_chunk_output_bwd.argtypes = [p] * 11 + [i] * 7 + [p]
-        lib.mhla_mix_states_bwd.argtypes = [p, p, p, p, p, i, i, ll, ll, p]
         lib.mhla_chunk_states_bwd.argtypes = [p] * 7 + [i] * 5 + [p]
         lib.mhla_mix_states_wide.argtypes = [p, p, p, p, i, i, ll, ll, p]
-        lib.mhla_mix_states_wide_bwd.argtypes = [p] * 7 + [i, i, ll, ll, i, ll, p]
+        lib.mhla_mix_states_bwd.argtypes = [p] * 7 + [i, i, ll, ll, i, ll, p]
         for fn in (lib.mhla_chunk_states, lib.mhla_mix_states, lib.mhla_chunk_output,
-                   lib.mhla_chunk_output_bwd, lib.mhla_mix_states_bwd,
-                   lib.mhla_chunk_states_bwd, lib.mhla_mix_states_wide,
-                   lib.mhla_mix_states_wide_bwd):
+                   lib.mhla_chunk_output_bwd, lib.mhla_chunk_states_bwd,
+                   lib.mhla_mix_states_wide,
+                   lib.mhla_mix_states_bwd):
             fn.restype = ctypes.c_int
         _lib_cache = lib
     return _lib_cache
@@ -201,8 +203,8 @@ def mix_states_plain(m_strict: torch.Tensor, states4: torch.Tensor) -> torch.Ten
 
 
 def _wide_args(states4: torch.Tensor, m_bstride: int, *streams: torch.Tensor):
-    """Checks of the wide forms, which copy 16 bytes at a time from the
-    states (and ``streams``); (R, the bf16 scratch for M's padded copy)."""
+    """Checks of the wide forms, which load the states (and ``streams``) by
+    TMA; (R, the strip width, the bf16 scratch for M's padded copy)."""
     b, n, hdk, dv = states4.shape
     if n > _MAX_SLOTS_WIDE:
         raise ValueError(f"kernel mixes at most {_MAX_SLOTS_WIDE} chunks, got {n}")
@@ -210,7 +212,7 @@ def _wide_args(states4: torch.Tensor, m_bstride: int, *streams: torch.Tensor):
     if r % _WIDE_COLS:
         raise ValueError(f"kernel needs a state size divisible by {_WIDE_COLS}, got {r}")
     if any(x.data_ptr() % 16 for x in (states4, *streams)):
-        raise ValueError("kernel copies 16 bytes at a time: its inputs must be 16-byte aligned")
+        raise ValueError("kernel loads tiles by TMA: its inputs must be 16-byte aligned")
     np_ = -(-n // 64) * 64
     scratch = torch.empty(b if m_bstride else 1, np_, np_, dtype=torch.bfloat16,
                           device=states4.device)
@@ -218,7 +220,7 @@ def _wide_args(states4: torch.Tensor, m_bstride: int, *streams: torch.Tensor):
 
 
 def _mix_args(m_strict: torch.Tensor, states4: torch.Tensor, *others: torch.Tensor) -> int:
-    """Checks shared by both forms of K3 and K3b; M's batch stride."""
+    """Checks shared by both forms of K3 and by K3b; M's batch stride."""
     _check("m_strict", m_strict, torch.float32, m_strict.ndim)
     for name, x in (("states4", states4), *(("dmixed4", y) for y in others)):
         _check(name, x, torch.bfloat16, 4)
@@ -230,7 +232,8 @@ def _mix_args(m_strict: torch.Tensor, states4: torch.Tensor, *others: torch.Tens
 
 def _mix_states_wide(m_strict: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
     """The wide K3 at any N up to 832 (``mix_states`` launches it beyond 32
-    chunks; ``chip_smoke.py`` also times it at 32 beside the 32-slot form)."""
+    chunks; ``chip_smoke.py`` also times it at 32 beside the 32-slot form;
+    it shares its strip kernels with K3b's dS)."""
     m_bstride = _mix_args(m_strict, states4)
     b, n = states4.shape[:2]
     r, scratch = _wide_args(states4, m_bstride)
@@ -454,63 +457,41 @@ def mix_states_bwd_plain(
     return dstates.to(states4.dtype).contiguous(), torch.tril(dms, diagonal=-1)
 
 
-def _gram_splits(n: int, r: int, rows: int) -> Tuple[int, int]:
-    """(splits, slice): the fixed slices of the R state columns over which
-    the wide K3b sums dMs, each of ``slice`` columns (a multiple of 64), as
-    many as give about _GRAM_BLOCKS blocks with the 64 x 64 tiles on and
-    below dMs's diagonal and the ``rows`` batch rows."""
-    tiles = -(-n // 64)
+def _gram_slices(n: int, r: int, rows: int) -> Tuple[int, int]:
+    """(splits, slice): the fixed slices [s * slice, min((s + 1) * slice, R))
+    of the R state columns, s = 0 .. splits - 1, over which the wide K3b sums
+    dMs: each a multiple of 64 columns but the last, none empty, together
+    exactly R, as many as give about _GRAM_BLOCKS blocks with the 128 x 128
+    tiles on and below dMs's diagonal and the ``rows`` batch rows."""
+    tiles = -(-n // _GRAM_ROWS)
     pairs = tiles * (tiles + 1) // 2
-    want = max(1, min(r // _GRAM_COLS, -(-_GRAM_BLOCKS // (pairs * rows))))
+    want = max(1, min(-(-r // _GRAM_COLS), -(-_GRAM_BLOCKS // (pairs * rows))))
     slice_ = -(-r // (want * _GRAM_COLS)) * _GRAM_COLS
     return -(-r // slice_), slice_
-
-
-def _mix_states_wide_bwd(
-    m_strict: torch.Tensor, dmixed4: torch.Tensor, states4: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The wide K3b at any N up to 832 (see :func:`_mix_states_wide`)."""
-    m_bstride = _mix_args(m_strict, states4, dmixed4)
-    b, n = states4.shape[:2]
-    r, scratch = _wide_args(states4, m_bstride, dmixed4)
-    splits, slice_ = _gram_splits(n, r, b)
-    np_ = scratch.shape[-1]
-    part = torch.empty(b, splits, np_, np_, dtype=torch.float32, device=states4.device)
-    dstates4 = torch.empty_like(states4)
-    dms = torch.empty(m_strict.shape, dtype=torch.float32, device=states4.device)
-    with torch.cuda.device(states4.device):
-        err = _lib().mhla_mix_states_wide_bwd(
-            m_strict.data_ptr(), dmixed4.data_ptr(), states4.data_ptr(),
-            dstates4.data_ptr(), dms.data_ptr(), scratch.data_ptr(), part.data_ptr(),
-            b, n, r, m_bstride, splits, slice_, _stream(states4),
-        )
-    _raise_on_error("mix_states_bwd", err)
-    launches["mix_states_wide_bwd"] += 1
-    return dstates4, dms
 
 
 def mix_states_bwd(
     m_strict: torch.Tensor, dmixed4: torch.Tensor, states4: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3b (see :func:`mix_states_bwd_plain`), taking M's values at bf16 as
-    K3 does. Up to 32 chunks dMs sums over blocks with float32 atomics, so
-    its last bits change from run to run; beyond, the wide form sums fixed
-    slices in a fixed order (bit-equal over runs)."""
+    """K3b (see :func:`mix_states_bwd_plain`) at any N up to 832, taking M's
+    values at bf16 as K3 does: dS through the strip kernels of the wide K3,
+    dMs from fixed slices of the state columns summed in a fixed order, so
+    both are the same bit for bit from run to run."""
     if _on_cpu(m_strict, dmixed4, states4):
         return mix_states_bwd_plain(m_strict, dmixed4, states4)
-    if states4.shape[1] > _MAX_SLOTS:
-        return _mix_states_wide_bwd(m_strict, dmixed4, states4)
     m_bstride = _mix_args(m_strict, states4, dmixed4)
-    b, n, hdk, dv = states4.shape
-    r = hdk * dv
-    if r % _SLAB:
-        raise ValueError(f"kernel needs a state size divisible by {_SLAB}, got {r}")
+    b, n = states4.shape[:2]
+    r, scratch = _wide_args(states4, m_bstride, dmixed4)
+    splits, slice_ = _gram_slices(n, r, b)
+    ng = -(-n // _GRAM_ROWS) * _GRAM_ROWS
+    part = torch.empty(b, splits, ng, ng, dtype=torch.float32, device=states4.device)
     dstates4 = torch.empty_like(states4)
-    dms = torch.zeros(m_strict.shape, dtype=torch.float32, device=states4.device)
+    dms = torch.empty(m_strict.shape, dtype=torch.float32, device=states4.device)
     with torch.cuda.device(states4.device):
         err = _lib().mhla_mix_states_bwd(
             m_strict.data_ptr(), dmixed4.data_ptr(), states4.data_ptr(),
-            dstates4.data_ptr(), dms.data_ptr(), b, n, r, m_bstride, _stream(states4),
+            dstates4.data_ptr(), dms.data_ptr(), scratch.data_ptr(), part.data_ptr(),
+            b, n, r, m_bstride, splits, slice_, _stream(states4),
         )
     _raise_on_error("mix_states_bwd", err)
     launches["mix_states_bwd"] += 1
@@ -551,7 +532,7 @@ def chunk_states_bwd(
     dv_intra4: torch.Tensor,
     num_heads: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2b (see :func:`chunk_states_bwd_plain`)."""
+    """K2b (see :func:`chunk_states_bwd_plain`) at any Dk % 16 up to 256."""
     if _on_cpu(k4, v4, dstates4, dk_intra4, dv_intra4):
         return chunk_states_bwd_plain(k4, v4, dstates4, dk_intra4, dv_intra4, num_heads)
     for name, x in (("k4", k4), ("v4", v4), ("dstates4", dstates4),
@@ -565,6 +546,10 @@ def chunk_states_bwd(
         raise ValueError("dstates4 does not match k4")
     if c % 16:
         raise ValueError(f"kernel needs chunk_size % 16 == 0, got {c}")
+    if dk > _K2B_MAX_HEAD_DIM:
+        raise ValueError(f"kernel needs a key head dim of at most {_K2B_MAX_HEAD_DIM}, got {dk}")
+    if any(x.data_ptr() % 16 for x in (k4, v4, dstates4, dk_intra4, dv_intra4)):
+        raise ValueError("kernel loads tiles by TMA: its inputs must be 16-byte aligned")
     gk, gv = torch.empty_like(k4), torch.empty_like(v4)
     with torch.cuda.device(k4.device):
         err = _lib().mhla_chunk_states_bwd(

@@ -131,8 +131,11 @@ def test_fmap_rope_bwd_kernel_matches_plain(dev, fmap):
     assert_close(f"fmap_rope_bwd {fmap}", ref, dx, KERNEL_TOL)
 
 
-@pytest.mark.parametrize("b,t", [(1, 781), (2, 2048)])
+@pytest.mark.parametrize("b,t", [(1, 781), (2, 2048), (1, 16384)])
 def test_backward_chunk_kernels_match_plain(dev, b, t):
+    """K4b, K3b and K2b against their plain versions at a ragged last
+    chunk, at training rows and at the long-context row (256 chunks); K2b
+    bit for bit over two runs."""
     h, dk, dv, c = 4, 128, 256, 64
     n = -(-t // c)
     bf16 = torch.bfloat16
@@ -163,8 +166,46 @@ def test_backward_chunk_kernels_match_plain(dev, b, t):
     want = mhla_chunk.chunk_states_bwd_plain(k4, v4, ref[0], dk_i, dv_i, h)
     for name, r, g in zip(("dk", "dv"), want, got):
         assert_close(f"chunk_states_bwd {name}", r, g, KERNEL_TOL)
-    for name in ("chunk_output_bwd", "mix_states_bwd", "chunk_states_bwd"):
+    again = mhla_chunk.chunk_states_bwd(k4, v4, ref[0], dk_i, dv_i, h)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    for name in ("chunk_output_bwd", "mix_states_bwd"):
         assert mhla_chunk.launches[name] == before[name] + 1
+    assert mhla_chunk.launches["chunk_states_bwd"] == before["chunk_states_bwd"] + 2
+
+
+@pytest.mark.parametrize("dk,dv,c,t", [(64, 128, 64, 300), (128, 256, 16, 200),
+                                       (128, 256, 48, 500), (128, 128, 80, 333),
+                                       (256, 512, 64, 256), (256, 256, 32, 100),
+                                       (16, 128, 64, 130), (32, 128, 64, 300),
+                                       (96, 256, 64, 500), (192, 256, 48, 333)])
+def test_chunk_states_bwd_kernel_forms_match_plain(dev, dk, dv, c, t):
+    """K2b at each key tile it instantiates (64, 128, 256) and at head dims
+    between them that it pads (16, 32, 96, 192), Dv of one to four
+    128-column pieces, chunks below and above its 64-row items, and a last
+    chunk that ends past the tokens, with bf16 intra terms added; the same
+    bits twice."""
+    h, bf16 = 2, torch.bfloat16
+    n = -(-t // c)
+    k4, v4, dk_i, dv_i = (_randn(dev, 2, n, c, h * d, seed=s).to(bf16)
+                          for s, d in ((1, dk), (2, dv), (3, dk), (4, dv)))
+    ds4 = _randn(dev, 2, n, h * dk, dv, seed=5).to(bf16)
+    before = mhla_chunk.launches["chunk_states_bwd"]
+    got = mhla_chunk.chunk_states_bwd(k4, v4, ds4, dk_i, dv_i, h)
+    want = mhla_chunk.chunk_states_bwd_plain(k4, v4, ds4, dk_i, dv_i, h)
+    for name, r, g in zip(("dk", "dv"), want, got):
+        assert_close(f"chunk_states_bwd {name} Dk={dk} Dv={dv} C={c}", r, g, KERNEL_TOL)
+    again = mhla_chunk.chunk_states_bwd(k4, v4, ds4, dk_i, dv_i, h)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert mhla_chunk.launches["chunk_states_bwd"] == before + 2
+
+
+def test_chunk_states_bwd_refuses_head_dims_it_lacks(dev):
+    """K2b's widest key tile is 256: Dk = 272 raises."""
+    x = torch.zeros(1, 2, 64, 2 * 272, dtype=torch.bfloat16, device=dev)
+    y = torch.zeros(1, 2, 64, 2 * 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        mhla_chunk.chunk_states_bwd(x, y, torch.zeros(1, 2, 2 * 272, 128, dtype=torch.bfloat16,
+                                                     device=dev), x, y, 2)
 
 
 def test_op_gradients_through_kernels_match_plain_autograd(dev):
@@ -1298,11 +1339,17 @@ def _wide_mixing(dev, b, n, per_row, seed=7):
 
 
 @pytest.mark.parametrize("b,n,per_row", [(1, 33, False), (1, 64, False), (2, 100, False),
-                                         (1, 448, False), (1, 512, False), (2, 96, True)])
+                                         (1, 448, False), (1, 512, False), (2, 96, True),
+                                         (1, 256, False), (1, 832, False), (2, 256, True),
+                                         (3, 200, True), (1, 320, False), (2, 33, True),
+                                         (2, 64, True), (2, 448, True), (2, 512, True),
+                                         (2, 832, True)])
 def test_wide_mix_kernels_match_plain(dev, b, n, per_row):
     """K3 and K3b beyond 32 chunks (the wide forms) against their plain
-    versions, shared and per-row M, ragged N included; dMs bit for bit over
-    two runs (fixed slices, no atomics)."""
+    versions, shared and per-row M (reloaded as the batch row changes),
+    ragged N included: streamed at 1-4 row tiles (N <= 256), then strips
+    with M through a ring and one or two buffers of rows; dS and dMs bit for
+    bit over two runs (fixed slices, no atomics)."""
     states4 = _randn(dev, b, n, 512, 256, seed=1).to(_BF16)
     dmixed4 = _randn(dev, b, n, 512, 256, seed=2).to(_BF16)
     m = _wide_mixing(dev, b, n, per_row)
@@ -1318,14 +1365,31 @@ def test_wide_mix_kernels_match_plain(dev, b, n, per_row):
     assert torch.equal(ds, ds2) and torch.equal(dm, dm2)
     after = mhla_chunk.launches
     assert after["mix_states_wide"] == before["mix_states_wide"] + 1
-    assert after["mix_states_wide_bwd"] == before["mix_states_wide_bwd"] + 2
+    assert after["mix_states_bwd"] == before["mix_states_bwd"] + 2
     assert after["mix_states"] == before["mix_states"]
+
+
+def test_wide_mix_kernels_hold_at_a_size_met_before(dev):
+    """The strip kernel's shared memory grows with N (N = 512 asks more
+    than 448): K3 and K3b at N = 512, then 448, then 512 again in one
+    process each launch and match plain, so a smaller size asked in between
+    does not leave a larger one it met before unlaunchable."""
+    for n in (512, 448, 512):
+        states4 = _randn(dev, 1, n, 128, 128, seed=1).to(_BF16)
+        dmixed4 = _randn(dev, 1, n, 128, 128, seed=2).to(_BF16)
+        m = _wide_mixing(dev, 1, n, False)
+        out = mhla_chunk.mix_states(m, states4)
+        assert_close(f"K3 wide N={n}", mhla_chunk.mix_states_plain(m, states4), out, KERNEL_TOL)
+        ds, dm = mhla_chunk.mix_states_bwd(m, dmixed4, states4)
+        ds_ref, dm_ref = mhla_chunk.mix_states_bwd_plain(m, dmixed4, states4)
+        assert_close(f"K3b wide dS N={n}", ds_ref, ds, KERNEL_TOL)
+        assert_close(f"K3b wide dM N={n}", dm_ref, dm, KERNEL_TOL)
 
 
 @pytest.mark.parametrize("n", [32, 33])
 def test_mix_kernels_take_m_at_bf16(dev, n):
-    """The 32-slot K3 / K3b (N = 32) and the wide forms (N = 33) both take
-    an unrounded M at bf16: the same bits as M rounded first, and the plain
+    """The 32-slot K3 (N = 32), the wide K3 (N = 33) and K3b (both) take an
+    unrounded M at bf16: the same bits as M rounded first, and the plain
     versions' result."""
     states4 = _randn(dev, 2, n, 512, 256, seed=3).to(_BF16)
     dmixed4 = _randn(dev, 2, n, 512, 256, seed=4).to(_BF16)
@@ -1376,38 +1440,46 @@ def test_tiny_long_context_hybrid_lm_through_the_kernels(dev):
     _, metrics = step(state, ids)
     counts = kernels.launch_counts()
     assert torch.isfinite(torch.as_tensor(float(metrics["loss"])))
-    assert counts["flash_attention_masked_bwd"] == 1 and counts["mix_states_wide_bwd"] == 1
+    assert counts["flash_attention_masked_bwd"] == 1 and counts["mix_states_bwd"] == 1
 
 
-# (rows of a, N, K, register A operand) of mhla_wgmma_check's layouts
-# (csrc/hopper_check.cu): the products K9 and K9b run
-_WGMMA_LAYOUTS = [(128, 128, 128, False), (128, 64, 256, False), (128, 64, 128, False),
-                  (64, 128, 128, False), (64, 64, 256, False), (64, 128, 128, True),
-                  (64, 256, 64, True), (64, 128, 64, True)]
+# (rows of a, N, K, a read MN-major, b read MN-major) of mhla_wgmma_check's
+# layouts (csrc/hopper_check.cu): the products K9 and K9b run (0-7; a from
+# registers where b is MN-major), then K2b's and the wide K3 / K3b's (8-13)
+_WGMMA_LAYOUTS = [(128, 128, 128, False, False), (128, 64, 256, False, False),
+                  (128, 64, 128, False, False), (64, 128, 128, False, False),
+                  (64, 64, 256, False, False), (64, 128, 128, False, True),
+                  (64, 256, 64, False, True), (64, 128, 64, False, True),
+                  (64, 128, 128, False, True), (64, 128, 256, False, True),
+                  (64, 256, 128, False, False), (64, 64, 64, True, True),
+                  (64, 128, 64, True, True), (64, 64, 64, False, True)]
 
 
 @pytest.mark.parametrize("layout", range(len(_WGMMA_LAYOUTS)))
 def test_wgmma_over_tma_tiles_matches_matmul(dev, layout):
     """One wgmma product over TMA-loaded, 128-byte-swizzled tiles for each
-    operand layout of K9 / K9b (K-major a and b; register a with b read
-    MN-major) against torch.matmul of the same bf16 values in float32."""
+    operand layout of K9 / K9b, K2b and the wide K3 / K3b (K-major a and b;
+    register a with b read MN-major; a and b from shared memory, either
+    read MN-major) against torch.matmul of the same bf16 values in float32."""
     import ctypes
 
     from mhla_tpu_torch.kernels import _build
 
-    rows, n, k, regs = _WGMMA_LAYOUTS[layout]
+    rows, n, k, a_mn, b_mn = _WGMMA_LAYOUTS[layout]
     lib = _build.load()
     lib.mhla_wgmma_check.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
     lib.mhla_wgmma_check.restype = ctypes.c_int
-    a = _randn(dev, rows, k, seed=layout).to(_BF16)
-    b = _randn(dev, k, n, seed=layout + 10).to(_BF16) if regs else \
+    a = _randn(dev, k, rows, seed=layout).to(_BF16) if a_mn else \
+        _randn(dev, rows, k, seed=layout).to(_BF16)
+    b = _randn(dev, k, n, seed=layout + 10).to(_BF16) if b_mn else \
         _randn(dev, n, k, seed=layout + 10).to(_BF16)
     c = torch.full((64, n), float("nan"), device=dev)
     err = lib.mhla_wgmma_check(layout, a.data_ptr(), b.data_ptr(), c.data_ptr(),
                                torch.cuda.current_stream(dev).cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
-    ref = a[rows - 64:].float() @ (b.float() if regs else b.float().T)
+    a64 = a.float().T if a_mn else a[rows - 64:].float()
+    ref = a64 @ (b.float() if b_mn else b.float().T)
     assert torch.allclose(c, ref, rtol=1e-4, atol=1e-3), (c - ref).abs().max().item()
 
 
@@ -1432,9 +1504,8 @@ def test_flash_bwd_is_bit_equal_over_two_runs(dev, d, form):
     assert all(torch.isfinite(g.float()).all() for g in first)
 
 
-def test_flash_kernels_run_on_wgmma_and_tma(dev):
-    """The built library's K9 and K9b kernels hold HGMMA (wgmma) and
-    UTMALDG (TMA loads) and no HMMA (mma.sync), in every instantiation."""
+def _sass_bodies() -> dict:
+    """The built library's SASS (``cuobjdump -sass``) by kernel name."""
     import os
     import shutil
     import subprocess
@@ -1445,22 +1516,44 @@ def test_flash_kernels_run_on_wgmma_and_tma(dev):
     assert os.path.exists(tool), "cuobjdump not found"
     sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True,
                           check=True).stdout
-    bodies = {}
-    name = None
+    bodies, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             bodies[name] = []
         elif name is not None:
             bodies[name].append(line)
+    return {fn: "\n".join(body) for fn, body in bodies.items()}
+
+
+def test_flash_kernels_run_on_wgmma_and_tma(dev):
+    """The built library's K9 and K9b kernels hold HGMMA (wgmma) and
+    UTMALDG (TMA loads) and no HMMA (mma.sync), in every instantiation."""
     found = {kind: 0 for kind in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
                                   "flash_bwd_dq_kernel")}
-    for fn, body in bodies.items():
+    for fn, text in _sass_bodies().items():
         kind = next((k for k in found if k in fn), None)
         if kind is None:
             continue
-        text = "\n".join(body)
         assert "HGMMA" in text and "UTMALDG" in text, fn
         assert " HMMA" not in text, fn
         found[kind] += 1
     assert found == {"flash_fwd_kernel": 16, "flash_bwd_dkv_kernel": 8, "flash_bwd_dq_kernel": 8}
+
+
+def test_k2b_and_wide_mix_kernels_run_on_wgmma_and_tma(dev):
+    """The built library's K2b kernels (key tiles 64, 128, 256), the wide K3 /
+    K3b kernels (the streamed form at 1-4 row tiles and the strip form, both
+    walks) and the wide dMs Gram kernel hold HGMMA (wgmma) and UTMALDG (TMA
+    loads) and no HMMA (mma.sync or WMMA)."""
+    found = {kind: 0 for kind in ("chunk_states_bwd_kernel", "mix_stream_kernel",
+                                  "mix_strip_kernel", "gram_partial_kernel")}
+    for fn, text in _sass_bodies().items():
+        kind = next((k for k in found if k in fn), None)
+        if kind is None:
+            continue
+        assert "HGMMA" in text and "UTMALDG" in text, fn
+        assert " HMMA" not in text, fn
+        found[kind] += 1
+    assert found == {"chunk_states_bwd_kernel": 3, "mix_stream_kernel": 8, "mix_strip_kernel": 2,
+                     "gram_partial_kernel": 1}

@@ -209,3 +209,50 @@ def test_wrappers_raise_off_cpu_and_cuda():
         port_kernels.chunk_states(x, x, 2)
     with pytest.raises(NotImplementedError):  # the per-row form too
         port_kernels.mix_states(torch.empty(1, 1, 1, device="meta"), x[:, :, 0].unsqueeze(-1))
+
+
+@pytest.mark.parametrize("dv", [128, 256])
+def test_chunk_states_bwd_plain_matches_jax_acc_kernel(dv):
+    """K2b's plain version (what the card kernel is held to) with nonzero
+    intra terms against JAX's ``_phase_a_bwd_acc_pallas`` in interpret mode
+    at C = 64, Dk = 128, N = 2, H = 2: in float32 on bf16-representable
+    values (TOL), and with bf16 inputs and outputs against JAX's float32
+    result rounded to bf16 (2e-3, half a bf16 ulp: the sums run in another
+    order, which can flip a rounding)."""
+    from mhla_tpu.kernels.mhla_chunk_pallas import _phase_a_bwd_acc_pallas
+
+    b, n, c, h, dk = 1, 2, 64, 2, 128
+    rng = np.random.default_rng(7)
+    shapes = [(b, n, c, h * dk), (b, n, c, h * dv), (b, n, h * dk, dv),
+              (b, n, c, h * dk), (b, n, c, h * dv)]
+    k4, v4, ds4, dki4, dvi4 = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(torch.bfloat16).float()
+        for s in shapes)
+    ref = _phase_a_bwd_acc_pallas(*(jnp.asarray(x.numpy()) for x in (k4, v4, ds4, dki4, dvi4)),
+                                  h)
+    got = port_kernels.chunk_states_bwd(k4, v4, ds4, dki4, dvi4, h)
+    got16 = port_kernels.chunk_states_bwd(
+        *(x.to(torch.bfloat16) for x in (k4, v4, ds4, dki4, dvi4)), h)
+    for name, r, g, g16 in zip(("dk", "dv"), ref, got, got16):
+        r = torch.from_numpy(np.asarray(r))
+        assert_close(f"K2b plain {name} vs JAX", r, g, TOL)
+        assert g16.dtype == torch.bfloat16
+        assert_close(f"K2b plain {name} bf16 vs JAX", r.to(torch.bfloat16).float(), g16.float(),
+                     2e-3)
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("r", [3 * 128, 131072, 131072 + 128])
+@pytest.mark.parametrize("n", [1, 33, 64, 200, 256, 448, 512, 832])
+def test_gram_slices_cover_the_state_columns_exactly(n, r, rows):
+    """The wide K3b's dMs slices: consecutive, none empty, each a multiple
+    of 64 columns, together exactly the R state columns, and the same for
+    the same shape (the second pass sums them in this fixed order)."""
+    splits, width = port_kernels._gram_slices(n, r, rows)
+    bounds = [(s * width, min((s + 1) * width, r)) for s in range(splits)]
+    assert width % 64 == 0 and 1 <= splits <= -(-r // 64)
+    assert bounds[0][0] == 0 and bounds[-1][1] == r
+    assert all(lo < hi and (hi - lo) % 64 == 0 for lo, hi in bounds)
+    assert all(x[1] == y[0] for x, y in zip(bounds, bounds[1:]))
+    assert port_kernels._gram_slices(n, r, rows) == (splits, width)
+
