@@ -12,7 +12,14 @@ exits non-zero:
              their first launch).
 3. kernels — each forward kernel against its plain PyTorch version on the
              card at the 340M serving shapes (timed: CUDA events, median
-             after warm-up) and at the training shape B=8 T=2048, bf16.
+             after warm-up; K2 and K3 beside their earlier kernels' times)
+             and at the training shape B=8 T=2048, bf16; K2 and K3 at (a)'s
+             4 x 1984, where the host's cost of a call is held beside the
+             card's time for it; K2 timed at B=8 T=2048 and 1 x 16,384 and
+             beside its PyTorch calls in turns (the einsum; torch.bmm over
+             permuted copies, the copies counted and not). Every timed
+             kernel also prints its host cost per call (host clock over 100
+             enqueues) and the card's time for one call (CUDA events).
 4. serve   — the 340M MHLA LM (MHLALMConfig() defaults, bf16, weights from
              a seeded init) serves two requests through ``generate``:
              4 x 1984 prompt + 64 greedy tokens (fills the 2048 context)
@@ -60,9 +67,9 @@ exits non-zero:
              arbitrary ids (lse, two K9b runs bit for bit, tiles walked against
              the rule's count); the wide K3 / K3b at N = 64, 256, 448 and 512
              chunks (two K3b runs bit for bit) and K2b at (u)'s row of 16,384
-             tokens (two runs bit for bit); each timed beside its plain
-             version, its bound and one library call, and K2b and the wide
-             K3 / K3b beside their earlier kernels' times.
+             tokens (two runs bit for bit), K3 / K3b at N = 32; each timed
+             beside its plain version, its bound and one library call, and
+             K2b and the wide K3 / K3b beside their earlier kernels' times.
 11. ppl (long context) — ``eval.ppl_cli.main`` on the long-context hybrid
              (its json: heads of 256, 32,768 positions, 512 mixing slots;
              seeded init, bf16 compute) over 2 x 28,672 seeded tokens in
@@ -286,12 +293,16 @@ FLASH_MMA_SYNC_MS = {
     ("flash_attention[causal+segment,d256]", "B=8 T=2048 H=4 D=256"): 0.2845,
     ("flash_attention_bwd[causal+segment,d256]", "B=8 T=2048 H=4 D=256"): 1.2272,
 }
-# K2b's and the wide K3 / K3b's times with their earlier kernels (K2b on
-# WMMA fragments read from device memory, the wide forms on mma.sync over
-# cp.async), before the Hopper redesign (wgmma, TMA), by (kernel, shape tag)
+# K2 / K2b's and K3 / K3b's times with their earlier kernels (K2 and K2b on
+# WMMA fragments read from device memory, K3 at N = 32 on float32 FMAs in one
+# thread per pair of state columns, the wide forms on mma.sync over
+# cp.async), before the Hopper redesigns (wgmma, TMA), by (kernel, shape tag)
 # as this script times them: the bracketed times of PERF.md section 6's table
 # (NVIDIA H100 80GB HBM3, 700.00 W), K2b's from two runs.
 CHUNK_MMA_SYNC_MS = {
+    ("chunk_states", "B=4 T=2048"): (0.1063,),
+    ("mix_states", "B=4 T=2048"): (0.0463,),
+    ("mix_states[per-row]", "B=8 T=2048 packed"): (0.0901,),
     ("chunk_states_bwd", "B=8 T=2048"): (0.4231, 0.4147),
     # N = 32: the 32-slot K3b the Hopper one replaced there (float32 atomics on dM)
     ("mix_states_bwd", "B=8 T=2048"): (0.1782,),
@@ -305,9 +316,12 @@ CHUNK_MMA_SYNC_MS = {
     ("mix_states_bwd[wide]", "N=448"): (0.5824,),
     ("mix_states_bwd[wide]", "N=512"): (0.7422,),
 }
-# this run's timed K9 / K9b, K2b and wide K3 / K3b forms beside their earlier
+# this run's timed K9 / K9b, K2 / K2b and K3 / K3b forms beside their earlier
 # kernels' times
 REDESIGN_TIMES = {}
+# every timed kernel form's host cost per call (host_us) and the card's time
+# for one call (device_ms)
+HOST_DEVICE = {}
 
 SEED = 0
 PROMPT_A, NEW_A, BATCH_A = 1984, 64, 4
@@ -318,7 +332,7 @@ KERNEL_META = {
                   "mhla_tpu/kernels/fmap_rope_pallas.py:66"),
     "chunk_states": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk.cu",
                      "mhla_tpu/kernels/mhla_chunk_pallas.py:101"),
-    "mix_states": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk.cu",
+    "mix_states": ("cuda", "mhla_tpu_torch/csrc/mhla_mix_wide.cu",
                    "mhla_tpu/kernels/mhla_chunk_pallas.py:293"),
     "chunk_output": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk.cu",
                      "mhla_tpu/kernels/mhla_chunk_pallas.py:589"),
@@ -358,7 +372,7 @@ KERNEL_META = {
                              "mhla_tpu/kernels/fmap_rope_pallas.py:66"),
     "fmap_rope_bwd[positions]": ("triton", "mhla_tpu_torch/kernels/fmap_rope.py",
                                  "mhla_tpu/kernels/fmap_rope_pallas.py:72"),
-    "mix_states[per-row]": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk.cu",
+    "mix_states[per-row]": ("cuda", "mhla_tpu_torch/csrc/mhla_mix_wide.cu",
                             "mhla_tpu/kernels/mhla_chunk_pallas.py:293"),
     "chunk_output[per-row]": ("cuda", "mhla_tpu_torch/csrc/mhla_chunk.cu",
                               "mhla_tpu/kernels/mhla_chunk_pallas.py:589"),
@@ -485,6 +499,44 @@ def median_ms(fn, reps: int = 10, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, calls: int = 100, reps: int = 5) -> float:
+    """The host's cost of one call of ``fn()``, in microseconds: host clock
+    over ``calls`` enqueues without a sync (after warm-up and a sync), the
+    median of ``reps`` such timings (the host is shared and noisy). Above
+    the card's time per call, the host sets the pace of back-to-back
+    calls."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """The card's time for one call of ``fn()``: CUDA events around one call
+    after a sync, the median of ``reps``. A sleep kernel enqueued first keeps
+    the card busy while the host enqueues the events and the call, so the
+    host's cost of enqueueing is not counted."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's smoke run needs one")
@@ -566,17 +618,23 @@ def check_kernel(results: dict, name: str, shape_tag: str, kern, plain, timed: b
         r.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
                  library_ms=median_ms(library, **timing) if library is not None else None)
+        # 100 enqueues 5 times where a call is short; 10 once for calls of a
+        # millisecond or more, whose host cost is a small share of them
+        r.update(host_us=host_us(kern, *((100, 5) if ms < 1 else (10, 1))),
+                 device_ms=device_ms(kern))
+        HOST_DEVICE[f"{name} {shape_tag}"] = {"host_us": r["host_us"], "device_ms": r["device_ms"]}
         msg += (f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']})")
         if library is not None:
             msg += f"  library {r['library_ms']:.4f} ms"
+        msg += f"  host {r['host_us']:.1f} us/call  device {r['device_ms']:.4f} ms/call"
     log(msg)
     if timed and (name.startswith("flash_attention") or (name, shape_tag) in CHUNK_MMA_SYNC_MS):
         log_redesign_time(name, shape_tag, r)
 
 
 def log_redesign_time(name: str, shape_tag: str, r: dict) -> None:
-    """Keep and print a timed K9 / K9b, K2b or wide K3 / K3b form beside its
+    """Keep and print a timed K9 / K9b, K2 / K2b or K3 / K3b form beside its
     time with the earlier kernels, its bound and the library call's time,
     with the ratios."""
     flash = name.startswith("flash_attention")
@@ -656,7 +714,79 @@ def phase_kernels(dev: torch.device) -> dict:
     check("fmap_rope", "B=4 T=1 offset=1984",
           lambda: fmap_rope.fused_fmap_rope_flat(x1, cos, sin, h, "relu", offset=1984),
           lambda: fmap_rope.fmap_rope_plain(x1, cos, sin, h, "relu", offset=1984), False)
+
+    # K2 and K3 at (a)'s prefill (4 x 1984: 31 chunks), where the host's
+    # cost of a call must stay below the card's time for it; K2 also at
+    # (c)'s rows and (u)'s 16,384-token row; K2's yardsticks
+    extra = {}
+    for b, t in ((BATCH_A, PROMPT_A), (TRAIN_BATCH, TRAIN_SEQ), (1, LONG_TRAIN_SEQ)):
+        tag, n = f"B={b} T={t}", -(-t // c)
+        k4 = torch.relu(randn(b, n, c, h * dk)).to(bf16)
+        v4 = randn(b, n, c, h * dv).to(bf16)
+        states4 = mhla_chunk.chunk_states_plain(k4, v4, h)
+        check_kernel(extra, "chunk_states", tag, lambda: mhla_chunk.chunk_states(k4, v4, h),
+                     lambda: mhla_chunk.chunk_states_plain(k4, v4, h), True,
+                     (nbytes(k4, v4, states4), 2 * b * n * c * h * dk * dv, bf16),
+                     lambda: torch.einsum("bnchk,bnchv->bnhkv", k4.unflatten(-1, (h, dk)),
+                                          v4.unflatten(-1, (h, dv))))
+        results.setdefault("k2_times", {})[tag] = dict(extra["chunk_states"])
+        if t == PROMPT_A:
+            m = torch.tril(init_causal_mixing_matrix(32, device=dev)[:n, :n] * dk**-0.5)
+            m_strict = torch.tril(m, -1).to(bf16).float().contiguous()
+            pairs = n * (n - 1) // 2
+            check_kernel(extra, "mix_states", tag,
+                         lambda: mhla_chunk.mix_states(m_strict, states4),
+                         lambda: mhla_chunk.mix_states_plain(m_strict, states4), True,
+                         (nbytes(m_strict) + 2 * nbytes(states4), 2 * pairs * b * h * dk * dv,
+                          bf16),
+                         lambda: torch.einsum("ij,bjrd->bird", m_strict.to(bf16), states4))
+            for name in ("chunk_states", "mix_states"):
+                r = extra[name]
+                log(f"[host] {name} at (a)'s {tag}: host {r['host_us']:.1f} us a call, card "
+                    f"{r['device_ms'] * 1e3:.1f} us a call: the host "
+                    f"{'below' if r['host_us'] < r['device_ms'] * 1e3 else 'NOT below'} the card")
+            results["host_at_a"] = {name: {key: extra[name][key] for key in
+                                           ("host_us", "device_ms", "ms", "bound_ms")}
+                                    for name in ("chunk_states", "mix_states")}
+        if t == TRAIN_SEQ:
+            results["k2_yardsticks"] = k2_yardsticks(k4, v4, h, tag)
+        del k4, v4, states4
+    torch.cuda.empty_cache()
     return results
+
+
+def k2_yardsticks(k4, v4, h: int, tag: str) -> dict:
+    """K2's PyTorch calls timed in turns (einsum, bmm with copies, bmm,
+    bmm, bmm with copies, einsum): the einsum over k4 and v4 as they are,
+    ``torch.bmm`` over permuted contiguous copies made inside the call (the
+    same inputs and outputs as K2), and ``torch.bmm`` over copies made
+    before (the product alone). Returns each one's times in turn order."""
+    b, n, c, hdk = k4.shape
+    dk, dv = hdk // h, v4.shape[-1] // h
+    k5, v5 = k4.unflatten(-1, (h, dk)), v4.unflatten(-1, (h, dv))
+    kt = k5.permute(0, 1, 3, 4, 2).reshape(-1, dk, c)
+    vt = v5.permute(0, 1, 3, 2, 4).reshape(-1, c, dv)
+    calls = {
+        "einsum": lambda: torch.einsum("bnchk,bnchv->bnhkv", k5, v5),
+        "bmm, copies counted": lambda: torch.bmm(k5.permute(0, 1, 3, 4, 2).reshape(-1, dk, c),
+                                                 v5.permute(0, 1, 3, 2, 4).reshape(-1, c, dv)),
+        "bmm, copies not counted": lambda: torch.bmm(kt, vt),
+    }
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    ref = calls["einsum"]().reshape(-1, dk, dv)
+    for name, fn in calls.items():
+        rel = get_err_ratio(ref, fn().reshape(-1, dk, dv))
+        if not rel < KERNEL_TOL:
+            raise AssertionError(f"K2 yardstick {name} disagrees with the einsum: {rel:.3e}")
+    turns = ["einsum", "bmm, copies counted", "bmm, copies not counted",
+             "bmm, copies not counted", "bmm, copies counted", "einsum"]
+    out = {name: [] for name in calls}
+    for name in turns:
+        out[name].append(median_ms(calls[name]))
+    log(f"[kernels] K2 yardsticks at {tag}, ms in turns: " +
+        "; ".join(f"{name} " + " / ".join(f"{x:.4f}" for x in xs) for name, xs in out.items()))
+    return out
 
 
 def phase_kernels_video(dev: torch.device) -> dict:
@@ -1537,7 +1667,7 @@ LONG_TRAIN_SEQ, LONG_TRAIN_STEPS = 16384, 3
 # softmax layer; the backward alike
 LONG_FWD_LAUNCHES = {
     "fmap_rope": 2 * LM_MHLA_LAYERS, "chunk_states": LM_MHLA_LAYERS,
-    "mix_states_wide": LM_MHLA_LAYERS, "mix_states": 0, "chunk_output": LM_MHLA_LAYERS,
+    "mix_states": LM_MHLA_LAYERS, "chunk_output": LM_MHLA_LAYERS,
     "flash_attention_masked": LM_SOFTMAX_LAYERS, "flash_attention": 0,
 }
 LONG_BWD_LAUNCHES = {
@@ -1553,7 +1683,7 @@ LONG_FORMS = {
     "flash_attention[causal+segment,d256]": ("train_d256_packed", "flash_attention_masked"),
     "flash_attention_bwd[causal+segment,d256]": ("train_d256_packed",
                                                  "flash_attention_masked_bwd"),
-    "mix_states[wide]": ("ppl", "mix_states_wide"),
+    "mix_states[wide]": ("ppl", "mix_states"),
     "mix_states_bwd[wide]": ("train_long", "mix_states_bwd"),
 }
 
@@ -1581,8 +1711,7 @@ def phase_kernels_long(dev: torch.device) -> dict:
     arbitrary ids; the lse; two K9b runs bit for bit; the tiles walked
     against the rule's count. Then the wide K3 / K3b at N = 64, 256, 448 and
     512 chunks of the 340M's states (B=1, 4 heads of 128 x 256); two K3b runs
-    bit for bit; and, at the 340M's N = 32 shapes, the wide forms timed
-    beside the 32-slot ones. Each timed beside its plain version, its bound
+    bit for bit; and K3 / K3b timed at the 340M's N = 32 shapes. Each timed beside its plain version, its bound
     and one library call (SDPA with its flash or memory-efficient backend;
     ``torch.matmul`` of the masked M). The kernels line keeps each form's
     time at the shape its main-path phase runs (the last timed)."""
@@ -1757,24 +1886,25 @@ def phase_kernels_long(dev: torch.device) -> dict:
                            ("ms", "plain_ms", "bound_ms", "library_ms")}
     del k4, v4, ds4, dk_i, dv_i
 
-    # the wide K3 against the 32-slot one at the 340M's N = 32: serving 4 x
-    # 1984 tokens, training 8 x 2048 on token and on packed rows; K3b beside
-    # them (one kernel at every N)
+    # K3 and K3b at the 340M's N = 32 (the small form): serving 4 x 2048
+    # tokens, training 8 x 2048 on token and on packed rows, each K3 beside
+    # the einsum of its form of M
     n, pairs = 32, 32 * 31 // 2
     forms = {}
     for b, per_row in ((4, False), (TRAIN_BATCH, False), (TRAIN_BATCH, True)):
         shape = (b, n, n) if per_row else (n, n)
         m_strict = torch.tril(torch.rand(*shape, generator=gen, device=dev) * 128**-0.5,
                               -1).to(bf16).float().contiguous()
+        m_bf = m_strict.to(bf16)
         states4, dmixed4 = (randn(b, n, hdk, dv).to(bf16) for _ in range(2))
         fwd_work = (nbytes(m_strict) + 2 * nbytes(states4), 2 * pairs * b * r, bf16)
         bwd_work = (2 * nbytes(m_strict) + 3 * nbytes(states4), 4 * pairs * b * r, bf16)
         times, row = {}, {}
-        for label, fwd in (("32-slot", mhla_chunk.mix_states),
-                           ("wide", mhla_chunk._mix_states_wide)):
-            check_kernel(times, "K3", f"N=32 B={b} {label}", lambda: fwd(m_strict, states4),
-                         lambda: mhla_chunk.mix_states_plain(m_strict, states4), True, fwd_work)
-            row[f"K3 {label}"] = times["K3"]["ms"]
+        check_kernel(times, "K3", f"N=32 B={b}", lambda: mhla_chunk.mix_states(m_strict, states4),
+                     lambda: mhla_chunk.mix_states_plain(m_strict, states4), True, fwd_work,
+                     lambda: torch.einsum("bij,bjrd->bird" if per_row else "ij,bjrd->bird",
+                                          m_bf, states4))
+        row["K3"], row["K3 einsum"] = times["K3"]["ms"], times["K3"]["library_ms"]
         check_kernel(times, "K3b", f"N=32 B={b}",
                      lambda: mhla_chunk.mix_states_bwd(m_strict, dmixed4, states4),
                      lambda: mhla_chunk.mix_states_bwd_plain(m_strict, dmixed4, states4),
@@ -1782,8 +1912,8 @@ def phase_kernels_long(dev: torch.device) -> dict:
         row["K3b"] = times["K3b"]["ms"]
         key = f"B={b} {'per-row' if per_row else 'shared'} M"
         forms[key] = row
-        log(f"[kernels long] N=32 {key}: K3 32-slot {row['K3 32-slot']:.4f} ms, wide "
-            f"{row['K3 wide']:.4f} ms; K3b {row['K3b']:.4f} ms")
+        log(f"[kernels long] N=32 {key}: K3 {row['K3']:.4f} ms (einsum {row['K3 einsum']:.4f} "
+            f"ms); K3b {row['K3b']:.4f} ms")
         del states4, dmixed4
     results["mix_n32_times"] = forms
     torch.cuda.empty_cache()
@@ -3116,6 +3246,8 @@ def main() -> None:
                     "train_hybrid_d256_packed": train_d256_packed,
                     "tile_walks_d256": kern["walks_d256"], "mix_wide": kern["mix_wide_times"],
                     "mix_n32": kern["mix_n32_times"], "k2b_long": kern["k2b_long"],
+                    "k2_times": kern["k2_times"], "k2_yardsticks": kern["k2_yardsticks"],
+                    "host_at_a": kern["host_at_a"], "host_device": HOST_DEVICE,
                     "flash_d256_times": kern["flash_d256_times"], "vs_earlier_kernels": REDESIGN_TIMES,
                     "flash_d256_unmasked": {name: kern[name] for name in (
                         "flash_attention[d256]", "flash_attention_bwd[d256]")},

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu), K2b (mhla_chunk_bwd.cu) and the wide K3 /
-// K3b (mhla_mix_wide.cu): mbarriers, TMA tile loads through tensor
+// (flash_fwd.cu, flash_bwd.cu), K2 (mhla_chunk.cu), K2b (mhla_chunk_bwd.cu)
+// and K3 / K3b (mhla_mix_wide.cu): mbarriers, TMA tile loads through tensor
 // maps, wgmma products with their shared-memory descriptors and fences,
 // named barriers and setmaxnreg. The kernels' tiles live in shared memory
 // in the layout a TMA load with 128-byte swizzle writes: a [rows][D] bf16
@@ -128,15 +128,26 @@ __device__ __forceinline__ void tma_load_cols(void* dst, const CUtensorMap* map,
 }
 
 // Store a box of a 4-D tensor map from shared memory (its coordinates
-// innermost first; parts outside the tensor are not written), as one bulk
-// group of the issuing thread.
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
-                                             int c1, int c2, int c3) {
+// innermost first; parts outside the tensor are not written) into the
+// issuing thread's open bulk group; tma_store_commit closes the group.
+__device__ __forceinline__ void tma_store_4d_part(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, int c2, int c3) {
   asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
-      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// One box stored as a bulk group of its own.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  tma_store_4d_part(map, src, c0, c1, c2, c3);
+  tma_store_commit();
 }
 
 // Wait until at most N of this thread's bulk stores still read shared memory.
@@ -159,6 +170,23 @@ __device__ __forceinline__ void fence_async_shared() {
 // swizzle layout (the one TMA reads and writes).
 __device__ __forceinline__ int swizzle128(int r, int c) {
   return r * 128 + ((((c * 2) >> 4) ^ (r & 7)) << 4) + ((c * 2) & 15);
+}
+
+// Round a warpgroup's [64 x kN] float32 accumulator (the wgmma layout) to
+// bf16 into kN / 64 panels of [64][64] at ``dst``, 8 KB apart, in the
+// 128-byte swizzle layout a TMA store of 64 x 64 boxes reads.
+template <int kN>
+__device__ __forceinline__ void acc_to_panels(unsigned char* dst, const float (&acc)[kN / 8][4]) {
+  const int t = threadIdx.x % 128, r0 = (t >> 5) * 16 + ((t & 31) >> 2), tg = t & 3;
+#pragma unroll
+  for (int i = 0; i < kN / 8; ++i) {
+    unsigned char* panel = dst + (i / 8) * 64 * 128;
+    const int c = (i % 8) * 8 + tg * 2;
+    *reinterpret_cast<__nv_bfloat162*>(panel + swizzle128(r0, c)) =
+        __floats2bfloat162_rn(acc[i][0], acc[i][1]);
+    *reinterpret_cast<__nv_bfloat162*>(panel + swizzle128(r0 + 8, c)) =
+        __floats2bfloat162_rn(acc[i][2], acc[i][3]);
+  }
 }
 
 // All D columns: a tile of D / 64 panels.

@@ -1,8 +1,8 @@
 // One-tile checks of the wgmma operand layouts of hopper.cuh over tiles
-// loaded by TMA, for each layout the flash-attention kernels, K2b and the
-// wide K3 / K3b use; the card tests hold each against torch.matmul. A wrong descriptor offset, swizzle
-// or fragment order gives a wrong product here, where it is one product and
-// not one step of a softmax.
+// loaded by TMA, for each layout the flash-attention kernels, K2, K2b and
+// K3 / K3b use; the card tests hold each against torch.matmul. A wrong
+// descriptor offset, swizzle or fragment order gives a wrong product here,
+// where it is one product and not one step of a softmax.
 
 #include "hopper.cuh"
 
@@ -105,16 +105,17 @@ rs_check_kernel(const bf16* __restrict__ a, const __grid_constant__ CUtensorMap 
 }
 
 // C[64 x N] = A B with both operands in shared memory in either form: A
-// K-major [64][K] or (kTransA) MN-major [K][64] (M^T read from M's rows);
-// B K-major [N][K] or (kTransB) MN-major [K][N].
-template <int kTransA, int kTransB, int N, int K>
+// K-major [64][K] or (kTransA) MN-major, the last 64 columns of a [K][kAW]
+// tile (M^T read from M's rows; K2's k^T of the second 64 rows of Dk at kAW
+// = 128); B K-major [N][K] or (kTransB) MN-major [K][N].
+template <int kTransA, int kTransB, int N, int K, int kAW = 64>
 __global__ void __launch_bounds__(128)
 ss_t_check_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_b, float* c) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* as = smem;
-  unsigned char* bs = smem + 64 * K * 2;
+  unsigned char* bs = smem + kAW * K * 2;
   uint64_t* bar = reinterpret_cast<uint64_t*>(bs + N * K * 2);
   if (threadIdx.x == 0) {
     mbar_init(bar, 1);
@@ -122,19 +123,22 @@ ss_t_check_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_arrive_expect_tx(bar, (64 + N) * K * 2);
-    if (kTransA) tma_load_tile<64, K>(as, &map_a, bar, 0, 0, 0);
+    mbar_arrive_expect_tx(bar, (kAW + N) * K * 2);
+    if (kTransA) tma_load_tile<kAW, K>(as, &map_a, bar, 0, 0, 0);
     else tma_load_tile<K, 64>(as, &map_a, bar, 0, 0, 0);
     if (kTransB) tma_load_tile<N, K>(bs, &map_b, bar, 0, 0, 0);
     else tma_load_tile<K, N>(bs, &map_b, bar, 0, 0, 0);
   }
   mbar_wait(bar, 0);
+  const unsigned char* a_panel = as + (kTransA ? (kAW / 64 - 1) * K * 128 : 0);
   float acc[N / 8][4];
   wgmma_fence();
 #pragma unroll
   for (int s = 0; s < K / 16; ++s)
     wgmma_ss<kTransA, kTransB>(
-        acc, kTransA ? desc_mnmajor<K>(as) + kstep_mnmajor(s) : desc_kmajor(as, 0) + kstep_kmajor<64>(s),
+        acc,
+        kTransA ? desc_mnmajor<K>(a_panel) + kstep_mnmajor(s)
+                : desc_kmajor(as, 0) + kstep_kmajor<64>(s),
         kTransB ? desc_mnmajor<K>(bs) + kstep_mnmajor(s) : desc_kmajor(bs, 0) + kstep_kmajor<N>(s),
         s > 0);
   wgmma_commit();
@@ -170,17 +174,17 @@ int launch_rs(const void* a, const void* b, float* c, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int kTransA, int kTransB, int N, int K>
+template <int kTransA, int kTransB, int N, int K, int kAW = 64>
 int launch_ss_t(const void* a, const void* b, float* c, cudaStream_t stream) {
   CUtensorMap ma, mb;
-  int err = kTransA ? hopper_host::make_tile_map(&ma, a, 1, K, 1, 64, K)
+  int err = kTransA ? hopper_host::make_tile_map(&ma, a, 1, K, 1, kAW, K)
                     : hopper_host::make_tile_map(&ma, a, 1, 64, 1, K, 64);
   if (!err)
     err = kTransB ? hopper_host::make_tile_map(&mb, b, 1, K, 1, N, K)
                   : hopper_host::make_tile_map(&mb, b, 1, N, 1, K, N);
   if (err) return err;
-  const int smem = (64 + N) * K * 2 + 1024 + 64;
-  auto kern = ss_t_check_kernel<kTransA, kTransB, N, K>;
+  const int smem = (kAW + N) * K * 2 + 1024 + 64;
+  auto kern = ss_t_check_kernel<kTransA, kTransB, N, K, kAW>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<1, 128, smem, stream>>>(ma, mb, c);
@@ -196,7 +200,8 @@ int launch_ss_t(const void* a, const void* b, float* c, cudaStream_t stream) {
 //   3: ss, a [64][128], b [128][128]                   (K9b dK/dV's S^T, dP^T at D = 128)
 //   4: ss, a [64][256], b [64][256]                    (K9b's S^T, dP^T, S, dP at D = 256)
 //   5: rs, a [64][128], b [128][128]                   (K9 P V, K9b's dV, dK at D = 128)
-//   6: rs, a [64][64], b [64][256]                     (K9 P V, K9b's three at D = 256)
+//   6: rs, a [64][64], b [64][256]                     (K9 P V, K9b's three at D = 256;
+//                                                       K3 / dS at N <= 64)
 //   7: rs, a [64][64], b [64][128]                     (K9b's dQ at D = 128)
 //   8: ss, a [64][128], b [128][128] MN-major          (K2b's dv at Dk = 128)
 //   9: ss, a [64][256], b [256][128] MN-major          (K2b's dv at Dk = 256)
@@ -204,8 +209,11 @@ int launch_ss_t(const void* a, const void* b, float* c, cudaStream_t stream) {
 //  11: ss, a [64][64] MN-major, b [64][64] MN-major    (wide dS, 128 columns)
 //  12: ss, a [64][64] MN-major, b [64][128] MN-major   (wide dS, 256 columns)
 //  13: ss, a [64][64], b [64][64] MN-major             (wide K3, 128 columns)
-// An MN-major a [K][64] gives A = a^T; an MN-major b [K][N] gives B = b
-// (else B = b^T). c gets the float32 [64 x N] product. Returns a cudaError_t.
+//  14: ss, a [64][128] MN-major (its columns 64..127), b [64][128] MN-major
+//                                                      (K2's second 64 rows of Dk)
+// An MN-major a [K][W] gives A = (a^T)[W - 64 .. W); an MN-major b [K][N]
+// gives B = b (else B = b^T). c gets the float32 [64 x N] product. Returns a
+// cudaError_t.
 extern "C" int mhla_wgmma_check(int layout, const void* a, const void* b, float* c,
                                 void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
@@ -224,6 +232,7 @@ extern "C" int mhla_wgmma_check(int layout, const void* a, const void* b, float*
     case 11: return launch_ss_t<1, 1, 64, 64>(a, b, c, s);
     case 12: return launch_ss_t<1, 1, 128, 64>(a, b, c, s);
     case 13: return launch_ss_t<0, 1, 64, 64>(a, b, c, s);
+    case 14: return launch_ss_t<1, 1, 128, 64, 128>(a, b, c, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

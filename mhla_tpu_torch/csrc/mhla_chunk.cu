@@ -4,6 +4,8 @@
 //   K3 mix_states     mixed_i = sum_{j<i} Ms[i, j] S_j        strictly-lower mixing
 //   K4 chunk_output   o_i = q_i @ mixed_i + md_i * (bf16(tril(q_i k_i^T)) @ v_i)
 //
+// K2 and K4 are here; K3 is csrc/mhla_mix_wide.cu's at every N.
+//
 // Ms is the scaled strict lower triangle of the mixing matrix and md its
 // scaled diagonal (the q scale Dk^-0.5 is folded into both by the caller,
 // exactly once). All products accumulate in float32; the states, the mixed
@@ -12,9 +14,9 @@
 //
 // Layout: token tensors are head-flat [B, N, C, H*D] (the padded [B, T, H*D]
 // rows, chunked by a free reshape); states and mixed are [B, N, H*Dk, Dv].
-// Ms and md are shared by the batch, or one per batch row for packed varlen
-// rows: K3 and K4 read them with a batch stride (0 when shared), as the JAX
-// kernels give their M blocks a batch index (mhla_chunk_pallas.py:726).
+// md is shared by the batch, or one per batch row for packed varlen rows:
+// K4 reads it with a batch stride (0 when shared), as the JAX kernels give
+// their M blocks a batch index (mhla_chunk_pallas.py:726).
 //
 // What each kernel replaces, what bounds it on the H100 and what the design
 // does about it:
@@ -22,24 +24,27 @@
 // K2 replaces _phase_a_kernel (mhla_tpu/kernels/mhla_chunk_pallas.py:101).
 //   Bound: bytes. At the 340M serving shape (B=4, T=2048, H=4, Dk=128,
 //   Dv=256) it reads 25 MB of k/v and writes 34 MB of states for 2.1 GFLOP,
-//   about 36 FLOP/byte, far below the card's ~295 FLOP/byte ridge.
-//   Design: one block per (chunk, head, 128-column tile of Dv). Each warp
-//   owns 16x16 output tiles and runs the C-long reduction on the tensor
-//   cores with WMMA (bf16 in, fp32 accumulate), so arithmetic is never the
-//   limit; k/v fragments are read straight from global memory (re-reads
-//   hit L1), and the fp32 tile is rounded and written as 16-byte stores.
-//
-// K3 replaces _mix_kernel, lower form (mhla_chunk_pallas.py:293). The TPU
-//   kernel mixes only the far chunks of 256-token supertiles; this port
-//   works per chunk, so K3 produces the full strictly-lower mixing and K4
-//   adds only the chunk's own diagonal term.
-//   Bound: bytes. It reads and writes N * H*Dk*Dv bf16 per sequence with
-//   at most N/2 FMAs per element read (N <= 32).
-//   Design: one thread per pair of state columns walks all N chunk slots:
-//   it loads the column's N values once into registers, forms every row i
-//   from the previous j < i (the zero upper triangle is never touched), and
-//   writes each output once. Neighbouring threads read neighbouring
-//   addresses, so every load and store is coalesced; M sits in shared memory.
+//   about 36 FLOP/byte, far below the card's ~295 FLOP/byte ridge: 17.5 us
+//   at 3.35 TB/s.
+//   Design (hopper.cuh, the mirror of K2b): a persistent grid, one block of
+//   two consumer warpgroups and a producer warp on each SM, walks the items
+//   (chunk, head, 128 rows of Dk, 128 columns of Dv) in a fixed order; the
+//   Dv panels spread a small grid (one 781-token row: 52 chunk-heads, 104
+//   items) over the SMs. The producer loads each 64-row slab of the chunk
+//   (k's [64, 128] and v's [64, 128], every box 64 x 64 in the 128-byte
+//   swizzle) by TMA into a ring of five 32 KB stages, so the next items'
+//   tiles land while this one is stored. Consumer warpgroup w forms rows
+//   64 w .. 64 w + 63 of the item's [128, 128] state with wgmma m64n128k16,
+//   A = k^T and B = v both read MN-major from the tiles (the chunk's rows
+//   are the K index), summed over the slabs in registers, then rounds it to
+//   bf16 into a swizzled staging panel and writes it by one TMA store (two
+//   panels a warpgroup, alternating, so the store of one item overlaps the
+//   next item's products). Any C % 16: the k and v maps end at the chunk, so
+//   TMA fills a slab's rows past it with zeros, which add nothing. Any Dk %
+//   16: the k map ends at Dk, so a group's columns past it are zeros, a
+//   box wholly past it is not loaded, and the state map ends at Dk, so rows
+//   past it are not stored (a warpgroup whose 64 rows lie wholly past Dk
+//   idles). No atomics: the same bits from run to run.
 //
 // K4 replaces _st_fwd_kernel (mhla_chunk_pallas.py:589). The TPU kernel
 //   groups 4 chunks into a 256-row supertile to fill its 128x128 MXU; here
@@ -52,11 +57,11 @@
 //   md * (P @ v) + q @ mixed for its 16x16 output tiles in one fp32 fragment,
 //   skipping the zero blocks of P right of the diagonal.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
 
+#include "hopper.cuh"
+
+using namespace hopper;
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
@@ -65,12 +70,20 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kFrag = 16;       // WMMA tile: m = n = k = 16 for bf16
-constexpr int kTileN = 128;     // output columns of Dv per block (K2, K4)
-constexpr int kMaxSlots = 32;   // K3 keeps one column of every slot in registers
+constexpr int kTileN = 128;     // output columns of Dv per block (K4)
+
+// K2's geometry: items of 128 rows of Dk by 128 columns of Dv, chunks in
+// slabs of 64 rows, a ring of stages of one slab's k and v boxes.
+constexpr int kStatesThreads = 288;  // two consumer warpgroups and a producer warp
+constexpr int kBoxBytes = 64 * 64 * 2;  // one [64][64] bf16 box
+constexpr int kStatesStageBytes = 4 * kBoxBytes;  // k [64][128] and v [64][128]
+constexpr int kStatesStages = 5;
+constexpr int kStatesOutBytes = 2 * kBoxBytes;  // a warpgroup's [64][128] staging panels
+constexpr int kStatesSmem =
+    kStatesStages * kStatesStageBytes + 4 * kStatesOutBytes + 1024 + 256;
 
 typedef wmma::fragment<wmma::accumulator, kFrag, kFrag, kFrag, float> Acc;
 typedef wmma::fragment<wmma::matrix_a, kFrag, kFrag, kFrag, bf16, wmma::row_major> ARow;
-typedef wmma::fragment<wmma::matrix_a, kFrag, kFrag, kFrag, bf16, wmma::col_major> ACol;
 typedef wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, bf16, wmma::row_major> BRow;
 typedef wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, bf16, wmma::col_major> BCol;
 
@@ -89,68 +102,97 @@ __device__ __forceinline__ void store_tile_bf16(const Acc& acc, float* stage,
   __syncwarp();
 }
 
-// K2. grid (B*N, H, Dv/kTileN). k: [B,N,C,H*Dk], v: [B,N,C,H*Dv],
-// s: [B,N,H*Dk,Dv].
-__global__ void __launch_bounds__(kThreads)
-chunk_states_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
-                    bf16* __restrict__ s, int C, int H, int Dk, int Dv) {
-  __shared__ __align__(32) float stage[kWarps][kFrag * kFrag];
-  const int warp = threadIdx.x >> 5;
-  const int64_t bn = blockIdx.x;
-  const int h = blockIdx.y, tn = blockIdx.z;
-  const int64_t ldk = (int64_t)H * Dk, ldv = (int64_t)H * Dv;
-  const bf16* kc = k + bn * C * ldk + h * Dk;
-  const bf16* vc = v + bn * C * ldv + h * Dv + tn * kTileN;
-  bf16* sc = s + (bn * H + h) * Dk * Dv + tn * kTileN;
-  const int mt = Dk / kFrag, nt = kTileN / kFrag;
-  for (int f = warp; f < mt * nt; f += kWarps) {
-    const int fm = f / nt, fn = f % nt;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < C; kk += kFrag) {
-      ACol a;  // A = k^T: element (m, kk) = k[kk][m], column-major with ld H*Dk
-      BRow b;
-      wmma::load_matrix_sync(a, kc + kk * ldk + fm * kFrag, (unsigned)ldk);
-      wmma::load_matrix_sync(b, vc + kk * ldv + fn * kFrag, (unsigned)ldv);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    store_tile_bf16(acc, stage[warp], sc + (int64_t)fm * kFrag * Dv + fn * kFrag, Dv);
-  }
-}
+// K2. Persistent grid of at most one block per SM, kStatesThreads threads,
+// dynamic shared memory kStatesSmem. Item i = ((bn * H + h) * groups + g) *
+// panels + p: rows [128 g, 128 g + 128) of Dk and columns [128 p, 128 p +
+// 128) of Dv of chunk bn (of the B*N) and head h. Maps: k and v as [bn, C,
+// H, D] (boxes of 64 columns x 64 rows), the states as [bn * H, Dk, 1, Dv]
+// (boxes of 64 x 64).
+__global__ void __launch_bounds__(kStatesThreads, 1)
+chunk_states_kernel(const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_s, int C, int H, int Dk, int groups,
+                    int panels, int items) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem;                                  // [stages][k 2 boxes, v 2 boxes]
+  unsigned char* out = ring + kStatesStages * kStatesStageBytes;  // [2 warpgroups][2][2 boxes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(out + 4 * kStatesOutBytes);
+  uint64_t* empty = full + kStatesStages;
+  const int slabs = (C + 63) / 64;
 
-// K3. grid (ceil(R/2 / kThreads), B). m: [N, N] fp32 (strictly lower), or
-// [B, N, N] with m_bstride = N*N (0 when shared), its values taken at bf16,
-// as the wide form takes them; s, out: [B, N, R] with R = H*Dk*Dv.
-__global__ void __launch_bounds__(kThreads)
-mix_states_kernel(const float* __restrict__ m, const bf16* __restrict__ s,
-                  bf16* __restrict__ out, int N, int64_t R, int64_t m_bstride) {
-  __shared__ float ms[kMaxSlots * kMaxSlots];
-  const float* mb = m + blockIdx.y * m_bstride;
-  for (int e = threadIdx.x; e < N * N; e += blockDim.x)
-    ms[e] = __bfloat162float(__float2bfloat16(mb[e]));
-  __syncthreads();
-  const int64_t pairs = R / 2;
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= pairs) return;
-  const int64_t base = (int64_t)blockIdx.y * N * pairs + p;
-  const __nv_bfloat162* src = reinterpret_cast<const __nv_bfloat162*>(s) + base;
-  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out) + base;
-  float2 x[kMaxSlots];
-#pragma unroll
-  for (int j = 0; j < kMaxSlots; ++j)
-    x[j] = j < N ? __bfloat1622float2(src[j * pairs]) : make_float2(0.f, 0.f);
-#pragma unroll
-  for (int i = 0; i < kMaxSlots; ++i) {
-    if (i < N) {
-      float ax = 0.f, ay = 0.f;
-#pragma unroll
-      for (int j = 0; j < i; ++j) {
-        const float w = ms[i * N + j];
-        ax = fmaf(w, x[j].x, ax);
-        ay = fmaf(w, x[j].y, ay);
-      }
-      dst[i * pairs] = __floats2bfloat162_rn(ax, ay);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStatesStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread releases a stage
     }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // the producer warp
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int p = item % panels, g = item / panels % groups, bnh = item / panels / groups;
+        const int h = bnh % H, bn = bnh / H, k0 = g * 128;
+        const int kboxes = Dk - k0 > 64 ? 2 : 1;  // a box wholly past Dk is not loaded
+        for (int sl = 0; sl < slabs; ++sl) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_arrive_expect_tx(&full[stage], (kboxes + 2) * kBoxBytes);
+          unsigned char* st = ring + stage * kStatesStageBytes;
+          for (int q = 0; q < kboxes; ++q)
+            tma_load_4d(st + q * kBoxBytes, &map_k, &full[stage], k0 + q * 64, h, sl * 64, bn);
+          for (int q = 0; q < 2; ++q)
+            tma_load_4d(st + (2 + q) * kBoxBytes, &map_v, &full[stage], p * 128 + q * 64, h,
+                        sl * 64, bn);
+          if (++stage == kStatesStages) stage = 0, phase ^= 1;
+        }
+      }
+    }
+  } else {  // two consumer warpgroups, 64 rows of Dk each
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    int stage = 0, stored = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int p = item % panels, g = item / panels % groups, bnh = item / panels / groups;
+      const int row0 = g * 128 + wg * 64;  // this warpgroup's first row of Dk
+      const bool active = row0 < Dk;
+      float acc[16][4];
+      for (int sl = 0; sl < slabs; ++sl) {
+        mbar_wait(&full[stage], phase);
+        if (active) {
+          const unsigned char* st = ring + stage * kStatesStageBytes;
+          // A = k^T: the K index (the chunk's rows) runs down the box, M along it
+          const uint64_t da = desc_mnmajor<64>(st + wg * kBoxBytes);
+          const uint64_t db = desc_mnmajor<64>(st + 2 * kBoxBytes);
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma_ss<1, 1>(acc, da + kstep_mnmajor(s), db + kstep_mnmajor(s), sl > 0 || s > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(acc);
+        }
+        mbar_arrive(&empty[stage]);
+        if (++stage == kStatesStages) stage = 0, phase ^= 1;
+      }
+      if (!active) continue;
+      // staging panels of the item two back: its store has read them
+      unsigned char* buf = out + (wg * 2 + (stored++ & 1)) * kStatesOutBytes;
+      if (t == 0) tma_store_wait_read<1>();
+      named_sync(1 + wg, 128);
+      acc_to_panels<128>(buf, acc);
+      fence_async_shared();
+      named_sync(1 + wg, 128);
+      if (t == 0) {
+        tma_store_4d_part(&map_s, buf, p * 128, 0, row0, bnh);
+        tma_store_4d_part(&map_s, buf + kBoxBytes, p * 128 + 64, 0, row0, bnh);
+        tma_store_commit();
+      }
+    }
+    if (t == 0) tma_store_wait_all();
   }
 }
 
@@ -236,20 +278,27 @@ chunk_output_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // stream, does not synchronise, and returns the launch's cudaError_t.
 extern "C" {
 
-int mhla_chunk_states(const void* k, const void* v, void* s, int bn, int C,
-                      int H, int Dk, int Dv, void* stream) {
-  dim3 grid(bn, H, Dv / kTileN);
-  chunk_states_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)k, (const bf16*)v, (bf16*)s, C, H, Dk, Dv);
-  return (int)cudaGetLastError();
-}
-
-int mhla_mix_states(const void* m, const void* s, void* out, int B, int N,
-                    long long R, long long m_bstride, void* stream) {
-  const long long pairs = R / 2;
-  dim3 grid((unsigned)((pairs + kThreads - 1) / kThreads), B);
-  mix_states_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)m, (const bf16*)s, (bf16*)out, N, (int64_t)R, (int64_t)m_bstride);
+// C % 16 == 0, Dk % 16 == 0 and Dv % 128 == 0, or cudaErrorInvalidValue;
+// every pointer 16-byte aligned (TMA).
+int mhla_chunk_states(const void* k, const void* v, void* s, int bn, int C, int H, int Dk,
+                      int Dv, void* stream) {
+  if (bn < 1 || H < 1 || C < 16 || C % 16 || Dk < 16 || Dk % 16 || Dv < 128 || Dv % 128)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mk, mv, ms;
+  int err = hopper_host::make_tile_map(&mk, k, bn, C, H, Dk, 64);
+  if (!err) err = hopper_host::make_tile_map(&mv, v, bn, C, H, Dv, 64);
+  if (!err) err = hopper_host::make_tile_map(&ms, s, bn * H, Dk, 1, Dv, 64);
+  if (err) return err;
+  int fill = 0;  // one block an SM
+  err = hopper_host::resident_blocks((const void*)chunk_states_kernel, kStatesThreads,
+                                     kStatesSmem, &fill);
+  if (err) return err;
+  const int groups = (Dk + 127) / 128, panels = Dv / 128;
+  const long long items = (long long)bn * H * groups * panels;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  chunk_states_kernel<<<items < fill ? (int)items : fill, kStatesThreads, kStatesSmem,
+                        (cudaStream_t)stream>>>(mk, mv, ms, C, H, Dk, groups, panels,
+                                                (int)items);
   return (int)cudaGetLastError();
 }
 

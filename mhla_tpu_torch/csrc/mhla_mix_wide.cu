@@ -1,55 +1,62 @@
-// K3 and K3b for more than 32 chunk slots, for Hopper (sm_90a): the state
+// K3 and K3b at every N up to kMaxSlotsWide, for Hopper (sm_90a): the state
 // mixing of the chunked MHLA op as wgmma products over TMA tiles.
 //
-//   K3 wide   mixed_i = sum_{j<i} Ms[i, j] S_j                 [N, N] x [N, R]
-//   K3b wide  dS_j    = sum_{i>j} Ms[i, j] dmixed_i            [N, N]^T x [N, R]
-//             dMs[i, j] = <dmixed_i, S_j>  (i > j)             [N, R] x [R, N]
+//   K3   mixed_i = sum_{j<i} Ms[i, j] S_j                 [N, N] x [N, R]
+//   K3b  dS_j    = sum_{i>j} Ms[i, j] dmixed_i            [N, N]^T x [N, R]
+//        dMs[i, j] = <dmixed_i, S_j>  (i > j)             [N, R] x [R, N]
 //
 // S, mixed, dmixed, dS: [B, N, R] bf16 with R = H*Dk*Dv (the [B, N, H*Dk, Dv]
-// states of csrc/mhla_chunk.cu, flat); Ms: [N, N] float32 holding values
-// already rounded to bf16 (the op rounds its scaled strict triangle to the
-// compute dtype), shared by the batch or one per batch row (m_bstride =
-// N*N); dMs float32 in Ms's shape, summed over the batch when shared. The
-// 32-slot kernels of csrc/mhla_chunk.cu and csrc/mhla_chunk_bwd.cu hold a
-// column of every slot in registers; these take any N up to kMaxSlotsWide,
-// which a context of 32,768 tokens in chunks of 64 (512 slots) reaches at
-// every prompt, block or row longer than 2,048 tokens.
+// states of csrc/mhla_chunk.cu, flat); Ms: [N, N] float32, its values taken
+// at bf16 (the op rounds its scaled strict triangle to the compute dtype
+// already), shared by the batch or one per batch row (m_bstride = N*N); dMs
+// float32 in Ms's shape, summed over the batch when shared. N reaches 512
+// at a context of 32,768 tokens in chunks of 64, and 32 at the 340M's 2,048.
 //
-// Replaces, for N >= 128 with N % 64 == 0 (where the JAX op runs them,
-// _mix_use_pallas, mhla_tpu/kernels/mhla_chunk_pallas.py:365-367) and every
-// other N > 32: _mix_kernel, lower form (:293) for K3; _mix_bwd_fused_kernel
-// (:459), or _mix_kernel in its upper form (:293) with _dm_kernel (:394), for
-// K3b. JAX's halving row bands (_mix_bands, :279) keep the TPU's VMEM within
-// bounds; here the skipped triangle does the same work.
+// Replaces _mix_kernel, lower form (mhla_tpu/kernels/mhla_chunk_pallas.py:293)
+// for K3; _mix_bwd_fused_kernel (:459), or _mix_kernel in its upper form
+// (:293) with _dm_kernel (:394), for K3b. JAX runs them for N >= 128 with N %
+// 64 == 0 (_mix_use_pallas, :365-367) and an XLA einsum elsewhere; the port
+// runs these kernels at every N, the 340M's N = 32 included. JAX's halving
+// row bands (_mix_bands, :279) keep the TPU's VMEM within bounds; here the
+// skipped triangle does the same work.
 //
 // Bound: bytes. At N = 448 (a 28,672-token block) K3 reads and writes
 // 2 x 448 x 131,072 bf16 (235 MB) for 448^2 / 2 x 131,072 x 2 = 26 GFLOP:
-// 112 FLOP/byte, below the card's bf16 ridge (295 FLOP/byte). K3b reads
-// dmixed twice and S once and writes dS (268 MB at N = 256: 80 us).
+// 112 FLOP/byte, below the card's bf16 ridge (295 FLOP/byte); at N = 32 16
+// FLOP/byte. K3b reads dmixed twice and S once and writes dS (268 MB at N =
+// 256: 80 us).
 //
-// Design (hopper.cuh has the primitives):
-// - M to bf16 once (mix_prep_kernel for K3; for K3b the prologue of its
-//   Gram kernel, which runs before its dS pass): a zero-padded [Np, Np] copy
-//   (Np = N rounded up to 64) of the strict lower triangle, so every 64 x 64
-//   tile of it is zero wherever the triangle is. Exact: M's values are bf16
-//   already.
-//   K3 reads its tiles K-major (A = M); dS reads the same copy MN-major (A =
-//   M^T, wgmma's transposed A), so no transposed copy is made.
-// - K3 and dS, two kernels chosen by N, each a persistent grid over the
-//   strips of 128 state columns of each batch row whose blocks have two
-//   producer warps and two consumer warpgroups, each owning 64 columns of the
-//   output in float32 registers. A step is four wgmma m64n64k16 products, A
-//   = a 64 x 64 tile of M, B = 64 source rows read MN-major; only the tiles
-//   that can hold a nonzero coefficient (j <= i for K3, j >= i for dS) are
-//   loaded or multiplied. Every source element is read from device memory
-//   once and every output written once, by a TMA store of a tile staged in
-//   swizzled shared memory: 4-byte stores of the accumulators into rows
-//   R apart halved the byte rate.
-//   N <= 256 (mix_stream_kernel): all kT <= 4 output tiles of a strip stay
-//   in registers, so each source tile is used by every output it feeds as
-//   it arrives and its stage freed at once: a GEMM's main loop, the ring of
-//   source tiles running ahead across the strips. M's triangle (10 tiles at
-//   N = 256) stays in shared memory for all of a block's strips, loaded
+// Design (hopper.cuh has the primitives), three forms chosen by N:
+// - N <= 64 (mix_small_kernel, K3 and K3b's dS): M's one 64 x 64 tile, zero
+//   at and past N, is built by each consumer warpgroup from the float32 M
+//   straight into wgmma A fragments in registers (its transpose for dS), so
+//   the host makes no copy of M and encodes two tensor maps. Items of 256
+//   state columns stream through a ring of seven 32 KB stages (TMA zero-fills
+//   the rows past N); the two consumer warpgroups take the items in turn,
+//   run ceil(N / 16) products m64n256k16, round the result to bf16 in place
+//   in the stage and store it by TMA (rows past N are not written), and
+//   release the stage once that store has read it. A block walks a
+//   contiguous run of items, so a per-row M is rebuilt about once a block.
+// - The larger forms read a zero-padded bf16 copy of M's strict lower
+//   triangle [Np, Np] (Np = N rounded up to 64; mix_prep_kernel for K3, the
+//   prologue of K3b's Gram kernel), so every 64 x 64 tile of it is zero
+//   wherever the triangle is. K3 reads its tiles K-major (A = M); dS reads
+//   the same copy MN-major (A = M^T, wgmma's transposed A), so no
+//   transposed copy is made. Each is a persistent grid over the strips of
+//   128 state columns of each batch row whose blocks have two producer warps
+//   and two consumer warpgroups, each owning 64 columns of the output in
+//   float32 registers. A step is four wgmma m64n64k16 products, A = a 64 x
+//   64 tile of M, B = 64 source rows read MN-major; only the tiles that can
+//   hold a nonzero coefficient (j <= i for K3, j >= i for dS) are loaded or
+//   multiplied. Every source element is read from device memory once and
+//   every output written once, by a TMA store of a tile staged in swizzled
+//   shared memory: 4-byte stores of the accumulators into rows R apart
+//   halved the byte rate.
+//   64 < N <= 256 (mix_stream_kernel): all kT <= 4 output tiles of a strip
+//   stay in registers, so each source tile is used by every output it feeds
+//   as it arrives and its stage freed at once: a GEMM's main loop, the ring
+//   of source tiles running ahead across the strips. M's triangle (10 tiles
+//   at N = 256) stays in shared memory for all of a block's strips, loaded
 //   again only when a per-row M changes with the batch row. Timed in turns
 //   against the strip kernel run at these N, it keeps K3b's dS at N = 256
 //   7% faster (PERF.md section 6), so the two forms stay.
@@ -94,6 +101,12 @@ constexpr int kStreamTiles = 4;     // the streamed form up to N = 256: 4 output
 constexpr int kSrcStages = 6;       // its ring of 16 KB source tiles
 constexpr int kStageOutBytes = 4 * kTileBytes;  // two staging panels per consumer warpgroup
 constexpr int kGramStages = 3;     // 96 KB: two Gram blocks on an SM
+constexpr int kSmallSlots = 64;     // N up to here: the small form, M's tile in registers
+constexpr int kSmallThreads = 384;  // a producer warpgroup and two consumer warpgroups
+constexpr int kSmallCols = 256;     // state columns per item of the small form
+constexpr int kSmallStageBytes = kSmallCols / 64 * kTileBytes;  // 32 KB
+constexpr int kSmallStages = 7;
+constexpr int kSmallSmem = kSmallStages * kSmallStageBytes + 1024 + 256;
 constexpr int kSmemLimit = 232448;   // what a block of the H100 may use
 constexpr int kSmemExtra = 1024 + 512;  // 1024-byte alignment, mbarriers (< 60)
 
@@ -140,20 +153,12 @@ __device__ __forceinline__ int tri_slot(int r, int c) { return r * (r + 1) / 2 +
 __device__ __forceinline__ void store_tile_tma(const CUtensorMap* map, unsigned char* panel,
                                                const float (&acc)[8][4], int wg, int col,
                                                int row, int b) {
-  const int t = threadIdx.x % 128, r0 = (t >> 5) * 16 + ((t & 31) >> 2), tg = t & 3;
-  if (t == 0) tma_store_wait_read<1>();
+  if (threadIdx.x % 128 == 0) tma_store_wait_read<1>();
   named_sync(1 + wg, 128);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int c = i * 8 + tg * 2;
-    *reinterpret_cast<__nv_bfloat162*>(panel + swizzle128(r0, c)) =
-        __floats2bfloat162_rn(acc[i][0], acc[i][1]);
-    *reinterpret_cast<__nv_bfloat162*>(panel + swizzle128(r0 + 8, c)) =
-        __floats2bfloat162_rn(acc[i][2], acc[i][3]);
-  }
+  acc_to_panels<64>(panel, acc);
   fence_async_shared();
   named_sync(1 + wg, 128);
-  if (t == 0) tma_store_4d(map, panel, col, 0, row, b);
+  if (threadIdx.x % 128 == 0) tma_store_4d(map, panel, col, 0, row, b);
 }
 
 // out[b, i] = sum_j a[i, j] x[b, j] over kCols-column strips of R for N >
@@ -292,7 +297,7 @@ mix_strip_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-// The same products for N <= 256 (kT = Np / 64 <= 4 row tiles), streamed:
+// The same products for 64 < N <= 256 (kT = Np / 64 = 2 to 4 row tiles), streamed:
 // every output tile of a strip stays in float32 registers (kT x 32 a
 // thread), so each source tile is used once, by all the outputs it feeds,
 // as it arrives, and its ring stage is freed at once; the producer keeps a
@@ -409,6 +414,124 @@ mix_stream_kernel(const __grid_constant__ CUtensorMap map_x,
                        J * kTile, b);
     }
     if (threadIdx.x % 128 == 0) tma_store_wait_all();
+  }
+}
+
+// The A fragments (wgmma's m64k16 A from registers) of this thread's rows of
+// the [64 x 64] tile of M it multiplies by: M's strict lower triangle for K3,
+// its transpose for dS (kUpper), rounded to bf16, zero at and past N.
+template <bool kUpper, int kSteps>
+__device__ __forceinline__ void load_m_frags(uint32_t (&a)[kSteps][4],
+                                             const float* __restrict__ m, int N) {
+  const int t = threadIdx.x % 128, r0 = (t >> 5) * 16 + ((t & 31) >> 2), tg = t & 3;
+  auto at = [&](int r, int c) {  // A[r][c]: M[r][c] (K3) or M[c][r] (dS), strictly lower M
+    const int i = kUpper ? c : r, j = kUpper ? r : c;
+    return i < N && j < i ? m[i * N + j] : 0.f;
+  };
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // rows r0 (q even) and r0 + 8, columns c and c + 8
+      const int r = r0 + (q & 1) * 8, c = s * 16 + tg * 2 + (q >> 1) * 8;
+      const __nv_bfloat162 v = __floats2bfloat162_rn(at(r, c), at(r, c + 1));
+      a[s][q] = *reinterpret_cast<const uint32_t*>(&v);
+    }
+}
+
+// out[b, i] = sum_j a[i, j] x[b, j] for N <= kSmallSlots: the forward mix
+// with a = strict lower M (K3), or dS with a = M^T (kUpper). A persistent
+// grid; block k takes the items [k * per, (k + 1) * per) (item = batch row *
+// panels + panel of kSmallCols state columns), so a per-row M changes about
+// once a block. A producer warp loads each item's
+// source rows ([64 rows][kSmallCols], rows past N zero) by TMA into a ring
+// of kSmallStages stages; the two consumer warpgroups (240 registers a
+// thread, the producer's warpgroup keeping 24) take the items in turn. A
+// warpgroup holds M's tile as wgmma A fragments in registers, built
+// from the float32 m (no copy of M in device memory, reloaded when a per-row
+// M changes), runs kSteps = ceil(N / 16) products m64n256k16 over the stage
+// (B read MN-major), rounds the result to bf16 into the same stage, stores
+// it by TMA (rows past N are not written) and releases the stage once that
+// store has read it, one item later, so a store overlaps the next item's
+// products. Maps: x and out as [B, N, 1, R] (boxes of 64 x 64); m [N, N]
+// float32, or [B, N, N] with m_bstride = N * N.
+template <bool kUpper, int kSteps>
+__global__ void __launch_bounds__(kSmallThreads, 1)
+mix_small_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_out, const float* __restrict__ m,
+                 int N, int64_t R, int64_t m_bstride, int panels, int64_t per,
+                 int64_t items) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kSmallStages * kSmallStageBytes);
+  uint64_t* empty = full + kSmallStages;
+  const int64_t lo = blockIdx.x * per, hi = lo + per < items ? lo + per : items;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kSmallStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 1);  // the item's store has read the stage
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread loads, the rest give up registers
+    regs_dec<24>();
+    if (threadIdx.x != 0) return;
+    for (int64_t j = 0; lo + j < hi; ++j) {
+      const int stage = (int)(j % kSmallStages);
+      const int64_t item = lo + j, col0 = item % panels * kSmallCols;
+      const int b = (int)(item / panels);
+      const int boxes = R - col0 < kSmallCols ? (int)((R - col0) / 64) : kSmallCols / 64;
+      mbar_wait(&empty[stage], (uint32_t)(j / kSmallStages & 1) ^ 1);
+      mbar_arrive_expect_tx(&full[stage], boxes * kTileBytes);
+      unsigned char* st = smem + stage * kSmallStageBytes;
+      for (int q = 0; q < boxes; ++q)
+        tma_load_4d(st + q * kTileBytes, &map_x, &full[stage], (int)col0 + q * 64, 0, 0, b);
+    }
+  } else {  // two consumer warpgroups, items in turn
+    regs_inc<240>();
+    const int wg = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    uint32_t a[kSteps][4];
+    int64_t cur = -1;
+    int prev = -1;
+    for (int64_t j = wg; lo + j < hi; j += 2) {
+      const int stage = (int)(j % kSmallStages);
+      const int64_t item = lo + j, col0 = item % panels * kSmallCols;
+      const int b = (int)(item / panels);
+      const int boxes = R - col0 < kSmallCols ? (int)((R - col0) / 64) : kSmallCols / 64;
+      const int64_t bm = m_bstride ? b : 0;
+      if (bm != cur) {
+        load_m_frags<kUpper, kSteps>(a, m + bm * m_bstride, N);
+        cur = bm;
+      }
+      mbar_wait(&full[stage], (uint32_t)(j / kSmallStages & 1));
+      unsigned char* st = smem + stage * kSmallStageBytes;
+      float acc[kSmallCols / 8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+        wgmma_rs(acc, a[s], desc_mnmajor<kTile>(st) + kstep_mnmajor(s), s > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      fence_frag(a);
+      named_sync(1 + wg, 128);  // every warp's products have read the stage
+      acc_to_panels<kSmallCols>(st, acc);
+      fence_async_shared();
+      named_sync(1 + wg, 128);
+      if (t == 0) {
+        for (int q = 0; q < boxes; ++q)
+          tma_store_4d_part(&map_out, st + q * kTileBytes, (int)col0 + q * 64, 0, 0, b);
+        tma_store_commit();
+        if (prev >= 0) {  // this warpgroup's last item: its store has read its stage
+          tma_store_wait_read<1>();
+          mbar_arrive(&empty[prev]);
+        }
+        prev = stage;
+      }
+    }
+    if (t == 0) tma_store_wait_all();
   }
 }
 
@@ -567,12 +690,43 @@ int launch_stream(const CUtensorMap& mx, const CUtensorMap& mm, const CUtensorMa
   return (int)cudaGetLastError();
 }
 
-// One product through the streamed or the strip kernel, after M's bf16 copy
-// for K3 (K3b's comes from its Gram kernel, which runs first); ``a`` bf16
-// scratch [rows, Np, Np].
+// The small form (N <= kSmallSlots) at kSteps = ceil(N / 16) products a
+// stage: the fewest items a block that the SMs' blocks can take, and as
+// many blocks as that needs, so every block but the last has the same count
+// (the card is not left waiting on a few blocks with one item more).
+template <bool kUpper, int kSteps>
+int launch_small(const float* m, const CUtensorMap& mx, const CUtensorMap& mo, int B, int N,
+                 int64_t R, int64_t m_bstride, cudaStream_t stream) {
+  auto kern = mix_small_kernel<kUpper, kSteps>;
+  int fill = 0;
+  const int e = hopper_host::resident_blocks((const void*)kern, kSmallThreads, kSmallSmem, &fill);
+  if (e) return e;
+  const int panels = (int)((R + kSmallCols - 1) / kSmallCols);
+  const int64_t items = (int64_t)B * panels, per = (items + fill - 1) / fill;
+  kern<<<(int)((items + per - 1) / per), kSmallThreads, kSmallSmem, stream>>>(
+      mx, mo, m, N, R, m_bstride, panels, per, items);
+  return (int)cudaGetLastError();
+}
+
+// One product through the small, the streamed or the strip kernel chosen by
+// N. The small form builds M's tile from the float32 m itself; the others
+// read a bf16 copy ``a`` [rows, Np, Np], made here for K3 (K3b's comes from
+// its Gram kernel, which runs first).
 template <bool kUpper>
 int launch_mix(const float* m, const bf16* x, bf16* out, bf16* a, int B, int N, int64_t R,
                int64_t m_bstride, cudaStream_t stream) {
+  CUtensorMap mx, mo, mm;
+  int e = states_map(&mx, x, B, N, R);
+  if (!e) e = states_map(&mo, out, B, N, R);
+  if (e) return e;
+  if (N <= kSmallSlots) {
+    const int steps = (N + 15) / 16;
+    auto launch = steps == 1   ? launch_small<kUpper, 1>
+                  : steps == 2 ? launch_small<kUpper, 2>
+                  : steps == 3 ? launch_small<kUpper, 3>
+                               : launch_small<kUpper, 4>;
+    return launch(m, mx, mo, B, N, R, m_bstride, stream);
+  }
   const int Np = round_up64(N), tiles = Np / kTile;
   const int rows = m_bstride ? B : 1;
   int nbuf = 0, mt = 0, staged = 0;
@@ -585,15 +739,11 @@ int launch_mix(const float* m, const bf16* x, bf16* out, bf16* a, int B, int N, 
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  CUtensorMap mx, mm, mo;
-  int e = states_map(&mx, x, B, N, R);
-  if (!e) e = states_map(&mo, out, B, N, R);
-  if (!e) e = hopper_host::make_tile_map(&mm, a, rows, Np, 1, Np, kTile);
+  e = hopper_host::make_tile_map(&mm, a, rows, Np, 1, Np, kTile);
   if (e) return e;
   const int strips_per_row = (int)(R / kCols), strips = strips_per_row * B;
   if (tiles <= kStreamTiles) {
-    auto launch = tiles == 1   ? launch_stream<kUpper, 1>
-                  : tiles == 2 ? launch_stream<kUpper, 2>
+    auto launch = tiles == 2   ? launch_stream<kUpper, 2>
                   : tiles == 3 ? launch_stream<kUpper, 3>
                                : launch_stream<kUpper, 4>;
     return launch(mx, mm, mo, m_bstride, strips_per_row, strips, stream);
@@ -613,13 +763,14 @@ int launch_mix(const float* m, const bf16* x, bf16* out, bf16* a, int B, int N, 
 // Plain C entry points (loaded with ctypes): each launches on the given
 // stream, does not synchronise, returns the first cudaError_t that is not 0.
 // N <= kMaxSlotsWide and R % 128 == 0, or cudaErrorInvalidValue; every
-// pointer 16-byte aligned (TMA). Scratch from the caller: ``a`` bf16 [rows,
-// Np, Np] (rows = B for a per-row m, else 1; Np = N rounded up to 64),
-// ``part`` float32 [B, splits, Ng, Ng] (Ng = N rounded up to 128).
+// pointer 16-byte aligned (TMA). Scratch from the caller where N >
+// kSmallSlots (else unused, may be null): ``a`` bf16 [rows, Np, Np] (rows =
+// B for a per-row m, else 1; Np = N rounded up to 64); and ``part`` float32
+// [B, splits, Ng, Ng] (Ng = N rounded up to 128) at every N.
 extern "C" {
 
-int mhla_mix_states_wide(const void* m, const void* s, void* out, void* a, int B, int N,
-                         long long R, long long m_bstride, void* stream) {
+int mhla_mix_states_fwd(const void* m, const void* s, void* out, void* a, int B, int N,
+                        long long R, long long m_bstride, void* stream) {
   if (N < 1 || N > kMaxSlotsWide || R % kCols) return (int)cudaErrorInvalidValue;
   return launch_mix<false>((const float*)m, (const bf16*)s, (bf16*)out, (bf16*)a, B, N, R,
                            m_bstride, (cudaStream_t)stream);
@@ -646,7 +797,7 @@ int mhla_mix_states_bwd(const void* m, const void* dmix, const void* st, void* d
   if (e) return e;
   gram_partial_kernel<<<dim3(nt * (nt + 1) / 2, splits, B), kGramThreads, smem, st_>>>(
       md, ms, (float*)part, N, Ng, R, slice, splits, (const float*)m, (bf16*)a, Np, m_bstride,
-      m_bstride ? B : 1);
+      N <= kSmallSlots ? 0 : m_bstride ? B : 1);  // the small form makes no copy of M
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // the partials' sum while they are still in L2, then dS

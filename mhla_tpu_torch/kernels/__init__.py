@@ -3,7 +3,7 @@ paths and their wrappers.
 
 Causal LM: K1 ``fused_fmap_rope_flat`` and its gradient K1b
 ``fmap_rope_bwd`` (Triton); K2 ``chunk_states``, K3 ``mix_states`` and K4
-``chunk_output`` (CUDA C++, ``csrc/mhla_chunk.cu``; K3 beyond 32 chunks
+``chunk_output`` (CUDA C++, ``csrc/mhla_chunk.cu``; K3
 ``csrc/mhla_mix_wide.cu``) and their gradients K4b ``chunk_output_bwd`` and
 K2b ``chunk_states_bwd`` (``csrc/mhla_chunk_bwd.cu``) and K3b
 ``mix_states_bwd`` (``csrc/mhla_mix_wide.cu``) behind ``mhla_chunk_fused_flat``.

@@ -1,7 +1,7 @@
 """Chunked MHLA on head-flat [B, T, H*D] tensors through six hand-written
 CUDA kernels (counterpart of ``mhla_tpu/kernels/mhla_chunk_pallas.py``):
 
-  forward (``csrc/mhla_chunk.cu``)
+  forward (``csrc/mhla_chunk.cu``; K3 ``csrc/mhla_mix_wide.cu``)
   K2  ``chunk_states``      S_j = k_j^T v_j
   K3  ``mix_states``        mixed_i = sum_{j<i} Ms[i, j] S_j
   K4  ``chunk_output``      o_i = q_i @ mixed_i + md_i * (tril(q_i k_i^T) @ v_i)
@@ -10,14 +10,14 @@ CUDA kernels (counterpart of ``mhla_tpu/kernels/mhla_chunk_pallas.py``):
   K3b ``mix_states_bwd``    dS = Ms^T dmixed and dMs[i, j] = <dmixed_i, S_j>
   K2b ``chunk_states_bwd``  dk = v dS^T + dk_intra, dv = k dS + dv_intra
 
-K3 holds at most 32 chunks in registers; beyond 32 (a long context: 512
-slots at 32,768 positions) the same wrapper launches its wide form
-(``csrc/mhla_mix_wide.cu``, counted as ``mix_states_wide``). K3b is that
-file's at every N: wgmma products over strips of 128 state columns fed by
-TMA, and dMs from fixed slices of the state columns (:func:`_gram_slices`)
-summed in a second pass, the same bit for bit from run to run. K2b, the
-wide K3 and K3b are Hopper kernels built from ``csrc/hopper.cuh`` (TMA,
-mbarriers, wgmma), like the flash kernels.
+K2, K2b, K3 and K3b are Hopper kernels built from ``csrc/hopper.cuh`` (TMA,
+mbarriers, wgmma), like the flash kernels. K3 and K3b's dS take any N up to
+832 chunks (512 slots at 32,768 positions) in one family of kernels chosen
+by N: up to 64 chunks (the 340M's 32) M's one tile is built in registers
+from the float32 M inside the kernel, beyond that from a bf16 copy of M.
+K3b's dMs comes from fixed slices of the state columns
+(:func:`_gram_slices`) summed in a second pass, the same bit for bit from
+run to run.
 
 The q scale ``Dk**-0.5`` is folded into the mixing matrix once, as the JAX
 entry point does (``mhla_chunk_pallas.py:1005-1013``): Ms is the scaled
@@ -52,13 +52,12 @@ from . import _build
 launches = {
     "chunk_states": 0, "mix_states": 0, "chunk_output": 0,
     "chunk_output_bwd": 0, "mix_states_bwd": 0, "chunk_states_bwd": 0,
-    "mix_states_wide": 0,
 }
 
-_TILE_N = 128  # Dv columns per block of K2 and K4 (csrc: kTileN)
-_MAX_SLOTS = 32  # chunk slots K3 holds in registers (csrc: kMaxSlots)
-_MAX_SLOTS_WIDE = 832  # slots the wide forms stage in shared memory (csrc: kMaxSlotsWide)
-_WIDE_COLS = 128  # state columns per strip of the wide forms (csrc: kCols)
+_TILE_N = 128  # Dv columns per item of K2, per block of K4 (csrc: kTileN)
+_MAX_SLOTS_WIDE = 832  # slots the strip form stages in shared memory (csrc: kMaxSlotsWide)
+_SMALL_SLOTS = 64  # up to here K3 / K3b's dS build M's tile in the kernel (csrc: kSmallSlots)
+_WIDE_COLS = 128  # state columns per strip of the larger forms (csrc: kCols)
 _GRAM_COLS = 64  # state columns per stage of the wide dMs
 _GRAM_ROWS = 128  # rows (and columns) of a dMs tile of the wide dMs
 _GRAM_BLOCKS = 264  # wide dMs: two blocks on each of the H100's 132 SMs
@@ -75,15 +74,13 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mhla_chunk_states.argtypes = [p, p, p, i, i, i, i, i, p]
         ll = ctypes.c_longlong
-        lib.mhla_mix_states.argtypes = [p, p, p, i, i, ll, ll, p]
         lib.mhla_chunk_output.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.mhla_chunk_output_bwd.argtypes = [p] * 11 + [i] * 7 + [p]
         lib.mhla_chunk_states_bwd.argtypes = [p] * 7 + [i] * 5 + [p]
-        lib.mhla_mix_states_wide.argtypes = [p, p, p, p, i, i, ll, ll, p]
+        lib.mhla_mix_states_fwd.argtypes = [p, p, p, p, i, i, ll, ll, p]
         lib.mhla_mix_states_bwd.argtypes = [p] * 7 + [i, i, ll, ll, i, ll, p]
-        for fn in (lib.mhla_chunk_states, lib.mhla_mix_states, lib.mhla_chunk_output,
-                   lib.mhla_chunk_output_bwd, lib.mhla_chunk_states_bwd,
-                   lib.mhla_mix_states_wide,
+        for fn in (lib.mhla_chunk_states, lib.mhla_chunk_output, lib.mhla_chunk_output_bwd,
+                   lib.mhla_chunk_states_bwd, lib.mhla_mix_states_fwd,
                    lib.mhla_mix_states_bwd):
             fn.restype = ctypes.c_int
         _lib_cache = lib
@@ -93,10 +90,9 @@ def _lib() -> ctypes.CDLL:
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     """True for CPU tensors (plain path); None of them may be elsewhere
     than on one CUDA device otherwise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors[1:]):
+        raise ValueError(f"tensors on several devices: {sorted({str(t.device) for t in tensors})}")
     if dev.type == "cpu":
         return True
     if dev.type != "cuda":
@@ -130,7 +126,25 @@ def _check_heads(num_heads: int, hdk: int, hdv: int) -> Tuple[int, int]:
 
 
 def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The raw handle of the current stream of x's CUDA device: torch's
+    cheap form of ``torch.cuda.current_stream(x.device).cuda_stream`` (a
+    small kernel's host cost a call is part of its time where calls follow
+    each other)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
+def _launch(name: str, entry, x: torch.Tensor, *args) -> None:
+    """Call the C entry ``entry`` of wrapper ``name`` with ``args`` and the
+    current stream of x's device, that device current around the call (as
+    ``torch.cuda.device(x.device)`` makes it, in fewer steps); raise on a
+    launch error and count the launch."""
+    prev = torch.cuda._exchange_device(x.device.index)
+    try:
+        err = entry(*args, _stream(x))
+    finally:
+        torch.cuda._maybe_exchange_device(prev)
+    _raise_on_error(name, err)
+    launches[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -164,14 +178,12 @@ def chunk_states(k4: torch.Tensor, v4: torch.Tensor, num_heads: int) -> torch.Te
     if c % 16:
         raise ValueError(f"kernel needs chunk_size % 16 == 0, got {c}")
     dk, dv = _check_heads(num_heads, hdk, v4.shape[-1])
+    if k4.data_ptr() % 16 or v4.data_ptr() % 16:
+        raise ValueError("kernel loads tiles by TMA: its inputs must be 16-byte aligned")
     out = torch.empty(b, n, hdk, dv, dtype=k4.dtype, device=k4.device)
-    with torch.cuda.device(k4.device):
-        err = _lib().mhla_chunk_states(
+    _launch("chunk_states", _lib().mhla_chunk_states, k4,
             k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
-            b * n, c, num_heads, dk, dv, _stream(k4),
-        )
-    _raise_on_error("chunk_states", err)
-    launches["chunk_states"] += 1
+            b * n, c, num_heads, dk, dv)
     return out
 
 
@@ -187,7 +199,7 @@ def _batch_stride(m: torch.Tensor, per_row_ndim: int, name: str, b: int, n: int)
     if tuple(m.shape) == shared:
         return 0
     if tuple(m.shape) == (b, *shared):
-        return m[0].numel()
+        return n ** (per_row_ndim - 1)
     raise ValueError(f"{name} {tuple(m.shape)} is neither {shared} nor {(b, *shared)}")
 
 
@@ -202,74 +214,48 @@ def mix_states_plain(m_strict: torch.Tensor, states4: torch.Tensor) -> torch.Ten
     return out.to(states4.dtype).contiguous()
 
 
-def _wide_args(states4: torch.Tensor, m_bstride: int, *streams: torch.Tensor):
-    """Checks of the wide forms, which load the states (and ``streams``) by
-    TMA; (R, the strip width, the bf16 scratch for M's padded copy)."""
-    b, n, hdk, dv = states4.shape
-    if n > _MAX_SLOTS_WIDE:
-        raise ValueError(f"kernel mixes at most {_MAX_SLOTS_WIDE} chunks, got {n}")
-    r = hdk * dv
-    if r % _WIDE_COLS:
-        raise ValueError(f"kernel needs a state size divisible by {_WIDE_COLS}, got {r}")
-    if any(x.data_ptr() % 16 for x in (states4, *streams)):
-        raise ValueError("kernel loads tiles by TMA: its inputs must be 16-byte aligned")
-    np_ = -(-n // 64) * 64
-    scratch = torch.empty(b if m_bstride else 1, np_, np_, dtype=torch.bfloat16,
-                          device=states4.device)
-    return r, scratch
-
-
-def _mix_args(m_strict: torch.Tensor, states4: torch.Tensor, *others: torch.Tensor) -> int:
-    """Checks shared by both forms of K3 and by K3b; M's batch stride."""
+def _mix_args(m_strict: torch.Tensor, states4: torch.Tensor, *others: torch.Tensor):
+    """Checks shared by K3 and K3b, which load the states (and ``others``)
+    by TMA; (M's batch stride, R, the bf16 scratch for M's padded copy, or
+    None up to _SMALL_SLOTS chunks, where the kernels make none)."""
     _check("m_strict", m_strict, torch.float32, m_strict.ndim)
     for name, x in (("states4", states4), *(("dmixed4", y) for y in others)):
         _check(name, x, torch.bfloat16, 4)
         if x.shape != states4.shape:
             raise ValueError("dmixed4 and states4 disagree in shape")
-    b, n = states4.shape[:2]
-    return _batch_stride(m_strict, 3, "m_strict", b, n)
+    b, n, hdk, dv = states4.shape
+    m_bstride = _batch_stride(m_strict, 3, "m_strict", b, n)
+    if n > _MAX_SLOTS_WIDE:
+        raise ValueError(f"kernel mixes at most {_MAX_SLOTS_WIDE} chunks, got {n}")
+    r = hdk * dv
+    if r % _WIDE_COLS:
+        raise ValueError(f"kernel needs a state size divisible by {_WIDE_COLS}, got {r}")
+    if any(x.data_ptr() % 16 for x in (states4, *others)):
+        raise ValueError("kernel loads tiles by TMA: its inputs must be 16-byte aligned")
+    scratch = None
+    if n > _SMALL_SLOTS:
+        np_ = -(-n // 64) * 64
+        scratch = torch.empty(b if m_bstride else 1, np_, np_, dtype=torch.bfloat16,
+                              device=states4.device)
+    return m_bstride, r, scratch
 
 
-def _mix_states_wide(m_strict: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
-    """The wide K3 at any N up to 832 (``mix_states`` launches it beyond 32
-    chunks; ``chip_smoke.py`` also times it at 32 beside the 32-slot form;
-    it shares its strip kernels with K3b's dS)."""
-    m_bstride = _mix_args(m_strict, states4)
-    b, n = states4.shape[:2]
-    r, scratch = _wide_args(states4, m_bstride)
-    out = torch.empty_like(states4)
-    with torch.cuda.device(states4.device):
-        err = _lib().mhla_mix_states_wide(
-            m_strict.data_ptr(), states4.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            b, n, r, m_bstride, _stream(states4),
-        )
-    _raise_on_error("mix_states", err)
-    launches["mix_states_wide"] += 1
-    return out
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
 
 
 def mix_states(m_strict: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
-    """K3 (see :func:`mix_states_plain`). The kernel reads only the strict
-    lower triangle of ``m_strict`` and takes its values at bf16. Up to 32
-    chunks it mixes in float32 FMAs; beyond, the wide form runs bf16
-    products on the tensor cores."""
+    """K3 (see :func:`mix_states_plain`) at any N up to 832. The kernels
+    read only the strict lower triangle of ``m_strict``, take its values at
+    bf16 and run bf16 products on the tensor cores."""
     if _on_cpu(m_strict, states4):
         return mix_states_plain(m_strict, states4)
-    if states4.shape[1] > _MAX_SLOTS:
-        return _mix_states_wide(m_strict, states4)
-    m_bstride = _mix_args(m_strict, states4)
-    b, n, hdk, dv = states4.shape
-    r = hdk * dv
-    if r % 2:
-        raise ValueError(f"kernel needs an even state size, got {r}")
+    m_bstride, r, scratch = _mix_args(m_strict, states4)
+    b, n = states4.shape[:2]
     out = torch.empty_like(states4)
-    with torch.cuda.device(states4.device):
-        err = _lib().mhla_mix_states(
-            m_strict.data_ptr(), states4.data_ptr(), out.data_ptr(),
-            b, n, r, m_bstride, _stream(states4),
-        )
-    _raise_on_error("mix_states", err)
-    launches["mix_states"] += 1
+    _launch("mix_states", _lib().mhla_mix_states_fwd, states4,
+            m_strict.data_ptr(), states4.data_ptr(), out.data_ptr(), _ptr(scratch),
+            b, n, r, m_bstride)
     return out
 
 
@@ -330,14 +316,10 @@ def chunk_output(
     if c % 16 or c > _MAX_CHUNK:
         raise ValueError(f"kernel needs chunk_size % 16 == 0 and <= {_MAX_CHUNK}, got {c}")
     out = torch.empty(b, n, c, num_heads * dv, dtype=q4.dtype, device=q4.device)
-    with torch.cuda.device(q4.device):
-        err = _lib().mhla_chunk_output(
+    _launch("chunk_output", _lib().mhla_chunk_output, q4,
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mixed4.data_ptr(),
             m_diag.data_ptr(), out.data_ptr(),
-            b * n, n, c, num_heads, dk, dv, md_bstride, _stream(q4),
-        )
-    _raise_on_error("chunk_output", err)
-    launches["chunk_output"] += 1
+            b * n, n, c, num_heads, dk, dv, md_bstride)
     return out
 
 
@@ -423,15 +405,11 @@ def chunk_output_bwd(
     dv_i = torch.empty_like(v4)
     dmixed4 = torch.empty_like(mixed4)
     dmd = torch.zeros(m_diag.shape, dtype=torch.float32, device=q4.device)
-    with torch.cuda.device(q4.device):
-        err = _lib().mhla_chunk_output_bwd(
+    _launch("chunk_output_bwd", _lib().mhla_chunk_output_bwd, q4,
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mixed4.data_ptr(),
             m_diag.data_ptr(), do4.data_ptr(), dq4.data_ptr(), dk_i.data_ptr(),
             dv_i.data_ptr(), dmixed4.data_ptr(), dmd.data_ptr(),
-            b * n, n, c, num_heads, dk, dv, md_bstride, _stream(q4),
-        )
-    _raise_on_error("chunk_output_bwd", err)
-    launches["chunk_output_bwd"] += 1
+            b * n, n, c, num_heads, dk, dv, md_bstride)
     return dq4, dk_i, dv_i, dmixed4, dmd
 
 
@@ -459,7 +437,7 @@ def mix_states_bwd_plain(
 
 def _gram_slices(n: int, r: int, rows: int) -> Tuple[int, int]:
     """(splits, slice): the fixed slices [s * slice, min((s + 1) * slice, R))
-    of the R state columns, s = 0 .. splits - 1, over which the wide K3b sums
+    of the R state columns, s = 0 .. splits - 1, over which K3b sums
     dMs: each a multiple of 64 columns but the last, none empty, together
     exactly R, as many as give about _GRAM_BLOCKS blocks with the 128 x 128
     tiles on and below dMs's diagonal and the ``rows`` batch rows."""
@@ -474,27 +452,22 @@ def mix_states_bwd(
     m_strict: torch.Tensor, dmixed4: torch.Tensor, states4: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3b (see :func:`mix_states_bwd_plain`) at any N up to 832, taking M's
-    values at bf16 as K3 does: dS through the strip kernels of the wide K3,
-    dMs from fixed slices of the state columns summed in a fixed order, so
-    both are the same bit for bit from run to run."""
+    values at bf16 as K3 does: dS through K3's kernels on M transposed, dMs
+    from fixed slices of the state columns summed in a fixed order, so both
+    are the same bit for bit from run to run."""
     if _on_cpu(m_strict, dmixed4, states4):
         return mix_states_bwd_plain(m_strict, dmixed4, states4)
-    m_bstride = _mix_args(m_strict, states4, dmixed4)
+    m_bstride, r, scratch = _mix_args(m_strict, states4, dmixed4)
     b, n = states4.shape[:2]
-    r, scratch = _wide_args(states4, m_bstride, dmixed4)
     splits, slice_ = _gram_slices(n, r, b)
     ng = -(-n // _GRAM_ROWS) * _GRAM_ROWS
     part = torch.empty(b, splits, ng, ng, dtype=torch.float32, device=states4.device)
     dstates4 = torch.empty_like(states4)
     dms = torch.empty(m_strict.shape, dtype=torch.float32, device=states4.device)
-    with torch.cuda.device(states4.device):
-        err = _lib().mhla_mix_states_bwd(
+    _launch("mix_states_bwd", _lib().mhla_mix_states_bwd, states4,
             m_strict.data_ptr(), dmixed4.data_ptr(), states4.data_ptr(),
-            dstates4.data_ptr(), dms.data_ptr(), scratch.data_ptr(), part.data_ptr(),
-            b, n, r, m_bstride, splits, slice_, _stream(states4),
-        )
-    _raise_on_error("mix_states_bwd", err)
-    launches["mix_states_bwd"] += 1
+            dstates4.data_ptr(), dms.data_ptr(), _ptr(scratch), part.data_ptr(),
+            b, n, r, m_bstride, splits, slice_)
     return dstates4, dms
 
 
@@ -551,14 +524,10 @@ def chunk_states_bwd(
     if any(x.data_ptr() % 16 for x in (k4, v4, dstates4, dk_intra4, dv_intra4)):
         raise ValueError("kernel loads tiles by TMA: its inputs must be 16-byte aligned")
     gk, gv = torch.empty_like(k4), torch.empty_like(v4)
-    with torch.cuda.device(k4.device):
-        err = _lib().mhla_chunk_states_bwd(
+    _launch("chunk_states_bwd", _lib().mhla_chunk_states_bwd, k4,
             k4.data_ptr(), v4.data_ptr(), dstates4.data_ptr(), dk_intra4.data_ptr(),
             dv_intra4.data_ptr(), gk.data_ptr(), gv.data_ptr(),
-            b * n, c, num_heads, dk, dv, _stream(k4),
-        )
-    _raise_on_error("chunk_states_bwd", err)
-    launches["chunk_states_bwd"] += 1
+            b * n, c, num_heads, dk, dv)
     return gk, gv
 
 

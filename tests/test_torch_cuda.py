@@ -97,7 +97,7 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     k4 = torch.zeros(1, 2, 64, 512, device=dev)  # float32: the kernel takes bf16
     with pytest.raises(TypeError):
         mhla_chunk.chunk_states(k4, k4, 4)
-    with pytest.raises(ValueError):  # beyond the 832 slots the wide form stages
+    with pytest.raises(ValueError):  # beyond the 832 slots the strip form stages
         mhla_chunk.mix_states(torch.zeros(900, 900, device=dev),
                               torch.zeros(1, 900, 16, 128, dtype=torch.bfloat16, device=dev))
 
@@ -208,6 +208,35 @@ def test_chunk_states_bwd_refuses_head_dims_it_lacks(dev):
                                                      device=dev), x, y, 2)
 
 
+# (batch rows, chunks, Dk, Dv, chunk size) of K2's card cases: one 781-token
+# row (13 chunks), (a)'s 4 x 1984 (31) and (c)'s 8 x 2048 (32), each at
+# every key head dim of the set, Dv and C taken in turn; then chunks longer
+# than a slab of 64 rows (the kernel it replaced took any C % 16)
+_K2_CASES = [(b, n, dk, (128, 256, 512)[i % 3], (16, 32, 64)[(i + j) % 3])
+             for j, (b, n) in enumerate([(1, 13), (4, 31), (8, 32)])
+             for i, dk in enumerate((16, 96, 128, 272, 384))] + \
+            [(2, 3, 128, 256, 80), (2, 3, 128, 256, 128)]
+
+
+@pytest.mark.parametrize("b,n,dk,dv,c", _K2_CASES)
+def test_chunk_states_kernel_forms_match_plain(dev, b, n, dk, dv, c):
+    """K2 at key head dims below, between and above its 128-row items (16,
+    96, 128, 272, 384: zero-filled boxes and rows not stored), Dv of one to
+    four 128-column panels and chunks of 16 to 128 rows (zero-filled slab
+    rows; two slabs summed), at the main path's batch rows and chunk counts;
+    the same bits twice."""
+    h = 2
+    k4 = _randn(dev, b, n, c, h * dk, seed=1).to(_BF16)
+    v4 = _randn(dev, b, n, c, h * dv, seed=2).to(_BF16)
+    before = mhla_chunk.launches["chunk_states"]
+    got = mhla_chunk.chunk_states(k4, v4, h)
+    assert got.shape == (b, n, h * dk, dv)
+    assert_close(f"chunk_states Dk={dk} Dv={dv} C={c}", mhla_chunk.chunk_states_plain(k4, v4, h),
+                 got, KERNEL_TOL)
+    assert torch.equal(got, mhla_chunk.chunk_states(k4, v4, h))
+    assert mhla_chunk.launches["chunk_states"] == before + 2
+
+
 def test_op_gradients_through_kernels_match_plain_autograd(dev):
     """dx_q, dx_k, dv and dM of fmap+RoPE and the chunk op through K1-K4 and
     K1b-K4b against autograd of the plain definitions (chip_smoke.py's
@@ -229,7 +258,7 @@ def test_backward_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(TypeError):
         mhla_chunk.chunk_states_bwd(x, x, torch.zeros(1, 2, 512, 128, device=dev), x, x, 4)
     big = torch.zeros(1, 900, 16, 128, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError):  # beyond the 832 slots the wide form stages
+    with pytest.raises(ValueError):  # beyond the 832 slots the strip form stages
         mhla_chunk.mix_states_bwd(torch.zeros(900, 900, device=dev), big, big)
     with pytest.raises(TypeError):
         mhla_chunk.mix_states_bwd(m, big[:, :2].float(), big[:, :2].float())
@@ -1345,9 +1374,9 @@ def _wide_mixing(dev, b, n, per_row, seed=7):
                                          (2, 64, True), (2, 448, True), (2, 512, True),
                                          (2, 832, True)])
 def test_wide_mix_kernels_match_plain(dev, b, n, per_row):
-    """K3 and K3b beyond 32 chunks (the wide forms) against their plain
-    versions, shared and per-row M (reloaded as the batch row changes),
-    ragged N included: streamed at 1-4 row tiles (N <= 256), then strips
+    """K3 and K3b beyond 32 chunks against their plain versions, shared and
+    per-row M (reloaded as the batch row changes), ragged N included: the
+    small form (N <= 64), streamed at 2-4 row tiles (N <= 256), then strips
     with M through a ring and one or two buffers of rows; dS and dMs bit for
     bit over two runs (fixed slices, no atomics)."""
     states4 = _randn(dev, b, n, 512, 256, seed=1).to(_BF16)
@@ -1364,9 +1393,8 @@ def test_wide_mix_kernels_match_plain(dev, b, n, per_row):
     ds2, dm2 = mhla_chunk.mix_states_bwd(m, dmixed4, states4)
     assert torch.equal(ds, ds2) and torch.equal(dm, dm2)
     after = mhla_chunk.launches
-    assert after["mix_states_wide"] == before["mix_states_wide"] + 1
+    assert after["mix_states"] == before["mix_states"] + 1
     assert after["mix_states_bwd"] == before["mix_states_bwd"] + 2
-    assert after["mix_states"] == before["mix_states"]
 
 
 def test_wide_mix_kernels_hold_at_a_size_met_before(dev):
@@ -1388,9 +1416,9 @@ def test_wide_mix_kernels_hold_at_a_size_met_before(dev):
 
 @pytest.mark.parametrize("n", [32, 33])
 def test_mix_kernels_take_m_at_bf16(dev, n):
-    """The 32-slot K3 (N = 32), the wide K3 (N = 33) and K3b (both) take an
-    unrounded M at bf16: the same bits as M rounded first, and the plain
-    versions' result."""
+    """K3 and K3b at N = 32 (the small form, M's tile built in registers)
+    and N = 33 take an unrounded M at bf16: the same bits as M rounded
+    first, and the plain versions' result."""
     states4 = _randn(dev, 2, n, 512, 256, seed=3).to(_BF16)
     dmixed4 = _randn(dev, 2, n, 512, 256, seed=4).to(_BF16)
     m = torch.tril(torch.rand(n, n, generator=torch.Generator(dev).manual_seed(6),
@@ -1403,6 +1431,38 @@ def test_mix_kernels_take_m_at_bf16(dev, n):
     assert torch.equal(ds, mhla_chunk.mix_states_bwd(m_bf, dmixed4, states4)[0])
     assert_close(f"K3b dS N={n}", mhla_chunk.mix_states_bwd_plain(m, dmixed4, states4)[0], ds,
                  KERNEL_TOL)
+
+
+@pytest.mark.parametrize("n", [1, 2, 13, 31, 32, 33, 64])
+@pytest.mark.parametrize("hdk,dv", [(512, 256), (5, 128)])
+def test_small_mix_kernels_match_plain(dev, n, hdk, dv):
+    """K3 and K3b's dS at the chunk counts of the small form and its edges
+    (one chunk, a 781-token row's 13, (a)'s 31, (c)'s 32, 33, 64), at the
+    340M's states and at a state size that ends half way through an item of
+    256 columns (R = 640), with a shared M and one per batch row: each
+    against its plain version, the same bits twice, and per-row rows that
+    repeat the shared M give the shared result bit for bit."""
+    b = 3
+    states4 = _randn(dev, b, n, hdk, dv, seed=1).to(_BF16)
+    dmixed4 = _randn(dev, b, n, hdk, dv, seed=2).to(_BF16)
+    m = _wide_mixing(dev, b, n, False)
+    m_rows = _wide_mixing(dev, b, n, True)
+    for tag, mm in (("shared", m), ("per-row", m_rows)):
+        out = mhla_chunk.mix_states(mm, states4)
+        assert_close(f"K3 {tag} N={n} R={hdk * dv}", mhla_chunk.mix_states_plain(mm, states4),
+                     out, KERNEL_TOL)
+        assert torch.equal(out, mhla_chunk.mix_states(mm, states4))
+        ds, dm = mhla_chunk.mix_states_bwd(mm, dmixed4, states4)
+        ds_ref, dm_ref = mhla_chunk.mix_states_bwd_plain(mm, dmixed4, states4)
+        assert_close(f"K3b dS {tag} N={n}", ds_ref, ds, KERNEL_TOL)
+        assert_close(f"K3b dM {tag} N={n}", dm_ref, dm, KERNEL_TOL)
+        ds2, dm2 = mhla_chunk.mix_states_bwd(mm, dmixed4, states4)
+        assert torch.equal(ds, ds2) and torch.equal(dm, dm2)
+    repeated = m.expand(b, n, n).contiguous()
+    assert torch.equal(mhla_chunk.mix_states(m, states4),
+                       mhla_chunk.mix_states(repeated, states4))
+    assert torch.equal(mhla_chunk.mix_states_bwd(m, dmixed4, states4)[0],
+                       mhla_chunk.mix_states_bwd(repeated, dmixed4, states4)[0])
 
 
 def test_long_context_shapes_the_kernels_lack_raise(dev):
@@ -1433,7 +1493,7 @@ def test_tiny_long_context_hybrid_lm_through_the_kernels(dev):
     toks = generate(model, ids, max_new_tokens=4)
     counts = kernels.launch_counts()
     assert toks.shape == (1, 2116)
-    assert counts["flash_attention_masked"] == 1 and counts["mix_states_wide"] == 1
+    assert counts["flash_attention_masked"] == 1 and counts["mix_states"] == 1
     state = init_train_state(model, OptimizerConfig(warmup_steps=1))
     step = make_train_step(lambda mdl, batch: (cross_entropy_loss(mdl(batch)[0], batch), {}))
     kernels.reset_launch_counts()
@@ -1445,20 +1505,23 @@ def test_tiny_long_context_hybrid_lm_through_the_kernels(dev):
 
 # (rows of a, N, K, a read MN-major, b read MN-major) of mhla_wgmma_check's
 # layouts (csrc/hopper_check.cu): the products K9 and K9b run (0-7; a from
-# registers where b is MN-major), then K2b's and the wide K3 / K3b's (8-13)
+# registers where b is MN-major; 6 also the small K3 / dS), then K2b's and
+# the larger K3 / K3b forms' (8-13), then K2's second 64 rows of Dk (14: A
+# the last 64 columns of a [64][128] tile read MN-major)
 _WGMMA_LAYOUTS = [(128, 128, 128, False, False), (128, 64, 256, False, False),
                   (128, 64, 128, False, False), (64, 128, 128, False, False),
                   (64, 64, 256, False, False), (64, 128, 128, False, True),
                   (64, 256, 64, False, True), (64, 128, 64, False, True),
                   (64, 128, 128, False, True), (64, 128, 256, False, True),
                   (64, 256, 128, False, False), (64, 64, 64, True, True),
-                  (64, 128, 64, True, True), (64, 64, 64, False, True)]
+                  (64, 128, 64, True, True), (64, 64, 64, False, True),
+                  (128, 128, 64, True, True)]
 
 
 @pytest.mark.parametrize("layout", range(len(_WGMMA_LAYOUTS)))
 def test_wgmma_over_tma_tiles_matches_matmul(dev, layout):
     """One wgmma product over TMA-loaded, 128-byte-swizzled tiles for each
-    operand layout of K9 / K9b, K2b and the wide K3 / K3b (K-major a and b;
+    operand layout of K9 / K9b, K2, K2b and K3 / K3b (K-major a and b;
     register a with b read MN-major; a and b from shared memory, either
     read MN-major) against torch.matmul of the same bf16 values in float32."""
     import ctypes
@@ -1478,7 +1541,7 @@ def test_wgmma_over_tma_tiles_matches_matmul(dev, layout):
                                torch.cuda.current_stream(dev).cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
-    a64 = a.float().T if a_mn else a[rows - 64:].float()
+    a64 = (a.float().T if a_mn else a.float())[rows - 64:]
     ref = a64 @ (b.float() if b_mn else b.float().T)
     assert torch.allclose(c, ref, rtol=1e-4, atol=1e-3), (c - ref).abs().max().item()
 
@@ -1542,11 +1605,13 @@ def test_flash_kernels_run_on_wgmma_and_tma(dev):
 
 
 def test_k2b_and_wide_mix_kernels_run_on_wgmma_and_tma(dev):
-    """The built library's K2b kernels (key tiles 64, 128, 256), the wide K3 /
-    K3b kernels (the streamed form at 1-4 row tiles and the strip form, both
-    walks) and the wide dMs Gram kernel hold HGMMA (wgmma) and UTMALDG (TMA
-    loads) and no HMMA (mma.sync or WMMA)."""
-    found = {kind: 0 for kind in ("chunk_states_bwd_kernel", "mix_stream_kernel",
+    """The built library's K2 kernel, its K2b kernels (key tiles 64, 128,
+    256), the K3 / K3b kernels (the small form at 1-4 products a stage, the
+    streamed form at 2-4 row tiles and the strip form, both walks) and the
+    dMs Gram kernel hold HGMMA (wgmma) and UTMALDG (TMA loads) and no HMMA
+    (mma.sync or WMMA)."""
+    found = {kind: 0 for kind in ("chunk_states_kernel", "chunk_states_bwd_kernel",
+                                  "mix_small_kernel", "mix_stream_kernel",
                                   "mix_strip_kernel", "gram_partial_kernel")}
     for fn, text in _sass_bodies().items():
         kind = next((k for k in found if k in fn), None)
@@ -1555,5 +1620,6 @@ def test_k2b_and_wide_mix_kernels_run_on_wgmma_and_tma(dev):
         assert "HGMMA" in text and "UTMALDG" in text, fn
         assert " HMMA" not in text, fn
         found[kind] += 1
-    assert found == {"chunk_states_bwd_kernel": 3, "mix_stream_kernel": 8, "mix_strip_kernel": 2,
+    assert found == {"chunk_states_kernel": 1, "chunk_states_bwd_kernel": 3,
+                     "mix_small_kernel": 8, "mix_stream_kernel": 6, "mix_strip_kernel": 2,
                      "gram_partial_kernel": 1}

@@ -66,7 +66,7 @@ _RUN_TINY_WAN_TRAINING = textwrap.dedent(
     assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
     assert all(p.grad is not None for p in model.parameters())
     counts = kernels.launch_counts()
-    assert len(counts) == 26 and not any(counts.values()), counts
+    assert len(counts) == 25 and not any(counts.values()), counts
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "mhla_tpu", "triton"))
     print("LEAKED", leaked)
@@ -131,7 +131,7 @@ def test_launch_counters_stay_zero_on_cpu():
     assert set(counts) == {
         "fmap_rope", "chunk_states", "mix_states", "chunk_output",
         "fmap_rope_bwd", "chunk_output_bwd", "mix_states_bwd", "chunk_states_bwd",
-        "mix_states_wide", "blockify_island", "mix_states_dense", "block_readout", "unblockify_island",
+        "blockify_island", "mix_states_dense", "block_readout", "unblockify_island",
         "flash_attention", "radial_flash_attention",
         "unblockify", "blockify", "block_readout_bwd", "flash_attention_bwd",
         "radial_flash_attention_bwd", "flash_attention_masked", "flash_attention_masked_bwd",
@@ -206,4 +206,4 @@ def test_launch_counters_stay_zero_on_cpu_through_hybrid_sparse_sampling():
     )
     assert latents.shape == (1, 8, 32, 32, 16) and torch.isfinite(latents).all()
     counts = kernels.launch_counts()
-    assert len(counts) == 26 and all(n == 0 for n in counts.values()), counts
+    assert len(counts) == 25 and all(n == 0 for n in counts.values()), counts

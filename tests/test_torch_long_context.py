@@ -172,7 +172,7 @@ def test_wide_mix_matches_jax_pallas_kernels(n, b, per_row, _force_interpret):
 
 @pytest.mark.parametrize("n", [32, 40])
 def test_mix_takes_m_at_the_states_dtype(n):
-    """On either side of the 32-slot limit, mix_states and mix_states_bwd
+    """At the 340M's 32 chunks and past them, mix_states and mix_states_bwd
     (the plain K3 / K3b, as the card's kernels) take an unrounded M at the
     bf16 of the states: the same bits as M rounded first, and JAX's mixing
     einsum with M in bf16, the dtype JAX's op hands it in."""

@@ -211,6 +211,53 @@ def test_wrappers_raise_off_cpu_and_cuda():
         port_kernels.mix_states(torch.empty(1, 1, 1, device="meta"), x[:, :, 0].unsqueeze(-1))
 
 
+@pytest.mark.parametrize("b,n", [(2, 4), (1, 5)])
+def test_chunk_states_plain_matches_jax_phase_a_kernel(b, n):
+    """K2's plain version (what the card kernel is held to), through the
+    wrapper, against JAX's ``_phase_a_pallas`` in interpret mode at H = 2,
+    Dk = 32, Dv = 128, C = 16 (4 chunks: JAX's kernel takes them in a group;
+    5: one at a time): in float32 on bf16-representable values (TOL), and
+    with bf16 inputs and output against JAX's float32 result rounded to bf16
+    (2e-3, half a bf16 ulp: the sums run in another order, which can flip a
+    rounding)."""
+    from mhla_tpu.kernels.mhla_chunk_pallas import _phase_a_pallas
+
+    c, h, dk, dv = 16, 2, 32, 128
+    rng = np.random.default_rng(11)
+    k4, v4 = (
+        torch.from_numpy(rng.standard_normal((b, n, c, h * d)).astype(np.float32))
+        .to(torch.bfloat16).float()
+        for d in (dk, dv))
+    ref = _t(_phase_a_pallas(jnp.asarray(k4.numpy()), jnp.asarray(v4.numpy()), h))
+    got = port_kernels.chunk_states(k4, v4, h)
+    assert got.shape == ref.shape == (b, n, h * dk, dv)
+    assert_close("K2 plain vs JAX", ref, got, TOL)
+    got16 = port_kernels.chunk_states(k4.to(torch.bfloat16), v4.to(torch.bfloat16), h)
+    assert got16.dtype == torch.bfloat16
+    assert_close("K2 plain bf16 vs JAX", ref.to(torch.bfloat16).float(), got16.float(), 2e-3)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("n", [8, 128])
+def test_mix_states_plain_matches_jax_mix_states(n, per_row):
+    """K3's plain version (what the card kernels are held to), through the
+    wrapper, against JAX's ``mix_states`` at H = 2, Dk = 32, Dv = 128, with
+    a shared and a per-row M, in float32 (TOL): at N = 8 JAX runs its XLA
+    einsum (``_mix_xla``; the port its small-N kernel), at N = 128 its
+    ``_mix_kernel`` in interpret mode."""
+    from mhla_tpu.kernels import mhla_chunk_pallas as jax_pallas
+
+    b, h, dk, dv = 2, 2, 32, 128
+    rng = np.random.default_rng(12)
+    states = rng.standard_normal((b, n, h * dk, dv)).astype(np.float32)
+    m = np.tril(rng.uniform(0.0, 1.0, (b, n, n) if per_row else (n, n)).astype(np.float32), -1)
+    assert jax_pallas._mix_use_pallas(n, dv) == (n == 128)
+    ref = jax_pallas.mix_states(jnp.asarray(m), jnp.asarray(states))
+    got = port_kernels.mix_states(_t(m), _t(states))
+    assert got.shape == (b, n, h * dk, dv)
+    assert_close(f"K3 plain vs JAX N={n} per_row={per_row}", np.asarray(ref), got, TOL)
+
+
 @pytest.mark.parametrize("dv", [128, 256])
 def test_chunk_states_bwd_plain_matches_jax_acc_kernel(dv):
     """K2b's plain version (what the card kernel is held to) with nonzero
