@@ -120,7 +120,11 @@ exits non-zero:
              (``attn_extends='simple_gla'``): finite losses, exact launches.
 22. kernels (video) — K5-K9 against their plain versions at the shapes of
              the Wan2.1-1.3B sampler: CFG batch 2, 31,500 tokens in 150
-             blocks of 210, cross-attention against 512 text tokens.
+             blocks of 210, cross-attention against 512 text tokens; K6
+             (TF32 tensor cores split to float32 accuracy) in float32 within
+             1e-5, timed beside its earlier SIMT kernel's time, its bound
+             and ``torch.matmul``, also at the training shape (batch 1, on
+             M^T, as the backward takes it).
 23. video   — ``mhla_tpu_torch.eval.video_infer_cli.main`` samples 4
              DPM-Solver++ steps with CFG 5.0 of the 30-layer full-MHLA
              model at latents (21, 60, 100, 16). Checks finite latents, the
@@ -162,9 +166,11 @@ exits non-zero:
              backward) against their plain versions at [1, 31,500, 12, 128]
              in 21 frames, each beside its bound (allowed pairs counted
              exactly) and one library call (``scaled_dot_product_attention``
-             with the boolean mask, and its backward); two runs of K10b bit
-             for bit; K10 in both forms and K10b at a small ragged geometry
-             (437 tokens in 4 frames); the gradients of one radial-sparse
+             with the boolean mask, and its backward), K10b also beside its
+             earlier mma.sync kernel's time; two runs of K10b bit for bit;
+             the tiles K10b's two kernels walked (``visits``) against their
+             lists' lengths; K10 in both forms and K10b at a small ragged
+             geometry (437 tokens in 4 frames); the gradients of one radial-sparse
              ``WanSelfAttention`` layer at 31,500 tokens through the kernels
              against the same layer through the plain versions.
 30. train (video, hybrid_sparse) — ``wan_train.main`` as in 28 with the ten
@@ -230,6 +236,11 @@ FLASH_BWD_TOL = 2e-3
 # the CPU's plain paths gives 3.1e-2 in bf16 and 3.7e-6 in float32, so
 # 3e-2 is the bf16 floor; a wrong slot, position or mixing row gives O(1).
 SERVE_TOL = 5e-2
+# Relative-RMS tolerance of K6's float32 form against its plain version (the
+# float32 einsum, TF32 off): its three TF32 products carry float32 accuracy
+# (2.2e-7 against float64 at N = 150 on the CPU), where one TF32 product
+# would be about 3e-4 off, above this bound.
+K6_F32_TOL = 1e-5
 # Relative-RMS tolerance of the op's gradients (dx_q, dx_k, dv, dM) through
 # the kernels against autograd of the plain definitions (fmap_rope_plain,
 # ops.mhla_chunk), bf16: the two round at different points (the plain op
@@ -316,8 +327,18 @@ CHUNK_MMA_SYNC_MS = {
     ("mix_states_bwd[wide]", "N=448"): (0.5824,),
     ("mix_states_bwd[wide]", "N=512"): (0.7422,),
 }
-# this run's timed K9 / K9b, K2 / K2b and K3 / K3b forms beside their earlier
-# kernels' times
+# K6's and K10b's times with their earlier kernels (K6 on float32 FMAs
+# outside the tensor cores, K10b on mma.sync over cp.async tiles), before
+# the Hopper redesigns (TF32 wgmma split to float32 accuracy; the radial form
+# of K9b's wgmma / TMA kernels), by (kernel, shape tag) as this script times
+# them: PERF.md section 6's table (NVIDIA H100 80GB HBM3, 700.00 W).
+VIDEO_EARLIER_MS = {
+    ("mix_states_dense", "float32 N=150"): (0.6905,),
+    ("mix_states_dense[bf16]", "bfloat16 N=150"): (0.6507,),
+    ("radial_flash_attention_bwd", "T=31500 21 frames B=1"): (47.4294,),
+}
+# this run's timed K9 / K9b, K2 / K2b, K3 / K3b, K6 and K10b forms beside
+# their earlier kernels' times
 REDESIGN_TIMES = {}
 # every timed kernel form's host cost per call (host_us) and the card's time
 # for one call (device_ms)
@@ -364,7 +385,7 @@ KERNEL_META = {
                           "mhla_tpu/kernels/mhla_block_pallas.py:116"),
     "flash_attention_bwd": ("cuda", "mhla_tpu_torch/csrc/flash_bwd.cu",
                             "mhla_tpu/kernels/flash_attention.py:115"),
-    "radial_flash_attention_bwd": ("cuda", "mhla_tpu_torch/csrc/radial_bwd.cu",
+    "radial_flash_attention_bwd": ("cuda", "mhla_tpu_torch/csrc/flash_bwd.cu",
                                    "mhla_tpu/kernels/sparse_attention.py:507"),
     # the packed-documents and hybrid LM path: per-row forms of K1-K4b and
     # the causal and segment-id forms of K9 / K9b
@@ -574,9 +595,10 @@ def _as_tuple(x):
 
 
 # Published peaks of one H100 SXM (dense): device memory 3.35 TB/s, bf16 on
-# the tensor cores 989 TFLOP/s, float32 outside them 67 TFLOP/s.
+# the tensor cores 989 TFLOP/s, TF32 on them 495 TFLOP/s (K6's products),
+# float32 outside them 67 TFLOP/s.
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, "tf32": 495e12, torch.float32: 67e12}
 
 
 def nbytes(*tensors) -> int:
@@ -629,17 +651,18 @@ def check_kernel(results: dict, name: str, shape_tag: str, kern, plain, timed: b
             msg += f"  library {r['library_ms']:.4f} ms"
         msg += f"  host {r['host_us']:.1f} us/call  device {r['device_ms']:.4f} ms/call"
     log(msg)
-    if timed and (name.startswith("flash_attention") or (name, shape_tag) in CHUNK_MMA_SYNC_MS):
+    if timed and (name.startswith("flash_attention") or (name, shape_tag) in CHUNK_MMA_SYNC_MS
+                  or (name, shape_tag) in VIDEO_EARLIER_MS):
         log_redesign_time(name, shape_tag, r)
 
 
 def log_redesign_time(name: str, shape_tag: str, r: dict) -> None:
-    """Keep and print a timed K9 / K9b, K2 / K2b or K3 / K3b form beside its
-    time with the earlier kernels, its bound and the library call's time,
-    with the ratios."""
-    flash = name.startswith("flash_attention")
-    before = (FLASH_MMA_SYNC_MS.get((name, shape_tag)),) if flash else \
-        CHUNK_MMA_SYNC_MS[(name, shape_tag)]
+    """Keep and print a timed K9 / K9b, K2 / K2b, K3 / K3b, K6 or K10b form
+    beside its time with the earlier kernels, its bound and the library
+    call's time, with the ratios."""
+    key = (name, shape_tag)
+    before = ((FLASH_MMA_SYNC_MS.get(key),) if name.startswith("flash_attention")
+              else CHUNK_MMA_SYNC_MS.get(key) or VIDEO_EARLIER_MS[key])
     before = tuple(x for x in before if x)
     lib = r["library_ms"]
     REDESIGN_TIMES[f"{name} {shape_tag}"] = {
@@ -834,21 +857,32 @@ def phase_kernels_video(dev: torch.device) -> dict:
     states = randn(b, n, f, dh)
     q4 = torch.relu(randn(b, n, c, f)) + eps
     mixed = mhla_block.mix_states_dense_plain(m, states)
-    for dt, suffix, timed in ((f32, "", True), (bf16, "[bf16]", True)):
+    # K6's bound: the bytes, or the TF32 products at the tensor cores' TF32
+    # peak: three for float32 accuracy; one for the bf16 form, whose output
+    # rounding lies above a single TF32 product's error
+    for dt, suffix, products in ((f32, "", 3), (bf16, "[bf16]", 1)):
         st, qq, mx = states.to(dt), q4.to(dt), mixed.to(dt)
         check("mix_states_dense" + suffix, f"{str(dt)[6:]} N={n}",
               lambda: mhla_block.mix_states_dense(m, st),
-              lambda: mhla_block.mix_states_dense_plain(m, st), timed,
-              work=(nbytes(m) + 2 * nbytes(st), 2 * n * n * b * f * dh, dt),
-              library=lambda: torch.matmul(m.to(dt), st.view(b, n, f * dh)))
+              lambda: mhla_block.mix_states_dense_plain(m, st), True,
+              work=(nbytes(m) + 2 * nbytes(st), products * 2 * n * n * b * f * dh, "tf32"),
+              library=lambda: torch.matmul(m.to(dt), st.view(b, n, f * dh)),
+              tol=K6_F32_TOL if dt == f32 else KERNEL_TOL)
         check("block_readout" + suffix, f"{str(dt)[6:]} C={c}",
               lambda: mhla_block.block_readout(qq, mx, h),
-              lambda: mhla_block.block_readout_plain(qq, mx, h), timed,
+              lambda: mhla_block.block_readout_plain(qq, mx, h), True,
               work=(2 * nbytes(qq) + nbytes(mx), 2 * b * n * c * h * dh * dh, dt),
               library=lambda: torch.einsum("bnchk,bnhkv->bnchv", qq.unflatten(-1, (h, dh)),
                                            mx.unflatten(-2, (h, dh))))
         del st, qq, mx
-    del states, mixed
+    # the training shape: batch 1, on M^T (the backward's dstates = M^T dmixed)
+    mt, st1 = m.T.contiguous(), states[:1].contiguous()
+    check("mix_states_dense[M^T]", f"float32 N={n} B=1",
+          lambda: mhla_block.mix_states_dense(mt, st1),
+          lambda: mhla_block.mix_states_dense_plain(mt, st1), True,
+          work=(nbytes(mt) + 2 * nbytes(st1), 3 * 2 * n * n * f * dh, "tf32"),
+          library=lambda: torch.matmul(mt, st1.view(1, n, f * dh)), tol=K6_F32_TOL)
+    del states, mixed, st1
 
     # K8 on the default path (float32 island, rounded to bf16 before the norm) and on the bf16 island
     check("unblockify_island", "f32->bf16",
@@ -3010,15 +3044,21 @@ def phase_kernels_sparse_train(dev: torch.device) -> dict:
           lambda: sparse.radial_flash_attention_bwd(qs, ks, vs, os_, lses, dos, rf),
           lambda: sparse.radial_flash_attention_bwd_plain(qs, ks, vs, os_, lses, dos, rf), False,
           tol=FLASH_BWD_TOL)
+    walks = {f"T={rt} {rf} frames B=2 H=3": k10b_walk(sparse, qs, ks, vs, os_, lses, dos, rf)}
 
     q, k, v, do = (randn(b, t, h, dh).to(bf16) for _ in range(4))
     offsets, tiles, _ = sparse.radial_schedule(t, frames)
     pairs = sparse.radial_allowed_pairs(t, frames)
     lengths = np.diff(offsets)
-    log(f"[kernels] radial schedule at {frames} frames of {t // frames}: {len(tiles)} tiles in "
-        f"{len(lengths)} lists (one list serves a query tile in K10 and the dQ kernel and a key "
-        f"tile in the dK/dV kernel): longest {lengths.max()}, mean {lengths.mean():.1f}, "
-        f"shortest {lengths.min()}")
+    log(f"[kernels] radial schedule at {frames} frames of {t // frames}: {len(tiles)} tiles of "
+        f"64 x 64 in {len(lengths)} lists (K10's query tiles): longest {lengths.max()}, mean "
+        f"{lengths.mean():.1f}, shortest {lengths.min()}")
+    for kernel, (offs, tls, _, _) in sparse.radial_bwd_lists(t, frames).items():
+        own, step = sparse.BWD_WALK_TILES[kernel]
+        lens = np.diff(offs)
+        log(f"[kernels] K10b's {kernel} list: blocks of {own} over tiles of {step}, {len(tls)} "
+            f"tiles of {len(lens) * (-(-t // step))} in {len(lens)} lists: longest "
+            f"{lens.max()}, mean {lens.mean():.1f}, shortest {lens.min()}")
     mask = torch.cat([sparse.radial_block_mask(r, min(t, r + 2048), t, frames, dev)
                       for r in range(0, t, 2048)])
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
@@ -3059,11 +3099,31 @@ def phase_kernels_sparse_train(dev: torch.device) -> dict:
     if not all(torch.equal(x, y) for x, y in zip(first, again)):
         raise AssertionError("radial_flash_attention_bwd: two runs differ")
     log("[kernels] radial_flash_attention_bwd: two runs equal")
+    walks[f"T={t} {frames} frames B={b} H={h}"] = k10b_walk(sparse, q, k, v, o, lse, do, frames)
+    results["k10b_walks"] = walks
     del q, k, v, do, o, lse, qt, kt, vt, dot, sdpa_out, mask, first, again, lib_fwd, lib_bwd
 
     check_layer_grads(dev, "WanSelfAttention[sparse]",
                       WanSelfAttention(h * dh, h, sparse=True, device=dev), (VIDEO_GRID,))
     return results
+
+
+def k10b_walk(sparse, q, k, v, o, lse, do, frames: int) -> dict:
+    """The tiles K10b's dK/dV and dQ kernels walked in one call (their
+    ``visits`` counters) against their lists' lengths times heads and batch
+    rows; raises unless they agree."""
+    b, t, h, _ = q.shape
+    visits = torch.zeros(2, dtype=torch.int32, device=q.device)
+    sparse.radial_flash_attention_bwd(q, k, v, o, lse, do, frames, visits=visits)
+    walked, listed = visits.tolist(), sparse.radial_bwd_visits(t, frames, h, b)
+    full = [h * b * (-(-t // own)) * (-(-t // step))
+            for own, step in (sparse.BWD_WALK_TILES[kern] for kern in ("dkv", "dq"))]
+    log(f"[kernels] radial_flash_attention_bwd T={t} {frames} frames B={b} H={h}: tiles walked "
+        f"(dK/dV, dQ) {walked}, the lists hold {listed}, of {full} in all "
+        f"({walked[0] / full[0]:.1%}, {walked[1] / full[1]:.1%})")
+    if walked != listed:
+        raise AssertionError(f"K10b walked {walked} tiles where its lists hold {listed}")
+    return {"walked": walked, "listed": listed, "all": full}
 
 
 def phase_train_video(dev: torch.device, tag: str, linear_idx, sparse_idx=(),
@@ -3261,6 +3321,8 @@ def main() -> None:
                     "train_video_hybrid_sparse_lora": train_lora,
                     "sparse_train_kernels": {name: kern[name] for name in (
                         "radial_flash_attention[lse]", "radial_flash_attention_bwd")},
+                    "k10b_walks": kern["k10b_walks"],
+                    "k6_training_shape": kern["mix_states_dense[M^T]"],
                     "card": smi}))
     log(json.dumps({"kernels": kernels_line}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
-// Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu, radial_fwd.cu, radial_bwd.cu): the bf16 tensor-core product
-// mma.sync m16n8k16, ldmatrix fragment loads from shared memory, cp.async
-// copies into it, packing, and the radial mask's rule.
+// Device helpers shared by the flash-attention kernels (flash_bwd.cu,
+// radial_fwd.cu): the bf16 tensor-core product mma.sync m16n8k16, ldmatrix
+// fragment loads from shared memory, cp.async copies into it (radial_fwd.cu),
+// packing, and the radial mask's rule.
 
 #pragma once
 

@@ -1,7 +1,8 @@
 // The causal and segment-id masks of the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): which tiles of the [T, T] score matrix a
-// block walks, which of those need a per-element mask, and the per-element
-// rule. Tq == Tk == T. A block's own span and the tiles it walks are
+// (flash_fwd.cu, flash_bwd.cu), and the radial mask of the backward
+// (flash_bwd.cu): which tiles of the [T, T] score matrix a block walks,
+// which of those need a per-element mask, and the per-element rule. Tq ==
+// Tk == T. A block's own span and the tiles it walks are
 // multiples of 64 tokens (the range pre-pass's tiles), in sizes that differ
 // by kernel and head dim.
 //
@@ -20,10 +21,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"  // the radial rule
+
 namespace flash_mask {
 
 constexpr int kTile = 64;  // tokens per tile of the range pre-pass
 constexpr int kCausal = 1, kSegment = 2;  // bits of a kernel's mask form
+constexpr int kRadial = 4;                // a form of its own: the radial mask
 
 // ranges[b * ntiles + j] = (min, max) of seg[b, 64 j .. min(64 j + 63, T - 1)].
 // One thread per (batch row, tile). static: one copy per including source.
@@ -113,6 +117,9 @@ struct TileWalk {
     return j;
   }
 
+  // The tile of walk index j (the walk's index is the tile).
+  __device__ __forceinline__ int tile(int j) const { return j; }
+
   // Whether the walked tile j needs the per-element rule.
   __device__ __forceinline__ bool needs_mask(int j) const {
     const int s0 = j * kStep, s1 = min(s0 + kStep, T) - 1;
@@ -124,6 +131,80 @@ struct TileWalk {
     return false;
   }
 };
+
+// The radial form's lists (kernels/sparse_attention.py, radial_schedule,
+// cached on the device): block ``own`` walks the step tiles
+// entries[offsets[own] .. offsets[own + 1]) >> 1 in rising order, an entry
+// being 2 * tile + full, full meaning that every pair of the block's real
+// tokens with the step tile is allowed and that no token of the step tile
+// lies past T. Block x of a kernel's grid (per head) takes own = order[x]:
+// the blocks by falling list length, so the longest walks start first.
+struct RadialList {
+  const int* offsets;
+  const int* entries;
+  const int* order;
+  int hw;  // tokens per frame
+};
+
+// The walk of one list, with TileWalk's interface; its index is the
+// position in the list.
+struct ListWalk {
+  const int* entries;
+  int first, last;
+
+  __device__ __forceinline__ ListWalk(const RadialList& l, int own)
+      : entries(l.entries + l.offsets[own]), first(0),
+        last(l.offsets[own + 1] - l.offsets[own] - 1) {}
+
+  __device__ __forceinline__ int next(int i) const { return i; }
+  __device__ __forceinline__ int tile(int i) const { return entries[i] >> 1; }
+  __device__ __forceinline__ bool needs_mask(int i) const { return !(entries[i] & 1); }
+};
+
+// The walk of a kernel of mask form kMask (TileWalk's parameters; the
+// segment ranges of this batch row or null; the radial lists).
+template <int kMask, int kOwn, int kStep, bool kKeySide>
+__device__ __forceinline__ auto make_walk(const int2* ranges, const RadialList& list, int own,
+                                          int T) {
+  if constexpr ((kMask & kRadial) != 0) return ListWalk(list, own);
+  else return TileWalk<kMask, kOwn, kStep, kKeySide>(ranges, own, T);
+}
+
+// The radial rule for a thread's two rows, whose (frame, spatial index) are
+// row0 and row1, against its columns c0 + 8 nt + 2 tg + c of a tile, nt <
+// kSteps and c < 2: bit 2 nt + c of keep0 / keep1 is set where the pair is
+// allowed. Where hw is at least the tile's width its columns lie in at most
+// two frames, so two windows a row serve all of them, with no branch per
+// column; smaller frames take each column's frame in turn.
+template <int kSteps>
+__device__ __forceinline__ void radial_keep_bits(uint32_t& keep0, uint32_t& keep1, int2 row0,
+                                                 int2 row1, int c0, int tg, int hw) {
+  const int f0 = c0 / hw, s0 = c0 - f0 * hw;
+  keep0 = keep1 = 0u;
+  if (hw >= kSteps * 8) {
+    const int wa0 = flash::radial_window(abs(row0.x - f0), hw);
+    const int wb0 = flash::radial_window(abs(row0.x - f0 - 1), hw);
+    const int wa1 = flash::radial_window(abs(row1.x - f0), hw);
+    const int wb1 = flash::radial_window(abs(row1.x - f0 - 1), hw);
+#pragma unroll
+    for (int nt = 0; nt < kSteps; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        int s = s0 + nt * 8 + tg * 2 + c;
+        const bool next = s >= hw;
+        s = next ? s - hw : s;
+        keep0 |= (uint32_t)(abs(row0.y - s) < (next ? wb0 : wa0)) << (2 * nt + c);
+        keep1 |= (uint32_t)(abs(row1.y - s) < (next ? wb1 : wa1)) << (2 * nt + c);
+      }
+    return;
+  }
+  for (int nt = 0; nt < kSteps; ++nt)
+    for (int c = 0; c < 2; ++c) {
+      const int col = c0 + nt * 8 + tg * 2 + c, f = col / hw, s = col - f * hw;
+      keep0 |= (uint32_t)flash::radial_keep(row0.x, row0.y, f, s, hw) << (2 * nt + c);
+      keep1 |= (uint32_t)flash::radial_keep(row1.x, row1.y, f, s, hw) << (2 * nt + c);
+    }
+}
 
 // The per-element rule for query i (segment id si) and key j (segment id sj).
 template <int kMask>

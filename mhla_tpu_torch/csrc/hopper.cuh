@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu), K2 (mhla_chunk.cu), K2b (mhla_chunk_bwd.cu)
-// and K3 / K3b (mhla_mix_wide.cu): mbarriers, TMA tile loads through tensor
-// maps, wgmma products with their shared-memory descriptors and fences,
-// named barriers and setmaxnreg. The kernels' tiles live in shared memory
+// (flash_fwd.cu, flash_bwd.cu), K2 (mhla_chunk.cu), K2b (mhla_chunk_bwd.cu),
+// K3 / K3b (mhla_mix_wide.cu) and K6 (mhla_block.cu): mbarriers, TMA tile
+// loads through tensor maps (multicast to a cluster's blocks too), wgmma
+// products in bf16 and TF32 with their shared-memory descriptors and fences,
+// named barriers, cluster barriers and setmaxnreg. The kernels' tiles live in shared memory
 // in the layout a TMA load with 128-byte swizzle writes: a [rows][D] bf16
 // tile is D / 64 panels of [rows][64] (128 bytes a row), panel p at byte
 // p * rows * 128, the 16-byte chunk c of row r at chunk c ^ (r % 8). Every
@@ -348,6 +349,191 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32][4], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+
+// ---- TF32 products (K6)
+
+// Register strings and accumulator operands (N / 8 tiles of 4) of the TF32
+// products of N = 16 .. 80 below.
+
+#define HOPPER_REGS8 \
+  "%0, %1, %2, %3, %4, %5, %6, %7"
+
+#define HOPPER_REGS16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+
+#define HOPPER_REGS20 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19"
+
+#define HOPPER_REGS24 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23"
+
+#define HOPPER_REGS28 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+
+#define HOPPER_REGS40 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39"
+
+#define HOPPER_ACC_T10(d) \
+  HOPPER_ACC8(d), HOPPER_ACC4(d, 8), HOPPER_ACC4(d, 9)
+
+#define HOPPER_ACC_T2(d) \
+  HOPPER_ACC4(d, 0), HOPPER_ACC4(d, 1)
+
+#define HOPPER_ACC_T4(d) \
+  HOPPER_ACC4(d, 0), HOPPER_ACC4(d, 1), HOPPER_ACC4(d, 2), HOPPER_ACC4(d, 3)
+
+#define HOPPER_ACC_T5(d) \
+  HOPPER_ACC4(d, 0), HOPPER_ACC4(d, 1), HOPPER_ACC4(d, 2), HOPPER_ACC4(d, 3), \
+  HOPPER_ACC4(d, 4)
+
+#define HOPPER_ACC_T6(d) \
+  HOPPER_ACC4(d, 0), HOPPER_ACC4(d, 1), HOPPER_ACC4(d, 2), HOPPER_ACC4(d, 3), \
+  HOPPER_ACC4(d, 4), HOPPER_ACC4(d, 5)
+
+#define HOPPER_ACC_T7(d) \
+  HOPPER_ACC4(d, 0), HOPPER_ACC4(d, 1), HOPPER_ACC4(d, 2), HOPPER_ACC4(d, 3), \
+  HOPPER_ACC4(d, 4), HOPPER_ACC4(d, 5), HOPPER_ACC4(d, 6)
+
+// D[64 x N] (+)= A B in TF32 with float32 sums, N = 16, 32, 40, 48, 56, 64 or 80
+// (the accumulator's size picks it): A from registers, the m64k8 tf32
+// fragment (in warp w, lane l holds rows 16 w + l / 4 (regs 0, 2) and + 8
+// (1, 3), columns l % 4 (0, 1) and + 4 (2, 3)), B from shared memory,
+// K-major (TF32 takes no other): a [N][K] float32 tile in 128-byte swizzled
+// panels of 32 columns, a k-step of 8 being 32 bytes of a row as for bf16's
+// k16.
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[2][4], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {" HOPPER_REGS8
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : HOPPER_ACC_T2(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[4][4], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" HOPPER_REGS16
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : HOPPER_ACC_T4(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[5][4], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {" HOPPER_REGS20
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : HOPPER_ACC_T5(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[6][4], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {" HOPPER_REGS24
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : HOPPER_ACC_T6(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[7][4], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 {" HOPPER_REGS28
+      "}, {%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+      : HOPPER_ACC_T7(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8][4], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" HOPPER_REGS32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : HOPPER_ACC8(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[10][4], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {" HOPPER_REGS40
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : HOPPER_ACC_T10(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// x = hi + lo: hi its TF32 rounding (nearest, ties away from zero: the
+// cvt.rna.tf32.f32 result for finite x, by integer arithmetic, two
+// instructions where the cvt takes about six) and lo = x - hi, exact in
+// float32, passed whole: the tensor cores read the top 19 bits of each
+// operand word, so they take lo truncated to TF32. hi * hi' + hi * lo' + lo
+// * hi' then carries a product to float32 accuracy: the truncation of lo and
+// the dropped lo * lo' are 2^-21 and 2^-22 of it.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// Byte offset of element (r, c) in a [rows][32] float32 panel in the
+// 128-byte swizzle layout (the one TMA reads and writes).
+__device__ __forceinline__ int swizzle128_f32(int r, int c) {
+  return r * 128 + (((c >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// ---- clusters
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits for the rest.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Arrive on the mbarrier at the offset of ``bar`` in block ``cta`` of the
+// cluster (release at CTA scope, as a local arrive: the arriving thread's
+// reads of the stage it frees have completed; a cluster-scope release made
+// every arrival wait, and K6 ran about 3x slower with it).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// tma_load_4d into the blocks of ``mask`` of the cluster: the box lands at the
+// offset of ``dst`` in each and completes a transaction of the mbarrier at
+// the offset of ``bar`` in each.
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, uint16_t mask, int c0,
+                                                      int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
 }  // namespace hopper
 
 // ---- host side
@@ -389,6 +575,29 @@ static inline int make_tile_map(CUtensorMap* map, const void* base, int B, int T
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// A tensor map of a contiguous [B, N, R] float32 or bf16 tensor, read as
+// the 4-D map {R, N, B, 1}: boxes of one row's 128 bytes (32 float32 or 64
+// bf16 values) by ``rows`` rows of one batch row, 128-byte swizzle; rows past
+// N and columns past R read as zeros and are not written. Returns a
+// cudaError_t.
+static inline int make_rows_map(CUtensorMap* map, const void* base, int is_bf16, int B, int N,
+                                long long R, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t es = is_bf16 ? 2 : 4;
+  const cuuint64_t dims[4] = {(cuuint64_t)R, (cuuint64_t)N, (cuuint64_t)B, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)R * es, (cuuint64_t)N * R * es,
+                                 (cuuint64_t)B * N * R * es};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / es), (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                        4, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // How many blocks of ``fn`` (``threads`` threads, ``smem`` bytes of dynamic
 // shared memory) the current device holds at once, its SMs times the blocks
 // an SM takes, into *blocks, after raising ``fn``'s shared-memory limit to
@@ -425,6 +634,50 @@ static inline int resident_blocks(const void* fn, int threads, int smem, int* bl
   if (err != cudaSuccess) return (int)err;
   *blocks = sms * per_sm;
   if (cached < 64) cache[cached++] = {fn, dev, smem, *blocks};
+  return 0;
+}
+
+// How many clusters of ``cluster`` blocks of ``fn`` (``threads`` threads,
+// ``smem`` bytes of dynamic shared memory) the current device holds at once,
+// into *clusters, after raising ``fn``'s shared-memory limit to at least
+// ``smem`` (only ever raised, as in resident_blocks). Kept per kernel, device
+// and size. Returns a cudaError_t.
+static inline int resident_clusters(const void* fn, int threads, int smem, int cluster,
+                                    int* clusters) {
+  struct Entry {
+    const void* fn;
+    int dev, smem, clusters;
+  };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int cached = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < cached; ++i)
+    if (cache[i].fn == fn && cache[i].dev == dev && cache[i].smem == smem) {
+      *clusters = cache[i].clusters;
+      return 0;
+    }
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess && attr.maxDynamicSharedSizeBytes < smem)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaLaunchAttribute dims;
+  dims.id = cudaLaunchAttributeClusterDimension;
+  dims.val.clusterDim.x = cluster;
+  dims.val.clusterDim.y = dims.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &dims;
+  cfg.numAttrs = 1;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(clusters, fn, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (*clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  if (cached < 64) cache[cached++] = {fn, dev, smem, *clusters};
   return 0;
 }
 

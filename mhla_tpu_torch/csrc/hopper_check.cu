@@ -1,6 +1,6 @@
 // One-tile checks of the wgmma operand layouts of hopper.cuh over tiles
-// loaded by TMA, for each layout the flash-attention kernels, K2, K2b and
-// K3 / K3b use; the card tests hold each against torch.matmul. A wrong
+// loaded by TMA, for each layout the flash-attention kernels, K2, K2b,
+// K3 / K3b and K6 use; the card tests hold each against torch.matmul. A wrong
 // descriptor offset, swizzle or fragment order gives a wrong product here,
 // where it is one product and not one step of a softmax.
 
@@ -147,6 +147,89 @@ ss_t_check_kernel(const __grid_constant__ CUtensorMap map_a,
   store_c<N>(c, acc);
 }
 
+// K6's TF32 product on one tile: C[64 x 40] = A B with A = a^T, a a [32][64]
+// float32 tile of S loaded by TMA as K6 loads its stages (a k-step of 8 rows
+// a stage, in 128-byte swizzled panels of 32 columns) and read transposed
+// into registers as K6 reads them, and B = b^T, b [40][32] float32 (M's rows,
+// split into TF32 hi and lo by the threads into a K-major swizzled panel as
+// K6 splits M). kPasses 3: hi hi + hi lo + lo hi (K6's float32 form); 1: hi
+// hi alone, one TF32 product.
+template <int kPasses>
+__global__ void __launch_bounds__(128)
+tf32_check_kernel(const __grid_constant__ CUtensorMap map_a, const float* __restrict__ b,
+                  float* c) {
+  constexpr int kN = 40, kK = 32;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* as = smem;                  // 4 k-steps x 2 panels of [8][32]
+  unsigned char* bhi = smem + 8 * 1024;      // [40][32]
+  unsigned char* blo = bhi + kN * 128;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(blo + kN * 128);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(bar, 8 * 1024);
+    for (int ks = 0; ks < kK / 8; ++ks)
+      for (int p = 0; p < 2; ++p)
+        tma_load_4d(as + (ks * 2 + p) * 1024, &map_a, bar, p * 32, ks * 8, 0, 0);
+  }
+  for (int e = threadIdx.x; e < kN * kK; e += 128) {
+    uint32_t hi, lo;
+    split_tf32(b[e], hi, lo);
+    const int off = swizzle128_f32(e / kK, e % kK);
+    *reinterpret_cast<uint32_t*>(bhi + off) = hi;
+    *reinterpret_cast<uint32_t*>(blo + off) = lo;
+  }
+  fence_async_shared();
+  __syncthreads();
+  mbar_wait(bar, 0);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, g = lane >> 2, tg = lane & 3;
+  uint32_t ahi[kK / 8][4], alo[kK / 8][4];
+#pragma unroll
+  for (int ks = 0; ks < kK / 8; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = warp * 16 + g + 8 * (e & 1), j = tg + 4 * (e >> 1);
+      split_tf32(*reinterpret_cast<const float*>(as + (ks * 2 + (r >> 5)) * 1024 +
+                                                  swizzle128_f32(j, r & 31)),
+                 ahi[ks][e], alo[ks][e]);
+    }
+  float acc[kN / 8][4];
+  const uint64_t dhi = desc_kmajor(bhi, 0), dlo = desc_kmajor(blo, 0);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kK / 8; ++ks) {
+    const uint64_t off = kstep_kmajor<kN>(ks);
+    wgmma_tf32(acc, ahi[ks], dhi + off, ks > 0);
+    if (kPasses == 3) {
+      wgmma_tf32(acc, ahi[ks], dlo + off, 1);
+      wgmma_tf32(acc, alo[ks], dhi + off, 1);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+  fence_frag(ahi);
+  fence_frag(alo);
+  store_c<kN>(c, acc);
+}
+
+template <int kPasses>
+int launch_tf32(const void* a, const void* b, float* c, cudaStream_t stream) {
+  CUtensorMap ma;
+  const int err = hopper_host::make_rows_map(&ma, a, 0, 1, 32, 64, 8);
+  if (err) return err;
+  const int smem = 8 * 1024 + 2 * 40 * 128 + 1024 + 64;
+  auto kern = tf32_check_kernel<kPasses>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<1, 128, smem, stream>>>(ma, (const float*)b, c);
+  return (int)cudaGetLastError();
+}
+
 template <int kARows, int N, int K>
 int launch_ss(const void* a, const void* b, float* c, cudaStream_t stream) {
   CUtensorMap ma, mb;
@@ -211,9 +294,12 @@ int launch_ss_t(const void* a, const void* b, float* c, cudaStream_t stream) {
 //  13: ss, a [64][64], b [64][64] MN-major             (wide K3, 128 columns)
 //  14: ss, a [64][128] MN-major (its columns 64..127), b [64][128] MN-major
 //                                                      (K2's second 64 rows of Dk)
+//  15: tf32, a [32][64] float32 MN-major, b [40][32] float32, three products
+//                                                      (K6's float32 form)
+//  16: the same, one product (hi hi alone)
 // An MN-major a [K][W] gives A = (a^T)[W - 64 .. W); an MN-major b [K][N]
-// gives B = b (else B = b^T). c gets the float32 [64 x N] product. Returns a
-// cudaError_t.
+// gives B = b (else B = b^T). Layouts 0-14 take bf16, 15 and 16 float32. c
+// gets the float32 [64 x N] product. Returns a cudaError_t.
 extern "C" int mhla_wgmma_check(int layout, const void* a, const void* b, float* c,
                                 void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
@@ -233,6 +319,8 @@ extern "C" int mhla_wgmma_check(int layout, const void* a, const void* b, float*
     case 12: return launch_ss_t<1, 1, 128, 64>(a, b, c, s);
     case 13: return launch_ss_t<0, 1, 64, 64>(a, b, c, s);
     case 14: return launch_ss_t<1, 1, 128, 64, 128>(a, b, c, s);
+    case 15: return launch_tf32<3>(a, b, c, s);
+    case 16: return launch_tf32<1>(a, b, c, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,7 +10,7 @@
 // the whole frame at frame distance 0 and 1, a band that halves per octave
 // beyond. float32 scores, softmax statistics and accumulation. The training
 // form also writes lse [B, H, T] float32, the natural log-sum-exp of each
-// row's allowed scaled scores, which the backward (radial_bwd.cu) reads.
+// row's allowed scaled scores, which the backward (flash_bwd.cu) reads.
 //
 // Replaces the Pallas TPU kernel _radial_fwd_kernel
 // (mhla_tpu/kernels/sparse_attention.py:312). That kernel processes all

@@ -18,8 +18,8 @@ module keeps its name here, as in the JAX package) and its gradient K9b
 ``flash_attention.flash_attention_bwd`` (``csrc/flash_bwd.cu``); K10
 ``sparse_attention.radial_flash_attention`` (CUDA C++,
 ``csrc/radial_fwd.cu``) and its gradient K10b
-``sparse_attention.radial_flash_attention_bwd`` (``csrc/radial_bwd.cu``)
-behind ``sparse_flash_attention``.
+``sparse_attention.radial_flash_attention_bwd`` (the radial form of
+``csrc/flash_bwd.cu``) behind ``sparse_flash_attention``.
 
 Gated DeltaNet LM: K11 ``delta_chunk.delta_chunk_fwd`` (CUDA C++,
 ``csrc/delta_chunk.cu``) and its gradient K11b

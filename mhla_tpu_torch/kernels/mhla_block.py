@@ -7,7 +7,8 @@ four of the forward:
                             ``relu + eps``, 3-D rotate-half RoPE, the 3-D
                             block permutation (Triton)
   K6 ``mix_states_dense``   mixed_i = sum_j M[i, j] S_j, dense [N, N]
-                            (CUDA C++, ``csrc/mhla_block.cu``)
+                            (CUDA C++, ``csrc/mhla_block.cu``: TF32 tensor
+                            cores, operands split to float32 accuracy)
   K7 ``block_readout``      o_i = q_i @ mixed_i per block and head (CUDA C++)
   K8 ``unblockify_island``  blocked [B, N, C, F] -> flat [B, T, F] with the
                             per-head RMSNorm and the output cast (Triton)
@@ -73,8 +74,8 @@ launches = {
 }
 
 _BLOCK_R = 4  # token rows per program of K5 and K8
-_MAX_BLOCKS = 7 * 32  # K6 keeps ceil(N / 32) <= 7 rows per thread (csrc: kMaxMixRows)
-_MIX_COLS = 32  # state columns per tile of K6 (csrc: kMixCols)
+_MAX_BLOCKS = 224  # K6 splits N over clusters of at most four blocks (csrc: kMaxMixBlocks)
+_MIX_COLS = 32  # K6 takes state sizes in multiples of 32 columns
 _READ_COLS = 128  # Dv columns per block of K7 (csrc: kReadCols)
 _MID_CODE = {None: 0, torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # 0: no rounding
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
@@ -573,12 +574,12 @@ def _mix_states_dense(m: torch.Tensor, states4: torch.Tensor) -> torch.Tensor:
     if tuple(m.shape) != (n, n):
         raise ValueError(f"m {tuple(m.shape)} does not match N={n}")
     r = hdk * dv
-    smem = ((n * n + 3) // 4 * 4 + n * _MIX_COLS) * 4
-    if n > _MAX_BLOCKS or smem > 227 * 1024:
-        raise ValueError(f"kernel mixes at most {_MAX_BLOCKS} blocks within 227 KB of shared "
-                         f"memory, got N={n} ({smem} bytes)")
+    if n > _MAX_BLOCKS:
+        raise ValueError(f"kernel mixes at most {_MAX_BLOCKS} blocks, got N={n}")
     if r % _MIX_COLS:
         raise ValueError(f"kernel needs a state size divisible by {_MIX_COLS}, got {r}")
+    if states4.data_ptr() % 16:
+        raise ValueError("kernel loads the states by TMA: they must be 16-byte aligned")
     m32 = m.to(torch.float32).contiguous()
     out = torch.empty_like(states4)
     if b:

@@ -19,14 +19,19 @@ pair, and recomputes the mask inside the tile from index arithmetic
 (``csrc/radial_fwd.cu``, where its bound and design are written). Its
 training form also writes each row's log-sum-exp. K10b
 ``radial_flash_attention_bwd`` replaces the splash kernel's fused backward
-(``:507-517``): dq, dk and dv over the same tiles (``csrc/radial_bwd.cu``).
-Where a gradient is wanted ``radial_flash_attention`` goes through an
-``autograd.Function`` of the two; a call without gradients launches the
-forward that writes no log-sum-exp.
+(``:507-517``): dq, dk and dv, as the radial form of K9b's Hopper kernels
+(``csrc/flash_bwd.cu``, where its bound, walk and order are written), each
+walking only the tiles of its own list. Where a gradient is wanted
+``radial_flash_attention`` goes through an ``autograd.Function`` of the
+two; a call without gradients launches the forward that writes no
+log-sum-exp.
 
 The tile lists come from :func:`radial_schedule`, computed once per geometry
-on frame pieces without any [T, T] array, and sit on the device in CSR form;
-one list serves the forward and both backward kernels.
+on frame pieces without any [T, T] array, and sit on the device in CSR form:
+K10's 64 x 64 tiles, K10b's dQ kernel's query blocks of 128 over key tiles
+of 64 and its dK/dV kernel's key blocks of 64 over query tiles of 128
+(:data:`BWD_WALK_TILES`), the latter read from the key side; K10b's come
+with an order of their blocks, longest list first.
 
 A CPU tensor takes :func:`radial_flash_attention_plain` and
 :func:`radial_flash_attention_bwd_plain`; a CUDA tensor launches the kernels
@@ -50,6 +55,11 @@ launches = {"radial_flash_attention": 0, "radial_flash_attention_bwd": 0}
 
 _HEAD_DIM = 128  # csrc: kD
 _TILE = 64  # csrc: kBlockM = kBlockN
+# (own block, step tile) of K10b's two kernels at head dim 128: the dK/dV
+# kernel's 64 keys over query tiles of 128 (flash_bwd.cu's kTileRows and
+# DkvGeom<128>::kQT), the dQ kernel's 128 queries over key tiles of 64
+# (DqGeom<128>::kBlockM and kTileRows)
+BWD_WALK_TILES = {"dkv": (64, 128), "dq": (128, 64)}
 _lib_cache: Optional[ctypes.CDLL] = None
 
 
@@ -60,8 +70,8 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mhla_radial_fwd.argtypes = [p] * 6 + [i, i, i, i, ctypes.c_float, p]
         lib.mhla_radial_fwd_lse.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_float, p]
-        lib.mhla_radial_bwd.argtypes = [p] * 12 + [i, i, i, i, ctypes.c_float, p]
-        for fn in (lib.mhla_radial_fwd, lib.mhla_radial_fwd_lse, lib.mhla_radial_bwd):
+        lib.mhla_flash_bwd_radial.argtypes = [p] * 17 + [i] * 4 + [ctypes.c_float, p]
+        for fn in (lib.mhla_radial_fwd, lib.mhla_radial_fwd_lse, lib.mhla_flash_bwd_radial):
             fn.restype = ctypes.c_int
         _lib_cache = lib
     return _lib_cache
@@ -166,13 +176,14 @@ def radial_schedule(
     The same lists as the JAX package's ``_radial_schedule`` at equal tile
     sizes; callers must not write into the cached arrays.
 
-    With ``bq == bk`` the lists read the same from the key side, which is
+    The lists also read from the key side, at any two tile sizes, which is
     what the dK/dV kernel of the backward walks: the mask is symmetric, so
-    key tile j meets exactly the query tiles ``tiles[offsets[j]:offsets[j +
-    1]]``, and an entry's ``full`` then says that every pair of real keys of
-    tile j with the listed query tile is allowed and that no *query* of it
-    lies past ``t`` (rows of the listing tile past ``t`` never count: they
-    are not stored on either side)."""
+    ``radial_schedule(t, f, bk, bq)`` lists for key tile j (of ``bk`` keys)
+    exactly the query tiles (of ``bq``) it meets, and an entry's ``full``
+    then says that every pair of real keys of tile j with the listed query
+    tile is allowed and that no *query* of it lies past ``t`` (tokens of the
+    listing tile past ``t`` never count: they are not stored on either
+    side)."""
     hw = _frame_size(t, num_frames)
     pq, pk = (bq - 1) // hw + 2, (bk - 1) // hw + 2
     fq, sq0, sq1, vq = _tile_pieces(t, hw, bq, pq)
@@ -195,6 +206,38 @@ def radial_schedule(
     offsets = np.zeros(nq + 1, np.int32)
     np.cumsum(np.bincount(rows, minlength=nq), out=offsets[1:])
     return offsets, cols.astype(np.int32), full[rows, cols].astype(np.int32)
+
+
+def radial_bwd_lists(t: int, num_frames: int) -> dict:
+    """K10b's lists by kernel (:data:`BWD_WALK_TILES`): for each, ``(offsets,
+    tiles, full, order)`` of ``radial_schedule(t, num_frames, own, step)``,
+    ``order`` the blocks by falling list length (stable: equal lengths keep
+    their block order), the order the kernel's grid takes them in."""
+    lists = {}
+    for kernel, (own, step) in BWD_WALK_TILES.items():
+        offsets, tiles, full = radial_schedule(t, num_frames, own, step)
+        order = np.argsort(-np.diff(offsets), kind="stable").astype(np.int32)
+        lists[kernel] = (offsets, tiles, full, order)
+    return lists
+
+
+def radial_bwd_visits(t: int, num_frames: int, heads: int, batch: int) -> list:
+    """What K10b's ``visits`` counters read after one call on [batch, t,
+    heads, 128]: the tiles of the dK/dV and the dQ kernel's lists, over all
+    heads and batch rows."""
+    lists = radial_bwd_lists(t, num_frames)
+    return [heads * batch * len(lists[kernel][1]) for kernel in ("dkv", "dq")]
+
+
+@functools.lru_cache(maxsize=8)
+def _bwd_lists_on_device(t: int, num_frames: int, device: str):
+    """K10b's lists on ``device``: (offsets, entries, order) int32 of the
+    dK/dV kernel, then of the dQ kernel; an entry is ``2 * tile + full``.
+    Built once per geometry and device."""
+    out = []
+    for offsets, tiles, full, order in radial_bwd_lists(t, num_frames).values():
+        out += [torch.from_numpy(a).to(device) for a in (offsets, tiles * 2 + full, order)]
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=8)
@@ -348,9 +391,12 @@ def radial_flash_attention_bwd(
     do: torch.Tensor,
     num_frames: int,
     scale: Optional[float] = None,
+    visits: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K10b (see :func:`radial_flash_attention_bwd_plain`); the result is the
-    same from run to run (no atomics)."""
+    same from run to run (no atomics). ``visits`` (int32 [2] on the card)
+    gets the tiles walked by the dK/dV and the dQ kernel added
+    (:func:`radial_bwd_visits`)."""
     b, t, h, d = q.shape
     hw = _check_qkv(q, k, v, num_frames)
     if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (b, h, t):
@@ -362,14 +408,14 @@ def radial_flash_attention_bwd(
     _check("lse", lse, torch.float32, 3)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b * h:
-        offsets, entries = _schedule_on_device(t, num_frames, str(q.device))
+        lists = _bwd_lists_on_device(t, num_frames, str(q.device))
         delta = torch.empty_like(lse)
         with torch.cuda.device(q.device):
-            err = _lib().mhla_radial_bwd(
+            err = _lib().mhla_flash_bwd_radial(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                offsets.data_ptr(), entries.data_ptr(), b, t, h, hw,
-                d**-0.5 if scale is None else scale, _stream(q),
+                *(x.data_ptr() for x in lists), None if visits is None else visits.data_ptr(),
+                b, t, h, hw, d**-0.5 if scale is None else scale, _stream(q),
             )
         _raise_on_error("radial_flash_attention_bwd", err)
         launches["radial_flash_attention_bwd"] += 1

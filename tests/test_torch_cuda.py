@@ -373,9 +373,52 @@ def test_dense_mix_and_readout_kernels_match_plain(dev, dtype, n, c):
     assert mhla_block.launches["mix_states_dense"] == before["mix_states_dense"] + 1
     assert mhla_block.launches["block_readout"] == before["block_readout"] + 1
     mixed_ref = mhla_block.mix_states_dense_plain(m, states)
-    assert_close("mix_states_dense", mixed_ref, mixed, KERNEL_TOL)
+    assert_close("mix_states_dense", mixed_ref, mixed, K6_F32_TOL if dtype == _F32 else KERNEL_TOL)
     assert_close("block_readout", mhla_block.block_readout_plain(q4, mixed_ref, h), out,
                  KERNEL_TOL)
+
+
+# K6's float32 form against its plain version (float32 einsum, TF32 off):
+# three TF32 products carry float32 accuracy (2.2e-7 in relative RMS against
+# float64 at N = 150); one TF32 product alone would be about 3e-4 off.
+K6_F32_TOL = 1e-5
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("n", [8, 150, 224])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_dense_mix_kernel_on_tf32_tensor_cores(dev, dtype, n, transposed):
+    """K6 at N = 8 (the second block of each cluster of two holding no row
+    of M), 150 (the video model's) and 224 (clusters of four) on M and, as the
+    backward takes it, on M^T: float32 within K6_F32_TOL of its plain
+    version, bf16 within KERNEL_TOL, the same bits over two runs, one launch
+    a call."""
+    from mhla_tpu_torch.ops import block_mixing_matrix
+
+    m = torch.rand(n, n, generator=torch.Generator(dev).manual_seed(n), device=dev)
+    if n == 150:
+        m = torch.from_numpy(block_mixing_matrix((3, 5, 10))).to(dev)
+    if transposed:
+        m = m.T.contiguous()
+    states = _randn(dev, 2, n, 4 * 128, 96, seed=n + 1).to(dtype)
+    before = mhla_block.launches["mix_states_dense"]
+    first = mhla_block.mix_states_dense(m, states)
+    assert mhla_block.launches["mix_states_dense"] == before + 1
+    assert first.dtype == dtype and first.shape == states.shape
+    assert torch.equal(first, mhla_block.mix_states_dense(m, states))
+    tol = K6_F32_TOL if dtype == _F32 else KERNEL_TOL
+    assert_close(f"mix_states_dense N={n}", mhla_block.mix_states_dense_plain(m, states), first,
+                 tol)
+
+
+def test_dense_mix_kernel_takes_ragged_state_sizes(dev):
+    """K6 at a state size that ends mid-item (R = 2,080: 8 items of 256
+    columns and one of 32) and at one batch row."""
+    m = torch.rand(33, 33, generator=torch.Generator(dev).manual_seed(4), device=dev)
+    states = _randn(dev, 1, 33, 65, 32, seed=5)
+    got = mhla_block.mix_states_dense(m, states)
+    assert_close("mix_states_dense R=2080", mhla_block.mix_states_dense_plain(m, states), got,
+                 K6_F32_TOL)
 
 
 @pytest.mark.parametrize("normalize", [False, True])
@@ -689,6 +732,30 @@ def test_radial_flash_training_kernels_match_plain(dev, t, frames, b, h):
     for name, r, g in zip(("dq", "dk", "dv"), f32, leaves):
         assert g.grad.dtype == _F32
         assert_close(f"radial grad {name} {t}/{frames} vs float32", r.grad, g.grad, 2e-2)
+
+
+@pytest.mark.parametrize("t,frames", [(1536, 6), (437, 4)])
+def test_radial_backward_walks_its_lists_on_the_hopper_kernels(dev, t, frames):
+    """K10b, the radial form of K9b's kernels, at an even geometry (6 frames
+    of 256) and a ragged one (4 frames of 109 and a last of 1): within
+    FLASH_BWD_TOL of its plain version, the same bits over two runs, one
+    launch a call, and its two kernels walk exactly the tiles of their
+    lists (``radial_bwd_visits``)."""
+    import chip_smoke
+
+    b, h = 2, 3
+    q, k, v, do = (_randn(dev, b, t, h, 128, seed=s).to(_BF16) for s in (1, 2, 3, 4))
+    out, lse = sparse.radial_flash_attention(q, k, v, frames, return_lse=True)
+    visits = torch.zeros(2, dtype=torch.int32, device=dev)
+    before = sparse.launches["radial_flash_attention_bwd"]
+    got = sparse.radial_flash_attention_bwd(q, k, v, out, lse, do, frames, visits=visits)
+    assert sparse.launches["radial_flash_attention_bwd"] == before + 1
+    assert visits.tolist() == sparse.radial_bwd_visits(t, frames, h, b)
+    again = sparse.radial_flash_attention_bwd(q, k, v, out, lse, do, frames)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    ref = sparse.radial_flash_attention_bwd_plain(q, k, v, out, lse, do, frames)
+    for name, r, g in zip(("dq", "dk", "dv"), ref, got):
+        assert_close(f"radial bwd {name} {t}/{frames}", r, g, chip_smoke.FLASH_BWD_TOL)
 
 
 def test_video_backward_wrappers_raise_instead_of_falling_back(dev):
@@ -1546,6 +1613,33 @@ def test_wgmma_over_tma_tiles_matches_matmul(dev, layout):
     assert torch.allclose(c, ref, rtol=1e-4, atol=1e-3), (c - ref).abs().max().item()
 
 
+@pytest.mark.parametrize("layout", [15, 16])
+def test_tf32_wgmma_over_a_tma_tile_matches_float64(dev, layout):
+    """K6's TF32 product on one tile (mhla_wgmma_check layouts 15 and 16):
+    A = S^T from a [32][64] float32 tile loaded by TMA a k-step at a time and
+    read transposed into registers, B = M^T from M's [40][32] rows split by
+    the threads into a swizzled K-major panel, as K6 reads its stages and M. Three products
+    (hi hi + hi lo + lo hi) hold the float64 product within 1e-6 in relative
+    RMS; one (hi hi) within 2e-3, so the layouts are right, but not within
+    1e-5, so it is the split that carries float32 accuracy."""
+    import ctypes
+
+    from mhla_tpu_torch.kernels import _build
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    lib = _build.load()
+    lib.mhla_wgmma_check.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    lib.mhla_wgmma_check.restype = ctypes.c_int
+    a, b = _randn(dev, 32, 64, seed=layout), _randn(dev, 40, 32, seed=layout + 10)
+    c = torch.full((64, 40), float("nan"), device=dev)
+    err = lib.mhla_wgmma_check(layout, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    rel = get_err_ratio(a.double().T @ b.double().T, c)
+    assert (rel < 1e-6) if layout == 15 else (1e-5 < rel < 2e-3), rel
+
+
 @pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("form", ["square", "cross", "ragged", "causal", "segment",
                                   "causal_segment"])
@@ -1590,10 +1684,13 @@ def _sass_bodies() -> dict:
 
 
 def test_flash_kernels_run_on_wgmma_and_tma(dev):
-    """The built library's K9 and K9b kernels hold HGMMA (wgmma) and
-    UTMALDG (TMA loads) and no HMMA (mma.sync), in every instantiation."""
+    """The built library's K9, K9b and K10b kernels hold HGMMA (wgmma) and
+    UTMALDG (TMA loads) and no HMMA (mma.sync), in every instantiation,
+    K10b's two (``radial_bwd_*``: the radial form of K9b's bodies under
+    names of their own) included."""
     found = {kind: 0 for kind in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                                  "flash_bwd_dq_kernel")}
+                                  "flash_bwd_dq_kernel", "radial_bwd_dkv_kernel",
+                                  "radial_bwd_dq_kernel")}
     for fn, text in _sass_bodies().items():
         kind = next((k for k in found if k in fn), None)
         if kind is None:
@@ -1601,7 +1698,24 @@ def test_flash_kernels_run_on_wgmma_and_tma(dev):
         assert "HGMMA" in text and "UTMALDG" in text, fn
         assert " HMMA" not in text, fn
         found[kind] += 1
-    assert found == {"flash_fwd_kernel": 16, "flash_bwd_dkv_kernel": 8, "flash_bwd_dq_kernel": 8}
+    # the backward's four mask forms at both head dims, and the radial form at 128
+    assert found == {"flash_fwd_kernel": 16, "flash_bwd_dkv_kernel": 8, "flash_bwd_dq_kernel": 8,
+                     "radial_bwd_dkv_kernel": 1, "radial_bwd_dq_kernel": 1}
+
+
+def test_dense_mix_kernels_run_on_tf32_wgmma_and_tma(dev):
+    """The built library's K6 kernels (float32 and bf16, 16 to 80 rows of M
+    a block on clusters of two, 48 and 56 on clusters of four) hold HGMMA (wgmma),
+    UTMALDG (TMA loads) and UTMASTG (TMA stores) and no FFMA: the product
+    runs on the tensor cores, not on float32 FMAs."""
+    found = 0
+    for fn, text in _sass_bodies().items():
+        if "mix_dense_kernel" not in fn:
+            continue
+        assert "HGMMA" in text and "UTMALDG" in text and "UTMASTG" in text, fn
+        assert "FFMA" not in text, fn
+        found += 1
+    assert found == 14
 
 
 def test_k2b_and_wide_mix_kernels_run_on_wgmma_and_tma(dev):

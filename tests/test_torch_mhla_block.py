@@ -169,6 +169,57 @@ def test_mix_states_dense_matches_jax(n, dtype, tol):
     assert_close(f"mix_states_dense n={n}", _f32(ref), out, tol)
 
 
+def _tf32(x: torch.Tensor, nearest: bool = True) -> torch.Tensor:
+    """float32 rounded to TF32 by bit arithmetic: the 13 low mantissa bits
+    dropped, to nearest with ties away from zero as ``cvt.rna.tf32.f32`` does
+    it, or (``nearest=False``) truncated, as the tensor cores read a float32
+    operand word."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + (0x1000 if nearest else 0)) & ~0x1FFF).view(torch.float32)
+
+
+def _mix_tf32(m: torch.Tensor, s: torch.Tensor, products: int) -> torch.Tensor:
+    """K6's arithmetic on the CPU: mixed[b, i] = sum_j M[i, j] S[b, j] from
+    TF32 operands with float32 sums. Each float32 operand splits as x = hi +
+    lo, hi its TF32 rounding and lo = x - hi, which the tensor cores read
+    truncated to TF32; ``products`` 3 is K6's float32 form (hi hi + hi lo +
+    lo hi), 1 a single TF32 product (hi hi), K6's bf16 form (S is exact in
+    TF32)."""
+    mix = lambda a, b: torch.einsum("ij,bjrd->bird", a, b)  # noqa: E731
+    m_hi, s_hi = _tf32(m), _tf32(s)
+    if products == 1:
+        return mix(m_hi, s_hi)
+    m_lo, s_lo = _tf32(m.float() - m_hi, False), _tf32(s.float() - s_hi, False)
+    return mix(m_hi, s_hi) + mix(m_lo, s_hi) + mix(m_hi, s_lo)
+
+
+@pytest.mark.parametrize("n", [8, 150, 224])
+def test_tf32_split_mix_holds_float32_accuracy(n):
+    """K6's TF32 split emulated at N = 8, 150 (the video model's matrix) and
+    224: three products lie within TOL (1e-5, the card test's tolerance) of
+    the float32 plain version and of JAX's ``mix_states_dense``, and one TF32
+    product does not: the tolerance tells the split from a single pass. On
+    bf16 states one product, rounded to bf16, lies within TOL_BF16 (the card
+    test's KERNEL_TOL) of the plain bf16 form: that form's output rounding
+    covers the single pass."""
+    rng = _rng(n)
+    m = (block_mixing_matrix((3, 5, 10)) if n == 150
+         else rng.uniform(0.0, 1.0, size=(n, n)).astype(np.float32))
+    s = rng.normal(size=(2, n, 4, 32)).astype(np.float32)
+    tm, ts = torch.from_numpy(np.asarray(m, np.float32)), torch.from_numpy(s)
+    plain = mhla_block.mix_states_dense_plain(tm, ts)
+    ref = _f32(jax_block.mix_states_dense(jnp.asarray(m), jnp.asarray(s)))
+    three = _mix_tf32(tm, ts, 3)
+    assert_close(f"three TF32 products n={n}", plain, three, TOL)
+    assert_close(f"three TF32 products vs JAX n={n}", ref, three, TOL)
+    with pytest.raises(AssertionError):
+        assert_close(f"one TF32 product n={n}", plain, _mix_tf32(tm, ts, 1), TOL)
+    sb = ts.to(torch.bfloat16)
+    assert torch.equal(_tf32(sb), sb.float())  # bf16 is exact in TF32
+    assert_close(f"one TF32 product, bf16 states n={n}", mhla_block.mix_states_dense_plain(tm, sb),
+                 _mix_tf32(tm, sb, 1).to(torch.bfloat16), TOL_BF16)
+
+
 @pytest.mark.parametrize("c,dtype,tol", [(24, "float32", TOL), (210, "float32", TOL),
                                          (24, "bfloat16", TOL_BF16)])
 def test_block_readout_matches_jax(c, dtype, tol):
