@@ -130,10 +130,14 @@ exits non-zero:
              model at latents (21, 60, 100, 16). Checks finite latents, the
              exact launch counts of K5-K9 and one forward through the
              kernels against the same forward through their plain versions.
-24. kernels (hybrid) — K10 (radial flash attention) against its plain
-             version at [2, 31,500, 12, 128] in 21 frames and at a small
-             ragged geometry, and K9 at Tq = Tk = 31,500; each beside its
-             bound and one ``scaled_dot_product_attention`` call.
+24. kernels (hybrid) — K10 (radial flash attention, the radial form of
+             K9's Hopper forward) against its plain version at [2, 31,500,
+             12, 128] in 21 frames and at a small geometry of frames
+             narrower than its key tiles, and K9 at Tq = Tk = 31,500; each
+             beside its bound and one ``scaled_dot_product_attention`` call,
+             K10 also beside its earlier mma.sync kernel's time; two runs of
+             K10 bit for bit; the tiles it walked (``visits``) against its
+             lists' length.
 25. video (hybrid) — the CLI samples the hybrid model (layers 0, 3, ..., 27
              dense softmax on K9, the other 20 MHLA), 4 steps: finite
              latents, exact launch counts.
@@ -166,11 +170,12 @@ exits non-zero:
              backward) against their plain versions at [1, 31,500, 12, 128]
              in 21 frames, each beside its bound (allowed pairs counted
              exactly) and one library call (``scaled_dot_product_attention``
-             with the boolean mask, and its backward), K10b also beside its
-             earlier mma.sync kernel's time; two runs of K10b bit for bit;
-             the tiles K10b's two kernels walked (``visits``) against their
-             lists' lengths; K10 in both forms and K10b at a small ragged
-             geometry (437 tokens in 4 frames); the gradients of one radial-sparse
+             with the boolean mask, and its backward), K10 and K10b also
+             beside their earlier mma.sync kernels' times; two runs of each
+             form of K10 and of K10b bit for bit; the tiles K10 and K10b's
+             two kernels walked (``visits``) against their lists' lengths;
+             K10 in both forms and K10b at a small ragged geometry (437
+             tokens in 4 frames); the gradients of one radial-sparse
              ``WanSelfAttention`` layer at 31,500 tokens through the kernels
              against the same layer through the plain versions.
 30. train (video, hybrid_sparse) — ``wan_train.main`` as in 28 with the ten
@@ -327,19 +332,24 @@ CHUNK_MMA_SYNC_MS = {
     ("mix_states_bwd[wide]", "N=448"): (0.5824,),
     ("mix_states_bwd[wide]", "N=512"): (0.7422,),
 }
-# K6's and K10b's times with their earlier kernels (K6 on float32 FMAs
-# outside the tensor cores, K10b on mma.sync over cp.async tiles), before
-# the Hopper redesigns (TF32 wgmma split to float32 accuracy; the radial form
-# of K9b's wgmma / TMA kernels), by (kernel, shape tag) as this script times
-# them: PERF.md section 6's table (NVIDIA H100 80GB HBM3, 700.00 W).
+# K6's, K10b's and K10's times with their earlier kernels (K6 on float32
+# FMAs outside the tensor cores, K10b and K10 on mma.sync over cp.async
+# tiles), before the Hopper redesigns (TF32 wgmma split to float32 accuracy;
+# the radial forms of K9b's and K9's wgmma / TMA kernels), by (kernel, shape
+# tag) as this script times them: PERF.md section 6's table (NVIDIA H100
+# 80GB HBM3, 700.00 W).
 VIDEO_EARLIER_MS = {
     ("mix_states_dense", "float32 N=150"): (0.6905,),
     ("mix_states_dense[bf16]", "bfloat16 N=150"): (0.6507,),
     ("radial_flash_attention_bwd", "T=31500 21 frames B=1"): (47.4294,),
+    ("radial_flash_attention", "T=31500 21 frames"): (29.1132,),
+    ("radial_flash_attention[lse]", "T=31500 21 frames B=1"): (14.9403,),
 }
-# this run's timed K9 / K9b, K2 / K2b, K3 / K3b, K6 and K10b forms beside
-# their earlier kernels' times
+# this run's timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K10 and K10b forms
+# beside their earlier kernels' times
 REDESIGN_TIMES = {}
+# the tiles each timed or small K10 call walked beside its lists' length
+K10_WALKS = {}
 # every timed kernel form's host cost per call (host_us) and the card's time
 # for one call (device_ms)
 HOST_DEVICE = {}
@@ -375,7 +385,7 @@ KERNEL_META = {
                           "mhla_tpu/kernels/mhla_block_pallas.py:672"),
     "flash_attention": ("cuda", "mhla_tpu_torch/csrc/flash_fwd.cu",
                         "mhla_tpu/kernels/flash_attention.py:115"),
-    "radial_flash_attention": ("cuda", "mhla_tpu_torch/csrc/radial_fwd.cu",
+    "radial_flash_attention": ("cuda", "mhla_tpu_torch/csrc/flash_fwd.cu",
                                "mhla_tpu/kernels/sparse_attention.py:312"),
     "unblockify": ("triton", "mhla_tpu_torch/kernels/mhla_block.py",
                    "mhla_tpu/kernels/mhla_block_pallas.py:273"),
@@ -657,7 +667,7 @@ def check_kernel(results: dict, name: str, shape_tag: str, kern, plain, timed: b
 
 
 def log_redesign_time(name: str, shape_tag: str, r: dict) -> None:
-    """Keep and print a timed K9 / K9b, K2 / K2b, K3 / K3b, K6 or K10b form
+    """Keep and print a timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K10 or K10b form
     beside its time with the earlier kernels, its bound and the library
     call's time, with the ratios."""
     key = (name, shape_tag)
@@ -929,22 +939,26 @@ def phase_kernels_hybrid(dev: torch.device) -> dict:
     check = lambda *a, **kw: check_kernel(results, *a, **kw)  # noqa: E731
     slow = dict(reps=5, inner=2, warmup=1)  # calls of 20 ms to 1 s
 
-    # 5 frames of 100 tokens: tiles that straddle frames, a ragged last tile
+    # 5 frames of 100 tokens: frames narrower than a key tile, tiles that
+    # straddle frames, a ragged last tile
     qs, ks, vs = (randn(b, 500, 3, dh).to(bf16) for _ in range(3))
     check("radial_flash_attention", "T=500 5 frames",
           lambda: sparse.radial_flash_attention(qs, ks, vs, 5),
           lambda: sparse.radial_flash_attention_plain(qs, ks, vs, 5), False, tol=FLASH_TOL)
+    k10_walk(sparse, qs, ks, vs, 5, training=False)
 
     q, k, v = (randn(b, t, h, dh).to(bf16) for _ in range(3))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     t0 = time.perf_counter()
-    offsets, tiles, full = sparse.radial_schedule(t, frames)
+    offsets, tiles, full, _ = sparse.radial_fwd_lists(t, frames)
     t_sched = time.perf_counter() - t0
+    own, step = sparse.FWD_WALK_TILES
+    n_all = (len(offsets) - 1) * -(-t // step)
     pairs = sparse.radial_allowed_pairs(t, frames)
     log(f"[kernels] radial mask at {frames} frames of {t // frames}: {pairs / t**2:.4f} of the "
-        f"pairs allowed; schedule of 64 x 64 tiles: {len(tiles)} of {(len(offsets) - 1)**2} tiles "
-        f"= {len(tiles) / (len(offsets) - 1)**2:.4f}, {full.mean():.4f} of them full, "
-        f"{np.diff(offsets).min()} to {np.diff(offsets).max()} per query tile; built on the "
+        f"pairs allowed; K10's lists of {own} x {step} tiles: {len(tiles)} of {n_all} tiles "
+        f"= {len(tiles) / n_all:.4f}, {full.mean():.4f} of them full, "
+        f"{np.diff(offsets).min()} to {np.diff(offsets).max()} per query block; built on the "
         f"host in {t_sched:.3f} s, once per geometry")
     mask = torch.cat([sparse.radial_block_mask(r, min(t, r + 2048), t, frames, dev)
                       for r in range(0, t, 2048)])
@@ -961,6 +975,7 @@ def phase_kernels_hybrid(dev: torch.device) -> dict:
           lambda: sparse.radial_flash_attention_plain(q, k, v, frames), True, tol=FLASH_TOL,
           work=(4 * nbytes(q), 4 * b * h * dh * pairs, bf16), library=masked_sdpa, timing=slow)
     del mask
+    k10_walk(sparse, q, k, v, frames, training=False)
     check("flash_attention[self]", f"Tq=Tk={t}",
           lambda: flash.flash_attention(q, k, v),
           lambda: flash.flash_attention_plain(q, k, v), True, tol=FLASH_TOL,
@@ -3038,6 +3053,8 @@ def phase_kernels_sparse_train(dev: torch.device) -> dict:
     os_, lses = sparse.radial_flash_attention(qs, ks, vs, rf, return_lse=True)
     if not torch.equal(os_, sparse.radial_flash_attention(qs, ks, vs, rf)):
         raise AssertionError("K10's training form and its serving form disagree (ragged)")
+    for training in (False, True):
+        k10_walk(sparse, qs, ks, vs, rf, training)
     lse_close(f"T={rt} {rf} frames",
               sparse.radial_flash_attention_plain(qs, ks, vs, rf, return_lse=True)[1], lses)
     check("radial_flash_attention_bwd[ragged]", f"T={rt} {rf} frames",
@@ -3047,12 +3064,13 @@ def phase_kernels_sparse_train(dev: torch.device) -> dict:
     walks = {f"T={rt} {rf} frames B=2 H=3": k10b_walk(sparse, qs, ks, vs, os_, lses, dos, rf)}
 
     q, k, v, do = (randn(b, t, h, dh).to(bf16) for _ in range(4))
-    offsets, tiles, _ = sparse.radial_schedule(t, frames)
+    offsets, tiles, _, _ = sparse.radial_fwd_lists(t, frames)
     pairs = sparse.radial_allowed_pairs(t, frames)
     lengths = np.diff(offsets)
-    log(f"[kernels] radial schedule at {frames} frames of {t // frames}: {len(tiles)} tiles of "
-        f"64 x 64 in {len(lengths)} lists (K10's query tiles): longest {lengths.max()}, mean "
-        f"{lengths.mean():.1f}, shortest {lengths.min()}")
+    own, step = sparse.FWD_WALK_TILES
+    log(f"[kernels] K10's lists at {frames} frames of {t // frames}: {len(tiles)} tiles of "
+        f"{own} x {step} in {len(lengths)} lists (its query blocks): longest {lengths.max()}, "
+        f"mean {lengths.mean():.1f}, shortest {lengths.min()}")
     for kernel, (offs, tls, _, _) in sparse.radial_bwd_lists(t, frames).items():
         own, step = sparse.BWD_WALK_TILES[kernel]
         lens = np.diff(offs)
@@ -3088,6 +3106,8 @@ def phase_kernels_sparse_train(dev: torch.device) -> dict:
     serving_ms = median_ms(lambda: sparse.radial_flash_attention(q, k, v, frames), **slow)
     log(f"[kernels] K10 without the log-sum-exp at the same shape: {serving_ms:.4f} ms")
     results["radial_flash_attention[lse]"]["serving_ms"] = serving_ms
+    for training in (False, True):
+        k10_walk(sparse, q, k, v, frames, training)
     check("radial_flash_attention_bwd", f"T={t} {frames} frames B={b}",
           lambda: sparse.radial_flash_attention_bwd(q, k, v, o, lse, do, frames),
           lambda: sparse.radial_flash_attention_bwd_plain(q, k, v, o, lse, do, frames), True,
@@ -3106,6 +3126,31 @@ def phase_kernels_sparse_train(dev: torch.device) -> dict:
     check_layer_grads(dev, "WanSelfAttention[sparse]",
                       WanSelfAttention(h * dh, h, sparse=True, device=dev), (VIDEO_GRID,))
     return results
+
+
+def k10_walk(sparse, q, k, v, frames: int, training: bool) -> None:
+    """The tiles K10 walked in one call of its serving or training form (its
+    ``visits`` counter) against its lists' length times heads and batch
+    rows, kept in K10_WALKS; raises unless they agree or unless a second
+    call gives the same bits."""
+    b, t, h, _ = q.shape
+    form = "training" if training else "serving"
+    visits = torch.zeros(1, dtype=torch.int32, device=q.device)
+    first = _as_tuple(sparse.radial_flash_attention(q, k, v, frames, return_lse=training,
+                                                    visits=visits))
+    again = _as_tuple(sparse.radial_flash_attention(q, k, v, frames, return_lse=training))
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError(f"K10 ({form}) T={t} {frames} frames: two runs differ")
+    own, step = sparse.FWD_WALK_TILES
+    walked, listed = visits.item(), sparse.radial_fwd_visits(t, frames, h, b)
+    n_all = h * b * (-(-t // own)) * (-(-t // step))
+    log(f"[kernels] radial_flash_attention ({form}) T={t} {frames} frames B={b} H={h}: two runs "
+        f"equal; tiles walked {walked}, the lists hold {listed}, of {n_all} in all "
+        f"({walked / n_all:.1%})")
+    if walked != listed:
+        raise AssertionError(f"K10 walked {walked} tiles where its lists hold {listed}")
+    K10_WALKS[f"{form} T={t} {frames} frames B={b} H={h}"] = {
+        "walked": walked, "listed": listed, "all": n_all}
 
 
 def k10b_walk(sparse, q, k, v, o, lse, do, frames: int) -> dict:
@@ -3321,7 +3366,7 @@ def main() -> None:
                     "train_video_hybrid_sparse_lora": train_lora,
                     "sparse_train_kernels": {name: kern[name] for name in (
                         "radial_flash_attention[lse]", "radial_flash_attention_bwd")},
-                    "k10b_walks": kern["k10b_walks"],
+                    "k10_walks": K10_WALKS, "k10b_walks": kern["k10b_walks"],
                     "k6_training_shape": kern["mix_states_dense[M^T]"],
                     "card": smi}))
     log(json.dumps({"kernels": kernels_line}))

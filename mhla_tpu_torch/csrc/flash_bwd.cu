@@ -71,7 +71,7 @@
 // mhla_tpu/kernels/sparse_attention.py:507-517 (built at :137-166; that
 // kernel walks 512 x 512 blocks and streams a stored boolean mask for every
 // block the band crosses, none of which is carried over). lse is the
-// forward's training form's (radial_fwd.cu), over the allowed keys.
+// forward's training form's (flash_fwd.cu's radial form), over the allowed keys.
 // Bound: operations. 10 * 128 FLOP per allowed pair per (batch row, head)
 // against 2 * 8 * T * 128 bytes: far above the bf16 ridge at video lengths.
 // Walk: the same three launches and kernels, each walk cut to the tiles of
@@ -83,8 +83,9 @@
 // the 128-key tiles a 64-query block meets, and an entry's `full` reads the
 // same). On a tile not marked full a pair is kept by index arithmetic: the
 // frame and spatial index of a thread's two rows once per kernel; per tile,
-// the windows of the (at most two) frames its columns span, and from them a
-// bit per column of the thread, outside the loop that forms P. A row below
+// the windows of the (at most two) frames its columns span, and from them
+// the thread's kept columns as two runs of bits (flash_mask.cuh), outside
+// the loop that forms P. A row below
 // T always keeps its own frame, so lse is finite wherever it is read.
 // Its two kernels are named radial_bwd_dkv_kernel and radial_bwd_dq_kernel
 // (thin wrappers of the same bodies), so a trace tells K10b from K9b.

@@ -1,4 +1,5 @@
-// K9: flash-attention forward for Hopper (sm_90a), head dim 128 or 256.
+// K9: flash-attention forward for Hopper (sm_90a), head dim 128 or 256, and
+// K10, its radial-sparse form (below).
 //
 //   o[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h] + mask[b, i, j]) @ v[b, :, h]
 //
@@ -61,17 +62,44 @@
 // P V.
 // Registers (-Xptxas -v, nvcc 12.9): 168 a thread at launch, no spills and
 // no serialized wgmma in any of the 16 instantiations.
+//
+// K10, the radial form (Tq == Tk == T in frames of hw tokens, head dim 128;
+// the rule in flash_common.cuh, the lists in flash_mask.cuh): replaces the
+// Pallas TPU kernel _radial_fwd_kernel (mhla_tpu/kernels/sparse_attention.py:312)
+// and, in its training form, the forward of the JAX library's splash kernel
+// (:477-493, for impl="splash", ragged frames and under jax.grad). Those
+// process all heads of a 256 x 1024 tile a grid step over a schedule padded
+// to the densest query block and zero-pad the tokens; none of that is carried
+// over. Bound: operations, 4 * 128 FLOP per allowed pair per (batch row, head)
+// against 4 * T * 128 * 2 bytes: thousands of FLOP per byte at video lengths.
+// Walk: the same block and tiles as the unmasked form at D = 128 (128 query
+// rows, 128-key tiles), each block walking only the key tiles of its own list
+// (kernels/sparse_attention.py's radial_fwd_lists, cached on the device per
+// geometry: 61.5% of the tiles at 21 frames of 1,500, 54% of them `full`).
+// Block x of a head takes the x-th longest list (`order`), so a head's longest
+// walks start first. A `full` tile does no mask work; on the others each
+// thread takes a keep bit per column of its two rows once a tile
+// (radial_keep_bits: the windows of the at most two frames the tile's columns
+// span give each row two runs of bits, a few integer operations where a test
+// per column cost K10 a quarter of its time), ANDs them with the run of keys
+// below T, and a dropped pair's score is -inf before the row maximum (no
+// branch around exp2f). Its two instantiations are named radial_fwd_kernel
+// (thin wrappers of the same body), so a trace tells K10 from K9; they write
+// the same output, the training form also lse.
 
 #include <math_constants.h>
 
 #include <type_traits>
 
+#include "flash_common.cuh"
 #include "flash_mask.cuh"
 #include "hopper.cuh"
 
 using namespace hopper;
-using flash_mask::TileWalk;
+using flash::pack2f;
+using flash_mask::RadialList;
 using flash_mask::kCausal;
+using flash_mask::kRadial;
 using flash_mask::kSegment;
 
 namespace {
@@ -91,25 +119,20 @@ struct FwdGeom {
   static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + kSegBytes + 1024 + 64;
 };
 
-__device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // grid (ceil(Tq / 128), H, B), 384 threads, dynamic shared memory
 // FwdGeom<kD>::kSmem. kMask: kCausal and/or kSegment bits, 0 for the
-// unmasked form; seg [B, T] int32 and ranges [B, ceil(T / 64)] (the
-// pre-pass's) are read by the segment form only; ``visits``, when not null,
-// gets the number of key tiles the block walked (masked forms). The maps
-// are those of q (boxes of 128 rows), k and v (kBlockN rows).
+// unmasked form, or kRadial (``list``: each query block's key tiles); seg
+// [B, T] int32 and ranges [B, ceil(T / 64)] (the pre-pass's) are read by the
+// segment form only; ``visits``, when not null, gets the number of key tiles
+// the block walked (masked forms). The maps are those of q (boxes of 128
+// rows), k and v (kBlockN rows).
 template <int kD, bool kLse, int kMask>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
-                 const __grid_constant__ CUtensorMap map_k,
-                 const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int Tq, int Tk, int H, float scale_log2,
-                 const int* __restrict__ seg, const int2* __restrict__ ranges,
-                 int* __restrict__ visits) {
+__device__ __forceinline__ void fwd_block(const CUtensorMap& map_q, const CUtensorMap& map_k,
+                                          const CUtensorMap& map_v, bf16* __restrict__ o,
+                                          float* __restrict__ lse, int Tq, int Tk, int H,
+                                          float scale_log2, const int* __restrict__ seg,
+                                          const int2* __restrict__ ranges, const RadialList list,
+                                          int* __restrict__ visits) {
   typedef FwdGeom<kD> G;
   constexpr int kBlockN = G::kBlockN;
   extern __shared__ unsigned char smem_raw[];
@@ -126,13 +149,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int* sb = (kMask & kSegment) ? seg + (int64_t)b * Tq : nullptr;
-  // the causal forms' longest walks first
-  const int qblk = (kMask & kCausal) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  // the longest walks first: the radial form's by its order, the causal forms'
+  // from the last query block
+  const int qblk = (kMask & kRadial)   ? list.order[blockIdx.x]
+                   : (kMask & kCausal) ? gridDim.x - 1 - blockIdx.x
+                                       : blockIdx.x;
   const int q0 = qblk * kBlockM;
   // the key tiles this block walks: all of them unmasked; for the masked
   // forms those that can hold a kept pair (flash_mask.cuh)
-  const TileWalk<kMask, kBlockM, kBlockN, false> walk(
-      (kMask & kSegment) ? ranges + (int64_t)b * ((Tk + 63) / 64) : nullptr, qblk,
+  const auto walk = flash_mask::make_walk<kMask, kBlockM, kBlockN, false>(
+      (kMask & kSegment) ? ranges + (int64_t)b * ((Tk + 63) / 64) : nullptr, list, qblk,
       kMask ? Tq : Tk);
 
   if (threadIdx.x == 0) {
@@ -159,17 +185,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       int stage = 0, n = 0;
       uint32_t phase = 0;
       for (int j = walk.next(walk.first); j <= walk.last; j = walk.next(j + 1), ++n) {
+        const int kt = walk.tile(j) * kBlockN;
         mbar_wait(&empty[stage], phase ^ 1);
         if (warp == 0) {
           if (lane == 0) {
             mbar_arrive_expect_tx(&full[stage], 2 * G::kKVBytes);
-            tma_load_tile<kD, kBlockN>(kst(stage), &map_k, &full[stage], j * kBlockN, h, b);
-            tma_load_tile<kD, kBlockN>(vst(stage), &map_v, &full[stage], j * kBlockN, h, b);
+            tma_load_tile<kD, kBlockN>(kst(stage), &map_k, &full[stage], kt, h, b);
+            tma_load_tile<kD, kBlockN>(vst(stage), &map_v, &full[stage], kt, h, b);
           }
         } else {
 #pragma unroll
           for (int i = lane; i < kBlockN; i += 32) {
-            const int key = j * kBlockN + i;
+            const int key = kt + i;
             kseg[stage * kBlockN + i] = key < Tk ? sb[key] : 0;
           }
           mbar_arrive(&full[stage]);
@@ -186,6 +213,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
     const int sq0 = (kMask & kSegment) && r0 < Tq ? sb[r0] : 0;
     const int sq1 = (kMask & kSegment) && r1 < Tq ? sb[r1] : 0;
+    // radial form: the frame and spatial index of this thread's rows
+    const int hw = kMask == kRadial ? list.hw : 1;
+    const int2 query0 = kMask == kRadial ? make_int2(r0 / hw, r0 % hw) : make_int2(0, 0);
+    const int2 query1 = kMask == kRadial ? make_int2(r1 / hw, r1 % hw) : make_int2(0, 0);
 
     float oacc[kD / 8][4];
 #pragma unroll
@@ -197,7 +228,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     int stage = 0;
     uint32_t phase = 0;
     for (int j = walk.next(walk.first); j <= walk.last; j = walk.next(j + 1)) {
-      const int kt = j * kBlockN;
+      const int kt = walk.tile(j) * kBlockN;
       const bool masked = kMask != 0 && walk.needs_mask(j);
       const bool tail = kt + kBlockN > Tk;
       mbar_wait(&full[stage], phase);
@@ -217,6 +248,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
       // scale, mask the keys past Tk (and, on a tile that needs it, the pairs
       // the mask drops), row maxima
+      // radial form: bit 2 nt + c of keep0 / keep1 says whether this
+      // thread's key column nt * 8 + 2 tg + c is kept for its rows (keys
+      // past Tk dropped: a full tile holds none)
+      uint32_t keep0 = ~0u, keep1 = ~0u;
+      if (kMask == kRadial && masked) {
+        flash_mask::radial_keep_bits<kBlockN / 8>(keep0, keep1, query0, query1, kt, tg, hw);
+        if (tail) {
+          const uint32_t real = flash_mask::column_run<kBlockN / 8>(0, Tk - kt, tg);
+          keep0 &= real;
+          keep1 &= real;
+        }
+      }
       float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
@@ -224,7 +267,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int e = 0; e < 4; ++e) {
           const int key = kt + nt * 8 + tg * 2 + (e & 1);
           bool keep = !tail || key < Tk;
-          if (kMask != 0 && masked) {
+          if (kMask == kRadial) {
+            keep = ((e < 2 ? keep0 : keep1) >> (2 * nt + (e & 1))) & 1;
+          } else if (kMask != 0 && masked) {
             const int sk = (kMask & kSegment) ? kseg[stage * kBlockN + key - kt] : 0;
             keep = keep && flash_mask::keep_pair<kMask>(e < 2 ? r0 : r1, e < 2 ? sq0 : sq1,
                                                         key, sk);
@@ -307,23 +352,60 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// K9's kernel by head dim, lse and mask form, and K10's under a name of its own.
+template <int kD, bool kLse, int kMask>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int Tq, int Tk, int H, float scale_log2,
+                 const int* __restrict__ seg, const int2* __restrict__ ranges,
+                 const RadialList list, int* __restrict__ visits) {
+  fwd_block<kD, kLse, kMask>(map_q, map_k, map_v, o, lse, Tq, Tk, H, scale_log2, seg, ranges,
+                             list, visits);
+}
+template <bool kLse>
+__global__ void __launch_bounds__(kThreads, 1)
+radial_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int Tq, int Tk, int H, float scale_log2,
+                  const int* __restrict__ seg, const int2* __restrict__ ranges,
+                  const RadialList list, int* __restrict__ visits) {
+  fwd_block<128, kLse, kRadial>(map_q, map_k, map_v, o, lse, Tq, Tk, H, scale_log2, seg, ranges,
+                                list, visits);
+}
+
+// The kernel of a head dim, lse and mask form.
+template <int kD, bool kLse, int kMask>
+auto fwd_kernel() {
+  if constexpr (kMask == kRadial) {
+    static_assert(kD == 128, "the radial form runs at head dim 128");
+    return radial_fwd_kernel<kLse>;
+  } else {
+    return flash_fwd_kernel<kD, kLse, kMask>;
+  }
+}
+
+// ``list``: the radial form's lists, empty for the others.
 template <int kD, bool kLse, int kMask>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Tq,
                int Tk, int H, float scale, const int* seg, const int2* ranges, int* visits,
-               cudaStream_t stream) {
+               cudaStream_t stream, RadialList list = RadialList{}) {
   typedef FwdGeom<kD> G;
   CUtensorMap mq, mk, mv;
   int err = hopper_host::make_tile_map(&mq, q, B, Tq, H, kD, kBlockM);
   if (!err) err = hopper_host::make_tile_map(&mk, k, B, Tk, H, kD, G::kBlockN);
   if (!err) err = hopper_host::make_tile_map(&mv, v, B, Tk, H, kD, G::kBlockN);
   if (err) return err;
-  auto kern = flash_fwd_kernel<kD, kLse, kMask>;
+  auto kern = fwd_kernel<kD, kLse, kMask>();
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        G::kSmem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Tq + kBlockM - 1) / kBlockM, H, B);
   kern<<<grid, kThreads, G::kSmem, stream>>>(mq, mk, mv, (bf16*)o, (float*)lse, Tq, Tk, H,
-                                             scale * 1.4426950408889634f, seg, ranges, visits);
+                                             scale * 1.4426950408889634f, seg, ranges, list,
+                                             visits);
   return (int)cudaGetLastError();
 }
 
@@ -397,6 +479,21 @@ int mhla_flash_fwd_masked(const void* q, const void* k, const void* v, void* o, 
     return launch(q, k, v, o, lse, (const int*)seg, (int2*)ranges, (int*)visits, B, T, H,
                   causal != 0, scale, (cudaStream_t)stream);
   });
+}
+
+// K10, the radial form, Tq == Tk == T in frames of ``hw`` tokens, head dim
+// 128: the lists of radial_schedule(T, frames, 128, 128) (offsets, entries
+// 2 * tile + full, the block order; int32 on the device); ``visits`` null or
+// an int32 that gets the number of walked tiles added; ``lse`` null for the
+// serving form.
+int mhla_flash_fwd_radial(const void* q, const void* k, const void* v, void* o, void* lse,
+                          const void* offsets, const void* entries, const void* order,
+                          void* visits, int B, int T, int H, int hw, float scale, void* stream) {
+  if (T < 1 || hw < 1) return (int)cudaErrorInvalidValue;
+  const RadialList list = {(const int*)offsets, (const int*)entries, (const int*)order, hw};
+  auto launch = lse != nullptr ? launch_fwd<128, true, kRadial> : launch_fwd<128, false, kRadial>;
+  return launch(q, k, v, o, lse, B, T, T, H, scale, nullptr, nullptr, (int*)visits,
+                (cudaStream_t)stream, list);
 }
 
 }  // extern "C"

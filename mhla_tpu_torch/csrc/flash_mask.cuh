@@ -1,8 +1,7 @@
-// The causal and segment-id masks of the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu), and the radial mask of the backward
-// (flash_bwd.cu): which tiles of the [T, T] score matrix a block walks,
-// which of those need a per-element mask, and the per-element rule. Tq ==
-// Tk == T. A block's own span and the tiles it walks are
+// The causal, segment-id and radial masks of the flash-attention kernels
+// (flash_fwd.cu, flash_bwd.cu): which tiles of the [T, T] score matrix a
+// block walks, which of those need a per-element mask, and the per-element
+// rule. Tq == Tk == T. A block's own span and the tiles it walks are
 // multiples of 64 tokens (the range pre-pass's tiles), in sizes that differ
 // by kernel and head dim.
 //
@@ -170,11 +169,26 @@ __device__ __forceinline__ auto make_walk(const int2* ranges, const RadialList& 
   else return TileWalk<kMask, kOwn, kStep, kKeySide>(ranges, own, T);
 }
 
+// The bits of a thread's columns 8 nt + 2 tg + c (bit 2 nt + c, nt < kSteps)
+// whose offset in the tile lies in [a, b). The offsets rise with the bit
+// index, so those columns are one run of bits: from the count of the
+// thread's columns below a to the count below b.
+template <int kSteps>
+__device__ __forceinline__ uint32_t column_run(int a, int b, int tg) {
+  auto below = [&](int x) {
+    x = min(max(x, 0), kSteps * 8);
+    return 2 * (x >> 3) + min(max((x & 7) - 2 * tg, 0), 2);
+  };
+  const int lo = below(a), hi = below(b);
+  return lo < hi ? (uint32_t)((1ull << hi) - (1ull << lo)) : 0u;
+}
+
 // The radial rule for a thread's two rows, whose (frame, spatial index) are
 // row0 and row1, against its columns c0 + 8 nt + 2 tg + c of a tile, nt <
 // kSteps and c < 2: bit 2 nt + c of keep0 / keep1 is set where the pair is
 // allowed. Where hw is at least the tile's width its columns lie in at most
-// two frames, so two windows a row serve all of them, with no branch per
+// two frames, and a row keeps of each frame the columns within its window
+// of its spatial index: two runs of bits (column_run), with no work per
 // column; smaller frames take each column's frame in turn.
 template <int kSteps>
 __device__ __forceinline__ void radial_keep_bits(uint32_t& keep0, uint32_t& keep1, int2 row0,
@@ -182,20 +196,17 @@ __device__ __forceinline__ void radial_keep_bits(uint32_t& keep0, uint32_t& keep
   const int f0 = c0 / hw, s0 = c0 - f0 * hw;
   keep0 = keep1 = 0u;
   if (hw >= kSteps * 8) {
-    const int wa0 = flash::radial_window(abs(row0.x - f0), hw);
-    const int wb0 = flash::radial_window(abs(row0.x - f0 - 1), hw);
-    const int wa1 = flash::radial_window(abs(row1.x - f0), hw);
-    const int wb1 = flash::radial_window(abs(row1.x - f0 - 1), hw);
-#pragma unroll
-    for (int nt = 0; nt < kSteps; ++nt)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        int s = s0 + nt * 8 + tg * 2 + c;
-        const bool next = s >= hw;
-        s = next ? s - hw : s;
-        keep0 |= (uint32_t)(abs(row0.y - s) < (next ? wb0 : wa0)) << (2 * nt + c);
-        keep1 |= (uint32_t)(abs(row1.y - s) < (next ? wb1 : wa1)) << (2 * nt + c);
-      }
+    // offsets below `split` lie in frame f0 at spatial index s0 + offset,
+    // the others in frame f0 + 1 at offset - split
+    const int split = hw - s0;
+    auto keep = [&](int2 row) {
+      const int wa = flash::radial_window(abs(row.x - f0), hw);
+      const int wb = flash::radial_window(abs(row.x - f0 - 1), hw);
+      return column_run<kSteps>(row.y - s0 - wa + 1, min(row.y - s0 + wa, split), tg) |
+             column_run<kSteps>(max(row.y + split - wb + 1, split), row.y + split + wb, tg);
+    };
+    keep0 = keep(row0);
+    keep1 = keep(row1);
     return;
   }
   for (int nt = 0; nt < kSteps; ++nt)

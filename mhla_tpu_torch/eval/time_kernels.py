@@ -10,10 +10,12 @@ group a process:
 - ``flash``: K9 / K9b (``kernels/flash_attention.py``) in every form, beside
   the library's flash or memory-efficient SDPA call (forward, and its
   backward through autograd). No steps.
-- ``video``: K6 (``kernels/mhla_block.py``) and K10b
-  (``kernels/sparse_attention.py``) at the video model's shapes; steps the
-  training steps of (i) hybrid_sparse and (j) hybrid_sparse + LoRA and one
-  CFG forward of (d), the full-MHLA sampler (letters i, j, d).
+- ``video``: K6 (``kernels/mhla_block.py``), K10 in its serving and its
+  training form and K10b (``kernels/sparse_attention.py``) at the video
+  model's shapes; steps the training steps of (i) hybrid_sparse and (j)
+  hybrid_sparse + LoRA, one CFG forward of (d), the full-MHLA sampler, and
+  one of (f), the hybrid_sparse sampler, at t = 501, below its dense guard
+  (letters i, j, d, f).
 
 It imports ``mhla_tpu_torch`` and ``chip_smoke`` from the current directory,
 so the same file times another checkout too, such as a parent tree unpacked
@@ -326,7 +328,7 @@ def flash_kernels(cs, tag: str) -> None:
         time_flash_form(flash, cs, tag, *form)
 
 
-# --- video: K6, K10b -------------------------------------------------------
+# --- video: K6, K10, K10b --------------------------------------------------
 
 VIDEO_FRAMES, VIDEO_TOKENS, VIDEO_HEADS = 21, 31500, 12
 SOFTMAX_LAYERS = tuple(range(0, 30, 3))  # configs/wan_1300m_hybrid_mhla.yaml
@@ -355,6 +357,26 @@ def time_k6(tag: str) -> None:
             "ms": median_ms(lambda: mhla_block.mix_states_dense(mat, s), 3),
             "library_ms": median_ms(lambda: torch.matmul(md, s.view(b, n, r)), 3)})
         del s
+
+
+def time_k10(tag: str) -> None:
+    """K10 at (f)'s [2, 31,500, 12, 128] in 21 frames (serving form) and at
+    (i)'s [1, 31,500, 12, 128] (training form, which also writes lse)."""
+    import torch
+
+    from mhla_tpu_torch.kernels import sparse_attention as sparse
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(1)
+    for b, lse, form in ((2, False, "serving [2, 31500, 12, 128]"),
+                         (1, True, "training [1, 31500, 12, 128]")):
+        q, k, v = (torch.randn(b, VIDEO_TOKENS, VIDEO_HEADS, 128, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        report(tag, f"K10 {form} 21 frames", {
+            "ms": median_ms(lambda: sparse.radial_flash_attention(q, k, v, VIDEO_FRAMES,
+                                                                  return_lse=lse),
+                            2, reps=5, warmup=1)})
+        del q, k, v
 
 
 def time_k10b(tag: str) -> None:
@@ -422,14 +444,40 @@ def time_cfg_forward(tag: str) -> None:
     del model
 
 
+def time_sparse_forward(cs, tag: str) -> None:
+    """One forward of (f)'s CFG batch: the hybrid model with its ten softmax
+    layers radial-sparse, at t = 501 (K10 below the dense guard); the median
+    of 5 calls after one."""
+    import torch
+
+    from mhla_tpu_torch.eval.video_infer_cli import VideoInferConfig, _build_model
+
+    cfg = VideoInferConfig()
+    cfg.linear_attn_idx = cs.HYBRID_LINEAR_IDX
+    dev = torch.device(cfg.device)
+    model = _build_model(cfg, dev, sparse_attn_idx=cs.SOFTMAX_LAYERS)
+    gen = torch.Generator(dev).manual_seed(1)
+    x = torch.randn(2, *cfg.sampling.latent_shape, generator=gen, device=dev)
+    ctx = torch.randn(2, model.cfg.text_len, model.cfg.text_dim, generator=gen, device=dev)
+    t = torch.full((2,), cs.T_SPARSE, device=dev)
+
+    def call():
+        with torch.no_grad():
+            model(x, t, ctx)
+
+    report(tag, "forward (f)", {"forward_ms": host_median_ms(call, 5)})
+    del model
+
+
 def video_kernels(cs, tag: str) -> None:
     time_k6(tag)
+    time_k10(tag)
     time_k10b(tag)
 
 
 def video_steps(cs, tag: str) -> dict:
     return {"i": lambda: time_train_step(tag, False), "j": lambda: time_train_step(tag, True),
-            "d": lambda: time_cfg_forward(tag)}
+            "d": lambda: time_cfg_forward(tag), "f": lambda: time_sparse_forward(cs, tag)}
 
 
 GROUPS = {"chunk": (chunk_kernels, chunk_steps), "flash": (flash_kernels, None),

@@ -16,10 +16,11 @@ K5b ``unblockify`` and K8b ``blockify`` (Triton) and K7b
 ``flash_attention.flash_attention`` (CUDA C++, ``csrc/flash_fwd.cu``; the
 module keeps its name here, as in the JAX package) and its gradient K9b
 ``flash_attention.flash_attention_bwd`` (``csrc/flash_bwd.cu``); K10
-``sparse_attention.radial_flash_attention`` (CUDA C++,
-``csrc/radial_fwd.cu``) and its gradient K10b
-``sparse_attention.radial_flash_attention_bwd`` (the radial form of
-``csrc/flash_bwd.cu``) behind ``sparse_flash_attention``.
+``sparse_attention.radial_flash_attention`` (the radial form of
+``csrc/flash_fwd.cu``: 128-query blocks over 128-key tiles of their own
+lists) and its gradient K10b ``sparse_attention.radial_flash_attention_bwd``
+(the radial form of ``csrc/flash_bwd.cu``) behind
+``sparse_flash_attention``.
 
 Gated DeltaNet LM: K11 ``delta_chunk.delta_chunk_fwd`` (CUDA C++,
 ``csrc/delta_chunk.cu``) and its gradient K11b

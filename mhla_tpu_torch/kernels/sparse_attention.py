@@ -13,25 +13,25 @@ halves per octave of temporal distance beyond that:
 K10 ``radial_flash_attention`` replaces the Pallas kernel
 ``_radial_fwd_kernel`` (``mhla_tpu/kernels/sparse_attention.py:312``) and the
 forward of the JAX library's splash kernel, which the JAX package runs for
-``impl="splash"`` and for ragged frames (``:477-493``): a flash forward that
-walks, per tile of 64 query rows, only the 64-key tiles that hold an allowed
-pair, and recomputes the mask inside the tile from index arithmetic
-(``csrc/radial_fwd.cu``, where its bound and design are written). Its
-training form also writes each row's log-sum-exp. K10b
+``impl="splash"`` and for ragged frames (``:477-493``): the radial form of
+K9's Hopper forward (``csrc/flash_fwd.cu``, where its bound, walk and order
+are written), whose blocks of 128 query rows walk only the 128-key tiles of
+their own list and recompute the mask inside a tile from index arithmetic.
+Its training form also writes each row's log-sum-exp. K10b
 ``radial_flash_attention_bwd`` replaces the splash kernel's fused backward
 (``:507-517``): dq, dk and dv, as the radial form of K9b's Hopper kernels
-(``csrc/flash_bwd.cu``, where its bound, walk and order are written), each
-walking only the tiles of its own list. Where a gradient is wanted
-``radial_flash_attention`` goes through an ``autograd.Function`` of the
-two; a call without gradients launches the forward that writes no
-log-sum-exp.
+(``csrc/flash_bwd.cu``), each walking only the tiles of its own list. Where
+a gradient is wanted ``radial_flash_attention`` goes through an
+``autograd.Function`` of the two; a call without gradients launches the
+forward that writes no log-sum-exp.
 
 The tile lists come from :func:`radial_schedule`, computed once per geometry
-on frame pieces without any [T, T] array, and sit on the device in CSR form:
-K10's 64 x 64 tiles, K10b's dQ kernel's query blocks of 128 over key tiles
-of 64 and its dK/dV kernel's key blocks of 64 over query tiles of 128
-(:data:`BWD_WALK_TILES`), the latter read from the key side; K10b's come
-with an order of their blocks, longest list first.
+on frame pieces without any [T, T] array, and sit on the device in CSR form
+with an order of their blocks, longest list first: K10's query blocks of 128
+over key tiles of 128 (:data:`FWD_WALK_TILES`), K10b's dQ kernel's query
+blocks of 128 over key tiles of 64 and its dK/dV kernel's key blocks of 64
+over query tiles of 128 (:data:`BWD_WALK_TILES`), the latter read from the
+key side.
 
 A CPU tensor takes :func:`radial_flash_attention_plain` and
 :func:`radial_flash_attention_bwd_plain`; a CUDA tensor launches the kernels
@@ -53,8 +53,11 @@ from .mhla_chunk import _check, _on_cpu, _raise_on_error, _stream
 
 launches = {"radial_flash_attention": 0, "radial_flash_attention_bwd": 0}
 
-_HEAD_DIM = 128  # csrc: kD
-_TILE = 64  # csrc: kBlockM = kBlockN
+_HEAD_DIM = 128  # the kernels' head dim
+_TILE = 64  # radial_schedule's default tile, both ways
+# (own block, step tile) of K10: 128 queries over key tiles of 128
+# (flash_fwd.cu's kBlockM and FwdGeom<128>::kBlockN)
+FWD_WALK_TILES = (128, 128)
 # (own block, step tile) of K10b's two kernels at head dim 128: the dK/dV
 # kernel's 64 keys over query tiles of 128 (flash_bwd.cu's kTileRows and
 # DkvGeom<128>::kQT), the dQ kernel's 128 queries over key tiles of 64
@@ -68,10 +71,9 @@ def _lib() -> ctypes.CDLL:
     if _lib_cache is None:
         lib = _build.load()
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mhla_radial_fwd.argtypes = [p] * 6 + [i, i, i, i, ctypes.c_float, p]
-        lib.mhla_radial_fwd_lse.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_float, p]
+        lib.mhla_flash_fwd_radial.argtypes = [p] * 9 + [i] * 4 + [ctypes.c_float, p]
         lib.mhla_flash_bwd_radial.argtypes = [p] * 17 + [i] * 4 + [ctypes.c_float, p]
-        for fn in (lib.mhla_radial_fwd, lib.mhla_radial_fwd_lse, lib.mhla_flash_bwd_radial):
+        for fn in (lib.mhla_flash_fwd_radial, lib.mhla_flash_bwd_radial):
             fn.restype = ctypes.c_int
         _lib_cache = lib
     return _lib_cache
@@ -208,17 +210,32 @@ def radial_schedule(
     return offsets, cols.astype(np.int32), full[rows, cols].astype(np.int32)
 
 
+def _ordered_lists(t: int, num_frames: int, own: int, step: int):
+    """``(offsets, tiles, full, order)`` of ``radial_schedule(t, num_frames,
+    own, step)``, ``order`` the blocks by falling list length (stable: equal
+    lengths keep their block order), the order a kernel's grid takes them in."""
+    offsets, tiles, full = radial_schedule(t, num_frames, own, step)
+    order = np.argsort(-np.diff(offsets), kind="stable").astype(np.int32)
+    return offsets, tiles, full, order
+
+
+def radial_fwd_lists(t: int, num_frames: int):
+    """K10's lists (:data:`FWD_WALK_TILES`): ``(offsets, tiles, full,
+    order)``, longest list first."""
+    return _ordered_lists(t, num_frames, *FWD_WALK_TILES)
+
+
+def radial_fwd_visits(t: int, num_frames: int, heads: int, batch: int) -> int:
+    """What K10's ``visits`` counter reads after one call on [batch, t,
+    heads, 128]: the tiles of its lists, over all heads and batch rows."""
+    return heads * batch * len(radial_fwd_lists(t, num_frames)[1])
+
+
 def radial_bwd_lists(t: int, num_frames: int) -> dict:
     """K10b's lists by kernel (:data:`BWD_WALK_TILES`): for each, ``(offsets,
-    tiles, full, order)`` of ``radial_schedule(t, num_frames, own, step)``,
-    ``order`` the blocks by falling list length (stable: equal lengths keep
-    their block order), the order the kernel's grid takes them in."""
-    lists = {}
-    for kernel, (own, step) in BWD_WALK_TILES.items():
-        offsets, tiles, full = radial_schedule(t, num_frames, own, step)
-        order = np.argsort(-np.diff(offsets), kind="stable").astype(np.int32)
-        lists[kernel] = (offsets, tiles, full, order)
-    return lists
+    tiles, full, order)`` as :func:`radial_fwd_lists` gives K10's."""
+    return {kernel: _ordered_lists(t, num_frames, own, step)
+            for kernel, (own, step) in BWD_WALK_TILES.items()}
 
 
 def radial_bwd_visits(t: int, num_frames: int, heads: int, batch: int) -> list:
@@ -229,24 +246,26 @@ def radial_bwd_visits(t: int, num_frames: int, heads: int, batch: int) -> list:
     return [heads * batch * len(lists[kernel][1]) for kernel in ("dkv", "dq")]
 
 
+def _on_device(lists, device: str) -> tuple:
+    """(offsets, entries, order) int32 on ``device`` of ``(offsets, tiles,
+    full, order)``; an entry is ``2 * tile + full``."""
+    offsets, tiles, full, order = lists
+    return tuple(torch.from_numpy(a).to(device) for a in (offsets, tiles * 2 + full, order))
+
+
 @functools.lru_cache(maxsize=8)
 def _bwd_lists_on_device(t: int, num_frames: int, device: str):
-    """K10b's lists on ``device``: (offsets, entries, order) int32 of the
-    dK/dV kernel, then of the dQ kernel; an entry is ``2 * tile + full``.
-    Built once per geometry and device."""
-    out = []
-    for offsets, tiles, full, order in radial_bwd_lists(t, num_frames).values():
-        out += [torch.from_numpy(a).to(device) for a in (offsets, tiles * 2 + full, order)]
-    return tuple(out)
+    """K10b's lists on ``device``: (offsets, entries, order) of the dK/dV
+    kernel, then of the dQ kernel. Built once per geometry and device."""
+    lists = radial_bwd_lists(t, num_frames)
+    return _on_device(lists["dkv"], device) + _on_device(lists["dq"], device)
 
 
 @functools.lru_cache(maxsize=8)
 def _schedule_on_device(t: int, num_frames: int, device: str):
-    """(offsets, entries) int32 on ``device``; an entry is ``2 * tile +
-    full``. Built once per geometry and device (0.03 s on the host at
-    31,500 tokens), so no forward after the first waits for it."""
-    offsets, tiles, full = radial_schedule(t, num_frames)
-    return tuple(torch.from_numpy(a).to(device) for a in (offsets, tiles * 2 + full))
+    """K10's lists on ``device``: (offsets, entries, order). Built once per
+    geometry and device, so no forward after the first waits for them."""
+    return _on_device(radial_fwd_lists(t, num_frames), device)
 
 
 # ---------------------------------------------------------------------------
@@ -340,20 +359,23 @@ def radial_flash_attention(
     num_frames: int,
     scale: Optional[float] = None,
     return_lse: bool = False,
+    visits: Optional[torch.Tensor] = None,
 ):
     """K10 (see :func:`radial_flash_attention_plain`): bf16, head dim 128,
     any T >= ``num_frames``. Differentiable in q, k and v through K10b.
     ``return_lse`` gives ``(out, lse)`` from the kernel's training form,
-    outside autograd."""
+    outside autograd. ``visits`` (int32 [1] on the card) gets the tiles the
+    kernel walked added (:func:`radial_fwd_visits`)."""
     hw = _check_qkv(q, k, v, num_frames)
     if return_lse:
-        return _radial_fwd(q, k, v, num_frames, hw, scale, True)
+        return _radial_fwd(q, k, v, num_frames, hw, scale, True, visits)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _RadialFlashAttention.apply(q, k, v, num_frames, scale)
-    return _radial_fwd(q, k, v, num_frames, hw, scale, False)[0]
+        return _RadialFlashAttention.apply(q, k, v, num_frames, scale, visits)
+    return _radial_fwd(q, k, v, num_frames, hw, scale, False, visits)[0]
 
 
-def _radial_fwd(q, k, v, num_frames: int, hw: int, scale: Optional[float], want_lse: bool):
+def _radial_fwd(q, k, v, num_frames: int, hw: int, scale: Optional[float], want_lse: bool,
+                visits: Optional[torch.Tensor] = None):
     """``(out, lse | None)``: the plain version for CPU tensors, K10 for CUDA
     tensors, in its training form (which writes ``lse``) when ``want_lse``."""
     b, t, h, d = q.shape
@@ -364,19 +386,14 @@ def _radial_fwd(q, k, v, num_frames: int, hw: int, scale: Optional[float], want_
     out = torch.empty_like(q)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device) if want_lse else None
     if b * h:
-        offsets, entries = _schedule_on_device(t, num_frames, str(q.device))
-        scale = d**-0.5 if scale is None else scale
+        lists = _schedule_on_device(t, num_frames, str(q.device))
         with torch.cuda.device(q.device):
-            if want_lse:
-                err = _lib().mhla_radial_fwd_lse(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                    offsets.data_ptr(), entries.data_ptr(), b, t, h, hw, scale, _stream(q),
-                )
-            else:
-                err = _lib().mhla_radial_fwd(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    offsets.data_ptr(), entries.data_ptr(), b, t, h, hw, scale, _stream(q),
-                )
+            err = _lib().mhla_flash_fwd_radial(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), *(x.data_ptr() for x in lists),
+                None if visits is None else visits.data_ptr(),
+                b, t, h, hw, d**-0.5 if scale is None else scale, _stream(q),
+            )
         _raise_on_error("radial_flash_attention", err)
         launches["radial_flash_attention"] += 1
     return out, lse
@@ -427,8 +444,9 @@ class _RadialFlashAttention(torch.autograd.Function):
     K10b backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_frames, scale):
-        o, lse = radial_flash_attention(q, k, v, num_frames, scale, return_lse=True)
+    def forward(ctx, q, k, v, num_frames, scale, visits):
+        o, lse = radial_flash_attention(q, k, v, num_frames, scale, return_lse=True,
+                                        visits=visits)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.num_frames, ctx.scale = num_frames, scale
         return o
@@ -438,7 +456,7 @@ class _RadialFlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         grads = radial_flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.num_frames,
                                            ctx.scale)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 def sparse_flash_attention(

@@ -461,13 +461,15 @@ def test_flash_attention_kernel_at_long_equal_lengths(dev):
                  chip_smoke.FLASH_TOL)
 
 
-# frames x tokens per frame: below, at and above the 64-token tile; T a
-# multiple of the tile and not; enough frames for windows of 1/2, 1/4, 1/8, 1/16
+# frames x tokens per frame: below the 128-key tile (each column's frame in
+# turn) and above it (two windows a row); T a multiple of the tile and not;
+# enough frames for windows of 1/2, 1/4, 1/8, 1/16
 @pytest.mark.parametrize("frames,hw", [(6, 7), (5, 100), (3, 64), (4, 640), (8, 568), (21, 150),
                                        (40, 3)])
 def test_radial_flash_kernel_matches_plain(dev, frames, hw):
     """K10: full tiles (no mask work), masked tiles, tiles that are wholly
-    masked for some rows, rows past T and keys past T."""
+    masked for some rows, rows past T and keys past T; the tiles walked
+    (``visits``) are the lists' and two runs give the same bits."""
     import chip_smoke
 
     t = frames * hw
@@ -475,6 +477,10 @@ def test_radial_flash_kernel_matches_plain(dev, frames, hw):
     before = sparse.launches["radial_flash_attention"]
     out = sparse.sparse_flash_attention(q, k, v, frames)
     assert sparse.launches["radial_flash_attention"] == before + 1
+    visits = torch.zeros(1, dtype=torch.int32, device=dev)
+    again = sparse.radial_flash_attention(q, k, v, frames, visits=visits)
+    assert torch.equal(again, out)
+    assert visits.item() == sparse.radial_fwd_visits(t, frames, 3, 2)
     assert out.dtype == _BF16 and torch.isfinite(out.float()).all()
     assert_close(f"radial {frames}x{hw}", sparse.radial_flash_attention_plain(q, k, v, frames),
                  out, chip_smoke.FLASH_TOL)
@@ -699,7 +705,7 @@ _RADIAL_TRAIN_SHAPES = [(256, 4), (437, 4), (500, 5), (100, 1), (40, 40), (24, 5
 @pytest.mark.parametrize("b,h", [(2, 3), (1, 1)])
 def test_radial_flash_training_kernels_match_plain(dev, t, frames, b, h):
     """K10 in its training form (the serving form's output bit for bit, plus
-    the masked log-sum-exp) and K10b on the kernel forward's own output,
+    the masked log-sum-exp; the tiles walked are its lists') and K10b on the kernel forward's own output,
     against their plain versions, at even and ragged frames; K10b equal across
     two runs; the gradients through ``sparse_flash_attention`` against float32
     autograd of the masked softmax, in the inputs' dtype."""
@@ -707,7 +713,9 @@ def test_radial_flash_training_kernels_match_plain(dev, t, frames, b, h):
 
     q, k, v, do = (_randn(dev, b, t, h, 128, seed=s).to(_BF16) for s in (1, 2, 3, 4))
     before = dict(sparse.launches)
-    out, lse = sparse.radial_flash_attention(q, k, v, frames, return_lse=True)
+    visits = torch.zeros(1, dtype=torch.int32, device=dev)
+    out, lse = sparse.radial_flash_attention(q, k, v, frames, return_lse=True, visits=visits)
+    assert visits.item() == sparse.radial_fwd_visits(t, frames, h, b)
     assert torch.equal(out, sparse.radial_flash_attention(q, k, v, frames))
     ref_out, ref_lse = sparse.radial_flash_attention_plain(q, k, v, frames, return_lse=True)
     assert_close(f"radial {t}/{frames}", ref_out, out, chip_smoke.FLASH_TOL)
@@ -1684,13 +1692,14 @@ def _sass_bodies() -> dict:
 
 
 def test_flash_kernels_run_on_wgmma_and_tma(dev):
-    """The built library's K9, K9b and K10b kernels hold HGMMA (wgmma) and
-    UTMALDG (TMA loads) and no HMMA (mma.sync), in every instantiation,
-    K10b's two (``radial_bwd_*``: the radial form of K9b's bodies under
-    names of their own) included."""
+    """The built library's K9, K9b, K10 and K10b kernels hold HGMMA (wgmma)
+    and UTMALDG (TMA loads) and no HMMA (mma.sync), in every instantiation,
+    K10's two (``radial_fwd_kernel``, serving and training: the radial form
+    of K9's body) and K10b's two (``radial_bwd_*``: of K9b's bodies), under
+    names of their own, included."""
     found = {kind: 0 for kind in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                                  "flash_bwd_dq_kernel", "radial_bwd_dkv_kernel",
-                                  "radial_bwd_dq_kernel")}
+                                  "flash_bwd_dq_kernel", "radial_fwd_kernel",
+                                  "radial_bwd_dkv_kernel", "radial_bwd_dq_kernel")}
     for fn, text in _sass_bodies().items():
         kind = next((k for k in found if k in fn), None)
         if kind is None:
@@ -1700,7 +1709,8 @@ def test_flash_kernels_run_on_wgmma_and_tma(dev):
         found[kind] += 1
     # the backward's four mask forms at both head dims, and the radial form at 128
     assert found == {"flash_fwd_kernel": 16, "flash_bwd_dkv_kernel": 8, "flash_bwd_dq_kernel": 8,
-                     "radial_bwd_dkv_kernel": 1, "radial_bwd_dq_kernel": 1}
+                     "radial_fwd_kernel": 2, "radial_bwd_dkv_kernel": 1,
+                     "radial_bwd_dq_kernel": 1}
 
 
 def test_dense_mix_kernels_run_on_tf32_wgmma_and_tma(dev):
