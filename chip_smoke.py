@@ -12,10 +12,11 @@ exits non-zero:
              their first launch).
 3. kernels — each forward kernel against its plain PyTorch version on the
              card at the 340M serving shapes (timed: CUDA events, median
-             after warm-up; K2 and K3 beside their earlier kernels' times)
-             and at the training shape B=8 T=2048, bf16; K2 and K3 at (a)'s
-             4 x 1984, where the host's cost of a call is held beside the
-             card's time for it; K2 timed at B=8 T=2048 and 1 x 16,384 and
+             after warm-up; K2, K3 and K4 beside their earlier kernels'
+             times) and at the training shape B=8 T=2048, bf16 (K4 timed
+             there too); K2 and K3 at (a)'s 4 x 1984, where the host's cost
+             of a call is held beside the card's time for it; K2 timed at
+             B=8 T=2048 and 1 x 16,384 and
              beside its PyTorch calls in turns (the einsum; torch.bmm over
              permuted copies, the copies counted and not). Every timed
              kernel also prints its host cost per call (host clock over 100
@@ -27,11 +28,11 @@ exits non-zero:
              kernel launched, and chunk == recurrent: the decode-step logits
              match one full forward over prompt + generated tokens.
 5. grads   — each backward kernel (K1b-K4b) against its plain version at
-             the training shape B=8 T=2048 (timed; K2b beside its earlier
-             kernel's time and two einsums that add the intra terms in place,
-             bit for bit over two runs) and at B=1 T=781 (the ragged last
-             chunk), bf16; then the gradients of fmap+RoPE and
-             the chunk op through the kernels against autograd of the
+             the training shape B=8 T=2048 (timed; K4b and K2b beside their
+             earlier kernels' times, K2b beside two einsums that add the
+             intra terms in place, both bit for bit over two runs) and at
+             B=1 T=781 (the ragged last chunk), bf16; then the gradients of
+             fmap+RoPE and the chunk op through the kernels against autograd of the
              plain definitions on the same CUDA tensors, at both shapes.
 6. train   — ``mhla_tpu_torch.train.lm_train.main`` trains the 340M model
              6 steps at B=8 T=2048 (float32 parameters, bf16 compute,
@@ -255,7 +256,7 @@ K6_F32_TOL = 1e-5
 # CPU's plain paths, at both shapes of phase 5 (B=8 T=2048, B=1 T=781) and
 # two seeds, gives at most 5.2e-3 (dx_k; dx_q 4.8e-3, dv 4.2e-3, dM 3.3e-3):
 # that is the bf16 floor, and the tolerance leaves 2x for the card's other
-# summation orders and atomics. A dropped term, a wrong transpose or a missing mask gives O(1).
+# summation orders. A dropped term, a wrong transpose or a missing mask gives O(1).
 OP_GRAD_FLOOR_CPU = 5.2e-3
 OP_GRAD_TOL = 1e-2
 # Relative-RMS tolerance of the video model's velocity through K5-K9 against
@@ -309,13 +310,21 @@ FLASH_MMA_SYNC_MS = {
     ("flash_attention[causal+segment,d256]", "B=8 T=2048 H=4 D=256"): 0.2845,
     ("flash_attention_bwd[causal+segment,d256]", "B=8 T=2048 H=4 D=256"): 1.2272,
 }
-# K2 / K2b's and K3 / K3b's times with their earlier kernels (K2 and K2b on
-# WMMA fragments read from device memory, K3 at N = 32 on float32 FMAs in one
-# thread per pair of state columns, the wide forms on mma.sync over
-# cp.async), before the Hopper redesigns (wgmma, TMA), by (kernel, shape tag)
-# as this script times them: the bracketed times of PERF.md section 6's table
-# (NVIDIA H100 80GB HBM3, 700.00 W), K2b's from two runs.
+# K2 / K2b's, K3 / K3b's and K4 / K4b's times with their earlier kernels (K2,
+# K2b, K4 and K4b on WMMA fragments read from device memory, K3 at N = 32 on
+# float32 FMAs in one thread per pair of state columns, the wide forms on
+# mma.sync over cp.async), before the Hopper redesigns (wgmma, TMA), by
+# (kernel, shape tag) as this script times them: the bracketed times of
+# PERF.md section 6's table (NVIDIA H100 80GB HBM3, 700.00 W), K2b's from two
+# runs.
 CHUNK_MMA_SYNC_MS = {
+    ("chunk_output", "B=4 T=2048"): (0.1528,),
+    # not timed here before: the earlier kernel in two turns of
+    # eval/time_kernels.py's chunk group (PERF.md section 6)
+    ("chunk_output", "B=8 T=2048"): (0.3036, 0.3082),
+    ("chunk_output[per-row]", "B=8 T=2048 packed"): (0.3074,),
+    ("chunk_output_bwd", "B=8 T=2048"): (0.6316,),
+    ("chunk_output_bwd[per-row]", "B=8 T=2048 packed"): (0.6390,),
     ("chunk_states", "B=4 T=2048"): (0.1063,),
     ("mix_states", "B=4 T=2048"): (0.0463,),
     ("mix_states[per-row]", "B=8 T=2048 packed"): (0.0901,),
@@ -672,7 +681,7 @@ def log_redesign_time(name: str, shape_tag: str, r: dict) -> None:
     call's time, with the ratios."""
     key = (name, shape_tag)
     before = ((FLASH_MMA_SYNC_MS.get(key),) if name.startswith("flash_attention")
-              else CHUNK_MMA_SYNC_MS.get(key) or VIDEO_EARLIER_MS[key])
+              else CHUNK_MMA_SYNC_MS.get(key) or VIDEO_EARLIER_MS.get(key, ()))
     before = tuple(x for x in before if x)
     lib = r["library_ms"]
     REDESIGN_TIMES[f"{name} {shape_tag}"] = {
@@ -784,6 +793,23 @@ def phase_kernels(dev: torch.device) -> dict:
         if t == TRAIN_SEQ:
             results["k2_yardsticks"] = k2_yardsticks(k4, v4, h, tag)
         del k4, v4, states4
+
+    # K4 at (c)'s training rows, where the main path launches it 144 times
+    b, t = TRAIN_BATCH, TRAIN_SEQ
+    tag, n = f"B={b} T={t}", t // c
+    q4, k4 = (torch.relu(randn(b, n, c, h * dk)).to(bf16) for _ in range(2))
+    v4 = randn(b, n, c, h * dv).to(bf16)
+    m = torch.tril(init_causal_mixing_matrix(32, device=dev)[:n, :n] * dk**-0.5)
+    m_diag = torch.diagonal(m).contiguous()
+    mixed4 = mhla_chunk.mix_states_plain(torch.tril(m, -1).to(bf16).float(),
+                                         mhla_chunk.chunk_states_plain(k4, v4, h))
+    check_kernel(extra, "chunk_output", tag,
+                 lambda: mhla_chunk.chunk_output(q4, k4, v4, mixed4, m_diag, h),
+                 lambda: mhla_chunk.chunk_output_plain(q4, k4, v4, mixed4, m_diag, h), True,
+                 (nbytes(q4, k4, v4, mixed4, m_diag) + nbytes(v4),
+                  2 * b * n * h * (c * dk * dv + c * (c + 1) // 2 * (dk + dv)), bf16))
+    results["k4_train"] = dict(extra["chunk_output"])
+    del q4, k4, v4, mixed4
     torch.cuda.empty_cache()
     return results
 
@@ -1161,6 +1187,11 @@ def phase_grads(dev: torch.device) -> dict:
               timed,
               (2 * nbytes(q4, k4, v4, mixed4, m_diag) + nbytes(do4),
                2 * b * n * h * (2 * c * dk * dv + tri * (2 * dv + 3 * dk)), bf16))
+        first, again = (mhla_chunk.chunk_output_bwd(q4, k4, v4, mixed4, m_diag, do4, h)
+                        for _ in range(2))
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            raise AssertionError(f"chunk_output_bwd {tag}: two runs differ")
+        del first, again
         m_bf, flat = m_strict.to(bf16), (b, n, h * dk * dv)
         check("mix_states_bwd", tag,
               lambda: mhla_chunk.mix_states_bwd(m_strict, dmixed4, states4),
@@ -3352,6 +3383,7 @@ def main() -> None:
                     "tile_walks_d256": kern["walks_d256"], "mix_wide": kern["mix_wide_times"],
                     "mix_n32": kern["mix_n32_times"], "k2b_long": kern["k2b_long"],
                     "k2_times": kern["k2_times"], "k2_yardsticks": kern["k2_yardsticks"],
+                    "k4_train": kern["k4_train"],
                     "host_at_a": kern["host_at_a"], "host_device": HOST_DEVICE,
                     "flash_d256_times": kern["flash_d256_times"], "vs_earlier_kernels": REDESIGN_TIMES,
                     "flash_d256_unmasked": {name: kern[name] for name in (

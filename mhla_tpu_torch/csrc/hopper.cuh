@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu), K2 (mhla_chunk.cu), K2b (mhla_chunk_bwd.cu),
-// K3 / K3b (mhla_mix_wide.cu) and K6 (mhla_block.cu): mbarriers, TMA tile
-// loads through tensor maps (multicast to a cluster's blocks too), wgmma
-// products in bf16 and TF32 with their shared-memory descriptors and fences,
-// named barriers, cluster barriers and setmaxnreg. The kernels' tiles live in shared memory
-// in the layout a TMA load with 128-byte swizzle writes: a [rows][D] bf16
-// tile is D / 64 panels of [rows][64] (128 bytes a row), panel p at byte
-// p * rows * 128, the 16-byte chunk c of row r at chunk c ^ (r % 8). Every
-// tile starts at a multiple of 1024 bytes (8 rows: one swizzle pattern).
+// (flash_fwd.cu, flash_bwd.cu), K2 and K4 (mhla_chunk.cu), K2b and K4b
+// (mhla_chunk_bwd.cu), K3 / K3b (mhla_mix_wide.cu) and K6 (mhla_block.cu):
+// mbarriers, TMA tile loads through tensor maps (multicast to a cluster's
+// blocks too), wgmma products in bf16 and TF32 with their shared-memory
+// descriptors and fences, named barriers, cluster barriers and setmaxnreg.
+// The kernels' tiles live in shared memory in the layout a TMA load with
+// 128-byte swizzle writes: a [rows][D] bf16 tile is D / 64 panels of
+// [rows][64] (128 bytes a row), panel p at byte p * rows * 128, the 16-byte
+// chunk c of row r at chunk c ^ (r % 8). Every tile starts at a multiple of
+// 1024 bytes (8 rows: one swizzle pattern).
 //
 // Operands of wgmma.m64nNk16 (bf16 in, float32 sums) in that layout:
 // - K-major (the K index runs along a row: q and k for S = q k^T): the
@@ -171,6 +172,13 @@ __device__ __forceinline__ void fence_async_shared() {
 // swizzle layout (the one TMA reads and writes).
 __device__ __forceinline__ int swizzle128(int r, int c) {
   return r * 128 + ((((c * 2) >> 4) ^ (r & 7)) << 4) + ((c * 2) & 15);
+}
+
+// Two floats rounded to bf16 and packed (lo in the low half): a wgmma A
+// fragment register, or two adjacent bf16 values.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Round a warpgroup's [64 x kN] float32 accumulator (the wgmma layout) to

@@ -48,29 +48,35 @@
 //
 // K4 replaces _st_fwd_kernel (mhla_chunk_pallas.py:589). The TPU kernel
 //   groups 4 chunks into a 256-row supertile to fill its 128x128 MXU; here
-//   one block handles one (chunk, head, 128-column tile of Dv).
-//   Bound: bytes. It reads q/k/v (25 MB) and mixed (34 MB) and writes o
-//   (16 MB) for 4.3 GFLOP at the 340M serving shape.
-//   Design: the [C, C] scores never leave the SM: WMMA computes q k^T into
-//   fp32 shared memory (blocks above the diagonal are skipped), the block
-//   masks and rounds it to bf16, then each warp accumulates
-//   md * (P @ v) + q @ mixed for its 16x16 output tiles in one fp32 fragment,
-//   skipping the zero blocks of P right of the diagonal.
-
-#include <mma.h>
+//   an item is one chunk (at most 64 rows: one wgmma M) of one head.
+//   Bound: bytes. At the 340M serving shape (B=4, T=2048, H=4, Dk=128,
+//   Dv=256) it reads q/k/v (34 MB) and mixed (34 MB) and writes o (17 MB)
+//   for 3.7 GFLOP: 25 us at 3.35 TB/s.
+//   Design (hopper.cuh, in the manner of K2 and flash_fwd.cu's fwd_block):
+//   a persistent grid of one block an SM; the block is two workers, each a
+//   consumer warpgroup fed by its own producer thread (warps 0 and 1 of the
+//   producer warpgroup, setmaxnreg 24 / 240) through its own ring of four
+//   24 KB stages of [64][64] boxes in the 128-byte swizzle. A worker walks
+//   its items (chunk, head) in a fixed order: the producer loads q and k by
+//   64-column panels of Dk, then for each 128-column panel of Dv the v panel
+//   and, by 64-row panels of Dk, q again (from L2) with the mixed panel.
+//   The consumer forms S = q k^T with wgmma m64n64 (both K-major), masks
+//   tril and rounds S to bf16 in registers as the A fragments of P v (the
+//   way fwd_block forms P); per Dv panel acc = P v by wgmma_rs (v MN-major),
+//   acc *= md, acc += q mixed by wgmma (mixed MN-major: its rows are the K
+//   index Dk), then rounds acc to bf16 into a swizzled staging panel and
+//   writes o by TMA. P stays in registers across the Dv panels. Any C % 16
+//   up to 64: the token maps end at the chunk, so TMA fills rows past it with
+//   zeros and the store does not write them. Any Dk % 16, 384 included: the
+//   q, k and mixed maps end at Dk (zeros past it) and Dk is walked in
+//   panels. No atomics: the same bits from run to run.
 
 #include "hopper.cuh"
 
 using namespace hopper;
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kFrag = 16;       // WMMA tile: m = n = k = 16 for bf16
-constexpr int kTileN = 128;     // output columns of Dv per block (K4)
 
 // K2's geometry: items of 128 rows of Dk by 128 columns of Dv, chunks in
 // slabs of 64 rows, a ring of stages of one slab's k and v boxes.
@@ -81,26 +87,6 @@ constexpr int kStatesStages = 5;
 constexpr int kStatesOutBytes = 2 * kBoxBytes;  // a warpgroup's [64][128] staging panels
 constexpr int kStatesSmem =
     kStatesStages * kStatesStageBytes + 4 * kStatesOutBytes + 1024 + 256;
-
-typedef wmma::fragment<wmma::accumulator, kFrag, kFrag, kFrag, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, kFrag, kFrag, kFrag, bf16, wmma::row_major> ARow;
-typedef wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, bf16, wmma::row_major> BRow;
-typedef wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, bf16, wmma::col_major> BCol;
-
-// Round a 16x16 fp32 accumulator to bf16 and write it to dst (row stride
-// ld elements) through the warp's staging tile, 16 bytes per lane.
-__device__ __forceinline__ void store_tile_bf16(const Acc& acc, float* stage,
-                                                bf16* dst, int64_t ld) {
-  wmma::store_matrix_sync(stage, acc, kFrag, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-  __align__(16) bf16 vals[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) vals[i] = __float2bfloat16(stage[r * kFrag + c0 + i]);
-  *reinterpret_cast<uint4*>(dst + r * ld + c0) = *reinterpret_cast<const uint4*>(vals);
-  __syncwarp();
-}
 
 // K2. Persistent grid of at most one block per SM, kStatesThreads threads,
 // dynamic shared memory kStatesSmem. Item i = ((bn * H + h) * groups + g) *
@@ -196,79 +182,169 @@ chunk_states_kernel(const __grid_constant__ CUtensorMap map_k,
   }
 }
 
-// K4. grid (B*N, H, Dv/kTileN); dynamic shared memory C*C*(4 + 2) bytes.
-// q, k: [B,N,C,H*Dk]; v, o: [B,N,C,H*Dv]; mixed: [B,N,H*Dk,Dv]; md: [N], or
-// [B, N] with md_bstride = N (0 when shared).
-__global__ void __launch_bounds__(kThreads)
-chunk_output_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ mixed,
-                    const float* __restrict__ md, bf16* __restrict__ o, int N,
-                    int C, int H, int Dk, int Dv, int md_bstride) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* scores = reinterpret_cast<float*>(smem);    // [C, C] fp32
-  bf16* pm = reinterpret_cast<bf16*>(scores + C * C);  // [C, C] masked, bf16
-  __shared__ __align__(32) float stage[kWarps][kFrag * kFrag];
-  const int warp = threadIdx.x >> 5;
-  const int64_t bn = blockIdx.x;
-  const int h = blockIdx.y, tn = blockIdx.z;
-  const int n = (int)(bn % N);
-  const int64_t ldk = (int64_t)H * Dk, ldv = (int64_t)H * Dv;
-  const bf16* qc = q + bn * C * ldk + h * Dk;
-  const bf16* kc = k + bn * C * ldk + h * Dk;
-  const bf16* vc = v + bn * C * ldv + h * Dv + tn * kTileN;
-  const bf16* mc = mixed + (bn * H + h) * Dk * Dv + tn * kTileN;
-  bf16* oc = o + bn * C * ldv + h * Dv + tn * kTileN;
-  const int ct = C / kFrag;
+// K4's geometry: two workers a block, each a ring of stages of three
+// [64][64] boxes (q and k panels; a v panel; a q panel and a mixed panel)
+// and a [64][128] staging tile of o.
+constexpr int kOutThreads = 384;  // a producer warpgroup and two consumer warpgroups
+constexpr int kOutStages = 4;
+constexpr int kOutStageBytes = 3 * kBoxBytes;
+constexpr int kOutWorkerBytes = kOutStages * kOutStageBytes + 2 * kBoxBytes;
+constexpr int kOutSmem = 2 * kOutWorkerBytes + 1024 + 256;
 
-  // 1. scores = q k^T in fp32, lower block triangle only
-  for (int f = warp; f < ct * ct; f += kWarps) {
-    const int fm = f / ct, fn = f % ct;
-    if (fn > fm) continue;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < Dk; kk += kFrag) {
-      ARow a;
-      BCol b;  // B = k^T: element (kk, c) = k[c][kk], column-major with ld H*Dk
-      wmma::load_matrix_sync(a, qc + fm * kFrag * ldk + kk, (unsigned)ldk);
-      wmma::load_matrix_sync(b, kc + fn * kFrag * ldk + kk, (unsigned)ldk);
-      wmma::mma_sync(acc, a, b, acc);
+// K4. Persistent grid of at most one block per SM, kOutThreads threads,
+// dynamic shared memory kOutSmem. Worker w of block x takes the items
+// 2 x + w, 2 x + w + 2 G, ... (G blocks): item (bn * H + h) is chunk bn (of
+// the B*N) of head h. Maps: q, k as [bn, C, H, Dk], v and o as [bn, C, H,
+// Dv] (boxes of 64 columns x 64 rows), mixed as [bn * H, Dk, 1, Dv] (boxes
+// of 64 x 64). md: [N], or [B, N] with md_bstride = N (0 when shared).
+__global__ void __launch_bounds__(kOutThreads, 1)
+chunk_output_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_m,
+                    const __grid_constant__ CUtensorMap map_o, const float* __restrict__ md,
+                    int N, int H, int Dk, int Dv, int md_bstride, int items) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 2 * kOutWorkerBytes);  // [w][full, empty]
+  const int kpanels = (Dk + 63) / 64, vpanels = Dv / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2 * kOutStages; ++s) {
+      mbar_init(&bars[(s / kOutStages) * 2 * kOutStages + s % kOutStages], 1);
+      mbar_init(&bars[(s / kOutStages) * 2 * kOutStages + kOutStages + s % kOutStages], 128);
     }
-    wmma::store_matrix_sync(scores + fm * kFrag * C + fn * kFrag, acc, C,
-                            wmma::mem_row_major);
+    fence_barrier_init();
   }
   __syncthreads();
 
-  // 2. causal mask, rounded to bf16 (only entries c <= r were computed)
-  for (int e = threadIdx.x; e < C * C; e += blockDim.x) {
-    const int r = e / C, c = e % C;
-    pm[e] = __float2bfloat16(c <= r ? scores[e] : 0.f);
-  }
-  __syncthreads();
-
-  // 3. o = md[n] * (P @ v) + q @ mixed, one fp32 fragment per output tile
-  const float mdn = md[(bn / N) * md_bstride + n];
-  const int nt = kTileN / kFrag;
-  for (int f = warp; f < ct * nt; f += kWarps) {
-    const int fm = f / nt, fn = f % nt;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk <= fm * kFrag; kk += kFrag) {  // P is zero right of the diagonal
-      ARow a;
-      BRow b;
-      wmma::load_matrix_sync(a, pm + fm * kFrag * C + kk, (unsigned)C);
-      wmma::load_matrix_sync(b, vc + kk * ldv + fn * kFrag, (unsigned)ldv);
-      wmma::mma_sync(acc, a, b, acc);
+  if (threadIdx.x < 128) {  // the producer warpgroup: lane 0 of warp w feeds worker w
+    regs_dec<24>();
+    const int w = threadIdx.x / 32;
+    if (w < 2 && threadIdx.x % 32 == 0) {
+      unsigned char* ring = smem + w * kOutWorkerBytes;
+      uint64_t* full = bars + w * 2 * kOutStages;
+      uint64_t* empty = full + kOutStages;
+      int stage = 0;
+      uint32_t phase = 0;
+      // the next stage, once its consumer has released it, expecting ``boxes`` boxes
+      auto acquire = [&](int boxes) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], boxes * kBoxBytes);
+        return ring + stage * kOutStageBytes;
+      };
+      auto advance = [&] {
+        if (++stage == kOutStages) stage = 0, phase ^= 1;
+      };
+      for (int item = 2 * blockIdx.x + w; item < items; item += 2 * gridDim.x) {
+        const int h = item % H, bn = item / H;
+        for (int j = 0; j < kpanels; ++j) {  // q and k, panel j of Dk
+          unsigned char* st = acquire(2);
+          tma_load_4d(st, &map_q, &full[stage], 64 * j, h, 0, bn);
+          tma_load_4d(st + kBoxBytes, &map_k, &full[stage], 64 * j, h, 0, bn);
+          advance();
+        }
+        for (int p = 0; p < vpanels; ++p) {
+          unsigned char* st = acquire(2);  // v, columns [128 p, 128 p + 128)
+          tma_load_4d(st, &map_v, &full[stage], 128 * p, h, 0, bn);
+          tma_load_4d(st + kBoxBytes, &map_v, &full[stage], 128 * p + 64, h, 0, bn);
+          advance();
+          for (int j = 0; j < kpanels; ++j) {  // q panel j, mixed rows [64 j, 64 j + 64)
+            st = acquire(3);
+            tma_load_4d(st, &map_q, &full[stage], 64 * j, h, 0, bn);
+            tma_load_4d(st + kBoxBytes, &map_m, &full[stage], 128 * p, 0, 64 * j, item);
+            tma_load_4d(st + 2 * kBoxBytes, &map_m, &full[stage], 128 * p + 64, 0, 64 * j, item);
+            advance();
+          }
+        }
+      }
     }
+  } else {  // the two consumer warpgroups, one a worker
+    regs_inc<240>();
+    const int w = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int g = (t & 31) >> 2, tg = t & 3;
+    const int r0 = (t >> 5) * 16 + g, r1 = r0 + 8;  // this thread's rows of the chunk
+    const unsigned char* ring = smem + w * kOutWorkerBytes;
+    unsigned char* out = smem + w * kOutWorkerBytes + kOutStages * kOutStageBytes;
+    uint64_t* full = bars + w * 2 * kOutStages;
+    uint64_t* empty = full + kOutStages;
+    int stage = 0;
+    uint32_t phase = 0;
+    auto release = [&] {
+      mbar_arrive(&empty[stage]);
+      if (++stage == kOutStages) stage = 0, phase ^= 1;
+    };
+    for (int item = 2 * blockIdx.x + w; item < items; item += 2 * gridDim.x) {
+      const int h = item % H, bn = item / H;
+      const float mdn = md[(bn / N) * md_bstride + bn % N];
+      // S = q k^T over the panels of Dk
+      float sacc[8][4];
+      for (int j = 0; j < kpanels; ++j) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* st = ring + stage * kOutStageBytes;
+        const uint64_t dq = desc_kmajor(st, 0), dk = desc_kmajor(st + kBoxBytes, 0);
+        wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < acc.num_elements; ++i) acc.x[i] *= mdn;
-    for (int kk = 0; kk < Dk; kk += kFrag) {
-      ARow a;
-      BRow b;
-      wmma::load_matrix_sync(a, qc + fm * kFrag * ldk + kk, (unsigned)ldk);
-      wmma::load_matrix_sync(b, mc + (int64_t)kk * Dv + fn * kFrag, (unsigned)Dv);
-      wmma::mma_sync(acc, a, b, acc);
+        for (int s = 0; s < 4; ++s)
+          wgmma_ss(sacc, dq + kstep_kmajor<64>(s), dk + kstep_kmajor<64>(s), j > 0 || s > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(sacc);
+        release();
+      }
+      // P = bf16(tril S) as the A fragments of P v (key k-step s: columns 16 s ..)
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int c = nt * 8 + tg * 2;
+        pa[nt / 2][(nt & 1) * 2 + 0] = pack_bf16(c <= r0 ? sacc[nt][0] : 0.f,
+                                                 c + 1 <= r0 ? sacc[nt][1] : 0.f);
+        pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(c <= r1 ? sacc[nt][2] : 0.f,
+                                                 c + 1 <= r1 ? sacc[nt][3] : 0.f);
+      }
+      for (int p = 0; p < vpanels; ++p) {
+        float acc[16][4];
+        mbar_wait(&full[stage], phase);
+        const uint64_t dv = desc_mnmajor<64>(ring + stage * kOutStageBytes);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s) wgmma_rs(acc, pa[s], dv + kstep_mnmajor(s), s > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(acc);
+        fence_frag(pa);
+        release();
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] *= mdn;
+        for (int j = 0; j < kpanels; ++j) {  // acc += q mixed, panel j of Dk
+          mbar_wait(&full[stage], phase);
+          const unsigned char* st = ring + stage * kOutStageBytes;
+          const uint64_t dq = desc_kmajor(st, 0), dm = desc_mnmajor<64>(st + kBoxBytes);
+          wgmma_fence();  // the scaled accumulator was written by ordinary code
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma_ss<0, 1>(acc, dq + kstep_kmajor<64>(s), dm + kstep_mnmajor(s), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(acc);
+          release();
+        }
+        // o's panel: bf16 into the staging tile (the last store has read it), one TMA store
+        if (t == 0) tma_store_wait_read<0>();
+        named_sync(1 + w, 128);
+        acc_to_panels<128>(out, acc);
+        fence_async_shared();
+        named_sync(1 + w, 128);
+        if (t == 0) {
+          tma_store_4d_part(&map_o, out, 128 * p, h, 0, bn);
+          tma_store_4d_part(&map_o, out + kBoxBytes, 128 * p + 64, h, 0, bn);
+          tma_store_commit();
+        }
+      }
     }
-    store_tile_bf16(acc, stage[warp], oc + (int64_t)fm * kFrag * ldv + fn * kFrag, ldv);
+    if (t == 0) tma_store_wait_all();
   }
 }
 
@@ -302,14 +378,31 @@ int mhla_chunk_states(const void* k, const void* v, void* s, int bn, int C, int 
   return (int)cudaGetLastError();
 }
 
-int mhla_chunk_output(const void* q, const void* k, const void* v,
-                      const void* mixed, const void* md, void* o, int bn, int N,
-                      int C, int H, int Dk, int Dv, int md_bstride, void* stream) {
-  dim3 grid(bn, H, Dv / kTileN);
-  const size_t smem = (size_t)C * C * (sizeof(float) + sizeof(bf16));
-  chunk_output_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)mixed,
-      (const float*)md, (bf16*)o, N, C, H, Dk, Dv, md_bstride);
+// C % 16 == 0 with 16 <= C <= 64, Dk % 16 == 0 and Dv % 128 == 0, or
+// cudaErrorInvalidValue; every pointer 16-byte aligned (TMA).
+int mhla_chunk_output(const void* q, const void* k, const void* v, const void* mixed,
+                      const void* md, void* o, int bn, int N, int C, int H, int Dk, int Dv,
+                      int md_bstride, void* stream) {
+  if (bn < 1 || N < 1 || H < 1 || C < 16 || C > 64 || C % 16 || Dk < 16 || Dk % 16 ||
+      Dv < 128 || Dv % 128)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mm, mo;
+  int err = hopper_host::make_tile_map(&mq, q, bn, C, H, Dk, 64);
+  if (!err) err = hopper_host::make_tile_map(&mk, k, bn, C, H, Dk, 64);
+  if (!err) err = hopper_host::make_tile_map(&mv, v, bn, C, H, Dv, 64);
+  if (!err) err = hopper_host::make_tile_map(&mm, mixed, bn * H, Dk, 1, Dv, 64);
+  if (!err) err = hopper_host::make_tile_map(&mo, o, bn, C, H, Dv, 64);
+  if (err) return err;
+  int fill = 0;  // one block an SM
+  err = hopper_host::resident_blocks((const void*)chunk_output_kernel, kOutThreads, kOutSmem,
+                                     &fill);
+  if (err) return err;
+  const long long items = (long long)bn * H;
+  if (items > 0x7fffffff - 1) return (int)cudaErrorInvalidValue;
+  const long long pairs = (items + 1) / 2;
+  chunk_output_kernel<<<pairs < fill ? (int)pairs : fill, kOutThreads, kOutSmem,
+                        (cudaStream_t)stream>>>(mq, mk, mv, mm, mo, (const float*)md, N, H, Dk,
+                                                Dv, md_bstride, (int)items);
   return (int)cudaGetLastError();
 }
 

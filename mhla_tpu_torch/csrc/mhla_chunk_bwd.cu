@@ -8,7 +8,7 @@
 //                            dq       = dA k + dO mixed^T
 //                            dk_intra = dA^T q
 //                            dmixed   = q^T dO                  [Dk, Dv]
-//                            d md[n] += sum(dP * A)             over B, H
+//                            d md partial = sum(dP * A)         one per item
 //   K2b chunk_states_bwd   dk = v dS^T + dk_intra,  dv = k dS + dv_intra
 //
 // K3b between them, dS_j = sum_{i>j} Ms[i, j] dmixed_i and dMs[i, j] =
@@ -21,9 +21,10 @@
 //
 // Layout as in csrc/mhla_chunk.cu: token tensors [B, N, C, H*D], states,
 // mixed and their gradients [B, N, H*Dk, Dv]. md is shared by the batch or
-// one per batch row (packed varlen rows); then d md is [B, N] (K4b sums over
-// heads only), as the JAX kernels give it a batch index
-// (mhla_chunk_pallas.py:726).
+// one per batch row (packed varlen rows); K4b writes one float32 partial of
+// d md per (chunk, head), which the caller sums over heads (and, for a
+// shared md, over the batch) in a fixed order: d md is [N] or [B, N], as the
+// JAX kernels give it a batch index (mhla_chunk_pallas.py:726).
 //
 // What each kernel replaces, what bounds it on the H100 and what the design
 // does about it:
@@ -33,15 +34,40 @@
 //   mixes every earlier chunk in K3, so here only the chunk's own diagonal
 //   term is differentiated and there is no dmb fold.
 //   Bound: bytes. At the 340M training shape (B=8, T=2048, H=4, Dk=128,
-//   Dv=256) it reads q/k/v/dO/mixed (168 MB) and writes dq, dk_intra,
-//   dv_intra and dmixed (134 MB) for ~16 GFLOP, ~53 FLOP/byte.
-//   Design: one block per (chunk, head) owns all of Dv, so dq, dk_intra and
-//   d md, which sum over Dv, are finished in the block without a second
-//   pass. The [C, C] tiles A and dP (float32) and P, dA (bf16) live in
-//   shared memory; blocks above the diagonal are skipped in every product.
-//   d md also sums over batch and heads: each block reduces its partial in
-//   shared memory and adds it with one float32 atomicAdd, so the sum's order
-//   (not its terms) changes from run to run.
+//   Dv=256) it reads q/k/v/dO (101 MB) and mixed (67 MB) and writes dq,
+//   dk_intra, dv_intra (67 MB) and dmixed (67 MB) for 16 GFLOP, ~53
+//   FLOP/byte: 90 us at 3.35 TB/s.
+//   Design (hopper.cuh, in the manner of K2b and flash_bwd.cu): a persistent
+//   grid of one block an SM walks the items (chunk, head) in a fixed order;
+//   an item sees all of Dv, since dq, dk_intra and d md sum over it. One
+//   producer thread loads the item's q and k [64, Dk] by TMA into one of two
+//   buffers (one at Dk above 128), then for each 64-column panel of Dv the v
+//   and dO panels and the mixed panel [Dk, 64] into a ring of stages, all in
+//   the 128-byte swizzle. Two consumer warpgroups share the item
+//   (setmaxnreg 24 / 240):
+//   - warpgroup 1 forms A = q k^T (wgmma m64n64, K-major), keeps tril A in
+//     float32 registers and writes P = bf16(tril A) into a swizzled tile;
+//     per Dv panel it adds dO v^T into dP (K-major) and forms dv_intra = md
+//     P^T dO (A = P^T, B = dO, both MN-major), stored by TMA; then it masks
+//     dP, sums its float32 partial of sum(dP * A) in a fixed order (the
+//     thread's fragment, the warp by shuffles, the four warps in order),
+//     writes dA = bf16(md dP) as a swizzled tile, hands it to warpgroup 2
+//     under a named barrier, and forms dk_intra = dA^T q (both MN-major);
+//   - warpgroup 2 adds dO mixed^T into dq over the Dv panels (both K-major,
+//     N = Dk), forms dmixed = q^T dO per 64 rows of Dk and panel of Dv
+//     (both MN-major), stored by TMA, then adds dA k (k MN-major) into dq
+//     once warpgroup 1 has written dA.
+//   At kDk = 256 ptxas spills 1.4 KB a thread and serializes the wgmmas
+//   (C7512): it holds these 384-thread kernels to 168 registers a thread (with
+//   dmixed formed in warpgroup 1 it spills as much). No configuration reaches it.
+//   Every output leaves through swizzled staging tiles and TMA stores. d md
+//   has no atomics: the partials are one per item, and the caller sums
+//   them; all five outputs are the same bits from run to run. Any C % 16 up
+//   to 64: the token maps end at the chunk, so TMA fills rows past it with
+//   zeros and the stores do not write them. Key head dims of any multiple
+//   of 16 up to 256 run on the tile width kDk = 64, 128 or 256 just above:
+//   the maps end at Dk, so q's and k's columns and mixed's rows past it are
+//   zeros, and no column past it is stored.
 //
 // K2b replaces _phase_a_bwd_acc_kernel (mhla_chunk_pallas.py:184) and
 //   _phase_a_bwd_kernel (:142), which is the same kernel without the added
@@ -74,190 +100,328 @@
 //   TMA fills k's columns and dS's rows past it with zeros, which add
 //   nothing to dv, and dk's columns past it are neither read nor stored.
 
-#include <mma.h>
-
 #include "hopper.cuh"
 
 using namespace hopper;
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kFrag = 16;      // WMMA tile: m = n = k = 16 for bf16
+constexpr int kBoxBytes = 64 * 64 * 2;  // one [64][64] bf16 box
 
-typedef wmma::fragment<wmma::accumulator, kFrag, kFrag, kFrag, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, kFrag, kFrag, kFrag, bf16, wmma::row_major> ARow;
-typedef wmma::fragment<wmma::matrix_a, kFrag, kFrag, kFrag, bf16, wmma::col_major> ACol;
-typedef wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, bf16, wmma::row_major> BRow;
-typedef wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, bf16, wmma::col_major> BCol;
+// K4b geometry at key tile width kDk (64, 128 or 256): q and k tiles [64][kDk]
+// (two buffers where they fit beside two stages), stages of a Dv panel of 64
+// columns (v and dO [64][64], mixed [kDk][64]), the P and dA tiles, and a
+// staging region a consumer warpgroup (two [64][64] tiles, or its [64][kDk]
+// output).
+template <int kDk>
+struct OutBwdGeom {
+  static constexpr int kTile = 64 * kDk * 2;
+  static constexpr int kStageBytes = 2 * kBoxBytes + kTile;
+  static constexpr int kStaging = kTile > 2 * kBoxBytes ? kTile : 2 * kBoxBytes;
+  static constexpr int kFixed = 2 * kBoxBytes + 2 * kStaging + 1024 + 512;
+  static constexpr int kQKBufs = kFixed + 4 * kTile + 2 * kStageBytes <= 232448 ? 2 : 1;
+  static constexpr int kFit = (232448 - kFixed - 2 * kQKBufs * kTile) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kSmem = 2 * kQKBufs * kTile + kStages * kStageBytes + kFixed;
+  static_assert(kStages >= 1, "K4b needs a stage");
+};
 
-// Round a 16x16 fp32 accumulator to bf16 and write it to dst (row stride
-// ld) through the warp's staging tile, 16 bytes per lane.
-__device__ __forceinline__ void store_tile_bf16(const Acc& acc, float* stage, bf16* dst,
-                                                int64_t ld) {
-  wmma::store_matrix_sync(stage, acc, kFrag, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-  __align__(16) bf16 vals[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) vals[i] = __float2bfloat16(stage[r * kFrag + c0 + i]);
-  *reinterpret_cast<uint4*>(dst + r * ld + c0) = *reinterpret_cast<const uint4*>(vals);
-  __syncwarp();
+// Round a consumer warpgroup's [64][64] accumulator to bf16 into staging tile
+// piece % 2 of ``stg`` and store it by TMA as the box (c0, c1, c2, c3) of
+// ``map``. The store two back has read that tile; an item's first piece waits
+// for all, since the item before stored its [64][kDk] output from both tiles.
+// ``bar`` is the warpgroup's named barrier.
+__device__ __forceinline__ void store_piece(const CUtensorMap* map, unsigned char* stg,
+                                            int& piece, int bar, const float (&acc)[8][4],
+                                            int c0, int c1, int c2, int c3) {
+  const bool issuer = threadIdx.x % 128 == 0;
+  unsigned char* buf = stg + (piece & 1) * kBoxBytes;
+  if (issuer) {
+    if (piece == 0) tma_store_wait_read<0>();
+    else tma_store_wait_read<1>();
+  }
+  ++piece;
+  named_sync(bar, 128);
+  acc_to_panels<64>(buf, acc);
+  fence_async_shared();
+  named_sync(bar, 128);
+  if (issuer) tma_store_4d(map, buf, c0, c1, c2, c3);
 }
 
-// K4b. grid (B*N, H); dynamic shared memory C*C*(2*4 + 2*2) bytes.
-// q, k, dq, dk_i: [B,N,C,H*Dk]; v, dout, dv_i: [B,N,C,H*Dv];
-// mixed, dmixed: [B,N,H*Dk,Dv]; md, dmd: [N] fp32, or [B, N] with
-// md_bstride = N (0 when shared); dmd zeroed by the caller.
-__global__ void __launch_bounds__(kThreads)
-chunk_output_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ mixed,
-                        const float* __restrict__ md, const bf16* __restrict__ dout,
-                        bf16* __restrict__ dq, bf16* __restrict__ dk_i,
-                        bf16* __restrict__ dv_i, bf16* __restrict__ dmixed,
-                        float* __restrict__ dmd, int N, int C, int H, int Dk, int Dv,
-                        int md_bstride) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sa = reinterpret_cast<float*>(smem);     // [C, C] A = q k^T
-  float* sdp = sa + C * C;                         // [C, C] dP = dO v^T
-  bf16* sp = reinterpret_cast<bf16*>(sdp + C * C);  // [C, C] bf16(tril A)
-  bf16* sda = sp + C * C;                          // [C, C] bf16(md * tril dP)
-  __shared__ __align__(32) float stage[kWarps][kFrag * kFrag];
-  __shared__ float red[kWarps];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t bn = blockIdx.x;
-  const int h = blockIdx.y;
-  const int n = (int)(bn % N);
-  const int64_t ldk = (int64_t)H * Dk, ldv = (int64_t)H * Dv;
-  const bf16* qc = q + bn * C * ldk + h * Dk;
-  const bf16* kc = k + bn * C * ldk + h * Dk;
-  const bf16* vc = v + bn * C * ldv + h * Dv;
-  const bf16* doc = dout + bn * C * ldv + h * Dv;
-  const int64_t st_off = (bn * H + h) * Dk * Dv;
-  const bf16* mc = mixed + st_off;
-  const int ct = C / kFrag;
-
-  // 1. A = q k^T and dP = dO v^T in fp32, lower block triangle only
-  for (int f = warp; f < 2 * ct * ct; f += kWarps) {
-    const int which = f / (ct * ct), g = f % (ct * ct);
-    const int fm = g / ct, fn = g % ct;
-    if (fn > fm) continue;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    const bf16* ra = which == 0 ? qc : doc;
-    const bf16* rb = which == 0 ? kc : vc;
-    const int64_t ld = which == 0 ? ldk : ldv;
-    const int depth = which == 0 ? Dk : Dv;
-    for (int kk = 0; kk < depth; kk += kFrag) {
-      ARow a;
-      BCol b;  // B = rows^T: element (kk, c) = rb[c][kk], column-major with ld
-      wmma::load_matrix_sync(a, ra + fm * kFrag * ld + kk, (unsigned)ld);
-      wmma::load_matrix_sync(b, rb + fn * kFrag * ld + kk, (unsigned)ld);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    float* dst = (which == 0 ? sa : sdp) + fm * kFrag * C + fn * kFrag;
-    wmma::store_matrix_sync(dst, acc, C, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // 2. causal mask, the two bf16 tiles, and this block's part of d md
-  const int64_t md_off = (bn / N) * md_bstride + n;
-  const float mdn = md[md_off];
-  float part = 0.f;
-  for (int e = threadIdx.x; e < C * C; e += blockDim.x) {
-    const int r = e / C, c = e % C;
-    const bool keep = c <= r;
-    const float a = keep ? sa[e] : 0.f;
-    const float dp = keep ? sdp[e] : 0.f;
-    sp[e] = __float2bfloat16(a);
-    sda[e] = __float2bfloat16(mdn * dp);
-    part = fmaf(dp, a, part);
-  }
+// dmixed = q^T dO for Dv panel p (dO's [64][64] tile at ``dos``), by 64 rows
+// of Dk (q's panels read MN-major as A) up to Dk, each stored by store_piece.
+template <int kDk>
+__device__ __forceinline__ void dmixed_panel(const CUtensorMap* map_dm, const unsigned char* qs,
+                                             const unsigned char* dos, int Dk, int p, int item,
+                                             unsigned char* stg, int& piece, int bar) {
+  for (int j = 0; j < kDk / 64 && 64 * j < Dk; ++j) {
+    float dmacc[8][4];
+    wgmma_fence();
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-  if (lane == 0) red[warp] = part;
-  __syncthreads();
+    for (int s = 0; s < 4; ++s)
+      wgmma_ss<1, 1>(dmacc, desc_mnmajor<64>(qs + j * kBoxBytes) + kstep_mnmajor(s),
+                     desc_mnmajor<64>(dos) + kstep_mnmajor(s), s > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dmacc);
+    store_piece(map_dm, stg, piece, bar, dmacc, 64 * p, 0, 64 * j, item);
+  }
+}
+
+// K4b. Persistent grid of at most one block per SM, 384 threads, dynamic
+// shared memory OutBwdGeom<kDk>::kSmem. Item (bn * H + h) is chunk bn (of the
+// B*N) of head h. Maps: q, k, dq, dk_i as [bn, C, H, Dk], v, dO and dv_i as
+// [bn, C, H, Dv] (boxes of 64 columns x 64 rows), mixed and dmixed as
+// [bn * H, Dk, 1, Dv] (boxes of 64 x 64). md: [N], or [B, N] with
+// md_bstride = N (0 when shared); dmd_part: [bn * H], item by item.
+template <int kDk>
+__global__ void __launch_bounds__(384, 1)
+chunk_output_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_m,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const __grid_constant__ CUtensorMap map_dq,
+                        const __grid_constant__ CUtensorMap map_dk,
+                        const __grid_constant__ CUtensorMap map_dv,
+                        const __grid_constant__ CUtensorMap map_dm,
+                        const float* __restrict__ md, float* __restrict__ dmd_part, int N,
+                        int H, int Dk, int Dv, int md_bstride, int items) {
+  typedef OutBwdGeom<kDk> G;
+  constexpr int kStages = G::kStages, kPanels = kDk / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qk = smem;                                      // [bufs][q, k]
+  unsigned char* ring = qk + 2 * G::kQKBufs * G::kTile;          // [stages][v, dO, mixed]
+  unsigned char* ptile = ring + kStages * G::kStageBytes;        // P = bf16(tril A)
+  unsigned char* datile = ptile + kBoxBytes;                     // dA = bf16(md tril dP)
+  unsigned char* staging = datile + kBoxBytes;                   // [warpgroup 1, 2]
+  uint64_t* qk_full = reinterpret_cast<uint64_t*>(staging + 2 * G::kStaging);
+  uint64_t* qk_empty = qk_full + 2;
+  uint64_t* full = qk_full + 4;
+  uint64_t* empty = full + kStages;
+  float* red = reinterpret_cast<float*>(empty + kStages);  // warpgroup 1's four warps
+  const int vpanels = Dv / 64;
+
   if (threadIdx.x == 0) {
-    float s = 0.f;
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&qk_full[i], 1);
+      mbar_init(&qk_empty[i], 256);  // both consumer warpgroups release q and k
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it) {
+        const int h = item % H, bn = item / H;
+        const int b = it % G::kQKBufs, round = it / G::kQKBufs;
+        unsigned char* qs = qk + 2 * b * G::kTile;
+        mbar_wait(&qk_empty[b], (round & 1) ^ 1);
+        mbar_arrive_expect_tx(&qk_full[b], 2 * G::kTile);
+        tma_load_tile<kDk, 64>(qs, &map_q, &qk_full[b], 0, h, bn);
+        tma_load_tile<kDk, 64>(qs + G::kTile, &map_k, &qk_full[b], 0, h, bn);
+        for (int p = 0; p < vpanels; ++p) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_arrive_expect_tx(&full[stage], G::kStageBytes);
+          unsigned char* st = ring + stage * G::kStageBytes;
+          tma_load_4d(st, &map_v, &full[stage], 64 * p, h, 0, bn);
+          tma_load_4d(st + kBoxBytes, &map_do, &full[stage], 64 * p, h, 0, bn);
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w];
-    atomicAdd(dmd + md_off, s);
-  }
-
-  // 3. dv_intra = md * P^T dO  [C, Dv]; P^T is zero below the diagonal
-  const int ntv = Dv / kFrag, ntk = Dk / kFrag;
-  for (int f = warp; f < ct * ntv; f += kWarps) {
-    const int fm = f / ntv, fn = f % ntv;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = fm * kFrag; kk < C; kk += kFrag) {
-      ACol a;  // A = P^T: element (m, kk) = P[kk][m], column-major with ld C
-      BRow b;
-      wmma::load_matrix_sync(a, sp + kk * C + fm * kFrag, (unsigned)C);
-      wmma::load_matrix_sync(b, doc + kk * ldv + fn * kFrag, (unsigned)ldv);
-      wmma::mma_sync(acc, a, b, acc);
+          for (int j = 0; j < kPanels; ++j)  // mixed rows [64 j, 64 j + 64), one [kDk][64] tile
+            tma_load_4d(st + (2 + j) * kBoxBytes, &map_m, &full[stage], 64 * p, 0, 64 * j, item);
+          if (++stage == kStages) stage = 0, phase ^= 1;
+        }
+      }
     }
+  } else {  // the consumer warpgroups
+    regs_inc<240>();
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int warp = t >> 5, g = (t & 31) >> 2, tg = t & 3;
+    const int r0 = warp * 16 + g, r1 = r0 + 8;  // this thread's rows of the chunk
+    unsigned char* stg = staging + (wg - 1) * G::kStaging;
+    int stage = 0;
+    uint32_t phase = 0;
+    auto release = [&] {  // this warpgroup is done with the stage
+      mbar_arrive(&empty[stage]);
+      if (++stage == kStages) stage = 0, phase ^= 1;
+    };
+    for (int item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it) {
+      const int h = item % H, bn = item / H;
+      const int b = it % G::kQKBufs, round = it / G::kQKBufs;
+      const unsigned char* qs = qk + 2 * b * G::kTile;
+      const unsigned char* ks = qs + G::kTile;
+      int piece = 0;  // [64][64] tiles this warpgroup stored this item
+      mbar_wait(&qk_full[b], round & 1);
+      if (wg == 1) {
+        const float mdn = md[(bn / N) * md_bstride + bn % N];
+        // A = q k^T, tril in float32 registers; P = bf16(tril A) into its tile
+        float sacc[8][4];
+        wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < acc.num_elements; ++i) acc.x[i] *= mdn;
-    store_tile_bf16(acc, stage[warp], dv_i + bn * C * ldv + h * Dv + fm * kFrag * ldv + fn * kFrag,
-                    ldv);
-  }
-
-  // 4. dq = dA k + dO mixed^T and 5. dk_intra = dA^T q  [C, Dk]
-  for (int f = warp; f < 2 * ct * ntk; f += kWarps) {
-    const int which = f / (ct * ntk), g = f % (ct * ntk);
-    const int fm = g / ntk, fn = g % ntk;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    if (which == 0) {
-      for (int kk = 0; kk <= fm * kFrag; kk += kFrag) {  // dA is zero right of the diagonal
-        ARow a;
-        BRow b;
-        wmma::load_matrix_sync(a, sda + fm * kFrag * C + kk, (unsigned)C);
-        wmma::load_matrix_sync(b, kc + kk * ldk + fn * kFrag, (unsigned)ldk);
-        wmma::mma_sync(acc, a, b, acc);
+        for (int s = 0; s < kDk / 16; ++s)
+          wgmma_ss(sacc, desc_kmajor(qs, 0) + kstep_kmajor<64>(s),
+                   desc_kmajor(ks, 0) + kstep_kmajor<64>(s), s > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(sacc);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (nt * 8 + tg * 2 + (e & 1) > (e < 2 ? r0 : r1)) sacc[nt][e] = 0.f;
+        acc_to_panels<64>(ptile, sacc);
+        fence_async_shared();
+        named_sync(1, 128);
+        // per Dv panel: dP += dO v^T; dv_intra = md P^T dO
+        float dpacc[8][4];
+        for (int p = 0; p < vpanels; ++p) {
+          mbar_wait(&full[stage], phase);
+          const unsigned char* st = ring + stage * G::kStageBytes;
+          const unsigned char* dos = st + kBoxBytes;
+          float dvacc[8][4];
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma_ss(dpacc, desc_kmajor(dos, 0) + kstep_kmajor<64>(s),
+                     desc_kmajor(st, 0) + kstep_kmajor<64>(s), p > 0 || s > 0);
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma_ss<1, 1>(dvacc, desc_mnmajor<64>(ptile) + kstep_mnmajor(s),
+                           desc_mnmajor<64>(dos) + kstep_mnmajor(s), s > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(dpacc);
+          fence_acc(dvacc);
+          release();
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dvacc[i][e] *= mdn;
+          store_piece(&map_dv, stg, piece, 1, dvacc, 64 * p, h, 0, bn);
+        }
+        // tril dP, the item's partial of sum(dP * A), dA = md dP
+        float part = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (nt * 8 + tg * 2 + (e & 1) > (e < 2 ? r0 : r1)) dpacc[nt][e] = 0.f;
+            part = fmaf(dpacc[nt][e], sacc[nt][e], part);
+            dpacc[nt][e] *= mdn;
+          }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+        if ((t & 31) == 0) red[warp] = part;
+        if (it > 0) named_sync(4, 256);  // warpgroup 2 has read the last item's dA
+        acc_to_panels<64>(datile, dpacc);
+        fence_async_shared();
+        named_sync(1, 128);
+        named_arrive(3, 256);  // dA is ready for warpgroup 2
+        if (t == 0) dmd_part[item] = ((red[0] + red[1]) + red[2]) + red[3];
+        // dk_intra = dA^T q
+        float dkacc[kDk / 8][4];
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          wgmma_ss<1, 1>(dkacc, desc_mnmajor<64>(datile) + kstep_mnmajor(s),
+                         desc_mnmajor<64>(qs) + kstep_mnmajor(s), s > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dkacc);
+        mbar_arrive(&qk_empty[b]);
+        if (t == 0) tma_store_wait_read<0>();
+        named_sync(1, 128);
+        acc_to_panels<kDk>(stg, dkacc);
+        fence_async_shared();
+        named_sync(1, 128);
+        if (t == 0) {
+          for (int j = 0; j < kPanels && 64 * j < Dk; ++j)
+            tma_store_4d_part(&map_dk, stg + j * kBoxBytes, 64 * j, h, 0, bn);
+          tma_store_commit();
+        }
+      } else {
+        // per Dv panel: dq += dO mixed^T; dmixed = q^T dO
+        float dqacc[kDk / 8][4];
+        for (int p = 0; p < vpanels; ++p) {
+          mbar_wait(&full[stage], phase);
+          const unsigned char* st = ring + stage * G::kStageBytes;
+          const unsigned char* dos = st + kBoxBytes;
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma_ss(dqacc, desc_kmajor(dos, 0) + kstep_kmajor<64>(s),
+                     desc_kmajor(st + 2 * kBoxBytes, 0) + kstep_kmajor<kDk>(s), p > 0 || s > 0);
+          wgmma_commit();
+          dmixed_panel<kDk>(&map_dm, qs, dos, Dk, p, item, stg, piece, 2);
+          wgmma_wait<0>();
+          fence_acc(dqacc);
+          release();
+        }
+        // dq += dA k, once warpgroup 1 has written dA
+        named_sync(3, 256);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          wgmma_ss<0, 1>(dqacc, desc_kmajor(datile, 0) + kstep_kmajor<64>(s),
+                         desc_mnmajor<64>(ks) + kstep_mnmajor(s), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dqacc);
+        mbar_arrive(&qk_empty[b]);
+        if (item + (int)gridDim.x < items) named_arrive(4, 256);  // dA may be rewritten
+        if (t == 0) tma_store_wait_read<0>();
+        named_sync(2, 128);
+        acc_to_panels<kDk>(stg, dqacc);
+        fence_async_shared();
+        named_sync(2, 128);
+        if (t == 0) {
+          for (int j = 0; j < kPanels && 64 * j < Dk; ++j)
+            tma_store_4d_part(&map_dq, stg + j * kBoxBytes, 64 * j, h, 0, bn);
+          tma_store_commit();
+        }
       }
-      for (int kk = 0; kk < Dv; kk += kFrag) {
-        ARow a;
-        BCol b;  // B = mixed^T: element (kk, c) = mixed[c][kk], column-major with ld Dv
-        wmma::load_matrix_sync(a, doc + fm * kFrag * ldv + kk, (unsigned)ldv);
-        wmma::load_matrix_sync(b, mc + (int64_t)fn * kFrag * Dv + kk, (unsigned)Dv);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      store_tile_bf16(acc, stage[warp], dq + bn * C * ldk + h * Dk + fm * kFrag * ldk + fn * kFrag,
-                      ldk);
-    } else {
-      for (int kk = fm * kFrag; kk < C; kk += kFrag) {  // dA^T is zero below the diagonal
-        ACol a;  // A = dA^T: element (m, kk) = dA[kk][m]
-        BRow b;
-        wmma::load_matrix_sync(a, sda + kk * C + fm * kFrag, (unsigned)C);
-        wmma::load_matrix_sync(b, qc + kk * ldk + fn * kFrag, (unsigned)ldk);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      store_tile_bf16(acc, stage[warp],
-                      dk_i + bn * C * ldk + h * Dk + fm * kFrag * ldk + fn * kFrag, ldk);
     }
+    if (t == 0) tma_store_wait_all();
   }
+}
 
-  // 6. dmixed = q^T dO  [Dk, Dv]
-  bf16* dmc = dmixed + st_off;
-  for (int f = warp; f < ntk * ntv; f += kWarps) {
-    const int fm = f / ntv, fn = f % ntv;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < C; kk += kFrag) {
-      ACol a;  // A = q^T: element (m, kk) = q[kk][m], column-major with ld H*Dk
-      BRow b;
-      wmma::load_matrix_sync(a, qc + kk * ldk + fm * kFrag, (unsigned)ldk);
-      wmma::load_matrix_sync(b, doc + kk * ldv + fn * kFrag, (unsigned)ldv);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    store_tile_bf16(acc, stage[warp], dmc + (int64_t)fm * kFrag * Dv + fn * kFrag, Dv);
-  }
+template <int kDk>
+int launch_output_bwd(const void* q, const void* k, const void* v, const void* mixed,
+                      const void* md, const void* dout, void* dq, void* dk_i, void* dv_i,
+                      void* dmixed, void* dmd_part, int bn, int N, int C, int H, int Dk, int Dv,
+                      int md_bstride, cudaStream_t stream) {
+  typedef OutBwdGeom<kDk> G;
+  CUtensorMap mq, mk, mv, mm, mdo, mdq, mdk, mdv, mdm;
+  int err = hopper_host::make_tile_map(&mq, q, bn, C, H, Dk, 64);
+  if (!err) err = hopper_host::make_tile_map(&mk, k, bn, C, H, Dk, 64);
+  if (!err) err = hopper_host::make_tile_map(&mv, v, bn, C, H, Dv, 64);
+  if (!err) err = hopper_host::make_tile_map(&mm, mixed, bn * H, Dk, 1, Dv, 64);
+  if (!err) err = hopper_host::make_tile_map(&mdo, dout, bn, C, H, Dv, 64);
+  if (!err) err = hopper_host::make_tile_map(&mdq, dq, bn, C, H, Dk, 64);
+  if (!err) err = hopper_host::make_tile_map(&mdk, dk_i, bn, C, H, Dk, 64);
+  if (!err) err = hopper_host::make_tile_map(&mdv, dv_i, bn, C, H, Dv, 64);
+  if (!err) err = hopper_host::make_tile_map(&mdm, dmixed, bn * H, Dk, 1, Dv, 64);
+  if (err) return err;
+  auto kern = chunk_output_bwd_kernel<kDk>;
+  int sms = 0;  // one block an SM
+  err = hopper_host::resident_blocks((const void*)kern, 384, G::kSmem, &sms);
+  if (err) return err;
+  const long long items = (long long)bn * H;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  kern<<<items < sms ? (int)items : sms, 384, G::kSmem, stream>>>(
+      mq, mk, mv, mm, mdo, mdq, mdk, mdv, mdm, (const float*)md, (float*)dmd_part, N, H, Dk,
+      Dv, md_bstride, (int)items);
+  return (int)cudaGetLastError();
 }
 
 // K2b geometry at key tile width kDk (64, 128 or 256): 64-row items, Dv in
@@ -275,11 +439,6 @@ struct StatesBwdGeom {
   static constexpr int kSmem = 2 * kKBytes + kStages * kStageBytes + 1024 + 256;
   static_assert(kStages >= 2, "K2b needs two stages");
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // Round acc + add (the bf16 pairs of the same fragment positions) to bf16 and
 // store rows r0 and r0 + 8 (those below ``rows``) and the columns below
@@ -474,20 +633,20 @@ int launch_states_bwd(const void* k, const void* v, const void* ds, const void* 
 // stream, does not synchronise, and returns the launch's cudaError_t.
 extern "C" {
 
+// C % 16 == 0 with 16 <= C <= 64, Dk % 16 == 0 with 16 <= Dk <= 256 and
+// Dv % 128 == 0, or cudaErrorInvalidValue; every pointer 16-byte aligned
+// (TMA). dmd_part: [bn * H] float32, one partial of d md per (chunk, head).
 int mhla_chunk_output_bwd(const void* q, const void* k, const void* v, const void* mixed,
                           const void* md, const void* dout, void* dq, void* dk_i, void* dv_i,
-                          void* dmixed, void* dmd, int bn, int N, int C, int H, int Dk, int Dv,
-                          int md_bstride, void* stream) {
-  const int smem = C * C * (2 * (int)sizeof(float) + 2 * (int)sizeof(bf16));
-  cudaError_t err = cudaFuncSetAttribute(
-      chunk_output_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(bn, H);
-  chunk_output_bwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)mixed, (const float*)md,
-      (const bf16*)dout, (bf16*)dq, (bf16*)dk_i, (bf16*)dv_i, (bf16*)dmixed, (float*)dmd, N, C,
-      H, Dk, Dv, md_bstride);
-  return (int)cudaGetLastError();
+                          void* dmixed, void* dmd_part, int bn, int N, int C, int H, int Dk,
+                          int Dv, int md_bstride, void* stream) {
+  if (bn < 1 || N < 1 || H < 1 || C < 16 || C > 64 || C % 16 || Dk < 16 || Dk > 256 ||
+      Dk % 16 || Dv < 128 || Dv % 128)
+    return (int)cudaErrorInvalidValue;
+  auto launch = Dk <= 64 ? launch_output_bwd<64> : Dk <= 128 ? launch_output_bwd<128>
+                                                             : launch_output_bwd<256>;
+  return launch(q, k, v, mixed, md, dout, dq, dk_i, dv_i, dmixed, dmd_part, bn, N, C, H, Dk, Dv,
+                md_bstride, (cudaStream_t)stream);
 }
 
 // Dk % 16 == 0 with 16 <= Dk <= 256 and Dv % 128 == 0, or

@@ -2,11 +2,12 @@
 the same function, and with ``steps`` the end-to-end steps they run in. One
 group a process:
 
-- ``chunk``: K2 / K2b and K3 / K3b (``kernels/mhla_chunk.py``) at the shapes
-  PERF.md lists; steps (a)'s prefill of 4 x 1,984 tokens, one 28,672-token
-  block of (s)'s evaluation and the training steps of ``chip_smoke.py``'s
-  phases (c), (l), (u) and (v) as that tree's own ``chip_smoke.py`` runs them
-  (letters a, s, c, l, u, v).
+- ``chunk``: K2 / K2b, K3 / K3b and K4 / K4b (``kernels/mhla_chunk.py``) at
+  the shapes PERF.md lists (K4 / K4b at (a)'s, (c)'s and, per-row, (l)'s
+  rows); steps (a)'s prefill of 4 x 1,984 tokens, one 28,672-token block of
+  (s)'s evaluation and the training steps of ``chip_smoke.py``'s phases (c),
+  (l), (u) and (v) as that tree's own ``chip_smoke.py`` runs them (letters
+  a, s, c, l, u, v).
 - ``flash``: K9 / K9b (``kernels/flash_attention.py``) in every form, beside
   the library's flash or memory-efficient SDPA call (forward, and its
   backward through autograd). No steps.
@@ -98,7 +99,7 @@ def report(tag: str, form: str, r: dict) -> None:
     print(tag, form, json.dumps(r), flush=True)
 
 
-# --- chunk: K2 / K2b, K3 / K3b ---------------------------------------------
+# --- chunk: K2 / K2b, K3 / K3b, K4 / K4b ------------------------------------
 
 # K2 and K2b: (batch, tokens) at 4 heads of Dk 128, Dv 256, chunk 64: (a)'s
 # prefill rows (K2), (c)'s training rows and (u)'s long-context row
@@ -108,6 +109,9 @@ K2B_SHAPES = [(8, 2048), (1, 16384)]
 WIDE_SLOTS = [64, 256, 448, 512]
 # K3 and K3b at N = 32 (batch, per-row M): serving 4 x 2048, training 8 x 2048
 N32_FORMS = [(4, False), (8, False), (8, True)]
+# K4 (and, at training rows, K4b): (batch, per-row md) at T = 2048: (a)'s
+# serving rows, (c)'s training rows, (l)'s packed rows (one md per row)
+K4_FORMS = [(4, False), (8, False), (8, True)]
 CHUNK_INNER = 10
 
 
@@ -188,6 +192,25 @@ def time_n32(mc, tag: str, b: int, per_row: bool) -> None:
         "K3b_ms": median_ms(lambda: mc.mix_states_bwd(m_strict, dmixed4, states4), CHUNK_INNER)})
 
 
+def time_k4(mc, tag: str, b: int, per_row: bool) -> None:
+    """K4, and at training rows K4b, at B x 2048 tokens of 4 heads (Dk 128,
+    Dv 256, 32 chunks) with a shared or a per-row diagonal."""
+    import torch
+
+    h, dk, dv, c, n = 4, 128, 256, 64, 32
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(bf16)  # noqa: E731
+    q4, k4 = torch.relu(rnd(b, n, c, h * dk)), torch.relu(rnd(b, n, c, h * dk))
+    v4, do4, mixed4 = rnd(b, n, c, h * dv), rnd(b, n, c, h * dv), rnd(b, n, h * dk, dv)
+    md = torch.rand(*((b, n) if per_row else (n,)), generator=gen, device=dev)
+    r = {"K4_ms": median_ms(lambda: mc.chunk_output(q4, k4, v4, mixed4, md, h), CHUNK_INNER)}
+    if b == 8:
+        r["K4b_ms"] = median_ms(lambda: mc.chunk_output_bwd(q4, k4, v4, mixed4, md, do4, h),
+                                CHUNK_INNER)
+    report(tag, f"K4 B={b} T=2048 {'per-row' if per_row else 'shared'} md", r)
+
+
 def time_prefill(cs, tag: str) -> None:
     """(a)'s prefill: one cache-building forward of the 340M model (bf16,
     seeded init) over 4 x 1,984 tokens under ``torch.no_grad``."""
@@ -240,6 +263,8 @@ def chunk_kernels(cs, tag: str) -> None:
         time_wide(mc, tag, n)
     for b, per_row in N32_FORMS:
         time_n32(mc, tag, b, per_row)
+    for b, per_row in K4_FORMS:
+        time_k4(mc, tag, b, per_row)
 
 
 def chunk_steps(cs, tag: str) -> dict:

@@ -10,14 +10,16 @@ CUDA kernels (counterpart of ``mhla_tpu/kernels/mhla_chunk_pallas.py``):
   K3b ``mix_states_bwd``    dS = Ms^T dmixed and dMs[i, j] = <dmixed_i, S_j>
   K2b ``chunk_states_bwd``  dk = v dS^T + dk_intra, dv = k dS + dv_intra
 
-K2, K2b, K3 and K3b are Hopper kernels built from ``csrc/hopper.cuh`` (TMA,
-mbarriers, wgmma), like the flash kernels. K3 and K3b's dS take any N up to
+All six are Hopper kernels built from ``csrc/hopper.cuh`` (TMA, mbarriers,
+wgmma), like the flash kernels. K3 and K3b's dS take any N up to
 832 chunks (512 slots at 32,768 positions) in one family of kernels chosen
 by N: up to 64 chunks (the 340M's 32) M's one tile is built in registers
 from the float32 M inside the kernel, beyond that from a bf16 copy of M.
 K3b's dMs comes from fixed slices of the state columns
 (:func:`_gram_slices`) summed in a second pass, the same bit for bit from
-run to run.
+run to run. K4b writes one float32 partial of d md per (chunk, head), which
+its wrapper sums over heads (and the batch) in a fixed order: no atomics, so
+all six kernels give the same bits from run to run.
 
 The q scale ``Dk**-0.5`` is folded into the mixing matrix once, as the JAX
 entry point does (``mhla_chunk_pallas.py:1005-1013``): Ms is the scaled
@@ -33,6 +35,9 @@ chunk's own term. ``_ChunkOp`` is the ``torch.autograd.Function`` around
 K2 -> K3 -> K4 with K4b -> K3b -> K2b as its backward (the JAX ``_st_path``
 custom VJP, ``mhla_chunk_pallas.py:875-950``); the scale fold, the slicing
 of M and its rounding stay ordinary autograd around it.
+:func:`mhla_chunk_fused_flat` takes that route where JAX's rule sends a
+call to its Pallas kernels (:func:`kernel_route`), and the plain versions
+under autograd at every other shape, as JAX runs XLA einsums there.
 
 Each wrapper runs its plain PyTorch version (``*_plain``, same function,
 same rounding points) for a CPU tensor, and launches its kernel for a CUDA
@@ -54,15 +59,15 @@ launches = {
     "chunk_output_bwd": 0, "mix_states_bwd": 0, "chunk_states_bwd": 0,
 }
 
-_TILE_N = 128  # Dv columns per item of K2, per block of K4 (csrc: kTileN)
+_TILE_N = 128  # Dv columns per item of K2 and per panel of K4
 _MAX_SLOTS_WIDE = 832  # slots the strip form stages in shared memory (csrc: kMaxSlotsWide)
 _SMALL_SLOTS = 64  # up to here K3 / K3b's dS build M's tile in the kernel (csrc: kSmallSlots)
 _WIDE_COLS = 128  # state columns per strip of the larger forms (csrc: kCols)
 _GRAM_COLS = 64  # state columns per stage of the wide dMs
 _GRAM_ROWS = 128  # rows (and columns) of a dMs tile of the wide dMs
 _GRAM_BLOCKS = 264  # wide dMs: two blocks on each of the H100's 132 SMs
-_K2B_MAX_HEAD_DIM = 256  # K2b pads Dk to a tile of 64, 128 or 256 (csrc: StatesBwdGeom)
-_MAX_CHUNK = 64  # K4 keeps two [C, C] score tiles in 48 KB of shared memory
+_BWD_MAX_HEAD_DIM = 256  # K4b and K2b pad Dk to a tile of 64, 128 or 256 (csrc: *BwdGeom)
+_MAX_CHUNK = 64  # K4 and K4b take a chunk as one 64-row wgmma tile
 
 _lib_cache: Optional[ctypes.CDLL] = None
 
@@ -300,7 +305,8 @@ def chunk_output(
     m_diag: torch.Tensor,
     num_heads: int,
 ) -> torch.Tensor:
-    """K4 (see :func:`chunk_output_plain`)."""
+    """K4 (see :func:`chunk_output_plain`) at any C % 16 up to 64, Dk % 16
+    and Dv % 128."""
     if _on_cpu(q4, k4, v4, mixed4, m_diag):
         return chunk_output_plain(q4, k4, v4, mixed4, m_diag, num_heads)
     for name, x in (("q4", q4), ("k4", k4), ("v4", v4), ("mixed4", mixed4)):
@@ -315,6 +321,8 @@ def chunk_output(
     md_bstride = _batch_stride(m_diag, 2, "m_diag", b, n)
     if c % 16 or c > _MAX_CHUNK:
         raise ValueError(f"kernel needs chunk_size % 16 == 0 and <= {_MAX_CHUNK}, got {c}")
+    if any(x.data_ptr() % 16 for x in (q4, k4, v4, mixed4)):
+        raise ValueError("kernel loads tiles by TMA: its inputs must be 16-byte aligned")
     out = torch.empty(b, n, c, num_heads * dv, dtype=q4.dtype, device=q4.device)
     _launch("chunk_output", _lib().mhla_chunk_output, q4,
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mixed4.data_ptr(),
@@ -384,9 +392,12 @@ def chunk_output_bwd(
     do4: torch.Tensor,
     num_heads: int,
 ) -> Tuple[torch.Tensor, ...]:
-    """K4b (see :func:`chunk_output_bwd_plain`). d md sums over heads (and,
-    shared, over the batch) with float32 atomics, so its last bits change
-    from run to run."""
+    """K4b (see :func:`chunk_output_bwd_plain`) at any C % 16 up to 64, Dk %
+    16 up to 256 (as K2b, which follows it in the backward) and Dv % 128. The
+    kernel writes one float32 partial of d md per (chunk, head); their sum
+    over heads (and, for a shared m_diag, over the batch) is one
+    ``torch.sum`` over fixed dims, so all five outputs are the same bits from
+    run to run."""
     if _on_cpu(q4, k4, v4, mixed4, m_diag, do4):
         return chunk_output_bwd_plain(q4, k4, v4, mixed4, m_diag, do4, num_heads)
     for name, x in (("q4", q4), ("k4", k4), ("v4", v4), ("mixed4", mixed4), ("do4", do4)):
@@ -401,15 +412,20 @@ def chunk_output_bwd(
     md_bstride = _batch_stride(m_diag, 2, "m_diag", b, n)
     if c % 16 or c > _MAX_CHUNK:
         raise ValueError(f"kernel needs chunk_size % 16 == 0 and <= {_MAX_CHUNK}, got {c}")
+    if dk > _BWD_MAX_HEAD_DIM:
+        raise ValueError(f"kernel needs a key head dim of at most {_BWD_MAX_HEAD_DIM}, got {dk}")
+    if any(x.data_ptr() % 16 for x in (q4, k4, v4, mixed4, do4)):
+        raise ValueError("kernel loads tiles by TMA: its inputs must be 16-byte aligned")
     dq4, dk_i = torch.empty_like(q4), torch.empty_like(q4)
     dv_i = torch.empty_like(v4)
     dmixed4 = torch.empty_like(mixed4)
-    dmd = torch.zeros(m_diag.shape, dtype=torch.float32, device=q4.device)
+    part = torch.empty(b, n, num_heads, dtype=torch.float32, device=q4.device)
     _launch("chunk_output_bwd", _lib().mhla_chunk_output_bwd, q4,
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mixed4.data_ptr(),
             m_diag.data_ptr(), do4.data_ptr(), dq4.data_ptr(), dk_i.data_ptr(),
-            dv_i.data_ptr(), dmixed4.data_ptr(), dmd.data_ptr(),
+            dv_i.data_ptr(), dmixed4.data_ptr(), part.data_ptr(),
             b * n, n, c, num_heads, dk, dv, md_bstride)
+    dmd = part.sum(dim=(0, 2) if m_diag.ndim == 1 else 2)
     return dq4, dk_i, dv_i, dmixed4, dmd
 
 
@@ -519,8 +535,8 @@ def chunk_states_bwd(
         raise ValueError("dstates4 does not match k4")
     if c % 16:
         raise ValueError(f"kernel needs chunk_size % 16 == 0, got {c}")
-    if dk > _K2B_MAX_HEAD_DIM:
-        raise ValueError(f"kernel needs a key head dim of at most {_K2B_MAX_HEAD_DIM}, got {dk}")
+    if dk > _BWD_MAX_HEAD_DIM:
+        raise ValueError(f"kernel needs a key head dim of at most {_BWD_MAX_HEAD_DIM}, got {dk}")
     if any(x.data_ptr() % 16 for x in (k4, v4, dstates4, dk_intra4, dv_intra4)):
         raise ValueError("kernel loads tiles by TMA: its inputs must be 16-byte aligned")
     gk, gv = torch.empty_like(k4), torch.empty_like(v4)
@@ -572,6 +588,16 @@ class _ChunkOp(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
+def kernel_route(chunk_size: int, dk: int, dv: int) -> bool:
+    """JAX's rule (``_pallas_compatible``, ``mhla_chunk_pallas.py:838-841``:
+    chunk % 8, Dk % 128 and Dv % 128) sends a call to the kernels; every
+    other shape runs JAX's XLA route (:1022-1047). Shapes the rule sends to
+    the kernels but that they lack (chunk % 8 but not % 16, or above 64)
+    raise on the card. JAX's ``gsz * c >= 128`` term (:1016) is left out: it
+    sizes the TPU's supertile, not the function."""
+    return chunk_size % 8 == 0 and dk % 128 == 0 and dv % 128 == 0
+
+
 def mhla_chunk_fused_flat(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -583,13 +609,15 @@ def mhla_chunk_fused_flat(
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Chunked MHLA on head-flat q, k [B, T, H*Dk], v [B, T, H*Dv] through
-    K2 -> K3 -> K4. Semantics equal :func:`mhla_tpu_torch.ops.mhla_chunk`.
+    K2 -> K3 -> K4 where :func:`kernel_route` holds, else through their plain
+    versions, as JAX routes the call. Semantics equal
+    :func:`mhla_tpu_torch.ops.mhla_chunk`.
 
     Returns (o [B, T, H*Dv] in q's dtype, states [B, H, N, Dk, Dv] float32
     or None). The states are K2's output, rounded to the compute dtype as
     the JAX entry returns them (``mhla_chunk_pallas.py:1079-1089``).
-    o is differentiable in q, k, v and ``mixing_matrix`` through K4b, K3b
-    and K2b; the states are not.
+    o is differentiable in q, k, v and ``mixing_matrix`` (through K4b, K3b
+    and K2b on the kernels' route); the states are not.
 
     ``segment_ids`` [B, T] (packed documents, boundaries on chunk
     boundaries) gives every batch row its own [N, N] matrix from
@@ -620,7 +648,12 @@ def mhla_chunk_fused_flat(
     k4 = k.reshape(b, n, c, h * dk).to(cdt).contiguous()
     v4 = v.reshape(b, n, c, h * dv).to(cdt).contiguous()
 
-    o4, states4 = _ChunkOp.apply(q4, k4, v4, m_strict, m_diag, h)
+    if kernel_route(c, dk, dv):
+        o4, states4 = _ChunkOp.apply(q4, k4, v4, m_strict, m_diag, h)
+    else:  # JAX's XLA route: the plain versions under ordinary autograd
+        states4 = chunk_states_plain(k4, v4, h)
+        o4 = chunk_output_plain(q4, k4, v4, mix_states_plain(m_strict, states4), m_diag, h)
+        states4 = states4.detach()
     o = o4.reshape(b, n * c, h * dv)[:, :t].to(in_dtype)
     states_out = None
     if output_final_state:

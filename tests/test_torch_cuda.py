@@ -1747,3 +1747,152 @@ def test_k2b_and_wide_mix_kernels_run_on_wgmma_and_tma(dev):
     assert found == {"chunk_states_kernel": 1, "chunk_states_bwd_kernel": 3,
                      "mix_small_kernel": 8, "mix_stream_kernel": 6, "mix_strip_kernel": 2,
                      "gram_partial_kernel": 1}
+
+
+def test_chunk_output_kernels_run_on_wgmma_and_tma(dev):
+    """The built library's K4 kernel and its K4b kernels (key tiles 64, 128,
+    256) hold HGMMA (wgmma), UTMALDG (TMA loads) and UTMASTG (TMA stores)
+    and no HMMA (mma.sync or WMMA)."""
+    found = {kind: 0 for kind in ("chunk_output_kernel", "chunk_output_bwd_kernel")}
+    for fn, text in _sass_bodies().items():
+        kind = next((k for k in found if k in fn), None)
+        if kind is None:
+            continue
+        assert "HGMMA" in text and "UTMALDG" in text and "UTMASTG" in text, fn
+        assert " HMMA" not in text, fn
+        found[kind] += 1
+    assert found == {"chunk_output_kernel": 1, "chunk_output_bwd_kernel": 3}
+
+
+def _chunk_output_inputs(dev, b, t, h, dk, dv, c, per_row, seed=0):
+    """K4 / K4b's inputs at a ragged last chunk (tokens past t zero): relu q
+    and k, v, dO, K2 -> K3's mixed states (plain) and md, shared [N] or one
+    per batch row [B, N]."""
+    n = -(-t // c)
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def tokens(d, relu):
+        y = torch.randn(b, n * c, h * d, generator=gen, device=dev)
+        y[:, t:] = 0
+        y = torch.relu(y) if relu else y
+        return y.to(_BF16).reshape(b, n, c, h * d).contiguous()
+
+    q4, k4, v4, do4 = tokens(dk, True), tokens(dk, True), tokens(dv, False), tokens(dv, False)
+    m = torch.tril(torch.rand(*((b, n, n) if per_row else (n, n)), generator=gen, device=dev)
+                   * dk**-0.5)
+    m_strict = torch.tril(m, -1).to(_BF16).float().contiguous()
+    m_diag = torch.diagonal(m, dim1=-2, dim2=-1).contiguous()
+    mixed4 = mhla_chunk.mix_states_plain(m_strict, mhla_chunk.chunk_states_plain(k4, v4, h))
+    return q4, k4, v4, mixed4, m_diag, do4
+
+
+@pytest.mark.parametrize("dv", [128, 256])
+@pytest.mark.parametrize("dk", [64, 96, 128, 256, 384])
+@pytest.mark.parametrize("c", [16, 32, 48, 64])
+def test_chunk_output_kernels_match_plain(dev, c, dk, dv):
+    """K4 and K4b against their plain versions at chunks of 16 to 64 rows
+    (zero-filled tile rows, not stored), key head dims on each of K4b's key
+    tiles (64, 128, 256) and between them (96), Dv of one and two 128-column
+    panels, a ragged last chunk, per-row md at C = 64; K4 also at Dk = 384
+    (Dk walked in panels; K4b raises there, as K2b)."""
+    h, t = 2, 5 * c - 7
+    q4, k4, v4, mixed4, m_diag, do4 = _chunk_output_inputs(dev, 2, t, h, dk, dv, c, c == 64)
+    before = dict(mhla_chunk.launches)
+    got = mhla_chunk.chunk_output(q4, k4, v4, mixed4, m_diag, h)
+    assert_close(f"K4 C={c} Dk={dk} Dv={dv}",
+                 mhla_chunk.chunk_output_plain(q4, k4, v4, mixed4, m_diag, h), got, KERNEL_TOL)
+    if dk > 256:
+        with pytest.raises(ValueError):
+            mhla_chunk.chunk_output_bwd(q4, k4, v4, mixed4, m_diag, do4, h)
+        return
+    got = mhla_chunk.chunk_output_bwd(q4, k4, v4, mixed4, m_diag, do4, h)
+    ref = mhla_chunk.chunk_output_bwd_plain(q4, k4, v4, mixed4, m_diag, do4, h)
+    for name, r, g in zip(("dq", "dk_intra", "dv_intra", "dmixed", "dmd"), ref, got):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        assert_close(f"K4b {name} C={c} Dk={dk} Dv={dv}", r, g, KERNEL_TOL)
+    assert mhla_chunk.launches["chunk_output"] == before["chunk_output"] + 1
+    assert mhla_chunk.launches["chunk_output_bwd"] == before["chunk_output_bwd"] + 1
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_chunk_output_bwd_is_bit_equal_over_two_runs(dev, per_row):
+    """K4b gives the same bits twice in all five outputs at the 340M's
+    training shape (d md from one partial per chunk and head, summed in a
+    fixed order: no atomics), shared and per-row md; so does K4."""
+    args = _chunk_output_inputs(dev, 8, 2048, 4, 128, 256, 64, per_row)
+    first = mhla_chunk.chunk_output_bwd(*args, 4)
+    again = mhla_chunk.chunk_output_bwd(*args, 4)
+    assert all(torch.equal(a, g) for a, g in zip(first, again))
+    assert all(torch.isfinite(g.float()).all() for g in first)
+    o = mhla_chunk.chunk_output(*args[:5], 4)
+    assert torch.equal(o, mhla_chunk.chunk_output(*args[:5], 4))
+
+
+def _layer_pair(dev, **kw):
+    """An MHLA layer (float32, seeded) on the card and its copy on the CPU,
+    where the chunk op runs its plain versions."""
+    from mhla_tpu_torch.layers import MHLACausal
+
+    torch.manual_seed(0)
+    cpu = MHLACausal(**kw)
+    with torch.no_grad():  # a mixing matrix off its init, as after training
+        cpu.mixing_matrix.copy_(torch.tril(torch.rand_like(cpu.mixing_matrix)))
+    card = MHLACausal(**kw, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    return card, cpu
+
+
+def _layer_grads(layer, x):
+    x = x.clone().requires_grad_()
+    o, _ = layer(x)
+    (o * torch.linspace(-1, 1, o.shape[-1], device=o.device)).sum().backward()
+    return [o, x.grad] + [p.grad for p in layer.parameters()]
+
+
+@pytest.mark.parametrize("kw,t", [
+    # hidden 1024, 4 heads, expand_v 0.75: Dk 128, Dv 192, which JAX runs on XLA
+    (dict(hidden_size=1024, expand_v=0.75, num_heads=4), 200),
+    # chunk 12 (not % 8) at the tiny LM's Dk 128, Dv 256
+    (dict(hidden_size=512, num_heads=2, chunk_size=12, num_slots=20), 200),
+])
+def test_layers_off_the_kernel_route_run_as_jax(dev, kw, t):
+    """An MHLA layer at a shape JAX sends to its XLA route runs the chunk op's
+    plain versions on the card, launching no chunk kernel: its output and
+    the gradients of its input and parameters match its copy on the CPU
+    (float32 on both; the sums run in other orders)."""
+    card, cpu = _layer_pair(dev, **kw)
+    assert not mhla_chunk.kernel_route(card.chunk_size, card.head_k_dim, card.head_v_dim)
+    x = torch.randn(2, t, kw["hidden_size"], generator=torch.Generator().manual_seed(1))
+    before = dict(mhla_chunk.launches)
+    got = _layer_grads(card, x.to(dev))
+    assert mhla_chunk.launches == before
+    for i, (r, g) in enumerate(zip(_layer_grads(cpu, x), got)):
+        assert_close(f"layer {kw} tensor {i}", r, g, 1e-5)
+
+
+def test_kernel_route_shapes_the_kernels_lack_raise(dev):
+    """Chunk 8 at Dk 128, Dv 256 is on JAX's Pallas route, which the port's
+    kernels lack (chunk % 16): it raises, as chunk 80 does (K4 takes at most
+    64 rows)."""
+    x = torch.zeros(1, 160, 2 * 128, dtype=_BF16, device=dev)
+    y = torch.zeros(1, 160, 2 * 256, dtype=_BF16, device=dev)
+    m = torch.tril(torch.ones(20, 20, device=dev))
+    for c in (8, 80):
+        assert mhla_chunk.kernel_route(c, 128, 256)
+        with pytest.raises(ValueError):
+            mhla_chunk.mhla_chunk_fused_flat(x, x, y, m, num_heads=2, chunk_size=c)
+
+
+def test_340m_width_layer_runs_every_chunk_kernel(dev):
+    """The 340M's MHLA layer (hidden 1024, 4 heads: Dk 128, Dv 256) in bf16
+    takes the kernels' route: one forward and backward launch K2-K4 and
+    K4b-K2b once each."""
+    from mhla_tpu_torch.layers import MHLACausal
+
+    layer = MHLACausal(device=dev).to(_BF16)
+    x = torch.randn(2, 256, 1024, device=dev, dtype=_BF16, requires_grad=True)
+    before = dict(mhla_chunk.launches)
+    o, _ = layer(x)
+    o.float().sum().backward()
+    assert {n: mhla_chunk.launches[n] - before[n] for n in before} == {n: 1 for n in before}
+    assert torch.isfinite(x.grad.float()).all()

@@ -27,6 +27,10 @@ port_rec = importlib.import_module("mhla_tpu_torch.ops.mhla_recurrent")
 # einsums, or per-token recurrence vs chunk matmuls), a few float32 ulp
 # of the largest partial sum: 1e-5 relative RMS, as tests/test_kernels.py
 TOL = 1e-5
+# bf16 in the port against JAX in float32 on the same bf16 values (JAX's
+# CPU backend has no bf16 x bf16 -> f32 dot): a few bf16 roundings of
+# 2^-9 relative each, as test_bf16_entry_within_bf16_error_of_jax allows
+BF16_TOL = 1e-2
 
 
 @pytest.fixture(autouse=True)
@@ -303,3 +307,131 @@ def test_gram_slices_cover_the_state_columns_exactly(n, r, rows):
     assert all(x[1] == y[0] for x, y in zip(bounds, bounds[1:]))
     assert port_kernels._gram_slices(n, r, rows) == (splits, width)
 
+
+
+@pytest.mark.parametrize("c", [4, 8, 12, 16, 64, 80])
+@pytest.mark.parametrize("dk,dv", [(96, 192), (128, 256), (128, 192), (256, 128), (16, 128)])
+def test_kernel_route_is_jax_pallas_rule(c, dk, dv):
+    """The port's routing predicate is JAX's ``_pallas_compatible`` over a
+    grid of chunk sizes and head dims (chunk % 8, Dk % 128, Dv % 128)."""
+    from mhla_tpu.kernels.mhla_chunk_pallas import _pallas_compatible
+
+    assert port_kernels.kernel_route(c, dk, dv) == _pallas_compatible(c, dk, dv)
+
+
+def _fused_grads_jax(q, k, v, m, w, h, c):
+    """o and the gradients of sum(o * w) in q, k, v and the mixing matrix
+    through JAX's ``mhla_chunk_fused_flat`` (its XLA route at these shapes)."""
+    import jax
+
+    def f(q_, k_, v_, m_):
+        return jax_fused_flat(q_, k_, v_, m_, num_heads=h, chunk_size=c)[0]
+
+    o, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v, m)))
+    return (o, *vjp(jnp.asarray(w).astype(o.dtype)))
+
+
+def _fused_grads_port(q, k, v, m, w, h, c):
+    q, k, v, m = (x.clone().requires_grad_() for x in (q, k, v, m))
+    o, _ = port_kernels.mhla_chunk_fused_flat(q, k, v, m, num_heads=h, chunk_size=c)
+    (o.float() * w.float()).sum().backward()
+    return (o, q.grad, k.grad, v.grad, m.grad)
+
+
+@pytest.mark.parametrize("dk,dv,c,t", [(96, 192, 64, 200), (128, 128, 12, 100)])
+def test_fused_flat_off_the_kernel_route_matches_jax(dk, dv, c, t):
+    """Shapes JAX sends to its XLA route (Dv = 192 at Dk = 96; chunk 12, not
+    % 8) run the plain versions under autograd, no kernel launched: o and
+    the gradients in q, k, v and the mixing matrix against JAX's
+    ``mhla_chunk_fused_flat`` in float32 (TOL), and with bf16 inputs
+    against JAX in float32 on the same values (JAX's CPU backend has no bf16
+    x bf16 -> f32 dot): the port rounds the states, mixed states, scores,
+    output and gradients to bf16 (2^-9 relative each), 1.9e-3 to 4.1e-3
+    here, so BF16_TOL."""
+    b, h = 2, 2
+    assert not port_kernels.kernel_route(c, dk, dv)
+    n = -(-t // c)
+    q, k, _ = _qkv(b, t, h, dk, dk, seed=3)
+    v = np.random.default_rng(4).standard_normal((b, t, h * dv)).astype(np.float32)
+    w = np.random.default_rng(5).standard_normal((b, t, h * dv)).astype(np.float32)
+    m = _mixing(n)
+    q, k = q.reshape(b, t, -1), k.reshape(b, t, -1)
+    before = dict(port_kernels.launches)
+    for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
+        xs = [_t(x).to(dtype) for x in (q, k, v)]
+        ref = _fused_grads_jax(*(x.float().numpy() for x in xs), m, w, h, c)
+        got = _fused_grads_port(*xs, _t(m), _t(w), h, c)
+        for name, r, g in zip(("o", "dq", "dk", "dv", "dM"), ref, got):
+            assert g.dtype == (torch.float32 if name == "dM" else dtype)
+            assert_close(f"{name} {dtype} Dk={dk} Dv={dv} C={c}",
+                         np.asarray(jnp.asarray(r, jnp.float32)), g.float(), tol)
+    assert port_kernels.launches == before
+
+
+def _core_inputs(per_row, seed=21):
+    """K4 / K4b inputs at B = 2, N = 3, C = 16, H = 2, Dk = 32, Dv = 128,
+    bf16-representable float32: q, k (relu), v, mixed, md ([N] or [B, N])
+    and dO."""
+    b, n, c, h, dk, dv = 2, 3, 16, 2, 32, 128
+    rng = np.random.default_rng(seed)
+    r = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(torch.bfloat16).float()
+    q4, k4 = torch.relu(r(b, n, c, h * dk)), torch.relu(r(b, n, c, h * dk))
+    v4, do4 = r(b, n, c, h * dv), r(b, n, c, h * dv)
+    mixed4 = r(b, n, h * dk, dv)
+    md = torch.from_numpy(rng.uniform(0.0, 0.2, (b, n) if per_row else (n,)).astype(np.float32))
+    return q4, k4, v4, mixed4, md, do4, h
+
+
+def _jax_core(q4, k4, v4, mixed4, md, h):
+    """JAX's ``_core_xla`` on the port's [B, N, C, H*D] chunks, as a
+    function of (q4, k4, v4, mixed4, md) for ``jax.vjp``."""
+    from mhla_tpu.kernels.mhla_chunk_pallas import _core_xla
+
+    b, n, c, hdk = q4.shape
+    dk, dv = hdk // h, v4.shape[-1] // h
+
+    def f(q_, k_, v_, mx_, md_):
+        o = _core_xla(q_.reshape(b, n, c, h, dk), k_.reshape(b, n, c, h, dk),
+                      v_.reshape(b, n, c, h, dv), mx_.reshape(b, n, h, dk, dv), md_)
+        return o.reshape(b, n, c, h * dv)
+
+    return f, tuple(jnp.asarray(x.numpy()) for x in (q4, k4, v4, mixed4, md))
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_chunk_output_plain_matches_jax_core_xla(per_row):
+    """K4's plain version (what the card kernel is held to), through the
+    wrapper, against JAX's ``_core_xla`` with a shared and a per-row
+    diagonal: in float32 (TOL), and with bf16 inputs and output against
+    JAX in float32 on the same values (P and o rounded to bf16 in the port,
+    1.7e-3 here: BF16_TOL)."""
+    q4, k4, v4, mixed4, md, _, h = _core_inputs(per_row)
+    f, args = _jax_core(q4, k4, v4, mixed4, md, h)
+    ref = np.asarray(f(*args))
+    for tdt, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
+        got = port_kernels.chunk_output(*(x.to(tdt) for x in (q4, k4, v4, mixed4)), md, h)
+        assert got.dtype == tdt and got.shape == ref.shape
+        assert_close(f"K4 plain vs JAX {tdt} per_row={per_row}", ref, got.float(), tol)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_chunk_output_bwd_plain_matches_jax_vjp(per_row):
+    """K4b's plain version, through the wrapper, against ``jax.vjp`` of JAX's
+    ``_core_xla`` (dq, dk_intra, dv_intra, dmixed and d md, shared [N] or per
+    row [B, N]): in float32 (TOL), and with bf16 inputs against the float32
+    vjp on the same values (P, dA and the outputs rounded to bf16 where
+    ``chunk_output_bwd_plain`` documents, up to 2.4e-3 here: BF16_TOL)."""
+    import jax
+
+    q4, k4, v4, mixed4, md, do4, h = _core_inputs(per_row)
+    f, args = _jax_core(q4, k4, v4, mixed4, md, h)
+    _, vjp = jax.vjp(f, *args)
+    ref = vjp(jnp.asarray(do4.numpy()))
+    for tdt, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
+        got = port_kernels.chunk_output_bwd(*(x.to(tdt) for x in (q4, k4, v4, mixed4)), md,
+                                            do4.to(tdt), h)
+        assert got[4].shape == md.shape and got[4].dtype == torch.float32
+        for name, r, g in zip(("dq", "dk_intra", "dv_intra", "dmixed", "dmd"), ref, got):
+            assert_close(f"K4b plain {name} vs JAX {tdt} per_row={per_row}",
+                         np.asarray(r), g.float(), tol)
