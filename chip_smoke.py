@@ -108,8 +108,11 @@ exits non-zero:
              form) and bf16, at 1 x 781 (a ragged last chunk) in both, and at
              the bench shape [1, 32768, 8, 128|128] in bf16, with a nonzero
              initial state (timed beside the bound at [8, 2048] and the bench
-             shape); two K12b runs bit for bit at every shape; the op's
-             gradients through the kernels against autograd of the plain op.
+             shape, the TF32 tensor cores' bound, the earlier kernels' times
+             and their bound); at 2 x 300 tokens with chunks of 16, 32, 48
+             and 64 and Dv of 64, 128 and 256 in both dtypes; two K12b runs
+             bit for bit at every shape; the op's gradients through the
+             kernels against autograd of the plain op.
 19. serve (gla) — ``generate`` with the 340M GLA LM (``attn_extends='gla'``,
              bf16, seeded init): the same two requests; K12 in every layer of
              the prefill, decode on the token recurrence. Checks the exact
@@ -195,6 +198,7 @@ The last two lines are a JSON object with every kernel's numbers and
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import statistics
@@ -354,8 +358,20 @@ VIDEO_EARLIER_MS = {
     ("radial_flash_attention", "T=31500 21 frames"): (29.1132,),
     ("radial_flash_attention[lse]", "T=31500 21 frames B=1"): (14.9403,),
 }
-# this run's timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K10 and K10b forms
-# beside their earlier kernels' times
+# K12's and K12b's times with their earlier kernels (float32 FMAs on the
+# CUDA cores, the per-chunk products and the chain in separate launches),
+# before the Hopper redesign (TF32 wgmma split to float32 accuracy, TMA, the
+# chain fused with the per-chunk products), by (kernel, shape tag) as this
+# script times them: PERF.md section 6's table (NVIDIA H100 80GB HBM3,
+# 700.00 W).
+GLA_EARLIER_MS = {
+    ("gla_chunk_fwd", "8x2048x4|256 f32"): (1.2342,),
+    ("gla_chunk_bwd", "8x2048x4|256 f32"): (3.2470,),
+    ("gla_chunk_fwd[1x32768x8|128 bf16]", "1x32768x8|128 bf16"): (2.8278,),
+    ("gla_chunk_bwd[1x32768x8|128 bf16]", "1x32768x8|128 bf16"): (7.7407,),
+}
+# this run's timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K10, K10b, K12 and K12b
+# forms beside their bounds and library calls
 REDESIGN_TIMES = {}
 # the tiles each timed or small K10 call walked beside its lists' length
 K10_WALKS = {}
@@ -671,22 +687,23 @@ def check_kernel(results: dict, name: str, shape_tag: str, kern, plain, timed: b
         msg += f"  host {r['host_us']:.1f} us/call  device {r['device_ms']:.4f} ms/call"
     log(msg)
     if timed and (name.startswith("flash_attention") or (name, shape_tag) in CHUNK_MMA_SYNC_MS
-                  or (name, shape_tag) in VIDEO_EARLIER_MS):
+                  or (name, shape_tag) in VIDEO_EARLIER_MS or (name, shape_tag) in GLA_EARLIER_MS):
         log_redesign_time(name, shape_tag, r)
 
 
 def log_redesign_time(name: str, shape_tag: str, r: dict) -> None:
-    """Keep and print a timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K10 or K10b form
-    beside its time with the earlier kernels, its bound and the library
-    call's time, with the ratios."""
+    """Keep a timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K10, K10b, K12 or K12b
+    form's time in this run beside its bound and the library call's time,
+    and print them with its time with the earlier kernels, with the ratios.
+    The earlier times are printed only: they were not measured in this run."""
     key = (name, shape_tag)
     before = ((FLASH_MMA_SYNC_MS.get(key),) if name.startswith("flash_attention")
-              else CHUNK_MMA_SYNC_MS.get(key) or VIDEO_EARLIER_MS.get(key, ()))
+              else CHUNK_MMA_SYNC_MS.get(key) or VIDEO_EARLIER_MS.get(key)
+              or GLA_EARLIER_MS.get(key, ()))
     before = tuple(x for x in before if x)
     lib = r["library_ms"]
     REDESIGN_TIMES[f"{name} {shape_tag}"] = {
-        "ms": r["ms"], "earlier_ms": list(before), "bound_ms": r["bound_ms"], "library_ms": lib,
-        "earlier_over_ms": [x / r["ms"] for x in before],
+        "ms": r["ms"], "bound_ms": r["bound_ms"], "library_ms": lib,
         "bound_over_ms": r["bound_ms"] / r["ms"], "ms_over_library": r["ms"] / lib if lib else None}
     msg = f"[vs earlier kernels] {name} {shape_tag}: {r['ms']:.4f} ms"
     msg += ("; earlier kernels " + " / ".join(f"{x:.4f}" for x in before) + " ms (" +
@@ -2358,12 +2375,12 @@ GLA_BENCH = (1, 32768, 8, 128, 128)  # benchmarks/gla_bench.py's default (B, T, 
 
 
 def gla_kernel_inputs(dev: torch.device, b: int, t: int, h: int, dv: int, dtype,
-                      seed: int = SEED):
+                      seed: int = SEED, chunk: int = BASE_CHUNK):
     """K12 / K12b's inputs as ``gla_chunk_fused`` makes them from layer-like
     raw inputs: relu q, k (the LM's feature map) and v in ``dtype``, the
     decay logsigmoid(x) / 16 (per key channel), a nonzero initial state; then
-    qd, kd, v in the compute dtype and e^{G_last}, padded to whole chunks;
-    and the cotangents dO (zero on the ragged tail) and dS."""
+    qd, kd, v in the compute dtype and e^{G_last}, padded to whole chunks of
+    ``chunk``; and the cotangents dO (zero on the ragged tail) and dS."""
     from mhla_tpu_torch.kernels import gla_chunk as gc
 
     gen = torch.Generator(dev).manual_seed(seed)
@@ -2371,7 +2388,7 @@ def gla_kernel_inputs(dev: torch.device, b: int, t: int, h: int, dv: int, dtype,
     q, k = torch.relu(randn(b, t, h, BASE_DK)), torch.relu(randn(b, t, h, BASE_DK))
     v = randn(b, t, h, dv)
     gk = torch.nn.functional.logsigmoid(randn(b, t, h, BASE_DK)) / 16
-    qd, kd, v4, egl, _ = gc._prep(q.to(dtype), k.to(dtype), v.to(dtype), gk, BASE_CHUNK)
+    qd, kd, v4, egl, _ = gc._prep(q.to(dtype), k.to(dtype), v.to(dtype), gk, chunk)
     s0 = 0.1 * randn(b, h, BASE_DK, dv)
     do = randn(*v4.shape)
     do[:, t:] = 0
@@ -2380,12 +2397,14 @@ def gla_kernel_inputs(dev: torch.device, b: int, t: int, h: int, dv: int, dtype,
 
 
 def gla_work(b: int, n: int, h: int, dv: int, dtype, backward: bool):
-    """(bytes, operations, dtype) of K12 (training form: the entry states
+    """(bytes, operations, "tf32") of K12 (training form: the entry states
     are an output) or K12b over B x N chunks of C tokens: every input read
     once and every output written once; the products over the kept (causal)
     pairs of each chunk and the state products (forward: q k^T and its
     product with v, qd S and kc^T v; backward: q k^T, dO v^T, the three
-    intra products, qd^T dO and the three products with the states)."""
+    intra products, qd^T dO and the three products with the states), at the
+    tensor cores' TF32 peak: three products each for float32 accuracy, one
+    in bf16, whose operands TF32 holds exactly (K6's restated bound)."""
     c, dk = BASE_CHUNK, BASE_DK
     e = torch.tensor([], dtype=dtype).element_size()
     tok = b * n * c * h
@@ -2400,7 +2419,7 @@ def gla_work(b: int, n: int, h: int, dv: int, dtype, backward: bool):
         moved = (tok * (2 * dk + 2 * dv) * e + egl + states + state
                  + tok * (2 * dk + dv) * 4 + egl + state)
         ops = 2 * pairs * (3 * dk + 2 * dv) + 8 * c * dk * dv
-    return moved, b * n * h * ops, dtype
+    return moved, (3 if dtype == torch.float32 else 1) * b * n * h * ops, "tf32"
 
 
 def gla_op_grads(dev: torch.device, b: int, t: int, dtype, kernels_path: bool):
@@ -2469,6 +2488,26 @@ def phase_kernels_gla(dev: torch.device) -> dict:
         log(f"[kernels gla] gla_chunk_bwd {tag}: two runs bit for bit equal")
         del first, second, states, qd, kd, v4, egl, s0, do, ds
         torch.cuda.empty_cache()
+    # the other forms the kernels hold, untimed: chunks of 16 to 64, Dv of one
+    # to four 64-column panels, a ragged last chunk, both dtypes
+    forms, n_forms = {}, 0
+    for c2, dv2, dtype in itertools.product((16, 32, 48, 64), (64, 128, 256), (f32, bf16)):
+        tag = f"2x300x2|{dv2} C={c2} {'f32' if dtype == f32 else 'bf16'}"
+        tol = GLA_TOL if dtype == f32 else KERNEL_TOL
+        qd, kd, v4, egl, s0, do, ds = gla_kernel_inputs(dev, 2, 300, 2, dv2, dtype, chunk=c2)
+        check_kernel(forms, "gla_chunk_fwd", tag,
+                     lambda: gc.gla_chunk_fwd(qd, kd, v4, egl, s0, c2, True),
+                     lambda: gc.gla_chunk_fwd_plain(qd, kd, v4, egl, s0, c2, True), False, tol=tol)
+        states = gc.gla_chunk_fwd_plain(qd, kd, v4, egl, s0, c2, True)[2]
+        bwd = lambda: gc.gla_chunk_bwd(qd, kd, v4, egl, states, do, ds, c2)  # noqa: E731
+        check_kernel(forms, "gla_chunk_bwd", tag, bwd,
+                     lambda: gc.gla_chunk_bwd_plain(qd, kd, v4, egl, states, do, ds, c2), False,
+                     tol=tol)
+        if not all(torch.equal(x, y) for x, y in zip(bwd(), bwd())):
+            raise AssertionError(f"gla_chunk_bwd {tag}: two runs differ")
+        n_forms += 1
+    log(f"[kernels gla] {n_forms} further forms (C 16-64, Dv 64-256, 2 x 300 tokens, both "
+        f"dtypes) within tolerance; K12b bit-equal over two runs in each")
     names = ("q", "k", "v", "gk", "s0")
     for b, t in ((TRAIN_BATCH, TRAIN_SEQ), (1, 781)):
         for dtype, tol in ((f32, GLA_TOL), (bf16, OP_GRAD_TOL)):

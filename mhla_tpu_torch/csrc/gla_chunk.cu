@@ -3,41 +3,43 @@
 // Replaces _gla_fwd_kernel (mhla_tpu/kernels/gla_chunk_pallas.py:85), called
 // through _gla_fused_fwd_impl (:331-373). Per chunk of C tokens and per head,
 // with G the within-chunk inclusive cumsum of the per-key-channel log decay,
-// qd = q e^G scale, kd = k e^-G and v in the compute dtype T (float or bf16),
-// e^{G_last} float32 and S the chunk-entry state [Dk, Dv] float32:
+// qd = q e^G scale, kd = k e^-G and v (values of the compute dtype T, bf16
+// or float32, handed over as float32), e^{G_last} float32 and S the
+// chunk-entry state [Dk, Dv] float32:
 //
 //   kc = T(kd e^{G_last});   u = kc^T v
 //   o  = T(mask(qd kd^T)) v + qd T(S)          mask: j <= i
 //   S' = e^{G_last} S + u                      (row d decays by e^{G_last, d})
 //
-// The TPU kernel walks (batch, supertile) in order, the state in VMEM, and
-// splits each supertile into three stages so that no product sits on the
-// chain (:26-31). Here the three stages are three launches over all chunks:
+// Two launches, every product on the TF32 tensor cores (gla_common.cuh: split
+// hi / lo to float32 accuracy in the float32 form, one exact product in bf16):
 //
-// 1. chunk_outer_kernel (gla_common.cuh), grid (B*N, H, Dv/64): u = kc^T v
-//    for every chunk, into `states` [B, N, H, Dk, Dv] float32.
-// 2. chain_kernel (gla_common.cuh): one thread per state entry (B*H*Dk*Dv
-//    threads, 1M at [8, 2048, 4, 128|256], 131K at [1, 32768, 8, 128|128])
-//    walks the N chunks, replacing u[n] by the entry state of chunk n and
-//    leaving the final state. The chain is elementwise: the per-channel decay
-//    scales rows, so the sequential part moves bytes and does no product.
-// 3. readout_kernel below, grid (B*N, H): per (chunk, head) the masked
-//    scores once, then o 32 columns of Dv at a time. 1,024 blocks at
-//    [8, 2048, 4, 128|256], 4,096 at [1, 32768, 8, 128|128], 52 at 1 x 781.
+// 1. gla_state_kernel (gla_common.cuh), forward: one block per (batch row,
+//    head, 64-column Dv panel) walks the chunks with its part of the state in
+//    registers, computes each chunk's kc^T v there and writes each
+//    chunk-entry state once, and the final state. The per-chunk products u
+//    never reach device memory. 128 blocks at [8, 2048, 4, 128|256].
+// 2. gla_readout_kernel below: one block (one warpgroup) per (chunk, head).
+//    The TPU kernel's readout is o = T(s) v + qd T(S) with s the masked
+//    scores; TF32 wgmma takes K-major operands only, so the block computes
+//    o^T = v^T T(s)^T + T(S)^T qd^T, whose B operands are qd as loaded (read
+//    along Dk) and the scores, which it writes itself: s^T = kd qd^T first (A
+//    = kd from registers), masked, rounded and stored as s [i][j] (hi and
+//    lo). Per 64-column Dv panel, A = v^T and T(S)^T come from registers,
+//    read across the TMA-loaded v and S panels, which stream through two
+//    buffers (the next panel's loads overlap this panel's products); kd's
+//    tile lives in the second buffer until the scores are done.
+//    1,024 blocks at [8, 2048, 4, 128|256], 4,096 at [1, 32768, 8, 128|128].
 //
 // The entry states stay in `states` for the backward (float32, every chunk's:
 // 134 MB a layer at [8, 2048, 4, 128|256]; the TPU kernel saves only the
 // supertile-entry states and replays the chain, :38-41).
 //
 // Bound at [8, 2048, 4, 128|256], float32 (the layer's form; chip_smoke.py
-// gla_work): 10.2 GFLOP (q k^T and its product with v over the C(C+1)/2 kept
-// pairs, qd S and kc^T v at 2 C Dk Dv each, per chunk and head), 0.153 ms at
-// 67 TFLOP/s; 0.34 GB with the entry states, 0.10 ms at 3.35 TB/s: operations.
-// Every product runs in float32 FMAs from shared memory with a register tile
-// of 2x4 to 4x8 a thread, in both dtypes (for bf16 too, where the tensor
-// cores would be the tool: a later step). What this version does not do:
-// tensor cores, vector loads, overlap of loads and products, or keeping u and
-// the states out of device memory.
+// gla_work): 0.34 GB with the entry states, 0.10 ms at 3.35 TB/s; 10.2 GFLOP,
+// three TF32 products each for float32 accuracy, 0.062 ms at 495 TFLOP/s:
+// bytes. (On float32 FMAs outside the tensor cores the same work was 0.153
+// ms at 67 TFLOP/s, the bound of the kernel this one replaced.)
 
 #include "gla_common.cuh"
 
@@ -45,103 +47,172 @@ using namespace gla;
 
 namespace {
 
-constexpr size_t kReadoutSmem =
-    (size_t)(2 * kMaxC * kLdK      // qd, kd
-             + kMaxC * kLdC        // T(masked scores)
-             + kMaxC * kLdT        // v, one tile
-             + kDk * kLdT)         // the entry state, one tile
-    * sizeof(float);
+template <int kC>
+struct ReadGeom {
+  static constexpr int kTok = tile_bytes(kC, kDk);       // qd or kd: [C][128]
+  static constexpr int kSq = tile_bytes(kC, kC);         // s: [C][C]
+  static constexpr int kV = tile_bytes(kC, kPanel);      // v panel: [C][64]
+  static constexpr int kS = tile_bytes(kDk, kPanel);     // S panel: [128][64]
+  static constexpr int kBuf = kV + kS;
+  static_assert(kTok <= kBuf, "kd's tile fits a panel buffer");
+  static constexpr int kSmem = 2 * kTok + 2 * kSq + 2 * kBuf + 64 + 1024;
+  static_assert(kSmem <= kSmemLimit, "one block's shared memory");
+};
 
-// Stage 3. grid (B*N, H). qd, kd: [B, N*C, H, Dk] T; v, o: [B, N*C, H, Dv] T;
-// states: [B, N, H, Dk, Dv] float32 (the chunk-entry states).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-readout_kernel(const T* __restrict__ qd, const T* __restrict__ kd, const T* __restrict__ v,
-               const float* __restrict__ states, T* __restrict__ o, int C, int H, int Dv) {
-  extern __shared__ float smem[];
-  float* qs = smem;               // [C][kLdK]
-  float* ks = qs + kMaxC * kLdK;  // [C][kLdK]
-  float* sc = ks + kMaxC * kLdK;  // [C][kLdC]
-  float* vt = sc + kMaxC * kLdC;  // [C][kLdT]
-  float* zt = vt + kMaxC * kLdT;  // [Dk][kLdT]
+// K12's readout. grid B * N * H, 128 threads. maps: [B, T, H, Dk] (qd, kd),
+// [B, T, H, Dv] (v), float32, boxes of 32 columns by C tokens; map_s: the
+// entry states [B * N * H * Dk, Dv] float32, boxes of 32 columns by 128 rows;
+// o: [B, T, H, Dv] in OutT.
+template <bool kBf16, int kC, typename OutT>
+__global__ void __launch_bounds__(128)
+gla_readout_kernel(const __grid_constant__ CUtensorMap map_qd,
+                   const __grid_constant__ CUtensorMap map_kd,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_s, OutT* __restrict__ o, int N,
+                   int H, int Dv) {
+  typedef ReadGeom<kC> G;
+  constexpr bool kSplit = !kBf16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* qd_hi = reinterpret_cast<float*>(smem);
+  float* qd_lo = reinterpret_cast<float*>(smem + G::kTok);
+  float* s_hi = reinterpret_cast<float*>(smem + 2 * G::kTok);
+  float* s_lo = reinterpret_cast<float*>(smem + 2 * G::kTok + G::kSq);
+  unsigned char* bufs = smem + 2 * G::kTok + 2 * G::kSq;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bufs + 2 * G::kBuf);  // qd / kd, buffer 0, 1
+  float* kd = reinterpret_cast<float*>(bufs + G::kBuf);
 
-  const int64_t bn = blockIdx.x;
-  const int h = blockIdx.y;
-  const int64_t ldk = (int64_t)H * kDk, ldv = (int64_t)H * Dv;
-  const int64_t row_k = (bn * C * H + h) * kDk, row_v = (bn * C * H + h) * Dv;
-  load_tile<false>(qs, kLdK, qd + row_k, ldk, C, kDk);
-  load_tile<false>(ks, kLdK, kd + row_k, ldk, C, kDk);
+  const int item = blockIdx.x;
+  const int h = item % H, bn = item / H, n = bn % N, b = bn / N;
+  const int t0 = n * kC, panels = Dv / kPanel;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  auto issue_panel = [&](int p) {
+    unsigned char* buf = bufs + (p & 1) * G::kBuf;
+    mbar_arrive_expect_tx(&bars[1 + (p & 1)], G::kBuf);
+    load_tokens<kPanel, kC>(buf, &map_v, &bars[1 + (p & 1)], p * kPanel, t0, h, b);
+    load_rows<kPanel, kDk>(buf + G::kV, &map_s, &bars[1 + (p & 1)], p * kPanel, item * kDk);
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bars[0], 2 * G::kTok);
+    load_tokens<kDk, kC>(qd_hi, &map_qd, &bars[0], 0, t0, h, b);
+    load_tokens<kDk, kC>(kd, &map_kd, &bars[0], 0, t0, h, b);
+    issue_panel(0);
+  }
+  mbar_wait(&bars[0], 0);
+  if constexpr (kSplit) split_tile(qd_hi, qd_lo, G::kTok, tid, 128);
+  fence_async_shared();
   __syncthreads();
 
-  // T(mask(qd kd^T)); a thread owns 4 x 4 scores
+  // s^T [j][i] = kd qd^T (rows j past C zero), then T(mask(s)) into s [i][j]
   {
-    const int i0 = (threadIdx.x / 16) * 4, j0 = (threadIdx.x % 16) * 4;
-    if (i0 < C && j0 < C) {
-      float acc[4][4];
-      zero(acc);
-      if (j0 <= i0 + 3) mm<float, float>(acc, qs, kLdK, 1, ks, 1, kLdK, i0, j0, kDk);
+    float acc[kC / 8][4];
+    mma<kSplit, kDk / 8, kC>(
+        acc, [&](int, int m, int k) { return m < kC ? tile_at<kC>(kd, m, k) : 0.f; },
+        desc_kmajor(qd_hi, 0), desc_kmajor(qd_lo, 0), false);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kC / 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          sc[(i0 + i) * kLdC + j0 + j] = j0 + j <= i0 + i ? rnd<T>(acc[i][j]) : 0.f;
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int j = acc_row(e), ii = acc_col(i, e);
+        if (j < kC) put_b<kC, kSplit>(s_hi, s_lo, ii, j, j <= ii ? rnd<kBf16>(acc[i][e]) : 0.f);
+      }
   }
+  fence_async_shared();
+  __syncthreads();  // s written; kd read: buffer 1 is free
+  if (tid == 0 && panels > 1) issue_panel(1);
 
-  // o = T(scores) v + qd T(S), kTile columns at a time; a thread owns 2 x 4
-  const float* sg = states + (bn * H + h) * kDk * (int64_t)Dv;
-  const int r0 = (threadIdx.x / 8) * 2, c0 = (threadIdx.x % 8) * 4;
-  for (int col0 = 0; col0 < Dv; col0 += kTile) {
-    load_tile<false>(vt, kLdT, v + row_v + col0, ldv, C, kTile);
-    load_tile<false>(zt, kLdT, sg + col0, Dv, kDk, kTile);
-    __syncthreads();
-    if (r0 < C) {
-      float intra[2][4], far[2][4];
-      zero(intra);
-      zero(far);
-      mm<float, float>(intra, sc, kLdC, 1, vt, kLdT, 1, r0, c0, C);
-      mm<float, T>(far, qs, kLdK, 1, zt, kLdT, 1, r0, c0, kDk);
-      T* oc = o + row_v + col0;
+  const uint64_t sh = desc_kmajor(s_hi, 0), sl = desc_kmajor(s_lo, 0);
+  const uint64_t qh = desc_kmajor(qd_hi, 0), ql = desc_kmajor(qd_lo, 0);
+  const int64_t ldo = (int64_t)H * Dv;
+  OutT* ob = o + ((int64_t)b * N * kC + t0) * ldo + (int64_t)h * Dv;
+  for (int p = 0; p < panels; ++p) {
+    mbar_wait(&bars[1 + (p & 1)], (p >> 1) & 1);
+    const float* vt = reinterpret_cast<const float*>(bufs + (p & 1) * G::kBuf);
+    const float* st = reinterpret_cast<const float*>(bufs + (p & 1) * G::kBuf + G::kV);
+    // o^T [dv][i] = v^T T(s)^T + T(S)^T qd^T
+    float acc[kC / 8][4];
+    mma<kSplit, kC / 8, kC>(
+        acc, [&](int, int m, int k) { return tile_at<kC>(vt, k, m); }, sh, sl, false);
+    mma<kSplit, kDk / 8, kC>(
+        acc, [&](int, int m, int k) { return rnd<kBf16>(tile_at<kDk>(st, k, m)); }, qh, ql,
+        true);
+    __syncthreads();  // every warp is done with this buffer
+    if (tid == 0 && p + 2 < panels) issue_panel(p + 2);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < kC / 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          oc[(r0 + i) * ldv + c0 + j] = from_f<T>(intra[i][j] + far[i][j]);
-    }
-    __syncthreads();
+      for (int e = 0; e < 4; ++e) {
+        const float x = acc[i][e];
+        OutT* dst = ob + (int64_t)acc_col(i, e) * ldo + p * kPanel + acc_row(e);
+        if constexpr (sizeof(OutT) == 2) *dst = __float2bfloat16(x);
+        else *dst = x;
+      }
   }
 }
 
-template <typename T>
-int gla_fwd(const T* qd, const T* kd, const T* v, const float* egl, const float* s0, T* o,
-            float* s_final, float* states, int B, int N, int C, int H, int Dv,
-            cudaStream_t stream) {
-  int err = outer_and_chain<T>(kd, egl, v, states, egl, s0, s_final, B, N, C, H, Dv, 0, stream);
-  if (err != cudaSuccess) return err;
-  cudaFuncSetAttribute(readout_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kReadoutSmem);
-  readout_kernel<T><<<dim3(B * N, H), kThreads, kReadoutSmem, stream>>>(qd, kd, v, states, o,
-                                                                         C, H, Dv);
+template <bool kBf16, int kC, typename OutT>
+int launch_readout(const float* qd, const float* kd, const float* v, const float* states, OutT* o,
+                   int B, int N, int H, int Dv, cudaStream_t stream) {
+  typedef ReadGeom<kC> G;
+  auto kern = gla_readout_kernel<kBf16, kC, OutT>;
+  int blocks = 0;
+  int err = hopper_host::resident_blocks((const void*)kern, 128, G::kSmem, &blocks);
+  if (err) return err;
+  CUtensorMap map_qd, map_kd, map_v, map_s;
+  const int T = N * kC;
+  err = make_tokens_map(&map_qd, qd, B, T, H, kDk, kC);
+  if (!err) err = make_tokens_map(&map_kd, kd, B, T, H, kDk, kC);
+  if (!err) err = make_tokens_map(&map_v, v, B, T, H, Dv, kC);
+  if (!err) err = hopper_host::make_rows_map(&map_s, states, 0, 1, B * N * H * kDk, Dv, kDk);
+  if (err) return err;
+  kern<<<B * N * H, 128, G::kSmem, stream>>>(map_qd, map_kd, map_v, map_s, o, N, H, Dv);
   return (int)cudaGetLastError();
+}
+
+template <bool kBf16, int kC>
+int gla_fwd(const float* qd, const float* kd, const float* v, const float* egl, const float* s0,
+            void* o, float* s_final, float* states, int B, int N, int H, int Dv,
+            cudaStream_t stream) {
+  int err = launch_state<kBf16, kC, true>(kd, v, egl, s0, states, s_final, B, N, H, Dv, stream);
+  if (err) return err;
+  if constexpr (kBf16)
+    return launch_readout<true, kC, bf16>(qd, kd, v, states, (bf16*)o, B, N, H, Dv, stream);
+  else
+    return launch_readout<false, kC, float>(qd, kd, v, states, (float*)o, B, N, H, Dv, stream);
+}
+
+template <bool kBf16>
+int gla_fwd_c(const float* qd, const float* kd, const float* v, const float* egl,
+              const float* s0, void* o, float* s_final, float* states, int B, int N, int C,
+              int H, int Dv, cudaStream_t stream) {
+  switch (C) {
+    case 16: return gla_fwd<kBf16, 16>(qd, kd, v, egl, s0, o, s_final, states, B, N, H, Dv, stream);
+    case 32: return gla_fwd<kBf16, 32>(qd, kd, v, egl, s0, o, s_final, states, B, N, H, Dv, stream);
+    case 48: return gla_fwd<kBf16, 48>(qd, kd, v, egl, s0, o, s_final, states, B, N, H, Dv, stream);
+    default: return gla_fwd<kBf16, 64>(qd, kd, v, egl, s0, o, s_final, states, B, N, H, Dv, stream);
+  }
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes): the three launches on the given
+// Plain C entry point (loaded with ctypes): the two launches on the given
 // stream, no synchronisation; returns the first launch's cudaError_t. qd, kd:
-// [B, N*C, H, Dk]; v, o: [B, N*C, H, Dv], all float (is_bf16 = 0) or bf16;
-// egl: [B, N, H, Dk], s0, s_final: [B, H, Dk, Dv], states: [B, N, H, Dk, Dv],
-// float32.
+// [B, N*C, H, Dk]; v: [B, N*C, H, Dv]; egl: [B, N, H, Dk]; s0, s_final: [B,
+// H, Dk, Dv]; states: [B, N, H, Dk, Dv]; all float32 (a bf16 call's inputs
+// as float32 copies); o: [B, N*C, H, Dv] in the compute dtype (bf16 where
+// is_bf16, which also picks the bf16 rounding points and the one product).
 extern "C" int mhla_gla_fwd(const void* qd, const void* kd, const void* v, const void* egl,
                             const void* s0, void* o, void* s_final, void* states, int B, int N,
                             int C, int H, int Dk, int Dv, int is_bf16, void* stream) {
   if (!shape_ok(C, Dk, Dv)) return (int)cudaErrorInvalidValue;
-  const float* eg = (const float*)egl;
-  if (is_bf16)
-    return gla_fwd<bf16>((const bf16*)qd, (const bf16*)kd, (const bf16*)v, eg,
-                         (const float*)s0, (bf16*)o, (float*)s_final, (float*)states, B, N, C,
-                         H, Dv, (cudaStream_t)stream);
-  return gla_fwd<float>((const float*)qd, (const float*)kd, (const float*)v, eg,
-                        (const float*)s0, (float*)o, (float*)s_final, (float*)states, B, N, C,
-                        H, Dv, (cudaStream_t)stream);
+  auto f = gla_fwd_c<false>;
+  if (is_bf16) f = gla_fwd_c<true>;
+  return f((const float*)qd, (const float*)kd, (const float*)v, (const float*)egl,
+           (const float*)s0, o, (float*)s_final, (float*)states, B, N, C, H, Dv,
+           (cudaStream_t)stream);
 }

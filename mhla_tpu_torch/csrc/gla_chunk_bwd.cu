@@ -1,9 +1,10 @@
 // K12b: backward of chunked gated linear attention (GLA) for Hopper (sm_90a).
 //
 // Replaces _gla_bwd_kernel (mhla_tpu/kernels/gla_chunk_pallas.py:160), called
-// through _gla_bwd_impl (:376-461). Given K12's inputs (qd, kd, v in T,
-// e^{G_last} float32), its chunk-entry states S_n (float32), the output
-// cotangent dO (T) and the final-state cotangent, it gives, all float32:
+// through _gla_bwd_impl (:376-461). Given K12's inputs (qd, kd, v of the
+// compute dtype T, handed over as float32; e^{G_last} float32), its
+// chunk-entry states S_n (float32), the output cotangent dO (T, as float32)
+// and the final-state cotangent, it gives, all float32:
 //
 //   dS_n  = the cotangent of chunk n's exit state: dS_{N-1} = dS_final,
 //           dS_{n-1} = e^{G_last, n} dS_n + qd_n^T dO_n;  ds0 = the last
@@ -16,27 +17,41 @@
 // The elementwise decay chains (qd = q e^G scale, kd = k e^-G, the cumsum)
 // are differentiated outside, in PyTorch, as JAX does outside its kernel.
 //
-// Three launches, as in K12:
+// Two launches, every product on the TF32 tensor cores (gla_common.cuh):
 //
-// 1. chunk_outer_kernel (gla_common.cuh): qd^T dO for every chunk, into
-//    `exits` [B, N, H, Dk, Dv] float32.
-// 2. chain_kernel (gla_common.cuh), in reverse: one thread per state entry
-//    replaces qd_n^T dO_n by the exit cotangent dS_n and leaves ds0. Only this
-//    chain is sequential; the TPU kernel also replays the forward chain from
-//    its supertile-entry states, which K12 saved whole.
-// 3. grads_kernel below, grid (B*N, H): everything of one (chunk, head). It
-//    walks Dv 32 columns at a time and keeps every sum over Dv (dp, v dS^T,
-//    dO S^T, S * dS) in registers across the steps, in a fixed order; the sums
-//    over C (dkd's decay term, degl's second term) run after the walk, one
-//    thread a column. No atomics and no sum across blocks, so K12b is
+// 1. gla_state_kernel (gla_common.cuh), in reverse: the exit cotangents dS_n
+//    and ds0, with qd^T dO computed per chunk in registers (never written).
+//    Only this chain is sequential; the TPU kernel also replays the forward
+//    chain from its supertile-entry states, which K12 saved whole.
+// 2. gla_grads_kernel below: one block of two warpgroups per (chunk, head).
+//    TF32 wgmma takes K-major operands only, so the products are written as
+//    transposes where that puts a K-major operand on the B side:
+//      s^T   = kd qd^T                  (B: qd)           once, stored T(mask)
+//      dp   += dO v^T                   (B: v panel)      over the Dv panels
+//      dqd^T += T(S) dO^T               (B: dO panel)     over the Dv panels
+//      dkc^T += T(dS) v^T               (B: v panel)      over the Dv panels
+//      dv^T  = dO^T s + dS'^T kc'^T     (B: s^T, kd)      per Dv panel
+//      dqd^T += kd^T dp^T               (B: dp)           after the panels
+//      dkd^T  = qd^T dp + dkc^T e^{G_last}  (B: dp^T)     after the panels
+//    where in the float32 form dS'^T kc'^T = (dS^T e^{G_last}) kd^T (kd's
+//    tile, split, serves as B; the same sum in another float32 order) and in
+//    bf16 = T(dS)^T T(kd e^{G_last})^T exactly as the TPU kernel rounds it.
+//    The warpgroups split dqd^T and dkc^T by Dk rows; warpgroup 0 takes s^T,
+//    dp and sum S * dS, warpgroup 1 dv^T, each product whole (fewer and
+//    wider wgmmas: K6 found one of N = 40 about as long as one of N = 80).
+//    Each 64-column Dv panel comes in by TMA in two groups, v and dO, then S
+//    and dS, each issued once the previous panel's products are done with
+//    its tiles (S and dS during the previous panel's last product); every
+//    sum over Dv (dp, dO S^T, v dS^T, S * dS) stays inside the block and
+//    runs in a fixed order, as do the sums over C (dkd's decay term and
+//    degl's second term, the latter across the four lanes of a row in a
+//    fixed shuffle order). No atomics and no sum across blocks, so K12b is
 //    bit-equal from run to run. 1,024 blocks at [8, 2048, 4, 128|256].
 //
-// Bound at [8, 2048, 4, 128|256], float32 (chip_smoke.py gla_work): 21.0
-// GFLOP (q k^T again, dO v^T and the three intra products over the kept
-// pairs, the four products with the states), 0.313 ms at 67 TFLOP/s; 0.47 GB,
-// 0.14 ms at 3.35 TB/s: operations. Float32 FMAs on the CUDA cores in both
-// dtypes, as in K12, with the same things not done yet. One block per SM (166
-// KB of shared memory, 160-172 registers a thread).
+// Bound at [8, 2048, 4, 128|256], float32 (chip_smoke.py gla_work): 0.47 GB,
+// 0.14 ms at 3.35 TB/s; 21.0 GFLOP, three TF32 products each, 0.127 ms at 495
+// TFLOP/s: bytes. (On float32 FMAs outside the tensor cores the same work
+// was 0.313 ms at 67 TFLOP/s, the bound of the kernel this one replaced.)
 
 #include "gla_common.cuh"
 
@@ -44,184 +59,329 @@ using namespace gla;
 
 namespace {
 
-constexpr size_t kGradsSmem =
-    (size_t)(3 * kMaxC * kLdK      // qd, kd, kc
-             + kMaxC * kLdC        // T(masked scores), then T(masked dp)
-             + 2 * kMaxC * kLdT    // v, dO, one tile each
-             + 2 * kTile * kLdK    // S^T, dS^T, one tile each; then v dS^T [C][kLdK]
-             + kDk)                // e^{G_last}
-    * sizeof(float);
-static_assert(2 * kTile * kLdK >= kMaxC * kLdK, "v dS^T reuses the two state tiles");
+template <int kC>
+struct GradGeom {
+  static constexpr int kTok = tile_bytes(kC, kDk);    // qd or kd: [C][128]
+  static constexpr int kSq = tile_bytes(kC, kC);      // s^T, dp, dp^T: [C][C]
+  static constexpr int kV = tile_bytes(kC, kPanel);   // v or dO panel: [C][64]
+  static constexpr int kS = tile_bytes(kDk, kPanel);  // S or dS panel: [128][64]
+  static constexpr int kPanelBytes = 4 * kV + 2 * kS;  // v, v lo, dO, dO lo, S, dS
+  static_assert(2 * kTok <= kPanelBytes, "qd and its lo fit the panel region");
+  static_assert(kTok + 4 * kSq <= kPanelBytes, "qd, dp and dp^T fit the panel region");
+  // s^T (hi, lo); kd's two tiles; the panel region; egl and degl's partial
+  // sums; mbarriers; alignment
+  static constexpr int kSmem = 2 * kSq + 2 * kTok + kPanelBytes + 2 * kDk * 4 + 64 + 1024;
+  static_assert(kSmem <= kSmemLimit, "one block's shared memory");
+};
 
-// Stage 3. grid (B*N, H). qd, kd: [B, N*C, H, Dk] T; v, dout: [B, N*C, H, Dv]
-// T; egl: [B, N, H, Dk]; states, exits: [B, N, H, Dk, Dv]; dqd, dkd: [B, N*C,
-// H, Dk]; dv: [B, N*C, H, Dv]; degl: [B, N, H, Dk]; float32 but for T.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-grads_kernel(const T* __restrict__ qd, const T* __restrict__ kd, const T* __restrict__ v,
-             const float* __restrict__ egl, const float* __restrict__ states,
-             const float* __restrict__ exits, const T* __restrict__ dout,
-             float* __restrict__ dqd, float* __restrict__ dkd, float* __restrict__ dv,
-             float* __restrict__ degl, int C, int H, int Dv) {
-  extern __shared__ float smem[];
-  float* qs = smem;                // [C][kLdK]
-  float* ks = qs + kMaxC * kLdK;   // [C][kLdK]
-  float* kcs = ks + kMaxC * kLdK;  // [C][kLdK]
-  float* sc = kcs + kMaxC * kLdK;  // [C][kLdC]
-  float* vt = sc + kMaxC * kLdC;   // [C][kLdT]
-  float* dt = vt + kMaxC * kLdT;   // [C][kLdT]
-  float* zt = dt + kMaxC * kLdT;   // [kTile][kLdK]: S^T
-  float* dzt = zt + kTile * kLdK;  // [kTile][kLdK]: dS^T
-  float* eg = dzt + kTile * kLdK;  // [Dk]
+// K12b's gradients. grid B * N * H, 256 threads. maps: [B, T, H, Dk] (qd,
+// kd), [B, T, H, Dv] (v, dO), float32, boxes of 32 columns by C tokens;
+// map_s, map_ds: the entry states and exit cotangents [B * N * H * Dk, Dv]
+// float32, boxes of 32 columns by 128 rows. egl, degl: [B, N, H, Dk]; dqd,
+// dkd: [B, T, H, Dk]; dv: [B, T, H, Dv]; float32.
+template <bool kBf16, int kC>
+__global__ void __launch_bounds__(256, 1)
+gla_grads_kernel(const __grid_constant__ CUtensorMap map_qd,
+                 const __grid_constant__ CUtensorMap map_kd,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_do,
+                 const __grid_constant__ CUtensorMap map_s,
+                 const __grid_constant__ CUtensorMap map_ds, const float* __restrict__ egl,
+                 float* __restrict__ dqd, float* __restrict__ dkd, float* __restrict__ dv,
+                 float* __restrict__ degl, int N, int H, int Dv) {
+  typedef GradGeom<kC> G;
+  constexpr bool kSplit = !kBf16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* st_hi = reinterpret_cast<float*>(smem);  // s^T [j][i]
+  float* st_lo = reinterpret_cast<float*>(smem + G::kSq);
+  // float32: kd split in place (ka) and its lo (kb); bf16: kd (ka) and kc (kb)
+  float* ka = reinterpret_cast<float*>(smem + 2 * G::kSq);
+  float* kb = reinterpret_cast<float*>(smem + 2 * G::kSq + G::kTok);
+  unsigned char* reg = smem + 2 * G::kSq + 2 * G::kTok;  // the panel region
+  float* v_hi = reinterpret_cast<float*>(reg);
+  float* v_lo = reinterpret_cast<float*>(reg + G::kV);
+  float* do_hi = reinterpret_cast<float*>(reg + 2 * G::kV);
+  float* do_lo = reinterpret_cast<float*>(reg + 3 * G::kV);
+  float* s_t = reinterpret_cast<float*>(reg + 4 * G::kV);
+  float* ds_t = reinterpret_cast<float*>(reg + 4 * G::kV + G::kS);
+  float* qd_hi = reinterpret_cast<float*>(reg);  // before and after the panels
+  float* qd_lo = reinterpret_cast<float*>(reg + G::kTok);
+  float* dp_hi = reinterpret_cast<float*>(reg + G::kTok);  // after the panels: dp [i][j]
+  float* dp_lo = reinterpret_cast<float*>(reg + G::kTok + G::kSq);
+  float* dpt_hi = reinterpret_cast<float*>(reg + G::kTok + 2 * G::kSq);  // dp^T [j][i]
+  float* dpt_lo = reinterpret_cast<float*>(reg + G::kTok + 3 * G::kSq);
+  float* eg = reinterpret_cast<float*>(reg + G::kPanelBytes);
+  float* dg_dv = eg + kDk;  // sum_Dv(S * dS)
+  // qd and kd; a panel's v and dO; its S and dS; qd again at the end
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dg_dv + kDk);
 
-  const int tid = threadIdx.x;
-  const int64_t bn = blockIdx.x;
-  const int h = blockIdx.y;
+  const int item = blockIdx.x;
+  const int h = item % H, bn = item / H, n = bn % N, b = bn / N;
+  const int t0 = n * kC, panels = Dv / kPanel;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(&bars[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  // a panel's loads in two groups, each issued as soon as the previous
+  // panel's products are done with its tiles: v and dO (bars[1]), S and dS
+  // (bars[2])
+  auto issue_tokens = [&](int p) {
+    mbar_arrive_expect_tx(&bars[1], 2 * G::kV);
+    load_tokens<kPanel, kC>(v_hi, &map_v, &bars[1], p * kPanel, t0, h, b);
+    load_tokens<kPanel, kC>(do_hi, &map_do, &bars[1], p * kPanel, t0, h, b);
+  };
+  auto issue_states = [&](int p) {
+    mbar_arrive_expect_tx(&bars[2], 2 * G::kS);
+    load_rows<kPanel, kDk>(s_t, &map_s, &bars[2], p * kPanel, item * kDk);
+    load_rows<kPanel, kDk>(ds_t, &map_ds, &bars[2], p * kPanel, item * kDk);
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bars[0], 2 * G::kTok);
+    load_tokens<kDk, kC>(qd_hi, &map_qd, &bars[0], 0, t0, h, b);
+    load_tokens<kDk, kC>(ka, &map_kd, &bars[0], 0, t0, h, b);
+    issue_states(0);  // S and dS of panel 0 land beside qd and its lo
+  }
+  if (tid < kDk) eg[tid] = egl[(int64_t)item * kDk + tid];
+  mbar_wait(&bars[0], 0);
+  if constexpr (kSplit) {
+    split_tile(qd_hi, qd_lo, G::kTok, tid, 256);
+    split_tile(ka, kb, G::kTok, tid, 256);
+  } else {
+    __syncthreads();  // eg is written
+    for (int e = tid; e < kC * kDk; e += 256) {  // kc = T(kd e^{G_last})
+      const int j = e / kDk, d = e % kDk;
+      tile_at<kC>(kb, j, d) = rnd<true>(tile_at<kC>(ka, j, d) * eg[d]);
+    }
+  }
+  fence_async_shared();
+  __syncthreads();
+
+  // kd (j, d) as an A operand: hi + lo (exact) in float32, the bf16 value else
+  auto kd_at = [&](int j, int d) {
+    return kSplit ? tile_at<kC>(ka, j, d) + tile_at<kC>(kb, j, d) : tile_at<kC>(ka, j, d);
+  };
+  const int d_half = wg * 64;  // this warpgroup's first Dk row of dqd^T and dkc^T
+
+  // s^T [j][i] = kd qd^T (warpgroup 0), then T(mask) into s^T's tile
+  if (wg == 0) {
+    float acc[kC / 8][4];
+    mma<kSplit, kDk / 8, kC>(
+        acc, [&](int, int m, int k) { return m < kC ? kd_at(m, k) : 0.f; },
+        desc_kmajor(qd_hi, 0), desc_kmajor(qd_lo, 0), false);
+#pragma unroll
+    for (int i = 0; i < kC / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = acc_row(e), ii = acc_col(i, e);
+        if (j < kC) put_b<kC, kSplit>(st_hi, st_lo, j, ii, j <= ii ? rnd<kBf16>(acc[i][e]) : 0.f);
+      }
+  }
+  fence_async_shared();
+  __syncthreads();  // the panel region is free
+
+  // warpgroup w: dqd^T and dkc^T at Dk rows [64 w, 64 w + 64); warpgroup 0
+  // also dp over the panels and sum_Dv(S * dS), warpgroup 1 dv^T per panel
+  float dq[kC / 8][4], dk[kC / 8][4], pw[kC / 8][4];  // pw: dp (warpgroup 0) or dv^T (1)
+  float dg_part = 0.f;  // sum_Dv(S * dS) at row tid (warpgroup 0)
   const int64_t ldk = (int64_t)H * kDk, ldv = (int64_t)H * Dv;
-  const int64_t row_k = (bn * C * H + h) * kDk, row_v = (bn * C * H + h) * Dv;
-  load_tile<false>(qs, kLdK, qd + row_k, ldk, C, kDk);
-  load_tile<false>(ks, kLdK, kd + row_k, ldk, C, kDk);
-  if (tid < kDk) eg[tid] = egl[(bn * H + h) * kDk + tid];
-  __syncthreads();
-
-  for (int e = tid; e < C * kDk; e += blockDim.x) {
-    const int r = e / kDk, d = e % kDk;
-    kcs[r * kLdK + d] = rnd<T>(ks[r * kLdK + d] * eg[d]);
-  }
-  // T(mask(qd kd^T)); a thread owns 4 x 4 scores
-  const int i0 = (tid / 16) * 4, p0 = (tid % 16) * 4;
-  if (i0 < C && p0 < C) {
-    float acc[4][4];
-    zero(acc);
-    if (p0 <= i0 + 3) mm<float, float>(acc, qs, kLdK, 1, ks, 1, kLdK, i0, p0, kDk);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sc[(i0 + i) * kLdC + p0 + j] = p0 + j <= i0 + i ? rnd<T>(acc[i][j]) : 0.f;
-  }
-
-  // the walk over Dv. Per thread: rows i0..i0+3 x columns d0..d0+7 of v dS^T
-  // and dO S^T, rows i0..i0+3 x columns p0..p0+3 of dO v^T, rows r0..r0+1 x
-  // columns c0..c0+3 of a dv tile, and column tid of sum_Dv(S * dS).
-  const int d0 = (tid % 16) * 8;
-  const int r0 = (tid / 8) * 2, c0 = (tid % 8) * 4;
-  const bool rows = i0 < C;
-  float dkc[4][8], dqs[4][8], dp[4][4];
-  zero(dkc);
-  zero(dqs);
-  zero(dp);
-  float dg = 0.f;
-  const int64_t st = (bn * H + h) * kDk * (int64_t)Dv;
-  for (int col0 = 0; col0 < Dv; col0 += kTile) {
-    load_tile<false>(vt, kLdT, v + row_v + col0, ldv, C, kTile);
-    load_tile<false>(dt, kLdT, dout + row_v + col0, ldv, C, kTile);
-    load_tile<true>(zt, kLdK, states + st + col0, Dv, kDk, kTile);
-    load_tile<true>(dzt, kLdK, exits + st + col0, Dv, kDk, kTile);
+  const int64_t tok0 = (int64_t)b * N * kC + t0;
+  if (tid == 0) issue_tokens(0);
+  for (int p = 0; p < panels; ++p) {
+    mbar_wait(&bars[1], p & 1);
+    if constexpr (kSplit) {
+      split_tile(v_hi, v_lo, G::kV, tid, 256);
+      split_tile(do_hi, do_lo, G::kV, tid, 256);
+    }
+    fence_async_shared();
     __syncthreads();
-    if (r0 < C) {  // dv = T(scores)^T dO + kc T(dS)
-      float intra[2][4], carry[2][4];
-      zero(intra);
-      zero(carry);
-      mm<float, float>(intra, sc, 1, kLdC, dt, kLdT, 1, r0, c0, C);
-      mm<float, T>(carry, kcs, kLdK, 1, dzt, 1, kLdK, r0, c0, kDk);
-      float* dvc = dv + row_v + col0;
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dvc[(r0 + i) * ldv + c0 + j] = intra[i][j] + carry[i][j];
+    auto do_at = [&](int i, int c) {
+      return kSplit ? tile_at<kC>(do_hi, i, c) + tile_at<kC>(do_lo, i, c)
+                    : tile_at<kC>(do_hi, i, c);
+    };
+    if (wg == 0)  // dp [i][j] += dO v^T
+      mma<kSplit, kPanel / 8, kC>(
+          pw, [&](int, int m, int k) { return m < kC ? do_at(m, k) : 0.f; },
+          desc_kmajor(v_hi, 0), desc_kmajor(v_lo, 0), p > 0);
+    mbar_wait(&bars[2], p & 1);
+    if (wg == 0) {  // sum_Dv(S * dS), unrounded, row tid
+#pragma unroll 8
+      for (int c = 0; c < kPanel; ++c)
+        dg_part = fmaf(tile_at<kDk>(s_t, tid, c), tile_at<kDk>(ds_t, tid, c), dg_part);
     }
-    if (rows) {
-      if (p0 < C) mm<float, float>(dp, dt, kLdT, 1, vt, 1, kLdT, i0, p0, kTile);
-      mm<float, T>(dkc, vt, kLdT, 1, dzt, kLdK, 1, i0, d0, kTile);
-      mm<float, T>(dqs, dt, kLdT, 1, zt, kLdK, 1, i0, d0, kTile);
+    // dqd^T [this warpgroup's d][i] += T(S) dO^T
+    mma<kSplit, kPanel / 8, kC>(
+        dq, [&](int, int m, int k) { return rnd<kBf16>(tile_at<kDk>(s_t, d_half + m, k)); },
+        desc_kmajor(do_hi, 0), desc_kmajor(do_lo, 0), p > 0);
+    // dkc^T [d][j] += T(dS) v^T
+    mma<kSplit, kPanel / 8, kC>(
+        dk, [&](int, int m, int k) { return rnd<kBf16>(tile_at<kDk>(ds_t, d_half + m, k)); },
+        desc_kmajor(v_hi, 0), desc_kmajor(v_lo, 0), p > 0);
+    // dv^T [dv][j] = dS'^T kc'^T + dO^T s (warpgroup 1)
+    if (wg == 1) {
+      if constexpr (kSplit)
+        mma<true, kDk / 8, kC>(
+            pw, [&](int, int m, int k) { return tile_at<kDk>(ds_t, k, m) * eg[k]; },
+            desc_kmajor(ka, 0), desc_kmajor(kb, 0), false);
+      else
+        mma<false, kDk / 8, kC>(
+            pw, [&](int, int m, int k) { return rnd<true>(tile_at<kDk>(ds_t, k, m)); },
+            desc_kmajor(kb, 0), desc_kmajor(kb, 0), false);
     }
-    if (tid < kDk)
-      for (int j = 0; j < kTile; ++j) dg = fmaf(zt[j * kLdK + tid], dzt[j * kLdK + tid], dg);
-    __syncthreads();
+    __syncthreads();  // S and dS are read: the next panel's come in meanwhile
+    if (tid == 0 && p + 1 < panels) issue_states(p + 1);
+    if (wg == 1)
+      mma<kSplit, kC / 8, kC>(
+          pw, [&](int, int m, int k) { return do_at(k, m); }, desc_kmajor(st_hi, 0),
+          desc_kmajor(st_lo, 0), true);
+    __syncthreads();  // v and dO are read
+    if (tid == 0 && p + 1 < panels) issue_tokens(p + 1);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < kC / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int j = acc_col(i, e), c = p * kPanel + acc_row(e);
+          dv[(tok0 + j) * ldv + (int64_t)h * Dv + c] = pw[i][e];
+          dv[(tok0 + j + 1) * ldv + (int64_t)h * Dv + c] = pw[i][e + 1];
+        }
+    }
   }
 
-  // T(mask(dp)) over the scores; v dS^T over the state tiles
-  float* dkcs = zt;  // [C][kLdK]
-  if (rows) {
-    if (p0 < C) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          sc[(i0 + i) * kLdC + p0 + j] = p0 + j <= i0 + i ? rnd<T>(dp[i][j]) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dkcs[(i0 + i) * kLdK + d0 + j] = dkc[i][j];
+  // after the panels: qd again, and T(mask(dp)) into dp [i][j] and dp^T [j][i]
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bars[3], G::kTok);
+    load_tokens<kDk, kC>(qd_hi, &map_qd, &bars[3], 0, t0, h, b);
   }
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < kC / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ii = acc_row(e), j = acc_col(i, e);
+        if (ii < kC) {
+          const float x = j <= ii ? rnd<kBf16>(pw[i][e]) : 0.f;
+          put_b<kC, kSplit>(dp_hi, dp_lo, ii, j, x);
+          put_b<kC, kSplit>(dpt_hi, dpt_lo, j, ii, x);
+        }
+      }
+    dg_dv[tid] = dg_part;
+  }
+  fence_async_shared();
   __syncthreads();
+  mbar_wait(&bars[3], 0);
 
-  if (rows) {  // dqd = dp kd + dO T(S)^T;  dkd = dp^T qd + (v T(dS)^T) e^{G_last}
-    float acc[4][8];
-    zero(acc);
-    mm<float, float>(acc, sc, kLdC, 1, ks, kLdK, 1, i0, d0, C);
-    float* out = dqd + row_k;
+  // dqd^T [d][i] += kd^T dp^T
+  mma<kSplit, kC / 8, kC>(
+      dq, [&](int, int m, int k) { return kd_at(k, d_half + m); }, desc_kmajor(dp_hi, 0),
+      desc_kmajor(dp_lo, 0), true);
+  // dkd^T [d][j] = qd^T dp, plus dkc^T e^{G_last}
+  float dkd_t[kC / 8][4];
+  mma<kSplit, kC / 8, kC>(
+      dkd_t, [&](int, int m, int k) { return tile_at<kC>(qd_hi, k, d_half + m); },
+      desc_kmajor(dpt_hi, 0), desc_kmajor(dpt_lo, 0), false);
+
+  float* dqb = dqd + tok0 * ldk + (int64_t)h * kDk;
+  float* dkb = dkd + tok0 * ldk + (int64_t)h * kDk;
+  float dg_c[2] = {0.f, 0.f};  // sum_C(dkc * kd) over this lane's columns, rows e = 0, 2
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kC / 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) out[(i0 + i) * ldk + d0 + j] = acc[i][j] + dqs[i][j];
-    zero(acc);
-    mm<float, float>(acc, sc, 1, kLdC, qs, kLdK, 1, i0, d0, C);
-    out = dkd + row_k;
+    for (int e = 0; e < 4; ++e) {
+      const int d = d_half + acc_row(e), c = acc_col(i, e);
+      if (c < kC) {
+        dqb[c * ldk + d] = dq[i][e];
+        dkb[c * ldk + d] = dkd_t[i][e] + dk[i][e] * eg[d];
+        dg_c[e >> 1] = fmaf(dk[i][e], kd_at(c, d), dg_c[e >> 1]);
+      }
+    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        out[(i0 + i) * ldk + d0 + j] = acc[i][j] + dkc[i][j] * eg[d0 + j];
+  for (int r = 0; r < 2; ++r) {  // across the four lanes of a row, in a fixed order
+    dg_c[r] += __shfl_xor_sync(0xffffffffu, dg_c[r], 1);
+    dg_c[r] += __shfl_xor_sync(0xffffffffu, dg_c[r], 2);
   }
-  if (tid < kDk) {  // degl = sum_Dv(S * dS) + sum_C((v T(dS)^T) * kd)
-    float s = 0.f;
-    for (int c = 0; c < C; ++c) s = fmaf(dkcs[c * kLdK + tid], ks[c * kLdK + tid], s);
-    degl[(bn * H + h) * kDk + tid] = dg + s;
-  }
+  if ((tid & 3) == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int d = d_half + acc_row(2 * r);
+      degl[(int64_t)item * kDk + d] = dg_dv[d] + dg_c[r];
+    }
 }
 
-template <typename T>
-int gla_bwd(const T* qd, const T* kd, const T* v, const float* egl, const float* states,
-            const T* dout, const float* ds_final, float* exits, float* dqd, float* dkd,
-            float* dv, float* degl, float* ds0, int B, int N, int C, int H, int Dv,
-            cudaStream_t stream) {
-  int err = outer_and_chain<T>(qd, nullptr, dout, exits, egl, ds_final, ds0, B, N, C, H, Dv, 1,
-                               stream);
-  if (err != cudaSuccess) return err;
-  cudaFuncSetAttribute(grads_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kGradsSmem);
-  grads_kernel<T><<<dim3(B * N, H), kThreads, kGradsSmem, stream>>>(
-      qd, kd, v, egl, states, exits, dout, dqd, dkd, dv, degl, C, H, Dv);
+template <bool kBf16, int kC>
+int launch_grads(const float* qd, const float* kd, const float* v, const float* egl,
+                 const float* states, const float* dout, const float* exits, float* dqd,
+                 float* dkd, float* dv, float* degl, int B, int N, int H, int Dv,
+                 cudaStream_t stream) {
+  typedef GradGeom<kC> G;
+  auto kern = gla_grads_kernel<kBf16, kC>;
+  int blocks = 0;
+  int err = hopper_host::resident_blocks((const void*)kern, 256, G::kSmem, &blocks);
+  if (err) return err;
+  CUtensorMap map_qd, map_kd, map_v, map_do, map_s, map_ds;
+  const int T = N * kC;
+  err = make_tokens_map(&map_qd, qd, B, T, H, kDk, kC);
+  if (!err) err = make_tokens_map(&map_kd, kd, B, T, H, kDk, kC);
+  if (!err) err = make_tokens_map(&map_v, v, B, T, H, Dv, kC);
+  if (!err) err = make_tokens_map(&map_do, dout, B, T, H, Dv, kC);
+  if (!err) err = hopper_host::make_rows_map(&map_s, states, 0, 1, B * N * H * kDk, Dv, kDk);
+  if (!err) err = hopper_host::make_rows_map(&map_ds, exits, 0, 1, B * N * H * kDk, Dv, kDk);
+  if (err) return err;
+  kern<<<B * N * H, 256, G::kSmem, stream>>>(map_qd, map_kd, map_v, map_do, map_s, map_ds, egl,
+                                             dqd, dkd, dv, degl, N, H, Dv);
   return (int)cudaGetLastError();
+}
+
+template <bool kBf16, int kC>
+int gla_bwd(const float* qd, const float* kd, const float* v, const float* egl,
+            const float* states, const float* dout, const float* ds_final, float* exits,
+            float* dqd, float* dkd, float* dv, float* degl, float* ds0, int B, int N, int H,
+            int Dv, cudaStream_t stream) {
+  int err = launch_state<kBf16, kC, false>(qd, dout, egl, ds_final, exits, ds0, B, N, H, Dv,
+                                           stream);
+  if (err) return err;
+  return launch_grads<kBf16, kC>(qd, kd, v, egl, states, dout, exits, dqd, dkd, dv, degl, B, N,
+                                 H, Dv, stream);
+}
+
+template <bool kBf16>
+int gla_bwd_c(const float* qd, const float* kd, const float* v, const float* egl,
+              const float* states, const float* dout, const float* ds_final, float* exits,
+              float* dqd, float* dkd, float* dv, float* degl, float* ds0, int B, int N, int C,
+              int H, int Dv, cudaStream_t stream) {
+#define GLA_BWD(c)                                                                            \
+  gla_bwd<kBf16, c>(qd, kd, v, egl, states, dout, ds_final, exits, dqd, dkd, dv, degl, ds0, B, \
+                    N, H, Dv, stream)
+  switch (C) {
+    case 16: return GLA_BWD(16);
+    case 32: return GLA_BWD(32);
+    case 48: return GLA_BWD(48);
+    default: return GLA_BWD(64);
+  }
+#undef GLA_BWD
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes): the three launches on the given
+// Plain C entry point (loaded with ctypes): the two launches on the given
 // stream, no synchronisation; returns the first launch's cudaError_t. qd, kd:
-// [B, N*C, H, Dk]; v, dout: [B, N*C, H, Dv], float (is_bf16 = 0) or bf16;
-// egl, degl: [B, N, H, Dk]; states, exits (scratch): [B, N, H, Dk, Dv];
-// ds_final, ds0: [B, H, Dk, Dv]; dqd, dkd: [B, N*C, H, Dk]; dv: [B, N*C, H,
-// Dv]; float32.
+// [B, N*C, H, Dk]; v, dout: [B, N*C, H, Dv] (a bf16 call's values as
+// float32 copies; is_bf16 picks the bf16 rounding points and the one
+// product); egl, degl: [B, N, H, Dk]; states, exits (scratch): [B, N, H, Dk,
+// Dv]; ds_final, ds0: [B, H, Dk, Dv]; dqd, dkd: [B, N*C, H, Dk]; dv: [B, N*C,
+// H, Dv]; float32.
 extern "C" int mhla_gla_bwd(const void* qd, const void* kd, const void* v, const void* egl,
                             const void* states, const void* dout, const void* ds_final,
                             void* exits, void* dqd, void* dkd, void* dv, void* degl, void* ds0,
                             int B, int N, int C, int H, int Dk, int Dv, int is_bf16,
                             void* stream) {
   if (!shape_ok(C, Dk, Dv)) return (int)cudaErrorInvalidValue;
-  const float* eg = (const float*)egl;
-  const float* sts = (const float*)states;
-  const float* dsf = (const float*)ds_final;
-  if (is_bf16)
-    return gla_bwd<bf16>((const bf16*)qd, (const bf16*)kd, (const bf16*)v, eg, sts,
-                         (const bf16*)dout, dsf, (float*)exits, (float*)dqd, (float*)dkd,
-                         (float*)dv, (float*)degl, (float*)ds0, B, N, C, H, Dv,
-                         (cudaStream_t)stream);
-  return gla_bwd<float>((const float*)qd, (const float*)kd, (const float*)v, eg, sts,
-                        (const float*)dout, dsf, (float*)exits, (float*)dqd, (float*)dkd,
-                        (float*)dv, (float*)degl, (float*)ds0, B, N, C, H, Dv,
-                        (cudaStream_t)stream);
+  auto f = gla_bwd_c<false>;
+  if (is_bf16) f = gla_bwd_c<true>;
+  return f((const float*)qd, (const float*)kd, (const float*)v, (const float*)egl,
+           (const float*)states, (const float*)dout, (const float*)ds_final, (float*)exits,
+           (float*)dqd, (float*)dkd, (float*)dv, (float*)degl, (float*)ds0, B, N, C, H, Dv,
+           (cudaStream_t)stream);
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
 // (flash_fwd.cu, flash_bwd.cu), K2 and K4 (mhla_chunk.cu), K2b and K4b
-// (mhla_chunk_bwd.cu), K3 / K3b (mhla_mix_wide.cu) and K6 (mhla_block.cu):
+// (mhla_chunk_bwd.cu), K3 / K3b (mhla_mix_wide.cu), K6 (mhla_block.cu) and
+// K12 / K12b (gla_chunk.cu, gla_chunk_bwd.cu):
 // mbarriers, TMA tile loads through tensor maps (multicast to a cluster's
 // blocks too), wgmma products in bf16 and TF32 with their shared-memory
 // descriptors and fences, named barriers, cluster barriers and setmaxnreg.
@@ -358,7 +359,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32][4], const uint32_t (&a)[
 }
 
 
-// ---- TF32 products (K6)
+// ---- TF32 products (K6, K12, K12b)
 
 // Register strings and accumulator operands (N / 8 tiles of 4) of the TF32
 // products of N = 16 .. 80 below.

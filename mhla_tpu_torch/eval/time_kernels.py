@@ -17,6 +17,14 @@ group a process:
   hybrid_sparse + LoRA, one CFG forward of (d), the full-MHLA sampler, and
   one of (f), the hybrid_sparse sampler, at t = 501, below its dense guard
   (letters i, j, d, f).
+- ``gla``: K12 and K12b (``kernels/gla_chunk.py``) at (q)'s training shape
+  [8, 2048, 4, 128|256] in float32 (the GLA layer's form), K12 at (p)'s
+  prefill of 4 x 1,984 tokens (serving: no entry states kept), both at
+  ``benchmarks/gla_bench.py``'s [1, 32768, 8, 128|128] in bf16, each with
+  its wrapper's host cost a call and the card's time for each of its
+  launches (``torch.profiler``: the state pass, the readout or gradients
+  pass, and the bf16 form's float32 copies); steps the training steps of
+  (q), the GLA LM, and (r), the simple GLA LM (letters q, r).
 
 It imports ``mhla_tpu_torch`` and ``chip_smoke`` from the current directory,
 so the same file times another checkout too, such as a parent tree unpacked
@@ -505,8 +513,77 @@ def video_steps(cs, tag: str) -> dict:
             "d": lambda: time_cfg_forward(tag), "f": lambda: time_sparse_forward(cs, tag)}
 
 
+# --- gla: K12 / K12b --------------------------------------------------------
+
+# (form, B, T, H, Dv, dtype name, backward too, entry states kept)
+GLA_FORMS = [
+    ("(q) [8, 2048, 4, 128|256] float32", 8, 2048, 4, 256, "float32", True, True),
+    ("(p) [4, 1984, 4, 128|256] float32", 4, 1984, 4, 256, "float32", False, False),
+    ("bench [1, 32768, 8, 128|128] bf16", 1, 32768, 8, 128, "bfloat16", True, True),
+]
+
+
+def device_ms_by_kernel(fn, reps: int = 5) -> dict:
+    """The card's time, ms a call, of each CUDA kernel ``fn`` launches, by
+    name (cut to 60 characters), over ``reps`` profiled calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name[:60]] = out.get(e.name[:60], 0.0) + e.device_time / reps / 1e3
+    return out
+
+
+def gla_kernels(cs, tag: str) -> None:
+    import torch
+
+    from mhla_tpu_torch.kernels import gla_chunk as gc
+
+    dev = torch.device("cuda")
+    for form, b, t, h, dv, dtype, bwd, keep in GLA_FORMS:
+        qd, kd, v4, egl, s0, do, ds = cs.gla_kernel_inputs(dev, b, t, h, dv,
+                                                           getattr(torch, dtype))
+        c = cs.BASE_CHUNK
+        fwd = lambda: gc.gla_chunk_fwd(qd, kd, v4, egl, s0, c, keep)  # noqa: E731
+        report(tag, f"K12 {form}", {"ms": median_ms(fwd, 3), "host_us": cs.host_us(fwd, 10, 3),
+                                    "launches_ms": device_ms_by_kernel(fwd)})
+        if bwd:
+            states = gc.gla_chunk_fwd(qd, kd, v4, egl, s0, c, True)[2]
+            back = lambda: gc.gla_chunk_bwd(qd, kd, v4, egl, states, do, ds, c)  # noqa: E731
+            report(tag, f"K12b {form}", {"ms": median_ms(back, 3),
+                                         "host_us": cs.host_us(back, 10, 3),
+                                         "launches_ms": device_ms_by_kernel(back)})
+            del states
+        del qd, kd, v4, egl, s0, do, ds
+        torch.cuda.empty_cache()
+
+
+def gla_steps(cs, tag: str) -> dict:
+    """The training steps of (q), the GLA LM (6 steps, the median of steps
+    2-6), and (r), the simple GLA LM (2 steps, step 2)."""
+    import torch
+
+    dev = torch.device("cuda")
+
+    def phase(name, extends, steps):
+        out = cs.phase_train_baseline(dev, extends, extends, steps=steps)
+        report(tag, f"step ({name})", {"step_ms": out["step_ms"]})
+
+    return {"q": lambda: phase("q", "gla", cs.TRAIN_STEPS),
+            "r": lambda: phase("r", "simple_gla", 2)}
+
+
 GROUPS = {"chunk": (chunk_kernels, chunk_steps), "flash": (flash_kernels, None),
-          "video": (video_kernels, video_steps)}
+          "video": (video_kernels, video_steps), "gla": (gla_kernels, gla_steps)}
 
 
 def main(argv) -> None:

@@ -22,9 +22,16 @@ recomputes the map's derivative from it.
   JAX kernel streams [B, T, Dh] tables gathered by those positions,
   ``fmap_rope_pallas.py:97-128,181-183``), and writes both halves
   back. The tables are indexed in the kernel, so no [T, Dh] signed copy is
-  built per call, and the decode step (T = 1) launches the same kernel
-  (the JAX package falls back to jnp there). Both kernels read strided
-  rows (the q/k column slices of the fused projection) without a copy.
+  built per call. Both kernels read strided rows (the q/k column slices of
+  the fused projection) without a copy. A Dh / 2 that is not a power of two
+  (Dh = 384) runs on the next power of two with the columns past Dh / 2
+  masked.
+- Route: JAX's head-dim term (:func:`kernel_route`, Dh % 128 == 0). Every
+  other head dim takes :func:`fmap_rope_plain` under autograd on any device,
+  as JAX takes ``apply_rotary_flat`` there: that is JAX's route, not a
+  fallback. JAX's other term, T % 8 == 0, sizes its Pallas row blocks; the
+  Triton kernel masks rows, so on the route K1 launches at every T, the
+  decode step (T = 1) included, where the JAX package runs jnp.
 
 Triton is imported, and the kernels compiled, at the first launch on a CUDA
 tensor; a CPU tensor takes :func:`fmap_rope_plain` and
@@ -55,12 +62,12 @@ _kernels = None
 def _fmap_rope_fwd(
     x_ptr, cos_ptr, sin_ptr, o_ptr, pos_ptr,
     n_rows, seq_len, offset, max_row, stride_b, stride_t,
-    ROW: tl.constexpr, DH: tl.constexpr, HALF: tl.constexpr,
+    ROW: tl.constexpr, DH: tl.constexpr, HALF: tl.constexpr, HALF_P2: tl.constexpr,
     FMAP: tl.constexpr, BLOCK_R: tl.constexpr, HAS_POS: tl.constexpr,
 ):
     rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
     head = tl.program_id(1)
-    cols = tl.arange(0, HALF)
+    cols = tl.arange(0, HALF_P2)
     mask = (rows[:, None] < n_rows) & (cols[None, :] < HALF)
     t = rows % seq_len
     rows64 = rows.to(tl.int64)
@@ -92,12 +99,12 @@ def _fmap_rope_fwd(
 def _fmap_rope_bwd(
     dy_ptr, x_ptr, cos_ptr, sin_ptr, dx_ptr, pos_ptr,
     n_rows, seq_len, offset, max_row, dy_stride_b, dy_stride_t, x_stride_b, x_stride_t,
-    ROW: tl.constexpr, DH: tl.constexpr, HALF: tl.constexpr,
+    ROW: tl.constexpr, DH: tl.constexpr, HALF: tl.constexpr, HALF_P2: tl.constexpr,
     FMAP: tl.constexpr, BLOCK_R: tl.constexpr, HAS_POS: tl.constexpr,
 ):
     rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
     head = tl.program_id(1)
-    cols = tl.arange(0, HALF)
+    cols = tl.arange(0, HALF_P2)
     mask = (rows[:, None] < n_rows) & (cols[None, :] < HALF)
     t = rows % seq_len
     rows64 = rows.to(tl.int64)
@@ -202,7 +209,16 @@ def _positions_arg(positions: Optional[torch.Tensor], x: torch.Tensor) -> torch.
     return positions.to(torch.int32).contiguous()
 
 
-def _launch_checks(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, half: int):
+def kernel_route(head_dim: int) -> bool:
+    """JAX's head-dim term (``_use_kernel``, ``fmap_rope_pallas.py:88-94``:
+    Dh % 128 == 0) sends a call to K1 / K1b; every other head dim runs
+    :func:`fmap_rope_plain` as JAX runs ``apply_rotary_flat`` (:174-181).
+    JAX's T % 8 term is left out: it sizes the TPU's row blocks, and the
+    Triton kernel masks rows."""
+    return head_dim % 128 == 0
+
+
+def _launch_checks(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     if x.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
@@ -212,8 +228,6 @@ def _launch_checks(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, half: 
     for name, tab in (("cos", cos), ("sin", sin)):
         if tab.dtype != torch.float32 or not tab.is_contiguous() or tab.device != x.device:
             raise ValueError(f"{name} table must be contiguous float32 on {x.device}")
-    if half & (half - 1):
-        raise ValueError(f"kernel needs a power-of-two Dh/2, got {half}")
 
 
 def _fmap_rope(x, cos, sin, num_heads, feature_map, offset, positions=None) -> torch.Tensor:
@@ -222,7 +236,7 @@ def _fmap_rope(x, cos, sin, num_heads, feature_map, offset, positions=None) -> t
         return fmap_rope_plain(x, cos, sin, num_heads, feature_map, offset, positions)
     b, t, f = x.shape
     dh = f // num_heads
-    _launch_checks(x, cos, sin, dh // 2)
+    _launch_checks(x, cos, sin)
     pos = _positions_arg(positions, x)
     out = torch.empty(b, t, f, dtype=x.dtype, device=x.device)
     if b * t == 0:
@@ -232,7 +246,8 @@ def _fmap_rope(x, cos, sin, num_heads, feature_map, offset, positions=None) -> t
     with torch.cuda.device(x.device):
         kernel[grid](
             x, cos, sin, out, pos, b * t, t, offset, cos.shape[0] - 1, x.stride(0), x.stride(1),
-            ROW=f, DH=dh, HALF=dh // 2, FMAP=_FMAP_CODE[feature_map],
+            ROW=f, DH=dh, HALF=dh // 2, HALF_P2=triton.next_power_of_2(dh // 2),
+            FMAP=_FMAP_CODE[feature_map],
             BLOCK_R=_BLOCK_R, HAS_POS=positions is not None, num_warps=4,
         )
     launches["fmap_rope"] += 1
@@ -258,7 +273,7 @@ def fmap_rope_bwd(
         return fmap_rope_bwd_plain(dy, x, cos, sin, num_heads, feature_map, offset, positions)
     b, t, f = x.shape
     dh = f // num_heads
-    _launch_checks(x, cos, sin, dh // 2)
+    _launch_checks(x, cos, sin)
     pos = _positions_arg(positions, x)
     if dy.device != x.device:
         raise ValueError(f"dy on {dy.device}, x on {x.device}")
@@ -274,7 +289,8 @@ def fmap_rope_bwd(
         kernel[grid](
             dy, x, cos, sin, dx, pos, b * t, t, offset, cos.shape[0] - 1,
             dy.stride(0), dy.stride(1), x.stride(0), x.stride(1),
-            ROW=f, DH=dh, HALF=dh // 2, FMAP=_FMAP_CODE[feature_map],
+            ROW=f, DH=dh, HALF=dh // 2, HALF_P2=triton.next_power_of_2(dh // 2),
+            FMAP=_FMAP_CODE[feature_map],
             BLOCK_R=_BLOCK_R, HAS_POS=positions is not None, num_warps=4,
         )
     launches["fmap_rope_bwd"] += 1
@@ -308,7 +324,8 @@ def fused_fmap_rope_flat(
 ) -> torch.Tensor:
     """``rope(fmap(x))`` on head-flat x [B, T, H*Dh] with the
     [>= T + offset, Dh/2] float32 rotary tables (K1; differentiable in x
-    through K1b).
+    through K1b) where :func:`kernel_route` holds, else through
+    :func:`fmap_rope_plain` under autograd, as JAX routes the call.
 
     ``offset`` is the position of x's first token (the decode position);
     a token past the tables' last row raises ``ValueError``. ``positions``
@@ -328,6 +345,8 @@ def fused_fmap_rope_flat(
             f"positions [{offset}, {offset + t}) exceed the rotary tables' "
             f"{cos.shape[0]} rows (the context bound)"
         )
+    if not kernel_route(2 * half):
+        return fmap_rope_plain(x, cos, sin, num_heads, feature_map, offset, positions)
     if torch.is_grad_enabled() and x.requires_grad:
         return _FmapRope.apply(x, cos, sin, num_heads, feature_map, offset, positions)
     # no gradient (serving): skip the autograd Function's host cost per call

@@ -16,17 +16,23 @@ chunk-entry state [Dk, Dv] float32:
   o  = cdt(mask(qd kd^T)) v + qd cdt(S)       mask: j <= i
   S' = e^{G_last} S + kc^T v                  (row d of S decays by e^{G_last, d})
 
-Both kernels follow the TPU kernel's three-stage split (``:26-31``), which
-keeps every product off the sequential chain: (1) the per-chunk products
-(kc^T v forward, qd^T dO backward) for all chunks in parallel; (2) the
-chain over the chunks, elementwise over the Dk x Dv entries of the state,
-each entry walked by one thread (forward from s0, backward in reverse from
-the final-state cotangent); (3) the per-chunk readout (forward) or
-gradients (backward) for all chunks in parallel, from the chain's entry
-states and exit cotangents. Stage 3 of the backward takes every sum over
-Dv inside one block per (chunk, head), in a fixed order: no atomics, so
-K12b is bit-equal from run to run. Each wrapper is one C call of three
-launches and adds one to its count.
+The TPU kernel splits each supertile into three stages so that no product
+sits on the chain (``:26-31``): the per-chunk products (kc^T v forward,
+qd^T dO backward), the chain over the chunks, and the per-chunk readout
+(forward) or gradients (backward). Here each wrapper is one C call of two
+launches, every product on the TF32 tensor cores (wgmma, each float32
+operand split into TF32 hi and lo for float32 accuracy; one exact product in
+the bf16 form), tiles loaded by TMA: (1) a state pass, one block per (batch
+row, head, 64-column Dv panel), walks the chunks with its part of the state
+in registers, computes each chunk's product there and writes
+each chunk-entry state (forward) or exit cotangent (backward, in reverse)
+once, so the per-chunk products never reach device memory; (2) the readout
+or the gradients, one block per (chunk, head), from those states. Stage 2 of
+the backward takes every sum over Dv inside its block, in a fixed order: no
+atomics, so K12b is bit-equal from run to run. The kernels take float32
+operands: a bf16 call's qd, kd, v and dO go over as float32 copies (exact),
+and the kernels round at the bf16 points. Each wrapper adds one to its
+count.
 
 The factored decay is JAX's: kd = k e^{-G} overflows float32 once a chunk's
 summed log-decay falls below about -88 (about -1.4 a token over 64 tokens;
@@ -36,7 +42,9 @@ port keeps the form so that it computes what JAX computes.
 Rounding points, those of the TPU kernel: qd, kd, v and kc in cdt; every
 product summed in float32 from cdt operands; the masked scores and the
 entry state rounded to cdt before their products; the state, its
-cotangent, the saved entry states and every gradient float32. The
+cotangent, the saved entry states and every gradient float32. (K12b's
+float32 form sums dv's kc T(dS) as (T(dS) e^{G_last}) kd, the same sum in
+another float32 order.) The
 ``*_plain`` versions do the same arithmetic in plain PyTorch; each wrapper
 runs its plain version for a CPU tensor and launches its kernels for a
 CUDA tensor or raises.
@@ -65,7 +73,7 @@ from .mhla_chunk import _on_cpu, _raise_on_error, _stream
 launches = {"gla_chunk_fwd": 0, "gla_chunk_bwd": 0}
 
 _DK = 128  # the head dim of q and k the kernels hold (csrc: kDk)
-_DV_TILE = 64  # Dv columns per block of the per-chunk products (csrc: kKvTile)
+_DV_TILE = 64  # Dv columns of a panel (csrc: kPanel)
 _MAX_CHUNK = 64  # csrc: kMaxC
 
 _lib_cache: Optional[ctypes.CDLL] = None
@@ -189,12 +197,12 @@ def gla_chunk_fwd(qd4, kd4, v4, egl, s0, chunk_size: int = 64, collect_states: b
     with torch.cuda.device(qd4.device):
         o = torch.empty_like(v4)
         s_final = torch.empty_like(s0)
-        # the per-chunk products kc^T v, overwritten in place by the entry states
         states = torch.empty(b, n, h, dk, dv, dtype=torch.float32, device=v4.device)
+        qd4, kd4, v4 = (x.float() for x in (qd4, kd4, v4))  # a bf16 call's values, exact
         err = _lib().mhla_gla_fwd(
             qd4.data_ptr(), kd4.data_ptr(), v4.data_ptr(), egl.data_ptr(), s0.data_ptr(),
             o.data_ptr(), s_final.data_ptr(), states.data_ptr(),
-            b, n, c, h, dk, dv, int(v4.dtype == torch.bfloat16), _stream(qd4),
+            b, n, c, h, dk, dv, int(o.dtype == torch.bfloat16), _stream(qd4),
         )
         _raise_on_error("gla_chunk_fwd", err)
     launches["gla_chunk_fwd"] += 1
@@ -210,8 +218,10 @@ def gla_chunk_bwd(qd4, kd4, v4, egl, states, do4, ds_final, chunk_size: int = 64
     _check("do4", do4, v4.dtype, (b, n * c, h, dv))
     _check("ds_final", ds_final, torch.float32, (b, h, dk, dv))
     f32 = dict(dtype=torch.float32, device=qd4.device)
+    bf16 = int(v4.dtype == torch.bfloat16)
     with torch.cuda.device(qd4.device):
-        exits = torch.empty_like(states)  # qd^T dO per chunk, then the exit cotangents
+        exits = torch.empty_like(states)
+        qd4, kd4, v4, do4 = (x.float() for x in (qd4, kd4, v4, do4))  # exact
         dqd = torch.empty(qd4.shape, **f32)
         dkd = torch.empty(qd4.shape, **f32)
         dv_ = torch.empty(v4.shape, **f32)
@@ -221,7 +231,7 @@ def gla_chunk_bwd(qd4, kd4, v4, egl, states, do4, ds_final, chunk_size: int = 64
             qd4.data_ptr(), kd4.data_ptr(), v4.data_ptr(), egl.data_ptr(), states.data_ptr(),
             do4.data_ptr(), ds_final.data_ptr(), exits.data_ptr(),
             dqd.data_ptr(), dkd.data_ptr(), dv_.data_ptr(), degl.data_ptr(), ds0.data_ptr(),
-            b, n, c, h, dk, dv, int(v4.dtype == torch.bfloat16), _stream(qd4),
+            b, n, c, h, dk, dv, bf16, _stream(qd4),
         )
         _raise_on_error("gla_chunk_bwd", err)
     launches["gla_chunk_bwd"] += 1

@@ -1261,11 +1261,16 @@ def _gla_inputs(dev, b, t, h, dv, dtype, c=64, seed=0):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (_BF16, KERNEL_TOL)])
 @pytest.mark.parametrize("b,t,h,dv,c", [(2, 2048, 4, 256, 64), (1, 781, 4, 256, 64),
-                                        (1, 200, 2, 128, 32), (3, 64, 1, 64, 16)])
+                                        (1, 200, 2, 128, 32), (3, 64, 1, 64, 16),
+                                        (1, 200, 2, 128, 48)]
+                         + [(2, 300, 2, dv, c) for c in (16, 32, 64) for dv in (64, 128, 256)])
 def test_gla_chunk_kernels_match_plain(dev, b, t, h, dv, c, dtype, tol):
     """K12 (o, the final state and the entry states) and K12b (dqd, dkd, dv,
     degl, ds0) against their plain versions in the layer's float32 form
-    (JAX's bound between its fused kernel and its op) and in bf16; K12b
+    (JAX's bound between its fused kernel and its op) and in bf16, at chunks
+    of 16 to 64 (the TF32 wgmma products at M = 64 with rows past C zero, and
+    N = C), Dv of one to four
+    64-column panels, ragged last chunks and a nonzero initial state; K12b
     twice, bit for bit; one launch each per call."""
     from mhla_tpu_torch.kernels import gla_chunk as gc
 
@@ -1341,6 +1346,22 @@ def test_gla_routed_shapes_the_kernels_lack_raise(dev, dk, dv, c):
     assert kernel_route(128, c, dk, dv)
     with pytest.raises(ValueError):
         gla_chunk_fused(q, k, v, gk, chunk_size=c)
+
+
+def test_gla_kernels_run_on_tf32_wgmma_and_tma(dev):
+    """The built library's K12 / K12b kernels (the state pass both ways, the
+    readout and the gradients, at every chunk and in both forms) hold HGMMA
+    (wgmma) and UTMALDG (TMA loads) and no HMMA (mma.sync or WMMA)."""
+    found = {kind: 0 for kind in ("gla_state_kernel", "gla_readout_kernel", "gla_grads_kernel")}
+    for fn, text in _sass_bodies().items():
+        kind = next((k for k in found if k in fn), None)
+        if kind is None:
+            continue
+        assert "HGMMA" in text and "UTMALDG" in text, fn
+        assert " HMMA" not in text, fn
+        found[kind] += 1
+    # four chunk sizes x two forms; the state pass forward and in reverse
+    assert found == {"gla_state_kernel": 16, "gla_readout_kernel": 8, "gla_grads_kernel": 8}
 
 
 @pytest.mark.parametrize("extends", ["gla", "simple_gla"])
@@ -1868,6 +1889,48 @@ def test_layers_off_the_kernel_route_run_as_jax(dev, kw, t):
     assert mhla_chunk.launches == before
     for i, (r, g) in enumerate(zip(_layer_grads(cpu, x), got)):
         assert_close(f"layer {kw} tensor {i}", r, g, 1e-5)
+
+
+def test_off_route_head_dim_layer_runs_k1_plain_as_jax(dev):
+    """An MHLA layer at Dk = 96 (hidden 768, 4 heads, expand_k 0.5), where
+    JAX runs jnp for fmap + RoPE and XLA for the chunk op: on the card it
+    trains and serves with no K1 / K1b or chunk-kernel launch, and its
+    output and gradients match its copy on the CPU (float32 on both). The
+    feature map is elu + 1, whose derivative is continuous: under relu one
+    projected k of 153,600 lies 1.5e-8 from the kink at this seed, float32
+    noise puts it on either side, and that one gradient entry alone moves
+    the relative RMS of dx by 3.6e-4 (as for any relu input that close)."""
+    kw = dict(hidden_size=768, num_heads=4, feature_map="elu")
+    card, cpu = _layer_pair(dev, **kw)
+    assert card.head_k_dim == 96 and not fmap_rope.kernel_route(card.head_k_dim)
+    x = torch.randn(2, 200, 768, generator=torch.Generator().manual_seed(1))
+    before = dict(fmap_rope.launches), dict(mhla_chunk.launches)
+    got = _layer_grads(card, x.to(dev))
+    for i, (r, g) in enumerate(zip(_layer_grads(cpu, x), got)):
+        assert_close(f"Dk 96 layer tensor {i}", r, g, 1e-5)
+    with torch.no_grad():  # serving: a prefill without autograd
+        assert_close("Dk 96 layer serving", cpu(x)[0], card(x.to(dev))[0], 1e-5)
+    assert (dict(fmap_rope.launches), dict(mhla_chunk.launches)) == before
+
+
+def test_fmap_rope_kernels_at_head_dim_384(dev):
+    """Dh = 384 (Dh % 128 == 0, Dh / 2 = 192 not a power of two), which JAX
+    sends to its Pallas kernel: K1 and K1b launch once each (an arange over
+    the next power of two, masked) and match their plain versions."""
+    assert fmap_rope.kernel_route(384)
+    cos, sin = rotary_cos_sin(2048, 384, device=dev)
+    x = _randn(dev, 2, 100, 2 * 384, seed=2).to(torch.bfloat16).requires_grad_()
+    dy = _randn(dev, 2, 100, 2 * 384, seed=3).to(torch.bfloat16)
+    before = dict(fmap_rope.launches)
+    out = fmap_rope.fused_fmap_rope_flat(x, cos, sin, 2, "relu", offset=9)
+    out.backward(dy)
+    assert fmap_rope.launches == {n: before[n] + 1 for n in before}
+    xd = x.detach()
+    assert_close("K1 Dh=384", fmap_rope.fmap_rope_plain(xd, cos, sin, 2, "relu", offset=9), out,
+                 KERNEL_TOL)
+    assert_close("K1b Dh=384",
+                 fmap_rope.fmap_rope_bwd_plain(dy, xd, cos, sin, 2, "relu", offset=9), x.grad,
+                 KERNEL_TOL)
 
 
 def test_kernel_route_shapes_the_kernels_lack_raise(dev):

@@ -87,3 +87,39 @@ def test_context_bound_raises():
     fmap_rope.fused_fmap_rope_flat(x, cos, sin, H, "relu", offset=MAX_LEN - 1)
     with pytest.raises(ValueError, match="context bound"):
         fmap_rope.fused_fmap_rope_flat(x, cos, sin, H, "relu", offset=MAX_LEN)
+
+
+@pytest.mark.parametrize("dh", [64, 96, 128, 256, 384])
+def test_kernel_route_is_jaxs_head_dim_term(dh):
+    """K1's route is JAX's: where JAX's ``_use_kernel`` takes its Pallas kernel
+    (interpret mode here, T a multiple of 8, so only Dh % 128 decides), the
+    port launches K1; elsewhere both run the plain rotary."""
+    from mhla_tpu.kernels import fmap_rope_pallas
+
+    assert fmap_rope.kernel_route(dh) == fmap_rope_pallas._use_kernel(256, dh)
+
+
+def test_off_route_head_dim_matches_jax_forward_and_gradient():
+    """Dk = 96 (hidden 768, 4 heads, expand_k 0.5), where JAX runs jnp: the
+    port's forward and its gradient (plain PyTorch under autograd) against
+    JAX's ``fused_fmap_rope_flat`` and ``jax.grad``."""
+    import jax
+
+    h, dh, t = 4, 96, 24
+    x = np.random.default_rng(3).standard_normal((2, t, h * dh)).astype(np.float32)
+    w = np.random.default_rng(4).standard_normal((2, t, h * dh)).astype(np.float32)
+    cos_j, sin_j = jax_rotary.rotary_cos_sin(64, dh)
+    cos, sin = rotary.rotary_cos_sin(64, dh)
+    assert not fmap_rope.kernel_route(dh)
+
+    def loss_j(xj):
+        return (jax_fused_fmap_rope_flat(xj, cos_j, sin_j, h, "elu", offset=5) * w).sum()
+
+    ref, ref_grad = jax.value_and_grad(loss_j)(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = fmap_rope.fused_fmap_rope_flat(xt, cos, sin, h, "elu", offset=5)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert_close("fmap_rope Dh=96", np.asarray(jax_fused_fmap_rope_flat(
+        jnp.asarray(x), cos_j, sin_j, h, "elu", offset=5)), out.detach(), TOL)
+    assert_close("fmap_rope Dh=96 grad", np.asarray(ref_grad), xt.grad, TOL)
+    assert np.isfinite(float(ref))
