@@ -91,9 +91,10 @@ exits non-zero:
 15. kernels (delta) — K11 (the chunked gated delta rule, csrc/delta_chunk.cu)
              and K11b (its backward, csrc/delta_chunk_bwd.cu) against their
              plain versions at [8, 2048, 4, 128|256] (timed, beside the
-             bound) and at 1 x 781 (a ragged last chunk), bf16 with a nonzero
-             initial state; two K11b runs bit for bit; the op's gradients
-             through the kernels against autograd of the plain op.
+             bound and the earlier kernels' times) and at 1 x 781 (a ragged
+             last chunk), bf16 with a nonzero initial state; two K11 and two
+             K11b runs bit for bit; the op's gradients through the kernels
+             against autograd of the plain op.
 16. serve (gdn) — ``generate`` with the 340M Gated DeltaNet LM
              (``attn_extends='gated_deltanet'``, bf16, seeded init): the same
              two requests; K11 in every layer of the prefill, decode on the
@@ -370,8 +371,18 @@ GLA_EARLIER_MS = {
     ("gla_chunk_fwd[1x32768x8|128 bf16]", "1x32768x8|128 bf16"): (2.8278,),
     ("gla_chunk_bwd[1x32768x8|128 bf16]", "1x32768x8|128 bf16"): (7.7407,),
 }
-# this run's timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K10, K10b, K12 and K12b
-# forms beside their bounds and library calls
+# K11's and K11b's times with their earlier kernels (WMMA 16 x 16 x 16 over
+# cp.async tiles, S in shared memory, K11b's gradients in two passes through
+# float32 partials in device memory), before the Hopper redesign (bf16 wgmma
+# over TMA tiles, the chains' state in wgmma accumulators, one gradients
+# pass), by (kernel, shape tag) as this script times them: PERF.md section
+# 6's table (NVIDIA H100 80GB HBM3, 700.00 W).
+DELTA_EARLIER_MS = {
+    ("delta_chunk_fwd", "B=8 T=2048"): (0.5796,),
+    ("delta_chunk_bwd", "B=8 T=2048"): (1.2457,),
+}
+# this run's timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K10, K10b, K11, K11b, K12
+# and K12b forms beside their bounds and library calls
 REDESIGN_TIMES = {}
 # the tiles each timed or small K10 call walked beside its lists' length
 K10_WALKS = {}
@@ -687,19 +698,20 @@ def check_kernel(results: dict, name: str, shape_tag: str, kern, plain, timed: b
         msg += f"  host {r['host_us']:.1f} us/call  device {r['device_ms']:.4f} ms/call"
     log(msg)
     if timed and (name.startswith("flash_attention") or (name, shape_tag) in CHUNK_MMA_SYNC_MS
-                  or (name, shape_tag) in VIDEO_EARLIER_MS or (name, shape_tag) in GLA_EARLIER_MS):
+                  or (name, shape_tag) in VIDEO_EARLIER_MS or (name, shape_tag) in GLA_EARLIER_MS
+                  or (name, shape_tag) in DELTA_EARLIER_MS):
         log_redesign_time(name, shape_tag, r)
 
 
 def log_redesign_time(name: str, shape_tag: str, r: dict) -> None:
-    """Keep a timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K10, K10b, K12 or K12b
-    form's time in this run beside its bound and the library call's time,
+    """Keep a timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K10, K10b, K11, K11b,
+    K12 or K12b form's time in this run beside its bound and the library call's time,
     and print them with its time with the earlier kernels, with the ratios.
     The earlier times are printed only: they were not measured in this run."""
     key = (name, shape_tag)
     before = ((FLASH_MMA_SYNC_MS.get(key),) if name.startswith("flash_attention")
               else CHUNK_MMA_SYNC_MS.get(key) or VIDEO_EARLIER_MS.get(key)
-              or GLA_EARLIER_MS.get(key, ()))
+              or GLA_EARLIER_MS.get(key) or DELTA_EARLIER_MS.get(key, ()))
     before = tuple(x for x in before if x)
     lib = r["library_ms"]
     REDESIGN_TIMES[f"{name} {shape_tag}"] = {
@@ -2321,9 +2333,10 @@ def delta_op_grads(dev: torch.device, b: int, t: int, kernels_path: bool):
 
 def phase_kernels_delta(dev: torch.device) -> dict:
     """K11 and K11b against their plain versions at the training shape
-    [8, 2048, 4, 128|256] (timed) and at 1 x 781 (a ragged last chunk), bf16
-    with a nonzero initial state; K11b twice, bit for bit; then the op's
-    gradients through the kernels against plain autograd at both shapes."""
+    [8, 2048, 4, 128|256] (timed, beside their earlier kernels' times) and
+    at 1 x 781 (a ragged last chunk), bf16 with a nonzero initial state; each
+    twice, bit for bit; then the op's gradients through the kernels against
+    plain autograd at both shapes."""
     from mhla_tpu_torch.kernels import delta_chunk as dc
     from mhla_tpu_torch.utils import get_err_ratio
 
@@ -2333,10 +2346,15 @@ def phase_kernels_delta(dev: torch.device) -> dict:
         tag = f"B={b} T={t}"
         q4, k4, v4, g_cum, beta, s0, do4, ds = delta_kernel_inputs(dev, b, t)
         n = q4.shape[1] // c
-        check_kernel(results, "delta_chunk_fwd", tag,
-                     lambda: dc.delta_chunk_fwd(q4, k4, v4, g_cum, beta, s0, c, True),
+        fwd = lambda: dc.delta_chunk_fwd(q4, k4, v4, g_cum, beta, s0, c, True)  # noqa: E731
+        check_kernel(results, "delta_chunk_fwd", tag, fwd,
                      lambda: dc.delta_chunk_fwd_plain(q4, k4, v4, g_cum, beta, s0, c, True),
                      timed, delta_work(b, n, False))
+        first, second = fwd(), fwd()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"delta_chunk_fwd {tag}: two runs differ")
+        del first, second
         states = dc.delta_chunk_fwd_plain(q4, k4, v4, g_cum, beta, s0, c, True)[2]
         bwd = lambda: dc.delta_chunk_bwd(q4, k4, v4, g_cum, beta, states, do4, ds, c)  # noqa: E731
         check_kernel(results, "delta_chunk_bwd", tag, bwd,
@@ -2346,7 +2364,8 @@ def phase_kernels_delta(dev: torch.device) -> dict:
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(first, second)):
             raise AssertionError(f"delta_chunk_bwd {tag}: two runs differ")
-        log(f"[kernels delta] delta_chunk_bwd {tag}: two runs bit for bit equal")
+        log(f"[kernels delta] delta_chunk_fwd and delta_chunk_bwd {tag}: two runs bit for bit "
+            "equal")
         del first, second, states
     names = ("q", "k", "v", "g", "beta", "s0")
     for b, t in ((TRAIN_BATCH, TRAIN_SEQ), (1, 781)):

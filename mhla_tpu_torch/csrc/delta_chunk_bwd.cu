@@ -10,43 +10,47 @@
 // state cotangent dS in VMEM, replays the forward states from the
 // supertile-entry residuals and forms every gradient of a chunk in the same
 // step. Here the only sequential part is the dS chain, so it runs alone and
-// hands each chunk's exit cotangent to a fully parallel gradient pass. After
-// the forward's prep pass (delta_prep_kernel, recomputed: T, w, P, qd, kc):
+// hands each chunk's exit cotangent to a fully parallel gradients pass.
+// After the forward's prep pass (delta_prep_kernel in delta_chunk.cu,
+// recomputed: the records of T, w, P, qd, kc and the gates):
 //
-// delta_bwd_chain_kernel, grid (Dv/64, H, B), 256 threads: walks its chain
-//   in reverse, dS carried in float32 shared memory, per chunk
-//     dv_eff = P^T dO + kc bf16(dS);  dS = e^{G_last} dS + qd^T dO - w^T bf16(dv_eff)
-//   and writes bf16(dS) at every chunk exit ([B, N, H, Dk, Dv], 67 MB per
-//   layer at [8, 2048, 4, 128|256]) and ds0. Like the forward chain it owns a
-//   64-column tile of Dv: 128 blocks at the training shape.
+// delta_bwd_chain_kernel, one block per (batch row, head, 64-column Dv
+//   panel), the forward chain's design in reverse: one consumer warpgroup
+//   holds dS^T (64 Dv rows by 128 Dk columns) as wgmma accumulators and per
+//   chunk forms
+//     dv_eff^T = dO^T P + bf16(dS^T) kc^T
+//     dS^T     = e^{G_last} dS^T + dO^T qd - bf16(dv_eff^T) w
+//   (dO^T and P, qd, w read MN-major from shared memory, dS^T and dv_eff^T
+//   from registers), fed by a producer warp through a two-stage ring (one
+//   bulk copy of the record, a TMA load of the dO panel); bf16(dS) at every
+//   chunk exit leaves by stmatrix.trans and a TMA store.
 //
-// delta_bwd_grads_a_kernel, grid (B*N, H), 512 threads: per chunk, with the
-//   saved entry state S and the exit cotangent dS, walks Dv in tiles of 64
-//   and forms u = T (beta v), v_eff = u - w S, dv_eff, dmu = T^T dv_eff,
-//   dv = beta dmu, and accumulates every sum over Dv in registers (WMMA
-//   accumulators, eight per warp): dkc = v_eff dS^T, dqd = dO S^T,
-//   dw = dv_eff S^T, dP = dO v_eff^T, dA_u = dmu u^T; beta's row sums of
-//   dmu v and sum(S * dS). These go to global memory in float32 (128 KB per
-//   (chunk, head)).
+// delta_bwd_grads_kernel, one block per (chunk, head) item, two consumer
+//   warpgroups, every product on bf16 wgmma over TMA tiles. The item's T, P,
+//   w, kc, q and k arrive once; then the Dv panels of its entry state S, its
+//   exit cotangent dS, v and dO stream through a two-stage ring, and per
+//   panel warpgroup 0 forms u = T bf16(beta v) and v_eff = bf16(u - w S)
+//   and sums dkc += v_eff dS^T and dw += dv_eff S^T, while warpgroup 1 forms
+//   dv_eff = bf16(P^T dO + kc dS), dmu = T^T dv_eff (dv = bf16(beta dmu) out)
+//   and sums dqd += dO S^T, dP += dO v_eff^T and dA_u += bf16(dmu) bf16(u)^T;
+//   the bf16 tiles each needs of the other are handed over under named
+//   barriers. Every sum over Dv stays in the accumulators. Then the rest of
+//   the chunk's gradient in the same block: dmw = T^T bf16(-dw), dA = -(dA_u
+//   + bf16(dmw) w^T), kk and qk recomputed, the pairwise terms with their
+//   decays from differences of G, dq = dqd e^G scale + bf16(dP decay) k, dk
+//   = dkc e^{G_last - G} + dmw beta e^G + dkk k + dkk^T k + dqk^T q, dG (row
+//   sums minus column sums of the pairwise term, the last row taking the
+//   decay of the carried state) and dbeta. Nothing but the outputs leaves
+//   the block: no float32 partials in device memory.
 //
-// delta_bwd_grads_b_kernel, grid (B*N, H), 256 threads: the rest of the
-//   chunk's gradient: dmw = T^T bf16(-dw), dA = -(dA_u + bf16(dmw) w^T),
-//   the pairwise terms (kk and qk recomputed on the tensor cores, the decays
-//   from differences of G), dq = dqd e^G scale + bf16(dP decay) k and
-//   dk = dkc e^{G_last-G} + dmw beta e^G + dkk k + dkk^T k + dqk^T q, and
-//   dG (row sums minus column sums of the pairwise term, the last row taking
-//   the decay of the carried state) and dbeta.
+// Every sum is taken in a fixed order (accumulators, fixed shuffles, fixed
+// slots in shared memory): no atomics, so two runs give the same bits.
 //
-// Every sum over Dv or over a chunk is taken in a fixed order (tile order,
-// fixed shuffles, column sums by one thread each): no atomics, so two runs
-// give the same bits, as K9b and K10b do.
-//
-// Bound at [8, 2048, 4, 128|256] bf16: operations, about three times K11's
-// products (~60 GFLOP, 0.06 ms at 989 TFLOP/s); the bytes it must move (q,
-// k, v, dO, dq, dk, dv and the saved states) are ~270 MB (0.08 ms). The
-// float32 partials between the two gradient passes (134 MB) and the exit
-// cotangents (67 MB) are this version's own traffic. Tiles arrive by
-// cp.async, every copy of a block in flight at once.
+// Bound at [8, 2048, 4, 128|256] bf16: bytes. The bytes it must move (q, k,
+// v, dO, dq, dk, dv, the saved entry states) are ~270 MB (0.08 ms at 3.35
+// TB/s); the products ~60 GFLOP (0.06 ms at 989 TFLOP/s). The exit
+// cotangents (67 MB written and read back) and the records are this
+// design's own traffic.
 //
 // Rounding points are those of the TPU kernel (T, w, P, qd, kc, v_eff,
 // dv_eff, u, dmu, dw, dmw, dkk and dqk in bf16 before their products; the
@@ -60,524 +64,666 @@ using namespace delta;
 
 namespace {
 
-constexpr int kChainWarps = 8;
-constexpr int kChainThreads = kChainWarps * 32;
+// shared memory of the reverse chain, byte offsets: a ring stage holds one
+// chunk's record (T's slot unused) and its dO panel
+struct BwdChainSmem {
+  static constexpr int kStages = 2;
+  static constexpr int kDo = kRecSpan;
+  static constexpr int kStage = kDo + kCC;
+  static constexpr int kX = kStages * kStage;  // exit staging [2][128][64]
+  static constexpr int kBar = kX + 2 * 2 * kCC;
+  static constexpr int kBytes = kBar + 64 + 1024;
+  static_assert(kBytes <= kSmemLimit, "one block's shared memory");
+};
 
-constexpr size_t kBwdChainSmem =
-    (size_t)kDk * kLdCf * sizeof(float)          // dS
-    + (size_t)kDk * kLdC * sizeof(bf16)          // bf16(dS)
-    + (size_t)3 * kMaxC * kLdC * sizeof(bf16)    // P, dO, bf16(dv_eff)
-    + (size_t)3 * kMaxC * kLdK * sizeof(bf16)    // kc, qd, w
-    + (size_t)kChainWarps * 256 * sizeof(float);
-
-// grid (Dv / kTile, H, B). p: [B, N, H, C, C]; qd, w, kc: [B, N, H, C, Dk]
-// bf16; dout: [B, N*C, H, Dv] bf16; G: [B, N*C, H]; ds_final, ds0:
-// [B, H, Dk, Dv] float32; exits: [B, N, H, Dk, Dv] bf16.
-__global__ void __launch_bounds__(kChainThreads)
-delta_bwd_chain_kernel(const bf16* __restrict__ p, const bf16* __restrict__ qd,
-                       const bf16* __restrict__ w, const bf16* __restrict__ kc,
-                       const bf16* __restrict__ dout, const float* __restrict__ G,
-                       const float* __restrict__ ds_final, bf16* __restrict__ exits,
+// grid B*H*(Dv/64), 160 threads: the consumer warpgroup, then the producer
+// warp. maps: dO [B, N*C, H, Dv] bf16, boxes of 64 columns by C tokens; ex:
+// the exit cotangents [B, N, H, Dk, Dv] bf16 as rows (boxes of 64 x 128).
+// rec: the prep's records; ds_final, ds0 [B, H, Dk, Dv] float32.
+__global__ void __launch_bounds__(160, 1)
+delta_bwd_chain_kernel(const __grid_constant__ CUtensorMap map_do,
+                       const __grid_constant__ CUtensorMap map_ex,
+                       const unsigned char* __restrict__ rec, const float* __restrict__ ds_final,
                        float* __restrict__ ds0, int N, int C, int H, int Dv) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* dzf = reinterpret_cast<float*>(smem);
-  bf16* dzc = reinterpret_cast<bf16*>(dzf + kDk * kLdCf);
-  bf16* ps = dzc + kDk * kLdC;
-  bf16* dos = ps + kMaxC * kLdC;
-  bf16* dve = dos + kMaxC * kLdC;
-  bf16* kcs = dve + kMaxC * kLdC;
-  bf16* qds = kcs + kMaxC * kLdK;
-  bf16* ws = qds + kMaxC * kLdK;
-  float* stage = reinterpret_cast<float*>(ws + kMaxC * kLdK) + (threadIdx.x >> 5) * 256;
+  typedef BwdChainSmem L;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + L::kStages;
 
-  const int warp = threadIdx.x >> 5;
-  const int col0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int64_t ldv = (int64_t)H * Dv;
-  const int ct = C / kFrag;
+  const int panels = Dv / kPanel;
+  const int p = blockIdx.x % panels, h = blockIdx.x / panels % H, b = blockIdx.x / panels / H;
+  const int tid = threadIdx.x;
 
-  const float* dsc = ds_final + ((int64_t)b * H + h) * kDk * Dv + col0;
-  for (int e = threadIdx.x; e < kDk * kTile; e += blockDim.x)
-    dzf[(e / kTile) * kLdCf + e % kTile] = dsc[(int64_t)(e / kTile) * Dv + e % kTile];
+  if (tid == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    fence_barrier_init();
+  }
+  if (C < kMaxC)
+    for (int s = 0; s < L::kStages; ++s) zero_tail(sm + s * L::kStage + L::kDo, 1, C, tid, 160);
+  fence_async_shared();
   __syncthreads();
 
-  for (int n = N - 1; n >= 0; --n) {
-    const int64_t bn = (int64_t)b * N + n, pc = bn * H + h;
-    load_rows(ps, kLdC, p + pc * C * C, C, C, C);
-    load_rows(kcs, kLdK, kc + pc * C * kDk, kDk, C, kDk);
-    load_rows(qds, kLdK, qd + pc * C * kDk, kDk, C, kDk);
-    load_rows(ws, kLdK, w + pc * C * kDk, kDk, C, kDk);
-    load_rows(dos, kLdC, dout + (bn * C * H + h) * Dv + col0, ldv, C, kTile);
-    bf16* ex = exits + pc * kDk * Dv + col0;
-    for (int e = threadIdx.x; e < kDk * kTile / 8; e += blockDim.x) {
-      const int r = e / (kTile / 8), c = (e % (kTile / 8)) * 8;
-      float x[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] = dzf[r * kLdCf + c + i];
-      store8(dzc + r * kLdC + c, x);
-      store8(ex + (int64_t)r * Dv + c, x);
-    }
-    const float el = expf(G[(bn * C + C - 1) * H + h]);
-    sync_loads();
-
-    // dv_eff = P^T dO + kc bf16(dS)
-    for (int f = warp; f < ct * (kTile / kFrag); f += kChainWarps) {
-      const int m0 = (f / (kTile / kFrag)) * kFrag, n0 = (f % (kTile / kFrag)) * kFrag;
-      Acc acc;
-      wmma::fill_fragment(acc, 0.0f);
-      mma_tile<true, false>(acc, ps, kLdC, dos, kLdC, m0, n0, C);
-      mma_tile<false, false>(acc, kcs, kLdK, dzc, kLdC, m0, n0, kDk);
-      store_bf16(acc, stage, dve + m0 * kLdC + n0, kLdC);
-    }
-    __syncthreads();
-
-    // dS = e^{G_last} dS + qd^T dO - w^T bf16(dv_eff)
-    for (int f = warp; f < (kDk / kFrag) * (kTile / kFrag); f += kChainWarps) {
-      const int m0 = (f / (kTile / kFrag)) * kFrag, n0 = (f % (kTile / kFrag)) * kFrag;
-      Acc acc, wd;
-      wmma::load_matrix_sync(acc, dzf + m0 * kLdCf + n0, kLdCf, wmma::mem_row_major);
-#pragma unroll
-      for (int i = 0; i < acc.num_elements; ++i) acc.x[i] *= el;
-      mma_tile<true, false>(acc, qds, kLdK, dos, kLdC, m0, n0, C);
-      wmma::fill_fragment(wd, 0.0f);
-      mma_tile<true, false>(wd, ws, kLdK, dve, kLdC, m0, n0, C);
-#pragma unroll
-      for (int i = 0; i < acc.num_elements; ++i) acc.x[i] -= wd.x[i];
-      wmma::store_matrix_sync(dzf + m0 * kLdCf + n0, acc, kLdCf, wmma::mem_row_major);
-    }
-    __syncthreads();
+  if (tid >= 128) {  // the producer warp, chunks in reverse
+    if (tid == 128)
+      for (int i = 0; i < N; ++i) {
+        const int n = N - 1 - i, s = i % L::kStages;
+        mbar_wait(&empty[s], ((i / L::kStages) & 1) ^ 1);
+        unsigned char* st = sm + s * L::kStage;
+        const int64_t item = ((int64_t)b * N + n) * H + h;
+        mbar_arrive_expect_tx(&full[s], kRecBytes - kRecP + C * 128);
+        bulk_load(st + kRecP, rec + item * kRecBytes + kRecP, kRecBytes - kRecP, &full[s]);
+        tma_load_4d(st + L::kDo, &map_do, &full[s], p * kPanel, h, n * C, b);
+      }
+    return;
   }
 
-  float* d0 = ds0 + ((int64_t)b * H + h) * kDk * Dv + col0;
-  for (int e = threadIdx.x; e < kDk * kTile; e += blockDim.x)
-    d0[(int64_t)(e / kTile) * Dv + e % kTile] = dzf[(e / kTile) * kLdCf + e % kTile];
+  const int warp = tid >> 5, lane = tid & 31;
+  const int64_t sbh = ((int64_t)b * H + h) * kDk * Dv + p * kPanel;
+  float dZ[16][4];  // dS^T
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dZ[i][e] = ds_final[sbh + (int64_t)acc_col(i, e) * Dv + acc_row(e)];
+
+  for (int i = 0; i < N; ++i) {
+    const int n = N - 1 - i, s = i % L::kStages;
+    const int64_t item = ((int64_t)b * N + n) * H + h;
+    mbar_wait(&full[s], (i / L::kStages) & 1);
+    const unsigned char* st = sm + s * L::kStage;
+
+    // bf16(dS^T) as A fragments, and the chunk's exit cotangent
+    uint32_t db[8][4];
+    acc_frags<kDk>(db, dZ);
+    unsigned char* xs = sm + L::kX + s * 2 * kCC;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      stsm_x4_t(xs + swizzle128(x4_row(ks, lane), x4_col(warp, lane)), db[ks]);
+
+    // dv_eff^T = dO^T P + bf16(dS^T) kc^T
+    float adv[8][4];
+    const uint64_t dDo = desc_mnmajor<kMaxC>(st + L::kDo), dP = desc_mnmajor<kMaxC>(st + kRecP),
+                   dKc = desc_kmajor(st + kRecKc, 0), dQd = desc_mnmajor<kMaxC>(st + kRecQd),
+                   dW = desc_mnmajor<kMaxC>(st + kRecW);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<1, 1>(adv, dDo + kstep_mnmajor(ks), dP + kstep_mnmajor(ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) wgmma_rs<0>(adv, db[ks], dKc + kstep_kmajor<kMaxC>(ks), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(adv);
+    fence_frag(db);
+
+    // dS^T = e^{G_last} dS^T + dO^T qd - bf16(dv_eff^T) w
+    uint32_t dvf[4][4];
+    acc_frags<kMaxC>(dvf, adv);
+    const float el = reinterpret_cast<const float*>(st + kRecGates)[kElOffset];
+#pragma unroll
+    for (int i2 = 0; i2 < 16; ++i2)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dZ[i2][e] *= el;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<1, 1>(dZ, dDo + kstep_mnmajor(ks), dQd + kstep_mnmajor(ks), 1);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_rs<1, 1>(dZ, dvf[ks], dW + kstep_mnmajor(ks), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dZ);
+    fence_frag(dvf);
+    mbar_arrive(&empty[s]);
+
+    fence_async_shared();
+    if (tid == 0) tma_store_wait_read<0>();  // the chunk before's exit has been read
+    named_sync(1, 128);
+    if (tid == 0) tma_store_4d(&map_ex, xs, p * kPanel, (int)(item * kDk), 0, 0);
+  }
+
+  float* d0 = ds0 + sbh;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d0[(int64_t)acc_col(i, e) * Dv + acc_row(e)] = dZ[i][e];
+  if (tid == 0) tma_store_wait_all();
 }
 
-constexpr int kAWarps = 16;
-constexpr int kAThreads = kAWarps * 32;
+// shared memory of the gradients pass, byte offsets
+struct GradsSmem {
+  // the item's tiles, loaded once: T, P, w, kc from its record, q, k
+  static constexpr int kT = 0, kP = kCC, kW = 2 * kCC, kKc = kW + kCK;
+  static constexpr int kQ = kKc + kCK, kK = kQ + kCK;
+  // the ring of Dv panels: S, dS [128][64], v, dO [64][64]
+  static constexpr int kRing = kK + kCK;
+  static constexpr int kS = 0, kZ = 2 * kCC, kV = 4 * kCC, kDo = 5 * kCC, kStage = 6 * kCC;
+  // a panel's bf16 tiles: beta v, u, v_eff, dv_eff; dv's staging
+  static constexpr int kBv = kRing + 2 * kStage;
+  static constexpr int kUb = kBv + kCC, kVe = kUb + kCC, kDve = kVe + kCC, kDvs = kDve + kCC;
+  // floats: G, beta, row sums of dG / dbeta by warpgroup, column sums of
+  // the pairwise term by warp, warpgroup 0's block sums
+  static constexpr int kF = kDvs + kCC;
+  static constexpr int kBar = kF + (2 + 4 + 4 + 8) * 64 * 4;
+  static constexpr int kBytes = kBar + 64 + 1024;
+  // the final phase's tiles, over the ring: bf16(-dw), bf16(dmw), dkk, dqk,
+  // dq's and dk's staging
+  static constexpr int kNw = kRing, kDmw = kNw + kCK, kDkk = kDmw + kCK, kDqk = kDkk + kCC;
+  static constexpr int kDqs = kDqk + kCC, kDks = kDqs + kCK;
+  static_assert(kDks + kCK <= kBv, "the final phase's tiles over the ring");
+  static_assert(kBytes <= kSmemLimit, "one block's shared memory");
+};
 
-constexpr size_t kGradsASmem =
-    (size_t)8 * kMaxC * kLdC * sizeof(bf16)      // T, P, v, bf16(beta v)|bf16(dmu), dO, u, v_eff, dv_eff
-    + (size_t)2 * kMaxC * kLdK * sizeof(bf16)    // w, kc
-    + (size_t)2 * kDk * kLdC * sizeof(bf16)      // S, dS (one Dv tile)
-    + (size_t)kMaxC * kLdCf * sizeof(float)      // dmu
-    + (size_t)kAWarps * 256 * sizeof(float)      // staging
-    + (size_t)(kMaxC + kMaxWarps) * sizeof(float);
+// named barriers: 1, 2 within warpgroup 0, 1; 3 warpgroup 0 -> 1 (u and
+// v_eff, then bf16(dmw)); 4 warpgroup 1 -> 0 (dv_eff, then dkk and dqk); 5
+// both, at the end of a panel
+constexpr int kBarWg0 = 1, kBarWg1 = 2, kBar01 = 3, kBar10 = 4, kBarAll = 5;
 
-// grid (B*N, H). v, dout, dv: [B, N*C, H, Dv] bf16; beta: [B, N*C, H];
-// states, exits: [B, N, H, Dk, Dv] bf16; tc, p: [B, N, H, C, C] bf16; w, kc:
-// [B, N, H, C, Dk] bf16; out: dkc, dqd, dw [B, N, H, C, Dk], dp, dau
-// [B, N, H, C, C], dbeta_part [B, N, H, C], dgl_part [B, N, H], float32.
-__global__ void __launch_bounds__(kAThreads)
-delta_bwd_grads_a_kernel(const bf16* __restrict__ v, const float* __restrict__ beta,
-                         const bf16* __restrict__ states, const bf16* __restrict__ exits,
-                         const bf16* __restrict__ dout, const bf16* __restrict__ tc,
-                         const bf16* __restrict__ w, const bf16* __restrict__ p,
-                         const bf16* __restrict__ kc, float* __restrict__ dkc_out,
-                         float* __restrict__ dqd_out, float* __restrict__ dw_out,
-                         float* __restrict__ dp_out, float* __restrict__ dau_out,
-                         float* __restrict__ dbeta_out, float* __restrict__ dgl_out,
-                         bf16* __restrict__ dv_out, int C, int H, int Dv) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* tcs = reinterpret_cast<bf16*>(smem);
-  bf16* ps = tcs + kMaxC * kLdC;
-  bf16* vs = ps + kMaxC * kLdC;
-  bf16* vb = vs + kMaxC * kLdC;  // bf16(beta v), then bf16(dmu)
-  bf16* dos = vb + kMaxC * kLdC;
-  bf16* uc = dos + kMaxC * kLdC;
-  bf16* ve = uc + kMaxC * kLdC;
-  bf16* dve = ve + kMaxC * kLdC;
-  bf16* ws = dve + kMaxC * kLdC;
-  bf16* kcs = ws + kMaxC * kLdK;
-  bf16* s_in = kcs + kMaxC * kLdK;
-  bf16* dz = s_in + kDk * kLdC;
-  float* dmu = reinterpret_cast<float*>(dz + kDk * kLdC);
-  float* stage = dmu + kMaxC * kLdCf + (threadIdx.x >> 5) * 256;
-  float* bs = dmu + kMaxC * kLdCf + kAWarps * 256;
-  float* red = bs + kMaxC;
+struct GradsArgs {
+  const unsigned char* rec;
+  const float* G;
+  const float* beta;
+  float* dg;
+  float* dbeta;
+  int N, C, H, Dv;
+};
 
-  const int warp = threadIdx.x >> 5;
-  const int64_t bn = blockIdx.x;
-  const int h = blockIdx.y;
-  const int64_t pc = bn * H + h;
-  const int64_t ldv = (int64_t)H * Dv;
-  const int ct = C / kFrag;
-  constexpr int kt = kTile / kFrag;  // 16-column tiles across a Dv tile
-  constexpr int dt = kDk / kFrag;    // 16-column tiles across Dk
-
-  load_rows(tcs, kLdC, tc + pc * C * C, C, C, C);
-  load_rows(ps, kLdC, p + pc * C * C, C, C, C);
-  load_rows(ws, kLdK, w + pc * C * kDk, kDk, C, kDk);
-  load_rows(kcs, kLdK, kc + pc * C * kDk, kDk, C, kDk);
-  for (int r = threadIdx.x; r < C; r += blockDim.x) bs[r] = beta[(bn * C + r) * H + h];
-
-  // the sums over Dv, in registers: tiles warp and warp + 16 of the [C, Dk]
-  // ones, tile warp of the [C, C] ones
-  Acc acc_kc[2], acc_qd[2], acc_w[2], acc_p, acc_au;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    wmma::fill_fragment(acc_kc[i], 0.0f);
-    wmma::fill_fragment(acc_qd[i], 0.0f);
-    wmma::fill_fragment(acc_w[i], 0.0f);
-  }
-  wmma::fill_fragment(acc_p, 0.0f);
-  wmma::fill_fragment(acc_au, 0.0f);
-  const int row = threadIdx.x >> 3, cgrp = (threadIdx.x & 7) * 8;  // elementwise [C, kTile]
-  float drow = 0.f, dgl = 0.f;
-
-  for (int col0 = 0; col0 < Dv; col0 += kTile) {
-    const bf16* st = states + pc * kDk * Dv + col0;
-    const bf16* ex = exits + pc * kDk * Dv + col0;
-    load_rows(s_in, kLdC, st, Dv, kDk, kTile);
-    load_rows(dz, kLdC, ex, Dv, kDk, kTile);
-    load_rows(vs, kLdC, v + (bn * C * H + h) * Dv + col0, ldv, C, kTile);
-    load_rows(dos, kLdC, dout + (bn * C * H + h) * Dv + col0, ldv, C, kTile);
-    sync_loads();
-    if (row < C) {
-      float x[8];
-      load8(vs + row * kLdC + cgrp, x);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] *= bs[row];
-      store8(vb + row * kLdC + cgrp, x);
-    }
-    for (int e = threadIdx.x; e < kDk * kTile / 8; e += blockDim.x) {
-      const int r = e / (kTile / 8), c = (e % (kTile / 8)) * 8;
-      float a[8], d[8];
-      load8(s_in + r * kLdC + c, a);
-      load8(dz + r * kLdC + c, d);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dgl = fmaf(a[i], d[i], dgl);
-    }
-    __syncthreads();
-
-    // u = T bf16(beta v); v_eff = u - w S; dv_eff = P^T dO + kc dS (one tile a warp)
-    if (warp < ct * kt) {
-      const int m0 = (warp / kt) * kFrag, n0 = (warp % kt) * kFrag;
-      Acc u, wsv, dv;
-      wmma::fill_fragment(u, 0.0f);
-      wmma::fill_fragment(wsv, 0.0f);
-      wmma::fill_fragment(dv, 0.0f);
-      mma_tile<false, false>(u, tcs, kLdC, vb, kLdC, m0, n0, C);
-      store_bf16(u, stage, uc + m0 * kLdC + n0, kLdC);
-      mma_tile<false, false>(wsv, ws, kLdK, s_in, kLdC, m0, n0, kDk);
-#pragma unroll
-      for (int i = 0; i < u.num_elements; ++i) u.x[i] -= wsv.x[i];
-      store_bf16(u, stage, ve + m0 * kLdC + n0, kLdC);
-      mma_tile<true, false>(dv, ps, kLdC, dos, kLdC, m0, n0, C);
-      mma_tile<false, false>(dv, kcs, kLdK, dz, kLdC, m0, n0, kDk);
-      store_bf16(dv, stage, dve + m0 * kLdC + n0, kLdC);
-    }
-    __syncthreads();
-
-    // dmu = T^T bf16(dv_eff)
-    if (warp < ct * kt) {
-      const int m0 = (warp / kt) * kFrag, n0 = (warp % kt) * kFrag;
-      Acc acc;
-      wmma::fill_fragment(acc, 0.0f);
-      mma_tile<true, false>(acc, tcs, kLdC, dve, kLdC, m0, n0, C);
-      wmma::store_matrix_sync(dmu + m0 * kLdCf + n0, acc, kLdCf, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // dv = bf16(beta dmu); beta's row sums of dmu v; bf16(dmu)
-    if (row < C) {
-      float m[8], x[8], d[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) m[i] = dmu[row * kLdCf + cgrp + i];
-      load8(vs + row * kLdC + cgrp, x);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        drow = fmaf(m[i], x[i], drow);
-        d[i] = m[i] * bs[row];
-      }
-      store8(dv_out + ((bn * C + row) * H + h) * Dv + col0 + cgrp, d);
-      store8(vb + row * kLdC + cgrp, m);
-    }
-    __syncthreads();
-
-    // the sums over Dv: dkc += v_eff dS^T, dqd += dO S^T, dw += dv_eff S^T,
-    // dP += dO v_eff^T, dA_u += dmu u^T
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int t = warp + kAWarps * i;
-      if (t < ct * dt) {
-        const int m0 = (t / dt) * kFrag, n0 = (t % dt) * kFrag;
-        mma_tile<false, true>(acc_kc[i], ve, kLdC, dz, kLdC, m0, n0, kTile);
-        mma_tile<false, true>(acc_qd[i], dos, kLdC, s_in, kLdC, m0, n0, kTile);
-        mma_tile<false, true>(acc_w[i], dve, kLdC, s_in, kLdC, m0, n0, kTile);
-      }
-    }
-    if (warp < ct * ct) {
-      const int m0 = (warp / ct) * kFrag, n0 = (warp % ct) * kFrag;
-      mma_tile<false, true>(acc_p, dos, kLdC, ve, kLdC, m0, n0, kTile);
-      mma_tile<false, true>(acc_au, vb, kLdC, uc, kLdC, m0, n0, kTile);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int t = warp + kAWarps * i;
-    if (t < ct * dt) {
-      const int64_t off = pc * C * kDk + (t / dt) * kFrag * kDk + (t % dt) * kFrag;
-      wmma::store_matrix_sync(dkc_out + off, acc_kc[i], kDk, wmma::mem_row_major);
-      wmma::store_matrix_sync(dqd_out + off, acc_qd[i], kDk, wmma::mem_row_major);
-      wmma::store_matrix_sync(dw_out + off, acc_w[i], kDk, wmma::mem_row_major);
-    }
-  }
-  if (warp < ct * ct) {
-    const int64_t off = pc * C * C + (warp / ct) * kFrag * C + (warp % ct) * kFrag;
-    wmma::store_matrix_sync(dp_out + off, acc_p, C, wmma::mem_row_major);
-    wmma::store_matrix_sync(dau_out + off, acc_au, C, wmma::mem_row_major);
-  }
-  drow += __shfl_xor_sync(0xffffffffu, drow, 4);
-  drow += __shfl_xor_sync(0xffffffffu, drow, 2);
-  drow += __shfl_xor_sync(0xffffffffu, drow, 1);
-  if ((threadIdx.x & 7) == 0 && row < C) dbeta_out[pc * C + row] = drow;
-  const float tot = block_sum(dgl, red);
-  if (threadIdx.x == 0) dgl_out[pc] = tot;
+__device__ __forceinline__ float bf16_at(const unsigned char* tile, int off) {
+  return __bfloat162float(*reinterpret_cast<const bf16*>(tile + off));
 }
 
-constexpr int kBWarps = 8;
-constexpr int kBThreads = kBWarps * 32;
-constexpr int kF1Floats = (kMaxC * kLdKf > 2 * kMaxC * kLdCf) ? kMaxC * kLdKf : 2 * kMaxC * kLdCf;
+// Quad sums of a thread's two row partials (rows acc_row(0), acc_row(2)),
+// written by the quad's first lane into dst.
+__device__ __forceinline__ void rows_out(float* dst, float r0, float r1) {
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    r0 += __shfl_xor_sync(0xffffffffu, r0, o);
+    r1 += __shfl_xor_sync(0xffffffffu, r1, o);
+  }
+  if ((threadIdx.x & 3) == 0) {
+    dst[acc_row(0)] = r0;
+    dst[acc_row(2)] = r1;
+  }
+}
 
-constexpr size_t kGradsBSmem =
-    (size_t)3 * kMaxC * kLdK * sizeof(bf16)      // q, k, bf16(-dw) then bf16(dmw)
-    + (size_t)2 * kMaxC * kLdKf * sizeof(float)  // dq and dk's elementwise terms
-    + (size_t)kF1Floats * sizeof(float)          // dmw, then kk and qk
-    + (size_t)kMaxC * kLdCf * sizeof(float)      // dA, then the pairwise term
-    + (size_t)2 * kMaxC * kLdC * sizeof(bf16)    // bf16(dkk), bf16(dqk)
-    + (size_t)kBWarps * 256 * sizeof(float)      // staging
-    + (size_t)(4 * kMaxC + kMaxWarps) * sizeof(float);
+// grid B*N*H items, 256 threads: warpgroups 0 and 1. maps: q, k [B, N*C, H,
+// Dk], v, dO [B, N*C, H, Dv] bf16 (read) and dq, dk, dv (written), boxes of
+// 64 columns by C tokens; st, ex: the entry states and exit cotangents as
+// rows (boxes of 64 x 128).
+__global__ void __launch_bounds__(256, 1)
+delta_bwd_grads_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const __grid_constant__ CUtensorMap map_st,
+                       const __grid_constant__ CUtensorMap map_ex,
+                       const __grid_constant__ CUtensorMap map_dq,
+                       const __grid_constant__ CUtensorMap map_dk,
+                       const __grid_constant__ CUtensorMap map_dv, const GradsArgs a) {
+  typedef GradsSmem L;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = sm + L::kRing;
+  float* gs = reinterpret_cast<float*>(sm + L::kF);
+  float* bs = gs + 64;
+  float* rowg = bs + 64;      // [2][64]
+  float* rowb = rowg + 128;   // [2][64]
+  float* colp = rowb + 128;   // [4][64]
+  float* blk = colp + 256;    // [8]
+  uint64_t* bar_item = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* full = bar_item + 1;
 
-// grid (B*N, H). q, k, dq, dk: [B, N*C, H, Dk] bf16; G, beta, dg, dbeta:
-// [B, N*C, H] float32; tc: [B, N, H, C, C] and w: [B, N, H, C, Dk] bf16;
-// the partials of delta_bwd_grads_a_kernel.
-__global__ void __launch_bounds__(kBThreads)
-delta_bwd_grads_b_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const float* __restrict__ G, const float* __restrict__ beta,
-                         const bf16* __restrict__ tc, const bf16* __restrict__ w,
-                         const float* __restrict__ dkc, const float* __restrict__ dqd,
-                         const float* __restrict__ dw, const float* __restrict__ dp,
-                         const float* __restrict__ dau, const float* __restrict__ dbeta_part,
-                         const float* __restrict__ dgl_part, bf16* __restrict__ dq_out,
-                         bf16* __restrict__ dk_out, float* __restrict__ dg_out,
-                         float* __restrict__ dbeta_out, int C, int H) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kMaxC * kLdK;
-  bf16* dwc = ks + kMaxC * kLdK;
-  float* xq = reinterpret_cast<float*>(dwc + kMaxC * kLdK);
-  float* xk = xq + kMaxC * kLdKf;
-  float* f1 = xk + kMaxC * kLdKf;
-  float* da = f1 + kF1Floats;
-  bf16* dkk = reinterpret_cast<bf16*>(da + kMaxC * kLdCf);
-  bf16* dqk = dkk + kMaxC * kLdC;
-  float* stage = reinterpret_cast<float*>(dqk + kMaxC * kLdC) + (threadIdx.x >> 5) * 256;
-  float* gs = reinterpret_cast<float*>(dqk + kMaxC * kLdC) + kBWarps * 256;
-  float* bs = gs + kMaxC;
-  float* dgr = bs + kMaxC;
-  float* dbr = dgr + kMaxC;
-  float* red = dbr + kMaxC;
-
-  const int warp = threadIdx.x >> 5;
-  const int64_t bn = blockIdx.x;
-  const int h = blockIdx.y;
-  const int64_t pc = bn * H + h;
-  const int64_t ldq = (int64_t)H * kDk;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  const int64_t item = blockIdx.x, bn = item / a.H;
+  const int h = item % a.H, b = bn / a.N, n = bn % a.N, C = a.C;
+  const int panels = a.Dv / kPanel;
   const float scale = 1.0f / sqrtf((float)kDk);
-  const int ct = C / kFrag;
-  constexpr int dt = kDk / kFrag;
+  const unsigned char* rec = a.rec + item * kRecBytes;
 
-  load_rows(qs, kLdK, q + (bn * C * H + h) * kDk, ldq, C, kDk);
-  load_rows(ks, kLdK, k + (bn * C * H + h) * kDk, ldq, C, kDk);
-  for (int r = threadIdx.x; r < C; r += blockDim.x) {
-    gs[r] = G[(bn * C + r) * H + h];
-    bs[r] = beta[(bn * C + r) * H + h];
+  if (tid == 0) {
+    mbar_init(bar_item, 1);
+    for (int s = 0; s < 2; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
   }
-  const float* dqdg = dqd + pc * C * kDk;
-  const float* dkcg = dkc + pc * C * kDk;
-  const float* dwg = dw + pc * C * kDk;
-  for (int e = threadIdx.x; e < C * kDk / 4; e += blockDim.x) {
-    const int r = e / (kDk / 4), c = (e % (kDk / 4)) * 4;
-    cp_async16(xq + r * kLdKf + c, dqdg + r * kDk + c);
-    cp_async16(xk + r * kLdKf + c, dkcg + r * kDk + c);
-  }
-  sync_loads();
-
-  // each row is four threads, each a quarter of the row's columns
-  const int row = threadIdx.x >> 2, part = threadIdx.x & 3;
-  float dg_acc = 0.f, db_acc = 0.f, dgl_acc = 0.f;
-  const float eg = row < C ? expf(gs[row]) : 0.f;
-  const float ec = row < C ? expf(gs[C - 1] - gs[row]) : 0.f;
-  const float btr = row < C ? bs[row] : 0.f;
-
-  // 1. qd = q e^G scale, kc = k e^{G_last - G}: dG gets dqd . qd - dkc . kc,
-  //    the carried decay dkc . kc; dq_x = dqd e^G scale, dk_x = dkc e^{G_last - G};
-  //    bf16(-dw)
-  if (row < C) {
-    for (int d = part * (kDk / 4); d < (part + 1) * (kDk / 4); ++d) {
-      const float qv = __bfloat162float(qs[row * kLdK + d]);
-      const float kv = __bfloat162float(ks[row * kLdK + d]);
-      const float a = xq[row * kLdKf + d], c = xk[row * kLdKf + d];
-      const float kcf = kv * ec;
-      dg_acc += a * (qv * (eg * scale)) - c * kcf;
-      dgl_acc = fmaf(c, kcf, dgl_acc);
-      xq[row * kLdKf + d] = a * (eg * scale);
-      xk[row * kLdKf + d] = c * ec;
-      dwc[row * kLdK + d] = __float2bfloat16(-dwg[row * kDk + d]);
+  if (C < kMaxC) {
+    zero_tail(sm + L::kQ, 2, C, tid, 256);
+    zero_tail(sm + L::kK, 2, C, tid, 256);
+    for (int s = 0; s < 2; ++s) {
+      zero_tail(ring + s * L::kStage + L::kV, 1, C, tid, 256);
+      zero_tail(ring + s * L::kStage + L::kDo, 1, C, tid, 256);
     }
   }
-  __syncthreads();
-
-  // 2. dmw = T^T bf16(-dw)
-  const bf16* tcg = tc + pc * C * C;
-  for (int f = warp; f < ct * dt; f += kBWarps) {
-    const int m0 = (f / dt) * kFrag, n0 = (f % dt) * kFrag;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    mma_tile<true, false>(acc, tcg, C, dwc, kLdK, m0, n0, C);
-    wmma::store_matrix_sync(f1 + m0 * kLdKf + n0, acc, kLdKf, wmma::mem_row_major);
+  if (tid < kMaxC) {
+    gs[tid] = tid < C ? a.G[(bn * C + tid) * a.H + h] : 0.f;
+    bs[tid] = tid < C ? a.beta[(bn * C + tid) * a.H + h] : 0.f;
   }
+  fence_async_shared();
   __syncthreads();
-
-  // 3. w = T (beta e^G k): dk_x += dmw beta e^G, dbeta += dmw . k e^G,
-  //    dG += dmw . beta e^G k; bf16(dmw)
-  if (row < C) {
-    for (int d = part * (kDk / 4); d < (part + 1) * (kDk / 4); ++d) {
-      const float m = f1[row * kLdKf + d];
-      const float kneg = __bfloat162float(ks[row * kLdK + d]) * eg;
-      xk[row * kLdKf + d] += m * (eg * btr);
-      db_acc += m * kneg;
-      dg_acc += m * kneg * btr;
-      dwc[row * kLdK + d] = __float2bfloat16(m);
-    }
+  auto load_panel = [&](int pp) {
+    unsigned char* st = ring + (pp & 1) * L::kStage;
+    mbar_arrive_expect_tx(&full[pp & 1], 4 * kCC + 2 * C * 128);
+    tma_load_4d(st + L::kS, &map_st, &full[pp & 1], pp * kPanel, (int)(item * kDk), 0, 0);
+    tma_load_4d(st + L::kZ, &map_ex, &full[pp & 1], pp * kPanel, (int)(item * kDk), 0, 0);
+    tma_load_4d(st + L::kV, &map_v, &full[pp & 1], pp * kPanel, h, n * C, b);
+    tma_load_4d(st + L::kDo, &map_do, &full[pp & 1], pp * kPanel, h, n * C, b);
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(bar_item, 2 * kCC + kCK + kCK + 2 * 2 * C * 128);
+    bulk_load(sm + L::kT, rec + kRecT, 2 * kCC + kCK, bar_item);  // T, P, w
+    bulk_load(sm + L::kKc, rec + kRecKc, kCK, bar_item);
+    tma_load_cols<kDk, kMaxC>(sm + L::kQ, &map_q, bar_item, 0, n * C, h, b);
+    tma_load_cols<kDk, kMaxC>(sm + L::kK, &map_k, bar_item, 0, n * C, h, b);
+    load_panel(0);
+    if (panels > 1) load_panel(1);
   }
-  __syncthreads();
+  mbar_wait(bar_item, 0);
 
-  // 4. dA = -(dA_u + bf16(dmw) w^T); kk = k k^T and qk = q k^T into f1
-  float* kkf = f1;
-  float* qkf = f1 + kMaxC * kLdCf;
-  const bf16* wg = w + pc * C * kDk;
-  const float* daug = dau + pc * C * C;
-  for (int f = warp; f < ct * ct; f += kBWarps) {
-    const int m0 = (f / ct) * kFrag, n0 = (f % ct) * kFrag;
-    Acc acc, kk, qk;
-    wmma::load_matrix_sync(acc, daug + m0 * C + n0, C, wmma::mem_row_major);
-    mma_tile<false, true>(acc, dwc, kLdK, wg, kDk, m0, n0, kDk);
+  unsigned char *T = sm + L::kT, *P = sm + L::kP, *W = sm + L::kW, *Kc = sm + L::kKc,
+                *Q = sm + L::kQ, *K = sm + L::kK;
+  unsigned char *bv = sm + L::kBv, *ub = sm + L::kUb, *ve = sm + L::kVe, *dve = sm + L::kDve,
+                *dvs = sm + L::kDvs;
+  const int r0 = acc_row(0), r1 = acc_row(2);
+
+  if (wg == 0) {
+    // ---- warpgroup 0: u, v_eff; sums dkc, dw; then dmw and dk
+    float dkc[16][4], dw[16][4];
+    float sdz = 0.f;  // sum of S * dS
+    for (int pp = 0; pp < panels; ++pp) {
+      const int s = pp & 1;
+      mbar_wait(&full[s], (pp >> 1) & 1);
+      unsigned char* st = ring + s * L::kStage;
+      // bf16(beta v), elementwise by row over the v panel's 16-byte chunks
+      for (int e = t; e < kCC / 16; e += 128) {
+        float x[8];
+        load8(st + L::kV + e * 16, x);
+        const float bt = bs[(e * 16) / 128];
 #pragma unroll
-    for (int i = 0; i < acc.num_elements; ++i) acc.x[i] = -acc.x[i];
-    wmma::store_matrix_sync(da + m0 * kLdCf + n0, acc, kLdCf, wmma::mem_row_major);
-    wmma::fill_fragment(kk, 0.0f);
-    wmma::fill_fragment(qk, 0.0f);
-    if (n0 <= m0) {
-      mma_tile<false, true>(kk, ks, kLdK, ks, kLdK, m0, n0, kDk);
-      mma_tile<false, true>(qk, qs, kLdK, ks, kLdK, m0, n0, kDk);
+        for (int i = 0; i < 8; ++i) x[i] *= bt;
+        store8(bv + e * 16, x);
+      }
+      fence_async_shared();
+      named_sync(kBarWg0, 128);
+      // u = T bf16(beta v), kept as bf16(u) for dA_u; v_eff = u - w S
+      float u[8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss<0, 1>(u, desc_kmajor(T, 0) + kstep_kmajor<kMaxC>(ks),
+                       desc_mnmajor<kMaxC>(bv) + kstep_mnmajor(ks), ks > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(u);
+      acc_to_panels<kMaxC>(ub, u);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        wgmma_ss<0, 1, 1>(u, desc_kmajor(W, 0) + kstep_kmajor<kMaxC>(ks),
+                          desc_mnmajor<kDk>(st + L::kS) + kstep_mnmajor(ks), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(u);
+      acc_to_panels<kMaxC>(ve, u);
+      uint32_t vf[4][4];
+      acc_frags<kMaxC>(vf, u);
+      fence_async_shared();
+      named_arrive(kBar01, 256);  // bf16(u), bf16(v_eff) -> warpgroup 1
+      // dkc += v_eff dS^T; then, with dv_eff from warpgroup 1, dw += dv_eff S^T
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_rs<0>(dkc, vf[ks], desc_kmajor(st + L::kZ, 0) + kstep_kmajor<kDk>(ks),
+                    pp > 0 || ks > 0);
+      wgmma_commit();
+      named_sync(kBar10, 256);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss(dw, desc_kmajor(dve, 0) + kstep_kmajor<kMaxC>(ks),
+                 desc_kmajor(st + L::kS, 0) + kstep_kmajor<kDk>(ks), pp > 0 || ks > 0);
+      wgmma_commit();
+      // sum(S * dS) for the carried decay, while the products run
+      for (int e = t; e < 2 * kCC / 16; e += 128) {
+        float x[8], y[8];
+        load8(st + L::kS + e * 16, x);
+        load8(st + L::kZ + e * 16, y);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sdz = fmaf(x[i], y[i], sdz);
+      }
+      wgmma_wait<0>();
+      fence_acc(dkc);
+      fence_acc(dw);
+      fence_frag(vf);
+      named_sync(kBarAll, 256);  // the panel's tiles are read: its stage may be refilled
+      if (tid == 0 && pp + 2 < panels) load_panel(pp + 2);
     }
-    wmma::store_matrix_sync(kkf + m0 * kLdCf + n0, kk, kLdCf, wmma::mem_row_major);
-    wmma::store_matrix_sync(qkf + m0 * kLdCf + n0, qk, kLdCf, wmma::mem_row_major);
-  }
-  __syncthreads();
 
-  // 5. the pairwise terms, A = beta_i kk exp(G_i - G_j) (j < i) and
-  //    P = qk exp(G_i - G_j) scale (j <= i): dbeta += dA . kk ds,
-  //    dkk = bf16(dA ds beta), dqk = bf16(dP di), m = dA A + dP P -> dA's place
-  const float* dpg = dp + pc * C * C;
-  if (row < C) {
-    const int span = (C + 3) / 4;
-    for (int j = part * span; j < min(C, (part + 1) * span); ++j) {
-      const float dsv = j < row ? expf(gs[row] - gs[j]) : 0.f;
-      const float div = j <= row ? expf(gs[row] - gs[j]) * scale : 0.f;
-      const float dav = da[row * kLdCf + j], dpv = dpg[row * C + j];
-      const float kkds = kkf[row * kLdCf + j] * dsv;
-      db_acc += dav * kkds;
-      dkk[row * kLdC + j] = __float2bfloat16(dav * dsv * btr);
-      dqk[row * kLdC + j] = __float2bfloat16(dpv * div);
-      const float m = dav * kkds * btr + dpv * (qkf[row * kLdCf + j] * div);
-      dg_acc += m;
-      da[row * kLdCf + j] = m;
+    // dmw = T^T bf16(-dw), into dw
+    unsigned char *nw = sm + L::kNw, *dmw = sm + L::kDmw;
+    acc_to_panels<kDk>(nw, dw, [](int, int, float x) { return -x; });
+    fence_async_shared();
+    named_sync(kBarWg0, 128);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<1, 1>(dw, desc_mnmajor<kMaxC>(T) + kstep_mnmajor(ks),
+                     desc_mnmajor<kMaxC>(nw) + kstep_mnmajor(ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dw);
+    // kc = k e^{G_last - G}: dG -= dkc . kc, the carried decay += dkc . kc,
+    // dk_x = dkc e^{G_last - G}; w = T (beta e^G k): dk_x += dmw beta e^G,
+    // dbeta += dmw . k e^G, dG += dmw . beta e^G k
+    const float gl = gs[C - 1];
+    const float eg[2] = {expf(gs[r0]), expf(gs[r1])};
+    const float ec[2] = {expf(gl - gs[r0]), expf(gl - gs[r1])};
+    const float bt[2] = {bs[r0], bs[r1]};
+    float gr[2] = {0.f, 0.f}, br[2] = {0.f, 0.f}, dgl = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        const float kv = bf16_at(K, tile_off<kMaxC>(acc_row(e), acc_col(i, e)));
+        const float m = dw[i][e], kneg = kv * eg[hf], kcf = kv * ec[hf];
+        br[hf] += m * kneg;
+        gr[hf] += m * kneg * bt[hf];
+        gr[hf] -= dkc[i][e] * kcf;
+        dgl = fmaf(dkc[i][e], kcf, dgl);
+        dkc[i][e] = dkc[i][e] * ec[hf] + m * (eg[hf] * bt[hf]);
+      }
+    acc_to_panels<kDk>(dmw, dw);
+    fence_async_shared();
+    named_arrive(kBar01, 256);  // bf16(dmw) -> warpgroup 1
+    rows_out(rowg, gr[0], gr[1]);
+    rows_out(rowb, br[0], br[1]);
+    // warpgroup 0's block sums: sum(S * dS) and the carried decay's dkc . kc
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sdz += __shfl_xor_sync(0xffffffffu, sdz, o);
+      dgl += __shfl_xor_sync(0xffffffffu, dgl, o);
+    }
+    if (lane == 0) {
+      blk[warp] = sdz;
+      blk[4 + warp] = dgl;
+    }
+    // dk = dk_x + dkk k + dkk^T k + dqk^T q, with dkk and dqk from warpgroup 1
+    named_sync(kBar10, 256);
+    unsigned char *dkk = sm + L::kDkk, *dqk = sm + L::kDqk, *dks = sm + L::kDks;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<0, 1>(dkc, desc_kmajor(dkk, 0) + kstep_kmajor<kMaxC>(ks),
+                     desc_mnmajor<kMaxC>(K) + kstep_mnmajor(ks), 1);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<1, 1>(dkc, desc_mnmajor<kMaxC>(dkk) + kstep_mnmajor(ks),
+                     desc_mnmajor<kMaxC>(K) + kstep_mnmajor(ks), 1);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<1, 1>(dkc, desc_mnmajor<kMaxC>(dqk) + kstep_mnmajor(ks),
+                     desc_mnmajor<kMaxC>(Q) + kstep_mnmajor(ks), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dkc);
+    acc_to_panels<kDk>(dks, dkc);
+    fence_async_shared();
+    named_sync(kBarWg0, 128);
+    if (t == 0) {
+      tma_store_4d_part(&map_dk, dks, 0, h, n * C, b);
+      tma_store_4d_part(&map_dk, dks + kCC, 64, h, n * C, b);
+      tma_store_commit();
+    }
+  } else {
+    // ---- warpgroup 1: dv_eff, dmu, dv; sums dqd, dP, dA_u; then dA, the
+    //      pairwise terms and dq
+    float dqd[16][4], dp[8][4], dau[8][4];
+    float br[2] = {0.f, 0.f};  // dbeta's row sums of dmu . v
+    for (int pp = 0; pp < panels; ++pp) {
+      const int s = pp & 1;
+      mbar_wait(&full[s], (pp >> 1) & 1);
+      unsigned char* st = ring + s * L::kStage;
+      // dv_eff = P^T dO + kc dS
+      float dv[8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss<1, 1>(dv, desc_mnmajor<kMaxC>(P) + kstep_mnmajor(ks),
+                       desc_mnmajor<kMaxC>(st + L::kDo) + kstep_mnmajor(ks), ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        wgmma_ss<0, 1>(dv, desc_kmajor(Kc, 0) + kstep_kmajor<kMaxC>(ks),
+                       desc_mnmajor<kDk>(st + L::kZ) + kstep_mnmajor(ks), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dv);
+      acc_to_panels<kMaxC>(dve, dv);
+      fence_async_shared();
+      named_arrive(kBar10, 256);  // bf16(dv_eff) -> warpgroup 0
+      named_sync(kBarWg1, 128);
+      // dmu = T^T bf16(dv_eff), into dv
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss<1, 1>(dv, desc_mnmajor<kMaxC>(T) + kstep_mnmajor(ks),
+                       desc_mnmajor<kMaxC>(dve) + kstep_mnmajor(ks), ks > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dv);
+      // dv = bf16(dmu beta) out; dbeta's row sums of dmu . v; bf16(dmu)
+      acc_to_panels<kMaxC>(dvs, dv, [&](int r, int, float x) { return x * bs[r]; });
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          br[e >> 1] = fmaf(dv[i][e], bf16_at(st + L::kV, swizzle128(acc_row(e), acc_col(i, e))),
+                            br[e >> 1]);
+      uint32_t mf[4][4];
+      acc_frags<kMaxC>(mf, dv);
+      fence_async_shared();
+      named_sync(kBarWg1, 128);
+      if (t == 0) tma_store_4d(&map_dv, dvs, pp * kPanel, h, n * C, b);
+      // dqd += dO S^T; then, with u and v_eff from warpgroup 0, dP += dO
+      // v_eff^T and dA_u += bf16(dmu) bf16(u)^T
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss(dqd, desc_kmajor(st + L::kDo, 0) + kstep_kmajor<kMaxC>(ks),
+                 desc_kmajor(st + L::kS, 0) + kstep_kmajor<kDk>(ks), pp > 0 || ks > 0);
+      wgmma_commit();
+      named_sync(kBar01, 256);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss(dp, desc_kmajor(st + L::kDo, 0) + kstep_kmajor<kMaxC>(ks),
+                 desc_kmajor(ve, 0) + kstep_kmajor<kMaxC>(ks), pp > 0 || ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_rs<0>(dau, mf[ks], desc_kmajor(ub, 0) + kstep_kmajor<kMaxC>(ks), pp > 0 || ks > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dqd);
+      fence_acc(dp);
+      fence_acc(dau);
+      fence_frag(mf);
+      if (t == 0) tma_store_wait_read<0>();  // dv's staging is free again
+      named_sync(kBarAll, 256);
+    }
+
+    // qd = q e^G scale: dG += dqd . qd; dq_x = dqd e^G scale
+    const float fq[2] = {expf(gs[r0]) * scale, expf(gs[r1]) * scale};
+    float gr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float qv = bf16_at(Q, tile_off<kMaxC>(acc_row(e), acc_col(i, e)));
+        gr[e >> 1] += dqd[i][e] * (qv * fq[e >> 1]);
+        dqd[i][e] *= fq[e >> 1];
+      }
+    // qk = q k^T; dqk = bf16(dP di); the dP term of the pairwise sum into qk
+    float qk[8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kDk / 16; ++ks)
+      wgmma_ss(qk, desc_kmajor(Q, 0) + kstep_kmajor<kMaxC>(ks),
+               desc_kmajor(K, 0) + kstep_kmajor<kMaxC>(ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(qk);
+    unsigned char *dkk = sm + L::kDkk, *dqk = sm + L::kDqk, *dqs = sm + L::kDqs;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int r = acc_row(e), c = acc_col(i, e);
+        const float d0 = c <= r ? expf(gs[r] - gs[c]) * scale : 0.f;
+        const float d1 = c + 1 <= r ? expf(gs[r] - gs[c + 1]) * scale : 0.f;
+        *reinterpret_cast<uint32_t*>(dqk + swizzle128(r, c)) =
+            pack_bf16(dp[i][e] * d0, dp[i][e + 1] * d1);
+        qk[i][e] = dp[i][e] * (qk[i][e] * d0);
+        qk[i][e + 1] = dp[i][e + 1] * (qk[i][e + 1] * d1);
+      }
+    // dA = -(dA_u + bf16(dmw) w^T), with bf16(dmw) from warpgroup 0; kk = k k^T
+    named_sync(kBar01, 256);
+    float kk[8][4];
+    unsigned char* dmw = sm + L::kDmw;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kDk / 16; ++ks)
+      wgmma_ss(dau, desc_kmajor(dmw, 0) + kstep_kmajor<kMaxC>(ks),
+               desc_kmajor(W, 0) + kstep_kmajor<kMaxC>(ks), 1);
+#pragma unroll
+    for (int ks = 0; ks < kDk / 16; ++ks)
+      wgmma_ss(kk, desc_kmajor(K, 0) + kstep_kmajor<kMaxC>(ks),
+               desc_kmajor(K, 0) + kstep_kmajor<kMaxC>(ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dau);
+    fence_acc(kk);
+    // A = beta_i kk ds (j < i): dbeta += dA . kk ds; dkk = bf16(dA ds beta);
+    // the pairwise term m = dA A + dP P: dG += row sums - column sums
+    float cs[8][2];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int r = acc_row(e), c = acc_col(i, e), hf = e >> 1;
+        float dkv[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float da = -dau[i][e + j];
+          const float dsv = c + j < r ? expf(gs[r] - gs[c + j]) : 0.f;
+          const float kkds = kk[i][e + j] * dsv;
+          br[hf] += da * kkds;
+          dkv[j] = da * dsv * bs[r];
+          const float m = da * kkds * bs[r] + qk[i][e + j];
+          gr[hf] += m;
+          if (hf == 0) cs[i][j] = m;
+          else cs[i][j] += m;
+        }
+        *reinterpret_cast<uint32_t*>(dkk + swizzle128(r, c)) = pack_bf16(dkv[0], dkv[1]);
+      }
+    fence_async_shared();
+    named_sync(kBarWg1, 128);
+    named_arrive(kBar10, 256);  // dkk, dqk -> warpgroup 0
+    // dq = dq_x + dqk k
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<0, 1>(dqd, desc_kmajor(dqk, 0) + kstep_kmajor<kMaxC>(ks),
+                     desc_mnmajor<kMaxC>(K) + kstep_mnmajor(ks), 1);
+    wgmma_commit();
+    // column sums over the warp's 16 rows (lanes 4 apart), by warp
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float v = cs[i][j];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (lane < 4) colp[warp * 64 + 8 * i + 2 * lane + j] = v;
+      }
+    rows_out(rowg + 64, gr[0], gr[1]);
+    rows_out(rowb + 64, br[0], br[1]);
+    wgmma_wait<0>();
+    fence_acc(dqd);
+    acc_to_panels<kDk>(dqs, dqd);
+    fence_async_shared();
+    named_sync(kBarWg1, 128);
+    if (t == 0) {
+      tma_store_4d_part(&map_dq, dqs, 0, h, n * C, b);
+      tma_store_4d_part(&map_dq, dqs + kCC, 64, h, n * C, b);
+      tma_store_commit();
     }
   }
-  dg_acc += __shfl_xor_sync(0xffffffffu, dg_acc, 1);
-  dg_acc += __shfl_xor_sync(0xffffffffu, dg_acc, 2);
-  db_acc += __shfl_xor_sync(0xffffffffu, db_acc, 1);
-  db_acc += __shfl_xor_sync(0xffffffffu, db_acc, 2);
-  if (part == 0 && row < C) {
-    dgr[row] = dg_acc;
-    dbr[row] = db_acc;
-  }
+
+  // dG and dbeta of the chunk's tokens, every sum in a fixed order
   __syncthreads();
-
-  // 6. dq = dq_x + dqk k;  dk = dk_x + dkk k + dkk^T k + dqk^T q
-  for (int f = warp; f < ct * dt; f += kBWarps) {
-    const int m0 = (f / dt) * kFrag, n0 = (f % dt) * kFrag;
-    Acc acc;
-    wmma::load_matrix_sync(acc, xq + m0 * kLdKf + n0, kLdKf, wmma::mem_row_major);
-    mma_tile<false, false>(acc, dqk, kLdC, ks, kLdK, m0, n0, C);
-    store_bf16(acc, stage, dq_out + ((bn * C + m0) * H + h) * kDk + n0, ldq);
-    wmma::load_matrix_sync(acc, xk + m0 * kLdKf + n0, kLdKf, wmma::mem_row_major);
-    mma_tile<false, false>(acc, dkk, kLdC, ks, kLdK, m0, n0, C);
-    mma_tile<true, false>(acc, dkk, kLdC, ks, kLdK, m0, n0, C);
-    mma_tile<true, false>(acc, dqk, kLdC, qs, kLdK, m0, n0, C);
-    store_bf16(acc, stage, dk_out + ((bn * C + m0) * H + h) * kDk + n0, ldq);
+  if (tid < C) {
+    const int j = tid;
+    float g = rowg[j] + rowg[64 + j] - (colp[j] + colp[64 + j] + colp[128 + j] + colp[192 + j]);
+    if (j == C - 1) {
+      const float sdz = blk[0] + blk[1] + blk[2] + blk[3];
+      const float dgl = blk[4] + blk[5] + blk[6] + blk[7];
+      g += expf(gs[C - 1]) * sdz + dgl;
+    }
+    a.dg[(bn * C + j) * a.H + h] = g;
+    a.dbeta[(bn * C + j) * a.H + h] = rowb[j] + rowb[64 + j];
   }
-
-  // 7. dG = row sums - column sums of m (+ the carried decay on the last
-  //    row); dbeta
-  const float dgl = block_sum(dgl_acc, red);
-  if (threadIdx.x < C) {
-    const int j = threadIdx.x;
-    float col = 0.f;
-    for (int i = 0; i < C; ++i) col += da[i * kLdCf + j];
-    float g = dgr[j] - col;
-    if (j == C - 1) g += expf(gs[C - 1]) * dgl_part[pc] + dgl;
-    dg_out[(bn * C + j) * H + h] = g;
-    dbeta_out[(bn * C + j) * H + h] = dbr[j] + dbeta_part[pc * C + j];
-  }
+  if (t == 0) tma_store_wait_all();
 }
 
 }  // namespace
 
 extern "C" {
 
-int mhla_delta_bwd_chain(const void* p, const void* qd, const void* w, const void* kc,
-                         const void* dout, const void* G, const void* ds_final, void* exits,
+int mhla_delta_bwd_chain(const void* rec, const void* dout, const void* ds_final, void* exits,
                          void* ds0, int B, int N, int C, int H, int Dv, void* stream) {
-  if (Dv % kTile || C % kFrag || C > kMaxC) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(delta_bwd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kBwdChainSmem);
-  dim3 grid(Dv / kTile, H, B);
-  delta_bwd_chain_kernel<<<grid, kChainThreads, kBwdChainSmem, (cudaStream_t)stream>>>(
-      (const bf16*)p, (const bf16*)qd, (const bf16*)w, (const bf16*)kc, (const bf16*)dout,
-      (const float*)G, (const float*)ds_final, (bf16*)exits, (float*)ds0, N, C, H, Dv);
+  if (Dv % kPanel || Dv <= 0 || C % 16 || C <= 0 || C > kMaxC) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  int err = hopper_host::resident_blocks((const void*)delta_bwd_chain_kernel, 160,
+                                         BwdChainSmem::kBytes, &blocks);
+  CUtensorMap map_do, map_ex;
+  if (!err) err = hopper_host::make_tile_map(&map_do, dout, B, N * C, H, Dv, C);
+  if (!err) err = hopper_host::make_rows_map(&map_ex, exits, 1, 1, B * N * H * kDk, Dv, kDk);
+  if (err) return err;
+  delta_bwd_chain_kernel<<<B * H * (Dv / kPanel), 160, BwdChainSmem::kBytes,
+                           (cudaStream_t)stream>>>(map_do, map_ex, (const unsigned char*)rec,
+                                                   (const float*)ds_final, (float*)ds0, N, C, H,
+                                                   Dv);
   return (int)cudaGetLastError();
 }
 
 int mhla_delta_bwd_grads(const void* q, const void* k, const void* v, const void* G,
                          const void* beta, const void* states, const void* exits,
-                         const void* dout, const void* tc, const void* w, const void* p,
-                         const void* kc, void* dkc, void* dqd, void* dw, void* dp, void* dau,
-                         void* dbeta_part, void* dgl_part, void* dq, void* dk, void* dv,
+                         const void* dout, const void* rec, void* dq, void* dk, void* dv,
                          void* dg, void* dbeta, int B, int N, int C, int H, int Dv,
                          void* stream) {
-  if (Dv % kTile || C % kFrag || C > kMaxC) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(delta_bwd_grads_a_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kGradsASmem);
-  cudaFuncSetAttribute(delta_bwd_grads_b_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kGradsBSmem);
-  dim3 grid(B * N, H);
-  delta_bwd_grads_a_kernel<<<grid, kAThreads, kGradsASmem, (cudaStream_t)stream>>>(
-      (const bf16*)v, (const float*)beta, (const bf16*)states, (const bf16*)exits,
-      (const bf16*)dout, (const bf16*)tc, (const bf16*)w, (const bf16*)p, (const bf16*)kc,
-      (float*)dkc, (float*)dqd, (float*)dw, (float*)dp, (float*)dau, (float*)dbeta_part,
-      (float*)dgl_part, (bf16*)dv, C, H, Dv);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  delta_bwd_grads_b_kernel<<<grid, kBThreads, kGradsBSmem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const float*)G, (const float*)beta, (const bf16*)tc,
-      (const bf16*)w, (const float*)dkc, (const float*)dqd, (const float*)dw,
-      (const float*)dp, (const float*)dau, (const float*)dbeta_part, (const float*)dgl_part,
-      (bf16*)dq, (bf16*)dk, (float*)dg, (float*)dbeta, C, H);
+  if (Dv % kPanel || Dv <= 0 || C % 16 || C <= 0 || C > kMaxC) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  int err = hopper_host::resident_blocks((const void*)delta_bwd_grads_kernel, 256,
+                                         GradsSmem::kBytes, &blocks);
+  const int T = N * C;
+  CUtensorMap mq, mk, mv, mdo, mst, mex, mdq, mdk, mdv;
+  if (!err) err = hopper_host::make_tile_map(&mq, q, B, T, H, kDk, C);
+  if (!err) err = hopper_host::make_tile_map(&mk, k, B, T, H, kDk, C);
+  if (!err) err = hopper_host::make_tile_map(&mv, v, B, T, H, Dv, C);
+  if (!err) err = hopper_host::make_tile_map(&mdo, dout, B, T, H, Dv, C);
+  if (!err) err = hopper_host::make_rows_map(&mst, states, 1, 1, B * N * H * kDk, Dv, kDk);
+  if (!err) err = hopper_host::make_rows_map(&mex, exits, 1, 1, B * N * H * kDk, Dv, kDk);
+  if (!err) err = hopper_host::make_tile_map(&mdq, dq, B, T, H, kDk, C);
+  if (!err) err = hopper_host::make_tile_map(&mdk, dk, B, T, H, kDk, C);
+  if (!err) err = hopper_host::make_tile_map(&mdv, dv, B, T, H, Dv, C);
+  if (err) return err;
+  const GradsArgs args = {(const unsigned char*)rec, (const float*)G, (const float*)beta,
+                          (float*)dg, (float*)dbeta, N, C, H, Dv};
+  delta_bwd_grads_kernel<<<B * N * H, 256, GradsSmem::kBytes, (cudaStream_t)stream>>>(
+      mq, mk, mv, mdo, mst, mex, mdq, mdk, mdv, args);
   return (int)cudaGetLastError();
 }
 

@@ -172,14 +172,6 @@ __device__ __forceinline__ void mma(float (&acc)[R][4], LoadA load, uint64_t bhi
   fence_acc(acc);
 }
 
-// The accumulator element e of tile i of a lane: (row, column) of the m64nN result.
-__device__ __forceinline__ int acc_row(int e) {
-  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
-}
-__device__ __forceinline__ int acc_col(int i, int e) {
-  return 8 * i + 2 * (threadIdx.x & 3) + (e & 1);
-}
-
 }  // namespace gla
 
 // ---- the state pass and the host side, in the including file's anonymous

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
 // (flash_fwd.cu, flash_bwd.cu), K2 and K4 (mhla_chunk.cu), K2b and K4b
-// (mhla_chunk_bwd.cu), K3 / K3b (mhla_mix_wide.cu), K6 (mhla_block.cu) and
-// K12 / K12b (gla_chunk.cu, gla_chunk_bwd.cu):
+// (mhla_chunk_bwd.cu), K3 / K3b (mhla_mix_wide.cu), K6 (mhla_block.cu),
+// K11 / K11b (delta_chunk.cu, delta_chunk_bwd.cu) and K12 / K12b
+// (gla_chunk.cu, gla_chunk_bwd.cu):
 // mbarriers, TMA tile loads through tensor maps (multicast to a cluster's
-// blocks too), wgmma products in bf16 and TF32 with their shared-memory
+// blocks too) and one-dimensional bulk copies, ldmatrix / stmatrix, wgmma products in bf16 and TF32 with their shared-memory
 // descriptors and fences, named barriers, cluster barriers and setmaxnreg.
 // The kernels' tiles live in shared memory in the layout a TMA load with
 // 128-byte swizzle writes: a [rows][D] bf16 tile is D / 64 panels of
@@ -182,21 +183,36 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Round a warpgroup's [64 x kN] float32 accumulator (the wgmma layout) to
-// bf16 into kN / 64 panels of [64][64] at ``dst``, 8 KB apart, in the
-// 128-byte swizzle layout a TMA store of 64 x 64 boxes reads.
-template <int kN>
-__device__ __forceinline__ void acc_to_panels(unsigned char* dst, const float (&acc)[kN / 8][4]) {
+// The (row, column) of element e of tile i of this thread's part of a
+// warpgroup's m64nN float32 accumulator (the layout above).
+__device__ __forceinline__ int acc_row(int e) {
+  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int acc_col(int i, int e) {
+  return 8 * i + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// Round f(row, column, x) of a warpgroup's [64 x kN] float32 accumulator
+// (the wgmma layout) to bf16 into kN / 64 panels of [64][64] at ``dst``, 8 KB
+// apart, in the 128-byte swizzle layout a TMA store of 64 x 64 boxes reads.
+template <int kN, typename F>
+__device__ __forceinline__ void acc_to_panels(unsigned char* dst, const float (&acc)[kN / 8][4],
+                                              F f) {
   const int t = threadIdx.x % 128, r0 = (t >> 5) * 16 + ((t & 31) >> 2), tg = t & 3;
 #pragma unroll
   for (int i = 0; i < kN / 8; ++i) {
     unsigned char* panel = dst + (i / 8) * 64 * 128;
-    const int c = (i % 8) * 8 + tg * 2;
+    const int c = (i % 8) * 8 + tg * 2, col = 8 * i + tg * 2;
     *reinterpret_cast<__nv_bfloat162*>(panel + swizzle128(r0, c)) =
-        __floats2bfloat162_rn(acc[i][0], acc[i][1]);
+        __floats2bfloat162_rn(f(r0, col, acc[i][0]), f(r0, col + 1, acc[i][1]));
     *reinterpret_cast<__nv_bfloat162*>(panel + swizzle128(r0 + 8, c)) =
-        __floats2bfloat162_rn(acc[i][2], acc[i][3]);
+        __floats2bfloat162_rn(f(r0 + 8, col, acc[i][2]), f(r0 + 8, col + 1, acc[i][3]));
   }
+}
+
+template <int kN>
+__device__ __forceinline__ void acc_to_panels(unsigned char* dst, const float (&acc)[kN / 8][4]) {
+  acc_to_panels<kN>(dst, acc, [](int, int, float x) { return x; });
 }
 
 // All D columns: a tile of D / 64 panels.
@@ -204,6 +220,25 @@ template <int kD, int kRows>
 __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
                                               int t0, int h, int b) {
   tma_load_cols<kD, kRows>(dst, map, bar, 0, t0, h, b);
+}
+
+// One-dimensional bulk copies (no tensor map): ``bytes`` (a multiple of 16,
+// both addresses 16-byte aligned) from device to shared memory, completing a
+// transaction of ``bar``; and from shared to device memory into the issuing
+// thread's open bulk group (tma_store_commit closes it).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
 }
 
 // ---- wgmma
@@ -302,16 +337,18 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[R][4]) {
 
 // D[64 x N] (+)= A B, N = 64, 128 or 256 (the accumulator's size picks it): A
 // and B from shared memory, K-major unless kTransA / kTransB is 1 (then
-// MN-major: the K index runs down the tile's rows, as desc_mnmajor describes).
-template <int kTransA = 0, int kTransB = 0>
+// MN-major: the K index runs down the tile's rows, as desc_mnmajor describes);
+// at N = 64 with kNegA, D (+)= -A B.
+template <int kTransA = 0, int kTransB = 0, int kNegA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HOPPER_REGS32
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      "}, %32, %33, p, %37, 1, %35, %36;\n}\n"
       : HOPPER_ACC8(d)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB),
+        "n"(kNegA ? -1 : 1));
 }
 
 template <int kTransA = 0, int kTransB = 0>
@@ -336,16 +373,31 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32][4], uint64_t desc_a, uin
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
-// D[64 x N] (+)= A B, N = 128 or 256: A from registers (the m64k16 A
-// fragments), B from shared memory, MN-major (its rows are the K index).
+// D[64 x N] (+)= A B, N = 64, 128 or 256: A from registers (the m64k16 A
+// fragments), B from shared memory, MN-major (its rows are the K index)
+// unless kTransB is 0 (then K-major); with kNegA, D (+)= -A B.
+template <int kTransB = 1, int kNegA = 0>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HOPPER_REGS32
+      "}, {%32, %33, %34, %35}, %36, p, %38, 1, %39;\n}\n"
+      : HOPPER_ACC8(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kNegA ? -1 : 1), "n"(kTransB));
+}
+
+template <int kTransB = 1, int kNegA = 0>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[4],
                                          uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" HOPPER_REGS64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, %70, 1, %71;\n}\n"
       : HOPPER_ACC16(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kNegA ? -1 : 1), "n"(kTransB));
 }
 
 __device__ __forceinline__ void wgmma_rs(float (&d)[32][4], const uint32_t (&a)[4],
@@ -358,6 +410,39 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32][4], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// A [64 x 16 k] fragments of bf16(acc) for a [64 x kN] float32 accumulator:
+// k-step s covers its columns [16 s, 16 s + 16) (the accumulator of one
+// product as the A operand of the next, as flash_fwd.cu's P @ V).
+template <int kN>
+__device__ __forceinline__ void acc_frags(uint32_t (&a)[kN / 16][4],
+                                          const float (&acc)[kN / 8][4]) {
+#pragma unroll
+  for (int s = 0; s < kN / 16; ++s) {
+    a[s][0] = pack_bf16(acc[2 * s][0], acc[2 * s][1]);
+    a[s][1] = pack_bf16(acc[2 * s][2], acc[2 * s][3]);
+    a[s][2] = pack_bf16(acc[2 * s + 1][0], acc[2 * s + 1][1]);
+    a[s][3] = pack_bf16(acc[2 * s + 1][2], acc[2 * s + 1][3]);
+  }
+}
+
+// ldmatrix / stmatrix, four 8 x 8 bf16 matrices, transposed: lane l gives
+// the address of row l % 8 of matrix l / 8 (16 contiguous bytes); matrix j
+// is register j. ldsm_x4_t loads each stored matrix's transpose in the mma
+// fragment layout (lane l: row l / 4, columns 2 (l % 4), +1); stsm_x4_t
+// stores fragment j transposed (its column c becomes stored row c).
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+__device__ __forceinline__ void stsm_x4_t(void* row, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_u32(row)),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
 
 // ---- TF32 products (K6, K12, K12b)
 

@@ -25,6 +25,13 @@ group a process:
   launches (``torch.profiler``: the state pass, the readout or gradients
   pass, and the bf16 form's float32 copies); steps the training steps of
   (q), the GLA LM, and (r), the simple GLA LM (letters q, r).
+- ``delta``: K11 (``kernels/delta_chunk.py``) in its training form at (o)'s
+  shape [8, 2048, 4, 128|256] and its serving form at (n)'s prefill of 4 x
+  1,984 tokens, and K11b at (o)'s shape, bf16, each with its wrapper's host
+  cost a call and the card's time for each of its launches (the per-chunk
+  prep, the chain, the gradients); steps the training steps of (o), the
+  Gated DeltaNet LM, and (n)'s prefill (host clock and card time; letters
+  o, n).
 
 It imports ``mhla_tpu_torch`` and ``chip_smoke`` from the current directory,
 so the same file times another checkout too, such as a parent tree unpacked
@@ -219,22 +226,23 @@ def time_k4(mc, tag: str, b: int, per_row: bool) -> None:
     report(tag, f"K4 B={b} T=2048 {'per-row' if per_row else 'shared'} md", r)
 
 
-def time_prefill(cs, tag: str) -> None:
+def time_prefill(cs, tag: str, extends: str = "", name: str = "a") -> None:
     """(a)'s prefill: one cache-building forward of the 340M model (bf16,
-    seeded init) over 4 x 1,984 tokens under ``torch.no_grad``."""
+    seeded init) over 4 x 1,984 tokens under ``torch.no_grad``; with
+    ``extends``, that baseline LM's ((n): ``gated_deltanet``)."""
     import torch
 
     from mhla_tpu_torch.models import MHLAForCausalLM, MHLALMConfig, init_lm_params
 
     dev = torch.device("cuda")
-    cfg = MHLALMConfig(dtype=torch.bfloat16)
+    cfg = MHLALMConfig(dtype=torch.bfloat16, **({"attn_extends": extends} if extends else {}))
     model = MHLAForCausalLM(cfg, device=dev)
     init_lm_params(model, torch.Generator(dev).manual_seed(cs.SEED))
     model = model.to(torch.bfloat16).eval()
     ids = torch.randint(0, cfg.vocab_size, (cs.BATCH_A, cs.PROMPT_A),
                         generator=torch.Generator(dev).manual_seed(cs.SEED + 1), device=dev)
     with torch.no_grad():
-        report(tag, "step (a)", {"step_ms": host_median_ms(lambda: model(ids, use_cache=True), 5),
+        report(tag, f"step ({name})", {"step_ms": host_median_ms(lambda: model(ids, use_cache=True), 5),
                                  "device_ms": card_ms(lambda: model(ids, use_cache=True), 3)})
     del model
 
@@ -582,8 +590,55 @@ def gla_steps(cs, tag: str) -> dict:
             "r": lambda: phase("r", "simple_gla", 2)}
 
 
+# --- delta: K11 / K11b ------------------------------------------------------
+
+# (form, B, T, backward too, entry states kept)
+DELTA_FORMS = [
+    ("(o) [8, 2048, 4, 128|256]", 8, 2048, True, True),
+    ("(n) [4, 1984, 4, 128|256] serving", 4, 1984, False, False),
+]
+
+
+def delta_kernels(cs, tag: str) -> None:
+    import torch
+
+    from mhla_tpu_torch.kernels import delta_chunk as dc
+
+    dev = torch.device("cuda")
+    c = cs.BASE_CHUNK
+    for form, b, t, bwd, keep in DELTA_FORMS:
+        q4, k4, v4, g_cum, beta, s0, do4, ds = cs.delta_kernel_inputs(dev, b, t)
+        fwd = lambda: dc.delta_chunk_fwd(q4, k4, v4, g_cum, beta, s0, c, keep)  # noqa: E731
+        report(tag, f"K11 {form}", {"ms": median_ms(fwd, 3), "host_us": cs.host_us(fwd, 10, 3),
+                                    "launches_ms": device_ms_by_kernel(fwd)})
+        if bwd:
+            states = dc.delta_chunk_fwd(q4, k4, v4, g_cum, beta, s0, c, True)[2]
+            back = lambda: dc.delta_chunk_bwd(q4, k4, v4, g_cum, beta, states, do4, ds, c)  # noqa: E731
+            report(tag, f"K11b {form}", {"ms": median_ms(back, 3),
+                                         "host_us": cs.host_us(back, 10, 3),
+                                         "launches_ms": device_ms_by_kernel(back)})
+            del states
+        del q4, k4, v4, g_cum, beta, s0, do4, ds
+        torch.cuda.empty_cache()
+
+
+def delta_steps(cs, tag: str) -> dict:
+    """The training steps of (o), the Gated DeltaNet LM (6 steps, the median
+    of steps 2-6), and (n)'s prefill of 4 x 1,984 tokens."""
+    import torch
+
+    dev = torch.device("cuda")
+
+    def train():
+        out = cs.phase_train_baseline(dev, "gated_deltanet", "gdn")
+        report(tag, "step (o)", {"step_ms": out["step_ms"]})
+
+    return {"o": train, "n": lambda: time_prefill(cs, tag, "gated_deltanet", "n")}
+
+
 GROUPS = {"chunk": (chunk_kernels, chunk_steps), "flash": (flash_kernels, None),
-          "video": (video_kernels, video_steps), "gla": (gla_kernels, gla_steps)}
+          "video": (video_kernels, video_steps), "gla": (gla_kernels, gla_steps),
+          "delta": (delta_kernels, delta_steps)}
 
 
 def main(argv) -> None:

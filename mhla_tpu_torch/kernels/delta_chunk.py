@@ -17,14 +17,16 @@ the chunk (scale = Dk**-0.5):
   S     = e^{G_last} S + (k e^{G_last - G})^T v_eff
 
 Both kernels are several launches behind one wrapper (each call adds one to
-its count): a parallel pass per (chunk, head) forms T by float32 forward
-substitution and the chunk's w, P (the masked decayed scores), qd = q e^G
-scale and kc = k e^{G_last - G}; a sequential pass walks each (batch, head,
-64-column tile of Dv) chain over its chunks, carrying S (forward) or its
-cotangent (backward, in reverse) in shared memory; the backward then forms
-the gradients of every chunk in parallel from its saved entry state and the
-chain's exit cotangent, in two passes whose sums over Dv are taken in a
-fixed order (no atomics: bit-equal from run to run).
+its count), every product on bf16 wgmma over TMA-fed tiles: a parallel pass
+per (chunk, head) forms T by float32 (blocked) forward substitution and the
+chunk's w, P (the masked decayed scores), qd = q e^G scale and kc = k
+e^{G_last - G}, one record per chunk and head; a sequential pass walks each
+(batch, head, 64-column panel of Dv) chain over its chunks, carrying S
+(forward) or its cotangent (backward, in reverse) as wgmma accumulators; the
+backward then forms the gradients of every chunk in one parallel pass from
+its saved entry state and the chain's exit cotangent, every sum over Dv
+kept on chip and taken in a fixed order (no atomics: bit-equal from run to
+run).
 
 Rounding points, those of the TPU kernel in the compute dtype ``cdt`` (the
 inputs' dtype, bf16 or float32): T, w, P, qd, kc, beta v and beta e^G k in
@@ -59,8 +61,9 @@ from .mhla_chunk import _on_cpu, _raise_on_error, _stream
 launches = {"delta_chunk_fwd": 0, "delta_chunk_bwd": 0}
 
 _DK = 128  # the head dim of q and k the kernels hold (csrc: kDk)
-_DV_TILE = 64  # Dv columns per chain (csrc: kTile)
+_DV_TILE = 64  # Dv columns per chain (csrc: kPanel)
 _MAX_CHUNK = 64  # csrc: kMaxC
+_REC_BYTES = 66048  # the prep's record of one (chunk, head) (csrc: kRecBytes)
 
 _lib_cache: Optional[ctypes.CDLL] = None
 
@@ -70,10 +73,10 @@ def _lib() -> ctypes.CDLL:
     if _lib_cache is None:
         lib = _build.load()
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mhla_delta_prep.argtypes = [p] * 9 + [i] * 5 + [p]
-        lib.mhla_delta_fwd_chain.argtypes = [p] * 12 + [i] * 5 + [p]
-        lib.mhla_delta_bwd_chain.argtypes = [p] * 9 + [i] * 5 + [p]
-        lib.mhla_delta_bwd_grads.argtypes = [p] * 24 + [i] * 5 + [p]
+        lib.mhla_delta_prep.argtypes = [p] * 5 + [i] * 5 + [p]
+        lib.mhla_delta_fwd_chain.argtypes = [p] * 6 + [i] * 5 + [p]
+        lib.mhla_delta_bwd_chain.argtypes = [p] * 5 + [i] * 5 + [p]
+        lib.mhla_delta_bwd_grads.argtypes = [p] * 14 + [i] * 5 + [p]
         for fn in (lib.mhla_delta_prep, lib.mhla_delta_fwd_chain, lib.mhla_delta_bwd_chain,
                    lib.mhla_delta_bwd_grads):
             fn.restype = ctypes.c_int
@@ -280,19 +283,15 @@ def delta_chunk_bwd_plain(q4, k4, v4, g_cum, beta, states, do4, ds_final, chunk_
 
 
 def _prep(q4, k4, g_cum, beta, b, n, c, h, dk):
-    cdt = q4.dtype
-    dev = q4.device
-    tc = torch.empty(b, n, h, c, c, dtype=cdt, device=dev)
-    p = torch.empty_like(tc)
-    w = torch.empty(b, n, h, c, dk, dtype=cdt, device=dev)
-    qd, kc = torch.empty_like(w), torch.empty_like(w)
+    """The per-(chunk, head) records (T, P, w, qd, kc in the kernels' tile
+    layout and the gates), [B, N, H, _REC_BYTES] bytes."""
+    rec = torch.empty(b, n, h, _REC_BYTES, dtype=torch.uint8, device=q4.device)
     err = _lib().mhla_delta_prep(
-        q4.data_ptr(), k4.data_ptr(), g_cum.data_ptr(), beta.data_ptr(),
-        tc.data_ptr(), w.data_ptr(), p.data_ptr(), qd.data_ptr(), kc.data_ptr(),
+        q4.data_ptr(), k4.data_ptr(), g_cum.data_ptr(), beta.data_ptr(), rec.data_ptr(),
         b, n, c, h, dk, _stream(q4),
     )
     _raise_on_error("delta_chunk prep", err)
-    return tc, w, p, qd, kc
+    return rec
 
 
 def delta_chunk_fwd(q4, k4, v4, g_cum, beta, s0, chunk_size: int = 64,
@@ -303,16 +302,14 @@ def delta_chunk_fwd(q4, k4, v4, g_cum, beta, s0, chunk_size: int = 64,
     b, n, c, h, dk, dv = _check_kernel_args(q4, k4, v4, g_cum, beta, chunk_size)
     _check("s0", s0, torch.float32, (b, h, dk, dv))
     with torch.cuda.device(q4.device):
-        tc, w, p, qd, kc = _prep(q4, k4, g_cum, beta, b, n, c, h, dk)
+        rec = _prep(q4, k4, g_cum, beta, b, n, c, h, dk)
         o = torch.empty_like(v4)
         s_final = torch.empty_like(s0)
         states = (torch.empty(b, n, h, dk, dv, dtype=v4.dtype, device=v4.device)
                   if collect_states else None)
         err = _lib().mhla_delta_fwd_chain(
-            tc.data_ptr(), w.data_ptr(), p.data_ptr(), qd.data_ptr(), kc.data_ptr(),
-            v4.data_ptr(), g_cum.data_ptr(), beta.data_ptr(), s0.data_ptr(),
-            o.data_ptr(), s_final.data_ptr(), 0 if states is None else states.data_ptr(),
-            b, n, c, h, dv, _stream(q4),
+            rec.data_ptr(), v4.data_ptr(), s0.data_ptr(), o.data_ptr(), s_final.data_ptr(),
+            0 if states is None else states.data_ptr(), b, n, c, h, dv, _stream(q4),
         )
         _raise_on_error("delta_chunk_fwd chain", err)
     launches["delta_chunk_fwd"] += 1
@@ -327,32 +324,20 @@ def delta_chunk_bwd(q4, k4, v4, g_cum, beta, states, do4, ds_final, chunk_size: 
     _check("states", states, torch.bfloat16, (b, n, h, dk, dv))
     _check("do4", do4, torch.bfloat16, (b, n * c, h, dv))
     _check("ds_final", ds_final, torch.float32, (b, h, dk, dv))
-    f32 = dict(dtype=torch.float32, device=q4.device)
     with torch.cuda.device(q4.device):
-        tc, w, p, qd, kc = _prep(q4, k4, g_cum, beta, b, n, c, h, dk)
+        rec = _prep(q4, k4, g_cum, beta, b, n, c, h, dk)
         exits = torch.empty_like(states)
         ds0 = torch.empty_like(ds_final)
         err = _lib().mhla_delta_bwd_chain(
-            p.data_ptr(), qd.data_ptr(), w.data_ptr(), kc.data_ptr(), do4.data_ptr(),
-            g_cum.data_ptr(), ds_final.data_ptr(), exits.data_ptr(), ds0.data_ptr(),
-            b, n, c, h, dv, _stream(q4),
+            rec.data_ptr(), do4.data_ptr(), ds_final.data_ptr(), exits.data_ptr(),
+            ds0.data_ptr(), b, n, c, h, dv, _stream(q4),
         )
         _raise_on_error("delta_chunk_bwd chain", err)
         dq, dk_, dv_ = torch.empty_like(q4), torch.empty_like(k4), torch.empty_like(v4)
         dg, dbeta = torch.empty_like(g_cum), torch.empty_like(beta)
-        # per-chunk sums over Dv, handed from the first gradient pass to the second
-        dkc = torch.empty(b, n, h, c, dk, **f32)
-        dqd, dw = torch.empty_like(dkc), torch.empty_like(dkc)
-        dp = torch.empty(b, n, h, c, c, **f32)
-        da_u = torch.empty_like(dp)
-        dbeta_part = torch.empty(b, n, h, c, **f32)
-        dgl_part = torch.empty(b, n, h, **f32)
         err = _lib().mhla_delta_bwd_grads(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), g_cum.data_ptr(), beta.data_ptr(),
-            states.data_ptr(), exits.data_ptr(), do4.data_ptr(),
-            tc.data_ptr(), w.data_ptr(), p.data_ptr(), kc.data_ptr(),
-            dkc.data_ptr(), dqd.data_ptr(), dw.data_ptr(), dp.data_ptr(), da_u.data_ptr(),
-            dbeta_part.data_ptr(), dgl_part.data_ptr(),
+            states.data_ptr(), exits.data_ptr(), do4.data_ptr(), rec.data_ptr(),
             dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), dg.data_ptr(), dbeta.data_ptr(),
             b, n, c, h, dv, _stream(q4),
         )

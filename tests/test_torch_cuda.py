@@ -1160,6 +1160,61 @@ def test_delta_chunk_kernels_match_plain(dev, b, t, h, dv, c):
                            "delta_chunk_bwd": before["delta_chunk_bwd"] + 2}
 
 
+@pytest.mark.parametrize("b,t,h,dv,c", [(2, 2048, 4, 256, 64), (1, 781, 4, 256, 64),
+                                        (1, 200, 2, 128, 32), (3, 64, 1, 64, 16)])
+def test_delta_chunk_forward_is_bit_equal_over_runs(dev, b, t, h, dv, c):
+    """K11's o, final state and entry states, two runs, bit for bit."""
+    from mhla_tpu_torch.kernels import delta_chunk as dc
+
+    q, k, v, g_cum, beta, s0, _, _ = _delta_inputs(dev, b, t, h, dv, c)
+    first = dc.delta_chunk_fwd(q, k, v, g_cum, beta, s0, c, True)
+    second = dc.delta_chunk_fwd(q, k, v, g_cum, beta, s0, c, True)
+    for name, x, y in zip(("o", "state", "entry states"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("b,t,h,dv", [(1, 256, 2, 128), (2, 2048, 4, 256)])
+def test_delta_chunk_kernels_at_strong_decay(dev, b, t, h, dv):
+    """Gates whose log-decay summed over a chunk falls below -88.7, where
+    e^{-G} overflows float32: K11 and K11b, which form their decays from
+    differences of G, are finite and match their plain versions."""
+    from mhla_tpu_torch.kernels import delta_chunk as dc
+
+    c = 64
+    q, k, v, _, beta, s0, do, ds = _delta_inputs(dev, b, t, h, dv, c)
+    gen = torch.Generator(dev).manual_seed(7)
+    g = -(1.5 + 1.5 * torch.rand(b, t, h, generator=gen, device=dev))
+    g_cum = torch.cumsum(g.reshape(b, t // c, c, h), 2).reshape(b, t, h)
+    assert g_cum[:, c - 1::c].max() < -88.7
+    out = dc.delta_chunk_fwd(q, k, v, g_cum, beta, s0, c, True)
+    ref = dc.delta_chunk_fwd_plain(q, k, v, g_cum, beta, s0, c, True)
+    for name, r, x in zip(("o", "state", "entry states"), ref, out):
+        assert torch.isfinite(x.float()).all(), name
+        assert_close(f"K11 {name}", r, x, KERNEL_TOL)
+    got = dc.delta_chunk_bwd(q, k, v, g_cum, beta, ref[2], do, ds, c)
+    want = dc.delta_chunk_bwd_plain(q, k, v, g_cum, beta, ref[2], do, ds, c)
+    for name, r, x in zip(("dq", "dk", "dv", "dG", "dbeta", "ds0"), want, got):
+        assert torch.isfinite(x.float()).all(), name
+        assert_close(f"K11b {name}", r, x, KERNEL_TOL)
+
+
+def test_delta_kernels_run_on_wgmma_and_tma(dev):
+    """The built library's K11 / K11b kernels (the prep, the chain both ways,
+    the gradients) hold HGMMA (wgmma) and UTMALDG (TMA loads) and no HMMA
+    (mma.sync or WMMA)."""
+    kinds = ("delta_prep_kernel", "delta_fwd_chain_kernel", "delta_bwd_chain_kernel",
+             "delta_bwd_grads_kernel")
+    found = dict.fromkeys(kinds, 0)
+    for fn, text in _sass_bodies().items():
+        kind = next((k for k in kinds if k in fn), None)
+        if kind is None:
+            continue
+        assert "HGMMA" in text and "UTMALDG" in text, fn
+        assert " HMMA" not in text, fn
+        found[kind] += 1
+    assert found == dict.fromkeys(kinds, 1)
+
+
 def test_delta_op_gradients_through_the_kernels(dev):
     """gated_delta_chunk_fused's gradients (through K11 / K11b and the
     autograd around them) against autograd of the plain op, bf16 inputs,

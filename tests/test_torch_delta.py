@@ -127,6 +127,39 @@ def test_fused_forward_and_backward_match_the_pallas_kernels(interpret):
         assert_close(f"K11b plain d{name}", np.asarray(r), got, TOL)
 
 
+@pytest.mark.parametrize("t,dv", [(200, 128), (128, 256)])
+def test_fused_path_at_strong_decay_matches_the_pallas_kernels(interpret, t, dv):
+    """Gates whose log-decay summed over a chunk of 64 falls below -88.7,
+    where e^{-G} overflows float32: the plain K11 / K11b (through
+    ``gated_delta_chunk_fused``, decays from differences of G) are finite
+    and match ``_delta_fused_fwd_impl`` / ``_delta_bwd_impl`` in interpret
+    mode, and their output matches JAX's token recurrence."""
+    q, k, v, _, beta, s0 = _inputs(1, t, 2, 128, dv, seed=8)
+    rng = np.random.default_rng(9)
+    g = -(1.5 + 1.5 * rng.uniform(size=beta.shape)).astype(np.float32)
+    assert np.cumsum(g[:, :64], axis=1)[:, -1].max() < -88.7
+    do = rng.standard_normal(v.shape).astype(np.float32)
+    ds = rng.standard_normal(s0.shape).astype(np.float32)
+    ref_o, ref_s, states4 = jax_fused._delta_fused_fwd_impl(
+        *_jax(q, k, v, g, beta, s0), 64, True, collect_states=True)
+    ref_grads = jax_fused._delta_bwd_impl(*_jax(q, k, v, g, beta, s0), states4, *_jax(do, ds),
+                                          64, True)
+    rec_o, rec_s = jax_delta.gated_delta_recurrent(*_jax(q, k, v, g, beta),
+                                                   initial_state=jnp.asarray(s0),
+                                                   output_final_state=True)
+    xs = [x.requires_grad_() for x in _torch(q, k, v, g, beta, s0)]
+    o, s = gated_delta_chunk_fused(*xs[:5], initial_state=xs[5], output_final_state=True)
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    assert_close("K11 plain o", np.asarray(ref_o), o, TOL)
+    assert_close("K11 plain state", np.asarray(ref_s), s, TOL)
+    assert_close("K11 plain o vs the recurrence", np.asarray(rec_o), o, TOL)
+    assert_close("K11 plain state vs the recurrence", np.asarray(rec_s), s, TOL)
+    grads = torch.autograd.grad((o, s), xs, _torch(do, ds))
+    for name, r, got in zip(("q", "k", "v", "g", "beta", "s0"), ref_grads, grads):
+        assert torch.isfinite(got).all(), name
+        assert_close(f"K11b plain d{name}", np.asarray(r), got, TOL)
+
+
 def _loss_grads_jax(fn, xs, **kw):
     def loss(q, k, v, g, beta, s0):
         o, s = fn(q, k, v, g, beta, initial_state=s0, output_final_state=True, **kw)
