@@ -125,11 +125,12 @@ exits non-zero:
              (``attn_extends='simple_gla'``): finite losses, exact launches.
 22. kernels (video) — K5-K9 against their plain versions at the shapes of
              the Wan2.1-1.3B sampler: CFG batch 2, 31,500 tokens in 150
-             blocks of 210, cross-attention against 512 text tokens; K6
-             (TF32 tensor cores split to float32 accuracy) in float32 within
-             1e-5, timed beside its earlier SIMT kernel's time, its bound
-             and ``torch.matmul``, also at the training shape (batch 1, on
-             M^T, as the backward takes it).
+             blocks of 210, cross-attention against 512 text tokens; K6 and
+             K7 (TF32 tensor cores split to float32 accuracy) in float32
+             within 1e-5, timed beside their earlier SIMT kernels' times,
+             their bounds and ``torch.matmul`` / an einsum, also at the
+             training shape (batch 1; K6 on M^T, as the backward takes it);
+             two runs of K7 bit for bit.
 23. video   — ``mhla_tpu_torch.eval.video_infer_cli.main`` samples 4
              DPM-Solver++ steps with CFG 5.0 of the 30-layer full-MHLA
              model at latents (21, 60, 100, 16). Checks finite latents, the
@@ -156,8 +157,10 @@ exits non-zero:
 
 27. kernels (video training) — K5b, K8b and K7b against their plain versions
              at B=1, 150 blocks of 210 tokens (float32 and bf16, with and
-             without RoPE) and K9b at 31,500 x 512 and 31,500 x 31,500, each
-             beside its bound and, where one exists, a library call (two
+             without RoPE; K7b's float32 form, TF32 split, within 1e-5 and
+             beside its earlier SIMT kernel's time, two runs bit for bit)
+             and K9b at 31,500 x 512 and 31,500 x 31,500, each beside its
+             bound and, where one exists, a library call (two
              einsums; the backward of ``scaled_dot_product_attention``);
              then the gradients of one ``MHLA3D`` layer and one
              ``WanSelfAttention`` layer at 31,500 tokens through the kernels
@@ -346,15 +349,19 @@ CHUNK_MMA_SYNC_MS = {
     ("mix_states_bwd[wide]", "N=448"): (0.5824,),
     ("mix_states_bwd[wide]", "N=512"): (0.7422,),
 }
-# K6's, K10b's and K10's times with their earlier kernels (K6 on float32
-# FMAs outside the tensor cores, K10b and K10 on mma.sync over cp.async
-# tiles), before the Hopper redesigns (TF32 wgmma split to float32 accuracy;
-# the radial forms of K9b's and K9's wgmma / TMA kernels), by (kernel, shape
-# tag) as this script times them: PERF.md section 6's table (NVIDIA H100
-# 80GB HBM3, 700.00 W).
+# K6's, K7's, K7b's, K10b's and K10's times with their earlier kernels (K6,
+# K7 and K7b on float32 FMAs outside the tensor cores, K10b and K10 on
+# mma.sync over cp.async tiles), before the Hopper redesigns (TF32 wgmma
+# split to float32 accuracy; the radial forms of K9b's and K9's wgmma / TMA
+# kernels), by (kernel, shape tag) as this script times them: PERF.md
+# section 6's table (NVIDIA H100 80GB HBM3, 700.00 W).
 VIDEO_EARLIER_MS = {
     ("mix_states_dense", "float32 N=150"): (0.6905,),
     ("mix_states_dense[bf16]", "bfloat16 N=150"): (0.6507,),
+    ("block_readout", "float32 C=210"): (0.9583,),
+    ("block_readout[bf16]", "bfloat16 C=210"): (0.9756,),
+    ("block_readout_bwd", "float32 C=210"): (0.8344,),
+    ("block_readout_bwd[bf16]", "bfloat16 C=210"): (0.7989,),
     ("radial_flash_attention_bwd", "T=31500 21 frames B=1"): (47.4294,),
     ("radial_flash_attention", "T=31500 21 frames"): (29.1132,),
     ("radial_flash_attention[lse]", "T=31500 21 frames B=1"): (14.9403,),
@@ -381,7 +388,7 @@ DELTA_EARLIER_MS = {
     ("delta_chunk_fwd", "B=8 T=2048"): (0.5796,),
     ("delta_chunk_bwd", "B=8 T=2048"): (1.2457,),
 }
-# this run's timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K10, K10b, K11, K11b, K12
+# this run's timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K7, K7b, K10, K10b, K11, K11b, K12
 # and K12b forms beside their bounds and library calls
 REDESIGN_TIMES = {}
 # the tiles each timed or small K10 call walked beside its lists' length
@@ -704,7 +711,7 @@ def check_kernel(results: dict, name: str, shape_tag: str, kern, plain, timed: b
 
 
 def log_redesign_time(name: str, shape_tag: str, r: dict) -> None:
-    """Keep a timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K10, K10b, K11, K11b,
+    """Keep a timed K9 / K9b, K2 / K2b, K3 / K3b, K6, K7, K7b, K10, K10b, K11, K11b,
     K12 or K12b form's time in this run beside its bound and the library call's time,
     and print them with its time with the earlier kernels, with the ratios.
     The earlier times are printed only: they were not measured in this run."""
@@ -922,9 +929,9 @@ def phase_kernels_video(dev: torch.device) -> dict:
     states = randn(b, n, f, dh)
     q4 = torch.relu(randn(b, n, c, f)) + eps
     mixed = mhla_block.mix_states_dense_plain(m, states)
-    # K6's bound: the bytes, or the TF32 products at the tensor cores' TF32
-    # peak: three for float32 accuracy; one for the bf16 form, whose output
-    # rounding lies above a single TF32 product's error
+    # K6's and K7's bounds: the bytes, or the TF32 products at the tensor
+    # cores' TF32 peak: three for float32 accuracy; one for the bf16 forms,
+    # whose output rounding lies above a single TF32 product's error
     for dt, suffix, products in ((f32, "", 3), (bf16, "[bf16]", 1)):
         st, qq, mx = states.to(dt), q4.to(dt), mixed.to(dt)
         check("mix_states_dense" + suffix, f"{str(dt)[6:]} N={n}",
@@ -936,10 +943,24 @@ def phase_kernels_video(dev: torch.device) -> dict:
         check("block_readout" + suffix, f"{str(dt)[6:]} C={c}",
               lambda: mhla_block.block_readout(qq, mx, h),
               lambda: mhla_block.block_readout_plain(qq, mx, h), True,
-              work=(2 * nbytes(qq) + nbytes(mx), 2 * b * n * c * h * dh * dh, dt),
+              work=(2 * nbytes(qq) + nbytes(mx), products * 2 * b * n * c * h * dh * dh, "tf32"),
               library=lambda: torch.einsum("bnchk,bnhkv->bnchv", qq.unflatten(-1, (h, dh)),
-                                           mx.unflatten(-2, (h, dh))))
+                                           mx.unflatten(-2, (h, dh))),
+              tol=K6_F32_TOL if dt == f32 else KERNEL_TOL)
+        if not torch.equal(mhla_block.block_readout(qq, mx, h),
+                           mhla_block.block_readout(qq, mx, h)):
+            raise AssertionError(f"block_readout{suffix}: two runs differ")
         del st, qq, mx
+    # K7 at the training shape, batch 1 (the forward and its remat recompute)
+    q1, mx1 = q4[:1].contiguous(), mixed[:1].contiguous()
+    check("block_readout[B=1]", f"float32 C={c} B=1",
+          lambda: mhla_block.block_readout(q1, mx1, h),
+          lambda: mhla_block.block_readout_plain(q1, mx1, h), True,
+          work=(2 * nbytes(q1) + nbytes(mx1), 3 * 2 * n * c * h * dh * dh, "tf32"),
+          library=lambda: torch.einsum("bnchk,bnhkv->bnchv", q1.unflatten(-1, (h, dh)),
+                                       mx1.unflatten(-2, (h, dh))),
+          tol=K6_F32_TOL)
+    del q1, mx1
     # the training shape: batch 1, on M^T (the backward's dstates = M^T dmixed)
     mt, st1 = m.T.contiguous(), states[:1].contiguous()
     check("mix_states_dense[M^T]", f"float32 N={n} B=1",
@@ -3021,16 +3042,25 @@ def phase_kernels_video_train(dev: torch.device) -> dict:
 
     q4 = torch.relu(randn(b, n, c, f)) + 1e-6
     mixed = randn(b, n, f, dh)
-    for dt, suffix in ((f32, ""), (bf16, "[bf16]")):
+    # K7b's bound as K7's: bytes, or two products on the TF32 tensor cores,
+    # three TF32 products each in float32, one in bf16
+    for dt, suffix, products in ((f32, "", 3), (bf16, "[bf16]", 1)):
         qq, mx, dd = q4.to(dt), mixed.to(dt), dyb.to(dt)
         q5, m5, d5 = qq.unflatten(-1, (h, dh)), mx.unflatten(-2, (h, dh)), dd.unflatten(-1, (h, dh))
         check("block_readout_bwd" + suffix, f"{str(dt)[6:]} C={c}",
               lambda: mhla_block.block_readout_bwd(qq, mx, dd, h),
               lambda: mhla_block.block_readout_bwd_plain(qq, mx, dd, h), True,
-              work=(2 * nbytes(qq, mx) + nbytes(dd), 4 * b * n * c * h * dh * dh, dt),
+              work=(2 * nbytes(qq, mx) + nbytes(dd), products * 4 * b * n * c * h * dh * dh,
+                    "tf32"),
               library=lambda: (torch.einsum("bnchv,bnhkv->bnchk", d5, m5),
-                               torch.einsum("bnchk,bnchv->bnhkv", q5, d5)))
-        del qq, mx, dd, q5, m5, d5
+                               torch.einsum("bnchk,bnchv->bnhkv", q5, d5)),
+              tol=K6_F32_TOL if dt == f32 else KERNEL_TOL)
+        first = mhla_block.block_readout_bwd(qq, mx, dd, h)
+        again = mhla_block.block_readout_bwd(qq, mx, dd, h)
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            raise AssertionError(f"block_readout_bwd{suffix}: two runs differ")
+        log(f"[kernels] block_readout_bwd{suffix}: two runs equal")
+        del qq, mx, dd, q5, m5, d5, first, again
     del q4, mixed, dyb
 
     # K9b at the cross-attention's and the softmax self-attention's shapes, on
@@ -3458,6 +3488,7 @@ def main() -> None:
                         "radial_flash_attention[lse]", "radial_flash_attention_bwd")},
                     "k10_walks": K10_WALKS, "k10b_walks": kern["k10b_walks"],
                     "k6_training_shape": kern["mix_states_dense[M^T]"],
+                    "k7_training_shape": kern["block_readout[B=1]"],
                     "card": smi}))
     log(json.dumps({"kernels": kernels_line}))
     log(json.dumps({"ok": True, "device": {

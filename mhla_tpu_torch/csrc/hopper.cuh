@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
 // (flash_fwd.cu, flash_bwd.cu), K2 and K4 (mhla_chunk.cu), K2b and K4b
-// (mhla_chunk_bwd.cu), K3 / K3b (mhla_mix_wide.cu), K6 (mhla_block.cu),
-// K11 / K11b (delta_chunk.cu, delta_chunk_bwd.cu) and K12 / K12b
-// (gla_chunk.cu, gla_chunk_bwd.cu):
+// (mhla_chunk_bwd.cu), K3 / K3b (mhla_mix_wide.cu), K6 and K7
+// (mhla_block.cu), K7b (mhla_block_bwd.cu), K11 / K11b (delta_chunk.cu,
+// delta_chunk_bwd.cu) and K12 / K12b (gla_chunk.cu, gla_chunk_bwd.cu):
 // mbarriers, TMA tile loads through tensor maps (multicast to a cluster's
 // blocks too) and one-dimensional bulk copies, ldmatrix / stmatrix, wgmma products in bf16 and TF32 with their shared-memory
 // descriptors and fences, named barriers, cluster barriers and setmaxnreg.
@@ -305,6 +305,13 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[R][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
+// One fragment. Fence only registers no pending product reads: ptxas counts
+// the fence as defining them and serializes the wgmmas that do (C7513).
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[j])::"memory");
+}
+
 // The float32 accumulator operands of an m64nN product: N / 8 tiles of 4.
 #define HOPPER_ACC4(d, i) "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
 #define HOPPER_ACC8(d)                                                                  \
@@ -444,7 +451,7 @@ __device__ __forceinline__ void stsm_x4_t(void* row, const uint32_t (&r)[4]) {
                : "memory");
 }
 
-// ---- TF32 products (K6, K12, K12b)
+// ---- TF32 products (K6, K7, K7b, K12, K12b)
 
 // Register strings and accumulator operands (N / 8 tiles of 4) of the TF32
 // products of N = 16 .. 80 below.

@@ -64,28 +64,49 @@
 //
 // K7 replaces _readout_fwd_kernel (mhla_block_pallas.py:100). The TPU kernel
 //   groups G blocks of rows into one supertile and masks rows to feed its
-//   128 x 128 matrix unit; here one thread block computes one (block, head,
-//   128-column tile of Dv) and none of that tiling is carried over.
-//   Bound: in float32, operations (2*C*Dk*Dv FLOP per block and head
-//   against 4*(C*Dk + Dk*Dv + C*Dv) bytes: 21 FLOP/byte at C = 210,
-//   Dk = Dv = 128, just above the float32 ridge). In bf16, bytes.
-//   Design: the [Dk, 128] slice of the mixed state stays in shared memory
-//   for the whole block of tokens; q rows pass through shared memory 32 at
-//   a time (rows past C are zero-filled and never stored: C = 210 is not a
-//   multiple of the tile), and each thread accumulates a 4 x 4 output
-//   micro-tile with float4 shared-memory reads.
+//   128 x 128 matrix unit; none of that tiling is carried over.
+//   Bound: bytes. q read once, o written once and the mixed states read
+//   once: 1,010 MB at (d)'s [2, 150, 210, 12 * 128] float32, 0.302 ms at
+//   3.35 TB/s; three TF32 products of 2 * C * Dk * Dv a block and head, 74
+//   GFLOP there, 0.150 ms at 495 TFLOP/s (the bf16 form: half the bytes and
+//   one product). (Outside the tensor cores the float32 product is 24.8
+//   GFLOP at 67 TFLOP/s, 0.370 ms: the earlier FMA kernel's bound.)
+//   Design: o = q mixed on TF32 wgmma, K = Dk, with K6's hi / lo split (the
+//   bf16 form one product, q and the states exact in TF32). A persistent
+//   grid of blocks of a producer warpgroup and two consumer warpgroups walks
+//   items of (block, head, 2 * kVW columns of Dv); consumer w owns kVW of
+//   them. TF32 wgmma reads both operands K-major: q's rows are, so q is the
+//   A operand, taken into registers from a TMA-staged tile and split there;
+//   mixed [Dk][Dv] is not, so each consumer writes its [kVW][Dk] slice of
+//   mixed^T into shared memory once per item, split into hi and lo while
+//   transposing, from registers it loaded during the previous item. The
+//   other orientation (o^T = mixed^T q^T, q the B operand) would split and
+//   write q's lo tile every token tile, C / Dv times the work. Each k-step
+//   of 8 is one commit group (three products, one in bf16) whose A
+//   fragments are split while the previous k-step's products run. Shared
+//   memory at
+//   Dk = 128, float32 (kVW = 64): mixed^T hi + lo 2 x 64 KB, the output
+//   tiles 2 x 16 KB, 8 q stages of one 128-byte panel of 64 token rows (8
+//   KB): 230,528 of 232,448 bytes. Dk = 256 takes kVW = 32 in float32 (the
+//   same 64 KB a consumer; 10 stages), 64 in bf16 (hi only). q is loaded
+//   through a tensor map with C as a dimension of its own, so rows past C
+//   read as zeros (C = 210 is not a multiple of the 64-row tile), and o is
+//   stored through one (rows past C are not written), each tile from a
+//   swizzled staging buffer by TMA. Sums in a fixed order, no atomics: the
+//   same bits every run.
+//   What holds it (PERF.md sections 6 and 7): the next item's slice held in
+//   64 registers through an item (the kernel is at ptxas's cap of 168 a
+//   thread) slows every tile's products, and loaded later (from L2, or in
+//   the last tile) its latency shows instead; two blocks of one consumer an
+//   SM spilled at 200 registers.
 
 #include "hopper.cuh"
 #include "mhla_block_common.cuh"
 
-using namespace mhla_block;
 using namespace hopper;
+using namespace mhla_block;
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kReadRows = 32;    // q rows per pass of K7
-constexpr int kReadCols = 128;   // Dv columns per block of K7
 
 // K6's geometry: blocks of a producer warpgroup and two consumer
 // warpgroups; items of 2 * kWT column tiles of 64 (kWT per consumer);
@@ -312,69 +333,240 @@ mix_dense_kernel(const __grid_constant__ CUtensorMap map_s,
   }
 }
 
-// K7. grid (B*N, H, Dv/kReadCols); dynamic shared memory
-// (Dk*kReadCols + kReadRows*Dk) floats. q: [B*N, C, H*Dk],
-// mixed: [B*N, H*Dk, Dv], o: [B*N, C, H*Dv].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-readout_kernel(const T* __restrict__ q, const T* __restrict__ mixed,
-               T* __restrict__ o, int C, int H, int Dk, int Dv) {
-  extern __shared__ __align__(16) float smem[];
-  float* ms = smem;                   // [Dk][kReadCols]
-  float* qs = smem + Dk * kReadCols;  // [kReadRows][Dk]
-  const int tid = threadIdx.x;
-  const int64_t bn = blockIdx.x;
-  const int h = blockIdx.y, tn = blockIdx.z;
-  const int64_t ldq = (int64_t)H * Dk, ldo = (int64_t)H * Dv;
-  const T* qc = q + bn * C * ldq + h * Dk;
-  const T* mc = mixed + (bn * H + h) * Dk * Dv + tn * kReadCols;
-  T* oc = o + bn * C * ldo + h * Dv + tn * kReadCols;
+// K7's geometry: blocks of a producer warpgroup and two consumer
+// warpgroups; items of (block, head, kCols = 2 * kVW columns of Dv), each
+// consumer kVW of them; q in stages of one 128-byte panel (32 float32 or 64
+// bf16 columns of Dk) of kReadTok token rows.
+constexpr int kReadConsumers = 2;
+constexpr int kReadThreads = 128 * (1 + kReadConsumers);
+constexpr int kReadTok = 64;
+constexpr int kReadMaxStages = 16;
 
-  for (int e = tid; e < Dk * (kReadCols / 4); e += kThreads) {
-    const int k = e / (kReadCols / 4), c4 = (e % (kReadCols / 4)) * 4;
-    *reinterpret_cast<float4*>(ms + k * kReadCols + c4) = load4(mc + (int64_t)k * Dv + c4);
-  }
-  const int tx = tid & 31, ty = tid >> 5;  // 32 column quads x 8 row quads
-  const int dk4 = Dk / 4;
-  for (int r0 = 0; r0 < C; r0 += kReadRows) {
-    __syncthreads();  // ms is written; the previous pass's reads of qs are done
-    for (int e = tid; e < kReadRows * dk4; e += kThreads) {
-      const int r = e / dk4, k4 = (e % dk4) * 4;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + r < C) val = load4(qc + (int64_t)(r0 + r) * ldq + k4);
-      *reinterpret_cast<float4*>(qs + r * Dk + k4) = val;
+template <typename T, int kDk, int kVW>
+struct ReadGeom {
+  static constexpr int kEs = (int)sizeof(T);
+  static constexpr bool kSplit = sizeof(T) == 4;          // three products, else one
+  static constexpr int kCols = kReadConsumers * kVW;
+  static constexpr int kPanelK = 128 / kEs;               // Dk columns of a stage
+  static constexpr int kPanels = kDk / kPanelK;           // stages of a token tile
+  static constexpr int kKS = kPanelK / 8;                 // k-steps of a stage
+  static constexpr int kStageBytes = kReadTok * 128;
+  static constexpr int kMBytes = kVW * kDk * 4;           // a consumer's mixed^T, hi or lo
+  static constexpr int kOutPanel = 128 / kEs;             // columns of an output box
+  static constexpr int kOutBytes = kReadTok * kVW * kEs;  // a consumer's output tile
+  static constexpr int kFixed =
+      kReadConsumers * ((kSplit ? 2 : 1) * kMBytes + kOutBytes) + 1024;
+  static constexpr int kFree = (kSmemLimit - kFixed) / (kStageBytes + 16);
+  static constexpr int kStages = kFree < kReadMaxStages ? kFree : kReadMaxStages;
+  static constexpr int kSmem = kFixed + kStages * (kStageBytes + 16);
+  static constexpr int kPre = kDk * kVW / (4 * 128);      // 4-element loads of mixed a thread
+  static_assert(kStages >= 2 && kVW % kOutPanel == 0, "K7's geometry");
+};
+
+// Element (r, c) of one 128-byte panel of rows (a TMA box, 128-byte swizzle).
+__device__ __forceinline__ float panel_at(const float* p, int r, int c) {
+  return *reinterpret_cast<const float*>(reinterpret_cast<const unsigned char*>(p) +
+                                         swizzle128_f32(r, c));
+}
+__device__ __forceinline__ float panel_at(const bf16* p, int r, int c) {
+  return __bfloat162float(
+      *reinterpret_cast<const bf16*>(reinterpret_cast<const unsigned char*>(p) + swizzle128(r, c)));
+}
+
+// Elements (r, c) and (r, c + 1) of an output tile of [kReadTok] rows in
+// 128-byte panels (c even).
+__device__ __forceinline__ void put_pair(float* tile, int r, int c, float x0, float x1) {
+  *reinterpret_cast<float2*>(reinterpret_cast<unsigned char*>(tile) + (c >> 5) * kReadTok * 128 +
+                             swizzle128_f32(r, c & 31)) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void put_pair(bf16* tile, int r, int c, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<unsigned char*>(tile) +
+                                     (c >> 6) * kReadTok * 128 + swizzle128(r, c & 63)) =
+      __floats2bfloat162_rn(x0, x1);
+}
+
+// K7. A persistent grid of blocks of kReadThreads threads, dynamic shared
+// memory ReadGeom::kSmem. map_q, map_o: make_rows_map maps of q [B*N, C,
+// H*kDk] and o [B*N, C, H*Dv] with boxes of kReadTok rows; mixed: [B*N,
+// H*kDk, Dv]. Items: (block * H + head) * (Dv / kCols) + column group.
+template <typename T, int kDk, int kVW>
+__global__ void __launch_bounds__(kReadThreads, 1)
+readout_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_o,
+               const T* __restrict__ mixed, int C, int H, int Dv, int items) {
+  typedef ReadGeom<T, kDk, kVW> G;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* outs = smem + kReadConsumers * (G::kSplit ? 2 : 1) * G::kMBytes;
+  unsigned char* ring = outs + kReadConsumers * G::kOutBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::kStages * G::kStageBytes);
+  uint64_t* empty = full + G::kStages;
+  const int tiles = (C + kReadTok - 1) / kReadTok;
+  const int groups = Dv / G::kCols;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kReadConsumers);
     }
-    __syncthreads();
-    float acc[4][4];
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // the producer: one thread keeps the q stages in flight
+    regs_dec<40>();
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int bh = item / groups, bn = bh / H, h = bh % H;
+        for (int tt = 0; tt < tiles; ++tt)
+          for (int p = 0; p < G::kPanels; ++p) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_arrive_expect_tx(&full[stage], G::kStageBytes);
+            tma_load_4d(ring + stage * G::kStageBytes, &map_q, &full[stage],
+                        h * kDk + p * G::kPanelK, tt * kReadTok, bn, 0);
+            if (++stage == G::kStages) stage = 0, phase ^= 1;
+          }
+      }
+    }
+    return;
+  }
+
+  regs_inc<232>();
+  const int wg = tid / 128 - 1, t = tid % 128;
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, tg = lane & 3;
+  unsigned char* m_hi = smem + wg * (G::kSplit ? 2 : 1) * G::kMBytes;
+  unsigned char* m_lo = m_hi + G::kMBytes;  // float32 form only
+  T* otile = reinterpret_cast<T*>(outs + wg * G::kOutBytes);
+  const uint64_t dhi = desc_kmajor(m_hi, 0), dlo = desc_kmajor(m_lo, 0);
+  const int bar = 2 + wg;  // this consumer's named barrier
+
+  // This consumer's [kDk][kVW] slice of an item's mixed, loaded into
+  // registers an item ahead: load j of lane l is row 8 (u % kRB) + l % 8,
+  // columns 4 (4 (u / kRB) + l / 8) .. + 3 with u = warp + 4 j, so a warp
+  // reads 64 contiguous bytes (32 in bf16) of each of 8 rows and writes
+  // mixed^T with two lanes a bank.
+  constexpr int kRB = kDk / 8;
+  typedef typename Raw4<T>::type R4;
+  R4 pre[G::kPre];
+  auto at = [&](int j, int& k, int& v0) {
+    const int u = warp + 4 * j;
+    k = (u % kRB) * 8 + (lane & 7);
+    v0 = 4 * ((u / kRB) * 4 + (lane >> 3));
+  };
+  auto prefetch = [&](int item) {
+    const int bh = item / groups;
+    const T* src = mixed + (int64_t)bh * kDk * Dv + (item % groups) * G::kCols + wg * kVW;
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-      acc[a][0] = acc[a][1] = acc[a][2] = acc[a][3] = 0.f;
-    for (int k = 0; k < Dk; k += 4) {
-      float4 mv[4];
+    for (int j = 0; j < G::kPre; ++j) {
+      int k, v0;
+      at(j, k, v0);
+      pre[j] = *reinterpret_cast<const R4*>(src + (int64_t)k * Dv + v0);
+    }
+  };
+  // mixed^T [kVW][kDk] as the K-major B operand, split into hi and lo (hi
+  // alone in the bf16 form), 128-byte swizzled panels of 32 columns of Dk.
+  auto build = [&]() {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mv[kk] = *reinterpret_cast<const float4*>(ms + (k + kk) * kReadCols + tx * 4);
+    for (int j = 0; j < G::kPre; ++j) {
+      int k, v0;
+      at(j, k, v0);
+      const float4 x = raw_to_float4(pre[j]);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float4 qv = *reinterpret_cast<const float4*>(qs + (ty * 4 + a) * Dk + k);
-        const float qk[4] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          acc[a][0] = fmaf(qk[kk], mv[kk].x, acc[a][0]);
-          acc[a][1] = fmaf(qk[kk], mv[kk].y, acc[a][1]);
-          acc[a][2] = fmaf(qk[kk], mv[kk].z, acc[a][2]);
-          acc[a][3] = fmaf(qk[kk], mv[kk].w, acc[a][3]);
+      for (int e = 0; e < 4; ++e) {
+        const int off = (k >> 5) * kVW * 128 + swizzle128_f32(v0 + e, k & 31);
+        if constexpr (G::kSplit) {
+          uint32_t hi, lo;
+          split_tf32(xs[e], hi, lo);
+          *reinterpret_cast<uint32_t*>(m_hi + off) = hi;
+          *reinterpret_cast<uint32_t*>(m_lo + off) = lo;
+        } else {
+          *reinterpret_cast<float*>(m_hi + off) = xs[e];  // a bf16 value is exact in TF32
         }
       }
     }
+  };
+
+  int stage = 0, freed = 0;  // the next stage to take, the next to free
+  uint32_t phase = 0;
+  float acc[kVW / 8][4];
+  uint32_t ahi[2][4], alo[2][4];  // the A fragments of two k-steps in turn
+  // Free the oldest stage taken, after a wgmma_wait that completed the last
+  // products it fed in every warp. (Freed as soon as its fragments were
+  // loaded, a stage was at times overwritten by the next load while they
+  // were still being read: whole 8-row atoms of q wrong, which the card
+  // test's two-run comparison caught at Dk or Dv = 256.)
+  auto free_stage = [&]() {
+    named_sync(bar, 128);
+    if (t == 0) mbar_arrive(&empty[freed]);
+    if (++freed == G::kStages) freed = 0;
+  };
+
+  if (blockIdx.x < items) prefetch(blockIdx.x);
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int bh = item / groups, bn = bh / H, h = bh % H;
+    const int col = h * Dv + (item % groups) * G::kCols + wg * kVW;  // this consumer's first column
+    build();  // the previous item's products are done (its last tile's epilogue synced)
+    fence_async_shared();
+    named_sync(bar, 128);
+    if (item + (int)gridDim.x < items) prefetch(item + gridDim.x);
+    for (int tt = 0; tt < tiles; ++tt) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int row = r0 + ty * 4 + a;
-      if (row < C)
-        store4(oc + (int64_t)row * ldo + tx * 4,
-               make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]));
+      for (int p = 0; p < G::kPanels; ++p) {
+        mbar_wait(&full[stage], phase);
+        const T* st = reinterpret_cast<const T*>(ring + stage * G::kStageBytes);
+        // k-step s: its A fragments (q rows) split in registers, three
+        // products (one in bf16) as one commit group; a k-step's products
+        // run while the next k-step's fragments are loaded and split
+#pragma unroll
+        for (int s = 0; s < G::kKS; ++s) {
+          const int r = s & 1;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = panel_at(st, warp * 16 + g + 8 * (e & 1), 8 * s + tg + 4 * (e >> 1));
+            if constexpr (G::kSplit) split_tf32(x, ahi[r][e], alo[r][e]);
+            else ahi[r][e] = __float_as_uint(x);
+          }
+          const uint64_t off = kstep_kmajor<kVW>(p * G::kKS + s);
+          wgmma_fence();
+          wgmma_tf32(acc, ahi[r], dhi + off, p + s > 0);
+          if constexpr (G::kSplit) {
+            wgmma_tf32(acc, ahi[r], dlo + off, 1);
+            wgmma_tf32(acc, alo[r], dhi + off, 1);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();  // k-step s - 1 is done: its register set may be written
+          fence_frag(ahi[r ^ 1]);
+          if constexpr (G::kSplit) fence_frag(alo[r ^ 1]);
+          if (s == 0 && p > 0) free_stage();  // the last stage's products are done
+        }
+        if (++stage == G::kStages) stage = 0, phase ^= 1;
+      }
+      wgmma_wait<0>();
+      free_stage();
+      fence_acc(acc);
+      // o rows [tt * 64, + 64) x this consumer's kVW columns: through the
+      // swizzled output tile and TMA stores (rows past C are not written)
+      if (t == 0) tma_store_wait_read<0>();  // the last tile's store has read the buffer
+      named_sync(bar, 128);
+#pragma unroll
+      for (int i = 0; i < kVW / 8; ++i) {
+        put_pair(otile, warp * 16 + g, 8 * i + 2 * tg, acc[i][0], acc[i][1]);
+        put_pair(otile, warp * 16 + g + 8, 8 * i + 2 * tg, acc[i][2], acc[i][3]);
+      }
+      fence_async_shared();
+      named_sync(bar, 128);
+      if (t == 0) {
+#pragma unroll
+        for (int pp = 0; pp < kVW / G::kOutPanel; ++pp)
+          tma_store_4d_part(&map_o, reinterpret_cast<unsigned char*>(otile) + pp * kReadTok * 128,
+                            col + pp * G::kOutPanel, tt * kReadTok, bn, 0);
+        tma_store_commit();
+      }
     }
   }
+  if (t == 0) tma_store_wait_all();
 }
 
 template <typename T, int kNH, int kWT, int kCL>
@@ -433,17 +625,23 @@ int dispatch_mix(const void* m, const void* s, void* out, int B, int N, long lon
   }
 }
 
-template <typename T>
-int launch_readout(const void* q, const void* mixed, void* o, int bn, int C,
-                   int H, int Dk, int Dv, cudaStream_t stream) {
-  auto kern = readout_kernel<T>;
-  const size_t smem = (size_t)(Dk * kReadCols + kReadRows * Dk) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(bn, H, Dv / kReadCols);
-  kern<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)mixed, (T*)o, C,
-                                         H, Dk, Dv);
+template <typename T, int kDk, int kVW>
+int launch_readout(const void* q, const void* mixed, void* o, int bn, int C, int H, int Dv,
+                   cudaStream_t stream) {
+  typedef ReadGeom<T, kDk, kVW> G;
+  constexpr int is_bf16 = sizeof(T) == 2;
+  auto kern = readout_kernel<T, kDk, kVW>;
+  int blocks = 0;
+  int err = hopper_host::resident_blocks((const void*)kern, kReadThreads, G::kSmem, &blocks);
+  if (err) return err;
+  CUtensorMap map_q, map_o;
+  err = hopper_host::make_rows_map(&map_q, q, is_bf16, bn, C, (long long)H * kDk, kReadTok);
+  if (!err)
+    err = hopper_host::make_rows_map(&map_o, o, is_bf16, bn, C, (long long)H * Dv, kReadTok);
+  if (err) return err;
+  const int items = bn * H * (Dv / G::kCols);
+  const int grid = blocks < items ? blocks : items;
+  kern<<<grid, kReadThreads, G::kSmem, stream>>>(map_q, map_o, (const T*)mixed, C, H, Dv, items);
   return (int)cudaGetLastError();
 }
 
@@ -463,10 +661,14 @@ int mhla_mix_states_dense(const void* m, const void* s, void* out, int B, int N,
 
 int mhla_block_readout(const void* q, const void* mixed, void* o, int bn, int C,
                        int H, int Dk, int Dv, int is_bf16, void* stream) {
-  if (Dk % 4 || Dk > 256 || Dv % kReadCols) return (int)cudaErrorInvalidValue;
-  return is_bf16
-             ? launch_readout<bf16>(q, mixed, o, bn, C, H, Dk, Dv, (cudaStream_t)stream)
-             : launch_readout<float>(q, mixed, o, bn, C, H, Dk, Dv, (cudaStream_t)stream);
+  if ((Dk != 128 && Dk != 256) || Dv < 128 || Dv % 128 || bn < 1 || C < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16)
+    return Dk == 128 ? launch_readout<bf16, 128, 64>(q, mixed, o, bn, C, H, Dv, st)
+                     : launch_readout<bf16, 256, 64>(q, mixed, o, bn, C, H, Dv, st);
+  return Dk == 128 ? launch_readout<float, 128, 64>(q, mixed, o, bn, C, H, Dv, st)
+                   : launch_readout<float, 256, 32>(q, mixed, o, bn, C, H, Dv, st);
 }
 
 }  // extern "C"

@@ -11,12 +11,13 @@ group a process:
 - ``flash``: K9 / K9b (``kernels/flash_attention.py``) in every form, beside
   the library's flash or memory-efficient SDPA call (forward, and its
   backward through autograd). No steps.
-- ``video``: K6 (``kernels/mhla_block.py``), K10 in its serving and its
-  training form and K10b (``kernels/sparse_attention.py``) at the video
-  model's shapes; steps the training steps of (i) hybrid_sparse and (j)
-  hybrid_sparse + LoRA, one CFG forward of (d), the full-MHLA sampler, and
-  one of (f), the hybrid_sparse sampler, at t = 501, below its dense guard
-  (letters i, j, d, f).
+- ``video``: K6, K7 and K7b (``kernels/mhla_block.py``), K10 in its serving
+  and its training form and K10b (``kernels/sparse_attention.py``) at the
+  video model's shapes, K7 and K7b each beside an einsum of the same
+  products (TF32 off); steps the training steps of (g) full MHLA, (h)
+  hybrid, (i) hybrid_sparse and (j) hybrid_sparse + LoRA, one CFG forward
+  of (d), the full-MHLA sampler, and one of (f), the hybrid_sparse sampler,
+  at t = 501, below its dense guard (letters g, h, i, j, d, f).
 - ``gla``: K12 and K12b (``kernels/gla_chunk.py``) at (q)'s training shape
   [8, 2048, 4, 128|256] in float32 (the GLA layer's form), K12 at (p)'s
   prefill of 4 x 1,984 tokens (serving: no entry states kept), both at
@@ -369,9 +370,10 @@ def flash_kernels(cs, tag: str) -> None:
         time_flash_form(flash, cs, tag, *form)
 
 
-# --- video: K6, K10, K10b --------------------------------------------------
+# --- video: K6, K7, K7b, K10, K10b -----------------------------------------
 
 VIDEO_FRAMES, VIDEO_TOKENS, VIDEO_HEADS = 21, 31500, 12
+VIDEO_BLOCKS, VIDEO_BLOCK_TOKENS = 150, 210
 SOFTMAX_LAYERS = tuple(range(0, 30, 3))  # configs/wan_1300m_hybrid_mhla.yaml
 
 
@@ -398,6 +400,38 @@ def time_k6(tag: str) -> None:
             "ms": median_ms(lambda: mhla_block.mix_states_dense(mat, s), 3),
             "library_ms": median_ms(lambda: torch.matmul(md, s.view(b, n, r)), 3)})
         del s
+
+
+def time_k7(tag: str) -> None:
+    """K7 at (d)'s [2, 150, 210, 1536] (CFG batch) and at the training shape
+    [1, 150, 210, 1536], and K7b at the training shape, in float32 and bf16,
+    each beside the einsum of the same products (TF32 off)."""
+    import torch
+
+    from mhla_tpu_torch.kernels import mhla_block
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(2)
+    n, c, h, d = VIDEO_BLOCKS, VIDEO_BLOCK_TOKENS, VIDEO_HEADS, 128
+    for b, dt in ((2, torch.float32), (2, torch.bfloat16), (1, torch.float32),
+                  (1, torch.bfloat16)):
+        q = torch.relu(torch.randn(b, n, c, h * d, generator=gen, device=dev)).to(dt)
+        m = torch.randn(b, n, h * d, d, generator=gen, device=dev).to(dt)
+        q5, m5 = q.unflatten(-1, (h, d)), m.unflatten(-2, (h, d))
+        form = f"{str(dt)[6:]} [{b}, {n}, {c}, {h * d}]"
+        report(tag, f"K7 {form}", {
+            "ms": median_ms(lambda: mhla_block.block_readout(q, m, h), 3),
+            "library_ms": median_ms(lambda: torch.einsum("bnchk,bnhkv->bnchv", q5, m5), 3)})
+        if b == 1:
+            do = torch.randn(b, n, c, h * d, generator=gen, device=dev).to(dt)
+            do5 = do.unflatten(-1, (h, d))
+            report(tag, f"K7b {form}", {
+                "ms": median_ms(lambda: mhla_block.block_readout_bwd(q, m, do, h), 3),
+                "library_ms": median_ms(lambda: (torch.einsum("bnchv,bnhkv->bnchk", do5, m5),
+                                                 torch.einsum("bnchk,bnchv->bnhkv", q5, do5)),
+                                        3)})
+            del do, do5
+        del q, m, q5, m5
 
 
 def time_k10(tag: str) -> None:
@@ -437,17 +471,21 @@ def time_k10b(tag: str) -> None:
                         2, reps=5, warmup=1)})
 
 
-def time_train_step(tag: str, lora: bool) -> None:
-    """(i) or, with ``lora``, (j): ten radial-sparse softmax layers; the
-    median of 4 steps after one."""
+def time_train_step(tag: str, letter: str) -> None:
+    """A video training step: (g) full MHLA, (h) the hybrid (the trainer's
+    default), (i) its ten softmax layers radial-sparse, (j) (i) with LoRA;
+    the median of 4 steps after one."""
     import torch
 
     from mhla_tpu_torch.train.wan_train import WanTrainConfig, build_training
 
     cfg = WanTrainConfig()
     cfg.optimizer.warmup_steps = 1
-    cfg.model.sparse_attn_idx = SOFTMAX_LAYERS
-    cfg.lora.enable = lora
+    if letter == "g":
+        cfg.model.linear_attn_idx = tuple(range(30))
+    if letter in "ij":
+        cfg.model.sparse_attn_idx = SOFTMAX_LAYERS
+    cfg.lora.enable = letter == "j"
     model, state, step, data = build_training(cfg)
     dev = torch.device(cfg.device)
     holder = {"state": state}
@@ -458,7 +496,7 @@ def time_train_step(tag: str, lora: bool) -> None:
                                                           torch.from_numpy(c).to(dev)))
         float(metrics["loss"])
 
-    report(tag, f"step ({'j' if lora else 'i'})", {"step_ms": host_median_ms(one, 4)})
+    report(tag, f"step ({letter})", {"step_ms": host_median_ms(one, 4)})
     del model, state, step, data, holder
 
 
@@ -512,12 +550,13 @@ def time_sparse_forward(cs, tag: str) -> None:
 
 def video_kernels(cs, tag: str) -> None:
     time_k6(tag)
+    time_k7(tag)
     time_k10(tag)
     time_k10b(tag)
 
 
 def video_steps(cs, tag: str) -> dict:
-    return {"i": lambda: time_train_step(tag, False), "j": lambda: time_train_step(tag, True),
+    return {**{x: (lambda x=x: time_train_step(tag, x)) for x in "ghij"},
             "d": lambda: time_cfg_forward(tag), "f": lambda: time_sparse_forward(cs, tag)}
 
 

@@ -9,7 +9,9 @@ four of the forward:
   K6 ``mix_states_dense``   mixed_i = sum_j M[i, j] S_j, dense [N, N]
                             (CUDA C++, ``csrc/mhla_block.cu``: TF32 tensor
                             cores, operands split to float32 accuracy)
-  K7 ``block_readout``      o_i = q_i @ mixed_i per block and head (CUDA C++)
+  K7 ``block_readout``      o_i = q_i @ mixed_i per block and head (CUDA C++,
+                            ``csrc/mhla_block.cu``: TF32 tensor cores,
+                            operands split to float32 accuracy)
   K8 ``unblockify_island``  blocked [B, N, C, F] -> flat [B, T, F] with the
                             per-head RMSNorm and the output cast (Triton)
 
@@ -35,7 +37,9 @@ custom VJPs of the JAX module:
                              without RoPE (Triton); with the sine negated it
                              is the transpose of K5's RoPE and permutation
   K7b ``block_readout_bwd``  dq_i = dO_i @ mixed_i^T, dmixed_i = q_i^T @ dO_i
-                             (CUDA C++, ``csrc/mhla_block_bwd.cu``)
+                             (CUDA C++, ``csrc/mhla_block_bwd.cu``: TF32
+                             tensor cores, operands split to float32
+                             accuracy)
 
 K8b replaces ``_blockify_kernel`` (``mhla_block_pallas.py:261``) and K5b
 ``_unblockify_kernel`` (``:273``): one Triton kernel in two directions, with
@@ -76,7 +80,9 @@ launches = {
 _BLOCK_R = 4  # token rows per program of K5 and K8
 _MAX_BLOCKS = 224  # K6 splits N over clusters of at most four blocks (csrc: kMaxMixBlocks)
 _MIX_COLS = 32  # K6 takes state sizes in multiples of 32 columns
-_READ_COLS = 128  # Dv columns per block of K7 (csrc: kReadCols)
+_READ_DK = (128, 256)  # K7's head dims (csrc: readout_kernel's kDk)
+_READ_DV = 128  # K7 takes Dv in multiples of it, K7b only it (csrc: kDv)
+_READ_KT = 128  # K7b takes Dk in multiples of it
 _MID_CODE = {None: 0, torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # 0: no rounding
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -650,9 +656,12 @@ def block_readout_bwd(
     if tuple(mixed4.shape) != (b, n, hdk, dv) or tuple(do4.shape) != (b, n, c, num_heads * dv):
         raise ValueError(f"q4 {tuple(q4.shape)}, mixed4 {tuple(mixed4.shape)} and do4 "
                          f"{tuple(do4.shape)} disagree")
-    if dk % _READ_COLS or dv != _READ_COLS:
-        raise ValueError(f"kernel needs Dk % {_READ_COLS} == 0 and Dv == {_READ_COLS}, "
+    if dk % _READ_KT or dv != _READ_DV:
+        raise ValueError(f"kernel needs Dk % {_READ_KT} == 0 and Dv == {_READ_DV}, "
                          f"got Dk={dk}, Dv={dv}")
+    if any(x.data_ptr() % 16 for x in (q4, mixed4, do4)):
+        raise ValueError("kernel loads q and dO by TMA and mixed 16 bytes at a time: "
+                         "they must be 16-byte aligned")
     dq, dmixed = torch.empty_like(q4), torch.empty_like(mixed4)
     if b * n * c:
         with torch.cuda.device(q4.device):
@@ -706,11 +715,13 @@ def _block_readout(q4: torch.Tensor, mixed4: torch.Tensor, num_heads: int) -> to
     dk, dv = hdk // num_heads, mixed4.shape[-1]
     if tuple(mixed4.shape) != (b, n, hdk, dv):
         raise ValueError(f"mixed4 {tuple(mixed4.shape)} does not match q4 {tuple(q4.shape)}")
-    if dk % 4 or dk > 256 or dv % _READ_COLS:
+    if dk not in _READ_DK or dv % _READ_DV:
         raise ValueError(
-            f"kernel needs Dk % 4 == 0, Dk <= 256 and Dv % {_READ_COLS} == 0, "
-            f"got Dk={dk}, Dv={dv}"
+            f"kernel needs Dk in {_READ_DK} and Dv % {_READ_DV} == 0, got Dk={dk}, Dv={dv}"
         )
+    if any(x.data_ptr() % 16 for x in (q4, mixed4)):
+        raise ValueError("kernel loads q by TMA and mixed 16 bytes at a time: "
+                         "they must be 16-byte aligned")
     out = torch.empty(b, n, c, num_heads * dv, dtype=q4.dtype, device=q4.device)
     if b * n * c:
         with torch.cuda.device(q4.device):

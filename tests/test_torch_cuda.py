@@ -373,9 +373,29 @@ def test_dense_mix_and_readout_kernels_match_plain(dev, dtype, n, c):
     assert mhla_block.launches["mix_states_dense"] == before["mix_states_dense"] + 1
     assert mhla_block.launches["block_readout"] == before["block_readout"] + 1
     mixed_ref = mhla_block.mix_states_dense_plain(m, states)
-    assert_close("mix_states_dense", mixed_ref, mixed, K6_F32_TOL if dtype == _F32 else KERNEL_TOL)
-    assert_close("block_readout", mhla_block.block_readout_plain(q4, mixed_ref, h), out,
-                 KERNEL_TOL)
+    tol = K6_F32_TOL if dtype == _F32 else KERNEL_TOL
+    assert_close("mix_states_dense", mixed_ref, mixed, tol)
+    assert_close("block_readout", mhla_block.block_readout_plain(q4, mixed_ref, h), out, tol)
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("n,c", [(150, 210), (8, 24), (33, 1)])
+@pytest.mark.parametrize("dk,dv", [(128, 128), (256, 128), (128, 256), (256, 256)])
+def test_block_readout_kernel_on_tf32_tensor_cores(dev, dtype, n, c, dk, dv):
+    """K7 at both head dims it takes (Dk = 256: items of 64 columns of Dv in
+    float32) and at two item column groups (Dv = 256): float32 within
+    K6_F32_TOL of its plain version (three TF32 products), bf16 within
+    KERNEL_TOL, the same bits over two runs, one launch a call."""
+    b, h = 2, 2
+    q4 = torch.relu(_randn(dev, b, n, c, h * dk, seed=4)).to(dtype)
+    mixed = _randn(dev, b, n, h * dk, dv, seed=3).to(dtype)
+    before = mhla_block.launches["block_readout"]
+    first = mhla_block.block_readout(q4, mixed, h)
+    assert mhla_block.launches["block_readout"] == before + 1
+    assert first.dtype == dtype and first.shape == (b, n, c, h * dv)
+    assert torch.equal(first, mhla_block.block_readout(q4, mixed, h))
+    assert_close(f"block_readout Dk={dk} Dv={dv}", mhla_block.block_readout_plain(q4, mixed, h),
+                 first, K6_F32_TOL if dtype == _F32 else KERNEL_TOL)
 
 
 # K6's float32 form against its plain version (float32 einsum, TF32 off):
@@ -529,6 +549,9 @@ def test_video_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(TypeError):
         x = torch.zeros(1, 2, 8, 256, dtype=torch.float16, device=dev)
         mhla_block.block_readout(x, torch.zeros(1, 2, 256, 128, dtype=torch.float16, device=dev), 2)
+    with pytest.raises(ValueError):  # head dim 384: K7 takes Dk = 128 or 256
+        x = torch.zeros(1, 2, 8, 768, device=dev)
+        mhla_block.block_readout(x, torch.zeros(1, 2, 768, 128, device=dev), 2)
     with pytest.raises(ValueError):  # head dim 96: Dh/2 is no power of two
         mhla_block.blockify_island(torch.zeros(1, 64, 192, device=dev), None, None,
                                    (4, 4, 4), (2, 2, 2), 2)
@@ -639,10 +662,14 @@ def test_blockify_and_unblockify_kernels_match_plain(dev, grid, layout, form):
 
 
 @pytest.mark.parametrize("dtype", [_F32, _BF16])
-@pytest.mark.parametrize("n,c,dk", [(150, 210, 128), (8, 24, 128), (33, 1, 128), (3, 40, 256)])
+@pytest.mark.parametrize("n,c,dk", [(150, 210, 128), (8, 24, 128), (33, 1, 128), (3, 40, 256),
+                                    (150, 210, 256), (8, 24, 256), (33, 1, 256)])
 def test_block_readout_bwd_kernel_matches_plain(dev, dtype, n, c, dk):
     """K7b at the video model's 150 blocks of 210 tokens (neither a multiple
-    of a tile), at small sizes and with two 128-row tiles of Dk."""
+    of a tile), at small sizes and at Dk = 256 (four 64-row items of Dk a
+    block and head): float32 within K6_F32_TOL of its plain version (three
+    TF32 products each), bf16 within KERNEL_TOL, the same bits over two
+    runs."""
     b, h, dv = 2, 2, 128
     q4 = torch.relu(_randn(dev, b, n, c, h * dk, seed=4)).to(dtype)
     mixed = _randn(dev, b, n, h * dk, dv, seed=3).to(dtype)
@@ -652,8 +679,11 @@ def test_block_readout_bwd_kernel_matches_plain(dev, dtype, n, c, dk):
     assert mhla_block.launches["block_readout_bwd"] == before + 1
     ref_dq, ref_dm = mhla_block.block_readout_bwd_plain(q4, mixed, do4, h)
     assert dq.dtype == dtype and dmixed.dtype == dtype
-    assert_close("block_readout_bwd dq", ref_dq, dq, KERNEL_TOL)
-    assert_close("block_readout_bwd dmixed", ref_dm, dmixed, KERNEL_TOL)
+    again = mhla_block.block_readout_bwd(q4, mixed, do4, h)
+    assert torch.equal(dq, again[0]) and torch.equal(dmixed, again[1])
+    tol = K6_F32_TOL if dtype == _F32 else KERNEL_TOL
+    assert_close("block_readout_bwd dq", ref_dq, dq, tol)
+    assert_close("block_readout_bwd dmixed", ref_dm, dmixed, tol)
 
 
 @pytest.mark.parametrize("tq,tk", [(3000, 512), (1000, 1000), (70, 33), (1, 5), (64, 129),
@@ -1802,6 +1832,25 @@ def test_dense_mix_kernels_run_on_tf32_wgmma_and_tma(dev):
         assert "FFMA" not in text, fn
         found += 1
     assert found == 14
+
+
+def test_block_readout_kernels_run_on_tf32_wgmma_and_tma(dev):
+    """The built library's K7 kernels (float32 and bf16 at Dk = 128 and 256)
+    hold HGMMA (wgmma), UTMALDG (TMA loads) and UTMASTG (TMA stores), its K7b
+    kernels (float32 and bf16) HGMMA and UTMALDG, and none of them FFMA:
+    the products run on the tensor cores, not on float32 FMAs."""
+    found = {"readout_kernel": 0, "readout_bwd_kernel": 0}
+    for fn, text in _sass_bodies().items():
+        if "gla_" in fn:  # K12's gla_readout_kernel
+            continue
+        kind = next((k for k in found if k + "I" in fn), None)
+        if kind is None:
+            continue
+        assert "HGMMA" in text and "UTMALDG" in text, fn
+        assert kind != "readout_kernel" or "UTMASTG" in text, fn
+        assert "FFMA" not in text, fn
+        found[kind] += 1
+    assert found == {"readout_kernel": 4, "readout_bwd_kernel": 2}
 
 
 def test_k2b_and_wide_mix_kernels_run_on_wgmma_and_tma(dev):

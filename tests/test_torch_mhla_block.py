@@ -238,6 +238,77 @@ def test_block_readout_matches_jax(c, dtype, tol):
     assert_close(f"block_readout c={c}", _f32(ref).reshape(b, n, c, h * dv), out, tol)
 
 
+def _split_tf32(x: torch.Tensor):
+    """x = hi + lo as K6, K7 and K7b split a float32 operand: hi its TF32
+    rounding, lo = x - hi as the tensor cores read it, truncated to TF32."""
+    hi = _tf32(x)
+    return hi, _tf32(x.float() - hi, False)
+
+
+def _product_tf32(eq: str, a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
+    """einsum ``eq`` of TF32 operands with float32 sums: ``products`` 3 is
+    the float32 kernels' a_hi b_hi + a_hi b_lo + a_lo b_hi, 1 a single TF32
+    product (the bf16 forms', whose values are exact in TF32)."""
+    (a_hi, a_lo), (b_hi, b_lo) = _split_tf32(a), _split_tf32(b)
+    if products == 1:
+        return torch.einsum(eq, a_hi, b_hi)
+    return (torch.einsum(eq, a_hi, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_lo, b_hi))
+
+
+def _readout_tf32(q4, mixed4, do4, h: int, products: int):
+    """K7's and K7b's arithmetic on the CPU, in the kernels' orientations:
+    o = q mixed (A = q's rows, B = mixed^T), dq = dO mixed^T (A = dO's rows,
+    B = mixed's rows) and dmixed^T = dO^T q (A = dO^T, B = q^T); returns o,
+    dq, dmixed in float32."""
+    b, n, c, hdk = q4.shape
+    dk, dv = hdk // h, mixed4.shape[-1]
+    q5, do5 = q4.reshape(b, n, c, h, dk), do4.reshape(b, n, c, h, dv)
+    m5 = mixed4.reshape(b, n, h, dk, dv)
+    o = _product_tf32("bnchk,bnhvk->bnchv", q5, m5.transpose(-1, -2), products)
+    dq = _product_tf32("bnchv,bnhkv->bnchk", do5, m5, products)
+    dmt = _product_tf32("bnchv,bnchk->bnhvk", do5, q5, products)
+    return (o.reshape(b, n, c, h * dv), dq.reshape(b, n, c, hdk),
+            dmt.transpose(-1, -2).reshape(b, n, hdk, dv))
+
+
+@pytest.mark.parametrize("c", [24, 210])
+def test_tf32_split_readout_holds_float32_accuracy(c):
+    """K7's and K7b's TF32 split emulated at C = 24 and 210 (the video
+    model's blocks): three products a product lie within TOL (1e-5, the card
+    tests' tolerance) of JAX's float32 ``_readout`` and its VJP and of the
+    plain versions, and one TF32 product does not: the tolerance tells the
+    split from a single pass. On bf16 inputs one product, rounded to bf16,
+    lies within TOL_BF16 (the card tests' KERNEL_TOL) of the plain bf16
+    forms."""
+    b, n, h, dk, dv, g = 2, 4, 2, 128, 128, 2
+    rng = _rng(71)
+    q = np.maximum(rng.normal(size=(b, n, c, h * dk)), 0).astype(np.float32)
+    mixed = rng.normal(size=(b, n, h * dk, dv)).astype(np.float32)
+    do = rng.normal(size=(b, n, c, h * dv)).astype(np.float32)
+    out, vjp = jax.vjp(lambda qq, mm: jax_block._readout(qq, mm, g, c, h),
+                       jnp.asarray(q).reshape(b, n // g, g * c, h * dk), jnp.asarray(mixed))
+    ref_dq, ref_dm = vjp(jnp.asarray(do).reshape(b, n // g, g * c, h * dv))
+    refs = (_f32(out).reshape(b, n, c, h * dv), _f32(ref_dq).reshape(b, n, c, h * dk),
+            _f32(ref_dm))
+    tq, tm, tdo = (torch.from_numpy(x) for x in (q, mixed, do))
+    plain = (mhla_block.block_readout_plain(tq, tm, h),
+             *mhla_block.block_readout_bwd_plain(tq, tm, tdo, h))
+    names = ("o", "dq", "dmixed")
+    three = _readout_tf32(tq, tm, tdo, h, 3)
+    one = _readout_tf32(tq, tm, tdo, h, 1)
+    for name, ref, pl, x3, x1 in zip(names, refs, plain, three, one):
+        assert_close(f"three TF32 products {name} vs JAX c={c}", ref, x3, TOL)
+        assert_close(f"three TF32 products {name} c={c}", pl, x3, TOL)
+        with pytest.raises(AssertionError):
+            assert_close(f"one TF32 product {name} c={c}", ref, x1, TOL)
+    bq, bm, bdo = (x.to(torch.bfloat16) for x in (tq, tm, tdo))
+    plain16 = (mhla_block.block_readout_plain(bq, bm, h),
+               *mhla_block.block_readout_bwd_plain(bq, bm, bdo, h))
+    for name, pl, x1 in zip(names, plain16, _readout_tf32(bq, bm, bdo, h, 1)):
+        assert_close(f"one TF32 product, bf16 {name} c={c}", pl, x1.to(torch.bfloat16), TOL_BF16)
+
+
 def _blockwise_inputs(b, n, c, h, dk, dv, seed):
     rng = _rng(seed)
     q = (np.maximum(rng.normal(size=(b, n, c, h * dk)), 0) + 1e-6).astype(np.float32)
