@@ -349,12 +349,16 @@ CHUNK_MMA_SYNC_MS = {
     ("mix_states_bwd[wide]", "N=448"): (0.5824,),
     ("mix_states_bwd[wide]", "N=512"): (0.7422,),
 }
-# K6's, K7's, K7b's, K10b's and K10's times with their earlier kernels (K6,
-# K7 and K7b on float32 FMAs outside the tensor cores, K10b and K10 on
-# mma.sync over cp.async tiles), before the Hopper redesigns (TF32 wgmma
+# K6's, K7's, K7b's, K10b's, K10's, K5b's and K8b's times with their earlier
+# kernels (K6, K7 and K7b on float32 FMAs outside the tensor cores, K10b and
+# K10 on mma.sync over cp.async tiles, K5b and K8b one Triton kernel reading
+# 4 rows of one head a program), before the Hopper redesigns (TF32 wgmma
 # split to float32 accuracy; the radial forms of K9b's and K9's wgmma / TMA
-# kernels), by (kernel, shape tag) as this script times them: PERF.md
-# section 6's table (NVIDIA H100 80GB HBM3, 700.00 W).
+# kernels; whole token rows by bulk copies, csrc/mhla_permute.cu), by
+# (kernel, shape tag) as this script times them: PERF.md section 6's table
+# (NVIDIA H100 80GB HBM3, 700.00 W). The K5b form with the pre-RoPE copy's
+# gradient and K8b's RoPE form were first timed by eval/time_kernels.py's
+# video group on the Triton kernel (PERF.md section 6's table).
 VIDEO_EARLIER_MS = {
     ("mix_states_dense", "float32 N=150"): (0.6905,),
     ("mix_states_dense[bf16]", "bfloat16 N=150"): (0.6507,),
@@ -365,6 +369,11 @@ VIDEO_EARLIER_MS = {
     ("radial_flash_attention_bwd", "T=31500 21 frames B=1"): (47.4294,),
     ("radial_flash_attention", "T=31500 21 frames"): (29.1132,),
     ("radial_flash_attention[lse]", "T=31500 21 frames B=1"): (14.9403,),
+    ("unblockify", "f32 rope^T"): (0.2715,),
+    ("unblockify[v]", "f32 no rope"): (0.1452,),
+    ("unblockify[bf16+nope]", "bf16->f32 +add"): (0.2723,),
+    ("blockify", "bf16->f32"): (0.1291,),
+    ("blockify[rope]", "bf16->f32 rope"): (0.2445,),
 }
 # K12's and K12b's times with their earlier kernels (float32 FMAs on the
 # CUDA cores, the per-chunk products and the chain in separate launches),
@@ -430,9 +439,9 @@ KERNEL_META = {
                         "mhla_tpu/kernels/flash_attention.py:115"),
     "radial_flash_attention": ("cuda", "mhla_tpu_torch/csrc/flash_fwd.cu",
                                "mhla_tpu/kernels/sparse_attention.py:312"),
-    "unblockify": ("triton", "mhla_tpu_torch/kernels/mhla_block.py",
+    "unblockify": ("cuda", "mhla_tpu_torch/csrc/mhla_permute.cu",
                    "mhla_tpu/kernels/mhla_block_pallas.py:273"),
-    "blockify": ("triton", "mhla_tpu_torch/kernels/mhla_block.py",
+    "blockify": ("cuda", "mhla_tpu_torch/csrc/mhla_permute.cu",
                  "mhla_tpu/kernels/mhla_block_pallas.py:261"),
     "block_readout_bwd": ("cuda", "mhla_tpu_torch/csrc/mhla_block_bwd.cu",
                           "mhla_tpu/kernels/mhla_block_pallas.py:116"),
@@ -3011,34 +3020,43 @@ def phase_kernels_video_train(dev: torch.device) -> dict:
     slow = dict(reps=5, inner=2, warmup=1)
     tables = rope_tables_flat(VIDEO_GRID, dh, device=dev)
 
-    # K5b as the gradients of q and k take it (float32, the rotation undone) and
-    # with the pre-RoPE copy's gradient summed in (bf16 island, normalize_out)
+    # K5b as the gradients of q and k take it (float32, the rotation undone),
+    # as v's (no RoPE; beside one index_select of the blocked rows by the
+    # inverse permutation, the same function) and with the pre-RoPE copy's
+    # gradient summed in (bf16 island, normalize_out); K8b as the island
+    # epilogue's backward takes it (bf16 gradient in, float32 out) and with
+    # RoPE (the transpose of K5b). Each within 1e-6 of plain, two runs equal;
+    # operations: 6 an element with RoPE, one more with add, 1 without.
     dyb, dnope = randn(b, n, c, f), randn(b, n, c, f)
-    check("unblockify", "f32 rope^T",
-          lambda: mhla_block.unblockify(dyb, tables, *glt, -1.0, f32),
-          lambda: mhla_block.unblockify_plain(dyb, tables, *glt, -1.0, f32), True,
-          work=(2 * nbytes(dyb) + nbytes(*tables), 6 * dyb.numel(), f32), tol=1e-6)
-    check("unblockify[v]", "f32 no rope",
-          lambda: mhla_block.unblockify(dyb, None, *glt, 1.0, f32),
-          lambda: mhla_block.unblockify_plain(dyb, None, *glt, 1.0, f32), True,
-          work=(2 * nbytes(dyb), dyb.numel(), f32), tol=1e-6)
     dyb16, dnope16 = dyb.to(bf16), dnope.to(bf16)
-    check("unblockify[bf16+nope]", "bf16->f32 +add",
-          lambda: mhla_block.unblockify(dyb16, tables, *glt, -1.0, f32, dnope16),
-          lambda: mhla_block.unblockify_plain(dyb16, tables, *glt, -1.0, f32, dnope16), False,
-          tol=1e-6)
-    del dnope, dyb16, dnope16
-    # K8b as the island epilogue's backward takes it (bf16 gradient in, float32 out)
-    # and with RoPE (the transpose of K5b)
     dy = randn(b, t, f).to(bf16)
-    check("blockify", "bf16->f32",
-          lambda: mhla_block.blockify(dy, None, *glt, 1.0, f32),
-          lambda: mhla_block.blockify_plain(dy, None, *glt, 1.0, f32), True,
-          work=(nbytes(dy) + 4 * dy.numel(), dy.numel(), f32), tol=1e-6)
-    check("blockify[rope]", "bf16->f32 rope",
-          lambda: mhla_block.blockify(dy, tables, *glt, 1.0, f32),
-          lambda: mhla_block.blockify_plain(dy, tables, *glt, 1.0, f32), False, tol=1e-6)
-    del dy
+    inverse = torch.argsort(mhla_block.block_token_index(VIDEO_GRID, VIDEO_LAYOUT, dev))
+    flat_f32 = 4 * b * t * f  # every form writes float32
+    permute_forms = (
+        ("unblockify", "f32 rope^T", lambda: mhla_block.unblockify(dyb, tables, *glt, -1.0, f32),
+         lambda: mhla_block.unblockify_plain(dyb, tables, *glt, -1.0, f32),
+         nbytes(dyb, *tables), 6, None),
+        ("unblockify[v]", "f32 no rope", lambda: mhla_block.unblockify(dyb, None, *glt, 1.0, f32),
+         lambda: mhla_block.unblockify_plain(dyb, None, *glt, 1.0, f32), nbytes(dyb), 1,
+         lambda: dyb.view(t, f).index_select(0, inverse)),
+        ("unblockify[bf16+nope]", "bf16->f32 +add",
+         lambda: mhla_block.unblockify(dyb16, tables, *glt, -1.0, f32, dnope16),
+         lambda: mhla_block.unblockify_plain(dyb16, tables, *glt, -1.0, f32, dnope16),
+         nbytes(dyb16, dnope16, *tables), 7, None),
+        ("blockify", "bf16->f32", lambda: mhla_block.blockify(dy, None, *glt, 1.0, f32),
+         lambda: mhla_block.blockify_plain(dy, None, *glt, 1.0, f32), nbytes(dy), 1, None),
+        ("blockify[rope]", "bf16->f32 rope",
+         lambda: mhla_block.blockify(dy, tables, *glt, 1.0, f32),
+         lambda: mhla_block.blockify_plain(dy, tables, *glt, 1.0, f32), nbytes(dy, *tables), 6,
+         None),
+    )
+    for name, tag, kern, plain, read, ops, library in permute_forms:
+        check(name, tag, kern, plain, True, work=(read + flat_f32, ops * b * t * f, f32),
+              library=library, tol=1e-6)
+        if not torch.equal(kern(), kern()):
+            raise AssertionError(f"{name} {tag}: two runs differ")
+        log(f"[kernels] {name} {tag}: two runs equal")
+    del dnope, dyb16, dnope16, dy, inverse
 
     q4 = torch.relu(randn(b, n, c, f)) + 1e-6
     mixed = randn(b, n, f, dh)

@@ -11,7 +11,9 @@ group a process:
 - ``flash``: K9 / K9b (``kernels/flash_attention.py``) in every form, beside
   the library's flash or memory-efficient SDPA call (forward, and its
   backward through autograd). No steps.
-- ``video``: K6, K7 and K7b (``kernels/mhla_block.py``), K10 in its serving
+- ``video``: K5b and K8b in every form the video backward runs, each beside
+  its byte bound (K5b without RoPE also beside ``torch.index_select``), K6,
+  K7 and K7b (``kernels/mhla_block.py``), K10 in its serving
   and its training form and K10b (``kernels/sparse_attention.py``) at the
   video model's shapes, K7 and K7b each beside an einsum of the same
   products (TF32 off); steps the training steps of (g) full MHLA, (h)
@@ -370,11 +372,65 @@ def flash_kernels(cs, tag: str) -> None:
         time_flash_form(flash, cs, tag, *form)
 
 
-# --- video: K6, K7, K7b, K10, K10b -----------------------------------------
+# --- video: K5b, K8b, K6, K7, K7b, K10, K10b -------------------------------
 
 VIDEO_FRAMES, VIDEO_TOKENS, VIDEO_HEADS = 21, 31500, 12
 VIDEO_BLOCKS, VIDEO_BLOCK_TOKENS = 150, 210
+VIDEO_GRID, VIDEO_LAYOUT = (21, 30, 50), (3, 5, 10)  # 21 x 60 x 100 latents, patch (1, 2, 2)
 SOFTMAX_LAYERS = tuple(range(0, 30, 3))  # configs/wan_1300m_hybrid_mhla.yaml
+
+
+def time_permute(tag: str) -> None:
+    """K5b and K8b at the training shape [1, 31,500, 1,536] in the forms the
+    video backward runs, named as ``chip_smoke.py`` names them: K5b on q's and
+    k's gradients (float32, the rotation undone), on v's (no RoPE) and on a
+    bf16 island's with the pre-RoPE copy's gradient summed in; K8b on the
+    epilogue's bf16 gradient and with RoPE. Each beside its bound, its bytes
+    (each input read once, the output written once) over 3.35 TB/s; K5b
+    without RoPE also beside ``torch.index_select`` of the blocked rows by
+    the inverse permutation, the same function in float32, and beside
+    ``copy_ms``, one contiguous copy of the same bytes (``Tensor.copy_``):
+    what the card's memory moves at best for a copy. ``ms`` over 20
+    back-to-back calls, so the host's cost of the first weighs little;
+    ``device_ms`` one call behind a sleep kernel (no host cost)."""
+    import torch
+
+    from mhla_tpu_torch.kernels import mhla_block
+    from mhla_tpu_torch.ops.rotary import rope_tables_flat
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    t, n, f = VIDEO_TOKENS, VIDEO_BLOCKS, VIDEO_HEADS * 128
+    glt = (VIDEO_GRID, VIDEO_LAYOUT, VIDEO_HEADS)
+    tables = rope_tables_flat(VIDEO_GRID, 128, device=dev)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    nbytes = lambda *xs: sum(x.numel() * x.element_size() for x in xs)  # noqa: E731
+    dyb, dnope16 = randn(1, n, t // n, f), randn(1, n, t // n, f).to(bf16)
+    dyb16, dy = dyb.to(bf16), randn(1, t, f).to(bf16)
+    inverse = torch.argsort(mhla_block.block_token_index(VIDEO_GRID, VIDEO_LAYOUT, dev))
+    written = 4 * t * f  # every form writes float32
+    flat = torch.empty(t, f, device=dev)
+    forms = (
+        ("unblockify f32 rope^T", lambda: mhla_block.unblockify(dyb, tables, *glt, -1.0, f32),
+         nbytes(dyb, *tables), None),
+        ("unblockify[v] f32 no rope", lambda: mhla_block.unblockify(dyb, None, *glt, 1.0, f32),
+         nbytes(dyb), lambda: dyb.view(t, f).index_select(0, inverse)),
+        ("unblockify[bf16+nope] bf16->f32 +add",
+         lambda: mhla_block.unblockify(dyb16, tables, *glt, -1.0, f32, dnope16),
+         nbytes(dyb16, dnope16, *tables), None),
+        ("blockify bf16->f32", lambda: mhla_block.blockify(dy, None, *glt, 1.0, f32),
+         nbytes(dy), None),
+        ("blockify[rope] bf16->f32 rope", lambda: mhla_block.blockify(dy, tables, *glt, 1.0, f32),
+         nbytes(dy, *tables), None),
+    )
+    for form, fn, read, library in forms:
+        r = {"ms": median_ms(fn, 20), "device_ms": card_ms(fn, 7),
+             "bound_ms": (read + written) / 3.35e12 * 1e3}
+        if library is not None:
+            r["library_ms"] = median_ms(library, 20)
+            r["copy_ms"] = median_ms(lambda: flat.copy_(dyb.view(t, f)), 20)
+        report(tag, form, r)
 
 
 def time_k6(tag: str) -> None:
@@ -549,6 +605,7 @@ def time_sparse_forward(cs, tag: str) -> None:
 
 
 def video_kernels(cs, tag: str) -> None:
+    time_permute(tag)
     time_k6(tag)
     time_k7(tag)
     time_k10(tag)

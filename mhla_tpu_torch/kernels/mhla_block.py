@@ -30,26 +30,29 @@ and three of the backward, behind the ``autograd.Function``s that follow the
 custom VJPs of the JAX module:
 
   K8b ``blockify``           flat [B, T, F] -> blocked [B, N, C, F], optional
-                             rotate-half RoPE on the way (Triton); the
-                             transpose of K8's permutation
+                             rotate-half RoPE on the way (CUDA C++,
+                             ``csrc/mhla_permute.cu``); the transpose of K8's
+                             permutation
   K5b ``unblockify``         blocked -> flat with the same optional RoPE, and
                              optionally a second blocked tensor summed in
-                             without RoPE (Triton); with the sine negated it
-                             is the transpose of K5's RoPE and permutation
+                             without RoPE (the same kernel); with the sine
+                             negated it is the transpose of K5's RoPE and
+                             permutation
   K7b ``block_readout_bwd``  dq_i = dO_i @ mixed_i^T, dmixed_i = q_i^T @ dO_i
                              (CUDA C++, ``csrc/mhla_block_bwd.cu``: TF32
                              tensor cores, operands split to float32
                              accuracy)
 
 K8b replaces ``_blockify_kernel`` (``mhla_block_pallas.py:261``) and K5b
-``_unblockify_kernel`` (``:273``): one Triton kernel in two directions, with
-K5's index arithmetic. Both are bound by bytes. They read the incoming
-gradient in its own dtype and write float32, so the cast the JAX backward
-makes first costs no pass; K5b takes the gradient of the pre-RoPE copy in
-the same pass instead of a second launch and an addition. The backward of
-the dense mix is K6 on the transposed matrix (as in JAX); ``dM`` is an
-einsum, as there. The elementwise parts of the islands' backward (RMSNorm
-and relu) are plain PyTorch, as they are ``jnp`` in JAX.
+``_unblockify_kernel`` (``:273``): one CUDA kernel in two directions that
+moves whole token rows by bulk copies and reads each token's rotary row once
+for all heads (``csrc/mhla_permute.cu``). Both are bound by bytes. They read
+the incoming gradient in its own dtype and write float32, so the cast the
+JAX backward makes first costs no pass; K5b takes the gradient of the
+pre-RoPE copy in the same pass instead of a second launch and an addition.
+The backward of the dense mix is K6 on the transposed matrix (as in JAX);
+``dM`` is an einsum, as there. The elementwise parts of the islands'
+backward (RMSNorm and relu) are plain PyTorch, as they are ``jnp`` in JAX.
 
 The per-block states (phase A) have no kernel here because the JAX package
 has none on this path either: at C = 210 tokens per block its ``_phase_a``
@@ -64,6 +67,7 @@ tensor or raises. ``launches`` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -101,6 +105,10 @@ def _lib() -> ctypes.CDLL:
         lib.mhla_mix_states_dense.argtypes = [p, p, p, i, i, ctypes.c_longlong, i, p]
         lib.mhla_block_readout.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.mhla_block_readout_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        ll = ctypes.c_longlong
+        lib.mhla_permute.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, ll, i, i, i, i, i, i, i,
+                                     ctypes.c_float, i, i, i, i, i, i, i, p]
+        lib.mhla_permute.restype = ctypes.c_int
         lib.mhla_mix_states_dense.restype = ctypes.c_int
         lib.mhla_block_readout.restype = ctypes.c_int
         lib.mhla_block_readout_bwd.restype = ctypes.c_int
@@ -136,7 +144,7 @@ def block_token_index(
 
 
 # ---------------------------------------------------------------------------
-# the Triton kernels (K5, K8, K5b / K8b)
+# the Triton kernels (K5, K8)
 # ---------------------------------------------------------------------------
 
 
@@ -267,60 +275,6 @@ def _unisland_fwd(
              y.to(o_ptr.dtype.element_ty), mask=mask)
 
 
-def _permute_rope(
-    x_ptr, add_ptr, cos_ptr, sin_ptr, o_ptr,
-    n_rows, rows_per_batch, blk_c, stride_b, stride_t,
-    lay_h, lay_w, part_f, part_h, part_w, grid_h, grid_w, sin_sign,
-    F: tl.constexpr, DH: tl.constexpr, HALF: tl.constexpr, ROPE: tl.constexpr,
-    INVERSE: tl.constexpr, ADD: tl.constexpr, BLOCK_R: tl.constexpr,
-):
-    # one program: BLOCK_R rows of the blocked side, one head. INVERSE reads
-    # blocked rows and writes flat ones (K5b), else the other way round (K8b);
-    # the flat side is addressed with (stride_b, stride_t).
-    rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-    head = tl.program_id(1)
-    cols = tl.arange(0, HALF)
-    mask = (rows[:, None] < n_rows) & (cols[None, :] < HALF)
-    bidx = rows // rows_per_batch
-    rem = rows % rows_per_batch
-    blk = rem // blk_c
-    pos = rem % blk_c
-    fb = blk // (lay_h * lay_w)
-    hb = (blk // lay_w) % lay_h
-    wb = blk % lay_w
-    p1 = pos // (part_h * part_w)
-    p2 = (pos // part_w) % part_h
-    p3 = pos % part_w
-    tok = ((fb * part_f + p1) * grid_h + hb * part_h + p2) * grid_w + wb * part_w + p3
-    blocked = rows.to(tl.int64) * F
-    flat = bidx.to(tl.int64) * stride_b + tok.to(tl.int64) * stride_t
-    if INVERSE:
-        src = blocked
-        dst = flat
-    else:
-        src = flat
-        dst = blocked
-    off = head * DH + cols[None, :]
-    x1 = tl.load(x_ptr + src[:, None] + off, mask=mask, other=0.0).to(tl.float32)
-    x2 = tl.load(x_ptr + src[:, None] + off + HALF, mask=mask, other=0.0).to(tl.float32)
-    if ROPE:
-        t_off = tok[:, None] * DH + cols[None, :]
-        c1 = tl.load(cos_ptr + t_off, mask=mask, other=0.0)
-        c2 = tl.load(cos_ptr + t_off + HALF, mask=mask, other=0.0)
-        s1 = tl.load(sin_ptr + t_off, mask=mask, other=0.0) * sin_sign
-        s2 = tl.load(sin_ptr + t_off + HALF, mask=mask, other=0.0) * sin_sign
-        y1 = x1 * c1 + x2 * s1
-        y2 = x2 * c2 + x1 * s2
-    else:
-        y1 = x1
-        y2 = x2
-    if ADD:
-        y1 += tl.load(add_ptr + src[:, None] + off, mask=mask, other=0.0).to(tl.float32)
-        y2 += tl.load(add_ptr + src[:, None] + off + HALF, mask=mask, other=0.0).to(tl.float32)
-    tl.store(o_ptr + dst[:, None] + off, y1.to(o_ptr.dtype.element_ty), mask=mask)
-    tl.store(o_ptr + dst[:, None] + off + HALF, y2.to(o_ptr.dtype.element_ty), mask=mask)
-
-
 def _load_triton():
     global triton, tl, _kernels
     if _kernels is None:
@@ -331,7 +285,6 @@ def _load_triton():
         _kernels = (
             triton.jit(_island_fwd, do_not_specialize=[n for n in geometry if n != "seq_len"]),
             triton.jit(_unisland_fwd, do_not_specialize=geometry),
-            triton.jit(_permute_rope, do_not_specialize=[n for n in geometry if n != "seq_len"]),
         )
     return _kernels
 
@@ -904,6 +857,125 @@ def unblockify_plain(
     return y.to(out_dtype or xb.dtype)
 
 
+_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # csrc: kF32, kBF16, kF16
+# operands a K5b / K8b launch moves by bulk copies, whether a run's flat
+# rows are contiguous, the operands whose rows are 16-byte aligned, and a
+# pure copy stored from the input stage (csrc/mhla_permute.cu: kBulkX .. kPass)
+_BULK_X, _BULK_ADD, _BULK_TABLES, _BULK_OUT, _FLAT_RUNS = 1, 2, 4, 8, 16
+_ALIGN = 64  # _BULK_* * _ALIGN: that operand's rows are 16-byte aligned
+_PASS = 1024
+_PERMUTE_SMEM = 232448  # shared memory a block may take (csrc: kSmemLimit)
+_PERMUTE_SMEM_HALF = 115712  # two blocks an SM: 228 KB, 1 KB of it reserved a block
+# bytes an input stage aims at: small tiles where the consumer threads
+# rotate, convert or add (a tile's items then finish soon after it lands),
+# large ones for a pure copy (fewer, longer bulk copies); both chosen by
+# timing every form at Wan2.1-1.3B's width on the card (PERF.md, section 6)
+_PERMUTE_STAGE, _PERMUTE_PASS_STAGE = 8 * 1024, 32 * 1024
+_PERMUTE_MAX_ROWS = 16  # token rows a tile at most
+_PERMUTE_MAX_STAGES = 8  # input stages at most (csrc: kMaxInStages)
+_PERMUTE_OUT_STAGES = 3  # csrc: kOutStages
+_PERMUTE_BARRIERS = (2 * 8 + 2 * _PERMUTE_OUT_STAGES) * 8  # csrc: kBarrierBytes
+
+
+def _round128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _permute_flags(x, add, tables, out, inverse: bool) -> int:
+    """Which operands of a K5b / K8b launch a bulk copy can move (address,
+    row size and, on K8b's flat side, strides 16-byte aligned; each such
+    operand's ``_BULK_*`` and ``_BULK_* * _ALIGN``), ``_FLAT_RUNS`` where a
+    run's flat rows are contiguous, and ``_PASS`` where the launch is a pure
+    copy (no tables, no add, x's dtype out) that both sides' bulk copies
+    carry without the consumer threads."""
+    al = lambda v: v % 16 == 0  # noqa: E731
+    f, xs = x.shape[-1], x.element_size()
+    flags = 0
+    if al(x.data_ptr()) and al(f * xs) and (inverse or (al(x.stride(0) * xs)
+                                                        and al(x.stride(1) * xs))):
+        flags |= _BULK_X
+    if add is not None and al(add.data_ptr()) and al(f * add.element_size()):
+        flags |= _BULK_ADD
+    if (tables is not None and all(al(tb.data_ptr()) for tb in tables)
+            and al(tables[0].shape[1] * 4)):
+        flags |= _BULK_TABLES
+    if al(out.data_ptr()) and al(f * out.element_size()):
+        flags |= _BULK_OUT
+    flags |= (flags & (_BULK_X | _BULK_ADD | _BULK_TABLES | _BULK_OUT)) * _ALIGN
+    if inverse or x.stride(1) == f:
+        flags |= _FLAT_RUNS
+    if (tables is None and add is None and x.dtype == out.dtype
+            and flags & _BULK_X and flags & _BULK_OUT):
+        flags |= _PASS
+    return flags
+
+
+def _permute_smem(rows: int, stages: int, f: int, dh: int, sizes, flags: int) -> int:
+    """Shared memory of a K5b / K8b block: ``stages`` input stages of
+    ``rows`` token rows (x's, add's, cos's and sin's parts, each 128-byte
+    aligned), the output stages (none for a pure copy) and the barriers
+    (csrc/mhla_permute.cu ``mhla_permute``). ``sizes``: element bytes of x,
+    add and out."""
+    xs, adds, outs = sizes
+    parts = ((_BULK_X, f * xs), (_BULK_ADD, f * adds), (_BULK_TABLES, dh * 4),
+             (_BULK_TABLES, dh * 4))
+    inp = sum(_round128(rows * r) for flag, r in parts if flags & flag)
+    out = _round128(rows * f * outs) if flags & _BULK_OUT and not flags & _PASS else 0
+    return stages * inp + _PERMUTE_OUT_STAGES * out + _PERMUTE_BARRIERS + 128
+
+
+@functools.lru_cache(maxsize=64)
+def _permute_plan(f: int, dh: int, sizes: Tuple[int, int, int], flags: int) -> Tuple[int, int, int]:
+    """(token rows a tile, input stages, flags) of a K5b / K8b launch: an
+    input stage of about ``_PERMUTE_STAGE`` bytes (``_PERMUTE_PASS_STAGE``
+    for a pure copy) and as many input stages as fit beside the output
+    stages (at most ``_PERMUTE_MAX_STAGES``) in half an SM's shared memory,
+    so two blocks share an SM, else in a block's most.
+    Where one row a stage does not fit even that, the output, then x, add and
+    the tables move by the threads' own loads and stores instead, until it
+    does."""
+    xs, adds, outs = sizes
+    for drop in (0, _BULK_OUT | _PASS, _BULK_X | _PASS, _BULK_ADD, _BULK_TABLES):
+        flags &= ~drop
+        in_row = sum(r for flag, r in ((_BULK_X, f * xs), (_BULK_ADD, f * adds),
+                                       (_BULK_TABLES, 2 * dh * 4)) if flags & flag)
+        target = _PERMUTE_PASS_STAGE if flags & _PASS else _PERMUTE_STAGE
+        rows = max(1, min(_PERMUTE_MAX_ROWS, target // max(in_row, 1)))
+        fixed = _permute_smem(rows, 0, f, dh, sizes, flags)
+        stage = _permute_smem(rows, 1, f, dh, sizes, flags) - fixed
+        for budget in (_PERMUTE_SMEM_HALF, _PERMUTE_SMEM):
+            if fixed + stage <= budget:
+                stages = min(_PERMUTE_MAX_STAGES, (budget - fixed) // stage) if stage else 1
+                return rows, stages, flags
+    raise AssertionError("unreachable: with no operand in the stages a block needs 256 bytes")
+
+
+def permute_walk(grid: Sequence[int], layout: Sequence[int], batch: int, rows: int,
+                 flat_runs: bool = True):
+    """The copies K5b / K8b's kernel makes, tile by tile, in its arithmetic
+    (``walk_tile`` of ``csrc/mhla_permute.cu``): for each tile of ``rows``
+    consecutive blocked rows, a list of (stage row, blocked row, batch row,
+    flat token, rows) spans, each contiguous on both sides: the rest of a
+    run of pw tokens along W within the tile, or one row where the flat
+    side's rows are not contiguous (``flat_runs`` False)."""
+    (_, hg, wg), (_, nh, nw) = grid, layout
+    pf, ph, pw, c, n = _block_geometry(grid, layout)
+    t = n * c
+    for g0 in range(0, batch * t, rows):
+        count = min(rows, batch * t - g0)
+        copies, r = [], 0
+        while r < count:
+            b, rem = divmod(g0 + r, t)
+            blk, pos = divmod(rem, c)
+            fb, hb, wb = blk // (nh * nw), blk % (nh * nw) // nw, blk % nw
+            p1, p2, p3 = pos // (ph * pw), pos // pw % ph, pos % pw
+            tok = ((fb * pf + p1) * hg + hb * ph + p2) * wg + wb * pw + p3
+            span = min(pw - p3, count - r) if flat_runs else 1
+            copies.append((r, g0 + r, b, tok, span))
+            r += span
+        yield copies
+
+
 def _permute(x, tables, grid, layout, num_heads, sin_sign, out_dtype, add, inverse: bool):
     """K8b (``inverse`` False: flat x [B, T, F] -> blocked) and K5b (True:
     blocked x [B, N, C, F] -> flat, plus ``add`` where given)."""
@@ -935,20 +1007,29 @@ def _permute(x, tables, grid, layout, num_heads, sin_sign, out_dtype, add, inver
     if add is not None and not add.is_contiguous():
         raise ValueError("add: kernel takes contiguous tensors")
     f32 = lambda tb: tb.to(torch.float32).contiguous()  # noqa: E731
-    cos, sin = (f32(tb) for tb in tables) if tables is not None else (x, x)
+    cos, sin = (f32(tb) for tb in tables) if tables is not None else (None, None)
     out = torch.empty((b, t, f) if inverse else (b, n, c, f), dtype=out_dtype, device=x.device)
     if b * t:
+        sizes = (x.element_size(), add.element_size() if add is not None else 0, out.element_size())
+        flags = _permute_flags(x, add, None if cos is None else (cos, sin), out, inverse)
+        rows, stages, flags = _permute_plan(f, dh, sizes, flags)
         stride_b, stride_t = (t * f, f) if inverse else (x.stride(0), x.stride(1))
-        kernel = _load_triton()[2]
-        with torch.cuda.device(x.device):
-            kernel[(triton.cdiv(b * t, _BLOCK_R), num_heads)](
-                x, add if add is not None else x, cos, sin, out,
-                b * t, t, c, stride_b, stride_t,
-                layout[1], layout[2], pf, ph, pw, grid[1], grid[2], float(sin_sign),
-                F=f, DH=dh, HALF=dh // 2, ROPE=tables is not None, INVERSE=inverse,
-                ADD=add is not None, BLOCK_R=_BLOCK_R, num_warps=4,
+        ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
+        # x's device current around the call, as torch.cuda.device makes it in
+        # more steps (the host's cost a call shows beside a 0.14 ms kernel)
+        prev = torch.cuda._exchange_device(x.device.index)
+        try:
+            err = _lib().mhla_permute(
+                x.data_ptr(), ptr(add), ptr(cos), ptr(sin), out.data_ptr(), b, t, c, f, dh,
+                stride_b, stride_t, layout[1], layout[2], pf, ph, pw, grid[1], grid[2],
+                float(sin_sign), _CODE[x.dtype], _CODE[add.dtype] if add is not None else 0,
+                _CODE[out_dtype], int(inverse), flags, rows, stages, _stream(x),
             )
-        launches["unblockify" if inverse else "blockify"] += 1
+        finally:
+            torch.cuda._maybe_exchange_device(prev)
+        name = "unblockify" if inverse else "blockify"
+        _raise_on_error(name, err)
+        launches[name] += 1
     return out
 
 

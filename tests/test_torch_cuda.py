@@ -631,23 +631,30 @@ def test_tiny_hybrid_wan_samples_through_the_kernels(dev):
 # ---------------------------------------------------------------------------
 
 
-# odd partitions (7, 6, 5); even ones; 3 and 33 blocks (N * N no multiple of 4)
+# odd partitions (7, 6, 5); even ones; 3 and 33 blocks (N * N no multiple of 4);
+# Wan2.1-1.3B's token grid at its width (12 heads of 128, runs of 5 tokens)
+_WAN_PERMUTE = ((21, 30, 50), (3, 5, 10))
+
+
 @pytest.mark.parametrize("grid,layout", [((21, 12, 10), (3, 2, 2)), ((4, 4, 8), (2, 2, 2)),
-                                         ((3, 4, 4), (3, 1, 1)), ((3, 11, 2), (3, 11, 1))])
+                                         ((3, 4, 4), (3, 1, 1)), ((3, 11, 2), (3, 11, 1)),
+                                         _WAN_PERMUTE])
 @pytest.mark.parametrize("form", ["rope_bf16_to_f32", "plain_f32", "neg_sin_add", "strided"])
 def test_blockify_and_unblockify_kernels_match_plain(dev, grid, layout, form):
     """K8b and K5b: the permutation in both directions, with and without
     RoPE, reading bf16 or float32 and writing float32, K5b also with the
-    second tensor summed in; K8b on a column range of a wider tensor."""
-    h, dh = 2, 128
+    second tensor summed in; K8b on a column range of a wider tensor. Both
+    bit-equal over two runs."""
+    h, dh = (12 if (grid, layout) == _WAN_PERMUTE else 2), 128
+    b = 1 if (grid, layout) == _WAN_PERMUTE else 2
     n, t = layout[0] * layout[1] * layout[2], grid[0] * grid[1] * grid[2]
     tables = None if form == "plain_f32" else rope_tables_flat(grid, dh, device=dev)
     in_dt = _F32 if form == "plain_f32" else _BF16
     sign = -1.0 if form == "neg_sin_add" else 1.0
-    x = _randn(dev, 2, t, 3 * h * dh).to(in_dt)
+    x = _randn(dev, b, t, 3 * h * dh).to(in_dt)
     x = x[..., h * dh: 2 * h * dh] if form == "strided" else x[..., : h * dh].contiguous()
-    xb = _randn(dev, 2, n, t // n, h * dh, seed=1).to(in_dt)
-    add = _randn(dev, 2, n, t // n, h * dh, seed=2).to(in_dt) if form == "neg_sin_add" else None
+    xb = _randn(dev, b, n, t // n, h * dh, seed=1).to(in_dt)
+    add = _randn(dev, b, n, t // n, h * dh, seed=2).to(in_dt) if form == "neg_sin_add" else None
     before = dict(mhla_block.launches)
     got_b = mhla_block.blockify(x, tables, grid, layout, h, sign, _F32)
     got_u = mhla_block.unblockify(xb, tables, grid, layout, h, sign, _F32, add)
@@ -659,6 +666,59 @@ def test_blockify_and_unblockify_kernels_match_plain(dev, grid, layout, form):
     assert_close(f"unblockify {form}",
                  mhla_block.unblockify_plain(xb, tables, grid, layout, h, sign, _F32, add),
                  got_u, 1e-6)
+    assert torch.equal(got_b, mhla_block.blockify(x, tables, grid, layout, h, sign, _F32))
+    assert torch.equal(got_u, mhla_block.unblockify(xb, tables, grid, layout, h, sign, _F32, add))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("form", ["odd_bf16_column", "rows_of_24_bytes", "fp16_head_dim_8"])
+def test_permute_kernel_moves_unaligned_rows_itself(dev, form, inverse):
+    """K8b / K5b where a bulk copy cannot take a row: a flat side at an odd
+    2-byte column offset in bf16 (K8b's x; K5b's out from a blocked tensor
+    read the same way is contiguous, so K5b runs aligned there), rows of
+    24 bytes (head dim 2: the one-element path too) and fp16 rows of head
+    dim 8, each against the plain version, with RoPE."""
+    grid, layout = (3, 11, 2), (3, 11, 1)
+    n, t = 33, 66
+    h, dh, dt = {"odd_bf16_column": (2, 128, _BF16), "rows_of_24_bytes": (3, 2, _F32),
+                 "fp16_head_dim_8": (3, 8, torch.float16)}[form]
+    f = h * dh
+    tables = rope_tables_flat(grid, dh, device=dev)
+    if inverse:
+        x = _randn(dev, 2, n, t // n, f).to(dt)
+        add = _randn(dev, 2, n, t // n, f, seed=3).to(dt)
+        got = mhla_block.unblockify(x, tables, grid, layout, h, -1.0, _F32, add)
+        ref = mhla_block.unblockify_plain(x, tables, grid, layout, h, -1.0, _F32, add)
+    else:
+        x = _randn(dev, 2, t, f + 1).to(dt)[..., 1:]
+        if form == "odd_bf16_column":
+            assert x.data_ptr() % 16 == 2
+            assert not mhla_block._permute_flags(x, None, tables, x, False) & mhla_block._BULK_X
+        got = mhla_block.blockify(x, tables, grid, layout, h, 1.0, dt)
+        ref = mhla_block.blockify_plain(x, tables, grid, layout, h, 1.0, dt)
+    torch.cuda.synchronize()
+    assert_close(f"permute {form}", ref.float(), got.float(), 1e-6)
+
+
+def test_permute_kernel_runs_on_bulk_copies_and_no_triton(dev, monkeypatch):
+    """K5b / K8b's kernels (``permute_kernel``, both instantiations) hold the
+    bulk copy (UBLKCP, ``cp.async.bulk``) and no tensor-core product; the
+    wrappers launch no Triton kernel (Triton cannot even load)."""
+    found = 0
+    for fn, text in _sass_bodies().items():
+        if "permute_kernel" in fn:
+            assert "UBLKCP" in text, fn
+            assert "HGMMA" not in text and " HMMA" not in text, fn
+            found += 1
+    assert found == 2
+    monkeypatch.setattr(mhla_block, "_load_triton", lambda: pytest.fail("Triton loaded"))
+    grid, layout = (3, 11, 2), (3, 11, 1)
+    tables = rope_tables_flat(grid, 128, device=dev)
+    xb = _randn(dev, 1, 33, 2, 256)
+    out = mhla_block.unblockify(xb, tables, grid, layout, 2, -1.0, _F32, xb)
+    back = mhla_block.blockify(out, None, grid, layout, 2)
+    torch.cuda.synchronize()
+    assert back.shape == xb.shape
 
 
 @pytest.mark.parametrize("dtype", [_F32, _BF16])

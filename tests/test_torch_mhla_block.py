@@ -441,6 +441,83 @@ def test_blockify_and_unblockify_match_jax(rope, dtype):
                  tol)
 
 
+# the issue's Wan grid (runs of 10), the model's token grid after the (1, 2, 2)
+# patch (runs of 5) and the card test's odd geometries
+_WALK_GEOMETRIES = [((21, 60, 100), (3, 5, 10), 1), ((21, 30, 50), (3, 5, 10), 2),
+                    ((21, 12, 10), (3, 2, 2), 2), ((3, 11, 2), (3, 11, 1), 2)]
+
+
+@pytest.mark.parametrize("grid,layout,batch", _WALK_GEOMETRIES)
+@pytest.mark.parametrize("rows", [4, 5, 16])
+@pytest.mark.parametrize("flat_runs", [True, False])
+def test_permute_walk_covers_every_blocked_row_once(grid, layout, batch, rows, flat_runs):
+    """K5b / K8b's row walk (``permute_walk``, the kernel's ``walk_tile``
+    arithmetic): the tiles' spans cover every blocked row exactly once, each
+    on its flat token as ``block_token_index`` has it, each contiguous on
+    both sides and within one run of pw tokens (one row where the flat
+    side's rows are not contiguous), with the geometry JAX's
+    ``_block_geometry`` gives."""
+    geo = mhla_block._block_geometry(grid, layout)
+    assert geo == jax_block._block_geometry(grid, layout)
+    pw, c, n = geo[2], geo[3], geo[4]
+    t = n * c
+    index = mhla_block.block_token_index(grid, layout).numpy()
+    spans = []
+    for i, copies in enumerate(mhla_block.permute_walk(grid, layout, batch, rows, flat_runs)):
+        assert [r for r, *_ in copies] == list(np.cumsum([0] + [s[-1] for s in copies])[:-1])
+        assert sum(s[-1] for s in copies) == min(rows, batch * t - i * rows)
+        spans += [(g, b, tok, span) for r, g, b, tok, span in copies]
+        assert all(g == i * rows + r for r, g, *_ in copies)
+    g, b, tok, span = (np.array(col) for col in zip(*spans))
+    assert span.min() >= 1 and span.max() <= (pw if flat_runs else 1)
+    row = np.repeat(g, span) + np.concatenate([np.arange(s) for s in span])
+    np.testing.assert_array_equal(row, np.arange(batch * t))  # in order, each once
+    np.testing.assert_array_equal(np.repeat(b, span), row // t)
+    np.testing.assert_array_equal(np.repeat(tok, span) + row - np.repeat(g, span), index[row % t])
+    # a span stays inside one run: its flat tokens share (f, h) and walk along W
+    assert (tok % grid[2] // pw == (tok + span - 1) % grid[2] // pw).all()
+
+
+def test_permute_plan_moves_the_main_paths_rows_by_bulk_copies():
+    """The launch plan of K5b / K8b (``_permute_flags``, ``_permute_plan``,
+    ``_permute_smem``, the kernel's stage layout): at Wan2.1-1.3B's width
+    every form the main path sends moves every operand by bulk copies, within
+    half an SM's shared memory (two blocks an SM): tiles of one or two rows
+    in at least four input stages where the threads transform the rows,
+    whole runs of tokens in three or more where a pure copy takes no output
+    stage; a flat side at an odd bf16 column offset, or rows of 24 bytes,
+    move by the threads' own accesses; a row too wide for the stages moves
+    its output directly."""
+    f, dh, bulk_all = 1536, 128, (mhla_block._BULK_X | mhla_block._BULK_ADD
+                                  | mhla_block._BULK_TABLES | mhla_block._BULK_OUT)
+    for sizes, flags in (((4, 0, 4), bulk_all), ((2, 2, 4), bulk_all), ((2, 0, 4), bulk_all),
+                         ((4, 0, 4), mhla_block._BULK_X | mhla_block._BULK_OUT | mhla_block._PASS)):
+        rows, stages, got = mhla_block._permute_plan(f, dh, sizes, flags)
+        assert got == flags and stages >= (3 if flags & mhla_block._PASS else 4)
+        assert rows >= 4 if flags & mhla_block._PASS else rows <= 2
+        smem = mhla_block._permute_smem(rows, stages, f, dh, sizes, got)
+        assert smem <= mhla_block._PERMUTE_SMEM_HALF
+    x = torch.zeros(2, 12, f, dtype=torch.bfloat16)
+    out = torch.zeros(2, 2, 6, f)
+    bulk = mhla_block._BULK_X | mhla_block._BULK_OUT
+    flags = mhla_block._permute_flags(x, None, None, out, False)
+    assert flags == bulk | bulk * mhla_block._ALIGN | mhla_block._FLAT_RUNS  # bf16 -> float32
+    same = mhla_block._permute_flags(x.float(), None, None, out, False)  # a pure copy
+    assert same == flags | mhla_block._PASS
+    rows, stages, got = mhla_block._permute_plan(f, dh, (4, 0, 4), same)
+    assert got == same and mhla_block._permute_smem(rows, 1, f, dh, (4, 0, 4), got) == (
+        mhla_block._round128(rows * f * 4) + mhla_block._PERMUTE_BARRIERS + 128)  # no output stages
+    odd = torch.zeros(2, 12, f + 1, dtype=torch.bfloat16)[..., 1:]
+    assert odd.data_ptr() % 16 == 2
+    assert mhla_block._permute_flags(odd, None, None, out, False) == (
+        mhla_block._BULK_OUT * (1 + mhla_block._ALIGN))
+    narrow = torch.zeros(2, 2, 6, 6)  # 24-byte rows
+    assert mhla_block._permute_flags(narrow, None, None, torch.zeros(2, 12, 6), True) == (
+        mhla_block._FLAT_RUNS)
+    rows, stages, got = mhla_block._permute_plan(32768, dh, (4, 0, 4), bulk_all)
+    assert got == bulk_all & ~mhla_block._BULK_OUT and (rows, stages) == (1, 1)
+
+
 def test_blockify_and_unblockify_are_transposes_under_negated_sin():
     """<blockify(x), y> == <x, unblockify(y, -sin)> and the other way round,
     which is what makes each the other's backward; ``add`` joins without
