@@ -194,6 +194,26 @@ exits non-zero:
              the same launch counts, the base parameters bit for bit those
              of the seeded init after the steps, every adapter's B moved off
              zero, peak memory and the checkpoint's size (adapters only).
+32. train (video, full + LePE) — after 28, the gradients of one
+             ``MHLA3D(is_lepe=True)`` layer at 31,500 tokens through the
+             kernels against the plain versions, then ``wan_train.main
+             --model.is_lepe=true`` on the full-MHLA model, 3 steps: the
+             launch counts equal 28's full-MHLA run's (the LePE convolution
+             is one PyTorch call outside the island), step time beside it.
+33. train (dit) — ``mhla_tpu_torch.train.dit_train.main configs/dit_s2.yaml``
+             6 steps: DiT-S/2 at the config's batch of 256 (float32
+             parameters, bf16 compute, seeded init, synthetic latents), loss
+             finite, images/s, peak memory, every trainable mixing matrix in
+             [0, 1] after the steps, no kernel launched (MHLA2D runs the
+             plain blockwise op, as JAX runs its einsums).
+34. fid — ``mhla_tpu_torch.eval.fid_cli.main`` on 33's checkpoint: 32
+             CFG samples (scale 1.5) of 10 respaced ancestral steps into the
+             latent-space npz; seconds per sampling step, its shape and dtype.
+35. train (vit) — ``mhla_tpu_torch.train.vit_train.main
+             configs/deit_small_mhla.yaml`` 6 steps: DeiT-small MHLA at the
+             config's batch of 512 with mixup / cutmix, loss finite,
+             images/s, peak memory, validation top-1 of the live and the EMA
+             weights.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; there is no CPU mode.
@@ -210,6 +230,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -3309,11 +3330,12 @@ def k10b_walk(sparse, q, k, v, o, lse, do, frames: int) -> dict:
 
 
 def phase_train_video(dev: torch.device, tag: str, linear_idx, sparse_idx=(),
-                      lora: bool = False) -> dict:
+                      lora: bool = False, lepe: bool = False) -> dict:
     """``wan_train.main`` for VIDEO_TRAIN_STEPS steps of the 30-layer model
     at 31,500 tokens, batch 1, with the MHLA layers ``linear_idx``, the
-    softmax layers ``sparse_idx`` under the radial mask and, with ``lora``,
-    the model frozen but for its adapters."""
+    softmax layers ``sparse_idx`` under the radial mask, with ``lora`` the
+    model frozen but for its adapters and with ``lepe`` the LePE convolution
+    in every MHLA layer."""
     from mhla_tpu_torch import kernels
     from mhla_tpu_torch.models.wan import init_wan_params
     from mhla_tpu_torch.train import lora_state, wan_train
@@ -3330,6 +3352,8 @@ def phase_train_video(dev: torch.device, tag: str, linear_idx, sparse_idx=(),
             argv.append(f"--model.sparse_attn_idx={tuple(sparse_idx)}".replace(" ", ""))
         if lora:
             argv.append("--lora.enable=true")
+        if lepe:
+            argv.append("--model.is_lepe=true")
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         out = wan_train.main(argv)
@@ -3353,8 +3377,8 @@ def phase_train_video(dev: torch.device, tag: str, linear_idx, sparse_idx=(),
     got = {name: counts[name] for name in want}
     if got != want:
         raise AssertionError(f"launches of the {tag} training path {got}, expected {want}")
-    if (cfg.num_layers, cfg.dim, cfg.remat, cfg.dtype) != (VIDEO_LAYERS, 1536, True,
-                                                           torch.bfloat16):
+    if (cfg.num_layers, cfg.dim, cfg.remat, cfg.dtype, cfg.is_lepe) != (
+            VIDEO_LAYERS, 1536, True, torch.bfloat16, lepe):
         raise AssertionError(f"not the full-size model: {cfg}")
     adapters = {}
     if lora:
@@ -3392,6 +3416,150 @@ def phase_train_video(dev: torch.device, tag: str, linear_idx, sparse_idx=(),
     return {"launches": counts, "step_s": step_s, "videos_s": 1 / step_s, "peak_gb": peak_gb,
             "losses": losses, "grad_norms": norms, "save_s": out["save_seconds"],
             "checkpoint_gb": out["checkpoint_bytes"] / 1e9, **adapters}
+
+
+# The image harnesses at their configs' widths, seeded init, synthetic data:
+# DiT-S/2 (configs/dit_s2.yaml: hidden 384, depth 12, 6 heads, patch 2, 32 x
+# 32 x 4 latents = 256 tokens in blocks of 16, batch 256) and DeiT-small MHLA
+# (configs/deit_small_mhla.yaml: 384 wide, 12 blocks, 6 heads, 256 px, patches
+# of 16 in pieces of 4, batch 512). Both run MHLA2D's plain blockwise op, as
+# JAX runs its jnp einsums: they launch no kernel.
+IMAGE_TRAIN_STEPS = 6
+VIT_BATCH = 512  # the config's batch
+FID_SAMPLES, FID_STEPS, FID_CFG = 32, 10, 1.5
+CONFIGS = Path(__file__).resolve().parent / "configs"
+
+
+def check_no_launches(tag: str) -> None:
+    from mhla_tpu_torch import kernels
+
+    launched = {k_: v_ for k_, v_ in kernels.launch_counts().items() if v_}
+    if launched:
+        raise AssertionError(f"{tag} launched kernels {launched}: its attention is the plain op")
+
+
+def image_train_summary(tag: str, out: dict, batch: int, peak_gb: float) -> dict:
+    losses, secs = out["losses"], out["step_seconds"]
+    if len(losses) != IMAGE_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{tag} losses {losses}")
+    step_s = statistics.median(secs[1:])
+    log(f"[{tag}] {out['params'] / 1e6:.1f} M float32 params, bf16 compute, batch {batch}: "
+        f"losses {[round(x, 4) for x in losses]}; step {step_s * 1e3:.1f} ms (median of steps "
+        f"2-{IMAGE_TRAIN_STEPS}, host clock; step 1 {secs[0]:.2f} s) = {batch / step_s:.1f} "
+        f"images/s; peak device memory {peak_gb:.1f} GB")
+    return {"losses": losses, "step_ms": step_s * 1e3, "images_s": batch / step_s,
+            "peak_gb": peak_gb}
+
+
+def phase_train_dit(dev: torch.device, work: str) -> dict:
+    """(w) ``dit_train.main configs/dit_s2.yaml`` for IMAGE_TRAIN_STEPS steps;
+    every trainable mixing matrix must lie in [0, 1] after them."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.train import dit_train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = dit_train.main([str(CONFIGS / "dit_s2.yaml"), f"--device={dev.type}",
+                          f"--work_dir={work}", f"--train.max_steps={IMAGE_TRAIN_STEPS}",
+                          "--train.log_interval=1"])
+    torch.cuda.synchronize()
+    check_no_launches("DiT training")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model = out["model"]
+    cfg = model.cfg
+    if (cfg.hidden_size, cfg.depth, cfg.num_heads, cfg.patch_size, cfg.input_size,
+            cfg.block_size, cfg.dtype) != (384, 12, 6, 2, 32, 16, torch.bfloat16):
+        raise AssertionError(f"not DiT-S/2 at configs/dit_s2.yaml's widths: {cfg}")
+    mix = [p.detach() for n, p in model.named_parameters() if n.endswith("piece_attn.weight")]
+    lo, hi = min(float(p.min()) for p in mix), max(float(p.max()) for p in mix)
+    moved = sum(not torch.equal(p, mix[0]) for p in mix)
+    log(f"[train dit] {len(mix)} trainable 16 x 16 mixing matrices within [{lo:.4f}, {hi:.4f}] "
+        f"after {IMAGE_TRAIN_STEPS} steps ({moved} differ from block 0's)")
+    if len(mix) != cfg.depth or lo < 0.0 or hi > 1.0:
+        raise AssertionError(f"mixing matrices outside [0, 1]: {lo}, {hi}")
+    return image_train_summary("train dit", out, 256, peak_gb)
+
+
+def phase_fid(dev: torch.device, work: str) -> dict:
+    """(x) ``fid_cli.main`` on (w)'s checkpoint: FID_SAMPLES CFG samples of
+    FID_STEPS respaced ancestral steps into the latent-space npz."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.eval import fid_cli
+
+    kernels.reset_launch_counts()
+    out = fid_cli.main([f"--device={dev.type}", f"--ckpt={work}",
+                        f"--num_samples={FID_SAMPLES}", f"--batch_size={FID_SAMPLES}",
+                        f"--num_sampling_steps={FID_STEPS}", f"--cfg_scale={FID_CFG}",
+                        f"--out={work}/fid/samples.npz"])
+    check_no_launches("DiT sampling")
+    arr = np.load(out["npz"])["arr_0"]
+    step_s = out["sample_seconds"] / FID_STEPS
+    log(f"[fid] DiT-S/2 EMA weights of (w), {FID_SAMPLES} samples (CFG {FID_CFG}, batch "
+        f"{2 * FID_SAMPLES} with the null half), {FID_STEPS} steps: {step_s:.3f} s per sampling "
+        f"step (host clock, packing included); npz {arr.shape} {arr.dtype}, mean {arr.mean():.1f}")
+    if arr.shape != (FID_SAMPLES, 32, 32, 4) or arr.dtype != np.uint8 or arr.std() == 0:
+        raise AssertionError(f"sample npz {arr.shape} {arr.dtype}")
+    return {"s_per_step": step_s, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+
+
+def phase_train_vit(dev: torch.device, work: str) -> dict:
+    """(y) ``vit_train.main configs/deit_small_mhla.yaml`` for
+    IMAGE_TRAIN_STEPS steps with mixup / cutmix and a validation of the live
+    and the EMA weights after the last."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.train import vit_train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = vit_train.main([str(CONFIGS / "deit_small_mhla.yaml"), f"--device={dev.type}",
+                          f"--work_dir={work}", f"--train.max_steps={IMAGE_TRAIN_STEPS}",
+                          f"--train.eval_interval={IMAGE_TRAIN_STEPS}",
+                          f"--train.batch_size={VIT_BATCH}", "--train.log_interval=1"])
+    torch.cuda.synchronize()
+    check_no_launches("ViT training")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = out["model"].cfg
+    if (cfg.embed_dim, cfg.depth, cfg.num_heads, cfg.img_size, cfg.patch_size, cfg.piece_size,
+            cfg.attn_type, cfg.dtype) != (384, 12, 6, 256, 16, 4, "mhla", torch.bfloat16):
+        raise AssertionError(f"not DeiT-small MHLA at its config's widths: {cfg}")
+    log(f"[train vit] DeiT-small MHLA, batch {VIT_BATCH} (the config's 512), mixup / cutmix on: "
+        f"validation top-1 {out['val_acc']:.4f}, EMA {out['val_acc_ema']:.4f} (8 synthetic "
+        f"batches)")
+    return {**image_train_summary("train vit", out, VIT_BATCH, peak_gb),
+            "val_acc": out["val_acc"], "val_acc_ema": out["val_acc_ema"]}
+
+
+def phase_image_harnesses(dev: torch.device) -> dict:
+    with tempfile.TemporaryDirectory(prefix="mhla_dit_") as work:
+        dit = phase_train_dit(dev, work)
+        fid = phase_fid(dev, work)
+    with tempfile.TemporaryDirectory(prefix="mhla_vit_") as work:
+        vit = phase_train_vit(dev, work)
+    return {"train_dit": dit, "fid": fid, "train_vit": vit}
+
+
+def phase_train_video_lepe(dev: torch.device, full: dict) -> dict:
+    """(z) One ``MHLA3D(is_lepe=True)`` layer's gradients through the kernels
+    against the plain versions at 31,500 tokens, then the full-MHLA model
+    with the LePE convolution trained through ``wan_train.main``: the same
+    launches as (g), ``full``, whose step time it prints beside its own."""
+    from mhla_tpu_torch.layers import MHLA3D
+    from mhla_tpu_torch.ops.rotary import rope_tables_flat
+
+    f = VIDEO_HEADS * VIDEO_HEAD_DIM
+    tables = rope_tables_flat(VIDEO_GRID, VIDEO_HEAD_DIM, device=dev)
+    check_layer_grads(dev, "MHLA3D(is_lepe=True)",
+                      MHLA3D(f, VIDEO_HEADS, VIDEO_LAYOUT, normalize_out=False, is_lepe=True,
+                             device=dev), (VIDEO_GRID, tables))
+    del tables
+    out = phase_train_video(dev, "full + LePE", range(VIDEO_LAYERS), lepe=True)
+    if out["launches"] != full["launches"]:
+        raise AssertionError(f"LePE changed the launches: {out['launches']} vs {full['launches']}")
+    log(f"[train full + LePE] launches equal (g)'s; step {out['step_s']:.3f} s against (g)'s "
+        f"{full['step_s']:.3f} s: LePE {1e3 * (out['step_s'] - full['step_s']):+.1f} ms a step")
+    return out
 
 
 def main() -> None:
@@ -3442,11 +3610,15 @@ def main() -> None:
     train_full = phase_train_video(dev, "full", range(VIDEO_LAYERS))
     train_hybrid = phase_train_video(dev, "hybrid", HYBRID_LINEAR_IDX)
     log_time("video training (full, hybrid)")
+    train_lepe = phase_train_video_lepe(dev, train_full)
+    log_time("video training (full + LePE)")
     kern.update(phase_kernels_sparse_train(dev))
     train_sparse = phase_train_video(dev, "hybrid_sparse", HYBRID_LINEAR_IDX, SOFTMAX_LAYERS)
     train_lora = phase_train_video(dev, "hybrid_sparse + LoRA", HYBRID_LINEAR_IDX,
                                    SOFTMAX_LAYERS, lora=True)
     log_time("video training (sparse, LoRA)")
+    image = phase_image_harnesses(dev)
+    log_time("image harnesses (DiT-S/2 training and sampling, DeiT-small training)")
     # each kernel's launches on the path that brought it in; K9's on the hybrid
     # sampling path and K9b's on the hybrid training path, which run them at
     # both of their shapes; K10b's on the hybrid_sparse training path
@@ -3477,7 +3649,7 @@ def main() -> None:
         for name, (route, source, replaces) in KERNEL_META.items()
     ]
     for phase in (train, video, hybrid, sparse, train_full, train_hybrid, train_sparse,
-                  train_lora, serve_hybrid, train_packed, train_unpacked, serve_gdn, train_gdn,
+                  train_lora, train_lepe, serve_hybrid, train_packed, train_unpacked, serve_gdn, train_gdn,
                   serve_gla, train_gla, train_simple_gla, ppl, serve_long, train_long,
                   train_d256_packed):
         phase.pop("launches")
@@ -3502,6 +3674,7 @@ def main() -> None:
                     "train_video_hybrid": train_hybrid,
                     "train_video_hybrid_sparse": train_sparse,
                     "train_video_hybrid_sparse_lora": train_lora,
+                    "train_video_full_lepe": train_lepe, **image,
                     "sparse_train_kernels": {name: kern[name] for name in (
                         "radial_flash_attention[lse]", "radial_flash_attention_bwd")},
                     "k10_walks": K10_WALKS, "k10b_walks": kern["k10b_walks"],

@@ -1,5 +1,14 @@
-"""Data pipelines (numpy) of the port."""
+"""Data pipelines (numpy) of the port: LM token streams, image folders and
+DiT latents."""
 
+from .image_data import (
+    ImageAugConfig,
+    ImageFolderDataset,
+    LatentDataset,
+    center_crop_arr,
+    list_image_folder,
+    random_erasing,
+)
 from .lm_data import (
     PackedTokenIterator,
     PackedVarlenIterator,
@@ -11,11 +20,17 @@ from .lm_data import (
 )
 
 __all__ = [
+    "ImageAugConfig",
+    "ImageFolderDataset",
+    "LatentDataset",
     "PackedTokenIterator",
     "PackedVarlenIterator",
     "PackingState",
     "batched",
+    "center_crop_arr",
+    "list_image_folder",
     "make_lm_dataloader",
+    "random_erasing",
     "shard_documents",
     "synthetic_documents",
 ]

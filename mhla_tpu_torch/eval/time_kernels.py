@@ -35,6 +35,16 @@ group a process:
   prep, the chain, the gradients); steps the training steps of (o), the
   Gated DeltaNet LM, and (n)'s prefill (host clock and card time; letters
   o, n).
+- ``lepe``: the LePE depthwise convolution
+  (``layers.mhla_vision.depthwise_conv``, one cuDNN call, no kernel of the
+  port) at the shapes of the three models that run it, bf16, forward and
+  forward + backward (the gradients of the input, the weight and the
+  bias), in the layout ``depthwise_conv`` takes (``taken``: the 2-D form on
+  the channels-last view, the 3-D form on a channels-first copy) and in
+  the other (``other``), each with its rel-RMS against a float32
+  reference: Wan2.1-1.3B's ``MHLA3D(is_lepe=True)`` [1, 21, 30, 50, 1536]
+  3 x 3 x 3, DeiT-small's ``MHLA2D`` [512, 16, 16, 384] 5 x 5, DiT-S/2's
+  [256, 16, 16, 384] 3 x 3. No steps.
 
 It imports ``mhla_tpu_torch`` and ``chip_smoke`` from the current directory,
 so the same file times another checkout too, such as a parent tree unpacked
@@ -732,9 +742,58 @@ def delta_steps(cs, tag: str) -> dict:
     return {"o": train, "n": lambda: time_prefill(cs, tag, "gated_deltanet", "n")}
 
 
+# --- lepe: the depthwise convolution of MHLA2D and MHLA3D(is_lepe) --------
+
+LEPE_SHAPES = {"wan_mhla3d": ((1, 21, 30, 50, 1536), 3), "deit_small": ((512, 16, 16, 384), 5),
+               "dit_s2": ((256, 16, 16, 384), 3)}
+
+
+def lepe_other_layout(x, conv):
+    """``depthwise_conv`` in the layout it does not take: a channels-first
+    copy in 2-D, the channels-last view in 3-D."""
+    import torch.nn.functional as F
+
+    fn = F.conv2d if x.ndim == 4 else F.conv3d
+    xc = x.movedim(-1, 1)
+    if x.ndim == 4:
+        xc = xc.contiguous()
+    y = fn(xc, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=conv.padding,
+           groups=conv.groups)
+    return y.movedim(1, -1)
+
+
+def lepe_kernels(cs, tag: str) -> None:
+    import torch
+    import torch.nn as nn
+
+    from mhla_tpu_torch.layers.mhla_vision import depthwise_conv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    for name, (shape, k) in LEPE_SHAPES.items():
+        c = shape[-1]
+        conv = (nn.Conv2d if len(shape) == 4 else nn.Conv3d)(c, c, k, padding=k // 2, groups=c,
+                                                             device=dev)
+        x = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+        dy = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+        ref = depthwise_conv(x.float(), conv)
+        r = {"shape": list(shape), "kernel": k}
+        for layout, fn in (("taken", depthwise_conv), ("other", lepe_other_layout)):
+            xr = x.detach().requires_grad_()
+
+            def fwd_bwd(fn=fn, xr=xr):
+                torch.autograd.grad(fn(xr, conv), (xr, conv.weight, conv.bias), dy)
+
+            with torch.no_grad():
+                r[f"{layout}_rel_err"] = float((fn(x, conv).float() - ref).norm() / ref.norm())
+                r[f"{layout}_fwd_ms"] = median_ms(lambda fn=fn: fn(x, conv), 1, reps=5)
+            r[f"{layout}_fwd_bwd_ms"] = median_ms(fwd_bwd, 1, reps=3, warmup=1)
+        report(tag, f"lepe {name}", r)
+
+
 GROUPS = {"chunk": (chunk_kernels, chunk_steps), "flash": (flash_kernels, None),
           "video": (video_kernels, video_steps), "gla": (gla_kernels, gla_steps),
-          "delta": (delta_kernels, delta_steps)}
+          "delta": (delta_kernels, delta_steps), "lepe": (lepe_kernels, None)}
 
 
 def main(argv) -> None:

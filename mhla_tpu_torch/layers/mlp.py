@@ -1,5 +1,5 @@
-"""Gated MLP (SwiGLU), the LM block MLP (counterpart of
-``mhla_tpu/layers/mlp.py``)."""
+"""Gated MLP (SwiGLU), the LM block MLP, and the plain MLP of the ViT and
+DiT blocks (counterpart of ``mhla_tpu/layers/mlp.py``)."""
 
 from __future__ import annotations
 
@@ -35,3 +35,28 @@ class GatedMLP(nn.Module):
         # gate and up as one concatenated matmul (layers/fused_dense.py)
         gate, up = fused_projections(x, self, ("gate_proj", "up_proj"))
         return dense(swiglu(gate, up), self.down_proj)
+
+
+_ACTIVATIONS = {
+    "gelu": lambda y: F.gelu(y, approximate="tanh"),
+    "gelu_exact": F.gelu,
+    "silu": F.silu,
+    "relu": F.relu,
+}
+
+
+class MLP(nn.Module):
+    """fc1, activation, fc2 (the ViT / DiT block MLP); ``gelu`` is the tanh
+    approximation, as ``jax.nn.gelu`` computes by default."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: Optional[int] = None, activation: str = "gelu",
+                 use_bias: bool = True, device=None):
+        super().__init__()
+        self.act = _ACTIVATIONS[activation]
+        self.fc1 = nn.Linear(in_features, hidden_features, bias=use_bias, device=device)
+        self.fc2 = nn.Linear(hidden_features, out_features or in_features, bias=use_bias,
+                             device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(self.act(dense(x, self.fc1)), self.fc2)

@@ -1,11 +1,12 @@
 """Weight bridges from the JAX package's flax param trees to this package's
-state dicts: ``MHLAForCausalLM`` and ``WanModel``.
+state dicts: ``MHLAForCausalLM``, ``WanModel``, ``MHLAViT`` and ``DiT``.
 
 The flax trees (as nested dicts of numpy arrays) name every parameter as
 this package does, so a bridge is a rename plus transposes: a flax
 ``Dense`` kernel is [in, out] and ``nn.Linear.weight`` is [out, in]; a
-flax 3-D ``Conv`` kernel is [kd, kh, kw, in, out] and ``nn.Conv3d.weight``
-is [out, in, kd, kh, kw].
+flax ``Conv`` kernel is [k..., in, out] and a torch convolution's weight
+is [out, in, k...] (a depthwise kernel [k..., 1, C] becomes [C, 1, k...]);
+a flax ``Embed``'s ``embedding`` is ``nn.Embedding.weight`` as it is.
 """
 
 from __future__ import annotations
@@ -74,14 +75,18 @@ def params_from_jax(params: Mapping[str, Any], cfg: MHLALMConfig) -> Dict[str, t
     return sd
 
 
-def wan_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax params of the JAX ``WanModel`` (``{"params": ...}`` or the inner
-    tree) -> float32 state dict for this package's ``WanModel`` of the same
-    config. ``blocks_<i>`` becomes ``blocks.<i>``; every ``kernel`` becomes
-    a transposed ``weight``; biases, norm weights, ``modulation``,
-    ``head_modulation`` and a trainable ``block_attn`` keep their names. The
-    softmax layers need nothing of their own: ``self_attn.{q,k,v,o}`` and
-    ``norm_q``/``norm_k`` are named alike in both packages."""
+def _state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax params (``{"params": ...}`` or the inner tree) -> float32 state
+    dict for this package's model of the same config. ``blocks_<i>`` becomes
+    ``blocks.<i>``; every ``kernel`` becomes a transposed ``weight``: Dense
+    [in, out] -> [out, in], Conv [k..., in, out] -> [out, in, k...] (the
+    patch convolutions [p, p, Cin, D] -> [D, Cin, p, p], the LePE kernels
+    [k..., 1, C] -> [C, 1, k...]); every ``embedding`` becomes a ``weight``
+    (DiT's label table); other leaves keep their names (biases, norm weights,
+    ``pos_embed``, Wan's ``modulation`` and ``head_modulation``, a trainable
+    mixing matrix). Fixed mixing matrices are in neither tree, and the Wan
+    softmax layers' ``self_attn.{q,k,v,o}`` and ``norm_q``/``norm_k`` are
+    named alike in both packages."""
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping[str, Any], prefix: str) -> None:
@@ -91,11 +96,17 @@ def wan_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 walk(value, f"{prefix}{name}.")
             elif key == "kernel":
                 w = _t(value)
-                sd[f"{prefix}weight"] = (
-                    w.permute(4, 3, 0, 1, 2) if w.ndim == 5 else w.T
-                ).contiguous()
+                # [in, out] -> [out, in]; [k..., in, out] -> [out, in, k...]
+                order = (1, 0) if w.ndim == 2 else (w.ndim - 1, w.ndim - 2, *range(w.ndim - 2))
+                sd[f"{prefix}weight"] = w.permute(*order).contiguous()
+            elif key == "embedding":
+                sd[f"{prefix}weight"] = _t(value)
             else:
                 sd[f"{prefix}{name}"] = _t(value)
 
     walk(params.get("params", params), "")
     return sd
+
+
+# the JAX WanModel, MHLAViT and DiT -> this package's models of the same names
+wan_params_from_jax = vit_params_from_jax = dit_params_from_jax = _state_dict_from_flax

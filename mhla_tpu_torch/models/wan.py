@@ -45,6 +45,7 @@ from ..layers.mhla_vision import MHLA3D
 from ..layers.norms import LayerNorm, RMSNorm
 from ..kernels.sparse_attention import sparse_flash_attention
 from ..ops.rotary import apply_rotary_3d_halves, rope_angles_3d_on, rope_tables_flat
+from .initializers import lecun_normal_
 
 
 def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
@@ -350,14 +351,9 @@ def init_wan_params(model: WanModel, generator: torch.Generator) -> WanModel:
     variance), their biases zero, ``modulation`` and ``head_modulation``
     from normal(dim**-0.5); norm weights stay one. ``generator`` lives on
     the parameters' device."""
-    std_fix = 0.87962566103423978  # std of a unit normal truncated at +-2
-    lo, hi = (0.5 * (1 + math.erf(z / math.sqrt(2))) for z in (-2.0, 2.0))
     for module in model.modules():
         if isinstance(module, (nn.Linear, nn.Conv3d)):
-            w = module.weight
-            std = math.sqrt(1.0 / (w[0].numel())) / std_fix
-            w.uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
-            w.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
+            lecun_normal_(module.weight, generator)
             module.bias.zero_()
     for name, p in model.named_parameters():
         if name.endswith("modulation"):

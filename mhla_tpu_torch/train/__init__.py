@@ -1,6 +1,7 @@
 """Training: the trainer pieces and the entry points ``lm_train`` (the causal
-MHLA LM, ``python -m mhla_tpu_torch.train.lm_train``) and ``wan_train`` (the
-Wan video model, ``python -m mhla_tpu_torch.train.wan_train``)."""
+MHLA LM, ``python -m mhla_tpu_torch.train.lm_train``), ``wan_train`` (the
+Wan video model, ``python -m mhla_tpu_torch.train.wan_train``),
+``vit_train`` (the MHLA ViT classifier) and ``dit_train`` (the MHLA DiT)."""
 
 from .lora import (
     DEFAULT_TARGETS,

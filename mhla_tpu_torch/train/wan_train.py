@@ -33,10 +33,12 @@ every attention only. For a tiny run on the CPU:
         --data.latent_dim=4 --data.text_len=8 --data.text_dim=32 --train.max_steps=2 \\
         --train.log_interval=1 --work_dir=/tmp/wan
 
+``--model.is_lepe=true`` adds the LePE convolution to every MHLA layer.
+
 Not ported (``NotImplementedError``): teacher distillation
 (``distill.enable``, which needs the model's ``capture``), tar-shard latents,
-the LePE convolution (``model.is_lepe``), RoPE before the feature map
-(``model.rope_after=false``) and image-to-video models.
+RoPE before the feature map (``model.rope_after=false``) and image-to-video
+models.
 """
 
 from __future__ import annotations
@@ -166,7 +168,6 @@ def _check_ported(cfg: WanTrainConfig) -> None:
     for what, unported in (
         ("teacher distillation (distill.enable)", cfg.distill.enable),
         ("RoPE before the feature map (model.rope_after=false)", not cfg.model.rope_after),
-        ("the LePE convolution (model.is_lepe)", cfg.model.is_lepe),
         ("image-to-video models", "i2v" in cfg.model.model.lower()),
     ):
         if unported:

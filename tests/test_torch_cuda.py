@@ -2123,3 +2123,75 @@ def test_340m_width_layer_runs_every_chunk_kernel(dev):
     o.float().sum().backward()
     assert {n: mhla_chunk.launches[n] - before[n] for n in before} == {n: 1 for n in before}
     assert torch.isfinite(x.grad.float()).all()
+
+
+def test_mhla3d_lepe_layer_on_the_kernels_matches_plain(dev):
+    """An ``MHLA3D(is_lepe=True)`` layer at a small Wan shape (head dim 128,
+    2,048 tokens in 8 blocks), bf16 activations over float32 parameters:
+    output and gradients through K5-K8b against the plain versions, and the
+    LePE convolution adds no launch of theirs (the same counts as the layer
+    without it)."""
+    import chip_smoke
+    from mhla_tpu_torch.layers import MHLA3D
+
+    grid, layout = (8, 16, 16), (2, 2, 2)
+    x = _randn(dev, 1, 2048, 256, seed=1).to(_BF16)
+    w = _randn(dev, 1, 2048, 256, seed=2)
+    tables = rope_tables_flat(grid, 128, device=dev)
+    counts = {}
+    for lepe in (False, True):
+        layer = MHLA3D(256, 2, layout, normalize_out=False, is_lepe=lepe, device=dev)
+        init_wan_params(layer, torch.Generator(dev).manual_seed(3))
+        kernels.reset_launch_counts()
+        got = chip_smoke.layer_grads(layer, x, w, grid, tables)
+        counts[lepe] = kernels.launch_counts()
+        with chip_smoke.plain_kernels():
+            ref = chip_smoke.layer_grads(layer, x, w, grid, tables)
+        assert kernels.launch_counts() == counts[lepe]
+        for name in ref:
+            assert torch.isfinite(got[name]).all(), name
+            assert_close(f"LePE={lepe} d {name}", ref[name], got[name], chip_smoke.LAYER_GRAD_TOL)
+    assert counts[True] == counts[False] and counts[True]["block_readout_bwd"] == 1
+    assert counts[True]["blockify_island"] == 3 and counts[True]["unblockify"] == 3
+
+
+def _entry_point_defaults_to_cuda(main, argv):
+    """``main(argv)`` with no ``--device``: the model's parameters are on
+    the card."""
+    out = main(argv)
+    assert next(out["model"].parameters()).device.type == "cuda"
+    return out
+
+
+def test_tiny_dit_and_vit_train_on_the_card(dev, tmp_path):
+    """One ``dit_train`` and one ``vit_train`` step on the card at tiny widths,
+    no ``--device`` (the default is cuda): finite losses, the trainable
+    mixing clamped to [0, 1], no kernel launched (MHLA2D runs the plain
+    blockwise op, as JAX runs its einsums); the FID CLI samples from the
+    DiT run's checkpoint on the card."""
+    from mhla_tpu_torch.eval import fid_cli
+    from mhla_tpu_torch.train import dit_train, vit_train
+
+    kernels.reset_launch_counts()
+    dit = _entry_point_defaults_to_cuda(dit_train.main, [
+        "--depth=2", "--hidden_size=64", "--num_heads=2", "--input_size=8", "--block_size=4",
+        "--num_classes=10", "--train.batch_size=4", "--train.max_steps=2",
+        "--optimizer.learning_rate=0.5", f"--work_dir={tmp_path}/dit"])
+    assert all(map(torch.isfinite, map(torch.tensor, dit["losses"])))
+    mix = [p.detach() for n, p in dit["model"].named_parameters()
+           if n.endswith("piece_attn.weight")]
+    assert mix and all(float(p.min()) >= 0.0 and float(p.max()) <= 1.0 for p in mix)
+    vit = _entry_point_defaults_to_cuda(vit_train.main, [
+        "--model_name=deit_tiny_mhla", "--img_size=32", "--piece_size=2", "--num_classes=10",
+        "--train.batch_size=8", "--train.max_steps=2", "--train.eval_interval=2",
+        "--train.eval_batches=1", "--optimizer.warmup_steps=1", f"--work_dir={tmp_path}/vit"])
+    assert all(map(torch.isfinite, map(torch.tensor, vit["losses"])))
+    assert 0.0 <= vit["val_acc"] <= 1.0
+    res = fid_cli.main([f"--ckpt={tmp_path}/dit", "--depth=2", "--hidden_size=64",
+                        "--num_heads=2", "--input_size=8", "--block_size=4", "--num_classes=10",
+                        "--num_samples=4", "--batch_size=4", "--num_sampling_steps=3",
+                        f"--out={tmp_path}/fid/s.npz"])
+    import numpy as np
+
+    assert np.load(res["npz"])["arr_0"].shape == (4, 8, 8, 4)
+    assert not any(kernels.launch_counts().values())

@@ -207,3 +207,35 @@ def test_launch_counters_stay_zero_on_cpu_through_hybrid_sparse_sampling():
     assert latents.shape == (1, 8, 32, 32, 16) and torch.isfinite(latents).all()
     counts = kernels.launch_counts()
     assert len(counts) == 25 and all(n == 0 for n in counts.values()), counts
+
+
+def test_launch_counters_stay_zero_on_cpu_through_image_training_steps(tmp_path):
+    """A DiT step and a ViT step through their trainers' loss functions (the
+    MHLA2D layers, the LePE convolutions, the diffusion losses, mixup)."""
+    import numpy as np
+
+    from mhla_tpu_torch.train import dit_train, init_train_state, make_train_step, vit_train
+
+    kernels.reset_launch_counts()
+    dcfg = dit_train.parse_cli(dit_train.DiTTrainConfig, [
+        "--device=cpu", "--depth=1", "--hidden_size=64", "--num_heads=2", "--input_size=8",
+        "--block_size=4", "--num_classes=10"])
+    dit, _ = dit_train.build_model(dcfg)
+    diffusion = dit_train.create_diffusion(None)[0]
+    state = init_train_state(dit, dcfg.optimizer, ema=True)
+    step = make_train_step(dit_train.make_loss_fn(diffusion), 0.9, seed=0)
+    x, y = next(dit_train.latent_batches(dcfg, np.random.default_rng(0)))
+    state, metrics = step(state, (torch.from_numpy(x)[:2], torch.from_numpy(y)[:2]))
+    assert torch.isfinite(metrics["loss"])
+    vcfg = vit_train.parse_cli(vit_train.ViTTrainConfig, [
+        "--device=cpu", "--model_name=deit_tiny_mhla", "--img_size=32", "--piece_size=2",
+        "--num_classes=10"])
+    vit = vit_train.build_model(vcfg)
+    state = init_train_state(vit, vcfg.optimizer)
+    step = make_train_step(vit_train.make_loss_fn(vcfg))
+    draws = vit_train.draw_mix(32, 32, 0.8, 1.0, torch.Generator().manual_seed(0))
+    imgs = torch.randn(2, 32, 32, 3)
+    state, metrics = step(state, (imgs, torch.tensor([1, 2]), draws))
+    assert torch.isfinite(metrics["loss"])
+    counts = kernels.launch_counts()
+    assert len(counts) == 25 and all(n == 0 for n in counts.values()), counts

@@ -87,6 +87,7 @@ _LAYER_CASES = {
     "bf16_island_no_normalize": (dict(attn_compute_dtype="bfloat16", normalize_out=False), 2e-2),
     "composed_head_dim_64": (dict(dim=128), TOL_LAYER),
     "composed_no_normalize": (dict(dim=128, normalize_out=False), TOL_LAYER),
+    "lepe": (dict(is_lepe=True), TOL_LAYER),
 }
 
 
@@ -413,7 +414,7 @@ def test_video_infer_cli_rejects_mismatched_embeddings(tmp_path):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(model_type="i2v"), dict(attn_type="linear"), dict(attn_type="gla"), dict(is_lepe=True),
+    dict(model_type="i2v"), dict(attn_type="linear"), dict(attn_type="gla"),
 ], ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()))
 def test_unported_model_options_raise(overrides):
     with pytest.raises(NotImplementedError):

@@ -410,12 +410,37 @@ def test_wan_train_resumes_from_latest_and_draws_what_an_unbroken_run_would(tmp_
 
 @pytest.mark.parametrize(
     "arg",
-    ["--distill.enable=True", "--model.is_lepe=True", "--model.rope_after=False",
+    ["--distill.enable=True", "--model.rope_after=False",
      "--model.model=Wan_I2V_14B", "--model.self_attn_type=gla"],
 )
 def test_wan_train_unported_options_raise(tmp_path, arg):
     with pytest.raises(NotImplementedError):
         wan_train.main(_HYBRID_ARGS + [f"--work_dir={tmp_path}", "--train.max_steps=1", arg])
+
+
+def test_wan_train_with_lepe_matches_jax_loss(tmp_path):
+    """``--model.is_lepe=True``: the trainer's model (full MHLA, remat)
+    carries the LePE convolution in every MHLA layer and, on JAX's weights,
+    gives JAX's loss; a step of ``wan_train.main`` runs with it. (The
+    layer's gradients against JAX, on the fused island's route too:
+    ``tests/test_torch_vision.py``.)"""
+    args = ["--device=cpu", "--bf16=false", "--model.dim=64", "--model.ffn_dim=128",
+            "--model.num_heads=2", "--model.num_layers=2", "--model.linear_attn_idx=(0,1)",
+            "--model.block_layout=(2,2,2)", "--model.is_lepe=True", "--data.latent_dim=16",
+            "--data.text_len=16", "--data.text_dim=64"]
+    port, _ = wan_train.build_model(wan_train.parse_cli(wan_train.WanTrainConfig, args))
+    assert port.cfg.remat and all(b.self_attn.lepe is not None for b in port.blocks)
+    jax_model, params, jax_port = _models(dict(FULL, dim=64, ffn_dim=128, is_lepe=True), seed=31)
+    port.load_state_dict(jax_port.state_dict())
+    batch = _batch(32)
+    ref = _jax_loss(jax_model, jnp.float32)(params, _jax_batch(batch))[0]
+    with torch.no_grad():
+        loss, _ = _port_loss(port, _torch_batch(batch))
+    assert_close("LePE loss", np.asarray(ref), loss, 1e-5)
+    out = wan_train.main(_HYBRID_ARGS + [f"--work_dir={tmp_path}", "--train.max_steps=1",
+                                         "--model.is_lepe=True"])
+    assert out["model"].blocks[0].self_attn.lepe is not None
+    assert len(out["losses"]) == 1 and math.isfinite(out["losses"][0])
 
 
 @pytest.mark.parametrize("side", ["dense_at_900", "sparse_at_300"])
