@@ -215,6 +215,31 @@ exits non-zero:
              images/s, peak memory, validation top-1 of the live and the EMA
              weights.
 
+36. kernels (mamba2) — (aa) K12 and K12b's scalar-decay form (one
+             log-decay per head, difference form) against their plain
+             versions at Mamba2's [8, 2048, 8, 128|256] in float32 with the
+             layer's decay at init (timed beside the bound), at 1 x 781 and
+             at a decay whose chunks all sum below -88.7; finite outputs,
+             K12b twice bit for bit; the op's gradients through them against
+             autograd of the plain op (difference form).
+37. serve / train (mamba2) — (aa, ab) ``generate`` with the 340M Mamba2 LM
+             (24 layers, 8 heads, d_state 128, head dim 256): the two
+             requests, K12's scalar form in every prefill layer; then
+             ``lm_train.main --model.attn_extends=mamba2`` 6 steps at B=8
+             T=2048 (K12 / K12b's scalar form once per layer and step).
+38. serve / train (mamba) — (ac) the 340M Mamba LM serves 1 x 781 + 32 and
+             trains 3 steps at B=8 T=2048 (no kernel: the selective scan is
+             plain PyTorch, each chunk recomputed in the backward).
+39. serve / train (linear_attn) — (ad) the 340M causal linear-attention LM
+             serves the two requests (decode on the carried sums) and trains
+             3 steps at B=8 T=2048 (no kernel).
+40. options — (ae) the MHLA LM with ``attn_mode='fused_recurrent'`` serves
+             1 x 781 + 32 against chunk mode; a 781-token cache continued by
+             200 tokens against ``fused_recurrent``; one
+             ``MHLACausal(rope_scale_base=512)`` layer's gradients at B=8
+             T=2048 (K1 / K1b with XPos tables) against plain fmap+RoPE;
+             ``lm_train.main --model.use_l2warp=true`` 2 steps.
+
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; there is no CPU mode.
 """
@@ -502,6 +527,11 @@ KERNEL_META = {
                       "mhla_tpu/kernels/gla_chunk_pallas.py:85"),
     "gla_chunk_bwd": ("cuda", "mhla_tpu_torch/csrc/gla_chunk_bwd.cu",
                       "mhla_tpu/kernels/gla_chunk_pallas.py:160"),
+    # their scalar-decay form (one log-decay per head): Mamba2 and simple GLA
+    "gla_chunk_fwd_scalar": ("cuda", "mhla_tpu_torch/csrc/gla_chunk.cu",
+                             "mhla_tpu/kernels/gla_chunk_pallas.py:85"),
+    "gla_chunk_bwd_scalar": ("cuda", "mhla_tpu_torch/csrc/gla_chunk_bwd.cu",
+                             "mhla_tpu/kernels/gla_chunk_pallas.py:160"),
     # the long-context path: K9 / K9b at head dim 256, K3 / K3b beyond 32 chunks
     "flash_attention[causal,d256]": ("cuda", "mhla_tpu_torch/csrc/flash_fwd.cu",
                                      "mhla_tpu/kernels/flash_attention.py:73"),
@@ -2283,9 +2313,22 @@ def phase_train_long(dev: torch.device, tag: str, positions: int, batch: int, se
 # chunk 64. Their kernels, forward and backward (BASE_KERNELS), run in every
 # layer of a prefill longer than 64 tokens and of a training step.
 BASE_LAYERS, BASE_HEADS, BASE_DK, BASE_DV, BASE_CHUNK = 24, 4, 128, 256, 64
+# The Mamba2 LM at the same widths (gla_lm.py's branch: head dim 1024 * 1.0
+# / 4 = 256, expand 2, so 8 heads; d_state 128) runs K12 / K12b in their
+# scalar-decay form (one log-decay per head, as simple GLA now does); the
+# Mamba LM (its selective scan) and the causal linear-attention LM run
+# plain PyTorch, as JAX runs jnp: no kernel.
 BASE_KERNELS = {"gated_deltanet": ("delta_chunk_fwd", "delta_chunk_bwd"),
                 "gla": ("gla_chunk_fwd", "gla_chunk_bwd"),
-                "simple_gla": ("gla_chunk_fwd", "gla_chunk_bwd")}
+                "simple_gla": ("gla_chunk_fwd_scalar", "gla_chunk_bwd_scalar"),
+                "mamba2": ("gla_chunk_fwd_scalar", "gla_chunk_bwd_scalar"),
+                "mamba": (), "linear_attn": ()}
+# (heads, Dk, Dv) of each baseline's attention layer at the 340M widths
+# (Mamba2: Dk = d_state, Dv = head_dim; Mamba has no heads: None)
+BASE_GEOMETRY = {"gated_deltanet": (4, 128, 256), "gla": (4, 128, 256),
+                 "simple_gla": (4, 128, 256), "mamba2": (8, 128, 256), "mamba": None,
+                 "linear_attn": (4, 128, 256)}
+MAMBA2_HEADS = 8
 # Relative-RMS tolerance of the op's gradients (q, k, v, g, beta, s0)
 # through K11 / K11b (bf16 q, k, v; bf16 entry states and products at the
 # TPU kernel's rounding points) against autograd of the plain op
@@ -2466,9 +2509,15 @@ def gla_kernel_inputs(dev: torch.device, b: int, t: int, h: int, dv: int, dtype,
             randn(b, h, BASE_DK, dv))
 
 
-def gla_work(b: int, n: int, h: int, dv: int, dtype, backward: bool):
+def gla_work(b: int, n: int, h: int, dv: int, dtype, backward: bool, scalar: bool = False,
+             shared_qk: bool = False):
     """(bytes, operations, "tf32") of K12 (training form: the entry states
-    are an output) or K12b over B x N chunks of C tokens: every input read
+    are an output) or K12b over B x N chunks of C tokens (``scalar``: their
+    scalar-decay form, whose gate is G [B, T, H] and its gradient dG in place
+    of e^{G_last} [B, N, H, Dk] and its gradient; the e^{G_i - G_j} factors
+    of the score tiles are not counted; ``shared_qk``: q and k, and dq and
+    dk, moved once per token and not once per head, as Mamba2's function,
+    whose heads share them, needs): every input read
     once and every output written once; the products over the kept (causal)
     pairs of each chunk and the state products (forward: q k^T and its
     product with v, qd S and kc^T v; backward: q k^T, dO v^T, the three
@@ -2480,14 +2529,15 @@ def gla_work(b: int, n: int, h: int, dv: int, dtype, backward: bool):
     tok = b * n * c * h
     state = b * h * dk * dv * 4
     states = b * n * h * dk * dv * 4
-    egl = b * n * h * dk * 4
+    egl = tok * 4 if scalar else b * n * h * dk * 4
+    qk = tok // h if shared_qk else tok  # the rows of q and k moved
     pairs = c * (c + 1) // 2
     if not backward:
-        moved = tok * (2 * dk + dv) * e + egl + state + tok * dv * e + state + states
+        moved = (qk * 2 * dk + tok * dv) * e + egl + state + tok * dv * e + state + states
         ops = 2 * pairs * (dk + dv) + 4 * c * dk * dv
     else:
-        moved = (tok * (2 * dk + 2 * dv) * e + egl + states + state
-                 + tok * (2 * dk + dv) * 4 + egl + state)
+        moved = ((qk * 2 * dk + tok * 2 * dv) * e + egl + states + state
+                 + (qk * 2 * dk + tok * dv) * 4 + egl + state)
         ops = 2 * pairs * (3 * dk + 2 * dv) + 8 * c * dk * dv
     return moved, (3 if dtype == torch.float32 else 1) * b * n * h * ops, "tf32"
 
@@ -2594,37 +2644,53 @@ def phase_kernels_gla(dev: torch.device) -> dict:
     return results
 
 
-def phase_serve_baseline(dev: torch.device, extends: str, tag: str) -> dict:
+def attn_geometry(attn):
+    """(heads, Dk, Dv) of a baseline LM's attention layer, None for Mamba."""
+    if hasattr(attn, "d_state"):  # Mamba2
+        return attn.num_heads, attn.d_state, attn.head_dim
+    if hasattr(attn, "num_heads"):
+        return attn.num_heads, attn.head_k_dim, attn.head_v_dim
+    return None
+
+
+def phase_serve_baseline(dev: torch.device, extends: str, tag: str,
+                         both_requests: bool = True) -> dict:
     """``generate`` with a 340M baseline LM (``attn_extends=extends``, bf16):
-    4 x 1984 + 64 and 1 x 781 + 32 greedy tokens. The prefills run its
-    forward kernel (K11, or K12 in its float32 form) in every layer; the
-    decode steps the exact token recurrence (T = 1). Checks finite logits,
-    the exact launches, and the decode-step logits against one chunked
-    forward over the whole sequence (the forward kernel again)."""
+    4 x 1984 + 64 (unless not ``both_requests``) and 1 x 781 + 32 greedy
+    tokens. The prefills run its forward kernel (K11, K12 in its float32
+    form or, for Mamba2 and simple GLA, in its scalar-decay form) in every
+    layer, or none (Mamba, linear attention); the decode steps the exact
+    token recurrence (T = 1; the carried sums of linear attention). Checks
+    finite logits, the exact launches, and the decode-step logits against
+    one chunked forward over the whole sequence (the forward kernel
+    again)."""
     from mhla_tpu_torch import kernels
     from mhla_tpu_torch.models import MHLAForCausalLM, MHLALMConfig, generate, init_lm_params
     from mhla_tpu_torch.utils import get_err_ratio
 
-    fwd = BASE_KERNELS[extends][0]
+    fwd = (BASE_KERNELS[extends] or (None,))[0]
     cfg = MHLALMConfig(attn_extends=extends, dtype=torch.bfloat16)
     model = MHLAForCausalLM(cfg, device=dev)
     init_lm_params(model, torch.Generator(dev).manual_seed(SEED))
     model = model.to(torch.bfloat16).eval()
     block = model.model.layers[0]
-    if not (block.extends == extends and cfg.num_hidden_layers == BASE_LAYERS and (
-            block.attn.num_heads, block.attn.head_k_dim, block.attn.head_v_dim)
-            == (BASE_HEADS, BASE_DK, BASE_DV)):
-        raise AssertionError(f"not the 340M {extends} geometry")
+    geometry = attn_geometry(block.attn)
+    if not (block.extends == extends and cfg.num_hidden_layers == BASE_LAYERS
+            and geometry == BASE_GEOMETRY[extends]):
+        raise AssertionError(f"not the 340M {extends} geometry: {geometry}")
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[serve {tag}] 340M {extends} LM: {BASE_LAYERS} layers, {BASE_HEADS} heads, Dk "
-        f"{BASE_DK}, Dv {BASE_DV}, {n_params / 1e6:.1f} M params bf16")
+    shape = ("d_inner 2048, state 16" if geometry is None
+             else "{} heads, Dk {}, Dv {}".format(*geometry))
+    log(f"[serve {tag}] 340M {extends} LM: {BASE_LAYERS} layers, {shape}, "
+        f"{n_params / 1e6:.1f} M params bf16")
     gen = torch.Generator(dev).manual_seed(SEED + 1)
     requests = [
         (torch.randint(0, cfg.vocab_size, (BATCH_A, PROMPT_A), generator=gen, device=dev), NEW_A),
         (torch.randint(0, cfg.vocab_size, (BATCH_B, PROMPT_B), generator=gen, device=dev), NEW_B),
-    ]
-    generate(model, requests[1][0][:, :100], max_new_tokens=4)  # warm-up
+    ][0 if both_requests else 1:]
+    generate(model, requests[-1][0][:, :100], max_new_tokens=4)  # warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     out = {"launches": {}, "rates": {}}
     for ids, new in requests:
         b, t = ids.shape
@@ -2636,23 +2702,25 @@ def phase_serve_baseline(dev: torch.device, extends: str, tag: str) -> dict:
         t_total = time.perf_counter() - t0
         counts = kernels.launch_counts()
         want = {name: 0 for name in counts}
-        want[fwd] = BASE_LAYERS  # the prefill; decode launches nothing
+        if fwd is not None:
+            want[fwd] = BASE_LAYERS  # the prefill; decode launches nothing
         if counts != want:
             raise AssertionError(f"{what}: launches {counts}, expected {want}")
         out["launches"] = counts
         kernels.reset_launch_counts()
         with torch.no_grad():
             full, _ = model(toks[:, :-1])
-        if kernels.launch_counts()[fwd] != BASE_LAYERS:
+        if fwd is not None and kernels.launch_counts()[fwd] != BASE_LAYERS:
             raise AssertionError(f"{what}: the full forward did not run {fwd} in every layer")
         ref = full[:, t - 1:]
         if toks.shape != (b, t + new) or not (torch.isfinite(scores).all()
                                                and torch.isfinite(full).all()):
             raise AssertionError(f"{what}: shapes {tuple(toks.shape)} or non-finite logits")
         rel = get_err_ratio(ref, scores)
+        launched = f"{fwd} {counts[fwd]}, every other kernel 0" if fwd else "none"
         log(f"[serve {tag}] {what}: decode-step logits vs one chunked forward over "
             f"{toks.shape[1] - 1} tokens rel-RMS {rel:.3e} (tol {SERVE_TOL}); launches: "
-            f"{fwd} {counts[fwd]}, every other kernel 0")
+            f"{launched}")
         if not rel < SERVE_TOL:
             raise AssertionError(f"{what}: chunk != recurrent ({rel:.3e})")
         with torch.no_grad():  # as generate runs it: no autograd graph
@@ -2662,8 +2730,11 @@ def phase_serve_baseline(dev: torch.device, extends: str, tag: str) -> dict:
         out["rates"][what] = {"prefill_ms": t_pre * 1e3, "prefill_tok_s": b * t / t_pre,
                               "decode_ms_per_step": t_dec * 1e3 / (new - 1),
                               "decode_tok_s": b * (new - 1) / t_dec, "decode_vs_full": rel}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        out["rates"][what]["peak_gb"] = peak_gb
         log(f"[serve {tag}] {what}: prefill {t_pre * 1e3:.2f} ms = {b * t / t_pre:,.0f} tok/s; "
-            f"decode {t_dec * 1e3 / (new - 1):.3f} ms/step = {b * (new - 1) / t_dec:,.1f} tok/s")
+            f"decode {t_dec * 1e3 / (new - 1):.3f} ms/step = {b * (new - 1) / t_dec:,.1f} tok/s; "
+            f"peak device memory {peak_gb:.1f} GB")
     del model
     torch.cuda.empty_cache()
     return out
@@ -2673,10 +2744,10 @@ def phase_train_baseline(dev: torch.device, extends: str, tag: str,
                          steps: int = TRAIN_STEPS) -> dict:
     """``lm_train.main --model.attn_extends=<extends>`` trains a 340M baseline
     LM ``steps`` steps at B=8 T=2048 (float32 parameters, bf16 compute,
-    AdamW 3e-4 after a 1-step warm-up): finite losses, falling over 6 steps
-    (the first step's learning rate is 0, so 2 steps only show them finite),
-    the exact launches (its forward and backward kernels once per layer and
-    step); step time, tok/s, peak memory."""
+    AdamW 3e-4 after a 1-step warm-up): finite losses, falling over 3 or more
+    steps (the first step's learning rate is 0, so 2 steps only show them
+    finite), the exact launches (its forward and backward kernels once per
+    layer and step, or none at all); step time, tok/s, peak memory."""
     from mhla_tpu_torch import kernels
     from mhla_tpu_torch.train import lm_train
 
@@ -2720,6 +2791,275 @@ def phase_train_baseline(dev: torch.device, extends: str, tag: str,
     torch.cuda.empty_cache()
     return {"launches": counts, "step_ms": step_s * 1e3, "tok_s": tok_s, "losses": losses,
             "peak_gb": peak_gb}
+
+
+# The Mamba2 layer hands K12 / K12b's scalar form float32 q, k, v (as JAX's
+# op computes); their decay at init: A ~ U(1e-4, 16), dt log-uniform in
+# [1e-3, 0.1] (about 1 in 3 of its heads' chunks sums below -88.7 at B=8
+# T=2048). The strong-decay case: gk ~ -U(1.5, 3), every chunk below -96.
+def gla_scalar_inputs(dev: torch.device, b: int, t: int, h: int, dv: int, strong: bool,
+                      seed: int = SEED, dtype=torch.float32):
+    """K12 / K12b's scalar-form inputs as ``gla_chunk_fused`` makes them from
+    a Mamba2-like call: q, k, v, one log-decay per head (the layer's init,
+    or ``strong``), padded to whole chunks with G the within-chunk cumsum; a
+    nonzero initial state and the cotangents (dO zero on the ragged tail)."""
+    from mhla_tpu_torch.kernels import gla_chunk as gc
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    q, k, v = randn(b, t, h, BASE_DK), randn(b, t, h, BASE_DK), randn(b, t, h, dv)
+    if strong:
+        gk = -1.5 - 1.5 * torch.rand(b, t, h, generator=gen, device=dev)
+    else:
+        a = 1e-4 + (16 - 1e-4) * torch.rand(h, generator=gen, device=dev)
+        dt = torch.exp(torch.rand(h, generator=gen, device=dev) * math.log(100.0)
+                       + math.log(1e-3))
+        gk = -a * torch.nn.functional.softplus(randn(b, t, h) + torch.log(torch.expm1(dt)))
+    q4, k4, v4, g4 = gc._prep_scalar(q.to(dtype), k.to(dtype), v.to(dtype), gk, BASE_CHUNK)
+    do = randn(*v4.shape)
+    do[:, t:] = 0
+    return q4, k4, v4, g4, 0.1 * randn(b, h, BASE_DK, dv), do.to(v4.dtype), randn(b, h, BASE_DK, dv)
+
+
+def gla_scalar_op_grads(dev: torch.device, b: int, t: int, strong: bool, kernels_path: bool):
+    """Gradients of q, k, v, gk and s0 of sum(o * w) + sum(S * ws) through
+    ``gla_chunk_fused`` (K12 / K12b's scalar form) or autograd of the plain
+    op ``gla_chunk`` (its difference form), float32, same CUDA tensors."""
+    from mhla_tpu_torch.kernels.gla_chunk import gla_chunk_fused
+    from mhla_tpu_torch.ops.gla_chunk import gla_chunk
+
+    h, dv = MAMBA2_HEADS, BASE_DV
+    gen = torch.Generator(dev).manual_seed(SEED + 23)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    gk = (-1.5 - 1.5 * torch.rand(b, t, h, generator=gen, device=dev) if strong
+          else -16 * torch.rand(h, generator=gen, device=dev)
+          * torch.nn.functional.softplus(randn(b, t, h) - 4.0))
+    xs = [randn(b, t, h, BASE_DK), randn(b, t, h, BASE_DK), randn(b, t, h, dv), gk,
+          0.1 * randn(b, h, BASE_DK, dv)]
+    xs = [x.requires_grad_() for x in xs]
+    w, ws = randn(b, t, h, dv), randn(b, h, BASE_DK, dv)
+    fn = gla_chunk_fused if kernels_path else gla_chunk
+    o, s = fn(*xs[:4], initial_state=xs[4], output_final_state=True)
+    ((o.float() * w).sum() + (s * ws).sum()).backward()
+    return [x.grad for x in xs]
+
+
+def phase_kernels_mamba2(dev: torch.device) -> dict:
+    """(aa) K12 and K12b's scalar-decay form against their plain versions: at
+    Mamba2's training shape [8, 2048, 8, 128|256] in float32 (the layer's
+    form; timed, the kernels line's rows) with the layer's decay at init,
+    at 1 x 781 (a ragged last chunk), and at a strong decay (every chunk's
+    summed log-decay below -88.7, where the factored form's e^{-G}
+    overflows) at [2, 512]: every output finite, K12b twice bit for bit;
+    then the op's gradients through them against autograd of the plain op
+    at [8, 2048] and at the strong decay."""
+    from mhla_tpu_torch.kernels import gla_chunk as gc
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    results, c, h, dv = {}, BASE_CHUNK, MAMBA2_HEADS, BASE_DV
+    shared_bounds = results["mamba2_shared_qk_bounds"] = {}
+    for b, t, strong, timed in ((TRAIN_BATCH, TRAIN_SEQ, False, True), (1, 781, False, False),
+                                (2, 512, True, False)):
+        tag = f"{b}x{t}x{h}|{dv} f32" + (" strong" if strong else "")
+        q4, k4, v4, g4, s0, do, ds = gla_scalar_inputs(dev, b, t, h, dv, strong)
+        gl = g4.view(b, -1, c, h)[:, :, -1]
+        n = q4.shape[1] // c
+        fwd = lambda: gc.gla_chunk_fwd_scalar(q4, k4, v4, g4, s0, c, True)  # noqa: E731
+        check_kernel(results, "gla_chunk_fwd_scalar", tag, fwd,
+                     lambda: gc.gla_chunk_fwd_scalar_plain(q4, k4, v4, g4, s0, c, True),
+                     timed, gla_work(b, n, h, dv, torch.float32, False, scalar=True),
+                     tol=GLA_TOL)
+        states = gc.gla_chunk_fwd_scalar_plain(q4, k4, v4, g4, s0, c, True)[2]
+        bwd = lambda: gc.gla_chunk_bwd_scalar(q4, k4, v4, g4, states, do, ds, c)  # noqa: E731
+        check_kernel(results, "gla_chunk_bwd_scalar", tag, bwd,
+                     lambda: gc.gla_chunk_bwd_scalar_plain(q4, k4, v4, g4, states, do, ds, c),
+                     timed, gla_work(b, n, h, dv, torch.float32, True, scalar=True),
+                     tol=GLA_TOL)
+        if timed:  # Mamba2's heads share q and k: the bound with them moved once
+            for name, backward in (("gla_chunk_fwd_scalar", False), ("gla_chunk_bwd_scalar", True)):
+                moved, ops, dtype = gla_work(b, n, h, dv, torch.float32, backward, scalar=True,
+                                             shared_qk=True)
+                bound = max(moved / PEAK_BYTES, ops / PEAK_FLOPS[dtype]) * 1e3
+                shared_bounds[name] = {"bound_ms": bound, "share": bound / results[name]["ms"]}
+                log(f"[kernels mamba2] {name} {tag}: bound with q and k moved once per token "
+                    f"(Mamba2's heads share them) {bound:.4f} ms = {bound / results[name]['ms']:.1%}"
+                    f" of the kernel's time; with them moved once per head "
+                    f"{results[name]['bound_ms']:.4f} ms")
+        first, second = bwd(), bwd()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"gla_chunk_bwd_scalar {tag}: two runs differ")
+        log(f"[kernels mamba2] {tag}: chunks' summed log-decay min {float(gl.min()):.1f}, "
+            f"{float((gl < -88.7).float().mean()):.1%} below -88.7; gla_chunk_bwd_scalar two "
+            "runs bit for bit equal")
+        del first, second, states, q4, k4, v4, g4, s0, do, ds
+        torch.cuda.empty_cache()
+    names = ("q", "k", "v", "gk", "s0")
+    for b, t, strong in ((TRAIN_BATCH, TRAIN_SEQ, False), (2, 512, True)):
+        got = gla_scalar_op_grads(dev, b, t, strong, kernels_path=True)
+        ref = gla_scalar_op_grads(dev, b, t, strong, kernels_path=False)
+        torch.cuda.synchronize()
+        rels = {name: get_err_ratio(r, x) for name, r, x in zip(names, ref, got)}
+        log(f"[grads mamba2] op B={b} T={t}{' strong decay' if strong else ''}: rel-RMS "
+            + " ".join(f"d{name} {rel:.3e}" for name, rel in rels.items()) + f" (tol {GLA_TOL})")
+        if not (all(torch.isfinite(x).all() for x in got) and max(rels.values()) < GLA_TOL):
+            raise AssertionError(f"mamba2 op gradients B={b} T={t} disagree: {rels}")
+        del got, ref
+    return results
+
+
+LONG_CONTINUATION = 200  # tokens that continue a 781-token cache in (ae)
+
+
+def phase_lm_options(dev: torch.device) -> dict:
+    """(ae) The MHLA LM's options at the 340M widths (bf16, seeded init):
+    ``attn_mode='fused_recurrent'`` serves 1 x 781 + 32 (every token through
+    the recurrence: K1 on q and k in every layer and step, no chunk kernel;
+    its prompt logits against chunk mode on the same weights, its decode-step
+    logits against one chunked forward); a cache of 781 tokens (a chunked
+    prefill) continued by 200 tokens in one call, against
+    ``fused_recurrent`` over the 981 tokens; one 340M-width
+    ``MHLACausal(rope_scale_base=512)`` layer forward and backward at B=8
+    T=2048 (K1 / K1b with the XPos tables, q's and k's, against the same
+    layer with the plain fmap+RoPE); and ``lm_train.main
+    --model.use_l2warp=true`` 2 steps at B=8 T=2048."""
+    import dataclasses
+
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.kernels import fmap_rope
+    from mhla_tpu_torch.layers import MHLACausal, mhla_causal
+    from mhla_tpu_torch.models import MHLAForCausalLM, MHLALMConfig, generate, init_lm_params
+    from mhla_tpu_torch.train import lm_train
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    bf16 = torch.bfloat16
+    out = {}
+    cfg = MHLALMConfig(dtype=bf16)
+    chunk = MHLAForCausalLM(cfg, device=dev)
+    init_lm_params(chunk, torch.Generator(dev).manual_seed(SEED))
+    chunk = chunk.to(bf16).eval()
+    rec = MHLAForCausalLM(dataclasses.replace(cfg, attn_mode="fused_recurrent"), device=dev)
+    rec.load_state_dict(chunk.state_dict())
+    rec = rec.to(bf16).eval()
+    ids = torch.randint(0, cfg.vocab_size, (BATCH_B, PROMPT_B + LONG_CONTINUATION),
+                        generator=torch.Generator(dev).manual_seed(SEED + 41), device=dev)
+    prompt = ids[:, :PROMPT_B]
+    generate(rec, prompt[:, :20], max_new_tokens=4)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, scores = generate(rec, prompt, max_new_tokens=NEW_B, output_scores=True)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    counts = {k_: v_ for k_, v_ in kernels.launch_counts().items() if v_}
+    want = {"fmap_rope": 2 * BASE_LAYERS * NEW_B}
+    if counts != want:
+        raise AssertionError(f"fused_recurrent serve launches {counts}, expected {want}")
+    with torch.no_grad():
+        # one fused_recurrent forward over the 981 tokens: its first 781
+        # positions are the prompt's logits, the rest the continuation's
+        # reference below
+        t1 = time.perf_counter()
+        ref, _ = rec(ids)
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t1
+        logits_chunk, _ = chunk(prompt)
+        full, _ = chunk(toks[:, :-1])
+    rel_prompt = get_err_ratio(logits_chunk, ref[:, :PROMPT_B])
+    rel_decode = get_err_ratio(full[:, PROMPT_B - 1:], scores)
+    finite = all(torch.isfinite(x).all() for x in (scores, ref, full))
+    log(f"[options] fused_recurrent 1 x {PROMPT_B} + {NEW_B}: prompt logits vs chunk mode "
+        f"rel-RMS {rel_prompt:.3e}, decode-step logits vs one chunked forward {rel_decode:.3e} "
+        f"(tol {SERVE_TOL}); launches {counts}; generate {t_total * 1e3:.1f} ms (prefill "
+        f"through the token loop and {NEW_B - 1} decode steps); one forward over "
+        f"{ids.shape[1]} tokens {t_ref * 1e3:.1f} ms (the token loop)")
+    if not (finite and rel_prompt < SERVE_TOL and rel_decode < SERVE_TOL):
+        raise AssertionError(f"fused_recurrent: {rel_prompt:.3e} / {rel_decode:.3e}")
+    out["fused_recurrent"] = {"prompt_vs_chunk": rel_prompt, "decode_vs_full": rel_decode,
+                              "generate_ms": t_total * 1e3,
+                              f"forward_{ids.shape[1]}_ms": t_ref * 1e3}
+    with torch.no_grad():
+        _, states = chunk(prompt, use_cache=True)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cont, _ = chunk(ids[:, PROMPT_B:], states, use_cache=True)
+        torch.cuda.synchronize()
+        t_cont = time.perf_counter() - t1
+        counts = {k_: v_ for k_, v_ in kernels.launch_counts().items() if v_}
+    rel = get_err_ratio(ref[:, PROMPT_B:], cont)
+    log(f"[options] a {PROMPT_B}-token cache continued by {LONG_CONTINUATION} tokens in one "
+        f"call: logits vs fused_recurrent over {ids.shape[1]} tokens rel-RMS {rel:.3e} (tol "
+        f"{SERVE_TOL}); launches {counts}; {t_cont * 1e3:.1f} ms")
+    if not (torch.isfinite(cont).all() and rel < SERVE_TOL
+            and counts == {"fmap_rope": 2 * BASE_LAYERS}):
+        raise AssertionError(f"long continuation: {rel:.3e}, launches {counts}")
+    out["long_continuation"] = {"vs_fused_recurrent": rel, "ms": t_cont * 1e3}
+    del chunk, rec, full, ref, states
+    torch.cuda.empty_cache()
+
+    # XPos: one 340M-width layer, K1 / K1b with q's and k's own tables
+    layer = MHLACausal(hidden_size=1024, num_heads=4, chunk_size=BASE_CHUNK, num_slots=32,
+                       rope_scale_base=512.0, device=dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 42)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            if p.ndim == 2 and name.endswith(".weight"):
+                p.normal_(0.0, 0.02, generator=gen)
+    x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, 1024, generator=gen, device=dev).to(bf16)
+    w = torch.randn(TRAIN_BATCH, TRAIN_SEQ, 1024, generator=gen, device=dev)
+
+    def grads():
+        layer.zero_grad(set_to_none=True)
+        xx = x.detach().requires_grad_()
+        (layer(xx)[0].float() * w).sum().backward()
+        return {"x": xx.grad, **{n_: p.grad for n_, p in layer.named_parameters()}}
+
+    kernels.reset_launch_counts()
+    got = grads()
+    xpos_counts = {k_: kernels.launch_counts()[k_] for k_ in ("fmap_rope", "fmap_rope_bwd")}
+
+    def plain_fmap_rope(x_, cos, sin, num_heads, feature_map=None, offset=0, positions=None):
+        return fmap_rope.fmap_rope_plain(x_, cos, sin, num_heads, feature_map, offset, positions)
+
+    kernels.reset_launch_counts()
+    with mock.patch.object(mhla_causal, "fused_fmap_rope_flat", plain_fmap_rope):
+        want = grads()
+    if kernels.launch_counts()["fmap_rope"]:
+        raise AssertionError("the plain XPos layer launched K1")
+    torch.cuda.synchronize()
+    rels = {name: get_err_ratio(want[name], got[name]) for name in want}
+    worst = max(rels, key=rels.get)
+    log(f"[options] MHLACausal(rope_scale_base=512) at B={TRAIN_BATCH} T={TRAIN_SEQ}: launches "
+        f"{xpos_counts}; gradients vs plain fmap+RoPE rel-RMS dx {rels['x']:.3e}, worst "
+        f"{worst} {rels[worst]:.3e} (tol {OP_GRAD_TOL})")
+    if not (xpos_counts == {"fmap_rope": 2, "fmap_rope_bwd": 2}
+            and all(torch.isfinite(g).all() for g in got.values())
+            and rels[worst] < OP_GRAD_TOL):
+        raise AssertionError(f"XPos layer: launches {xpos_counts}, gradients {rels}")
+    out["xpos_layer"] = {"launches": xpos_counts, "grads_vs_plain": rels[worst]}
+    del layer, x, w, got, want
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="mhla_train_l2warp_") as work:
+        argv = [f"--device={dev.type}", f"--work_dir={work}", "--model.use_l2warp=true",
+                f"--train.batch_size={TRAIN_BATCH}", f"--train.seq_len={TRAIN_SEQ}",
+                "--train.max_steps=2", "--train.log_interval=1",
+                "--optimizer.learning_rate=3e-4", "--optimizer.warmup_steps=1",
+                "--optimizer.total_steps=20000"]
+        kernels.reset_launch_counts()
+        res = lm_train.main(argv)
+        counts = kernels.launch_counts()
+    losses = res["losses"]
+    log(f"[options] lm_train --model.use_l2warp=true 2 steps: losses "
+        f"{[round(v_, 4) for v_ in losses]}, step {res['step_seconds'][-1] * 1e3:.1f} ms")
+    if not (len(losses) == 2 and all(map(math.isfinite, losses))
+            and all(counts[n_] > 0 for n_ in FWD_KERNELS + BWD_KERNELS)):
+        raise AssertionError(f"l2warp training: losses {losses}, launches {counts}")
+    out["train_l2warp"] = {"losses": losses, "step_ms": res["step_seconds"][-1] * 1e3}
+    del res
+    torch.cuda.empty_cache()
+    return out
 
 
 def plain_flash_attention(q, k, v, causal=False, segment_ids=None):
@@ -3599,6 +3939,18 @@ def main() -> None:
     train_gla = phase_train_baseline(dev, "gla", "gla")
     train_simple_gla = phase_train_baseline(dev, "simple_gla", "simple_gla", steps=2)
     log_time("GLA LM")
+    kern.update(phase_kernels_mamba2(dev))
+    serve_mamba2 = phase_serve_baseline(dev, "mamba2", "mamba2")
+    train_mamba2 = phase_train_baseline(dev, "mamba2", "mamba2")
+    log_time("Mamba2 LM")
+    serve_mamba = phase_serve_baseline(dev, "mamba", "mamba", both_requests=False)
+    train_mamba = phase_train_baseline(dev, "mamba", "mamba", steps=3)
+    log_time("Mamba LM")
+    serve_linear = phase_serve_baseline(dev, "linear_attn", "linear_attn")
+    train_linear = phase_train_baseline(dev, "linear_attn", "linear_attn", steps=3)
+    log_time("linear-attention LM")
+    options = phase_lm_options(dev)
+    log_time("MHLA LM options")
     kern.update(phase_kernels_video(dev))
     video = phase_video(dev)
     kern.update(phase_kernels_hybrid(dev))
@@ -3640,6 +3992,8 @@ def main() -> None:
                 "delta_chunk_bwd": train_gdn["launches"]["delta_chunk_bwd"],
                 "gla_chunk_fwd": serve_gla["launches"]["gla_chunk_fwd"],
                 "gla_chunk_bwd": train_gla["launches"]["gla_chunk_bwd"],
+                "gla_chunk_fwd_scalar": serve_mamba2["launches"]["gla_chunk_fwd_scalar"],
+                "gla_chunk_bwd_scalar": train_mamba2["launches"]["gla_chunk_bwd_scalar"],
                 **{form: long_phases[phase]["launches"][counter]
                    for form, (phase, counter) in LONG_FORMS.items()}}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3651,7 +4005,8 @@ def main() -> None:
     for phase in (train, video, hybrid, sparse, train_full, train_hybrid, train_sparse,
                   train_lora, train_lepe, serve_hybrid, train_packed, train_unpacked, serve_gdn, train_gdn,
                   serve_gla, train_gla, train_simple_gla, ppl, serve_long, train_long,
-                  train_d256_packed):
+                  train_d256_packed, serve_mamba2, train_mamba2, serve_mamba, train_mamba,
+                  serve_linear, train_linear):
         phase.pop("launches")
     log(json.dumps({"serve": serve["rates"], "train": train,
                     "serve_hybrid_lm": serve_hybrid["rates"], "train_hybrid_lm_packed": train_packed,
@@ -3669,6 +4024,11 @@ def main() -> None:
                     "serve_gdn": serve_gdn["rates"], "train_gdn": train_gdn,
                     "gla_kernel_forms": kern["gla_shapes"], "serve_gla": serve_gla["rates"],
                     "train_gla": train_gla, "train_simple_gla": train_simple_gla,
+                    "serve_mamba2": serve_mamba2["rates"], "train_mamba2": train_mamba2,
+                    "serve_mamba": serve_mamba["rates"], "train_mamba": train_mamba,
+                    "serve_linear_attn": serve_linear["rates"], "train_linear_attn": train_linear,
+                    "mamba2_shared_qk_bounds": kern["mamba2_shared_qk_bounds"],
+                    "lm_options": options,
                     "video": video, "hybrid": hybrid,
                     "hybrid_sparse": sparse, "train_video_full": train_full,
                     "train_video_hybrid": train_hybrid,

@@ -52,6 +52,13 @@
 // 0.14 ms at 3.35 TB/s; 21.0 GFLOP, three TF32 products each, 0.127 ms at 495
 // TFLOP/s: bytes. (On float32 FMAs outside the tensor cores the same work
 // was 0.313 ms at 67 TFLOP/s, the bound of the kernel this one replaced.)
+//
+// The scalar-decay form (mhla_gla_bwd_scalar, one log-decay per head; see
+// gla_chunk.cu) differentiates the difference form: the same two launches,
+// the state pass forming T(q kScale e^{G}) per token, and the gradients
+// block scaling its score and dp tiles by e^{G_i - G_j}; it returns the
+// gradients of the undecayed q and k and of G per (token, head) (the
+// formulas above gla_grads_kernel), the cumsum's reverse done outside.
 
 #include "gla_common.cuh"
 
@@ -68,9 +75,15 @@ struct GradGeom {
   static constexpr int kPanelBytes = 4 * kV + 2 * kS;  // v, v lo, dO, dO lo, S, dS
   static_assert(2 * kTok <= kPanelBytes, "qd and its lo fit the panel region");
   static_assert(kTok + 4 * kSq <= kPanelBytes, "qd, dp and dp^T fit the panel region");
+  // kScalar, after the panels: the products dp * s [C][C], the eight warps'
+  // column sums of two products [2][8][C] and the tokens' dG [C], float32
+  static constexpr int kScalarScratch = (kC * kC + 17 * kC) * 4;
+  static_assert(kTok + 4 * kSq + kScalarScratch <= kPanelBytes, "the scalar form's sums fit");
   // s^T (hi, lo); kd's two tiles; the panel region; egl and degl's partial
-  // sums; mbarriers; alignment
-  static constexpr int kSmem = 2 * kSq + 2 * kTok + kPanelBytes + 2 * kDk * 4 + 64 + 1024;
+  // sums; mbarriers; kScalar: G, kScale e^{G} and e^{G_last - G} of the
+  // chunk's tokens; alignment
+  static constexpr int kSmem =
+      2 * kSq + 2 * kTok + kPanelBytes + 2 * kDk * 4 + 64 + 3 * kC * 4 + 1024;
   static_assert(kSmem <= kSmemLimit, "one block's shared memory");
 };
 
@@ -79,7 +92,23 @@ struct GradGeom {
 // map_s, map_ds: the entry states and exit cotangents [B * N * H * Dk, Dv]
 // float32, boxes of 32 columns by 128 rows. egl, degl: [B, N, H, Dk]; dqd,
 // dkd: [B, T, H, Dk]; dv: [B, T, H, Dv]; float32.
-template <bool kBf16, int kC>
+//
+// kScalar (one log-decay per head): the maps hold the undecayed q and k, egl
+// is G [B, T, H] (the within-chunk cumsum) and degl takes dG [B, T, H], the
+// gradient of G per (token, head); dqd and dkd take the gradients of the
+// undecayed q and k. With e_t = kScale e^{G_t}, a_t = e^{G_last - G_t} and
+// f_ij = kScale e^{G_i - G_j} (j <= i, the exponent taken only there): the
+// scores s = T(q k^T * f), kc = T(k a), and the block's products run on
+// dr = T(dp * f) in place of dp, q and k in place of qd and kd:
+//   dq  = dr k + (dO T(S)^T) e         dk = dr^T q + (v T(dS)^T) a
+//   dv  = s^T dO + kc T(dS)
+//   dG_t = e_t sum_d (dO T(S)^T)_td q_td - a_t sum_d (v T(dS)^T)_td k_td
+//          + sum_j P_tj - sum_i P_it        P = dp * s (the stored scores)
+//   dG_last += sum_t a_t sum_d (v T(dS)^T)_td k_td + e^{G_last} sum(S * dS)
+// The sums over d run across the eight warps (shuffles, then one row each in
+// shared memory), those of P and the last ones by one thread each, all in a
+// fixed order: bit-equal from run to run as the per-channel form.
+template <bool kBf16, int kC, bool kScalar>
 __global__ void __launch_bounds__(256, 1)
 gla_grads_kernel(const __grid_constant__ CUtensorMap map_qd,
                  const __grid_constant__ CUtensorMap map_kd,
@@ -115,6 +144,12 @@ gla_grads_kernel(const __grid_constant__ CUtensorMap map_qd,
   float* dg_dv = eg + kDk;  // sum_Dv(S * dS)
   // qd and kd; a panel's v and dO; its S and dS; qd again at the end
   uint64_t* bars = reinterpret_cast<uint64_t*>(dg_dv + kDk);
+  float* gs = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(bars) + 64);
+  float* qf = gs + kC;  // kScalar: kScale e^{G}
+  float* af = qf + kC;  // and e^{G_last - G}
+  float* pp = reinterpret_cast<float*>(reg + G::kTok + 4 * G::kSq);  // after the panels: P
+  float* red = pp + kC * kC;  // [2][8 warps][C]
+  float* dgt = red + 16 * kC;  // dG [C]
 
   const int item = blockIdx.x;
   const int h = item % H, bn = item / H, n = bn % N, b = bn / N;
@@ -144,16 +179,26 @@ gla_grads_kernel(const __grid_constant__ CUtensorMap map_qd,
     load_tokens<kDk, kC>(ka, &map_kd, &bars[0], 0, t0, h, b);
     issue_states(0);  // S and dS of panel 0 land beside qd and its lo
   }
-  if (tid < kDk) eg[tid] = egl[(int64_t)item * kDk + tid];
+  const int64_t tok0 = (int64_t)b * N * kC + t0;
+  if constexpr (kScalar) {
+    if (tid < kC) gs[tid] = egl[(tok0 + tid) * H + h];
+    __syncthreads();
+    if (tid < kC) {
+      qf[tid] = kScale * expf(gs[tid]);
+      af[tid] = expf(gs[kC - 1] - gs[tid]);
+    }
+  } else if (tid < kDk) {
+    eg[tid] = egl[(int64_t)item * kDk + tid];
+  }
   mbar_wait(&bars[0], 0);
   if constexpr (kSplit) {
     split_tile(qd_hi, qd_lo, G::kTok, tid, 256);
     split_tile(ka, kb, G::kTok, tid, 256);
   } else {
-    __syncthreads();  // eg is written
-    for (int e = tid; e < kC * kDk; e += 256) {  // kc = T(kd e^{G_last})
+    __syncthreads();  // eg (af) is written
+    for (int e = tid; e < kC * kDk; e += 256) {  // kc = T(kd e^{G_last}) (kScalar: T(k a))
       const int j = e / kDk, d = e % kDk;
-      tile_at<kC>(kb, j, d) = rnd<true>(tile_at<kC>(ka, j, d) * eg[d]);
+      tile_at<kC>(kb, j, d) = rnd<true>(tile_at<kC>(ka, j, d) * (kScalar ? af[j] : eg[d]));
     }
   }
   fence_async_shared();
@@ -176,7 +221,9 @@ gla_grads_kernel(const __grid_constant__ CUtensorMap map_qd,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = acc_row(e), ii = acc_col(i, e);
-        if (j < kC) put_b<kC, kSplit>(st_hi, st_lo, j, ii, j <= ii ? rnd<kBf16>(acc[i][e]) : 0.f);
+        float x = 0.f;
+        if (j <= ii) x = kScalar ? acc[i][e] * (kScale * expf(gs[ii] - gs[j])) : acc[i][e];
+        if (j < kC) put_b<kC, kSplit>(st_hi, st_lo, j, ii, rnd<kBf16>(x));
       }
   }
   fence_async_shared();
@@ -187,7 +234,6 @@ gla_grads_kernel(const __grid_constant__ CUtensorMap map_qd,
   float dq[kC / 8][4], dk[kC / 8][4], pw[kC / 8][4];  // pw: dp (warpgroup 0) or dv^T (1)
   float dg_part = 0.f;  // sum_Dv(S * dS) at row tid (warpgroup 0)
   const int64_t ldk = (int64_t)H * kDk, ldv = (int64_t)H * Dv;
-  const int64_t tok0 = (int64_t)b * N * kC + t0;
   if (tid == 0) issue_tokens(0);
   for (int p = 0; p < panels; ++p) {
     mbar_wait(&bars[1], p & 1);
@@ -221,7 +267,18 @@ gla_grads_kernel(const __grid_constant__ CUtensorMap map_qd,
         desc_kmajor(v_hi, 0), desc_kmajor(v_lo, 0), p > 0);
     // dv^T [dv][j] = dS'^T kc'^T + dO^T s (warpgroup 1)
     if (wg == 1) {
-      if constexpr (kSplit)
+      if constexpr (kSplit && kScalar) {  // (dS^T k^T) a, column j times a_j
+        mma<true, kDk / 8, kC>(
+            pw, [&](int, int m, int k) { return tile_at<kDk>(ds_t, k, m); }, desc_kmajor(ka, 0),
+            desc_kmajor(kb, 0), false);
+#pragma unroll
+        for (int i = 0; i < kC / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = acc_col(i, e);
+            pw[i][e] *= j < kC ? af[j] : 0.f;
+          }
+      } else if constexpr (kSplit)
         mma<true, kDk / 8, kC>(
             pw, [&](int, int m, int k) { return tile_at<kDk>(ds_t, k, m) * eg[k]; },
             desc_kmajor(ka, 0), desc_kmajor(kb, 0), false);
@@ -262,7 +319,19 @@ gla_grads_kernel(const __grid_constant__ CUtensorMap map_qd,
       for (int e = 0; e < 4; ++e) {
         const int ii = acc_row(e), j = acc_col(i, e);
         if (ii < kC) {
-          const float x = j <= ii ? rnd<kBf16>(pw[i][e]) : 0.f;
+          float x = 0.f;
+          if constexpr (kScalar) {  // dr = T(dp f) and P = dp s
+            float p = 0.f;
+            if (j <= ii) {
+              float sc = tile_at<kC>(st_hi, j, ii);
+              if constexpr (kSplit) sc += tile_at<kC>(st_lo, j, ii);
+              p = pw[i][e] * sc;
+              x = rnd<kBf16>(pw[i][e] * (kScale * expf(gs[ii] - gs[j])));
+            }
+            pp[ii * kC + j] = p;
+          } else if (j <= ii) {
+            x = rnd<kBf16>(pw[i][e]);
+          }
           put_b<kC, kSplit>(dp_hi, dp_lo, ii, j, x);
           put_b<kC, kSplit>(dpt_hi, dpt_lo, j, ii, x);
         }
@@ -272,6 +341,38 @@ gla_grads_kernel(const __grid_constant__ CUtensorMap map_qd,
   fence_async_shared();
   __syncthreads();
   mbar_wait(&bars[3], 0);
+
+  if constexpr (kScalar) {
+    // the sums over d of (dO T(S)^T) * q and (v T(dS)^T) * k per token: this
+    // lane's two rows, the eight lanes of a column (xor 4, 8, 16), one row
+    // of red per warp; then dq's part times e
+    const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+    for (int i = 0; i < kC / 8; ++i)
+#pragma unroll
+      for (int c2 = 0; c2 < 2; ++c2) {
+        const int c = acc_col(i, c2);
+        float rq = 0.f, rk = 0.f;
+        if (c < kC)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + c2, d = d_half + acc_row(e);
+            rq = fmaf(dq[i][e], tile_at<kC>(qd_hi, c, d), rq);
+            rk = fmaf(dk[i][e], kd_at(c, d), rk);
+          }
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          rq += __shfl_xor_sync(0xffffffffu, rq, m);
+          rk += __shfl_xor_sync(0xffffffffu, rk, m);
+        }
+        if (lane < 4 && c < kC) {
+          red[warp * kC + c] = rq;
+          red[(8 + warp) * kC + c] = rk;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) dq[i][2 * r + c2] *= c < kC ? qf[c] : 0.f;
+      }
+  }
 
   // dqd^T [d][i] += kd^T dp^T
   mma<kSplit, kC / 8, kC>(
@@ -293,10 +394,32 @@ gla_grads_kernel(const __grid_constant__ CUtensorMap map_qd,
       const int d = d_half + acc_row(e), c = acc_col(i, e);
       if (c < kC) {
         dqb[c * ldk + d] = dq[i][e];
-        dkb[c * ldk + d] = dkd_t[i][e] + dk[i][e] * eg[d];
-        dg_c[e >> 1] = fmaf(dk[i][e], kd_at(c, d), dg_c[e >> 1]);
+        dkb[c * ldk + d] = dkd_t[i][e] + dk[i][e] * (kScalar ? af[c] : eg[d]);
+        if constexpr (!kScalar) dg_c[e >> 1] = fmaf(dk[i][e], kd_at(c, d), dg_c[e >> 1]);
       }
     }
+  if constexpr (kScalar) {
+    __syncthreads();  // red and P are complete
+    if (tid < kC) {  // token t = tid
+      float rq = 0.f, rk = 0.f, row = 0.f, col = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) rq += red[w * kC + tid], rk += red[(8 + w) * kC + tid];
+      for (int j = 0; j < kC; ++j) row += pp[tid * kC + j], col += pp[j * kC + tid];
+      rk *= af[tid];
+      dgt[tid] = rq * qf[tid] - rk + (row - col);
+      red[tid] = rk;  // row 0 of red is read: a_t sum_d (v T(dS)^T) k for dG_last
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float sk = 0.f, ss = 0.f;
+      for (int t = 0; t < kC; ++t) sk += red[t];
+      for (int d = 0; d < kDk; ++d) ss += dg_dv[d];
+      dgt[kC - 1] += sk + expf(gs[kC - 1]) * ss;
+    }
+    __syncthreads();
+    if (tid < kC) degl[(tok0 + tid) * H + h] = dgt[tid];
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {  // across the four lanes of a row, in a fixed order
     dg_c[r] += __shfl_xor_sync(0xffffffffu, dg_c[r], 1);
@@ -310,13 +433,13 @@ gla_grads_kernel(const __grid_constant__ CUtensorMap map_qd,
     }
 }
 
-template <bool kBf16, int kC>
+template <bool kBf16, int kC, bool kScalar>
 int launch_grads(const float* qd, const float* kd, const float* v, const float* egl,
                  const float* states, const float* dout, const float* exits, float* dqd,
                  float* dkd, float* dv, float* degl, int B, int N, int H, int Dv,
                  cudaStream_t stream) {
   typedef GradGeom<kC> G;
-  auto kern = gla_grads_kernel<kBf16, kC>;
+  auto kern = gla_grads_kernel<kBf16, kC, kScalar>;
   int blocks = 0;
   int err = hopper_host::resident_blocks((const void*)kern, 256, G::kSmem, &blocks);
   if (err) return err;
@@ -334,26 +457,26 @@ int launch_grads(const float* qd, const float* kd, const float* v, const float* 
   return (int)cudaGetLastError();
 }
 
-template <bool kBf16, int kC>
+template <bool kBf16, int kC, bool kScalar>
 int gla_bwd(const float* qd, const float* kd, const float* v, const float* egl,
             const float* states, const float* dout, const float* ds_final, float* exits,
             float* dqd, float* dkd, float* dv, float* degl, float* ds0, int B, int N, int H,
             int Dv, cudaStream_t stream) {
-  int err = launch_state<kBf16, kC, false>(qd, dout, egl, ds_final, exits, ds0, B, N, H, Dv,
-                                           stream);
+  int err = launch_state<kBf16, kC, false, kScalar>(qd, dout, egl, ds_final, exits, ds0, B, N,
+                                                     H, Dv, stream);
   if (err) return err;
-  return launch_grads<kBf16, kC>(qd, kd, v, egl, states, dout, exits, dqd, dkd, dv, degl, B, N,
-                                 H, Dv, stream);
+  return launch_grads<kBf16, kC, kScalar>(qd, kd, v, egl, states, dout, exits, dqd, dkd, dv,
+                                          degl, B, N, H, Dv, stream);
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kScalar>
 int gla_bwd_c(const float* qd, const float* kd, const float* v, const float* egl,
               const float* states, const float* dout, const float* ds_final, float* exits,
               float* dqd, float* dkd, float* dv, float* degl, float* ds0, int B, int N, int C,
               int H, int Dv, cudaStream_t stream) {
-#define GLA_BWD(c)                                                                            \
-  gla_bwd<kBf16, c>(qd, kd, v, egl, states, dout, ds_final, exits, dqd, dkd, dv, degl, ds0, B, \
-                    N, H, Dv, stream)
+#define GLA_BWD(c)                                                                        \
+  gla_bwd<kBf16, c, kScalar>(qd, kd, v, egl, states, dout, ds_final, exits, dqd, dkd, dv, \
+                             degl, ds0, B, N, H, Dv, stream)
   switch (C) {
     case 16: return GLA_BWD(16);
     case 32: return GLA_BWD(32);
@@ -363,10 +486,24 @@ int gla_bwd_c(const float* qd, const float* kd, const float* v, const float* egl
 #undef GLA_BWD
 }
 
+template <bool kScalar>
+int gla_bwd_entry(const void* qd, const void* kd, const void* v, const void* egl,
+                  const void* states, const void* dout, const void* ds_final, void* exits,
+                  void* dqd, void* dkd, void* dv, void* degl, void* ds0, int B, int N, int C,
+                  int H, int Dk, int Dv, int is_bf16, void* stream) {
+  if (!shape_ok(C, Dk, Dv)) return (int)cudaErrorInvalidValue;
+  auto f = gla_bwd_c<false, kScalar>;
+  if (is_bf16) f = gla_bwd_c<true, kScalar>;
+  return f((const float*)qd, (const float*)kd, (const float*)v, (const float*)egl,
+           (const float*)states, (const float*)dout, (const float*)ds_final, (float*)exits,
+           (float*)dqd, (float*)dkd, (float*)dv, (float*)degl, (float*)ds0, B, N, C, H, Dv,
+           (cudaStream_t)stream);
+}
+
 }  // namespace
 
-// Plain C entry point (loaded with ctypes): the two launches on the given
-// stream, no synchronisation; returns the first launch's cudaError_t. qd, kd:
+// Plain C entry points (loaded with ctypes): the two launches on the given
+// stream, no synchronisation; return the first launch's cudaError_t. qd, kd:
 // [B, N*C, H, Dk]; v, dout: [B, N*C, H, Dv] (a bf16 call's values as
 // float32 copies; is_bf16 picks the bf16 rounding points and the one
 // product); egl, degl: [B, N, H, Dk]; states, exits (scratch): [B, N, H, Dk,
@@ -377,11 +514,18 @@ extern "C" int mhla_gla_bwd(const void* qd, const void* kd, const void* v, const
                             void* exits, void* dqd, void* dkd, void* dv, void* degl, void* ds0,
                             int B, int N, int C, int H, int Dk, int Dv, int is_bf16,
                             void* stream) {
-  if (!shape_ok(C, Dk, Dv)) return (int)cudaErrorInvalidValue;
-  auto f = gla_bwd_c<false>;
-  if (is_bf16) f = gla_bwd_c<true>;
-  return f((const float*)qd, (const float*)kd, (const float*)v, (const float*)egl,
-           (const float*)states, (const float*)dout, (const float*)ds_final, (float*)exits,
-           (float*)dqd, (float*)dkd, (float*)dv, (float*)degl, (float*)ds0, B, N, C, H, Dv,
-           (cudaStream_t)stream);
+  return gla_bwd_entry<false>(qd, kd, v, egl, states, dout, ds_final, exits, dqd, dkd, dv, degl,
+                              ds0, B, N, C, H, Dk, Dv, is_bf16, stream);
+}
+
+// The scalar-decay form (one log-decay per head): q and k undecayed in place
+// of qd and kd, the within-chunk cumsum G [B, N*C, H] in place of egl, and
+// dG [B, N*C, H] in place of degl; dq and dk are the gradients of q and k.
+extern "C" int mhla_gla_bwd_scalar(const void* q, const void* k, const void* v, const void* g,
+                                   const void* states, const void* dout, const void* ds_final,
+                                   void* exits, void* dq, void* dk, void* dv, void* dg,
+                                   void* ds0, int B, int N, int C, int H, int Dk, int Dv,
+                                   int is_bf16, void* stream) {
+  return gla_bwd_entry<true>(q, k, v, g, states, dout, ds_final, exits, dq, dk, dv, dg, ds0, B,
+                             N, C, H, Dk, Dv, is_bf16, stream);
 }

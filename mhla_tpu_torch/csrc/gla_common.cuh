@@ -48,6 +48,7 @@ constexpr int kDk = 128;     // head dim of q and k
 constexpr int kMaxC = 64;    // largest chunk
 constexpr int kPanel = 64;   // Dv columns of a panel (the M of a product over Dv rows)
 constexpr int kSmemLimit = 232448;  // a block's shared memory on the H100
+constexpr float kScale = 0.08838834764831845f;  // kDk**-0.5, q's scale
 
 // x rounded to bf16 and back where kBf16 (a rounding point of the TPU kernel)
 template <bool kBf16>
@@ -209,12 +210,17 @@ struct StateGeom {
 // tokens) once for both warpgroups. The final z goes to s_out. x and y stream in by TMA through
 // kStateStages stages, so the next chunk's loads overlap this chunk's work.
 // maps: [B, T, H, Dk] (x) and [B, T, H, Dv] (y) float32, boxes of 32 columns
-// by C tokens; egl [B, N, H, Dk]; s_in, s_out [B, H, Dk, Dv]; seq [B, N, H,
-// Dk, Dv]; float32.
-template <bool kBf16, int kC, bool kFwd>
+// by C tokens; gate: egl [B, N, H, Dk]; s_in, s_out [B, H, Dk, Dv]; seq [B,
+// N, H, Dk, Dv]; float32.
+//
+// kScalar (one log-decay per head): gate is G [B, T, H], the within-chunk
+// cumsum, and x the undecayed k (kFwd) or q. Every row decays by the one
+// e^{G_last}, and the block forms x' per token t of the chunk:
+// T(k_t e^{G_last - G_t}) (kFwd) or T(q_t kScale e^{G_t}); every exponent <= 0.
+template <bool kBf16, int kC, bool kFwd, bool kScalar>
 __global__ void __launch_bounds__(256, 1)
 gla_state_kernel(const __grid_constant__ CUtensorMap map_x,
-                 const __grid_constant__ CUtensorMap map_y, const float* __restrict__ egl,
+                 const __grid_constant__ CUtensorMap map_y, const float* __restrict__ gate,
                  const float* __restrict__ s_in, float* __restrict__ seq,
                  float* __restrict__ s_out, int N, int H, int Dv) {
   typedef StateGeom<kC> G;
@@ -259,8 +265,23 @@ gla_state_kernel(const __grid_constant__ CUtensorMap map_x,
   const uint64_t dhi = desc_kmajor(yt_hi, 0), dlo = desc_kmajor(yt_lo, 0);
   for (int i = 0; i < N; ++i) {
     const int n = kFwd ? i : N - 1 - i, s = i % kStateStages;
-    const float* eg = egl + (((int64_t)b * N + n) * H + h) * kDk + d0;
-    const float g0 = __ldg(eg + acc_row(0)), g1 = __ldg(eg + acc_row(2));
+    const int lane = tid & 31, r0 = d0 + ((tid >> 5) & 3) * 16 + (lane >> 2), k0 = lane & 3;
+    float g0, g1, fac[kC / 8][2];  // the rows' decays; kScalar: the tokens' factors
+    if constexpr (kScalar) {
+      const float* gc = gate + ((int64_t)b * N * kC + (int64_t)n * kC) * H + h;  // token t: gc[t H]
+      const float gl = __ldg(gc + (int64_t)(kC - 1) * H);
+      g0 = g1 = expf(gl);
+#pragma unroll
+      for (int ks = 0; ks < kC / 8; ++ks)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float gt = __ldg(gc + (int64_t)(8 * ks + k0 + 4 * hf) * H);
+          fac[ks][hf] = kFwd ? expf(gl - gt) : kScale * expf(gt);
+        }
+    } else {
+      const float* eg = gate + (((int64_t)b * N + n) * H + h) * kDk + d0;
+      g0 = __ldg(eg + acc_row(0)), g1 = __ldg(eg + acc_row(2));
+    }
     mbar_wait(&full[s], (i / kStateStages) & 1);
     const float* xs = reinterpret_cast<const float*>(stages + s * G::kStage);
     const float* ys = reinterpret_cast<const float*>(stages + s * G::kStage + G::kX);
@@ -269,15 +290,16 @@ gla_state_kernel(const __grid_constant__ CUtensorMap map_x,
       const int c = e / kPanel, dv = e % kPanel;
       put_b<kPanel, kSplit>(yt_hi, yt_lo, dv, c, tile_at<kC>(ys, c, dv));
     }
-    // A = x'^T: [64 Dk][C tokens], rows e^{G_last}-scaled and rounded (kFwd)
+    // A = x'^T: [64 Dk][C tokens], rows e^{G_last}-scaled and rounded (kFwd),
+    // or (kScalar) each token's column scaled by its factor and rounded
     uint32_t ahi[kC / 8][4], alo[kC / 8][4];
-    const int lane = tid & 31, r0 = d0 + ((tid >> 5) & 3) * 16 + (lane >> 2), k0 = lane & 3;
 #pragma unroll
     for (int ks = 0; ks < kC / 8; ++ks)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = tile_at<kC>(xs, 8 * ks + k0 + 4 * (e >> 1), r0 + 8 * (e & 1));
-        if constexpr (kFwd) x = rnd<kBf16>(x * ((e & 1) ? g1 : g0));
+        if constexpr (kScalar) x = rnd<kBf16>(x * fac[ks][e >> 1]);
+        else if constexpr (kFwd) x = rnd<kBf16>(x * ((e & 1) ? g1 : g0));
         frag<kSplit>(x, ahi[ks][e], alo[ks][e]);
       }
     fence_async_shared();  // y^T is read by the products through the async proxy
@@ -340,11 +362,11 @@ inline int make_tokens_map(CUtensorMap* map, const void* base, int B, int T, int
 }
 
 // Launch the state pass on `stream`: x, y the token tensors, N chunks of C.
-template <bool kBf16, int kC, bool kFwd>
-int launch_state(const float* x, const float* y, const float* egl, const float* s_in,
+template <bool kBf16, int kC, bool kFwd, bool kScalar>
+int launch_state(const float* x, const float* y, const float* gate, const float* s_in,
                  float* seq, float* s_out, int B, int N, int H, int Dv, cudaStream_t stream) {
   typedef StateGeom<kC> G;
-  auto kern = gla_state_kernel<kBf16, kC, kFwd>;
+  auto kern = gla_state_kernel<kBf16, kC, kFwd, kScalar>;
   int blocks = 0;
   int err = hopper_host::resident_blocks((const void*)kern, 256, G::kSmem, &blocks);
   if (err) return err;
@@ -352,8 +374,8 @@ int launch_state(const float* x, const float* y, const float* egl, const float* 
   err = make_tokens_map(&map_x, x, B, N * kC, H, kDk, kC);
   if (!err) err = make_tokens_map(&map_y, y, B, N * kC, H, Dv, kC);
   if (err) return err;
-  kern<<<B * H * (Dv / kPanel), 256, G::kSmem, stream>>>(map_x, map_y, egl, s_in, seq, s_out, N,
-                                                         H, Dv);
+  kern<<<B * H * (Dv / kPanel), 256, G::kSmem, stream>>>(map_x, map_y, gate, s_in, seq, s_out,
+                                                         N, H, Dv);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,9 @@ Gated DeltaNet LM: K11 ``delta_chunk.delta_chunk_fwd`` (CUDA C++,
 
 GLA LM: K12 ``gla_chunk.gla_chunk_fwd`` (CUDA C++, ``csrc/gla_chunk.cu``)
 and its gradient K12b ``gla_chunk.gla_chunk_bwd`` (``csrc/gla_chunk_bwd.cu``)
-behind ``gla_chunk_fused``.
+behind ``gla_chunk_fused``, and their scalar-decay form for one log-decay per
+head (the Mamba2 and simple GLA LMs), ``gla_chunk.gla_chunk_fwd_scalar`` and
+``gla_chunk.gla_chunk_bwd_scalar``.
 
 Every wrapper runs its plain PyTorch version for a CPU tensor, launches its
 kernel for a CUDA tensor or raises, and counts its launches in its module's

@@ -34,10 +34,27 @@ operands: a bf16 call's qd, kd, v and dO go over as float32 copies (exact),
 and the kernels round at the bf16 points. Each wrapper adds one to its
 count.
 
-The factored decay is JAX's: kd = k e^{-G} overflows float32 once a chunk's
-summed log-decay falls below about -88 (about -1.4 a token over 64 tokens;
-logsigmoid(x) / 16 reaches that only for gate logits below about -22). The
-port keeps the form so that it computes what JAX computes.
+The factored decay is JAX's: kd = k e^{-G} overflows float32 once a
+chunk's summed log-decay falls below about -88 (about -1.4 a token over 64
+tokens; logsigmoid(x) / 16 reaches that only for gate logits below about
+-22). The port keeps the form for a per-key-channel gk so that it computes
+what JAX computes.
+
+A per-head gk [B, T, H] (Mamba2, simple GLA) takes the scalar-decay form
+of both kernels (``gla_chunk_fwd_scalar``, ``gla_chunk_bwd_scalar``), in
+difference form, where every exponent is <= 0: with G [B, T', H] the
+within-chunk cumsum, e = scale e^{G}, a = e^{G_last - G} and f_ij = scale
+e^{G_i - G_j} for j <= i (the exponent taken only there),
+
+  o  = cdt(mask(q k^T * f)) v + cdt(q e) cdt(S)
+  S' = e^{G_last} S + cdt(k a)^T v
+
+The scores need the raw product q k^T, so these kernels take q and k
+undecayed (in cdt), v and G float32, and form qd = cdt(q e) and kc = cdt(k
+a) on the chip. K12b's scalar form returns the gradients of q, k, v, of G
+per (token, head) and of s0; the reverse cumsum to gk is done outside.
+(JAX's Mamba2 runs its factored op and gives non-finite values once a
+chunk's decay passes -88; this form does not copy that fault.)
 
 Rounding points, those of the TPU kernel: qd, kd, v and kc in cdt; every
 product summed in float32 from cdt operands; the masked scores and the
@@ -64,13 +81,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.gla_chunk import _expand_gk, gla_chunk
+from ..ops.gla_chunk import gla_chunk
 from ..ops.mhla_chunk import _pad_to_chunks
 from . import _build
 from .delta_chunk import _check, _chunks, _unchunk, kernel_route
 from .mhla_chunk import _on_cpu, _raise_on_error, _stream
 
-launches = {"gla_chunk_fwd": 0, "gla_chunk_bwd": 0}
+launches = {"gla_chunk_fwd": 0, "gla_chunk_bwd": 0,
+            "gla_chunk_fwd_scalar": 0, "gla_chunk_bwd_scalar": 0}
 
 _DK = 128  # the head dim of q and k the kernels hold (csrc: kDk)
 _DV_TILE = 64  # Dv columns of a panel (csrc: kPanel)
@@ -84,15 +102,20 @@ def _lib() -> ctypes.CDLL:
     if _lib_cache is None:
         lib = _build.load()
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mhla_gla_fwd.argtypes = [p] * 8 + [i] * 7 + [p]
-        lib.mhla_gla_bwd.argtypes = [p] * 13 + [i] * 7 + [p]
-        for fn in (lib.mhla_gla_fwd, lib.mhla_gla_bwd):
+        for fn in (lib.mhla_gla_fwd, lib.mhla_gla_fwd_scalar):
+            fn.argtypes = [p] * 8 + [i] * 7 + [p]
+        for fn in (lib.mhla_gla_bwd, lib.mhla_gla_bwd_scalar):
+            fn.argtypes = [p] * 13 + [i] * 7 + [p]
+        for fn in (lib.mhla_gla_fwd, lib.mhla_gla_bwd, lib.mhla_gla_fwd_scalar,
+                   lib.mhla_gla_bwd_scalar):
             fn.restype = ctypes.c_int
         _lib_cache = lib
     return _lib_cache
 
 
 def _check_kernel_args(qd4, kd4, v4, egl, chunk_size: int):
+    """The kernels' shape rule; egl is e^{G_last} [B, N, H, Dk] or, for the
+    scalar form, G [B, T', H]."""
     b, tp, h, dk = qd4.shape
     dv, c = v4.shape[-1], chunk_size
     if tp % c:
@@ -109,7 +132,7 @@ def _check_kernel_args(qd4, kd4, v4, egl, chunk_size: int):
     _check("qd4", qd4, cdt, (b, tp, h, dk))
     _check("kd4", kd4, cdt, (b, tp, h, dk))
     _check("v4", v4, cdt, (b, tp, h, dv))
-    _check("egl", egl, torch.float32, (b, n, h, dk))
+    _check("egl", egl, torch.float32, (b, tp, h) if egl.ndim == 3 else (b, n, h, dk))
     return b, n, c, h, dk, dv
 
 
@@ -183,6 +206,75 @@ def gla_chunk_bwd_plain(qd4, kd4, v4, egl, states, do4, ds_final, chunk_size: in
     return _unchunk(dqd), _unchunk(dkd), _unchunk(dv), degl, ds0
 
 
+def _scalar_factors(g4, c: int, dk: int):
+    """From G [B, T', H] (the within-chunk cumsum): e = scale e^{G} and a =
+    e^{G_last - G} [B, N, H, C], e^{G_last} [B, N, H, 1] and f = mask(scale
+    e^{G_i - G_j}) [B, N, H, C, C], the exponent taken only for j <= i (every
+    exponent <= 0). scale = Dk**-0.5."""
+    g = _chunks(g4, c)
+    scale = dk**-0.5
+    gl = g[..., -1:]
+    idx = torch.arange(c, device=g.device)
+    d = g[..., :, None] - g[..., None, :]
+    f = torch.exp(torch.where(idx[:, None] >= idx[None, :], d, float("-inf"))) * scale
+    return torch.exp(g) * scale, torch.exp(gl - g), torch.exp(gl), f
+
+
+def gla_chunk_fwd_scalar_plain(q4, k4, v4, g4, s0, chunk_size: int = 64,
+                               collect_states: bool = False):
+    """K12's scalar-decay form (one log-decay per head): q4, k4 [B, T, H, Dk]
+    undecayed and v4 [B, T, H, Dv] in the compute dtype, T whole chunks; g4
+    = G [B, T, H] float32, the within-chunk cumsum of the log decay; s0 [B,
+    H, Dk, Dv] float32. Returns what :func:`gla_chunk_fwd_plain` returns."""
+    cdt = v4.dtype
+    c = chunk_size
+    q, k, v = _chunks(q4, c), _chunks(k4, c), _chunks(v4, c)
+    e, a, egl, f = _scalar_factors(g4, c, q4.shape[-1])
+    qd = (q * e[..., None]).to(cdt).float()
+    kc = (k * a[..., None]).to(cdt).float()
+    states, s = _chain(kc.transpose(-1, -2) @ v, egl, s0)
+    scores = ((q @ k.transpose(-1, -2)) * f).to(cdt).float()
+    o = scores @ v + qd @ states.to(cdt).float()
+    return _unchunk(o).to(cdt), s, (states if collect_states else None)
+
+
+def gla_chunk_bwd_scalar_plain(q4, k4, v4, g4, states, do4, ds_final, chunk_size: int = 64):
+    """K12b's scalar-decay form: the gradients of
+    :func:`gla_chunk_fwd_scalar_plain` for the cotangents do4 [B, T, H, Dv]
+    and ds_final [B, H, Dk, Dv] float32, given its chunk-entry ``states``.
+    Returns d(q4), d(k4), d(v4) [B, T, H, D], dG [B, T, H] (the gradient of
+    G per token and head) and ds0, all float32. With dp = mask(dO v^T), s the
+    rounded scores, P = dp * s, dr = cdt(dp * f), dqd = dO cdt(S)^T and dkc =
+    v cdt(dS)^T:
+
+      dq = dr k + dqd e,  dk = dr^T q + dkc a,  dv = s^T dO + kc cdt(dS)
+      dG = e sum_d(dqd q) - a sum_d(dkc k) + rowsum(P) - colsum(P), and at
+           the last token also sum_t a_t sum_d(dkc k)_t + e^{G_last} sum(S dS)
+    """
+    cdt = v4.dtype
+    c = chunk_size
+    q, k, v = _chunks(q4, c), _chunks(k4, c), _chunks(v4, c)
+    do = _chunks(do4.to(cdt), c)
+    e, a, egl, f = _scalar_factors(g4, c, q4.shape[-1])
+    t_ = lambda x: x.transpose(-1, -2)  # noqa: E731
+    qd = (q * e[..., None]).to(cdt).float()
+    kc = (k * a[..., None]).to(cdt).float()
+    exits, ds0 = _chain(t_(qd) @ do, egl, ds_final, reverse=True)
+    scores = ((q @ t_(k)) * f).to(cdt).float()
+    dp = _scores(do, v)
+    dr = (dp * f).to(cdt).float()
+    p = dp * scores
+    dqd, dkc = do @ t_(states.to(cdt).float()), v @ t_(exits.to(cdt).float())
+    dq = dqd * e[..., None] + dr @ k
+    dk = t_(dr) @ q + dkc * a[..., None]
+    dv = t_(scores) @ do + kc @ exits.to(cdt).float()
+    kterm = (dkc * k).sum(-1) * a
+    dg = (dqd * q).sum(-1) * e - kterm + p.sum(-1) - p.sum(-2)
+    last = kterm.sum(-1) + egl[..., 0] * (states * exits).sum((-1, -2))
+    dg = torch.cat([dg[..., :-1], dg[..., -1:] + last[..., None]], dim=-1)
+    return _unchunk(dq), _unchunk(dk), _unchunk(dv), _unchunk(dg), ds0
+
+
 # ---------------------------------------------------------------------------
 # K12 / K12b wrappers
 # ---------------------------------------------------------------------------
@@ -236,6 +328,57 @@ def gla_chunk_bwd(qd4, kd4, v4, egl, states, do4, ds_final, chunk_size: int = 64
         _raise_on_error("gla_chunk_bwd", err)
     launches["gla_chunk_bwd"] += 1
     return dqd, dkd, dv_, degl, ds0
+
+
+def gla_chunk_fwd_scalar(q4, k4, v4, g4, s0, chunk_size: int = 64,
+                         collect_states: bool = False):
+    """K12's scalar-decay form (see :func:`gla_chunk_fwd_scalar_plain`)."""
+    if _on_cpu(q4, k4, v4, g4, s0):
+        return gla_chunk_fwd_scalar_plain(q4, k4, v4, g4, s0, chunk_size, collect_states)
+    b, n, c, h, dk, dv = _check_kernel_args(q4, k4, v4, g4, chunk_size)
+    _check("s0", s0, torch.float32, (b, h, dk, dv))
+    with torch.cuda.device(q4.device):
+        o = torch.empty_like(v4)
+        s_final = torch.empty_like(s0)
+        states = torch.empty(b, n, h, dk, dv, dtype=torch.float32, device=v4.device)
+        q4, k4, v4 = (x.float() for x in (q4, k4, v4))  # a bf16 call's values, exact
+        err = _lib().mhla_gla_fwd_scalar(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), g4.data_ptr(), s0.data_ptr(),
+            o.data_ptr(), s_final.data_ptr(), states.data_ptr(),
+            b, n, c, h, dk, dv, int(o.dtype == torch.bfloat16), _stream(q4),
+        )
+        _raise_on_error("gla_chunk_fwd_scalar", err)
+    launches["gla_chunk_fwd_scalar"] += 1
+    return o, s_final, (states if collect_states else None)
+
+
+def gla_chunk_bwd_scalar(q4, k4, v4, g4, states, do4, ds_final, chunk_size: int = 64):
+    """K12b's scalar-decay form (see :func:`gla_chunk_bwd_scalar_plain`)."""
+    if _on_cpu(q4, k4, v4, g4, states, do4, ds_final):
+        return gla_chunk_bwd_scalar_plain(q4, k4, v4, g4, states, do4, ds_final, chunk_size)
+    b, n, c, h, dk, dv = _check_kernel_args(q4, k4, v4, g4, chunk_size)
+    _check("states", states, torch.float32, (b, n, h, dk, dv))
+    _check("do4", do4, v4.dtype, (b, n * c, h, dv))
+    _check("ds_final", ds_final, torch.float32, (b, h, dk, dv))
+    f32 = dict(dtype=torch.float32, device=q4.device)
+    bf16 = int(v4.dtype == torch.bfloat16)
+    with torch.cuda.device(q4.device):
+        exits = torch.empty_like(states)
+        q4, k4, v4, do4 = (x.float() for x in (q4, k4, v4, do4))  # exact
+        dq = torch.empty(q4.shape, **f32)
+        dk_ = torch.empty(q4.shape, **f32)
+        dv_ = torch.empty(v4.shape, **f32)
+        dg = torch.empty_like(g4)
+        ds0 = torch.empty_like(ds_final)
+        err = _lib().mhla_gla_bwd_scalar(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), g4.data_ptr(), states.data_ptr(),
+            do4.data_ptr(), ds_final.data_ptr(), exits.data_ptr(),
+            dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), dg.data_ptr(), ds0.data_ptr(),
+            b, n, c, h, dk, dv, bf16, _stream(q4),
+        )
+        _raise_on_error("gla_chunk_bwd_scalar", err)
+    launches["gla_chunk_bwd_scalar"] += 1
+    return dq, dk_, dv_, dg, ds0
 
 
 def _prep(q, k, v, gk, chunk_size: int):
@@ -308,6 +451,57 @@ class _GLAChunkFn(torch.autograd.Function):
                 dg4[:, :t].to(gk.dtype), ds0.to(s0.dtype), None, None)
 
 
+def _prep_scalar(q, k, v, gk, chunk_size: int):
+    """The scalar form's inputs: q, k, v padded to whole chunks (pad tokens
+    zero, g = 0) in the compute dtype and G [B, T', H] float32, the
+    within-chunk cumsum of gk [B, T, H]."""
+    b, _, h, _ = q.shape
+    c = chunk_size
+    cdt = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    q4, k4, v4 = (_pad_to_chunks(x, c).to(cdt).contiguous() for x in (q, k, v))
+    g4 = _pad_to_chunks(gk.float(), c)
+    n = g4.shape[1] // c
+    g4 = torch.cumsum(g4.reshape(b, n, c, h), dim=2).reshape(b, n * c, h).contiguous()
+    return q4, k4, v4, g4
+
+
+class _GLAChunkScalarFn(torch.autograd.Function):
+    """K12's scalar form forward, K12b's backward (see
+    :func:`gla_chunk_fused`): saves q, k, v, gk, s0 and the chunk-entry
+    states; the backward's dG [B, T', H] goes back to gk by the reverse
+    within-chunk cumsum."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, gk, s0, chunk_size, output_final_state):
+        t = q.shape[1]
+        q4, k4, v4, g4 = _prep_scalar(q, k, v, gk, chunk_size)
+        collect = any(ctx.needs_input_grad)
+        o, s, states = gla_chunk_fwd_scalar(q4, k4, v4, g4, s0.float().contiguous(),
+                                            chunk_size, collect)
+        if collect:
+            ctx.save_for_backward(q, k, v, gk, s0, states)
+        ctx.chunk_size, ctx.output_final_state = chunk_size, output_final_state
+        return o[:, :t].to(q.dtype), s
+
+    @staticmethod
+    def backward(ctx, do, ds):
+        q, k, v, gk, s0, states = ctx.saved_tensors
+        c = ctx.chunk_size
+        b, t, h, dk = q.shape
+        q4, k4, v4, g4 = _prep_scalar(q, k, v, gk, c)
+        do4 = (torch.zeros_like(v4) if do is None
+               else _pad_to_chunks(do.to(v4.dtype), c).contiguous())
+        if ds is None or not ctx.output_final_state:
+            ds = torch.zeros(b, h, dk, v.shape[-1], dtype=torch.float32, device=q.device)
+        dq4, dk4, dv4, dg4, ds0 = gla_chunk_bwd_scalar(q4, k4, v4, g4, states, do4,
+                                                       ds.float().contiguous(), c)
+        n = g4.shape[1] // c
+        dg4 = torch.flip(torch.cumsum(torch.flip(dg4.reshape(b, n, c, h), [2]), dim=2), [2])
+        dg4 = dg4.reshape(b, n * c, h)
+        return (dq4[:, :t].to(q.dtype), dk4[:, :t].to(k.dtype), dv4[:, :t].to(v.dtype),
+                dg4[:, :t].to(gk.dtype), ds0.to(s0.dtype), None, None)
+
+
 def gla_chunk_fused(
     q: torch.Tensor,  # [B, T, H, Dk]
     k: torch.Tensor,
@@ -325,10 +519,11 @@ def gla_chunk_fused(
     plain versions on the CPU and launch the kernels on a CUDA tensor or
     raise (they hold chunk % 16 == 0 up to 64, Dk == 128, Dv % 64 == 0);
     every other call goes to the op ``gla_chunk``, as JAX sends it there. The
-    compute dtype is bf16 when q is bf16, else float32. A per-head gk is
-    broadcast over Dk before the fused path, so its gradient is summed back.
-    o comes back in q's dtype, the final state float32, or None without
-    ``output_final_state`` (whose cotangent is then zero)."""
+    compute dtype is bf16 when q is bf16, else float32. A per-head gk [B, T,
+    H] takes the kernels' scalar-decay form (difference form, finite at any
+    decay); a per-key-channel one the factored form. o comes back in q's
+    dtype, the final state float32, or None without ``output_final_state``
+    (whose cotangent is then zero)."""
     b, t, h, dk = q.shape
     dv = v.shape[-1]
     if not kernel_route(t, chunk_size, dk, dv):
@@ -336,5 +531,6 @@ def gla_chunk_fused(
                          output_final_state=output_final_state)
     s0 = (initial_state if initial_state is not None
           else torch.zeros(b, h, dk, dv, dtype=torch.float32, device=q.device))
-    o, s = _GLAChunkFn.apply(q, k, v, _expand_gk(gk, dk), s0, chunk_size, output_final_state)
+    fn = _GLAChunkScalarFn if gk.ndim == 3 else _GLAChunkFn
+    o, s = fn.apply(q, k, v, gk, s0, chunk_size, output_final_state)
     return o, (s if output_final_state else None)

@@ -16,9 +16,17 @@ document, the short convolutions zero their taps across document
 boundaries, and the chunked op isolates the documents (a training-path
 feature; decode with them raises ``ValueError``, as in the JAX package).
 
-Waits for a later port (raises ``NotImplementedError``): XPos in the layer,
-head-axis tensor parallelism, the ``fused_recurrent`` mode, and continuing
-a cache with more than ``chunk_size`` tokens.
+``rope_scale_base`` turns on XPos: q and k rotate with their own tables
+(``rotary_xpos_tables``), two launches of K1 (K1b in the backward) with
+different tables. ``mode='fused_recurrent'`` runs every call through the
+token recurrence (``mhla_recurrent``), as JAX's mode does. A call with a
+cache runs the recurrence whatever its length: JAX sends a continuation
+longer than ``chunk_size`` tokens to its chunked op and drops the cache
+there (keeping only the rotary offset); the port carries the state, so the
+continuation equals JAX's ``fused_recurrent`` over the whole sequence.
+
+Waits for a later port (raises ``NotImplementedError``): head-axis tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from ..ops import (
     init_causal_mixing_matrix,
     mhla_recurrent,
     rotary_cos_sin,
+    rotary_xpos_tables,
     segment_positions,
     state_from_chunk,
 )
@@ -75,10 +84,10 @@ class MHLACausal(nn.Module):
         device=None,
     ):
         super().__init__()
-        if rope_scale_base is not None:
-            raise NotImplementedError("XPos (rope_scale_base) is not ported yet")
-        if mode != "chunk":
-            raise NotImplementedError(f"mode={mode!r} is not ported yet")
+        if mode not in ("chunk", "fused_recurrent"):
+            raise ValueError(f"mode={mode!r}: 'chunk' or 'fused_recurrent'")
+        self.mode = mode
+        self.rope_scale_base = rope_scale_base
         self.hidden_size = hidden_size
         self.key_dim = int(hidden_size * expand_k)
         self.value_dim = int(hidden_size * expand_v)
@@ -126,14 +135,11 @@ class MHLACausal(nn.Module):
         b, t, _ = hidden_states.shape
         h = self.num_heads
         decode = state is not None
-        if decode and segment_ids is not None and t <= self.chunk_size:
+        recurrent = decode or self.mode == "fused_recurrent"
+        if recurrent and segment_ids is not None:
             raise ValueError(
                 "segment_ids (packed varlen) is a training-path feature; "
                 "the recurrent decode path carries one document per row"
-            )
-        if decode and t > self.chunk_size:
-            raise NotImplementedError(
-                "continuing a cache with more than chunk_size tokens is not ported yet"
             )
 
         names = ("q_proj", "k_proj", "v_proj") + (("g_proj",) if self.use_output_gate else ())
@@ -172,24 +178,28 @@ class MHLACausal(nn.Module):
             v = v * mask
 
         # feature map + rotary after it, one fused pass (K1); packed rows
-        # restart the positions at every document
-        cos, sin = rotary_cos_sin(
-            self.num_slots * self.chunk_size, self.head_k_dim, self.rope_base, q.device
-        )
+        # restart the positions at every document; XPos: k's own tables
+        max_len = self.num_slots * self.chunk_size
+        if self.rope_scale_base is not None:
+            cos, sin, cos_k, sin_k = rotary_xpos_tables(
+                max_len, self.head_k_dim, self.rope_base, self.rope_scale_base, q.device)
+        else:
+            cos, sin = rotary_cos_sin(max_len, self.head_k_dim, self.rope_base, q.device)
+            cos_k, sin_k = cos, sin
         offset = state.recurrent.t if decode else 0
         positions = segment_positions(segment_ids) if segment_ids is not None else None
         q = fused_fmap_rope_flat(q, cos, sin, h, fm, offset=offset, positions=positions)
-        k = fused_fmap_rope_flat(k, cos, sin, h, fm, offset=offset, positions=positions)
+        k = fused_fmap_rope_flat(k, cos_k, sin_k, h, fm, offset=offset, positions=positions)
 
         mixing = clamp_causal_mixing_matrix(self.mixing_matrix)
         rec = None
-        if decode:
+        if recurrent:
             o4, rec = mhla_recurrent(
                 q.unflatten(-1, (h, -1)),
                 k.unflatten(-1, (h, -1)),
                 v.unflatten(-1, (h, -1)),
                 mixing,
-                state.recurrent,
+                state.recurrent if decode else None,
                 chunk_size=self.chunk_size,
             )
             o = o4.flatten(-2)

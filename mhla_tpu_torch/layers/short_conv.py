@@ -1,9 +1,10 @@
 """Causal short (depthwise) convolution with a decode cache (counterpart of
 ``mhla_tpu/layers/short_conv.py``).
 
-A ``kernel_size``-tap causal depthwise convolution over time with SiLU and
-no bias, as ``fla.modules.ShortConvolution`` in every layer that builds one
-(the JAX layer's bias and activation switches are not ported). The weight keeps the JAX layout
+A ``kernel_size``-tap causal depthwise convolution over time with SiLU and,
+with ``use_bias`` (Mamba's), a bias added before it, as
+``fla.modules.ShortConvolution`` in every layer that builds one (the JAX
+layer's activation switch is not ported). The weight keeps the JAX layout
 [kernel_size, features]: the output at t is sum_i x_{t - K + 1 + i} w[i],
 so x_t meets w[K - 1] (an unflipped cross-correlation, and the weight bridge
 copies it as it is). The decode cache holds the last K - 1 *pre-activation*
@@ -21,13 +22,15 @@ import torch.nn.functional as F
 
 
 class ShortConvolution(nn.Module):
-    def __init__(self, features: int, kernel_size: int = 4, device=None):
+    def __init__(self, features: int, kernel_size: int = 4, use_bias: bool = False,
+                 device=None):
         super().__init__()
         self.features = features
         self.kernel_size = kernel_size
         self.weight = nn.Parameter(
             torch.randn(kernel_size, features, device=device) * kernel_size**-0.5
         )
+        self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
 
     def forward(
         self,
@@ -53,6 +56,8 @@ class ShortConvolution(nn.Module):
                 same = seg_ctx[:, i:i + t] == segment_ids
                 tap = tap * same[..., None].to(tap.dtype)
             y = y + tap * w[i]
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
         y = F.silu(y)
         new_cache = None
         if output_final_state:

@@ -16,7 +16,9 @@ from .gla_lm import (
     MHLALMConfig,
     MHLAModel,
     cross_entropy_loss,
+    fused_lm_loss,
     init_lm_params,
+    unembedding_weight,
 )
 from .vit import MHLAViT, ViTConfig, build_vit, init_vit_params
 from .wan import WanConfig, WanModel, build_wan_config, init_wan_params
@@ -39,12 +41,14 @@ __all__ = [
     "convert_dit_checkpoint",
     "cross_entropy_loss",
     "dit_params_from_jax",
+    "fused_lm_loss",
     "generate",
     "init_dit_params",
     "init_lm_params",
     "init_vit_params",
     "init_wan_params",
     "params_from_jax",
+    "unembedding_weight",
     "vit_params_from_jax",
     "wan_params_from_jax",
 ]

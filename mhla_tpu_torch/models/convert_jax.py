@@ -19,8 +19,9 @@ import torch
 from .gla_lm import MHLALMConfig
 
 _ATTN_DENSE = ("q_proj", "k_proj", "v_proj", "g_proj", "o_proj", "a_proj", "b_proj",
-               "gk_proj", "gk_proj_low", "gk_proj_up")
-_ATTN_CONV = ("q_conv1d", "k_conv1d", "v_conv1d")
+               "gk_proj", "gk_proj_low", "gk_proj_up", "in_proj", "out_proj", "x_proj",
+               "dt_proj")
+_ATTN_CONV = ("q_conv1d", "k_conv1d", "v_conv1d", "conv1d")
 _MLP_DENSE = ("gate_proj", "up_proj", "down_proj")
 
 
@@ -33,10 +34,14 @@ def params_from_jax(params: Mapping[str, Any], cfg: MHLALMConfig) -> Dict[str, t
     float32 state dict for ``MHLAForCausalLM(cfg)``, MHLA, softmax
     (``SelfAttention``: q/k/v/o projections, their biases, q/k norms),
     Gated DeltaNet (its a/b projections, ``A_log``, ``dt_bias`` and
-    ``o_norm``) and GLA layers alike (the gate projections ``gk_proj`` or
-    ``gk_proj_low`` / ``gk_proj_up`` with its bias, and ``g_norm_swish_gate``
-    or ``g_norm``). Short-convolution kernels ([kernel_size, features], in
-    both packages) are copied as they are."""
+    ``o_norm``), GLA (the gate projections ``gk_proj`` or ``gk_proj_low`` /
+    ``gk_proj_up`` with its bias, and ``g_norm_swish_gate`` or ``g_norm``),
+    Mamba2 (``in_proj``, ``conv1d``, ``A_log``, ``dt_bias``, ``D``,
+    ``norm``, ``out_proj``), Mamba (``in_proj``, ``conv1d`` with its bias,
+    ``x_proj``, ``dt_proj`` with its bias, ``A_log`` [Dm, N], ``D``,
+    ``out_proj``) and linear-attention layers (q/k/v/o projections) alike.
+    Short-convolution kernels ([kernel_size, features], in both packages)
+    are copied as they are."""
     tree = params.get("params", params)
     model = tree["model"]
     sd: Dict[str, torch.Tensor] = {
@@ -60,10 +65,10 @@ def params_from_jax(params: Mapping[str, Any], cfg: MHLALMConfig) -> Dict[str, t
                 sd[f"{dst}attn.{conv}.weight"] = _t(attn[conv]["kernel"])
                 if "bias" in attn[conv]:
                     sd[f"{dst}attn.{conv}.bias"] = _t(attn[conv]["bias"])
-        for name in ("A_log", "dt_bias"):  # a Gated DeltaNet layer
+        for name in ("A_log", "dt_bias", "D"):  # Gated DeltaNet, Mamba2, Mamba
             if name in attn:
                 sd[f"{dst}attn.{name}"] = _t(attn[name])
-        for norm in ("g_norm_swish_gate", "g_norm", "q_norm", "k_norm", "o_norm"):
+        for norm in ("g_norm_swish_gate", "g_norm", "q_norm", "k_norm", "o_norm", "norm"):
             if norm in attn:
                 sd[f"{dst}attn.{norm}.weight"] = _t(attn[norm]["weight"])
         for name in _MLP_DENSE:

@@ -20,8 +20,8 @@ import torch.nn.functional as F
 
 
 def _pad_softmax_caches(states, max_length: int):
-    """Grow the softmax layers' KV caches (plain (k, v, t) tuples; the MHLA,
-    Gated DeltaNet and GLA layers' states are named tuples and pass through)
+    """Grow the softmax layers' KV caches (plain (k, v, t) tuples; every other
+    layer's state is a named tuple and passes through)
     from the prefill length to ``max_length`` tokens, zero-filled."""
     out = []
     for s in states:

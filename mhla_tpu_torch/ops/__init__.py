@@ -5,6 +5,13 @@ from .block_mix import block_mixing_matrix
 from .delta_rule import gated_delta_chunk, gated_delta_recurrent, l2norm
 from .feature_maps import FEATURE_MAPS, get_feature_map
 from .gla_chunk import gla_chunk, gla_recurrent
+from .losses import (
+    cross_entropy,
+    fused_kl_div_loss,
+    fused_linear_cross_entropy,
+    grpo_loss,
+    l2_warp,
+)
 from .mhla_blockwise import mhla_blockwise_mh
 from .mhla_chunk import (
     DEFAULT_CHUNK_SIZE,
@@ -28,6 +35,7 @@ from .rotary import (
     rotary_freqs,
     rotary_xpos_tables,
 )
+from .selective_scan import selective_scan_chunk, selective_scan_recurrent
 
 __all__ = [
     "DEFAULT_CHUNK_SIZE",
@@ -40,13 +48,18 @@ __all__ = [
     "build_segment_mixing",
     "chunk_segments",
     "clamp_causal_mixing_matrix",
+    "cross_entropy",
+    "fused_kl_div_loss",
+    "fused_linear_cross_entropy",
     "gated_delta_chunk",
     "gated_delta_recurrent",
     "get_feature_map",
     "gla_chunk",
     "gla_recurrent",
+    "grpo_loss",
     "init_causal_mixing_matrix",
     "init_mhla_state",
+    "l2_warp",
     "l2norm",
     "mhla_blockwise_mh",
     "mhla_chunk",
@@ -59,5 +72,7 @@ __all__ = [
     "rotary_freqs",
     "rotary_xpos_tables",
     "segment_positions",
+    "selective_scan_chunk",
+    "selective_scan_recurrent",
     "state_from_chunk",
 ]

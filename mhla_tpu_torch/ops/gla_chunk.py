@@ -10,11 +10,14 @@ Per chunk, with G the inclusive within-chunk cumsum of gk:
     o_i = (q_i e^{G_i}) S + sum_{j<=i} [q_i e^{G_i - G_j} . k_j] v_j   (times scale)
     S'  = e^{G_last} S + (k e^{G_last - G})^T v
 
-The intra-chunk term is factored as (q e^{G}) . (k e^{-G}), as in JAX: e^{-G}
-stays finite while a chunk's summed log-decay stays above about -88.
-
-``gk`` is per key channel [B, T, H, Dk] (GLA) or per head [B, T, H] (simple
-GLA, broadcast over Dk). Both forms compute in float32 whatever the inputs'
+For a per-key-channel ``gk`` [B, T, H, Dk] (GLA) the intra-chunk term is
+factored as (q e^{G}) . (k e^{-G}), as in JAX: e^{-G} stays finite while a
+chunk's summed log-decay stays above about -88. A per-head ``gk`` [B, T, H]
+(simple GLA, Mamba2) takes the difference form, (q_i . k_j) e^{G_i - G_j}
+masked to j <= i before the exponential, with the state update's factors
+e^{G_last - G_j}: every exponent is <= 0, so it stays finite at any decay
+(JAX's op broadcasts such a gk over Dk and overflows there; the port does
+not copy that fault). Both forms compute in float32 whatever the inputs'
 dtype and return o in q's dtype and the state float32. These are the
 semantic anchor; the fused path with the hand-written kernels is
 ``kernels.gla_chunk.gla_chunk_fused``.
@@ -76,12 +79,14 @@ def gla_chunk(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The chunked form (training path); equals :func:`gla_recurrent` up to
     float32 rounding."""
+    if gk.ndim == 3:
+        return _gla_chunk_per_head(q, k, v, gk, initial_state, chunk_size, output_final_state)
     in_dtype = q.dtype
     b, t, h, dk = q.shape
     dv = v.shape[-1]
     c = chunk_size
     scale = dk**-0.5
-    q, k, v, gk = (_pad_to_chunks(x.float(), c) for x in (q, k, v, _expand_gk(gk, dk)))
+    q, k, v, gk = (_pad_to_chunks(x.float(), c) for x in (q, k, v, gk))
     n = q.shape[1] // c
     # [B, N, C, H, D]
     q, k, v, gk = (x.reshape(b, n, c, h, x.shape[-1]) for x in (q, k, v, gk))
@@ -99,6 +104,35 @@ def gla_chunk(
         o_intra = torch.einsum("bhcm,bmhv->bchv", attn, v_i)
         k_carry = k_i * torch.exp(g_last[:, i, None] - g_i)
         s = s * torch.exp(g_last[:, i])[..., None] + torch.einsum("bchk,bchv->bhkv", k_carry, v_i)
+        outs.append(o_inter + o_intra)
+    o = torch.stack(outs, dim=1).reshape(b, n * c, h, dv)[:, :t]
+    return o.to(in_dtype), (s if output_final_state else None)
+
+
+def _gla_chunk_per_head(q, k, v, gk, initial_state, chunk_size, output_final_state):
+    """:func:`gla_chunk` for a per-head gk [B, T, H], in difference form."""
+    in_dtype = q.dtype
+    b, t, h, dk = q.shape
+    dv = v.shape[-1]
+    c = chunk_size
+    scale = dk**-0.5
+    q, k, v, gk = (_pad_to_chunks(x.float(), c) for x in (q, k, v, gk))
+    n = q.shape[1] // c
+    q, k, v = (x.reshape(b, n, c, h, x.shape[-1]) for x in (q, k, v))
+    g_cum = torch.cumsum(gk.reshape(b, n, c, h), dim=2)  # [B, N, C, H]
+    causal = torch.tril(torch.ones(c, c, dtype=torch.bool, device=q.device))
+    s = _initial_state(initial_state, b, h, dk, dv, q.device)
+    outs = []
+    for i in range(n):
+        q_i, k_i, v_i, g_i = q[:, i], k[:, i], v[:, i], g_cum[:, i]
+        g_last = g_i[:, -1]  # [B, H]
+        o_inter = torch.einsum("bchk,bhkv->bchv", q_i * (torch.exp(g_i) * scale)[..., None], s)
+        diff = (g_i[:, :, None] - g_i[:, None, :]).permute(0, 3, 1, 2)  # [B, H, C_i, C_j]
+        decay = torch.exp(torch.where(causal, diff, float("-inf")))
+        attn = torch.einsum("bchk,bmhk->bhcm", q_i, k_i) * decay * scale
+        o_intra = torch.einsum("bhcm,bmhv->bchv", attn, v_i)
+        k_carry = k_i * torch.exp(g_last[:, None] - g_i)[..., None]
+        s = s * torch.exp(g_last)[..., None, None] + torch.einsum("bchk,bchv->bhkv", k_carry, v_i)
         outs.append(o_inter + o_intra)
     o = torch.stack(outs, dim=1).reshape(b, n * c, h, dv)[:, :t]
     return o.to(in_dtype), (s if output_final_state else None)

@@ -20,7 +20,9 @@ the next row. This equals the chunked op exactly (see ``mhla_chunk.py``).
 Unlike the JAX op, which is functional and commits with a one-hot
 select-add (a dynamic-index scatter is slow on a TPU), this op updates the
 state tensors IN PLACE: the slot commit is a plain indexed copy. The
-returned state shares its tensors with the one passed in.
+returned state shares its tensors with the one passed in. Where autograd
+records (an input requires grad: the ``fused_recurrent`` mode in
+training), the same steps run out of place, so they can be differentiated.
 """
 
 from __future__ import annotations
@@ -114,20 +116,29 @@ def mhla_recurrent(
     kf = k.float()
     vf = v.float()
     states, mixed, s_cur, t = state
+    inplace = not (torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v, mixing_matrix, states, mixed, s_cur)))
     outs = []
     for step in range(t_len):
         i = t // chunk_size
-        s_cur.add_(torch.einsum("bhk,bhv->bhkv", kf[:, step], vf[:, step]))
+        kv = torch.einsum("bhk,bhv->bhkv", kf[:, step], vf[:, step])
+        s_cur = s_cur.add_(kv) if inplace else s_cur + kv
         outs.append(
             torch.einsum("bhk,bhkv->bhv", qf[:, step], mixed + m_diag[i] * s_cur)
         )
         if (t + 1) % chunk_size == 0:
-            # end of chunk i: write the finished chunk into its slot (in
-            # place) and re-mix the prefix for row i + 1
-            states[:, :, i].copy_(s_cur)
-            s_cur.zero_()
+            # end of chunk i: write the finished chunk into its slot and
+            # re-mix the prefix for row i + 1
+            if inplace:
+                states[:, :, i].copy_(s_cur)
+                s_cur.zero_()
+            else:
+                slot = torch.arange(n_slots, device=states.device) == i
+                states = torch.where(slot[:, None, None], s_cur[:, :, None], states)
+                s_cur = torch.zeros_like(s_cur)
             if i + 1 < n_slots:
-                mixed.copy_(_remix(states, m, i + 1))
+                remixed = _remix(states, m, i + 1)
+                mixed = mixed.copy_(remixed) if inplace else remixed
         t += 1
     o = torch.stack(outs, dim=1)
     return o.to(in_dtype), MHLAState(states=states, mixed=mixed, s_cur=s_cur, t=t)

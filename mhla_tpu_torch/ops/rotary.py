@@ -53,7 +53,13 @@ def rotary_xpos_tables(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """XPos tables (cos_q, sin_q, cos_k, sin_k), each [seq_len, dim/2]:
     q tables carry ``scale``, k tables ``1/scale`` (see the JAX
-    counterpart for the formula and its reference)."""
+    counterpart for the formula and its reference). Cached as
+    :func:`rotary_cos_sin`'s tables are, and as little to be written into."""
+    return _xpos_cached(seq_len, dim, float(base), float(scale_base), str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=16)
+def _xpos_cached(seq_len: int, dim: int, base: float, scale_base: float, device: str):
     inv = rotary_freqs(dim, base)
     t = np.arange(seq_len, dtype=np.float64)
     freqs = np.outer(t, inv)

@@ -16,8 +16,13 @@ a hybrid with softmax layers); ``--train.varlen=true`` packs several
 documents per row with exact boundaries (segment ids; the loss reads each
 row's ``targets``). ``--model.attn_extends=gated_deltanet`` trains the Gated
 DeltaNet baseline at the same widths (K11 / K11b on the card),
-``--model.attn_extends=gla`` or ``simple_gla`` the GLA baselines (K12 / K12b);
-none of them with ``--train.varlen``. For a tiny run on the CPU:
+``--model.attn_extends=gla`` or ``simple_gla`` the GLA baselines (K12 / K12b),
+``mamba2`` the Mamba2 baseline (K12 / K12b in their scalar-decay form),
+``mamba`` the Mamba baseline (its plain selective scan) and ``linear_attn``
+plain causal linear attention; none of them with ``--train.varlen``.
+``--model.use_l2warp=true`` adds the L2Wrap max-logit pull to the loss's
+backward (on the materialized logits, as JAX applies it). For a tiny run on
+the CPU:
 
     python -m mhla_tpu_torch.train.lm_train --device=cpu --model.num_hidden_layers=2 \
         --model.hidden_size=512 --model.num_heads=2 --model.vocab_size=100 \
@@ -28,7 +33,7 @@ none of them with ``--train.varlen``. For a tiny run on the CPU:
 Dk is 128, so a prefill of 130 tokens takes the fused chunked path).
 
 Not ported (``NotImplementedError``): data and tensor parallelism
-(``n_data``/``n_tensor`` > 1) and L2Wrap.
+(``n_data``/``n_tensor`` > 1).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch
 
 from ..data import make_lm_dataloader
 from ..models import MHLAForCausalLM, MHLALMConfig, cross_entropy_loss, init_lm_params
+from ..ops.losses import l2_warp
 from ..utils.checkpoint import (
     checkpoint_step,
     load_checkpoint,
@@ -86,7 +92,6 @@ def _check_ported(cfg: LMTrainConfig) -> None:
     for what, unported in (
         ("data parallelism (train.n_data > 1)", cfg.train.n_data > 1),
         ("tensor parallelism (train.n_tensor > 1)", cfg.train.n_tensor > 1),
-        ("L2Wrap (model.use_l2warp)", cfg.model.use_l2warp),
     ):
         if unported:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -95,12 +100,18 @@ def _check_ported(cfg: LMTrainConfig) -> None:
 def lm_loss(model, batch):
     """Shifted next-token cross-entropy of ``model`` on token ids ``batch``,
     or on a packed varlen batch (a dict of ``input_ids``, ``segment_ids`` and
-    ``targets``: documents isolated, the loss on ``targets``)."""
+    ``targets``: documents isolated, the loss on ``targets``); with the
+    config's ``use_l2warp`` through :func:`ops.losses.l2_warp` on the
+    logits."""
     if isinstance(batch, dict):
         logits, _ = model(batch["input_ids"], segment_ids=batch["segment_ids"])
-        return cross_entropy_loss(logits, batch["targets"]), {}
-    logits, _ = model(batch)
-    return cross_entropy_loss(logits, batch), {}
+        loss = cross_entropy_loss(logits, batch["targets"])
+    else:
+        logits, _ = model(batch)
+        loss = cross_entropy_loss(logits, batch)
+    if model.config.use_l2warp:
+        loss = l2_warp(loss, logits)
+    return loss, {}
 
 
 def to_device(raw, device: torch.device):

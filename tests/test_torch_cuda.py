@@ -1433,8 +1433,91 @@ def test_gla_chunk_kernels_match_plain(dev, b, t, h, dv, c, dtype, tol):
     for name, r, x, y in zip(("dqd", "dkd", "dv", "degl", "ds0"), want, got, again):
         assert_close(f"K12b {name}", r, x, tol)
         assert torch.equal(x, y), name
-    assert gc.launches == {"gla_chunk_fwd": before["gla_chunk_fwd"] + 2,
+    assert gc.launches == {**before, "gla_chunk_fwd": before["gla_chunk_fwd"] + 2,
                            "gla_chunk_bwd": before["gla_chunk_bwd"] + 2}
+
+
+def _gla_scalar_inputs(dev, b, t, h, dv, dtype, c=64, seed=0, strong=False):
+    """The scalar form's padded inputs as ``gla_chunk_fused`` makes them
+    from a Mamba2-like call: q, k, v in ``dtype``, one log-decay per head
+    gk = -A softplus(x + dt_bias) with A ~ U(0, 16) and dt log-uniform in
+    [1e-3, 0.1] (the layer's init), or with ``strong`` gk ~ -U(1.5, 3) (every
+    chunk of 64 sums below -96); G the within-chunk cumsum; a nonzero
+    initial state and the cotangents (dO zero on the ragged tail)."""
+    import math
+
+    from mhla_tpu_torch.kernels import gla_chunk as gc
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    q, k, v = rn(b, t, h, 128), rn(b, t, h, 128), rn(b, t, h, dv)
+    a = 16 * torch.rand(h, generator=gen, device=dev)
+    dt = torch.exp(torch.rand(h, generator=gen, device=dev) * math.log(100.0) + math.log(1e-3))
+    gk = -a * torch.nn.functional.softplus(rn(b, t, h) + torch.log(torch.expm1(dt)))
+    if strong:
+        gk = -1.5 - 1.5 * torch.rand(b, t, h, generator=gen, device=dev)
+    q4, k4, v4, g4 = gc._prep_scalar(q.to(dtype), k.to(dtype), v.to(dtype), gk, c)
+    do = rn(*v4.shape)
+    do[:, t:] = 0
+    return q4, k4, v4, g4, 0.1 * rn(b, h, 128, dv), do.to(v4.dtype), rn(b, h, 128, dv)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (_BF16, KERNEL_TOL)])
+@pytest.mark.parametrize("b,t,h,dv,c", [(8, 2048, 8, 256, 64), (1, 781, 8, 256, 64),
+                                        (3, 64, 1, 64, 16), (1, 200, 2, 128, 48)]
+                         + [(2, 300, 2, dv, c) for c in (16, 32, 64) for dv in (64, 128, 256)])
+def test_gla_scalar_kernels_match_plain(dev, b, t, h, dv, c, dtype, tol):
+    """K12's and K12b's scalar-decay forms (one log-decay per head, the
+    difference form) against their plain versions at Mamba2's shape [8,
+    2048, 8, 128|256], a ragged 1 x 781, chunks of 16 to 64 and Dv of one to
+    four panels, in float32 and bf16, with Mamba2's decay at init (A up to
+    16): every output finite, K12b twice bit for bit, one launch each per call."""
+    from mhla_tpu_torch.kernels import gla_chunk as gc
+
+    q, k, v, g, s0, do, ds = _gla_scalar_inputs(dev, b, t, h, dv, dtype, c)
+    before = dict(gc.launches)
+    out = gc.gla_chunk_fwd_scalar(q, k, v, g, s0, c, True)
+    ref = gc.gla_chunk_fwd_scalar_plain(q, k, v, g, s0, c, True)
+    for name, r, x in zip(("o", "state", "entry states"), ref, out):
+        assert torch.isfinite(x).all(), name
+        assert_close(f"K12 scalar {name}", r.float(), x.float(), tol)
+    got = gc.gla_chunk_bwd_scalar(q, k, v, g, ref[2], do, ds, c)
+    again = gc.gla_chunk_bwd_scalar(q, k, v, g, ref[2], do, ds, c)
+    want = gc.gla_chunk_bwd_scalar_plain(q, k, v, g, ref[2], do, ds, c)
+    for name, r, x, y in zip(("dq", "dk", "dv", "dG", "ds0"), want, got, again):
+        assert torch.isfinite(x).all(), name
+        assert_close(f"K12b scalar {name}", r, x, tol)
+        assert torch.equal(x, y), name
+    assert gc.launches == {**before, "gla_chunk_fwd_scalar": before["gla_chunk_fwd_scalar"] + 1,
+                           "gla_chunk_bwd_scalar": before["gla_chunk_bwd_scalar"] + 2}
+
+
+def test_gla_scalar_kernels_at_strong_decay(dev):
+    """A per-head decay whose chunks sum below -88.7: the factored form's
+    e^{-G} would overflow; the scalar form's kernels are finite, match their
+    plain versions, and the op through them matches the token recurrence."""
+    from mhla_tpu_torch.kernels import gla_chunk as gc
+    from mhla_tpu_torch.kernels.gla_chunk import gla_chunk_fused
+    from mhla_tpu_torch.ops.gla_chunk import gla_recurrent
+
+    q, k, v, g, s0, do, ds = _gla_scalar_inputs(dev, 2, 512, 4, 256, torch.float32, strong=True)
+    assert g.view(2, 8, 64, 4)[:, :, -1].min() < -88.7
+    out = gc.gla_chunk_fwd_scalar(q, k, v, g, s0, 64, True)
+    ref = gc.gla_chunk_fwd_scalar_plain(q, k, v, g, s0, 64, True)
+    got = gc.gla_chunk_bwd_scalar(q, k, v, g, ref[2], do, ds, 64)
+    want = gc.gla_chunk_bwd_scalar_plain(q, k, v, g, ref[2], do, ds, 64)
+    for name, r, x in zip(("o", "state", "entry states", "dq", "dk", "dv", "dG", "ds0"),
+                          (*ref, *want), (*out, *got)):
+        assert torch.isfinite(x).all(), name
+        assert_close(f"strong decay {name}", r.float(), x.float(), 1e-4)
+    gen = torch.Generator(dev).manual_seed(9)
+    q, k, v = (torch.randn(1, 300, 2, d, generator=gen, device=dev) for d in (128, 128, 256))
+    gk = -12.0 * torch.rand(1, 300, 2, generator=gen, device=dev) - 1.5
+    o, s = gla_chunk_fused(q, k, v, gk, output_final_state=True)
+    o_rec, s_rec = gla_recurrent(q, k, v, gk, output_final_state=True)
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    assert_close("strong decay op vs recurrence", o_rec, o, 1e-4)
+    assert_close("strong decay state vs recurrence", s_rec, s, 1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, _BF16])
@@ -1505,16 +1588,20 @@ def test_gla_kernels_run_on_tf32_wgmma_and_tma(dev):
         assert "HGMMA" in text and "UTMALDG" in text, fn
         assert " HMMA" not in text, fn
         found[kind] += 1
-    # four chunk sizes x two forms; the state pass forward and in reverse
-    assert found == {"gla_state_kernel": 16, "gla_readout_kernel": 8, "gla_grads_kernel": 8}
+    # four chunk sizes x two dtypes x the per-channel and scalar-decay forms;
+    # the state pass forward and in reverse
+    assert found == {"gla_state_kernel": 32, "gla_readout_kernel": 16, "gla_grads_kernel": 16}
 
 
 @pytest.mark.parametrize("extends", ["gla", "simple_gla"])
 def test_tiny_gla_lm_serves_and_trains_through_the_kernels(dev, extends):
     """A 2-layer GLA LM at Dk = 128: a 130-token prefill on K12, decode on
     the recurrence, decode-step logits against one forward, and a training
-    step through K12 / K12b."""
+    step through K12 / K12b (their scalar-decay form for simple GLA)."""
     from mhla_tpu_torch.train.lm_train import lm_loss
+
+    fwd, bwd = (("gla_chunk_fwd_scalar", "gla_chunk_bwd_scalar") if extends == "simple_gla"
+                else ("gla_chunk_fwd", "gla_chunk_bwd"))
 
     cfg = MHLALMConfig(hidden_size=512, num_hidden_layers=2, num_heads=2, vocab_size=100,
                        attn_extends=extends, dtype=_BF16)
@@ -1525,7 +1612,7 @@ def test_tiny_gla_lm_serves_and_trains_through_the_kernels(dev, extends):
                         device=dev)
     kernels.reset_launch_counts()
     out, scores = generate(serving, ids, max_new_tokens=6, output_scores=True)
-    assert kernels.launch_counts()["gla_chunk_fwd"] == 2
+    assert kernels.launch_counts()[fwd] == 2
     with torch.no_grad():
         full, _ = serving(out[:, :-1])
     assert_close("tiny GLA LM decode vs full forward", full[:, 129:], scores, 5e-2)
@@ -1533,7 +1620,39 @@ def test_tiny_gla_lm_serves_and_trains_through_the_kernels(dev, extends):
     kernels.reset_launch_counts()
     state, metrics = make_train_step(lm_loss)(state, ids)
     counts = kernels.launch_counts()
-    assert counts["gla_chunk_fwd"] == counts["gla_chunk_bwd"] == 2, counts
+    assert counts[fwd] == counts[bwd] == 2, counts
+    assert torch.isfinite(metrics["loss"])
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+def test_tiny_mamba2_lm_serves_and_trains_through_the_scalar_kernels(dev):
+    """A 2-layer Mamba2 LM at hidden 256 and 2 heads (head dim 128, d_state
+    128: the kernels' shape rule): a 130-token prefill on K12's scalar form
+    in every layer, decode on the recurrence, decode-step logits against one
+    forward, and a training step through K12 / K12b's scalar form in every
+    layer, all finite."""
+    from mhla_tpu_torch.train.lm_train import lm_loss
+
+    cfg = MHLALMConfig(hidden_size=256, num_hidden_layers=2, num_heads=2, vocab_size=100,
+                       attn_extends="mamba2", dtype=_BF16)
+    model = init_lm_params(MHLAForCausalLM(cfg, device=dev), torch.Generator(dev).manual_seed(0))
+    serving = MHLAForCausalLM(cfg, device=dev).to(_BF16).eval()
+    serving.load_state_dict(model.state_dict())
+    ids = torch.randint(0, 100, (2, 130), generator=torch.Generator(dev).manual_seed(1),
+                        device=dev)
+    kernels.reset_launch_counts()
+    out, scores = generate(serving, ids, max_new_tokens=6, output_scores=True)
+    counts = kernels.launch_counts()
+    assert counts["gla_chunk_fwd_scalar"] == 2 and counts["gla_chunk_fwd"] == 0, counts
+    with torch.no_grad():
+        full, _ = serving(out[:, :-1])
+    assert torch.isfinite(scores).all() and torch.isfinite(full).all()
+    assert_close("tiny Mamba2 LM decode vs full forward", full[:, 129:], scores, 5e-2)
+    state = init_train_state(model, OptimizerConfig(warmup_steps=1, learning_rate=1e-3))
+    kernels.reset_launch_counts()
+    state, metrics = make_train_step(lm_loss)(state, ids)
+    counts = kernels.launch_counts()
+    assert counts["gla_chunk_fwd_scalar"] == counts["gla_chunk_bwd_scalar"] == 2, counts
     assert torch.isfinite(metrics["loss"])
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
 

@@ -66,7 +66,7 @@ _RUN_TINY_WAN_TRAINING = textwrap.dedent(
     assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
     assert all(p.grad is not None for p in model.parameters())
     counts = kernels.launch_counts()
-    assert len(counts) == 25 and not any(counts.values()), counts
+    assert len(counts) == 27 and not any(counts.values()), counts
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "mhla_tpu", "triton"))
     print("LEAKED", leaked)
@@ -136,6 +136,7 @@ def test_launch_counters_stay_zero_on_cpu():
         "unblockify", "blockify", "block_readout_bwd", "flash_attention_bwd",
         "radial_flash_attention_bwd", "flash_attention_masked", "flash_attention_masked_bwd",
         "delta_chunk_fwd", "delta_chunk_bwd", "gla_chunk_fwd", "gla_chunk_bwd",
+        "gla_chunk_fwd_scalar", "gla_chunk_bwd_scalar",
     }
     assert all(n == 0 for n in counts.values()), counts
 
@@ -206,7 +207,7 @@ def test_launch_counters_stay_zero_on_cpu_through_hybrid_sparse_sampling():
     )
     assert latents.shape == (1, 8, 32, 32, 16) and torch.isfinite(latents).all()
     counts = kernels.launch_counts()
-    assert len(counts) == 25 and all(n == 0 for n in counts.values()), counts
+    assert len(counts) == 27 and all(n == 0 for n in counts.values()), counts
 
 
 def test_launch_counters_stay_zero_on_cpu_through_image_training_steps(tmp_path):
@@ -238,4 +239,4 @@ def test_launch_counters_stay_zero_on_cpu_through_image_training_steps(tmp_path)
     state, metrics = step(state, (imgs, torch.tensor([1, 2]), draws))
     assert torch.isfinite(metrics["loss"])
     counts = kernels.launch_counts()
-    assert len(counts) == 25 and all(n == 0 for n in counts.values()), counts
+    assert len(counts) == 27 and all(n == 0 for n in counts.values()), counts

@@ -243,13 +243,15 @@ def test_mhla_causal_layer_matches_jax(kv_heads, gate, fmap):
 @pytest.mark.parametrize(
     "over,call",
     [
-        ({"attn_extends": "linear_attn"}, {}),
-        ({"attn_extends": "mamba2"}, {}),
+        ({"attn_extends": "linear_attn"}, {"segment_ids"}),
+        ({"attn_extends": "mamba2"}, {"segment_ids"}),
         ({"tp_mesh": object()}, {}),
-        ({"attn_mode": "fused_recurrent"}, {}),
+        ({"attn_extends": "mamba"}, {"segment_ids"}),
     ],
 )
 def test_unported_options_raise(over, call):
+    """Tensor parallelism, and packed documents (segment ids) in the
+    families that JAX's block refuses them in."""
     cfg = MHLALMConfig(**{**TINY, "num_hidden_layers": 1, **over})
     with pytest.raises(NotImplementedError):
         model = MHLAForCausalLM(cfg)

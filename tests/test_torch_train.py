@@ -252,9 +252,13 @@ def test_lm_train_runs_and_resumes_from_latest(tmp_path):
 
 @pytest.mark.parametrize(
     "arg",
-    ["--train.n_data=2", "--train.n_tensor=2", "--model.use_l2warp=True", "--wandb=True"],
+    ["--train.n_data=2", "--train.n_tensor=2",
+     "--model.attn_extends=mamba2 --train.varlen=true --train.seq_len=128", "--wandb=True"],
 )
 def test_lm_train_unported_options_raise(tmp_path, arg):
+    """Data and tensor parallelism, wandb, and packed documents in a family
+    that refuses segment ids (as JAX's block does)."""
     with pytest.raises(NotImplementedError):
-        lm_train.main(_TINY_ARGS + [f"--work_dir={tmp_path}", "--train.max_steps=1", arg])
+        lm_train.main(_TINY_ARGS + [f"--work_dir={tmp_path}", "--train.max_steps=1",
+                                    *arg.split()])
 
