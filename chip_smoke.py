@@ -186,19 +186,22 @@ exits non-zero:
              tokens in 4 frames); the gradients of one radial-sparse
              ``WanSelfAttention`` layer at 31,500 tokens through the kernels
              against the same layer through the plain versions.
-30. train (video, hybrid_sparse) — ``wan_train.main`` as in 28 with the ten
-             softmax layers under the radial mask (``model.sparse_attn_idx``):
+30. train (video, hybrid_sparse) — (i) ``wan_train.main`` as in 28, cut to
+             15 of the 30 layers (the widths kept), with the softmax layers
+             0, 3, ..., 12 under the radial mask (``model.sparse_attn_idx``):
              K10 and K10b take the place of K9 and K9b in those layers; the
              exact launch counts.
-31. train (video, hybrid_sparse + LoRA) — the same with ``lora.enable``:
-             the same launch counts, the base parameters bit for bit those
+31. train (video, hybrid_sparse + LoRA) — the hybrid_sparse model at its 30
+             layers with ``lora.enable``: the exact launch counts, the base
+             parameters bit for bit those
              of the seeded init after the steps, every adapter's B moved off
              zero, peak memory and the checkpoint's size (adapters only).
-32. train (video, full + LePE) — after 28, the gradients of one
+32. train (video, full + LePE) — (z) after 28, the gradients of one
              ``MHLA3D(is_lepe=True)`` layer at 31,500 tokens through the
              kernels against the plain versions, then ``wan_train.main
-             --model.is_lepe=true`` on the full-MHLA model, 3 steps: the
-             launch counts equal 28's full-MHLA run's (the LePE convolution
+             --model.is_lepe=true`` on the full-MHLA model cut to 10 of its
+             30 layers (the widths kept), 3 steps: the launch counts are
+             28's full-MHLA run's scaled to that depth (the LePE convolution
              is one PyTorch call outside the island), step time beside it.
 33. train (dit) — ``mhla_tpu_torch.train.dit_train.main configs/dit_s2.yaml``
              6 steps: DiT-S/2 at the config's batch of 256 (float32
@@ -227,9 +230,10 @@ exits non-zero:
              requests, K12's scalar form in every prefill layer; then
              ``lm_train.main --model.attn_extends=mamba2`` 6 steps at B=8
              T=2048 (K12 / K12b's scalar form once per layer and step).
-38. serve / train (mamba) — (ac) the 340M Mamba LM serves 1 x 781 + 32 and
-             trains 3 steps at B=8 T=2048 (no kernel: the selective scan is
-             plain PyTorch, each chunk recomputed in the backward).
+38. serve / train (mamba) — (ac) the 340M Mamba LM serves 1 x 781 + 32 and,
+             cut to 12 of its 24 layers (the widths kept), trains 3 steps at
+             B=8 T=2048 (no kernel: the selective scan is plain PyTorch, each
+             chunk recomputed in the backward).
 39. serve / train (linear_attn) — (ad) the 340M causal linear-attention LM
              serves the two requests (decode on the carried sums) and trains
              3 steps at B=8 T=2048 (no kernel).
@@ -239,6 +243,23 @@ exits non-zero:
              ``MHLACausal(rope_scale_base=512)`` layer's gradients at B=8
              T=2048 (K1 / K1b with XPos tables) against plain fmap+RoPE;
              ``lm_train.main --model.use_l2warp=true`` 2 steps.
+41. text to video — (af), after 26: umT5-XXL (24 layers, dim 4096, 64
+             heads, ffn 10,240, vocab 256,384; float32, seeded) encodes two
+             seeded prompts of 37 and 512 tokens in 512 slots and the null
+             prompt (finite, zero past each length, time, peak memory; a
+             2-layer model of its widths on the card against the CPU first);
+             ``video_infer_cli.main`` loads the full-MHLA Wan2.1-1.3B from a
+             reference-named seeded safetensors file written here (every
+             parameter bit for bit its source, q / k rows and norms by
+             ``rope_feature_permutation``, the MHLA gates the seeded init's),
+             samples 4 UniPC steps of one prompt and decodes them through the
+             Wan2.1 VAE (``VAEConfig()``, a reference-named seeded .pth
+             through ``convert_vae_checkpoint``) to 81 x 480 x 800 frames in
+             [-1, 1] (time, peak memory; mp4 writing is replaced by a
+             recorder: no imageio there), then 4 SA-Solver steps of both
+             prompts in one batch; exact K5-K9 launches for 4 model calls
+             each; the VAE on a small latent on the card (whole and one frame
+             a slice) against the CPU.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; there is no CPU mode.
@@ -563,9 +584,20 @@ VIDEO_KERNELS = {"blockify_island": 3, "mix_states_dense": 1, "block_readout": 1
 # 750, 501, two on each side of the guard
 SOFTMAX_LAYERS = tuple(range(0, VIDEO_LAYERS, 3))
 HYBRID_LINEAR_IDX = tuple(i for i in range(VIDEO_LAYERS) if i not in SOFTMAX_LAYERS)
+# (i) trains the hybrid_sparse model at 15 of its 30 layers (the widths and
+# the layer pattern kept: softmax under the radial mask in layers 0, 3, ...,
+# 12; 2.26 s a step and a 23.5 GB checkpoint in 26 s at 30 layers on an H100
+# 80GB HBM3 at 700 W), to make room for (af)
+SPARSE_TRAIN_LAYERS = 15
+SPARSE_TRAIN_SOFTMAX = tuple(i for i in SOFTMAX_LAYERS if i < SPARSE_TRAIN_LAYERS)
+SPARSE_TRAIN_LINEAR = tuple(i for i in range(SPARSE_TRAIN_LAYERS)
+                            if i not in SPARSE_TRAIN_SOFTMAX)
 DENSE_FROM_T, STEPS_BELOW_GUARD = 850.0, 2
 T_SPARSE, T_GUARDED = 501.0, 900.0  # two of the sampler's timesteps, one on each side
 VIDEO_TRAIN_STEPS = 3
+# (z) trains the full-MHLA model with LePE at 10 of its 30 layers (the widths
+# kept; 48 s at 30 layers on an H100 80GB HBM3 at 700 W), to make room for (af)
+LEPE_LAYERS = 10
 VIDEO_BWD_KERNELS = ("unblockify", "blockify", "block_readout_bwd", "flash_attention_bwd")
 
 
@@ -2313,6 +2345,9 @@ def phase_train_long(dev: torch.device, tag: str, positions: int, batch: int, se
 # chunk 64. Their kernels, forward and backward (BASE_KERNELS), run in every
 # layer of a prefill longer than 64 tokens and of a training step.
 BASE_LAYERS, BASE_HEADS, BASE_DK, BASE_DV, BASE_CHUNK = 24, 4, 128, 256, 64
+# (ac) trains the Mamba LM at 12 of its 24 layers (the widths kept; 10.1 s a
+# step at 24 layers on an H100 80GB HBM3 at 700 W), to make room for (af)
+MAMBA_TRAIN_LAYERS = 12
 # The Mamba2 LM at the same widths (gla_lm.py's branch: head dim 1024 * 1.0
 # / 4 = 256, expand 2, so 8 heads; d_state 128) runs K12 / K12b in their
 # scalar-decay form (one log-decay per head, as simple GLA now does); the
@@ -2741,9 +2776,10 @@ def phase_serve_baseline(dev: torch.device, extends: str, tag: str,
 
 
 def phase_train_baseline(dev: torch.device, extends: str, tag: str,
-                         steps: int = TRAIN_STEPS) -> dict:
+                         steps: int = TRAIN_STEPS, layers: int = BASE_LAYERS) -> dict:
     """``lm_train.main --model.attn_extends=<extends>`` trains a 340M baseline
-    LM ``steps`` steps at B=8 T=2048 (float32 parameters, bf16 compute,
+    LM (cut to ``layers`` of its 24 layers where asked, the widths kept)
+    ``steps`` steps at B=8 T=2048 (float32 parameters, bf16 compute,
     AdamW 3e-4 after a 1-step warm-up): finite losses, falling over 3 or more
     steps (the first step's learning rate is 0, so 2 steps only show them
     finite), the exact launches (its forward and backward kernels once per
@@ -2758,7 +2794,7 @@ def phase_train_baseline(dev: torch.device, extends: str, tag: str,
             f"--train.batch_size={TRAIN_BATCH}", f"--train.seq_len={TRAIN_SEQ}",
             f"--train.max_steps={steps}", "--train.log_interval=1",
             "--optimizer.learning_rate=3e-4", "--optimizer.warmup_steps=1",
-            "--optimizer.total_steps=20000",
+            "--optimizer.total_steps=20000", f"--model.num_hidden_layers={layers}",
         ]
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
@@ -2769,7 +2805,7 @@ def phase_train_baseline(dev: torch.device, extends: str, tag: str,
     log(f"[train {tag}] launches in {steps} steps: {counts}")
     want = {name: 0 for name in counts}
     for name in BASE_KERNELS[extends]:
-        want[name] = steps * BASE_LAYERS
+        want[name] = steps * layers
     if counts != want:
         raise AssertionError(f"{extends} training launches {counts}, expected {want}")
     losses = out["losses"]
@@ -2777,11 +2813,12 @@ def phase_train_baseline(dev: torch.device, extends: str, tag: str,
         raise AssertionError(f"training losses {losses}")
     if steps > 2 and not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    if out["model"].config.attn_extends != extends:
-        raise AssertionError(f"not the {extends} model")
+    if (out["model"].config.attn_extends, out["model"].config.num_hidden_layers) != (
+            extends, layers):
+        raise AssertionError(f"not the {extends} model of {layers} layers")
     step_s = statistics.median(out["step_seconds"][1:])
     tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
-    log(f"[train {tag}] 340M {extends}, B={TRAIN_BATCH} T={TRAIN_SEQ}, "
+    log(f"[train {tag}] 340M {extends} ({layers} layers), B={TRAIN_BATCH} T={TRAIN_SEQ}, "
         f"{out['params'] / 1e6:.1f} M float32 params, bf16 compute: losses "
         f"{[round(x, 4) for x in losses]}; grad norms {[round(x, 3) for x in out['grad_norms']]}")
     log(f"[train {tag}] step {step_s * 1e3:.1f} ms (median of steps 2-{steps}; step 1 "
@@ -3342,6 +3379,299 @@ def phase_video_sparse(dev: torch.device, hybrid) -> dict:
             - statistics.mean(ms for g, ms in pairs if not g)}
 
 
+# (af) text to video: umT5-XXL (models.t5.UMT5_XXL: 24 layers, dim 4096, 64
+# heads, ffn 10,240, vocab 256,384; float32, seeded) encodes two prompts of
+# 37 and 512 tokens in 512 slots and the null prompt (one token: umT5's
+# tokenizer gives the empty prompt its end token); the CLI loads the
+# full-MHLA Wan2.1-1.3B from a reference-named seeded safetensors file and
+# samples 4 UniPC and 4 SA-Solver steps on those embeddings (CFG 5.0, shift
+# 3.0); the Wan2.1 VAE (VAEConfig()), from a reference-named seeded .pth,
+# decodes the UniPC sample to 81 x 480 x 800 frames
+T2V_PROMPT_LENS = (37, 512, 1)
+T2V_PROMPTS = ("a paper boat drifting down a rain-filled gutter\n",
+               "a red kite over the dunes at dusk\n")
+T2V_FRAMES = (1, 81, 480, 800, 3)
+# Relative-RMS tolerance of float32 work on the card (TF32 off) against the
+# same work on the CPU: umT5's GEMMs and softmax and the VAE's convolutions
+# sum in other orders (cuDNN may take an FFT or Winograd algorithm, which
+# round differently; 1e-6 is typical); a wrong frame, channel or position
+# gives O(1)
+T2V_CPU_TOL = 1e-4
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """The safetensors format: an 8-byte little-endian header length, the
+    JSON header, then each float32 numpy array's bytes."""
+    header, offset = {}, 0
+    for name, a in tensors.items():
+        header[name] = {"dtype": "F32", "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    head = json.dumps(header).encode()
+    with open(path, "wb") as fh:
+        fh.write(len(head).to_bytes(8, "little") + head)
+        for a in tensors.values():
+            fh.write(np.ascontiguousarray(a, "<f4").data)
+
+
+def seeded_reference_state(shapes: dict, dev: torch.device, seed: int) -> dict:
+    """float32 numpy tensors of the given names and shapes, drawn on the
+    card: norm weights and gammas 1 + N(0, 0.1), biases N(0, 0.02),
+    modulations N(0, 1/16), the rest N(0, 1 / fan_in)."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    out = {}
+    for name, shape in shapes.items():
+        x = torch.randn(shape, generator=gen, device=dev)
+        if name.endswith("gamma") or ("norm" in name and name.endswith("weight")):
+            x = 1.0 + 0.1 * x
+        elif name.endswith("bias"):
+            x = 0.02 * x
+        elif "modulation" in name:
+            x = x / 16
+        else:
+            x = x * math.prod(shape[1:]) ** -0.5
+        out[name] = x.cpu().numpy()
+    return out
+
+
+def t2v_text_embeddings(dev: torch.device) -> dict:
+    """umT5-XXL at full size encodes the two seeded prompts and the null
+    prompt; a 2-layer model of its widths, card against CPU, first."""
+    from mhla_tpu_torch.models.t5 import UMT5_XXL, T5Encoder, encode_masked, init_t5_params
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    lens = torch.tensor(T2V_PROMPT_LENS)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    ids = torch.randint(3, UMT5_XXL.vocab_size, (len(lens), VIDEO_TEXT_LEN), generator=gen)
+    mask = (torch.arange(VIDEO_TEXT_LEN)[None] < lens[:, None]).int()
+    ids = ids * mask
+    ids[torch.arange(len(lens)), lens - 1] = 1  # each prompt ends with its end token
+
+    # the widths on a small input: card against CPU
+    import dataclasses
+
+    two = dataclasses.replace(UMT5_XXL, num_layers=2, vocab_size=4096)
+    small = init_t5_params(T5Encoder(two, device=dev), torch.Generator(dev).manual_seed(SEED + 22))
+    on_cpu = T5Encoder(two, device="meta")
+    on_cpu.load_state_dict({k: v.cpu() for k, v in small.state_dict().items()}, assign=True)
+    ids_small, mask_small = ids[:, :64] % two.vocab_size, mask[:, :64]
+    rel = get_err_ratio(encode_masked(on_cpu, ids_small, mask_small),
+                        encode_masked(small, ids_small.to(dev), mask_small.to(dev)))
+    del small, on_cpu
+    log(f"[t2v] umT5 widths, 2 layers, 3 x 64 tokens: card vs CPU rel-RMS {rel:.3e} "
+        f"(tol {T2V_CPU_TOL})")
+    if not rel < T2V_CPU_TOL:
+        raise AssertionError(f"umT5 on the card differs from the CPU ({rel:.3e})")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = T5Encoder(UMT5_XXL, device=dev).eval().requires_grad_(False)
+    init_t5_params(model, torch.Generator(dev).manual_seed(SEED + 21))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids, mask = ids.to(dev), mask.to(dev)
+    times = []
+    for _ in range(2):  # the first call pays cuBLAS's set-up
+        t0 = time.perf_counter()
+        emb = encode_masked(model, ids, mask)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    past = torch.arange(VIDEO_TEXT_LEN, device=dev)[None] >= lens.to(dev)[:, None]
+    if emb.shape != (3, VIDEO_TEXT_LEN, UMT5_XXL.dim) or not torch.isfinite(emb).all():
+        raise AssertionError(f"umT5 embeddings {tuple(emb.shape)}, finite "
+                             f"{bool(torch.isfinite(emb).all())}")
+    if emb[past].any() or not emb[~past].abs().amax(-1).gt(0).all():
+        raise AssertionError("umT5 embeddings not zero exactly past each prompt's length")
+    log(f"[t2v] umT5-XXL: {UMT5_XXL.num_layers} layers, dim {UMT5_XXL.dim}, "
+        f"{UMT5_XXL.num_heads} heads, ffn {UMT5_XXL.dim_ffn}, vocab {UMT5_XXL.vocab_size}, "
+        f"{n_params / 1e9:.3f} B float32 params (seeded init {build_s:.1f} s); 3 x "
+        f"{VIDEO_TEXT_LEN} slots, lengths {list(T2V_PROMPT_LENS)}: finite, zero past each "
+        f"length; encode {times[1] * 1e3:.1f} ms (first call {times[0] * 1e3:.1f} ms, host "
+        f"clock after a sync); peak device memory {peak_gb:.1f} GB")
+    emb = emb.cpu().numpy()
+    return {"emb": emb, "encode_ms": times[1] * 1e3, "encode_first_ms": times[0] * 1e3,
+            "init_s": build_s, "peak_gb": peak_gb, "card_vs_cpu_2_layers": rel}
+
+
+def t2v_vae_state(dev: torch.device, work: str) -> tuple:
+    """The reference-named seeded Wan2.1 VAE state dict as ``work``/vae.pth;
+    the VAE on a small latent, card (whole and one frame a slice) against
+    CPU. Returns the path and the numbers."""
+    from mhla_tpu_torch.models import vae as vae_mod
+    from mhla_tpu_torch.models.convert_jax import vae_params_from_jax
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    shapes = vae_mod.reference_state_shapes(vae_mod.WanVAE(device="meta"))
+    state = seeded_reference_state(shapes, dev, SEED + 24)
+    path = f"{work}/Wan2.1_VAE.pth"
+    torch.save({k: torch.from_numpy(v) for k, v in state.items()}, path)
+    params = vae_params_from_jax(vae_mod.convert_vae_checkpoint(state))
+    cpu, card = vae_mod.WanVAE(), vae_mod.WanVAE(device=dev)
+    cpu.load_state_dict(params)
+    card.load_state_dict(params)
+    z = torch.randn(1, 3, 4, 4, 16, generator=torch.Generator().manual_seed(SEED + 25))
+    ref = cpu.decode(z)
+    rels = {}
+    for slice_bytes in (vae_mod.SLICE_BYTES, 1):
+        card.slice_bytes = slice_bytes
+        rels[slice_bytes] = get_err_ratio(ref, card.decode(z.to(dev)))
+    del card
+    log(f"[t2v] Wan2.1 VAE ({len(shapes)} tensors, {sum(map(math.prod, shapes.values())) / 1e6:.1f}"
+        f" M params) decoding [1, 3, 4, 4, 16] -> {list(ref.shape)}: card vs CPU rel-RMS "
+        f"{rels[vae_mod.SLICE_BYTES]:.3e}, one frame a slice {rels[1]:.3e} (tol {T2V_CPU_TOL})")
+    if not max(rels.values()) < T2V_CPU_TOL:
+        raise AssertionError(f"the VAE on the card differs from the CPU: {rels}")
+    return path, {"card_vs_cpu": rels[vae_mod.SLICE_BYTES], "card_sliced_vs_cpu": rels[1]}
+
+
+def t2v_cli(dev: torch.device, work: str, solver: str, prompts: int, extra=()) -> tuple:
+    """``video_infer_cli.main`` with ``solver``: the first ``prompts``
+    prompts in one batch, 4 steps on the umT5 embeddings, the model from the
+    safetensors file. Returns the CLI's output, the launches, the seconds it
+    took and its arguments."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.eval import video_infer_cli
+
+    with open(f"{work}/prompts_{solver}.txt", "w") as fh:
+        fh.write("".join(T2V_PROMPTS[:prompts]))
+    argv = [
+        f"--device={dev.type}", f"--txt_file={work}/prompts_{solver}.txt",
+        f"--out_dir={work}/{solver}", f"--batch_size={prompts}",
+        f"--emb_file={work}/emb.npz", f"--wan_safetensors={work}/wan.safetensors",
+        f"--sampling.solver={solver}", f"--sampling.num_steps={VIDEO_STEPS}",
+        "--sampling.cfg_scale=5.0", "--sampling.flow_shift=3.0",
+        f"--sampling.latent_shape={VIDEO_LATENT}".replace(" ", ""), *extra,
+    ]
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = video_infer_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = video_launches(VIDEO_LAYERS, [VIDEO_LAYERS] * VIDEO_STEPS, [0] * VIDEO_STEPS)
+    log(f"[t2v {solver}] launches in {VIDEO_STEPS} steps with CFG ({VIDEO_STEPS} model calls):"
+        f" {counts}")
+    got = {name: counts[name] for name in want}
+    if got != want:
+        raise AssertionError(f"launches of the {solver} path {got}, expected {want}")
+    return out, counts, seconds, argv
+
+
+def phase_t2v(dev: torch.device) -> dict:
+    """(af) text to video through the entry points: umT5-XXL embeddings, the
+    Wan weights from a reference safetensors file, UniPC with the VAE decode
+    and SA-Solver, each 4 steps."""
+    import shutil
+
+    from mhla_tpu_torch.eval import video_infer_cli
+    from mhla_tpu_torch.models import WanModel, convert_wan, vae as vae_mod
+
+    t_phase = time.perf_counter()
+    text = t2v_text_embeddings(dev)
+    with tempfile.TemporaryDirectory(prefix="mhla_t2v_") as work:
+        log(f"[t2v] {shutil.disk_usage(work).free / 1e9:.0f} GB free where the checkpoints go")
+        np.savez(f"{work}/emb.npz", emb_0=text["emb"][0], emb_1=text["emb"][1],
+                 null=text["emb"][2])
+        # the reference-named seeded Wan2.1-1.3B checkpoint
+        model_cfg = video_infer_cli._wan_config(video_infer_cli.VideoInferConfig())
+        meta = WanModel(model_cfg, device="meta")
+        names = convert_wan.reference_names(meta)
+        shapes = {ref: tuple(meta.state_dict()[name].shape) for name, ref in names.items()}
+        t0 = time.perf_counter()
+        source = seeded_reference_state(shapes, dev, SEED + 23)
+        write_safetensors(f"{work}/wan.safetensors", source)
+        write_s = time.perf_counter() - t0
+        wan_gb = sum(a.nbytes for a in source.values()) / 1e9
+        vae_path, vae_check = t2v_vae_state(dev, work)
+
+        # UniPC, decoded by the VAE (the card has no imageio: the mp4 writer
+        # is replaced by a recorder of the frames it was handed)
+        frames, decode = {}, {}
+        real_to_uint8, real_decode = video_infer_cli.to_uint8_video, vae_mod.WanVAE.decode
+
+        def to_uint8(x):
+            frames.update(shape=x.shape, finite=bool(np.isfinite(x).all()), lo=float(x.min()),
+                          hi=float(x.max()), clipped=float((np.abs(x) >= 1.0).mean()))
+            out = real_to_uint8(x)
+            frames["uint8"] = (out.shape, str(out.dtype))
+            return out
+
+        def measured_decode(self, z):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            x = real_decode(self, z)
+            torch.cuda.synchronize()
+            decode.update(base_gb=base / 1e9, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            return x
+
+        with mock.patch.object(video_infer_cli, "to_uint8_video", to_uint8), \
+                mock.patch.object(video_infer_cli, "write_mp4", lambda path, f, fps: path), \
+                mock.patch.object(vae_mod.WanVAE, "decode", measured_decode):
+            uni, uni_counts, uni_s, argv = t2v_cli(dev, work, "unipc", 1,
+                                                   [f"--vae_ckpt={vae_path}"])
+        if frames["shape"] != T2V_FRAMES[1:] or not frames["finite"] or not (
+                -1.0 <= frames["lo"] and frames["hi"] <= 1.0):
+            raise AssertionError(f"decoded frames {frames}")
+        model = uni["model"]
+        # every loaded parameter against its source: q, k and their norms by
+        # the RoPE permutation, the MHLA gates from the seeded init
+        perm = convert_wan.rope_feature_permutation(model.cfg.dim, model.cfg.num_heads)
+        init = video_infer_cli._build_model(video_infer_cli.parse_cli(
+            video_infer_cli.VideoInferConfig, argv), dev)
+        init_params = init.state_dict()
+        checked = permuted = gates = 0
+        for name, p in model.state_dict().items():
+            if name not in names:
+                gates += 1
+                if not torch.equal(p, init_params[name]):
+                    raise AssertionError(f"{name} is not the seeded init's")
+                continue
+            src = torch.from_numpy(source[names[name]])
+            if name.split(".")[2:4] in (["self_attn", n] for n in ("q", "k", "norm_q", "norm_k")):
+                src, permuted = src[perm], permuted + 1
+            if not torch.equal(p.cpu(), src):
+                raise AssertionError(f"{name} differs from {names[name]} of the checkpoint")
+            checked += 1
+        del init, init_params, model, uni["model"]
+        log(f"[t2v] Wan2.1-1.3B from a {wan_gb:.2f} GB reference-named safetensors file "
+            f"({len(source)} tensors, written in {write_s:.1f} s): {checked} parameters bit for bit "
+            f"their source ({permuted} q/k rows and norms by rope_feature_permutation), {gates} "
+            "MHLA gate tensors the seeded init's")
+        log(f"[t2v unipc] the {T2V_PROMPT_LENS[0]}-token prompt: sampling "
+            f"{uni['sample_seconds'][0]:.2f} s for {VIDEO_STEPS} steps (host clock); VAE decode "
+            f"of {[1, *VIDEO_LATENT]} -> {list(frames['shape'])} in [{frames['lo']:.3f}, "
+            f"{frames['hi']:.3f}] ({frames['clipped'] * 100:.1f}% at the clip), uint8 "
+            f"{frames['uint8']}: {uni['decode_seconds'][0]:.2f} s (host clock, to the frames on "
+            f"the host), peak device memory {decode['peak_gb']:.1f} GB ({decode['base_gb']:.1f} "
+            f"GB held before it); the CLI run {uni_s:.1f} s")
+        sa, sa_counts, sa_s, _ = t2v_cli(dev, work, "sa-solver", 2)
+        latents = [np.load(item["path"]) for item in sa["outputs"]]
+        if any(lat.shape != VIDEO_LATENT or not np.isfinite(lat).all() for lat in latents):
+            raise AssertionError("SA-Solver latents not finite or of the wrong shape")
+        log(f"[t2v sa-solver] both prompts in one batch (a CFG batch of 4): latents "
+            f"{latents[0].shape} finite, std {latents[0].std():.3f} and {latents[1].std():.3f}; "
+            f"sampling {sa['sample_seconds'][0]:.2f} s for {VIDEO_STEPS} steps (host clock); the "
+            f"CLI run {sa_s:.1f} s")
+        del sa["model"]
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"[t2v] phase {seconds:.1f} s")
+    return {"launches": uni_counts, "t5": {k: v for k, v in text.items() if k != "emb"},
+            "wan_checkpoint_gb": wan_gb, "write_s": write_s, "vae": vae_check,
+            "unipc_sample_s": uni["sample_seconds"][0], "decode_s": uni["decode_seconds"][0],
+            "decode_peak_gb": decode["peak_gb"], "decode_base_gb": decode["base_gb"],
+            "frames": {k: frames[k] for k in ("lo", "hi", "clipped")},
+            "unipc_cli_s": uni_s, "sa_solver_sample_s": sa["sample_seconds"][0],
+            "sa_solver_cli_s": sa_s, "seconds": seconds}
+
+
 def layer_grads(layer, x: torch.Tensor, w: torch.Tensor, *args) -> dict:
     """Gradients of sum(layer(x, *args) * w) in x and in every parameter of
     ``layer``, by name."""
@@ -3670,12 +4000,14 @@ def k10b_walk(sparse, q, k, v, o, lse, do, frames: int) -> dict:
 
 
 def phase_train_video(dev: torch.device, tag: str, linear_idx, sparse_idx=(),
-                      lora: bool = False, lepe: bool = False) -> dict:
+                      lora: bool = False, lepe: bool = False,
+                      layers: int = VIDEO_LAYERS) -> dict:
     """``wan_train.main`` for VIDEO_TRAIN_STEPS steps of the 30-layer model
-    at 31,500 tokens, batch 1, with the MHLA layers ``linear_idx``, the
-    softmax layers ``sparse_idx`` under the radial mask, with ``lora`` the
-    model frozen but for its adapters and with ``lepe`` the LePE convolution
-    in every MHLA layer."""
+    (cut to ``layers`` where asked, the widths kept) at 31,500 tokens, batch
+    1, with the MHLA layers ``linear_idx``, the softmax layers
+    ``sparse_idx`` under the radial mask, with ``lora`` the model frozen but
+    for its adapters and with ``lepe`` the LePE convolution in every MHLA
+    layer."""
     from mhla_tpu_torch import kernels
     from mhla_tpu_torch.models.wan import init_wan_params
     from mhla_tpu_torch.train import lora_state, wan_train
@@ -3687,6 +4019,7 @@ def phase_train_video(dev: torch.device, tag: str, linear_idx, sparse_idx=(),
             f"--model.linear_attn_idx={tuple(linear_idx)}".replace(" ", ""),
             f"--train.max_steps={VIDEO_TRAIN_STEPS}", "--train.log_interval=1",
             "--optimizer.warmup_steps=1",  # the entry point's AdamW, warm-up cut to one step
+            f"--model.num_layers={layers}",
         ]
         if sparse_idx:
             argv.append(f"--model.sparse_attn_idx={tuple(sparse_idx)}".replace(" ", ""))
@@ -3718,7 +4051,7 @@ def phase_train_video(dev: torch.device, tag: str, linear_idx, sparse_idx=(),
     if got != want:
         raise AssertionError(f"launches of the {tag} training path {got}, expected {want}")
     if (cfg.num_layers, cfg.dim, cfg.remat, cfg.dtype, cfg.is_lepe) != (
-            VIDEO_LAYERS, 1536, True, torch.bfloat16, lepe):
+            layers, 1536, True, torch.bfloat16, lepe):
         raise AssertionError(f"not the full-size model: {cfg}")
     adapters = {}
     if lora:
@@ -3882,9 +4215,10 @@ def phase_image_harnesses(dev: torch.device) -> dict:
 
 def phase_train_video_lepe(dev: torch.device, full: dict) -> dict:
     """(z) One ``MHLA3D(is_lepe=True)`` layer's gradients through the kernels
-    against the plain versions at 31,500 tokens, then the full-MHLA model
-    with the LePE convolution trained through ``wan_train.main``: the same
-    launches as (g), ``full``, whose step time it prints beside its own."""
+    against the plain versions at 31,500 tokens, then the full-MHLA model,
+    cut to LEPE_LAYERS of its 30 layers, with the LePE convolution trained
+    through ``wan_train.main``: the launches of (g), ``full``, scaled to
+    that depth (the convolution is one PyTorch call outside the island)."""
     from mhla_tpu_torch.layers import MHLA3D
     from mhla_tpu_torch.ops.rotary import rope_tables_flat
 
@@ -3894,11 +4228,12 @@ def phase_train_video_lepe(dev: torch.device, full: dict) -> dict:
                       MHLA3D(f, VIDEO_HEADS, VIDEO_LAYOUT, normalize_out=False, is_lepe=True,
                              device=dev), (VIDEO_GRID, tables))
     del tables
-    out = phase_train_video(dev, "full + LePE", range(VIDEO_LAYERS), lepe=True)
-    if out["launches"] != full["launches"]:
-        raise AssertionError(f"LePE changed the launches: {out['launches']} vs {full['launches']}")
-    log(f"[train full + LePE] launches equal (g)'s; step {out['step_s']:.3f} s against (g)'s "
-        f"{full['step_s']:.3f} s: LePE {1e3 * (out['step_s'] - full['step_s']):+.1f} ms a step")
+    out = phase_train_video(dev, "full + LePE", range(LEPE_LAYERS), lepe=True, layers=LEPE_LAYERS)
+    scaled = {name: n * LEPE_LAYERS // VIDEO_LAYERS for name, n in full["launches"].items()}
+    if out["launches"] != scaled:
+        raise AssertionError(f"LePE changed the launches: {out['launches']} vs {scaled}")
+    log(f"[train full + LePE] {LEPE_LAYERS} of 30 layers: launches (g)'s scaled to that depth; "
+        f"step {out['step_s']:.3f} s ((g), 30 layers without LePE: {full['step_s']:.3f} s)")
     return out
 
 
@@ -3944,7 +4279,7 @@ def main() -> None:
     train_mamba2 = phase_train_baseline(dev, "mamba2", "mamba2")
     log_time("Mamba2 LM")
     serve_mamba = phase_serve_baseline(dev, "mamba", "mamba", both_requests=False)
-    train_mamba = phase_train_baseline(dev, "mamba", "mamba", steps=3)
+    train_mamba = phase_train_baseline(dev, "mamba", "mamba", steps=3, layers=MAMBA_TRAIN_LAYERS)
     log_time("Mamba LM")
     serve_linear = phase_serve_baseline(dev, "linear_attn", "linear_attn")
     train_linear = phase_train_baseline(dev, "linear_attn", "linear_attn", steps=3)
@@ -3958,6 +4293,8 @@ def main() -> None:
     sparse = phase_video_sparse(dev, hybrid_model)
     del hybrid_model
     log_time("video sampling")
+    t2v = phase_t2v(dev)
+    log_time("text to video")
     kern.update(phase_kernels_video_train(dev))
     train_full = phase_train_video(dev, "full", range(VIDEO_LAYERS))
     train_hybrid = phase_train_video(dev, "hybrid", HYBRID_LINEAR_IDX)
@@ -3965,7 +4302,8 @@ def main() -> None:
     train_lepe = phase_train_video_lepe(dev, train_full)
     log_time("video training (full + LePE)")
     kern.update(phase_kernels_sparse_train(dev))
-    train_sparse = phase_train_video(dev, "hybrid_sparse", HYBRID_LINEAR_IDX, SOFTMAX_LAYERS)
+    train_sparse = phase_train_video(dev, "hybrid_sparse", SPARSE_TRAIN_LINEAR,
+                                     SPARSE_TRAIN_SOFTMAX, layers=SPARSE_TRAIN_LAYERS)
     train_lora = phase_train_video(dev, "hybrid_sparse + LoRA", HYBRID_LINEAR_IDX,
                                    SOFTMAX_LAYERS, lora=True)
     log_time("video training (sparse, LoRA)")
@@ -4002,7 +4340,7 @@ def main() -> None:
          "launches": launches[name], **{key: kern[name][key] for key in keys}}
         for name, (route, source, replaces) in KERNEL_META.items()
     ]
-    for phase in (train, video, hybrid, sparse, train_full, train_hybrid, train_sparse,
+    for phase in (train, video, hybrid, sparse, t2v, train_full, train_hybrid, train_sparse,
                   train_lora, train_lepe, serve_hybrid, train_packed, train_unpacked, serve_gdn, train_gdn,
                   serve_gla, train_gla, train_simple_gla, ppl, serve_long, train_long,
                   train_d256_packed, serve_mamba2, train_mamba2, serve_mamba, train_mamba,
@@ -4029,7 +4367,7 @@ def main() -> None:
                     "serve_linear_attn": serve_linear["rates"], "train_linear_attn": train_linear,
                     "mamba2_shared_qk_bounds": kern["mamba2_shared_qk_bounds"],
                     "lm_options": options,
-                    "video": video, "hybrid": hybrid,
+                    "video": video, "hybrid": hybrid, "text_to_video": t2v,
                     "hybrid_sparse": sparse, "train_video_full": train_full,
                     "train_video_hybrid": train_hybrid,
                     "train_video_hybrid_sparse": train_sparse,

@@ -1,5 +1,5 @@
 """Samplers and training losses: Gaussian diffusion (DiT) and flow matching
-(the video model)."""
+(the video model: DPM-Solver++, FlowEuler, UniPC, SA-Solver)."""
 
 from .dpm_solver import (
     dpm_solver_pp,
@@ -16,6 +16,8 @@ from .gaussian_diffusion import (
     make_beta_schedule,
     space_timesteps,
 )
+from .sa_solver import sa_solver_sample
+from .unipc import unipc_sample
 
 __all__ = [
     "GaussianDiffusion",
@@ -27,6 +29,8 @@ __all__ = [
     "flow_velocity_to_x0",
     "logit_normal_timesteps",
     "make_beta_schedule",
+    "sa_solver_sample",
     "space_timesteps",
+    "unipc_sample",
     "with_cfg",
 ]

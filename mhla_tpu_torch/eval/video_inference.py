@@ -1,7 +1,7 @@
-"""Video inference: DPM-Solver++ or FlowEuler sampling of latents under
-classifier-free guidance (counterpart of
-``mhla_tpu/eval/video_inference.py``). The text encoder and the VAE decode
-are not ported: the caller brings text embeddings and gets latents."""
+"""Video inference: sampling of latents under classifier-free guidance with
+DPM-Solver++, FlowEuler, UniPC or SA-Solver (counterpart of
+``mhla_tpu/eval/video_inference.py``). The caller brings text embeddings
+(``models.t5``) and decodes the latents (``models.vae``)."""
 
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ from ..diffusion.dpm_solver import (
     flow_velocity_to_x0,
     with_cfg,
 )
+from ..diffusion.sa_solver import sa_solver_sample
+from ..diffusion.unipc import unipc_sample
 from ..models.wan import WanModel
 
 
@@ -26,13 +28,13 @@ def sample_video_latents(
     latent_shape: Tuple[int, int, int, int] = (21, 60, 100, 16),
     cfg_scale: float = 5.0,
     num_steps: int = 20,
-    solver: str = "dpm-solver",  # dpm-solver | flow_euler
+    solver: str = "dpm-solver",  # dpm-solver | flow_euler | unipc | sa-solver
     flow_shift: float = 3.0,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Sampled latents [B, F, H, W, C], float32, on the model's device.
-    ``generator`` (on that device) draws the starting noise; seed 0 when
-    None."""
+    ``generator`` (on that device) draws the starting noise and then
+    SA-Solver's noise; seed 0 when None."""
     cfg = model.cfg
     device = next(model.parameters()).device
     if generator is None:
@@ -53,6 +55,13 @@ def sample_video_latents(
         )
     if solver == "flow_euler":
         return flow_euler_sample_loop(cfg_velocity, x, num_steps=num_steps, shift=flow_shift)
-    if solver in ("unipc", "sa-solver"):
-        raise NotImplementedError(f"solver {solver!r} is not ported yet")
+    if solver == "unipc":
+        return unipc_sample(
+            flow_velocity_to_x0(cfg_velocity), x, num_steps=num_steps, order=2, shift=flow_shift
+        )
+    if solver == "sa-solver":
+        return sa_solver_sample(
+            flow_velocity_to_x0(cfg_velocity), x, num_steps=num_steps, shift=flow_shift,
+            generator=generator,
+        )
     raise ValueError(f"unknown solver {solver}")

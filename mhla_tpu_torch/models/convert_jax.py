@@ -1,5 +1,6 @@
 """Weight bridges from the JAX package's flax param trees to this package's
-state dicts: ``MHLAForCausalLM``, ``WanModel``, ``MHLAViT`` and ``DiT``.
+state dicts: ``MHLAForCausalLM``, ``WanModel``, ``MHLAViT``, ``DiT``,
+``T5Encoder`` and ``WanVAE``.
 
 The flax trees (as nested dicts of numpy arrays) name every parameter as
 this package does, so a bridge is a rename plus transposes: a flax
@@ -11,6 +12,7 @@ a flax ``Embed``'s ``embedding`` is ``nn.Embedding.weight`` as it is.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -80,10 +82,15 @@ def params_from_jax(params: Mapping[str, Any], cfg: MHLALMConfig) -> Dict[str, t
     return sd
 
 
+_NUMBERED = re.compile(r"^(blocks|downsamples|upsamples|middle)_(\d+)$")
+
+
 def _state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax params (``{"params": ...}`` or the inner tree) -> float32 state
-    dict for this package's model of the same config. ``blocks_<i>`` becomes
-    ``blocks.<i>``; every ``kernel`` becomes a transposed ``weight``: Dense
+    dict for this package's model of the same config. A numbered module
+    (``blocks_<i>``, the VAE's ``downsamples_<i>``, ``upsamples_<i>`` and
+    ``middle_<i>``) becomes an entry of a list (``blocks.<i>``); every
+    ``kernel`` becomes a transposed ``weight``: Dense
     [in, out] -> [out, in], Conv [k..., in, out] -> [out, in, k...] (the
     patch convolutions [p, p, Cin, D] -> [D, Cin, p, p], the LePE kernels
     [k..., 1, C] -> [C, 1, k...]); every ``embedding`` becomes a ``weight``
@@ -96,7 +103,7 @@ def _state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     def walk(tree: Mapping[str, Any], prefix: str) -> None:
         for key, value in tree.items():
-            name = key.replace("blocks_", "blocks.") if key.startswith("blocks_") else key
+            name = _NUMBERED.sub(r"\1.\2", key)
             if isinstance(value, Mapping):
                 walk(value, f"{prefix}{name}.")
             elif key == "kernel":
@@ -113,5 +120,7 @@ def _state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-# the JAX WanModel, MHLAViT and DiT -> this package's models of the same names
+# the JAX WanModel, MHLAViT, DiT, T5Encoder and WanVAE -> this package's models
+# of the same names
 wan_params_from_jax = vit_params_from_jax = dit_params_from_jax = _state_dict_from_flax
+t5_params_from_jax = vae_params_from_jax = _state_dict_from_flax

@@ -429,20 +429,38 @@ def test_unported_forward_options_raise(wan_models, kwargs):
         wan_models[2](x, t, ctx, **kwargs)
 
 
-@pytest.mark.parametrize("solver", ["unipc", "sa-solver"])
+@pytest.mark.parametrize("solver", ["ddim", "lcm"])
 def test_unported_solvers_raise(wan_models, solver):
-    with pytest.raises(NotImplementedError):
-        video_inference.sample_video_latents(
-            wan_models[2], torch.zeros(1, 16, 64), latent_shape=(2, 8, 12, 16), solver=solver)
+    """Solvers neither package's ``sample_video_latents`` runs."""
     with pytest.raises(ValueError):
         video_inference.sample_video_latents(
-            wan_models[2], torch.zeros(1, 16, 64), latent_shape=(2, 8, 12, 16), solver="ddim")
+            wan_models[2], torch.zeros(1, 16, 64), latent_shape=(2, 8, 12, 16), solver=solver)
 
 
-@pytest.mark.parametrize("option", ["ckpt", "wan_safetensors", "t5_dir", "vae_ckpt"])
+def _orbax_like_dir(path):
+    """A directory of the JAX package's checkpoint layout: no state.pt."""
+    (path / "checkpoints" / "100" / "default").mkdir(parents=True)
+    (path / "checkpoints" / "100" / "_CHECKPOINT_METADATA").write_text("{}")
+    return path
+
+
+@pytest.mark.parametrize("option", ["ckpt", "t5_dir", "vae_ckpt", "i2v"])
 def test_unported_cli_options_raise(tmp_path, option):
-    with pytest.raises(NotImplementedError):
-        video_infer_cli.main(_cli_args(tmp_path, **{option: tmp_path / "missing"}))
+    """What the CLI still cannot take raises, naming it: an orbax checkpoint
+    (of the model or the VAE: no JAX here), flax's msgpack T5 weights, and
+    image-to-video."""
+    if option == "i2v":
+        with pytest.raises(NotImplementedError, match="i2v"):
+            video_infer_cli.main(_cli_args(tmp_path, model_name="Wan_I2V_1300M"))
+        return
+    if option == "t5_dir":
+        (tmp_path / "t5").mkdir()
+        (tmp_path / "t5" / "params.msgpack").write_bytes(b"\x80")
+        value, match = tmp_path / "t5", "msgpack"
+    else:
+        value, match = _orbax_like_dir(tmp_path / option), "orbax"
+    with pytest.raises(ValueError, match=match):
+        video_infer_cli.main(_cli_args(tmp_path, **{option: value}))
 
 
 def test_empty_token_grid_is_rejected(wan_models):
