@@ -166,10 +166,11 @@ exits non-zero:
              ``WanSelfAttention`` layer at 31,500 tokens through the kernels
              against the same layer through the plain versions.
 28. train (video) — ``mhla_tpu_torch.train.wan_train.main`` trains the
-             30-layer model 3 steps at 31,500 tokens, batch 1 (float32
-             parameters, bf16 compute, per-block remat, AdamW 1e-4 with clip
-             0.1 after a 1-step warm-up, EMA), in the full-MHLA and in the
-             hybrid configuration. Checks finite losses, finite non-zero
+             model cut to 15 of its 30 layers (the widths kept) 3 steps at
+             31,500 tokens, batch 1 (float32 parameters, bf16 compute,
+             per-block remat, AdamW 1e-4 with clip 0.1 after a 1-step
+             warm-up, EMA): (g) full MHLA, (h) hybrid (softmax in layers 0,
+             3, ..., 12). Checks finite losses, finite non-zero
              gradient norms and the exact launch counts of K5-K9 and
              K5b-K9b; prints seconds per step, peak memory and the final
              checkpoint's seconds and size.
@@ -191,8 +192,9 @@ exits non-zero:
              0, 3, ..., 12 under the radial mask (``model.sparse_attn_idx``):
              K10 and K10b take the place of K9 and K9b in those layers; the
              exact launch counts.
-31. train (video, hybrid_sparse + LoRA) — the hybrid_sparse model at its 30
-             layers with ``lora.enable``: the exact launch counts, the base
+31. train (video, hybrid_sparse + LoRA) — (j) the hybrid_sparse model of
+             30, cut to 15 layers as (i), with ``lora.enable``: the exact
+             launch counts, the base
              parameters bit for bit those
              of the seeded init after the steps, every adapter's B moved off
              zero, peak memory and the checkpoint's size (adapters only).
@@ -201,7 +203,7 @@ exits non-zero:
              kernels against the plain versions, then ``wan_train.main
              --model.is_lepe=true`` on the full-MHLA model cut to 10 of its
              30 layers (the widths kept), 3 steps: the launch counts are
-             28's full-MHLA run's scaled to that depth (the LePE convolution
+             (g)'s scaled to that depth (the LePE convolution
              is one PyTorch call outside the island), step time beside it.
 33. train (dit) — ``mhla_tpu_torch.train.dit_train.main configs/dit_s2.yaml``
              6 steps: DiT-S/2 at the config's batch of 256 (float32
@@ -260,6 +262,29 @@ exits non-zero:
              prompts in one batch; exact K5-K9 launches for 4 model calls
              each; the VAE on a small latent on the card (whole and one frame
              a slice) against the CPU.
+42. image to video — (ag), after 41: K9 at the image keys' shape (Tq
+             31,500, Tk 257 at 40 heads of 128: the last key tile holds one
+             key) against its plain version, timed beside its bound and one
+             ``scaled_dot_product_attention`` call; CLIP ViT-H/14 at full size
+             (float32, seeded; 2 layers of its widths on the card against the
+             CPU first) encodes one 480 x 800 frame; Wan2.1-I2V-14B's widths
+             (dim 5,120, 40 heads of 128, ffn 13,824), full MHLA, cut to 10
+             of its 40 layers, loads from a reference-named seeded BF16
+             safetensors file written here through ``convert_wan`` (every
+             parameter bit for bit its source, q / k rows and norms by
+             ``rope_feature_permutation``); ``sample_video_latents`` samples 4
+             DPM-Solver++ steps with CFG 5.0 and the CLIP features at
+             (21, 60, 100, 16): exact launches (two K9 a layer, text and
+             image), finite latents, one forward through the kernels against
+             the plain versions.
+43. distillation — (ah), after 32: ``wan_train.main`` writes a teacher
+             checkpoint of the full-MHLA Wan2.1-1.3B cut to 10 of its 30
+             layers (another seed, no step), then trains the same
+             configuration 3 steps with ``distill.enable`` from that teacher
+             on latents from two tar shards written with
+             ``write_tar_shard``: finite losses and distillation terms,
+             exact launches (the student's as (z)'s, plus the teacher's
+             forward), step time, peak memory.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; there is no CPU mode.
@@ -516,6 +541,9 @@ KERNEL_META = {
                             "mhla_tpu/kernels/flash_attention.py:115"),
     "radial_flash_attention_bwd": ("cuda", "mhla_tpu_torch/csrc/flash_bwd.cu",
                                    "mhla_tpu/kernels/sparse_attention.py:507"),
+    # image to video: K9 over the 257 CLIP image keys of every cross-attention
+    "flash_attention[tk257]": ("cuda", "mhla_tpu_torch/csrc/flash_fwd.cu",
+                               "mhla_tpu/kernels/flash_attention.py:115"),
     # the packed-documents and hybrid LM path: per-row forms of K1-K4b and
     # the causal and segment-id forms of K9 / K9b
     "fmap_rope[positions]": ("triton", "mhla_tpu_torch/kernels/fmap_rope.py",
@@ -584,20 +612,27 @@ VIDEO_KERNELS = {"blockify_island": 3, "mix_states_dense": 1, "block_readout": 1
 # 750, 501, two on each side of the guard
 SOFTMAX_LAYERS = tuple(range(0, VIDEO_LAYERS, 3))
 HYBRID_LINEAR_IDX = tuple(i for i in range(VIDEO_LAYERS) if i not in SOFTMAX_LAYERS)
-# (i) trains the hybrid_sparse model at 15 of its 30 layers (the widths and
-# the layer pattern kept: softmax under the radial mask in layers 0, 3, ...,
-# 12; 2.26 s a step and a 23.5 GB checkpoint in 26 s at 30 layers on an H100
-# 80GB HBM3 at 700 W), to make room for (af)
-SPARSE_TRAIN_LAYERS = 15
-SPARSE_TRAIN_SOFTMAX = tuple(i for i in SOFTMAX_LAYERS if i < SPARSE_TRAIN_LAYERS)
-SPARSE_TRAIN_LINEAR = tuple(i for i in range(SPARSE_TRAIN_LAYERS)
-                            if i not in SPARSE_TRAIN_SOFTMAX)
+# the video trainer's runs (g), (h), (i) and (j) cut the 30-layer model to 15
+# layers, the widths and the layer pattern kept (softmax in layers 0, 3, ...,
+# 12 for (h), radial-sparse for (i) and (j)): (i) since PR 23 (2.26 s a step
+# and a 23.5 GB checkpoint in 26 s at 30 layers on an H100 80GB HBM3 at 700
+# W), to make room for (af); (g) (1.87-1.99 s a step, a 23.8 GB checkpoint in
+# 18-24 s at 30 layers), (h) (3.23 s) and (j) (2.02 s) since (ag) and (ah)
+VIDEO_TRAIN_LAYERS = 15
+VIDEO_TRAIN_SOFTMAX = tuple(i for i in SOFTMAX_LAYERS if i < VIDEO_TRAIN_LAYERS)
+VIDEO_TRAIN_LINEAR = tuple(i for i in range(VIDEO_TRAIN_LAYERS) if i not in VIDEO_TRAIN_SOFTMAX)
 DENSE_FROM_T, STEPS_BELOW_GUARD = 850.0, 2
 T_SPARSE, T_GUARDED = 501.0, 900.0  # two of the sampler's timesteps, one on each side
 VIDEO_TRAIN_STEPS = 3
 # (z) trains the full-MHLA model with LePE at 10 of its 30 layers (the widths
 # kept; 48 s at 30 layers on an H100 80GB HBM3 at 700 W), to make room for (af)
 LEPE_LAYERS = 10
+# (ag) image to video at Wan2.1-I2V-14B's widths (build_wan_config("Wan_I2V_14B"):
+# dim 5,120, 40 heads of 128, ffn 13,824), full MHLA, cut to 10 of its 40
+# layers: 40 layers of float32 parameters are 65 GB
+I2V_LAYERS, I2V_HEADS, I2V_FRAME, I2V_IMG_TOKENS = 10, 40, (1, 480, 800, 3), 257
+# (ah) distillation: the full-MHLA Wan2.1-1.3B at 10 of its 30 layers, as (z)
+DISTILL_LAYERS = 10
 VIDEO_BWD_KERNELS = ("unblockify", "blockify", "block_readout_bwd", "flash_attention_bwd")
 
 
@@ -2345,9 +2380,10 @@ def phase_train_long(dev: torch.device, tag: str, positions: int, batch: int, se
 # chunk 64. Their kernels, forward and backward (BASE_KERNELS), run in every
 # layer of a prefill longer than 64 tokens and of a training step.
 BASE_LAYERS, BASE_HEADS, BASE_DK, BASE_DV, BASE_CHUNK = 24, 4, 128, 256, 64
-# (ac) trains the Mamba LM at 12 of its 24 layers (the widths kept; 10.1 s a
-# step at 24 layers on an H100 80GB HBM3 at 700 W), to make room for (af)
-MAMBA_TRAIN_LAYERS = 12
+# (ac) trains the Mamba LM at 3 of its 24 layers (the widths kept; 10.1 s a
+# step at 24 layers, 5.02 s at 12, 2.52 s at 6 on an H100 80GB HBM3 at 700 W),
+# to make room for (af), then (ag) and (ah)
+MAMBA_TRAIN_LAYERS = 3
 # The Mamba2 LM at the same widths (gla_lm.py's branch: head dim 1024 * 1.0
 # / 4 = 256, expand 2, so 8 heads; d_state 128) runs K12 / K12b in their
 # scalar-decay form (one log-decay per head, as simple GLA now does); the
@@ -3414,24 +3450,46 @@ def write_safetensors(path: str, tensors: dict) -> None:
             fh.write(np.ascontiguousarray(a, "<f4").data)
 
 
+def seeded_tensor(name: str, shape: tuple, gen: torch.Generator, dev: torch.device):
+    """One seeded float32 tensor on the card: norm weights and gammas 1 +
+    N(0, 0.1), biases N(0, 0.02), modulations N(0, 1/16), the rest N(0, 1 /
+    fan_in)."""
+    x = torch.randn(shape, generator=gen, device=dev)
+    if name.endswith("gamma") or ("norm" in name and name.endswith("weight")):
+        return 1.0 + 0.1 * x
+    if name.endswith("bias"):
+        return 0.02 * x
+    if "modulation" in name:
+        return x / 16
+    return x * math.prod(shape[1:]) ** -0.5
+
+
 def seeded_reference_state(shapes: dict, dev: torch.device, seed: int) -> dict:
     """float32 numpy tensors of the given names and shapes, drawn on the
-    card: norm weights and gammas 1 + N(0, 0.1), biases N(0, 0.02),
-    modulations N(0, 1/16), the rest N(0, 1 / fan_in)."""
+    card by :func:`seeded_tensor`."""
     gen = torch.Generator(dev).manual_seed(seed)
-    out = {}
+    return {name: seeded_tensor(name, shape, gen, dev).cpu().numpy()
+            for name, shape in shapes.items()}
+
+
+def write_seeded_bf16_safetensors(path: str, shapes: dict, dev: torch.device, seed: int) -> int:
+    """A safetensors file of BF16 tensors of the given names and shapes,
+    each drawn on the card by :func:`seeded_tensor` and rounded to bf16,
+    written one at a time (the host never holds the whole state). Returns
+    its bytes."""
+    header, offset = {}, 0
     for name, shape in shapes.items():
-        x = torch.randn(shape, generator=gen, device=dev)
-        if name.endswith("gamma") or ("norm" in name and name.endswith("weight")):
-            x = 1.0 + 0.1 * x
-        elif name.endswith("bias"):
-            x = 0.02 * x
-        elif "modulation" in name:
-            x = x / 16
-        else:
-            x = x * math.prod(shape[1:]) ** -0.5
-        out[name] = x.cpu().numpy()
-    return out
+        size = 2 * math.prod(shape)
+        header[name] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [offset, offset + size]}
+        offset += size
+    head = json.dumps(header).encode()
+    gen = torch.Generator(dev).manual_seed(seed)
+    with open(path, "wb") as fh:
+        fh.write(len(head).to_bytes(8, "little") + head)
+        for name, shape in shapes.items():
+            x = seeded_tensor(name, shape, gen, dev).to(torch.bfloat16)
+            fh.write(x.view(torch.int16).cpu().numpy().data)  # little-endian, as the format
+    return 8 + len(head) + offset
 
 
 def t2v_text_embeddings(dev: torch.device) -> dict:
@@ -3670,6 +3728,197 @@ def phase_t2v(dev: torch.device) -> dict:
             "frames": {k: frames[k] for k in ("lo", "hi", "clipped")},
             "unipc_cli_s": uni_s, "sa_solver_sample_s": sa["sample_seconds"][0],
             "sa_solver_cli_s": sa_s, "seconds": seconds}
+
+
+def phase_kernels_i2v(dev: torch.device) -> dict:
+    """K9 at the image cross-attention's shape of (ag): CFG batch 2, 31,500
+    queries against the 257 CLIP tokens at 40 heads of 128 (its last key
+    tile holds a single key)."""
+    import torch.nn.functional as F
+
+    from mhla_tpu_torch.kernels import flash_attention as flash
+
+    b, t, h, dh, bf16 = VIDEO_CFG_BATCH, math.prod(VIDEO_GRID), I2V_HEADS, VIDEO_HEAD_DIM, torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(SEED + 31)
+    q, k, v = (torch.randn(b, n, h, dh, generator=gen, device=dev).to(bf16)
+               for n in (t, I2V_IMG_TOKENS, I2V_IMG_TOKENS))
+    results = {}
+    check_kernel(results, "flash_attention[tk257]", f"Tq={t} Tk={I2V_IMG_TOKENS} H={h}",
+                 lambda: flash.flash_attention(q, k, v),
+                 lambda: flash.flash_attention_plain(q, k, v), True, tol=FLASH_TOL,
+                 work=(2 * nbytes(q) + nbytes(k, v), 4 * b * h * t * I2V_IMG_TOKENS * dh, bf16),
+                 library=lambda: F.scaled_dot_product_attention(
+                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2))
+    return results
+
+
+def i2v_clip_features(dev: torch.device) -> tuple:
+    """CLIP ViT-H/14 at full size (float32, seeded) encodes one seeded 480 x
+    800 frame in [-1, 1]; 2 layers of its widths, card against CPU, first.
+    Returns the features [1, 257, 1280] and the numbers."""
+    import dataclasses
+
+    from mhla_tpu_torch.models.clip import (
+        CLIP_VIT_H_14,
+        CLIPVisionTransformer,
+        encode_i2v_features,
+        init_clip_params,
+    )
+    from mhla_tpu_torch.utils import get_err_ratio
+
+    frame = torch.rand(I2V_FRAME, generator=torch.Generator().manual_seed(SEED + 32)) * 2 - 1
+    two = dataclasses.replace(CLIP_VIT_H_14, num_layers=2)
+    small = init_clip_params(CLIPVisionTransformer(two, device=dev),
+                             torch.Generator(dev).manual_seed(SEED + 33))
+    on_cpu = CLIPVisionTransformer(two, device="meta")
+    on_cpu.load_state_dict({k: v.cpu() for k, v in small.state_dict().items()}, assign=True)
+    rel = get_err_ratio(encode_i2v_features(on_cpu, frame), encode_i2v_features(small, frame))
+    del small, on_cpu
+    log(f"[i2v] CLIP ViT-H/14 widths, 2 layers, one {I2V_FRAME[1]} x {I2V_FRAME[2]} frame: card vs "
+        f"CPU rel-RMS {rel:.3e} (tol {T2V_CPU_TOL})")
+    if not rel < T2V_CPU_TOL:
+        raise AssertionError(f"CLIP on the card differs from the CPU ({rel:.3e})")
+
+    torch.cuda.reset_peak_memory_stats()
+    model = CLIPVisionTransformer(CLIP_VIT_H_14, device=dev).eval().requires_grad_(False)
+    init_clip_params(model, torch.Generator(dev).manual_seed(SEED + 34))
+    n_params = sum(p.numel() for p in model.parameters())
+    times = []
+    for _ in range(2):  # the first call pays cuBLAS's set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fea = encode_i2v_features(model, frame)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    if fea.shape != (1, I2V_IMG_TOKENS, CLIP_VIT_H_14.dim) or not torch.isfinite(fea).all():
+        raise AssertionError(f"CLIP features {tuple(fea.shape)}, finite "
+                             f"{bool(torch.isfinite(fea).all())}")
+    log(f"[i2v] CLIP ViT-H/14: {CLIP_VIT_H_14.num_layers} layers (features after "
+        f"{CLIP_VIT_H_14.num_layers - 1}), dim {CLIP_VIT_H_14.dim}, {CLIP_VIT_H_14.num_heads} heads "
+        f"of {CLIP_VIT_H_14.dim // CLIP_VIT_H_14.num_heads}, {n_params / 1e6:.1f} M float32 params; "
+        f"one frame -> {list(fea.shape)} finite, std {fea.std():.3f}; encode {times[1] * 1e3:.1f} "
+        f"ms (first call {times[0] * 1e3:.1f} ms; preprocessing included, host clock after a "
+        f"sync); peak device memory {peak_gb:.1f} GB")
+    return fea, {"encode_ms": times[1] * 1e3, "encode_first_ms": times[0] * 1e3,
+                 "peak_gb": peak_gb, "card_vs_cpu_2_layers": rel}
+
+
+def phase_i2v(dev: torch.device) -> dict:
+    """(ag) image to video through ``sample_video_latents``: CLIP features of
+    one frame, Wan2.1-I2V-14B's widths at I2V_LAYERS layers from a
+    reference-named seeded BF16 safetensors file, 4 DPM-Solver++ steps with
+    CFG; the image keys' K9 launches counted apart."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.eval import sample_video_latents
+    from mhla_tpu_torch.layers import attention
+    from mhla_tpu_torch.models import WanModel, build_wan_config, convert_wan, init_wan_params
+    from mhla_tpu_torch.models.convert_jax import wan_params_from_jax
+    from mhla_tpu_torch.utils import get_err_ratio
+    from mhla_tpu_torch.utils.safetensors_io import load_safetensors
+
+    t_phase = time.perf_counter()
+    fea, clip_info = i2v_clip_features(dev)
+    cfg = build_wan_config("Wan_I2V_14B", num_layers=I2V_LAYERS,
+                           linear_attn_idx=tuple(range(I2V_LAYERS)), dtype=torch.bfloat16)
+    if (cfg.model_type, cfg.dim, cfg.num_heads, cfg.ffn_dim) != ("i2v", 5120, I2V_HEADS, 13824):
+        raise AssertionError(f"not Wan2.1-I2V-14B's widths: {cfg}")
+    with tempfile.TemporaryDirectory(prefix="mhla_i2v_") as work:
+        meta = WanModel(cfg, device="meta")
+        names = convert_wan.reference_names(meta)
+        shapes = convert_wan.reference_state_shapes(meta)
+        del meta
+        path = f"{work}/wan_i2v.safetensors"
+        t0 = time.perf_counter()
+        file_bytes = write_seeded_bf16_safetensors(path, shapes, dev, SEED + 35)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = init_wan_params(WanModel(cfg, device=dev), torch.Generator(dev).manual_seed(SEED))
+        model.eval().requires_grad_(False)
+        state = load_safetensors(path)
+        model.load_state_dict(wan_params_from_jax(convert_wan.convert_wan_checkpoint(
+            state, cfg, convert_wan.mhla_init_params(model))))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        # every loaded parameter against its source in the file
+        perm = torch.from_numpy(convert_wan.rope_feature_permutation(cfg.dim, cfg.num_heads)).to(dev)
+        checked = permuted = 0
+        for name, p in model.state_dict().items():
+            if name not in names:
+                continue
+            src = torch.from_numpy(np.ascontiguousarray(state[names[name]])).to(dev)
+            if name.split(".")[2:4] in (["self_attn", n] for n in ("q", "k", "norm_q", "norm_k")):
+                src, permuted = src[perm], permuted + 1
+            if not torch.equal(p, src):
+                raise AssertionError(f"{name} differs from {names[name]} of the checkpoint")
+            checked += 1
+        del state
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[i2v] Wan2.1-I2V-14B widths, {I2V_LAYERS} of 40 layers all MHLA, dim {cfg.dim}, "
+        f"{cfg.num_heads} heads, ffn {cfg.ffn_dim}, {n_params / 1e9:.3f} B float32 params, compute "
+        f"{cfg.dtype}: a {file_bytes / 1e9:.2f} GB reference-named BF16 safetensors file "
+        f"({len(shapes)} tensors) written in {write_s:.1f} s, read, converted and loaded in "
+        f"{load_s:.1f} s; {checked} parameters bit for bit their source ({permuted} q/k rows and "
+        "norms by rope_feature_permutation)")
+
+    emb, null = (torch.from_numpy(a)[None] for a in video_text_embeddings())
+    real_flash, image_calls = attention.flash_attention, []
+
+    def counted_flash(q, k, v, **kw):
+        if k.shape[1] == I2V_IMG_TOKENS:
+            image_calls.append(tuple(q.shape))
+        return real_flash(q, k, v, **kw)
+
+    want = video_launches(I2V_LAYERS, [2 * I2V_LAYERS] * VIDEO_STEPS, [0] * VIDEO_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(attention, "flash_attention", counted_flash):
+        latents = sample_video_latents(
+            model, emb, null, latent_shape=VIDEO_LATENT, cfg_scale=5.0, num_steps=VIDEO_STEPS,
+            solver="dpm-solver", flow_shift=3.0, generator=torch.Generator(dev).manual_seed(SEED),
+            clip_fea=fea).cpu().numpy()[0]  # the copy waits for the device
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_sampling("i2v", latents, counts, want)
+    k9_image = len(image_calls)
+    if k9_image != VIDEO_STEPS * I2V_LAYERS or set(image_calls) != {
+            (VIDEO_CFG_BATCH, math.prod(VIDEO_GRID), I2V_HEADS, VIDEO_HEAD_DIM)}:
+        raise AssertionError(f"K9 over the image keys: {k9_image} calls of {set(image_calls)}")
+
+    # one forward through the kernels against the same forward through their plain versions
+    x, t, ctx = video_inputs(dev, cfg.text_dim, 500.0)
+    fea2 = fea.to(cfg.dtype).repeat(VIDEO_CFG_BATCH, 1, 1)
+    with torch.no_grad():
+        v_kern = model(x, t, ctx, clip_fea=fea2)
+        before = kernels.launch_counts()
+        with plain_kernels():
+            v_plain = model(x, t, ctx, clip_fea=fea2)
+        if kernels.launch_counts() != before:
+            raise AssertionError("the plain forward launched a kernel")
+        fwd_ms = median_ms(lambda: model(x, t, ctx, clip_fea=fea2), reps=3, inner=1, warmup=0)
+    rel = get_err_ratio(v_plain, v_kern)
+    log(f"[i2v] forward through K5-K9 vs plain versions: velocity rel-RMS {rel:.3e} (tol "
+        f"{VIDEO_TOL})")
+    if not (torch.isfinite(v_kern).all() and rel < VIDEO_TOL):
+        raise AssertionError(f"i2v forward: kernels != plain ({rel:.3e})")
+    del model, x, ctx, v_kern, v_plain
+    torch.cuda.empty_cache()
+    step_s = seconds / VIDEO_STEPS
+    phase_s = time.perf_counter() - t_phase
+    log(f"[i2v] latents {latents.shape} finite, std {latents.std():.3f}; {step_s:.3f} s per "
+        f"denoising step (sampling {seconds:.2f} s for {VIDEO_STEPS} steps, host clock); "
+        f"{fwd_ms:.1f} ms per forward of the CFG batch (CUDA events, median of 3); peak device "
+        f"memory {peak_gb:.1f} GB; K9 over the image keys {k9_image} launches; phase "
+        f"{phase_s:.1f} s")
+    return {"launches": counts, "k9_image_launches": k9_image, "clip": clip_info,
+            "checkpoint_gb": file_bytes / 1e9, "write_s": write_s, "load_s": load_s,
+            "step_s": step_s, "forward_ms": fwd_ms, "peak_gb": peak_gb,
+            "kernels_vs_plain": rel, "seconds": phase_s}
 
 
 def layer_grads(layer, x: torch.Tensor, w: torch.Tensor, *args) -> dict:
@@ -4229,12 +4478,90 @@ def phase_train_video_lepe(dev: torch.device, full: dict) -> dict:
                              device=dev), (VIDEO_GRID, tables))
     del tables
     out = phase_train_video(dev, "full + LePE", range(LEPE_LAYERS), lepe=True, layers=LEPE_LAYERS)
-    scaled = {name: n * LEPE_LAYERS // VIDEO_LAYERS for name, n in full["launches"].items()}
+    scaled = {name: n * LEPE_LAYERS // VIDEO_TRAIN_LAYERS for name, n in full["launches"].items()}
     if out["launches"] != scaled:
         raise AssertionError(f"LePE changed the launches: {out['launches']} vs {scaled}")
     log(f"[train full + LePE] {LEPE_LAYERS} of 30 layers: launches (g)'s scaled to that depth; "
-        f"step {out['step_s']:.3f} s ((g), 30 layers without LePE: {full['step_s']:.3f} s)")
+        f"step {out['step_s']:.3f} s ((g), {VIDEO_TRAIN_LAYERS} layers without LePE: "
+        f"{full['step_s']:.3f} s)")
     return out
+
+
+def phase_distill(dev: torch.device) -> dict:
+    """(ah) teacher distillation from tar shards through ``wan_train.main``:
+    a teacher checkpoint of the full-MHLA model at DISTILL_LAYERS layers
+    (seed 1, no step), two tar shards of seeded latents and text
+    embeddings, then VIDEO_TRAIN_STEPS steps of the same configuration with
+    ``distill.enable``. The student launches what (z)'s training does; the
+    teacher adds one forward a step."""
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.data import write_tar_shard
+    from mhla_tpu_torch.train import wan_train
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    common = [f"--device={dev.type}", f"--model.num_layers={DISTILL_LAYERS}",
+              f"--model.linear_attn_idx={tuple(range(DISTILL_LAYERS))}".replace(" ", ""),
+              "--optimizer.warmup_steps=1", "--train.log_interval=1"]
+    with tempfile.TemporaryDirectory(prefix="mhla_distill_") as work:
+        t0 = time.perf_counter()
+        teacher = wan_train.main(common + [f"--work_dir={work}/teacher", "--train.max_steps=0",
+                                           "--train.seed=1"])
+        teacher_s = time.perf_counter() - t0
+        teacher_gb = teacher.pop("checkpoint_bytes") / 1e9
+        del teacher
+        torch.cuda.empty_cache()
+        # two shards of two clips: latents (21, 60, 100, 16), text embeddings [512, 4096]
+        rng = np.random.default_rng(SEED + 40)
+        Path(f"{work}/latents").mkdir()
+        t0 = time.perf_counter()
+        for s in range(2):
+            write_tar_shard(f"{work}/latents/part-{s:04d}.tar", [
+                {"__key__": f"clip_{s}_{i}",
+                 "latent.npy": rng.standard_normal(VIDEO_LATENT, dtype=np.float32),
+                 "text_emb.npy": 0.02 * rng.standard_normal((VIDEO_TEXT_LEN, 4096),
+                                                            dtype=np.float32)}
+                for i in range(2)])
+        shards_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out = wan_train.main(common + [
+            f"--work_dir={work}/student", f"--train.max_steps={VIDEO_TRAIN_STEPS}",
+            f"--data.latent_dir={work}/latents", "--distill.enable=true",
+            f"--distill.teacher_ckpt={work}/teacher"])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = out["model"].cfg
+    if (cfg.num_layers, cfg.dim, cfg.remat, cfg.dtype, len(cfg.linear_attn_idx)) != (
+            DISTILL_LAYERS, 1536, True, torch.bfloat16, DISTILL_LAYERS):
+        raise AssertionError(f"not the full-MHLA model at {DISTILL_LAYERS} layers: {cfg}")
+    want = video_train_launches(DISTILL_LAYERS, 0)
+    for name, per in VIDEO_KERNELS.items():  # the teacher's forward, once a step
+        want[name] += VIDEO_TRAIN_STEPS * DISTILL_LAYERS * per
+    log(f"[distill] launches in {VIDEO_TRAIN_STEPS} steps: {counts}")
+    got = {name: counts[name] for name in want}
+    if got != want:
+        raise AssertionError(f"launches of the distillation path {got}, expected {want}")
+    losses, logit, attn = out["losses"], out["distill_logit"], out["distill_attn"]
+    if len(losses) != VIDEO_TRAIN_STEPS or not all(
+            math.isfinite(v) for v in losses + logit + attn):
+        raise AssertionError(f"losses {losses}, distill_logit {logit}, distill_attn {attn}")
+    if not (min(logit) > 0 and min(attn) > 0):
+        raise AssertionError(f"the teacher equals the student: {logit}, {attn}")
+    step_s = statistics.median(out["step_seconds"][1:])
+    phase_s = time.perf_counter() - t_phase
+    log(f"[distill] Wan2.1-1.3B full MHLA at {DISTILL_LAYERS} of 30 layers, B=1 x "
+        f"{math.prod(VIDEO_GRID)} tokens from 2 tar shards ({shards_s:.1f} s to write), the "
+        f"teacher a {teacher_gb:.1f} GB checkpoint of seed 1 ({teacher_s:.1f} s to build and save): "
+        f"losses {[round(x, 4) for x in losses]}, distill_logit {[round(x, 5) for x in logit]}, "
+        f"distill_attn {[round(x, 5) for x in attn]}")
+    log(f"[distill] step {step_s:.3f} s (median of steps 2-{VIDEO_TRAIN_STEPS}, host clock; step "
+        f"1 {out['step_seconds'][0]:.3f} s); peak device memory {peak_gb:.1f} GB; phase "
+        f"{phase_s:.1f} s")
+    return {"launches": counts, "step_s": step_s, "peak_gb": peak_gb, "losses": losses,
+            "distill_logit": logit, "distill_attn": attn, "teacher_checkpoint_gb": teacher_gb,
+            "teacher_s": teacher_s, "seconds": phase_s}
 
 
 def main() -> None:
@@ -4295,17 +4622,22 @@ def main() -> None:
     log_time("video sampling")
     t2v = phase_t2v(dev)
     log_time("text to video")
+    kern.update(phase_kernels_i2v(dev))
+    i2v = phase_i2v(dev)
+    log_time("image to video")
     kern.update(phase_kernels_video_train(dev))
-    train_full = phase_train_video(dev, "full", range(VIDEO_LAYERS))
-    train_hybrid = phase_train_video(dev, "hybrid", HYBRID_LINEAR_IDX)
+    train_full = phase_train_video(dev, "full", range(VIDEO_TRAIN_LAYERS), layers=VIDEO_TRAIN_LAYERS)
+    train_hybrid = phase_train_video(dev, "hybrid", VIDEO_TRAIN_LINEAR, layers=VIDEO_TRAIN_LAYERS)
     log_time("video training (full, hybrid)")
     train_lepe = phase_train_video_lepe(dev, train_full)
     log_time("video training (full + LePE)")
+    distill = phase_distill(dev)
+    log_time("video distillation from tar shards")
     kern.update(phase_kernels_sparse_train(dev))
-    train_sparse = phase_train_video(dev, "hybrid_sparse", SPARSE_TRAIN_LINEAR,
-                                     SPARSE_TRAIN_SOFTMAX, layers=SPARSE_TRAIN_LAYERS)
-    train_lora = phase_train_video(dev, "hybrid_sparse + LoRA", HYBRID_LINEAR_IDX,
-                                   SOFTMAX_LAYERS, lora=True)
+    train_sparse = phase_train_video(dev, "hybrid_sparse", VIDEO_TRAIN_LINEAR,
+                                     VIDEO_TRAIN_SOFTMAX, layers=VIDEO_TRAIN_LAYERS)
+    train_lora = phase_train_video(dev, "hybrid_sparse + LoRA", VIDEO_TRAIN_LINEAR,
+                                   VIDEO_TRAIN_SOFTMAX, lora=True, layers=VIDEO_TRAIN_LAYERS)
     log_time("video training (sparse, LoRA)")
     image = phase_image_harnesses(dev)
     log_time("image harnesses (DiT-S/2 training and sampling, DeiT-small training)")
@@ -4317,6 +4649,7 @@ def main() -> None:
                 **{n: video["launches"][n] for n in VIDEO_KERNELS},
                 "flash_attention": hybrid["launches"]["flash_attention"],
                 "radial_flash_attention": sparse["launches"]["radial_flash_attention"],
+                "flash_attention[tk257]": i2v["k9_image_launches"],
                 **{n: train_full["launches"][n] for n in VIDEO_BWD_KERNELS},
                 "flash_attention_bwd": train_hybrid["launches"]["flash_attention_bwd"],
                 "radial_flash_attention_bwd":
@@ -4340,7 +4673,7 @@ def main() -> None:
          "launches": launches[name], **{key: kern[name][key] for key in keys}}
         for name, (route, source, replaces) in KERNEL_META.items()
     ]
-    for phase in (train, video, hybrid, sparse, t2v, train_full, train_hybrid, train_sparse,
+    for phase in (train, video, hybrid, sparse, t2v, i2v, distill, train_full, train_hybrid, train_sparse,
                   train_lora, train_lepe, serve_hybrid, train_packed, train_unpacked, serve_gdn, train_gdn,
                   serve_gla, train_gla, train_simple_gla, ppl, serve_long, train_long,
                   train_d256_packed, serve_mamba2, train_mamba2, serve_mamba, train_mamba,
@@ -4368,6 +4701,7 @@ def main() -> None:
                     "mamba2_shared_qk_bounds": kern["mamba2_shared_qk_bounds"],
                     "lm_options": options,
                     "video": video, "hybrid": hybrid, "text_to_video": t2v,
+                    "image_to_video": i2v, "distillation": distill,
                     "hybrid_sparse": sparse, "train_video_full": train_full,
                     "train_video_hybrid": train_hybrid,
                     "train_video_hybrid_sparse": train_sparse,

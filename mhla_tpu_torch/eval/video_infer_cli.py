@@ -22,6 +22,11 @@ load; the MHLA layers' gate and g_norm from the seeded init) or ``ckpt``
 both, the model runs from a seeded init. An orbax checkpoint of the JAX
 package cannot be read without JAX and raises.
 
+Text to video only: the CLI takes no image, as in the JAX package, so an
+image-to-video model name raises ``ValueError`` where sampling finds no CLIP
+features (``video_inference.sample_video_latents(..., clip_fea=...)``
+samples one).
+
 Decoding: ``vae_ckpt`` (the reference's ``Wan2.1_VAE.pth``) decodes each
 sample to ``sample_<i>.mp4``; without it the latents are saved as
 ``sample_<i>.npy``. ``manifest.json`` lists prompt and path of each.

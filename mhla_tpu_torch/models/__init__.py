@@ -1,6 +1,17 @@
 """The causal MHLA LM with its generation loop, the Wan video diffusion
-transformer with its umT5 text encoder and its VAE, the MHLA ViT, the MHLA
-DiT, the checkpoint converters and the weight bridges."""
+transformer with its umT5 text encoder, its CLIP ViT-H/14 image encoder
+(image to video) and its VAE, the MHLA ViT, the MHLA DiT, the checkpoint
+converters and the weight bridges."""
+
+from .clip import (
+    CLIP_VIT_H_14,
+    CLIPVisionConfig,
+    CLIPVisionTransformer,
+    clip_params_from_jax,
+    encode_i2v_features,
+    init_clip_params,
+    preprocess_frames,
+)
 
 from .convert_dit import convert_dit_checkpoint
 from .convert_jax import (
@@ -30,6 +41,9 @@ from .vit import MHLAViT, ViTConfig, build_vit, init_vit_params
 from .wan import WanConfig, WanModel, build_wan_config, init_wan_params
 
 __all__ = [
+    "CLIPVisionConfig",
+    "CLIPVisionTransformer",
+    "CLIP_VIT_H_14",
     "DiT",
     "DiTConfig",
     "DiT_models",
@@ -49,6 +63,7 @@ __all__ = [
     "build_dit",
     "build_vit",
     "build_wan_config",
+    "clip_params_from_jax",
     "convert_dit_checkpoint",
     "convert_hf_umt5",
     "convert_t5_checkpoint",
@@ -56,14 +71,17 @@ __all__ = [
     "convert_wan_checkpoint",
     "cross_entropy_loss",
     "dit_params_from_jax",
+    "encode_i2v_features",
     "fused_lm_loss",
     "generate",
+    "init_clip_params",
     "init_dit_params",
     "init_lm_params",
     "init_vit_params",
     "init_wan_params",
     "load_wan_safetensors",
     "params_from_jax",
+    "preprocess_frames",
     "t5_params_from_jax",
     "unembedding_weight",
     "vae_params_from_jax",

@@ -14,11 +14,12 @@ Reference naming: ``patch_embedding``, ``text_embedding.{0,2}``,
 ``time_embedding.{0,2}``, ``time_projection.1``,
 ``blocks.{i}.{self_attn,cross_attn}.{q,k,v,o,norm_q,norm_k}``,
 ``blocks.{i}.norm3``, ``blocks.{i}.ffn.{0,2}``, ``blocks.{i}.modulation``,
-``head.head``, ``head.modulation``.
+``head.head``, ``head.modulation``; image-to-video adds
+``blocks.{i}.cross_attn.{k_img,v_img,norm_k_img}`` and the image embedding
+``img_emb.proj.{0,1,3,4}`` (LayerNorm, Linear, GELU, Linear, LayerNorm).
 
 Not ported, raising ``NotImplementedError``: the MLLA layers' convolutions
-(``mllalinear``, ``mllalepe``) and image-to-video's image branch, whose
-models this package does not have.
+(``mllalinear``, ``mllalepe``), whose models this package does not have.
 """
 
 from __future__ import annotations
@@ -71,8 +72,6 @@ def convert_wan_checkpoint(
     :func:`mhla_init_params`) supplies the parameters the checkpoint lacks
     (the MHLA layers' gate and g_norm); without it a missing gate raises
     and a missing g_norm is ones."""
-    if cfg.model_type != "t2v":
-        raise NotImplementedError(f"model_type {cfg.model_type!r}: only t2v is ported")
     fresh = (init_params or {}).get("params", {})
     params: Dict[str, Any] = {
         # Conv3d [out, in, kt, kh, kw] -> [kt, kh, kw, in, out]
@@ -135,9 +134,17 @@ def convert_wan_checkpoint(
         if cfg.qk_norm:
             blk["cross_attn"]["norm_q"] = _norm_w(state, p + "cross_attn.norm_q")
             blk["cross_attn"]["norm_k"] = _norm_w(state, p + "cross_attn.norm_k")
+        if cfg.model_type == "i2v":
+            blk["cross_attn"]["k_img"] = _lin(state, p + "cross_attn.k_img")
+            blk["cross_attn"]["v_img"] = _lin(state, p + "cross_attn.v_img")
+            blk["cross_attn"]["norm_k_img"] = _norm_w(state, p + "cross_attn.norm_k_img")
         if cfg.cross_attn_norm:
             blk["norm3"] = _layernorm(state, p + "norm3")
         params[f"blocks_{i}"] = blk
+
+    if cfg.model_type == "i2v":
+        for ours, ref in _IMG_EMB.items():
+            params[ours] = (_layernorm if "norm" in ours else _lin)(state, ref)
     return {"params": params}
 
 
@@ -161,8 +168,12 @@ def mhla_init_params(model: WanModel) -> Dict:
 load_wan_safetensors = load_safetensors
 
 
+# the i2v image embedding: this package's modules -> the reference's
+_IMG_EMB = {"img_norm_in": "img_emb.proj.0", "img_fc1": "img_emb.proj.1",
+            "img_fc2": "img_emb.proj.3", "img_norm_out": "img_emb.proj.4"}
+
 # this package's module (or leaf) names -> the reference's; the rest are the same
-_TO_REFERENCE = {"text_fc1": "text_embedding.0", "text_fc2": "text_embedding.2",
+_TO_REFERENCE = {**_IMG_EMB, "text_fc1": "text_embedding.0", "text_fc2": "text_embedding.2",
                  "time_fc1": "time_embedding.0", "time_fc2": "time_embedding.2",
                  "time_projection": "time_projection.1", "head": "head.head",
                  "head_modulation": "head.modulation", "ffn_fc1": "ffn.0", "ffn_fc2": "ffn.2"}
@@ -185,3 +196,12 @@ def reference_names(model: WanModel, with_mhla: bool = False) -> Dict[str, str]:
             mods[-1] = _TO_REFERENCE[mods[-1]]
         out[name] = ".".join(mods + [leaf])
     return out
+
+
+def reference_state_shapes(model: WanModel, with_mhla: bool = False) -> Dict[str, tuple]:
+    """The reference checkpoint's tensor names and shapes for ``model`` (a
+    model on the ``meta`` device will do), as :func:`reference_names` maps
+    them: what a reference-named checkpoint of this configuration holds."""
+    state = model.state_dict()
+    return {ref: tuple(state[name].shape)
+            for name, ref in reference_names(model, with_mhla).items()}

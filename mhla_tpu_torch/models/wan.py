@@ -11,7 +11,16 @@ backward.
   fall back to dense while the denoising timestep is at or above
   ``sparse_dense_from_t``
 - text cross-attention in every block (``sdpa``: the flash kernel at video
-  lengths)
+  lengths); image-to-video (``model_type='i2v'``) projects CLIP ViT-H/14
+  features [B, 257, 1280] (``models.clip.encode_i2v_features``) through
+  ``img_norm_in`` / ``img_fc1`` / ``img_fc2`` / ``img_norm_out``, puts them
+  before the text tokens of the context, and every cross-attention runs a
+  second attention over them (``k_img``, ``norm_k_img``, ``v_img``) whose
+  output is added before ``o``. As in the JAX model, i2v is conditioned on
+  the CLIP features alone: there is no first-frame latent input
+- ``capture``: the forward also returns each block's self-attention output
+  and block output (``{"attn_out": [...], "block_out": [...]}``), for
+  teacher distillation; it works under remat
 - ``grid_adjust``: each grid axis is cropped to a multiple of the block
   layout, e.g. (30, 52) -> (30, 50)
 - ``remat``: where autograd records, each block is recomputed in the backward
@@ -24,8 +33,8 @@ casts its weight to the activation's dtype, as flax ``Dense(dtype)`` does;
 the time embedding and the adaLN arithmetic are float32 whatever the dtype.
 
 Not ported yet, raising ``NotImplementedError``: the linear baselines
-(``attn_type`` other than ``mhla_uni``), image-to-video
-(``model_type='i2v'``) and ``capture``.
+(``attn_type`` other than ``mhla_uni``), the only layers that read
+``rope_after``.
 """
 
 from __future__ import annotations
@@ -67,6 +76,8 @@ class WanConfig:
     dim: int = 1536
     ffn_dim: int = 8960
     freq_dim: int = 256
+    image_dim: int = 1280
+    img_tokens: int = 257  # CLIP ViT-H/14 patch tokens + cls (i2v)
     text_dim: int = 4096
     out_dim: int = 16
     num_heads: int = 12
@@ -81,6 +92,7 @@ class WanConfig:
     # trainer builds the model)
     sparse_attn_idx: Optional[Tuple[int, ...]] = None
     sparse_dense_from_t: Optional[float] = 850.0
+    rope_after: bool = True  # read by the linear baselines alone (not ported)
     without_rope: bool = False
     normalize_out: bool = False
     is_gated: bool = True
@@ -152,28 +164,37 @@ class WanSelfAttention(nn.Module):
 
 
 class WanCrossAttention(nn.Module):
-    """Text cross-attention (t2v): full-dim RMSNorm on q and k, softmax
-    attention over the text tokens."""
+    """Text (t2v) or text + image (i2v) cross-attention: full-dim RMSNorm
+    on q and k, softmax attention over the text tokens; with ``i2v`` the
+    first ``img_tokens`` context rows are the image, attended through their
+    own keys and values (``k_img`` with ``norm_k_img``, ``v_img``), and the
+    two outputs are added before ``o``."""
 
     def __init__(self, dim: int, num_heads: int, qk_norm: bool = True, eps: float = 1e-6,
-                 device=None):
+                 i2v: bool = False, img_tokens: int = 257, device=None):
         super().__init__()
-        self.num_heads = num_heads
-        for name in ("q", "k", "v", "o"):
+        self.num_heads, self.img_tokens = num_heads, img_tokens
+        for name in ("q", "k", "v", "o") + (("k_img", "v_img") if i2v else ()):
             setattr(self, name, nn.Linear(dim, dim, bias=True, device=device))
         self.norm_q = RMSNorm(dim, eps=eps, device=device) if qk_norm else None
         self.norm_k = RMSNorm(dim, eps=eps, device=device) if qk_norm else None
+        self.norm_k_img = RMSNorm(dim, eps=eps, device=device) if i2v else None
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, t, dim = x.shape
         h = self.num_heads
+        heads = lambda y: y.reshape(b, -1, h, dim // h)  # noqa: E731
+        if self.norm_k_img is not None:
+            ctx_img, context = context[:, : self.img_tokens], context[:, self.img_tokens:]
         q, k = dense(x, self.q), dense(context, self.k)
         if self.norm_q is not None:
             q, k = self.norm_q(q), self.norm_k(k)
-        v = dense(context, self.v)
-        o = sdpa(q.reshape(b, t, h, -1), k.reshape(b, -1, h, dim // h),
-                 v.reshape(b, -1, h, dim // h))
-        return dense(o.reshape(b, t, dim), self.o)
+        q = heads(q)
+        o = sdpa(q, heads(k), heads(dense(context, self.v))).reshape(b, t, dim)
+        if self.norm_k_img is not None:
+            k_img = self.norm_k_img(dense(ctx_img, self.k_img))
+            o = o + sdpa(q, heads(k_img), heads(dense(ctx_img, self.v_img))).reshape(b, t, dim)
+        return dense(o, self.o)
 
 
 def _modulate(h: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -210,7 +231,8 @@ class WanBlock(nn.Module):
             )
         self.norm3 = LayerNorm(cfg.dim, cfg.eps, device=device) if cfg.cross_attn_norm else None
         self.cross_attn = WanCrossAttention(cfg.dim, cfg.num_heads, cfg.qk_norm, cfg.eps,
-                                            device=device)
+                                            i2v=cfg.model_type == "i2v",
+                                            img_tokens=cfg.img_tokens, device=device)
         self.norm2 = LayerNorm(cfg.dim, cfg.eps, use_bias=False, use_scale=False)
         self.ffn_fc1 = nn.Linear(cfg.dim, cfg.ffn_dim, device=device)
         self.ffn_fc2 = nn.Linear(cfg.ffn_dim, cfg.dim, device=device)
@@ -223,18 +245,21 @@ class WanBlock(nn.Module):
         grid: Tuple[int, int, int],
         rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         use_dense: bool = False,  # the sparse layers' early-step guard
-    ) -> torch.Tensor:
+        capture: bool = False,  # also return (attention output, block output)
+    ):
         e = (self.modulation.float() + e0.float()).unbind(dim=1)
         h = _modulate(self.norm1(x), e[1], e[0])
         if self.attn_type == "mhla_uni":
             h = self.self_attn(h, grid, rope_tables)
         else:
             h = self.self_attn(h, grid, use_dense)
+        attn_out = h
         x = _gated_residual(x, h, e[2])
         x = x + self.cross_attn(self.norm3(x) if self.norm3 is not None else x, context)
         h = dense(_modulate(self.norm2(x), e[4], e[3]), self.ffn_fc1)
         h = dense(F.gelu(h, approximate="tanh"), self.ffn_fc2)
-        return _gated_residual(x, h, e[5])
+        x = _gated_residual(x, h, e[5])
+        return (x, (attn_out, x)) if capture else x
 
 
 class WanModel(nn.Module):
@@ -242,8 +267,8 @@ class WanModel(nn.Module):
 
     def __init__(self, cfg: WanConfig, device=None):
         super().__init__()
-        if cfg.model_type != "t2v":
-            raise NotImplementedError(f"model_type {cfg.model_type!r}: only t2v is ported")
+        if cfg.model_type not in ("t2v", "i2v"):
+            raise ValueError(f"model_type {cfg.model_type!r}: t2v or i2v")
         self.cfg = cfg
         self.patch_embedding = nn.Conv3d(cfg.in_dim, cfg.dim, cfg.patch_size, cfg.patch_size,
                                          device=device)
@@ -252,6 +277,11 @@ class WanModel(nn.Module):
         self.time_projection = nn.Linear(cfg.dim, cfg.dim * 6, device=device)
         self.text_fc1 = nn.Linear(cfg.text_dim, cfg.dim, device=device)
         self.text_fc2 = nn.Linear(cfg.dim, cfg.dim, device=device)
+        if cfg.model_type == "i2v":
+            self.img_norm_in = LayerNorm(cfg.image_dim, device=device)
+            self.img_fc1 = nn.Linear(cfg.image_dim, cfg.image_dim, device=device)
+            self.img_fc2 = nn.Linear(cfg.image_dim, cfg.dim, device=device)
+            self.img_norm_out = LayerNorm(cfg.dim, device=device)
         self.blocks = nn.ModuleList(WanBlock(cfg, i, device) for i in range(cfg.num_layers))
         self.head_modulation = nn.Parameter(torch.zeros(1, 2, cfg.dim, device=device))
         self.head_norm = LayerNorm(cfg.dim, cfg.eps, use_bias=False, use_scale=False)
@@ -281,12 +311,16 @@ class WanModel(nn.Module):
         x: torch.Tensor,  # [B, F, H, W, C_in]
         t: torch.Tensor,  # [B] timesteps (flow: t * 1000)
         context: torch.Tensor,  # [B, text_len, text_dim]
-        clip_fea: Optional[torch.Tensor] = None,
-        capture: bool = False,
-    ) -> torch.Tensor:
+        clip_fea: Optional[torch.Tensor] = None,  # [B, img_tokens, image_dim] (i2v)
+        capture: bool = False,  # also return the per-block intermediates
+    ):
+        """The velocity [B, F, H, W, out_dim]; with ``capture``, ``(velocity,
+        {"attn_out": [...], "block_out": [...]})``, one entry per block.
+        ``clip_fea`` is read by an i2v model alone, which needs it."""
         cfg = self.cfg
-        if clip_fea is not None or capture:
-            raise NotImplementedError("clip_fea (i2v) and capture are not ported yet")
+        if clip_fea is not None and cfg.model_type != "i2v":
+            raise ValueError("clip_fea is read by an i2v model alone; this model is "
+                             f"{cfg.model_type!r}")
         b = x.shape[0]
         pf, ph, pw = cfg.patch_size
         h = self._patchify(x.to(cfg.dtype))
@@ -309,6 +343,13 @@ class WanModel(nn.Module):
 
         ctx = dense(context.to(cfg.dtype), self.text_fc1)
         ctx = dense(F.gelu(ctx, approximate="tanh"), self.text_fc2)
+        if cfg.model_type == "i2v":
+            if clip_fea is None:
+                raise ValueError("an i2v model needs clip_fea (models.clip.encode_i2v_features "
+                                 "of the conditioning frame)")
+            img = dense(self.img_norm_in(clip_fea).to(cfg.dtype), self.img_fc1)
+            img = dense(F.gelu(img, approximate="tanh"), self.img_fc2)
+            ctx = torch.cat([self.img_norm_out(img), ctx], dim=1)
 
         # the MHLA3D rope tables are the same in every layer
         rope_tables = None
@@ -327,12 +368,16 @@ class WanModel(nn.Module):
         # the model holds no dropout, so a recomputation needs no RNG state;
         # use_dense is a plain bool, so it takes the branch of the first pass
         remat = cfg.remat and torch.is_grad_enabled()
+        caps = []
         for block in self.blocks:
             if remat:
-                h = checkpoint(block, h, e0, ctx, grid, rope_tables, use_dense,
+                h = checkpoint(block, h, e0, ctx, grid, rope_tables, use_dense, capture,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                h = block(h, e0, ctx, grid, rope_tables, use_dense)
+                h = block(h, e0, ctx, grid, rope_tables, use_dense, capture)
+            if capture:
+                h, cap = h
+                caps.append(cap)
 
         em = self.head_modulation.float() + e[:, None]
         out = dense(_modulate(self.head_norm(h), em[:, 1], em[:, 0]), self.head)
@@ -340,7 +385,10 @@ class WanModel(nn.Module):
         # unpatchify back to [B, F*pf, H*ph, W*pw, out_dim]
         out = out.reshape(b, f, gh, gw, pf, ph, pw, cfg.out_dim)
         out = out.permute(0, 1, 4, 2, 5, 3, 6, 7)
-        return out.reshape(b, f * pf, gh * ph, gw * pw, cfg.out_dim)
+        out = out.reshape(b, f * pf, gh * ph, gw * pw, cfg.out_dim)
+        if capture:
+            return out, {"attn_out": [a for a, _ in caps], "block_out": [x_ for _, x_ in caps]}
+        return out
 
 
 @torch.no_grad()

@@ -11,9 +11,18 @@ the effective batch (``auto_scale_lr_base_batch``), EMA, the NaN circuit
 breaker, time-boxed runs (``early_stop_hours``) with ``latest`` resume, and
 deterministic validation sampling.
 
-Latents and text embeddings come from a directory of cached ``*.npz`` files
-(``latent``, ``text_emb``) or, without one, from a seeded synthetic stream;
-the weights from a seeded init. The VAE and the text encoder are not ported.
+Latents and text embeddings come from a directory of webdataset-style
+``*.tar`` shards (each sample a ``<key>.latent.npy`` [F, H, W, C] and a
+``<key>.text_emb.npy`` [L, D]; ``data.tar_shards.write_tar_shard`` writes
+them), else of cached ``*.npz`` files (``latent``, ``text_emb``), else from a
+seeded synthetic stream; the weights from a seeded init. Teacher
+distillation (``distill.enable``) adds the float32 MSE of the student's
+velocity to a frozen teacher's (``distill_logit``) and the mean MSE over
+every block's captured self-attention output and block output
+(``distill_attn``); the teacher is the full model loaded from a checkpoint
+of this package (``distill.teacher_ckpt``: a ``wan_train`` work_dir or step
+directory, its EMA weights first). The VAE and the text encoder are not
+part of training.
 
 Usage:
     python -m mhla_tpu_torch.train.wan_train [config.yaml] [--train.max_steps=50] ...
@@ -33,12 +42,13 @@ every attention only. For a tiny run on the CPU:
         --data.latent_dim=4 --data.text_len=8 --data.text_dim=32 --train.max_steps=2 \\
         --train.log_interval=1 --work_dir=/tmp/wan
 
-``--model.is_lepe=true`` adds the LePE convolution to every MHLA layer.
+``--model.is_lepe=true`` adds the LePE convolution to every MHLA layer;
+``--distill.enable=true --distill.teacher_ckpt=/tmp/wan`` distills from that
+run's weights. ``model.rope_after`` is taken and read by no ported layer (in
+the JAX package only the linear baselines, not ported here, read it).
 
-Not ported (``NotImplementedError``): teacher distillation
-(``distill.enable``, which needs the model's ``capture``), tar-shard latents,
-RoPE before the feature map (``model.rope_after=false``) and image-to-video
-models.
+Not ported: image-to-video training, which the JAX entry point cannot run
+either (it initialises the model without CLIP features).
 """
 
 from __future__ import annotations
@@ -52,11 +62,17 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from ..diffusion import flow_euler_sample_loop, flow_training_loss, logit_normal_timesteps
+from ..diffusion import (
+    flow_euler_sample_loop,
+    flow_q_sample,
+    flow_training_loss,
+    logit_normal_timesteps,
+)
 from ..models.wan import WanConfig, WanModel, build_wan_config, init_wan_params
 from ..utils.checkpoint import (
     checkpoint_step,
     load_checkpoint,
+    load_model_params,
     resolve_resume_path,
     save_checkpoint,
 )
@@ -128,10 +144,11 @@ class WanDataCfg:
 
 @dataclasses.dataclass
 class WanDistillCfg:
-    """Teacher distillation (not ported)."""
+    """Teacher distillation: MSE on the teacher's velocity and on every
+    block's captured attention and block outputs."""
 
     enable: bool = False
-    teacher_ckpt: Optional[str] = None
+    teacher_ckpt: Optional[str] = None  # a wan_train work_dir or step directory
     logit_weight: float = 1.0
     attn_weight: float = 1.0
 
@@ -165,13 +182,12 @@ class WanTrainConfig:
 
 
 def _check_ported(cfg: WanTrainConfig) -> None:
-    for what, unported in (
-        ("teacher distillation (distill.enable)", cfg.distill.enable),
-        ("RoPE before the feature map (model.rope_after=false)", not cfg.model.rope_after),
-        ("image-to-video models", "i2v" in cfg.model.model.lower()),
-    ):
-        if unported:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if "i2v" in cfg.model.model.lower():
+        raise NotImplementedError(
+            f"{cfg.model.model}: image-to-video training is not ported (the JAX entry point "
+            "cannot initialise an i2v model either: it passes no CLIP features)")
+    if cfg.distill.enable and not cfg.distill.teacher_ckpt:
+        raise ValueError("distill.enable requires distill.teacher_ckpt")
 
 
 def build_model(cfg: WanTrainConfig, device=None) -> Tuple[WanModel, WanConfig]:
@@ -192,6 +208,7 @@ def build_model(cfg: WanTrainConfig, device=None) -> Tuple[WanModel, WanConfig]:
         attn_type=cfg.model.self_attn_type,
         sparse_attn_idx=None if sparse_idx is None else tuple(sparse_idx),
         sparse_dense_from_t=None,
+        rope_after=cfg.model.rope_after,
         without_rope=cfg.model.without_rope,
         normalize_out=cfg.model.norm_output,
         is_gated=cfg.model.is_gated,
@@ -208,20 +225,49 @@ def build_model(cfg: WanTrainConfig, device=None) -> Tuple[WanModel, WanConfig]:
     return WanModel(mc, device=device), mc
 
 
+def _rank_and_world() -> Tuple[int, int]:
+    """This process's rank and the world size from ``torch.distributed``
+    where it is initialised, else 0 and 1."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def video_batches(
     cfg: WanTrainConfig, rng: np.random.Generator
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Endless ``(latents [B, F, H, W, C], text embeddings [B, L, D])`` float32
-    batches: from the ``*.npz`` files of ``data.latent_dir`` in sorted order
-    (the tail that fills no batch is dropped), else synthetic: standard
-    normal latents and 0.02 x normal embeddings from ``rng``."""
+    batches: from the ``*.tar`` shards of ``data.latent_dir`` where it holds
+    any (samples' ``latent.npy`` and ``text_emb.npy`` fields; this rank's
+    contiguous range of the samples, in order, epoch after epoch; the tail
+    that fills no batch is dropped), else from its ``*.npz`` files in sorted
+    order (likewise), else synthetic: standard normal latents and 0.02 x
+    normal embeddings from ``rng``."""
     d = cfg.data
     bsz = cfg.train.batch_size
     shape = (bsz, d.latent_frames, d.latent_height, d.latent_width, d.latent_dim)
     root = Path(d.latent_dir) if d.latent_dir else None
+    tars = sorted(root.glob("*.tar")) if root is not None and root.exists() else []
+    if tars:
+        from ..data.tar_shards import DistributedRangedSampler, ShardListDataset
+
+        ds = ShardListDataset([str(p) for p in tars])
+        rank, world = _rank_and_world()
+        sampler = DistributedRangedSampler(ds, rank=rank, world_size=world)
+        if len(sampler) < bsz:
+            raise ValueError(f"{len(sampler)} samples for rank {rank} of {world} in the shards "
+                             f"under {root}: a batch needs {bsz}")
+        while True:
+            zs, cs = [], []
+            for idx in sampler:  # one epoch; the sampler then starts the next
+                sample = ds[idx]
+                zs.append(np.asarray(sample["latent.npy"], np.float32))
+                cs.append(np.asarray(sample["text_emb.npy"], np.float32))
+                if len(zs) == bsz:
+                    yield np.stack(zs), np.stack(cs)
+                    zs, cs = [], []
     if root is not None and root.exists():
-        if any(root.glob("*.tar")):
-            raise NotImplementedError("tar-shard latents are not ported yet")
         files = sorted(root.glob("*.npz"))
         if len(files) < bsz:
             raise ValueError(f"{len(files)} cached latents under {root}: a batch needs {bsz}")
@@ -258,10 +304,52 @@ def video_loss(
     return flow_training_loss(vmodel, z, t01, generator, noise)["loss"].mean()
 
 
-def make_loss_fn(cfg: WanTrainConfig):
-    """``loss_fn(model, (z, ctx), generator) -> (loss, {})`` for
+def distill_video_loss(
+    model: WanModel,
+    teacher: WanModel,
+    z: torch.Tensor,
+    ctx: torch.Tensor,
+    t01: torch.Tensor,
+    drop: torch.Tensor,
+    noise: torch.Tensor,
+    logit_weight: float = 1.0,
+    attn_weight: float = 1.0,
+) -> Tuple[torch.Tensor, dict]:
+    """The flow loss of :func:`video_loss` plus distillation from the frozen
+    ``teacher``: the student's ``capture`` forward on the flow loss's own
+    x_t (one forward gives both), the teacher's on the same x_t without
+    gradients, ``distill_logit`` the float32 MSE of the two velocities and
+    ``distill_attn`` the mean over every captured tensor (each block's
+    attention output and block output) of its float32 MSE. Returns (loss,
+    metrics)."""
+    dtype = model.cfg.dtype
+    ctx = torch.where(drop.reshape(-1, 1, 1), 0.0, ctx).to(dtype)
+    caps = {}
+
+    def vmodel(x_t, tt):
+        out, caps["student"] = model(x_t.to(dtype), tt * 1000.0, ctx, capture=True)
+        caps["velocity"] = out
+        return out
+
+    loss = flow_training_loss(vmodel, z, t01, noise=noise)["loss"].mean()
+    with torch.no_grad():
+        t_out, t_caps = teacher(flow_q_sample(z, t01, noise).to(dtype), t01 * 1000.0, ctx,
+                                capture=True)
+    d_logit = torch.mean(torch.square(caps["velocity"].float() - t_out.float()))
+    # the JAX trainer's jax.tree.leaves order: every attn_out, then every block_out
+    s_leaves = caps["student"]["attn_out"] + caps["student"]["block_out"]
+    t_leaves = t_caps["attn_out"] + t_caps["block_out"]
+    d_attn = sum(torch.mean(torch.square(a.float() - b.float()))
+                 for a, b in zip(s_leaves, t_leaves)) / max(len(s_leaves), 1)
+    loss = loss + logit_weight * d_logit + attn_weight * d_attn
+    return loss, {"distill_logit": d_logit.detach(), "distill_attn": d_attn.detach()}
+
+
+def make_loss_fn(cfg: WanTrainConfig, teacher: Optional[WanModel] = None):
+    """``loss_fn(model, (z, ctx), generator) -> (loss, metrics)`` for
     ``make_train_step``: timesteps, the dropout mask and the noise are drawn
-    from the step's generator, in that order."""
+    from the step's generator, in that order; with a ``teacher`` the loss is
+    :func:`distill_video_loss` and the metrics hold its two terms."""
     loop = cfg.train
 
     def loss_fn(model, batch, generator):
@@ -269,9 +357,23 @@ def make_loss_fn(cfg: WanTrainConfig):
         t01 = logit_normal_timesteps(z.shape[0], loop.timestep_mean, loop.timestep_std,
                                      generator, z.device)
         drop = torch.rand(z.shape[0], generator=generator, device=z.device)
-        return video_loss(model, z, ctx, t01, drop < loop.class_dropout_prob, generator), {}
+        drop = drop < loop.class_dropout_prob
+        if teacher is None:
+            return video_loss(model, z, ctx, t01, drop, generator), {}
+        noise = torch.randn(z.shape, generator=generator, dtype=z.dtype, device=z.device)
+        return distill_video_loss(model, teacher, z, ctx, t01, drop, noise,
+                                  cfg.distill.logit_weight, cfg.distill.attn_weight)
 
     return loss_fn
+
+
+def load_teacher(cfg: WanTrainConfig, device: torch.device) -> WanModel:
+    """The frozen distillation teacher: the full model ``cfg`` describes
+    (never LoRA's adapters) with the weights of ``distill.teacher_ckpt``,
+    EMA first."""
+    teacher, _ = build_model(cfg, device)
+    load_model_params(cfg.distill.teacher_ckpt, teacher)
+    return teacher.requires_grad_(False).eval()
 
 
 @torch.no_grad()
@@ -307,15 +409,19 @@ def build_training(cfg: WanTrainConfig):
     """The seeded model, its train state, the train step and the batch stream
     that ``cfg`` describes: ``(model, state, step_fn, data)``. With
     ``lora.enable`` the seeded model is frozen and carries adapters
-    (:func:`apply_lora`), and the state holds the adapters alone."""
+    (:func:`apply_lora`), and the state holds the adapters alone; with
+    ``distill.enable`` the teacher (:func:`load_teacher`, loaded before the
+    adapters go in) rides in the train step."""
     device = torch.device(cfg.device)
     model, _ = build_model(cfg, device)
     init_wan_params(model, torch.Generator(device).manual_seed(cfg.train.seed))
+    teacher = load_teacher(cfg, device) if cfg.distill.enable else None
     if cfg.lora.enable:
         apply_lora(model, torch.Generator(device).manual_seed(cfg.train.seed + 999),
                    cfg.lora.rank, cfg.lora.alpha)
     state = init_train_state(model, cfg.optimizer, ema=cfg.train.ema_decay is not None)
-    step_fn = make_train_step(make_loss_fn(cfg), cfg.train.ema_decay, seed=cfg.train.seed)
+    step_fn = make_train_step(make_loss_fn(cfg, teacher), cfg.train.ema_decay,
+                              seed=cfg.train.seed)
     data = video_batches(cfg, np.random.default_rng(cfg.train.seed))
     return model, state, step_fn, data
 
@@ -324,8 +430,9 @@ def main(argv=None) -> dict:
     """Train; returns ``final_loss``, ``params`` (the model's parameter
     count without LoRA adapters), ``model``, ``start_step``, per-step ``losses``, ``grad_norms`` and
     ``step_seconds`` (host clock, each ending in the loss's device-to-host
-    copy), and ``save_seconds`` and ``checkpoint_bytes`` of the final
-    checkpoint."""
+    copy), with ``distill.enable`` per-step ``distill_logit`` and
+    ``distill_attn``, and ``save_seconds`` and ``checkpoint_bytes`` of the
+    final checkpoint."""
     cfg = parse_cli(WanTrainConfig, argv if argv is not None else sys.argv[1:])
     if cfg.auto_scale_lr_base_batch:
         eff = cfg.train.batch_size * max(cfg.optimizer.accum_steps, 1)
@@ -358,6 +465,7 @@ def main(argv=None) -> dict:
     buf, thr = LogBuffer(), Throughput(cfg.train.max_steps)
     breaker = NaNLossBreaker(cfg.train.nan_patience)
     losses, grad_norms, step_seconds = [], [], []
+    distill = {"distill_logit": [], "distill_attn": []} if cfg.distill.enable else {}
     last = float("nan")
     t_start = time.time()
     done = start
@@ -371,16 +479,19 @@ def main(argv=None) -> dict:
         step_seconds.append(time.perf_counter() - t0)
         losses.append(last)
         grad_norms.append(grad_norm)
+        for name, values in distill.items():
+            values.append(float(metrics[name]))
         done = i + 1
-        buf.update(loss=last, grad_norm=grad_norm)
+        buf.update(loss=last, grad_norm=grad_norm, **{k: v[-1] for k, v in distill.items()})
         if breaker.update(last):
             logger.error("NaN circuit breaker tripped; aborting")
             break
         if done % cfg.train.log_interval == 0:
             speed = thr.step(done, cfg.train.batch_size)
             avg = buf.average()
+            terms = "".join(f" {k} {avg[k]:.4g}" for k in distill)
             logger.info(f"step {done}/{cfg.train.max_steps} loss {avg['loss']:.4f} "
-                        f"gnorm {avg['grad_norm']:.3f} {speed['items_per_sec']:.2f} vid/s")
+                        f"gnorm {avg['grad_norm']:.3f}{terms} {speed['items_per_sec']:.2f} vid/s")
         if cfg.train.eval_sampling_steps and done % cfg.train.eval_sampling_steps == 0:
             path = validation_sample(cfg, state, done)
             logger.info(f"step {done} validation sample -> {path}")
@@ -402,6 +513,7 @@ def main(argv=None) -> dict:
         "losses": losses,
         "grad_norms": grad_norms,
         "step_seconds": step_seconds,
+        **distill,
         "save_seconds": save_seconds,
         "checkpoint_bytes": (Path(ckpt) / "state.pt").stat().st_size,
     }

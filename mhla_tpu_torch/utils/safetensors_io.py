@@ -15,6 +15,7 @@ import struct
 from typing import Dict
 
 import numpy as np
+import torch
 
 _DTYPES = {
     "F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i4", "I16": "<i2",
@@ -37,9 +38,9 @@ def load_safetensors(path: str) -> Dict[str, np.ndarray]:
             continue
         begin, end = info["data_offsets"]
         raw, shape = buf[begin:end], tuple(info["shape"])
-        if info["dtype"] == "BF16":
-            bits = raw.view("<u2").astype(np.uint32) << 16
-            out[name] = bits.view(np.float32).reshape(shape)
+        if info["dtype"] == "BF16":  # widened by torch's threaded cast, bit for bit
+            bits = torch.from_numpy(raw.view("<i2").copy())
+            out[name] = bits.view(torch.bfloat16).float().numpy().reshape(shape)
         elif info["dtype"] in _DTYPES:
             out[name] = raw.view(_DTYPES[info["dtype"]]).reshape(shape)
         else:

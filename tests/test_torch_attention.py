@@ -37,6 +37,7 @@ from mhla_tpu_torch.models import (
 from mhla_tpu_torch.models.generation import _pad_softmax_caches
 from mhla_tpu_torch.train import lm_train
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # float32 on both sides, the same arithmetic in other summation orders
 TOL = 1e-5

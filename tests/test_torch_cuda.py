@@ -470,6 +470,26 @@ def test_flash_attention_kernel_matches_plain(dev, tq, tk):
     assert_close(f"flash {tq}x{tk} vs float32", ref, out, 1e-2)
 
 
+@pytest.mark.parametrize("b,tq", [(2, 31500), (1, 2049)])
+def test_flash_attention_kernel_at_the_image_keys(dev, b, tq):
+    """K9 over the 257 CLIP image keys of an image-to-video cross-attention
+    at 40 heads of 128 (Wan2.1-I2V-14B's widths): the last 128-key tile
+    holds one key (FLASH_TOL in chip_smoke.py)."""
+    import chip_smoke
+
+    q = _randn(dev, b, tq, 40, 128, seed=1).to(_BF16)
+    k, v = (_randn(dev, b, 257, 40, 128, seed=s).to(_BF16) for s in (2, 3))
+    before = flash.launches["flash_attention"]
+    out = flash.flash_attention(q, k, v)
+    assert flash.launches["flash_attention"] == before + 1
+    assert_close(f"flash {tq}x257", flash.flash_attention_plain(q, k, v), out, chip_smoke.FLASH_TOL)
+    # the one key of the last tile carries its share of the mass
+    k2 = k.clone()
+    k2[:, -1] = k2[:, -1] * 4
+    assert_close("flash last key", flash.flash_attention_plain(q, k2, v),
+                 flash.flash_attention(q, k2, v), chip_smoke.FLASH_TOL)
+
+
 def test_flash_attention_kernel_at_long_equal_lengths(dev):
     """K9 at Tq = Tk past 8,192 (the plain version walks the rows in blocks)
     and no multiple of the tile."""

@@ -23,6 +23,7 @@ from mhla_tpu_torch.kernels import delta_chunk
 from mhla_tpu_torch.kernels.delta_chunk import gated_delta_chunk_fused, kernel_route
 from mhla_tpu_torch.ops import delta_rule
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # float32, the same math in other summation orders (the JAX op runs under
 # "highest" matmul precision); the JAX package's own bound between its

@@ -23,6 +23,7 @@ from mhla_tpu_torch.eval import ppl_cli
 from mhla_tpu_torch.models import MHLAForCausalLM, MHLALMConfig, params_from_jax
 from mhla_tpu_torch.train import lm_train
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # float32 through the layers of a model (as tests/test_torch_lm.py)
 MODEL_TOL = 1e-4

@@ -14,6 +14,7 @@ from mhla_tpu.layers import sdpa as jax_sdpa
 from mhla_tpu_torch.kernels import flash_attention as flash
 from mhla_tpu_torch.layers import attention
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # float32 on both sides, the same arithmetic in another summation order
 TOL = 1e-5

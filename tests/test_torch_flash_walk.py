@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from mhla_tpu_torch.kernels import flash_attention as flash
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 _GEOMETRIES = sorted({g for tiles in flash.WALK_TILES.values() for g in tiles.values()})
 

@@ -17,6 +17,7 @@ from mhla_tpu.ops import rotary as jax_rotary
 from mhla_tpu_torch.kernels import fmap_rope
 from mhla_tpu_torch.ops import feature_maps, rotary
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # float32 elementwise on both sides with bit-identical tables: only the
 # compilers' FMA contraction and exp differ, a few float32 ulp (~1e-7)

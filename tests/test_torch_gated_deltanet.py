@@ -40,6 +40,7 @@ from mhla_tpu_torch.models import (
 from mhla_tpu_torch.train import OptimizerConfig, init_train_state, lm_train, make_train_step
 from mhla_tpu_torch.utils import assert_close
 from mhla_tpu_torch.utils.checkpoint import resolve_resume_path
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # float32 through the same math in other summation orders; the fused path's
 # plain versions substitute where the JAX op squares (tests/test_torch_delta.py)

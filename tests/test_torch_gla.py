@@ -43,6 +43,7 @@ from mhla_tpu_torch.ops import gla_chunk, gla_recurrent
 from mhla_tpu_torch.train import OptimizerConfig, init_train_state, lm_train, make_train_step
 from mhla_tpu_torch.utils import assert_close
 from mhla_tpu_torch.utils.checkpoint import resolve_resume_path
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # float32 through the same math in other summation orders: JAX's own bound
 # between its ops and between its fused kernel and its op (tests/test_gla.py,

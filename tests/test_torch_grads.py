@@ -37,6 +37,7 @@ from mhla_tpu_torch.ops.mhla_chunk import clamp_causal_mixing_matrix, init_causa
 from mhla_tpu_torch.utils import assert_close, get_err_ratio
 
 from test_torch_lm import TINY, _random_params
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # the ops package re-exports the function under its module's name
 jax_clamp = importlib.import_module("mhla_tpu.ops.mhla_chunk").clamp_causal_mixing_matrix

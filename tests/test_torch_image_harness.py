@@ -43,6 +43,7 @@ from mhla_tpu_torch.utils import assert_close
 from mhla_tpu_torch.utils.config import read_simple_yaml
 
 from test_torch_vision import DIT, VIT, check_outputs_and_grads, pair, to_jax
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 TOL = 1e-5
 

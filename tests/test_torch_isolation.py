@@ -21,6 +21,7 @@ from mhla_tpu_torch.models import (
     init_lm_params,
     init_wan_params,
 )
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "mhla_tpu_torch"
@@ -74,6 +75,57 @@ _RUN_TINY_WAN_TRAINING = textwrap.dedent(
 )
 
 
+_RUN_TINY_I2V_AND_DISTILLATION = textwrap.dedent(
+    """
+    import sys, tempfile
+    import numpy as np
+    import torch
+    from mhla_tpu_torch import kernels
+    from mhla_tpu_torch.data import ShardListDataset, write_tar_shard
+    from mhla_tpu_torch.eval import sample_video_latents
+    from mhla_tpu_torch.models import (CLIPVisionConfig, CLIPVisionTransformer, WanModel,
+                                       build_wan_config, encode_i2v_features, init_clip_params,
+                                       init_wan_params)
+    from mhla_tpu_torch.train import wan_train
+    kernels.reset_launch_counts()
+    # CLIP features of one frame into an i2v model with head dim 128 (the
+    # fused island) at a query length that takes the flash route
+    clip = init_clip_params(CLIPVisionTransformer(CLIPVisionConfig(
+        image_size=28, patch_size=14, dim=32, num_heads=2, num_layers=2)),
+        torch.Generator().manual_seed(0))
+    fea = encode_i2v_features(clip, torch.rand(1, 40, 60, 3) * 2 - 1)
+    cfg = build_wan_config("Wan_I2V_1300M", num_layers=1, dim=256, num_heads=2, ffn_dim=256,
+                           text_len=128, text_dim=32, image_dim=32, img_tokens=5,
+                           linear_attn_idx=(0,), block_layout=(2, 2, 2))
+    model = init_wan_params(WanModel(cfg), torch.Generator().manual_seed(0)).eval()
+    lat = sample_video_latents(model, torch.zeros(1, 128, 32), latent_shape=(8, 32, 32, 16),
+                               num_steps=1, clip_fea=fea)
+    assert lat.shape == (1, 8, 32, 32, 16) and torch.isfinite(lat).all()
+    # distillation on tar latents through the entry point
+    args = ["--device=cpu", "--bf16=false", "--model.dim=48", "--model.ffn_dim=96",
+            "--model.num_heads=4", "--model.num_layers=1", "--model.linear_attn_idx=(0,)",
+            "--model.block_layout=(2,2,2)", "--data.latent_frames=4", "--data.latent_height=8",
+            "--data.latent_width=8", "--data.latent_dim=4", "--data.text_len=8",
+            "--data.text_dim=32"]
+    with tempfile.TemporaryDirectory() as work:
+        wan_train.main(args + [f"--work_dir={work}/t", "--train.max_steps=0"])
+        write_tar_shard(f"{work}/a.tar", [{"__key__": str(i),
+            "latent.npy": np.ones((4, 8, 8, 4), np.float32),
+            "text_emb.npy": np.zeros((8, 32), np.float32)} for i in range(2)])
+        assert len(ShardListDataset([f"{work}/a.tar"])) == 2
+        out = wan_train.main(args + [f"--work_dir={work}/s", "--train.max_steps=1",
+                                     f"--data.latent_dir={work}", "--distill.enable=true",
+                                     f"--distill.teacher_ckpt={work}/t"])
+        assert np.isfinite(out["losses"]).all() and np.isfinite(out["distill_attn"]).all()
+    counts = kernels.launch_counts()
+    assert len(counts) == 27 and not any(counts.values()), counts
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "mhla_tpu", "triton"))
+    print("LEAKED", leaked)
+    """
+)
+
+
 def _is_banned(module: str) -> bool:
     return module.split(".")[0] in ("jax", "jaxlib", "flax", "mhla_tpu")
 
@@ -95,6 +147,19 @@ def test_subprocess_takes_a_tiny_wan_training_step_without_jax():
     res = subprocess.run(
         [sys.executable, "-c", _RUN_TINY_WAN_TRAINING], cwd=ROOT, capture_output=True, text=True,
         timeout=600,
+    )
+    assert res.returncode == 0, res.stderr
+    assert "LEAKED []" in res.stdout, res.stdout
+
+
+def test_subprocess_runs_image_to_video_and_distillation_without_jax():
+    """CLIP features of a frame, an i2v model sampled through the fused
+    island and the flash route, the tar-shard reader and a distillation
+    step of the video trainer on tar latents: no kernel launches, nothing
+    of JAX is imported."""
+    res = subprocess.run(
+        [sys.executable, "-c", _RUN_TINY_I2V_AND_DISTILLATION], cwd=ROOT, capture_output=True,
+        text=True, timeout=600,
     )
     assert res.returncode == 0, res.stderr
     assert "LEAKED []" in res.stdout, res.stdout

@@ -29,6 +29,7 @@ from mhla_tpu_torch.models import (
     params_from_jax,
 )
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 TINY = dict(hidden_size=512, num_hidden_layers=2, num_heads=2, vocab_size=100)
 # float32 through 2 blocks: the same math on both sides in other summation

@@ -52,6 +52,7 @@ from mhla_tpu_torch.ops import gla_chunk, selective_scan_chunk, selective_scan_r
 from mhla_tpu_torch.train import OptimizerConfig, init_train_state, lm_train, make_train_step
 from mhla_tpu_torch.utils import assert_close
 from mhla_tpu_torch.utils.checkpoint import resolve_resume_path
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # float32 on both sides through the same math in other summation orders
 # (the bound of tests/test_torch_gla.py and tests/test_torch_lm.py)

@@ -33,6 +33,7 @@ from mhla_tpu_torch.models import (
     params_from_jax,
 )
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 jax_chunk_ops = importlib.import_module("mhla_tpu.ops.mhla_chunk")
 jax_rec = importlib.import_module("mhla_tpu.ops.mhla_recurrent")

@@ -32,8 +32,9 @@ from mhla_tpu_torch.train import (
 from mhla_tpu_torch.utils import assert_close
 from mhla_tpu_torch.utils.checkpoint import load_checkpoint, resolve_resume_path
 
-from test_torch_wan_train import SPARSE, SPARSE_LATENT, _batch, _jax_batch, _jax_loss, _models
-from test_torch_wan_train import _port_loss, _torch_batch, _TINY_ARGS
+from wan_train_fixtures import SPARSE, SPARSE_LATENT, _batch, _jax_batch, _jax_loss, _models
+from wan_train_fixtures import _port_loss, _torch_batch, _TINY_ARGS
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 RANK, ALPHA = 4, 8.0
 

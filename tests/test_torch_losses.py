@@ -25,6 +25,7 @@ from mhla_tpu_torch.models import (
 from mhla_tpu_torch.ops import losses as tl
 from mhla_tpu_torch.train import lm_train
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # float32 on both sides, the same math in other summation orders
 TOL = 1e-5

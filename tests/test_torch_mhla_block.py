@@ -23,6 +23,7 @@ from mhla_tpu_torch.ops import (
     rope_tables_flat,
 )
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # float32 on both sides, the same arithmetic in another summation order
 TOL = 1e-5

@@ -16,6 +16,7 @@ import torch
 from mhla_tpu.kernels.mhla_chunk_pallas import mhla_chunk_fused_flat as jax_fused_flat
 from mhla_tpu_torch.kernels import mhla_chunk as port_kernels
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # the ops packages re-export functions under their modules' names
 jax_chunk_ops = importlib.import_module("mhla_tpu.ops.mhla_chunk")

@@ -28,6 +28,7 @@ import torch
 from mhla_tpu.kernels import sparse_attention as jax_sparse
 from mhla_tpu_torch.kernels import sparse_attention as sparse
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # (tokens, frames): 6 frames of 96 (tiles straddle frames); 437 in 4 frames
 # of 109 and a last of 1; 24 in "5" frames (6 frames of 4); 6 frames of 256

@@ -15,6 +15,7 @@ from mhla_tpu.kernels import sparse_attention as jax_sparse
 from mhla_tpu_torch.kernels import flash_attention as flash
 from mhla_tpu_torch.kernels import sparse_attention as sparse
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # (frames, tokens per frame): tokens per frame below, at and above the 64-token
 # tile, multiples of it and not; T a multiple of the tile and not

@@ -41,6 +41,7 @@ from mhla_tpu_torch.utils import assert_close
 from mhla_tpu_torch.utils.checkpoint import save_checkpoint
 from mhla_tpu_torch.utils.safetensors_io import load_safetensors
 from t2v_fixtures import assert_trees_equal, save_tokenizer, t5_reference_state
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 os.environ.setdefault("HF_HUB_OFFLINE", "1")
 

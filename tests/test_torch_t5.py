@@ -25,6 +25,7 @@ from mhla_tpu_torch.models.convert_jax import t5_params_from_jax
 from mhla_tpu_torch.utils import assert_close
 from t2v_fixtures import (assert_trees_equal, random_params, save_tokenizer,
                           t5_reference_state)
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 os.environ.setdefault("HF_HUB_OFFLINE", "1")
 

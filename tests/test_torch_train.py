@@ -42,6 +42,7 @@ from mhla_tpu_torch.utils.config import dump_config, parse_cli
 from mhla_tpu_torch.utils.monitor import NaNLossBreaker, finite_check
 
 from test_torch_lm import _random_params
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 SMALL = dict(hidden_size=64, num_hidden_layers=1, num_heads=2, vocab_size=50,
              max_position_embeddings=256)

@@ -20,6 +20,7 @@ from mhla_tpu_torch.models import vae
 from mhla_tpu_torch.models.convert_jax import vae_params_from_jax
 from mhla_tpu_torch.utils import assert_close
 from t2v_fixtures import assert_trees_equal, random_params
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # float32 through a few convolutions and norms: other summation orders
 TOL = 1e-5

@@ -25,6 +25,7 @@ from mhla_tpu_torch.kernels import mhla_chunk as port_kernels
 from mhla_tpu_torch.layers import MHLACausal
 from mhla_tpu_torch.ops import rotary_cos_sin
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 jax_ops = importlib.import_module("mhla_tpu.ops.mhla_chunk")
 port_ops = importlib.import_module("mhla_tpu_torch.ops.mhla_chunk")

@@ -44,6 +44,7 @@ from mhla_tpu_torch.models import (
 )
 from mhla_tpu_torch.models.dit import sincos_pos_embed_2d, timestep_embedding
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 TOL_OUT, TOL_GRAD, TOL_BF16 = 1e-5, 1e-4, 3e-2
 VIT = dict(img_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=2, piece_size=2,

@@ -33,6 +33,7 @@ from mhla_tpu_torch.models import (
     wan_params_from_jax,
 )
 from mhla_tpu_torch.utils import assert_close
+from torch_threads import _two_torch_threads  # noqa: F401  (autouse)
 
 # float32 through one layer: the same math in other summation orders
 TOL_LAYER = 1e-5
@@ -417,6 +418,15 @@ def test_video_infer_cli_rejects_mismatched_embeddings(tmp_path):
     dict(model_type="i2v"), dict(attn_type="linear"), dict(attn_type="gla"),
 ], ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()))
 def test_unported_model_options_raise(overrides):
+    """The linear baselines are not ported and raise when built. Image to
+    video is ported (``tests/test_torch_i2v.py``): an i2v model builds and
+    raises when called without its CLIP features, as the JAX model asserts."""
+    if overrides.get("model_type") == "i2v":
+        model = WanModel(WanConfig(**{**TINY, **overrides}))
+        x, t, ctx = (torch.from_numpy(a) for a in _wan_inputs())
+        with pytest.raises(ValueError, match="clip_fea"):
+            model(x, t, ctx)
+        return
     with pytest.raises(NotImplementedError):
         WanModel(WanConfig(**{**TINY, **overrides}))
 
@@ -424,9 +434,20 @@ def test_unported_model_options_raise(overrides):
 @pytest.mark.parametrize("kwargs", [dict(capture=True), dict(clip_fea=torch.zeros(2, 257, 1280))],
                          ids=["capture", "clip_fea"])
 def test_unported_forward_options_raise(wan_models, kwargs):
+    """``capture`` is ported (``tests/test_torch_i2v.py`` holds it against
+    JAX): it returns the velocity unchanged with one attention and one block
+    output per layer. CLIP features given to a text-to-video model raise,
+    naming the i2v model that reads them."""
     x, t, ctx = (torch.from_numpy(a) for a in _wan_inputs())
-    with pytest.raises(NotImplementedError):
-        wan_models[2](x, t, ctx, **kwargs)
+    model = wan_models[2]
+    if "capture" in kwargs:
+        with torch.no_grad():
+            out, caps = model(x, t, ctx, **kwargs)
+            assert torch.equal(out, model(x, t, ctx))
+        assert [len(caps[k]) for k in ("attn_out", "block_out")] == [TINY["num_layers"]] * 2
+        return
+    with pytest.raises(ValueError, match="i2v"):
+        model(x, t, ctx, **kwargs)
 
 
 @pytest.mark.parametrize("solver", ["ddim", "lcm"])
@@ -448,9 +469,9 @@ def _orbax_like_dir(path):
 def test_unported_cli_options_raise(tmp_path, option):
     """What the CLI still cannot take raises, naming it: an orbax checkpoint
     (of the model or the VAE: no JAX here), flax's msgpack T5 weights, and
-    image-to-video."""
+    an image-to-video model (the CLI takes no image, as JAX's)."""
     if option == "i2v":
-        with pytest.raises(NotImplementedError, match="i2v"):
+        with pytest.raises(ValueError, match="i2v"):
             video_infer_cli.main(_cli_args(tmp_path, model_name="Wan_I2V_1300M"))
         return
     if option == "t5_dir":
